@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, serve, time.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, serve, train, time.
 
 Run from the repository root, with no arguments, on a machine with a CUDA
 card and the CUDA toolkit:
@@ -16,14 +16,23 @@ result):
    on the card, f32 and bf16, at the DeepSets config widths (6→256→256,
    residual, quick gelu), with a ragged point count, an empty event, padding
    rows, and the flagship ``B=256, P=65,536`` shape;
-4. slice: the DeepSets serving path through its entry points —
+4. backward kernel against plain: the backward of ``phi_pool`` (kernel K2)
+   against ``phi_pool_bwd_plain`` at the same cases, f32 and bf16, with
+   ``d_points`` asked for and not;
+5. serving slice: the DeepSets serving path through its entry points —
    ``factory.get_model("deep_sets", cfg, run_dir)`` on a JAX-format
    ``best_model.pt`` with seeded random weights, then ``predict`` over
    seeded clouds batched by ``PointCloudLoader`` — checked against the same
    model on its plain path, with the kernel's launch count;
-5. times: CUDA-event times of the kernel and the plain version at both
-   shapes and dtypes, and ``predict`` per batch on the kernel and plain
-   routes at batch sizes 32 and 256, in f32 and bf16 compute.
+6. training slice: ``train.train_model("deep_sets", "s2ppc", cfg)`` at the
+   full width of ``configs/deep_sets.yaml`` for 3 epochs on a seeded
+   synthetic S2PPC cache, with K1's and K2's launch counts, the losses, the
+   val accuracy and the checkpoints checked; then five steps of the kernel
+   route against the plain route from the same weights;
+7. times: CUDA-event times of both kernels and their plain versions at both
+   shapes and dtypes; ``predict`` and the train step per batch on the kernel
+   and plain routes at batch sizes 32 and 256, in f32 and bf16 compute; and
+   a ``torch.profiler`` trace of the B=256 f32 train step.
 
 The line before the last is one JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -43,9 +52,16 @@ import numpy as np
 import torch
 
 from point_cloud_classifier_tpu_torch import factory
+from point_cloud_classifier_tpu_torch import train as port_train
 from point_cloud_classifier_tpu_torch.data import PointCloudLoader
+from point_cloud_classifier_tpu_torch.data.synthetic import write_s2ppc_cache
 from point_cloud_classifier_tpu_torch.native import kernel_library
-from point_cloud_classifier_tpu_torch.ops.fused_phi import phi_pool, phi_pool_plain
+from point_cloud_classifier_tpu_torch.ops.fused_phi import (
+    _phi_pool_bwd_cuda,
+    phi_pool,
+    phi_pool_bwd_plain,
+    phi_pool_plain,
+)
 
 SEED = 0
 # configs/deep_sets.yaml (model, dataset and trainer sections)
@@ -71,12 +87,37 @@ SPEC = (("plain", False), ("residual", False))  # φ [256, 256] with residual_bl
 # reordered f32 dot can round to the neighbouring bf16 value (2^-8
 # relative) before the chain and the pool carry it on.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# K2 against phi_pool_bwd_plain, per gradient tensor.  f32: max |Δ| /
+# max(1, max |plain|) and relative Frobenius, sums in other orders (the
+# kernel's FMAs and per-block slabs against cuBLAS).  bf16: relative
+# Frobenius; a reordered f32 dot can round dz or dz Wᵀ to the neighbouring
+# bf16 value (2^-8 relative) before the next layer carries it.  The largest
+# readings at these cases on an H100 (80GB HBM3, 700 W): max relative 7.5e-7
+# and relative Frobenius 4.3e-7 in f32, relative Frobenius 7.8e-5 in bf16.
+BWD_F32_REL, BWD_F32_FRO, BWD_BF16_FRO = 1e-4, 1e-5, 1e-3
 # predict: probabilities of the kernel path against the plain path (f32).
 PROB_TOL = 1e-4
+# the training slice: per-step f32 loss of the kernel route against the plain
+# route from the same weights; logits on a held batch after those steps (Adam
+# moves each weight by about lr·sign(g), so a gradient near 0 that the two
+# routes' sum orders give opposite signs moves that weight 2·lr apart); and
+# the val accuracy floor, calibrated on the CPU with the same data and
+# config (0.8125 after 3 epochs there; chance is 0.5).
+STEP_LOSS_RTOL = 1e-4
+# the same weights reloaded: K1's atomics sum each event in another order on
+# every run, so the probabilities agree to f32 rounding, not bit for bit
+RELOAD_TOL = 1e-6
+LOGIT_TOL = 1e-2
+VAL_ACC_FLOOR = 0.70
+TRACK_STEPS = 5
 CONFIG_B, CONFIG_P = 32, 8192  # a batch of 32 clouds of ~224 points
 FLAGSHIP_B, FLAGSHIP_P = 256, 65536  # bench.py's flagship shape
-SOURCE = "point_cloud_classifier_tpu_torch/csrc/phi_pool.cu"
-REPLACES = "point_cloud_classifier_tpu/ops/fused_phi.py:322"
+KERNELS = {
+    "phi_pool": ("point_cloud_classifier_tpu_torch/csrc/phi_pool.cu",
+                 "point_cloud_classifier_tpu/ops/fused_phi.py:322"),
+    "phi_pool_bwd": ("point_cloud_classifier_tpu_torch/csrc/phi_pool_bwd.cu",
+                     "point_cloud_classifier_tpu/ops/fused_phi.py:552"),
+}
 
 
 def device_phase() -> str:
@@ -157,6 +198,63 @@ def kernel_phase():
     return config_err
 
 
+def _bwd_errors(out, ref):
+    """(max |Δ|, max |Δ| / max(1, max |ref|), relative Frobenius)."""
+    diff = (out.double() - ref.double())
+    err = diff.abs().max().item()
+    return err, err / max(1.0, ref.abs().max().item()), (diff.norm() / ref.double().norm()).item()
+
+
+def bwd_kernel_phase():
+    """K2 (the Function's backward on CUDA) against phi_pool_bwd_plain at
+    K1's cases; returns the config-shape f32 max |Δ|."""
+    cases = [
+        ("config B=32 P=8192", CONFIG_B, CONFIG_P, False),
+        ("ragged B=7 P=1001", 7, 1001, False),
+        ("ragged B=7 P=1001 +final linear", 7, 1001, True),
+        ("flagship B=256 P=65536", FLAGSHIP_B, FLAGSHIP_P, False),
+    ]
+    config_err = None
+    for name, b, p, final in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_points in (True, False):
+                points, seg, params = phi_inputs(b, p, dtype, SEED, final=final)
+                g = torch.from_numpy(
+                    np.random.default_rng(SEED + 3).normal(size=(b + 1, 256)).astype(np.float32)
+                ).cuda()
+                points.requires_grad_(with_points)
+                flat = [t.requires_grad_() for layer in params for t in layer]
+                out = phi_pool(points, seg, SPEC, params, "gelu", b + 1)
+                wrt = ([points] if with_points else []) + flat
+                grads = torch.autograd.grad(out, wrt, g)
+                torch.cuda.synchronize()
+                d_points, ref = phi_pool_bwd_plain(
+                    points.detach(), seg, g, SPEC, params, "gelu", b + 1, with_points=with_points
+                )
+                torch.cuda.synchronize()
+                refs = ([d_points] if with_points else []) + ref
+                worst = None
+                for got, want in zip(grads, refs, strict=True):
+                    if got.shape != want.shape or not torch.isfinite(got).all():
+                        raise AssertionError(f"K2 {name} {dtype}: bad gradient {tuple(got.shape)}")
+                    e = _bwd_errors(got, want)
+                    worst = e if worst is None else tuple(max(a, c) for a, c in zip(worst, e))
+                if dtype == torch.float32:
+                    bounds = f"max_rel bound {BWD_F32_REL:.0e}, rel_fro bound {BWD_F32_FRO:.0e}"
+                    ok = worst[1] <= BWD_F32_REL and worst[2] <= BWD_F32_FRO
+                else:
+                    bounds = f"rel_fro bound {BWD_BF16_FRO:.0e}"
+                    ok = worst[2] <= BWD_BF16_FRO
+                print(f"kernel K2 {name} {str(dtype)[6:]} d_points {'on' if with_points else 'off'}: "
+                      f"max_abs_err {worst[0]:.3e}, max_rel_err {worst[1]:.3e}, rel_fro {worst[2]:.3e} "
+                      f"({bounds})")
+                if not ok:
+                    raise AssertionError(f"K2 disagrees with plain: {name} {dtype} {worst}")
+                if (b, p, dtype, with_points) == (CONFIG_B, CONFIG_P, torch.float32, False):
+                    config_err = worst[0]
+    return config_err
+
+
 def write_jax_checkpoint(run_dir: str, rng) -> None:
     """``best_model.pt`` in the JAX package's format: a pickle of
     ``{"params", "batch_stats"}`` numpy trees under its DeepSets names."""
@@ -233,6 +331,110 @@ def slice_phase(run_dir: str) -> int:
     return launches
 
 
+def training_config(data_dir: str, log_dir: str, epochs: int = 3) -> dict:
+    """configs/base.yaml overlaid with configs/deep_sets.yaml, at 3 epochs."""
+    cfg = copy.deepcopy(CONFIG)
+    cfg["meta"] = {"model_name": "", "dataset_name": ""}
+    cfg["dataset"]["data_dir"] = data_dir
+    cfg["logging"] = {"log_dir": log_dir}
+    cfg["trainer"]["epochs"] = epochs
+    return cfg
+
+
+def read_metrics(log_dir: str) -> dict:
+    out = {}
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        for line in f:
+            row = json.loads(line)
+            out.setdefault(row["tag"], []).append(row["value"])
+    return out
+
+
+def train_phase(work_dir: str) -> dict:
+    """train_model at full width through K1 and K2, checked; then the kernel
+    route against the plain route.  Returns each kernel's launch count
+    during train_model."""
+    data_dir = os.path.join(work_dir, "data")
+    write_s2ppc_cache(data_dir, n_events=(1024, 256, 256), seed=SEED)
+    cfg = training_config(data_dir, os.path.join(work_dir, "log"))
+    phi_pool.launches = phi_pool.bwd_launches = 0
+    t0 = time.perf_counter()
+    log_dir = port_train.train_model("deep_sets", "s2ppc", cfg, return_log_dir=True)
+    seconds = time.perf_counter() - t0
+    launches = {"phi_pool": phi_pool.launches, "phi_pool_bwd": phi_pool.bwd_launches}
+
+    data = factory.get_dataloader("s2ppc", cfg)
+    n_train, n_val = len(data.get_train_loader()), len(data.get_val_loader())
+    metrics = read_metrics(log_dir)
+    with open(os.path.join(log_dir, "meta.json")) as f:
+        meta = json.load(f)["metrics"]
+    losses, val_losses = metrics["Loss/train"], metrics["Loss/val"]
+    epochs = len(losses)
+    steps = epochs * n_train
+    eval_batches = epochs * n_val + n_train + n_val  # per-epoch val, then predict on both
+    print(f"train: train_model deep_sets s2ppc, {epochs} epochs of {n_train} steps (B=32), "
+          f"{seconds:.1f} s; K1 launches {launches['phi_pool']} (expected {steps} steps + "
+          f"{eval_batches} eval batches), K2 launches {launches['phi_pool_bwd']} (expected {steps})")
+    print(f"train: Loss/train {losses}, Loss/val {val_losses}, Accuracy/val {metrics['Accuracy/val']}, "
+          f"meta {meta}; StepTime/wall_ms_per_step {metrics['StepTime/wall_ms_per_step']}")
+    if launches["phi_pool_bwd"] != steps:
+        raise AssertionError(f"K2 launched {launches['phi_pool_bwd']} times for {steps} train steps")
+    if launches["phi_pool"] != steps + eval_batches:
+        raise AssertionError(f"K1 launched {launches['phi_pool']} times, not {steps + eval_batches}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"training did not learn: epoch losses {losses}")
+    if not meta["accuracy/val"] >= VAL_ACC_FLOOR:
+        raise AssertionError(f"accuracy/val {meta['accuracy/val']} below {VAL_ACC_FLOOR}")
+    fresh = factory.get_model("deep_sets", cfg)
+    if meta["parameters"] != sum(p.numel() for p in fresh.model.parameters()):
+        raise AssertionError(f"parameters {meta['parameters']} is not the model's count")
+
+    # model.pt holds the trained wrapper's final weights, the ones whose
+    # predictions gave meta's accuracy/val; best_model.pt (through get_model)
+    # holds them too when the last epoch had the lowest val loss
+    val_loader = data.get_val_loader()
+    fresh.load(os.path.join(log_dir, "model.pt"))
+    y_val, p_final = fresh.predict(val_loader, return_prob=True)
+    acc = round(port_train.accuracy(y_val, (p_final >= 0.5).astype(np.float32)), 6)
+    best = factory.get_model("deep_sets", cfg, log_dir)
+    _, p_best = best.predict(val_loader, return_prob=True)
+    best_is_final = int(np.argmin(val_losses)) == epochs - 1
+    err = float(np.abs(p_best - p_final).max())
+    print(f"train: model.pt reloaded: accuracy/val {acc} (meta {meta['accuracy/val']}); "
+          f"best_model.pt through get_model, from epoch {int(np.argmin(val_losses)) + 1} of "
+          f"{epochs}: max |Δprob| against model.pt {err:.3e}"
+          + (f" (bound {RELOAD_TOL:.0e})" if best_is_final else ""))
+    if acc != meta["accuracy/val"]:
+        raise AssertionError("model.pt does not predict as the trained wrapper did")
+    if not np.isfinite(p_best).all() or (best_is_final and not err <= RELOAD_TOL):
+        raise AssertionError("best_model.pt does not hold the best epoch's weights")
+    track_phase(cfg, data)
+    return launches
+
+
+def track_phase(cfg: dict, data) -> None:
+    """TRACK_STEPS train steps of the kernel route and of a fused_phi="off"
+    model from the same initial weights, on the same batches."""
+    kernel = factory.get_model("deep_sets", cfg)
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg["model"]["fused_phi"] = "off"
+    plain = factory.get_model("deep_sets", plain_cfg)
+    batches = list(data.get_train_loader())[:TRACK_STEPS]
+    rel = []
+    for batch in batches:
+        a, b = kernel.train_step(batch).item(), plain.train_step(batch).item()
+        rel.append(abs(a - b) / abs(b))
+    held = kernel._put(next(iter(data.get_val_loader())))
+    with torch.inference_mode():
+        logits, ref = kernel.model(held, train=False), plain.model(held, train=False)
+    logit_err = (logits - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+    print(f"train: kernel route against plain route over {TRACK_STEPS} steps: per-step loss rel "
+          f"{[f'{r:.2e}' for r in rel]} (bound {STEP_LOSS_RTOL:.0e}); held-batch logits "
+          f"max_rel_err {logit_err:.3e} (bound {LOGIT_TOL:.0e})")
+    if not max(rel) <= STEP_LOSS_RTOL or not logit_err <= LOGIT_TOL:
+        raise AssertionError("the kernel route does not track the plain route")
+
+
 def cuda_ms(fn, iters=20, warmup=3) -> float:
     for _ in range(warmup):
         fn()
@@ -261,20 +463,56 @@ def predict_ms_per_batch(models, batches, reps=10):
     return [tuple(float(q) for q in np.percentile(s, [50, 25, 75])) for s in samples]
 
 
+def train_ms_per_batch(wrappers, batches, reps=10):
+    """Per wrapper, (median, q1, q3) of the train step's ms per batch (forward,
+    loss, backward, AdamW step) over the pre-packed ``batches``, host clock
+    to a synchronise, timed in turns (A B B A …) after a warm-up pass."""
+    for wrapper in wrappers:
+        for batch in batches:
+            wrapper.train_step(batch)
+    torch.cuda.synchronize()
+    samples = [[] for _ in wrappers]
+    for rep in range(reps):
+        order = range(len(wrappers)) if rep % 2 == 0 else reversed(range(len(wrappers)))
+        for i in order:
+            t0 = time.perf_counter()
+            for batch in batches:
+                wrappers[i].train_step(batch)
+            torch.cuda.synchronize()
+            samples[i].append((time.perf_counter() - t0) * 1e3 / len(batches))
+    return [tuple(float(q) for q in np.percentile(s, [50, 25, 75])) for s in samples]
+
+
+def route_models(dtype: str, **overrides):
+    """(plain route, kernel route) wrappers from the same seeded weights."""
+    cfg = copy.deepcopy(CONFIG)
+    cfg["model"]["compute_dtype"] = dtype
+    plain = copy.deepcopy(cfg)
+    plain["model"]["fused_phi"] = "off"
+    return factory.get_model("deep_sets", plain), factory.get_model("deep_sets", cfg)
+
+
 def times_phase(smi: str, run_dir: str):
-    """Kernel against plain (CUDA events, plain first), then predict per
-    batch (host clock) on both routes.  Returns the config shape's f32
-    (kernel ms, plain ms)."""
-    config_times = None
+    """Both kernels against their plain versions (CUDA events, plain first),
+    then predict and the train step per batch (host clock) on both routes.
+    Returns the config shape's f32 (kernel ms, plain ms) per kernel."""
+    config_times = {}
     for name, b, p in (("config", CONFIG_B, CONFIG_P), ("flagship", FLAGSHIP_B, FLAGSHIP_P)):
         for dtype in (torch.float32, torch.bfloat16):
             points, seg, params = phi_inputs(b, p, dtype, SEED)
+            g = torch.ones((b + 1, 256), device="cuda")
             plain_ms = cuda_ms(lambda: phi_pool_plain(points, seg, SPEC, params, "gelu", b + 1))
             kernel_ms = cuda_ms(lambda: phi_pool(points, seg, SPEC, params, "gelu", b + 1))
+            bwd_plain_ms = cuda_ms(lambda: phi_pool_bwd_plain(
+                points, seg, g, SPEC, params, "gelu", b + 1, with_points=False))
+            bwd_ms = cuda_ms(lambda: _phi_pool_bwd_cuda(
+                points, seg, g, SPEC, params, "gelu", b + 1, with_points=False))
             print(f"time phi_pool {name} B={b} P={p} {str(dtype)[6:]}: K1 {kernel_ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms [{smi}]")
+                  f"plain {plain_ms:.4f} ms; backward without d_points: K2 {bwd_ms:.4f} ms, "
+                  f"plain {bwd_plain_ms:.4f} ms [{smi}]")
             if (name, dtype) == ("config", torch.float32):
-                config_times = (kernel_ms, plain_ms)
+                config_times = {"phi_pool": (kernel_ms, plain_ms),
+                                "phi_pool_bwd": (bwd_ms, bwd_plain_ms)}
     for b in (CONFIG_B, FLAGSHIP_B):
         clouds, labels = make_clouds(np.random.default_rng(SEED + 2), 4 * b)
         t0 = time.perf_counter()
@@ -292,27 +530,74 @@ def times_phase(smi: str, run_dir: str):
                   f"K1 path {kernel[0]:.4f} ({kernel[1]:.4f}-{kernel[2]:.4f}) ms, "
                   f"plain path {plain[0]:.4f} ({plain[1]:.4f}-{plain[2]:.4f}) ms; "
                   f"packing {pack_ms:.4f} ms/batch on the host [{smi}]")
+            plain, kernel = train_ms_per_batch(list(route_models(dtype)), batches)
+            print(f"time train step per batch B={b} P={p_pad} {dtype} adamw, median (q1-q3) "
+                  f"of 10 runs over {len(batches)} pre-packed batches, host clock to a "
+                  f"synchronise: K1+K2 route {kernel[0]:.4f} ({kernel[1]:.4f}-{kernel[2]:.4f}) ms, "
+                  f"plain route {plain[0]:.4f} ({plain[1]:.4f}-{plain[2]:.4f}) ms [{smi}]")
     return config_times
+
+
+def profile_phase(smi: str) -> None:
+    """A torch.profiler trace of the B=256 f32 train step on the kernel
+    route: device busy time, idle share of the window, top device items."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    clouds, labels = make_clouds(np.random.default_rng(SEED + 2), 4 * FLAGSHIP_B)
+    batches = list(PointCloudLoader(clouds, labels, FLAGSHIP_B, shuffle=False))
+    _, kernel = route_models("float32")
+    for batch in batches:
+        kernel.train_step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            kernel.train_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    items = sorted(
+        (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        key=device_us, reverse=True,
+    )
+    busy_ms = sum(device_us(e) for e in items) / 1e3
+    if busy_ms <= 0:
+        print(f"profile train step B=256 f32: the profiler recorded no device time; "
+              f"device busy and idle share not measured [{smi}]")
+        return
+    n = len(batches)
+    top = "; ".join(f"{e.key[:48]} {device_us(e) / 1e3 / n:.4f} ms x{e.count // n}" for e in items[:6])
+    print(f"profile train step B=256 f32 K1+K2 route, {n} steps under torch.profiler: device busy "
+          f"{busy_ms / n:.4f} ms/step of {wall_ms / n:.4f} ms/step wall, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}; top device items per step: {top} [{smi}]")
 
 
 def main() -> None:
     smi = device_phase()
     build_phase()
-    config_err = kernel_phase()
+    errors = {"phi_pool": kernel_phase(), "phi_pool_bwd": bwd_kernel_phase()}
     with tempfile.TemporaryDirectory() as run_dir:
         write_jax_checkpoint(run_dir, np.random.default_rng(SEED))
-        launches = slice_phase(run_dir)
-        kernel_ms, plain_ms = times_phase(smi, run_dir)
+        serve_launches = slice_phase(run_dir)
+        launches = train_phase(run_dir)
+        print(f"launches: serving path K1 {serve_launches}; training path "
+              f"K1 {launches['phi_pool']}, K2 {launches['phi_pool_bwd']}")
+        times = times_phase(smi, run_dir)
+    profile_phase(smi)
     print(json.dumps({"kernels": [{
-        "name": "phi_pool",
+        "name": name,
         "route": "cuda",
-        "source": SOURCE,
-        "replaces": REPLACES,
-        "launches": launches,
-        "max_abs_err": config_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": errors[name],
+        "ms": times[name][0],
+        "plain_ms": times[name][1],
+    } for name, (source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,12 @@ torch and numpy only, never jax or the JAX package, and builds nothing at
 import: the CUDA kernels under ``csrc/`` are compiled on first use
 (``native/``).
 
-Ported so far: the DeepSets serving path on the flat point wire —
+Ported so far, on the flat point wire: the DeepSets serving path —
 ``data.batching.PointCloudLoader`` → ``factory.get_model("deep_sets", …)`` →
-``ModelWrapper.predict`` — with the fused φ-pool kernel K1 in CUDA.
+``ModelWrapper.predict`` — and its training path — ``train.train_model``:
+``factory.get_dataloader("s2ppc", …)`` → ``get_model`` →
+``ModelWrapper.fit`` → ``save`` → ``predict`` — with the fused φ-pool kernel
+K1 and its backward K2 in CUDA.
 """
 
 __version__ = "0.1.0"

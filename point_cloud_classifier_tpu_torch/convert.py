@@ -26,10 +26,11 @@ Entry = Tuple[str, str, Tuple[str, ...], bool]
 
 
 def _np(v) -> np.ndarray:
-    """torch tensor / array-like → float32 numpy."""
+    """torch tensor / array-like → a float32 numpy copy (never a view of a
+    live parameter, which an optimizer step would change under the tree)."""
     if hasattr(v, "detach"):
         v = v.detach().cpu().numpy()
-    return np.asarray(v, dtype=np.float32)
+    return np.array(v, dtype=np.float32)
 
 
 def _lin(prefix: str, path: Tuple[str, ...]) -> Iterator[Entry]:

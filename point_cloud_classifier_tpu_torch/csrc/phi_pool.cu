@@ -37,61 +37,11 @@
 //
 // Tensor cores (wgmma), TMA and a resident bf16 W2 are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "phi_chain.cuh"
 
 namespace {
 
-constexpr int kMaxLayers = 8;
-constexpr int kThreads = 256;
-constexpr size_t kMaxSmem = 232448;  // 227 KB opt-in per block on sm_90
-
-enum Kind : int { kPlain = 0, kResidual = 1, kLinear = 2 };
-enum Act : int { kRelu = 0, kSilu = 1, kTanh = 2, kQuickGelu = 3, kGeluTanh = 4 };
-
-struct Chain {
-  const void* w[kMaxLayers];  // [dims[l], dims[l + 1]] row-major, element type T
-  const void* b[kMaxLayers];  // [dims[l + 1]]
-  int dims[kMaxLayers + 1];
-  int kind[kMaxLayers];
-  int n_layers;
-  int act;
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Round an f32 value to the element type T and back (identity for f32).
-template <typename T>
-__device__ __forceinline__ float rnd(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-// The activations of ops/activations.py, rounded where PyTorch rounds a
-// tensor of type T between ops.
-template <typename T>
-__device__ __forceinline__ float activate(float x, int act) {
-  switch (act) {
-    case kRelu:
-      return fmaxf(x, 0.0f);
-    case kSilu:
-      return rnd<T>(x * rnd<T>(sigmoid(x)));
-    case kTanh:
-      return rnd<T>(tanhf(x));
-    case kQuickGelu:
-      return rnd<T>(x * rnd<T>(sigmoid(rnd<T>(1.702f * x))));
-    default: {  // kGeluTanh: F.gelu(approximate="tanh")
-      const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-      return rnd<T>(0.5f * x * (1.0f + tanhf(inner)));
-    }
-  }
-}
+using namespace pcc;
 
 template <typename T, int ROWS>
 __global__ void __launch_bounds__(kThreads)
@@ -126,35 +76,11 @@ __global__ void __launch_bounds__(kThreads)
     const T* __restrict__ B = static_cast<const T*>(chain.b[l]);
     for (int j = threadIdx.x; j < out_dim; j += blockDim.x) {
       float acc[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
-      int k = 0;
-      for (; k + 4 <= in_dim; k += 4) {
-        const float w0 = to_f32(W[static_cast<size_t>(k + 0) * out_dim + j]);
-        const float w1 = to_f32(W[static_cast<size_t>(k + 1) * out_dim + j]);
-        const float w2 = to_f32(W[static_cast<size_t>(k + 2) * out_dim + j]);
-        const float w3 = to_f32(W[static_cast<size_t>(k + 3) * out_dim + j]);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const float4 hv = *reinterpret_cast<const float4*>(h_in + r * ld + k);
-          acc[r] = fmaf(hv.x, w0, acc[r]);
-          acc[r] = fmaf(hv.y, w1, acc[r]);
-          acc[r] = fmaf(hv.z, w2, acc[r]);
-          acc[r] = fmaf(hv.w, w3, acc[r]);
-        }
-      }
-      for (; k < in_dim; ++k) {
-        const float w = to_f32(W[static_cast<size_t>(k) * out_dim + j]);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(h_in[r * ld + k], w, acc[r]);
-      }
+      tile_dot<T, ROWS, 1>(h_in, ld, in_dim, W, out_dim, j, acc);
       const float bias = to_f32(B[j]);
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
-        float v = rnd<T>(rnd<T>(acc[r]) + bias);
-        if (kind != kLinear) v = activate<T>(v, chain.act);
-        if (kind == kResidual) v = rnd<T>(h_in[r * ld + j] + v);
-        h_out[r * ld + j] = v;
+        h_out[r * ld + j] = layer_out<T>(acc[r], bias, h_in[r * ld + j], kind, chain.act, nullptr);
       }
     }
     __syncthreads();
@@ -223,7 +149,7 @@ cudaError_t launch_rows(const void* points, const void* seg, void* out, int n_po
     return launch<T, 8>(points, seg, out, n_points, n_features, num_segments, ld, chain,
                         stream);
   }
-  return cudaErrorInvalidValue;
+  return too_wide();
 }
 
 }  // namespace
@@ -234,7 +160,8 @@ extern "C" {
 // int32, out [num_segments, dims[n_layers]] f32 and already zeroed.  Layer l
 // has weight weights[l] [dims[l], dims[l + 1]] and bias biases[l], both of
 // the points' type, and kind kinds[l] (0 plain, 1 residual, 2 bare linear).
-// Returns the cudaError_t of the launch (0 on success); does not synchronise.
+// Returns the cudaError_t of the launch (0 on success), or kErrTooWide when
+// the widest layer does not fit an 8-row tile; does not synchronise.
 int pcc_phi_pool(const void* points, const void* seg, void* out, int n_points,
                  int n_features, int num_segments, int n_layers, const int* dims,
                  const int* kinds, const void* const* weights, const void* const* biases,
@@ -242,20 +169,10 @@ int pcc_phi_pool(const void* points, const void* seg, void* out, int n_points,
   if (n_points < 1 || n_layers < 0 || n_layers > kMaxLayers || dims[0] != n_features) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Chain chain = {};
+  const Chain chain = make_chain(n_layers, dims, kinds, weights, biases, act);
   int widest = n_features;
-  for (int l = 0; l < n_layers; ++l) {
-    chain.w[l] = weights[l];
-    chain.b[l] = biases[l];
-    chain.kind[l] = kinds[l];
-  }
-  for (int l = 0; l <= n_layers; ++l) {
-    chain.dims[l] = dims[l];
-    widest = dims[l] > widest ? dims[l] : widest;
-  }
-  chain.n_layers = n_layers;
-  chain.act = act;
-  const int ld = (widest + 3) / 4 * 4;
+  for (int l = 0; l <= n_layers; ++l) widest = dims[l] > widest ? dims[l] : widest;
+  const int ld = round4(widest);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch_rows<__nv_bfloat16>(points, seg, out, n_points, n_features,
@@ -266,6 +183,7 @@ int pcc_phi_pool(const void* points, const void* seg, void* out, int n_points,
 }
 
 const char* pcc_error_string(int code) {
+  if (code == kErrTooWide) return "chain too wide for an 8-row tile in shared memory";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -35,7 +35,9 @@ def pow2_bucket(n: int, min_size: int = 256) -> int:
 class PointCloudLoader:
     """Flattened f32 point batches: ``points [P_pad, F]`` + segment ids
     (``seg_encoding="ids"``) or counts (``"counts"``).  Stores all events as
-    one contiguous array plus offsets."""
+    one contiguous array plus offsets.  ``layout`` takes ``"flat"``, or
+    ``"auto"`` below a batch size of 128, where the JAX loader's ``"auto"``
+    always stays flat."""
 
     def __init__(
         self,
@@ -46,9 +48,20 @@ class PointCloudLoader:
         seed: int = 0,
         min_bucket: int = 256,
         seg_encoding: str = "ids",
+        layout: str = "flat",
     ):
         if seg_encoding not in ("ids", "counts"):
             raise ValueError("seg_encoding must be 'ids' or 'counts'")
+        if layout not in ("flat", "dense", "auto"):
+            raise ValueError("layout must be 'flat', 'dense', or 'auto'")
+        # the JAX loader's "auto" ships a batch dense only from a batch size
+        # of 128, so below that it is exactly the flat wire
+        if layout == "dense" or (layout == "auto" and batch_size and batch_size >= 128):
+            raise NotImplementedError(
+                f"layout={layout!r} at batch size {batch_size} needs the dense "
+                "per-cloud-row wire, which is not ported yet (ROADMAP Queue 1 "
+                "item 2); use layout='flat'"
+            )
         self.seg_encoding = seg_encoding
         counts = np.array([len(f) for f in event_features], dtype=np.int64)
         self.flat = np.ascontiguousarray(

@@ -1,8 +1,9 @@
-"""Model-name dispatch + checkpoint restore, as the serving entry points use it.
+"""Dataset- and model-name dispatch, and checkpoint restore.
 
-Counterpart of ``get_model`` in ``point_cloud_classifier_tpu/factory.py``.
-Only DeepSets is ported; the other families raise and name the ROADMAP
-item that brings them.
+Counterpart of ``get_dataloader`` and ``get_model`` in
+``point_cloud_classifier_tpu/factory.py``.  Only the S2PPC point clouds and
+DeepSets are ported; the other datasets and families raise and name the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import os
 
 import torch
 
+from point_cloud_classifier_tpu_torch.data import Step2PointPointCloud
 from point_cloud_classifier_tpu_torch.models import DeepSets, ModelWrapper
 
 _NOT_PORTED = {
@@ -18,6 +20,26 @@ _NOT_PORTED = {
     "fully_connected_net": "ROADMAP Queue 1, the tabular slice",
     "graph_net": "ROADMAP Queue 1, the GraphNet slices",
 }
+_DATASETS_NOT_PORTED = {
+    "s2pt": "ROADMAP Queue 1, the tabular slice",
+    "s2pg": "ROADMAP Queue 1, the GraphNet slices",
+}
+
+
+def get_dataloader(dataset_name: str, config: dict):
+    """The data module for ``dataset_name`` over ``config["dataset"]``.  As
+    in the JAX package, S2PPC defaults to ``layout="auto"``, which the port
+    serves on the flat wire below a batch size of 128 and refuses above."""
+    if dataset_name in _DATASETS_NOT_PORTED:
+        raise NotImplementedError(
+            f"{dataset_name} is not ported to PyTorch yet "
+            f"({_DATASETS_NOT_PORTED[dataset_name]})"
+        )
+    if dataset_name != "s2ppc":
+        raise ValueError(f"Unknown dataset: {dataset_name}")
+    ds_cfg = dict(config["dataset"])
+    ds_cfg.setdefault("layout", "auto")
+    return Step2PointPointCloud(**ds_cfg)
 
 
 def get_model(model_name: str, config: dict, model_dir: str = None):

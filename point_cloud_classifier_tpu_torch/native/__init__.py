@@ -2,11 +2,13 @@
 
 Counterpart of ``point_cloud_classifier_tpu/native/__init__.py``, which
 builds the host-side C++ packers: here the sources are the Hopper kernels in
-``csrc/*.cu``.  They are compiled by ``nvcc`` into one shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds) for
-``sm_90a``, into ``native/build/`` beside this file.  The library's name
-carries a hash of the sources and flags, so an edited kernel is rebuilt and
-a stale build is never loaded.  Nothing is built or loaded at import time:
+``csrc/*.cu``, with their shared ``csrc/*.cuh`` headers.  They are compiled
+by ``nvcc`` into one shared library with a plain C interface (no PyTorch
+headers, so the build takes seconds) for ``sm_90a``, into ``native/build/``
+beside this file.  The library's name carries a hash of the sources,
+headers and flags, so an edited kernel is rebuilt and a stale build is never
+loaded.  Each source is compiled by its own ``nvcc``, all at once, and the
+objects are then linked.  Nothing is built or loaded at import time:
 :func:`kernel_library` does it on the first call, on a machine with
 ``nvcc`` (``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or ``PATH``).
 """
@@ -27,7 +29,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 
@@ -57,18 +59,39 @@ def _nvcc() -> str:
     return found
 
 
+def _run_all(cmds) -> None:
+    """Run the commands side by side; wait for every one, then raise on the
+    first that failed."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cmd in cmds
+    ]
+    results = [proc.communicate() for proc in procs]
+    for cmd, proc, (_, stderr) in zip(cmds, procs, results):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stderr}"
+            )
+
+
 def _build(sources, target: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # build under a private name, then rename: a concurrent build or a
     # build cut short never leaves a half-written library under the final name
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, target)
+    objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    nvcc = _nvcc()
+    try:
+        # one nvcc per source, all started together, then one link
+        _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objects)
+        ])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
+        os.replace(tmp, target)
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -81,6 +104,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, vp,  # act, is_bf16, stream
     ]
     lib.pcc_phi_pool.restype = i32
+    lib.pcc_phi_pool_bwd.argtypes = [
+        vp, vp, vp, vp,  # points, seg, g, d_points (null: not computed)
+        vp, vp, i32,  # d_params, slabs, max_blocks
+        i32, i32, i32, i32,  # n_points, n_features, num_segments, n_layers
+        ctypes.POINTER(i32), ctypes.POINTER(i32),  # dims, kinds (host)
+        ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(vp),  # w, wᵀ, b (host)
+        i32, i32, vp,  # act, is_bf16, stream
+    ]
+    lib.pcc_phi_pool_bwd.restype = i32
     lib.pcc_error_string.argtypes = [i32]
     lib.pcc_error_string.restype = ctypes.c_char_p
 
@@ -92,7 +124,7 @@ def kernel_library() -> KernelLibrary:
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     target = BUILD_DIR / f"libpcc_kernels_{digest.hexdigest()[:16]}.so"
@@ -107,7 +139,9 @@ def kernel_library() -> KernelLibrary:
 
 
 def check(code: int) -> None:
-    """Raise on a nonzero ``cudaError_t`` returned by a kernel entry."""
+    """Raise on a nonzero code returned by a kernel entry: a ``cudaError_t``,
+    or ``kErrTooWide`` (-1) when the chain's tile does not fit in shared
+    memory."""
     if code != 0:
         msg = kernel_library().lib.pcc_error_string(code).decode()
-        raise RuntimeError(f"CUDA kernel launch failed: {msg} (cudaError {code})")
+        raise RuntimeError(f"CUDA kernel launch failed: {msg} (code {code})")

@@ -1,4 +1,4 @@
-"""The φ chain and its pooling: plain PyTorch, and the fused CUDA kernel K1.
+"""The φ chain and its pooling: plain PyTorch, and the fused CUDA kernels.
 
 Counterpart of ``point_cloud_classifier_tpu/ops/fused_phi.py``:
 
@@ -6,10 +6,15 @@ Counterpart of ``point_cloud_classifier_tpu/ops/fused_phi.py``:
   versions (``phi_hidden_xla``, ``phi_forward_xla``, ``phi_pool_xla``).  They
   are the semantics contract, the CPU path, and what the kernel is checked
   against on the card.
-- :func:`phi_pool` — the fused forward.  A CPU tensor takes
-  :func:`phi_pool_plain`; a CUDA tensor launches the hand-written Hopper
-  kernel ``csrc/phi_pool.cu`` (which replaces ``phi_pool_pallas``) or
-  raises.  ``phi_pool.launches`` counts its launches.
+- :func:`phi_pool_bwd_plain` — the backward of :func:`phi_pool_plain` in
+  closed form, layer by layer, as K2 computes it (the counterpart of
+  ``phi_pool_bwd_pallas``'s contract).
+- :func:`phi_pool` — the differentiable fused op (``_PhiPoolFn``).  A CPU
+  tensor takes the plain forward and backward; a CUDA tensor launches the
+  hand-written Hopper kernels ``csrc/phi_pool.cu`` (K1, which replaces
+  ``phi_pool_pallas``) and ``csrc/phi_pool_bwd.cu`` (K2, which replaces
+  ``phi_pool_bwd_pallas``) or raises.  ``phi_pool.launches`` and
+  ``phi_pool.bwd_launches`` count their launches.
 
 φ layer spec: a tuple of ``("plain" | "residual", has_ln)`` entries.
 ``params`` holds one ``(w [in, out], b[, ln_scale, ln_bias])`` per spec entry,
@@ -19,7 +24,11 @@ final linear runs per event after pooling.
 
 Rounding follows the JAX package: each dot accumulates in f32 and is cast to
 the compute dtype, then gets its bias added in that dtype; the activation
-and the residual add run in that dtype; pooling is in f32.
+and the residual add run in that dtype; pooling is in f32.  The backward
+rounds to the compute dtype where a tensor of that dtype is formed: the
+gathered cotangent, ``dz = d_out ⊙ act'(z)`` (the product taken in f32),
+each ``dz Wᵀ`` (accumulated in f32) and each residual add; ``d_W`` and
+``d_b`` accumulate in f32.
 """
 
 from __future__ import annotations
@@ -78,19 +87,100 @@ def phi_forward(points, spec: Spec, params: Sequence, activation: str):
 def phi_pool_plain(
     points, seg, spec: Spec, params: Sequence, activation: str, num_segments: int
 ):
-    """φ then f32 segment sums ``[num_segments, H]`` — the semantics contract."""
+    """φ then f32 segment sums ``[num_segments, H]`` — the semantics contract
+    (f64 sums for f64 points, which the gradient checks use)."""
     h = phi_forward(points, spec, params, activation)
-    return segment_sum(h.float(), seg, num_segments)
+    return segment_sum(h.to(torch.promote_types(h.dtype, torch.float32)), seg, num_segments)
 
 
-# -- K1: the CUDA kernel ---------------------------------------------------------
+def _act_grad(z, activation: str):
+    """The derivative of the activation at ``z``, in ``z``'s dtype (callers
+    pass f32 or f64); the same formulas as K2's ``act_grad``."""
+    if activation == "relu":
+        return (z > 0).to(z.dtype)
+    if activation == "tanh":
+        t = torch.tanh(z)
+        return 1 - t * t
+    if activation == "silu":
+        s = torch.sigmoid(z)
+        return s * (1 + z * (1 - s))
+    if activation != "gelu":
+        raise ValueError(f"Unknown activation: {activation}")
+    if gelu_variant() == "quick":
+        s = torch.sigmoid(1.702 * z)
+        return s + 1.702 * z * s * (1 - s)
+    c = 0.7978845608028654
+    t = torch.tanh(c * (z + 0.044715 * z * z * z))
+    return 0.5 * (1 + t) + 0.5 * z * (1 - t * t) * c * (1 + 3 * 0.044715 * z * z)
+
+
+def phi_pool_bwd_plain(
+    points,
+    seg,
+    g,
+    spec: Spec,
+    params: Sequence,
+    activation: str,
+    num_segments: int,
+    with_points: bool = True,
+):
+    """The backward of :func:`phi_pool_plain` in closed form: ``(d_points,
+    [d_w0, d_b0, d_w1, d_b1, …])`` for the f32 cotangent ``g [S, H]`` of the
+    pooled sums.
+
+    ``d_points`` is in the compute dtype (``None`` unless ``with_points``);
+    ``d_w [in, out]`` and ``d_b`` are f32 (f64 for f64 inputs) for every
+    layer, the bare final linear included when present.  Layer by layer, as
+    K2 computes it: recompute the chain keeping each pre-activation ``z``;
+    gather ``d_h[p] = g[seg[p]]`` (zero for ids ≥ ``num_segments``); then
+    ``dz = d_out ⊙ act'(z)`` (bare linear: ``dz = d_out``), ``d_w = h_inᵀ
+    dz``, ``d_b = Σ dz`` and ``d_in = dz Wᵀ`` (``+ d_out`` for a residual
+    layer).  Layer norm has no closed form here and raises."""
+    if any(has_ln for _, has_ln in spec):
+        raise ValueError("phi_pool_bwd_plain takes no layer norm")
+    dtype = points.dtype
+    acc = torch.promote_types(dtype, torch.float32)
+    act = resolve_activation(activation)
+    kinds = [kind for kind, _ in spec] + ["linear"] * (len(params) - len(spec))
+
+    h, inputs, pre = points, [], []
+    for kind, layer in zip(kinds, params):
+        w, b = layer[0].to(dtype), layer[1].to(dtype)
+        z = torch.matmul(h, w) + b
+        inputs.append(h)
+        pre.append(z)
+        if kind == "linear":
+            h = z
+        else:
+            h = h + act(z) if kind == "residual" else act(z)
+
+    seg = seg.long()
+    valid = (seg >= 0) & (seg < num_segments)
+    d_out = g.to(dtype)[seg.clamp(0, num_segments - 1)]
+    d_out = torch.where(valid[:, None], d_out, torch.zeros_like(d_out))
+    grads = []
+    for layer_idx in reversed(range(len(params))):
+        kind, z = kinds[layer_idx], pre[layer_idx]
+        if kind == "linear":
+            dz = d_out
+        else:
+            dz = (d_out.to(acc) * _act_grad(z.to(acc), activation)).to(dtype)
+        grads[:0] = [inputs[layer_idx].to(acc).t() @ dz.to(acc), dz.to(acc).sum(0)]
+        if layer_idx == 0 and not with_points:
+            d_out = None
+            break
+        d_in = torch.matmul(dz, params[layer_idx][0].to(dtype).t())
+        d_out = d_in + d_out if kind == "residual" else d_in
+    return d_out, grads
+
+
+# -- K1 and K2: the CUDA kernels --------------------------------------------------
 
 _KINDS = {"plain": 0, "residual": 1}
 _BARE_LINEAR = 2
 _ACTS = {"relu": 0, "silu": 1, "tanh": 2}
 _QUICK_GELU, _GELU_TANH = 3, 4
-_MAX_LAYERS = 8  # csrc/phi_pool.cu kMaxLayers
-_MAX_WIDTH = 3628  # an 8-row tile's two f32 buffers in 227 KB of shared memory
+_MAX_LAYERS = 8  # csrc/phi_chain.cuh kMaxLayers
 
 
 def _activation_code(activation: str) -> int:
@@ -101,42 +191,74 @@ def _activation_code(activation: str) -> int:
     return _ACTS[activation]
 
 
+class _PhiPoolFn(torch.autograd.Function):
+    """K1 forward and K2 backward on CUDA tensors, the plain versions on CPU
+    ones.  Like the JAX custom VJP it saves only its inputs: the backward
+    recomputes the chain, and no ``[P, H]`` activation is kept.  The weights
+    and biases arrive as flat tensor arguments so that autograd sees them."""
+
+    @staticmethod
+    def forward(ctx, points, seg, spec, activation, num_segments, *flat):
+        params = tuple(zip(flat[0::2], flat[1::2]))
+        ctx.save_for_backward(points, seg, *flat)
+        ctx.spec, ctx.activation, ctx.num_segments = spec, activation, num_segments
+        if points.device.type == "cpu":
+            return phi_pool_plain(points, seg, spec, params, activation, num_segments)
+        return _phi_pool_cuda(points, seg, spec, params, activation, num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        points, seg, *flat = ctx.saved_tensors
+        params = tuple(zip(flat[0::2], flat[1::2]))
+        with_points = ctx.needs_input_grad[0]
+        bwd = phi_pool_bwd_plain if points.device.type == "cpu" else _phi_pool_bwd_cuda
+        d_points, grads = bwd(
+            points, seg, g, ctx.spec, params, ctx.activation,
+            ctx.num_segments, with_points=with_points,
+        )
+        # each gradient in its parameter's dtype (_reassemble_param_grads)
+        d_flat = [
+            d.reshape(t.shape).to(t.dtype) if need else None
+            for d, t, need in zip(grads, flat, ctx.needs_input_grad[5:])
+        ]
+        return (d_points if with_points else None, None, None, None, None, *d_flat)
+
+
 def phi_pool(
     points, seg, spec: Spec, params: Sequence, activation: str, num_segments: int
 ):
-    """Fused φ + f32 segment sums ``[num_segments, H]``.
+    """Fused φ + f32 segment sums ``[num_segments, H]``, differentiable in
+    ``points`` and every weight and bias.
 
-    CPU tensors take :func:`phi_pool_plain`.  CUDA tensors launch K1, which
-    takes no layer norm and has no backward yet: anything it cannot compute
-    raises rather than falling back.
+    CPU tensors take :func:`phi_pool_plain` forward and
+    :func:`phi_pool_bwd_plain` backward; CUDA tensors launch K1 forward and
+    K2 backward.  Layer-norm specs have no kernel: on CPU they take
+    :func:`phi_pool_plain` under autograd, and on CUDA they raise, as does
+    anything else the kernels cannot compute — there is no fallback.
     """
-    if points.device.type == "cpu":
-        return phi_pool_plain(points, seg, spec, params, activation, num_segments)
-    if points.device.type != "cuda":
+    if points.device.type not in ("cpu", "cuda"):
         raise ValueError(f"phi_pool takes CPU or CUDA tensors, got {points.device}")
-    return _phi_pool_cuda(points, seg, spec, params, activation, num_segments)
+    if any(has_ln for _, has_ln in spec):
+        if points.device.type == "cuda":
+            raise ValueError("K1 takes no layer norm: LN specs use phi_pool_plain")
+        return phi_pool_plain(points, seg, spec, params, activation, num_segments)
+    flat = [t for layer in params for t in layer[:2]]
+    return _PhiPoolFn.apply(points, seg, tuple(spec), activation, num_segments, *flat)
 
 
 phi_pool.launches = 0
+phi_pool.bwd_launches = 0
 
 
-def _phi_pool_cuda(points, seg, spec, params, activation, num_segments):
-    from point_cloud_classifier_tpu_torch.native import check, kernel_library
-
+def _kernel_operands(points, seg, spec, params):
+    """Validate what K1 and K2 take; returns ``(weights, biases, dims,
+    kinds)`` with the weights and biases in the points' dtype on its device."""
     if any(has_ln for _, has_ln in spec):
         raise ValueError("K1 takes no layer norm: LN specs use phi_pool_plain")
     if len(params) not in (len(spec), len(spec) + 1):
         raise ValueError("params must hold one entry per spec layer (+ final)")
     if len(params) > _MAX_LAYERS:
         raise ValueError(f"K1 takes at most {_MAX_LAYERS} layers")
-    if torch.is_grad_enabled() and (
-        points.requires_grad
-        or any(t.requires_grad for layer in params for t in layer[:2])
-    ):
-        raise NotImplementedError(
-            "K1 has no backward yet (the fused backward K2 is still to be "
-            "ported); run eval under torch.no_grad() or inference_mode()"
-        )
     if points.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"K1 takes f32 or bf16 points, got {points.dtype}")
     if points.ndim != 2 or tuple(seg.shape) != (points.shape[0],):
@@ -148,7 +270,7 @@ def _phi_pool_cuda(points, seg, spec, params, activation, num_segments):
         raise TypeError("seg must be int32 on the points' device")
 
     dtype, device = points.dtype, points.device
-    weights = [layer[0].to(device=device, dtype=dtype).contiguous() for layer in params]
+    weights = [layer[0].to(device=device, dtype=dtype) for layer in params]
     biases = [layer[1].to(device=device, dtype=dtype).contiguous() for layer in params]
     dims = [points.shape[1]]
     for w, b in zip(weights, biases):
@@ -158,12 +280,24 @@ def _phi_pool_cuda(points, seg, spec, params, activation, num_segments):
                 f"{tuple(b.shape)} after width {dims[-1]}"
             )
         dims.append(w.shape[1])
-    if max(dims) > _MAX_WIDTH:
-        raise ValueError(f"K1 takes widths up to {_MAX_WIDTH}, got {max(dims)}")
+    # how wide a chain each kernel takes is decided by its C entry, which
+    # refuses a tile that does not fit in shared memory (check() raises)
     kinds = [_KINDS[kind] for kind, _ in spec] + [_BARE_LINEAR] * (
         len(params) - len(spec)
     )
+    return weights, biases, dims, kinds
 
+
+def _pointers(tensors):
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _phi_pool_cuda(points, seg, spec, params, activation, num_segments):
+    from point_cloud_classifier_tpu_torch.native import check, kernel_library
+
+    weights, biases, dims, kinds = _kernel_operands(points, seg, spec, params)
+    weights = [w.contiguous() for w in weights]
+    device = points.device
     out = torch.zeros((num_segments, dims[-1]), dtype=torch.float32, device=device)
     n_points = points.shape[0]
     if n_points == 0:
@@ -182,12 +316,73 @@ def _phi_pool_cuda(points, seg, spec, params, activation, num_segments):
             n,
             (ctypes.c_int * (n + 1))(*dims),
             (ctypes.c_int * n)(*kinds),
-            (ctypes.c_void_p * n)(*[w.data_ptr() for w in weights]),
-            (ctypes.c_void_p * n)(*[b.data_ptr() for b in biases]),
+            _pointers(weights),
+            _pointers(biases),
             _activation_code(activation),
-            int(dtype == torch.bfloat16),
+            int(points.dtype == torch.bfloat16),
             torch.cuda.current_stream(device).cuda_stream,
         )
     check(code)
     phi_pool.launches += 1
     return out
+
+
+def _phi_pool_bwd_cuda(
+    points, seg, g, spec, params, activation, num_segments, with_points=True
+):
+    """K2: the CUDA counterpart of :func:`phi_pool_bwd_plain`, same contract."""
+    from point_cloud_classifier_tpu_torch.native import check, kernel_library
+
+    weights, biases, dims, kinds = _kernel_operands(points, seg, spec, params)
+    device = points.device
+    if g.device != device or tuple(g.shape) != (num_segments, dims[-1]):
+        raise ValueError(
+            f"g must be [{num_segments}, {dims[-1]}] on {device}, got "
+            f"{tuple(g.shape)} on {g.device}"
+        )
+    sizes = [(i * o, o) for i, o in zip(dims[:-1], dims[1:])]
+    flat = torch.empty(sum(a + b for a, b in sizes), dtype=torch.float32, device=device)
+    d_points = torch.empty_like(points, memory_format=torch.contiguous_format) if with_points else None
+    n_points = points.shape[0]
+    if n_points == 0:
+        flat.zero_()
+    else:
+        # the weights twice: [in, out] for the recompute, [out, in] for dz Wᵀ
+        w_fwd = [w.contiguous() for w in weights]
+        w_bwd = [w.t().contiguous() for w in weights]
+        points, seg, g = points.contiguous(), seg.contiguous(), g.float().contiguous()
+        # one f32 slab of every d_w and d_b per block of the persistent grid
+        max_blocks = torch.cuda.get_device_properties(device).multi_processor_count
+        slabs = torch.empty((max_blocks, flat.numel()), dtype=torch.float32, device=device)
+        n = len(params)
+        lib = kernel_library().lib
+        with torch.cuda.device(device):
+            code = lib.pcc_phi_pool_bwd(
+                points.data_ptr(),
+                seg.data_ptr(),
+                g.data_ptr(),
+                d_points.data_ptr() if with_points else None,
+                flat.data_ptr(),
+                slabs.data_ptr(),
+                max_blocks,
+                n_points,
+                points.shape[1],
+                num_segments,
+                n,
+                (ctypes.c_int * (n + 1))(*dims),
+                (ctypes.c_int * n)(*kinds),
+                _pointers(w_fwd),
+                _pointers(w_bwd),
+                _pointers(biases),
+                _activation_code(activation),
+                int(points.dtype == torch.bfloat16),
+                torch.cuda.current_stream(device).cuda_stream,
+            )
+        check(code)
+        phi_pool.bwd_launches += 1
+    grads, offset = [], 0
+    for (i, o), (wsize, bsize) in zip(zip(dims[:-1], dims[1:]), sizes):
+        grads.append(flat[offset : offset + wsize].view(i, o))
+        grads.append(flat[offset + wsize : offset + wsize + bsize])
+        offset += wsize + bsize
+    return d_points, grads

@@ -97,3 +97,16 @@ def test_unknown_and_leftover_keys_raise():
         convert.convert_torch_state_dict("deep_sets", cfg, {k: v for k, v in state.items() if k != "rho.0.bias"})
     with pytest.raises(NotImplementedError):
         convert.to_torch_state_dict("graph_net", cfg, {}, {})
+
+
+def test_converted_tree_is_a_copy_of_the_live_weights():
+    """An optimizer step on the model after conversion leaves the tree as it
+    was: no entry is a view of a parameter (biases are not transposed)."""
+    cfg = _model_cfg("flagship-narrow")
+    model = DeepSets(**cfg)
+    params, _ = convert.convert_torch_state_dict("deep_sets", {"model": cfg}, model.state_dict())
+    before = jax.tree.map(np.copy, params)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(1.0)
+    _assert_trees_equal(params, before)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernel on a card: K1 against its plain version, and the
-DeepSets kernel route against its plain route.
+"""The port's CUDA kernels on a card: K1 and K2 against their plain versions,
+and the DeepSets kernel route against its plain route, serving and training.
 
 These tests need a CUDA card and skip without one.  They import neither jax
 nor the JAX package, so they run on a machine that has only PyTorch; there,
@@ -21,6 +21,14 @@ SPEC = (("plain", False), ("residual", False))
 # (sequential FMAs and atomics against cuBLAS and index_add); bf16 values
 # that round to the neighbouring bf16 value after a reordered dot.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# K2 against phi_pool_bwd_plain, per gradient tensor.  f32: max |Δ| /
+# max(1, max |plain|) and relative Frobenius (sums in another order).  bf16:
+# relative Frobenius (a reordered f32 dot can round dz or dz Wᵀ to the
+# neighbouring bf16 value, and the next layer carries it on).  The largest
+# readings over these cases on an H100 (80GB HBM3, 700 W): max relative
+# 7.6e-7 and relative Frobenius 4.5e-7 in f32, relative Frobenius 1.7e-4 in
+# bf16 (quick gelu).
+BWD_F32_REL, BWD_F32_FRO, BWD_BF16_FRO = 1e-4, 1e-5, 1e-3
 
 
 def _cuda():
@@ -68,8 +76,24 @@ def test_kernel_rejects_what_it_cannot_compute():
         fused_phi.phi_pool(pts, seg, (("plain", True), ("residual", False)), params, "gelu", s)
     with pytest.raises(TypeError, match="int32"):
         fused_phi.phi_pool(pts, seg.long(), SPEC, params, "gelu", s)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fused_phi.phi_pool(pts.requires_grad_(), seg, SPEC, params, "gelu", s)
+    g = torch.zeros(s + 1, 256, device=dev)
+    with pytest.raises(ValueError, match="g must be"):
+        fused_phi._phi_pool_bwd_cuda(pts, seg, g, SPEC, params, "gelu", s)
+
+
+@pytest.mark.gpu
+def test_each_kernel_refuses_a_chain_too_wide_for_its_tile():
+    """Each C entry decides what fits: at width 2,048 K1's two buffers fit
+    an 8-row tile and K2's five do not; at 4,096 neither fits."""
+    dev = _cuda()
+    pts, seg, params, s = _inputs(dev, torch.float32, p=64, width=2048)
+    fused_phi.phi_pool(pts, seg, SPEC, params, "gelu", s)
+    g = torch.zeros(s, 2048, device=dev)
+    with pytest.raises(RuntimeError, match="too wide"):
+        fused_phi._phi_pool_bwd_cuda(pts, seg, g, SPEC, params, "gelu", s)
+    pts, seg, params, s = _inputs(dev, torch.float32, p=64, width=4096)
+    with pytest.raises(RuntimeError, match="too wide"):
+        fused_phi.phi_pool(pts, seg, SPEC, params, "gelu", s)
 
 
 @pytest.mark.gpu
@@ -90,3 +114,91 @@ def test_deep_sets_kernel_route_matches_plain_route(pooling):
         out, ref = model(batch), plain(batch)
     assert fused_phi.phi_pool.launches == before + 1
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_points", [True, False], ids=["d_points", "no-d_points"])
+@pytest.mark.parametrize("final", [False, True], ids=["hidden-only", "full"])
+@pytest.mark.parametrize(
+    "activation, gelu",
+    [("gelu", "quick"), ("gelu", "exact"), ("relu", "quick"), ("silu", "quick"), ("tanh", "quick")],
+    ids=["quick-gelu", "tanh-gelu", "relu", "silu", "tanh"],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_kernel_matches_plain(monkeypatch, dtype, activation, gelu, final, with_points):
+    dev = _cuda()
+    monkeypatch.setenv("PCC_GELU", gelu)
+    pts, seg, params, s = _inputs(dev, dtype, final=final)
+    g = torch.from_numpy(np.random.default_rng(1).normal(size=(s, 256)).astype(np.float32)).to(dev)
+    before = fused_phi.phi_pool.bwd_launches
+    d_points, grads = fused_phi._phi_pool_bwd_cuda(
+        pts, seg, g, SPEC, params, activation, s, with_points=with_points
+    )
+    torch.cuda.synchronize()
+    assert fused_phi.phi_pool.bwd_launches == before + 1
+    ref_points, ref_grads = fused_phi.phi_pool_bwd_plain(
+        pts, seg, g, SPEC, params, activation, s, with_points=with_points
+    )
+    assert (d_points is None) == (not with_points)
+    pairs = list(zip(grads, ref_grads))
+    if with_points:
+        assert d_points.dtype == dtype
+        pairs.append((d_points.float(), ref_points.float()))
+    for out, ref in pairs:
+        assert out.shape == ref.shape and out.dtype == torch.float32
+        fro = (out - ref).norm().item() / ref.norm().item()
+        if dtype == torch.float32:
+            scale = max(1.0, ref.abs().max().item())
+            assert (out - ref).abs().max().item() <= BWD_F32_REL * scale
+            assert fro <= BWD_F32_FRO
+        else:
+            assert fro <= BWD_BF16_FRO
+
+
+@pytest.mark.gpu
+def test_cuda_backward_launches_k2_and_never_the_plain_version(monkeypatch):
+    dev = _cuda()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain backward ran on a CUDA tensor")
+
+    monkeypatch.setattr(fused_phi, "phi_pool_bwd_plain", refuse)
+    pts, seg, params, s = _inputs(dev, torch.float32)
+    params = tuple((w.requires_grad_(), b.requires_grad_()) for w, b in params)
+    launches = (fused_phi.phi_pool.launches, fused_phi.phi_pool.bwd_launches)
+    fused_phi.phi_pool(pts, seg, SPEC, params, "gelu", s).sum().backward()
+    torch.cuda.synchronize()
+    assert (fused_phi.phi_pool.launches, fused_phi.phi_pool.bwd_launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for layer in params for t in layer)
+
+
+@pytest.mark.gpu
+def test_fit_step_kernel_route_matches_plain_route():
+    from point_cloud_classifier_tpu_torch.models import ModelWrapper
+
+    dev = _cuda()
+    cfg = dict(
+        input_dim=6, phi_layers=[256, 256], rho_layers=[256], output_dim=1,
+        activation="gelu", layer_norm=False, residual_block=True, pooling="mean",
+    )
+    pts, seg, _, s = _inputs(dev, torch.float32)
+    rng = np.random.default_rng(2)
+    batch = {
+        "points": pts.cpu().numpy(), "seg": seg.cpu().numpy(),
+        "y": rng.integers(0, 2, size=(s - 1, 1)).astype(np.float32),
+        "y_mask": np.ones(s - 1, np.float32),
+    }
+    kernel = ModelWrapper(DeepSets(**cfg), 1e-3, 1, optimizer="adamw", device="cuda")
+    plain = ModelWrapper(DeepSets(**cfg, fused_phi="off"), 1e-3, 1, optimizer="adamw", device="cuda")
+    plain.model.load_state_dict(kernel.model.state_dict())
+    before = fused_phi.phi_pool.bwd_launches
+    losses = [kernel.train_step(batch), plain.train_step(batch)]
+    torch.cuda.synchronize()
+    assert fused_phi.phi_pool.bwd_launches == before + 1
+    torch.testing.assert_close(losses[0], losses[1], rtol=1e-5, atol=1e-6)
+    # the gradients the step took (Adam's first step is lr·sign(g), which
+    # a reordered sum can flip for a gradient near 0, so compare g itself)
+    for (name, p), q in zip(kernel.model.named_parameters(), plain.model.parameters()):
+        scale = max(1e-12, q.grad.abs().max().item())
+        assert (p.grad - q.grad).abs().max().item() <= 1e-4 * scale, name

@@ -43,7 +43,7 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
     )
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 12
+    assert int(proc.stdout.split()[0]) >= 19
 
 
 def test_chip_smoke_fails_without_cuda():
