@@ -32,7 +32,21 @@ result):
 7. times: CUDA-event times of both kernels and their plain versions at both
    shapes and dtypes; ``predict`` and the train step per batch on the kernel
    and plain routes at batch sizes 32 and 256, in f32 and bf16 compute; and
-   a ``torch.profiler`` trace of the B=256 f32 train step.
+   a ``torch.profiler`` trace of the B=256 f32 train step;
+8. GAT kernel against plain: ``gat_attention`` (kernel K3) against
+   ``gat_attention_plain`` on the card, f32 and bf16, at ragged M, in-row
+   widths D = 4, 8 and 32, duplicate sources, self-edges, zero weights and
+   isolated nodes, the fp16/int16 wire, the config batch (32 lineage graphs
+   of 160-288 nodes) and the flagship B=256 graphs of 256 nodes, H=4, C=128;
+9. graph serving slice: for GAT and for GraphConv add at the full width of
+   ``configs/graph_net.yaml``, ``factory.get_model("graph_net", cfg,
+   run_dir)`` on a JAX-format ``best_model.pt`` with seeded random weights,
+   then ``predict`` over ``factory.get_dataloader("s2pg", cfg)``'s test
+   loader on a seeded synthetic S2PG cache at batch 32, held against the
+   plain route (``force_plain()``), with K3's launch count (2 per GAT batch);
+10. graph times: K3 against its plain version at B=32 and B=256, f32 and
+   bf16; ``predict`` per batch on both routes; and a ``torch.profiler``
+   trace of the B=256 GAT predict (the device's idle share).
 
 The line before the last is one JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -51,17 +65,24 @@ import time
 import numpy as np
 import torch
 
-from point_cloud_classifier_tpu_torch import factory
+from point_cloud_classifier_tpu_torch import convert, factory
 from point_cloud_classifier_tpu_torch import train as port_train
-from point_cloud_classifier_tpu_torch.data import PointCloudLoader
-from point_cloud_classifier_tpu_torch.data.synthetic import write_s2ppc_cache
+from point_cloud_classifier_tpu_torch.data import GraphLoader, PointCloudLoader
+from point_cloud_classifier_tpu_torch.data.synthetic import (
+    lineage_graphs,
+    write_s2pg_cache,
+    write_s2ppc_cache,
+)
+from point_cloud_classifier_tpu_torch.models import GraphNet
 from point_cloud_classifier_tpu_torch.native import kernel_library
+from point_cloud_classifier_tpu_torch.ops.dispatch import force_plain
 from point_cloud_classifier_tpu_torch.ops.fused_phi import (
     _phi_pool_bwd_cuda,
     phi_pool,
     phi_pool_bwd_plain,
     phi_pool_plain,
 )
+from point_cloud_classifier_tpu_torch.ops.gat import gat_attention, gat_attention_plain
 
 SEED = 0
 # configs/deep_sets.yaml (model, dataset and trainer sections)
@@ -117,7 +138,45 @@ KERNELS = {
                  "point_cloud_classifier_tpu/ops/fused_phi.py:322"),
     "phi_pool_bwd": ("point_cloud_classifier_tpu_torch/csrc/phi_pool_bwd.cu",
                      "point_cloud_classifier_tpu/ops/fused_phi.py:552"),
+    "gat_attention": ("point_cloud_classifier_tpu_torch/csrc/gat_attention.cu",
+                      "point_cloud_classifier_tpu/ops/gat_pallas.py:862"),
 }
+# configs/graph_net.yaml (model, dataset and trainer sections); the GAT arm
+# sets use_gat
+GRAPH_CONFIG = {
+    "model": {
+        "input_dim": 4,
+        "output_dim": 1,
+        "hidden_dim": 128,
+        "activation": "tanh",
+        "use_gat": False,
+        "gat_heads": 4,
+        "sag_pool": False,
+        "pool_ratio": 0.5,
+        "local_pooling": "add",
+        "global_pooling": "mean",
+        "deepchem_style": True,
+    },
+    "dataset": {"batch_size": 32, "use_weights": False, "n_features": 4},
+    "trainer": {"epochs": 15, "learning_rate": 0.001},
+}
+GRAPH_B, FLAGSHIP_GRAPHS = 32, 256  # the config batch; bench.py's flagship GAT batch
+GAT_HEADS, GAT_C = 4, 128
+# K3 against gat_attention_plain: max |Δ| / max(1, max |plain|), and in bf16
+# also the relative Frobenius distance.  f32: the same f32 math, the
+# softmax and the α-weighted sum in other orders.  bf16: both sides round α
+# to bf16 before an f32 product and sum and round the output once, but an α
+# or an output computed in another order can land on the neighbouring bf16
+# value (2^-8 relative; the bound allows two such steps).  The largest
+# readings at these cases on an H100 (80GB HBM3, 700 W): max relative
+# 2.5e-7 in f32; in bf16 max relative 2.5e-3 and relative Frobenius 1.4e-4
+# (one case; the others bit-equal).
+GAT_F32_REL, GAT_BF16_REL, GAT_BF16_FRO = 1e-6, 8e-3, 1e-3
+
+
+def reset_launch_counts() -> None:
+    """Every kernel wrapper's launch count to 0, just before a path runs."""
+    phi_pool.launches = phi_pool.bwd_launches = gat_attention.launches = 0
 
 
 def device_phase() -> str:
@@ -198,7 +257,7 @@ def kernel_phase():
     return config_err
 
 
-def _bwd_errors(out, ref):
+def _errors(out, ref):
     """(max |Δ|, max |Δ| / max(1, max |ref|), relative Frobenius)."""
     diff = (out.double() - ref.double())
     err = diff.abs().max().item()
@@ -237,7 +296,7 @@ def bwd_kernel_phase():
                 for got, want in zip(grads, refs, strict=True):
                     if got.shape != want.shape or not torch.isfinite(got).all():
                         raise AssertionError(f"K2 {name} {dtype}: bad gradient {tuple(got.shape)}")
-                    e = _bwd_errors(got, want)
+                    e = _errors(got, want)
                     worst = e if worst is None else tuple(max(a, c) for a, c in zip(worst, e))
                 if dtype == torch.float32:
                     bounds = f"max_rel bound {BWD_F32_REL:.0e}, rel_fro bound {BWD_F32_FRO:.0e}"
@@ -307,7 +366,7 @@ def slice_phase(run_dir: str) -> int:
     loader = PointCloudLoader(clouds, labels, batch_size, shuffle=False)
 
     model = get_model(run_dir)
-    phi_pool.launches = 0
+    reset_launch_counts()
     y_true, probs = model.predict(loader, return_prob=True)
     launches = phi_pool.launches
     _, probs_plain = get_model(run_dir, fused_phi="off").predict(loader, return_prob=True)
@@ -357,7 +416,7 @@ def train_phase(work_dir: str) -> dict:
     data_dir = os.path.join(work_dir, "data")
     write_s2ppc_cache(data_dir, n_events=(1024, 256, 256), seed=SEED)
     cfg = training_config(data_dir, os.path.join(work_dir, "log"))
-    phi_pool.launches = phi_pool.bwd_launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     log_dir = port_train.train_model("deep_sets", "s2ppc", cfg, return_log_dir=True)
     seconds = time.perf_counter() - t0
@@ -538,6 +597,10 @@ def times_phase(smi: str, run_dir: str):
     return config_times
 
 
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
 def profile_phase(smi: str) -> None:
     """A torch.profiler trace of the B=256 f32 train step on the kernel
     route: device busy time, idle share of the window, top device items."""
@@ -557,37 +620,251 @@ def profile_phase(smi: str) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     items = sorted(
         (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-        key=device_us, reverse=True,
+        key=_device_us, reverse=True,
     )
-    busy_ms = sum(device_us(e) for e in items) / 1e3
+    busy_ms = sum(_device_us(e) for e in items) / 1e3
     if busy_ms <= 0:
         print(f"profile train step B=256 f32: the profiler recorded no device time; "
               f"device busy and idle share not measured [{smi}]")
         return
     n = len(batches)
-    top = "; ".join(f"{e.key[:48]} {device_us(e) / 1e3 / n:.4f} ms x{e.count // n}" for e in items[:6])
+    top = "; ".join(f"{e.key[:48]} {_device_us(e) / 1e3 / n:.4f} ms x{e.count // n}" for e in items[:6])
     print(f"profile train step B=256 f32 K1+K2 route, {n} steps under torch.profiler: device busy "
           f"{busy_ms / n:.4f} ms/step of {wall_ms / n:.4f} ms/step wall, idle share "
           f"{1 - busy_ms / wall_ms:.3f}; top device items per step: {top} [{smi}]")
 
 
+def _graph_batch(graphs, batch_size, transfer_dtype="float32"):
+    """The first dense in-row batch of ``graphs``, as numpy arrays."""
+    loader = GraphLoader(graphs, batch_size, shuffle=False, layout="dense",
+                         use_weights=False, transfer_dtype=transfer_dtype)
+    return next(iter(loader))
+
+
+def gat_inputs(case: str, dtype, seed: int = SEED):
+    """(s_dst, s_src, in_src, in_w, xw) on the card for one K3 case."""
+    rng = np.random.default_rng(seed)
+    wire = {"config B=32": (GRAPH_B, 160, 288, "float32"),
+            "config B=32 fp16/int16 wire": (GRAPH_B, 160, 288, "float16"),
+            "flagship B=256 M=256": (FLAGSHIP_GRAPHS, 256, 256, "float32")}
+    if case in wire:
+        b, lo, hi, transfer = wire[case]
+        batch = _graph_batch(lineage_graphs(rng, b, lo, hi), b, transfer)
+        in_src, in_w = batch["in_src"], batch["in_w"]
+        b, m, _ = in_src.shape
+    else:
+        # ragged random in-row lists; "tiny id pool" draws sources from 6 ids,
+        # so most rows hold duplicates and self-edges; "isolated" empties
+        # every slot of the first 9 nodes
+        b, m, d = {"ragged M=37 D=4": (5, 37, 4), "ragged M=61 D=8": (3, 61, 8),
+                   "D=32 tiny id pool": (3, 45, 32), "isolated D=8": (2, 40, 8)}[case]
+        in_src = rng.integers(0, 6 if "tiny" in case else m, size=(b, m, d)).astype(np.int32)
+        in_w = (rng.random((b, m, d)) * (rng.random((b, m, d)) < 0.6)).astype(np.float32)
+        if "isolated" in case:
+            in_w[:, :9] = 0.0
+    dev = torch.device("cuda")
+    s_dst, s_src = (torch.from_numpy(rng.normal(size=(b, m, GAT_HEADS)).astype(np.float32)).to(dev)
+                    for _ in range(2))
+    xw = torch.from_numpy(rng.normal(size=(b, m, GAT_C)).astype(np.float32)).to(dev, dtype)
+    return s_dst, s_src, torch.from_numpy(in_src).to(dev), torch.from_numpy(in_w).to(dev), xw
+
+
+GAT_CASES = ("config B=32", "config B=32 fp16/int16 wire", "ragged M=37 D=4", "ragged M=61 D=8",
+             "D=32 tiny id pool", "isolated D=8", "flagship B=256 M=256")
+
+
+def gat_kernel_phase():
+    """K3 against gat_attention_plain at every case; returns the config-shape
+    f32 max |Δ|."""
+    config_err = None
+    for case in GAT_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = gat_inputs(case, dtype)
+            out = gat_attention(*args)
+            torch.cuda.synchronize()
+            ref = gat_attention_plain(*args)
+            torch.cuda.synchronize()
+            if out.shape != ref.shape or out.dtype != ref.dtype or not torch.isfinite(out).all():
+                raise AssertionError(f"K3 {case} {dtype}: bad output {tuple(out.shape)} {out.dtype}")
+            err, rel, fro = _errors(out, ref)
+            if "isolated" in case:
+                alone = (out[:, :9] - args[-1][:, :9]).abs().max().item()
+                if not alone <= GAT_F32_REL * max(1.0, args[-1].abs().max().item()):
+                    raise AssertionError(f"K3 {case}: isolated nodes are not their own row ({alone:.3e})")
+            if dtype == torch.float32:
+                bounds, ok = f"max_rel bound {GAT_F32_REL:.0e}", rel <= GAT_F32_REL
+            else:
+                bounds = f"max_rel bound {GAT_BF16_REL:.0e}, rel_fro bound {GAT_BF16_FRO:.0e}"
+                ok = rel <= GAT_BF16_REL and fro <= GAT_BF16_FRO
+            print(f"kernel K3 {case} B,M,D={tuple(args[2].shape)} in_w {str(args[3].dtype)[6:]}, "
+                  f"in_src {str(args[2].dtype)[6:]}, xw {str(dtype)[6:]}: max_abs_err {err:.3e}, "
+                  f"max_rel_err {rel:.3e}, rel_fro {fro:.3e} ({bounds})")
+            if not ok:
+                raise AssertionError(f"K3 disagrees with plain: {case} {dtype} {(err, rel, fro)}")
+            if (case, dtype) == ("config B=32", torch.float32):
+                config_err = err
+    return config_err
+
+
+def graph_config(data_dir: str, use_gat: bool, **model) -> dict:
+    cfg = copy.deepcopy(GRAPH_CONFIG)
+    cfg["model"].update(use_gat=use_gat, **model)
+    cfg["dataset"]["data_dir"] = data_dir
+    return cfg
+
+
+def write_graph_checkpoint(run_dir: str, cfg: dict, seed: int) -> None:
+    """``best_model.pt`` in the JAX package's format (a pickle of
+    ``{"params", "batch_stats"}`` numpy trees under its GraphNet names): the
+    port's seeded initial weights with every bias and running statistic
+    moved off its initial value, and the head scaled up."""
+    net = GraphNet(**cfg["model"], generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    state = {k: v.numpy() + (rng.uniform(0.05, 0.3, v.shape).astype(np.float32)
+                             if k.endswith(("bias", "running_mean", "running_var")) else 0)
+             for k, v in net.state_dict().items() if not k.endswith("num_batches_tracked")}
+    state["fc2.weight"] *= 16.0  # logits spread, so probabilities span (0, 1)
+    params, stats = convert.convert_torch_state_dict("graph_net", cfg, state)
+    os.makedirs(run_dir, exist_ok=True)
+    with open(os.path.join(run_dir, "best_model.pt"), "wb") as f:
+        pickle.dump({"params": params, "batch_stats": stats}, f)
+
+
+def graph_slice_phase(work_dir: str) -> int:
+    """get_model("graph_net") + predict over the s2pg test loader, GAT and
+    GraphConv add, each held against its plain route; returns K3's launch
+    count during the GAT predict."""
+    data_dir = os.path.join(work_dir, "s2pg")
+    write_s2pg_cache(data_dir, n_graphs=(64, 64, 5 * GRAPH_B - 3), seed=SEED)
+    gat_launches = None
+    for name, use_gat in (("GAT", True), ("GraphConv add", False)):
+        cfg = graph_config(data_dir, use_gat)
+        run_dir = os.path.join(work_dir, f"graph_run_{int(use_gat)}")
+        write_graph_checkpoint(run_dir, cfg, SEED + 7)
+        model = factory.get_model("graph_net", cfg, run_dir)
+        loader = factory.get_dataloader("s2pg", cfg).get_test_loader()
+        reset_launch_counts()
+        y_true, probs = model.predict(loader, return_prob=True)
+        launches = gat_attention.launches
+        if phi_pool.launches or phi_pool.bwd_launches:
+            raise AssertionError(f"{name}: a DeepSets kernel launched on the graph path")
+        with force_plain():
+            _, probs_plain = model.predict(loader, return_prob=True)
+        n_batches = len(loader)
+        err = float(np.abs(probs - probs_plain).max())
+        rungs = sorted({b["nodes"].shape[1] for b in loader})
+        slots = sorted({b["in_src"].shape[2] for b in loader})
+        print(f"graph slice {name}: predict over {n_batches} batches of {GRAPH_B}, {loader.n_examples} "
+              f"graphs, M {rungs}, D {slots}; K3 launches {launches}; probs in "
+              f"[{probs.min():.4f}, {probs.max():.4f}]; max |kernel − plain| {err:.3e} "
+              f"(bound {PROB_TOL:.0e})")
+        if probs.shape != (loader.n_examples, 1) or not np.isfinite(probs).all():
+            raise AssertionError(f"{name}: bad probabilities, shape {probs.shape}")
+        if probs.min() < 0.0 or probs.max() > 1.0 or probs.std() == 0.0:
+            raise AssertionError(f"{name}: probabilities outside [0, 1] or all equal")
+        if not np.array_equal(y_true[:, 0], loader.labels):
+            raise AssertionError(f"{name}: y_true does not follow the loader's labels")
+        if not err <= PROB_TOL:
+            raise AssertionError(f"{name}: kernel route disagrees with plain route: {err:.3e}")
+        if n_batches < 4 or launches != (2 * n_batches if use_gat else 0):
+            raise AssertionError(f"{name}: K3 launched {launches} times for {n_batches} batches")
+        if use_gat:
+            gat_launches = launches
+    return gat_launches
+
+
+class PlainRoute:
+    """A wrapper whose ``predict`` runs inside ``force_plain()``."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
+
+    def predict(self, batches, return_prob=False):
+        with force_plain():
+            return self.wrapper.predict(batches, return_prob)
+
+
+def graph_times_phase(smi: str, run_dir: str):
+    """K3 against its plain version (CUDA events, plain first), then predict
+    per batch (host clock) on both routes, and a profile of the B=256 GAT
+    predict.  Returns the config shape's f32 (kernel ms, plain ms)."""
+    config_times = None
+    for case in ("config B=32", "flagship B=256 M=256"):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = gat_inputs(case, dtype)
+            with torch.no_grad():
+                plain_ms = cuda_ms(lambda: gat_attention_plain(*args))
+                kernel_ms = cuda_ms(lambda: gat_attention(*args))
+            print(f"time gat_attention {case} B,M,D={tuple(args[2].shape)} H={GAT_HEADS} C={GAT_C} "
+                  f"{str(dtype)[6:]}: K3 {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms [{smi}]")
+            if (case, dtype) == ("config B=32", torch.float32):
+                config_times = (kernel_ms, plain_ms)
+    for b in (GRAPH_B, FLAGSHIP_GRAPHS):
+        graphs = lineage_graphs(np.random.default_rng(SEED + 2), 4 * b)
+        t0 = time.perf_counter()
+        batches = list(GraphLoader(graphs, b, shuffle=False, layout="dense", use_weights=False))
+        pack_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        shape = sorted({tuple(batch["in_src"].shape[1:]) for batch in batches})
+        for dtype in ("float32", "bfloat16"):
+            gat = factory.get_model("graph_net", graph_config("", True, compute_dtype=dtype), run_dir)
+            conv = factory.get_model("graph_net", graph_config("", False, compute_dtype=dtype))
+            kernel, plain, graphconv = predict_ms_per_batch([gat, PlainRoute(gat), conv], batches)
+            print(f"time predict per batch B={b} (M, D)={shape} {dtype}, median (q1-q3) of 10 runs "
+                  f"over {len(batches)} pre-packed batches, host clock: GAT K3 route {kernel[0]:.4f} "
+                  f"({kernel[1]:.4f}-{kernel[2]:.4f}) ms, GAT plain route {plain[0]:.4f} "
+                  f"({plain[1]:.4f}-{plain[2]:.4f}) ms, GraphConv add {graphconv[0]:.4f} "
+                  f"({graphconv[1]:.4f}-{graphconv[2]:.4f}) ms; packing {pack_ms:.4f} ms/batch on "
+                  f"the host [{smi}]")
+            if b == FLAGSHIP_GRAPHS and dtype == "float32":
+                profile_predict(smi, gat, batches)
+    return config_times
+
+
+def profile_predict(smi: str, model, batches) -> None:
+    """A torch.profiler trace of predict over ``batches`` on the K3 route:
+    device busy time, idle share of the window, top device items."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model.predict(batches, return_prob=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.predict(batches, return_prob=True)  # ends in a device→host copy
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    items = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                   key=_device_us, reverse=True)
+    busy_ms = sum(_device_us(e) for e in items) / 1e3
+    n = len(batches)
+    if busy_ms <= 0:
+        print(f"profile GAT predict B={FLAGSHIP_GRAPHS} f32: the profiler recorded no device "
+              f"time; device busy and idle share not measured [{smi}]")
+        return
+    top = "; ".join(f"{e.key[:96]} {_device_us(e) / 1e3 / n:.4f} ms x{e.count / n:g}" for e in items[:8])
+    print(f"profile GAT predict B={FLAGSHIP_GRAPHS} f32 K3 route, {n} batches under torch.profiler: "
+          f"device busy {busy_ms / n:.4f} ms/batch of {wall_ms / n:.4f} ms/batch wall, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}; top device items per batch: {top} [{smi}]")
+
+
 def main() -> None:
+    t0 = time.perf_counter()
     smi = device_phase()
     build_phase()
-    errors = {"phi_pool": kernel_phase(), "phi_pool_bwd": bwd_kernel_phase()}
+    errors = {"phi_pool": kernel_phase(), "phi_pool_bwd": bwd_kernel_phase(),
+              "gat_attention": gat_kernel_phase()}
     with tempfile.TemporaryDirectory() as run_dir:
         write_jax_checkpoint(run_dir, np.random.default_rng(SEED))
         serve_launches = slice_phase(run_dir)
         launches = train_phase(run_dir)
-        print(f"launches: serving path K1 {serve_launches}; training path "
-              f"K1 {launches['phi_pool']}, K2 {launches['phi_pool_bwd']}")
+        launches["gat_attention"] = graph_slice_phase(run_dir)
+        print(f"launches: DeepSets serving path K1 {serve_launches}; DeepSets training path "
+              f"K1 {launches['phi_pool']}, K2 {launches['phi_pool_bwd']}; GAT serving path "
+              f"K3 {launches['gat_attention']}")
         times = times_phase(smi, run_dir)
+        times["gat_attention"] = graph_times_phase(smi, os.path.join(run_dir, "graph_run_1"))
     profile_phase(smi)
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -12,7 +12,10 @@ Ported so far, on the flat point wire: the DeepSets serving path —
 ``ModelWrapper.predict`` — and its training path — ``train.train_model``:
 ``factory.get_dataloader("s2ppc", …)`` → ``get_model`` →
 ``ModelWrapper.fit`` → ``save`` → ``predict`` — with the fused φ-pool kernel
-K1 and its backward K2 in CUDA.
+K1 and its backward K2 in CUDA.  On the dense in-row graph wire: the
+GraphNet serving path (GAT and GraphConv add/mean) —
+``factory.get_dataloader("s2pg", …)`` → ``factory.get_model("graph_net",
+…)`` → ``ModelWrapper.predict`` — with the GAT attention kernel K3 in CUDA.
 """
 
 __version__ = "0.1.0"

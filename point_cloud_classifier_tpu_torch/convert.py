@@ -7,11 +7,23 @@ keys, so one declarative mapping per model serves both directions:
 
 - ``torch.nn.Linear`` weight ``[out, in]`` ↔ the tree's kernel ``[in, out]``
   (transposed); bias unchanged;
-- LayerNorm weight/bias ↔ the tree's ln scale/bias.
+- LayerNorm weight/bias ↔ the tree's ln scale/bias;
+- BatchNorm1d weight/bias ↔ ``MaskedBatchNorm`` scale/bias, and
+  running_mean/running_var ↔ the ``batch_stats`` tree (``num_batches_tracked``
+  has no counterpart: it is skipped one way and written as 0 the other, as
+  the JAX package's ``convert.py`` does);
+- torch_geometric's ``GraphConv`` ``lin_rel`` (biased) / ``lin_root``
+  (bias-free) ↔ ``GraphConv_k/TorchLinear_0`` / ``TorchLinear_1``;
+- torch_geometric 2.5's ``GATConv`` (``in_channels`` an int, no edge
+  features, no residual): ``lin.weight`` ``[H·dh, in]`` ↔
+  ``GATConv_k/Dense_0/kernel`` (transposed), ``att_src``/``att_dst``
+  ``[1, H, dh]`` and ``bias [H·dh]`` unchanged.  The JAX package's converter
+  refuses GAT checkpoints; the port fixes this one layout for its own.
 
 Both directions walk the mapping; the state_dict → tree direction must
 consume every key, so a wrong mapping cannot pass silently.  numpy only:
-this module imports neither torch nor jax.  Only DeepSets is ported so far.
+this module imports neither torch nor jax.  Ported so far: DeepSets and
+GraphNet with GraphConv or GAT (not SAG pooling).
 """
 
 from __future__ import annotations
@@ -41,6 +53,13 @@ def _lin(prefix: str, path: Tuple[str, ...]) -> Iterator[Entry]:
 def _ln(prefix: str, scale_path: Tuple[str, ...], bias_path: Tuple[str, ...]) -> Iterator[Entry]:
     yield f"{prefix}.weight", "params", scale_path, False
     yield f"{prefix}.bias", "params", bias_path, False
+
+
+def _bn(prefix: str, name: str) -> Iterator[Entry]:
+    yield f"{prefix}.weight", "params", (name, "scale"), False
+    yield f"{prefix}.bias", "params", (name, "bias"), False
+    yield f"{prefix}.running_mean", "stats", (name, "mean"), False
+    yield f"{prefix}.running_var", "stats", (name, "var"), False
 
 
 def _deep_sets_mapping(cfg: dict) -> Iterator[Entry]:
@@ -90,7 +109,31 @@ def _deep_sets_mapping(cfg: dict) -> Iterator[Entry]:
     yield from _lin(f"rho.{idx}", ("TorchLinear_0",))  # classifier head
 
 
-_MAPPINGS = {"deep_sets": _deep_sets_mapping}
+def _graph_net_mapping(cfg: dict) -> Iterator[Entry]:
+    """Two convolutions (+BN each), fc1 + bn3, fc2, in the port's
+    ``state_dict`` order."""
+    if cfg.get("sag_pool"):
+        raise NotImplementedError(
+            "SAGPooling checkpoints are not ported yet (ROADMAP Queue 1, "
+            "GraphNet slice 2)"
+        )
+    for k in (1, 2):
+        if cfg.get("use_gat"):
+            conv = f"GATConv_{k - 1}"
+            for name in ("att_src", "att_dst", "bias"):
+                yield f"conv{k}.{name}", "params", (conv, name), False
+            yield f"conv{k}.lin.weight", "params", (conv, "Dense_0", "kernel"), True
+        else:
+            conv = f"GraphConv_{k - 1}"
+            yield from _lin(f"conv{k}.lin_rel", (conv, "TorchLinear_0"))
+            yield f"conv{k}.lin_root.weight", "params", (conv, "TorchLinear_1", "kernel"), True
+        yield from _bn(f"bn{k}", f"MaskedBatchNorm_{k - 1}")
+    yield from _lin("fc1", ("TorchLinear_0",))
+    yield from _bn("bn3", "MaskedBatchNorm_2")
+    yield from _lin("fc2", ("TorchLinear_1",))
+
+
+_MAPPINGS = {"deep_sets": _deep_sets_mapping, "graph_net": _graph_net_mapping}
 
 
 def _mapping(model_name: str, config: dict) -> List[Entry]:
@@ -146,10 +189,13 @@ def convert_torch_state_dict(
 def to_torch_state_dict(
     model_name: str, config: dict, params: Tree, batch_stats: Tree
 ) -> Dict[str, np.ndarray]:
-    """A ``state_dict`` (numpy values) from the JAX package's trees."""
+    """A ``state_dict`` (numpy values) from the JAX package's trees, with
+    ``num_batches_tracked = 0`` beside every BatchNorm's running stats."""
     trees = {"params": params, "stats": batch_stats or {}}
     out: Dict[str, np.ndarray] = {}
     for key, tree_name, path, transpose in _mapping(model_name, config):
         v = np.asarray(_get(trees[tree_name], path), dtype=np.float32)
         out[key] = np.ascontiguousarray(v.T) if transpose else v
+        if key.endswith(".running_var"):
+            out[key[: -len("running_var")] + "num_batches_tracked"] = np.asarray(0, dtype=np.int64)
     return out

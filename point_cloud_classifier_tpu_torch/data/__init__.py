@@ -1,6 +1,17 @@
-"""numpy batch loaders and the cached S2PPC dataset (no jax, pandas or h5py)."""
+"""numpy batch loaders and the cached S2PPC and S2PG datasets (no jax, pandas or h5py)."""
 
-from point_cloud_classifier_tpu_torch.data.batching import PointCloudLoader, pow2_bucket
+from point_cloud_classifier_tpu_torch.data.batching import (
+    GraphLoader,
+    PointCloudLoader,
+    pow2_bucket,
+)
+from point_cloud_classifier_tpu_torch.data.graph import Step2PointGraph
 from point_cloud_classifier_tpu_torch.data.pointcloud import Step2PointPointCloud
 
-__all__ = ["PointCloudLoader", "Step2PointPointCloud", "pow2_bucket"]
+__all__ = [
+    "GraphLoader",
+    "PointCloudLoader",
+    "Step2PointGraph",
+    "Step2PointPointCloud",
+    "pow2_bucket",
+]

@@ -1,26 +1,52 @@
-"""Static-shape, bucketed point-cloud batches on the flat wire (numpy).
+"""Static-shape, bucketed batches in numpy: point clouds and graphs.
 
-Counterpart of the flat branch of
-``point_cloud_classifier_tpu/data/batching.py``, which the port cannot
-import (its package ``__init__`` pulls in jax, pandas and h5py).  Batches are
-byte-identical to the JAX loader's: ``points [P_pad, F]`` with events
-contiguous and padding rows at the end, labels ``y [B, 1]`` with ``y_mask
-[B]``, and either ``seg [P_pad]`` (event index per point, padding rows get
-``B``) or ``seg_counts [B + 1]`` (points per event, padding count last).
-``P_pad`` is a power-of-two bucket, so the model sees a small set of shapes.
+Counterpart of ``point_cloud_classifier_tpu/data/batching.py``, which the
+port cannot import (its package ``__init__`` pulls in jax, pandas and h5py).
+Batches are byte-identical to the JAX loaders': keys, dtypes and values.
 
-Packing is the JAX loader's pure-Python branch.  Not ported yet: its C++
-packer, the dense per-cloud-row layout, ``factor_event_cols``, the fp16
-wire, length-sorted batching and non-power-of-two bucket ladders.
+- ``PointCloudLoader``, the flat wire: ``points [P_pad, F]`` with events
+  contiguous and padding rows at the end, labels ``y [B, 1]`` with ``y_mask
+  [B]``, and either ``seg [P_pad]`` (event index per point, padding rows get
+  ``B``) or ``seg_counts [B + 1]`` (points per event, padding count last).
+  ``P_pad`` is a power-of-two bucket, so the model sees a small set of
+  shapes.
+- ``GraphLoader``, the dense in-row wire (``layout="dense"|"auto"``,
+  ``adj_wire="device"``): per-graph padded ``nodes [B, M, F]``, ``node_mask``
+  and the per-occurrence in-degree ``in_deg [B, M]``, and each node's
+  incoming edges ``in_src``/``in_w [B, M, D]``.  M rides the rung ladder
+  (``k·2^j``, k in 8..15) rounded up to 8, D the batch's max in-degree
+  rounded up to a power of two (at least 4).
+
+Packing is the JAX loaders' pure-Python branch.  Not ported yet: their C++
+packers; for point clouds the dense per-cloud-row layout,
+``factor_event_cols``, the fp16 wire, length-sorted batching and
+non-power-of-two bucket ladders; for graphs the flat edge-list wire, the
+edge-slot triples, the host adjacency, the out-row mirror and
+``require_inrow``.  Where the JAX graph loader would ship one of those, the
+port raises ``NotImplementedError`` with the reason.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Sequence
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
 Batch = Dict[str, np.ndarray]
+
+
+def _dense_rung(n: int) -> int:
+    """Smallest k·2^j ≥ n with k in 8..15 (and ≥ 8): ≤ 14% padding, about 8
+    rungs per octave."""
+    n = max(int(n), 8)
+    j = max((n - 1).bit_length() - 4, 0)
+    return -(-n // (1 << j)) << j
+
+
+def _pow2_slots(max_degree: int) -> int:
+    """The in-row list width D: the max in-degree rounded up to a power of
+    two, at least 4."""
+    return max(4, 1 << (max(max_degree, 1) - 1).bit_length())
 
 
 def pow2_bucket(n: int, min_size: int = 256) -> int:
@@ -60,7 +86,7 @@ class PointCloudLoader:
             raise NotImplementedError(
                 f"layout={layout!r} at batch size {batch_size} needs the dense "
                 "per-cloud-row wire, which is not ported yet (ROADMAP Queue 1 "
-                "item 2); use layout='flat'"
+                "item 5); use layout='flat'"
             )
         self.seg_encoding = seg_encoding
         counts = np.array([len(f) for f in event_features], dtype=np.int64)
@@ -118,3 +144,246 @@ class PointCloudLoader:
             else:
                 batch["seg"] = seg
             yield batch
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"GraphLoader: {what}; the port serves only the dense in-row wire so "
+        "far (ROADMAP Queue 1, GraphNet slice 2)"
+    )
+
+
+class GraphLoader:
+    """Batched padded graphs on the dense in-row wire.
+
+    At construction each graph's edges are sorted by (destination, source)
+    and duplicate directed edges merged: weights summed, multiplicities
+    counted.  ``in_deg`` then counts each merged edge by its multiplicity
+    (zero-weight edges included), so a mean divides by the per-occurrence
+    in-degree.  With ``use_weights=False`` the in-row weights are the
+    multiplicities.  ``transfer_dtype="float16"`` ships fp16 features and
+    weights with int16 sources.
+
+    The gates of the JAX loader are kept: ``dense_w_is_existence`` (an
+    exact-zero wire weight) and ``flat_if_multigraph`` (a duplicate edge)
+    demote the whole loader to the flat wire there, and raise here; so do a
+    batch over ``max_dense_bytes`` under ``layout="auto"`` and a batch whose
+    in-degree needs more than ``max_in_degree_wire`` slots.
+    """
+
+    def __init__(
+        self,
+        graphs: Sequence[Dict[str, np.ndarray]],
+        batch_size: int,
+        shuffle: bool,
+        use_weights: bool = True,
+        n_features: Optional[int] = None,
+        seed: int = 0,
+        min_node_bucket: int = 256,  # flat wire only
+        min_edge_bucket: int = 512,  # flat wire only
+        transfer_dtype: str = "float32",
+        seg_encoding: str = "ids",  # flat wire only
+        layout: str = "flat",
+        min_dense_nodes: int = 64,
+        max_dense_bytes: int = 1 << 28,
+        adj_wire: str = "device",
+        min_edge_bucket_dense: int = 512,  # edge-slot triples only
+        length_sorted: bool = False,
+        max_in_degree_wire: int = 32,
+        emit_out_rows: bool = False,
+        dense_w_is_existence: bool = False,
+        require_inrow: bool = False,
+        flat_if_multigraph: bool = False,
+    ):
+        if layout not in ("flat", "dense", "auto"):
+            raise ValueError(f"Unknown graph layout: {layout}")
+        if adj_wire not in ("host", "device"):
+            raise ValueError(f"Unknown adj_wire: {adj_wire}")
+        if layout == "flat":
+            raise _not_ported("layout='flat' ships the flat edge-list wire")
+        if adj_wire == "host":
+            raise _not_ported("adj_wire='host' ships the host adjacency [B, M, M]")
+        if require_inrow:
+            raise _not_ported("require_inrow serves max aggregation (GraphNet slice 2)")
+        if emit_out_rows:
+            raise _not_ported("emit_out_rows serves the fused in-row kernel K6")
+        self.layout = layout
+        self.length_sorted = bool(length_sorted)
+        self.max_in_degree_wire = int(max_in_degree_wire)
+        self.min_dense_nodes = min_dense_nodes
+        self.max_dense_bytes = max_dense_bytes
+        self.half = transfer_dtype == "float16"
+        feat_dtype = np.float16 if self.half else np.float32
+
+        feat_list, edge_list, weight_list, labels = [], [], [], []
+        for g in graphs:
+            feats = np.asarray(g["features"], dtype=feat_dtype)
+            if n_features is not None:
+                feats = feats[:, :n_features]
+            feat_list.append(np.ascontiguousarray(feats))
+            edge_list.append(np.asarray(g["edges"], dtype=np.int32).reshape(2, -1))
+            weight_list.append(np.asarray(g["weights"], dtype=np.float32).reshape(-1))
+            labels.append(np.float32(g["label"]))
+        node_counts = np.array([len(f) for f in feat_list], dtype=np.int64)
+        edge_counts = np.array([e.shape[1] for e in edge_list], dtype=np.int64)
+        self.feat_dim = feat_list[0].shape[1] if feat_list else 0
+        self.feats = np.ascontiguousarray(
+            np.concatenate(feat_list, axis=0) if feat_list else np.zeros((0, 0), feat_dtype),
+            dtype=feat_dtype,
+        )
+        flat_edges = np.concatenate(edge_list, axis=1) if edge_list else np.zeros((2, 0), np.int32)
+        src = np.ascontiguousarray(flat_edges[0], dtype=np.int32)
+        dst = np.ascontiguousarray(flat_edges[1], dtype=np.int32)
+        weights = np.ascontiguousarray(
+            np.concatenate(weight_list) if weight_list else np.zeros((0,)), dtype=np.float32
+        )
+        self.node_offsets = np.ascontiguousarray(
+            np.concatenate([[0], np.cumsum(node_counts)]), dtype=np.int64
+        )
+        self.node_counts = node_counts
+        self.labels = np.asarray(labels, dtype=np.float32)
+
+        # sort each graph's edges by (dst, src) and merge duplicates
+        gid = np.repeat(np.arange(len(edge_counts)), edge_counts)
+        order = np.lexsort((src, dst, gid))
+        gid, src, dst, weights = gid[order], src[order], dst[order], weights[order]
+        self.edge_mult = np.ones(len(weights), dtype=np.float32)
+        if len(src):
+            first = np.concatenate(
+                [[True], (gid[1:] != gid[:-1]) | (dst[1:] != dst[:-1]) | (src[1:] != src[:-1])]
+            )
+            starts = np.flatnonzero(first)
+            src, dst = np.ascontiguousarray(src[first]), np.ascontiguousarray(dst[first])
+            weights = np.add.reduceat(weights, starts).astype(np.float32)
+            self.edge_mult = np.diff(np.concatenate([starts, [len(gid)]])).astype(np.float32)
+            edge_counts = np.bincount(gid[first], minlength=len(edge_counts)).astype(np.int64)
+        self.edges_src, self.edges_dst, self.weights = src, dst, weights
+        self.edge_counts = edge_counts
+        self.edge_offsets = np.ascontiguousarray(
+            np.concatenate([[0], np.cumsum(edge_counts)]), dtype=np.int64
+        )
+        # per-occurrence in-degree per node, and each graph's max in-degree
+        # (edges are (graph, dst)-sorted, so in-degrees are run lengths)
+        gid = np.repeat(np.arange(len(edge_counts)), edge_counts)
+        self.node_indeg = np.zeros(len(self.feats), dtype=np.float32)
+        self.graph_max_indeg = np.zeros(len(edge_counts), dtype=np.int64)
+        if len(dst):
+            np.add.at(self.node_indeg, self.node_offsets[gid] + dst, self.edge_mult)
+            first = np.concatenate([[True], (gid[1:] != gid[:-1]) | (dst[1:] != dst[:-1])])
+            starts = np.flatnonzero(first)
+            run_len = np.diff(np.concatenate([starts, [len(gid)]]))
+            np.maximum.at(self.graph_max_indeg, gid[starts], run_len)
+        self.weights_wire = self.weights.astype(np.float16) if self.half else self.weights
+        self.mult_wire = self.edge_mult.astype(np.float16) if self.half else self.edge_mult
+
+        if dense_w_is_existence and use_weights and bool((self.weights_wire == 0).any()):
+            raise _not_ported(
+                "the dataset has an exact-zero edge weight, so dense attention "
+                "would drop that edge (existence is w != 0) and the JAX loader "
+                "demotes to the flat wire"
+            )
+        if flat_if_multigraph and bool((self.edge_mult > 1).any()):
+            raise _not_ported(
+                "the dataset has duplicate directed edges, which dense attention "
+                "counts once, so the JAX loader demotes to the flat wire"
+            )
+        self.batch_size = int(batch_size) if batch_size else len(labels)
+        self.shuffle = shuffle
+        self.use_weights = use_weights
+        self.seed = seed
+        self._epoch = 0
+
+    @property
+    def n_examples(self) -> int:
+        return len(self.labels)
+
+    def __len__(self) -> int:
+        return -(-self.n_examples // self.batch_size)
+
+    def _dense_wire_batch(self, idx, k: int, b: int, m_pad: int) -> Batch:
+        """``nodes``, ``node_mask``, ``in_deg``, ``y``, ``y_mask``, ``in_src``
+        and ``in_w`` for the graphs ``idx`` in ``b`` slots of ``m_pad`` rows."""
+        small_t = np.float16 if self.half else np.float32
+        idx_t = np.int16 if (self.half and m_pad <= 32768) else np.int32
+        total_edges = int(self.edge_counts[idx].sum())
+        d_pad = _pow2_slots(int(self.graph_max_indeg[idx].max()) if total_edges else 0)
+        if d_pad > self.max_in_degree_wire:
+            raise _not_ported(
+                f"a batch needs {d_pad} in-row slots > max_in_degree_wire "
+                f"{self.max_in_degree_wire}, so the JAX loader ships edge-slot triples"
+            )
+        nodes = np.zeros((b, m_pad, self.feat_dim), dtype=self.feats.dtype)
+        node_mask = np.zeros((b, m_pad), dtype=np.float32)
+        in_deg = np.zeros((b, m_pad), dtype=np.float32)
+        yb = np.zeros((b, 1), dtype=np.float32)
+        ymask = np.zeros((b,), dtype=np.float32)
+        yb[:k, 0] = self.labels[idx]
+        ymask[:k] = 1.0
+
+        weights = self.weights_wire if self.use_weights else self.mult_wire
+        src_l = np.empty((total_edges,), dtype=np.int32)
+        key_l = np.empty((total_edges,), dtype=np.int64)
+        w_l = np.empty((total_edges,), dtype=small_t)
+        cursor = 0
+        for slot, g_i in enumerate(idx):
+            nlo, nhi = self.node_offsets[g_i], self.node_offsets[g_i + 1]
+            elo, ehi = self.edge_offsets[g_i], self.edge_offsets[g_i + 1]
+            n_i, e_i = nhi - nlo, ehi - elo
+            nodes[slot, :n_i] = self.feats[nlo:nhi]
+            node_mask[slot, :n_i] = 1.0
+            in_deg[slot, :n_i] = self.node_indeg[nlo:nhi]
+            src_l[cursor : cursor + e_i] = self.edges_src[elo:ehi]
+            key_l[cursor : cursor + e_i] = self.edges_dst[elo:ehi] + slot * m_pad
+            w_l[cursor : cursor + e_i] = weights[elo:ehi]
+            cursor += e_i
+        # slot q of node i holds its q-th incoming edge in source order
+        counts = np.bincount(key_l, minlength=b * m_pad)
+        starts = np.concatenate([[0], np.cumsum(counts)])
+        pos = np.arange(total_edges) - starts[key_l]
+        in_src = np.zeros((b, m_pad, d_pad), dtype=idx_t)
+        in_w = np.zeros((b, m_pad, d_pad), dtype=small_t)
+        in_src.reshape(b * m_pad, d_pad)[key_l, pos] = src_l
+        in_w.reshape(b * m_pad, d_pad)[key_l, pos] = w_l
+        return {
+            "nodes": nodes,
+            "node_mask": node_mask,
+            "in_deg": in_deg,
+            "y": yb,
+            "y_mask": ymask,
+            "in_src": in_src,
+            "in_w": in_w,
+        }
+
+    def __iter__(self) -> Iterator[Batch]:
+        n, b = self.n_examples, self.batch_size
+        order = np.arange(n)
+        rng = None
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self._epoch)
+            order = rng.permutation(n)
+            self._epoch += 1
+        starts = np.arange(0, n, b)
+        if self.length_sorted:
+            # stable sort by node count, batch neighbours, shuffle batch order
+            order = order[np.argsort(self.node_counts[order], kind="stable")]
+            if rng is not None:
+                rng.shuffle(starts)
+        itemsize = 2 if self.half else 4
+        for start in starts:
+            idx = order[start : start + b]
+            m_pad = max(self.min_dense_nodes, _dense_rung(int(self.node_counts[idx].max())))
+            m_pad = -(-m_pad // 8) * 8
+            dense_bytes = b * m_pad * m_pad * itemsize
+            if dense_bytes > self.max_dense_bytes:
+                if self.layout == "dense":
+                    raise ValueError(
+                        f"dense graph batch needs {dense_bytes/2**20:.0f} MB "
+                        f"(B={b}, M={m_pad}) > max_dense_bytes "
+                        f"{self.max_dense_bytes/2**20:.0f} MB; use "
+                        "layout='auto' to fall back to the flat layout"
+                    )
+                raise _not_ported(
+                    f"a batch of {dense_bytes/2**20:.0f} MB (B={b}, M={m_pad}) is over "
+                    "max_dense_bytes, so the JAX loader ships it on the flat wire"
+                )
+            yield self._dense_wire_batch(idx, len(idx), b, m_pad)

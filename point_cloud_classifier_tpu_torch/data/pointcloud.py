@@ -84,7 +84,7 @@ class Step2PointPointCloud:
         if create_dataset:
             raise NotImplementedError(
                 "building the S2PPC cache from raw HDF5 needs h5py and is not "
-                "ported yet (ROADMAP Queue 1 item 3); build it with the JAX "
+                "ported yet (ROADMAP Queue 1 item 6); build it with the JAX "
                 "package and point data_dir at it"
             )
         if (
@@ -95,7 +95,7 @@ class Step2PointPointCloud:
         ):
             raise NotImplementedError(
                 "the fp16 wire, factored event columns, non-pow-2 buckets and "
-                "length-sorted batching are not ported yet (ROADMAP Queue 1 item 2)"
+                "length-sorted batching are not ported yet (ROADMAP Queue 1 item 5)"
             )
         self.data_dir = data_dir
         self.parts = parts

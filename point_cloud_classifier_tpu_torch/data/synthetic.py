@@ -1,11 +1,13 @@
-"""A seeded synthetic S2PPC cache, written with numpy, for tests and smoke runs.
+"""Seeded synthetic S2PPC and S2PG caches, written with numpy, for tests and smoke runs.
 
 Counterpart of ``point_cloud_classifier_tpu/data/synthetic.py``, which writes
 raw HDF5 showers for the JAX package's preprocessing; the port reads only the
-cache, so this writes the cache itself, in the JAX package's layout
-(``{data_dir}/S2PPC/{split}/S2PPC_{split}_0.npz`` with the columns
-``event_id``, ``energy``, ``energy_total``, ``position_x/y/z``, ``time`` and
-``label``).  Each event's hits go through the reference preprocessing: energy
+caches, so this writes them itself, in the JAX package's layouts.
+
+:func:`write_s2ppc_cache` writes ``{data_dir}/S2PPC/{split}/S2PPC_{split}_0.npz``
+with the columns ``event_id``, ``energy``, ``energy_total``,
+``position_x/y/z``, ``time`` and ``label``.  Each event's hits go through the
+reference preprocessing: energy
 as a fraction of the event total (the total kept as its own column), time
 min-maxed per event, positions standardized per event with energy-fraction
 weights, and the energy column standardized with the train split's mean and
@@ -17,12 +19,27 @@ spikier energy sharing (few dominant hits) than label 1, whose hit times are
 heavy-tailed in half of its events, and whose positions are heavy-tailed
 along z.  The ranges overlap, so a classifier learns the labels in a few
 epochs without telling every event apart at once.
+
+:func:`write_s2pg_cache` writes ``{data_dir}/S2PG/{split}/graph_{i:05d}.npz``
+with ``features`` (energy fraction, x, y, z), ``edges [2, E]``, ``weights``,
+``label`` and ``event_id``; :func:`lineage_graphs` makes the graphs.  Each
+is lineage-like, as the reference's graph construction makes them: particle
+tracks whose consecutive steps are joined both ways, each track's first step
+joined both ways to a step of its parent track,
+and a synthetic incident node (energy 0, at the origin) at the head of the
+primary's track, stored last.  In-degrees stay at 8 or less.  Edge weights are
+the reference's gaussians of the raw step distances (bandwidth the median
+distance), floored at 1e-3 so that they stay nonzero on an fp16 wire; then
+positions are standardized per graph with energy weights and the energy
+column with the train split's mean and standard deviation.  The class signal:
+label 0 tends to fewer, longer tracks and spikier energy sharing than label
+1; the ranges overlap.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -79,3 +96,103 @@ def write_s2ppc_cache(
         out = os.path.join(data_dir, "S2PPC", split)
         os.makedirs(out, exist_ok=True)
         np.savez(os.path.join(out, f"S2PPC_{split}_0.npz"), **cols)
+
+
+_MAX_PARENT_INDEG = 6  # a parent step takes links until this in-degree
+
+
+def _graph(rng: np.random.Generator, n: int, label: int) -> Dict[str, np.ndarray]:
+    """One lineage-like graph of ``n`` nodes (raw features, edges, weights)."""
+    mean_track = rng.uniform(10, 24) if label == 0 else rng.uniform(5, 14)
+    n_steps = n - 1  # the incident node comes last
+    tracks, left = [], n_steps
+    while left > 0:
+        length = min(left, max(1, int(rng.poisson(mean_track))))
+        tracks.append(np.arange(n_steps - left, n_steps - left + length))
+        left -= length
+    pos = np.zeros((n, 3))
+    indeg = np.zeros(n, dtype=np.int64)
+    src, dst = [], []
+
+    def link(a, b):
+        src.extend((a, b))
+        dst.extend((b, a))
+        indeg[a] += 1
+        indeg[b] += 1
+
+    for t, steps in enumerate(tracks):
+        if t == 0:
+            start, head = np.zeros(3), n - 1  # the incident node heads the primary
+            direction = np.array([0.0, 0.0, 1.0])
+        else:
+            parent = tracks[int(rng.integers(0, t))]
+            open_steps = parent[indeg[parent] < _MAX_PARENT_INDEG]
+            head = int(rng.choice(open_steps if len(open_steps) else parent))
+            start = pos[head]
+            direction = rng.normal(size=3)
+            direction /= np.linalg.norm(direction)
+        pos[steps] = start + np.cumsum(
+            direction + 0.3 * rng.normal(size=(len(steps), 3)), axis=0
+        )
+        link(head, int(steps[0]))
+        for a, b in zip(steps[:-1], steps[1:]):
+            link(int(a), int(b))
+    energy = rng.gamma(rng.uniform(0.5, 2.0) if label == 0 else rng.uniform(1.0, 3.5), size=n)
+    energy[-1] = 0.0
+    features = np.concatenate([(energy / energy.sum())[:, None], pos], axis=1)
+    edges = np.array([src, dst], dtype=np.int64)
+    d = np.linalg.norm(pos[edges[0]] - pos[edges[1]], axis=1)
+    sigma = np.median(d) + 1e-6
+    weights = np.maximum(np.exp(-(d**2) / (2 * sigma**2)), 1e-3).astype(np.float32)
+    return {"features": features, "edges": edges, "weights": weights}
+
+
+def _scale_positions(features: np.ndarray) -> None:
+    """Per-graph energy-weighted standardization of columns 1:4, in place."""
+    position, energy = features[:, 1:4], features[:, 0:1]
+    mean = (position * energy).sum(axis=0) / (energy.sum() + 1e-8)
+    std = np.sqrt((energy * (position - mean) ** 2).sum(axis=0) / (energy.sum() + 1e-8))
+    features[:, 1:4] = (position - mean) / (std + 1e-8)
+
+
+def lineage_graphs(
+    rng: np.random.Generator, count: int, min_nodes: int = 160, max_nodes: int = 288
+) -> List[Dict[str, np.ndarray]]:
+    """``count`` lineage-like graphs of ``min_nodes``–``max_nodes`` nodes with
+    random labels: ``features`` (energy fraction, then positions standardized
+    per graph), ``edges``, ``weights`` and ``label``."""
+    graphs = []
+    for _ in range(count):
+        label = int(rng.integers(0, 2))
+        g = _graph(rng, int(rng.integers(min_nodes, max_nodes + 1)), label)
+        _scale_positions(g["features"])
+        g["label"] = np.int64(label)
+        graphs.append(g)
+    return graphs
+
+
+def write_s2pg_cache(
+    data_dir: str,
+    n_graphs: Sequence[int] = (1024, 256, 256),
+    min_nodes: int = 160,
+    max_nodes: int = 288,
+    seed: int = 0,
+) -> None:
+    """Write train, val and test splits of ``n_graphs`` graphs each, of
+    ``min_nodes``–``max_nodes`` nodes, balanced labels, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    splits, first_id = {}, 0
+    for split, count in zip(SPLITS, n_graphs):
+        splits[split] = lineage_graphs(rng, count, min_nodes, max_nodes)
+        for i, g in enumerate(splits[split]):
+            g["event_id"] = np.int64(first_id + i)
+        first_id += count
+    energy = np.concatenate([g["features"][:, 0] for g in splits["train"]])
+    mean, std = energy.mean(), energy.std()
+    for split, graphs in splits.items():
+        out = os.path.join(data_dir, "S2PG", split)
+        os.makedirs(out, exist_ok=True)
+        for i, g in enumerate(graphs):
+            g["features"][:, 0] = (g["features"][:, 0] - mean) / std
+            g["features"] = g["features"].astype(np.float32)
+            np.savez(os.path.join(out, f"graph_{i:05d}.npz"), **g)

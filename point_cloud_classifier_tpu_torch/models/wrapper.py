@@ -22,6 +22,10 @@ model lives on an explicit device, ``cuda`` when there is one; batches go to
 it one at a time, and losses and outputs come back in one copy per epoch or
 per evaluation.
 
+GraphNet serves here (``load``, ``predict``, ``evaluate``) but does not
+train yet: ``fit`` and ``train_step`` on it raise until its GAT backward
+(kernel K4) lands with the GraphNet training slice.
+
 Not ported: fused step windows (``fuse_steps > 1``, ``PCC_FUSE_STEPS``), the
 device-resident batch cache (``device_resident``, ``PCC_RESIDENT``), meshes
 (``mesh``, ``data_parallel``, ``n_model > 1`` and their environment
@@ -82,7 +86,7 @@ def _refuse_unported(fuse_steps, device_resident, mesh, data_parallel, n_model) 
     refused = {
         "fuse_steps > 1 (PCC_FUSE_STEPS; CUDA-graph step capture is a later, "
         "measured option)": int(fuse_steps) > 1,
-        "device_resident (PCC_RESIDENT; ROADMAP Queue 1 item 8)": (
+        "device_resident (PCC_RESIDENT; ROADMAP Queue 1 item 9)": (
             env("PCC_RESIDENT") == "1"
             if env("PCC_RESIDENT") is not None
             else bool(device_resident)
@@ -189,9 +193,18 @@ class ModelWrapper:
 
     # -- training ------------------------------------------------------------
 
+    def _refuse_untrainable(self) -> None:
+        if self.model.name == "graph_net":
+            raise NotImplementedError(
+                "GraphNet training is not ported to PyTorch yet: it comes with "
+                "the GraphNet training slice and the GAT backward kernel K4 "
+                "(ROADMAP Queue 1 item 1); this slice serves GraphNet only"
+            )
+
     def train_step(self, batch) -> torch.Tensor:
         """One optimizer step on a host batch; returns the batch's loss on
         the device (no host sync)."""
+        self._refuse_untrainable()
         batch = self._put(batch)
         logits = self.model(batch, train=True)
         loss = masked_bce(logits, batch["y"], batch["y_mask"])
@@ -201,6 +214,7 @@ class ModelWrapper:
         return loss.detach()
 
     def fit(self, train_loader: Iterable, val_loader: Iterable = None, resume: bool = False) -> None:
+        self._refuse_untrainable()
         log = _ScalarLog(self.log_dir)
         t0 = time.time()
         start_epoch = self.restore_state() if resume else 0

@@ -113,6 +113,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, vp,  # act, is_bf16, stream
     ]
     lib.pcc_phi_pool_bwd.restype = i32
+    lib.pcc_gat_attention.argtypes = [
+        vp, vp, vp, vp, vp, vp,  # s_dst, s_src, in_src, in_w, xw, out
+        i32, i32, i32, i32, i32,  # b, m, d, h, c
+        ctypes.c_float,  # slope
+        i32, i32, i32, vp,  # xw_code, src_code, w_code, stream
+    ]
+    lib.pcc_gat_attention.restype = i32
     lib.pcc_error_string.argtypes = [i32]
     lib.pcc_error_string.restype = ctypes.c_char_p
 

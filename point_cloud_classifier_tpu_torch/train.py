@@ -10,7 +10,7 @@ then ``accuracy/train``, ``accuracy/val`` and ``parameters`` in
 ``accuracy_score`` computes it.
 
 Not ported yet: the evaluation plots (``plots=True``, ROADMAP Queue 1 item
-16), and the command line (Queue 1 item 9): callers pass the config dict.
+16), and the command line (Queue 1 item 10): callers pass the config dict.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """The port's checkpoint mapping against the JAX package's convert.py, both
-directions, exact; and its keys against the port's DeepSets modules."""
+directions, exact; and its keys against the port's DeepSets and GraphNet
+modules."""
 
 import jax
 import numpy as np
@@ -8,9 +9,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from point_cloud_classifier_tpu import convert as jax_convert  # noqa: E402
+from point_cloud_classifier_tpu.data.batching import GraphLoader as JaxGraphLoader  # noqa: E402
 from point_cloud_classifier_tpu.models import DeepSets as JaxDeepSets  # noqa: E402
+from point_cloud_classifier_tpu.models import GraphNet as JaxGraphNet  # noqa: E402
 from point_cloud_classifier_tpu_torch import convert  # noqa: E402
-from point_cloud_classifier_tpu_torch.models import DeepSets  # noqa: E402
+from point_cloud_classifier_tpu_torch.models import DeepSets, GraphNet  # noqa: E402
 
 CONFIGS = {
     "flagship-narrow": dict(phi_layers=[16, 16], rho_layers=[16], layer_norm=False, residual_block=True),
@@ -95,8 +98,12 @@ def test_unknown_and_leftover_keys_raise():
         convert.convert_torch_state_dict("deep_sets", cfg, {**state, "extra.weight": torch.zeros(1)})
     with pytest.raises(KeyError):
         convert.convert_torch_state_dict("deep_sets", cfg, {k: v for k, v in state.items() if k != "rho.0.bias"})
-    with pytest.raises(NotImplementedError):
-        convert.to_torch_state_dict("graph_net", cfg, {}, {})
+    with pytest.raises(NotImplementedError, match="no converter"):
+        convert.to_torch_state_dict("fully_connected_net", cfg, {}, {})
+    with pytest.raises(NotImplementedError, match="SAGPooling"):
+        convert.to_torch_state_dict("graph_net", {"model": {**_graph_cfg("gat"), "sag_pool": True}}, {}, {})
+    with pytest.raises(KeyError, match="GATConv_0"):
+        convert.to_torch_state_dict("graph_net", {"model": _graph_cfg("gat")}, {}, {})
 
 
 def test_converted_tree_is_a_copy_of_the_live_weights():
@@ -110,3 +117,59 @@ def test_converted_tree_is_a_copy_of_the_live_weights():
         for p in model.parameters():
             p.add_(1.0)
     _assert_trees_equal(params, before)
+
+
+GRAPH_CONFIGS = {"graphconv": dict(use_gat=False), "gat": dict(use_gat=True)}
+
+
+def _graph_cfg(name):
+    """configs/graph_net.yaml at narrow width."""
+    return dict(input_dim=4, hidden_dim=16, output_dim=1, activation="tanh", gat_heads=4,
+                deepchem_style=True, **GRAPH_CONFIGS[name])
+
+
+def _jax_graph_variables(model_cfg, seed=0):
+    rng = np.random.default_rng(seed)
+    graph = {"features": rng.normal(size=(5, 4)).astype(np.float32),
+             "edges": np.array([[0, 1, 2], [1, 2, 3]]), "weights": np.ones(3, np.float32), "label": 1}
+    batch = next(iter(JaxGraphLoader([graph] * 2, 2, shuffle=False, layout="dense")))
+    variables = JaxGraphNet(**model_cfg).init(jax.random.PRNGKey(seed), batch, train=False)
+    # move the running statistics off their 0/1 initial values
+    stats = jax.tree.map(lambda a: np.asarray(a) + rng.uniform(0.1, 0.5, np.shape(a)).astype(np.float32),
+                         variables["batch_stats"])
+    return jax.tree.map(np.asarray, variables["params"]), stats
+
+
+@pytest.mark.parametrize("name", list(GRAPH_CONFIGS))
+def test_graph_net_tree_round_trips_exactly(name):
+    """A JAX init tree → the port's state_dict (every key of the port's
+    GraphNet, in its order) → the same tree, exactly, every key consumed."""
+    cfg = {"model": _graph_cfg(name)}
+    params, stats = _jax_graph_variables(cfg["model"], seed=3)
+    sd = convert.to_torch_state_dict("graph_net", cfg, params, stats)
+    model = GraphNet(**cfg["model"])
+    assert list(sd) == list(model.state_dict())
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()}, strict=True)
+    back, back_stats = convert.convert_torch_state_dict("graph_net", cfg, model.state_dict())
+    _assert_trees_equal(back, params)
+    _assert_trees_equal(back_stats, stats)
+    with pytest.raises(ValueError, match="unconverted"):
+        convert.convert_torch_state_dict("graph_net", cfg, {**sd, "conv1.lin_src.weight": sd["fc1.weight"]})
+
+
+def test_graph_conv_mapping_matches_jax():
+    """GraphConv checkpoints map as the JAX package's converter maps them
+    (it refuses GAT, whose layout the port fixes for its own checkpoints)."""
+    cfg = {"model": _graph_cfg("graphconv")}
+    params, stats = _jax_graph_variables(cfg["model"])
+    ours = convert.to_torch_state_dict("graph_net", cfg, params, stats)
+    theirs = jax_convert.to_torch_state_dict("graph_net", cfg, params, stats)
+    assert list(ours) == list(theirs)
+    for k in ours:
+        assert ours[k].dtype == theirs[k].dtype
+        np.testing.assert_array_equal(ours[k], theirs[k])
+    state = GraphNet(**cfg["model"], generator=torch.Generator().manual_seed(2)).state_dict()
+    ours, ours_stats = convert.convert_torch_state_dict("graph_net", cfg, state)
+    theirs, theirs_stats = jax_convert.convert_torch_state_dict("graph_net", cfg, state)
+    _assert_trees_equal(ours, theirs)
+    _assert_trees_equal(ours_stats, theirs_stats)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on a card: K1 and K2 against their plain versions,
-and the DeepSets kernel route against its plain route, serving and training.
+"""The port's CUDA kernels on a card: K1, K2 and K3 against their plain
+versions, the DeepSets kernel route against its plain route, serving and
+training, and the GraphNet GAT route against its plain route.
 
 These tests need a CUDA card and skip without one.  They import neither jax
 nor the JAX package, so they run on a machine that has only PyTorch; there,
@@ -13,8 +14,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from point_cloud_classifier_tpu_torch.models import DeepSets  # noqa: E402
-from point_cloud_classifier_tpu_torch.ops import fused_phi  # noqa: E402
+from point_cloud_classifier_tpu_torch.models import DeepSets, GraphNet  # noqa: E402
+from point_cloud_classifier_tpu_torch.ops import fused_phi, gat  # noqa: E402
+from point_cloud_classifier_tpu_torch.ops.dispatch import force_plain  # noqa: E402
 
 SPEC = (("plain", False), ("residual", False))
 # max |kernel − plain| / max(1, max |plain|): f32 sums in another order
@@ -202,3 +204,96 @@ def test_fit_step_kernel_route_matches_plain_route():
     for (name, p), q in zip(kernel.model.named_parameters(), plain.model.parameters()):
         scale = max(1e-12, q.grad.abs().max().item())
         assert (p.grad - q.grad).abs().max().item() <= 1e-4 * scale, name
+
+
+# K3 against gat_attention_plain: max |Δ| / max(1, max |plain|); bf16 also
+# relative Frobenius (an α or an output computed in another order can land
+# on the neighbouring bf16 value).  The same bounds as chip_smoke.py, set
+# from its readings on an H100 (80GB HBM3, 700 W).
+GAT_F32_REL, GAT_BF16_REL, GAT_BF16_FRO = 1e-6, 8e-3, 1e-3
+
+
+def _gat_inputs(dev, dtype, b=3, m=45, d=8, h=4, c=128, id_pool=None, frac=0.6, isolated=0,
+                wire="f32-int32", seed=0):
+    rng = np.random.default_rng(seed)
+    in_src = rng.integers(0, id_pool or m, size=(b, m, d)).astype(np.int32)
+    in_w = (rng.random((b, m, d)) * (rng.random((b, m, d)) < frac)).astype(np.float32)
+    in_w[:, :isolated] = 0.0
+    if wire == "f16-int16":
+        in_src, in_w = in_src.astype(np.int16), in_w.astype(np.float16)
+    s_dst, s_src = (torch.from_numpy(rng.normal(size=(b, m, h)).astype(np.float32)).to(dev) for _ in range(2))
+    xw = torch.from_numpy(rng.normal(size=(b, m, c)).astype(np.float32)).to(dev, dtype)
+    return s_dst, s_src, torch.from_numpy(in_src).to(dev), torch.from_numpy(in_w).to(dev), xw
+
+
+GAT_CASES = {
+    "ragged-d4": dict(b=5, m=37, d=4),
+    "d8": dict(m=61, d=8),
+    "d32-dedupe-self-edges": dict(m=45, d=32, id_pool=6),
+    "isolated": dict(m=40, isolated=9),
+    "f16-int16-wire": dict(m=64, wire="f16-int16"),
+    "one-head": dict(m=24, h=1, c=32),
+    "m1": dict(b=2, m=1, d=4),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GAT_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gat_kernel_matches_plain(dtype, case):
+    dev = _cuda()
+    args = _gat_inputs(dev, dtype, **GAT_CASES[case])
+    before = gat.gat_attention.launches
+    out = gat.gat_attention(*args)
+    torch.cuda.synchronize()
+    assert gat.gat_attention.launches == before + 1
+    ref = gat.gat_attention_plain(*args)
+    assert out.shape == ref.shape and out.dtype == ref.dtype == dtype
+    diff = (out.double() - ref.double())
+    rel = diff.abs().max().item() / max(1.0, ref.abs().max().item())
+    if dtype == torch.float32:
+        assert rel <= GAT_F32_REL
+    else:
+        assert rel <= GAT_BF16_REL and diff.norm().item() <= GAT_BF16_FRO * ref.double().norm().item()
+    if GAT_CASES[case].get("isolated"):
+        torch.testing.assert_close(out[:, :9], args[-1][:, :9], rtol=0, atol=GAT_F32_REL * 4)
+
+
+@pytest.mark.gpu
+def test_gat_kernel_refuses_gradients_and_bad_operands():
+    dev = _cuda()
+    s_dst, s_src, in_src, in_w, xw = _gat_inputs(dev, torch.float32)
+    with pytest.raises(NotImplementedError, match="K4"):
+        gat.gat_attention(s_dst, s_src, in_src, in_w, xw.requires_grad_())
+    with torch.no_grad():
+        gat.gat_attention(s_dst, s_src, in_src, in_w, xw)  # no gradient asked for
+    with pytest.raises(TypeError, match="int32/int16"):
+        gat.gat_attention(s_dst, s_src, in_src.long(), in_w, xw.detach())
+    with pytest.raises(ValueError, match="at most 32"):
+        wide = torch.zeros(*in_src.shape[:2], 33, dtype=torch.int32, device=dev)
+        gat.gat_attention(s_dst, s_src, wide, wide.float(), xw.detach())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_gat_graph_net_kernel_route_matches_plain_route(compute_dtype):
+    """GraphNet at full width on a dense in-row batch: two K3 launches per
+    forward, logits as on the plain route."""
+    from point_cloud_classifier_tpu_torch.data import GraphLoader
+    from point_cloud_classifier_tpu_torch.data.synthetic import lineage_graphs
+
+    dev = _cuda()
+    graphs = lineage_graphs(np.random.default_rng(4), 8, 40, 90)
+    batch = next(iter(GraphLoader(graphs, 8, shuffle=False, layout="dense", use_weights=False)))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    model = GraphNet(input_dim=4, hidden_dim=128, output_dim=1, activation="tanh", use_gat=True,
+                     deepchem_style=True, compute_dtype=compute_dtype,
+                     generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    before = gat.gat_attention.launches
+    with torch.no_grad():
+        out = model(batch)
+        with force_plain():
+            ref = model(batch)
+    assert gat.gat_attention.launches == before + 2
+    tol = 1e-4 if compute_dtype == "float32" else 3e-2
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)

@@ -38,12 +38,15 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
         for name in names:
             importlib.import_module(name)
         import chip_smoke
-        print(len(names), "modules")
+        print(len(names), "modules:", " ".join(names))
         """
     )
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 19
+    assert int(proc.stdout.split()[0]) >= 24
+    walked = set(proc.stdout.split(":", 1)[1].split())
+    graph_slice = {"data.graph", "models.graph_net", "ops.dispatch", "ops.gat", "ops.inrow_graph"}
+    assert {f"point_cloud_classifier_tpu_torch.{m}" for m in graph_slice} <= walked
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -91,9 +91,12 @@ def test_port_state_dict_checkpoint_loads(tmp_path):
 
 def test_get_model_errors(tmp_path):
     cfg = _config()
-    for name in ("logistic_regression", "fully_connected_net", "graph_net"):
+    for name in ("logistic_regression", "fully_connected_net"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             factory.get_model(name, cfg)
+    sag = {**cfg, "model": dict(input_dim=4, hidden_dim=8, output_dim=1, activation="tanh", sag_pool=True)}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        factory.get_model("graph_net", sag)
     with pytest.raises(ValueError):
         factory.get_model("transformer", cfg)
     with pytest.raises(FileNotFoundError):
