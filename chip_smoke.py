@@ -46,7 +46,33 @@ result):
    plain route (``force_plain()``), with K3's launch count (2 per GAT batch);
 10. graph times: K3 against its plain version at B=32 and B=256, f32 and
    bf16; ``predict`` per batch on both routes; and a ``torch.profiler``
-   trace of the B=256 GAT predict (the device's idle share).
+   trace of the B=256 GAT predict (the device's idle share);
+11. GAT backward kernel against plain: the backward of ``gat_attention``
+   (kernel K4) against ``gat_attention_bwd_plain`` at K3's seven cases, f32
+   and bf16, each of ``ds_dst``, ``ds_src`` and ``dxw``;
+12. in-row aggregation kernel against plain: ``inrow_aggregate`` (kernel K6)
+   against ``inrow_aggregate_plain``, forward and backward (the Function
+   over the out-row lists), add and mean, f32 and bf16, at the config batch
+   (B=32, M=288, D=8, H=128), B=256, the fp16/int16 wire, D=32 lists,
+   isolated nodes, an M that is no power of two, and duplicate sources;
+13. graph training slice: ``train.train_model("graph_net", "s2pg", cfg)`` at
+   the full width of ``configs/graph_net.yaml`` on a seeded synthetic S2PG
+   cache at batch 32, 3 epochs for GAT (K3 forward, K4 backward) and for
+   GraphConv add with ``fused_inrow`` (K6 both ways) and 1 epoch for
+   GraphConv add as configured (no kernel), with the launch counts, the
+   losses, the val accuracy and the checkpoints checked; then five steps of
+   each kernel route against its plain route from the same weights, and the
+   fused model on batches without out-rows (K6 serves, a train step raises);
+14. graph training times: K4 and K6 against their plain versions at B=32
+   and B=256, f32 and bf16; the train step per batch on the kernel and plain
+   routes; packing with and without the out-rows; and a ``torch.profiler``
+   trace of the B=256 f32 GAT train step.
+
+Beside each kernel's time the script works out the least time the card could
+take for the same work (``bound_ms``: the bytes the function must move over
+3.35 TB/s, or its operations over 67 TFLOP/s of f32 outside the tensor
+cores, whichever is longer) and, where one PyTorch call computes the same
+function, that call's time (``library_ms``).
 
 The line before the last is one JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -82,7 +108,18 @@ from point_cloud_classifier_tpu_torch.ops.fused_phi import (
     phi_pool_bwd_plain,
     phi_pool_plain,
 )
-from point_cloud_classifier_tpu_torch.ops.gat import gat_attention, gat_attention_plain
+from point_cloud_classifier_tpu_torch.ops.gat import (
+    _gat_attention_bwd_cuda,
+    adjacency_mask,
+    gat_attention,
+    gat_attention_bwd_plain,
+    gat_attention_plain,
+)
+from point_cloud_classifier_tpu_torch.ops.inrow_graph import (
+    _inrow_aggregate_cuda,
+    inrow_aggregate,
+    inrow_aggregate_plain,
+)
 
 SEED = 0
 # configs/deep_sets.yaml (model, dataset and trainer sections)
@@ -140,7 +177,16 @@ KERNELS = {
                      "point_cloud_classifier_tpu/ops/fused_phi.py:552"),
     "gat_attention": ("point_cloud_classifier_tpu_torch/csrc/gat_attention.cu",
                       "point_cloud_classifier_tpu/ops/gat_pallas.py:862"),
+    "gat_attention_bwd": ("point_cloud_classifier_tpu_torch/csrc/gat_attention_bwd.cu",
+                          "point_cloud_classifier_tpu/ops/gat_pallas.py:903"),
+    "inrow_aggregate": ("point_cloud_classifier_tpu_torch/csrc/inrow_aggregate.cu",
+                        "point_cloud_classifier_tpu/ops/inrow_graph.py:133"),
 }
+# The H100's published peaks (NVIDIA's data sheet, SXM part): device memory
+# rate, and f32 operations outside the tensor cores (every kernel here
+# accumulates in f32 on CUDA cores).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 # configs/graph_net.yaml (model, dataset and trainer sections); the GAT arm
 # sets use_gat
 GRAPH_CONFIG = {
@@ -172,11 +218,60 @@ GAT_HEADS, GAT_C = 4, 128
 # 2.5e-7 in f32; in bf16 max relative 2.5e-3 and relative Frobenius 1.4e-4
 # (one case; the others bit-equal).
 GAT_F32_REL, GAT_BF16_REL, GAT_BF16_FRO = 1e-6, 8e-3, 1e-3
+# K4 against gat_attention_bwd_plain, per gradient (ds_dst, ds_src, dxw): max
+# |Δ| / max(1, max |plain|) and the relative Frobenius distance.  f32: the
+# same f32 math; the dots, the softmax sums and K4's atomic adds run in other
+# orders (and in an order that changes from run to run).  bf16: dα and α are
+# rounded to bf16 on both sides, so a dot summed in another order can land on
+# the neighbouring bf16 value (2^-8 relative), which the softmax backward
+# carries into the score gradients; the bf16 bounds allow two such steps.  The
+# largest readings at these cases on an H100 (80GB HBM3, 700 W): f32 max
+# relative 7.7e-7 and relative Frobenius 4.1e-7; bf16 max relative 7.5e-4
+# (dxw, one case; six of seven bit-equal) and relative Frobenius 7.0e-5.
+GAT_BWD_F32_REL, GAT_BWD_F32_FRO, GAT_BWD_BF16_REL, GAT_BWD_BF16_FRO = 1e-5, 1e-5, 8e-3, 1e-3
+# K6 against inrow_aggregate_plain, forward and backward: max |Δ| / max(1,
+# max |plain|).  f32: the same products, summed over the D slots in slot
+# order against a matrix product's order.  bf16: exact f32 products of bf16
+# values and one rounding of the output on both sides, so at most one bf16
+# value apart (2^-8 relative) where the f32 sums round apart.  The largest
+# readings at these cases on an H100 (80GB HBM3, 700 W) are beside the
+# bounds in PERF.md.
+INROW_F32_REL, INROW_BF16_REL = 1e-6, 8e-3
+# bf16 "mean" backward against the autograd of the plain version, which
+# divides the cotangent by the degree in f32 where the Function (as the JAX
+# custom_vjp) rounds that quotient to bf16 first: one more bf16 rounding per
+# addend
+INROW_BF16_AUTOGRAD_REL = 3e-2
+# the graph training slice: val accuracy floors (chance 0.5), set from the
+# same config, data and seed on the CPU (x86, plain versions), which read
+# 0.78125 for GAT and 0.761719 for the fused GraphConv after 3 epochs, and
+# 0.632812 for GraphConv add after its 1 epoch
+GRAPH_VAL_ACC_FLOOR = {"GAT": 0.70, "GraphConv add fused_inrow": 0.68, "GraphConv add": 0.55}
 
 
 def reset_launch_counts() -> None:
     """Every kernel wrapper's launch count to 0, just before a path runs."""
-    phi_pool.launches = phi_pool.bwd_launches = gat_attention.launches = 0
+    phi_pool.launches = phi_pool.bwd_launches = 0
+    gat_attention.launches = gat_attention.bwd_launches = 0
+    inrow_aggregate.launches = inrow_aggregate.bwd_launches = 0
+
+
+def launch_counts() -> dict:
+    return {"phi_pool": phi_pool.launches, "phi_pool_bwd": phi_pool.bwd_launches,
+            "gat_attention": gat_attention.launches, "gat_attention_bwd": gat_attention.bwd_launches,
+            "inrow_aggregate": inrow_aggregate.launches,
+            "inrow_aggregate backward": inrow_aggregate.bwd_launches}
+
+
+def bound_ms(n_bytes: float, n_flops: float):
+    """(least ms the card could take, what bounds it): the bytes over the
+    memory rate or the f32 operations over their peak, whichever is longer."""
+    by_bytes, by_ops = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * n_flops / F32_FLOPS_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def device_phase() -> str:
@@ -554,7 +649,7 @@ def route_models(dtype: str, **overrides):
 def times_phase(smi: str, run_dir: str):
     """Both kernels against their plain versions (CUDA events, plain first),
     then predict and the train step per batch (host clock) on both routes.
-    Returns the config shape's f32 (kernel ms, plain ms) per kernel."""
+    Returns, per kernel, the config shape's f32 times and bound."""
     config_times = {}
     for name, b, p in (("config", CONFIG_B, CONFIG_P), ("flagship", FLAGSHIP_B, FLAGSHIP_P)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -569,9 +664,25 @@ def times_phase(smi: str, run_dir: str):
             print(f"time phi_pool {name} B={b} P={p} {str(dtype)[6:]}: K1 {kernel_ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms; backward without d_points: K2 {bwd_ms:.4f} ms, "
                   f"plain {bwd_plain_ms:.4f} ms [{smi}]")
-            if (name, dtype) == ("config", torch.float32):
-                config_times = {"phi_pool": (kernel_ms, plain_ms),
-                                "phi_pool_bwd": (bwd_ms, bwd_plain_ms)}
+            if dtype == torch.float32:
+                # every row goes through every layer (2 operations per weight);
+                # the backward recomputes the chain, forms every d_W (as many
+                # again) and dz·Wᵀ for every layer but the first
+                flat = [t for layer in params for t in layer]
+                per_row = [2 * w.shape[0] * w.shape[1] for w, _ in params]
+                out_bytes = (b + 1) * params[-1][0].shape[1] * 4
+                fwd = bound_ms(_nbytes(points, seg, *flat) + out_bytes, p * sum(per_row))
+                bwd = bound_ms(_nbytes(points, seg, g, *flat) + _nbytes(*flat),
+                               p * (2 * sum(per_row) + sum(per_row[1:])))
+                print(f"bound phi_pool {name} f32: K1 {fwd[0]:.4f} ms by {fwd[1]}, K2 {bwd[0]:.4f} ms "
+                      f"by {bwd[1]} (3.35 TB/s, 67 TFLOP/s f32); no single PyTorch call computes either")
+                if name == "config":
+                    config_times = {
+                        "phi_pool": dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=fwd[0],
+                                         bound_by=fwd[1], library_ms=None),
+                        "phi_pool_bwd": dict(ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd[0],
+                                             bound_by=bwd[1], library_ms=None),
+                    }
     for b in (CONFIG_B, FLAGSHIP_B):
         clouds, labels = make_clouds(np.random.default_rng(SEED + 2), 4 * b)
         t0 = time.perf_counter()
@@ -601,22 +712,19 @@ def _device_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
-def profile_phase(smi: str) -> None:
-    """A torch.profiler trace of the B=256 f32 train step on the kernel
-    route: device busy time, idle share of the window, top device items."""
+def profile_train_steps(smi: str, label: str, wrapper, batches) -> None:
+    """A torch.profiler trace of one train step per batch of ``batches``:
+    device busy time, idle share of the window, top device items."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    clouds, labels = make_clouds(np.random.default_rng(SEED + 2), 4 * FLAGSHIP_B)
-    batches = list(PointCloudLoader(clouds, labels, FLAGSHIP_B, shuffle=False))
-    _, kernel = route_models("float32")
     for batch in batches:
-        kernel.train_step(batch)
+        wrapper.train_step(batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for batch in batches:
-            kernel.train_step(batch)
+            wrapper.train_step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -626,14 +734,22 @@ def profile_phase(smi: str) -> None:
     )
     busy_ms = sum(_device_us(e) for e in items) / 1e3
     if busy_ms <= 0:
-        print(f"profile train step B=256 f32: the profiler recorded no device time; "
+        print(f"profile train step {label}: the profiler recorded no device time; "
               f"device busy and idle share not measured [{smi}]")
         return
     n = len(batches)
-    top = "; ".join(f"{e.key[:48]} {_device_us(e) / 1e3 / n:.4f} ms x{e.count // n}" for e in items[:6])
-    print(f"profile train step B=256 f32 K1+K2 route, {n} steps under torch.profiler: device busy "
+    top = "; ".join(f"{e.key[:64]} {_device_us(e) / 1e3 / n:.4f} ms x{e.count / n:g}" for e in items[:8])
+    print(f"profile train step {label}, {n} steps under torch.profiler: device busy "
           f"{busy_ms / n:.4f} ms/step of {wall_ms / n:.4f} ms/step wall, idle share "
           f"{1 - busy_ms / wall_ms:.3f}; top device items per step: {top} [{smi}]")
+
+
+def profile_phase(smi: str) -> None:
+    """The B=256 f32 DeepSets train step on the kernel route."""
+    clouds, labels = make_clouds(np.random.default_rng(SEED + 2), 4 * FLAGSHIP_B)
+    batches = list(PointCloudLoader(clouds, labels, FLAGSHIP_B, shuffle=False))
+    _, kernel = route_models("float32")
+    profile_train_steps(smi, "B=256 f32 K1+K2 route", kernel, batches)
 
 
 def _graph_batch(graphs, batch_size, transfer_dtype="float32"):
@@ -708,6 +824,20 @@ def gat_kernel_phase():
     return config_err
 
 
+def gat_bound(args, backward: bool):
+    """K3's or K4's bound for these inputs: every operand read once and every
+    result written once; per attended pair (a kept slot or the self-loop, as
+    this run's lists have them) 2·C operations for the weighted sum and a few
+    per head for the logit and the softmax, and for the backward the dα dots
+    and the dxw products on top."""
+    s_dst, s_src, in_src, in_w, xw = args
+    pairs = int(adjacency_mask(in_src, in_w, s_dst.shape[1]).sum())
+    h, c = s_dst.shape[-1], xw.shape[-1]
+    if backward:  # reads the five operands and g; writes ds_dst, ds_src, dxw
+        return bound_ms(_nbytes(*args, xw) + _nbytes(s_dst, s_src, xw), pairs * (4 * c + 16 * h))
+    return bound_ms(_nbytes(*args) + _nbytes(xw), pairs * (2 * c + 8 * h))
+
+
 def graph_config(data_dir: str, use_gat: bool, **model) -> dict:
     cfg = copy.deepcopy(GRAPH_CONFIG)
     cfg["model"].update(use_gat=use_gat, **model)
@@ -776,10 +906,15 @@ def graph_slice_phase(work_dir: str) -> int:
 
 
 class PlainRoute:
-    """A wrapper whose ``predict`` runs inside ``force_plain()``."""
+    """A wrapper whose ``predict`` and ``train_step`` run inside
+    ``force_plain()``."""
 
     def __init__(self, wrapper):
         self.wrapper = wrapper
+
+    def train_step(self, batch):
+        with force_plain():
+            return self.wrapper.train_step(batch)
 
     def predict(self, batches, return_prob=False):
         with force_plain():
@@ -789,7 +924,7 @@ class PlainRoute:
 def graph_times_phase(smi: str, run_dir: str):
     """K3 against its plain version (CUDA events, plain first), then predict
     per batch (host clock) on both routes, and a profile of the B=256 GAT
-    predict.  Returns the config shape's f32 (kernel ms, plain ms)."""
+    predict.  Returns the config shape's f32 times and bound."""
     config_times = None
     for case in ("config B=32", "flagship B=256 M=256"):
         for dtype in (torch.float32, torch.bfloat16):
@@ -799,8 +934,13 @@ def graph_times_phase(smi: str, run_dir: str):
                 kernel_ms = cuda_ms(lambda: gat_attention(*args))
             print(f"time gat_attention {case} B,M,D={tuple(args[2].shape)} H={GAT_HEADS} C={GAT_C} "
                   f"{str(dtype)[6:]}: K3 {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms [{smi}]")
-            if (case, dtype) == ("config B=32", torch.float32):
-                config_times = (kernel_ms, plain_ms)
+            if dtype == torch.float32:
+                bound = gat_bound(args, backward=False)
+                print(f"bound gat_attention {case} f32: K3 {bound[0]:.4f} ms by {bound[1]}; no single "
+                      f"PyTorch call computes it")
+                if case == "config B=32":
+                    config_times = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound[0],
+                                        bound_by=bound[1], library_ms=None)
     for b in (GRAPH_B, FLAGSHIP_GRAPHS):
         graphs = lineage_graphs(np.random.default_rng(SEED + 2), 4 * b)
         t0 = time.perf_counter()
@@ -847,22 +987,445 @@ def profile_predict(smi: str, model, batches) -> None:
           f"{1 - busy_ms / wall_ms:.3f}; top device items per batch: {top} [{smi}]")
 
 
+def gat_bwd_kernel_phase():
+    """K4, reached through ``gat_attention``'s autograd Function, against
+    gat_attention_bwd_plain at K3's cases; returns the config-shape f32
+    max |Δ| over the three gradients."""
+    config_err = None
+    for case in GAT_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = gat_inputs(case, dtype)
+            g = torch.from_numpy(
+                np.random.default_rng(SEED + 5).normal(size=tuple(args[-1].shape)).astype(np.float32)
+            ).to(args[-1].device, dtype)
+            # through the autograd Function, as the main path reaches K4
+            s_dst, s_src, in_src, in_w, xw = args
+            leaves = [t.clone().requires_grad_() for t in (s_dst, s_src, xw)]
+            before = gat_attention.bwd_launches
+            out = gat_attention(leaves[0], leaves[1], in_src, in_w, leaves[2])
+            got = torch.autograd.grad(out, leaves, g)
+            if gat_attention.bwd_launches != before + 1:
+                raise AssertionError(f"K4 {case} {dtype}: the Function's backward did not launch K4")
+            # one gradient asked for alone comes back in its own place
+            (only_src,) = torch.autograd.grad(
+                gat_attention(s_dst, leaves[1], in_src, in_w, xw), leaves[1], g)
+            torch.cuda.synchronize()
+            want = gat_attention_bwd_plain(*args, g)
+            got, want = (*got, only_src), (*want, want[1])
+            torch.cuda.synchronize()
+            f32 = dtype == torch.float32
+            rel_bound, fro_bound = ((GAT_BWD_F32_REL, GAT_BWD_F32_FRO) if f32
+                                    else (GAT_BWD_BF16_REL, GAT_BWD_BF16_FRO))
+            readings, worst = [], 0.0
+            for name, out, ref in zip(("ds_dst", "ds_src", "dxw", "ds_src alone"), got, want, strict=True):
+                if out.shape != ref.shape or out.dtype != ref.dtype or not torch.isfinite(out).all():
+                    raise AssertionError(f"K4 {case} {dtype}: bad {name} {tuple(out.shape)} {out.dtype}")
+                err, rel, fro = _errors(out, ref)
+                readings.append(f"{name} max_abs {err:.3e} max_rel {rel:.3e} rel_fro {fro:.3e}")
+                worst = max(worst, err)
+                if not (rel <= rel_bound and fro <= fro_bound):
+                    raise AssertionError(f"K4 disagrees with plain: {case} {dtype} {name} {(err, rel, fro)}")
+            if "isolated" in case and got[0][:, :9].abs().max().item() != 0.0:
+                raise AssertionError(f"K4 {case}: a node that attends to itself only has a ds_dst")
+            print(f"kernel K4 {case} B,M,D={tuple(args[2].shape)} xw {str(dtype)[6:]}: "
+                  f"{'; '.join(readings)} (max_rel bound {rel_bound:.0e}, rel_fro bound {fro_bound:.0e})")
+            if (case, dtype) == ("config B=32", torch.float32):
+                config_err = worst
+    return config_err
+
+
+def _out_rows(in_src, in_w):
+    """The out-row mirror of hand-built in-row lists (numpy): each node's
+    outgoing edges in destination order, as the loader ships them."""
+    b, m, _ = in_src.shape
+    adj = np.zeros((b, m, m), np.float64)
+    np.add.at(adj, (np.arange(b)[:, None, None], np.arange(m)[None, :, None], in_src.astype(np.int64)),
+              in_w.astype(np.float64))
+    adj_t = np.swapaxes(adj, 1, 2)
+    d_out = max(4, int((adj_t != 0).sum(axis=2).max()))
+    if d_out > 32:
+        raise AssertionError(f"out-degree {d_out} exceeds the wire's 32 slots")
+    out_dst = np.zeros((b, m, d_out), in_src.dtype)
+    out_w = np.zeros((b, m, d_out), in_w.dtype)
+    for g in range(b):
+        for row in range(m):
+            cols = np.flatnonzero(adj_t[g, row])
+            out_dst[g, row, : len(cols)] = cols
+            out_w[g, row, : len(cols)] = adj_t[g, row, cols]
+    return out_dst, out_w
+
+
+INROW_CASES = ("config B=32", "config B=32 fp16/int16 wire", "flagship B=256", "D=32 int16/fp16 lists",
+               "isolated D=8", "ragged M=37 D=4")
+INROW_WIDTH = GRAPH_CONFIG["model"]["hidden_dim"]
+
+
+def inrow_inputs(case: str, dtype, seed: int = SEED):
+    """(h, in_src, in_w, out_dst, out_w) on the card for one K6 case: the
+    loader's weighted batches with their out-rows, or hand-built lists in
+    which no source repeats within a row (as in the loader's merged batches)
+    with their mirror."""
+    rng = np.random.default_rng(seed)
+    wire = {"config B=32": (GRAPH_B, "float32"), "config B=32 fp16/int16 wire": (GRAPH_B, "float16"),
+            "flagship B=256": (FLAGSHIP_GRAPHS, "float32")}
+    if case in wire:
+        b, transfer = wire[case]
+        loader = GraphLoader(lineage_graphs(rng, b), b, shuffle=False, layout="dense", use_weights=True,
+                             transfer_dtype=transfer, emit_out_rows=True)
+        batch = next(iter(loader))
+        lists = [batch[k] for k in ("in_src", "in_w", "out_dst", "out_w")]
+    else:
+        b, m, d, frac = {"D=32 int16/fp16 lists": (3, 96, 32, 0.4), "isolated D=8": (2, 40, 8, 0.6),
+                         "ragged M=37 D=4": (5, 37, 4, 0.6)}[case]
+        in_src = np.stack([np.stack([rng.permutation(m)[:d] for _ in range(m)]) for _ in range(b)])
+        in_src = in_src.astype(np.int32)
+        in_w = (rng.random((b, m, d)) * (rng.random((b, m, d)) < frac)).astype(np.float32)
+        if "isolated" in case:
+            in_w[:, :9] = 0.0
+        if "int16" in case:
+            in_src, in_w = in_src.astype(np.int16), in_w.astype(np.float16)
+        lists = [in_src, in_w, *_out_rows(in_src, in_w)]
+    dev = torch.device("cuda")
+    b, m, _ = lists[0].shape
+    h = torch.from_numpy(rng.normal(size=(b, m, INROW_WIDTH)).astype(np.float32)).to(dev, dtype)
+    return (h, *(torch.from_numpy(a).to(dev) for a in lists))
+
+
+def _max_rel(out, ref) -> float:
+    return _errors(out, ref)[1]
+
+
+def inrow_kernel_phase():
+    """K6 against inrow_aggregate_plain, forward and backward, at every case;
+    returns the config-shape f32 "add" max |Δ| (forward and backward)."""
+    config_err = None
+    for case in INROW_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for aggr in ("add", "mean"):
+                h, in_src, in_w, out_dst, out_w = inrow_inputs(case, dtype)
+                g = torch.from_numpy(
+                    np.random.default_rng(SEED + 6).normal(size=tuple(h.shape)).astype(np.float32)
+                ).to(h.device, dtype)
+                h.requires_grad_()
+                out = inrow_aggregate(h, in_src, in_w, out_dst, out_w, aggr)
+                (dh,) = torch.autograd.grad(out, h, g)
+                torch.cuda.synchronize()
+                # plain forward; plain backward = the Function inside
+                # force_plain() (inrow_aggregate_plain over the out-rows, with
+                # the Function's rounding), itself held to the autograd of
+                # the plain forward
+                ref = inrow_aggregate_plain(h.detach(), in_src, in_w, aggr)
+                ref_h, auto_h = (h.detach().clone().requires_grad_() for _ in range(2))
+                with force_plain():
+                    (ref_dh,) = torch.autograd.grad(
+                        inrow_aggregate(ref_h, in_src, in_w, out_dst, out_w, aggr), ref_h, g)
+                (auto_dh,) = torch.autograd.grad(inrow_aggregate_plain(auto_h, in_src, in_w, aggr), auto_h, g)
+                torch.cuda.synchronize()
+                f32 = dtype == torch.float32
+                bound = INROW_F32_REL if f32 else INROW_BF16_REL
+                auto_bound = 1e-5 if f32 else INROW_BF16_AUTOGRAD_REL
+                if out.shape != ref.shape or out.dtype != dtype or dh.dtype != dtype:
+                    raise AssertionError(f"K6 {case} {dtype} {aggr}: bad output {tuple(out.shape)} {out.dtype}")
+                fwd, bwd = _errors(out.detach(), ref), _errors(dh, ref_dh)
+                auto = _max_rel(ref_dh, auto_dh)
+                print(f"kernel K6 {case} {aggr} B,M,D={tuple(in_src.shape)} Do={out_dst.shape[-1]} "
+                      f"in_w {str(in_w.dtype)[6:]}, h {str(dtype)[6:]}: forward max_abs_err {fwd[0]:.3e} "
+                      f"max_rel_err {fwd[1]:.3e}; backward max_abs_err {bwd[0]:.3e} max_rel_err {bwd[1]:.3e} "
+                      f"(bound {bound:.0e}); plain backward against the plain forward's autograd "
+                      f"max_rel_err {auto:.3e} (bound {auto_bound:.0e})")
+                if not (fwd[1] <= bound and bwd[1] <= bound and auto <= auto_bound):
+                    raise AssertionError(f"K6 disagrees with plain: {case} {dtype} {aggr}")
+                if "isolated" in case and out[:, :9].abs().max().item() != 0.0:
+                    raise AssertionError(f"K6 {case}: a node with no incoming edge has a sum")
+                if (case, dtype, aggr) == ("config B=32", torch.float32, "add"):
+                    config_err = max(fwd[0], bwd[0])
+    # duplicate sources within a row sum in f32 in the kernel and in h's
+    # dtype in the plain version: the same number in f32
+    rng = np.random.default_rng(SEED + 7)
+    in_src = torch.from_numpy(rng.integers(0, 6, size=(3, 45, 8)).astype(np.int32)).cuda()
+    in_w = torch.from_numpy((rng.random((3, 45, 8)) * (rng.random((3, 45, 8)) < 0.7)).astype(np.float32)).cuda()
+    h = torch.from_numpy(rng.normal(size=(3, 45, INROW_WIDTH)).astype(np.float32)).cuda()
+    for aggr in ("add", "mean"):
+        with torch.no_grad():
+            err = _errors(inrow_aggregate(h, in_src, in_w, aggr=aggr), inrow_aggregate_plain(h, in_src, in_w, aggr))
+        print(f"kernel K6 duplicate sources (6-id pool, D=8) {aggr} f32: forward max_abs_err {err[0]:.3e} "
+              f"max_rel_err {err[1]:.3e} (bound 1e-05)")
+        if not err[1] <= 1e-5:
+            raise AssertionError(f"K6 disagrees with plain on duplicate sources: {aggr} {err}")
+    return config_err
+
+
+GRAPH_ARMS = (("GAT", dict(use_gat=True), 3), ("GraphConv add fused_inrow", dict(fused_inrow=True), 3),
+              ("GraphConv add", {}, 1))
+
+
+def graph_training_config(data_dir: str, log_dir: str, epochs: int, **model) -> dict:
+    """configs/base.yaml overlaid with configs/graph_net.yaml (adam, lr
+    1e-3, batch 32, multiplicity weights), at ``epochs`` epochs."""
+    cfg = graph_config(data_dir, model.pop("use_gat", False), **model)
+    cfg["meta"] = {"model_name": "", "dataset_name": ""}
+    cfg["logging"] = {"log_dir": log_dir}
+    cfg["trainer"]["epochs"] = epochs
+    return cfg
+
+
+def train_graph_arm(name: str, cfg: dict):
+    """train_model("graph_net", "s2pg") for one arm, with what holds on any
+    device checked: finite losses that fall over a run of several epochs,
+    meta.json's parameter count, and model.pt reloading to meta's val
+    accuracy.  The launch counts are set to 0 just before train_model and
+    read just after.  Returns (train steps, eval batches, meta, counts)."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    log_dir = port_train.train_model("graph_net", "s2pg", cfg, return_log_dir=True)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    data = factory.get_dataloader("s2pg", cfg)
+    n_train, n_val = len(data.get_train_loader()), len(data.get_val_loader())
+    metrics = read_metrics(log_dir)
+    with open(os.path.join(log_dir, "meta.json")) as f:
+        meta = json.load(f)["metrics"]
+    losses = metrics["Loss/train"]
+    epochs = len(losses)
+    print(f"graph train {name}: train_model graph_net s2pg, {epochs} epochs of {n_train} steps "
+          f"(B={cfg['dataset']['batch_size']}), {seconds:.1f} s; Loss/train {losses}, Loss/val "
+          f"{metrics['Loss/val']}, Accuracy/val {metrics['Accuracy/val']}, meta {meta}; "
+          f"StepTime/wall_ms_per_step {metrics['StepTime/wall_ms_per_step']}")
+    if not np.isfinite(losses).all() or (epochs > 1 and not losses[-1] < losses[0]):
+        raise AssertionError(f"{name}: training did not learn: epoch losses {losses}")
+    fresh = factory.get_model("graph_net", cfg)
+    if meta["parameters"] != sum(p.numel() for p in fresh.model.parameters()):
+        raise AssertionError(f"{name}: parameters {meta['parameters']} is not the model's count")
+    for artifact in ("config.yaml", "meta.json", "metrics.jsonl", "best_model.pt", "model.pt"):
+        if not os.path.exists(os.path.join(log_dir, artifact)):
+            raise AssertionError(f"{name}: {artifact} was not written")
+    # model.pt holds the final weights and running statistics, the ones whose
+    # predictions gave meta's accuracy/val
+    fresh.load(os.path.join(log_dir, "model.pt"))
+    y_val, pred = fresh.predict(data.get_val_loader())
+    acc = round(port_train.accuracy(y_val, pred), 6)
+    print(f"graph train {name}: model.pt reloaded: accuracy/val {acc} (meta {meta['accuracy/val']})")
+    if acc != meta["accuracy/val"]:
+        raise AssertionError(f"{name}: model.pt does not predict as the trained wrapper did")
+    # per-epoch validation, then train_model's predict over both loaders
+    return epochs * n_train, epochs * n_val + n_train + n_val, meta, counts
+
+
+def graph_train_phase(work_dir: str) -> dict:
+    """The GraphNet training slice: each arm through train_model with its
+    launch counts, then each kernel route against its plain route.  Returns
+    the launch counts of the GAT arm (K3, K4) and the fused arm (K6)."""
+    data_dir = os.path.join(work_dir, "s2pg_train")
+    write_s2pg_cache(data_dir, n_graphs=(1024, 256, 256), seed=SEED)
+    launches = {}
+    for name, model, epochs in GRAPH_ARMS:
+        cfg = graph_training_config(data_dir, os.path.join(work_dir, "graph_log"), epochs, **model)
+        steps, evals, meta, counts = train_graph_arm(name, cfg)
+        # per forward two convolutions; K4 once per K3 of a train step (both
+        # xw depend on weights); K6's backward once per train step (conv1's
+        # input is the batch's features, which need no gradient)
+        want = dict.fromkeys(counts, 0)
+        if model.get("use_gat"):
+            want.update({"gat_attention": 2 * (steps + evals), "gat_attention_bwd": 2 * steps})
+        elif model.get("fused_inrow"):
+            want.update({"inrow_aggregate": 2 * (steps + evals), "inrow_aggregate backward": steps})
+        print(f"graph train {name}: {steps} train steps, {evals} eval batches; launches {counts} "
+              f"(expected {want}); accuracy/val {meta['accuracy/val']} (floor {GRAPH_VAL_ACC_FLOOR[name]})")
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts}, expected {want}")
+        if not meta["accuracy/val"] >= GRAPH_VAL_ACC_FLOOR[name]:
+            raise AssertionError(f"{name}: accuracy/val {meta['accuracy/val']} below {GRAPH_VAL_ACC_FLOOR[name]}")
+        launches.update({k: v for k, v in counts.items() if v})
+        if model:
+            graph_track_phase(name, cfg)
+        if model.get("fused_inrow"):
+            fused_without_out_rows_phase(cfg)
+    return launches
+
+
+def fused_without_out_rows_phase(cfg: dict) -> None:
+    """The fused GraphConv on batches that carry no out-row lists (a loader
+    built without ``emit_out_rows``): ``predict`` still aggregates through K6,
+    two launches a batch and nothing else, and a train step raises instead of
+    aggregating some other way."""
+    wrapper = factory.get_model("graph_net", cfg)
+    loader = GraphLoader(lineage_graphs(np.random.default_rng(SEED + 8), 3 * GRAPH_B), GRAPH_B,
+                         shuffle=False, layout="dense", use_weights=True)
+    batches = list(loader)
+    if any("out_dst" in batch for batch in batches):
+        raise AssertionError("the loader shipped out-rows it was not asked for")
+    reset_launch_counts()
+    _, probs = wrapper.predict(batches, return_prob=True)
+    counts = launch_counts()
+    want = {**dict.fromkeys(counts, 0), "inrow_aggregate": 2 * len(batches)}
+    if counts != want or not np.isfinite(probs).all():
+        raise AssertionError(f"fused predict without out-rows: launches {counts}, expected {want}")
+    try:
+        wrapper.train_step(batches[0])
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("a fused train step without out-rows did not raise")
+    print(f"graph train fused_inrow without out-rows: predict over {len(batches)} batches launched "
+          f"{counts}; train_step raises: {refusal[:72]}...")
+
+
+def graph_track_phase(name: str, cfg: dict) -> None:
+    """TRACK_STEPS train steps on the kernel route and, from the same initial
+    weights and on the same batches, inside ``force_plain()``."""
+    kernel, plain = factory.get_model("graph_net", cfg), PlainRoute(factory.get_model("graph_net", cfg))
+    data = factory.get_dataloader("s2pg", cfg)
+    batches = list(data.get_train_loader())[:TRACK_STEPS]
+    rel = []
+    for batch in batches:
+        a, b = kernel.train_step(batch).item(), plain.train_step(batch).item()
+        rel.append(abs(a - b) / abs(b))
+    held = kernel._put(next(iter(data.get_val_loader())))
+    with torch.inference_mode():
+        logits = kernel.model(held, train=False)
+        with force_plain():
+            ref = plain.wrapper.model(held, train=False)
+    logit_err = (logits - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+    print(f"graph train {name}: kernel route against plain route over {TRACK_STEPS} steps: per-step loss "
+          f"rel {[f'{r:.2e}' for r in rel]} (bound {STEP_LOSS_RTOL:.0e}); held-batch logits max_rel_err "
+          f"{logit_err:.3e} (bound {LOGIT_TOL:.0e})")
+    if not max(rel) <= STEP_LOSS_RTOL or not logit_err <= LOGIT_TOL:
+        raise AssertionError(f"{name}: the kernel route does not track the plain route")
+
+
+def inrow_library_ms(h, in_src, in_w, out) -> float:
+    """The time of ``torch.sparse.mm`` over the block-diagonal CSR adjacency
+    of the same lists (built ahead, outside the timing) times the same
+    features: one PyTorch call that computes K6's "add".  Timed here and used
+    nowhere in the package."""
+    b, m, width = h.shape
+    keep = (in_w != 0).reshape(-1)
+    base = (torch.arange(b, device=h.device) * m)[:, None, None]
+    rows = (base + torch.arange(m, device=h.device)[None, :, None]).expand_as(in_src).reshape(-1)[keep]
+    cols = (base + in_src.long()).reshape(-1)[keep]
+    csr = torch.sparse_coo_tensor(
+        torch.stack([rows, cols]), in_w.float().reshape(-1)[keep], (b * m, b * m)
+    ).coalesce().to_sparse_csr()
+    flat = h.reshape(b * m, width).contiguous()
+    got = torch.sparse.mm(csr, flat).reshape(b, m, width)
+    err = _max_rel(got, out)
+    if not err <= 1e-5:
+        raise AssertionError(f"the sparse product is not K6's function here: max_rel_err {err:.3e}")
+    return cuda_ms(lambda: torch.sparse.mm(csr, flat))
+
+
+def graph_train_times_phase(smi: str):
+    """K4 and K6 against their plain versions (CUDA events, plain first), the
+    train step per batch on the kernel and plain routes (host clock), packing
+    with and without out-rows, and a profile of the B=256 f32 GAT train step.
+    Returns, per kernel, the config shape's f32 times and bound."""
+    config_times = {}
+    for case in ("config B=32", "flagship B=256 M=256"):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = gat_inputs(case, dtype)
+            g = torch.randn(args[-1].shape, device="cuda").to(dtype)
+            plain_ms = cuda_ms(lambda: gat_attention_bwd_plain(*args, g))
+            # K4's wrapper alone, and as the Function's backward (the forward's
+            # graph is kept), which adds the autograd engine's host time
+            leaves = [t.clone().requires_grad_() for t in (args[0], args[1], args[4])]
+            out = gat_attention(leaves[0], leaves[1], args[2], args[3], leaves[2])
+            function_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+            kernel_ms = cuda_ms(lambda: _gat_attention_bwd_cuda(*args, g))
+            print(f"time gat_attention backward {case} B,M,D={tuple(args[2].shape)} H={GAT_HEADS} "
+                  f"C={GAT_C} {str(dtype)[6:]}: K4 {kernel_ms:.4f} ms ({function_ms:.4f} ms as the backward "
+                  f"of gat_attention under autograd), plain {plain_ms:.4f} ms [{smi}]")
+            if dtype == torch.float32:
+                bound = gat_bound(args, backward=True)
+                print(f"bound gat_attention backward {case} f32: K4 {bound[0]:.4f} ms by {bound[1]}; "
+                      f"no single PyTorch call computes it")
+                if case == "config B=32":
+                    config_times["gat_attention_bwd"] = dict(
+                        ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+    for case in ("config B=32", "flagship B=256"):
+        for dtype in (torch.float32, torch.bfloat16):
+            h, in_src, in_w, out_dst, out_w = inrow_inputs(case, dtype)
+            g = torch.randn(h.shape, device="cuda").to(dtype)
+            with torch.no_grad():
+                plain_ms = cuda_ms(lambda: inrow_aggregate_plain(h, in_src, in_w, "add"))
+                kernel_ms = cuda_ms(lambda: _inrow_aggregate_cuda(h, in_src, in_w, "add"))
+                bwd_plain_ms = cuda_ms(lambda: inrow_aggregate_plain(g, out_dst, out_w, "add"))
+                bwd_ms = cuda_ms(lambda: _inrow_aggregate_cuda(g, out_dst, out_w, "add", backward=True))
+            print(f"time inrow_aggregate add {case} B,M,D={tuple(in_src.shape)} Do={out_dst.shape[-1]} "
+                  f"H={INROW_WIDTH} {str(dtype)[6:]}: forward K6 {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; "
+                  f"backward (over the out-rows) K6 {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms [{smi}]")
+            if dtype == torch.float32:
+                # h and the lists read once, the output written once; two
+                # operations per nonzero weight and channel
+                edges = int((in_w != 0).sum())
+                bound = bound_ms(_nbytes(h, in_src, in_w, h), 2 * edges * h.shape[-1])
+                bwd_bound = bound_ms(_nbytes(g, out_dst, out_w, g), 2 * edges * h.shape[-1])
+                with torch.no_grad():
+                    library_ms = inrow_library_ms(h, in_src, in_w, _inrow_aggregate_cuda(h, in_src, in_w, "add"))
+                    bwd_library_ms = inrow_library_ms(
+                        g, out_dst, out_w, _inrow_aggregate_cuda(g, out_dst, out_w, "add", backward=True))
+                print(f"bound inrow_aggregate add {case} f32: K6 forward {bound[0]:.4f} ms by {bound[1]}, "
+                      f"backward {bwd_bound[0]:.4f} ms by {bwd_bound[1]} ({edges} edges); torch.sparse.mm over "
+                      f"the prebuilt block-diagonal CSR: of the in-rows (forward) {library_ms:.4f} ms, of the "
+                      f"out-rows (backward) {bwd_library_ms:.4f} ms [{smi}]")
+                if case == "config B=32":
+                    config_times["inrow_aggregate"] = dict(
+                        ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                        library_ms=library_ms)
+    for b in (GRAPH_B, FLAGSHIP_GRAPHS):
+        graphs = lineage_graphs(np.random.default_rng(SEED + 2), 4 * b)
+        build_ms, pack_ms = {}, {}
+        for out_rows in (False, True):
+            t0 = time.perf_counter()
+            loader = GraphLoader(graphs, b, shuffle=False, layout="dense", use_weights=False,
+                                 emit_out_rows=out_rows)
+            t1 = time.perf_counter()
+            batches = list(loader)
+            build_ms[out_rows] = (t1 - t0) * 1e3
+            pack_ms[out_rows] = (time.perf_counter() - t1) * 1e3 / len(batches)
+        shape = sorted({(*batch["in_src"].shape[1:], batch["out_dst"].shape[2]) for batch in batches})
+        print(f"time packing per batch B={b} (M, D, Do)={shape} on the host: {pack_ms[False]:.4f} ms "
+              f"without out-rows, {pack_ms[True]:.4f} ms with; constructing the loader over "
+              f"{len(graphs)} graphs, once: {build_ms[False]:.4f} ms without, {build_ms[True]:.4f} ms "
+              f"with [{smi}]")
+        for dtype in ("float32", "bfloat16"):
+            gat = factory.get_model("graph_net", graph_config("", True, compute_dtype=dtype))
+            gat_plain = factory.get_model("graph_net", graph_config("", True, compute_dtype=dtype))
+            fused = factory.get_model("graph_net", graph_config("", False, compute_dtype=dtype, fused_inrow=True))
+            conv = factory.get_model("graph_net", graph_config("", False, compute_dtype=dtype))
+            rows = train_ms_per_batch([gat, PlainRoute(gat_plain), fused, conv], batches)
+            names = ("GAT K3+K4 route", "GAT plain route", "GraphConv add K6 route",
+                     "GraphConv add adjacency route")
+            print(f"time train step per batch B={b} {dtype} adam, median (q1-q3) of 10 runs over "
+                  f"{len(batches)} pre-packed batches, host clock to a synchronise: "
+                  + ", ".join(f"{n} {r[0]:.4f} ({r[1]:.4f}-{r[2]:.4f}) ms" for n, r in zip(names, rows))
+                  + f" [{smi}]")
+            if b == FLAGSHIP_GRAPHS and dtype == "float32":
+                profile_train_steps(smi, "B=256 f32 GAT K3+K4 route", gat, batches)
+    return config_times
+
+
 def main() -> None:
     t0 = time.perf_counter()
     smi = device_phase()
     build_phase()
     errors = {"phi_pool": kernel_phase(), "phi_pool_bwd": bwd_kernel_phase(),
-              "gat_attention": gat_kernel_phase()}
+              "gat_attention": gat_kernel_phase(), "gat_attention_bwd": gat_bwd_kernel_phase(),
+              "inrow_aggregate": inrow_kernel_phase()}
     with tempfile.TemporaryDirectory() as run_dir:
         write_jax_checkpoint(run_dir, np.random.default_rng(SEED))
         serve_launches = slice_phase(run_dir)
         launches = train_phase(run_dir)
-        launches["gat_attention"] = graph_slice_phase(run_dir)
+        graph_serve_launches = graph_slice_phase(run_dir)
+        graph_launches = graph_train_phase(run_dir)
         print(f"launches: DeepSets serving path K1 {serve_launches}; DeepSets training path "
               f"K1 {launches['phi_pool']}, K2 {launches['phi_pool_bwd']}; GAT serving path "
-              f"K3 {launches['gat_attention']}")
+              f"K3 {graph_serve_launches}; GraphNet training path {graph_launches}")
+        # K6's count is its forward and backward launches together
+        graph_launches["inrow_aggregate"] += graph_launches.pop("inrow_aggregate backward")
+        launches.update(graph_launches)
         times = times_phase(smi, run_dir)
         times["gat_attention"] = graph_times_phase(smi, os.path.join(run_dir, "graph_run_1"))
+        times.update(graph_train_times_phase(smi))
     profile_phase(smi)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
@@ -872,8 +1435,7 @@ def main() -> None:
         "replaces": replaces,
         "launches": launches[name],
         "max_abs_err": errors[name],
-        "ms": times[name][0],
-        "plain_ms": times[name][1],
+        **times[name],
     } for name, (source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -30,8 +30,9 @@
 // What the design does about it:
 // - One warp per (graph, node).  Lanes 0..D-1 own one slot each: they load
 //   the slot's source and weight, decide its validity with warp shuffles
-//   (the dedupe compares against every earlier slot) and compact the valid
-//   sources into shared memory with a ballot.
+//   (the dedupe compares against every earlier slot; graph_rows.cuh, shared
+//   with the backward kernel K4) and compact the valid sources into shared
+//   memory with a ballot.
 // - Per head, each lane computes its slot's logit (a gathered s_src value),
 //   and the softmax max and sum are warp reductions, in f32.  α is rounded
 //   to xw's type, as the oracle rounds it before its f32 product.
@@ -44,45 +45,13 @@
 //
 // Vectorised loads, several nodes per warp and tensor cores are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "graph_rows.cuh"
+
+using namespace pcc_graph;
+
 namespace {
-
-constexpr int kWarps = 8;  // nodes per 256-thread block
-constexpr int kMaxSlots = 32;  // one lane per in-row slot
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float leaky(float z, float slope) { return z >= 0.0f ? z : slope * z; }
 
 // s_dst, s_src: [B, M, H] f32.  in_src, in_w: [B, M, D].  xw, out: [B, M, C].
 // Dynamic shared memory per warp: α [H][D + 1] (slot 0 is the self-loop,
@@ -104,24 +73,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int g = row / m;
   const int i = row - g * m;
 
-  // Slot validity: w != 0, source in range and not i, and the first valid
-  // occurrence of its source.
-  int src = -1;
-  int pre = 0;
-  if (lane < d) {
-    const size_t at = static_cast<size_t>(row) * d + lane;
-    src = static_cast<int>(in_src[at]);
-    pre = to_f32(in_w[at]) != 0.0f && src >= 0 && src < m && src != i;
-  }
-  int keep = pre;
-  for (int k = 0; k + 1 < d; ++k) {
-    const int src_k = __shfl_sync(kFull, src, k);
-    const int pre_k = __shfl_sync(kFull, pre, k);
-    if (k < lane && pre_k && src_k == src) keep = 0;
-  }
-  const unsigned kept = __ballot_sync(kFull, keep);
-  const int n_kept = __popc(kept);
-  const int pos = __popc(kept & ((1u << lane) - 1u));
+  // Which slots count (graph_rows.cuh), compacted into shared memory.
+  const RowSlot slot = attention_slots(in_src, in_w, row, i, m, d, lane);
+  const int src = slot.src, keep = slot.keep, pos = slot.pos, n_kept = slot.n_kept;
   if (keep) slots[pos] = src;
 
   // Per head: the softmax over the self-loop and the kept slots, in f32.

@@ -15,15 +15,16 @@ Batches are byte-identical to the JAX loaders': keys, dtypes and values.
   and the per-occurrence in-degree ``in_deg [B, M]``, and each node's
   incoming edges ``in_src``/``in_w [B, M, D]``.  M rides the rung ladder
   (``k·2^j``, k in 8..15) rounded up to 8, D the batch's max in-degree
-  rounded up to a power of two (at least 4).
+  rounded up to a power of two (at least 4).  ``emit_out_rows=True`` adds
+  the out-row mirror ``out_dst``/``out_w``/``out_pos [B, M, Do]``.
 
 Packing is the JAX loaders' pure-Python branch.  Not ported yet: their C++
 packers; for point clouds the dense per-cloud-row layout,
 ``factor_event_cols``, the fp16 wire, length-sorted batching and
 non-power-of-two bucket ladders; for graphs the flat edge-list wire, the
-edge-slot triples, the host adjacency, the out-row mirror and
-``require_inrow``.  Where the JAX graph loader would ship one of those, the
-port raises ``NotImplementedError`` with the reason.
+edge-slot triples, the host adjacency and ``require_inrow``.  Where the JAX
+graph loader would ship one of those, the port raises
+``NotImplementedError`` with the reason.
 """
 
 from __future__ import annotations
@@ -169,6 +170,13 @@ class GraphLoader:
     demote the whole loader to the flat wire there, and raise here; so do a
     batch over ``max_dense_bytes`` under ``layout="auto"`` and a batch whose
     in-degree needs more than ``max_in_degree_wire`` slots.
+
+    ``emit_out_rows=True`` also ships the out-row mirror, the transposed
+    adjacency that the fused aggregation's backward reads: ``out_dst`` and
+    ``out_w [B, M, Do]`` (each node's outgoing edges in destination order)
+    and ``out_pos`` (each of those edges' slot in its destination's in-row
+    list).  A batch whose out-degree needs more than ``max_in_degree_wire``
+    slots ships no out-row arrays, as in the JAX loader.
     """
 
     def __init__(
@@ -205,9 +213,8 @@ class GraphLoader:
             raise _not_ported("adj_wire='host' ships the host adjacency [B, M, M]")
         if require_inrow:
             raise _not_ported("require_inrow serves max aggregation (GraphNet slice 2)")
-        if emit_out_rows:
-            raise _not_ported("emit_out_rows serves the fused in-row kernel K6")
         self.layout = layout
+        self.emit_out_rows = bool(emit_out_rows)
         self.length_sorted = bool(length_sorted)
         self.max_in_degree_wire = int(max_in_degree_wire)
         self.min_dense_nodes = min_dense_nodes
@@ -275,6 +282,8 @@ class GraphLoader:
             np.maximum.at(self.graph_max_indeg, gid[starts], run_len)
         self.weights_wire = self.weights.astype(np.float16) if self.half else self.weights
         self.mult_wire = self.edge_mult.astype(np.float16) if self.half else self.edge_mult
+        if self.emit_out_rows:
+            self._sort_out_rows()
 
         if dense_w_is_existence and use_weights and bool((self.weights_wire == 0).any()):
             raise _not_ported(
@@ -302,8 +311,8 @@ class GraphLoader:
 
     def _dense_wire_batch(self, idx, k: int, b: int, m_pad: int) -> Batch:
         """``nodes``, ``node_mask``, ``in_deg``, ``y``, ``y_mask``, ``in_src``
-        and ``in_w`` for the graphs ``idx`` in ``b`` slots of ``m_pad`` rows."""
-        small_t = np.float16 if self.half else np.float32
+        and ``in_w`` for the graphs ``idx`` in ``b`` slots of ``m_pad`` rows,
+        and with ``emit_out_rows`` the out-row mirror beside them."""
         idx_t = np.int16 if (self.half and m_pad <= 32768) else np.int32
         total_edges = int(self.edge_counts[idx].sum())
         d_pad = _pow2_slots(int(self.graph_max_indeg[idx].max()) if total_edges else 0)
@@ -320,31 +329,17 @@ class GraphLoader:
         yb[:k, 0] = self.labels[idx]
         ymask[:k] = 1.0
 
-        weights = self.weights_wire if self.use_weights else self.mult_wire
-        src_l = np.empty((total_edges,), dtype=np.int32)
-        key_l = np.empty((total_edges,), dtype=np.int64)
-        w_l = np.empty((total_edges,), dtype=small_t)
-        cursor = 0
         for slot, g_i in enumerate(idx):
             nlo, nhi = self.node_offsets[g_i], self.node_offsets[g_i + 1]
-            elo, ehi = self.edge_offsets[g_i], self.edge_offsets[g_i + 1]
-            n_i, e_i = nhi - nlo, ehi - elo
-            nodes[slot, :n_i] = self.feats[nlo:nhi]
-            node_mask[slot, :n_i] = 1.0
-            in_deg[slot, :n_i] = self.node_indeg[nlo:nhi]
-            src_l[cursor : cursor + e_i] = self.edges_src[elo:ehi]
-            key_l[cursor : cursor + e_i] = self.edges_dst[elo:ehi] + slot * m_pad
-            w_l[cursor : cursor + e_i] = weights[elo:ehi]
-            cursor += e_i
-        # slot q of node i holds its q-th incoming edge in source order
-        counts = np.bincount(key_l, minlength=b * m_pad)
-        starts = np.concatenate([[0], np.cumsum(counts)])
-        pos = np.arange(total_edges) - starts[key_l]
-        in_src = np.zeros((b, m_pad, d_pad), dtype=idx_t)
-        in_w = np.zeros((b, m_pad, d_pad), dtype=small_t)
-        in_src.reshape(b * m_pad, d_pad)[key_l, pos] = src_l
-        in_w.reshape(b * m_pad, d_pad)[key_l, pos] = w_l
-        return {
+            nodes[slot, : nhi - nlo] = self.feats[nlo:nhi]
+            node_mask[slot, : nhi - nlo] = 1.0
+            in_deg[slot, : nhi - nlo] = self.node_indeg[nlo:nhi]
+        wire_w = self.weights_wire if self.use_weights else self.mult_wire
+        in_src, in_w = self._pack_rows(
+            idx, b, m_pad, d_pad, self.edges_dst,
+            [(self.edges_src, idx_t), (wire_w, wire_w.dtype)],
+        )
+        batch = {
             "nodes": nodes,
             "node_mask": node_mask,
             "in_deg": in_deg,
@@ -353,6 +348,74 @@ class GraphLoader:
             "in_src": in_src,
             "in_w": in_w,
         }
+        if self.emit_out_rows:
+            # the OUT-row mirror (the transposed adjacency), read by the fused
+            # aggregation's backward; a batch whose out-degree needs more
+            # slots than the wire allows ships none, as in the JAX loader
+            do_pad = _pow2_slots(int(self.graph_max_outdeg[idx].max()) if total_edges else 0)
+            if do_pad <= self.max_in_degree_wire:
+                # one pass over the (graph, source) runs for all three, so slot
+                # q of a node names the same edge in each; out_pos is the
+                # edge's position in its destination's in-row list
+                wire_w = self.weights_o_wire if self.use_weights else self.mult_o_wire
+                batch["out_dst"], batch["out_w"], batch["out_pos"] = self._pack_rows(
+                    idx, b, m_pad, do_pad, self.edges_src_o,
+                    [(self.edges_dst_o, idx_t), (wire_w, wire_w.dtype), (self.inpos_o, idx_t)],
+                )
+        return batch
+
+    def _sort_out_rows(self) -> None:
+        """The out-direction copy of the merged edges, sorted by (graph,
+        source, destination): ``edges_src_o``/``edges_dst_o``, their wire
+        weights and multiplicities, each edge's position in its destination's
+        in-row list (``inpos_o``) and each graph's largest out-degree."""
+        gid = np.repeat(np.arange(len(self.edge_counts)), self.edge_counts)
+        order = np.lexsort((self.edges_dst, self.edges_src, gid))
+        self.edges_src_o = np.ascontiguousarray(self.edges_src[order])
+        self.edges_dst_o = np.ascontiguousarray(self.edges_dst[order])
+        self.weights_o_wire = np.ascontiguousarray(self.weights_wire[order])
+        self.mult_o_wire = np.ascontiguousarray(self.mult_wire[order])
+        self.inpos_o = np.zeros(0, np.int32)
+        self.graph_max_outdeg = np.zeros(len(self.edge_counts), dtype=np.int64)
+        if not len(gid):
+            return
+        # in-row positions: run indices within the (graph, dst)-sorted runs
+        first = np.concatenate(
+            [[True], (gid[1:] != gid[:-1]) | (self.edges_dst[1:] != self.edges_dst[:-1])]
+        )
+        pos_in = np.arange(len(gid)) - np.flatnonzero(first)[np.cumsum(first) - 1]
+        self.inpos_o = np.ascontiguousarray(pos_in[order].astype(np.int32))
+        gid_o = gid[order]
+        first = np.concatenate(
+            [[True], (gid_o[1:] != gid_o[:-1]) | (self.edges_src_o[1:] != self.edges_src_o[:-1])]
+        )
+        starts = np.flatnonzero(first)
+        run_len = np.diff(np.concatenate([starts, [len(gid_o)]]))
+        np.maximum.at(self.graph_max_outdeg, gid_o[starts], run_len)
+
+    def _pack_rows(self, idx, b, m_pad, d_pad, keys, columns):
+        """``[B, M, D]`` per-row lists, one for each ``(per-edge array, wire
+        dtype)`` of ``columns``: slot ``q`` of row ``keys[e]`` holds the row's
+        ``q``-th edge's entry of each array.  ``keys`` is run-sorted within
+        each graph: the destinations of the (destination, source) order give
+        the in-row lists, the sources of the out-direction order the out-row
+        mirror."""
+        spans = [(self.edge_offsets[g_i], self.edge_offsets[g_i + 1]) for g_i in idx]
+        key_l = np.concatenate(
+            [keys[lo:hi].astype(np.int64) + slot * m_pad for slot, (lo, hi) in enumerate(spans)]
+        )
+        # slot q of a row holds its q-th edge in the sorted order
+        counts = np.bincount(key_l, minlength=b * m_pad)
+        starts = np.concatenate([[0], np.cumsum(counts)])
+        pos = np.arange(len(key_l)) - starts[key_l]
+        packed = []
+        for per_edge, dtype in columns:
+            out = np.zeros((b, m_pad, d_pad), dtype=dtype)
+            out.reshape(b * m_pad, d_pad)[key_l, pos] = np.concatenate(
+                [per_edge[lo:hi] for lo, hi in spans]
+            )
+            packed.append(out)
+        return packed
 
     def __iter__(self) -> Iterator[Batch]:
         n, b = self.n_examples, self.batch_size

@@ -32,8 +32,8 @@ def _graph_dataset_config(config: dict) -> dict:
     exact-zero wire weights, GAT and SAG demote a multigraph, max pooling
     needs the full in-row wire, ``fused_inrow`` the out-row wire, and the
     layout defaults to ``auto`` (``flat`` for ``knn_k``).  The loaders raise
-    on the wires the port does not serve yet: ``require_inrow``,
-    ``emit_out_rows`` and ``flat``."""
+    on the wires the port does not serve yet: ``require_inrow`` and
+    ``flat``."""
     ds_cfg = dict(config["dataset"])
     mdl = config.get("model", {})
     use_gat = mdl.get("use_gat", False)

@@ -12,7 +12,14 @@ Counterpart of ``point_cloud_classifier_tpu/models/graph_net.py``'s
   aggregation.  The aggregate is ``adj @ h`` over the adjacency built from
   the in-row lists (``ops/inrow_graph.inrow_adjacency``), accumulated in
   f32; mean divides by the wire's exact per-occurrence in-degree
-  (``in_deg``), floored at 1;
+  (``in_deg``), floored at 1.  With ``fused_inrow=True`` (opt-in, as in the
+  JAX package) the aggregate always comes from
+  ``ops/inrow_graph.inrow_aggregate`` instead — kernel K6 on a CUDA tensor,
+  forward over the in-rows and backward over the batch's out-row lists — and
+  no adjacency is built.  A batch without out-rows serves inference (the
+  forward reads none) and raises under ``train=True``, where the JAX model
+  warns and takes the adjacency route; on a GAT model the option warns, as
+  in the JAX model, and changes nothing;
 - ``GATConv`` (GATv1, self-loops, heads concatenated, LeakyReLU 0.2): the
   score vectors are ``xw · att`` at the activation dtype summed in f32, and
   the attention runs in ``ops/gat.gat_attention`` — kernel K3 on a CUDA
@@ -30,13 +37,14 @@ trees 1:1.  ``PCC_GRAPH_REMAT`` (JAX rematerialisation of the head) changes
 no value and has no counterpart here.
 
 Not ported yet, each raising ``NotImplementedError``: SAG pooling, max
-aggregation, ``knn_k``, ``fused_inrow`` (kernel K6), and batches without the
-in-row lists (the edge-slot triples and the flat edge-list wire).
+aggregation, ``knn_k``, and batches without the in-row lists (the edge-slot
+triples and the flat edge-list wire).
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Dict
 
 import torch
@@ -49,7 +57,7 @@ from point_cloud_classifier_tpu_torch.models.common import (
     resolve_dtype,
 )
 from point_cloud_classifier_tpu_torch.ops.gat import SLOPE, gat_attention
-from point_cloud_classifier_tpu_torch.ops.inrow_graph import inrow_adjacency
+from point_cloud_classifier_tpu_torch.ops.inrow_graph import inrow_adjacency, inrow_aggregate
 
 
 def _glorot(shape, fan_in: int, fan_out: int, generator) -> nn.Parameter:
@@ -125,7 +133,6 @@ class GraphNet(nn.Module):
                 not use_gat and local_pooling == "max"
             ),
             "knn_k > 0 (ROADMAP Queue 1, the kNN slice with kernel K5)": knn_k > 0,
-            "fused_inrow (ROADMAP Queue 1, kernel K6)": fused_inrow,
         }
         for what, requested in refused.items():
             if requested:
@@ -142,6 +149,7 @@ class GraphNet(nn.Module):
             compute_dtype=compute_dtype, fused_inrow=fused_inrow, knn_k=knn_k,
         )
         self.use_gat = use_gat
+        self.fused_inrow = fused_inrow
         self.local_pooling = local_pooling
         self.deepchem_style = deepchem_style
         self.compute_dtype = resolve_dtype(compute_dtype)
@@ -175,19 +183,55 @@ class GraphNet(nn.Module):
         b, m, _ = x.shape
         in_src, in_w = batch["in_src"], batch["in_w"]
 
+        fused = self.fused_inrow and not self.use_gat
+        if self.fused_inrow and self.use_gat:
+            # GAT attends through its own kernels whatever this option says
+            warnings.warn(
+                "GraphNet(fused_inrow=True) has no effect on this batch: "
+                "it needs the dense in-row wire WITH out-row lists "
+                "(GraphLoader(emit_out_rows=True); train.py sets it when "
+                "model.fused_inrow is on) and no GAT/SAG; running the "
+                "ordinary path instead",
+                stacklevel=2,
+            )
+        if fused and train and "out_dst" not in batch:
+            # the JAX model warns and aggregates over the adjacency here; the
+            # port runs nothing else in the fused aggregation's place
+            raise ValueError(
+                "GraphNet(fused_inrow=True) cannot train on this batch: it has no "
+                "out-row lists (out_dst/out_w), which the fused aggregation's "
+                "backward reads.  GraphLoader(emit_out_rows=True) ships them "
+                "(train.py sets it when model.fused_inrow is on), except for a "
+                "batch whose out-degree needs more than max_in_degree_wire slots"
+            )
+        mean = self.local_pooling == "mean"
+        deg = batch.get("in_deg")
+
         if self.use_gat:
             def conv(mod, h):
                 return mod(h, in_src, in_w)
+        elif fused:
+            # the out-rows only route the backward: inference needs none
+            out_dst, out_w = batch.get("out_dst"), batch.get("out_w")
+
+            def conv(mod, h):
+                if mean and deg is not None:
+                    # the aggregation sums; the exact-degree division stays
+                    # outside the Function (it is linear, autograd composes it)
+                    agg = inrow_aggregate(h, in_src, in_w, out_dst, out_w, "add")
+                    agg = (agg.float() / torch.clamp(deg.float(), min=1.0)[..., None]).to(h.dtype)
+                else:
+                    agg = inrow_aggregate(h, in_src, in_w, out_dst, out_w, self.local_pooling)
+                return mod(h, agg)
         else:
             adj = inrow_adjacency(in_src, in_w, m, dtype)
-            deg = batch.get("in_deg")
-            if self.local_pooling == "mean" and deg is None:
+            if mean and deg is None:
                 deg = (adj != 0).float().sum(dim=2)  # hand-built batches
 
             def conv(mod, h):
                 # f32 accumulation, as the JAX einsum's preferred_element_type
                 agg = torch.matmul(adj.float(), h.float())
-                if self.local_pooling == "mean":
+                if mean:
                     agg = agg / torch.clamp(deg.float(), min=1.0)[..., None]
                 return mod(h, agg.to(h.dtype))
 

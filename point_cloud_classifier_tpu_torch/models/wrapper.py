@@ -22,9 +22,10 @@ model lives on an explicit device, ``cuda`` when there is one; batches go to
 it one at a time, and losses and outputs come back in one copy per epoch or
 per evaluation.
 
-GraphNet serves here (``load``, ``predict``, ``evaluate``) but does not
-train yet: ``fit`` and ``train_step`` on it raise until its GAT backward
-(kernel K4) lands with the GraphNet training slice.
+A model's BatchNorm running statistics are buffers of the module: the train
+step moves them (``MaskedBatchNorm``), ``best_model.pt``, ``model.pt`` and
+the resumable state carry them in the ``state_dict``, and validation and
+``predict`` normalize with them — the JAX trainer's ``batch_stats``.
 
 Not ported: fused step windows (``fuse_steps > 1``, ``PCC_FUSE_STEPS``), the
 device-resident batch cache (``device_resident``, ``PCC_RESIDENT``), meshes
@@ -193,18 +194,9 @@ class ModelWrapper:
 
     # -- training ------------------------------------------------------------
 
-    def _refuse_untrainable(self) -> None:
-        if self.model.name == "graph_net":
-            raise NotImplementedError(
-                "GraphNet training is not ported to PyTorch yet: it comes with "
-                "the GraphNet training slice and the GAT backward kernel K4 "
-                "(ROADMAP Queue 1 item 1); this slice serves GraphNet only"
-            )
-
     def train_step(self, batch) -> torch.Tensor:
         """One optimizer step on a host batch; returns the batch's loss on
         the device (no host sync)."""
-        self._refuse_untrainable()
         batch = self._put(batch)
         logits = self.model(batch, train=True)
         loss = masked_bce(logits, batch["y"], batch["y_mask"])
@@ -214,7 +206,6 @@ class ModelWrapper:
         return loss.detach()
 
     def fit(self, train_loader: Iterable, val_loader: Iterable = None, resume: bool = False) -> None:
-        self._refuse_untrainable()
         log = _ScalarLog(self.log_dir)
         t0 = time.time()
         start_epoch = self.restore_state() if resume else 0

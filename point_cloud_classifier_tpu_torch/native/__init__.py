@@ -120,6 +120,20 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, i32, vp,  # xw_code, src_code, w_code, stream
     ]
     lib.pcc_gat_attention.restype = i32
+    lib.pcc_gat_attention_bwd.argtypes = [
+        vp, vp, vp, vp, vp, vp,  # s_dst, s_src, in_src, in_w, xw, g
+        vp, vp, vp,  # ds_dst, ds_src (zeroed), dxw (f32, zeroed)
+        i32, i32, i32, i32, i32,  # b, m, d, h, c
+        ctypes.c_float,  # slope
+        i32, i32, i32, vp,  # xw_code, src_code, w_code, stream
+    ]
+    lib.pcc_gat_attention_bwd.restype = i32
+    lib.pcc_inrow_aggregate.argtypes = [
+        vp, vp, vp, vp,  # h, in_src, in_w, out
+        i32, i32, i32, i32, i32,  # b, m, d, width, mean
+        i32, i32, i32, vp,  # h_code, src_code, w_code, stream
+    ]
+    lib.pcc_inrow_aggregate.restype = i32
     lib.pcc_error_string.argtypes = [i32]
     lib.pcc_error_string.restype = ctypes.c_char_p
 

@@ -2,7 +2,10 @@
 (``ops/inrow_graph.py``) against the JAX package's, from the same seeded
 numpy inputs: the XLA oracle and both Pallas kernel forms in interpret mode,
 forward at f32 to 1e-5; the CPU autograd of the plain version against
-``jax.grad`` of the oracle."""
+``jax.grad`` of the oracle; and the closed-form backward
+(``gat_attention_bwd_plain``, what kernel K4 is held to on a card) against that
+autograd, against ``jax.grad`` of the oracle and against both Pallas backward
+forms in interpret mode."""
 
 import jax
 import jax.numpy as jnp
@@ -122,6 +125,94 @@ def test_plain_autograd_matches_jax_grad(case):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), **GRAD)
 
 
+def _bwd_plain(arrays, cot, slope, dtype=torch.float32):
+    s_dst, s_src, in_src, in_w, xw = _torch(*arrays)
+    return gat.gat_attention_bwd_plain(
+        s_dst, s_src, in_src, in_w, xw.to(dtype), torch.from_numpy(cot).to(dtype), slope
+    )
+
+
+def _cotangent(shape, seed=13):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("slope", [0.2, 0.01])
+@pytest.mark.parametrize("case", list(CASES))
+def test_bwd_plain_matches_plain_autograd(case, slope, dtype):
+    """The closed form rounds where autograd of the plain forward rounds, so
+    in bf16 the two differ by f32 sum orders only: dxw within one bf16 ulp."""
+    arrays = _inputs(**CASES[case])
+    cot = _cotangent(arrays[-1].shape)
+    s_dst, s_src, in_src, in_w, xw = _torch(*arrays)
+    leaves = [s_dst.requires_grad_(), s_src.requires_grad_(), xw.to(dtype).requires_grad_()]
+    out = gat.gat_attention_plain(leaves[0], leaves[1], in_src, in_w, leaves[2], slope)
+    assert out.dtype == dtype
+    out.backward(torch.from_numpy(cot).to(dtype))
+    got = _bwd_plain(arrays, cot, slope, dtype)
+    assert [g.dtype for g in got] == [torch.float32, torch.float32, dtype]
+    tol = GRAD if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-4)
+    for leaf, g in zip(leaves, got):
+        assert g.shape == leaf.shape
+        np.testing.assert_allclose(g.float().numpy(), leaf.grad.float().numpy(), **tol)
+
+
+@pytest.mark.parametrize("slope", [0.2, 0.01])
+@pytest.mark.parametrize("case", list(CASES))
+def test_bwd_plain_matches_jax_grad(case, slope):
+    arrays = _inputs(**CASES[case])
+    s_dst, s_src, in_src, in_w, xw = arrays
+    cot = _cotangent(xw.shape)
+
+    def loss(sd, ss, x):
+        return jnp.sum(jax_gat.gat_attention_xla(sd, ss, jnp.asarray(in_src), jnp.asarray(in_w), x, slope) * cot)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (s_dst, s_src, xw)))
+    for g, w in zip(_bwd_plain(arrays, cot, slope), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD)
+
+
+@pytest.mark.parametrize("form", ["slot", "dense"])
+@pytest.mark.parametrize("slope", [0.2, 0.01])
+@pytest.mark.parametrize("case", ["random", "dedupe-self-edges-zero-w", "isolated", "d8"])
+def test_bwd_plain_matches_both_interpret_backward_forms(monkeypatch, case, slope, form):
+    """K4s and K4d, the two TPU backward forms K4 replaces, in interpret mode."""
+    monkeypatch.setenv("PCC_GAT_KERNEL", form)
+    arrays = _inputs(**CASES[case])
+    s_dst, s_src, in_src, in_w, xw = arrays
+    cot = _cotangent(xw.shape)
+
+    def loss(sd, ss, x):
+        out = jax_gat.gat_attention_fused(sd, ss, jnp.asarray(in_src), jnp.asarray(in_w), x, slope, True)
+        return jnp.sum(out * cot)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (s_dst, s_src, xw)))
+    for g, w in zip(_bwd_plain(arrays, cot, slope), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD)
+
+
+def test_bwd_plain_on_rows_without_a_kept_slot():
+    """A row that attends to itself only: no score gradient, dxw = g."""
+    arrays = _inputs(seed=2, frac=0.0)
+    cot = _cotangent(arrays[-1].shape)
+    ds_dst, ds_src, dxw = _bwd_plain(arrays, cot, 0.2)
+    assert ds_dst.abs().max() == 0 and ds_src.abs().max() == 0
+    np.testing.assert_allclose(dxw.numpy(), cot, rtol=1e-6, atol=1e-7)
+
+
+def test_leaky_relu_derivative_keeps_one_at_zero():
+    """z == 0 takes derivative 1, as jax.nn.leaky_relu's z >= 0 form."""
+    s = torch.zeros(1, 2, 1)
+    in_src = torch.tensor([[[1], [0]]], dtype=torch.int32)
+    in_w = torch.ones(1, 2, 1)
+    xw = torch.tensor([[[1.0], [3.0]]])
+    g = torch.tensor([[[1.0], [0.0]]])
+    ds_dst, ds_src, _ = gat.gat_attention_bwd_plain(s, s, in_src, in_w, xw, g, 0.2)
+    # α = 1/2 each; dα = (1, 3); dz = α (dα − ᾱ) · 1 = (−1/2, +1/2) at z = 0
+    np.testing.assert_allclose(ds_src[0, :, 0].numpy(), [-0.5, 0.5], rtol=1e-6)
+    assert float(ds_dst.abs().max()) < 1e-7
+
+
 def test_entry_point_on_cpu_takes_the_plain_version():
     arrays = _torch(*_inputs(seed=1))
     assert not use_cuda_kernels(arrays[-1])
@@ -132,6 +223,18 @@ def test_entry_point_on_cpu_takes_the_plain_version():
     assert gat.gat_attention.launches == before
     torch.testing.assert_close(out, gat.gat_attention_plain(*arrays), rtol=0, atol=0)
     torch.testing.assert_close(again, out, rtol=0, atol=0)
+
+
+def test_entry_point_on_cpu_differentiates_through_the_plain_version():
+    arrays = _inputs(seed=1)
+    cot = _cotangent(arrays[-1].shape)
+    s_dst, s_src, in_src, in_w, xw = _torch(*arrays)
+    leaves = [s_dst.requires_grad_(), s_src.requires_grad_(), xw.requires_grad_()]
+    before = gat.gat_attention.bwd_launches
+    gat.gat_attention(leaves[0], leaves[1], in_src, in_w, leaves[2]).backward(torch.from_numpy(cot))
+    assert gat.gat_attention.bwd_launches == before
+    for leaf, g in zip(leaves, _bwd_plain(arrays, cot, 0.2)):
+        np.testing.assert_allclose(leaf.grad.numpy(), g.numpy(), **GRAD)
 
 
 def test_kernel_operand_checks():

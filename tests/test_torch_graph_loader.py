@@ -1,6 +1,7 @@
 """The port's ``GraphLoader`` (dense in-row wire) against the JAX package's over
-the same graphs: batches byte-identical in keys, dtypes and values; and the
-batches the JAX loader would ship another way raise in the port."""
+the same graphs: batches byte-identical in keys, dtypes and values, the out-row mirror
+(``emit_out_rows``) included; and the batches the JAX loader would ship
+another way raise in the port."""
 
 import warnings
 
@@ -13,6 +14,7 @@ from point_cloud_classifier_tpu.data.batching import GraphLoader as JaxGraphLoad
 from point_cloud_classifier_tpu_torch.data import GraphLoader  # noqa: E402
 
 WIRE_KEYS = ["nodes", "node_mask", "in_deg", "y", "y_mask", "in_src", "in_w"]
+OUT_KEYS = ["out_dst", "out_w", "out_pos"]
 
 
 def graphs(seed=0, n=21, duplicates=0, zero_weight=False, hub=0, big=0):
@@ -47,11 +49,14 @@ def graphs(seed=0, n=21, duplicates=0, zero_weight=False, hub=0, big=0):
     return out
 
 
-def _assert_batches_equal(ours, theirs):
+def _assert_batches_equal(ours, theirs, keys=WIRE_KEYS):
+    """Each batch holds exactly ``keys`` (or, where ``keys`` is a list of
+    lists, batch ``i`` holds ``keys[i]``), byte for byte."""
     assert len(ours) == len(theirs) > 0
-    for a, b in zip(ours, theirs):
-        assert sorted(a) == sorted(b) == sorted(WIRE_KEYS)
-        for k in WIRE_KEYS:
+    per_batch = keys if isinstance(keys[0], list) else [keys] * len(ours)
+    for a, b, want in zip(ours, theirs, per_batch, strict=True):
+        assert sorted(a) == sorted(b) == sorted(want)
+        for k in want:
             assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
             assert a[k].tobytes() == b[k].tobytes(), k
 
@@ -150,10 +155,67 @@ def test_dense_layout_over_max_dense_bytes_raises_as_jax_does():
         (dict(layout="flat"), "flat"),
         (dict(layout="dense", adj_wire="host"), "host"),
         (dict(layout="dense", require_inrow=True), "require_inrow"),
-        (dict(layout="dense", emit_out_rows=True), "emit_out_rows"),
     ],
-    ids=["flat", "host-adjacency", "require-inrow", "out-rows"],
+    ids=["flat", "host-adjacency", "require-inrow"],
 )
 def test_unported_wires_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         GraphLoader(graphs(n=3), batch_size=2, shuffle=False, **kw)
+
+
+@pytest.mark.parametrize("use_weights", [True, False], ids=["weights", "multiplicities"])
+@pytest.mark.parametrize("transfer_dtype", ["float32", "float16"])
+def test_out_rows_are_byte_identical(transfer_dtype, use_weights):
+    """The out-row mirror that the fused aggregation's backward reads, on a
+    multigraph (merged duplicates carry summed weights or multiplicities)."""
+    ours, theirs = _both(
+        graphs(seed=7, duplicates=4), batch_size=8, shuffle=False, layout="dense",
+        transfer_dtype=transfer_dtype, use_weights=use_weights, emit_out_rows=True,
+    )
+    _assert_batches_equal(ours, theirs, WIRE_KEYS + OUT_KEYS)
+    half = transfer_dtype == "float16"
+    assert ours[0]["out_dst"].dtype == (np.int16 if half else np.int32)
+    assert ours[0]["out_w"].dtype == (np.float16 if half else np.float32)
+    assert ours[0]["out_dst"].shape[-1] >= 4
+
+
+def test_shuffled_out_rows_are_byte_identical():
+    _assert_batches_equal(*_both(
+        graphs(seed=8), epochs=2, batch_size=4, shuffle=True, layout="auto",
+        n_features=4, seed=3, emit_out_rows=True,
+    ), WIRE_KEYS + OUT_KEYS)
+
+
+def test_batch_whose_out_degree_overflows_the_wire_ships_no_out_rows():
+    """Node 0 of graph 0 sends 40 edges: more than ``max_in_degree_wire``
+    out-slots, so that batch keeps its in-row lists and drops the mirror."""
+    data = graphs(seed=9, big=1)  # graph 0 has over 300 nodes
+    n0 = len(data[0]["features"])
+    fan = np.stack([np.zeros(40, np.int64), np.arange(40) % n0])
+    keep = data[0]["edges"][0] != 0  # node 0's own edges go; the fan replaces them
+    edges = np.concatenate([data[0]["edges"][:, keep], fan], axis=1)
+    edges = edges[:, np.unique(edges[1] * n0 + edges[0], return_index=True)[1]]
+    data[0] = dict(data[0], edges=edges, weights=np.full(edges.shape[1], 0.5, np.float32))
+    ours, theirs = _both(data, batch_size=8, shuffle=False, layout="dense", emit_out_rows=True)
+    per_batch = [WIRE_KEYS] + [WIRE_KEYS + OUT_KEYS] * (len(ours) - 1)
+    assert n0 >= 33 and len(ours) > 1
+    _assert_batches_equal(ours, theirs, per_batch)
+
+
+def test_out_rows_are_the_transposed_adjacency():
+    """``out_dst``/``out_w`` list each node's outgoing edges, and ``out_pos``
+    names each of those edges' slot in its destination's in-row list."""
+    loader = GraphLoader(graphs(seed=10, duplicates=3), batch_size=8, shuffle=False,
+                         layout="dense", emit_out_rows=True)
+    for batch in loader:
+        b, m, _ = batch["in_src"].shape
+        adj_in, adj_out = np.zeros((b, m, m)), np.zeros((b, m, m))
+        rows = np.arange(m)[None, :, None]
+        for adj, idx, w in ((adj_in, batch["in_src"], batch["in_w"]),
+                            (adj_out, batch["out_dst"], batch["out_w"])):
+            np.add.at(adj, (np.arange(b)[:, None, None], rows, idx), w)
+        np.testing.assert_array_equal(adj_out, np.swapaxes(adj_in, 1, 2))
+        g, src, q = np.nonzero(batch["out_w"])
+        dst, pos = batch["out_dst"][g, src, q], batch["out_pos"][g, src, q]
+        np.testing.assert_array_equal(batch["in_src"][g, dst, pos], src)
+        np.testing.assert_array_equal(batch["in_w"][g, dst, pos], batch["out_w"][g, src, q])

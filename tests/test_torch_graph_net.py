@@ -1,9 +1,14 @@
 """The port's GraphNet on the dense in-row wire against the JAX package's, from
 the same seeded graphs and the same weights carried across by ``convert.py``:
 GAT and GraphConv add/mean, ``deepchem_style`` on and off, eval and train
-mode (``MaskedBatchNorm``'s batch statistics and running-stat updates)."""
+mode (``MaskedBatchNorm``'s batch statistics and running-stat updates), the
+train-mode gradients, and the ``fused_inrow`` branch (kernel K6's route, here
+through its plain version) against the adjacency branch and the JAX logits."""
+
+import warnings
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -14,6 +19,7 @@ from point_cloud_classifier_tpu.models import GraphNet as JaxGraphNet  # noqa: E
 from point_cloud_classifier_tpu.models.common import MaskedBatchNorm as JaxMaskedBatchNorm  # noqa: E402
 from point_cloud_classifier_tpu_torch import convert  # noqa: E402
 from point_cloud_classifier_tpu_torch.models import GraphNet  # noqa: E402
+from point_cloud_classifier_tpu_torch.models import graph_net as graph_net_module  # noqa: E402
 from point_cloud_classifier_tpu_torch.models.common import MaskedBatchNorm  # noqa: E402
 
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -208,9 +214,8 @@ def test_parameter_names_and_count_match_jax():
         (dict(sag_pool=True), "sag_pool"),
         (dict(local_pooling="max"), "max"),
         (dict(knn_k=8), "knn_k"),
-        (dict(fused_inrow=True), "fused_inrow"),
     ],
-    ids=["sag", "max", "knn", "fused-inrow"],
+    ids=["sag", "max", "knn"],
 )
 def test_unported_options_raise(kwargs, match):
     cfg = {**_model_cfg("graphconv-add"), **kwargs}
@@ -224,3 +229,106 @@ def test_batches_without_inrow_lists_raise():
     del batch["in_src"]
     with pytest.raises(NotImplementedError, match="in-row wire"):
         model(batch)
+
+
+def _grads(model, batch, cot):
+    model.zero_grad()
+    logits = model(batch, train=True)
+    (logits * cot).sum().backward()
+    return logits.detach(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["adjacency", "fused-inrow"])
+@pytest.mark.parametrize("name", list(MODELS))
+def test_train_mode_gradients_match_jax(name, fused):
+    """One train-mode forward and the gradient of every parameter (batch
+    statistics are differentiated through, as in the JAX train step).  With
+    ``fused_inrow`` the GraphConv models aggregate through the autograd
+    Function (backward over the out-rows); the GAT model warns and takes its
+    own route, as the JAX model does."""
+    cfg = _model_cfg(name)
+    batch = _batch(random_graphs(seed=8, n=7), use_weights=name != "gat", emit_out_rows=True)
+    assert "out_dst" in batch
+    params, stats = _variables(cfg, batch, seed=8)
+    cot = np.random.default_rng(8).normal(size=(8, 1)).astype(np.float32)
+
+    def loss(p):
+        logits, _ = JaxGraphNet(**cfg).apply(
+            {"params": p, "batch_stats": stats}, batch, train=True, mutable=["batch_stats"])
+        return jnp.sum(logits * cot), logits
+
+    (_, want_logits), want = jax.value_and_grad(loss, has_aux=True)(params)
+    want = convert.to_torch_state_dict("graph_net", {"model": cfg}, jax.tree.map(np.asarray, want), stats)
+    model = _port_model({**cfg, "fused_inrow": fused}, params, stats)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error" if not (fused and name == "gat") else "ignore")
+        logits, got = _grads(model, _to_torch(batch), torch.from_numpy(cot))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits), **F32)
+    for key, g in got.items():
+        # the same sums in other orders, through three batch normalisations
+        np.testing.assert_allclose(g.numpy(), want[key], rtol=1e-4, atol=2e-5, err_msg=key)
+
+
+@pytest.mark.parametrize("transfer_dtype", ["float32", "float16"])
+@pytest.mark.parametrize("in_deg", [True, False], ids=["wire-in_deg", "no-in_deg"])
+@pytest.mark.parametrize("name", ["graphconv-add", "graphconv-mean"])
+def test_fused_inrow_matches_adjacency_branch_and_jax(name, in_deg, transfer_dtype):
+    """Eval logits of the fused branch against the adjacency branch and the
+    JAX model, on a merged multigraph (``in_deg`` counts every occurrence, so
+    mean divides by it outside the Function); without ``in_deg``, as in a
+    hand-built batch, mean is the Function's own count of nonzero weights."""
+    cfg = _model_cfg(name)
+    batch = _batch(random_graphs(seed=9, duplicates=in_deg), use_weights=True,
+                   emit_out_rows=True, transfer_dtype=transfer_dtype)
+    if not in_deg:
+        del batch["in_deg"]
+    params, stats = _variables(cfg, batch, seed=9)
+    want = np.asarray(JaxGraphNet(**cfg).apply({"params": params, "batch_stats": stats}, batch, train=False))
+    fused, plain = _port_model({**cfg, "fused_inrow": True}, params, stats), _port_model(cfg, params, stats)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # the fused branch is taken: no warning
+        with torch.no_grad():
+            got, ref = fused(_to_torch(batch)), plain(_to_torch(batch))
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), **F32)
+
+
+def test_fused_inrow_on_a_gat_model_warns_as_jax_and_changes_nothing():
+    """The JAX model's warning, word for word, and GAT's own logits."""
+    cfg = {**_model_cfg("gat"), "fused_inrow": True}
+    batch = _batch(random_graphs(seed=3), use_weights=False, emit_out_rows=True)
+    params, stats = _variables(cfg, batch, seed=3)
+    with pytest.warns(UserWarning, match="has no effect on this batch") as jax_warned:
+        want = np.asarray(JaxGraphNet(**cfg).apply({"params": params, "batch_stats": stats}, batch, train=False))
+    with pytest.warns(UserWarning, match="has no effect on this batch") as warned:
+        with torch.no_grad():
+            got = _port_model(cfg, params, stats)(_to_torch(batch))
+    assert str(warned[0].message) == str(jax_warned[0].message)
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+
+
+@pytest.mark.parametrize("name", ["graphconv-add", "graphconv-mean"])
+def test_fused_inrow_without_out_rows_serves_and_refuses_to_train(name, monkeypatch):
+    """A batch without the out-row lists (a loader without ``emit_out_rows``,
+    or an out-degree over the wire's slots): the JAX model warns and takes the
+    adjacency route.  The port never leaves the fused aggregation: inference
+    goes through it (the forward reads no out-rows) and gives the JAX logits,
+    and a train-mode forward raises, naming the loader option."""
+    cfg = {**_model_cfg(name), "fused_inrow": True}
+    batch = _batch(random_graphs(seed=3), use_weights=True, emit_out_rows=False)
+    assert "out_dst" not in batch
+    params, stats = _variables(cfg, batch, seed=3)
+    with pytest.warns(UserWarning, match="has no effect on this batch"):
+        want = np.asarray(JaxGraphNet(**cfg).apply({"params": params, "batch_stats": stats}, batch, train=False))
+    model = _port_model(cfg, params, stats)
+    monkeypatch.setattr(graph_net_module, "inrow_adjacency", None)  # the adjacency route would fail
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with torch.no_grad():
+            got = model(_to_torch(batch))
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+    with pytest.raises(ValueError, match="emit_out_rows=True"):
+        model(_to_torch(batch), train=True)
+    # differentiating an eval-mode forward reaches the Function's own refusal
+    with pytest.raises(ValueError, match="needs the out-row lists"):
+        model(_to_torch(batch)).sum().backward()

@@ -100,25 +100,47 @@ def test_predict_matches_jax(data_dir, tmp_path, model):
     np.testing.assert_allclose(p, p_ref, **F32)
 
 
-def test_fit_raises_naming_the_training_slice(data_dir):
-    cfg = _config(data_dir, use_gat=True)
-    model = factory.get_model("graph_net", cfg)
+@pytest.mark.parametrize(
+    "model", [dict(use_gat=True), dict(fused_inrow=True), {}], ids=["gat", "fused-inrow", "graphconv-add"]
+)
+def test_fit_and_train_step_train_graph_net(data_dir, model):
+    """``fit`` and ``train_step`` run on GraphNet (parity with the JAX ``fit``
+    is in test_torch_graph_train.py): the loss is finite, every parameter
+    gets a gradient, and the running statistics move."""
+    cfg = _config(data_dir, **model)
+    wrapper = factory.get_model("graph_net", cfg)
     loader = factory.get_dataloader("s2pg", cfg).get_train_loader()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model.fit(loader)
-    with pytest.raises(NotImplementedError, match="K4"):
-        model.train_step(next(iter(loader)))
+    before = {k: v.clone() for k, v in wrapper.model.state_dict().items()}
+    loss = wrapper.train_step(next(iter(loader)))
+    assert torch.isfinite(loss)
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in wrapper.model.parameters())
+    wrapper.fit(loader)
+    after = wrapper.model.state_dict()
+    for key in ("conv1.lin_rel.weight" if not model.get("use_gat") else "conv1.lin.weight",
+                "bn1.running_mean", "bn3.running_var", "fc2.weight"):
+        assert not torch.equal(after[key], before[key]), key
+    assert not wrapper.model.training  # fit leaves the model in eval mode
+
+
+def test_fused_inrow_config_ships_the_out_rows_the_jax_loader_ships(data_dir):
+    """``model.fused_inrow`` sets ``emit_out_rows`` in both factories, and the
+    port's loader now serves it: batches byte-identical, out-rows included."""
+    cfg = _config(data_dir, fused_inrow=True)
+    jax_data, data = jax_factory.get_dataloader("s2pg", cfg), factory.get_dataloader("s2pg", cfg)
+    assert data.loader_kwargs["emit_out_rows"] and jax_data.emit_out_rows
+    for a, b in zip(data.get_test_loader(), jax_data.get_test_loader(), strict=True):
+        assert sorted(a) == sorted(b) and {"out_dst", "out_w", "out_pos"} <= set(a)
+        assert all(a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes() for k in a)
 
 
 @pytest.mark.parametrize(
     "model, dataset, match",
     [
         (dict(local_pooling="max"), {}, "require_inrow"),
-        (dict(fused_inrow=True), {}, "emit_out_rows"),
         (dict(knn_k=8), {}, "flat"),
         ({}, {"graph_layout": "flat"}, "flat"),
     ],
-    ids=["max", "fused-inrow", "knn", "flat"],
+    ids=["max", "knn", "flat"],
 )
 def test_dataloader_gates_for_unported_configs_raise(data_dir, model, dataset, match):
     """The JAX factory's gates, set as it sets them, lead to wires the port

@@ -59,3 +59,25 @@ def test_build_raises_on_a_failed_compile(fake_nvcc):
     with pytest.raises(RuntimeError, match="no kernel"):
         native._build(sources, target)
     assert os.listdir(target.parent) == []
+
+
+def test_every_declared_entry_has_a_definition_in_csrc():
+    """Each C entry the loader declares is defined, ``extern "C"``, in exactly
+    one source under ``csrc/``, and the graph kernels share one slot rule."""
+    import ctypes
+    import re
+
+    class Recorder:
+        def __getattr__(self, name):
+            self.__dict__.setdefault("seen", {})[name] = fn = ctypes.CFUNCTYPE(None)
+            return fn
+
+    lib = Recorder()
+    native._declare(lib)
+    text = {p.name: p.read_text() for p in native.CSRC_DIR.glob("*.cu")}
+    assert {"gat_attention_bwd.cu", "inrow_aggregate.cu"} <= set(text)
+    for entry in lib.seen:
+        homes = [n for n, t in text.items() if re.search(rf"^(int|const char\*) {entry}\(", t, re.M)]
+        assert len(homes) == 1, (entry, homes)
+    for name in ("gat_attention.cu", "gat_attention_bwd.cu"):
+        assert '#include "graph_rows.cuh"' in text[name] and "attention_slots(" in text[name]
