@@ -66,7 +66,29 @@ result):
 14. graph training times: K4 and K6 against their plain versions at B=32
    and B=256, f32 and bf16; the train step per batch on the kernel and plain
    routes; packing with and without the out-rows; and a ``torch.profiler``
-   trace of the B=256 f32 GAT train step.
+   trace of the B=256 f32 GAT train step;
+15. kNN aggregation kernel against plain: ``knn_aggregate`` (kernel K5)
+   against ``knn_aggregate_plain`` and, through ``torch.autograd.grad``,
+   ``knn_aggregate_bwd_plain``; f32 and bf16, add and mean, k = 1 and 8; at
+   the config batch (32 graphs, N=8,192, widths 128 and 4), a ragged N that
+   is no power of two, graphs of fewer than k + 1 nodes, positions on a
+   coarse grid (exact ties, degrees over k), a long padding tail, and the
+   flagship N=65,536 against the row-blocked plain version; each row's
+   threshold and degree must equal the plain version's exactly;
+16. kNN serving slice: ``GraphNet(knn_k=8)``, GraphConv add and mean, through
+   ``factory.get_model("graph_net", cfg, run_dir)`` on a JAX-format
+   ``best_model.pt`` with ``DenseGraphConv_*`` keys, then ``predict`` over
+   the flat-wire test loader of ``factory.get_dataloader("s2pg", cfg)``, held
+   against the plain route, with K5's launch count (2 per batch);
+17. kNN training slice: ``train.train_model("graph_net", "s2pg", cfg)`` with
+   ``model.knn_k: 8`` for 3 epochs, add and mean, with K5's launch counts
+   forward and backward, the losses, the val accuracy and the checkpoints
+   checked; five steps of the kernel route against the plain route; and
+   ``resume_training`` for one more epoch;
+18. kNN times: K5 forward and backward against the plain versions at N=8,192
+   and N=65,536; ``predict`` and the train step per batch on the K5 route,
+   the plain route and the lineage-graph GraphConv routes; packing a flat
+   batch; and a ``torch.profiler`` trace of the B=256 f32 kNN train step.
 
 Beside each kernel's time the script works out the least time the card could
 take for the same work (``bound_ms``: the bytes the function must move over
@@ -119,6 +141,15 @@ from point_cloud_classifier_tpu_torch.ops.inrow_graph import (
     _inrow_aggregate_cuda,
     inrow_aggregate,
     inrow_aggregate_plain,
+)
+from point_cloud_classifier_tpu_torch.ops.knn import (
+    _knn_aggregate_bwd_cuda,
+    _knn_aggregate_cuda,
+    knn_aggregate,
+    knn_aggregate_bwd_plain,
+    knn_aggregate_plain,
+    knn_degree_plain,
+    segment_ranges,
 )
 
 SEED = 0
@@ -181,6 +212,8 @@ KERNELS = {
                           "point_cloud_classifier_tpu/ops/gat_pallas.py:903"),
     "inrow_aggregate": ("point_cloud_classifier_tpu_torch/csrc/inrow_aggregate.cu",
                         "point_cloud_classifier_tpu/ops/inrow_graph.py:133"),
+    "knn_aggregate": ("point_cloud_classifier_tpu_torch/csrc/knn_aggregate.cu",
+                      "point_cloud_classifier_tpu/ops/knn_pallas.py:129"),
 }
 # The H100's published peaks (NVIDIA's data sheet, SXM part): device memory
 # rate, and f32 operations outside the tensor cores (every kernel here
@@ -247,6 +280,21 @@ INROW_BF16_AUTOGRAD_REL = 3e-2
 # 0.78125 for GAT and 0.761719 for the fused GraphConv after 3 epochs, and
 # 0.632812 for GraphConv add after its 1 epoch
 GRAPH_VAL_ACC_FLOOR = {"GAT": 0.70, "GraphConv add fused_inrow": 0.68, "GraphConv add": 0.55}
+# K5 against knn_aggregate_plain and knn_aggregate_bwd_plain: max |Δ| /
+# max(1, max |plain|).  Both sides form the distance in one order of
+# operations, so each row's threshold and degree are equal exactly (asserted)
+# and the same rows are summed.  f32: those sums in index order against a
+# matrix product's order.  bf16: exact f32 sums of bf16 values and one
+# rounding of the output on both sides, so at most one bf16 value apart (2^-8
+# relative) where the f32 sums round apart.  The largest readings at these
+# cases on an H100 (80GB HBM3, 700 W) are beside the bounds in PERF.md.
+KNN_F32_REL, KNN_BF16_REL = 1e-6, 8e-3
+KNN_K = 8  # model.knn_k of the kNN slices
+# the kNN training slice: val accuracy floors (chance 0.5), set from the same
+# config, data and seed on the CPU (x86, plain versions), which read 0.558594
+# for add (eight summed neighbours drive tanh towards saturation, and three
+# epochs move it little) and 0.761719 for mean after 3 epochs
+KNN_VAL_ACC_FLOOR = {"add": 0.53, "mean": 0.70}
 
 
 def reset_launch_counts() -> None:
@@ -254,13 +302,16 @@ def reset_launch_counts() -> None:
     phi_pool.launches = phi_pool.bwd_launches = 0
     gat_attention.launches = gat_attention.bwd_launches = 0
     inrow_aggregate.launches = inrow_aggregate.bwd_launches = 0
+    knn_aggregate.launches = knn_aggregate.bwd_launches = 0
 
 
 def launch_counts() -> dict:
     return {"phi_pool": phi_pool.launches, "phi_pool_bwd": phi_pool.bwd_launches,
             "gat_attention": gat_attention.launches, "gat_attention_bwd": gat_attention.bwd_launches,
             "inrow_aggregate": inrow_aggregate.launches,
-            "inrow_aggregate backward": inrow_aggregate.bwd_launches}
+            "inrow_aggregate backward": inrow_aggregate.bwd_launches,
+            "knn_aggregate": knn_aggregate.launches,
+            "knn_aggregate backward": knn_aggregate.bwd_launches}
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -602,27 +653,37 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _per_model(batches, n_models):
+    """One list of batches per model: ``batches`` itself when it already is
+    such a list of lists, else the same list for every model."""
+    return batches if isinstance(batches[0], list) else [batches] * n_models
+
+
 def predict_ms_per_batch(models, batches, reps=10):
     """Per model, (median, q1, q3) of ``predict``'s ms per batch over the
-    pre-packed ``batches``, timed in turns (A B B A …) after a warm-up."""
-    for model in models:
-        model.predict(batches, return_prob=True)
+    pre-packed ``batches`` (one list, or one list per model), timed in turns
+    (A B B A …) after a warm-up."""
+    batches = _per_model(batches, len(models))
+    for model, own in zip(models, batches):
+        model.predict(own, return_prob=True)
     samples = [[] for _ in models]
     for rep in range(reps):
         order = range(len(models)) if rep % 2 == 0 else reversed(range(len(models)))
         for i in order:
             t0 = time.perf_counter()
-            models[i].predict(batches, return_prob=True)  # ends in a device→host copy
-            samples[i].append((time.perf_counter() - t0) * 1e3 / len(batches))
+            models[i].predict(batches[i], return_prob=True)  # ends in a device→host copy
+            samples[i].append((time.perf_counter() - t0) * 1e3 / len(batches[i]))
     return [tuple(float(q) for q in np.percentile(s, [50, 25, 75])) for s in samples]
 
 
 def train_ms_per_batch(wrappers, batches, reps=10):
     """Per wrapper, (median, q1, q3) of the train step's ms per batch (forward,
-    loss, backward, AdamW step) over the pre-packed ``batches``, host clock
-    to a synchronise, timed in turns (A B B A …) after a warm-up pass."""
-    for wrapper in wrappers:
-        for batch in batches:
+    loss, backward, AdamW step) over the pre-packed ``batches`` (one list, or
+    one list per wrapper), host clock to a synchronise, timed in turns (A B B
+    A …) after a warm-up pass."""
+    batches = _per_model(batches, len(wrappers))
+    for wrapper, own in zip(wrappers, batches):
+        for batch in own:
             wrapper.train_step(batch)
     torch.cuda.synchronize()
     samples = [[] for _ in wrappers]
@@ -630,10 +691,10 @@ def train_ms_per_batch(wrappers, batches, reps=10):
         order = range(len(wrappers)) if rep % 2 == 0 else reversed(range(len(wrappers)))
         for i in order:
             t0 = time.perf_counter()
-            for batch in batches:
+            for batch in batches[i]:
                 wrappers[i].train_step(batch)
             torch.cuda.synchronize()
-            samples[i].append((time.perf_counter() - t0) * 1e3 / len(batches))
+            samples[i].append((time.perf_counter() - t0) * 1e3 / len(batches[i]))
     return [tuple(float(q) for q in np.percentile(s, [50, 25, 75])) for s in samples]
 
 
@@ -1404,28 +1465,314 @@ def graph_train_times_phase(smi: str):
     return config_times
 
 
+KNN_CASES = ("config B=32", "config B=32 H=4", "ragged N=1001", "graphs under k+1 nodes", "coarse grid ties",
+             "long padding tail", "flagship B=256")
+KNN_WIDTH = GRAPH_CONFIG["model"]["hidden_dim"]
+
+
+def knn_inputs(case: str, dtype, seed: int = SEED):
+    """(x, positions, node_seg, num_graphs) on the card for one K5 case: the
+    flat loader's batches of lineage-like graphs (their standardized
+    positions, not on any grid), or hand-built segments."""
+    rng = np.random.default_rng(seed)
+    wire = {"config B=32": GRAPH_B, "config B=32 H=4": GRAPH_B, "flagship B=256": FLAGSHIP_GRAPHS}
+    if case in wire:
+        graphs = wire[case]
+        batch = next(iter(GraphLoader(lineage_graphs(rng, graphs), graphs, shuffle=False, layout="flat",
+                                      use_weights=False)))
+        pos, seg = batch["nodes"][:, 1:4], batch["node_seg"]
+    else:
+        # (nodes per graph low, high; graphs; padding rows; grid step)
+        lo, hi, graphs, padding, grid = {
+            "ragged N=1001": (20, 60, 24, None, None), "graphs under k+1 nodes": (1, 8, 60, 11, None),
+            "coarse grid ties": (60, 120, 6, 9, 0.5), "long padding tail": (40, 80, 5, 3000, None)}[case]
+        sizes = rng.integers(lo, hi + 1, size=graphs)
+        if padding is None:  # 961 nodes and 40 padding rows: N = 1,001, no power of two
+            sizes, padding = rng.multinomial(961, np.ones(graphs) / graphs), 40
+        n = int(sizes.sum()) + padding
+        seg = np.full(n, graphs, dtype=np.int32)
+        seg[: sizes.sum()] = np.repeat(np.arange(graphs, dtype=np.int32), sizes)
+        pos = rng.normal(size=(n, 3)).astype(np.float32)
+        if grid:
+            pos = (np.round(pos / grid) * grid).astype(np.float32)
+    width = 4 if case.endswith("H=4") else KNN_WIDTH
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.normal(size=(len(seg), width)).astype(np.float32)).to(dev, dtype)
+    return x, torch.from_numpy(np.ascontiguousarray(pos)).to(dev), torch.from_numpy(seg).to(dev), graphs
+
+
+def knn_kernel_phase():
+    """K5 against the plain versions, forward and (through the autograd
+    Function) backward, at every case; returns the config-shape f32 "add" k=8
+    max |Δ| (forward and backward)."""
+    config_err = None
+    for case in KNN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, pos, seg, graphs = knn_inputs(case, dtype)
+            g = torch.from_numpy(
+                np.random.default_rng(SEED + 9).normal(size=tuple(x.shape)).astype(np.float32)
+            ).to(x.device, dtype)
+            # the flagship's plain version takes a second a call: k = 8 only
+            for k in ((KNN_K,) if case.startswith("flagship") else (1, KNN_K)):
+                ref_deg, ref_kth = knn_degree_plain(pos, seg, k, graphs)
+                for aggr in ("add", "mean"):
+                    leaf = x.clone().requires_grad_()
+                    before = (knn_aggregate.launches, knn_aggregate.bwd_launches)
+                    out = knn_aggregate(leaf, pos, seg, k, graphs, aggr)
+                    (dx,) = torch.autograd.grad(out, leaf, g)
+                    torch.cuda.synchronize()
+                    if (knn_aggregate.launches, knn_aggregate.bwd_launches) != (before[0] + 1, before[1] + 1):
+                        raise AssertionError(f"K5 {case} {dtype}: the Function did not launch K5 both ways")
+                    ref = knn_aggregate_plain(x, pos, seg, k, graphs, aggr)
+                    ref_dx = knn_aggregate_bwd_plain(g, pos, seg, k, graphs, aggr)
+                    _, state = _knn_aggregate_cuda(x, pos, seg, k, graphs, aggr)
+                    kth, deg = state[4], state[5]
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(state[2:4], segment_ranges(seg, graphs))):
+                        raise AssertionError(f"K5 {case}: the segment ranges differ from the plain version's")
+                    if out.shape != ref.shape or out.dtype != dtype or dx.dtype != dtype:
+                        raise AssertionError(f"K5 {case} {dtype} {aggr}: bad output {tuple(out.shape)} {out.dtype}")
+                    if not (torch.equal(deg, ref_deg) and torch.equal(kth, ref_kth)):
+                        raise AssertionError(
+                            f"K5 {case} {dtype} k={k}: {int((deg != ref_deg).sum())} degrees and "
+                            f"{int((kth != ref_kth).sum())} thresholds differ from the plain version's")
+                    fwd, bwd = _errors(out.detach(), ref), _errors(dx, ref_dx)
+                    bound = KNN_F32_REL if dtype == torch.float32 else KNN_BF16_REL
+                    print(f"kernel K5 {case} {aggr} k={k} N={x.shape[0]} H={x.shape[1]} graphs={graphs} "
+                          f"x {str(dtype)[6:]}: forward max_abs_err {fwd[0]:.3e} max_rel_err {fwd[1]:.3e}; "
+                          f"backward max_abs_err {bwd[0]:.3e} max_rel_err {bwd[1]:.3e} (bound {bound:.0e}); "
+                          f"degrees and thresholds equal exactly, max degree {int(deg.max())}, "
+                          f"edges {int(deg.sum())}")
+                    if not (fwd[1] <= bound and bwd[1] <= bound):
+                        raise AssertionError(f"K5 disagrees with plain: {case} {dtype} {aggr} k={k}")
+                    padding = seg >= graphs
+                    if out[padding].abs().sum().item() != 0.0 or dx[padding].abs().sum().item() != 0.0:
+                        raise AssertionError(f"K5 {case}: a padding node has a sum")
+                    if case == "coarse grid ties" and not int(deg.max()) > k:
+                        raise AssertionError(f"K5 {case}: no degree over k, so no tie was tested")
+                    if case == "graphs under k+1 nodes" and k == KNN_K and not int(deg.max()) < k:
+                        raise AssertionError(f"K5 {case}: a row found k neighbours")
+                    if (case, dtype, aggr, k) == ("config B=32", torch.float32, "add", KNN_K):
+                        config_err = max(fwd[0], bwd[0])
+    return config_err
+
+
+def knn_config(data_dir: str, local_pooling: str, **model) -> dict:
+    """configs/graph_net.yaml with ``model.knn_k: 8``: no ``graph_layout``,
+    so the factory chooses the flat wire."""
+    return graph_config(data_dir, False, knn_k=KNN_K, local_pooling=local_pooling, **model)
+
+
+def knn_slice_phase(work_dir: str) -> int:
+    """get_model("graph_net") on a checkpoint with ``DenseGraphConv_*`` keys +
+    predict over the flat s2pg test loader, add and mean, each held against
+    its plain route; returns K5's launch count during the "add" predict."""
+    data_dir = os.path.join(work_dir, "s2pg")  # the cache graph_slice_phase wrote
+    add_launches = None
+    for pooling in ("add", "mean"):
+        cfg = knn_config(data_dir, pooling)
+        run_dir = os.path.join(work_dir, f"knn_run_{pooling}")
+        write_graph_checkpoint(run_dir, cfg, SEED + 11)
+        with open(os.path.join(run_dir, "best_model.pt"), "rb") as f:
+            names = sorted(pickle.load(f)["params"])
+        if names[:2] != ["DenseGraphConv_0", "DenseGraphConv_1"]:
+            raise AssertionError(f"kNN {pooling}: the checkpoint's convolutions are named {names[:2]}")
+        model = factory.get_model("graph_net", cfg, run_dir)
+        loader = factory.get_dataloader("s2pg", cfg).get_test_loader()
+        if loader.layout != "flat" or "src" not in next(iter(loader)):
+            raise AssertionError(f"kNN {pooling}: the factory did not choose the flat wire")
+        reset_launch_counts()
+        y_true, probs = model.predict(loader, return_prob=True)
+        counts = launch_counts()
+        with force_plain():
+            _, probs_plain = model.predict(loader, return_prob=True)
+        n_batches = len(loader)
+        err = float(np.abs(probs - probs_plain).max())
+        buckets = sorted({b["nodes"].shape[0] for b in loader})
+        print(f"knn slice GraphConv {pooling} k={KNN_K}: predict over {n_batches} batches of {GRAPH_B}, "
+              f"{loader.n_examples} graphs, N {buckets}; K5 launches {counts['knn_aggregate']}; probs in "
+              f"[{probs.min():.4f}, {probs.max():.4f}]; max |kernel − plain| {err:.3e} (bound {PROB_TOL:.0e})")
+        if probs.shape != (loader.n_examples, 1) or not np.isfinite(probs).all():
+            raise AssertionError(f"kNN {pooling}: bad probabilities, shape {probs.shape}")
+        if probs.min() < 0.0 or probs.max() > 1.0 or probs.std() == 0.0:
+            raise AssertionError(f"kNN {pooling}: probabilities outside [0, 1] or all equal")
+        if not np.array_equal(y_true[:, 0], loader.labels):
+            raise AssertionError(f"kNN {pooling}: y_true does not follow the loader's labels")
+        if not err <= PROB_TOL:
+            raise AssertionError(f"kNN {pooling}: kernel route disagrees with plain route: {err:.3e}")
+        want = {**dict.fromkeys(counts, 0), "knn_aggregate": 2 * n_batches}
+        if n_batches < 4 or counts != want:
+            raise AssertionError(f"kNN {pooling}: launches {counts}, expected {want}")
+        if pooling == "add":
+            add_launches = counts["knn_aggregate"]
+    return add_launches
+
+
+def knn_train_phase(work_dir: str) -> dict:
+    """The kNN GraphNet training slice: train_model with K5's launch counts,
+    add and mean; the kernel route against the plain route; resume_training.
+    Returns the "add" arm's launch counts (forward, backward)."""
+    data_dir = os.path.join(work_dir, "s2pg_train")  # the cache graph_train_phase wrote
+    launches = {}
+    for pooling in ("add", "mean"):
+        name = f"kNN GraphConv {pooling}"
+        cfg = graph_training_config(data_dir, os.path.join(work_dir, "knn_log"), 3, knn_k=KNN_K,
+                                    local_pooling=pooling)
+        steps, evals, meta, counts = train_graph_arm(name, cfg)
+        # per forward two convolutions; backward once per train step (conv1's
+        # input is the batch's features, which need no gradient)
+        want = {**dict.fromkeys(counts, 0), "knn_aggregate": 2 * (steps + evals),
+                "knn_aggregate backward": steps}
+        print(f"graph train {name}: {steps} train steps, {evals} eval batches; launches {counts} "
+              f"(expected {want}); accuracy/val {meta['accuracy/val']} (floor {KNN_VAL_ACC_FLOOR[pooling]})")
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts}, expected {want}")
+        if not meta["accuracy/val"] >= KNN_VAL_ACC_FLOOR[pooling]:
+            raise AssertionError(f"{name}: accuracy/val {meta['accuracy/val']} below {KNN_VAL_ACC_FLOOR[pooling]}")
+        graph_track_phase(name, cfg)
+        if pooling == "add":
+            launches = {k: v for k, v in counts.items() if v}
+            knn_resume_phase(name, cfg)
+    return launches
+
+
+def knn_resume_phase(name: str, cfg: dict) -> None:
+    """resume_training on the finished run for one more epoch: the restored
+    state trains on through K5 and the run's metrics grow by that epoch."""
+    log_dir = cfg["logging"]["log_dir"]  # train_model wrote the run's directory here
+    trained = len(read_metrics(log_dir)["Loss/train"])
+    cfg = copy.deepcopy(cfg)
+    cfg["trainer"]["epochs"] = trained + 1
+    reset_launch_counts()
+    resumed = port_train.resume_training(log_dir, cfg)
+    counts = launch_counts()
+    data = factory.get_dataloader("s2pg", cfg)
+    n_train, n_val = len(data.get_train_loader()), len(data.get_val_loader())
+    want = {**dict.fromkeys(counts, 0), "knn_aggregate": 2 * (n_train + n_val), "knn_aggregate backward": n_train}
+    losses = read_metrics(log_dir)["Loss/train"]
+    print(f"graph train {name}: resume_training for epoch {trained + 1}: Loss/train {losses}; "
+          f"launches {counts} (expected {want})")
+    if len(losses) != trained + 1 or not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: the resumed run logged {len(losses)} epochs, not {trained + 1}")
+    if counts != want:
+        raise AssertionError(f"{name}: resume launches {counts}, expected {want}")
+    with open(os.path.join(log_dir, "state", "trainer_state.json")) as f:
+        if json.load(f)["epoch"] != trained:
+            raise AssertionError(f"{name}: the resumed state is not at epoch index {trained}")
+    reloaded = factory.get_model("graph_net", cfg)
+    reloaded.load(os.path.join(log_dir, "model.pt"))
+    for key, value in resumed.model.state_dict().items():
+        if not torch.equal(reloaded.model.state_dict()[key].to(value.device), value):
+            raise AssertionError(f"{name}: model.pt does not hold the resumed weights ({key})")
+
+
+def knn_bound(x, pos, seg, graphs: int, deg):
+    """K5's bound for these inputs, forward or backward: x (or g), the
+    positions and the ids read once, the output written once (the thresholds
+    and degrees, 8 bytes a node, written by the forward and read by the
+    backward, are left out); per allowed pair of this batch 8 operations for
+    the distance, and per neighbour found one addition a channel."""
+    sizes = torch.bincount(seg[seg < graphs].long(), minlength=graphs).double()
+    pairs = float((sizes * (sizes - 1)).sum())
+    return bound_ms(_nbytes(x, pos, seg, x), 8 * pairs + float(deg.sum()) * x.shape[1]), pairs
+
+
+def knn_times_phase(smi: str):
+    """K5 forward and backward against the plain versions (CUDA events, plain
+    first), predict and the train step per batch on the K5 route, the plain
+    route and the lineage-graph GraphConv routes (host clock), packing a flat
+    batch, and a profile of the B=256 f32 kNN train step.  Returns the config
+    shape's f32 times and bound."""
+    config_times = None
+    for case in ("config B=32", "config B=32 H=4", "flagship B=256"):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, pos, seg, graphs = knn_inputs(case, dtype)
+            g = torch.randn(x.shape, device="cuda").to(dtype)
+            # the row-blocked plain version at N=65,536 takes about a second a call
+            iters, warmup = (2, 1) if case.startswith("flagship") else (20, 3)
+            with torch.no_grad():
+                plain_ms = cuda_ms(lambda: knn_aggregate_plain(x, pos, seg, KNN_K, graphs, "add"), iters, warmup)
+                kernel_ms = cuda_ms(lambda: _knn_aggregate_cuda(x, pos, seg, KNN_K, graphs, "add"))
+                bwd_plain_ms = cuda_ms(
+                    lambda: knn_aggregate_bwd_plain(g, pos, seg, KNN_K, graphs, "add"), iters, warmup)
+                _, state = _knn_aggregate_cuda(x, pos, seg, KNN_K, graphs, "add")
+                bwd_ms = cuda_ms(lambda: _knn_aggregate_bwd_cuda(g, *state, graphs, "add"))
+            print(f"time knn_aggregate add k={KNN_K} {case} N={x.shape[0]} H={x.shape[1]} {str(dtype)[6:]}: "
+                  f"forward K5 {kernel_ms:.4f} ms (the entry: two segment-range kernels, then the aggregation), plain "
+                  f"{plain_ms:.4f} ms; backward K5 {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms "
+                  f"(plain: mean of {iters}) [{smi}]")
+            if dtype == torch.float32:
+                bound, pairs = knn_bound(x, pos, seg, graphs, state[5])
+                print(f"bound knn_aggregate {case} f32: K5 {bound[0]:.4f} ms by {bound[1]}, each way "
+                      f"({pairs:.0f} allowed pairs, {int(state[5].sum())} neighbours); no single PyTorch "
+                      f"call computes it")
+                if case == "config B=32":
+                    config_times = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound[0],
+                                        bound_by=bound[1], library_ms=None)
+    for b in (GRAPH_B, FLAGSHIP_GRAPHS):
+        graphs = lineage_graphs(np.random.default_rng(SEED + 2), 4 * b)
+        t0 = time.perf_counter()
+        loader = GraphLoader(graphs, b, shuffle=False, layout="flat", use_weights=False)
+        t1 = time.perf_counter()
+        flat = list(loader)
+        t2 = time.perf_counter()
+        dense = list(GraphLoader(graphs, b, shuffle=False, layout="dense", use_weights=False, emit_out_rows=True))
+        print(f"time packing per flat batch B={b} N={sorted({x['nodes'].shape[0] for x in flat})} "
+              f"E={sorted({x['src'].shape[0] for x in flat})} on the host: {(t2 - t1) * 1e3 / len(flat):.4f} ms; "
+              f"constructing the flat loader over {len(graphs)} graphs, once: {(t1 - t0) * 1e3:.4f} ms [{smi}]")
+        slow_plain = b == FLAGSHIP_GRAPHS  # a second and more a step: timed apart, a few runs
+        for dtype in ("float32", "bfloat16"):
+            def knn_model():
+                return factory.get_model("graph_net", knn_config("", "add", compute_dtype=dtype))
+            knn, plain = knn_model(), PlainRoute(knn_model())
+            fused = factory.get_model("graph_net", graph_config("", False, compute_dtype=dtype, fused_inrow=True))
+            conv = factory.get_model("graph_net", graph_config("", False, compute_dtype=dtype))
+            names = ["kNN K5 route", "lineage GraphConv add K6 route", "lineage GraphConv add adjacency route"]
+            models, batches = [knn, fused, conv], [flat, dense, dense]
+            if not slow_plain:
+                names, models, batches = names + ["kNN plain route"], models + [plain], batches + [flat]
+            for what, timer in (("predict", predict_ms_per_batch), ("train step", train_ms_per_batch)):
+                rows = timer(models, batches)
+                line = ", ".join(f"{n} {r[0]:.4f} ({r[1]:.4f}-{r[2]:.4f}) ms" for n, r in zip(names, rows))
+                if slow_plain and dtype == "float32":
+                    r = timer([plain], flat[:2], reps=2)[0]
+                    line += f", kNN plain route {r[0]:.4f} ({r[1]:.4f}-{r[2]:.4f}) ms (2 runs over 2 batches)"
+                print(f"time {what} per batch B={b} {dtype} adam, kNN k={KNN_K} on the flat wire beside the "
+                      f"lineage graphs on the in-row wire, median (q1-q3) of 10 runs over {len(flat)} pre-packed "
+                      f"batches, host clock{' to a synchronise' if what == 'train step' else ''}: {line} [{smi}]")
+            if b == FLAGSHIP_GRAPHS and dtype == "float32":
+                profile_train_steps(smi, "B=256 f32 kNN K5 route", knn, flat)
+    return config_times
+
+
 def main() -> None:
     t0 = time.perf_counter()
     smi = device_phase()
     build_phase()
     errors = {"phi_pool": kernel_phase(), "phi_pool_bwd": bwd_kernel_phase(),
               "gat_attention": gat_kernel_phase(), "gat_attention_bwd": gat_bwd_kernel_phase(),
-              "inrow_aggregate": inrow_kernel_phase()}
+              "inrow_aggregate": inrow_kernel_phase(), "knn_aggregate": knn_kernel_phase()}
     with tempfile.TemporaryDirectory() as run_dir:
         write_jax_checkpoint(run_dir, np.random.default_rng(SEED))
         serve_launches = slice_phase(run_dir)
         launches = train_phase(run_dir)
         graph_serve_launches = graph_slice_phase(run_dir)
         graph_launches = graph_train_phase(run_dir)
+        knn_serve_launches = knn_slice_phase(run_dir)
+        knn_launches = knn_train_phase(run_dir)
         print(f"launches: DeepSets serving path K1 {serve_launches}; DeepSets training path "
               f"K1 {launches['phi_pool']}, K2 {launches['phi_pool_bwd']}; GAT serving path "
-              f"K3 {graph_serve_launches}; GraphNet training path {graph_launches}")
-        # K6's count is its forward and backward launches together
+              f"K3 {graph_serve_launches}; GraphNet training path {graph_launches}; kNN serving path "
+              f"K5 {knn_serve_launches}; kNN training path {knn_launches}")
+        # K6's and K5's counts are their forward and backward launches together
         graph_launches["inrow_aggregate"] += graph_launches.pop("inrow_aggregate backward")
+        knn_launches["knn_aggregate"] += knn_launches.pop("knn_aggregate backward")
         launches.update(graph_launches)
+        launches.update(knn_launches)
         times = times_phase(smi, run_dir)
         times["gat_attention"] = graph_times_phase(smi, os.path.join(run_dir, "graph_run_1"))
         times.update(graph_train_times_phase(smi))
+        times["knn_aggregate"] = knn_times_phase(smi)
     profile_phase(smi)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{

@@ -13,7 +13,10 @@ keys, so one declarative mapping per model serves both directions:
   has no counterpart: it is skipped one way and written as 0 the other, as
   the JAX package's ``convert.py`` does);
 - torch_geometric's ``GraphConv`` ``lin_rel`` (biased) / ``lin_root``
-  (bias-free) ↔ ``GraphConv_k/TorchLinear_0`` / ``TorchLinear_1``;
+  (bias-free) ↔ ``GraphConv_k/TorchLinear_0`` / ``TorchLinear_1``, or
+  ``DenseGraphConv_k/...`` for a model with ``knn_k > 0`` and add or mean
+  aggregation (Flax names the kNN arm's convolution so; the JAX package's
+  converter knows only ``GraphConv_k``);
 - torch_geometric 2.5's ``GATConv`` (``in_channels`` an int, no edge
   features, no residual): ``lin.weight`` ``[H·dh, in]`` ↔
   ``GATConv_k/Dense_0/kernel`` (transposed), ``att_src``/``att_dst``
@@ -124,7 +127,10 @@ def _graph_net_mapping(cfg: dict) -> Iterator[Entry]:
                 yield f"conv{k}.{name}", "params", (conv, name), False
             yield f"conv{k}.lin.weight", "params", (conv, "Dense_0", "kernel"), True
         else:
-            conv = f"GraphConv_{k - 1}"
+            # the kNN arm (knn_k > 0 with add/mean) aggregates ahead of the
+            # convolution, and Flax names that module DenseGraphConv
+            dense = cfg.get("knn_k", 0) > 0 and cfg.get("local_pooling", "add") in ("add", "mean")
+            conv = f"{'DenseGraphConv' if dense else 'GraphConv'}_{k - 1}"
             yield from _lin(f"conv{k}.lin_rel", (conv, "TorchLinear_0"))
             yield f"conv{k}.lin_root.weight", "params", (conv, "TorchLinear_1", "kernel"), True
         yield from _bn(f"bn{k}", f"MaskedBatchNorm_{k - 1}")

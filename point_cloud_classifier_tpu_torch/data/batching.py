@@ -17,14 +17,21 @@ Batches are byte-identical to the JAX loaders': keys, dtypes and values.
   (``k·2^j``, k in 8..15) rounded up to 8, D the batch's max in-degree
   rounded up to a power of two (at least 4).  ``emit_out_rows=True`` adds
   the out-row mirror ``out_dst``/``out_w``/``out_pos [B, M, Do]``.
+- ``GraphLoader``, the flat edge-list wire (``layout="flat"``): ``nodes
+  [n_pad, F]`` with graphs contiguous and padding rows at the end, global
+  ``src``/``dst [e_pad]`` with ``edge_w`` and ``edge_mask`` in the stored
+  edge order (padded edges self-loop on the last node, which is always
+  padding), ``y``/``y_mask``, and ``node_seg [n_pad]`` (padding rows get
+  ``B``) or ``node_seg_counts [B + 1]``.  ``n_pad`` and ``e_pad`` are
+  power-of-two buckets of ``total_nodes + 1`` and ``total_edges``.
 
 Packing is the JAX loaders' pure-Python branch.  Not ported yet: their C++
 packers; for point clouds the dense per-cloud-row layout,
 ``factor_event_cols``, the fp16 wire, length-sorted batching and
-non-power-of-two bucket ladders; for graphs the flat edge-list wire, the
-edge-slot triples, the host adjacency and ``require_inrow``.  Where the JAX
-graph loader would ship one of those, the port raises
-``NotImplementedError`` with the reason.
+non-power-of-two bucket ladders; for graphs the edge-slot triples, the host
+adjacency, ``require_inrow`` and every per-batch or per-dataset demotion
+from ``dense``/``auto`` to the flat wire.  Where the JAX graph loader would
+ship one of those, the port raises ``NotImplementedError`` with the reason.
 """
 
 from __future__ import annotations
@@ -149,13 +156,20 @@ class PointCloudLoader:
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"GraphLoader: {what}; the port serves only the dense in-row wire so "
-        "far (ROADMAP Queue 1, GraphNet slice 2)"
+        f"GraphLoader: {what}; the port serves the dense in-row wire and the "
+        "pure layout='flat' wire so far (ROADMAP Queue 1, GraphNet slice 2)"
     )
 
 
 class GraphLoader:
-    """Batched padded graphs on the dense in-row wire.
+    """Batched padded graphs on the dense in-row wire (``layout="dense"`` or
+    ``"auto"``) or the flat edge-list wire (``layout="flat"``).
+
+    The flat wire keeps each graph's edges as stored, one entry per
+    occurrence: ``edge_w`` is the weight (1 with ``use_weights=False``) and
+    ``edge_mask`` 1 on real edges.  ``transfer_dtype="float16"`` there ships
+    fp16 features, weights and masks, int16 ``node_seg`` and, up to 32,768
+    rows, int16 ``src``/``dst``.  The rest of this text is the dense wire's.
 
     At construction each graph's edges are sorted by (destination, source)
     and duplicate directed edges merged: weights summed, multiplicities
@@ -207,14 +221,18 @@ class GraphLoader:
             raise ValueError(f"Unknown graph layout: {layout}")
         if adj_wire not in ("host", "device"):
             raise ValueError(f"Unknown adj_wire: {adj_wire}")
-        if layout == "flat":
-            raise _not_ported("layout='flat' ships the flat edge-list wire")
-        if adj_wire == "host":
+        if seg_encoding not in ("ids", "counts"):
+            raise ValueError("seg_encoding must be 'ids' or 'counts'")
+        if adj_wire == "host" and layout != "flat":
             raise _not_ported("adj_wire='host' ships the host adjacency [B, M, M]")
-        if require_inrow:
+        if require_inrow and layout != "flat":
             raise _not_ported("require_inrow serves max aggregation (GraphNet slice 2)")
         self.layout = layout
-        self.emit_out_rows = bool(emit_out_rows)
+        self.seg_encoding = seg_encoding
+        self.min_node_bucket = min_node_bucket
+        self.min_edge_bucket = min_edge_bucket
+        # the out-rows belong to the dense wire: the flat one never ships them
+        self.emit_out_rows = bool(emit_out_rows) and layout != "flat"
         self.length_sorted = bool(length_sorted)
         self.max_in_degree_wire = int(max_in_degree_wire)
         self.min_dense_nodes = min_dense_nodes
@@ -249,6 +267,22 @@ class GraphLoader:
         )
         self.node_counts = node_counts
         self.labels = np.asarray(labels, dtype=np.float32)
+        self.batch_size = int(batch_size) if batch_size else len(labels)
+        self.shuffle = shuffle
+        self.use_weights = use_weights
+        self.seed = seed
+        self._epoch = 0
+        if layout == "flat":
+            # the edges as stored: no sort, no merge, multiplicity 1 each
+            self.edges_src, self.edges_dst, self.weights = src, dst, weights
+            self.edge_counts = edge_counts
+            self.edge_offsets = np.ascontiguousarray(
+                np.concatenate([[0], np.cumsum(edge_counts)]), dtype=np.int64
+            )
+            self.edge_mult = np.ones(len(weights), dtype=np.float32)
+            self.weights_wire = weights.astype(np.float16) if self.half else weights
+            self.mult_wire = self.edge_mult.astype(np.float16) if self.half else self.edge_mult
+            return
 
         # sort each graph's edges by (dst, src) and merge duplicates
         gid = np.repeat(np.arange(len(edge_counts)), edge_counts)
@@ -296,11 +330,6 @@ class GraphLoader:
                 "the dataset has duplicate directed edges, which dense attention "
                 "counts once, so the JAX loader demotes to the flat wire"
             )
-        self.batch_size = int(batch_size) if batch_size else len(labels)
-        self.shuffle = shuffle
-        self.use_weights = use_weights
-        self.seed = seed
-        self._epoch = 0
 
     @property
     def n_examples(self) -> int:
@@ -362,6 +391,58 @@ class GraphLoader:
                     idx, b, m_pad, do_pad, self.edges_src_o,
                     [(self.edges_dst_o, idx_t), (wire_w, wire_w.dtype), (self.inpos_o, idx_t)],
                 )
+        return batch
+
+    def _flat_batch(self, idx, k: int, b: int) -> Batch:
+        """The flat edge-list wire for the graphs ``idx`` in ``b`` slots."""
+        total_nodes = int(self.node_counts[idx].sum())
+        total_edges = int(self.edge_counts[idx].sum())
+        n_pad = pow2_bucket(total_nodes + 1, self.min_node_bucket)
+        e_pad = pow2_bucket(max(total_edges, 1), self.min_edge_bucket)
+        seg_dtype = np.int16 if (self.half and b < 32767) else np.int32
+        idx_dtype = np.int16 if (self.half and n_pad <= 32768) else np.int32
+        small_dtype = np.float16 if self.half else np.float32
+        nodes = np.zeros((n_pad, self.feat_dim), dtype=self.feats.dtype)
+        node_seg = np.full((n_pad,), b, dtype=seg_dtype)
+        # padded edges self-loop on the last (always padding) node
+        src = np.full((e_pad,), n_pad - 1, dtype=idx_dtype)
+        dst = np.full((e_pad,), n_pad - 1, dtype=idx_dtype)
+        edge_w = np.zeros((e_pad,), dtype=small_dtype)
+        edge_mask = np.zeros((e_pad,), dtype=small_dtype)
+        yb = np.zeros((b, 1), dtype=np.float32)
+        ymask = np.zeros((b,), dtype=np.float32)
+        seg_counts = np.zeros((b + 1,), dtype=np.int32)
+        wire_w = self.weights_wire if self.use_weights else self.mult_wire
+        node_cursor = edge_cursor = 0
+        for slot, g_i in enumerate(idx):
+            nlo, nhi = self.node_offsets[g_i], self.node_offsets[g_i + 1]
+            elo, ehi = self.edge_offsets[g_i], self.edge_offsets[g_i + 1]
+            n_i, e_i = nhi - nlo, ehi - elo
+            nodes[node_cursor : node_cursor + n_i] = self.feats[nlo:nhi]
+            node_seg[node_cursor : node_cursor + n_i] = slot
+            seg_counts[slot] = n_i
+            src[edge_cursor : edge_cursor + e_i] = self.edges_src[elo:ehi] + node_cursor
+            dst[edge_cursor : edge_cursor + e_i] = self.edges_dst[elo:ehi] + node_cursor
+            edge_w[edge_cursor : edge_cursor + e_i] = wire_w[elo:ehi]
+            edge_mask[edge_cursor : edge_cursor + e_i] = 1.0
+            node_cursor += n_i
+            edge_cursor += e_i
+        seg_counts[b] = n_pad - node_cursor  # padding nodes → segment B
+        yb[:k, 0] = self.labels[idx]
+        ymask[:k] = 1.0
+        batch = {
+            "nodes": nodes,
+            "src": src,
+            "dst": dst,
+            "edge_w": edge_w,
+            "edge_mask": edge_mask,
+            "y": yb,
+            "y_mask": ymask,
+        }
+        if self.seg_encoding == "counts":
+            batch["node_seg_counts"] = seg_counts
+        else:
+            batch["node_seg"] = node_seg
         return batch
 
     def _sort_out_rows(self) -> None:
@@ -434,6 +515,9 @@ class GraphLoader:
         itemsize = 2 if self.half else 4
         for start in starts:
             idx = order[start : start + b]
+            if self.layout == "flat":
+                yield self._flat_batch(idx, len(idx), b)
+                continue
             m_pad = max(self.min_dense_nodes, _dense_rung(int(self.node_counts[idx].max())))
             m_pad = -(-m_pad // 8) * 8
             dense_bytes = b * m_pad * m_pad * itemsize

@@ -34,6 +34,12 @@ positions are standardized per graph with energy weights and the energy
 column with the train split's mean and standard deviation.  The class signal:
 label 0 tends to fewer, longer tracks and spikier energy sharing than label
 1; the ranges overlap.
+
+``position_grid`` rounds the standardized positions to multiples of that
+step, for the kNN path's tests: on a power-of-two grid (1/64, say) every
+squared distance is exact in f32 whatever the order of operations, so two
+implementations pick the same neighbours bit for bit; a coarse grid (1/2)
+also makes exact distance ties, where a row's kNN degree exceeds k.
 """
 
 from __future__ import annotations
@@ -156,16 +162,23 @@ def _scale_positions(features: np.ndarray) -> None:
 
 
 def lineage_graphs(
-    rng: np.random.Generator, count: int, min_nodes: int = 160, max_nodes: int = 288
+    rng: np.random.Generator,
+    count: int,
+    min_nodes: int = 160,
+    max_nodes: int = 288,
+    position_grid: float | None = None,
 ) -> List[Dict[str, np.ndarray]]:
     """``count`` lineage-like graphs of ``min_nodes``–``max_nodes`` nodes with
     random labels: ``features`` (energy fraction, then positions standardized
-    per graph), ``edges``, ``weights`` and ``label``."""
+    per graph and, with ``position_grid``, rounded to its multiples),
+    ``edges``, ``weights`` and ``label``."""
     graphs = []
     for _ in range(count):
         label = int(rng.integers(0, 2))
         g = _graph(rng, int(rng.integers(min_nodes, max_nodes + 1)), label)
         _scale_positions(g["features"])
+        if position_grid:
+            g["features"][:, 1:4] = np.round(g["features"][:, 1:4] / position_grid) * position_grid
         g["label"] = np.int64(label)
         graphs.append(g)
     return graphs
@@ -177,13 +190,15 @@ def write_s2pg_cache(
     min_nodes: int = 160,
     max_nodes: int = 288,
     seed: int = 0,
+    position_grid: float | None = None,
 ) -> None:
     """Write train, val and test splits of ``n_graphs`` graphs each, of
-    ``min_nodes``–``max_nodes`` nodes, balanced labels, from ``seed``."""
+    ``min_nodes``–``max_nodes`` nodes, balanced labels, from ``seed``;
+    positions on multiples of ``position_grid`` when it is given."""
     rng = np.random.default_rng(seed)
     splits, first_id = {}, 0
     for split, count in zip(SPLITS, n_graphs):
-        splits[split] = lineage_graphs(rng, count, min_nodes, max_nodes)
+        splits[split] = lineage_graphs(rng, count, min_nodes, max_nodes, position_grid)
         for i, g in enumerate(splits[split]):
             g["event_id"] = np.int64(first_id + i)
         first_id += count

@@ -2,7 +2,8 @@
 
 Counterpart of ``get_dataloader`` and ``get_model`` in
 ``point_cloud_classifier_tpu/factory.py``.  Ported: the S2PPC point clouds
-with DeepSets, and the S2PG graphs with GraphNet on the dense in-row wire;
+with DeepSets, and the S2PG graphs with GraphNet on the dense in-row wire
+and, for ``knn_k > 0``, on the flat wire;
 the other datasets and families raise and name the ROADMAP item that brings
 them.
 """
@@ -32,8 +33,8 @@ def _graph_dataset_config(config: dict) -> dict:
     exact-zero wire weights, GAT and SAG demote a multigraph, max pooling
     needs the full in-row wire, ``fused_inrow`` the out-row wire, and the
     layout defaults to ``auto`` (``flat`` for ``knn_k``).  The loaders raise
-    on the wires the port does not serve yet: ``require_inrow`` and
-    ``flat``."""
+    on what the port does not serve yet: ``require_inrow`` and the demotions
+    from ``dense``/``auto`` to the flat wire."""
     ds_cfg = dict(config["dataset"])
     mdl = config.get("model", {})
     use_gat = mdl.get("use_gat", False)
@@ -61,7 +62,7 @@ def get_dataloader(dataset_name: str, config: dict):
     serves on the flat wire below a batch size of 128 and refuses above;
     S2PG defaults to ``graph_layout="auto"``, which the port serves on the
     dense in-row wire and refuses where the JAX loader would ship a batch
-    another way."""
+    another way, and to ``"flat"`` for a ``knn_k`` model."""
     if dataset_name in _DATASETS_NOT_PORTED:
         raise NotImplementedError(
             f"{dataset_name} is not ported to PyTorch yet "

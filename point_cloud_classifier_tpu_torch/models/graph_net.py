@@ -1,9 +1,11 @@
-"""GraphNet over the dense in-row graph wire.
+"""GraphNet over the dense in-row graph wire, and over the flat wire with
+kNN graphs built on the device.
 
-Counterpart of ``point_cloud_classifier_tpu/models/graph_net.py``'s
+Counterpart of ``point_cloud_classifier_tpu/models/graph_net.py``:
 ``_dense_forward`` on the in-row wire (``nodes [B, M, F]``, ``node_mask
 [B, M]``, ``in_deg [B, M]``, ``in_src``/``in_w [B, M, D]``, from
-``data/batching.GraphLoader``), with the same semantics:
+``data/batching.GraphLoader``), and the flat forward's kNN arm (below), with
+the same semantics:
 
 - two convolutions, each followed by the activation and a ``MaskedBatchNorm``
   over the real nodes;
@@ -30,6 +32,19 @@ Counterpart of ``point_cloud_classifier_tpu/models/graph_net.py``'s
 - ``compute_dtype`` f32 or bf16: convolutions and linears at that dtype,
   aggregation sums, softmax and norms in f32.
 
+With ``knn_k > 0`` (GraphConv add or mean, no SAG) the model takes the flat
+wire (``nodes [N, F]``, ``node_seg [N]`` or ``node_seg_counts [B + 1]``,
+``y``) and ignores the batch's edges: each node's neighbours are its k
+nearest nodes of the same graph by the position features ``nodes[:, 1:4]``,
+taken in f32 BEFORE the compute-dtype cast (bf16 coordinates would change
+the topology), ties at the k-th distance all admitted.  Both convolutions'
+aggregates come from ``ops/knn.knn_aggregate`` — kernel K5 on a CUDA tensor,
+forward and backward, with no edge list and no ``[N, N]`` tensor — and feed
+the same ``GraphConv`` modules (the JAX package's ``DenseGraphConv``).
+``MaskedBatchNorm`` runs over the real nodes (``node_seg < B``), the readout
+is the per-graph mean by segment sums in f32.  A dense batch raises, as in
+the JAX model.
+
 Module names follow the torch reference's ``state_dict`` (``conv1``,
 ``bn1``, ``conv2``, ``bn2``, ``fc1``, ``bn3``, ``fc2``), registered in the
 JAX module's instantiation order, so ``convert`` maps the two parameter
@@ -37,8 +52,9 @@ trees 1:1.  ``PCC_GRAPH_REMAT`` (JAX rematerialisation of the head) changes
 no value and has no counterpart here.
 
 Not ported yet, each raising ``NotImplementedError``: SAG pooling, max
-aggregation, ``knn_k``, and batches without the in-row lists (the edge-slot
-triples and the flat edge-list wire).
+aggregation, ``knn_k`` with GAT, SAG or max (the kNN edge-list arm), and
+batches of edges without the in-row lists (the edge-slot triples, and the
+flat edge-list wire with ``knn_k == 0``).
 """
 
 from __future__ import annotations
@@ -58,6 +74,12 @@ from point_cloud_classifier_tpu_torch.models.common import (
 )
 from point_cloud_classifier_tpu_torch.ops.gat import SLOPE, gat_attention
 from point_cloud_classifier_tpu_torch.ops.inrow_graph import inrow_adjacency, inrow_aggregate
+from point_cloud_classifier_tpu_torch.ops.knn import knn_aggregate
+from point_cloud_classifier_tpu_torch.ops.segment import (
+    counts_to_segment_ids,
+    segment_count,
+    segment_sum,
+)
 
 
 def _glorot(shape, fan_in: int, fan_out: int, generator) -> nn.Parameter:
@@ -128,11 +150,14 @@ class GraphNet(nn.Module):
     ):
         super().__init__()
         refused = {
+            "knn_k > 0 with GAT, SAG or max aggregation (the kNN edge-list arm; ROADMAP "
+            "Queue 1, GraphNet slice 2)": (
+                knn_k > 0 and (use_gat or sag_pool or local_pooling == "max")
+            ),
             "sag_pool (ROADMAP Queue 1, GraphNet slice 2)": sag_pool,
             "local_pooling='max' (ROADMAP Queue 1, GraphNet slice 2)": (
                 not use_gat and local_pooling == "max"
             ),
-            "knn_k > 0 (ROADMAP Queue 1, the kNN slice with kernel K5)": knn_k > 0,
         }
         for what, requested in refused.items():
             if requested:
@@ -149,6 +174,10 @@ class GraphNet(nn.Module):
             compute_dtype=compute_dtype, fused_inrow=fused_inrow, knn_k=knn_k,
         )
         self.use_gat = use_gat
+        self.knn_k = int(knn_k)
+        # under knn_k the model builds its own graph: the wrapper leaves the
+        # batch's edge arrays on the host
+        self.unused_batch_keys = ("src", "dst", "edge_w", "edge_mask") if knn_k > 0 else ()
         self.fused_inrow = fused_inrow
         self.local_pooling = local_pooling
         self.deepchem_style = deepchem_style
@@ -171,11 +200,23 @@ class GraphNet(nn.Module):
         self.fc2 = TorchLinear(256, output_dim, generator)
 
     def forward(self, batch: Dict[str, torch.Tensor], train: bool = False) -> torch.Tensor:
+        if "in_src" not in batch and "adj" not in batch and "edge_slot" not in batch:
+            return self._flat_forward(batch, train)
+        if self.knn_k > 0:
+            raise ValueError(
+                "dense graph layout supports GraphConv add/mean, GAT, and "
+                "max over the in-row device wire "
+                "(GraphLoader(require_inrow=True) — the factory sets it "
+                "for pinned dense/auto max configs; require_inrow routes "
+                "degree-outlier batches to the flat wire instead of this "
+                "error); use the flat (edge list) layout otherwise / for "
+                "knn_k"
+            )
         if "in_src" not in batch:
             raise NotImplementedError(
-                "GraphNet takes only the dense in-row wire so far (in_src/in_w); "
-                "the edge-slot triples and the flat edge-list wire are not ported "
-                "yet (ROADMAP Queue 1, GraphNet slice 2)"
+                "GraphNet takes only the in-row lists of the dense wire so far "
+                "(in_src/in_w); the edge-slot triples and the host adjacency are "
+                "not ported yet (ROADMAP Queue 1, GraphNet slice 2)"
             )
         dtype = self.compute_dtype
         x = batch["nodes"].to(dtype)
@@ -252,4 +293,49 @@ class GraphNet(nn.Module):
         else:
             x = mean_pool(x, node_mask)
             x = self.bn3(self.act(self.fc1(x)), mask=batch.get("y_mask"), train=train)
+        return self.fc2(x).float()
+
+    def _flat_forward(self, batch: Dict[str, torch.Tensor], train: bool) -> torch.Tensor:
+        """The flat wire: kNN graphs from the position features, both
+        aggregates through ``knn_aggregate``."""
+        if self.knn_k == 0:
+            raise NotImplementedError(
+                "GraphNet with knn_k == 0 takes only the dense in-row wire so far "
+                "(in_src/in_w); the edge-slot triples and the flat edge-list wire "
+                "(src/dst/edge_w) are not ported yet (ROADMAP Queue 1, GraphNet slice 2)"
+            )
+        if self.config["input_dim"] < 4:
+            raise ValueError("knn_k needs position features (n_features=4)")
+        nodes = batch["nodes"]
+        x = nodes.to(self.compute_dtype)
+        num_graphs = batch["y"].shape[0]
+        # compact int16/int32 ids, or the counts encoding (graphs are
+        # node-contiguous): ids rebuilt on the device without a host sync
+        if "node_seg" in batch:
+            node_seg = batch["node_seg"].to(torch.int32)
+        else:
+            node_seg = counts_to_segment_ids(batch["node_seg_counts"], x.shape[0])
+        # positions from the features BEFORE the cast: a graph built from
+        # bf16-rounded coordinates would have another topology; one contiguous
+        # copy serves both convolutions and their backward
+        pos3 = nodes[:, 1:4].float().contiguous()
+        node_valid = (node_seg < num_graphs).float()
+
+        def block(conv, bn, h):
+            agg = knn_aggregate(h, pos3, node_seg, self.knn_k, num_graphs, self.local_pooling)
+            return bn(self.act(conv(h, agg)), mask=node_valid, train=train)
+
+        x = block(self.conv1, self.bn1, x)
+        x = block(self.conv2, self.bn2, x)
+
+        def mean_pool(h):
+            h32 = (h * node_valid[:, None].to(h.dtype)).float()
+            total = segment_sum(h32, node_seg, num_graphs + 1)
+            counts = segment_count(node_seg, num_graphs + 1)
+            return (total / torch.clamp(counts, min=1.0)[:, None])[:num_graphs].to(h.dtype)
+
+        if self.deepchem_style:
+            x = mean_pool(self.bn3(self.act(self.fc1(x)), mask=node_valid, train=train))
+        else:
+            x = self.bn3(self.act(self.fc1(mean_pool(x))), mask=batch.get("y_mask"), train=train)
         return self.fc2(x).float()

@@ -190,7 +190,14 @@ class ModelWrapper:
         self._shapes_seen = set()
 
     def _put(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in batch.items()}
+        """The batch on the device, without the arrays the model says it
+        never reads (a kNN GraphNet builds its own edges)."""
+        unused = getattr(self.model, "unused_batch_keys", ())
+        return {
+            k: torch.from_numpy(np.asarray(v)).to(self.device)
+            for k, v in batch.items()
+            if k not in unused
+        }
 
     # -- training ------------------------------------------------------------
 

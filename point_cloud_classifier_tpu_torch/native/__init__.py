@@ -134,6 +134,20 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, i32, vp,  # h_code, src_code, w_code, stream
     ]
     lib.pcc_inrow_aggregate.restype = i32
+    lib.pcc_knn_aggregate.argtypes = [
+        vp, vp, vp, vp, vp,  # x, pos, seg, lo and hi (written)
+        vp, vp, vp,  # out, kth, deg (written)
+        i32, i32, i32, i32, i32,  # n, width, k, num_graphs, mean
+        i32, vp,  # x_code, stream
+    ]
+    lib.pcc_knn_aggregate.restype = i32
+    lib.pcc_knn_aggregate_bwd.argtypes = [
+        vp, vp, vp, vp, vp,  # g, pos, seg, lo, hi
+        vp, vp, vp,  # kth, deg, dx
+        i32, i32, i32, i32,  # n, width, num_graphs, mean
+        i32, vp,  # x_code, stream
+    ]
+    lib.pcc_knn_aggregate_bwd.restype = i32
     lib.pcc_error_string.argtypes = [i32]
     lib.pcc_error_string.restype = ctypes.c_char_p
 

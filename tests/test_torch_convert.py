@@ -173,3 +173,35 @@ def test_graph_conv_mapping_matches_jax():
     theirs, theirs_stats = jax_convert.convert_torch_state_dict("graph_net", cfg, state)
     _assert_trees_equal(ours, theirs)
     _assert_trees_equal(ours_stats, theirs_stats)
+
+
+@pytest.mark.parametrize("local_pooling", ["add", "mean"])
+def test_knn_graph_net_tree_uses_the_dense_graph_conv_names(local_pooling):
+    """Under ``knn_k > 0`` with add or mean Flax names the convolutions
+    ``DenseGraphConv_k``; the port's state_dict keys stay the reference's, and
+    the tree round-trips exactly.  The JAX package's own converter knows only
+    ``GraphConv_k`` and fails on such a tree."""
+    model_cfg = dict(_graph_cfg("graphconv"), knn_k=3, local_pooling=local_pooling)
+    cfg = {"model": model_cfg}
+    rng = np.random.default_rng(4)
+    graph = {"features": rng.normal(size=(6, 4)).astype(np.float32),
+             "edges": np.array([[0, 1, 2], [1, 2, 3]]), "weights": np.ones(3, np.float32), "label": 1}
+    batch = next(iter(JaxGraphLoader([graph] * 2, 2, shuffle=False, layout="flat")))
+    variables = JaxGraphNet(**model_cfg).init(jax.random.PRNGKey(4), batch, train=False)
+    params = jax.tree.map(np.asarray, variables["params"])
+    stats = jax.tree.map(np.asarray, variables["batch_stats"])
+    assert {"DenseGraphConv_0", "DenseGraphConv_1"} <= set(params) and "GraphConv_0" not in params
+
+    sd = convert.to_torch_state_dict("graph_net", cfg, params, stats)
+    model = GraphNet(**model_cfg)
+    assert list(sd) == list(model.state_dict())
+    assert list(sd)[:3] == ["conv1.lin_rel.weight", "conv1.lin_rel.bias", "conv1.lin_root.weight"]
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()}, strict=True)
+    back, back_stats = convert.convert_torch_state_dict("graph_net", cfg, model.state_dict())
+    _assert_trees_equal(back, params)
+    _assert_trees_equal(back_stats, stats)
+    with pytest.raises(KeyError):
+        jax_convert.to_torch_state_dict("graph_net", cfg, params, stats)
+    # without knn_k the same state_dict maps to GraphConv_k, as before
+    plain, _ = convert.convert_torch_state_dict("graph_net", {"model": _graph_cfg("graphconv")}, model.state_dict())
+    assert "GraphConv_0" in plain and "DenseGraphConv_0" not in plain

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels on a card: K1, K2, K3, K4 and K6 against their
+"""The port's CUDA kernels on a card: K1, K2, K3, K4, K5 and K6 against their
 plain versions, the DeepSets kernel route against its plain route, serving
 and training, and the GraphNet routes (GAT through K3 and K4, GraphConv
-through K6) against their plain routes, serving and one train step.
+through K6, kNN GraphConv through K5) against their plain routes, serving and
+one train step.
 
 These tests need a CUDA card and skip without one.  They import neither jax
 nor the JAX package, so they run on a machine that has only PyTorch; there,
@@ -16,7 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from point_cloud_classifier_tpu_torch.models import DeepSets, GraphNet  # noqa: E402
-from point_cloud_classifier_tpu_torch.ops import fused_phi, gat, inrow_graph  # noqa: E402
+from point_cloud_classifier_tpu_torch.ops import fused_phi, gat, inrow_graph, knn  # noqa: E402
 from point_cloud_classifier_tpu_torch.ops.dispatch import force_plain  # noqa: E402
 
 SPEC = (("plain", False), ("residual", False))
@@ -552,3 +553,177 @@ def test_fused_graph_net_without_out_rows_serves_through_k6_and_refuses_to_train
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError, match="emit_out_rows=True"):
         fused(batch, train=True)
+
+
+# K5 against knn_aggregate_plain: the distance is formed in one order of
+# operations on both sides, so thresholds and degrees are equal exactly and
+# only the f32 sums over the neighbours run in another order (index order
+# against a matrix product's).  bf16: exact f32 sums of bf16 values rounded
+# once on both sides, at most one bf16 value apart.
+KNN_F32_REL, KNN_BF16_REL = 1e-5, 8e-3
+KNN_CASES = {
+    # (nodes per graph low, high, graphs, padding rows, grid step or None, width)
+    "ragged": (20, 60, 7, 13, None, 128),
+    "tiny graphs": (1, 6, 40, 5, None, 128),
+    "coarse grid ties": (30, 50, 5, 9, 0.5, 128),
+    "long padding tail": (10, 30, 4, 700, None, 128),
+    "width 4": (20, 60, 7, 13, None, 4),
+    "width 200": (20, 40, 3, 2, None, 200),
+}
+
+
+def _knn_inputs(dev, dtype, case, seed=0):
+    lo, hi, graphs, padding, grid, width = KNN_CASES[case]
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(lo, hi + 1, size=graphs)
+    n = int(sizes.sum()) + padding
+    seg = np.full(n, graphs, dtype=np.int32)
+    seg[: sizes.sum()] = np.repeat(np.arange(graphs, dtype=np.int32), sizes)
+    pos = rng.normal(size=(n, 3)).astype(np.float32)
+    if grid:
+        pos = (np.round(pos / grid) * grid).astype(np.float32)
+    x = torch.from_numpy(rng.normal(size=(n, width)).astype(np.float32)).to(dev, dtype)
+    g = torch.from_numpy(rng.normal(size=(n, width)).astype(np.float32)).to(dev, dtype)
+    return x, torch.from_numpy(pos).to(dev), torch.from_numpy(seg).to(dev), graphs, g
+
+
+def _knn_rel(out, ref):
+    return (out.double() - ref.double()).abs().max().item() / max(1.0, ref.double().abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("aggr", ["add", "mean"])
+@pytest.mark.parametrize("case", list(KNN_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_knn_kernel_matches_plain_forward_and_backward(dtype, case, aggr, k):
+    dev = _cuda()
+    x, pos, seg, graphs, g = _knn_inputs(dev, dtype, case)
+    before = (knn.knn_aggregate.launches, knn.knn_aggregate.bwd_launches)
+    leaf = x.clone().requires_grad_()
+    out = knn.knn_aggregate(leaf, pos, seg, k, graphs, aggr)
+    (dx,) = torch.autograd.grad(out, leaf, g)
+    torch.cuda.synchronize()
+    assert (knn.knn_aggregate.launches, knn.knn_aggregate.bwd_launches) == (before[0] + 1, before[1] + 1)
+    ref = knn.knn_aggregate_plain(x, pos, seg, k, graphs, aggr)
+    ref_dx = knn.knn_aggregate_bwd_plain(g, pos, seg, k, graphs, aggr)
+    assert out.dtype == dx.dtype == dtype and out.shape == dx.shape == x.shape
+    bound = KNN_F32_REL if dtype == torch.float32 else KNN_BF16_REL
+    assert _knn_rel(out.detach(), ref) <= bound and _knn_rel(dx, ref_dx) <= bound
+    # the selection itself: degrees and thresholds equal exactly
+    _, (_, _, lo, hi, kth, deg) = knn._knn_aggregate_cuda(x, pos, seg, k, graphs, aggr)
+    ref_deg, ref_kth = knn.knn_degree_plain(pos, seg, k, graphs)
+    assert torch.equal(deg, ref_deg) and torch.equal(kth, ref_kth)
+    ref_lo, ref_hi = knn.segment_ranges(seg, graphs)
+    assert torch.equal(lo, ref_lo) and torch.equal(hi, ref_hi)
+    if case == "coarse grid ties":
+        assert deg.max().item() > k
+    assert not out[seg == graphs].any() and not dx[seg == graphs].any()
+
+
+@pytest.mark.gpu
+def test_knn_kernel_takes_unsorted_and_int16_segment_ids():
+    """Membership is by id, whatever the order: a shuffled batch scans wider
+    ranges and gives the plain version's rows."""
+    dev = _cuda()
+    x, pos, seg, graphs, g = _knn_inputs(dev, torch.float32, "ragged", seed=3)
+    perm = torch.from_numpy(np.random.default_rng(5).permutation(len(seg))).to(dev)
+    x, pos, seg = x[perm].contiguous(), pos[perm].contiguous(), seg[perm].to(torch.int16)
+    leaf = x.clone().requires_grad_()
+    out = knn.knn_aggregate(leaf, pos, seg, 8, graphs, "mean")
+    (dx,) = torch.autograd.grad(out, leaf, g)
+    assert _knn_rel(out.detach(), knn.knn_aggregate_plain(x, pos, seg, 8, graphs, "mean")) <= KNN_F32_REL
+    assert _knn_rel(dx, knn.knn_aggregate_bwd_plain(g, pos, seg, 8, graphs, "mean")) <= KNN_F32_REL
+    # ids outside [0, num_graphs] fall into the nearest bucket, as in the plain version
+    wild = seg.to(torch.int32).clone()
+    wild[::7], wild[3::11] = -2, graphs + 5
+    _, (_, _, lo, hi, _, _) = knn._knn_aggregate_cuda(x, pos, wild, 8, graphs, "add")
+    ref_lo, ref_hi = knn.segment_ranges(wild, graphs)
+    assert torch.equal(lo, ref_lo) and torch.equal(hi, ref_hi)
+    out = knn.knn_aggregate(x, pos, wild, 8, graphs, "add")
+    assert _knn_rel(out, knn.knn_aggregate_plain(x, pos, wild, 8, graphs, "add")) <= KNN_F32_REL
+
+
+@pytest.mark.gpu
+def test_knn_function_launches_k5_and_never_the_plain_version(monkeypatch):
+    dev = _cuda()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    x, pos, seg, graphs, g = _knn_inputs(dev, torch.float32, "ragged")
+    monkeypatch.setattr(knn, "knn_aggregate_plain", refuse)
+    monkeypatch.setattr(knn, "knn_aggregate_bwd_plain", refuse)
+    monkeypatch.setattr(knn, "_adjacency_rows", refuse)  # no [rows, N] block either
+    before = (knn.knn_aggregate.launches, knn.knn_aggregate.bwd_launches)
+    with torch.no_grad():
+        knn.knn_aggregate(x, pos, seg, 8, graphs)
+    x.requires_grad_()
+    knn.knn_aggregate(x, pos, seg, 8, graphs, "mean").sum().backward()
+    torch.cuda.synchronize()
+    assert (knn.knn_aggregate.launches, knn.knn_aggregate.bwd_launches) == (before[0] + 2, before[1] + 1)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        knn.knn_aggregate(x.detach().half(), pos, seg, 8, graphs)
+    with pytest.raises(ValueError, match="disagree on N"):
+        knn.knn_aggregate(x.detach(), pos[:-1], seg, 8, graphs)
+
+
+def _knn_flat_batch(seg_encoding="ids"):
+    from point_cloud_classifier_tpu_torch.data import GraphLoader
+    from point_cloud_classifier_tpu_torch.data.synthetic import lineage_graphs
+
+    graphs = lineage_graphs(np.random.default_rng(4), 8, 40, 90)
+    return next(iter(GraphLoader(graphs, 8, shuffle=False, layout="flat", use_weights=False,
+                                 seg_encoding=seg_encoding)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seg_encoding", ["ids", "counts"])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_knn_graph_net_kernel_route_matches_plain_route(compute_dtype, seg_encoding):
+    """GraphNet(knn_k=8) at full width on a flat batch: two K5 launches per
+    forward, logits as on the plain route."""
+    dev = _cuda()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in _knn_flat_batch(seg_encoding).items()}
+    model = GraphNet(input_dim=4, hidden_dim=128, output_dim=1, activation="tanh", knn_k=8,
+                     deepchem_style=True, compute_dtype=compute_dtype,
+                     generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    before = knn.knn_aggregate.launches
+    with torch.no_grad():
+        out = model(batch)
+        with force_plain():
+            ref = model(batch)
+    assert knn.knn_aggregate.launches == before + 2
+    tol = 1e-4 if compute_dtype == "float32" else 3e-2
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("local_pooling", ["add", "mean"])
+def test_knn_graph_net_train_step_kernel_route_matches_plain_route(local_pooling):
+    """One train step at full width from the same weights on the kernel route
+    and inside ``force_plain()``: K5 twice forward and once backward (conv1's
+    input needs no gradient), the loss and every gradient; the edge arrays
+    stay on the host."""
+    from point_cloud_classifier_tpu_torch.models import ModelWrapper
+
+    _cuda()
+    batch = _knn_flat_batch()
+    cfg = dict(input_dim=4, hidden_dim=128, output_dim=1, activation="tanh", deepchem_style=True,
+               knn_k=8, local_pooling=local_pooling)
+    kernel = ModelWrapper(GraphNet(**cfg, generator=torch.Generator().manual_seed(0)), 1e-3, 1, device="cuda")
+    plain = ModelWrapper(GraphNet(**cfg, generator=torch.Generator().manual_seed(1)), 1e-3, 1, device="cuda")
+    plain.model.load_state_dict(kernel.model.state_dict())
+    assert sorted(kernel._put(batch)) == ["node_seg", "nodes", "y", "y_mask"]
+    before = (knn.knn_aggregate.launches, knn.knn_aggregate.bwd_launches)
+    loss = kernel.train_step(batch)
+    after = (knn.knn_aggregate.launches, knn.knn_aggregate.bwd_launches)
+    with force_plain():
+        ref = plain.train_step(batch)
+    torch.cuda.synchronize()
+    assert after == (before[0] + 2, before[1] + 1)
+    assert (knn.knn_aggregate.launches, knn.knn_aggregate.bwd_launches) == after
+    torch.testing.assert_close(loss, ref, rtol=1e-5, atol=1e-6)
+    for (name, p), q in zip(kernel.model.named_parameters(), plain.model.parameters()):
+        scale = max(1e-12, q.grad.abs().max().item())
+        assert (p.grad - q.grad).abs().max().item() <= 1e-4 * scale, name

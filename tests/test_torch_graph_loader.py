@@ -1,7 +1,7 @@
-"""The port's ``GraphLoader`` (dense in-row wire) against the JAX package's over
-the same graphs: batches byte-identical in keys, dtypes and values, the out-row mirror
-(``emit_out_rows``) included; and the batches the JAX loader would ship
-another way raise in the port."""
+"""The port's ``GraphLoader`` (dense in-row wire, and the pure flat edge-list
+wire) against the JAX package's over the same graphs: batches byte-identical
+in keys, dtypes and values, the out-row mirror (``emit_out_rows``) included;
+and the batches the JAX loader would ship another way raise in the port."""
 
 import warnings
 
@@ -150,17 +150,65 @@ def test_dense_layout_over_max_dense_bytes_raises_as_jax_does():
 
 
 @pytest.mark.parametrize(
-    "kw, match",
+    "data_kw, kw, match",
     [
-        (dict(layout="flat"), "flat"),
-        (dict(layout="dense", adj_wire="host"), "host"),
-        (dict(layout="dense", require_inrow=True), "require_inrow"),
+        (dict(zero_weight=True), dict(layout="auto", dense_w_is_existence=True), "flat wire"),
+        ({}, dict(layout="dense", adj_wire="host"), "host"),
+        ({}, dict(layout="dense", require_inrow=True), "require_inrow"),
     ],
     ids=["flat", "host-adjacency", "require-inrow"],
 )
-def test_unported_wires_raise(kw, match):
+def test_unported_wires_raise(data_kw, kw, match):
+    """At construction: a demotion from ``auto`` to the flat wire (the pure
+    ``layout="flat"`` loader is served), the host adjacency, ``require_inrow``."""
     with pytest.raises(NotImplementedError, match=match):
-        GraphLoader(graphs(n=3), batch_size=2, shuffle=False, **kw)
+        GraphLoader(graphs(n=3, **data_kw), batch_size=2, shuffle=False, **kw)
+
+
+FLAT_KEYS = ["nodes", "src", "dst", "edge_w", "edge_mask", "y", "y_mask"]
+
+
+@pytest.mark.parametrize("seg_encoding", ["ids", "counts"])
+@pytest.mark.parametrize("use_weights", [True, False], ids=["weights", "ones"])
+@pytest.mark.parametrize("transfer_dtype", ["float32", "float16"])
+def test_flat_batches_are_byte_identical(transfer_dtype, use_weights, seg_encoding):
+    """The flat edge-list wire, duplicates kept as stored (no merge), the
+    last batch partial."""
+    ours, theirs = _both(
+        graphs(seed=11, duplicates=3), batch_size=8, shuffle=False, layout="flat",
+        transfer_dtype=transfer_dtype, use_weights=use_weights, seg_encoding=seg_encoding,
+    )
+    seg_key = "node_seg_counts" if seg_encoding == "counts" else "node_seg"
+    _assert_batches_equal(ours, theirs, FLAT_KEYS + [seg_key])
+    half = transfer_dtype == "float16"
+    first = ours[0]
+    assert first["src"].dtype == (np.int16 if half else np.int32)
+    assert first["edge_w"].dtype == first["edge_mask"].dtype == (np.float16 if half else np.float32)
+    assert first[seg_key].dtype == (np.int32 if seg_encoding == "counts" or not half else np.int16)
+    n_pad, e_pad = first["nodes"].shape[0], first["src"].shape[0]
+    assert n_pad % 256 == 0 and e_pad % 512 == 0
+    live = int(first["edge_mask"].sum())
+    assert (first["src"][live:] == n_pad - 1).all() and (first["dst"][live:] == n_pad - 1).all()
+
+
+@pytest.mark.parametrize("length_sorted", [False, True], ids=["unsorted", "length-sorted"])
+def test_shuffled_flat_epochs_are_byte_identical(length_sorted):
+    _assert_batches_equal(*_both(
+        graphs(seed=12, big=1), epochs=3, batch_size=4, shuffle=True, layout="flat",
+        length_sorted=length_sorted, n_features=4, seed=5, min_node_bucket=64, min_edge_bucket=128,
+    ), FLAT_KEYS + ["node_seg"])
+
+
+def test_flat_loader_ignores_the_dense_wire_options():
+    """``emit_out_rows`` (set by the factory for ``fused_inrow``) and the
+    demotion gates belong to the dense wire: a flat loader ships flat batches
+    whatever they say, as the JAX loader does."""
+    _assert_batches_equal(*_both(
+        graphs(seed=13, duplicates=2, zero_weight=True), batch_size=8, shuffle=False, layout="flat",
+        emit_out_rows=True, dense_w_is_existence=True, flat_if_multigraph=True,
+    ), FLAT_KEYS + ["node_seg"])
+    with pytest.raises(ValueError, match="seg_encoding"):
+        GraphLoader(graphs(n=3), batch_size=2, shuffle=False, layout="flat", seg_encoding="runs")
 
 
 @pytest.mark.parametrize("use_weights", [True, False], ids=["weights", "multiplicities"])

@@ -213,9 +213,11 @@ def test_parameter_names_and_count_match_jax():
     [
         (dict(sag_pool=True), "sag_pool"),
         (dict(local_pooling="max"), "max"),
-        (dict(knn_k=8), "knn_k"),
+        (dict(knn_k=8, use_gat=True), "knn_k"),
+        (dict(knn_k=8, sag_pool=True), "knn_k"),
+        (dict(knn_k=8, local_pooling="max"), "knn_k"),
     ],
-    ids=["sag", "max", "knn"],
+    ids=["sag", "max", "knn", "knn-sag", "knn-max"],
 )
 def test_unported_options_raise(kwargs, match):
     cfg = {**_model_cfg("graphconv-add"), **kwargs}

@@ -137,14 +137,16 @@ def test_fused_inrow_config_ships_the_out_rows_the_jax_loader_ships(data_dir):
     "model, dataset, match",
     [
         (dict(local_pooling="max"), {}, "require_inrow"),
-        (dict(knn_k=8), {}, "flat"),
-        ({}, {"graph_layout": "flat"}, "flat"),
+        (dict(knn_k=8, local_pooling="max"), {}, "knn_k"),
+        ({}, {"graph_layout": "flat"}, "flat edge-list wire"),
     ],
     ids=["max", "knn", "flat"],
 )
 def test_dataloader_gates_for_unported_configs_raise(data_dir, model, dataset, match):
-    """The JAX factory's gates, set as it sets them, lead to wires the port
-    does not serve yet; its loaders refuse them."""
+    """The JAX factory's gates, set as it sets them, lead to wires or model
+    arms the port does not serve yet: its loader refuses ``require_inrow``,
+    and its model the kNN edge-list arm (kNN with max) and the flat edge-list
+    convolutions (a flat batch without ``knn_k``)."""
     cfg = _config(data_dir, **model)
     cfg["dataset"].update(dataset)
     jax_data = jax_factory.get_dataloader("s2pg", cfg)
@@ -152,7 +154,8 @@ def test_dataloader_gates_for_unported_configs_raise(data_dir, model, dataset, m
     for key, value in data.loader_kwargs.items():
         assert value == getattr(jax_data, {"layout": "graph_layout"}.get(key, key)), key
     with pytest.raises(NotImplementedError, match=match):
-        data.get_test_loader()
+        batches = list(data.get_test_loader())
+        factory.get_model("graph_net", cfg).predict(batches)
 
 
 def test_weighted_gat_config_sets_the_jax_gates(data_dir):

@@ -7,6 +7,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 
 pytest.importorskip("torch")
@@ -43,9 +44,9 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
     )
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 24
+    assert int(proc.stdout.split()[0]) >= 25
     walked = set(proc.stdout.split(":", 1)[1].split())
-    graph_slice = {"data.graph", "models.graph_net", "ops.dispatch", "ops.gat", "ops.inrow_graph"}
+    graph_slice = {"data.graph", "models.graph_net", "ops.dispatch", "ops.gat", "ops.inrow_graph", "ops.knn"}
     assert {f"point_cloud_classifier_tpu_torch.{m}" for m in graph_slice} <= walked
 
 
@@ -62,3 +63,28 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert proc.returncode != 0
     assert "ModuleNotFoundError" in proc.stderr
     assert '"ok": true' not in proc.stdout
+
+
+def test_knn_path_runs_without_jax():
+    """The kNN GraphNet path end to end on the CPU in a process where jax and
+    the JAX package cannot be imported: flat loader, model, one train step."""
+    code = textwrap.dedent(
+        f"""
+        import sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        import numpy as np, torch
+        from point_cloud_classifier_tpu_torch.data import GraphLoader
+        from point_cloud_classifier_tpu_torch.data.synthetic import lineage_graphs
+        from point_cloud_classifier_tpu_torch.models import GraphNet, ModelWrapper
+        graphs = lineage_graphs(np.random.default_rng(0), 4, 12, 20)
+        batch = next(iter(GraphLoader(graphs, 4, shuffle=False, layout="flat", seg_encoding="counts")))
+        net = GraphNet(input_dim=4, hidden_dim=8, output_dim=1, activation="tanh", knn_k=3,
+                       deepchem_style=True, generator=torch.Generator().manual_seed(0))
+        loss = ModelWrapper(net, 1e-3, 1, device="cpu").train_step(batch)
+        print(sorted(batch), float(loss))
+        """
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "node_seg_counts" in proc.stdout and np.isfinite(float(proc.stdout.split()[-1]))
