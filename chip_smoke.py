@@ -15,10 +15,14 @@ result):
 3. kernel against plain: ``phi_pool`` (kernel K1) against ``phi_pool_plain``
    on the card, f32 and bf16, at the DeepSets config widths (6→256→256,
    residual, quick gelu), with a ragged point count, an empty event, padding
-   rows, and the flagship ``B=256, P=65,536`` shape;
+   rows, the flagship ``B=256, P=65,536`` shape, fewer points than one
+   64-row tile and one tile plus one, and chains of width 64 and 384; each
+   line names the kernel variant the case ran (sliced for the DeepSets chain
+   in bf16, general for it in f32 and for every other chain);
 4. backward kernel against plain: the backward of ``phi_pool`` (kernel K2)
    against ``phi_pool_bwd_plain`` at the same cases, f32 and bf16, with
-   ``d_points`` asked for and not;
+   ``d_points`` asked for and not (sliced for the DeepSets chain in both
+   types), and K2 run twice on the same inputs for bit-equal gradients;
 5. serving slice: the DeepSets serving path through its entry points —
    ``factory.get_model("deep_sets", cfg, run_dir)`` on a JAX-format
    ``best_model.pt`` with seeded random weights, then ``predict`` over
@@ -49,7 +53,8 @@ result):
    trace of the B=256 GAT predict (the device's idle share);
 11. GAT backward kernel against plain: the backward of ``gat_attention``
    (kernel K4) against ``gat_attention_bwd_plain`` at K3's seven cases, f32
-   and bf16, each of ``ds_dst``, ``ds_src`` and ``dxw``;
+   and bf16, each of ``ds_dst``, ``ds_src`` and ``dxw``; then K4 twice on
+   the flagship inputs: the spread its f32 atomics leave between two runs;
 12. in-row aggregation kernel against plain: ``inrow_aggregate`` (kernel K6)
    against ``inrow_aggregate_plain``, forward and backward (the Function
    over the out-row lists), add and mean, f32 and bf16, at the config batch
@@ -84,7 +89,8 @@ result):
    ``model.knn_k: 8`` for 3 epochs, add and mean, with K5's launch counts
    forward and backward, the losses, the val accuracy and the checkpoints
    checked; five steps of the kernel route against the plain route; and
-   ``resume_training`` for one more epoch;
+   ``resume_training(log_dir)`` for one more epoch, from the run's
+   ``config.yaml`` alone;
 18. kNN times: K5 forward and backward against the plain versions at N=8,192
    and N=65,536; ``predict`` and the train step per batch on the K5 route,
    the plain route and the lineage-graph GraphConv routes; packing a flat
@@ -93,8 +99,9 @@ result):
 Beside each kernel's time the script works out the least time the card could
 take for the same work (``bound_ms``: the bytes the function must move over
 3.35 TB/s, or its operations over 67 TFLOP/s of f32 outside the tensor
-cores, whichever is longer) and, where one PyTorch call computes the same
-function, that call's time (``library_ms``).
+cores, whichever is longer; for K1 and K2 in bf16 the operations over 989
+TFLOP/s of dense bf16 in the tensor cores) and, where one PyTorch call
+computes the same function, that call's time (``library_ms``).
 
 The line before the last is one JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -220,6 +227,7 @@ KERNELS = {
 # accumulates in f32 on CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12  # dense bf16 in the tensor cores
 # configs/graph_net.yaml (model, dataset and trainer sections); the GAT arm
 # sets use_gat
 GRAPH_CONFIG = {
@@ -314,10 +322,11 @@ def launch_counts() -> dict:
             "knn_aggregate backward": knn_aggregate.bwd_launches}
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, flops_per_s: float = F32_FLOPS_PER_S):
     """(least ms the card could take, what bounds it): the bytes over the
-    memory rate or the f32 operations over their peak, whichever is longer."""
-    by_bytes, by_ops = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * n_flops / F32_FLOPS_PER_S
+    memory rate or the operations over their peak (f32 outside the tensor
+    cores unless said), whichever is longer."""
+    by_bytes, by_ops = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * n_flops / flops_per_s
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -351,9 +360,10 @@ def _uniform(rng, bound, shape):
     return rng.uniform(-bound, bound, size=shape).astype(np.float32)
 
 
-def phi_inputs(b, p, dtype, seed, empty_event=True, final=False):
+def phi_inputs(b, p, dtype, seed, empty_event=True, final=False, widths=None):
     """Flat-wire points for ``b`` events in ``p`` rows: events contiguous,
-    event 1 empty, the rest of the rows padding (segment ``b``)."""
+    event 1 empty, the rest of the rows padding (segment ``b``); the φ chain
+    of ``widths`` (the config's [256, 256] unless given)."""
     rng = np.random.default_rng(seed)
     sizes = rng.multinomial(int(p * 0.9), np.ones(b) / b)
     if empty_event:
@@ -363,7 +373,7 @@ def phi_inputs(b, p, dtype, seed, empty_event=True, final=False):
     seg[: sizes.sum()] = np.repeat(np.arange(b, dtype=np.int32), sizes)
     points = rng.normal(size=(p, 6)).astype(np.float32)
     params, last = [], 6
-    for width in CONFIG["model"]["phi_layers"]:
+    for width in widths or CONFIG["model"]["phi_layers"]:
         params.append((_uniform(rng, last**-0.5, (last, width)), _uniform(rng, last**-0.5, (width,))))
         last = width
     if final:
@@ -373,18 +383,35 @@ def phi_inputs(b, p, dtype, seed, empty_event=True, final=False):
     return torch.from_numpy(points).to(dev, dtype), torch.from_numpy(seg).to(dev), params
 
 
+# (name, events, point rows, a bare final linear, the φ widths): the DeepSets
+# chain takes the sliced variant of K2 and of bf16 K1 (64-row tiles, four
+# blocks a tile), so P below one tile and one over it; f32 K1 and every other
+# chain the general one
+PHI_CASES = [
+    ("config B=32 P=8192", CONFIG_B, CONFIG_P, False, None),
+    ("ragged B=7 P=1001", 7, 1001, False, None),
+    ("ragged B=7 P=1001 +final linear", 7, 1001, True, None),
+    ("flagship B=256 P=65536", FLAGSHIP_B, FLAGSHIP_P, False, None),
+    ("under one tile B=3 P=37", 3, 37, False, None),
+    ("one tile + 1 B=3 P=65", 3, 65, False, None),
+    ("width 64 B=7 P=1001", 7, 1001, False, [64, 64]),
+    ("width 384 B=7 P=1001", 7, 1001, False, [384, 384]),
+]
+
+
+def expected_variant(final: bool, widths, dtype, backward: bool) -> str:
+    """Which variant the C entry must choose for a case: by its shape, its
+    element type and the kernel (K2 when ``backward``) alone."""
+    sliced = widths is None and not final and (backward or dtype == torch.bfloat16)
+    return "sliced" if sliced else "general"
+
+
 def kernel_phase():
     """K1 against plain at every case; returns the config-shape f32 error."""
-    cases = [
-        ("config B=32 P=8192", CONFIG_B, CONFIG_P, False),
-        ("ragged B=7 P=1001", 7, 1001, False),
-        ("ragged B=7 P=1001 +final linear", 7, 1001, True),
-        ("flagship B=256 P=65536", FLAGSHIP_B, FLAGSHIP_P, False),
-    ]
     config_err = None
-    for name, b, p, final in cases:
+    for name, b, p, final, widths in PHI_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            points, seg, params = phi_inputs(b, p, dtype, SEED, final=final)
+            points, seg, params = phi_inputs(b, p, dtype, SEED, final=final, widths=widths)
             out = phi_pool(points, seg, SPEC, params, "gelu", b + 1)
             torch.cuda.synchronize()
             ref = phi_pool_plain(points, seg, SPEC, params, "gelu", b + 1)
@@ -394,10 +421,12 @@ def kernel_phase():
             err = (out - ref).abs().max().item()
             scale = max(1.0, ref.abs().max().item())
             rel = err / scale
-            print(f"kernel {name} {str(dtype)[6:]}: max_abs_err {err:.3e}, "
+            print(f"kernel {name} {str(dtype)[6:]} [{phi_pool.variant} variant]: max_abs_err {err:.3e}, "
                   f"max_rel_err {rel:.3e} (bound {TOL[dtype]:.0e}), |ref| max {scale:.3e}")
             if not rel <= TOL[dtype]:
                 raise AssertionError(f"K1 disagrees with plain: {name} {dtype} rel {rel:.3e}")
+            if phi_pool.variant != expected_variant(final, widths, dtype, False):
+                raise AssertionError(f"K1 {name}: the {phi_pool.variant} variant ran")
             if (b, p, dtype) == (CONFIG_B, CONFIG_P, torch.float32):
                 config_err = err
     return config_err
@@ -412,20 +441,16 @@ def _errors(out, ref):
 
 def bwd_kernel_phase():
     """K2 (the Function's backward on CUDA) against phi_pool_bwd_plain at
-    K1's cases; returns the config-shape f32 max |Δ|."""
-    cases = [
-        ("config B=32 P=8192", CONFIG_B, CONFIG_P, False),
-        ("ragged B=7 P=1001", 7, 1001, False),
-        ("ragged B=7 P=1001 +final linear", 7, 1001, True),
-        ("flagship B=256 P=65536", FLAGSHIP_B, FLAGSHIP_P, False),
-    ]
+    K1's cases, and K2 twice for bit-equal gradients; returns the
+    config-shape f32 max |Δ|."""
     config_err = None
-    for name, b, p, final in cases:
+    for name, b, p, final, widths in PHI_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             for with_points in (True, False):
-                points, seg, params = phi_inputs(b, p, dtype, SEED, final=final)
+                points, seg, params = phi_inputs(b, p, dtype, SEED, final=final, widths=widths)
+                width = params[-1][0].shape[1]
                 g = torch.from_numpy(
-                    np.random.default_rng(SEED + 3).normal(size=(b + 1, 256)).astype(np.float32)
+                    np.random.default_rng(SEED + 3).normal(size=(b + 1, width)).astype(np.float32)
                 ).cuda()
                 points.requires_grad_(with_points)
                 flat = [t.requires_grad_() for layer in params for t in layer]
@@ -450,11 +475,21 @@ def bwd_kernel_phase():
                 else:
                     bounds = f"rel_fro bound {BWD_BF16_FRO:.0e}"
                     ok = worst[2] <= BWD_BF16_FRO
-                print(f"kernel K2 {name} {str(dtype)[6:]} d_points {'on' if with_points else 'off'}: "
-                      f"max_abs_err {worst[0]:.3e}, max_rel_err {worst[1]:.3e}, rel_fro {worst[2]:.3e} "
-                      f"({bounds})")
+                # the same launch again: every sum of K2 runs in a fixed order
+                again = _phi_pool_bwd_cuda(points.detach(), seg, g, SPEC, params, "gelu", b + 1,
+                                           with_points=with_points)
+                again = ([again[0]] if with_points else []) + again[1]
+                same = all(torch.equal(a, c) for a, c in zip(grads, again, strict=True))
+                print(f"kernel K2 {name} {str(dtype)[6:]} d_points {'on' if with_points else 'off'} "
+                      f"[{phi_pool.bwd_variant} variant]: max_abs_err {worst[0]:.3e}, max_rel_err "
+                      f"{worst[1]:.3e}, rel_fro {worst[2]:.3e} ({bounds}); a second run is "
+                      f"{'bit-equal' if same else 'NOT bit-equal'}")
                 if not ok:
                     raise AssertionError(f"K2 disagrees with plain: {name} {dtype} {worst}")
+                if not same:
+                    raise AssertionError(f"K2 {name} {dtype}: two runs on the same inputs differ")
+                if phi_pool.bwd_variant != expected_variant(final, widths, dtype, True):
+                    raise AssertionError(f"K2 {name}: the {phi_pool.bwd_variant} variant ran")
                 if (b, p, dtype, with_points) == (CONFIG_B, CONFIG_P, torch.float32, False):
                     config_err = worst[0]
     return config_err
@@ -722,28 +757,39 @@ def times_phase(smi: str, run_dir: str):
                 points, seg, g, SPEC, params, "gelu", b + 1, with_points=False))
             bwd_ms = cuda_ms(lambda: _phi_pool_bwd_cuda(
                 points, seg, g, SPEC, params, "gelu", b + 1, with_points=False))
-            print(f"time phi_pool {name} B={b} P={p} {str(dtype)[6:]}: K1 {kernel_ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms; backward without d_points: K2 {bwd_ms:.4f} ms, "
-                  f"plain {bwd_plain_ms:.4f} ms [{smi}]")
-            if dtype == torch.float32:
-                # every row goes through every layer (2 operations per weight);
-                # the backward recomputes the chain, forms every d_W (as many
-                # again) and dz·Wᵀ for every layer but the first
-                flat = [t for layer in params for t in layer]
-                per_row = [2 * w.shape[0] * w.shape[1] for w, _ in params]
-                out_bytes = (b + 1) * params[-1][0].shape[1] * 4
-                fwd = bound_ms(_nbytes(points, seg, *flat) + out_bytes, p * sum(per_row))
-                bwd = bound_ms(_nbytes(points, seg, g, *flat) + _nbytes(*flat),
-                               p * (2 * sum(per_row) + sum(per_row[1:])))
-                print(f"bound phi_pool {name} f32: K1 {fwd[0]:.4f} ms by {fwd[1]}, K2 {bwd[0]:.4f} ms "
-                      f"by {bwd[1]} (3.35 TB/s, 67 TFLOP/s f32); no single PyTorch call computes either")
-                if name == "config":
-                    config_times = {
-                        "phi_pool": dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=fwd[0],
-                                         bound_by=fwd[1], library_ms=None),
-                        "phi_pool_bwd": dict(ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd[0],
-                                             bound_by=bwd[1], library_ms=None),
-                    }
+            print(f"time phi_pool {name} B={b} P={p} {str(dtype)[6:]}: K1 [{phi_pool.variant} variant] "
+                  f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; backward without d_points: K2 "
+                  f"[{phi_pool.bwd_variant} variant] {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms [{smi}]")
+            # every row goes through every layer (2 operations per weight);
+            # the backward recomputes the chain, forms every d_W (as many
+            # again) and dz·Wᵀ for every layer but the first.  The bound is of
+            # the work, not of the implementation: f32 on the CUDA cores' 67
+            # TFLOP/s (whatever the kernel uses), bf16 on the tensor cores'
+            # 989 TFLOP/s.
+            flat = [t for layer in params for t in layer]
+            per_row = [2 * w.shape[0] * w.shape[1] for w, _ in params]
+            out_bytes = (b + 1) * params[-1][0].shape[1] * 4
+            f32 = dtype == torch.float32
+            peak = F32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S
+            # bf16: points and weights are read as bf16; g, the sums and the
+            # weight gradients stay f32
+            scale = 1 if f32 else 0.5
+            fwd = bound_ms(_nbytes(points, seg) + scale * _nbytes(*flat) + out_bytes,
+                           p * sum(per_row), peak)
+            bwd = bound_ms(_nbytes(points, seg, g) + scale * _nbytes(*flat) + _nbytes(*flat),
+                           p * (2 * sum(per_row) + sum(per_row[1:])), peak)
+            print(f"bound phi_pool {name} {str(dtype)[6:]}: K1 {fwd[0]:.4f} ms by {fwd[1]}, K2 {bwd[0]:.4f} "
+                  f"ms by {bwd[1]} (3.35 TB/s, "
+                  f"{'67 TFLOP/s f32 outside the tensor cores' if f32 else '989 TFLOP/s dense bf16'}); "
+                  f"K1 at {kernel_ms / fwd[0]:.1f}x its bound, K2 at {bwd_ms / bwd[0]:.1f}x; no single "
+                  f"PyTorch call computes either")
+            if name == "config" and f32:
+                config_times = {
+                    "phi_pool": dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=fwd[0],
+                                     bound_by=fwd[1], library_ms=None),
+                    "phi_pool_bwd": dict(ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd[0],
+                                         bound_by=bwd[1], library_ms=None),
+                }
     for b in (CONFIG_B, FLAGSHIP_B):
         clouds, labels = make_clouds(np.random.default_rng(SEED + 2), 4 * b)
         t0 = time.perf_counter()
@@ -1092,7 +1138,29 @@ def gat_bwd_kernel_phase():
                   f"{'; '.join(readings)} (max_rel bound {rel_bound:.0e}, rel_fro bound {fro_bound:.0e})")
             if (case, dtype) == ("config B=32", torch.float32):
                 config_err = worst
+    gat_bwd_spread_phase()
     return config_err
+
+
+def gat_bwd_spread_phase() -> None:
+    """K4 twice on the same flagship f32 inputs: ``ds_src`` and ``dxw`` are
+    summed with f32 ``atomicAdd`` in an order that changes from run to run,
+    so their low bits do; the largest difference between two runs, relative
+    to max(1, max |gradient|), is held under K4's own f32 bound against the
+    plain version."""
+    args = gat_inputs("flagship B=256 M=256", torch.float32)
+    g = torch.from_numpy(
+        np.random.default_rng(SEED + 5).normal(size=tuple(args[-1].shape)).astype(np.float32)
+    ).cuda()
+    first = _gat_attention_bwd_cuda(*args, g)
+    second = _gat_attention_bwd_cuda(*args, g)
+    torch.cuda.synchronize()
+    spread = {name: _errors(a, b)[1] for name, a, b in zip(("ds_dst", "ds_src", "dxw"), first, second)}
+    print(f"kernel K4 run to run, flagship B=256 M=256 f32, two runs on the same inputs: largest "
+          f"relative difference {', '.join(f'{k} {v:.3e}' for k, v in spread.items())} "
+          f"(bound {GAT_BWD_F32_REL:.0e}, K4's own against the plain version)")
+    if not max(spread.values()) <= GAT_BWD_F32_REL:
+        raise AssertionError(f"K4's run-to-run spread {spread} exceeds its f32 bound")
 
 
 def _out_rows(in_src, in_w):
@@ -1643,14 +1711,25 @@ def knn_resume_phase(name: str, cfg: dict) -> None:
     trained = len(read_metrics(log_dir)["Loss/train"])
     cfg = copy.deepcopy(cfg)
     cfg["trainer"]["epochs"] = trained + 1
+    # one more epoch, asked for in the run's own config.yaml: resume_training
+    # gets the directory and nothing else, and reads the file itself
+    config_path = os.path.join(log_dir, "config.yaml")
+    with open(config_path) as f:
+        text = f.read()
+    if text.count(f"epochs: {trained}\n") != 1:
+        raise AssertionError(f"{name}: config.yaml does not hold 'epochs: {trained}' once")
+    with open(config_path, "w") as f:
+        f.write(text.replace(f"epochs: {trained}\n", f"epochs: {trained + 1}\n"))
     reset_launch_counts()
-    resumed = port_train.resume_training(log_dir, cfg)
+    resumed = port_train.resume_training(log_dir)
+    if resumed.epochs != trained + 1:
+        raise AssertionError(f"{name}: resume_training read epochs {resumed.epochs} from config.yaml")
     counts = launch_counts()
     data = factory.get_dataloader("s2pg", cfg)
     n_train, n_val = len(data.get_train_loader()), len(data.get_val_loader())
     want = {**dict.fromkeys(counts, 0), "knn_aggregate": 2 * (n_train + n_val), "knn_aggregate backward": n_train}
     losses = read_metrics(log_dir)["Loss/train"]
-    print(f"graph train {name}: resume_training for epoch {trained + 1}: Loss/train {losses}; "
+    print(f"graph train {name}: resume_training(log_dir), config.yaml read without PyYAML, for epoch {trained + 1}: Loss/train {losses}; "
           f"launches {counts} (expected {want})")
     if len(losses) != trained + 1 or not np.isfinite(losses).all():
         raise AssertionError(f"{name}: the resumed run logged {len(losses)} epochs, not {trained + 1}")

@@ -1,14 +1,48 @@
 // What K1 (phi_pool.cu) and K2 (phi_pool_bwd.cu) share: the layer chain's
 // description, the rounding helpers, the activations and their derivatives,
-// and the row-tile dot product both kernels are built from.
+// and the tile products both kernels are built from.
 //
 // Rounding follows ops/fused_phi.py: every value is rounded to the element
 // type T where PyTorch forms a tensor of type T, and sums are taken in f32.
+//
+// Two families of tile product live here, one per kernel variant:
+//
+// - The sliced variant (takes_sliced() says which launches take it: the
+//   DeepSets φ chain, a narrow first layer and one 256 -> 256 layer, in K2
+//   and in bf16 K1; f32 K1 keeps the general variant, which measured faster).
+//   Four blocks of a thread-block cluster share a 64-row tile.  Block c owns
+//   columns [64c, 64c + 64) of the wide layer: its slice of W, [256, 64],
+//   stays in its shared memory for the block's whole life (f32 68 KB, bf16
+//   36 KB), so no weight is read from L2 inside a product and one copy
+//   serves h·W and dz·Wᵀ alike.  The first layer is computed once, a slice
+//   per block, and written into all four blocks' shared memory through
+//   distributed shared memory (first_layer_gather).  The products:
+//     slice_dot      h[64, 256] · Ws[256, 64]             (K1 and K2's recompute)
+//     slice_outer    acc += h[64, 256]ᵀ · dz[64, 64]      (K2's d_W, in registers)
+//     slice_dot_t    dz[64, 64] · Wsᵀ[64, 256]            (K2's partial d_h)
+//   In bf16 they run on the tensor cores (mma.sync m16n8k16, operands by
+//   ldmatrix from padded rows, f32 accumulation).  In f32 they run on the
+//   CUDA cores as register tiles (4x4, 8x8 and 4x8 outputs per thread,
+//   operands by 16-byte shared-memory reads, 64 to 128 FMAs per 4 to 12
+//   reads), exact f32 summed in k order.  They reach about half of the FMA
+//   pipe's rate (measured with the phase clocks below: 13,000 to 17,000
+//   clocks a tile and product where the FMAs alone need 8,200).  Shared memory hands
+//   a lane 4 bytes a clock, so a tile needs 8 x 8 outputs per thread just to
+//   break even with the FMA pipe; slice_dot and slice_dot_t rewritten to 8 x
+//   8 tiles (slice_dot by splitting K over four thread groups) measured no
+//   faster at the eight warps a block has, and were dropped.  What is left
+//   for f32 is the tensor cores with a 3xTF32 split (a single-pass TF32
+//   product would keep about three digits), which has not been tried.
+// - The general variant (any widths, up to kMaxLayers layers): tile_dot, one
+//   output column per thread over a ROWS-row tile, weights read from L2.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace pcc {
 
@@ -58,21 +92,35 @@ __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+// 1 / (1 + e^-x).  FAST takes the hardware's exp and reciprocal (2 ulp of f32
+// or so) for expf and the division.  Only the sliced bf16 kernels ask for it
+// (kFastSigmoid): there the value is rounded to bf16 (2^-9 relative) right
+// after, and the per-element passes are bound by these instructions, not by
+// the tensor cores.  f32 chains and the general variant keep the exact forms.
+template <bool FAST>
+__device__ __forceinline__ float sigmoid(float x) {
+  if constexpr (FAST) {
+    return __frcp_rn(1.0f + __expf(-x));
+  } else {
+    return 1.0f / (1.0f + expf(-x));
+  }
+}
+template <typename T>
+constexpr bool kFastSigmoid = sizeof(T) == 2;
 
 // The activations of ops/activations.py, rounded where PyTorch rounds a
 // tensor of type T between ops.
-template <typename T>
+template <typename T, bool FAST = false>
 __device__ __forceinline__ float activate(float x, int act) {
   switch (act) {
     case kRelu:
       return fmaxf(x, 0.0f);
     case kSilu:
-      return rnd<T>(x * rnd<T>(sigmoid(x)));
+      return rnd<T>(x * rnd<T>(sigmoid<FAST>(x)));
     case kTanh:
       return rnd<T>(tanhf(x));
     case kQuickGelu:
-      return rnd<T>(x * rnd<T>(sigmoid(rnd<T>(1.702f * x))));
+      return rnd<T>(x * rnd<T>(sigmoid<FAST>(rnd<T>(1.702f * x))));
     default: {  // kGeluTanh: F.gelu(approximate="tanh")
       const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
       return rnd<T>(0.5f * x * (1.0f + tanhf(inner)));
@@ -82,12 +130,13 @@ __device__ __forceinline__ float activate(float x, int act) {
 
 // The derivative of each activation at x, in f32: the formulas of
 // ops/fused_phi.py:_act_grad.
+template <typename T, bool FAST = false>
 __device__ __forceinline__ float act_grad(float x, int act) {
   switch (act) {
     case kRelu:
       return x > 0.0f ? 1.0f : 0.0f;
     case kSilu: {
-      const float s = sigmoid(x);
+      const float s = sigmoid<FAST>(x);
       return s * (1.0f + x * (1.0f - s));
     }
     case kTanh: {
@@ -95,7 +144,7 @@ __device__ __forceinline__ float act_grad(float x, int act) {
       return 1.0f - t * t;
     }
     case kQuickGelu: {
-      const float s = sigmoid(1.702f * x);
+      const float s = sigmoid<FAST>(1.702f * x);
       return s + 1.702f * x * s * (1.0f - s);
     }
     default: {  // kGeluTanh
@@ -166,14 +215,45 @@ __device__ __forceinline__ void tile_dot(const float* a, int lda, int k_dim,
 // rounded to T, plus the bias in T; then the activation, and the residual
 // add of the layer's input h_in (plain, residual) — or nothing (bare linear).
 // Writes the pre-activation to *z when z is not null.
-template <typename T>
+template <typename T, bool FAST = false>
 __device__ __forceinline__ float layer_out(float dot, float bias, float h_in, int kind,
                                            int act, float* z) {
   float v = rnd<T>(rnd<T>(dot) + bias);
   if (z != nullptr) *z = v;
   if (kind == kLinear) return v;
-  v = activate<T>(v, act);
+  v = activate<T, FAST>(v, act);
   return kind == kResidual ? rnd<T>(h_in + v) : v;
+}
+
+// Calls f with the activation as a compile-time constant (f(constant),
+// constant.value == act): inside f, activate and act_grad fold to the one
+// formula.  With a run-time act the compiler turns their switch into
+// straight-line code that evaluates every activation for every element,
+// which made the per-element passes of the sliced kernels cost more than
+// their products.
+template <int ACT>
+struct ActConstant {
+  static constexpr int value = ACT;
+};
+template <typename F>
+__device__ __forceinline__ void with_act(int act, F f) {
+  switch (act) {
+    case kRelu:
+      f(ActConstant<kRelu>{});
+      break;
+    case kSilu:
+      f(ActConstant<kSilu>{});
+      break;
+    case kTanh:
+      f(ActConstant<kTanh>{});
+      break;
+    case kQuickGelu:
+      f(ActConstant<kQuickGelu>{});
+      break;
+    default:
+      f(ActConstant<kGeluTanh>{});
+      break;
+  }
 }
 
 inline Chain make_chain(int n_layers, const int* dims, const int* kinds,
@@ -191,5 +271,564 @@ inline Chain make_chain(int n_layers, const int* dims, const int* kinds,
 }
 
 inline int round4(int n) { return (n + 3) / 4 * 4; }
+
+// -- where a block's time goes ------------------------------------------------------
+// Built with -DPCC_PHASE_CLOCKS (native.enable_phase_clocks(), which
+// phase_clocks.py calls), thread 0 of block 0 adds up clock64() between the
+// marks of a sliced kernel, and the file's pcc_*_phase_clocks entry copies
+// the sums out.  Without the flag the marks compile to nothing.
+constexpr int kPhases = 16;
+#ifdef PCC_PHASE_CLOCKS
+static __device__ long long g_phase_clocks[kPhases];
+__device__ __forceinline__ long long sm_clock() {
+#ifdef __CUDA_ARCH__
+  return clock64();
+#else
+  return 0;
+#endif
+}
+struct PhaseClock {
+  long long last;
+  long long sum[kPhases];
+  __device__ PhaseClock() : last(sm_clock()) {
+    for (int i = 0; i < kPhases; ++i) sum[i] = 0;
+  }
+  __device__ void mark(int phase) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      const long long now = sm_clock();
+      sum[phase] += now - last;
+      last = now;
+    }
+  }
+  __device__ void flush() {
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      for (int i = 0; i < kPhases; ++i) g_phase_clocks[i] = sum[i];
+    }
+  }
+};
+#else
+struct PhaseClock {
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void flush() {}
+};
+#endif
+
+// -- the sliced variant ---------------------------------------------------------
+
+constexpr int kWide = 256;                  // the wide layer's width
+constexpr int kCluster = 4;                 // blocks per cluster
+constexpr int kSlice = kWide / kCluster;    // columns of the wide layer per block
+constexpr int kTileRows = 64;               // rows per cluster tile
+constexpr int kMaxFeatures = 8;             // the first layer's input width, at most
+// The per-element passes: a thread owns columns 4 (tid % 16) + {0..3} of the
+// block's slice and rows tid / 16 + 16 {0..3} of the tile, element e =
+// 4 (row) + column, and moves its four columns of a row at once: 16 bytes a
+// thread in f32 keep the traffic between the blocks' shared memories to a
+// quarter of the instructions.
+constexpr int kVec = 4;
+constexpr int kPatchRows = kTileRows * kSlice / kThreads / kVec;  // 4
+constexpr int kPatch = kVec * kPatchRows;                         // elements per thread
+__device__ __forceinline__ int patch_col() { return kVec * (threadIdx.x % (kSlice / kVec)); }
+__device__ __forceinline__ int patch_row(int n) {
+  return threadIdx.x / (kSlice / kVec) + (kThreads / (kSlice / kVec)) * n;
+}
+
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
+}
+// v holds values already rounded to the element type
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 t;
+  t.x = *reinterpret_cast<const uint32_t*>(&lo);
+  t.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = t;
+}
+constexpr int kPartLd = kWide + 4;          // f32 [kTileRows, kWide] partial d_h
+
+// Leading dimensions (in elements) of the shared-memory arrays: rows are
+// padded so that 16-byte reads of neighbouring rows (ldmatrix in bf16, float4
+// in f32) fall into different banks.
+template <typename T>
+struct SliceLd;
+template <>
+struct SliceLd<float> {
+  static constexpr int h = kWide + 4, w = kSlice + 4, z = kSlice + 4;
+};
+template <>
+struct SliceLd<__nv_bfloat16> {
+  static constexpr int h = kWide + 8, w = kSlice + 8, z = kSlice + 8;
+};
+
+// Which chains the sliced kernels can take, by shape alone.
+inline bool sliced_chain(int n_layers, const int* dims, const int* kinds) {
+  return n_layers == 2 && dims[0] >= 1 && dims[0] <= kMaxFeatures && dims[1] == kWide &&
+         dims[2] == kWide && kinds[0] == kPlain && kinds[1] != kLinear;
+}
+
+// Which launches take the sliced variant: decided here, for K1 (backward
+// false) and K2 (backward true), by the chain's shape, the element type and
+// the kernel, never by a failed attempt.  K2 takes it in both types and K1 in
+// bf16.  f32 K1 keeps the general variant: the sliced f32 K1 measured 0.4702
+// ms against the general one's 0.4090 ms at B=256, P=65,536 on an H100 at 700
+// W (its 4x4 register tiles and two cluster barriers a tile cost more than
+// the weights from L2 did).  Both f32 variants sum every dot in k order, so
+// K2's recompute still rounds as K1 does.  Everything else goes to the
+// general variant.
+inline bool takes_sliced(int n_layers, const int* dims, const int* kinds, bool is_bf16,
+                         bool backward) {
+  return sliced_chain(n_layers, dims, kinds) && (backward || is_bf16);
+}
+
+// The blocks a grid of this kernel may hold at once, as whole clusters.
+template <typename Kernel>
+inline cudaError_t max_clusters(Kernel kernel, size_t smem, int* out) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+}
+
+// Launch n_clusters clusters of kCluster blocks.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_clusters(void (*kernel)(Params...), int n_clusters, size_t smem,
+                                   cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_clusters * kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
+// The first layer's weights and bias for this block's columns, in shared
+// memory as f32: w0s[k * kSlice + j] = W0[k][col0 + j] (zero for k >=
+// n_features), b0s[j].  Once per block.
+template <typename T>
+__device__ __forceinline__ void load_first_slice(const Chain& chain, int col0, float* w0s,
+                                                 float* b0s) {
+  const T* __restrict__ W = static_cast<const T*>(chain.w[0]);
+  for (int i = threadIdx.x; i < kMaxFeatures * kSlice; i += kThreads) {
+    const int k = i / kSlice;
+    w0s[i] = k < chain.dims[0] ? to_f32(W[static_cast<size_t>(k) * kWide + col0 + i % kSlice])
+                               : 0.0f;
+  }
+  for (int j = threadIdx.x; j < kSlice; j += kThreads) {
+    b0s[j] = to_f32(static_cast<const T*>(chain.b[0])[col0 + j]);
+  }
+}
+
+// The first layer's f32 dots for the thread's patch, each summed in k order
+// as tile_dot sums it: dot[4 n + c] for row patch_row(n), column
+// patch_col() + c.
+__device__ __forceinline__ void first_dots(const float* xs, const float* w0s, int n_features,
+                                           float (&dot)[kPatch]) {
+  float w[kMaxFeatures][kVec];
+#pragma unroll
+  for (int k = 0; k < kMaxFeatures; ++k) load4(w0s + k * kSlice + patch_col(), w[k]);
+#pragma unroll
+  for (int n = 0; n < kPatchRows; ++n) {
+    float x[kMaxFeatures];
+    load4(xs + patch_row(n) * kMaxFeatures, x);
+    load4(xs + patch_row(n) * kMaxFeatures + 4, x + 4);
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kMaxFeatures; ++k) {
+        if (k < n_features) acc = fmaf(x[k], w[k][c], acc);
+      }
+      dot[kVec * n + c] = acc;
+    }
+  }
+}
+
+// A cluster tile's inputs on their way from device memory: each thread
+// holds its two point values and (threads below kTileRows) one segment id in
+// registers.  fetch() issues the loads for a tile while the tile before it is
+// computed; put() writes them to shared memory when that tile's turn comes:
+// the points as f32 (zero past the tile's end and past n_features) and the
+// segment ids (-1 past the end).
+constexpr int kPointsPerThread = kTileRows * kMaxFeatures / kThreads;
+
+template <typename T>
+struct TileFetch {
+  T x[kPointsPerThread];
+  int seg;
+
+  __device__ __forceinline__ void fetch(const T* __restrict__ points,
+                                        const int* __restrict__ seg_ids, int tile,
+                                        int n_points, int n_features) {
+    const int row0 = tile * kTileRows;
+#pragma unroll
+    for (int q = 0; q < kPointsPerThread; ++q) {
+      const int i = threadIdx.x + q * kThreads;
+      const int r = i / kMaxFeatures;
+      const int k = i - r * kMaxFeatures;
+      x[q] = (row0 + r < n_points && k < n_features)
+                 ? points[static_cast<size_t>(row0 + r) * n_features + k]
+                 : from_f32<T>(0.0f);
+    }
+    seg = (threadIdx.x < kTileRows && row0 + threadIdx.x < n_points)
+              ? seg_ids[row0 + threadIdx.x]
+              : -1;
+  }
+
+  __device__ __forceinline__ void put(float* xs, int* segs) const {
+#pragma unroll
+    for (int q = 0; q < kPointsPerThread; ++q) xs[threadIdx.x + q * kThreads] = to_f32(x[q]);
+    if (threadIdx.x < kTileRows) segs[threadIdx.x] = seg;
+  }
+};
+
+// This block's slice of the wide layer's weights into shared memory,
+// ws[i * ld + j] = W[i][col0 + j], and its bias slice.  Once per block.
+template <typename T>
+__device__ __forceinline__ void load_weight_slice(const Chain& chain, int col0, T* ws,
+                                                  float* bias_s) {
+  const T* __restrict__ W = static_cast<const T*>(chain.w[1]);
+  for (int i = threadIdx.x; i < kWide * kSlice; i += kThreads) {
+    const int row = i / kSlice;
+    const int j = i - row * kSlice;
+    ws[row * SliceLd<T>::w + j] = W[static_cast<size_t>(row) * kWide + col0 + j];
+  }
+  for (int j = threadIdx.x; j < kSlice; j += kThreads) {
+    bias_s[j] = to_f32(static_cast<const T*>(chain.b[1])[col0 + j]);
+  }
+}
+
+// The first layer, a slice per block: this block computes columns
+// [col0, col0 + kSlice) of h1 for the tile's rows and writes them into the
+// h1 array of every block of the cluster (h1_all[q], from map_shared_rank).
+// The caller synchronises the cluster before anyone reads h1.
+template <typename T>
+__device__ __forceinline__ void first_layer_gather(const float* xs, const float* w0s,
+                                                   const float* b0s, int n_features, int col0,
+                                                   int act, T* const (&h1_all)[kCluster]) {
+  // Loads, then arithmetic, then stores, each for the whole patch: with
+  // eight warps on the SM the elements' independent chains have to hide each
+  // other's latency, and a store between two of them would order them.
+  float v[kPatch], bias[kVec];
+  first_dots(xs, w0s, n_features, v);
+  load4(b0s + patch_col(), bias);
+  with_act(act, [&](auto a) {
+#pragma unroll
+    for (int e = 0; e < kPatch; ++e) {
+      v[e] = layer_out<T, kFastSigmoid<T>>(v[e], bias[e % kVec], 0.0f, kPlain,
+                                           decltype(a)::value, nullptr);
+    }
+  });
+#pragma unroll
+  for (int n = 0; n < kPatchRows; ++n) {
+    const int at = patch_row(n) * SliceLd<T>::h + col0 + patch_col();
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) store4(h1_all[q] + at, v + kVec * n);
+  }
+}
+
+// -- tensor-core pieces (bf16) ------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8.  Plain: a thread gets elements [lane / 4][2 (lane % 4) + {0, 1}] of
+// each stored matrix; transposed: [2 (lane % 4) + {0, 1}][lane / 4].
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c[16, 8] += a[16, 16] · b[16, 8], bf16 operands, f32 sums.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// -- slice_dot: dot[r][j] = Σ_k h[r][k] · ws[k][j], r < 64, j < 64, k < 256 ----------
+// A thread gets kDotsPerThread of the tile's dots in registers; element i is
+// row SliceDot<T>::row(i), column SliceDot<T>::col(i) of the tile.
+
+constexpr int kDotsPerThread = kTileRows * kSlice / kThreads;
+
+template <typename T>
+struct SliceDot;
+
+template <>
+struct SliceDot<float> {
+  // thread: rows 4 ty + {0..3}, columns 4 tx + {0..3}; element i = 4 (row) + column
+  static __device__ __forceinline__ int row(int i) { return 4 * (threadIdx.x / 16) + i / 4; }
+  static __device__ __forceinline__ int col(int i) { return 4 * (threadIdx.x % 16) + i % 4; }
+};
+
+template <>
+struct SliceDot<__nv_bfloat16> {
+  // warp: rows 16 (warp % 4) + {0..15}, columns 32 (warp / 4) + {0..31}; element
+  // i = 4 (n tile) + the mma accumulator's index
+  static __device__ __forceinline__ int row(int i) {
+    return 16 * (threadIdx.x / 32 % 4) + (threadIdx.x % 32) / 4 + (i % 4 >= 2 ? 8 : 0);
+  }
+  static __device__ __forceinline__ int col(int i) {
+    return 32 * (threadIdx.x / 128) + 8 * (i / 4) + 2 * (threadIdx.x % 4) + i % 2;
+  }
+};
+
+__device__ __forceinline__ void slice_dot(const float* h, const float* ws,
+                                          float (&acc)[kDotsPerThread]) {
+  constexpr int ldh = SliceLd<float>::h, ldw = SliceLd<float>::w;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < kDotsPerThread; ++i) acc[i] = 0.0f;
+  const float* hrow = h + 4 * ty * ldh;
+  const float* wcol = ws + 4 * tx;
+  // the operands of step k + 4 are read while step k is multiplied
+  float4 a[4], w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(hrow + i * ldh);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) w[q] = *reinterpret_cast<const float4*>(wcol + q * ldw);
+#pragma unroll 2
+  for (int k = 0; k < kWide; k += 4) {
+    float4 a_next[4], w_next[4];
+    const int kn = k + 4 < kWide ? k + 4 : k;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a_next[i] = *reinterpret_cast<const float4*>(hrow + i * ldh + kn);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) w_next[q] = *reinterpret_cast<const float4*>(wcol + (kn + q) * ldw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float av[4] = {a[i].x, a[i].y, a[i].z, a[i].w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {  // every output sums in k order
+        acc[4 * i + 0] = fmaf(av[q], w[q].x, acc[4 * i + 0]);
+        acc[4 * i + 1] = fmaf(av[q], w[q].y, acc[4 * i + 1]);
+        acc[4 * i + 2] = fmaf(av[q], w[q].z, acc[4 * i + 2]);
+        acc[4 * i + 3] = fmaf(av[q], w[q].w, acc[4 * i + 3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = a_next[i];
+      w[i] = w_next[i];
+    }
+  }
+}
+
+__device__ __forceinline__ void slice_dot(const __nv_bfloat16* h, const __nv_bfloat16* ws,
+                                          float (&acc)[kDotsPerThread]) {
+  constexpr int ldh = SliceLd<__nv_bfloat16>::h, ldw = SliceLd<__nv_bfloat16>::w;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int m0 = 16 * (warp % 4), n0 = 32 * (warp / 4);
+  const int mi = lane / 8, rr = lane % 8;
+#pragma unroll
+  for (int i = 0; i < kDotsPerThread; ++i) acc[i] = 0.0f;
+  const __nv_bfloat16* a_ptr = h + (m0 + lane % 16) * ldh + (lane / 16) * 8;
+  const __nv_bfloat16* b_ptr = ws + (rr + (mi & 1) * 8) * ldw + n0 + (mi >> 1) * 8;
+#pragma unroll 4
+  for (int k0 = 0; k0 < kWide; k0 += 16) {
+    uint32_t a[4];
+    ldsm4(a, a_ptr + k0);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t b[4];
+      ldsm4_t(b, b_ptr + k0 * ldw + np * 16);
+      mma_bf16(&acc[8 * np], a, b[0], b[1]);
+      mma_bf16(&acc[8 * np + 4], a, b[2], b[3]);
+    }
+  }
+}
+
+// -- slice_outer: acc[i][j] += Σ_r h[r][i] · dz[r][j], i < 256, j < 64, r < 64 ---------
+// A thread's 64 accumulators stay in its registers from tile to tile; only
+// store_outer knows which element each one is.
+
+__device__ __forceinline__ void slice_outer(const float* h, const float* dz,
+                                            float (&acc)[64]) {
+  constexpr int ldh = SliceLd<float>::h, ldz = SliceLd<float>::z;
+  // thread: rows i = 8 (tid / 8) + {0..7} of d_W, columns j = 8 (tid % 8) + {0..7}
+  const float* hp = h + 8 * (threadIdx.x / 8);
+  const float* dp = dz + 8 * (threadIdx.x % 8);
+#pragma unroll 2
+  for (int r = 0; r < kTileRows; ++r) {
+    const float4 a0 = *reinterpret_cast<const float4*>(hp + r * ldh);
+    const float4 a1 = *reinterpret_cast<const float4*>(hp + r * ldh + 4);
+    const float4 d0 = *reinterpret_cast<const float4*>(dp + r * ldz);
+    const float4 d1 = *reinterpret_cast<const float4*>(dp + r * ldz + 4);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+    for (int ii = 0; ii < 8; ++ii) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) acc[8 * ii + jj] = fmaf(av[ii], dv[jj], acc[8 * ii + jj]);
+    }
+  }
+}
+
+__device__ __forceinline__ void slice_outer(const __nv_bfloat16* h, const __nv_bfloat16* dz,
+                                            float (&acc)[64]) {
+  constexpr int ldh = SliceLd<__nv_bfloat16>::h, ldz = SliceLd<__nv_bfloat16>::z;
+  // warp: rows i = 32 warp + {0..31} of d_W (two m tiles), all 64 columns
+  // (eight n tiles); acc[(mt * 8 + nt) * 4 + e] is element e of tile (mt, nt)
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int mi = lane / 8, rr = lane % 8;
+  const __nv_bfloat16* a_ptr = h + (rr + (mi >> 1) * 8) * ldh + 32 * warp + (mi & 1) * 8;
+  const __nv_bfloat16* b_ptr = dz + (rr + (mi & 1) * 8) * ldz + (mi >> 1) * 8;
+#pragma unroll
+  for (int k0 = 0; k0 < kTileRows; k0 += 16) {
+    uint32_t a[2][4];
+    ldsm4_t(a[0], a_ptr + k0 * ldh);
+    ldsm4_t(a[1], a_ptr + k0 * ldh + 16);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      ldsm4_t(b, b_ptr + k0 * ldz + np * 16);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        mma_bf16(&acc[(mt * 8 + 2 * np) * 4], a[mt], b[0], b[1]);
+        mma_bf16(&acc[(mt * 8 + 2 * np + 1) * 4], a[mt], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// dw[i * kWide + col0 + j] = acc's element (i, j), for the mapping of T's
+// slice_outer.
+template <typename T>
+__device__ __forceinline__ void store_outer(const float (&acc)[64], float* dw, int col0) {
+  if constexpr (sizeof(T) == 4) {
+    const int i0 = 8 * (threadIdx.x / 8), j0 = 8 * (threadIdx.x % 8);
+#pragma unroll
+    for (int ii = 0; ii < 8; ++ii) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        dw[static_cast<size_t>(i0 + ii) * kWide + col0 + j0 + jj] = acc[8 * ii + jj];
+      }
+    }
+  } else {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float* c = &acc[(mt * 8 + nt) * 4];
+        float* o = dw + static_cast<size_t>(32 * warp + 16 * mt + g) * kWide + col0 + 8 * nt + 2 * t;
+        o[0] = c[0];
+        o[1] = c[1];
+        o[8 * kWide] = c[2];
+        o[8 * kWide + 1] = c[3];
+      }
+    }
+  }
+}
+
+// -- slice_dot_t: part[r][i] = Σ_j dz[r][j] · ws[i][j], r < 64, i < 256, j < 64 ---------
+// The block's share of dz·Wᵀ, in f32, from the same ws as slice_dot.
+
+__device__ __forceinline__ void slice_dot_t(const float* dz, const float* ws, float* part) {
+  constexpr int ldz = SliceLd<float>::z, ldw = SliceLd<float>::w;
+  // warp: rows 8 warp + {0..7}, in two halves of 4; lane: i = lane + 32 {0..7}
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll 1
+  for (int half = 0; half < 2; ++half) {
+    const int r0 = 8 * warp + 4 * half;
+    float acc[4][8] = {};
+#pragma unroll 1
+    for (int j = 0; j < kSlice; j += 4) {
+      float4 d[4];
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) d[rr] = *reinterpret_cast<const float4*>(dz + (r0 + rr) * ldz + j);
+#pragma unroll
+      for (int ii = 0; ii < 8; ++ii) {
+        const float4 w = *reinterpret_cast<const float4*>(ws + (lane + 32 * ii) * ldw + j);
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          acc[rr][ii] = fmaf(d[rr].x, w.x, acc[rr][ii]);
+          acc[rr][ii] = fmaf(d[rr].y, w.y, acc[rr][ii]);
+          acc[rr][ii] = fmaf(d[rr].z, w.z, acc[rr][ii]);
+          acc[rr][ii] = fmaf(d[rr].w, w.w, acc[rr][ii]);
+        }
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+#pragma unroll
+      for (int ii = 0; ii < 8; ++ii) part[(r0 + rr) * kPartLd + lane + 32 * ii] = acc[rr][ii];
+    }
+  }
+}
+
+__device__ __forceinline__ void slice_dot_t(const __nv_bfloat16* dz, const __nv_bfloat16* ws,
+                                            float* part) {
+  constexpr int ldz = SliceLd<__nv_bfloat16>::z, ldw = SliceLd<__nv_bfloat16>::w;
+  // warp: rows 16 (warp % 4) + {0..15}, columns i = 128 (warp / 4) + {0..127},
+  // in two halves of eight n tiles
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int m0 = 16 * (warp % 4);
+  const int mi = lane / 8, rr = lane % 8;
+  const int g = lane / 4, t = lane % 4;
+  const __nv_bfloat16* a_ptr = dz + (m0 + lane % 16) * ldz + (lane / 16) * 8;
+#pragma unroll 1
+  for (int half = 0; half < 2; ++half) {
+    const int nb = 128 * (warp / 4) + 64 * half;
+    const __nv_bfloat16* b_ptr = ws + (nb + rr + (mi >> 1) * 8) * ldw + (mi & 1) * 8;
+    float c[8][4] = {};
+#pragma unroll
+    for (int k0 = 0; k0 < kSlice; k0 += 16) {
+      uint32_t a[4];
+      ldsm4(a, a_ptr + k0);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldsm4(b, b_ptr + np * 16 * ldw + k0);
+        mma_bf16(c[2 * np], a, b[0], b[1]);
+        mma_bf16(c[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      float* o = part + (m0 + g) * kPartLd + nb + 8 * nt + 2 * t;
+      *reinterpret_cast<float2*>(o) = make_float2(c[nt][0], c[nt][1]);
+      *reinterpret_cast<float2*>(o + 8 * kPartLd) = make_float2(c[nt][2], c[nt][3]);
+    }
+  }
+}
 
 }  // namespace pcc

@@ -2,7 +2,7 @@
 // hand-written for sm_90a.
 //
 // Replaces point_cloud_classifier_tpu/ops/fused_phi.py:phi_pool_bwd_pallas
-// and its kernel body _make_bwd_kernel.  Computes what
+// (:552) and its kernel body _make_bwd_kernel.  Computes what
 // ops/fused_phi.py:phi_pool_bwd_plain computes in this package: given the
 // f32 cotangent g [S, H] of the pooled sums, every point row recomputes the
 // φ chain, takes d_h = g[seg] (zero for padding ids >= S), and walks the
@@ -13,41 +13,66 @@
 // and d_points = d_in of the first layer, only when asked.  No [P, H]
 // activation or gradient is ever written to device memory.
 //
-// What bounds it on the H100: operations, and the cross-block reduction of
-// d_W.  Per point the recompute costs the forward's FLOPs again, and d_W and
-// dz Wᵀ each cost as much once more: about 3 × 2·256·256 FLOPs per point for
-// the 256 -> 256 layer, on the CUDA cores (f32 FMAs) in this first version.
+// What bounds it on the H100: operations.  Per point the recompute costs the
+// forward's FLOPs again, and d_W and dz Wᵀ each cost as much once more: about
+// 3 × 2·256·256 FLOPs per point for the 256 -> 256 layer.  What used to bound
+// it instead was the cross-block reduction of d_W: 256 KB of f32 for that
+// layer, one SM's whole register file, which a single block can only keep in
+// device memory and must then read and write once per tile.
 //
-// What the design does about it:
-// - One block owns a tile of ROWS points and keeps, in shared memory (f32),
-//   every layer's input h_l and pre-activation z_l for the tile, plus two
-//   gradient buffers: 32 rows × (8 + 3·256 + 2·256) floats ≈ 161 KB for the
-//   DeepSets φ [256, 256] chain.  Wider chains drop to 16 or 8 rows; what
-//   does not fit in 8 rows is refused.
-// - The forward recompute and dz Wᵀ are the same row-tile dot as K1
-//   (phi_chain.cuh:tile_dot); Wᵀ is passed in as its own row-major copy so
-//   that both read their matrix coalesced.  The recompute skips a final bare
-//   linear: its output is only ever pooled, and its backward needs its input.
-// - d_W of the 256 x 256 layer is 256 KB of f32: it fits neither in shared
-//   memory nor in registers, and blocks run in no order.  The grid is
-//   persistent, one block per SM: block b walks tiles b, b + grid, … and
-//   keeps its own f32 slab of every d_W and d_b in device memory (mostly
-//   L2-resident: 132 slabs × 272 KB), written on its first tile and added to
-//   on the next ones with plain loads and stores.  A second kernel sums the
-//   slabs in a fixed order, so the result is deterministic.  Each thread's
-//   share of h_inᵀ dz is a 4 x 4 patch over the tile's rows: per row one
-//   broadcast float4 of h_in and one float4 of dz feed 16 FMAs.  The cost is
-//   a read and a write of the slab per tile (~2 × 272 KB per 32 rows) where
-//   atomics would cost 65,536 contended atomicAdds per tile and layer.
-// - The ragged last tile is masked (its rows get a zero cotangent), so any
-//   P >= 1 works; there is no fallback.
-// - bf16: points, weights and d_points are bf16; every value is rounded to
-//   bf16 where phi_pool_bwd_plain rounds (the gathered cotangent, dz after
-//   its f32 product, dz Wᵀ after its f32 dot, the residual add); d_W and d_b
-//   stay f32.
+// Two variants, chosen by the chain's shape alone (phi_chain.cuh:takes_sliced;
+// pcc_phi_pool_variant in phi_pool.cu reports the choice):
 //
-// Tensor cores (wgmma), TMA and bf16 W resident in shared memory are later
-// work, and so is a d_W reduction that reads and writes less per tile.
+// Sliced (a first layer of at most 8 inputs, then one 256 -> 256 layer: the
+// DeepSets φ chain).  A cluster of four blocks walks 64-row tiles; block c
+// owns columns [64c, 64c + 64) of the wide layer, as in K1.
+// - d_W stays in registers.  Block c's slice of d_W, [256, 64] f32, is 64
+//   accumulators in each of its 256 threads, and they live there from the
+//   block's first tile to its last; d_b and the first layer's d_W and d_b are
+//   a few more.  Each is written to device memory once, when the block has no
+//   tile left, into the cluster's slab; reduce_slabs_kernel then sums the
+//   slabs in a fixed order.  Tiles go to clusters by index and every sum
+//   inside a block runs in a fixed order, so the result is the same bits on
+//   every run.
+// - The block's slice of W, [256, 64], stays in shared memory for its whole
+//   life (f32 68 KB, bf16 36 KB), and that one copy serves the recompute
+//   h·W (slice_dot) and dz·Wᵀ (slice_dot_t): no weight is read from L2 inside
+//   a product and no transposed copy of W exists.
+// - The recompute is K1's: first_layer_gather (a slice per block, written
+//   into all four blocks' shared memory) and slice_dot.  The first layer's
+//   pre-activation is not kept: where its derivative is needed, its K <= 8
+//   dot is formed again from the points.
+// - dz·Wᵀ needs every column of dz, and a block has 64: each block forms its
+//   share over its own columns (slice_dot_t, [64, 256] f32 in shared memory,
+//   where h1 was), and block c then adds the four shares of columns
+//   [64c, 64c + 64), read from its neighbours through distributed shared
+//   memory in rank order, rounds once and carries on with its own columns.
+//   d_points is reduced the same way, 16 rows per block.
+// - The three products of a tile run on the tensor cores in bf16 (mma.sync
+//   m16n8k16, ldmatrix operands, f32 accumulation) and as register tiles of 16
+//   to 64 outputs per thread on the CUDA cores in f32.  mma.sync and not
+//   wgmma: the products are 22% of a bf16 tile's clocks (6,610 of 29,440 at
+//   B=256, P=65,536 on an H100 at 700 W, phase_clocks.py); the per-element
+//   passes, the exchange and the cluster barriers are the rest, and wgmma's
+//   swizzled layouts would touch every buffer for at most that 22%.
+// - One block of eight warps per SM.  A second bf16 block would hide that
+//   latency, but needs 113 KB of shared memory where this one has 126 KB (the
+//   f32 share of dz·Wᵀ is 65 KB of it) and 128 registers a thread where d_W
+//   and the small gradients alone are 104 accumulators.
+//
+// General (every other chain).  One block owns a tile of 32, 16 or 8 rows
+// and keeps every layer's input and pre-activation in shared memory (f32);
+// the products are phi_chain.cuh:tile_dot, Wᵀ passed in as its own row-major
+// copy.  The grid is persistent, one block per SM, and each block keeps its
+// own f32 slab of every d_W and d_b in device memory, read and written once
+// per tile; the same second kernel sums the slabs in a fixed order.  What
+// does not fit 8 rows is refused (kErrTooWide).
+//
+// Both: the ragged last tile is masked (its rows get a zero cotangent), so
+// any P >= 1 works; there is no fallback.  In bf16, points, weights and
+// d_points are bf16; every value is rounded to bf16 where phi_pool_bwd_plain
+// rounds (the gathered cotangent, dz after its f32 product, dz Wᵀ after its
+// f32 sum, the residual add); d_W and d_b stay f32.
 
 #include "phi_chain.cuh"
 
@@ -169,7 +194,7 @@ __global__ void __launch_bounds__(kThreads)
           const int r = i / out_dim;
           const int j = i - r * out_dim;
           dz[r * lddz + j] =
-              rnd<T>(cur[r * ldg + j] * act_grad(dz[r * lddz + j], chain.act));
+              rnd<T>(cur[r * ldg + j] * act_grad<T>(dz[r * lddz + j], chain.act));
         }
         __syncthreads();
       }
@@ -252,6 +277,311 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// -- the sliced variant -------------------------------------------------------------
+
+template <typename T>
+struct SlicedBwdSmem {
+  // byte offsets into dynamic shared memory, each a multiple of 16
+  static constexpr size_t xs = 0;                                        // f32 [64, 8]
+  static constexpr size_t segs = xs + kTileRows * kMaxFeatures * 4;      // int [64]
+  static constexpr size_t bias = segs + kTileRows * 4;                   // f32 [64]
+  static constexpr size_t w0 = bias + kSlice * 4;                        // f32 [8, 64]
+  static constexpr size_t b0 = w0 + kMaxFeatures * kSlice * 4;           // f32 [64]
+  static constexpr size_t pp = b0 + kSlice * 4;                          // f32 [64, 8]
+  static constexpr size_t ws = pp + kTileRows * kMaxFeatures * 4;        // T [256, ldw]
+  static constexpr size_t zs = ws + sizeof(T) * kWide * SliceLd<T>::w;   // T [64, ldz]
+  static constexpr size_t gs = zs + sizeof(T) * kTileRows * SliceLd<T>::z;
+  // h1, T [64, ldh]; then the f32 [64, kPartLd] share of dz·Wᵀ in its place
+  static constexpr size_t hp = gs + sizeof(T) * kTileRows * SliceLd<T>::z;
+  static constexpr size_t bytes = hp + 4 * kTileRows * kPartLd;
+};
+
+// The small gradients a thread carries in registers from tile to tile, for
+// the columns and rows of its patch (phi_chain.cuh:patch_col, patch_row):
+// d_W0[k][c] at kVec k + c, then d_b0[c], then d_b1[c].
+constexpr int kSmall = (kMaxFeatures + 2) * kVec;
+constexpr int kSmallB0 = kMaxFeatures * kVec;
+constexpr int kSmallB1 = kSmallB0 + kVec;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    phi_pool_bwd_sliced_kernel(const T* __restrict__ points, const int* __restrict__ seg,
+                               const float* __restrict__ g, T* __restrict__ d_points,
+                               float* __restrict__ slabs, int n_points, int n_features,
+                               int num_segments, Chain chain, int n_param) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  using L = SlicedBwdSmem<T>;
+  float* xs = reinterpret_cast<float*>(smem_raw + L::xs);
+  int* segs = reinterpret_cast<int*>(smem_raw + L::segs);
+  float* bias_s = reinterpret_cast<float*>(smem_raw + L::bias);
+  float* w0s = reinterpret_cast<float*>(smem_raw + L::w0);
+  float* pp = reinterpret_cast<float*>(smem_raw + L::pp);
+  T* ws = reinterpret_cast<T*>(smem_raw + L::ws);
+  T* zs = reinterpret_cast<T*>(smem_raw + L::zs);
+  T* gs = reinterpret_cast<T*>(smem_raw + L::gs);
+  T* h1 = reinterpret_cast<T*>(smem_raw + L::hp);
+  float* part = reinterpret_cast<float*>(smem_raw + L::hp);
+  constexpr int ldz = SliceLd<T>::z;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int col0 = rank * kSlice;
+  const int n_clusters = gridDim.x / kCluster;
+  const int n_tiles = (n_points + kTileRows - 1) / kTileRows;
+  T* h1_all[kCluster];
+  const float* part_all[kCluster];
+  const float* pp_all[kCluster];
+#pragma unroll
+  for (int q = 0; q < kCluster; ++q) {
+    h1_all[q] = cluster.map_shared_rank(h1, q);
+    part_all[q] = cluster.map_shared_rank(part, q);
+    pp_all[q] = cluster.map_shared_rank(pp, q);
+  }
+
+  float* b0s = reinterpret_cast<float*>(smem_raw + L::b0);
+  PhaseClock clk;
+  load_weight_slice<T>(chain, col0, ws, bias_s);
+  load_first_slice<T>(chain, col0, w0s, b0s);
+  const bool residual = chain.kind[1] == kResidual;
+  const int act = chain.act;
+
+  float dw[64];  // the block's slice of the wide layer's d_W: see slice_outer
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dw[i] = 0.0f;
+  float small[kSmall];
+#pragma unroll
+  for (int i = 0; i < kSmall; ++i) small[i] = 0.0f;
+  TileFetch<T> next;
+  next.fetch(points, seg, blockIdx.x / kCluster, n_points, n_features);
+  cluster.sync();  // every block of the cluster has started: its shared memory may be written
+  clk.mark(0);
+
+  for (int tile = blockIdx.x / kCluster; tile < n_tiles; tile += n_clusters) {
+    const int row0 = tile * kTileRows;
+    const int n_rows = min(kTileRows, n_points - row0);
+    next.put(xs, segs);
+    if (tile + n_clusters < n_tiles) {
+      next.fetch(points, seg, tile + n_clusters, n_points, n_features);
+    }
+    __syncthreads();
+    clk.mark(1);
+
+    // d_out of the wide layer, this block's columns: g[seg]; padding ids
+    // (>= S) and rows past the end get zero.  Loaded now, all at once, and
+    // used after the recompute, which hides the way from device memory.
+    float g_own[kPatch];
+#pragma unroll
+    for (int n = 0; n < kPatchRows; ++n) {
+      const int sid = segs[patch_row(n)];
+      if (sid >= 0 && sid < num_segments) {
+        load4(g + static_cast<size_t>(sid) * kWide + col0 + patch_col(), g_own + kVec * n);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kVec; ++c) g_own[kVec * n + c] = 0.0f;
+      }
+    }
+    first_layer_gather<T>(xs, w0s, b0s, n_features, col0, act, h1_all);
+    clk.mark(2);
+    cluster.sync();  // h1 is whole in every block
+    clk.mark(3);
+
+    // Recompute the wide layer's pre-activation for this block's columns.
+    {
+      float dot[kDotsPerThread];
+      slice_dot(h1, ws, dot);
+#pragma unroll
+      for (int i = 0; i < kDotsPerThread; ++i) {
+        zs[SliceDot<T>::row(i) * ldz + SliceDot<T>::col(i)] =
+            from_f32<T>(rnd<T>(rnd<T>(dot[i]) + bias_s[SliceDot<T>::col(i)]));
+      }
+    }
+    __syncthreads();
+    clk.mark(4);
+
+    // dz = d_out ⊙ act'(z), in place of z, with d_out rounded to T as the
+    // gathered cotangent is; d_b += Σ dz.
+    // (Loads, arithmetic, stores: see first_layer_gather.)
+    {
+      float z[kPatch];
+#pragma unroll
+      for (int n = 0; n < kPatchRows; ++n) load4(zs + patch_row(n) * ldz + patch_col(), z + kVec * n);
+#pragma unroll
+      for (int e = 0; e < kPatch; ++e) g_own[e] = rnd<T>(g_own[e]);
+      with_act(act, [&](auto a) {
+#pragma unroll
+        for (int e = 0; e < kPatch; ++e) {
+          z[e] = rnd<T>(g_own[e] * act_grad<T, kFastSigmoid<T>>(z[e], decltype(a)::value));
+        }
+      });
+#pragma unroll
+      for (int n = 0; n < kPatchRows; ++n) {
+        store4(gs + patch_row(n) * ldz + patch_col(), g_own + kVec * n);
+        store4(zs + patch_row(n) * ldz + patch_col(), z + kVec * n);
+#pragma unroll
+        for (int c = 0; c < kVec; ++c) small[kSmallB1 + c] += z[kVec * n + c];
+      }
+    }
+    __syncthreads();
+    clk.mark(5);
+
+    slice_outer(h1, zs, dw);  // d_W += h1ᵀ dz, in registers
+    __syncthreads();          // h1 is read no more: its place takes the share of dz·Wᵀ
+    clk.mark(6);
+    slice_dot_t(zs, ws, part);
+    clk.mark(7);
+    cluster.sync();  // every block's share is whole
+    clk.mark(8);
+
+    // d_h1 for this block's columns: the four shares in rank order, rounded
+    // once, plus d_out for a residual layer; then the first layer's
+    // dz = d_h1 ⊙ act'(z1), its d_W and d_b.
+    {
+      float v[kPatch], z1[kPatch], d_out[kPatch], bias[kVec];
+#pragma unroll
+      for (int n = 0; n < kPatchRows; ++n) {  // sixteen 16-byte reads in flight, twelve remote
+        const int at = patch_row(n) * kPartLd + col0 + patch_col();
+        float p[kCluster][kVec];
+#pragma unroll
+        for (int q = 0; q < kCluster; ++q) load4(part_all[q] + at, p[q]);
+#pragma unroll
+        for (int c = 0; c < kVec; ++c) {
+          float sum = p[0][c];
+#pragma unroll
+          for (int q = 1; q < kCluster; ++q) sum += p[q][c];
+          v[kVec * n + c] = rnd<T>(sum);
+        }
+        load4(gs + patch_row(n) * ldz + patch_col(), d_out + kVec * n);
+      }
+      first_dots(xs, w0s, n_features, z1);
+      load4(b0s + patch_col(), bias);
+#pragma unroll
+      for (int e = 0; e < kPatch; ++e) {
+        if (residual) v[e] = rnd<T>(d_out[e] + v[e]);
+        z1[e] = rnd<T>(rnd<T>(z1[e]) + bias[e % kVec]);
+      }
+      with_act(act, [&](auto a) {
+#pragma unroll
+        for (int e = 0; e < kPatch; ++e) {
+          v[e] = rnd<T>(v[e] * act_grad<T, kFastSigmoid<T>>(z1[e], decltype(a)::value));
+        }
+      });
+#pragma unroll
+      for (int n = 0; n < kPatchRows; ++n) {
+        store4(zs + patch_row(n) * ldz + patch_col(), v + kVec * n);
+        float x[kMaxFeatures];
+        load4(xs + patch_row(n) * kMaxFeatures, x);
+        load4(xs + patch_row(n) * kMaxFeatures + 4, x + 4);
+#pragma unroll
+        for (int c = 0; c < kVec; ++c) {
+#pragma unroll
+          for (int k = 0; k < kMaxFeatures; ++k) {
+            small[kVec * k + c] = fmaf(x[k], v[kVec * n + c], small[kVec * k + c]);
+          }
+          small[kSmallB0 + c] += v[kVec * n + c];
+        }
+      }
+    }
+
+    clk.mark(9);
+    if (d_points != nullptr) {
+      // d_points = dz W0ᵀ: this block's share over its columns, then 16 rows
+      // per block summed in rank order.
+      __syncthreads();
+      for (int i = threadIdx.x; i < kTileRows * kMaxFeatures; i += kThreads) {
+        const int r = i % kTileRows;
+        const int k = i / kTileRows;
+        float acc = 0.0f;
+        for (int c = 0; c < kSlice; ++c) acc = fmaf(to_f32(zs[r * ldz + c]), w0s[k * kSlice + c], acc);
+        pp[r * kMaxFeatures + k] = acc;
+      }
+      cluster.sync();  // every block's share is whole
+      constexpr int kOwn = kTileRows / kCluster;
+      if (threadIdx.x < kOwn * kMaxFeatures) {
+        const int r = rank * kOwn + threadIdx.x / kMaxFeatures;
+        const int k = threadIdx.x % kMaxFeatures;
+        if (r < n_rows && k < n_features) {
+          float sum = pp_all[0][r * kMaxFeatures + k];
+#pragma unroll
+          for (int q = 1; q < kCluster; ++q) sum += pp_all[q][r * kMaxFeatures + k];
+          d_points[static_cast<size_t>(row0 + r) * n_features + k] = from_f32<T>(sum);
+        }
+      }
+    }
+    clk.mark(10);
+    cluster.sync();  // every block is done with this tile's shares
+    clk.mark(11);
+  }
+
+  // The block's gradients leave the chip once, into its cluster's slab: d_W0
+  // [F, 256], d_b0 [256], d_W [256, 256], d_b [256].
+  float* slab = slabs + static_cast<size_t>(blockIdx.x / kCluster) * n_param;
+  float* dw0 = slab;
+  float* db0 = dw0 + n_features * kWide;
+  float* dw1 = db0 + kWide;
+  float* db1 = dw1 + kWide * kWide;
+  store_outer<T>(dw, dw1, col0);
+  // the small ones: a thread holds the sums over its rows; the sixteen
+  // threads of a column add up in order through shared memory (part's place)
+  constexpr int kRowGroups = kThreads / (kSlice / kVec);
+  float* red = part;  // [row group][what][column]
+#pragma unroll
+  for (int i = 0; i < kSmall; ++i) {
+    red[((threadIdx.x / (kSlice / kVec)) * (kSmall / kVec) + i / kVec) * kSlice + patch_col() +
+        i % kVec] = small[i];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < (kSmall / kVec) * kSlice; i += kThreads) {
+    const int what = i / kSlice;
+    const int c = i % kSlice;
+    float sum = red[what * kSlice + c];
+    for (int q = 1; q < kRowGroups; ++q) sum += red[(q * (kSmall / kVec) + what) * kSlice + c];
+    if (what < kMaxFeatures) {
+      if (what < n_features) dw0[what * kWide + col0 + c] = sum;
+    } else if (what == kMaxFeatures) {
+      db0[col0 + c] = sum;
+    } else {
+      db1[col0 + c] = sum;
+    }
+  }
+  clk.mark(12);
+  clk.flush();
+}
+
+template <typename T>
+cudaError_t launch_sliced(const void* points, const void* seg, const void* g, void* d_points,
+                          void* d_params, void* slabs, int max_blocks, int n_points,
+                          int n_features, int num_segments, const Chain& chain, int n_param,
+                          cudaStream_t stream) {
+  constexpr size_t smem = SlicedBwdSmem<T>::bytes;
+  static int fit = 0;  // clusters the card holds at once; asked once
+  if (fit == 0) {
+    cudaError_t err = cudaFuncSetAttribute(phi_pool_bwd_sliced_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    int n = 0;
+    err = max_clusters(phi_pool_bwd_sliced_kernel<T>, smem, &n);
+    if (err != cudaSuccess) return err;
+    if (n < 1) return cudaErrorLaunchOutOfResources;
+    fit = n;
+  }
+  const int n_tiles = (n_points + kTileRows - 1) / kTileRows;
+  int n_clusters = n_tiles < fit ? n_tiles : fit;
+  if (n_clusters > max_blocks) n_clusters = max_blocks;  // one slab per cluster
+  cudaError_t err = launch_clusters(
+      phi_pool_bwd_sliced_kernel<T>, n_clusters, smem, stream, static_cast<const T*>(points),
+      static_cast<const int*>(seg), static_cast<const float*>(g), static_cast<T*>(d_points),
+      static_cast<float*>(slabs), n_points, n_features, num_segments, chain, n_param);
+  if (err != cudaSuccess) return err;
+  const int reduce_grid = (n_param + kThreads - 1) / kThreads;
+  reduce_slabs_kernel<<<reduce_grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(slabs), n_clusters, n_param, static_cast<float*>(d_params));
+  return cudaGetLastError();
+}
+
+// -- the general variant's launch ------------------------------------------------------
+
 size_t smem_bytes(int rows, const BwdLayout& lay) {
   return static_cast<size_t>(rows) * lay.cols * sizeof(float) + rows * sizeof(int);
 }
@@ -308,15 +638,18 @@ extern "C" {
 
 // points [n_points, n_features] (f32, or bf16 when is_bf16), seg [n_points]
 // int32, g [num_segments, dims[n_layers]] f32.  Layer l has weight
-// weights[l] [dims[l], dims[l + 1]], its transpose weights_t[l]
-// [dims[l + 1], dims[l]] and bias biases[l], all of the points' type, and
-// kind kinds[l] (0 plain, 1 residual, 2 bare linear).  Writes d_params
-// (f32; for each layer d_W [dims[l], dims[l + 1]] then d_b [dims[l + 1]])
-// and, unless d_points is null, d_points [n_points, n_features] in the
-// points' type.  slabs is f32 scratch of max_blocks × (the length of
-// d_params); the grid takes at most max_blocks blocks.  Returns the
-// cudaError_t of the launches (0 on success), or kErrTooWide when the
-// tile's buffers do not fit 8 rows; does not synchronise.
+// weights[l] [dims[l], dims[l + 1]] and bias biases[l], both of the points'
+// type, and kind kinds[l] (0 plain, 1 residual, 2 bare linear).  weights_t[l]
+// is the transpose [dims[l + 1], dims[l]] of weights[l]: only the general
+// variant reads it, and a chain that pcc_phi_pool_variant gives the sliced
+// variant may pass null.  Writes d_params (f32; for each layer d_W
+// [dims[l], dims[l + 1]] then d_b [dims[l + 1]]) and, unless d_points is
+// null, d_points [n_points, n_features] in the points' type.  slabs is f32
+// scratch of max_blocks × (the length of d_params): one slab per block of the
+// general variant's grid or per cluster of the sliced one's, at most
+// max_blocks of either.  Returns the cudaError_t of the launches (0 on
+// success), or kErrTooWide when the general variant's buffers do not fit 8
+// rows; does not synchronise.
 int pcc_phi_pool_bwd(const void* points, const void* seg, const void* g, void* d_points,
                      void* d_params, void* slabs, int max_blocks, int n_points,
                      int n_features, int num_segments, int n_layers, const int* dims,
@@ -328,6 +661,18 @@ int pcc_phi_pool_bwd(const void* points, const void* seg, const void* g, void* d
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Chain chain = make_chain(n_layers, dims, kinds, weights, biases, act);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (takes_sliced(n_layers, dims, kinds, is_bf16 != 0, true)) {
+    const int n_param = dims[0] * dims[1] + dims[1] + dims[1] * dims[2] + dims[2];
+    const cudaError_t err =
+        is_bf16 ? launch_sliced<__nv_bfloat16>(points, seg, g, d_points, d_params, slabs,
+                                               max_blocks, n_points, n_features, num_segments,
+                                               chain, n_param, s)
+                : launch_sliced<float>(points, seg, g, d_points, d_params, slabs, max_blocks,
+                                       n_points, n_features, num_segments, chain, n_param, s);
+    return static_cast<int>(err);
+  }
+  if (weights_t == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   BwdLayout lay = {};
   int cols = 0;
   int params = 0;
@@ -354,7 +699,6 @@ int pcc_phi_pool_bwd(const void* points, const void* seg, const void* g, void* d
   lay.gb_off = cols + g_ld;
   lay.cols = cols + 2 * g_ld;
   lay.n_param = params;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch_rows<__nv_bfloat16>(points, seg, g, d_points, d_params, slabs,
                                            max_blocks, n_points, n_features, num_segments,
@@ -363,5 +707,15 @@ int pcc_phi_pool_bwd(const void* points, const void* seg, const void* g, void* d
                                    n_points, n_features, num_segments, chain, lay, s);
   return static_cast<int>(err);
 }
+
+#ifdef PCC_PHASE_CLOCKS
+// The clock sums of the last sliced launch's block 0: set-up, then per tile
+// the inputs, g and the first layer, its barrier, the recompute, dz, d_W,
+// the share of dz·Wᵀ, its barrier, the first layer's gradients, d_points,
+// the last barrier; then the write to the slab.  Synchronises.
+int pcc_phi_pool_bwd_phase_clocks(long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(long long) * kPhases));
+}
+#endif
 
 }  // extern "C"

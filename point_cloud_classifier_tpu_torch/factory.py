@@ -77,10 +77,13 @@ def get_dataloader(dataset_name: str, config: dict):
     return Step2PointPointCloud(**ds_cfg)
 
 
-def get_model(model_name: str, config: dict, model_dir: str = None):
+def get_model(model_name: str, config: dict, model_dir: str = None, device: str = None):
     """A ``ModelWrapper`` around ``config["model"]``, restored from
     ``{model_dir}/best_model.pt`` when ``model_dir`` is given.  Fresh
-    weights are drawn from ``trainer.seed`` (default 0)."""
+    weights are drawn from ``trainer.seed`` (default 0).  The model runs on
+    the card, and the call raises where there is none, unless ``device`` says
+    otherwise (``"cpu"``); the device is no part of the config, so a run's
+    ``config.yaml`` does not depend on it."""
     if model_name in _NOT_PORTED:
         raise NotImplementedError(
             f"{model_name} is not ported to PyTorch yet ({_NOT_PORTED[model_name]})"
@@ -91,7 +94,7 @@ def get_model(model_name: str, config: dict, model_dir: str = None):
     trainer = config["trainer"]
     generator = torch.Generator().manual_seed(int(trainer.get("seed", 0)))
     net = _MODELS[model_name](**config["model"], generator=generator)
-    model = ModelWrapper(net, **trainer, **config.get("logging", {}))
+    model = ModelWrapper(net, **trainer, **config.get("logging", {}), device=device)
     if model_dir is not None:
         model_path = os.path.join(model_dir, "best_model.pt")
         if not os.path.exists(model_path):

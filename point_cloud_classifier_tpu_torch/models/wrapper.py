@@ -18,8 +18,9 @@ Counterpart of ``point_cloud_classifier_tpu/models/wrapper.py``:
 
 Checkpoints are torch ``state_dict``s under the keys that ``convert.py``
 maps; :meth:`ModelWrapper.load` also reads the JAX package's pickles.  The
-model lives on an explicit device, ``cuda`` when there is one; batches go to
-it one at a time, and losses and outputs come back in one copy per epoch or
+model lives on the card (``device=None`` means ``"cuda"`` and raises where
+there is none; the CPU is taken only when the caller passes
+``device="cpu"``); batches go to it one at a time, and losses and outputs come back in one copy per epoch or
 per evaluation.
 
 A model's BatchNorm running statistics are buffers of the module: the train
@@ -109,6 +110,21 @@ def _refuse_unported(fuse_steps, device_resident, mesh, data_parallel, n_model) 
             raise NotImplementedError(f"not ported to PyTorch yet: {what}")
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a wrapper runs on: the card unless the caller names
+    another.  ``None`` means ``"cuda"`` and raises where there is no usable
+    card; it never picks the CPU by itself, so a run cannot end up on the CPU
+    through the kernels' plain versions without anyone having asked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available (torch.cuda.is_available() is false): "
+                "the port runs on the GPU; pass device=\"cpu\" to run on the CPU"
+            )
+        device = "cuda"
+    return torch.device(device)
+
+
 def _shape_key(batch):
     """One bucketed batch shape, as the JAX trainer counts them."""
     return tuple(sorted((k, np.shape(v), str(v.dtype)) for k, v in batch.items()))
@@ -172,9 +188,7 @@ class ModelWrapper:
         # seed is the config's trainer.seed: factory.get_model draws the
         # initial weights from it before the model reaches this wrapper
         _refuse_unported(fuse_steps, device_resident, mesh, data_parallel, n_model)
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.learning_rate = learning_rate
         self.epochs = epochs

@@ -31,6 +31,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+# with this flag the sliced K1 and K2 count clocks per phase (csrc/phi_chain.cuh)
+PHASE_CLOCKS_FLAG = "-DPCC_PHASE_CLOCKS"
+_phase_clocks = False
 
 
 @dataclass(frozen=True)
@@ -74,7 +77,7 @@ def _run_all(cmds) -> None:
             )
 
 
-def _build(sources, target: Path) -> None:
+def _build(sources, target: Path, flags=NVCC_FLAGS) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # build under a private name, then rename: a concurrent build or a
     # build cut short never leaves a half-written library under the final name
@@ -84,10 +87,10 @@ def _build(sources, target: Path) -> None:
     try:
         # one nvcc per source, all started together, then one link
         _run_all([
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            [nvcc, *flags, "-c", "-o", str(obj), str(src)]
             for src, obj in zip(sources, objects)
         ])
-        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
+        _run_all([[nvcc, *flags, "-shared", "-o", str(tmp), *map(str, objects)]])
         os.replace(tmp, target)
     finally:
         for obj in objects:
@@ -109,10 +112,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, i32,  # d_params, slabs, max_blocks
         i32, i32, i32, i32,  # n_points, n_features, num_segments, n_layers
         ctypes.POINTER(i32), ctypes.POINTER(i32),  # dims, kinds (host)
-        ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(vp),  # w, wᵀ, b (host)
+        ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(vp),  # w, wᵀ (or null), b (host)
         i32, i32, vp,  # act, is_bf16, stream
     ]
     lib.pcc_phi_pool_bwd.restype = i32
+    lib.pcc_phi_pool_variant.argtypes = [
+        i32, ctypes.POINTER(i32), ctypes.POINTER(i32),  # n_layers, dims, kinds (host)
+        i32, i32,  # is_bf16, backward (K2's choice, not K1's)
+    ]
+    lib.pcc_phi_pool_variant.restype = i32
     lib.pcc_gat_attention.argtypes = [
         vp, vp, vp, vp, vp, vp,  # s_dst, s_src, in_src, in_w, xw, out
         i32, i32, i32, i32, i32,  # b, m, d, h, c
@@ -152,13 +160,25 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pcc_error_string.restype = ctypes.c_char_p
 
 
+def enable_phase_clocks() -> None:
+    """Make this process build and load the kernels with their per-phase
+    clocks (``PHASE_CLOCKS_FLAG``); the library then also has the two
+    ``pcc_*_phase_clocks`` entries.  Call it before the first
+    :func:`kernel_library`: a library already loaded is not replaced."""
+    global _phase_clocks
+    if kernel_library.cache_info().currsize:
+        raise RuntimeError("the kernel library is already loaded")
+    _phase_clocks = True
+
+
 @functools.cache
 def kernel_library() -> KernelLibrary:
     """Build (if needed) and load ``csrc/*.cu``; raises if either fails."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = (*NVCC_FLAGS, PHASE_CLOCKS_FLAG) if _phase_clocks else NVCC_FLAGS
+    digest = hashlib.sha256(" ".join(flags).encode())
     for src in sources + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -166,10 +186,13 @@ def kernel_library() -> KernelLibrary:
     seconds = 0.0
     if not target.exists():
         t0 = time.perf_counter()
-        _build(sources, target)
+        _build(sources, target, flags)
         seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(target))
     _declare(lib)
+    if _phase_clocks:
+        for entry in (lib.pcc_phi_pool_phase_clocks, lib.pcc_phi_pool_bwd_phase_clocks):
+            entry.argtypes, entry.restype = [ctypes.c_void_p], ctypes.c_int
     return KernelLibrary(lib, target, seconds)
 
 

@@ -14,7 +14,13 @@ Counterpart of ``point_cloud_classifier_tpu/ops/fused_phi.py``:
   hand-written Hopper kernels ``csrc/phi_pool.cu`` (K1, which replaces
   ``phi_pool_pallas``) and ``csrc/phi_pool_bwd.cu`` (K2, which replaces
   ``phi_pool_bwd_pallas``) or raises.  ``phi_pool.launches`` and
-  ``phi_pool.bwd_launches`` count their launches.
+  ``phi_pool.bwd_launches`` count their launches.  Each kernel has two
+  variants, chosen in C by the chain's shape, the element type and the
+  kernel alone: the sliced one (a cluster of four blocks a tile, ``d_W`` in
+  registers, tensor cores in bf16) for the DeepSets chain of a narrow first
+  layer and one 256 -> 256 layer, in K2 and in bf16 K1; the general one for
+  f32 K1 (where it measured faster) and for every other chain;
+  ``phi_pool.variant`` and ``phi_pool.bwd_variant`` name the last launch's.
 
 φ layer spec: a tuple of ``("plain" | "residual", has_ln)`` entries.
 ``params`` holds one ``(w [in, out], b[, ln_scale, ln_bias])`` per spec entry,
@@ -34,6 +40,7 @@ each ``dz Wᵀ`` (accumulated in f32) and each residual add; ``d_W`` and
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -248,6 +255,9 @@ def phi_pool(
 
 phi_pool.launches = 0
 phi_pool.bwd_launches = 0
+# the variant ("sliced" or "general") that the last K1 and K2 launch took
+phi_pool.variant = None
+phi_pool.bwd_variant = None
 
 
 def _kernel_operands(points, seg, spec, params):
@@ -292,6 +302,21 @@ def _pointers(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
+@functools.lru_cache(maxsize=None)
+def kernel_variant(dims: tuple, kinds: tuple, bf16: bool, backward: bool) -> str:
+    """Which variant K1 (``backward`` false) or K2 (true) takes for a chain
+    on the card, ``"sliced"`` or ``"general"``: the C entry's own choice
+    (``pcc_phi_pool_variant``), made from the chain's shape, the element type
+    and the kernel alone (``csrc/phi_chain.cuh:takes_sliced``)."""
+    from point_cloud_classifier_tpu_torch.native import kernel_library
+
+    n = len(kinds)
+    code = kernel_library().lib.pcc_phi_pool_variant(
+        n, (ctypes.c_int * (n + 1))(*dims), (ctypes.c_int * n)(*kinds), int(bf16), int(backward)
+    )
+    return "sliced" if code == 1 else "general"
+
+
 def _phi_pool_cuda(points, seg, spec, params, activation, num_segments):
     from point_cloud_classifier_tpu_torch.native import check, kernel_library
 
@@ -324,6 +349,9 @@ def _phi_pool_cuda(points, seg, spec, params, activation, num_segments):
         )
     check(code)
     phi_pool.launches += 1
+    phi_pool.variant = kernel_variant(
+        tuple(dims), tuple(kinds), points.dtype == torch.bfloat16, False
+    )
     return out
 
 
@@ -347,11 +375,16 @@ def _phi_pool_bwd_cuda(
     if n_points == 0:
         flat.zero_()
     else:
-        # the weights twice: [in, out] for the recompute, [out, in] for dz Wᵀ
+        # the sliced variant reads one [in, out] copy for both products; the
+        # general one wants [out, in] as well, for dz Wᵀ
+        variant = kernel_variant(
+            tuple(dims), tuple(kinds), points.dtype == torch.bfloat16, True
+        )
         w_fwd = [w.contiguous() for w in weights]
-        w_bwd = [w.t().contiguous() for w in weights]
+        w_bwd = [w.t().contiguous() for w in weights] if variant == "general" else None
         points, seg, g = points.contiguous(), seg.contiguous(), g.float().contiguous()
-        # one f32 slab of every d_w and d_b per block of the persistent grid
+        # one f32 slab of every d_w and d_b per block (general) or cluster
+        # (sliced) of the persistent grid
         max_blocks = torch.cuda.get_device_properties(device).multi_processor_count
         slabs = torch.empty((max_blocks, flat.numel()), dtype=torch.float32, device=device)
         n = len(params)
@@ -372,7 +405,7 @@ def _phi_pool_bwd_cuda(
                 (ctypes.c_int * (n + 1))(*dims),
                 (ctypes.c_int * n)(*kinds),
                 _pointers(w_fwd),
-                _pointers(w_bwd),
+                _pointers(w_bwd) if w_bwd is not None else None,
                 _pointers(biases),
                 _activation_code(activation),
                 int(points.dtype == torch.bfloat16),
@@ -380,6 +413,7 @@ def _phi_pool_bwd_cuda(
             )
         check(code)
         phi_pool.bwd_launches += 1
+        phi_pool.bwd_variant = variant
     grads, offset = [], 0
     for (i, o), (wsize, bsize) in zip(zip(dims[:-1], dims[1:]), sizes):
         grads.append(flat[offset : offset + wsize].view(i, o))

@@ -1,0 +1,93 @@
+"""Where a block of the sliced K1 and K2 spends its clocks, per phase.
+
+Run from the repository root on a machine with a CUDA card and the CUDA
+toolkit:
+
+    python3 -m point_cloud_classifier_tpu_torch.phase_clocks
+
+It builds the kernels with their per-phase clocks
+(``native.enable_phase_clocks()``: thread 0 of block 0 adds up ``clock64()``
+between the marks of ``csrc/phi_pool.cu`` and ``csrc/phi_pool_bwd.cu``),
+launches each sliced kernel once at the DeepSets config batch (B=32,
+P=8,192) and at the flagship shape (B=256, P=65,536), and prints the sums of
+that launch per phase, with ``nvidia-smi``'s name and power limit of the
+card.  f32 K1 takes the general variant, which has no marks, so only K2 is
+read in f32.  It checks nothing: ``chip_smoke.py`` holds the kernels against
+their plain versions, on a build without the clocks.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+
+import numpy as np
+import torch
+
+from point_cloud_classifier_tpu_torch import native
+from point_cloud_classifier_tpu_torch.ops.fused_phi import _phi_pool_bwd_cuda, phi_pool
+
+SPEC = (("plain", False), ("residual", False))  # φ [256, 256] with residual_block
+SHAPES = (("config", 32, 8192), ("flagship", 256, 65536))
+K1_PHASES = ("set-up", "inputs", "first layer", "barrier", "product and layer", "pool", "barrier")
+K2_PHASES = ("set-up", "inputs", "g and first layer", "barrier", "recompute", "dz", "d_W", "share of dz·Wᵀ",
+             "barrier", "first layer's gradients", "d_points", "barrier", "slab")
+
+
+def _inputs(b: int, p: int, dtype, seed: int = 0):
+    """Flat-wire points for ``b`` contiguous events in ``p`` rows (a tenth of
+    the rows padding, segment ``b``) and the seeded 6 -> 256 -> 256 chain."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.multinomial(int(p * 0.9), np.ones(b) / b)
+    seg = np.full(p, b, dtype=np.int32)
+    seg[: sizes.sum()] = np.repeat(np.arange(b, dtype=np.int32), sizes)
+    points = rng.normal(size=(p, 6)).astype(np.float32)
+    params, last = [], 6
+    for width in (256, 256):
+        bound = last**-0.5
+        params.append(tuple(
+            torch.from_numpy(rng.uniform(-bound, bound, size=shape).astype(np.float32)).cuda()
+            for shape in ((last, width), (width,))
+        ))
+        last = width
+    return torch.from_numpy(points).cuda().to(dtype), torch.from_numpy(seg).cuda(), tuple(params)
+
+
+def _clocks(entry, n: int):
+    torch.cuda.synchronize()
+    out = (ctypes.c_longlong * 16)()
+    if entry(ctypes.addressof(out)) != 0:
+        raise RuntimeError("reading the phase clocks failed")
+    return list(out)[:n]
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("phase_clocks: torch.cuda.is_available() is false; this runs on a GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip()
+    native.enable_phase_clocks()
+    built = native.kernel_library()
+    print(f"build with {native.PHASE_CLOCKS_FLAG}: {built.path.name} in {built.build_seconds:.2f} s")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, b, p in SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            points, seg, params = _inputs(b, p, dtype)
+            g = torch.ones((b + 1, 256), device="cuda")
+            rows = []
+            phi_pool(points, seg, SPEC, params, "gelu", b + 1)
+            if phi_pool.variant == "sliced":
+                rows.append(("K1", K1_PHASES, _clocks(built.lib.pcc_phi_pool_phase_clocks, len(K1_PHASES))))
+            _phi_pool_bwd_cuda(points, seg, g, SPEC, params, "gelu", b + 1, with_points=False)
+            rows.append(("K2", K2_PHASES, _clocks(built.lib.pcc_phi_pool_bwd_phase_clocks, len(K2_PHASES))))
+            for kernel, phases, sums in rows:
+                print(f"phase clocks {kernel} {name} B={b} P={p} {str(dtype)[6:]}, block 0, one launch "
+                      f"({(p + 63) // 64} tiles over the grid's clusters, {sms} SMs): "
+                      + "; ".join(f"{ph} {c}" for ph, c in zip(phases, sums))
+                      + f"; total {sum(sums)} [{smi}]")
+
+
+if __name__ == "__main__":
+    main()

@@ -10,7 +10,8 @@ then ``accuracy/train``, ``accuracy/val`` and ``parameters`` in
 ``accuracy_score`` computes it.
 
 Not ported yet: the evaluation plots (``plots=True``, ROADMAP Queue 1 item
-16), and the command line (Queue 1 item 10): callers pass the config dict.
+16), and the command line (Queue 1 item 10): callers pass the config dict,
+or read one with ``utils.config.load_config``.
 """
 
 from __future__ import annotations
@@ -37,9 +38,12 @@ def train_model(
     config: dict,
     plots: bool = False,
     return_log_dir: bool = False,
+    device: str = None,
 ):
     """A whole training run (the JAX package's ``train_model``); mutates
-    ``config`` as it does."""
+    ``config`` as it does.  Runs on the card and raises where there is none,
+    unless ``device="cpu"``; ``config.yaml`` and ``meta.json`` are the same
+    bytes either way."""
     if plots:
         raise NotImplementedError(
             "evaluation plots are not ported yet (ROADMAP Queue 1 item 16)"
@@ -55,7 +59,7 @@ def train_model(
     config["meta"]["dataset_name"] = dataset_name
 
     dataloader = get_dataloader(dataset_name=dataset_name, config=config)
-    model = get_model(model_name=model_name, config=config)
+    model = get_model(model_name=model_name, config=config, device=device)
 
     train_loader = dataloader.get_train_loader()
     val_loader = dataloader.get_val_loader()
@@ -76,19 +80,20 @@ def train_model(
     return None
 
 
-def resume_training(model_dir: str, config: dict = None):
+def resume_training(model_dir: str, config: dict = None, device: str = None):
     """Continue an interrupted run in ``model_dir`` from its full state.
 
     Rebuilds the loaders and the model from the run's resolved config
-    (``config``, or else ``{model_dir}/config.yaml``, whose reading needs
-    PyYAML), restores the weights, optimizer state, epoch and early-stop
-    counters, and continues ``fit`` to the configured epoch count."""
+    (``config``, or else ``{model_dir}/config.yaml``, read without PyYAML),
+    restores the weights, optimizer state, epoch and early-stop counters, and
+    continues ``fit`` to the configured epoch count, on the card unless
+    ``device="cpu"``."""
     if config is None:
         config = load_config(os.path.join(model_dir, "config.yaml"))
     model_name = config["meta"]["model_name"]
     dataset_name = config["meta"]["dataset_name"]
     dataloader = get_dataloader(dataset_name=dataset_name, config=config)
-    model = get_model(model_name=model_name, config=config)
+    model = get_model(model_name=model_name, config=config, device=device)
     model.log_dir = model_dir
     model.checkpoint_path = os.path.join(model_dir, "best_model.pt")
 

@@ -177,6 +177,110 @@ def test_cuda_backward_launches_k2_and_never_the_plain_version(monkeypatch):
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for layer in params for t in layer)
 
 
+# Shapes that the 64-row, four-block tiling of the sliced variant puts at risk
+# (fewer points than a tile, a tile exactly, one over, two tiles) and chains
+# that only the general variant takes (other widths, a bare final linear).
+SHAPE_CASES = {
+    "p37": dict(p=37, b=3), "p64": dict(p=64, b=3), "p65": dict(p=65, b=3),
+    "p128": dict(p=128, b=5), "p1": dict(p=1, b=1), "w64": dict(width=64),
+    "w384": dict(width=384), "w512-p300": dict(width=512, p=300), "final": dict(final=True),
+}
+
+
+def _variant(case, dtype, backward):
+    """The DeepSets chain takes the sliced variant in K2 and in bf16 K1; f32
+    K1 and every other chain take the general one."""
+    general = "width" in SHAPE_CASES[case] or SHAPE_CASES[case].get("final", False)
+    if not backward and dtype == torch.float32:
+        general = True
+    return "general" if general else "sliced"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SHAPE_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_shapes_match_plain_and_take_their_variant(dtype, case):
+    dev = _cuda()
+    pts, seg, params, s = _inputs(dev, dtype, **SHAPE_CASES[case])
+    out = fused_phi.phi_pool(pts, seg, SPEC, params, "gelu", s)
+    torch.cuda.synchronize()
+    assert fused_phi.phi_pool.variant == _variant(case, dtype, False)
+    ref = fused_phi.phi_pool_plain(pts, seg, SPEC, params, "gelu", s)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= TOL[dtype] * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_points", [True, False], ids=["d_points", "no-d_points"])
+@pytest.mark.parametrize("case", list(SHAPE_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_kernel_shapes_match_plain_and_repeat_bit_for_bit(dtype, case, with_points):
+    dev = _cuda()
+    pts, seg, params, s = _inputs(dev, dtype, **SHAPE_CASES[case])
+    width = params[-1][0].shape[1]
+    g = torch.from_numpy(np.random.default_rng(1).normal(size=(s, width)).astype(np.float32)).to(dev)
+    runs = [
+        fused_phi._phi_pool_bwd_cuda(pts, seg, g, SPEC, params, "gelu", s, with_points=with_points)
+        for _ in range(2)
+    ]
+    torch.cuda.synchronize()
+    assert fused_phi.phi_pool.bwd_variant == _variant(case, dtype, True)
+    ref_points, ref_grads = fused_phi.phi_pool_bwd_plain(
+        pts, seg, g, SPEC, params, "gelu", s, with_points=with_points)
+    (d_points, grads), (d_points_2, grads_2) = runs
+    # every sum of K2 runs in a fixed order: two runs give the same bits
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_2, strict=True))
+    pairs = list(zip(grads, ref_grads, strict=True))
+    if with_points:
+        assert torch.equal(d_points, d_points_2)
+        pairs.append((d_points.float(), ref_points.float()))
+    for out, ref in pairs:
+        assert out.shape == ref.shape and torch.isfinite(out).all()
+        fro = (out - ref).norm().item() / max(ref.norm().item(), 1e-30)
+        if dtype == torch.float32:
+            assert (out - ref).abs().max().item() <= BWD_F32_REL * max(1.0, ref.abs().max().item())
+            assert fro <= BWD_F32_FRO
+        else:
+            assert fro <= BWD_BF16_FRO
+
+
+@pytest.mark.gpu
+def test_cuda_forward_launches_k1_and_never_the_plain_version(monkeypatch):
+    dev = _cuda()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain forward ran on a CUDA tensor")
+
+    monkeypatch.setattr(fused_phi, "phi_pool_plain", refuse)
+    # the sliced variant, then the general one by element type and by shape
+    for dtype, kwargs in ((torch.bfloat16, dict()), (torch.float32, dict()), (torch.float32, dict(width=64))):
+        pts, seg, params, s = _inputs(dev, dtype, **kwargs)
+        before = fused_phi.phi_pool.launches
+        out = fused_phi.phi_pool(pts, seg, SPEC, params, "gelu", s)
+        torch.cuda.synchronize()
+        assert fused_phi.phi_pool.launches == before + 1 and torch.isfinite(out).all()
+
+
+@pytest.mark.gpu
+def test_backward_allocates_no_per_point_activation():
+    """K2 keeps every [P, H] array on the chip: beyond its inputs, the call
+    allocates the gradients and one slab per block or cluster, nothing that
+    grows with P·H."""
+    dev = _cuda()
+    pts, seg, params, s = _inputs(dev, torch.float32, p=65536, b=255)
+    g = torch.ones(s, 256, device=dev)
+    fused_phi._phi_pool_bwd_cuda(pts, seg, g, SPEC, params, "gelu", s, with_points=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fused_phi._phi_pool_bwd_cuda(pts, seg, g, SPEC, params, "gelu", s, with_points=False)
+    torch.cuda.synchronize()
+    n_param = sum(w.numel() + b.numel() for w, b in params)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert torch.cuda.max_memory_allocated() - base <= 4 * n_param * (sms + 2) + (1 << 20)
+    assert 65536 * 256 * 4 > 4 * n_param * (sms + 2) + (1 << 20)  # one [P, H] f32 would not fit
+
+
 @pytest.mark.gpu
 def test_fit_step_kernel_route_matches_plain_route():
     from point_cloud_classifier_tpu_torch.models import ModelWrapper

@@ -1,4 +1,4 @@
-"""The GraphNet serving slice end to end: ``factory.get_model("graph_net")`` on
+"""The GraphNet serving slice end to end: ``factory.get_model("graph_net", device="cpu")`` on
 a JAX-format ``best_model.pt``, then ``predict`` over
 ``factory.get_dataloader("s2pg")``'s test loader on a seeded synthetic S2PG
 cache, against the JAX package's own ``get_model`` + ``predict`` on the same
@@ -90,7 +90,7 @@ def test_predict_matches_jax(data_dir, tmp_path, model):
     y_ref, p_ref = jax_factory.get_model("graph_net", cfg, str(tmp_path)).predict(
         jax_data.get_test_loader(), return_prob=True
     )
-    served = factory.get_model("graph_net", cfg, str(tmp_path))
+    served = factory.get_model("graph_net", cfg, str(tmp_path), device="cpu")
     assert served.device.type == "cpu"
     launches = gat.gat_attention.launches
     y, p = served.predict(port_data.get_test_loader(), return_prob=True)
@@ -108,7 +108,7 @@ def test_fit_and_train_step_train_graph_net(data_dir, model):
     is in test_torch_graph_train.py): the loss is finite, every parameter
     gets a gradient, and the running statistics move."""
     cfg = _config(data_dir, **model)
-    wrapper = factory.get_model("graph_net", cfg)
+    wrapper = factory.get_model("graph_net", cfg, device="cpu")
     loader = factory.get_dataloader("s2pg", cfg).get_train_loader()
     before = {k: v.clone() for k, v in wrapper.model.state_dict().items()}
     loss = wrapper.train_step(next(iter(loader)))
@@ -155,7 +155,7 @@ def test_dataloader_gates_for_unported_configs_raise(data_dir, model, dataset, m
         assert value == getattr(jax_data, {"layout": "graph_layout"}.get(key, key)), key
     with pytest.raises(NotImplementedError, match=match):
         batches = list(data.get_test_loader())
-        factory.get_model("graph_net", cfg).predict(batches)
+        factory.get_model("graph_net", cfg, device="cpu").predict(batches)
 
 
 def test_weighted_gat_config_sets_the_jax_gates(data_dir):

@@ -87,7 +87,7 @@ def test_fit_matches_jax_fit(data_dir, tmp_path, capsys, name):
     port_cfg = _config(data_dir, tmp_path / "port", name, optimizer=optimizer, state_every=0)
     jax_cfg = _config(data_dir, tmp_path / "jax", name, optimizer=optimizer, state_every=0)
 
-    port = factory.get_model("graph_net", port_cfg)
+    port = factory.get_model("graph_net", port_cfg, device="cpu")
     ref = jax_factory.get_model("graph_net", jax_cfg)
     params, stats = convert.convert_torch_state_dict("graph_net", port_cfg, port.model.state_dict())
     ref.params = jax.tree.map(jnp.asarray, params)  # the JAX fit takes assigned params
@@ -139,7 +139,7 @@ def test_fit_matches_jax_fit(data_dir, tmp_path, capsys, name):
 
 def test_train_model_end_to_end(data_dir, tmp_path):
     cfg = _config(data_dir, tmp_path / "log", "gat")
-    log_dir = port_train.train_model("graph_net", "S2PG", copy.deepcopy(cfg), return_log_dir=True)
+    log_dir = port_train.train_model("graph_net", "S2PG", copy.deepcopy(cfg), return_log_dir=True, device="cpu")
     jax_cfg = _config(data_dir, tmp_path / "jax", "gat", state_every=0)
     jax_dir = jax_train.train_model("graph_net", "s2pg", jax_cfg, return_log_dir=True)
 
@@ -164,11 +164,11 @@ def test_train_model_end_to_end(data_dir, tmp_path):
     assert sorted(os.listdir(os.path.join(log_dir, "state"))) == ["state.pt", "trainer_state.json"]
 
     # model.pt holds the weights and running statistics that gave meta's accuracy/val
-    final = factory.get_model("graph_net", cfg)
+    final = factory.get_model("graph_net", cfg, device="cpu")
     final.load(os.path.join(log_dir, "model.pt"))
     y, pred = final.predict(factory.get_dataloader("s2pg", cfg).get_val_loader())
     assert round(port_train.accuracy(y, pred), 6) == meta["metrics"]["accuracy/val"]
-    best = factory.get_model("graph_net", cfg, log_dir)  # best_model.pt
+    best = factory.get_model("graph_net", cfg, log_dir, device="cpu")  # best_model.pt
     _, p_best = best.predict(factory.get_dataloader("s2pg", cfg).get_val_loader(), return_prob=True)
     assert np.isfinite(p_best).all()
 
@@ -178,20 +178,20 @@ def test_resume_training_continues_a_run(data_dir, tmp_path, name):
     """The resumable state carries the weights and the running statistics of
     the epoch it was written at, and ``resume_training`` trains on from it."""
     cfg = _config(data_dir, tmp_path / "log", name, epochs=1)
-    log_dir = port_train.train_model("graph_net", "s2pg", cfg, return_log_dir=True)
+    log_dir = port_train.train_model("graph_net", "s2pg", cfg, return_log_dir=True, device="cpu")
     final = torch.load(os.path.join(log_dir, "model.pt"), weights_only=True)
-    restored = factory.get_model("graph_net", cfg)  # train_model rewrote log_dir to the run's
+    restored = factory.get_model("graph_net", cfg, device="cpu")  # train_model rewrote log_dir to the run's
     assert not torch.equal(restored.model.state_dict()["bn1.running_mean"], final["bn1.running_mean"])
     assert restored.restore_state() == 1
     for key, value in restored.model.state_dict().items():
         assert torch.equal(value, final[key]), key
 
     cfg["trainer"]["epochs"] = 3
-    resumed = port_train.resume_training(log_dir, cfg)
+    resumed = port_train.resume_training(log_dir, cfg, device="cpu")
     assert len(_metrics(log_dir)["Loss/train"]) == 3  # epoch 1, then 2 and 3
     with open(os.path.join(log_dir, "state", "trainer_state.json")) as f:
         assert json.load(f)["epoch"] == 2
-    reloaded = factory.get_model("graph_net", cfg)
+    reloaded = factory.get_model("graph_net", cfg, device="cpu")
     reloaded.load(os.path.join(log_dir, "model.pt"))
     for key, value in resumed.model.state_dict().items():
         assert torch.equal(reloaded.model.state_dict()[key], value), key

@@ -279,7 +279,7 @@ def test_factory_chooses_the_layout_the_jax_factory_chooses(data_dir, pinned):
     assert ("src" in batch) == (pinned != "auto")
     if pinned == "auto":
         with pytest.raises(ValueError, match="for knn_k"):
-            factory.get_model("graph_net", cfg).predict([batch])
+            factory.get_model("graph_net", cfg, device="cpu").predict([batch])
 
 
 @pytest.mark.parametrize("local_pooling", ["add", "mean"])
@@ -299,7 +299,7 @@ def test_predict_matches_jax(data_dir, tmp_path, local_pooling):
 
     y_ref, p_ref = jax_factory.get_model("graph_net", cfg, str(tmp_path)).predict(
         jax_data.get_test_loader(), return_prob=True)
-    served = factory.get_model("graph_net", cfg, str(tmp_path))
+    served = factory.get_model("graph_net", cfg, str(tmp_path), device="cpu")
     assert served.device.type == "cpu"
     # the model builds its own edges: the wrapper leaves the batch's on the host
     assert sorted(served._put(port_batches[0])) == ["node_seg", "nodes", "y", "y_mask"]
@@ -317,7 +317,7 @@ def test_predict_matches_jax(data_dir, tmp_path, local_pooling):
 def test_fit_matches_jax_fit(data_dir, tmp_path, local_pooling):
     port_cfg = _config(data_dir, tmp_path / "port", local_pooling=local_pooling, state_every=0)
     jax_cfg = _config(data_dir, tmp_path / "jax", local_pooling=local_pooling, state_every=0)
-    port = factory.get_model("graph_net", port_cfg)
+    port = factory.get_model("graph_net", port_cfg, device="cpu")
     ref = jax_factory.get_model("graph_net", jax_cfg)
     params, stats = convert.convert_torch_state_dict("graph_net", port_cfg, port.model.state_dict())
     ref.params = jax.tree.map(jnp.asarray, params)  # the JAX fit takes assigned params
@@ -350,7 +350,7 @@ def test_fit_matches_jax_fit(data_dir, tmp_path, local_pooling):
 def test_train_model_and_resume_training(data_dir, tmp_path):
     cfg = _config(data_dir, tmp_path / "log", epochs=1)
     # train_model writes the run's names and directory into cfg
-    log_dir = port_train.train_model("graph_net", "s2pg", cfg, return_log_dir=True)
+    log_dir = port_train.train_model("graph_net", "s2pg", cfg, return_log_dir=True, device="cpu")
     assert log_dir == str(tmp_path / "log" / "version_0")
     with open(os.path.join(log_dir, "meta.json")) as f:
         meta = json.load(f)
@@ -363,13 +363,13 @@ def test_train_model_and_resume_training(data_dir, tmp_path):
     assert {"conv1.lin_rel.weight", "conv2.lin_root.weight", "bn1.running_mean"} <= set(final)
 
     # model.pt holds the weights and running statistics that gave meta's accuracy/val
-    reloaded = factory.get_model("graph_net", cfg)
+    reloaded = factory.get_model("graph_net", cfg, device="cpu")
     reloaded.load(os.path.join(log_dir, "model.pt"))
     y, pred = reloaded.predict(factory.get_dataloader("s2pg", cfg).get_val_loader())
     assert round(port_train.accuracy(y, pred), 6) == meta["metrics"]["accuracy/val"]
 
     cfg["trainer"]["epochs"] = 3
-    resumed = port_train.resume_training(log_dir, cfg)
+    resumed = port_train.resume_training(log_dir, cfg, device="cpu")
     assert len(_metrics(log_dir)["Loss/train"]) == 3  # epoch 1, then 2 and 3
     for key, value in resumed.model.state_dict().items():
         if not key.endswith("num_batches_tracked"):

@@ -53,6 +53,47 @@ def test_build_compiles_each_source_then_links(fake_nvcc):
     assert sorted(os.listdir(target.parent)) == ["libk.so"]  # objects removed
 
 
+def test_every_nvcc_call_gets_the_flags_extra_ones_included(fake_nvcc):
+    """The flags ``_build`` is given reach every compile and the link: with
+    ``PHASE_CLOCKS_FLAG`` the sliced K1 and K2 are built with their per-phase
+    clocks."""
+    flags = (*native.NVCC_FLAGS, native.PHASE_CLOCKS_FLAG)
+    native._build(_sources(fake_nvcc, "a.cu", "b.cu"), fake_nvcc / "build" / "libk.so", flags)
+    calls = (fake_nvcc / "calls.log").read_text().splitlines()
+    assert len(calls) == 3
+    for call in calls:
+        assert "arch=compute_90a,code=sm_90a" in call and "-std=c++17" in call
+        assert "-DPCC_PHASE_CLOCKS" in call
+
+
+def test_phase_clocks_are_asked_for_in_code_and_not_by_the_environment(fake_nvcc, monkeypatch):
+    """``enable_phase_clocks()`` adds the one flag to the build and to the
+    library's name; no environment variable reaches nvcc's command line."""
+    monkeypatch.setenv("PCC_NVCC_FLAGS", "-lineinfo")
+    monkeypatch.setattr(native, "_phase_clocks", False)
+    built = []
+
+    class Stop(Exception):
+        pass
+
+    def record(sources, target, flags):
+        built.append((target.name, flags))
+        raise Stop
+
+    monkeypatch.setattr(native, "_build", record)
+    for enable in (False, True):
+        native.kernel_library.cache_clear()
+        if enable:
+            native.enable_phase_clocks()
+        with pytest.raises(Stop):
+            native.kernel_library()
+    native.kernel_library.cache_clear()
+    (plain_name, plain_flags), (clock_name, clock_flags) = built
+    assert plain_flags == native.NVCC_FLAGS and "-lineinfo" not in plain_flags
+    assert clock_flags == (*native.NVCC_FLAGS, native.PHASE_CLOCKS_FLAG)
+    assert plain_name != clock_name
+
+
 def test_build_raises_on_a_failed_compile(fake_nvcc):
     sources = _sources(fake_nvcc, "a.cu", "bad.cu")
     target = fake_nvcc / "build" / "libk.so"

@@ -80,7 +80,7 @@ def test_fit_matches_jax_fit(data_dir, capsys, optimizer):
     port_cfg["logging"]["log_dir"] = str(tmp / "port")
     jax_cfg["logging"]["log_dir"] = str(tmp / "jax")
 
-    port = factory.get_model("deep_sets", port_cfg)
+    port = factory.get_model("deep_sets", port_cfg, device="cpu")
     ref = jax_factory.get_model("deep_sets", jax_cfg)
     params, _ = convert.convert_torch_state_dict("deep_sets", cfg, port.model.state_dict())
     ref.params = jax.tree.map(jnp.asarray, params)  # the JAX fit takes assigned params
@@ -151,7 +151,7 @@ def test_training_logger_meta_json_byte_identical(tmp_path):
 def test_train_model_end_to_end(data_dir):
     tmp = data_dir
     cfg = _config(tmp)
-    log_dir = port_train.train_model("deep_sets", "S2PPC", copy.deepcopy(cfg), return_log_dir=True)
+    log_dir = port_train.train_model("deep_sets", "S2PPC", copy.deepcopy(cfg), return_log_dir=True, device="cpu")
     jax_cfg = _config(tmp, state_every=0)
     jax_cfg["logging"]["log_dir"] = str(tmp / "jax")
     jax_dir = jax_train.train_model("deep_sets", "s2ppc", jax_cfg, return_log_dir=True)
@@ -173,8 +173,8 @@ def test_train_model_end_to_end(data_dir):
         written = f.read()
     assert "model_name: deep_sets" in written and "dataset_name: s2ppc" in written
 
-    trained = factory.get_model("deep_sets", cfg, log_dir)  # best_model.pt
-    final = factory.get_model("deep_sets", cfg)
+    trained = factory.get_model("deep_sets", cfg, log_dir, device="cpu")  # best_model.pt
+    final = factory.get_model("deep_sets", cfg, device="cpu")
     final.load(os.path.join(log_dir, "model.pt"))
     loader = factory.get_dataloader("s2ppc", cfg).get_val_loader()
     _, p_best = trained.predict(loader, return_prob=True)
@@ -186,20 +186,20 @@ def test_train_model_end_to_end(data_dir):
 @pytest.mark.parametrize("from_yaml", [False, True], ids=["config-dict", "config-yaml"])
 def test_resume_training_continues_a_run(data_dir, from_yaml):
     cfg = _config(data_dir, epochs=1)
-    log_dir = port_train.train_model("deep_sets", "s2ppc", cfg, return_log_dir=True)
+    log_dir = port_train.train_model("deep_sets", "s2ppc", cfg, return_log_dir=True, device="cpu")
     if from_yaml:  # the run's config.yaml, read back with PyYAML
         with open(os.path.join(log_dir, "config.yaml")) as f:
             text = f.read()
         with open(os.path.join(log_dir, "config.yaml"), "w") as f:
             f.write(text.replace("epochs: 1", "epochs: 3"))
-        model = port_train.resume_training(log_dir)
+        model = port_train.resume_training(log_dir, device="cpu")
     else:
         cfg["trainer"]["epochs"] = 3  # train_model rewrote log_dir to the run's
-        model = port_train.resume_training(log_dir, cfg)
+        model = port_train.resume_training(log_dir, cfg, device="cpu")
     assert len(_metrics(log_dir)["Loss/train"]) == 3  # epoch 1, then 2 and 3
     with open(os.path.join(log_dir, "state", "trainer_state.json")) as f:
         assert json.load(f)["epoch"] == 2
-    reloaded = factory.get_model("deep_sets", cfg)
+    reloaded = factory.get_model("deep_sets", cfg, device="cpu")
     reloaded.load(os.path.join(log_dir, "model.pt"))
     for key, value in model.model.state_dict().items():
         assert torch.equal(reloaded.model.state_dict()[key], value)
@@ -215,13 +215,13 @@ def _flat_loaders(seed=0, n=40, batch=8):
 
 def test_resume_restores_weights_optimizer_and_counters(tmp_path):
     train, val = _flat_loaders()
-    straight = factory.get_model("deep_sets", _config(tmp_path / "a", epochs=3))
+    straight = factory.get_model("deep_sets", _config(tmp_path / "a", epochs=3), device="cpu")
     straight.fit(train, val)
 
-    first = factory.get_model("deep_sets", _config(tmp_path / "b", epochs=2))
+    first = factory.get_model("deep_sets", _config(tmp_path / "b", epochs=2), device="cpu")
     first.log_dir = str(tmp_path / "run")
     first.fit(train, val)
-    resumed = factory.get_model("deep_sets", _config(tmp_path / "b", epochs=3, seed=7))
+    resumed = factory.get_model("deep_sets", _config(tmp_path / "b", epochs=3, seed=7), device="cpu")
     resumed.log_dir = str(tmp_path / "run")
     assert resumed.restore_state() == 2
     for key, value in first.model.state_dict().items():
@@ -234,7 +234,7 @@ def test_resume_restores_weights_optimizer_and_counters(tmp_path):
     assert (resumed.best_val_loss, resumed.early_stop_counter) == (
         first.best_val_loss, first.early_stop_counter)
 
-    resumed = factory.get_model("deep_sets", _config(tmp_path / "b", epochs=3, seed=7))
+    resumed = factory.get_model("deep_sets", _config(tmp_path / "b", epochs=3, seed=7), device="cpu")
     resumed.log_dir = str(tmp_path / "run")
     resumed.fit(train, val, resume=True)
     for key, value in straight.model.state_dict().items():
@@ -249,7 +249,7 @@ def test_non_finite_loss_raises(tmp_path):
     events = [rng.normal(size=(5, 6)).astype(np.float32) for _ in range(8)]
     events[3][0, 0] = np.nan
     loader = PointCloudLoader(events, np.zeros(8), 4, shuffle=False)
-    model = factory.get_model("deep_sets", _config(tmp_path))
+    model = factory.get_model("deep_sets", _config(tmp_path), device="cpu")
     with pytest.raises(FloatingPointError, match="Non-finite training loss .* at epoch 1; last good"):
         model.fit(loader, loader)
     assert _metrics(tmp_path / "log")["Loss/train"][0] != _metrics(tmp_path / "log")["Loss/train"][0]
@@ -273,15 +273,15 @@ def test_non_finite_loss_raises(tmp_path):
          "PCC_DATA_PARALLEL", "n_model", "PCC_N_MODEL", "mesh", "PCC_TB_HISTOGRAMS"],
 )
 def test_unported_trainer_options_raise(monkeypatch, tmp_path, kwargs, env):
-    model = factory.get_model("deep_sets", _config(tmp_path)).model
+    model = factory.get_model("deep_sets", _config(tmp_path), device="cpu").model
     for name, value in env.items():
         monkeypatch.setenv(name, value)
     with pytest.raises(NotImplementedError, match="not ported"):
-        ModelWrapper(model, learning_rate=1e-3, epochs=1, **kwargs)
+        ModelWrapper(model, learning_rate=1e-3, epochs=1, **kwargs, device="cpu")
 
 
 def test_unported_train_model_options_raise(data_dir):
     with pytest.raises(NotImplementedError, match="plots"):
-        port_train.train_model("deep_sets", "s2ppc", _config(data_dir), plots=True)
+        port_train.train_model("deep_sets", "s2ppc", _config(data_dir), plots=True, device="cpu")
     with pytest.raises(ValueError, match="optimizer"):
-        factory.get_model("deep_sets", _config(data_dir, optimizer="sgd"))
+        factory.get_model("deep_sets", _config(data_dir, optimizer="sgd"), device="cpu")

@@ -63,7 +63,7 @@ def test_predict_matches_jax(tmp_path, pooling, seg_encoding):
     y_ref, p_ref = jax_factory.get_model("deep_sets", cfg, str(tmp_path)).predict(
         JaxLoader(events, labels, **kw), return_prob=True
     )
-    model = factory.get_model("deep_sets", cfg, str(tmp_path))
+    model = factory.get_model("deep_sets", cfg, str(tmp_path), device="cpu")
     assert model.device.type == "cpu"
     launches = fused_phi.phi_pool.launches
     y, p = model.predict(PointCloudLoader(events, labels, **kw), return_prob=True)
@@ -80,9 +80,9 @@ def test_port_state_dict_checkpoint_loads(tmp_path):
     jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
     jax_dir.mkdir(), port_dir.mkdir()
     _write_jax_checkpoint(jax_dir, cfg, seed=5)
-    from_jax = factory.get_model("deep_sets", cfg, str(jax_dir))
+    from_jax = factory.get_model("deep_sets", cfg, str(jax_dir), device="cpu")
     torch.save(from_jax.model.state_dict(), port_dir / "best_model.pt")
-    from_port = factory.get_model("deep_sets", cfg, str(port_dir))
+    from_port = factory.get_model("deep_sets", cfg, str(port_dir), device="cpu")
     events, labels = _clouds()
     _, p1 = from_jax.predict(PointCloudLoader(events, labels, 8, shuffle=False), return_prob=True)
     _, p2 = from_port.predict(PointCloudLoader(events, labels, 8, shuffle=False), return_prob=True)
@@ -93,13 +93,13 @@ def test_get_model_errors(tmp_path):
     cfg = _config()
     for name in ("logistic_regression", "fully_connected_net"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            factory.get_model(name, cfg)
+            factory.get_model(name, cfg, device="cpu")
     sag = {**cfg, "model": dict(input_dim=4, hidden_dim=8, output_dim=1, activation="tanh", sag_pool=True)}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory.get_model("graph_net", sag)
+        factory.get_model("graph_net", sag, device="cpu")
     with pytest.raises(ValueError):
-        factory.get_model("transformer", cfg)
+        factory.get_model("transformer", cfg, device="cpu")
     with pytest.raises(FileNotFoundError):
-        factory.get_model("deep_sets", cfg, str(tmp_path))
+        factory.get_model("deep_sets", cfg, str(tmp_path), device="cpu")
     with pytest.raises(ValueError, match="no batches"):
-        factory.get_model("deep_sets", cfg).predict([])
+        factory.get_model("deep_sets", cfg, device="cpu").predict([])
