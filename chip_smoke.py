@@ -53,8 +53,11 @@ result):
    trace of the B=256 GAT predict (the device's idle share);
 11. GAT backward kernel against plain: the backward of ``gat_attention``
    (kernel K4) against ``gat_attention_bwd_plain`` at K3's seven cases, f32
-   and bf16, each of ``ds_dst``, ``ds_src`` and ``dxw``; then K4 twice on
-   the flagship inputs: the spread its f32 atomics leave between two runs;
+   and bf16, each of ``ds_dst``, ``ds_src`` and ``dxw``; at every case the
+   mirror of the in-row lists (``gat_out_rows``) against its plain version,
+   exactly, and K4 with a mirror handed in against K4 building its own, bit
+   for bit; then K4 twice on the flagship inputs: all three gradients
+   ``torch.equal`` (every sum is a gather in a fixed order);
 12. in-row aggregation kernel against plain: ``inrow_aggregate`` (kernel K6)
    against ``inrow_aggregate_plain``, forward and backward (the Function
    over the out-row lists), add and mean, f32 and bf16, at the config batch
@@ -78,21 +81,27 @@ result):
    the config batch (32 graphs, N=8,192, widths 128 and 4), a ragged N that
    is no power of two, graphs of fewer than k + 1 nodes, positions on a
    coarse grid (exact ties, degrees over k), a long padding tail, and the
-   flagship N=65,536 against the row-blocked plain version; each row's
-   threshold and degree must equal the plain version's exactly;
+   flagship N=65,536 against the row-blocked plain version; at every case
+   the selection (``knn_select``: ranges, points, thresholds, degrees)
+   against ``knn_select_plain``, exactly, and
+   ``knn_aggregate`` with a plan against without, bit for bit;
 16. kNN serving slice: ``GraphNet(knn_k=8)``, GraphConv add and mean, through
    ``factory.get_model("graph_net", cfg, run_dir)`` on a JAX-format
    ``best_model.pt`` with ``DenseGraphConv_*`` keys, then ``predict`` over
    the flat-wire test loader of ``factory.get_dataloader("s2pg", cfg)``, held
-   against the plain route, with K5's launch count (2 per batch);
+   against the plain route, with K5's launch counts (1 selection and 2
+   aggregations per batch);
 17. kNN training slice: ``train.train_model("graph_net", "s2pg", cfg)`` with
    ``model.knn_k: 8`` for 3 epochs, add and mean, with K5's launch counts
-   forward and backward, the losses, the val accuracy and the checkpoints
+   (per forward 1 selection and 2 aggregations, per backward 1 aggregation),
+   the losses, the val accuracy and the checkpoints
    checked; five steps of the kernel route against the plain route; and
    ``resume_training(log_dir)`` for one more epoch, from the run's
    ``config.yaml`` alone;
-18. kNN times: K5 forward and backward against the plain versions at N=8,192
-   and N=65,536; ``predict`` and the train step per batch on the K5 route,
+18. kNN times: K5's selection, its aggregation given a
+   plan forward and backward (also at width 4, conv1's input), and both in one
+   call against the plain versions at N=8,192 and N=65,536; ``predict`` and
+   the train step per batch on the K5 route,
    the plain route and the lineage-graph GraphConv routes; packing a flat
    batch; and a ``torch.profiler`` trace of the B=256 f32 kNN train step.
 
@@ -139,10 +148,13 @@ from point_cloud_classifier_tpu_torch.ops.fused_phi import (
 )
 from point_cloud_classifier_tpu_torch.ops.gat import (
     _gat_attention_bwd_cuda,
+    _gat_out_rows_cuda,
     adjacency_mask,
     gat_attention,
     gat_attention_bwd_plain,
     gat_attention_plain,
+    gat_out_rows,
+    gat_out_rows_plain,
 )
 from point_cloud_classifier_tpu_torch.ops.inrow_graph import (
     _inrow_aggregate_cuda,
@@ -155,8 +167,8 @@ from point_cloud_classifier_tpu_torch.ops.knn import (
     knn_aggregate,
     knn_aggregate_bwd_plain,
     knn_aggregate_plain,
-    knn_degree_plain,
-    segment_ranges,
+    knn_select,
+    knn_select_plain,
 )
 
 SEED = 0
@@ -261,8 +273,9 @@ GAT_HEADS, GAT_C = 4, 128
 GAT_F32_REL, GAT_BF16_REL, GAT_BF16_FRO = 1e-6, 8e-3, 1e-3
 # K4 against gat_attention_bwd_plain, per gradient (ds_dst, ds_src, dxw): max
 # |Δ| / max(1, max |plain|) and the relative Frobenius distance.  f32: the
-# same f32 math; the dots, the softmax sums and K4's atomic adds run in other
-# orders (and in an order that changes from run to run).  bf16: dα and α are
+# same f32 math; the dots, the softmax sums and K4's sums over a source's
+# destinations run in other orders than a matrix product's (K4's own order is
+# fixed: two runs give the same bits).  bf16: dα and α are
 # rounded to bf16 on both sides, so a dot summed in another order can land on
 # the neighbouring bf16 value (2^-8 relative), which the softmax backward
 # carries into the score gradients; the bf16 bounds allow two such steps.  The
@@ -308,16 +321,18 @@ KNN_VAL_ACC_FLOOR = {"add": 0.53, "mean": 0.70}
 def reset_launch_counts() -> None:
     """Every kernel wrapper's launch count to 0, just before a path runs."""
     phi_pool.launches = phi_pool.bwd_launches = 0
-    gat_attention.launches = gat_attention.bwd_launches = 0
+    gat_attention.launches = gat_attention.bwd_launches = gat_out_rows.launches = 0
     inrow_aggregate.launches = inrow_aggregate.bwd_launches = 0
-    knn_aggregate.launches = knn_aggregate.bwd_launches = 0
+    knn_aggregate.launches = knn_aggregate.bwd_launches = knn_select.launches = 0
 
 
 def launch_counts() -> dict:
     return {"phi_pool": phi_pool.launches, "phi_pool_bwd": phi_pool.bwd_launches,
             "gat_attention": gat_attention.launches, "gat_attention_bwd": gat_attention.bwd_launches,
+            "gat_out_rows": gat_out_rows.launches,
             "inrow_aggregate": inrow_aggregate.launches,
             "inrow_aggregate backward": inrow_aggregate.bwd_launches,
+            "knn_select": knn_select.launches,
             "knn_aggregate": knn_aggregate.launches,
             "knn_aggregate backward": knn_aggregate.bwd_launches}
 
@@ -846,9 +861,15 @@ def profile_train_steps(smi: str, label: str, wrapper, batches) -> None:
         return
     n = len(batches)
     top = "; ".join(f"{e.key[:64]} {_device_us(e) / 1e3 / n:.4f} ms x{e.count / n:g}" for e in items[:8])
+    # the package's own kernels (csrc/ keeps them in anonymous namespaces),
+    # whatever their rank
+    marker = "(anonymous namespace)::"
+    own = "; ".join(f"{e.key.split(marker, 1)[1].split('(')[0]} {_device_us(e) / 1e3 / n:.4f} ms x{e.count / n:g}"
+                    for e in items if e.key.startswith(f"void {marker}"))
     print(f"profile train step {label}, {n} steps under torch.profiler: device busy "
           f"{busy_ms / n:.4f} ms/step of {wall_ms / n:.4f} ms/step wall, idle share "
-          f"{1 - busy_ms / wall_ms:.3f}; top device items per step: {top} [{smi}]")
+          f"{1 - busy_ms / wall_ms:.3f}; top device items per step: {top}; the package's kernels per "
+          f"step: {own or 'none'} [{smi}]")
 
 
 def profile_phase(smi: str) -> None:
@@ -1105,14 +1126,30 @@ def gat_bwd_kernel_phase():
             g = torch.from_numpy(
                 np.random.default_rng(SEED + 5).normal(size=tuple(args[-1].shape)).astype(np.float32)
             ).to(args[-1].device, dtype)
-            # through the autograd Function, as the main path reaches K4
+            # the mirror of the lists against its plain version, exactly
             s_dst, s_src, in_src, in_w, xw = args
+            before = (gat_attention.bwd_launches, gat_out_rows.launches)
+            mirror = gat_out_rows(in_src, in_w)
+            torch.cuda.synchronize()
+            if gat_out_rows.launches != before[1] + 1:
+                raise AssertionError(f"K4 {case} {dtype}: gat_out_rows did not launch the mirror kernel")
+            for name, got, want in zip(("out_off", "out_dst"), mirror, gat_out_rows_plain(in_src, in_w)):
+                if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+                    raise AssertionError(f"K4 {case} {dtype}: the mirror's {name} differs from the plain version's")
+            # through the autograd Function, as the main path reaches K4: with
+            # the mirror handed in, as GraphNet does
             leaves = [t.clone().requires_grad_() for t in (s_dst, s_src, xw)]
-            before = gat_attention.bwd_launches
-            out = gat_attention(leaves[0], leaves[1], in_src, in_w, leaves[2])
+            out = gat_attention(leaves[0], leaves[1], in_src, in_w, leaves[2], mirror=mirror)
             got = torch.autograd.grad(out, leaves, g)
-            if gat_attention.bwd_launches != before + 1:
-                raise AssertionError(f"K4 {case} {dtype}: the Function's backward did not launch K4")
+            if (gat_attention.bwd_launches, gat_out_rows.launches) != (before[0] + 1, before[1] + 1):
+                raise AssertionError(f"K4 {case} {dtype}: the Function's backward did not launch K4 once "
+                                     f"and read the mirror it was given")
+            # and building its own: one more mirror, the same bits
+            own = torch.autograd.grad(gat_attention(leaves[0], leaves[1], in_src, in_w, leaves[2]), leaves, g)
+            if (gat_attention.bwd_launches, gat_out_rows.launches) != (before[0] + 2, before[1] + 2):
+                raise AssertionError(f"K4 {case} {dtype}: the Function's backward built no mirror of its own")
+            if not all(torch.equal(a, b) for a, b in zip(got, own)):
+                raise AssertionError(f"K4 {case} {dtype}: a mirror handed in changes the gradients")
             # one gradient asked for alone comes back in its own place
             (only_src,) = torch.autograd.grad(
                 gat_attention(s_dst, leaves[1], in_src, in_w, xw), leaves[1], g)
@@ -1135,32 +1172,31 @@ def gat_bwd_kernel_phase():
             if "isolated" in case and got[0][:, :9].abs().max().item() != 0.0:
                 raise AssertionError(f"K4 {case}: a node that attends to itself only has a ds_dst")
             print(f"kernel K4 {case} B,M,D={tuple(args[2].shape)} xw {str(dtype)[6:]}: "
-                  f"{'; '.join(readings)} (max_rel bound {rel_bound:.0e}, rel_fro bound {fro_bound:.0e})")
+                  f"{'; '.join(readings)} (max_rel bound {rel_bound:.0e}, rel_fro bound {fro_bound:.0e}); "
+                  f"mirror equal to its plain version, {int(mirror.out_off[:, -1].sum())} edges")
             if (case, dtype) == ("config B=32", torch.float32):
                 config_err = worst
-    gat_bwd_spread_phase()
+    gat_bwd_repeat_phase()
     return config_err
 
 
-def gat_bwd_spread_phase() -> None:
-    """K4 twice on the same flagship f32 inputs: ``ds_src`` and ``dxw`` are
-    summed with f32 ``atomicAdd`` in an order that changes from run to run,
-    so their low bits do; the largest difference between two runs, relative
-    to max(1, max |gradient|), is held under K4's own f32 bound against the
-    plain version."""
-    args = gat_inputs("flagship B=256 M=256", torch.float32)
-    g = torch.from_numpy(
-        np.random.default_rng(SEED + 5).normal(size=tuple(args[-1].shape)).astype(np.float32)
-    ).cuda()
-    first = _gat_attention_bwd_cuda(*args, g)
-    second = _gat_attention_bwd_cuda(*args, g)
-    torch.cuda.synchronize()
-    spread = {name: _errors(a, b)[1] for name, a, b in zip(("ds_dst", "ds_src", "dxw"), first, second)}
-    print(f"kernel K4 run to run, flagship B=256 M=256 f32, two runs on the same inputs: largest "
-          f"relative difference {', '.join(f'{k} {v:.3e}' for k, v in spread.items())} "
-          f"(bound {GAT_BWD_F32_REL:.0e}, K4's own against the plain version)")
-    if not max(spread.values()) <= GAT_BWD_F32_REL:
-        raise AssertionError(f"K4's run-to-run spread {spread} exceeds its f32 bound")
+def gat_bwd_repeat_phase() -> None:
+    """K4 twice on the same flagship inputs, f32 and bf16, each run building
+    its own mirror: every gradient is a gather summed in a fixed order, so
+    all three must be equal bit for bit."""
+    for dtype in (torch.float32, torch.bfloat16):
+        args = gat_inputs("flagship B=256 M=256", dtype)
+        g = torch.from_numpy(
+            np.random.default_rng(SEED + 5).normal(size=tuple(args[-1].shape)).astype(np.float32)
+        ).to("cuda", dtype)
+        first = _gat_attention_bwd_cuda(*args, g)
+        second = _gat_attention_bwd_cuda(*args, g)
+        torch.cuda.synchronize()
+        same = {name: torch.equal(a, b) for name, a, b in zip(("ds_dst", "ds_src", "dxw"), first, second)}
+        print(f"kernel K4 run to run, flagship B=256 M=256 {str(dtype)[6:]}, two runs on the same inputs: "
+              f"torch.equal {same}")
+        if not all(same.values()):
+            raise AssertionError(f"K4 is not bit-equal from run to run: {same}")
 
 
 def _out_rows(in_src, in_w):
@@ -1351,11 +1387,13 @@ def graph_train_phase(work_dir: str) -> dict:
         cfg = graph_training_config(data_dir, os.path.join(work_dir, "graph_log"), epochs, **model)
         steps, evals, meta, counts = train_graph_arm(name, cfg)
         # per forward two convolutions; K4 once per K3 of a train step (both
-        # xw depend on weights); K6's backward once per train step (conv1's
-        # input is the batch's features, which need no gradient)
+        # xw depend on weights), both over one mirror of the batch's lists;
+        # K6's backward once per train step (conv1's input is the batch's
+        # features, which need no gradient)
         want = dict.fromkeys(counts, 0)
         if model.get("use_gat"):
-            want.update({"gat_attention": 2 * (steps + evals), "gat_attention_bwd": 2 * steps})
+            want.update({"gat_attention": 2 * (steps + evals), "gat_attention_bwd": 2 * steps,
+                         "gat_out_rows": steps})
         elif model.get("fused_inrow"):
             want.update({"inrow_aggregate": 2 * (steps + evals), "inrow_aggregate backward": steps})
         print(f"graph train {name}: {steps} train steps, {evals} eval batches; launches {counts} "
@@ -1454,22 +1492,29 @@ def graph_train_times_phase(smi: str):
             args = gat_inputs(case, dtype)
             g = torch.randn(args[-1].shape, device="cuda").to(dtype)
             plain_ms = cuda_ms(lambda: gat_attention_bwd_plain(*args, g))
-            # K4's wrapper alone, and as the Function's backward (the forward's
-            # graph is kept), which adds the autograd engine's host time
+            # the mirror, once per batch; K4's wrapper alone over it (its two
+            # stages); as the Function's backward over it (the forward's graph
+            # is kept), which adds the autograd engine's host time; and K4
+            # building a mirror of its own, as a caller without one pays
+            mirror_ms = cuda_ms(lambda: _gat_out_rows_cuda(args[2], args[3]))
+            mirror = gat_out_rows(args[2], args[3])
             leaves = [t.clone().requires_grad_() for t in (args[0], args[1], args[4])]
-            out = gat_attention(leaves[0], leaves[1], args[2], args[3], leaves[2])
+            out = gat_attention(leaves[0], leaves[1], args[2], args[3], leaves[2], mirror=mirror)
             function_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
-            kernel_ms = cuda_ms(lambda: _gat_attention_bwd_cuda(*args, g))
+            kernel_ms = cuda_ms(lambda: _gat_attention_bwd_cuda(*args, g, mirror=mirror))
+            own_ms = cuda_ms(lambda: _gat_attention_bwd_cuda(*args, g))
             print(f"time gat_attention backward {case} B,M,D={tuple(args[2].shape)} H={GAT_HEADS} "
-                  f"C={GAT_C} {str(dtype)[6:]}: K4 {kernel_ms:.4f} ms ({function_ms:.4f} ms as the backward "
-                  f"of gat_attention under autograd), plain {plain_ms:.4f} ms [{smi}]")
+                  f"C={GAT_C} {str(dtype)[6:]}: K4 over a given mirror {kernel_ms:.4f} ms ({function_ms:.4f} ms "
+                  f"as the backward of gat_attention under autograd), the mirror {mirror_ms:.4f} ms, K4 "
+                  f"building its own {own_ms:.4f} ms, plain {plain_ms:.4f} ms [{smi}]")
             if dtype == torch.float32:
                 bound = gat_bound(args, backward=True)
                 print(f"bound gat_attention backward {case} f32: K4 {bound[0]:.4f} ms by {bound[1]}; "
                       f"no single PyTorch call computes it")
                 if case == "config B=32":
                     config_times["gat_attention_bwd"] = dict(
-                        ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+                        ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                        mirror_ms=mirror_ms)
     for case in ("config B=32", "flagship B=256"):
         for dtype in (torch.float32, torch.bfloat16):
             h, in_src, in_w, out_dst, out_w = inrow_inputs(case, dtype)
@@ -1543,7 +1588,8 @@ def knn_inputs(case: str, dtype, seed: int = SEED):
     flat loader's batches of lineage-like graphs (their standardized
     positions, not on any grid), or hand-built segments."""
     rng = np.random.default_rng(seed)
-    wire = {"config B=32": GRAPH_B, "config B=32 H=4": GRAPH_B, "flagship B=256": FLAGSHIP_GRAPHS}
+    wire = {"config B=32": GRAPH_B, "config B=32 H=4": GRAPH_B, "flagship B=256": FLAGSHIP_GRAPHS,
+            "flagship B=256 H=4": FLAGSHIP_GRAPHS}
     if case in wire:
         graphs = wire[case]
         batch = next(iter(GraphLoader(lineage_graphs(rng, graphs), graphs, shuffle=False, layout="flat",
@@ -1582,35 +1628,53 @@ def knn_kernel_phase():
             ).to(x.device, dtype)
             # the flagship's plain version takes a second a call: k = 8 only
             for k in ((KNN_K,) if case.startswith("flagship") else (1, KNN_K)):
-                ref_deg, ref_kth = knn_degree_plain(pos, seg, k, graphs)
+                # the selection against its plain version, exactly: ranges,
+                # points, thresholds and degrees
+                before = knn_select.launches
+                plan, ref_plan = knn_select(pos, seg, k, graphs), knn_select_plain(pos, seg, k, graphs)
+                torch.cuda.synchronize()
+                if knn_select.launches != before + 1:
+                    raise AssertionError(f"K5 {case} {dtype}: knn_select did not launch the selection kernel")
+                differ = [name for name, a, b in zip(("positions", "node_seg", "lo", "hi", "points", "kth", "deg"),
+                                                     plan.tensors(), ref_plan.tensors(), strict=True)
+                          if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b)]
+                if differ:
+                    raise AssertionError(
+                        f"K5 {case} {dtype} k={k}: the selection's {differ} differ from the plain version's "
+                        f"({int((plan.deg != ref_plan.deg).sum())} degrees, "
+                        f"{int((plan.kth != ref_plan.kth).sum())} thresholds)")
+                deg = plan.deg
                 for aggr in ("add", "mean"):
+                    # without a plan the Function selects for itself
                     leaf = x.clone().requires_grad_()
-                    before = (knn_aggregate.launches, knn_aggregate.bwd_launches)
+                    before = (knn_select.launches, knn_aggregate.launches, knn_aggregate.bwd_launches)
                     out = knn_aggregate(leaf, pos, seg, k, graphs, aggr)
                     (dx,) = torch.autograd.grad(out, leaf, g)
                     torch.cuda.synchronize()
-                    if (knn_aggregate.launches, knn_aggregate.bwd_launches) != (before[0] + 1, before[1] + 1):
-                        raise AssertionError(f"K5 {case} {dtype}: the Function did not launch K5 both ways")
-                    ref = knn_aggregate_plain(x, pos, seg, k, graphs, aggr)
-                    ref_dx = knn_aggregate_bwd_plain(g, pos, seg, k, graphs, aggr)
-                    _, state = _knn_aggregate_cuda(x, pos, seg, k, graphs, aggr)
-                    kth, deg = state[4], state[5]
+                    after = (knn_select.launches, knn_aggregate.launches, knn_aggregate.bwd_launches)
+                    if after != tuple(n + 1 for n in before):
+                        raise AssertionError(f"K5 {case} {dtype}: the Function did not select once and launch K5 both ways")
+                    # with the plan it only gathers, and gives the same bits
+                    out_plan = knn_aggregate(leaf, pos, seg, k, graphs, aggr, plan=plan)
+                    (dx_plan,) = torch.autograd.grad(out_plan, leaf, g)
                     torch.cuda.synchronize()
-                    if not all(torch.equal(a, b) for a, b in zip(state[2:4], segment_ranges(seg, graphs))):
-                        raise AssertionError(f"K5 {case}: the segment ranges differ from the plain version's")
+                    if (knn_select.launches, knn_aggregate.launches, knn_aggregate.bwd_launches) != (
+                            after[0], after[1] + 1, after[2] + 1):
+                        raise AssertionError(f"K5 {case} {dtype}: with a plan the Function selected again")
+                    if not (torch.equal(out_plan, out) and torch.equal(dx_plan, dx)):
+                        raise AssertionError(f"K5 {case} {dtype} {aggr} k={k}: a plan handed in changes the result")
+                    ref = knn_aggregate_plain(x, pos, seg, k, graphs, aggr, kth=ref_plan.kth)
+                    ref_dx = knn_aggregate_bwd_plain(g, pos, seg, k, graphs, aggr, kth=ref_plan.kth)
+                    torch.cuda.synchronize()
                     if out.shape != ref.shape or out.dtype != dtype or dx.dtype != dtype:
                         raise AssertionError(f"K5 {case} {dtype} {aggr}: bad output {tuple(out.shape)} {out.dtype}")
-                    if not (torch.equal(deg, ref_deg) and torch.equal(kth, ref_kth)):
-                        raise AssertionError(
-                            f"K5 {case} {dtype} k={k}: {int((deg != ref_deg).sum())} degrees and "
-                            f"{int((kth != ref_kth).sum())} thresholds differ from the plain version's")
                     fwd, bwd = _errors(out.detach(), ref), _errors(dx, ref_dx)
                     bound = KNN_F32_REL if dtype == torch.float32 else KNN_BF16_REL
                     print(f"kernel K5 {case} {aggr} k={k} N={x.shape[0]} H={x.shape[1]} graphs={graphs} "
                           f"x {str(dtype)[6:]}: forward max_abs_err {fwd[0]:.3e} max_rel_err {fwd[1]:.3e}; "
                           f"backward max_abs_err {bwd[0]:.3e} max_rel_err {bwd[1]:.3e} (bound {bound:.0e}); "
-                          f"degrees and thresholds equal exactly, max degree {int(deg.max())}, "
-                          f"edges {int(deg.sum())}")
+                          f"ranges, points, degrees and thresholds equal exactly, the same bits with a plan, max degree "
+                          f"{int(deg.max())}, edges {int(deg.sum())}")
                     if not (fwd[1] <= bound and bwd[1] <= bound):
                         raise AssertionError(f"K5 disagrees with plain: {case} {dtype} {aggr} k={k}")
                     padding = seg >= graphs
@@ -1658,7 +1722,8 @@ def knn_slice_phase(work_dir: str) -> int:
         err = float(np.abs(probs - probs_plain).max())
         buckets = sorted({b["nodes"].shape[0] for b in loader})
         print(f"knn slice GraphConv {pooling} k={KNN_K}: predict over {n_batches} batches of {GRAPH_B}, "
-              f"{loader.n_examples} graphs, N {buckets}; K5 launches {counts['knn_aggregate']}; probs in "
+              f"{loader.n_examples} graphs, N {buckets}; K5 launches: selection {counts['knn_select']}, "
+              f"aggregation {counts['knn_aggregate']}; probs in "
               f"[{probs.min():.4f}, {probs.max():.4f}]; max |kernel − plain| {err:.3e} (bound {PROB_TOL:.0e})")
         if probs.shape != (loader.n_examples, 1) or not np.isfinite(probs).all():
             raise AssertionError(f"kNN {pooling}: bad probabilities, shape {probs.shape}")
@@ -1668,7 +1733,8 @@ def knn_slice_phase(work_dir: str) -> int:
             raise AssertionError(f"kNN {pooling}: y_true does not follow the loader's labels")
         if not err <= PROB_TOL:
             raise AssertionError(f"kNN {pooling}: kernel route disagrees with plain route: {err:.3e}")
-        want = {**dict.fromkeys(counts, 0), "knn_aggregate": 2 * n_batches}
+        # per forward one selection, and one aggregation per convolution
+        want = {**dict.fromkeys(counts, 0), "knn_select": n_batches, "knn_aggregate": 2 * n_batches}
         if n_batches < 4 or counts != want:
             raise AssertionError(f"kNN {pooling}: launches {counts}, expected {want}")
         if pooling == "add":
@@ -1687,10 +1753,11 @@ def knn_train_phase(work_dir: str) -> dict:
         cfg = graph_training_config(data_dir, os.path.join(work_dir, "knn_log"), 3, knn_k=KNN_K,
                                     local_pooling=pooling)
         steps, evals, meta, counts = train_graph_arm(name, cfg)
-        # per forward two convolutions; backward once per train step (conv1's
-        # input is the batch's features, which need no gradient)
-        want = {**dict.fromkeys(counts, 0), "knn_aggregate": 2 * (steps + evals),
-                "knn_aggregate backward": steps}
+        # per forward one selection and two convolutions; backward once per
+        # train step (conv1's input is the batch's features, which need no
+        # gradient)
+        want = {**dict.fromkeys(counts, 0), "knn_select": steps + evals,
+                "knn_aggregate": 2 * (steps + evals), "knn_aggregate backward": steps}
         print(f"graph train {name}: {steps} train steps, {evals} eval batches; launches {counts} "
               f"(expected {want}); accuracy/val {meta['accuracy/val']} (floor {KNN_VAL_ACC_FLOOR[pooling]})")
         if counts != want:
@@ -1727,7 +1794,8 @@ def knn_resume_phase(name: str, cfg: dict) -> None:
     counts = launch_counts()
     data = factory.get_dataloader("s2pg", cfg)
     n_train, n_val = len(data.get_train_loader()), len(data.get_val_loader())
-    want = {**dict.fromkeys(counts, 0), "knn_aggregate": 2 * (n_train + n_val), "knn_aggregate backward": n_train}
+    want = {**dict.fromkeys(counts, 0), "knn_select": n_train + n_val,
+            "knn_aggregate": 2 * (n_train + n_val), "knn_aggregate backward": n_train}
     losses = read_metrics(log_dir)["Loss/train"]
     print(f"graph train {name}: resume_training(log_dir), config.yaml read without PyYAML, for epoch {trained + 1}: Loss/train {losses}; "
           f"launches {counts} (expected {want})")
@@ -1763,31 +1831,50 @@ def knn_times_phase(smi: str):
     batch, and a profile of the B=256 f32 kNN train step.  Returns the config
     shape's f32 times and bound."""
     config_times = None
-    for case in ("config B=32", "config B=32 H=4", "flagship B=256"):
-        for dtype in (torch.float32, torch.bfloat16):
+    # width 4 is conv1's input: there the aggregation is all candidate tests
+    for case in ("config B=32", "config B=32 H=4", "flagship B=256", "flagship B=256 H=4"):
+        narrow_flagship = case == "flagship B=256 H=4"  # f32 and the kernels only
+        for dtype in (torch.float32,) if narrow_flagship else (torch.float32, torch.bfloat16):
             x, pos, seg, graphs = knn_inputs(case, dtype)
             g = torch.randn(x.shape, device="cuda").to(dtype)
             # the row-blocked plain version at N=65,536 takes about a second a call
             iters, warmup = (2, 1) if case.startswith("flagship") else (20, 3)
             with torch.no_grad():
-                plain_ms = cuda_ms(lambda: knn_aggregate_plain(x, pos, seg, KNN_K, graphs, "add"), iters, warmup)
-                kernel_ms = cuda_ms(lambda: _knn_aggregate_cuda(x, pos, seg, KNN_K, graphs, "add"))
-                bwd_plain_ms = cuda_ms(
-                    lambda: knn_aggregate_bwd_plain(g, pos, seg, KNN_K, graphs, "add"), iters, warmup)
-                _, state = _knn_aggregate_cuda(x, pos, seg, KNN_K, graphs, "add")
-                bwd_ms = cuda_ms(lambda: _knn_aggregate_bwd_cuda(g, *state, graphs, "add"))
+                # the selection alone (its entry: ranges and points, then kth
+                # and deg), then the aggregation given a plan, as the model
+                # calls it, and a call without a plan: both, one after the other
+                select_ms = cuda_ms(lambda: knn_select(pos, seg, KNN_K, graphs))
+                plan = knn_select(pos, seg, KNN_K, graphs)
+                gather_ms = cuda_ms(lambda: _knn_aggregate_cuda(x, plan, "add"))
+                bwd_ms = cuda_ms(lambda: _knn_aggregate_bwd_cuda(g, plan, "add"))
+                unplanned_ms = cuda_ms(lambda: knn_aggregate(x, pos, seg, KNN_K, graphs, "add"))
+                plain = "not timed at this shape"
+                if not narrow_flagship:
+                    # the plain versions of the same function: given the thresholds
+                    plain_ms = cuda_ms(lambda: knn_aggregate_plain(
+                        x, pos, seg, KNN_K, graphs, "add", kth=plan.kth), iters, warmup)
+                    bwd_plain_ms = cuda_ms(lambda: knn_aggregate_bwd_plain(
+                        g, pos, seg, KNN_K, graphs, "add", kth=plan.kth), iters, warmup)
+                    plain = (f"given the thresholds forward {plain_ms:.4f} ms, backward {bwd_plain_ms:.4f} ms "
+                             f"(mean of {iters})")
             print(f"time knn_aggregate add k={KNN_K} {case} N={x.shape[0]} H={x.shape[1]} {str(dtype)[6:]}: "
-                  f"forward K5 {kernel_ms:.4f} ms (the entry: two segment-range kernels, then the aggregation), plain "
-                  f"{plain_ms:.4f} ms; backward K5 {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms "
-                  f"(plain: mean of {iters}) [{smi}]")
+                  f"selection {select_ms:.4f} ms; aggregation given a plan forward {gather_ms:.4f} ms, "
+                  f"backward {bwd_ms:.4f} ms; a call without a plan (one selection, one aggregation) "
+                  f"{unplanned_ms:.4f} ms; plain {plain} [{smi}]")
             if dtype == torch.float32:
-                bound, pairs = knn_bound(x, pos, seg, graphs, state[5])
+                bound, pairs = knn_bound(x, pos, seg, graphs, plan.deg)
+                # the selection's own bound: positions and ids read once, the
+                # points, thresholds and degrees written; 8 operations a pair
+                select_bound = bound_ms(_nbytes(pos, seg, plan.points, plan.kth, plan.deg), 8 * pairs)
                 print(f"bound knn_aggregate {case} f32: K5 {bound[0]:.4f} ms by {bound[1]}, each way "
-                      f"({pairs:.0f} allowed pairs, {int(state[5].sum())} neighbours); no single PyTorch "
-                      f"call computes it")
+                      f"({pairs:.0f} allowed pairs, {int(plan.deg.sum())} neighbours); the selection "
+                      f"{select_bound[0]:.4f} ms by {select_bound[1]}; no single PyTorch call computes either")
                 if case == "config B=32":
-                    config_times = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound[0],
-                                        bound_by=bound[1], library_ms=None)
+                    # ms: the aggregation given a plan, which is what the paths
+                    # launch and what bound_ms counts; the selection beside it
+                    config_times = dict(ms=gather_ms, plain_ms=plain_ms, bound_ms=bound[0],
+                                        bound_by=bound[1], library_ms=None, select_ms=select_ms,
+                                        select_bound_ms=select_bound[0])
     for b in (GRAPH_B, FLAGSHIP_GRAPHS):
         graphs = lineage_graphs(np.random.default_rng(SEED + 2), 4 * b)
         t0 = time.perf_counter()
@@ -1814,8 +1901,8 @@ def knn_times_phase(smi: str):
                 rows = timer(models, batches)
                 line = ", ".join(f"{n} {r[0]:.4f} ({r[1]:.4f}-{r[2]:.4f}) ms" for n, r in zip(names, rows))
                 if slow_plain and dtype == "float32":
-                    r = timer([plain], flat[:2], reps=2)[0]
-                    line += f", kNN plain route {r[0]:.4f} ({r[1]:.4f}-{r[2]:.4f}) ms (2 runs over 2 batches)"
+                    r = timer([plain], flat[:1], reps=2)[0]
+                    line += f", kNN plain route {r[0]:.4f} ({r[1]:.4f}-{r[2]:.4f}) ms (2 runs over 1 batch)"
                 print(f"time {what} per batch B={b} {dtype} adam, kNN k={KNN_K} on the flat wire beside the "
                       f"lineage graphs on the in-row wire, median (q1-q3) of 10 runs over {len(flat)} pre-packed "
                       f"batches, host clock{' to a synchronise' if what == 'train step' else ''}: {line} [{smi}]")
@@ -1843,9 +1930,12 @@ def main() -> None:
               f"K1 {launches['phi_pool']}, K2 {launches['phi_pool_bwd']}; GAT serving path "
               f"K3 {graph_serve_launches}; GraphNet training path {graph_launches}; kNN serving path "
               f"K5 {knn_serve_launches}; kNN training path {knn_launches}")
-        # K6's and K5's counts are their forward and backward launches together
+        # K6's and K5's counts are their forward and backward launches
+        # together; K5's selections and K4's mirrors stand beside them
         graph_launches["inrow_aggregate"] += graph_launches.pop("inrow_aggregate backward")
         knn_launches["knn_aggregate"] += knn_launches.pop("knn_aggregate backward")
+        beside = {"gat_attention_bwd": {"mirror_launches": graph_launches.pop("gat_out_rows")},
+                  "knn_aggregate": {"select_launches": knn_launches.pop("knn_select")}}
         launches.update(graph_launches)
         launches.update(knn_launches)
         times = times_phase(smi, run_dir)
@@ -1862,6 +1952,7 @@ def main() -> None:
         "launches": launches[name],
         "max_abs_err": errors[name],
         **times[name],
+        **beside.get(name, {}),
     } for name, (source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,9 +1,11 @@
 // What the graph kernels share: K3 (gat_attention.cu), K4
 // (gat_attention_bwd.cu) and K6 (inrow_aggregate.cu) all walk the dense
-// in-row wire with one warp per (graph, node).  Here are the wire's element
-// conversions, the warp reductions, LeakyReLU, and the one rule for which
-// in-row slots of a node count for attention, so that K3 and its backward K4
-// can never disagree on it.
+// in-row wire with one warp per (graph, node); K5 (knn_aggregate.cu) gathers
+// feature rows with a warp per node.  Here are the wire's element
+// conversions, 16-byte pieces of a feature row, the warp reductions,
+// LeakyReLU, and the one rule for which in-row slots of a node count for
+// attention, so that K3, its backward K4 and K4's mirror of the lists can
+// never disagree on it.
 
 #pragma once
 
@@ -50,6 +52,49 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// A piece: kVec neighbouring channels of one row, read and written as one
+// 16-byte value where kVec > 1 (4 f32 or 8 bf16, at a 16-byte address).
+template <typename TX>
+constexpr int kPieceChannels = 16 / sizeof(TX);
+
+template <typename TX, int kVec>
+__device__ __forceinline__ void load_piece(const TX* __restrict__ at, float (&v)[kVec]) {
+  if constexpr (kVec == 4 && sizeof(TX) == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(at);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else if constexpr (kVec == 8 && sizeof(TX) == 2) {
+    const uint4 q = *reinterpret_cast<const uint4*>(at);
+    const unsigned words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {  // a bf16 is the upper half of its f32
+      v[2 * t] = __uint_as_float(words[t] << 16);
+      v[2 * t + 1] = __uint_as_float(words[t] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < kVec; ++t) v[t] = to_f32(at[t]);
+  }
+}
+
+template <typename TX, int kVec>
+__device__ __forceinline__ void store_piece(TX* __restrict__ at, const float (&v)[kVec]) {
+  if constexpr (kVec == 4 && sizeof(TX) == 4) {
+    *reinterpret_cast<float4*>(at) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (kVec == 8 && sizeof(TX) == 2) {
+    uint4 q;
+    unsigned* words = reinterpret_cast<unsigned*>(&q);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const __nv_bfloat162 pair = __floats2bfloat162_rn(v[2 * t], v[2 * t + 1]);
+      words[t] = *reinterpret_cast<const unsigned*>(&pair);
+    }
+    *reinterpret_cast<uint4*>(at) = q;
+  } else {
+#pragma unroll
+    for (int t = 0; t < kVec; ++t) at[t] = from_f32<TX>(v[t]);
+  }
+}
+
 // jax.nn.leaky_relu's form: z >= 0 keeps z (and derivative 1).
 __device__ __forceinline__ float leaky(float z, float slope) { return z >= 0.0f ? z : slope * z; }
 __device__ __forceinline__ float leaky_grad(float z, float slope) {
@@ -80,12 +125,10 @@ __device__ __forceinline__ RowSlot attention_slots(const TS* __restrict__ in_src
     src = static_cast<int>(in_src[at]);
     pre = to_f32(in_w[at]) != 0.0f && src >= 0 && src < m && src != i;
   }
-  int keep = pre;
-  for (int k = 0; k + 1 < d; ++k) {
-    const int src_k = __shfl_sync(kFull, src, k);
-    const int pre_k = __shfl_sync(kFull, pre, k);
-    if (k < lane && pre_k && src_k == src) keep = 0;
-  }
+  // the first of the candidate slots that name this source keeps it
+  const unsigned candidates = __ballot_sync(kFull, pre);
+  const unsigned same_source = __match_any_sync(kFull, src);
+  const int keep = pre && __ffs(same_source & candidates) - 1 == lane;
   const unsigned kept = __ballot_sync(kFull, keep);
   RowSlot slot;
   slot.src = src;

@@ -25,7 +25,9 @@ the same semantics:
 - ``GATConv`` (GATv1, self-loops, heads concatenated, LeakyReLU 0.2): the
   score vectors are ``xw · att`` at the activation dtype summed in f32, and
   the attention runs in ``ops/gat.gat_attention`` — kernel K3 on a CUDA
-  tensor.  GAT ignores the edge weights (existence is ``w != 0``);
+  tensor, K4 its backward.  A training forward on the card builds the lists'
+  mirror once (``ops/gat.gat_backward_mirror``) and both convolutions' backward
+  reads it.  GAT ignores the edge weights (existence is ``w != 0``);
 - the readout: ``deepchem_style`` runs ``fc1 → act → bn3`` per node before
   the masked mean pool, otherwise after it (bn3 then masked by ``y_mask``);
   the pool is always a mean (the reference's quirk); logits in f32;
@@ -37,10 +39,12 @@ wire (``nodes [N, F]``, ``node_seg [N]`` or ``node_seg_counts [B + 1]``,
 ``y``) and ignores the batch's edges: each node's neighbours are its k
 nearest nodes of the same graph by the position features ``nodes[:, 1:4]``,
 taken in f32 BEFORE the compute-dtype cast (bf16 coordinates would change
-the topology), ties at the k-th distance all admitted.  Both convolutions'
-aggregates come from ``ops/knn.knn_aggregate`` — kernel K5 on a CUDA tensor,
-forward and backward, with no edge list and no ``[N, N]`` tensor — and feed
-the same ``GraphConv`` modules (the JAX package's ``DenseGraphConv``).
+the topology), ties at the k-th distance all admitted.  The topology is
+selected once per forward (``ops/knn.knn_select``) and both convolutions'
+aggregates come from ``ops/knn.knn_aggregate`` over that plan — kernel K5 on
+a CUDA tensor, forward and backward, with no edge list and no ``[N, N]``
+tensor — and feed the same ``GraphConv`` modules (the JAX package's
+``DenseGraphConv``).
 ``MaskedBatchNorm`` runs over the real nodes (``node_seg < B``), the readout
 is the per-graph mean by segment sums in f32.  A dense batch raises, as in
 the JAX model.
@@ -72,9 +76,9 @@ from point_cloud_classifier_tpu_torch.models.common import (
     TorchLinear,
     resolve_dtype,
 )
-from point_cloud_classifier_tpu_torch.ops.gat import SLOPE, gat_attention
+from point_cloud_classifier_tpu_torch.ops.gat import SLOPE, gat_attention, gat_backward_mirror
 from point_cloud_classifier_tpu_torch.ops.inrow_graph import inrow_adjacency, inrow_aggregate
-from point_cloud_classifier_tpu_torch.ops.knn import knn_aggregate
+from point_cloud_classifier_tpu_torch.ops.knn import knn_aggregate, knn_select
 from point_cloud_classifier_tpu_torch.ops.segment import (
     counts_to_segment_ids,
     segment_count,
@@ -114,7 +118,7 @@ class GATConv(nn.Module):
         self.att_dst = _glorot((1, heads, features), heads, features, generator)
         self.bias = nn.Parameter(torch.zeros(heads * features))
 
-    def forward(self, x, in_src, in_w):
+    def forward(self, x, in_src, in_w, mirror=None):
         b, m, _ = x.shape
         h, d = self.heads, self.features
         xw = torch.matmul(x, self.lin.weight.t().to(x.dtype)).reshape(b, m, h, d)
@@ -122,7 +126,7 @@ class GATConv(nn.Module):
         s_src = (xw * self.att_src.to(x.dtype)).float().sum(dim=-1)  # [B, M, H]
         s_dst = (xw * self.att_dst.to(x.dtype)).float().sum(dim=-1)
         out = gat_attention(
-            s_dst, s_src, in_src, in_w, xw.reshape(b, m, h * d), self.negative_slope
+            s_dst, s_src, in_src, in_w, xw.reshape(b, m, h * d), self.negative_slope, mirror
         )
         return out.to(x.dtype) + self.bias.to(x.dtype)
 
@@ -249,8 +253,12 @@ class GraphNet(nn.Module):
         deg = batch.get("in_deg")
 
         if self.use_gat:
+            # the lists' mirror, which the attention's backward kernel reads:
+            # once for both convolutions, and only where a backward will run
+            mirror = gat_backward_mirror(in_src, in_w) if train else None
+
             def conv(mod, h):
-                return mod(h, in_src, in_w)
+                return mod(h, in_src, in_w, mirror)
         elif fused:
             # the out-rows only route the backward: inference needs none
             out_dst, out_w = batch.get("out_dst"), batch.get("out_w")
@@ -316,13 +324,14 @@ class GraphNet(nn.Module):
         else:
             node_seg = counts_to_segment_ids(batch["node_seg_counts"], x.shape[0])
         # positions from the features BEFORE the cast: a graph built from
-        # bf16-rounded coordinates would have another topology; one contiguous
-        # copy serves both convolutions and their backward
+        # bf16-rounded coordinates would have another topology; one selection
+        # serves both convolutions and their backward
         pos3 = nodes[:, 1:4].float().contiguous()
         node_valid = (node_seg < num_graphs).float()
+        plan = knn_select(pos3, node_seg, self.knn_k, num_graphs)
 
         def block(conv, bn, h):
-            agg = knn_aggregate(h, pos3, node_seg, self.knn_k, num_graphs, self.local_pooling)
+            agg = knn_aggregate(h, pos3, node_seg, self.knn_k, num_graphs, self.local_pooling, plan)
             return bn(self.act(conv(h, agg)), mask=node_valid, train=train)
 
         x = block(self.conv1, self.bn1, x)

@@ -128,9 +128,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, i32, vp,  # xw_code, src_code, w_code, stream
     ]
     lib.pcc_gat_attention.restype = i32
+    lib.pcc_gat_out_rows.argtypes = [
+        vp, vp, vp, vp,  # in_src, in_w, out_off and out_dst (written)
+        i32, i32, i32,  # b, m, d
+        i32, i32, vp,  # src_code, w_code, stream
+    ]
+    lib.pcc_gat_out_rows.restype = i32
     lib.pcc_gat_attention_bwd.argtypes = [
         vp, vp, vp, vp, vp, vp,  # s_dst, s_src, in_src, in_w, xw, g
-        vp, vp, vp,  # ds_dst, ds_src (zeroed), dxw (f32, zeroed)
+        vp, vp, vp,  # out_off, out_dst, stats (scratch)
+        vp, vp, vp,  # ds_dst, ds_src, dxw (written)
         i32, i32, i32, i32, i32,  # b, m, d, h, c
         ctypes.c_float,  # slope
         i32, i32, i32, vp,  # xw_code, src_code, w_code, stream
@@ -142,20 +149,20 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, i32, vp,  # h_code, src_code, w_code, stream
     ]
     lib.pcc_inrow_aggregate.restype = i32
-    lib.pcc_knn_aggregate.argtypes = [
-        vp, vp, vp, vp, vp,  # x, pos, seg, lo and hi (written)
-        vp, vp, vp,  # out, kth, deg (written)
-        i32, i32, i32, i32, i32,  # n, width, k, num_graphs, mean
+    lib.pcc_knn_select.argtypes = [
+        vp, vp,  # pos, seg
+        vp, vp, vp, vp, vp,  # lo, hi, pos4, kth, deg (written)
+        i32, i32, i32,  # n, k, num_graphs
+        vp,  # stream
+    ]
+    lib.pcc_knn_select.restype = i32
+    lib.pcc_knn_gather.argtypes = [
+        vp, vp, vp, vp, vp,  # src, pos4, seg, lo, hi
+        vp, vp, vp,  # kth, deg, out (written)
+        i32, i32, i32, i32, i32,  # n, width, num_graphs, mean, backward
         i32, vp,  # x_code, stream
     ]
-    lib.pcc_knn_aggregate.restype = i32
-    lib.pcc_knn_aggregate_bwd.argtypes = [
-        vp, vp, vp, vp, vp,  # g, pos, seg, lo, hi
-        vp, vp, vp,  # kth, deg, dx
-        i32, i32, i32, i32,  # n, width, num_graphs, mean
-        i32, vp,  # x_code, stream
-    ]
-    lib.pcc_knn_aggregate_bwd.restype = i32
+    lib.pcc_knn_gather.restype = i32
     lib.pcc_error_string.argtypes = [i32]
     lib.pcc_error_string.restype = ctypes.c_char_p
 

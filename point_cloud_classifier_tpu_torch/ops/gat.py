@@ -12,12 +12,22 @@ Counterpart of ``point_cloud_classifier_tpu/ops/gat_pallas.py``:
 - :func:`gat_attention_bwd_plain` — the closed-form backward of the oracle
   (``ds_dst``, ``ds_src``, ``dxw`` from the output's cotangent), equal to the
   CPU autograd of :func:`gat_attention_plain`; what K4 is held to on the card;
+- :func:`gat_out_rows` — the mirror of the in-row lists that K4 reads: per
+  graph and source node, the destinations that attend to it, ascending, as
+  offsets ``[B, M + 1]`` and a list ``[B, M·D]``.  On a CUDA tensor it
+  launches the mirror kernel of ``csrc/gat_attention_bwd.cu`` or raises;
+  :func:`gat_out_rows_plain` is its plain version.  The same rule as the
+  attention decides which slots count.  ``gat_out_rows.launches`` counts the
+  kernel's launches;
 - :func:`gat_attention` — the entry point.  A CPU tensor takes the plain
   version under autograd; a CUDA tensor goes through an autograd Function
   whose forward launches ``csrc/gat_attention.cu`` (K3, which replaces both
   forms of the TPU forward, ``_fwd_impl``'s slot and dense ``pallas_call``s)
   and whose backward launches ``csrc/gat_attention_bwd.cu`` (K4, which
-  replaces both forms of ``_bwd_impl``), or raises.
+  replaces both forms of ``_bwd_impl``), or raises.  K4 sums every gradient
+  as a gather in a fixed order over the mirror, so it gives the same bits on
+  every run; it builds the mirror itself unless the caller hands one in (one
+  mirror serves every attention over the same lists).
   ``gat_attention.launches`` counts K3's launches and
   ``gat_attention.bwd_launches`` K4's.
 
@@ -37,6 +47,8 @@ Pallas forms of one function; K3 is one kernel and reads none of them.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -122,33 +134,92 @@ def gat_attention_bwd_plain(s_dst, s_src, in_src, in_w, xw, g, slope: float = SL
     )
 
 
+class GatMirror(NamedTuple):
+    """The in-row lists seen from the sources: the destinations that attend to
+    source ``j`` of graph ``b`` are ``out_dst[b, out_off[b, j]:out_off[b, j +
+    1]]``, ascending; ``out_dst`` holds -1 behind a graph's last entry."""
+
+    out_off: torch.Tensor  # [B, M + 1] int32
+    out_dst: torch.Tensor  # [B, M·D] int32
+
+
+def gat_out_rows_plain(in_src: torch.Tensor, in_w: torch.Tensor) -> GatMirror:
+    """The plain version of the mirror: the off-diagonal of
+    :func:`adjacency_mask`, transposed and listed."""
+    b, m, d = in_src.shape
+    mask = adjacency_mask(in_src, in_w, m) & ~torch.eye(m, dtype=torch.bool, device=in_src.device)
+    by_source = mask.transpose(1, 2)  # [B, source, destination]
+    out_off = torch.zeros((b, m + 1), dtype=torch.int32, device=in_src.device)
+    out_off[:, 1:] = by_source.sum(dim=2).cumsum(dim=1)
+    out_dst = torch.full((b, m * d), -1, dtype=torch.int32, device=in_src.device)
+    # nonzero lists (graph, source, destination) in that order: each source's
+    # destinations ascending, the sources of a graph one after the other
+    graph, _, dst = by_source.nonzero(as_tuple=True)
+    first = torch.zeros(b + 1, dtype=torch.long, device=in_src.device)
+    first[1:] = out_off[:, m].long().cumsum(dim=0)
+    at = torch.arange(graph.shape[0], device=in_src.device) - first[graph]
+    out_dst[graph, at] = dst.to(torch.int32)
+    return GatMirror(out_off, out_dst)
+
+
+def gat_out_rows(in_src: torch.Tensor, in_w: torch.Tensor) -> GatMirror:
+    """The mirror of the in-row lists, for K4: build it once per batch and hand
+    it to every :func:`gat_attention` over the same lists."""
+    if in_src.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gat_out_rows takes CPU or CUDA tensors, got {in_src.device}")
+    if use_cuda_kernels(in_src):
+        return _gat_out_rows_cuda(in_src, in_w)
+    return gat_out_rows_plain(in_src, in_w)
+
+
+gat_out_rows.launches = 0
+
+
+def gat_backward_mirror(in_src: torch.Tensor, in_w: torch.Tensor) -> Optional[GatMirror]:
+    """The mirror for the callers of :func:`gat_attention` that share one over
+    several calls: :func:`gat_out_rows` where K4 will read it (lists on the
+    card, gradients recorded), None where the plain version differentiates
+    itself and needs none."""
+    if not (torch.is_grad_enabled() and use_cuda_kernels(in_src)):
+        return None
+    return gat_out_rows(in_src, in_w)
+
+
 class _GatAttentionFn(torch.autograd.Function):
     """K3 forward, K4 backward, on CUDA tensors."""
 
     @staticmethod
-    def forward(ctx, s_dst, s_src, in_src, in_w, xw, slope):
-        ctx.save_for_backward(s_dst, s_src, in_src, in_w, xw)
+    def forward(ctx, s_dst, s_src, in_src, in_w, xw, slope, mirror):
+        ctx.save_for_backward(s_dst, s_src, in_src, in_w, xw, *(mirror or ()))
         ctx.slope = slope
         return _gat_attention_cuda(s_dst, s_src, in_src, in_w, xw, slope)
 
     @staticmethod
     def backward(ctx, g):
-        grads = _gat_attention_bwd_cuda(*ctx.saved_tensors, g, ctx.slope)
+        *operands, xw = ctx.saved_tensors[:5]
+        mirror = GatMirror(*ctx.saved_tensors[5:]) if len(ctx.saved_tensors) > 5 else None
+        grads = _gat_attention_bwd_cuda(*operands, xw, g, ctx.slope, mirror)
         need = ctx.needs_input_grad
         ds_dst, ds_src, dxw = (d if need[i] else None for d, i in zip(grads, (0, 1, 4)))
-        return ds_dst, ds_src, None, None, dxw, None
+        return ds_dst, ds_src, None, None, dxw, None, None
 
 
-def gat_attention(s_dst, s_src, in_src, in_w, xw, slope: float = SLOPE):
+def gat_attention(
+    s_dst, s_src, in_src, in_w, xw, slope: float = SLOPE, mirror: Optional[GatMirror] = None
+):
     """GATv1 attention ``[B, M, C]`` in ``xw``'s dtype, differentiable in the
     scores and ``xw``: K3 (and K4 backward) on a CUDA tensor,
     :func:`gat_attention_plain` under autograd on a CPU one (or inside
-    ``force_plain``)."""
+    ``force_plain``).  ``mirror``, where given, is :func:`gat_out_rows` of the
+    same ``in_src`` and ``in_w``; K4 then builds none.  Only its shape is
+    checked against the lists: the caller answers for the mirror being theirs
+    (a mirror of other lists of the same shape gives wrong ``ds_src`` and
+    ``dxw`` without an error)."""
     if xw.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gat_attention takes CPU or CUDA tensors, got {xw.device}")
     if not use_cuda_kernels(xw):
         return gat_attention_plain(s_dst, s_src, in_src, in_w, xw, slope)
-    return _GatAttentionFn.apply(s_dst, s_src, in_src, in_w, xw, slope)
+    return _GatAttentionFn.apply(s_dst, s_src, in_src, in_w, xw, slope, mirror)
 
 
 gat_attention.launches = 0
@@ -227,10 +298,53 @@ def _gat_attention_cuda(s_dst, s_src, in_src, in_w, xw, slope: float = SLOPE):
     return out
 
 
-def _gat_attention_bwd_cuda(s_dst, s_src, in_src, in_w, xw, g, slope: float = SLOPE):
+def _check_lists(in_src, in_w):
+    """Raise on lists the mirror kernel does not take."""
+    if in_src.dtype not in _SRC_CODES or in_w.dtype not in _W_CODES:
+        raise TypeError(
+            f"the mirror takes int32/int16 in_src and f32/f16 in_w, got {in_src.dtype} "
+            f"and {in_w.dtype}"
+        )
+    if in_src.ndim != 3 or in_w.shape != in_src.shape or in_w.device != in_src.device:
+        raise ValueError(
+            f"the mirror takes in_src and in_w [B, M, D] on one device, got "
+            f"{tuple(in_src.shape)} on {in_src.device} and {tuple(in_w.shape)} on {in_w.device}"
+        )
+    if in_src.shape[-1] > _MAX_SLOTS:
+        raise ValueError(f"the mirror takes at most {_MAX_SLOTS} in-row slots, got {in_src.shape[-1]}")
+
+
+def _gat_out_rows_cuda(in_src, in_w) -> GatMirror:
+    """The mirror kernel: the CUDA counterpart of :func:`gat_out_rows_plain`,
+    same contract."""
+    from point_cloud_classifier_tpu_torch.native import check, kernel_library
+
+    _check_lists(in_src, in_w)
+    b, m, d = in_src.shape
+    out_off = torch.empty((b, m + 1), dtype=torch.int32, device=in_src.device)
+    out_dst = torch.empty((b, m * d), dtype=torch.int32, device=in_src.device)
+    if b * m == 0:
+        return GatMirror(out_off.zero_(), out_dst)
+    in_src, in_w = in_src.contiguous(), in_w.contiguous()
+    lib = kernel_library().lib
+    with torch.cuda.device(in_src.device):
+        code = lib.pcc_gat_out_rows(
+            in_src.data_ptr(), in_w.data_ptr(), out_off.data_ptr(), out_dst.data_ptr(),
+            b, m, d, _SRC_CODES[in_src.dtype], _W_CODES[in_w.dtype],
+            torch.cuda.current_stream(in_src.device).cuda_stream,
+        )
+    check(code)
+    gat_out_rows.launches += 1
+    return GatMirror(out_off, out_dst)
+
+
+def _gat_attention_bwd_cuda(
+    s_dst, s_src, in_src, in_w, xw, g, slope: float = SLOPE, mirror: Optional[GatMirror] = None
+):
     """K4: the CUDA counterpart of :func:`gat_attention_bwd_plain`, same
-    contract.  ``ds_src`` and ``dxw`` are summed with f32 atomics into zeroed
-    f32 buffers, and ``dxw`` is rounded to ``xw``'s dtype once afterwards."""
+    contract.  ``ds_src`` and ``dxw`` are gathered per source over ``mirror``
+    (built here when none is given), summed in f32 registers in a fixed order
+    and written once, ``dxw`` in ``xw``'s dtype."""
     from point_cloud_classifier_tpu_torch.native import check, kernel_library
 
     _check_operands(s_dst, s_src, in_src, in_w, xw)
@@ -240,11 +354,22 @@ def _gat_attention_bwd_cuda(s_dst, s_src, in_src, in_w, xw, g, slope: float = SL
             f"on {g.device} for {tuple(xw.shape)} on {xw.device}"
         )
     b, m, h = s_dst.shape
+    d = in_src.shape[-1]
     ds_dst = torch.empty((b, m, h), dtype=torch.float32, device=xw.device)
-    ds_src = torch.zeros((b, m, h), dtype=torch.float32, device=xw.device)
-    dxw = torch.zeros(xw.shape, dtype=torch.float32, device=xw.device)
+    ds_src = torch.empty((b, m, h), dtype=torch.float32, device=xw.device)
+    dxw = torch.empty(xw.shape, dtype=xw.dtype, device=xw.device)
     if b * m == 0:
-        return ds_dst, ds_src, dxw.to(xw.dtype)
+        return ds_dst, ds_src, dxw
+    if mirror is None:
+        mirror = _gat_out_rows_cuda(in_src, in_w)
+    elif tuple(mirror.out_off.shape) != (b, m + 1) or tuple(mirror.out_dst.shape) != (b, m * d):
+        raise ValueError(
+            f"the mirror is of other lists: offsets {tuple(mirror.out_off.shape)} and list "
+            f"{tuple(mirror.out_dst.shape)} for in_src {tuple(in_src.shape)}"
+        )
+    # what stage B needs of each (destination, head): maximum, denominator,
+    # Σ α dα and s_dst
+    stats = torch.empty((b, m, h, 4), dtype=torch.float32, device=xw.device)
     s_dst, s_src = s_dst.contiguous(), s_src.contiguous()
     in_src, in_w, xw = in_src.contiguous(), in_w.contiguous(), xw.contiguous()
     g = g.to(xw.dtype).contiguous()
@@ -257,12 +382,15 @@ def _gat_attention_bwd_cuda(s_dst, s_src, in_src, in_w, xw, g, slope: float = SL
             in_w.data_ptr(),
             xw.data_ptr(),
             g.data_ptr(),
+            mirror.out_off.data_ptr(),
+            mirror.out_dst.data_ptr(),
+            stats.data_ptr(),
             ds_dst.data_ptr(),
             ds_src.data_ptr(),
             dxw.data_ptr(),
             b,
             m,
-            in_src.shape[-1],
+            d,
             h,
             xw.shape[-1],
             float(slope),
@@ -273,4 +401,4 @@ def _gat_attention_bwd_cuda(s_dst, s_src, in_src, in_w, xw, g, slope: float = SL
         )
     check(code)
     gat_attention.bwd_launches += 1
-    return ds_dst, ds_src, dxw.to(xw.dtype)
+    return ds_dst, ds_src, dxw

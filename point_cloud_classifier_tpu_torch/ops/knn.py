@@ -24,13 +24,22 @@ Counterpart of ``point_cloud_classifier_tpu/ops/knn.py`` and
   plain versions of K5 and of its backward (``adjᵀ @ g``, for ``mean`` with
   ``g / max(deg, 1)``; the autograd of the plain forward).  They walk the
   rows in blocks, so no ``[N, N]`` tensor exists at N = 65,536;
+- :func:`knn_select` works out a batch's topology once, as a
+  :class:`KnnPlan`: the index range of each segment bucket, each node's
+  ``(x, y, z, sq)``, and each row's threshold ``kth`` and degree ``deg``.  On
+  a CUDA tensor it launches the selection kernel of ``csrc/knn_aggregate.cu``
+  or raises; :func:`knn_select_plain` (:func:`segment_ranges` and
+  :func:`knn_degree_plain`) is its plain version.  ``knn_select.launches``
+  counts the kernel's launches;
 - :func:`knn_aggregate` is the entry point, an autograd Function
   (``knn_aggregate_pallas``'s ``custom_vjp``), differentiable in ``x`` only:
-  the adjacency is piecewise constant in the positions.  On a CUDA tensor
-  forward and backward launch ``csrc/knn_aggregate.cu`` (K5, which replaces
-  the TPU kernel of ``_knn_aggregate_pallas_impl``) or raise; on a CPU
-  tensor, or inside ``force_plain``, both take the plain versions.
-  ``knn_aggregate.launches`` counts K5's forward launches and
+  the adjacency is piecewise constant in the positions.  Given a plan it
+  only gathers; without one it selects for itself first.  On a CUDA tensor
+  forward and backward launch the gather kernel of ``csrc/knn_aggregate.cu``
+  (K5, which replaces the TPU kernel of ``_knn_aggregate_pallas_impl``) or
+  raise; on a CPU tensor, or inside ``force_plain``, both take the plain
+  versions, which read the plan's thresholds instead of selecting again.
+  ``knn_aggregate.launches`` counts K5's forward gathers and
   ``knn_aggregate.bwd_launches`` its backward ones.
 
 **One order of operations for the distance**, in the plain version and in
@@ -59,7 +68,8 @@ right answer and a contiguous one gives it fast.  Any N, any width.
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+from dataclasses import dataclass
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -110,14 +120,20 @@ def _masked_sqdist(positions, node_seg, num_graphs: int):
     return _masked_sqdist_rows(positions, node_seg, num_graphs, 0, positions.shape[0])
 
 
-def _adjacency_rows(positions, node_seg, k: int, num_graphs: int, start: int, stop: int):
-    """``(adj bool [R, N], kth f32 [R])`` for the rows ``start:stop``."""
+def _adjacency_rows(
+    positions, node_seg, k: int, num_graphs: int, start: int, stop: int, kth=None
+):
+    """``(adj bool [R, N], kth f32 [R])`` for the rows ``start:stop``; with
+    every row's threshold ``kth [N]`` given (a plan's), nothing is selected."""
     if k < 1:
         raise ValueError(f"k must be at least 1, got {k}")
     masked, allowed = _masked_sqdist_rows(positions, node_seg, num_graphs, start, stop)
-    # the k-th smallest of the row with multiplicity; a row of fewer than k
-    # candidates reaches a masked entry, so its threshold admits them all
-    kth = torch.topk(masked, min(k, masked.shape[1]), dim=1, largest=False).values[:, -1]
+    if kth is not None:
+        kth = kth[start:stop]
+    else:
+        # the k-th smallest of the row with multiplicity; a row of fewer than k
+        # candidates reaches a masked entry, so its threshold admits them all
+        kth = torch.topk(masked, min(k, masked.shape[1]), dim=1, largest=False).values[:, -1]
     return allowed & (masked <= kth[:, None]), kth
 
 
@@ -158,15 +174,16 @@ def adjacency_aggregate(adj: torch.Tensor, x: torch.Tensor, aggr: str = "add") -
 
 
 def knn_aggregate_plain(
-    x, positions, node_seg, k: int, num_graphs: int, aggr: str = "add", block_rows=None
+    x, positions, node_seg, k: int, num_graphs: int, aggr: str = "add", block_rows=None, kth=None
 ) -> torch.Tensor:
     """The plain version of K5: ``adjacency_aggregate(knn_adjacency(...), x)``
     computed ``block_rows`` rows at a time (by default as many as keep one
-    ``[rows, N]`` f32 temporary at 256 MiB)."""
+    ``[rows, N]`` f32 temporary at 256 MiB).  ``kth [N]``, where given, is
+    every row's threshold as :func:`knn_degree_plain` finds it."""
     _check_aggr(aggr)
     blocks = [
         adjacency_aggregate(
-            _adjacency_rows(positions, node_seg, k, num_graphs, start, stop)[0], x, aggr
+            _adjacency_rows(positions, node_seg, k, num_graphs, start, stop, kth)[0], x, aggr
         )
         for start, stop in _row_blocks(x.shape[0], block_rows)
     ]
@@ -187,7 +204,7 @@ def knn_degree_plain(positions, node_seg, k: int, num_graphs: int, block_rows=No
 
 
 def knn_aggregate_bwd_plain(
-    g, positions, node_seg, k: int, num_graphs: int, aggr: str = "add", block_rows=None
+    g, positions, node_seg, k: int, num_graphs: int, aggr: str = "add", block_rows=None, kth=None
 ) -> torch.Tensor:
     """The plain version of K5's backward, ``dx = adjᵀ @ g`` (``mean``:
     ``adjᵀ @ (g / max(deg, 1))``) summed in f32, in ``g``'s dtype: what
@@ -196,7 +213,7 @@ def knn_aggregate_bwd_plain(
     _check_aggr(aggr)
     dx = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
     for start, stop in _row_blocks(g.shape[0], block_rows):
-        adj, _ = _adjacency_rows(positions, node_seg, k, num_graphs, start, stop)
+        adj, _ = _adjacency_rows(positions, node_seg, k, num_graphs, start, stop, kth)
         adj = adj.float()
         rows = g[start:stop].float()
         if aggr == "mean":
@@ -205,55 +222,14 @@ def knn_aggregate_bwd_plain(
     return dx.to(g.dtype)
 
 
-class _KnnAggregateFn(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, positions, node_seg, k, num_graphs, aggr):
-        ctx.args = (k, num_graphs, aggr)
-        ctx.kernel = use_cuda_kernels(x)
-        if not ctx.kernel:
-            ctx.save_for_backward(positions, node_seg)
-            return knn_aggregate_plain(x, positions, node_seg, k, num_graphs, aggr)
-        out, state = _knn_aggregate_cuda(x, positions, node_seg, k, num_graphs, aggr)
-        # positions, ids, ranges, and the forward's thresholds and degrees
-        ctx.save_for_backward(*state)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        k, num_graphs, aggr = ctx.args
-        if not ctx.needs_input_grad[0]:
-            return (None,) * 6
-        if ctx.kernel:
-            dx = _knn_aggregate_bwd_cuda(g, *ctx.saved_tensors, num_graphs, aggr)
-        else:
-            dx = knn_aggregate_bwd_plain(g, *ctx.saved_tensors, k, num_graphs, aggr)
-        return dx, None, None, None, None, None
-
-
-def knn_aggregate(x, positions, node_seg, k: int, num_graphs: int, aggr: str = "add"):
-    """Fused kNN construction and neighbour aggregation ``[N, H]`` in ``x``'s
-    dtype, with no edge list and no ``[N, N]`` tensor on a CUDA tensor;
-    differentiable in ``x``."""
-    _check_aggr(aggr)
-    if k < 1:
-        raise ValueError(f"k must be at least 1, got {k}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"knn_aggregate takes CPU or CUDA tensors, got {x.device}")
-    return _KnnAggregateFn.apply(x, positions, node_seg, k, num_graphs, aggr)
-
-
-knn_aggregate.launches = 0
-knn_aggregate.bwd_launches = 0
-
-
 def segment_ranges(node_seg: torch.Tensor, num_graphs: int):
     """``(lo, hi)`` int32 ``[num_graphs + 1]``: the first and last index that
     carries each segment id.  Ids outside ``[0, num_graphs]`` fall into the
     nearest bucket, so a bucket's range always covers every node that could
     share its nodes' id; an empty bucket has ``lo = N > hi = -1``.  The plain
-    version of the two small kernels that K5's forward entry runs ahead of
-    the aggregation (``csrc/knn_aggregate.cu``), which row ``i`` then scans
-    instead of all N columns."""
+    version of the small kernels that run ahead of K5's selection
+    (``csrc/knn_aggregate.cu``); a row then scans its bucket's range instead
+    of all N columns."""
     n = node_seg.shape[0]
     bucket = node_seg.long().clamp(0, num_graphs)
     index = torch.arange(n, dtype=torch.int32, device=node_seg.device)
@@ -264,79 +240,206 @@ def segment_ranges(node_seg: torch.Tensor, num_graphs: int):
     return lo, hi
 
 
+@dataclass(frozen=True)
+class KnnPlan:
+    """The topology of one flat batch for one ``k``, worked out once and read
+    by every aggregation over it, forward and backward."""
+
+    positions: torch.Tensor  # [N, 3] f32, contiguous
+    node_seg: torch.Tensor  # [N] int32
+    k: int
+    num_graphs: int
+    lo: torch.Tensor  # [num_graphs + 1] int32, segment_ranges'
+    hi: torch.Tensor
+    points: torch.Tensor  # [N, 4] f32: x, y, z and sq, the kernels' candidates
+    kth: torch.Tensor  # [N] f32: each row's threshold
+    deg: torch.Tensor  # [N] int32: each row's neighbour count
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        return (self.positions, self.node_seg, self.lo, self.hi, self.points, self.kth, self.deg)
+
+
+def _check_topology(positions, node_seg, k: int) -> None:
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
+    if positions.ndim != 2 or positions.shape[1] != 3 or node_seg.ndim != 1:
+        raise ValueError(
+            f"K5 takes positions [N, 3] and node_seg [N], got {tuple(positions.shape)} "
+            f"and {tuple(node_seg.shape)}"
+        )
+    if node_seg.shape[0] != positions.shape[0]:
+        raise ValueError("K5's operands disagree on N")
+    if node_seg.dtype not in (torch.int16, torch.int32, torch.int64):
+        raise TypeError(f"K5 takes integer segment ids, got {node_seg.dtype}")
+    if node_seg.device != positions.device:
+        raise ValueError("K5's operands must all lie on one device")
+
+
+def knn_select_plain(positions, node_seg, k: int, num_graphs: int, block_rows=None) -> KnnPlan:
+    """The plain version of K5's selection: :func:`segment_ranges`,
+    :func:`knn_degree_plain`, and the points in the module's order of
+    operations."""
+    _check_topology(positions, node_seg, k)
+    pos = positions.float().contiguous()
+    seg = node_seg.to(torch.int32).contiguous()
+    lo, hi = segment_ranges(seg, num_graphs)
+    deg, kth = knn_degree_plain(pos, seg, k, num_graphs, block_rows)
+    points = torch.cat([pos, _sq_norm(pos)[:, None]], dim=1)
+    return KnnPlan(pos, seg, k, num_graphs, lo, hi, points, kth, deg)
+
+
+def knn_select(positions, node_seg, k: int, num_graphs: int) -> KnnPlan:
+    """The batch's topology for ``k`` neighbours, once: hand the plan to every
+    :func:`knn_aggregate` over the same positions and ids."""
+    if positions.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"knn_select takes CPU or CUDA tensors, got {positions.device}")
+    if use_cuda_kernels(positions):
+        return _knn_select_cuda(positions, node_seg, k, num_graphs)
+    return knn_select_plain(positions, node_seg, k, num_graphs)
+
+
+knn_select.launches = 0
+
+
+class _KnnAggregateFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plan, aggr):
+        ctx.plan_args = (plan.k, plan.num_graphs)
+        ctx.aggr = aggr
+        ctx.kernel = use_cuda_kernels(x)
+        ctx.save_for_backward(*plan.tensors())
+        if ctx.kernel:
+            return _knn_aggregate_cuda(x, plan, aggr)
+        return knn_aggregate_plain(
+            x, plan.positions, plan.node_seg, plan.k, plan.num_graphs, aggr, kth=plan.kth
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        k, num_graphs = ctx.plan_args
+        positions, node_seg, lo, hi, points, kth, deg = ctx.saved_tensors
+        if ctx.kernel:
+            plan = KnnPlan(positions, node_seg, k, num_graphs, lo, hi, points, kth, deg)
+            dx = _knn_aggregate_bwd_cuda(g, plan, ctx.aggr)
+        else:
+            dx = knn_aggregate_bwd_plain(g, positions, node_seg, k, num_graphs, ctx.aggr, kth=kth)
+        return dx, None, None
+
+
+def knn_aggregate(
+    x, positions, node_seg, k: int, num_graphs: int, aggr: str = "add",
+    plan: Optional[KnnPlan] = None,
+):
+    """Fused kNN construction and neighbour aggregation ``[N, H]`` in ``x``'s
+    dtype, with no edge list and no ``[N, N]`` tensor on a CUDA tensor;
+    differentiable in ``x``.  ``plan``, where given, is :func:`knn_select`'s
+    for the same ``positions``, ``node_seg``, ``k`` and ``num_graphs``: the
+    call then selects nothing and reads the plan's own positions and ids.  Only
+    ``k``, ``num_graphs`` and N are checked against it: the caller answers for
+    the plan being this batch's (a plan of other positions with the same N
+    gives another graph's sums without an error)."""
+    _check_aggr(aggr)
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"knn_aggregate takes CPU or CUDA tensors, got {x.device}")
+    if plan is None:
+        _check_operands(x, positions, node_seg)
+        plan = knn_select(positions, node_seg, k, num_graphs)
+    elif (plan.k, plan.num_graphs) != (k, num_graphs) or plan.kth.shape[0] != x.shape[0]:
+        raise ValueError(
+            f"the plan is for k={plan.k}, {plan.num_graphs} graphs and {plan.kth.shape[0]} "
+            f"nodes; the call has k={k}, {num_graphs} graphs and {x.shape[0]} nodes"
+        )
+    return _KnnAggregateFn.apply(x, plan, aggr)
+
+
+knn_aggregate.launches = 0
+knn_aggregate.bwd_launches = 0
+
+
 def _check_operands(x, positions, node_seg) -> None:
     """Raise on anything K5 does not take."""
     if x.dtype not in _X_CODES:
         raise TypeError(f"K5 takes f32 or bf16 features, got {x.dtype}")
-    if x.ndim != 2 or positions.ndim != 2 or positions.shape[1] != 3 or node_seg.ndim != 1:
-        raise ValueError(
-            f"K5 takes x [N, H], positions [N, 3] and node_seg [N], got {tuple(x.shape)}, "
-            f"{tuple(positions.shape)} and {tuple(node_seg.shape)}"
-        )
-    if positions.shape[0] != x.shape[0] or node_seg.shape[0] != x.shape[0]:
+    if x.ndim != 2:
+        raise ValueError(f"K5 takes x [N, H], got {tuple(x.shape)}")
+    _check_topology(positions, node_seg, 1)
+    if positions.shape[0] != x.shape[0]:
         raise ValueError("K5's operands disagree on N")
-    if node_seg.dtype not in (torch.int16, torch.int32, torch.int64):
-        raise TypeError(f"K5 takes integer segment ids, got {node_seg.dtype}")
-    if positions.device != x.device or node_seg.device != x.device:
+    if positions.device != x.device:
         raise ValueError("K5's operands must all lie on one device")
 
 
-def _knn_aggregate_cuda(x, positions, node_seg, k: int, num_graphs: int, aggr: str = "add"):
-    """K5: the CUDA counterpart of :func:`knn_aggregate_plain`, same contract.
-    Returns ``(out, state)`` where ``state = (positions f32, node_seg int32,
-    lo, hi, kth f32 [N], deg int32 [N])`` is what the backward reads."""
+def _knn_select_cuda(positions, node_seg, k: int, num_graphs: int):
+    """K5's selection: the CUDA counterpart of :func:`knn_select_plain`, same
+    contract."""
     from point_cloud_classifier_tpu_torch.native import check, kernel_library
 
-    _check_aggr(aggr)
-    _check_operands(x, positions, node_seg)
-    if k < 1:
-        raise ValueError(f"k must be at least 1, got {k}")
-    n, width = x.shape
+    _check_topology(positions, node_seg, k)
+    n = positions.shape[0]
+    dev = positions.device
     pos = positions.float().contiguous()
     seg = node_seg.to(torch.int32).contiguous()
-    out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    kth = torch.empty((n,), dtype=torch.float32, device=x.device)
-    deg = torch.empty((n,), dtype=torch.int32, device=x.device)
-    lo, hi = torch.empty((2, num_graphs + 1), dtype=torch.int32, device=x.device)  # the entry fills them
-    state = (pos, seg, lo, hi, kth, deg)
-    if x.numel() == 0:
-        return out, state  # nothing to launch, and the backward of nothing reads no state
-    x = x.contiguous()
+    lo, hi = torch.empty((2, num_graphs + 1), dtype=torch.int32, device=dev)  # the entry fills them
+    points = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    kth = torch.empty((n,), dtype=torch.float32, device=dev)
+    deg = torch.empty((n,), dtype=torch.int32, device=dev)
+    plan = KnnPlan(pos, seg, k, num_graphs, lo, hi, points, kth, deg)
+    if n == 0:  # nothing to launch: every bucket is empty
+        lo.fill_(0)
+        hi.fill_(-1)
+        return plan
     lib = kernel_library().lib
-    with torch.cuda.device(x.device):
-        code = lib.pcc_knn_aggregate(
-            x.data_ptr(), pos.data_ptr(), seg.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            out.data_ptr(), kth.data_ptr(), deg.data_ptr(),
-            n, width, k, num_graphs, int(aggr == "mean"), _X_CODES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream,
+    with torch.cuda.device(dev):
+        code = lib.pcc_knn_select(
+            pos.data_ptr(), seg.data_ptr(), lo.data_ptr(), hi.data_ptr(), points.data_ptr(),
+            kth.data_ptr(), deg.data_ptr(), n, k, num_graphs,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     check(code)
-    knn_aggregate.launches += 1
-    return out, state
+    knn_select.launches += 1
+    return plan
 
 
-def _knn_aggregate_bwd_cuda(g, pos, seg, lo, hi, kth, deg, num_graphs: int, aggr: str = "add"):
-    """K5's backward kernel, the counterpart of
-    :func:`knn_aggregate_bwd_plain`: row ``j`` sums ``g[i]`` (``mean``:
-    ``g[i] / max(deg[i], 1)``) over the rows ``i`` of its graph that admitted
-    it, ``d2(i, j) <= kth[i]``, in index order and without atomics."""
+def _knn_gather_cuda(src, plan: KnnPlan, aggr: str, backward: bool):
     from point_cloud_classifier_tpu_torch.native import check, kernel_library
 
     _check_aggr(aggr)
-    _check_operands(g, pos, seg)
-    dx = torch.empty_like(g, memory_format=torch.contiguous_format)
-    if g.numel() == 0:
-        return dx
-    g = g.contiguous()
-    n, width = g.shape
+    _check_operands(src, plan.positions, plan.node_seg)
+    out = torch.empty_like(src, memory_format=torch.contiguous_format)
+    if src.numel() == 0:
+        return out, False
+    src = src.contiguous()
+    n, width = src.shape
     lib = kernel_library().lib
-    with torch.cuda.device(g.device):
-        code = lib.pcc_knn_aggregate_bwd(
-            g.data_ptr(), pos.data_ptr(), seg.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            kth.data_ptr(), deg.data_ptr(), dx.data_ptr(),
-            n, width, num_graphs, int(aggr == "mean"), _X_CODES[g.dtype],
-            torch.cuda.current_stream(g.device).cuda_stream,
+    with torch.cuda.device(src.device):
+        code = lib.pcc_knn_gather(
+            src.data_ptr(), plan.points.data_ptr(), plan.node_seg.data_ptr(), plan.lo.data_ptr(),
+            plan.hi.data_ptr(), plan.kth.data_ptr(), plan.deg.data_ptr(), out.data_ptr(),
+            n, width, plan.num_graphs, int(aggr == "mean"), int(backward), _X_CODES[src.dtype],
+            torch.cuda.current_stream(src.device).cuda_stream,
         )
     check(code)
-    knn_aggregate.bwd_launches += 1
+    return out, True
+
+
+def _knn_aggregate_cuda(x, plan: KnnPlan, aggr: str = "add"):
+    """K5 given a plan: the CUDA counterpart of :func:`knn_aggregate_plain`
+    with ``kth``, same contract.  Row ``i`` sums ``x[j]`` over the rows ``j`` of
+    its graph with ``d2(i, j) <= kth[i]``, in index order."""
+    out, launched = _knn_gather_cuda(x, plan, aggr, backward=False)
+    knn_aggregate.launches += launched
+    return out
+
+
+def _knn_aggregate_bwd_cuda(g, plan: KnnPlan, aggr: str = "add"):
+    """K5's backward, the counterpart of :func:`knn_aggregate_bwd_plain`: row
+    ``j`` sums ``g[i]`` (``mean``: ``g[i] / max(deg[i], 1)``) over the rows
+    ``i`` of its graph that admitted it, ``d2(i, j) <= kth[i]``, in index order
+    and without atomics."""
+    dx, launched = _knn_gather_cuda(g, plan, aggr, backward=True)
+    knn_aggregate.bwd_launches += launched
     return dx

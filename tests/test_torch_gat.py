@@ -249,3 +249,86 @@ def test_kernel_operand_checks():
     wide = torch.zeros(*in_src.shape[:2], 33, dtype=torch.int32)
     with pytest.raises(ValueError, match="at most 32"):
         gat._check_operands(s_dst, s_src, wide, wide.float(), xw)
+
+
+def _out_rows_brute_force(in_src, in_w):
+    """The mirror by the kernels' slot rule, slot by slot in numpy: a slot
+    counts when ``w != 0``, its source lies in ``[0, M)`` and is not the node
+    itself, and no earlier counting slot of the node names the same source."""
+    b, m, d = in_src.shape
+    out_off = np.zeros((b, m + 1), np.int32)
+    out_dst = np.full((b, m * d), -1, np.int32)
+    for g in range(b):
+        lists = [[] for _ in range(m)]
+        for i in range(m):
+            seen = set()
+            for slot in range(d):
+                j = int(in_src[g, i, slot])
+                if float(in_w[g, i, slot]) != 0.0 and 0 <= j < m and j != i and j not in seen:
+                    seen.add(j)
+                    lists[j].append(i)  # i ascends, so each list does
+        flat = [i for dests in lists for i in dests]
+        out_off[g, 1:] = np.cumsum([len(dests) for dests in lists])
+        out_dst[g, : len(flat)] = flat
+    return out_off, out_dst
+
+
+MIRROR_CASES = {
+    **CASES,
+    "d32-tiny-id-pool": dict(seed=8, b=2, m=20, d=32, id_pool=5, frac=0.9),
+    "no-slots": dict(seed=9, b=2, m=12, d=0),
+    "all-zero-weights": dict(seed=10, b=1, m=9, frac=0.0),
+}
+
+
+@pytest.mark.parametrize("wire", ["f32-int32", "f16-int16"])
+@pytest.mark.parametrize("case", list(MIRROR_CASES))
+def test_out_rows_plain_matches_the_slot_rule(case, wire):
+    _, _, in_src, in_w, _ = _inputs(**MIRROR_CASES[case])
+    in_src = in_src.copy()
+    if in_src.size:
+        # sources outside [0, M) match no node, whatever their weight
+        in_src[:, ::3, :1] = -1
+        in_src[:, 1::5, -1:] = in_src.shape[1] + 2
+    if wire == "f16-int16":
+        in_src, in_w = in_src.astype(np.int16), in_w.astype(np.float16)
+    mirror = gat.gat_out_rows(*_torch(in_src, in_w))
+    want_off, want_dst = _out_rows_brute_force(in_src, in_w)
+    assert mirror.out_off.dtype == torch.int32 and mirror.out_dst.dtype == torch.int32
+    np.testing.assert_array_equal(mirror.out_off.numpy(), want_off)
+    np.testing.assert_array_equal(mirror.out_dst.numpy(), want_dst)
+
+
+def test_out_rows_are_the_attention_mask_transposed():
+    """Every (destination, source) pair of ``adjacency_mask`` off the diagonal
+    is in the mirror once, and nothing else is."""
+    _, _, in_src, in_w, _ = _inputs(**CASES["dedupe-self-edges-zero-w"])
+    in_src, in_w = _torch(in_src, in_w)
+    b, m, _ = in_src.shape
+    mirror = gat.gat_out_rows(in_src, in_w)
+    rebuilt = torch.zeros((b, m, m), dtype=torch.bool)
+    for g in range(b):
+        for j in range(m):
+            dests = mirror.out_dst[g, mirror.out_off[g, j]:mirror.out_off[g, j + 1]].long()
+            assert torch.equal(dests, dests.unique())  # ascending, no repeats
+            rebuilt[g, dests, j] = True
+    want = gat.adjacency_mask(in_src, in_w, m) & ~torch.eye(m, dtype=torch.bool)
+    assert torch.equal(rebuilt, want)
+
+
+def test_cpu_attention_ignores_a_mirror_and_launches_nothing():
+    arrays = _torch(*_inputs(seed=11))
+    mirror = gat.gat_out_rows(arrays[2], arrays[3])
+    with_mirror = gat.gat_attention(*arrays, mirror=mirror)
+    assert torch.equal(with_mirror, gat.gat_attention(*arrays))
+    assert gat.gat_out_rows.launches == 0 and gat.gat_attention.bwd_launches == 0
+
+
+def test_mirror_operand_checks():
+    _, _, in_src, in_w, _ = _torch(*_inputs(seed=12))
+    with pytest.raises(TypeError, match="int32/int16 in_src"):
+        gat._check_lists(in_src.long(), in_w)
+    with pytest.raises(ValueError, match=r"\[B, M, D\]"):
+        gat._check_lists(in_src, in_w[:, :, :2])
+    with pytest.raises(ValueError, match="at most 32"):
+        gat._check_lists(in_src.repeat(1, 1, 9), in_w.repeat(1, 1, 9))

@@ -340,6 +340,9 @@ GAT_CASES = {
     "f16-int16-wire": dict(m=64, wire="f16-int16"),
     "one-head": dict(m=24, h=1, c=32),
     "m1": dict(b=2, m=1, d=4),
+    # shapes the 16-byte pieces do not fit: a channel at a time
+    "three-heads-c15": dict(m=19, d=5, h=3, c=15),
+    "two-heads-c320": dict(b=1, m=20, d=4, h=2, c=320),
 }
 
 
@@ -367,7 +370,8 @@ def test_gat_kernel_matches_plain(dtype, case):
 
 # K4 against gat_attention_bwd_plain, per gradient (ds_dst, ds_src, dxw):
 # max |Δ| / max(1, max |plain|) and relative Frobenius.  f32: the same f32
-# math, the dots, the softmax sums and the atomic adds in other orders.
+# math, the dots, the softmax sums and the sums over a source's destinations in
+# other orders than a matrix product's (K4's own order is fixed).
 # bf16: dα and α are rounded to bf16 on both sides, so a dot summed in
 # another order can land on the neighbouring bf16 value (2^-8 relative) and
 # the softmax backward carries it on (the bf16 bounds allow two such steps).
@@ -384,10 +388,17 @@ def test_gat_backward_kernel_matches_plain(dtype, case):
     dev = _cuda()
     args = _gat_inputs(dev, dtype, **GAT_CASES[case])
     g = torch.from_numpy(np.random.default_rng(5).normal(size=tuple(args[-1].shape)).astype(np.float32)).to(dev, dtype)
-    before = gat.gat_attention.bwd_launches
+    before = (gat.gat_attention.bwd_launches, gat.gat_out_rows.launches)
     got = gat._gat_attention_bwd_cuda(*args, g)
     torch.cuda.synchronize()
-    assert gat.gat_attention.bwd_launches == before + 1
+    # K4 once, over a mirror of its own
+    assert (gat.gat_attention.bwd_launches, gat.gat_out_rows.launches) == (before[0] + 1, before[1] + 1)
+    # a mirror handed in is read, and gives the same bits, run after run
+    mirror = gat.gat_out_rows(args[2], args[3])
+    for _ in range(2):
+        again = gat._gat_attention_bwd_cuda(*args, g, mirror=mirror)
+        assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
+    assert gat.gat_out_rows.launches == before[1] + 2
     want = gat.gat_attention_bwd_plain(*args, g)
     for out, ref in zip(got, want, strict=True):
         assert out.shape == ref.shape and out.dtype == ref.dtype and torch.isfinite(out).all()
@@ -402,6 +413,27 @@ def test_gat_backward_kernel_matches_plain(dtype, case):
         # a row with no kept slot attends to itself only: no score gradient of
         # its own, and only neighbours that list it add to its ds_src
         assert got[0][:, :9].abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GAT_CASES))
+def test_gat_out_rows_kernel_matches_plain(case):
+    """The mirror of the in-row lists, exactly: offsets, ascending lists, -1
+    behind the last entry; out-of-range sources match no node."""
+    dev = _cuda()
+    _, _, in_src, in_w, _ = _gat_inputs(dev, torch.float32, **GAT_CASES[case])
+    in_src = in_src.clone()
+    in_src[:, ::3, :1] = -1
+    in_src[:, 1::5, -1:] = in_src.shape[1] + 2
+    before = gat.gat_out_rows.launches
+    mirror = gat.gat_out_rows(in_src, in_w)
+    torch.cuda.synchronize()
+    assert gat.gat_out_rows.launches == before + 1
+    want = gat.gat_out_rows_plain(in_src, in_w)
+    for got, ref in zip(mirror, want, strict=True):
+        assert got.dtype == ref.dtype and torch.equal(got, ref)
+    with pytest.raises(TypeError, match="int32/int16 in_src"):
+        gat.gat_out_rows(in_src.long(), in_w)
 
 
 @pytest.mark.gpu
@@ -434,6 +466,9 @@ def test_gat_function_differentiates_on_the_card_and_refuses_bad_operands(monkey
         gat.gat_attention(s_dst, s_src, wide, wide.float(), xw)
     with pytest.raises(ValueError, match="cotangent of xw's shape"):
         gat._gat_attention_bwd_cuda(s_dst, s_src, in_src, in_w, xw, xw[:, :, :64])
+    with pytest.raises(ValueError, match="mirror is of other lists"):
+        other = gat.gat_out_rows(in_src[:, :-1], in_w[:, :-1])
+        gat._gat_attention_bwd_cuda(s_dst, s_src, in_src, in_w, xw, xw, mirror=other)
 
 
 # K6 against inrow_aggregate_plain: max |Δ| / max(1, max |plain|).  f32: the
@@ -575,12 +610,13 @@ def test_gat_graph_net_kernel_route_matches_plain_route(compute_dtype):
     model = GraphNet(input_dim=4, hidden_dim=128, output_dim=1, activation="tanh", use_gat=True,
                      deepchem_style=True, compute_dtype=compute_dtype,
                      generator=torch.Generator().manual_seed(0)).to(dev).eval()
-    before = gat.gat_attention.launches
+    before = (gat.gat_attention.launches, gat.gat_out_rows.launches)
     with torch.no_grad():
         out = model(batch)
         with force_plain():
             ref = model(batch)
-    assert gat.gat_attention.launches == before + 2
+    # no backward will run, so no mirror is built
+    assert (gat.gat_attention.launches, gat.gat_out_rows.launches) == (before[0] + 2, before[1])
     tol = 1e-4 if compute_dtype == "float32" else 3e-2
     torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
 
@@ -588,14 +624,15 @@ def test_gat_graph_net_kernel_route_matches_plain_route(compute_dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "model, counts",
-    [(dict(use_gat=True), (2, 2, 0, 0)), (dict(fused_inrow=True), (0, 0, 2, 1)),
-     (dict(fused_inrow=True, local_pooling="mean"), (0, 0, 2, 1)), ({}, (0, 0, 0, 0))],
+    [(dict(use_gat=True), (2, 2, 1, 0, 0)), (dict(fused_inrow=True), (0, 0, 0, 2, 1)),
+     (dict(fused_inrow=True, local_pooling="mean"), (0, 0, 0, 2, 1)), ({}, (0, 0, 0, 0, 0))],
     ids=["gat", "graphconv-add-fused", "graphconv-mean-fused", "graphconv-add"],
 )
 def test_graph_net_train_step_kernel_route_matches_plain_route(model, counts):
     """One train step at full width from the same weights on the kernel
-    route and inside ``force_plain()``: the launch counts (conv1's input needs
-    no gradient, so K6 runs backward once), the loss and every gradient."""
+    route and inside ``force_plain()``: the launch counts (GAT: K3 and K4
+    twice each over one mirror of the lists; conv1's input needs no gradient,
+    so K6 runs backward once), the loss and every gradient."""
     from point_cloud_classifier_tpu_torch.data import GraphLoader
     from point_cloud_classifier_tpu_torch.data.synthetic import lineage_graphs
     from point_cloud_classifier_tpu_torch.models import ModelWrapper
@@ -610,7 +647,7 @@ def test_graph_net_train_step_kernel_route_matches_plain_route(model, counts):
     plain.model.load_state_dict(kernel.model.state_dict())
 
     def launches():
-        return (gat.gat_attention.launches, gat.gat_attention.bwd_launches,
+        return (gat.gat_attention.launches, gat.gat_attention.bwd_launches, gat.gat_out_rows.launches,
                 inrow_graph.inrow_aggregate.launches, inrow_graph.inrow_aggregate.bwd_launches)
 
     before = launches()
@@ -714,14 +751,17 @@ def test_knn_kernel_matches_plain_forward_and_backward(dtype, case, aggr, k):
     assert out.dtype == dx.dtype == dtype and out.shape == dx.shape == x.shape
     bound = KNN_F32_REL if dtype == torch.float32 else KNN_BF16_REL
     assert _knn_rel(out.detach(), ref) <= bound and _knn_rel(dx, ref_dx) <= bound
-    # the selection itself: degrees and thresholds equal exactly
-    _, (_, _, lo, hi, kth, deg) = knn._knn_aggregate_cuda(x, pos, seg, k, graphs, aggr)
-    ref_deg, ref_kth = knn.knn_degree_plain(pos, seg, k, graphs)
-    assert torch.equal(deg, ref_deg) and torch.equal(kth, ref_kth)
-    ref_lo, ref_hi = knn.segment_ranges(seg, graphs)
-    assert torch.equal(lo, ref_lo) and torch.equal(hi, ref_hi)
+    # the selection itself: ranges, points, degrees and thresholds equal exactly
+    plan, ref_plan = knn.knn_select(pos, seg, k, graphs), knn.knn_select_plain(pos, seg, k, graphs)
+    assert all(torch.equal(a, b) for a, b in zip(plan.tensors(), ref_plan.tensors(), strict=True))
+    # and with the plan handed in: no selection, the same bits
+    selections = knn.knn_select.launches
+    out_plan = knn.knn_aggregate(leaf, pos, seg, k, graphs, aggr, plan=plan)
+    (dx_plan,) = torch.autograd.grad(out_plan, leaf, g)
+    assert knn.knn_select.launches == selections
+    assert torch.equal(out_plan, out) and torch.equal(dx_plan, dx)
     if case == "coarse grid ties":
-        assert deg.max().item() > k
+        assert plan.deg.max().item() > k
     assert not out[seg == graphs].any() and not dx[seg == graphs].any()
 
 
@@ -741,11 +781,51 @@ def test_knn_kernel_takes_unsorted_and_int16_segment_ids():
     # ids outside [0, num_graphs] fall into the nearest bucket, as in the plain version
     wild = seg.to(torch.int32).clone()
     wild[::7], wild[3::11] = -2, graphs + 5
-    _, (_, _, lo, hi, _, _) = knn._knn_aggregate_cuda(x, pos, wild, 8, graphs, "add")
-    ref_lo, ref_hi = knn.segment_ranges(wild, graphs)
-    assert torch.equal(lo, ref_lo) and torch.equal(hi, ref_hi)
+    plan, ref_plan = knn.knn_select(pos, wild, 8, graphs), knn.knn_select_plain(pos, wild, 8, graphs)
+    assert all(torch.equal(a, b) for a, b in zip(plan.tensors(), ref_plan.tensors(), strict=True))
     out = knn.knn_aggregate(x, pos, wild, 8, graphs, "add")
     assert _knn_rel(out, knn.knn_aggregate_plain(x, pos, wild, 8, graphs, "add")) <= KNN_F32_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 8, 16, 20])
+@pytest.mark.parametrize("case", list(KNN_CASES))
+def test_knn_selection_kernel_matches_plain(case, k):
+    """Every path of the selection kernel (the smallest distances in
+    registers up to k = 8 and up to 16, rounds above) gives the plain
+    version's ranges, points, thresholds and degrees exactly."""
+    dev = _cuda()
+    _, pos, seg, graphs, _ = _knn_inputs(dev, torch.float32, case)
+    before = knn.knn_select.launches
+    plan = knn._knn_select_cuda(pos, seg, k, graphs)
+    torch.cuda.synchronize()
+    assert knn.knn_select.launches == before + 1
+    ref_plan = knn.knn_select_plain(pos, seg, k, graphs)
+    for got, ref in zip(plan.tensors(), ref_plan.tensors(), strict=True):
+        assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [1, 5, 12, 36, 260])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_knn_kernel_takes_any_width_and_one_long_graph(dtype, width):
+    """Widths that are no multiple of 16 bytes, narrower than a warp's 32
+    pieces and wider; one graph longer than the selection's shared-memory
+    stage (1,024 candidates)."""
+    dev = _cuda()
+    rng = np.random.default_rng(width)
+    n = 2500
+    pos = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
+    seg = torch.from_numpy(np.r_[np.zeros(2300), np.ones(150), np.full(50, 2)].astype(np.int32)).to(dev)
+    x = torch.from_numpy(rng.normal(size=(n, width)).astype(np.float32)).to(dev, dtype)
+    plan, ref_plan = knn.knn_select(pos, seg, 8, 2), knn.knn_select_plain(pos, seg, 8, 2)
+    assert all(torch.equal(a, b) for a, b in zip(plan.tensors(), ref_plan.tensors(), strict=True))
+    bound = KNN_F32_REL if dtype == torch.float32 else KNN_BF16_REL
+    for aggr in ("add", "mean"):
+        out = knn._knn_aggregate_cuda(x, plan, aggr)
+        dx = knn._knn_aggregate_bwd_cuda(x, plan, aggr)
+        assert _knn_rel(out, knn.knn_aggregate_plain(x, pos, seg, 8, 2, aggr)) <= bound
+        assert _knn_rel(dx, knn.knn_aggregate_bwd_plain(x, pos, seg, 8, 2, aggr)) <= bound
 
 
 @pytest.mark.gpu
@@ -759,13 +839,15 @@ def test_knn_function_launches_k5_and_never_the_plain_version(monkeypatch):
     monkeypatch.setattr(knn, "knn_aggregate_plain", refuse)
     monkeypatch.setattr(knn, "knn_aggregate_bwd_plain", refuse)
     monkeypatch.setattr(knn, "_adjacency_rows", refuse)  # no [rows, N] block either
-    before = (knn.knn_aggregate.launches, knn.knn_aggregate.bwd_launches)
+    monkeypatch.setattr(knn, "knn_select_plain", refuse)
+    before = (knn.knn_select.launches, knn.knn_aggregate.launches, knn.knn_aggregate.bwd_launches)
     with torch.no_grad():
         knn.knn_aggregate(x, pos, seg, 8, graphs)
     x.requires_grad_()
     knn.knn_aggregate(x, pos, seg, 8, graphs, "mean").sum().backward()
     torch.cuda.synchronize()
-    assert (knn.knn_aggregate.launches, knn.knn_aggregate.bwd_launches) == (before[0] + 2, before[1] + 1)
+    assert (knn.knn_select.launches, knn.knn_aggregate.launches, knn.knn_aggregate.bwd_launches) == (
+        before[0] + 2, before[1] + 2, before[2] + 1)
     with pytest.raises(TypeError, match="f32 or bf16"):
         knn.knn_aggregate(x.detach().half(), pos, seg, 8, graphs)
     with pytest.raises(ValueError, match="disagree on N"):
@@ -785,19 +867,19 @@ def _knn_flat_batch(seg_encoding="ids"):
 @pytest.mark.parametrize("seg_encoding", ["ids", "counts"])
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_knn_graph_net_kernel_route_matches_plain_route(compute_dtype, seg_encoding):
-    """GraphNet(knn_k=8) at full width on a flat batch: two K5 launches per
-    forward, logits as on the plain route."""
+    """GraphNet(knn_k=8) at full width on a flat batch: one selection and two
+    K5 aggregations per forward, logits as on the plain route."""
     dev = _cuda()
     batch = {k: torch.from_numpy(v).to(dev) for k, v in _knn_flat_batch(seg_encoding).items()}
     model = GraphNet(input_dim=4, hidden_dim=128, output_dim=1, activation="tanh", knn_k=8,
                      deepchem_style=True, compute_dtype=compute_dtype,
                      generator=torch.Generator().manual_seed(0)).to(dev).eval()
-    before = knn.knn_aggregate.launches
+    before = (knn.knn_select.launches, knn.knn_aggregate.launches)
     with torch.no_grad():
         out = model(batch)
         with force_plain():
             ref = model(batch)
-    assert knn.knn_aggregate.launches == before + 2
+    assert (knn.knn_select.launches, knn.knn_aggregate.launches) == (before[0] + 1, before[1] + 2)
     tol = 1e-4 if compute_dtype == "float32" else 3e-2
     torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
 
@@ -806,9 +888,9 @@ def test_knn_graph_net_kernel_route_matches_plain_route(compute_dtype, seg_encod
 @pytest.mark.parametrize("local_pooling", ["add", "mean"])
 def test_knn_graph_net_train_step_kernel_route_matches_plain_route(local_pooling):
     """One train step at full width from the same weights on the kernel route
-    and inside ``force_plain()``: K5 twice forward and once backward (conv1's
-    input needs no gradient), the loss and every gradient; the edge arrays
-    stay on the host."""
+    and inside ``force_plain()``: one selection, K5 twice forward and once
+    backward (conv1's input needs no gradient), the loss and every gradient;
+    the edge arrays stay on the host."""
     from point_cloud_classifier_tpu_torch.models import ModelWrapper
 
     _cuda()
@@ -819,14 +901,17 @@ def test_knn_graph_net_train_step_kernel_route_matches_plain_route(local_pooling
     plain = ModelWrapper(GraphNet(**cfg, generator=torch.Generator().manual_seed(1)), 1e-3, 1, device="cuda")
     plain.model.load_state_dict(kernel.model.state_dict())
     assert sorted(kernel._put(batch)) == ["node_seg", "nodes", "y", "y_mask"]
-    before = (knn.knn_aggregate.launches, knn.knn_aggregate.bwd_launches)
+    def counts():
+        return (knn.knn_select.launches, knn.knn_aggregate.launches, knn.knn_aggregate.bwd_launches)
+
+    before = counts()
     loss = kernel.train_step(batch)
-    after = (knn.knn_aggregate.launches, knn.knn_aggregate.bwd_launches)
+    after = counts()
     with force_plain():
         ref = plain.train_step(batch)
     torch.cuda.synchronize()
-    assert after == (before[0] + 2, before[1] + 1)
-    assert (knn.knn_aggregate.launches, knn.knn_aggregate.bwd_launches) == after
+    assert after == (before[0] + 1, before[1] + 2, before[2] + 1)
+    assert counts() == after
     torch.testing.assert_close(loss, ref, rtol=1e-5, atol=1e-6)
     for (name, p), q in zip(kernel.model.named_parameters(), plain.model.parameters()):
         scale = max(1e-12, q.grad.abs().max().item())

@@ -334,3 +334,30 @@ def test_fused_inrow_without_out_rows_serves_and_refuses_to_train(name, monkeypa
     # differentiating an eval-mode forward reaches the Function's own refusal
     with pytest.raises(ValueError, match="needs the out-row lists"):
         model(_to_torch(batch)).sum().backward()
+
+
+def test_gat_forward_on_the_cpu_builds_no_mirror(monkeypatch):
+    """The lists' mirror is for the attention's backward KERNEL: a CPU forward,
+    train mode or not, differentiates the plain version and builds none."""
+    from point_cloud_classifier_tpu_torch.ops import gat as gat_ops
+
+    monkeypatch.setattr(gat_ops, "gat_out_rows",
+                        lambda *args: pytest.fail("a mirror was built on the CPU"))
+    seen = []
+    attention = graph_net_module.gat_attention
+    monkeypatch.setattr(graph_net_module, "gat_attention",
+                        lambda *args: seen.append(args[-1]) or attention(*args))
+    rng = np.random.default_rng(3)
+    b, m, d = 2, 12, 4
+    batch = {
+        "nodes": torch.from_numpy(rng.normal(size=(b, m, 4)).astype(np.float32)),
+        "node_mask": torch.ones(b, m),
+        "in_deg": torch.ones(b, m),
+        "in_src": torch.from_numpy(rng.integers(0, m, size=(b, m, d)).astype(np.int32)),
+        "in_w": torch.from_numpy((rng.random((b, m, d)) < 0.5).astype(np.float32)),
+    }
+    model = GraphNet(input_dim=4, hidden_dim=16, output_dim=1, activation="tanh", use_gat=True,
+                     gat_heads=4, generator=torch.Generator().manual_seed(0))
+    model(batch, train=True).sum().backward()
+    assert seen == [None, None]  # both convolutions were handed no mirror
+    assert all(p.grad is not None for p in model.parameters())

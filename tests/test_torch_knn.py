@@ -284,3 +284,83 @@ def test_no_gradient_flows_to_positions():
     out = knn.knn_aggregate(leaf, p, _t(seg), 4, graphs, "add")
     out.sum().backward()
     assert p.grad is None and leaf.grad is not None
+
+
+@pytest.mark.parametrize("k", [1, 4, 9])
+def test_select_plain_is_the_ranges_the_degrees_and_the_thresholds(k):
+    """``knn_select``'s plain version carries ``segment_ranges`` and
+    ``knn_degree_plain`` unchanged, and the points in the module's order of
+    operations."""
+    _, pos, seg, graphs = _inputs(seed=16)
+    plan = knn.knn_select(_t(pos), _t(seg).to(torch.int16), k, graphs)
+    lo, hi = knn.segment_ranges(_t(seg), graphs)
+    deg, kth = knn.knn_degree_plain(_t(pos), _t(seg), k, graphs)
+    assert (plan.k, plan.num_graphs) == (k, graphs)
+    assert plan.node_seg.dtype == torch.int32 and torch.equal(plan.node_seg, _t(seg))
+    assert torch.equal(plan.positions, _t(pos))
+    assert torch.equal(plan.lo, lo) and torch.equal(plan.hi, hi)
+    assert plan.deg.dtype == torch.int32 and torch.equal(plan.deg, deg)
+    assert plan.kth.dtype == torch.float32 and torch.equal(plan.kth, kth)
+    sq = (pos[:, 0] * pos[:, 0] + pos[:, 1] * pos[:, 1]) + pos[:, 2] * pos[:, 2]
+    assert torch.equal(plan.points, _t(np.concatenate([pos, sq[:, None]], axis=1)))
+
+
+def test_select_plain_on_short_graphs_ties_and_padding():
+    """Rows with fewer than k candidates get the f32 maximum, ties at the k-th
+    distance raise the degree over k, padding rows have degree 0."""
+    _, pos, seg, graphs = _inputs(n=40, graphs=9, seed=17, grid=2, span=1, padding=6)
+    plan = knn.knn_select(_t(pos), _t(seg), 4, graphs)
+    sizes = np.bincount(seg[seg < graphs], minlength=graphs)
+    short = np.isin(seg, np.flatnonzero(sizes < 5)) & (seg < graphs)
+    big = torch.finfo(torch.float32).max
+    assert short.any() and bool((plan.kth[_t(short)] == big).all())
+    assert bool((plan.deg[_t(short)] == _t(sizes[seg[short]] - 1)).all())
+    assert int(plan.deg.max()) > 4
+    assert bool((plan.deg[-6:] == 0).all()) and bool((plan.kth[-6:] == big).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("aggr", ["add", "mean"])
+def test_a_plan_changes_no_bit_forward_or_gradient(aggr, dtype):
+    x, pos, seg, graphs = _inputs(seed=18, grid=2, span=3)  # ties at the k-th distance too
+    g = _t(np.random.default_rng(19).normal(size=x.shape).astype(np.float32)).to(dtype)
+    plan = knn.knn_select(_t(pos), _t(seg), 4, graphs)
+    outs = []
+    for kwargs in ({}, {"plan": plan}):
+        leaf = _t(x).to(dtype).requires_grad_()
+        out = knn.knn_aggregate(leaf, _t(pos), _t(seg), 4, graphs, aggr, **kwargs)
+        outs.append((out.detach(), torch.autograd.grad(out, leaf, g)[0]))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    assert outs[1][0].dtype == dtype and outs[1][1].dtype == dtype
+
+
+def test_with_a_plan_nothing_is_selected_again(monkeypatch):
+    x, pos, seg, graphs = _inputs(seed=20)
+    plan = knn.knn_select(_t(pos), _t(seg), 4, graphs)
+    calls = []
+    monkeypatch.setattr(knn, "knn_select", lambda *a, **kw: calls.append(a) or plan)
+    monkeypatch.setattr(torch, "topk", lambda *a, **kw: pytest.fail("selected again"))
+    leaf = _t(x).requires_grad_()
+    knn.knn_aggregate(leaf, _t(pos), _t(seg), 4, graphs, "mean", plan=plan).sum().backward()
+    assert calls == [] and leaf.grad is not None
+    monkeypatch.undo()
+    knn.knn_aggregate(_t(x), _t(pos), _t(seg), 4, graphs, "mean")  # selects for itself
+
+
+@pytest.mark.parametrize(
+    "k, graphs_off, rows", [(5, 0, None), (4, 1, None), (4, 0, 10)], ids=["k", "graphs", "nodes"]
+)
+def test_a_plan_of_another_batch_raises(k, graphs_off, rows):
+    x, pos, seg, graphs = _inputs(seed=21)
+    plan = knn.knn_select(_t(pos), _t(seg), 4, graphs)
+    with pytest.raises(ValueError, match="the plan is for"):
+        knn.knn_aggregate(_t(x)[:rows], _t(pos)[:rows], _t(seg)[:rows], k, graphs + graphs_off, "add", plan=plan)
+
+
+def test_inside_force_plain_the_selection_is_the_plain_version():
+    _, pos, seg, graphs = _inputs(seed=22)
+    want = knn.knn_select_plain(_t(pos), _t(seg), 4, graphs)
+    with force_plain():
+        got = knn.knn_select(_t(pos), _t(seg), 4, graphs)
+    assert all(torch.equal(a, b) for a, b in zip(got.tensors(), want.tensors(), strict=True))
+    assert knn.knn_select.launches == 0

@@ -374,3 +374,42 @@ def test_train_model_and_resume_training(data_dir, tmp_path):
     for key, value in resumed.model.state_dict().items():
         if not key.endswith("num_batches_tracked"):
             assert not torch.equal(value, final[key]), f"{key} did not move after the resume"
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_one_selection_per_forward_serves_both_convolutions(monkeypatch, train):
+    """The flat forward selects the topology once and hands that plan to both
+    aggregations; the logits and the gradients are those of two calls that
+    each select for themselves."""
+    from point_cloud_classifier_tpu_torch.models import graph_net as graph_net_module
+
+    batch = _to_torch(_flat_batch(seed=11))
+    model = GraphNet(**_model_cfg(), generator=torch.Generator().manual_seed(2))
+    selections, plans = [], []
+
+    def select(*args):
+        selections.append(args)
+        return knn.knn_select(*args)
+
+    def aggregate(h, positions, node_seg, k, num_graphs, aggr, plan):
+        plans.append(plan)
+        return knn.knn_aggregate(h, positions, node_seg, k, num_graphs, aggr, plan)
+
+    monkeypatch.setattr(graph_net_module, "knn_select", select)
+    monkeypatch.setattr(graph_net_module, "knn_aggregate", aggregate)
+    logits = model(batch, train=train)
+    logits.sum().backward()
+    grads = [p.grad.clone() for p in model.parameters()]
+    assert len(selections) == 1 and len(plans) == 2 and plans[0] is plans[1] is not None
+    assert plans[0].k == _model_cfg()["knn_k"] and plans[0].num_graphs == batch["y"].shape[0]
+
+    # the same forward with every aggregation selecting for itself
+    monkeypatch.setattr(graph_net_module, "knn_select", lambda *args: None)
+    monkeypatch.setattr(graph_net_module, "knn_aggregate", knn.knn_aggregate)
+    model.zero_grad()
+    if train:  # the first forward moved the running statistics
+        model.load_state_dict(GraphNet(**_model_cfg(), generator=torch.Generator().manual_seed(2)).state_dict())
+    alone = model(batch, train=train)
+    alone.sum().backward()
+    assert torch.equal(alone, logits)
+    assert all(torch.equal(p.grad, g) for p, g in zip(model.parameters(), grads))
