@@ -41,7 +41,10 @@ result):
    ``gat_attention_plain`` on the card, f32 and bf16, at ragged M, in-row
    widths D = 4, 8 and 32, duplicate sources, self-edges, zero weights and
    isolated nodes, the fp16/int16 wire, the config batch (32 lineage graphs
-   of 160-288 nodes) and the flagship B=256 graphs of 256 nodes, H=4, C=128;
+   of 160-288 nodes) and the flagship B=256 graphs of 256 nodes, H=4, C=128,
+   and at H=4, C=100 and H=3, C=96: every form of K3 (the piece form with a
+   node or two nodes a warp, the channel form), each line naming its form,
+   each case run twice for equal bits;
 9. graph serving slice: for GAT and for GraphConv add at the full width of
    ``configs/graph_net.yaml``, ``factory.get_model("graph_net", cfg,
    run_dir)`` on a JAX-format ``best_model.pt`` with seeded random weights,
@@ -49,8 +52,9 @@ result):
    loader on a seeded synthetic S2PG cache at batch 32, held against the
    plain route (``force_plain()``), with K3's launch count (2 per GAT batch);
 10. graph times: K3 against its plain version at B=32 and B=256, f32 and
-   bf16; ``predict`` per batch on both routes; and a ``torch.profiler``
-   trace of the B=256 GAT predict (the device's idle share);
+   bf16, by CUDA events and by the profiler's device rows; ``predict`` per
+   batch on both routes; and a ``torch.profiler`` trace of the B=256 GAT
+   predict (the device's idle share);
 11. GAT backward kernel against plain: the backward of ``gat_attention``
    (kernel K4) against ``gat_attention_bwd_plain`` at K3's seven cases, f32
    and bf16, each of ``ds_dst``, ``ds_src`` and ``dxw``; at every case the
@@ -62,7 +66,9 @@ result):
    against ``inrow_aggregate_plain``, forward and backward (the Function
    over the out-row lists), add and mean, f32 and bf16, at the config batch
    (B=32, M=288, D=8, H=128), B=256, the fp16/int16 wire, D=32 lists,
-   isolated nodes, an M that is no power of two, and duplicate sources;
+   isolated nodes, an M that is no power of two, and duplicate sources, at
+   width 128 and at conv1's width 4 (and width 5): every layout of K6, each
+   line naming its own, each case run twice for equal bits both ways;
 13. graph training slice: ``train.train_model("graph_net", "s2pg", cfg)`` at
    the full width of ``configs/graph_net.yaml`` on a seeded synthetic S2PG
    cache at batch 32, 3 epochs for GAT (K3 forward, K4 backward) and for
@@ -71,10 +77,11 @@ result):
    losses, the val accuracy and the checkpoints checked; then five steps of
    each kernel route against its plain route from the same weights, and the
    fused model on batches without out-rows (K6 serves, a train step raises);
-14. graph training times: K4 and K6 against their plain versions at B=32
-   and B=256, f32 and bf16; the train step per batch on the kernel and plain
-   routes; packing with and without the out-rows; and a ``torch.profiler``
-   trace of the B=256 f32 GAT train step;
+14. graph training times: K4 and K6 (widths 128 and 4, by events and by the
+   profiler's device rows) against their plain versions at B=32 and B=256,
+   f32 and bf16; the train step per batch on the kernel and plain routes;
+   packing with and without the out-rows; and ``torch.profiler`` traces of
+   the B=256 f32 GAT and fused GraphConv train steps;
 15. kNN aggregation kernel against plain: ``knn_aggregate`` (kernel K5)
    against ``knn_aggregate_plain`` and, through ``torch.autograd.grad``,
    ``knn_aggregate_bwd_plain``; f32 and bf16, add and mean, k = 1 and 8; at
@@ -137,6 +144,7 @@ from point_cloud_classifier_tpu_torch.data.synthetic import (
     write_s2pg_cache,
     write_s2ppc_cache,
 )
+from point_cloud_classifier_tpu_torch.graph_kernel_times import device_ms
 from point_cloud_classifier_tpu_torch.models import GraphNet
 from point_cloud_classifier_tpu_torch.native import kernel_library
 from point_cloud_classifier_tpu_torch.ops.dispatch import force_plain
@@ -150,6 +158,7 @@ from point_cloud_classifier_tpu_torch.ops.gat import (
     _gat_attention_bwd_cuda,
     _gat_out_rows_cuda,
     adjacency_mask,
+    attention_form,
     gat_attention,
     gat_attention_bwd_plain,
     gat_attention_plain,
@@ -158,6 +167,7 @@ from point_cloud_classifier_tpu_torch.ops.gat import (
 )
 from point_cloud_classifier_tpu_torch.ops.inrow_graph import (
     _inrow_aggregate_cuda,
+    aggregate_form,
     inrow_aggregate,
     inrow_aggregate_plain,
 )
@@ -830,6 +840,10 @@ def times_phase(smi: str, run_dir: str):
     return config_times
 
 
+def _shown(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def _device_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
@@ -888,8 +902,10 @@ def _graph_batch(graphs, batch_size, transfer_dtype="float32"):
 
 
 def gat_inputs(case: str, dtype, seed: int = SEED):
-    """(s_dst, s_src, in_src, in_w, xw) on the card for one K3 case."""
+    """(s_dst, s_src, in_src, in_w, xw) on the card for one K3 case: H=4 heads
+    over C=128 channels unless the case names others."""
     rng = np.random.default_rng(seed)
+    heads, channels = GAT_SHAPES.get(case, (GAT_HEADS, GAT_C))
     wire = {"config B=32": (GRAPH_B, 160, 288, "float32"),
             "config B=32 fp16/int16 wire": (GRAPH_B, 160, 288, "float16"),
             "flagship B=256 M=256": (FLAGSHIP_GRAPHS, 256, 256, "float32")}
@@ -903,20 +919,34 @@ def gat_inputs(case: str, dtype, seed: int = SEED):
         # so most rows hold duplicates and self-edges; "isolated" empties
         # every slot of the first 9 nodes
         b, m, d = {"ragged M=37 D=4": (5, 37, 4), "ragged M=61 D=8": (3, 61, 8),
-                   "D=32 tiny id pool": (3, 45, 32), "isolated D=8": (2, 40, 8)}[case]
+                   "D=32 tiny id pool": (3, 45, 32), "isolated D=8": (2, 40, 8),
+                   "H=4 C=100 M=53 D=8": (3, 53, 8), "H=3 C=96 M=45 D=8": (3, 45, 8)}[case]
         in_src = rng.integers(0, 6 if "tiny" in case else m, size=(b, m, d)).astype(np.int32)
         in_w = (rng.random((b, m, d)) * (rng.random((b, m, d)) < 0.6)).astype(np.float32)
         if "isolated" in case:
             in_w[:, :9] = 0.0
     dev = torch.device("cuda")
-    s_dst, s_src = (torch.from_numpy(rng.normal(size=(b, m, GAT_HEADS)).astype(np.float32)).to(dev)
+    s_dst, s_src = (torch.from_numpy(rng.normal(size=(b, m, heads)).astype(np.float32)).to(dev)
                     for _ in range(2))
-    xw = torch.from_numpy(rng.normal(size=(b, m, GAT_C)).astype(np.float32)).to(dev, dtype)
+    xw = torch.from_numpy(rng.normal(size=(b, m, channels)).astype(np.float32)).to(dev, dtype)
     return s_dst, s_src, torch.from_numpy(in_src).to(dev), torch.from_numpy(in_w).to(dev), xw
 
 
+# the cases reach every form of K3 (ops/gat.py:attention_form): the piece
+# form with two pieces a lane (f32) and one (bf16) at the configs' shape and
+# with three heads, and the channel form at D=32 with four heads and at a
+# head of 25 channels
 GAT_CASES = ("config B=32", "config B=32 fp16/int16 wire", "ragged M=37 D=4", "ragged M=61 D=8",
-             "D=32 tiny id pool", "isolated D=8", "flagship B=256 M=256")
+             "D=32 tiny id pool", "isolated D=8", "H=4 C=100 M=53 D=8", "H=3 C=96 M=45 D=8",
+             "flagship B=256 M=256")
+GAT_SHAPES = {"H=4 C=100 M=53 D=8": (4, 100), "H=3 C=96 M=45 D=8": (3, 96)}
+
+
+def gat_form(args) -> str:
+    """The form K3 takes for these inputs, as ops/gat.py chooses it."""
+    s_dst, _, in_src, _, xw = args
+    per = attention_form(s_dst.shape[-1], xw.shape[-1], in_src.shape[-1], xw.dtype)
+    return f"piece form, two nodes a warp, {per} piece{'s' if per > 1 else ''} a lane" if per else "channel form"
 
 
 def gat_kernel_phase():
@@ -927,7 +957,10 @@ def gat_kernel_phase():
         for dtype in (torch.float32, torch.bfloat16):
             args = gat_inputs(case, dtype)
             out = gat_attention(*args)
+            again = gat_attention(*args)
             torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                raise AssertionError(f"K3 {case} {dtype}: two runs on the same inputs differ")
             ref = gat_attention_plain(*args)
             torch.cuda.synchronize()
             if out.shape != ref.shape or out.dtype != ref.dtype or not torch.isfinite(out).all():
@@ -943,8 +976,8 @@ def gat_kernel_phase():
                 bounds = f"max_rel bound {GAT_BF16_REL:.0e}, rel_fro bound {GAT_BF16_FRO:.0e}"
                 ok = rel <= GAT_BF16_REL and fro <= GAT_BF16_FRO
             print(f"kernel K3 {case} B,M,D={tuple(args[2].shape)} in_w {str(args[3].dtype)[6:]}, "
-                  f"in_src {str(args[2].dtype)[6:]}, xw {str(dtype)[6:]}: max_abs_err {err:.3e}, "
-                  f"max_rel_err {rel:.3e}, rel_fro {fro:.3e} ({bounds})")
+                  f"in_src {str(args[2].dtype)[6:]}, xw {str(dtype)[6:]} [{gat_form(args)}]: max_abs_err "
+                  f"{err:.3e}, max_rel_err {rel:.3e}, rel_fro {fro:.3e} ({bounds}); two runs torch.equal")
             if not ok:
                 raise AssertionError(f"K3 disagrees with plain: {case} {dtype} {(err, rel, fro)}")
             if (case, dtype) == ("config B=32", torch.float32):
@@ -1060,8 +1093,10 @@ def graph_times_phase(smi: str, run_dir: str):
             with torch.no_grad():
                 plain_ms = cuda_ms(lambda: gat_attention_plain(*args))
                 kernel_ms = cuda_ms(lambda: gat_attention(*args))
+                device = device_ms(lambda: gat_attention(*args))[0]
             print(f"time gat_attention {case} B,M,D={tuple(args[2].shape)} H={GAT_HEADS} C={GAT_C} "
-                  f"{str(dtype)[6:]}: K3 {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms [{smi}]")
+                  f"{str(dtype)[6:]} [{gat_form(args)}]: K3 {kernel_ms:.4f} ms by events, "
+                  f"{_shown(device)} a launch on the profiler's device rows; plain {plain_ms:.4f} ms [{smi}]")
             if dtype == torch.float32:
                 bound = gat_bound(args, backward=False)
                 print(f"bound gat_attention {case} f32: K3 {bound[0]:.4f} ms by {bound[1]}; no single "
@@ -1220,16 +1255,39 @@ def _out_rows(in_src, in_w):
     return out_dst, out_w
 
 
-INROW_CASES = ("config B=32", "config B=32 fp16/int16 wire", "flagship B=256", "D=32 int16/fp16 lists",
-               "isolated D=8", "ragged M=37 D=4")
 INROW_WIDTH = GRAPH_CONFIG["model"]["hidden_dim"]
+CONV1_WIDTH = GRAPH_CONFIG["model"]["input_dim"]  # conv1 aggregates the input features
+# K6's cases: name -> (lists, width).  They reach every layout
+# (ops/inrow_graph.py:aggregate_form): 16-byte pieces with two nodes a warp
+# (width 128 f32) and four (128 bf16); a channel a piece with 16 nodes a
+# warp (width 4) and 8 (width 5).
+INROW_CASES = {
+    "config B=32": ("config B=32", INROW_WIDTH),
+    "config B=32 fp16/int16 wire": ("config B=32 fp16/int16 wire", INROW_WIDTH),
+    "flagship B=256": ("flagship B=256", INROW_WIDTH),
+    "D=32 int16/fp16 lists": ("D=32 int16/fp16 lists", INROW_WIDTH),
+    "isolated D=8": ("isolated D=8", INROW_WIDTH),
+    "ragged M=37 D=4": ("ragged M=37 D=4", INROW_WIDTH),
+    "config B=32 width 4": ("config B=32", CONV1_WIDTH),
+    "flagship B=256 width 4": ("flagship B=256", CONV1_WIDTH),
+    "D=32 int16/fp16 lists width 4": ("D=32 int16/fp16 lists", CONV1_WIDTH),
+    "isolated D=8 width 4": ("isolated D=8", CONV1_WIDTH),
+    "ragged M=37 D=4 width 4": ("ragged M=37 D=4", CONV1_WIDTH),
+    "config B=32 width 5": ("config B=32", 5),
+}
 
 
-def inrow_inputs(case: str, dtype, seed: int = SEED):
-    """(h, in_src, in_w, out_dst, out_w) on the card for one K6 case: the
-    loader's weighted batches with their out-rows, or hand-built lists in
-    which no source repeats within a row (as in the loader's merged batches)
-    with their mirror."""
+def inrow_layout(h) -> str:
+    """K6's layout for these features, as ops/inrow_graph.py chooses it."""
+    vec, lanes = aggregate_form(h.shape[-1], h.dtype)
+    return f"{vec} channel{'s' if vec > 1 else ''} a piece, two pieces a lane, {lanes} lane{'s' if lanes > 1 else ''} a node"
+
+
+def inrow_inputs(case: str, dtype, seed: int = SEED, width: int = INROW_WIDTH):
+    """(h, in_src, in_w, out_dst, out_w) on the card for one K6 list case at
+    ``width``: the loader's weighted batches with their out-rows, or
+    hand-built lists in which no source repeats within a row (as in the
+    loader's merged batches) with their mirror."""
     rng = np.random.default_rng(seed)
     wire = {"config B=32": (GRAPH_B, "float32"), "config B=32 fp16/int16 wire": (GRAPH_B, "float16"),
             "flagship B=256": (FLAGSHIP_GRAPHS, "float32")}
@@ -1252,7 +1310,7 @@ def inrow_inputs(case: str, dtype, seed: int = SEED):
         lists = [in_src, in_w, *_out_rows(in_src, in_w)]
     dev = torch.device("cuda")
     b, m, _ = lists[0].shape
-    h = torch.from_numpy(rng.normal(size=(b, m, INROW_WIDTH)).astype(np.float32)).to(dev, dtype)
+    h = torch.from_numpy(rng.normal(size=(b, m, width)).astype(np.float32)).to(dev, dtype)
     return (h, *(torch.from_numpy(a).to(dev) for a in lists))
 
 
@@ -1264,17 +1322,22 @@ def inrow_kernel_phase():
     """K6 against inrow_aggregate_plain, forward and backward, at every case;
     returns the config-shape f32 "add" max |Δ| (forward and backward)."""
     config_err = None
-    for case in INROW_CASES:
+    for case, (lists, width) in INROW_CASES.items():
         for dtype in (torch.float32, torch.bfloat16):
             for aggr in ("add", "mean"):
-                h, in_src, in_w, out_dst, out_w = inrow_inputs(case, dtype)
+                h, in_src, in_w, out_dst, out_w = inrow_inputs(lists, dtype, width=width)
                 g = torch.from_numpy(
                     np.random.default_rng(SEED + 6).normal(size=tuple(h.shape)).astype(np.float32)
                 ).to(h.device, dtype)
                 h.requires_grad_()
                 out = inrow_aggregate(h, in_src, in_w, out_dst, out_w, aggr)
                 (dh,) = torch.autograd.grad(out, h, g)
+                # again: a sum in slot order, no atomics, the same bits both ways
+                out_again = inrow_aggregate(h, in_src, in_w, out_dst, out_w, aggr)
+                (dh_again,) = torch.autograd.grad(out_again, h, g)
                 torch.cuda.synchronize()
+                if not (torch.equal(out, out_again) and torch.equal(dh, dh_again)):
+                    raise AssertionError(f"K6 {case} {dtype} {aggr}: two runs on the same inputs differ")
                 # plain forward; plain backward = the Function inside
                 # force_plain() (inrow_aggregate_plain over the out-rows, with
                 # the Function's rounding), itself held to the autograd of
@@ -1293,11 +1356,11 @@ def inrow_kernel_phase():
                     raise AssertionError(f"K6 {case} {dtype} {aggr}: bad output {tuple(out.shape)} {out.dtype}")
                 fwd, bwd = _errors(out.detach(), ref), _errors(dh, ref_dh)
                 auto = _max_rel(ref_dh, auto_dh)
-                print(f"kernel K6 {case} {aggr} B,M,D={tuple(in_src.shape)} Do={out_dst.shape[-1]} "
-                      f"in_w {str(in_w.dtype)[6:]}, h {str(dtype)[6:]}: forward max_abs_err {fwd[0]:.3e} "
-                      f"max_rel_err {fwd[1]:.3e}; backward max_abs_err {bwd[0]:.3e} max_rel_err {bwd[1]:.3e} "
-                      f"(bound {bound:.0e}); plain backward against the plain forward's autograd "
-                      f"max_rel_err {auto:.3e} (bound {auto_bound:.0e})")
+                print(f"kernel K6 {case} {aggr} B,M,D={tuple(in_src.shape)} Do={out_dst.shape[-1]} width {width} "
+                      f"in_w {str(in_w.dtype)[6:]}, h {str(dtype)[6:]} [{inrow_layout(h)}]: forward max_abs_err "
+                      f"{fwd[0]:.3e} max_rel_err {fwd[1]:.3e}; backward max_abs_err {bwd[0]:.3e} max_rel_err "
+                      f"{bwd[1]:.3e} (bound {bound:.0e}); plain backward against the plain forward's autograd "
+                      f"max_rel_err {auto:.3e} (bound {auto_bound:.0e}); two runs torch.equal both ways")
                 if not (fwd[1] <= bound and bwd[1] <= bound and auto <= auto_bound):
                     raise AssertionError(f"K6 disagrees with plain: {case} {dtype} {aggr}")
                 if "isolated" in case and out[:, :9].abs().max().item() != 0.0:
@@ -1309,14 +1372,15 @@ def inrow_kernel_phase():
     rng = np.random.default_rng(SEED + 7)
     in_src = torch.from_numpy(rng.integers(0, 6, size=(3, 45, 8)).astype(np.int32)).cuda()
     in_w = torch.from_numpy((rng.random((3, 45, 8)) * (rng.random((3, 45, 8)) < 0.7)).astype(np.float32)).cuda()
-    h = torch.from_numpy(rng.normal(size=(3, 45, INROW_WIDTH)).astype(np.float32)).cuda()
-    for aggr in ("add", "mean"):
-        with torch.no_grad():
-            err = _errors(inrow_aggregate(h, in_src, in_w, aggr=aggr), inrow_aggregate_plain(h, in_src, in_w, aggr))
-        print(f"kernel K6 duplicate sources (6-id pool, D=8) {aggr} f32: forward max_abs_err {err[0]:.3e} "
-              f"max_rel_err {err[1]:.3e} (bound 1e-05)")
-        if not err[1] <= 1e-5:
-            raise AssertionError(f"K6 disagrees with plain on duplicate sources: {aggr} {err}")
+    for width in (INROW_WIDTH, CONV1_WIDTH):
+        h = torch.from_numpy(rng.normal(size=(3, 45, width)).astype(np.float32)).cuda()
+        for aggr in ("add", "mean"):
+            with torch.no_grad():
+                err = _errors(inrow_aggregate(h, in_src, in_w, aggr=aggr), inrow_aggregate_plain(h, in_src, in_w, aggr))
+            print(f"kernel K6 duplicate sources (6-id pool, D=8) width {width} {aggr} f32 [{inrow_layout(h)}]: "
+                  f"forward max_abs_err {err[0]:.3e} max_rel_err {err[1]:.3e} (bound 1e-05)")
+            if not err[1] <= 1e-5:
+                raise AssertionError(f"K6 disagrees with plain on duplicate sources: width {width} {aggr} {err}")
     return config_err
 
 
@@ -1515,18 +1579,25 @@ def graph_train_times_phase(smi: str):
                     config_times["gat_attention_bwd"] = dict(
                         ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=None,
                         mirror_ms=mirror_ms)
-    for case in ("config B=32", "flagship B=256"):
+    # K6 at conv2's width (hidden) and at conv1's (the input features); on
+    # the main path the backward runs at the hidden width only
+    for case, width in (("config B=32", INROW_WIDTH), ("config B=32", CONV1_WIDTH),
+                        ("flagship B=256", INROW_WIDTH), ("flagship B=256", CONV1_WIDTH)):
         for dtype in (torch.float32, torch.bfloat16):
-            h, in_src, in_w, out_dst, out_w = inrow_inputs(case, dtype)
+            h, in_src, in_w, out_dst, out_w = inrow_inputs(case, dtype, width=width)
             g = torch.randn(h.shape, device="cuda").to(dtype)
             with torch.no_grad():
                 plain_ms = cuda_ms(lambda: inrow_aggregate_plain(h, in_src, in_w, "add"))
                 kernel_ms = cuda_ms(lambda: _inrow_aggregate_cuda(h, in_src, in_w, "add"))
+                device = device_ms(lambda: _inrow_aggregate_cuda(h, in_src, in_w, "add"))[0]
                 bwd_plain_ms = cuda_ms(lambda: inrow_aggregate_plain(g, out_dst, out_w, "add"))
                 bwd_ms = cuda_ms(lambda: _inrow_aggregate_cuda(g, out_dst, out_w, "add", backward=True))
+                bwd_device = device_ms(lambda: _inrow_aggregate_cuda(g, out_dst, out_w, "add", backward=True))[0]
             print(f"time inrow_aggregate add {case} B,M,D={tuple(in_src.shape)} Do={out_dst.shape[-1]} "
-                  f"H={INROW_WIDTH} {str(dtype)[6:]}: forward K6 {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; "
-                  f"backward (over the out-rows) K6 {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms [{smi}]")
+                  f"H={width} {str(dtype)[6:]} [{inrow_layout(h)}]: forward K6 {kernel_ms:.4f} ms by events, "
+                  f"{_shown(device)} a launch on the profiler's device rows, plain {plain_ms:.4f} ms; backward "
+                  f"(over the out-rows) K6 {bwd_ms:.4f} ms by events, {_shown(bwd_device)} on the device rows, "
+                  f"plain {bwd_plain_ms:.4f} ms [{smi}]")
             if dtype == torch.float32:
                 # h and the lists read once, the output written once; two
                 # operations per nonzero weight and channel
@@ -1537,11 +1608,11 @@ def graph_train_times_phase(smi: str):
                     library_ms = inrow_library_ms(h, in_src, in_w, _inrow_aggregate_cuda(h, in_src, in_w, "add"))
                     bwd_library_ms = inrow_library_ms(
                         g, out_dst, out_w, _inrow_aggregate_cuda(g, out_dst, out_w, "add", backward=True))
-                print(f"bound inrow_aggregate add {case} f32: K6 forward {bound[0]:.4f} ms by {bound[1]}, "
-                      f"backward {bwd_bound[0]:.4f} ms by {bwd_bound[1]} ({edges} edges); torch.sparse.mm over "
-                      f"the prebuilt block-diagonal CSR: of the in-rows (forward) {library_ms:.4f} ms, of the "
-                      f"out-rows (backward) {bwd_library_ms:.4f} ms [{smi}]")
-                if case == "config B=32":
+                print(f"bound inrow_aggregate add {case} H={width} f32: K6 forward {bound[0]:.4f} ms by "
+                      f"{bound[1]}, backward {bwd_bound[0]:.4f} ms by {bwd_bound[1]} ({edges} edges); "
+                      f"torch.sparse.mm over the prebuilt block-diagonal CSR: of the in-rows (forward) "
+                      f"{library_ms:.4f} ms, of the out-rows (backward) {bwd_library_ms:.4f} ms [{smi}]")
+                if (case, width) == ("config B=32", INROW_WIDTH):
                     config_times["inrow_aggregate"] = dict(
                         ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
                         library_ms=library_ms)
@@ -1575,6 +1646,7 @@ def graph_train_times_phase(smi: str):
                   + f" [{smi}]")
             if b == FLAGSHIP_GRAPHS and dtype == "float32":
                 profile_train_steps(smi, "B=256 f32 GAT K3+K4 route", gat, batches)
+                profile_train_steps(smi, "B=256 f32 GraphConv add K6 route", fused, batches)
     return config_times
 
 

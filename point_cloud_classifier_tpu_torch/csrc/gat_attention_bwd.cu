@@ -68,18 +68,6 @@ using namespace pcc_graph;
 
 namespace {
 
-// Max and sum over the `span` neighbouring lanes of a lane's group (span a
-// power of two); all 32 lanes must call them.
-__device__ __forceinline__ float lanes_max(float v, int span) {
-  for (int off = span / 2; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float lanes_sum(float v, int span) {
-  for (int off = span / 2; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
 // Σ_t a[t] · b[t] over one piece, then over the `per_head` lanes of the
 // piece's head.  One order of operations, so stage A and stage B form the
 // same dα from the same rows bit for bit.  All 32 lanes must call it.
@@ -211,8 +199,7 @@ __device__ __forceinline__ void destination_row(
   // The softmax recomputed and walked back in f32: a lane per (head, slot),
   // `span` lanes a head (a power of two >= D), so 32 / span heads at a time
   // and every sum a shuffle within its head's lanes.
-  int span = 1;
-  while (span < d) span <<= 1;
+  const int span = pow2_at_least(d);
   const int my_slot = lane % span;
   const int src_s = __shfl_sync(kFull, src, my_slot);
   const int keep_s = __shfl_sync(kFull, keep, my_slot);

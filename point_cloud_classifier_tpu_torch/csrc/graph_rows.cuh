@@ -1,11 +1,10 @@
 // What the graph kernels share: K3 (gat_attention.cu), K4
-// (gat_attention_bwd.cu) and K6 (inrow_aggregate.cu) all walk the dense
-// in-row wire with one warp per (graph, node); K5 (knn_aggregate.cu) gathers
-// feature rows with a warp per node.  Here are the wire's element
-// conversions, 16-byte pieces of a feature row, the warp reductions,
-// LeakyReLU, and the one rule for which in-row slots of a node count for
-// attention, so that K3, its backward K4 and K4's mirror of the lists can
-// never disagree on it.
+// (gat_attention_bwd.cu) and K6 (inrow_aggregate.cu) walk the dense in-row
+// wire; K5 (knn_aggregate.cu) gathers feature rows of a flat batch.  Here are
+// the wire's element conversions, 16-byte pieces of a feature row, the warp
+// reductions and those over a lane's group, LeakyReLU, and the one rule for
+// which in-row slots of a node count for attention, so that K3, its backward
+// K4 and K4's mirror of the lists can never disagree on it.
 
 #pragma once
 
@@ -50,6 +49,25 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   return v;
+}
+
+// Max and sum over the `span` neighbouring lanes of a lane's group (span a
+// power of two); all 32 lanes must call them.
+__device__ __forceinline__ float lanes_max(float v, int span) {
+  for (int off = span / 2; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float lanes_sum(float v, int span) {
+  for (int off = span / 2; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// The least power of two >= n (1 for n <= 1).
+__device__ __forceinline__ int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
 }
 
 // A piece: kVec neighbouring channels of one row, read and written as one
@@ -107,6 +125,7 @@ struct RowSlot {
   int keep;    // 1 when the slot counts for attention
   int pos;     // the slot's index among the kept slots, in slot order
   int n_kept;  // kept slots of this node (the same on every lane)
+  unsigned kept;  // bit d set when slot d is kept (the same on every lane)
 };
 
 // Which slots of node i (row = graph · M + i) count for attention: w != 0,
@@ -135,6 +154,7 @@ __device__ __forceinline__ RowSlot attention_slots(const TS* __restrict__ in_src
   slot.keep = keep;
   slot.pos = __popc(kept & ((1u << lane) - 1u));
   slot.n_kept = __popc(kept);
+  slot.kept = kept;
   return slot;
 }
 

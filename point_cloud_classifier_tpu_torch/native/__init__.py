@@ -125,6 +125,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, vp, vp,  # s_dst, s_src, in_src, in_w, xw, out
         i32, i32, i32, i32, i32,  # b, m, d, h, c
         ctypes.c_float,  # slope
+        i32,  # pieces a lane (piece form) or 0 (channel form)
         i32, i32, i32, vp,  # xw_code, src_code, w_code, stream
     ]
     lib.pcc_gat_attention.restype = i32
@@ -146,6 +147,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pcc_inrow_aggregate.argtypes = [
         vp, vp, vp, vp,  # h, in_src, in_w, out
         i32, i32, i32, i32, i32,  # b, m, d, width, mean
+        i32, i32,  # vec (channels a piece), lanes a node
         i32, i32, i32, vp,  # h_code, src_code, w_code, stream
     ]
     lib.pcc_inrow_aggregate.restype = i32

@@ -41,6 +41,17 @@ where that forward's autograd rounds: ``dα = <g_i, xw_j>`` to ``xw``'s dtype
 (the cotangent of the rounded ``α``), the rounded ``α`` in ``dxw``, the
 softmax backward with the f32 ``α``, LeakyReLU's derivative 1 at ``z >= 0``.
 
+:func:`attention_form` is where the host chooses K3's form for a shape.
+The piece form serves two nodes a warp, 16 lanes a node, one or two 16-byte
+pieces of a row (4 f32 or 8 bf16 channels each) a lane: rows of up to 32
+pieces, a power of two of them a head (and a multiple of the pieces a lane),
+where ``H · span <= 32`` (``span``, the least power of two >= D: the
+softmax's lanes a head).  The configs' shape (C = 128, H = 4, D = 8) takes
+it with two pieces a lane in f32 and one in bf16.  Every other shape (D = 32
+with several heads, a head of a width that splits into no power of two of
+pieces, rows of more than 32 pieces or off 16-byte addresses) takes the
+channel form, a warp a node and a channel a lane.
+
 The TPU layout knobs ``PCC_GAT_KERNEL``, ``PCC_GAT_SOFTMAX``,
 ``PCC_GAT_SCORE_CHUNK``, ``PCC_GAT_DAL`` and ``PCC_GAT_GB`` pick between
 Pallas forms of one function; K3 is one kernel and reads none of them.
@@ -57,6 +68,7 @@ from point_cloud_classifier_tpu_torch.ops.inrow_graph import (
     _MAX_SLOTS,
     _SRC_CODES,
     _W_CODES,
+    _pow2_at_least,
     inrow_adjacency,
 )
 
@@ -228,6 +240,28 @@ gat_attention.bwd_launches = 0
 _XW_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def attention_form(heads: int, channels: int, slots: int, dtype: torch.dtype,
+                   aligned: bool = True) -> int:
+    """K3's form for ``[B, M, channels]`` rows of ``dtype`` in ``heads``
+    heads over ``slots`` in-row slots: the piece form's pieces a lane (1 or
+    2), or 0 for the channel form.  ``aligned``: the rows lie at 16-byte
+    addresses."""
+    vec = 16 // dtype.itemsize
+    dh = channels // heads
+    per_head, pieces = dh // vec, channels // vec
+    per = 1 if pieces <= 16 else 2
+    if (
+        not aligned
+        or dh % vec
+        or per_head & (per_head - 1)
+        or per_head % per
+        or pieces > 32
+        or heads * _pow2_at_least(slots) > 32
+    ):
+        return 0
+    return per
+
+
 def _check_operands(s_dst, s_src, in_src, in_w, xw):
     """Raise on anything K3 and K4 do not take."""
     if xw.dtype not in _XW_CODES:
@@ -262,8 +296,10 @@ def _check_operands(s_dst, s_src, in_src, in_w, xw):
         raise ValueError("K3's operands must all lie on one device")
 
 
-def _gat_attention_cuda(s_dst, s_src, in_src, in_w, xw, slope: float = SLOPE):
-    """K3: the CUDA counterpart of :func:`gat_attention_plain`, same contract."""
+def _gat_attention_cuda(s_dst, s_src, in_src, in_w, xw, slope: float = SLOPE, form=None):
+    """K3: the CUDA counterpart of :func:`gat_attention_plain`, same contract.
+    ``form`` overrides :func:`attention_form`'s choice (to time the others; a
+    piece form the shape does not fit raises)."""
     from point_cloud_classifier_tpu_torch.native import check, kernel_library
 
     _check_operands(s_dst, s_src, in_src, in_w, xw)
@@ -273,6 +309,9 @@ def _gat_attention_cuda(s_dst, s_src, in_src, in_w, xw, slope: float = SLOPE):
         return out
     s_dst, s_src = s_dst.contiguous(), s_src.contiguous()
     in_src, in_w, xw = in_src.contiguous(), in_w.contiguous(), xw.contiguous()
+    d, c = in_src.shape[-1], xw.shape[-1]
+    if form is None:
+        form = attention_form(h, c, d, xw.dtype, xw.data_ptr() % 16 == 0)
     lib = kernel_library().lib
     with torch.cuda.device(xw.device):
         code = lib.pcc_gat_attention(
@@ -284,10 +323,11 @@ def _gat_attention_cuda(s_dst, s_src, in_src, in_w, xw, slope: float = SLOPE):
             out.data_ptr(),
             b,
             m,
-            in_src.shape[-1],
+            d,
             h,
-            xw.shape[-1],
+            c,
             float(slope),
+            form,
             _XW_CODES[xw.dtype],
             _SRC_CODES[in_src.dtype],
             _W_CODES[in_w.dtype],

@@ -30,7 +30,14 @@ weights (``data/batching.GraphLoader``); row ``i`` of the adjacency holds node
   ``in_w`` requires a gradient.
 
 The TPU kernel's power-of-two ``M`` and row-tile rules are VMEM limits and do
-not carry over: K6 takes any ``M`` and any ``D`` up to 32.
+not carry over: K6 takes any ``M``, any ``D`` up to 32 and any width.
+:func:`aggregate_form` is where the host chooses how K6 lays a shape out on
+a warp: two neighbouring 16-byte pieces of a row a lane (8 f32 or 16 bf16
+channels) where the row has two or more such pieces, else two channels a
+lane; a node takes the least power of two of lanes that covers its row, up
+to 32, and a warp serves 32 / that many nodes.  Width 128: 16 lanes a node
+in f32 (two nodes a warp), 8 in bf16 (four); width 4 (conv1's input
+features): 2 lanes a node, 16 nodes a warp, in both.
 
 Not ported yet: ``inrow_gather`` and ``inrow_max_aggregate`` (ROADMAP Queue
 1, GraphNet slice 2).
@@ -47,6 +54,23 @@ _MAX_SLOTS = 32  # csrc/graph_rows.cuh kMaxSlots: one lane per slot
 _H_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SRC_CODES = {torch.int32: 0, torch.int16: 1}
 _W_CODES = {torch.float32: 0, torch.float16: 1}
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def aggregate_form(width: int, dtype: torch.dtype, aligned: bool = True) -> tuple[int, int]:
+    """``(channels a piece, lanes a node)`` of K6 for rows of ``width``
+    values of ``dtype``: 16-byte pieces where the row splits into two or
+    more of them and lies at a 16-byte address (``aligned``), else one
+    channel a piece; two neighbouring pieces a lane, over the least power of
+    two of lanes that covers the row, at most 32 (a wider row takes several
+    turns)."""
+    vec = 16 // dtype.itemsize
+    if width % vec or width < 2 * vec or not aligned:
+        vec = 1
+    return vec, min(32, _pow2_at_least(-(-width // vec // 2)))
 
 
 def inrow_adjacency(
@@ -165,9 +189,11 @@ def _check_operands(h, in_src, in_w):
         raise ValueError("K6's operands must all lie on one device")
 
 
-def _inrow_aggregate_cuda(h, in_src, in_w, aggr: str = "add", backward: bool = False):
+def _inrow_aggregate_cuda(h, in_src, in_w, aggr: str = "add", backward: bool = False, form=None):
     """K6: the CUDA counterpart of :func:`inrow_aggregate_plain`, same
-    contract.  ``backward`` only says which launch count the launch adds to."""
+    contract.  ``backward`` only says which launch count the launch adds to;
+    ``form``, a ``(channels a piece, lanes a node)`` pair, overrides
+    :func:`aggregate_form`'s choice (to time the others)."""
     from point_cloud_classifier_tpu_torch.native import check, kernel_library
 
     _check_aggr(aggr)
@@ -177,6 +203,7 @@ def _inrow_aggregate_cuda(h, in_src, in_w, aggr: str = "add", backward: bool = F
         return out
     h, in_src, in_w = h.contiguous(), in_src.contiguous(), in_w.contiguous()
     b, m, width = h.shape
+    vec, lanes = form or aggregate_form(width, h.dtype, h.data_ptr() % 16 == 0)
     lib = kernel_library().lib
     with torch.cuda.device(h.device):
         code = lib.pcc_inrow_aggregate(
@@ -189,6 +216,8 @@ def _inrow_aggregate_cuda(h, in_src, in_w, aggr: str = "add", backward: bool = F
             in_src.shape[-1],
             width,
             int(aggr == "mean"),
+            vec,
+            lanes,
             _H_CODES[h.dtype],
             _SRC_CODES[in_src.dtype],
             _W_CODES[in_w.dtype],

@@ -332,3 +332,32 @@ def test_mirror_operand_checks():
         gat._check_lists(in_src, in_w[:, :, :2])
     with pytest.raises(ValueError, match="at most 32"):
         gat._check_lists(in_src.repeat(1, 1, 9), in_w.repeat(1, 1, 9))
+
+
+# K3's form per shape, chosen on the host: (heads, channels, slots, dtype) ->
+# pieces a lane of the piece form (two nodes a warp, 16 lanes a node), 0 for
+# the channel form
+ATTENTION_FORMS = {
+    "config f32: two pieces a lane": ((4, 128, 8, torch.float32), 2),
+    "config bf16: one piece a lane": ((4, 128, 8, torch.bfloat16), 1),
+    "d4 bf16": ((4, 128, 4, torch.bfloat16), 1),
+    "no slots": ((4, 128, 0, torch.float32), 2),
+    "three heads of 32": ((3, 96, 8, torch.float32), 2),
+    "one head of 8 pieces": ((1, 32, 8, torch.float32), 1),
+    "d32 one head": ((1, 128, 32, torch.float32), 2),
+    "d32 four heads: softmax lanes over 32": ((4, 128, 32, torch.float32), 0),
+    "head of 25 channels": ((4, 100, 8, torch.float32), 0),
+    "head of 6 pieces": ((4, 192, 4, torch.bfloat16), 0),
+    "eight heads of two pieces": ((8, 128, 4, torch.bfloat16), 1),
+    "32 heads of one piece, two pieces a lane": ((32, 128, 1, torch.float32), 0),
+    "three heads of 5": ((3, 15, 5, torch.float32), 0),
+    "80 pieces": ((2, 320, 4, torch.float32), 0),
+}
+
+
+@pytest.mark.parametrize("case", list(ATTENTION_FORMS))
+def test_attention_form_per_shape(case):
+    (heads, channels, slots, dtype), per = ATTENTION_FORMS[case]
+    assert gat.attention_form(heads, channels, slots, dtype) == per
+    # rows off 16-byte addresses take the channel form
+    assert gat.attention_form(heads, channels, slots, dtype, aligned=False) == 0

@@ -343,7 +343,45 @@ GAT_CASES = {
     # shapes the 16-byte pieces do not fit: a channel at a time
     "three-heads-c15": dict(m=19, d=5, h=3, c=15),
     "two-heads-c320": dict(b=1, m=20, d=4, h=2, c=320),
+    "config-shape": dict(b=2, m=288, d=8),
+    "three-heads-c96": dict(m=29, d=8, h=3, c=96),
+    "four-heads-c100": dict(m=23, d=8, h=4, c=100),
+    "d32-f16-int16-wire": dict(m=50, d=32, wire="f16-int16", frac=0.4),
 }
+# the form each case takes in f32 and in bf16 (ops/gat.py:attention_form):
+# pieces a lane of the piece form, 0 for the channel form
+GAT_FORMS = {
+    "ragged-d4": (2, 1), "d8": (2, 1), "d32-dedupe-self-edges": (0, 0), "isolated": (2, 1),
+    "f16-int16-wire": (2, 1), "one-head": (1, 1), "m1": (2, 1), "three-heads-c15": (0, 0),
+    "two-heads-c320": (0, 0), "config-shape": (2, 1), "three-heads-c96": (2, 1),
+    "four-heads-c100": (0, 0), "d32-f16-int16-wire": (0, 0),
+}
+
+
+def _gat_form(case, dtype):
+    kw = {"d": 8, "h": 4, "c": 128, **GAT_CASES[case]}
+    return gat.attention_form(kw["h"], kw["c"], kw["d"], dtype)
+
+
+@pytest.mark.parametrize("case", list(GAT_CASES))
+def test_gat_cases_take_the_forms_named(case):
+    """The card tests' cases reach every form of K3: the piece form with one
+    and with two pieces a lane, and the channel form (the choice is the
+    host's, checked here too)."""
+    assert (_gat_form(case, torch.float32), _gat_form(case, torch.bfloat16)) == GAT_FORMS[case]
+    assert {per for pair in GAT_FORMS.values() for per in pair} == {0, 1, 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GAT_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gat_kernel_repeats_bit_for_bit(dtype, case):
+    """No atomics and one order of operations: the same inputs give the same bits."""
+    dev = _cuda()
+    args = _gat_inputs(dev, dtype, **GAT_CASES[case])
+    first = gat.gat_attention(*args)
+    second = gat.gat_attention(*args)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu
@@ -366,6 +404,28 @@ def test_gat_kernel_matches_plain(dtype, case):
         assert rel <= GAT_BF16_REL and diff.norm().item() <= GAT_BF16_FRO * ref.double().norm().item()
     if GAT_CASES[case].get("isolated"):
         torch.testing.assert_close(out[:, :9], args[-1][:, :9], rtol=0, atol=GAT_F32_REL * 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,form", [(torch.float32, 2), (torch.float32, 0), (torch.bfloat16, 1),
+                                        (torch.bfloat16, 2), (torch.bfloat16, 0)],
+                         ids=["f32-two-pieces", "f32-channel-form", "bf16-one-piece", "bf16-two-pieces",
+                              "bf16-channel-form"])
+def test_gat_kernel_every_form_matches_plain_at_the_config_shape(dtype, form):
+    """Each form K3 can take at C = 128, H = 4, D = 8 (the one the host
+    chooses and those it does not), on an odd number of rows."""
+    dev = _cuda()
+    args = _gat_inputs(dev, dtype, b=3, m=95, d=8)
+    out = gat._gat_attention_cuda(*args, form=form)
+    ref = gat.gat_attention_plain(*args)
+    diff = out.double() - ref.double()
+    rel = diff.abs().max().item() / max(1.0, ref.abs().max().item())
+    if dtype == torch.float32:
+        assert rel <= GAT_F32_REL
+    else:
+        assert rel <= GAT_BF16_REL and diff.norm().item() <= GAT_BF16_FRO * ref.double().norm().item()
+    if form:  # the piece forms share one order of operations
+        assert torch.equal(out, gat.gat_attention(*args))
 
 
 # K4 against gat_attention_bwd_plain, per gradient (ds_dst, ds_src, dxw):
@@ -485,7 +545,36 @@ INROW_CASES = {
     "isolated": dict(b=2, m=40, d=8, width=128, isolated=9),
     "ragged-m37-width-48": dict(b=5, m=37, d=4, width=48),
     "m1": dict(b=2, m=1, d=4, width=16),
+    # conv1's width (the input features): a lane a node in f32, a channel a
+    # lane in bf16
+    "width-4": dict(b=4, m=288, d=8, width=4),
+    "ragged-m37-width-4": dict(b=5, m=37, d=4, width=4),
+    "d32-f16-int16-wire-width-4": dict(b=2, m=96, d=32, width=4, wire="f16-int16", frac=0.4),
+    "isolated-width-4": dict(b=2, m=40, d=8, width=4, isolated=9),
+    # widths the 16-byte pieces do not fit, and rows of more than 32 pieces
+    "width-5": dict(b=3, m=45, d=8, width=5),
+    "width-260": dict(b=2, m=40, d=8, width=260),
 }
+# the layout each case takes in f32 and in bf16 (ops/inrow_graph.py:aggregate_form):
+# (channels a piece, lanes a node), two pieces a lane
+INROW_FORMS = {
+    "config-like": ((4, 16), (8, 8)), "d32-f16-int16-wire": ((4, 16), (8, 8)), "isolated": ((4, 16), (8, 8)),
+    "ragged-m37-width-48": ((4, 8), (8, 4)), "m1": ((4, 2), (8, 1)), "width-4": ((1, 2), (1, 2)),
+    "ragged-m37-width-4": ((1, 2), (1, 2)), "d32-f16-int16-wire-width-4": ((1, 2), (1, 2)),
+    "isolated-width-4": ((1, 2), (1, 2)), "width-5": ((1, 4), (1, 4)), "width-260": ((4, 32), (1, 32)),
+}
+
+
+@pytest.mark.parametrize("case", list(INROW_CASES))
+def test_inrow_cases_take_the_forms_named(case):
+    """The card tests' cases reach every layout of K6: 16-byte pieces and a
+    channel a piece; a lane a node, several nodes a warp, a node a warp; rows
+    that take several turns."""
+    width = INROW_CASES[case]["width"]
+    got = tuple(inrow_graph.aggregate_form(width, dtype) for dtype in (torch.float32, torch.bfloat16))
+    assert got == INROW_FORMS[case]
+    layouts = [form for pair in INROW_FORMS.values() for form in pair]
+    assert {vec for vec, _ in layouts} == {1, 4, 8} and {1, 2, 32} <= {lanes for _, lanes in layouts}
 
 
 def _inrow_inputs(dev, dtype, b, m, d, width, wire="f32-int32", isolated=0, duplicates=False,
@@ -570,6 +659,52 @@ def test_inrow_kernel_sums_duplicate_sources_in_f32():
         out = inrow_graph.inrow_aggregate(h, in_src, in_w)
         ref = inrow_graph.inrow_aggregate_plain(h, in_src, in_w)
     assert (out - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aggr", ["add", "mean"])
+def test_inrow_kernel_sums_duplicate_sources_in_f32_a_lane_a_node(aggr):
+    dev = _cuda()
+    h, in_src, in_w, _, _ = _inrow_inputs(dev, torch.float32, b=3, m=45, d=8, width=4, duplicates=True)
+    with torch.no_grad():
+        out = inrow_graph.inrow_aggregate(h, in_src, in_w, aggr=aggr)
+        ref = inrow_graph.inrow_aggregate_plain(h, in_src, in_w, aggr)
+    assert (out - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(INROW_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_inrow_kernel_repeats_bit_for_bit(dtype, case):
+    """Forward and backward sum in slot order with no atomics: the same
+    inputs give the same bits."""
+    dev = _cuda()
+    h, in_src, in_w, out_dst, out_w = _inrow_inputs(dev, dtype, **INROW_CASES[case])
+    for aggr in ("add", "mean"):
+        fwd = [inrow_graph._inrow_aggregate_cuda(h, in_src, in_w, aggr) for _ in range(2)]
+        assert torch.equal(*fwd)
+    bwd = [inrow_graph._inrow_aggregate_cuda(h, out_dst, out_w, "add", backward=True) for _ in range(2)]
+    assert torch.equal(*bwd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", [(None, 32), (None, 8), (None, 1), (1, 32), (1, 4), (1, 1)],
+                         ids=["pieces-32-lanes", "pieces-8-lanes", "pieces-1-lane", "channels-32-lanes",
+                              "channels-4-lanes", "channels-1-lane"])
+@pytest.mark.parametrize("width", [128, 4, 260])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_inrow_kernel_every_layout_gives_the_chosen_bits(dtype, width, form):
+    """K6 in layouts the host does not choose (more or fewer lanes a node,
+    rows in more turns, a channel a piece), forward and backward: the same
+    sums in the same order, so the same bits as the chosen layout."""
+    dev = _cuda()
+    h, in_src, in_w, out_dst, out_w = _inrow_inputs(dev, dtype, b=3, m=45, d=8, width=width)
+    vec = form[0] or inrow_graph.aggregate_form(width, dtype)[0]  # None: the chosen piece
+    for lists in ((in_src, in_w), (out_dst, out_w)):
+        for aggr in ("add", "mean"):
+            chosen = inrow_graph._inrow_aggregate_cuda(h, *lists, aggr)
+            other = inrow_graph._inrow_aggregate_cuda(h, *lists, aggr, form=(vec, form[1]))
+            assert torch.equal(chosen, other)
 
 
 @pytest.mark.gpu

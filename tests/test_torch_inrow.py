@@ -186,3 +186,28 @@ def test_kernel_operand_checks():
     wide = torch.zeros(*in_src.shape[:2], 33, dtype=torch.int32)
     with pytest.raises(ValueError, match="at most 32"):
         inrow_graph._check_operands(h, wide, wide.float())
+
+
+# K6's layout per shape, chosen on the host: (width, dtype) -> (channels a
+# piece, lanes a node); two pieces a lane
+AGGREGATE_FORMS = {
+    "width 128 f32: 16 lanes a node, two nodes a warp": ((128, torch.float32), (4, 16)),
+    "width 128 bf16: 8 lanes a node, four nodes a warp": ((128, torch.bfloat16), (8, 8)),
+    "width 4 f32: a channel a piece, 2 lanes a node": ((4, torch.float32), (1, 2)),
+    "width 4 bf16: a channel a piece, 2 lanes a node": ((4, torch.bfloat16), (1, 2)),
+    "width 8 f32: a lane a node": ((8, torch.float32), (4, 1)),
+    "width 48 f32": ((48, torch.float32), (4, 8)),
+    "width 5": ((5, torch.float32), (1, 4)),
+    "width 1": ((1, torch.bfloat16), (1, 1)),
+    "width 260 f32: 32 lanes a node, two turns": ((260, torch.float32), (4, 32)),
+    "width 260 bf16: a channel a piece, five turns": ((260, torch.bfloat16), (1, 32)),
+}
+
+
+@pytest.mark.parametrize("case", list(AGGREGATE_FORMS))
+def test_aggregate_form_per_shape(case):
+    (width, dtype), form = AGGREGATE_FORMS[case]
+    assert inrow_graph.aggregate_form(width, dtype) == form
+    # rows off 16-byte addresses go a channel a piece
+    vec, _ = inrow_graph.aggregate_form(width, dtype, aligned=False)
+    assert vec == 1
