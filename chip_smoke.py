@@ -110,7 +110,23 @@ result):
    call against the plain versions at N=8,192 and N=65,536; ``predict`` and
    the train step per batch on the K5 route,
    the plain route and the lineage-graph GraphConv routes; packing a flat
-   batch; and a ``torch.profiler`` trace of the B=256 f32 kNN train step.
+   batch; and a ``torch.profiler`` trace of the B=256 f32 kNN train step;
+19. flagship wire (``bench.py``'s DeepSets wire: ``layout: auto``,
+   ``length_sorted``, the fp16 wire, ``energy_total`` factored as
+   ``event_feats``): (a) ``train.train_model`` at the config widths with
+   B=256 for 3 epochs on a seeded synthetic S2PPC cache, in bf16 on
+   ``trainer.device_resident`` batches and in f32 through
+   ``PCC_PREFETCH=1`` and ``PCC_BG_LOADER=1``, counting DeepSets' forwards
+   by wire and K1's and K2's launches on each (both wires must run, K1 and
+   K2 on every dense batch, the sliced variants in bf16, val accuracy over
+   the DeepSets floor); (c) ``factory.get_model`` + ``predict`` from each
+   run's ``best_model.pt`` on the dense test batches against the plain
+   route; (b) K1 and K2 on dense flagship batches (B=256, M=256 and M=320
+   with 25% in-row padding, f32 and bf16) against the plain dense path
+   (the masked row sum, and in f32 its autograd), with CUDA-event times and
+   bounds; (d) packing per batch, the resident cache's first pass, and the
+   train step per batch on the flat and dense wires, streaming, resident
+   and prefetched, by CUDA events.
 
 Beside each kernel's time the script works out the least time the card could
 take for the same work (``bound_ms``: the bytes the function must move over
@@ -139,17 +155,21 @@ import torch
 from point_cloud_classifier_tpu_torch import convert, factory
 from point_cloud_classifier_tpu_torch import train as port_train
 from point_cloud_classifier_tpu_torch.data import GraphLoader, PointCloudLoader
+from point_cloud_classifier_tpu_torch.data.prefetch import prefetch_to_device
+from point_cloud_classifier_tpu_torch.data.resident import ResidentCache
 from point_cloud_classifier_tpu_torch.data.synthetic import (
     lineage_graphs,
     write_s2pg_cache,
     write_s2ppc_cache,
 )
 from point_cloud_classifier_tpu_torch.graph_kernel_times import device_ms
-from point_cloud_classifier_tpu_torch.models import GraphNet
+from point_cloud_classifier_tpu_torch.models import DeepSets, GraphNet
+from point_cloud_classifier_tpu_torch.models.deep_sets import dense_segment_ids
 from point_cloud_classifier_tpu_torch.native import kernel_library
 from point_cloud_classifier_tpu_torch.ops.dispatch import force_plain
 from point_cloud_classifier_tpu_torch.ops.fused_phi import (
     _phi_pool_bwd_cuda,
+    phi_forward,
     phi_pool,
     phi_pool_bwd_plain,
     phi_pool_plain,
@@ -719,10 +739,14 @@ def _per_model(batches, n_models):
     return batches if isinstance(batches[0], list) else [batches] * n_models
 
 
-def predict_ms_per_batch(models, batches, reps=10):
+# runs of each route timing (predict and train step per batch, host clock)
+ROUTE_REPS = 6
+
+
+def predict_ms_per_batch(models, batches, reps=ROUTE_REPS):
     """Per model, (median, q1, q3) of ``predict``'s ms per batch over the
     pre-packed ``batches`` (one list, or one list per model), timed in turns
-    (A B B A …) after a warm-up."""
+    (A B B A …) ``reps`` times after a warm-up."""
     batches = _per_model(batches, len(models))
     for model, own in zip(models, batches):
         model.predict(own, return_prob=True)
@@ -736,7 +760,7 @@ def predict_ms_per_batch(models, batches, reps=10):
     return [tuple(float(q) for q in np.percentile(s, [50, 25, 75])) for s in samples]
 
 
-def train_ms_per_batch(wrappers, batches, reps=10):
+def train_ms_per_batch(wrappers, batches, reps=ROUTE_REPS):
     """Per wrapper, (median, q1, q3) of the train step's ms per batch (forward,
     loss, backward, AdamW step) over the pre-packed ``batches`` (one list, or
     one list per wrapper), host clock to a synchronise, timed in turns (A B B
@@ -827,14 +851,14 @@ def times_phase(smi: str, run_dir: str):
                  get_model(run_dir, compute_dtype=dtype)],
                 batches,
             )
-            print(f"time predict per batch B={b} P={p_pad} {dtype}, median (q1-q3) of 10 "
+            print(f"time predict per batch B={b} P={p_pad} {dtype}, median (q1-q3) of {ROUTE_REPS} "
                   f"runs over {len(batches)} pre-packed batches, host clock: "
                   f"K1 path {kernel[0]:.4f} ({kernel[1]:.4f}-{kernel[2]:.4f}) ms, "
                   f"plain path {plain[0]:.4f} ({plain[1]:.4f}-{plain[2]:.4f}) ms; "
                   f"packing {pack_ms:.4f} ms/batch on the host [{smi}]")
             plain, kernel = train_ms_per_batch(list(route_models(dtype)), batches)
             print(f"time train step per batch B={b} P={p_pad} {dtype} adamw, median (q1-q3) "
-                  f"of 10 runs over {len(batches)} pre-packed batches, host clock to a "
+                  f"of {ROUTE_REPS} runs over {len(batches)} pre-packed batches, host clock to a "
                   f"synchronise: K1+K2 route {kernel[0]:.4f} ({kernel[1]:.4f}-{kernel[2]:.4f}) ms, "
                   f"plain route {plain[0]:.4f} ({plain[1]:.4f}-{plain[2]:.4f}) ms [{smi}]")
     return config_times
@@ -892,6 +916,315 @@ def profile_phase(smi: str) -> None:
     batches = list(PointCloudLoader(clouds, labels, FLAGSHIP_B, shuffle=False))
     _, kernel = route_models("float32")
     profile_train_steps(smi, "B=256 f32 K1+K2 route", kernel, batches)
+
+
+# bench.py's flagship wire (bench.py:161-207): auto layout over length-sorted
+# batches, the fp16 wire, energy_total (column 1) once per event
+FLAGSHIP_WIRE = {"layout": "auto", "length_sorted": True, "transfer_dtype": "float16",
+                 "factor_event_cols": [1]}
+# (arm, model overrides, trainer overrides, environment): bf16 on resident
+# batches; f32 through the background packer and the prefetch
+FLAGSHIP_ARMS = (
+    ("bf16 resident", {"compute_dtype": "bfloat16"}, {"device_resident": True}, {}),
+    ("f32 prefetch+background", {}, {}, {"PCC_PREFETCH": "1", "PCC_BG_LOADER": "1"}),
+)
+FLAGSHIP_EVENTS = (4096, 512, 512)  # 16 train steps of B=256 an epoch
+# predict through K1 against the plain route on the dense test batches:
+# probabilities, f32 (PROB_TOL) and bf16 (the logits' bf16 bound)
+FLAGSHIP_PROB_TOL = {"f32": PROB_TOL, "bf16": TOL[torch.bfloat16]}
+
+
+class WireCounter:
+    """Counts DeepSets forwards by wire (a global forward pre-hook, so that
+    the run goes through the entry points untouched) and K1's and K2's
+    launches from each forward to the next, with the variants they took."""
+
+    def __enter__(self):
+        from torch.nn.modules.module import (
+            register_module_forward_hook,
+            register_module_forward_pre_hook,
+        )
+
+        self.forwards = {"dense": 0, "flat": 0}
+        self.k1 = {"dense": 0, "flat": 0}
+        self.k2 = {"dense": 0, "flat": 0}
+        self.variants = {"dense": set(), "flat": set()}
+        self._open = None  # (wire, K1 count, K2 count) at the last forward
+        self._hooks = [register_module_forward_pre_hook(self._pre),
+                       register_module_forward_hook(self._post)]
+        return self
+
+    def _close(self):
+        if self._open is not None:
+            wire, k1, k2 = self._open
+            self.k1[wire] += phi_pool.launches - k1
+            self.k2[wire] += phi_pool.bwd_launches - k2
+            if phi_pool.bwd_launches > k2:
+                self.variants[wire].add(f"K2 {phi_pool.bwd_variant}")
+        self._open = None
+
+    def _pre(self, module, args):
+        if isinstance(module, DeepSets):
+            self._close()
+            wire = "dense" if args[0]["points"].ndim == 3 else "flat"
+            self.forwards[wire] += 1
+            self._open = (wire, phi_pool.launches, phi_pool.bwd_launches)
+
+    def _post(self, module, args, output):
+        if isinstance(module, DeepSets) and phi_pool.launches > self._open[1]:
+            self.variants[self._open[0]].add(f"K1 {phi_pool.variant}")
+
+    def __exit__(self, *exc):
+        self._close()
+        for hook in self._hooks:
+            hook.remove()
+
+
+def flagship_config(data_dir: str, log_dir: str, model: dict, trainer: dict) -> dict:
+    cfg = training_config(data_dir, log_dir)
+    cfg["dataset"].update(batch_size=FLAGSHIP_B, **FLAGSHIP_WIRE)
+    cfg["model"].update(factored_cols=[1], **model)
+    cfg["trainer"].update(trainer)
+    return cfg
+
+
+def flagship_train_phase(work_dir: str) -> dict:
+    """(a) train_model on bench.py's wire at B=256, both arms, with the wires
+    and K1's and K2's launches counted; (c) get_model + predict on the dense
+    test batches from each run's best_model.pt, against the plain route.
+    Returns the launches on dense batches over both runs."""
+    data_dir = os.path.join(work_dir, "flagship_data")
+    write_s2ppc_cache(data_dir, n_events=FLAGSHIP_EVENTS, seed=SEED + 5)
+    dense_launches = {"phi_pool": 0, "phi_pool_bwd": 0}
+    for arm, model, trainer, env in FLAGSHIP_ARMS:
+        cfg = flagship_config(data_dir, os.path.join(work_dir, "flagship_log"), model, trainer)
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            reset_launch_counts()
+            with WireCounter() as wires:
+                t0 = time.perf_counter()
+                log_dir = port_train.train_model("deep_sets", "s2ppc", cfg, return_log_dir=True)
+                seconds = time.perf_counter() - t0
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        metrics = read_metrics(log_dir)
+        with open(os.path.join(log_dir, "meta.json")) as f:
+            meta = json.load(f)["metrics"]
+        losses = metrics["Loss/train"]
+        print(f"flagship {arm}: train_model deep_sets s2ppc B={FLAGSHIP_B} {FLAGSHIP_WIRE}, "
+              f"{len(losses)} epochs, {seconds:.1f} s; DeepSets forwards by wire {wires.forwards}; "
+              f"K1 launches by wire {wires.k1}, K2 {wires.k2}; variants {wires.variants}; Loss/train "
+              f"{losses}, Loss/val {metrics['Loss/val']}, meta {meta} (val floor {VAL_ACC_FLOOR}); "
+              f"batch shapes {metrics['compile/distinct_batch_shapes']}")
+        if (phi_pool.launches, phi_pool.bwd_launches) != (sum(wires.k1.values()), sum(wires.k2.values())):
+            raise AssertionError(f"flagship {arm}: launches outside DeepSets' forwards and backwards")
+        if not (wires.forwards["dense"] and wires.forwards["flat"]):
+            raise AssertionError(f"flagship {arm}: not both wires ran: {wires.forwards}")
+        if not (wires.k1["dense"] >= wires.forwards["dense"] and wires.k2["dense"] > 0):
+            raise AssertionError(f"flagship {arm}: K1/K2 did not launch on every dense batch")
+        if arm.startswith("bf16") and wires.variants["dense"] != {"K1 sliced", "K2 sliced"}:
+            raise AssertionError(f"flagship {arm}: dense variants {wires.variants['dense']}")
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise AssertionError(f"flagship {arm}: training did not learn: {losses}")
+        if not meta["accuracy/val"] >= VAL_ACC_FLOOR:
+            raise AssertionError(f"flagship {arm}: accuracy/val {meta['accuracy/val']} below {VAL_ACC_FLOOR}")
+        dense_launches["phi_pool"] += wires.k1["dense"]
+        dense_launches["phi_pool_bwd"] += wires.k2["dense"]
+        flagship_predict_phase(arm, cfg, log_dir)
+    return dense_launches
+
+
+def flagship_predict_phase(arm: str, cfg: dict, log_dir: str) -> None:
+    """(c) the run's best_model.pt through get_model + predict over the test
+    split on the dense wire, K1 route against the plain route."""
+    cfg = copy.deepcopy(cfg)
+    cfg["dataset"]["layout"] = "dense"
+    loader = factory.get_dataloader("s2ppc", cfg).get_test_loader()
+    reset_launch_counts()
+    y, probs = factory.get_model("deep_sets", cfg, log_dir).predict(loader, return_prob=True)
+    launches = phi_pool.launches
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg["model"]["fused_phi"] = "off"
+    y_plain, probs_plain = factory.get_model("deep_sets", plain_cfg, log_dir).predict(loader, return_prob=True)
+    err = float(np.abs(probs - probs_plain).max())
+    tol = FLAGSHIP_PROB_TOL[arm.split()[0]]
+    print(f"flagship {arm}: predict from best_model.pt on {len(loader)} dense test batches, "
+          f"{len(probs)} clouds; K1 launches {launches}; max |Δprob| kernel − plain {err:.3e} "
+          f"(bound {tol:.0e})")
+    if probs.shape != (FLAGSHIP_EVENTS[2], 1) or not np.isfinite(probs).all():
+        raise AssertionError(f"flagship {arm}: bad probabilities {probs.shape}")
+    if launches != len(loader) or not np.array_equal(y, y_plain) or not err <= tol:
+        raise AssertionError(f"flagship {arm}: predict disagrees or missed K1 ({launches}, {err:.3e})")
+
+
+def dense_phi_inputs(m: int, dtype, seed: int):
+    """A dense flagship batch, B=256 rows of M, flattened: M=256 rows hold
+    240-256 points, M=320 rows 160-320 (25% in-row padding on average); the
+    ids as DeepSets makes them; the config chain's weights."""
+    rng = np.random.default_rng(seed)
+    lo = 240 if m == 256 else 160
+    counts = torch.from_numpy(rng.integers(lo, m + 1, size=FLAGSHIP_B).astype(np.int32)).cuda()
+    points, _, params = phi_inputs(FLAGSHIP_B, FLAGSHIP_B * m, dtype, seed)
+    return points, counts, dense_segment_ids(counts, m), params
+
+
+def plain_dense_pool(points, counts, params, m: int):
+    """The plain dense path: φ on every row, then the masked row sum in f32."""
+    h = phi_forward(points, SPEC, params, "gelu").float().reshape(FLAGSHIP_B, m, -1)
+    mask = (torch.arange(m, device=points.device)[None, :] < counts[:, None]).float()
+    return torch.einsum("bm,bmh->bh", mask, h)
+
+
+def flagship_kernel_phase(smi: str) -> dict:
+    """(b) K1 and K2 on dense flagship batches (M=256 and 320, f32 and bf16)
+    against the plain dense path, with CUDA-event times and bounds.  Returns
+    the M=256 f32 times and errors."""
+    out = {}
+    for m in (256, 320):
+        for dtype in (torch.float32, torch.bfloat16):
+            points, counts, ids, params = dense_phi_inputs(m, dtype, SEED + 6)
+            b1 = FLAGSHIP_B + 1
+            total = phi_pool(points, ids, SPEC, params, "gelu", b1)
+            ref = plain_dense_pool(points, counts, params, m)
+            torch.cuda.synchronize()
+            err = (total[:FLAGSHIP_B] - ref).abs().max().item()
+            rel = err / max(1.0, ref.abs().max().item())
+            # backward: K2 against the autograd of the plain dense path (f32)
+            # and against its plain version on the same ids
+            g = torch.from_numpy(np.random.default_rng(SEED + 7).normal(
+                size=(b1, 256)).astype(np.float32)).cuda()
+            g[FLAGSHIP_B] = 0  # the padding row's cotangent: the model slices it off
+            d_points, grads = _phi_pool_bwd_cuda(points, ids, g, SPEC, params, "gelu", b1)
+            got = [d_points, *grads]
+            want_plain = phi_pool_bwd_plain(points, ids, g, SPEC, params, "gelu", b1)
+            wants = [("phi_pool_bwd_plain", [want_plain[0], *want_plain[1]])]
+            if dtype == torch.float32:
+                leaves = [points.detach().requires_grad_()] + [
+                    t.detach().requires_grad_() for layer in params for t in layer]
+                ref_total = plain_dense_pool(leaves[0], counts, tuple(zip(leaves[1::2], leaves[2::2])), m)
+                wants.append(("autograd of the plain dense path",
+                              list(torch.autograd.grad(ref_total, leaves, g[:FLAGSHIP_B]))))
+            lines = []
+            for what, want in wants:
+                worst = None
+                for a, c in zip(got, want, strict=True):
+                    e = _errors(a, c)
+                    worst = e if worst is None else tuple(max(x, y) for x, y in zip(worst, e))
+                ok = (worst[1] <= BWD_F32_REL and worst[2] <= BWD_F32_FRO) if dtype == torch.float32 \
+                    else worst[2] <= BWD_BF16_FRO
+                lines.append(f"against {what} max_abs_err {worst[0]:.3e}, max_rel_err {worst[1]:.3e}, "
+                             f"rel_fro {worst[2]:.3e}")
+                if not ok:
+                    raise AssertionError(f"K2 on the dense wire M={m} {dtype}: {what} {worst}")
+            name = f"dense B={FLAGSHIP_B} M={m} {str(dtype)[6:]}"
+            n_points = int(counts.sum())
+            kernel_ms = cuda_ms(lambda: phi_pool(points, ids, SPEC, params, "gelu", b1))
+            plain_ms = cuda_ms(lambda: plain_dense_pool(points, counts, params, m))
+            bwd_ms = cuda_ms(lambda: _phi_pool_bwd_cuda(points, ids, g, SPEC, params, "gelu", b1,
+                                                        with_points=False))
+            bwd_plain_ms = cuda_ms(lambda: phi_pool_bwd_plain(points, ids, g, SPEC, params, "gelu", b1,
+                                                              with_points=False))
+            # the bound counts the real points' work (the padding rows are
+            # read, as the input holds them, but need no operations)
+            flat = [t for layer in params for t in layer]
+            per_row = [2 * w.shape[0] * w.shape[1] for w, _ in params]
+            f32 = dtype == torch.float32
+            peak, scale = (F32_FLOPS_PER_S, 1) if f32 else (BF16_FLOPS_PER_S, 0.5)
+            fwd = bound_ms(_nbytes(points, ids) + scale * _nbytes(*flat) + b1 * 256 * 4,
+                           n_points * sum(per_row), peak)
+            bwd = bound_ms(_nbytes(points, ids, g) + scale * _nbytes(*flat) + _nbytes(*flat),
+                           n_points * (2 * sum(per_row) + sum(per_row[1:])), peak)
+            print(f"flagship kernel K1 {name} ({n_points} points, {1 - n_points / (FLAGSHIP_B * m):.3f} "
+                  f"in-row padding) [{phi_pool.variant} variant]: max_abs_err {err:.3e}, max_rel_err "
+                  f"{rel:.3e} (bound {TOL[dtype]:.0e}) against the masked row sum; K2 "
+                  f"[{phi_pool.bwd_variant} variant] {'; '.join(lines)}")
+            print(f"time flagship {name}: K1 {kernel_ms:.4f} ms (bound {fwd[0]:.4f} by {fwd[1]}), "
+                  f"plain dense forward {plain_ms:.4f} ms; K2 without d_points {bwd_ms:.4f} ms (bound "
+                  f"{bwd[0]:.4f} by {bwd[1]}), plain {bwd_plain_ms:.4f} ms [{smi}]")
+            if not rel <= TOL[dtype]:
+                raise AssertionError(f"K1 on the dense wire disagrees: {name} rel {rel:.3e}")
+            if (m, f32) == (256, True):
+                out = {"dense_ms": {"phi_pool": kernel_ms, "phi_pool_bwd": bwd_ms},
+                       "dense_plain_ms": {"phi_pool": plain_ms, "phi_pool_bwd": bwd_plain_ms},
+                       "dense_bound_ms": {"phi_pool": fwd[0], "phi_pool_bwd": bwd[0]},
+                       "dense_max_abs_err": {"phi_pool": err}}
+    return out
+
+
+def events_ms_per_batch(wrappers, makers, rounds: int = 2):
+    """Per (wrapper, batch maker), the train step's ms per batch by CUDA
+    events over one pass of ``make()`` (the device timeline from the first
+    step's start to the last one's end, host gaps included), after a
+    warm-up pass; the arms taken in turns (A B C C B A …) ``rounds`` times.
+    Returns each arm's readings."""
+    for wrapper, make in zip(wrappers, makers):
+        for batch in make():
+            wrapper.train_step(batch)
+    torch.cuda.synchronize()
+    samples = [[] for _ in wrappers]
+    arms = list(range(len(wrappers)))
+    for turn in range(2 * rounds):
+        for i in arms if turn % 2 == 0 else arms[::-1]:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            n = 0
+            start.record()
+            for batch in makers[i]():
+                wrappers[i].train_step(batch)
+                n += 1
+            end.record()
+            torch.cuda.synchronize()
+            samples[i].append(start.elapsed_time(end) / n)
+    return samples
+
+
+def flagship_times_phase(smi: str, work_dir: str) -> None:
+    """(d) packing per batch; the resident cache's first pass per batch, one
+    upload a batch against 64 stacked; and the train step per batch at B=256
+    on the flagship wire, flat and dense, streaming, resident and prefetched,
+    f32 and bf16, by CUDA events."""
+    data_dir = os.path.join(work_dir, "flagship_data")
+    wires = {}
+    for layout in ("flat", "dense"):
+        for transfer in ("float32", "float16"):
+            cfg = flagship_config(data_dir, os.path.join(work_dir, "unused"), {}, {})
+            cfg["dataset"].update(layout=layout, transfer_dtype=transfer)
+            loader = factory.get_dataloader("s2ppc", cfg).get_train_loader()
+            t0 = time.perf_counter()
+            batches = list(loader)
+            pack_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+            shapes = sorted({b["points"].shape for b in batches})
+            print(f"flagship packing {layout} {transfer} B={FLAGSHIP_B}: {pack_ms:.4f} ms/batch on the "
+                  f"host over {len(batches)} batches, points shapes {shapes}")
+            if transfer == "float16":
+                wires[layout] = batches
+    for layout, batches in wires.items():
+        for chunk in (1, 64):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            list(ResidentCache(batches, upload_chunk=chunk))
+            torch.cuda.synchronize()
+            print(f"flagship resident first pass {layout} fp16, upload_chunk {chunk}: "
+                  f"{(time.perf_counter() - t0) * 1e3 / len(batches):.4f} ms/batch, host clock "
+                  f"to a synchronise [{smi}]")
+    for dtype in ("float32", "bfloat16"):
+        cfg = flagship_config(data_dir, os.path.join(work_dir, "unused"), {"compute_dtype": dtype}, {})
+        for layout, batches in wires.items():
+            cache = ResidentCache(batches, shuffle_seed=SEED)
+            list(cache)  # the first pass uploads
+            pipelines = {"streaming": lambda: batches, "resident": lambda: cache,
+                         "prefetch": lambda: prefetch_to_device(batches, size=2)}
+            samples = events_ms_per_batch([factory.get_model("deep_sets", cfg) for _ in pipelines],
+                                          list(pipelines.values()))
+            row = ", ".join(f"{name} {np.median(ms):.4f} ({min(ms):.4f}-{max(ms):.4f})"
+                            for name, ms in zip(pipelines, samples))
+            print(f"time flagship train step per batch B={FLAGSHIP_B} {layout} fp16 wire, {dtype}, "
+                  f"K1+K2 route, median (range) of {len(samples[0])} passes over {len(batches)} "
+                  f"batches taken in turns, CUDA events: {row} ms [{smi}]")
 
 
 def _graph_batch(graphs, batch_size, transfer_dtype="float32"):
@@ -1114,7 +1447,7 @@ def graph_times_phase(smi: str, run_dir: str):
             gat = factory.get_model("graph_net", graph_config("", True, compute_dtype=dtype), run_dir)
             conv = factory.get_model("graph_net", graph_config("", False, compute_dtype=dtype))
             kernel, plain, graphconv = predict_ms_per_batch([gat, PlainRoute(gat), conv], batches)
-            print(f"time predict per batch B={b} (M, D)={shape} {dtype}, median (q1-q3) of 10 runs "
+            print(f"time predict per batch B={b} (M, D)={shape} {dtype}, median (q1-q3) of {ROUTE_REPS} runs "
                   f"over {len(batches)} pre-packed batches, host clock: GAT K3 route {kernel[0]:.4f} "
                   f"({kernel[1]:.4f}-{kernel[2]:.4f}) ms, GAT plain route {plain[0]:.4f} "
                   f"({plain[1]:.4f}-{plain[2]:.4f}) ms, GraphConv add {graphconv[0]:.4f} "
@@ -1640,7 +1973,7 @@ def graph_train_times_phase(smi: str):
             rows = train_ms_per_batch([gat, PlainRoute(gat_plain), fused, conv], batches)
             names = ("GAT K3+K4 route", "GAT plain route", "GraphConv add K6 route",
                      "GraphConv add adjacency route")
-            print(f"time train step per batch B={b} {dtype} adam, median (q1-q3) of 10 runs over "
+            print(f"time train step per batch B={b} {dtype} adam, median (q1-q3) of {ROUTE_REPS} runs over "
                   f"{len(batches)} pre-packed batches, host clock to a synchronise: "
                   + ", ".join(f"{n} {r[0]:.4f} ({r[1]:.4f}-{r[2]:.4f}) ms" for n, r in zip(names, rows))
                   + f" [{smi}]")
@@ -1976,7 +2309,7 @@ def knn_times_phase(smi: str):
                     r = timer([plain], flat[:1], reps=2)[0]
                     line += f", kNN plain route {r[0]:.4f} ({r[1]:.4f}-{r[2]:.4f}) ms (2 runs over 1 batch)"
                 print(f"time {what} per batch B={b} {dtype} adam, kNN k={KNN_K} on the flat wire beside the "
-                      f"lineage graphs on the in-row wire, median (q1-q3) of 10 runs over {len(flat)} pre-packed "
+                      f"lineage graphs on the in-row wire, median (q1-q3) of {ROUTE_REPS} runs over {len(flat)} pre-packed "
                       f"batches, host clock{' to a synchronise' if what == 'train step' else ''}: {line} [{smi}]")
             if b == FLAGSHIP_GRAPHS and dtype == "float32":
                 profile_train_steps(smi, "B=256 f32 kNN K5 route", knn, flat)
@@ -1985,35 +2318,60 @@ def knn_times_phase(smi: str):
 
 def main() -> None:
     t0 = time.perf_counter()
+    marks = [t0]
+
+    def lap(what: str) -> None:
+        """The seconds the phases since the last mark took."""
+        marks.append(time.perf_counter())
+        print(f"seconds: {what} {marks[-1] - marks[-2]:.1f}")
+
     smi = device_phase()
     build_phase()
+    lap("device and build")
     errors = {"phi_pool": kernel_phase(), "phi_pool_bwd": bwd_kernel_phase(),
               "gat_attention": gat_kernel_phase(), "gat_attention_bwd": gat_bwd_kernel_phase(),
               "inrow_aggregate": inrow_kernel_phase(), "knn_aggregate": knn_kernel_phase()}
+    lap("kernels against plain")
     with tempfile.TemporaryDirectory() as run_dir:
         write_jax_checkpoint(run_dir, np.random.default_rng(SEED))
         serve_launches = slice_phase(run_dir)
         launches = train_phase(run_dir)
+        lap("DeepSets serving and training")
         graph_serve_launches = graph_slice_phase(run_dir)
         graph_launches = graph_train_phase(run_dir)
+        lap("GraphNet serving and training")
         knn_serve_launches = knn_slice_phase(run_dir)
         knn_launches = knn_train_phase(run_dir)
+        lap("kNN serving and training")
+        dense_launches = flagship_train_phase(run_dir)
+        dense = flagship_kernel_phase(smi)
+        lap("flagship wire")
         print(f"launches: DeepSets serving path K1 {serve_launches}; DeepSets training path "
               f"K1 {launches['phi_pool']}, K2 {launches['phi_pool_bwd']}; GAT serving path "
               f"K3 {graph_serve_launches}; GraphNet training path {graph_launches}; kNN serving path "
-              f"K5 {knn_serve_launches}; kNN training path {knn_launches}")
+              f"K5 {knn_serve_launches}; kNN training path {knn_launches}; flagship wire, K1 and K2 "
+              f"on dense batches {dense_launches}")
         # K6's and K5's counts are their forward and backward launches
         # together; K5's selections and K4's mirrors stand beside them
         graph_launches["inrow_aggregate"] += graph_launches.pop("inrow_aggregate backward")
         knn_launches["knn_aggregate"] += knn_launches.pop("knn_aggregate backward")
         beside = {"gat_attention_bwd": {"mirror_launches": graph_launches.pop("gat_out_rows")},
                   "knn_aggregate": {"select_launches": knn_launches.pop("knn_select")}}
+        for name in ("phi_pool", "phi_pool_bwd"):
+            # the flagship wire's dense batches: launches over both runs, and
+            # the M=256 f32 times, bound and error
+            beside[name] = {"dense_launches": dense_launches[name],
+                            **{k: v[name] for k, v in dense.items() if name in v}}
         launches.update(graph_launches)
         launches.update(knn_launches)
         times = times_phase(smi, run_dir)
+        lap("DeepSets times")
         times["gat_attention"] = graph_times_phase(smi, os.path.join(run_dir, "graph_run_1"))
         times.update(graph_train_times_phase(smi))
         times["knn_aggregate"] = knn_times_phase(smi)
+        lap("graph times")
+        flagship_times_phase(smi, run_dir)
+        lap("flagship times")
     profile_phase(smi)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{

@@ -8,8 +8,11 @@ Batches are byte-identical to the JAX loaders': keys, dtypes and values.
   contiguous and padding rows at the end, labels ``y [B, 1]`` with ``y_mask
   [B]``, and either ``seg [P_pad]`` (event index per point, padding rows get
   ``B``) or ``seg_counts [B + 1]`` (points per event, padding count last).
-  ``P_pad`` is a power-of-two bucket, so the model sees a small set of
-  shapes.
+  ``P_pad`` is a bucket of the ``pow2_bucket`` ladder, so the model sees a
+  small set of shapes.  Its dense per-cloud-row wire (``layout="dense"``, or
+  ``"auto"`` per batch) ships ``points [B, M, F]`` with ``seg_counts``; the
+  fp16 wire, factored event columns (``event_feats``), other bucket ladders
+  and length-sorted batching apply to both.
 - ``GraphLoader``, the dense in-row wire (``layout="dense"|"auto"``,
   ``adj_wire="device"``): per-graph padded ``nodes [B, M, F]``, ``node_mask``
   and the per-occurrence in-degree ``in_deg [B, M]``, and each node's
@@ -25,10 +28,8 @@ Batches are byte-identical to the JAX loaders': keys, dtypes and values.
   ``B``) or ``node_seg_counts [B + 1]``.  ``n_pad`` and ``e_pad`` are
   power-of-two buckets of ``total_nodes + 1`` and ``total_edges``.
 
-Packing is the JAX loaders' pure-Python branch.  Not ported yet: their C++
-packers; for point clouds the dense per-cloud-row layout,
-``factor_event_cols``, the fp16 wire, length-sorted batching and
-non-power-of-two bucket ladders; for graphs the edge-slot triples, the host
+Packing is the JAX loaders' numpy branch.  Not ported yet: their C++
+packers; for graphs the edge-slot triples, the host
 adjacency, ``require_inrow`` and every per-batch or per-dataset demotion
 from ``dense``/``auto`` to the flat wire.  Where the JAX graph loader would
 ship one of those, the port raises ``NotImplementedError`` with the reason.
@@ -57,21 +58,40 @@ def _pow2_slots(max_degree: int) -> int:
     return max(4, 1 << (max(max_degree, 1) - 1).bit_length())
 
 
-def pow2_bucket(n: int, min_size: int = 256) -> int:
-    """Smallest ``min_size * 2^k`` (rounded up to a multiple of 8) that
-    covers ``n``."""
-    size = min_size
+def pow2_bucket(n: int, min_size: int = 256, factor: float = 2.0) -> int:
+    """Smallest ``min_size * factor^k`` (rounded up to a multiple of 8) that
+    covers ``n``.  ``factor=2.0`` is the power-of-two ladder; a smaller one
+    (1.25, say) trades a few more shapes for less padding."""
+    if factor <= 1.0:
+        # `size *= factor` could never reach n
+        raise ValueError(f"bucket factor must be > 1.0, got {factor}")
+    size = float(min_size)
     while size < n:
-        size *= 2
-    return -(-size // 8) * 8
+        size *= factor
+    return -(-int(round(size)) // 8) * 8
 
 
 class PointCloudLoader:
-    """Flattened f32 point batches: ``points [P_pad, F]`` + segment ids
-    (``seg_encoding="ids"``) or counts (``"counts"``).  Stores all events as
-    one contiguous array plus offsets.  ``layout`` takes ``"flat"``, or
-    ``"auto"`` below a batch size of 128, where the JAX loader's ``"auto"``
-    always stays flat."""
+    """Point batches on the flat or the dense per-cloud-row wire.
+
+    Stores all events as one contiguous array plus offsets.  Options, as in
+    the JAX loader:
+
+    - ``transfer_dtype="float16"``: fp16 features and, below 32,767 events a
+      batch, int16 segment ids (the model casts on the device);
+    - ``factor_event_cols``: feature columns constant within an event (such
+      as ``energy_total``) leave ``points`` and ship once per event as
+      ``event_feats [B + 1, C]``, in ascending column order;
+    - ``bucket_factor``: the ``pow2_bucket`` ladder's step for ``P_pad``;
+    - ``length_sorted``: events stably sorted by size before batching, so
+      that neighbours share a batch, and the batch order shuffled from the
+      same generator;
+    - ``layout="dense"``: ``points [B, M, Fw]`` with each event's points at
+      the start of its row and ``seg_counts [B + 1]`` (the last entry counts
+      the in-row padding); M is the rung ladder's ``k·2^j`` (k in 8..15) at
+      the batch's largest event.  ``"auto"`` ships a batch dense when ``B ≥
+      128`` and ``B·M`` is within 10% of the flat ``P_pad``, else flat.
+    """
 
     def __init__(
         self,
@@ -81,25 +101,27 @@ class PointCloudLoader:
         shuffle: bool,
         seed: int = 0,
         min_bucket: int = 256,
+        transfer_dtype: str = "float32",
         seg_encoding: str = "ids",
+        factor_event_cols: Sequence[int] = (),
+        bucket_factor: float = 2.0,
+        length_sorted: bool = False,
         layout: str = "flat",
     ):
         if seg_encoding not in ("ids", "counts"):
             raise ValueError("seg_encoding must be 'ids' or 'counts'")
         if layout not in ("flat", "dense", "auto"):
             raise ValueError("layout must be 'flat', 'dense', or 'auto'")
-        # the JAX loader's "auto" ships a batch dense only from a batch size
-        # of 128, so below that it is exactly the flat wire
-        if layout == "dense" or (layout == "auto" and batch_size and batch_size >= 128):
-            raise NotImplementedError(
-                f"layout={layout!r} at batch size {batch_size} needs the dense "
-                "per-cloud-row wire, which is not ported yet (ROADMAP Queue 1 "
-                "item 5); use layout='flat'"
-            )
+        self.layout = layout
         self.seg_encoding = seg_encoding
+        self.factor_event_cols = tuple(sorted(factor_event_cols))
+        self.bucket_factor = float(bucket_factor)
+        self.length_sorted = bool(length_sorted)
+        self.half = transfer_dtype == "float16"
         counts = np.array([len(f) for f in event_features], dtype=np.int64)
         self.flat = np.ascontiguousarray(
-            np.concatenate(event_features, axis=0), dtype=np.float32
+            np.concatenate(event_features, axis=0),
+            dtype=np.float16 if self.half else np.float32,
         )
         self.offsets = np.ascontiguousarray(
             np.concatenate([[0], np.cumsum(counts)]), dtype=np.int64
@@ -119,39 +141,95 @@ class PointCloudLoader:
     def __len__(self) -> int:
         return -(-self.n_examples // self.batch_size)
 
+    def _gather(self, idx, b: int, keep64, fac64):
+        """The rows of the events ``idx`` in order, the kept columns only
+        ``[total, Fw]``; each event's size and first row in that order; the
+        labels ``y``, ``y_mask``; and ``event_feats [b + 1, C]`` (each
+        non-empty event's factored columns, from its first row), or None."""
+        k = len(idx)
+        sizes = self.counts[idx]
+        starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+        total = int(sizes.sum())
+        # the concatenation of the ranges [offset_e, offset_e + n_e)
+        src = np.repeat(self.offsets[idx] - starts, sizes) + np.arange(total, dtype=np.int64)
+        rows = self.flat[np.ix_(src, keep64)]
+        yb = np.zeros((b, 1), dtype=np.float32)
+        mask = np.zeros((b,), dtype=np.float32)
+        yb[:k, 0] = self.labels[idx]
+        mask[:k] = 1.0
+        event_feats = None
+        if len(fac64):
+            nonempty = sizes > 0
+            event_feats = np.zeros((b + 1, len(fac64)), dtype=self.flat.dtype)
+            event_feats[:k][nonempty] = self.flat[self.offsets[idx][nonempty]][:, fac64]
+        return rows, sizes, starts, yb, mask, event_feats
+
+    def _dense_batch(self, idx, b: int, m: int, keep64, fac64) -> Batch:
+        rows, sizes, starts, yb, mask, event_feats = self._gather(idx, b, keep64, fac64)
+        k, total = len(idx), len(rows)
+        points = np.zeros((b, m, len(keep64)), dtype=self.flat.dtype)
+        points[
+            np.repeat(np.arange(k, dtype=np.int64), sizes),
+            np.arange(total, dtype=np.int64) - np.repeat(starts, sizes),
+        ] = rows
+        seg_counts = np.zeros((b + 1,), dtype=np.int32)
+        seg_counts[:k] = sizes
+        seg_counts[b] = b * m - total  # the in-row padding
+        batch = {"points": points, "y": yb, "y_mask": mask, "seg_counts": seg_counts}
+        if event_feats is not None:
+            batch["event_feats"] = event_feats
+        return batch
+
+    def _flat_batch(self, idx, b: int, p_pad: int, keep64, fac64) -> Batch:
+        rows, sizes, _, yb, mask, event_feats = self._gather(idx, b, keep64, fac64)
+        k, total = len(idx), len(rows)
+        points = np.zeros((p_pad, len(keep64)), dtype=self.flat.dtype)
+        points[:total] = rows
+        batch = {"points": points, "y": yb, "y_mask": mask}
+        if event_feats is not None:
+            batch["event_feats"] = event_feats
+        if self.seg_encoding == "counts":
+            seg_counts = np.zeros((b + 1,), dtype=np.int32)
+            seg_counts[:k] = sizes
+            seg_counts[b] = p_pad - total  # padding rows → segment B
+            batch["seg_counts"] = seg_counts
+        else:
+            seg = np.full((p_pad,), b, dtype=np.int16 if (self.half and b < 32767) else np.int32)
+            seg[:total] = np.repeat(np.arange(k), sizes)
+            batch["seg"] = seg
+        return batch
+
     def __iter__(self) -> Iterator[Batch]:
         n, b = self.n_examples, self.batch_size
         order = np.arange(n)
+        rng = None
         if self.shuffle:
-            order = np.random.default_rng(self.seed + self._epoch).permutation(n)
+            rng = np.random.default_rng(self.seed + self._epoch)
+            order = rng.permutation(n)
             self._epoch += 1
-        feat_dim = self.flat.shape[1]
-        for start in range(0, n, b):
+        starts = np.arange(0, n, b)
+        if self.length_sorted:
+            # stable sort by size, batch neighbours, shuffle the batch order
+            order = order[np.argsort(self.counts[order], kind="stable")]
+            if rng is not None:
+                rng.shuffle(starts)
+        fac64 = np.asarray(self.factor_event_cols, dtype=np.int64)
+        keep64 = np.asarray(
+            [c for c in range(self.flat.shape[1]) if c not in self.factor_event_cols],
+            dtype=np.int64,
+        )
+        for start in starts:
             idx = order[start : start + b]
-            k = len(idx)
-            total = int(self.counts[idx].sum())
-            p_pad = pow2_bucket(total, self.min_bucket)
-            points = np.zeros((p_pad, feat_dim), dtype=np.float32)
-            seg = np.full((p_pad,), b, dtype=np.int32)
-            yb = np.zeros((b, 1), dtype=np.float32)
-            mask = np.zeros((b,), dtype=np.float32)
-            seg_counts = np.zeros((b + 1,), dtype=np.int32)
-            cursor = 0
-            for slot, ev in enumerate(idx):
-                lo, hi = self.offsets[ev], self.offsets[ev + 1]
-                points[cursor : cursor + (hi - lo)] = self.flat[lo:hi]
-                seg[cursor : cursor + (hi - lo)] = slot
-                seg_counts[slot] = hi - lo
-                cursor += hi - lo
-            seg_counts[b] = p_pad - cursor  # padding rows → segment B
-            yb[:k, 0] = self.labels[idx]
-            mask[:k] = 1.0
-            batch = {"points": points, "y": yb, "y_mask": mask}
-            if self.seg_encoding == "counts":
-                batch["seg_counts"] = seg_counts
-            else:
-                batch["seg"] = seg
-            yield batch
+            p_pad = pow2_bucket(int(self.counts[idx].sum()), self.min_bucket, self.bucket_factor)
+            if self.layout != "flat":
+                m_rung = _dense_rung(int(self.counts[idx].max()) if len(idx) else 1)
+                # auto: dense when the batch is large enough for the row pool
+                # to pay and its rows hold no more than ~10% more points than
+                # the flat bucket (the JAX loader's measured gate)
+                if self.layout == "dense" or (b >= 128 and b * m_rung <= p_pad + p_pad // 10):
+                    yield self._dense_batch(idx, b, m_rung, keep64, fac64)
+                    continue
+            yield self._flat_batch(idx, b, p_pad, keep64, fac64)
 
 
 def _not_ported(what: str) -> NotImplementedError:

@@ -6,13 +6,12 @@ loading ``{data_dir}/S2PPC/{split}/S2PPC_{split}_*.npz``, and
 ``frame_to_point_loader``).  The reference holds the rows in a pandas frame
 and its base class imports sklearn; this one keeps them as numpy columns, so
 it runs on a machine with neither.  Batches are byte-identical to the JAX
-loader's.
+loader's, on every wire it ships: flat or dense (``layout``), f32 or fp16
+(``transfer_dtype``), with or without ``factor_event_cols``, and with
+``length_sorted`` (the train split only, as in the JAX package).
 
 Not ported yet: building the cache from the raw HDF5 showers
-(``create_dataset=True`` needs h5py and sklearn), the dense per-cloud-row
-wire (``layout="dense"``, and ``"auto"`` at a batch size of 128 or more), the
-fp16 wire, factored event columns, length-sorted batching and non-pow-2
-bucket ladders.
+(``create_dataset=True`` needs h5py and sklearn).
 """
 
 from __future__ import annotations
@@ -57,7 +56,8 @@ def frame_to_point_loader(
 
 
 class Step2PointPointCloud:
-    """The cached S2PPC splits and their flat-wire loaders (train shuffled)."""
+    """The cached S2PPC splits and their loaders (train shuffled, and
+    length-sorted when asked)."""
 
     name = "S2PPC"
 
@@ -65,7 +65,7 @@ class Step2PointPointCloud:
         self,
         data_dir: str,
         parts: int = None,
-        sparse_batching: bool = True,  # config compat; the wire is flat
+        sparse_batching: bool = True,  # config compat
         energy_cutoff: float = None,  # applied when the cache was built
         seg_encoding: str = "ids",
         layout: str = "flat",
@@ -87,20 +87,17 @@ class Step2PointPointCloud:
                 "ported yet (ROADMAP Queue 1 item 6); build it with the JAX "
                 "package and point data_dir at it"
             )
-        if (
-            transfer_dtype != "float32"
-            or tuple(factor_event_cols)
-            or bucket_factor != 2.0
-            or length_sorted
-        ):
-            raise NotImplementedError(
-                "the fp16 wire, factored event columns, non-pow-2 buckets and "
-                "length-sorted batching are not ported yet (ROADMAP Queue 1 item 5)"
-            )
         self.data_dir = data_dir
         self.parts = parts
         self.batch_size = batch_size
-        self.loader_kwargs = dict(seg_encoding=seg_encoding, layout=layout)
+        self.length_sorted = length_sorted
+        self.loader_kwargs = dict(
+            transfer_dtype=transfer_dtype,
+            seg_encoding=seg_encoding,
+            factor_event_cols=tuple(factor_event_cols),
+            bucket_factor=bucket_factor,
+            layout=layout,
+        )
         self.datasets = {split: self._load_split(split) for split in SPLITS}
         print("Finished loading datasets")
 
@@ -121,6 +118,7 @@ class Step2PointPointCloud:
     def _make_loader(self, split: str) -> PointCloudLoader:
         loader, _ = frame_to_point_loader(
             self.datasets[split], self.batch_size, shuffle=split == "train",
+            length_sorted=self.length_sorted and split == "train",
             **self.loader_kwargs,
         )
         return loader

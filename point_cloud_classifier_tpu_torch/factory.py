@@ -58,8 +58,10 @@ def _graph_dataset_config(config: dict) -> dict:
 
 def get_dataloader(dataset_name: str, config: dict):
     """The data module for ``dataset_name`` over ``config["dataset"]``.  As
-    in the JAX package, S2PPC defaults to ``layout="auto"``, which the port
-    serves on the flat wire below a batch size of 128 and refuses above;
+    in the JAX package, S2PPC defaults to ``layout="auto"`` (the dense
+    per-cloud-row wire per batch from a batch size of 128, else flat) and
+    takes the loader's wire options (``transfer_dtype``,
+    ``factor_event_cols``, ``bucket_factor``, ``length_sorted``);
     S2PG defaults to ``graph_layout="auto"``, which the port serves on the
     dense in-row wire and refuses where the JAX loader would ship a batch
     another way, and to ``"flat"`` for a ``knn_k`` model."""
@@ -80,10 +82,11 @@ def get_dataloader(dataset_name: str, config: dict):
 def get_model(model_name: str, config: dict, model_dir: str = None, device: str = None):
     """A ``ModelWrapper`` around ``config["model"]``, restored from
     ``{model_dir}/best_model.pt`` when ``model_dir`` is given.  Fresh
-    weights are drawn from ``trainer.seed`` (default 0).  The model runs on
-    the card, and the call raises where there is none, unless ``device`` says
-    otherwise (``"cpu"``); the device is no part of the config, so a run's
-    ``config.yaml`` does not depend on it."""
+    weights are drawn from ``trainer.seed`` (default 0); every other
+    ``trainer`` key (``device_resident`` among them) goes to the wrapper.
+    The model runs on the card, and the call raises where there is none,
+    unless ``device`` says otherwise (``"cpu"``); the device is no part of
+    the config, so a run's ``config.yaml`` does not depend on it."""
     if model_name in _NOT_PORTED:
         raise NotImplementedError(
             f"{model_name} is not ported to PyTorch yet ({_NOT_PORTED[model_name]})"

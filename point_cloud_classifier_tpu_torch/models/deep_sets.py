@@ -1,4 +1,4 @@
-"""DeepSets over flattened point batches.
+"""DeepSets over point batches on the flat or the dense per-cloud-row wire.
 
 Counterpart of ``point_cloud_classifier_tpu/models/deep_sets.py``, with the
 same semantics:
@@ -16,18 +16,32 @@ it runs per event after pooling, in f32, with its bias scaled by ``√N`` (sum)
 or masked for empty events (mean).  ``PCC_PHI_POSTPOOL=0`` restores the
 per-point placement.
 
+Wires: the flat one (``points [P, F]`` with ``seg`` or ``seg_counts``) and
+the dense one (``points [B, M, F]`` with ``seg_counts``: each event's points
+at the start of its row).  ``factored_cols`` names the columns the loader
+shipped once per event as ``event_feats [B + 1, C]`` (its
+``factor_event_cols``); the model puts them back in their places before φ,
+by a broadcast over M on the dense wire and ``ops/segment.spread_by_segment``
+on the flat one.
+
 Routing: a config with no layer norm and sum or mean pooling sends φ and its
 pooling through ``ops/fused_phi.phi_pool`` — the K1 kernel on a CUDA tensor,
-the plain version on a CPU one.  Layer norm or max pooling take the plain
-path, which is model semantics and not a fallback.  ``fused_phi="off"``
-forces the plain path (the reference for checking the kernel).
+the plain version on a CPU one — on both wires: the dense one is flattened
+to ``[B·M, F]`` with int32 ids made on the device (the event's index where
+the point's place in its row is below the event's count, else the padding id
+``B``).  The JAX package sends the dense wire to XLA only, since its Pallas
+kernels have no per-point validity; the port's kernels skip the padding id.
+Layer norm or max pooling take the plain path, which is model semantics and
+not a fallback: on the dense wire a masked row sum (max: ``-inf`` outside
+the mask, an empty event pools to 0).  ``fused_phi="off"`` forces the plain
+path (the reference for checking the kernel).
 
 Module names follow the original torch reference's ``state_dict`` layout
 (``phi.N.weight``, ``phi.N.linear.weight``, ``rho.N.weight``, …) so that
 ``convert.to_torch_state_dict`` output loads with ``strict=True``.
 
-Not yet ported: the dense per-cloud-row wire (``points [B, M, F]``),
-``factored_cols``/``event_feats``, ``fused_phi="tail"`` and int8 ``quant``.
+Not yet ported: ``fused_phi="tail"`` (ROADMAP Queue 1 item 4) and int8
+``quant`` (item 12).
 """
 
 from __future__ import annotations
@@ -50,7 +64,19 @@ from point_cloud_classifier_tpu_torch.ops.segment import (
     segment_count,
     segment_max,
     segment_sum,
+    spread_by_segment,
 )
+
+
+def dense_segment_ids(seg_counts: torch.Tensor, row_m: int) -> torch.Tensor:
+    """int32 ids ``[B·M]`` of the dense wire's flattened points: the event's
+    index where the point's place in its row is below the event's count
+    (``seg_counts[:B]``), else ``B``, the flat wire's padding segment."""
+    num_events = seg_counts.shape[0]
+    pos = torch.arange(row_m, dtype=torch.int32, device=seg_counts.device)
+    event = torch.arange(num_events, dtype=torch.int32, device=seg_counts.device)
+    ids = torch.where(pos[None, :] < seg_counts.to(torch.int32)[:, None], event[:, None], num_events)
+    return ids.reshape(-1)
 
 
 class ResidualBlock(nn.Module):
@@ -75,7 +101,7 @@ class DeepSets(nn.Module):
         activation: str,
         layer_norm: bool = True,
         residual_block: bool = False,
-        sparse_batching: bool = True,  # config compat; the wire is flat
+        sparse_batching: bool = True,  # config compat
         pooling: str = "sum",
         compute_dtype: str = "float32",
         fused_phi: str = "auto",
@@ -88,11 +114,12 @@ class DeepSets(nn.Module):
             raise ValueError("pooling must be 'mean', 'sum', or 'max'")
         if fused_phi not in ("auto", "on", "off"):
             raise NotImplementedError(
-                f"fused_phi={fused_phi!r} is not ported (auto, on and off are)"
+                f"fused_phi={fused_phi!r} is not ported (auto, on and off are; "
+                "ROADMAP Queue 1 item 4)"
             )
-        if factored_cols or quant != "none":
+        if quant != "none":
             raise NotImplementedError(
-                "factored_cols and int8 quant are not ported yet (ROADMAP Queue 1)"
+                "int8 quant is not ported yet (ROADMAP Queue 1 item 12)"
             )
         # the JAX constructor's keyword arguments: what convert.py's key
         # mapping and a checkpoint's config describe
@@ -108,7 +135,11 @@ class DeepSets(nn.Module):
             pooling=pooling,
             compute_dtype=compute_dtype,
             fused_phi=fused_phi,
+            factored_cols=list(factored_cols),
         )
+        self.input_dim = input_dim
+        # the loader ships factored columns in ascending order
+        self.factored_cols = tuple(sorted(factored_cols))
         self.activation = activation
         self.layer_norm = layer_norm
         self.pooling = pooling
@@ -167,20 +198,41 @@ class DeepSets(nn.Module):
             and self.pooling in ("sum", "mean")
         )
 
+    def _reassemble(self, points, event_feats, seg, num_events, row_m):
+        """The full ``[P, input_dim]`` point features, the factored columns
+        spread back from ``event_feats`` in their original places."""
+        if row_m is not None:
+            # the dense wire's rows have one stride: a broadcast
+            ef = event_feats[:num_events].to(points.dtype)
+            per_point = ef[:, None, :].expand(num_events, row_m, ef.shape[-1])
+            per_point = per_point.reshape(points.shape[0], ef.shape[-1])
+        else:
+            per_point = spread_by_segment(event_feats, seg, dtype=points.dtype)
+        cols, ki, fi = [], 0, 0
+        for c in range(self.input_dim):
+            if c in self.factored_cols:
+                cols.append(per_point[:, fi : fi + 1])
+                fi += 1
+            else:
+                cols.append(points[:, ki : ki + 1])
+                ki += 1
+        return torch.cat(cols, dim=1)
+
     def forward(self, batch: Dict[str, torch.Tensor], train: bool = False):
-        points = batch["points"]
-        if points.ndim == 3 or "event_feats" in batch:
-            raise NotImplementedError(
-                "the dense per-cloud-row wire and event_feats are not ported "
-                "yet (ROADMAP Queue 1); use PointCloudLoader(layout='flat')"
-            )
-        points = points.to(self.compute_dtype)
+        points = batch["points"].to(self.compute_dtype)
         num_events = batch["y"].shape[0]
         num_segments = num_events + 1  # the last slot collects padding points
-        if "seg" in batch:
+        row_m = None  # the dense wire's row length
+        seg = None
+        if points.ndim == 3:
+            row_m = points.shape[1]
+            points = points.reshape(num_events * row_m, points.shape[-1])
+        elif "seg" in batch:
             seg = batch["seg"].to(torch.int32)
         else:
             seg = counts_to_segment_ids(batch["seg_counts"], points.shape[0])
+        if self.factored_cols:
+            points = self._reassemble(points, batch["event_feats"], seg, num_events, row_m)
 
         spec, params = self._phi_spec_params()
         if "seg_counts" in batch:
@@ -195,12 +247,16 @@ class DeepSets(nn.Module):
         )
         phi_params = params[:-1] if post_pool else params
         if self._use_kernel():
+            if row_m is not None:
+                seg = dense_segment_ids(batch["seg_counts"][:num_events], row_m)
             total = phi_pool(
                 points, seg, spec, phi_params, self.activation, num_segments
             )[:num_events]
         else:
             h32 = phi_forward(points, spec, phi_params, self.activation).float()
-            if self.pooling == "max":
+            if row_m is not None:
+                pooled, total = self._dense_pool(h32, counts, row_m)
+            elif self.pooling == "max":
                 pooled = segment_max(h32, seg, num_segments)[:num_events]
             else:
                 total = segment_sum(h32, seg, num_segments)[:num_events]
@@ -220,3 +276,15 @@ class DeepSets(nn.Module):
             pooled = torch.matmul(pooled.float(), wf.float()) + bf.float() * bias_scale
 
         return self.rho(pooled.to(points.dtype)).float()
+
+    def _dense_pool(self, h32, counts, row_m):
+        """``(max-pooled, None)`` or ``(None, f32 row sums)`` of the dense
+        wire's ``[B·M, H]`` features, masked to each event's points."""
+        rows = h32.reshape(counts.shape[0], row_m, h32.shape[-1])
+        pos = torch.arange(row_m, device=h32.device, dtype=torch.float32)
+        mask = pos[None, :] < counts[:, None]
+        if self.pooling == "max":
+            pooled = torch.where(mask[:, :, None], rows, float("-inf")).amax(dim=1)
+            # an empty event pools to 0, as on the flat wire
+            return torch.where(counts[:, None] > 0, pooled, 0.0), None
+        return None, torch.einsum("bm,bmh->bh", mask.float(), rows)

@@ -20,17 +20,24 @@ Checkpoints are torch ``state_dict``s under the keys that ``convert.py``
 maps; :meth:`ModelWrapper.load` also reads the JAX package's pickles.  The
 model lives on the card (``device=None`` means ``"cuda"`` and raises where
 there is none; the CPU is taken only when the caller passes
-``device="cpu"``); batches go to it one at a time, and losses and outputs come back in one copy per epoch or
-per evaluation.
+``device="cpu"``); losses and outputs come back in one copy per epoch or per
+evaluation.
+
+Input pipelines, as in the JAX trainer: by default each host batch goes to
+the device as the step takes it; ``device_resident`` (or
+``PCC_RESIDENT=1``) wraps the train loader (shuffled from ``seed``) and the
+val loader in ``data/resident.ResidentCache``; ``PCC_BG_LOADER=1`` packs
+batches on a background thread (``data/background.py``) and
+``PCC_PREFETCH=1`` copies them ahead on a side stream
+(``data/prefetch.py``).  A batch already on the device is used as it is.
 
 A model's BatchNorm running statistics are buffers of the module: the train
 step moves them (``MaskedBatchNorm``), ``best_model.pt``, ``model.pt`` and
 the resumable state carry them in the ``state_dict``, and validation and
 ``predict`` normalize with them — the JAX trainer's ``batch_stats``.
 
-Not ported: fused step windows (``fuse_steps > 1``, ``PCC_FUSE_STEPS``), the
-device-resident batch cache (``device_resident``, ``PCC_RESIDENT``), meshes
-(``mesh``, ``data_parallel``, ``n_model > 1`` and their environment
+Not ported: fused step windows (``fuse_steps > 1``, ``PCC_FUSE_STEPS``),
+meshes (``mesh``, ``data_parallel``, ``n_model > 1`` and their environment
 variables) and TensorBoard histograms (``PCC_TB_HISTOGRAMS``): each raises.
 """
 
@@ -49,6 +56,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from point_cloud_classifier_tpu_torch import convert
+from point_cloud_classifier_tpu_torch.data.background import BackgroundIterator
+from point_cloud_classifier_tpu_torch.data.prefetch import prefetch_to_device
+from point_cloud_classifier_tpu_torch.data.resident import ResidentCache, shape_key
 
 STATE_FILE = "state.pt"
 
@@ -70,7 +80,7 @@ def _make_optimizer(name: str, params, learning_rate: float) -> torch.optim.Opti
     raise ValueError(f"Unknown optimizer: {name}")
 
 
-def _refuse_unported(fuse_steps, device_resident, mesh, data_parallel, n_model) -> None:
+def _refuse_unported(fuse_steps, mesh, data_parallel, n_model) -> None:
     """Raise for each option of the JAX trainer that this port lacks, set by
     argument or by its environment variable (read as the JAX package reads
     it), rather than ignore it."""
@@ -88,11 +98,6 @@ def _refuse_unported(fuse_steps, device_resident, mesh, data_parallel, n_model) 
     refused = {
         "fuse_steps > 1 (PCC_FUSE_STEPS; CUDA-graph step capture is a later, "
         "measured option)": int(fuse_steps) > 1,
-        "device_resident (PCC_RESIDENT; ROADMAP Queue 1 item 9)": (
-            env("PCC_RESIDENT") == "1"
-            if env("PCC_RESIDENT") is not None
-            else bool(device_resident)
-        ),
         "mesh, data_parallel and n_model > 1 (PCC_DATA_PARALLEL, PCC_N_MODEL; "
         "ROADMAP Queue 1 item 13)": (
             mesh is not None
@@ -123,11 +128,6 @@ def resolve_device(device=None) -> torch.device:
             )
         device = "cuda"
     return torch.device(device)
-
-
-def _shape_key(batch):
-    """One bucketed batch shape, as the JAX trainer counts them."""
-    return tuple(sorted((k, np.shape(v), str(v.dtype)) for k, v in batch.items()))
 
 
 def _p50_ms(seconds) -> float:
@@ -186,8 +186,14 @@ class ModelWrapper:
         device: Optional[str] = None,
     ):
         # seed is the config's trainer.seed: factory.get_model draws the
-        # initial weights from it before the model reaches this wrapper
-        _refuse_unported(fuse_steps, device_resident, mesh, data_parallel, n_model)
+        # initial weights from it before the model reaches this wrapper, and
+        # the resident cache shuffles from it
+        _refuse_unported(fuse_steps, mesh, data_parallel, n_model)
+        env_resident = os.environ.get("PCC_RESIDENT")
+        if env_resident is not None:
+            device_resident = env_resident == "1"
+        self.device_resident = bool(device_resident)
+        self.seed = seed
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.learning_rate = learning_rate
@@ -205,13 +211,27 @@ class ModelWrapper:
 
     def _put(self, batch) -> Dict[str, torch.Tensor]:
         """The batch on the device, without the arrays the model says it
-        never reads (a kNN GraphNet builds its own edges)."""
+        never reads (a kNN GraphNet builds its own edges); a tensor already
+        on the device is used as it is."""
         unused = getattr(self.model, "unused_batch_keys", ())
         return {
-            k: torch.from_numpy(np.asarray(v)).to(self.device)
+            k: torch.as_tensor(v).to(self.device)
             for k, v in batch.items()
             if k not in unused
         }
+
+    def _batches(self, loader: Iterable) -> Iterable:
+        """The batch stream of a training or evaluation loop: a resident
+        cache as it is; else the loader, packed on a background thread with
+        ``PCC_BG_LOADER=1`` and copied ahead to the device with
+        ``PCC_PREFETCH=1``."""
+        if isinstance(loader, ResidentCache):
+            return loader
+        if os.environ.get("PCC_BG_LOADER") == "1":
+            loader = BackgroundIterator(loader, prefetch=2)
+        if os.environ.get("PCC_PREFETCH") == "1":
+            return prefetch_to_device(loader, size=2, device=self.device)
+        return loader
 
     # -- training ------------------------------------------------------------
 
@@ -230,6 +250,19 @@ class ModelWrapper:
         log = _ScalarLog(self.log_dir)
         t0 = time.time()
         start_epoch = self.restore_state() if resume else 0
+        if self.device_resident:
+            if not isinstance(train_loader, ResidentCache):
+                # replays shuffle the batch order from the seed, batch by
+                # batch (one step a window: fuse_steps > 1 is refused); a
+                # resumed run counts its epochs on from start_epoch
+                train_loader = ResidentCache(
+                    train_loader,
+                    device=self.device,
+                    shuffle_seed=self.seed,
+                    epoch_offset=start_epoch,
+                )
+            if val_loader is not None and not isinstance(val_loader, ResidentCache):
+                val_loader = ResidentCache(val_loader, device=self.device)
         self.model.train()
         try:
             for epoch in range(start_epoch, self.epochs):
@@ -250,8 +283,8 @@ class ModelWrapper:
         triggers."""
         losses, step_seconds = [], []
         epoch_t0 = time.perf_counter()
-        for batch in train_loader:
-            self._shapes_seen.add(_shape_key(batch))
+        for batch in self._batches(train_loader):
+            self._shapes_seen.add(shape_key(batch))
             step_t0 = time.perf_counter()
             losses.append(self.train_step(batch))
             # the host's side of the step: on a card, kernels run on after it
@@ -299,28 +332,26 @@ class ModelWrapper:
     def _eval_dispatch(self, loader: Iterable):
         """Per-batch masked losses ``[N]`` (host), probabilities, labels and
         masks, with one device→host copy for every batch's outputs."""
-        losses, probs, y_all, mask_all = [], [], [], []
+        losses, outs = [], []  # outs: each batch's probs, y and y_mask
         was_training = self.model.training
         self.model.eval()
         try:
             with torch.inference_mode():
-                for batch in loader:
+                for batch in self._batches(loader):
                     dev = self._put(batch)
                     logits = self.model(dev, train=False)
                     losses.append(masked_bce(logits, dev["y"], dev["y_mask"]))
-                    probs.append(torch.sigmoid(logits))
-                    y_all.append(np.asarray(batch["y"]))
-                    mask_all.append(np.asarray(batch["y_mask"]).astype(bool))
-                if not probs:
+                    outs += [torch.sigmoid(logits), dev["y"].float(), dev["y_mask"].float()]
+                if not losses:
                     raise ValueError("eval loader produced no batches")
-                flat = torch.cat([torch.stack(losses), *(p.reshape(-1) for p in probs)])
+                flat = torch.cat([torch.stack(losses), *(t.reshape(-1) for t in outs)])
                 flat = flat.cpu().numpy()
         finally:
             self.model.train(was_training)
         n = len(losses)
-        outputs = np.split(flat[n:], np.cumsum([p.numel() for p in probs])[:-1])
-        probs_all = [o.reshape(p.shape) for o, p in zip(outputs, probs)]
-        return flat[:n], probs_all, y_all, mask_all
+        parts = np.split(flat[n:], np.cumsum([t.numel() for t in outs])[:-1])
+        host = [p.reshape(t.shape) for p, t in zip(parts, outs)]
+        return flat[:n], host[0::3], host[1::3], [m.astype(bool) for m in host[2::3]]
 
     def _evaluate(self, loader: Iterable):
         """(mean of the per-batch losses, accuracy at sigmoid ≥ 0.5 over the

@@ -41,6 +41,17 @@ def segment_max(
     return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
 
 
+def spread_by_segment(
+    values: torch.Tensor, segment_ids: torch.Tensor, dtype: torch.dtype = None
+) -> torch.Tensor:
+    """Per-segment rows ``[S, C]`` → per-element rows ``[N, C]`` in ``dtype``
+    (the values' own by default): row ``i`` is ``values[segment_ids[i]]``,
+    cast.  Exact, as the JAX package's one-hot product is: each output row is
+    one value."""
+    values = values if dtype is None else values.to(dtype)
+    return values.index_select(0, segment_ids.long())
+
+
 def counts_to_segment_ids(counts: torch.Tensor, total: int) -> torch.Tensor:
     """Per-segment counts ``[S]`` → sorted int32 ids ``[total]``: the id of
     element ``i`` is the number of cumulative segment ends ``≤ i``."""

@@ -7,7 +7,9 @@ Counterpart of ``train_model`` and ``resume_training`` in the repository's
 factories, the resolved ``config.yaml``, ``fit``, the final ``model.pt``,
 then ``accuracy/train``, ``accuracy/val`` and ``parameters`` in
 ``meta.json``.  Accuracy is computed with numpy, as sklearn's
-``accuracy_score`` computes it.
+``accuracy_score`` computes it.  The config's ``trainer`` section reaches
+the wrapper whole, so ``trainer.device_resident: true`` trains from the
+resident cache, as in the JAX trainer.
 
 Not ported yet: the evaluation plots (``plots=True``, ROADMAP Queue 1 item
 16), and the command line (Queue 1 item 10): callers pass the config dict,

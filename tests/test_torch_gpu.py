@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a card: K1, K2, K3, K4, K5 and K6 against their
 plain versions, the DeepSets kernel route against its plain route, serving
-and training, and the GraphNet routes (GAT through K3 and K4, GraphConv
+and training, on the flat and the dense wire, the resident cache and the
+prefetch on the card, and the GraphNet routes (GAT through K3 and K4, GraphConv
 through K6, kNN GraphConv through K5) against their plain routes, serving and
 one train step.
 
@@ -310,6 +311,148 @@ def test_fit_step_kernel_route_matches_plain_route():
     for (name, p), q in zip(kernel.model.named_parameters(), plain.model.parameters()):
         scale = max(1e-12, q.grad.abs().max().item())
         assert (p.grad - q.grad).abs().max().item() <= 1e-4 * scale, name
+
+
+def _dense_wire_batch(b=16, transfer_dtype="float32", factored=(1,), seed=0, max_points=40):
+    """A host batch of the dense per-cloud-row wire from the port's loader:
+    event 2 empty, one event filling its row, column 1 constant per event."""
+    from point_cloud_classifier_tpu_torch.data import PointCloudLoader
+
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, max_points, size=b)
+    sizes[2], sizes[0] = 0, max_points
+    events = [rng.normal(size=(int(n), 6)).astype(np.float32) for n in sizes]
+    for e in events:
+        e[:, 1] = rng.normal()
+    loader = PointCloudLoader(events, rng.integers(0, 2, size=b), b, False, layout="dense",
+                              transfer_dtype=transfer_dtype, factor_event_cols=factored)
+    return next(iter(loader))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m_pad", [0, 80], ids=["full-rows", "in-row-padding"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernels_on_dense_ids_match_the_masked_row_sum(dtype, m_pad):
+    """K1 over the dense wire's flattened rows and its made ids against the
+    plain dense pool (a masked row sum), and K2 against its plain version on
+    the same ids; the padding id B is skipped by both kernels."""
+    from point_cloud_classifier_tpu_torch.models.deep_sets import dense_segment_ids
+
+    dev = _cuda()
+    b, m = 64, 256 + m_pad
+    rng = np.random.default_rng(3)
+    counts = torch.from_numpy(rng.integers(m - 96, m + 1, size=b).astype(np.int32)).to(dev)
+    counts[1] = 0
+    pts = torch.from_numpy(rng.normal(size=(b * m, 6)).astype(np.float32)).to(dev, dtype)
+    _, _, params, _ = _inputs(dev, dtype)
+    ids = dense_segment_ids(counts, m)
+    out = fused_phi.phi_pool(pts, ids, SPEC, params, "gelu", b + 1)
+    h = fused_phi.phi_forward(pts, SPEC, params, "gelu").float().reshape(b, m, -1)
+    mask = (torch.arange(m, device=dev)[None, :] < counts[:, None]).float()
+    ref = torch.einsum("bm,bmh->bh", mask, h)
+    torch.cuda.synchronize()
+    assert out.shape == (b + 1, 256)
+    assert (out[:b] - ref).abs().max().item() <= TOL[dtype] * max(1.0, ref.abs().max().item())
+    assert fused_phi.phi_pool.variant == ("sliced" if dtype == torch.bfloat16 else "general")
+    g = torch.from_numpy(rng.normal(size=(b + 1, 256)).astype(np.float32)).to(dev)
+    got = fused_phi._phi_pool_bwd_cuda(pts, ids, g, SPEC, params, "gelu", b + 1)
+    want = fused_phi.phi_pool_bwd_plain(pts, ids, g, SPEC, params, "gelu", b + 1)
+    assert fused_phi.phi_pool.bwd_variant == "sliced"
+    for x, y in zip([got[0], *got[1]], [want[0], *want[1]], strict=True):
+        fro = ((x.double() - y.double()).norm() / y.double().norm()).item()
+        assert fro <= (BWD_F32_FRO if dtype == torch.float32 else BWD_BF16_FRO)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pooling", ["sum", "mean"])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_deep_sets_dense_wire_kernel_route_matches_plain_route(compute_dtype, pooling):
+    """The flagship wire (dense rows, fp16 in bf16, column 1 factored) at
+    config widths: one train-mode forward and backward through K1 and K2
+    against the plain dense route, logits and every gradient."""
+    dev = _cuda()
+    cfg = dict(input_dim=6, phi_layers=[256, 256], rho_layers=[256], output_dim=1,
+               activation="gelu", layer_norm=False, residual_block=True, pooling=pooling,
+               compute_dtype=compute_dtype, factored_cols=(1,))
+    wire = "float16" if compute_dtype == "bfloat16" else "float32"
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in _dense_wire_batch(transfer_dtype=wire).items()}
+    assert batch["points"].ndim == 3
+    model = DeepSets(**cfg).to(dev).train()
+    plain = DeepSets(**cfg, fused_phi="off").to(dev).train()
+    plain.load_state_dict(model.state_dict())
+    before = (fused_phi.phi_pool.launches, fused_phi.phi_pool.bwd_launches)
+    outs = []
+    for net in (model, plain):
+        logits = net(batch, train=True)
+        logits.sum().backward()
+        outs.append(logits.detach())
+    torch.cuda.synchronize()
+    assert (fused_phi.phi_pool.launches, fused_phi.phi_pool.bwd_launches) == (before[0] + 1, before[1] + 1)
+    if compute_dtype == "bfloat16":
+        assert fused_phi.phi_pool.variant == fused_phi.phi_pool.bwd_variant == "sliced"
+    bound = 1e-4 if compute_dtype == "float32" else 3e-2
+    assert (outs[0] - outs[1]).abs().max().item() <= bound * max(1.0, outs[1].abs().max().item())
+    for (name, p), q in zip(model.named_parameters(), plain.parameters()):
+        scale = max(1.0, q.grad.abs().max().item()) if compute_dtype == "bfloat16" else max(
+            1e-12, q.grad.abs().max().item())
+        assert (p.grad - q.grad).abs().max().item() <= bound * scale, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [1, 2, 4])
+def test_prefetch_on_a_side_stream_gives_the_host_batches_in_order(size):
+    from point_cloud_classifier_tpu_torch.data.prefetch import prefetch_to_device
+
+    dev = _cuda()
+    host = [_dense_wire_batch(transfer_dtype="float16", seed=i) for i in range(6)]
+    got = []
+    for batch in prefetch_to_device(iter(host), size=size, device=dev):
+        assert all(t.device.type == "cuda" for t in batch.values())
+        # work on the consumer's stream while later copies are in flight
+        got.append({k: (v.float() * 1).cpu() if v.is_floating_point() else v.cpu() for k, v in batch.items()})
+    assert len(got) == len(host)
+    for a, b in zip(got, host):
+        for k, v in b.items():
+            assert torch.equal(a[k], torch.from_numpy(v).to(a[k].dtype)), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("upload_chunk", [1, 4])
+def test_resident_cache_keeps_the_batches_on_the_card(upload_chunk):
+    from point_cloud_classifier_tpu_torch.data.resident import ResidentCache
+
+    _cuda()
+    host = [_dense_wire_batch(transfer_dtype="float16", seed=i) for i in range(6)]
+    cache = ResidentCache(host, upload_chunk=upload_chunk, shuffle_seed=1)
+    first, second = list(cache), list(cache)
+    assert cache.cached and all(t.device.type == "cuda" for b in first + second for t in b.values())
+    for a, b in zip(first, host):
+        for k, v in b.items():
+            assert np.array_equal(a[k].cpu().numpy(), v), k
+    order = [next(i for i, f in enumerate(first) if f["points"] is b["points"]) for b in second]
+    assert sorted(order) == list(range(6))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env", [{}, {"PCC_PREFETCH": "1", "PCC_BG_LOADER": "1"}],
+                         ids=["resident", "prefetch"])
+def test_fit_on_the_card_through_each_pipeline(env, monkeypatch):
+    from point_cloud_classifier_tpu_torch.models import ModelWrapper
+
+    _cuda()
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    cfg = dict(input_dim=6, phi_layers=[64, 64], rho_layers=[64], output_dim=1,
+               activation="gelu", layer_norm=False, residual_block=True, pooling="mean",
+               factored_cols=(1,))
+    host = [_dense_wire_batch(transfer_dtype="float16", seed=i) for i in range(4)]
+    wrapper = ModelWrapper(DeepSets(**cfg), 1e-3, 2, optimizer="adamw", device_resident=not env,
+                           device="cuda")
+    before = fused_phi.phi_pool.bwd_launches
+    wrapper.fit(host, host)
+    assert fused_phi.phi_pool.bwd_launches == before + 8
+    loss, _ = wrapper._evaluate(host)
+    assert np.isfinite(loss)
 
 
 # K3 against gat_attention_plain: max |Δ| / max(1, max |plain|); bf16 also

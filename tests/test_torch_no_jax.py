@@ -44,10 +44,11 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
     )
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 25
+    assert int(proc.stdout.split()[0]) >= 30
     walked = set(proc.stdout.split(":", 1)[1].split())
     graph_slice = {"data.graph", "models.graph_net", "ops.dispatch", "ops.gat", "ops.inrow_graph", "ops.knn"}
-    assert {f"point_cloud_classifier_tpu_torch.{m}" for m in graph_slice} <= walked
+    pipelines = {"data.background", "data.prefetch", "data.resident"}
+    assert {f"point_cloud_classifier_tpu_torch.{m}" for m in graph_slice | pipelines} <= walked
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -88,3 +89,37 @@ def test_knn_path_runs_without_jax():
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "node_seg_counts" in proc.stdout and np.isfinite(float(proc.stdout.split()[-1]))
+
+
+def test_flagship_wire_and_pipelines_run_without_jax():
+    """bench.py's DeepSets wire (dense and flat batches, fp16, energy_total
+    factored, length-sorted) through a resident cache, a background packer
+    and the prefetch, two epochs of ``fit`` on the CPU in a process where jax
+    and the JAX package cannot be imported."""
+    code = textwrap.dedent(
+        f"""
+        import os, sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        os.environ["PCC_BG_LOADER"] = os.environ["PCC_PREFETCH"] = "1"
+        import numpy as np, torch
+        from point_cloud_classifier_tpu_torch.data import PointCloudLoader
+        from point_cloud_classifier_tpu_torch.models import DeepSets, ModelWrapper
+        rng = np.random.default_rng(0)
+        events = [rng.normal(size=(int(n), 6)).astype(np.float32) for n in rng.integers(20, 25, 300)]
+        events += [rng.normal(size=(int(n), 6)).astype(np.float32) for n in rng.integers(1, 60, 100)]
+        labels = rng.integers(0, 2, size=len(events))
+        loader = PointCloudLoader(events, labels, 128, True, layout="auto", transfer_dtype="float16",
+                                  factor_event_cols=(1,), length_sorted=True)
+        wires = sorted({{b["points"].ndim for b in loader}})
+        net = DeepSets(6, [16, 16], [16], 1, "gelu", layer_norm=False, residual_block=True,
+                       pooling="mean", factored_cols=(1,), generator=torch.Generator().manual_seed(0))
+        wrapper = ModelWrapper(net, 1e-3, 2, device_resident=True, device="cpu")
+        wrapper.fit(loader, loader)
+        loss, acc = wrapper._evaluate(loader)
+        print(wires, loss)
+        """
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "[2, 3]" in proc.stdout and np.isfinite(float(proc.stdout.split()[-1]))

@@ -79,6 +79,28 @@ def test_counts_to_segment_ids_matches_jax(counts):
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("n_cols", [1, 2])
+def test_spread_by_segment_matches_jax_exactly(dtype, n_cols):
+    """Each row is one value of ``values``, cast: the port's gather and the
+    JAX one-hot product give the same bits (fp16 values, as the wire ships
+    them, in every compute type)."""
+    rng = np.random.default_rng(n_cols)
+    values = rng.normal(size=(9, n_cols)).astype(np.float16)
+    ids = rng.integers(0, 9, size=300).astype(np.int32)
+    ids[:40] = 8  # the padding segment's zero row
+    values[8] = 0
+    want = np.asarray(jax_seg.spread_by_segment(jnp.asarray(values), jnp.asarray(ids),
+                                                dtype=jnp.dtype(dtype)).astype(jnp.float32))
+    got = segment.spread_by_segment(torch.from_numpy(values), torch.from_numpy(ids),
+                                    dtype=getattr(torch, dtype))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (300, n_cols)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    np.testing.assert_array_equal(
+        segment.spread_by_segment(torch.from_numpy(values), torch.from_numpy(ids.astype(np.int16))).numpy(),
+        values[ids])
+
+
 @pytest.mark.parametrize("model", ["deep_sets", "fully_connected_net", "graph_net"])
 def test_load_config_matches_jax(model):
     base = os.path.join(REPO, "configs", "base.yaml")

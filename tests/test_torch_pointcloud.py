@@ -79,27 +79,45 @@ def test_synthetic_cache_reads_as_the_jax_package_reads_it(tmp_path):
     )
 
 
-def test_auto_layout_refuses_the_dense_wire(tmp_path):
+FLAGSHIP_WIRE = {"layout": "auto", "transfer_dtype": "float16", "factor_event_cols": [1],
+                 "length_sorted": True}
+
+
+@pytest.mark.parametrize("batch_size", [32, 128, 256])
+@pytest.mark.parametrize("seg_encoding", ["ids", "counts"])
+def test_flagship_wire_batches_byte_identical_to_jax(tmp_path, batch_size, seg_encoding):
+    """bench.py's wire (auto layout, fp16, energy_total factored, length
+    sorted) through both factories, three train epochs and the val and test
+    splits; from B = 128 the train split ships dense and flat batches."""
+    synthetic.write_s2ppc_cache(str(tmp_path), n_events=(1100, 300, 300), min_points=3,
+                                max_points=12, seed=4)
+    cfg = _cfg(tmp_path, batch_size=batch_size, seg_encoding=seg_encoding, **FLAGSHIP_WIRE)
+    ours = factory.get_dataloader("s2ppc", cfg)
+    ref = jax_factory.get_dataloader("s2ppc", cfg)
+    train, train_ref = ours.get_train_loader(), ref.get_train_loader()
+    wires = set()
+    for _ in range(3):
+        batches = list(train)
+        _assert_same_batches(batches, train_ref)
+        wires |= {b["points"].ndim for b in batches}
+        assert all(b["points"].dtype == np.float16 and b["points"].shape[-1] == 5 for b in batches)
+        assert all(b["event_feats"].shape == (batch_size + 1, 1) for b in batches)
+    assert wires == ({2, 3} if batch_size >= 128 else {2})
+    _assert_same_batches(ours.get_val_loader(), ref.get_val_loader())
+    _assert_same_batches(ours.get_test_loader(), ref.get_test_loader())
+
+
+@pytest.mark.parametrize("extra", [{"layout": "dense"}, {"bucket_factor": 1.25},
+                                   {"factor_event_cols": [4, 1]}],
+                         ids=["dense", "bucket_factor", "two-factored-cols"])
+def test_wire_options_byte_identical_to_jax(tmp_path, extra):
     write_cache(tmp_path)
-    factory.get_dataloader("s2ppc", _cfg(tmp_path, batch_size=127)).get_train_loader()
-    data = factory.get_dataloader("s2ppc", _cfg(tmp_path, batch_size=128))
-    with pytest.raises(NotImplementedError, match="dense"):
-        data.get_train_loader()
-    data = factory.get_dataloader("s2ppc", _cfg(tmp_path, layout="dense"))
-    with pytest.raises(NotImplementedError, match="dense"):
-        data.get_val_loader()
+    cfg = _cfg(tmp_path, **extra)
+    _assert_same_batches(factory.get_dataloader("s2ppc", cfg).get_train_loader(),
+                         jax_factory.get_dataloader("s2ppc", cfg).get_train_loader())
 
 
-@pytest.mark.parametrize(
-    "extra, match",
-    [
-        ({"create_dataset": True}, "HDF5"),
-        ({"transfer_dtype": "float16"}, "fp16"),
-        ({"factor_event_cols": [1]}, "factored"),
-        ({"length_sorted": True}, "length-sorted"),
-    ],
-    ids=["create_dataset", "fp16", "factor_event_cols", "length_sorted"],
-)
+@pytest.mark.parametrize("extra, match", [({"create_dataset": True}, "HDF5")], ids=["create_dataset"])
 def test_unported_dataset_options_raise(tmp_path, extra, match):
     write_cache(tmp_path)
     with pytest.raises(NotImplementedError, match=match):

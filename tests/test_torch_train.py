@@ -260,8 +260,6 @@ def test_non_finite_loss_raises(tmp_path):
     [
         ({"fuse_steps": 2}, {}),
         ({}, {"PCC_FUSE_STEPS": "4"}),
-        ({"device_resident": True}, {}),
-        ({}, {"PCC_RESIDENT": "1"}),
         ({"data_parallel": True}, {}),
         ({}, {"PCC_DATA_PARALLEL": "1"}),
         ({"n_model": 2}, {}),
@@ -269,7 +267,7 @@ def test_non_finite_loss_raises(tmp_path):
         ({"mesh": object()}, {}),
         ({}, {"PCC_TB_HISTOGRAMS": "1"}),
     ],
-    ids=["fuse_steps", "PCC_FUSE_STEPS", "device_resident", "PCC_RESIDENT", "data_parallel",
+    ids=["fuse_steps", "PCC_FUSE_STEPS", "data_parallel",
          "PCC_DATA_PARALLEL", "n_model", "PCC_N_MODEL", "mesh", "PCC_TB_HISTOGRAMS"],
 )
 def test_unported_trainer_options_raise(monkeypatch, tmp_path, kwargs, env):
