@@ -126,7 +126,22 @@ result):
    (the masked row sum, and in f32 its autograd), with CUDA-event times and
    bounds; (d) packing per batch, the resident cache's first pass, and the
    train step per batch on the flat and dense wires, streaming, resident
-   and prefetched, by CUDA events.
+   and prefetched, by CUDA events;
+20. command line: ``cli.main([...])`` in this process on the card (so that the
+   launch counts can be read, each set to 0 just before a command and read
+   just after), over seeded S2PPC and S2PT caches of 1,024 / 256 / 256 events
+   at the widths of ``configs/`` (``--config-dir``): ``train deep_sets`` for 2
+   epochs (the run directory's files, K1 once per forward and K2 once per train
+   step, val accuracy over the floor), ``evaluate`` (``metrics.json``'s three
+   accuracies equal to ``predict``'s on each split, the report's supports those
+   of the test split), ``infer --split test`` (a row per test event,
+   probabilities within 1e-6 of ``predict``'s, ``prediction`` = probability ≥
+   0.5), ``resume`` for a third epoch from the run's ``config.yaml`` alone,
+   ``convert`` of ``best_model.pt`` to a reference ``state_dict``, to the JAX
+   pickle and back, exactly equal; ``train fully_connected_net`` (5 epochs) and
+   ``train logistic_regression`` on S2PT, each over its val floor and then
+   ``evaluate``d, the logistic regression's coefficients within 2e-4 of the
+   same fit on the CPU and its solve timed on both; each command's seconds.
 
 Beside each kernel's time the script works out the least time the card could
 take for the same work (``bound_ms``: the bytes the function must move over
@@ -152,7 +167,7 @@ import time
 import numpy as np
 import torch
 
-from point_cloud_classifier_tpu_torch import convert, factory
+from point_cloud_classifier_tpu_torch import cli, convert, factory
 from point_cloud_classifier_tpu_torch import train as port_train
 from point_cloud_classifier_tpu_torch.data import GraphLoader, PointCloudLoader
 from point_cloud_classifier_tpu_torch.data.prefetch import prefetch_to_device
@@ -161,9 +176,10 @@ from point_cloud_classifier_tpu_torch.data.synthetic import (
     lineage_graphs,
     write_s2pg_cache,
     write_s2ppc_cache,
+    write_s2pt_cache,
 )
 from point_cloud_classifier_tpu_torch.graph_kernel_times import device_ms
-from point_cloud_classifier_tpu_torch.models import DeepSets, GraphNet
+from point_cloud_classifier_tpu_torch.models import DeepSets, GraphNet, LogRegression
 from point_cloud_classifier_tpu_torch.models.deep_sets import dense_segment_ids
 from point_cloud_classifier_tpu_torch.native import kernel_library
 from point_cloud_classifier_tpu_torch.ops.dispatch import force_plain
@@ -200,6 +216,7 @@ from point_cloud_classifier_tpu_torch.ops.knn import (
     knn_select,
     knn_select_plain,
 )
+from point_cloud_classifier_tpu_torch.utils.config import load_config
 
 SEED = 0
 # configs/deep_sets.yaml (model, dataset and trainer sections)
@@ -346,6 +363,20 @@ KNN_K = 8  # model.knn_k of the kNN slices
 # for add (eight summed neighbours drive tanh towards saturation, and three
 # epochs move it little) and 0.761719 for mean after 3 epochs
 KNN_VAL_ACC_FLOOR = {"add": 0.53, "mean": 0.70}
+# phase 20, the command line: seeded caches of 1,024 / 256 / 256 events
+# (S2PPC and S2PT) read at the widths of configs/; val accuracy floors
+# (chance 0.5), set from the same caches, configs and seeds on the CPU (x86,
+# plain versions), which read 0.773438 for DeepSets after 2 epochs, 0.800781
+# for the FCN after 5 and 0.828125 for the logistic regression
+CLI_EVENTS = (1024, 256, 256)
+CLI_VAL_ACC_FLOOR = {"deep_sets": 0.70, "fully_connected_net": 0.75, "logistic_regression": 0.78}
+# the logistic regression solved on the card against the same solve on the
+# CPU: both stop at max |grad| < 1e-4 of the summed loss in f32, and sum in
+# other orders
+LOGREG_COEF_TOL = 2e-4
+LOGREG_REPS = 5
+# infer's CSV against predict: its 6 decimals (5e-7) and K1's atomics
+CSV_PROB_TOL = 1e-6
 
 
 def reset_launch_counts() -> None:
@@ -2316,6 +2347,172 @@ def knn_times_phase(smi: str):
     return config_times
 
 
+def _cli(seconds: dict, label: str, *argv) -> dict:
+    """One command through ``cli.main`` in this process, on the card, with
+    every launch count set to 0 just before it; returns the counts read just
+    after."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(list(argv))
+    seconds[label] = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"cli {label}: {seconds[label]:.2f} s, launches {({k: v for k, v in counts.items() if v})}")
+    return counts
+
+
+def _expect_launches(label: str, counts: dict, **want) -> None:
+    want = {**dict.fromkeys(counts, 0), **want}
+    if counts != want:
+        raise AssertionError(f"cli {label}: launches {counts}, expected {want}")
+
+
+def _cli_train(seconds: dict, work_dir: str, data: str, model: str, *extra):
+    """``train <model>`` at the widths of configs/; returns the run directory,
+    the launch counts and the run's config.yaml."""
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    log = os.path.join(work_dir, "cli_log", model)
+    counts = _cli(seconds, f"train {model}", "train", model, "--config-dir", configs,
+                  "--data-dir", data, "--log-dir", log, *extra)
+    run_dir = os.path.join(log, "version_0")
+    with open(os.path.join(run_dir, "meta.json")) as f:
+        meta = json.load(f)["metrics"]
+    print(f"cli train {model}: meta.json {meta}")
+    if not meta["accuracy/val"] >= CLI_VAL_ACC_FLOOR[model]:
+        raise AssertionError(f"cli train {model}: accuracy/val {meta['accuracy/val']} below "
+                             f"{CLI_VAL_ACC_FLOOR[model]}")
+    return run_dir, counts, load_config(os.path.join(run_dir, "config.yaml"))
+
+
+def cli_deep_sets_phase(seconds: dict, work_dir: str, data: str) -> dict:
+    """``train``, ``evaluate``, ``infer``, ``resume`` and ``convert`` of a
+    DeepSets run; returns K1's and K2's launches during ``train``."""
+    run_dir, counts, cfg = _cli_train(seconds, work_dir, data, "deep_sets", "--epochs", "2")
+    missing = {"config.yaml", "meta.json", "metrics.jsonl", "best_model.pt", "model.pt"} - set(os.listdir(run_dir))
+    if missing:
+        raise AssertionError(f"cli train deep_sets: the run directory lacks {sorted(missing)}")
+    module = factory.get_dataloader("s2ppc", cfg)
+    loaders = {"train": module.get_train_loader(), "val": module.get_val_loader(), "test": module.get_test_loader()}
+    n = {split: len(loader) for split, loader in loaders.items()}
+    steps = 2 * n["train"]
+    # per epoch the train steps and a validation; then predict on train and val
+    _expect_launches("train deep_sets", counts, phi_pool=steps + 2 * n["val"] + n["train"] + n["val"],
+                     phi_pool_bwd=steps)
+    train_launches = {"phi_pool": counts["phi_pool"], "phi_pool_bwd": counts["phi_pool_bwd"]}
+
+    counts = _cli(seconds, "evaluate deep_sets", "evaluate", run_dir)
+    _expect_launches("evaluate deep_sets", counts, phi_pool=n["test"] + n["train"] + n["val"])
+    with open(os.path.join(run_dir, "eval", "metrics.json")) as f:
+        metrics = json.load(f)
+    model = factory.get_model("deep_sets", cfg, run_dir)
+    for split, loader in loaders.items():
+        y, pred = model.predict(loader)
+        if metrics[f"accuracy_{split}"] != port_train.accuracy(y, pred):
+            raise AssertionError(f"cli evaluate: accuracy_{split} {metrics[f'accuracy_{split}']} is not "
+                                 f"predict's {port_train.accuracy(y, pred)}")
+    y_test, p_test = (a.reshape(-1) for a in model.predict(loaders["test"], return_prob=True))
+    with open(os.path.join(run_dir, "eval", "classification_report.txt")) as f:
+        report = f.read().splitlines()
+    supports = [int(report[i].split()[-1]) for i in (2, 3)] + [int(report[-1].split()[-1])]
+    want = [int((y_test == 0).sum()), int((y_test == 1).sum()), len(y_test)]
+    print(f"cli evaluate deep_sets: {metrics}; report supports {supports} (test split {want})")
+    if supports != want or len(y_test) != CLI_EVENTS[2]:
+        raise AssertionError("cli evaluate: classification_report.txt does not hold the test split's support")
+
+    csv = os.path.join(work_dir, "cli_predictions_test.csv")
+    counts = _cli(seconds, "infer deep_sets", "infer", run_dir, "--split", "test", "--output", csv)
+    _expect_launches("infer deep_sets", counts, phi_pool=n["test"])
+    rows = np.loadtxt(csv, delimiter=",", skiprows=1)
+    err = float(np.abs(rows[:, 2] - p_test).max())
+    away = np.abs(rows[:, 2] - 0.5) > CSV_PROB_TOL
+    print(f"cli infer deep_sets: {len(rows)} rows, max |probability − predict's| {err:.3e} (bound {CSV_PROB_TOL:.0e})")
+    if (len(rows) != len(y_test) or not np.array_equal(rows[:, 0], np.arange(len(rows)))
+            or not np.array_equal(rows[:, 1], y_test) or not err <= CSV_PROB_TOL
+            or not np.array_equal(rows[away, 3], (rows[away, 2] >= 0.5).astype(np.float64))):
+        raise AssertionError("cli infer: the CSV does not hold predict's test split")
+
+    # one more epoch, asked for in the run's own config.yaml alone
+    config_path = os.path.join(run_dir, "config.yaml")
+    with open(config_path) as f:
+        text = f.read()
+    if text.count("epochs: 2\n") != 1:
+        raise AssertionError("cli resume: config.yaml does not hold 'epochs: 2' once")
+    with open(config_path, "w") as f:
+        f.write(text.replace("epochs: 2\n", "epochs: 3\n"))
+    counts = _cli(seconds, "resume deep_sets", "resume", run_dir)
+    # one epoch: its train steps and its validation (resume predicts nothing after)
+    _expect_launches("resume deep_sets", counts, phi_pool=n["train"] + n["val"], phi_pool_bwd=n["train"])
+    losses = read_metrics(run_dir)["Loss/train"]
+    print(f"cli resume deep_sets: Loss/train {losses}")
+    if len(losses) != 3 or not np.isfinite(losses).all():
+        raise AssertionError(f"cli resume: {len(losses)} epochs logged, not 3")
+
+    best = os.path.join(run_dir, "best_model.pt")
+    out = {name: os.path.join(work_dir, f"cli_{name}") for name in ("reference.pt", "jax.pt", "back.pt")}
+    _cli(seconds, "convert deep_sets --to-torch", "convert", "deep_sets", best, out["reference.pt"],
+         "--to-torch", "--config", config_path)
+    _cli(seconds, "convert deep_sets", "convert", "deep_sets", out["reference.pt"], out["jax.pt"],
+         "--config", config_path)
+    _cli(seconds, "convert deep_sets --to-torch (back)", "convert", "deep_sets", out["jax.pt"], out["back.pt"],
+         "--to-torch", "--config", config_path)
+    want = torch.load(best, map_location="cpu", weights_only=True)
+    for name in ("reference.pt", "back.pt"):
+        got = torch.load(out[name], map_location="cpu", weights_only=True)
+        if list(got) != list(want) or not all(torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"cli convert: {name} is not best_model.pt exactly")
+    print("cli convert deep_sets: best_model.pt → reference state_dict → JAX pickle → state_dict, exactly equal")
+    return train_launches
+
+
+def cli_tabular_phase(smi: str, seconds: dict, work_dir: str, data: str) -> None:
+    """``train`` and ``evaluate`` of the FCN and the logistic regression on
+    S2PT, the latter's coefficients against the same fit on the CPU, and its
+    solve timed on the card and the CPU."""
+    run_dir, counts, cfg = _cli_train(seconds, work_dir, data, "fully_connected_net", "--epochs", "5")
+    _expect_launches("train fully_connected_net", counts)  # no kernel on its path
+    _cli(seconds, "evaluate fully_connected_net", "evaluate", run_dir)
+    model = factory.get_model("fully_connected_net", cfg, run_dir)
+    with open(os.path.join(run_dir, "eval", "metrics.json")) as f:
+        print(f"cli evaluate fully_connected_net: {json.load(f)} (best_model.pt on {model.device})")
+
+    run_dir, counts, cfg = _cli_train(seconds, work_dir, data, "logistic_regression")
+    _expect_launches("train logistic_regression", counts)
+    card = LogRegression(device="cpu").load(os.path.join(run_dir, "model.pkl"))
+    train = factory.get_dataloader("s2pt", cfg).get_train_loader()
+    solves = {device: [] for device in ("cpu", "cuda")}
+    fitted = {device: LogRegression(device=device).fit(train) for device in solves}  # warm-up
+    for device in ("cpu", "cuda", "cuda", "cpu"):  # in turns
+        for _ in range(LOGREG_REPS):
+            t0 = time.perf_counter()
+            fitted[device] = LogRegression(device=device).fit(train)
+            solves[device].append(time.perf_counter() - t0)
+    cpu = fitted["cpu"]
+    err = max(float(np.abs(card.coef_ - cpu.coef_).max()), float(np.abs(card.intercept_ - cpu.intercept_).max()))
+    print(f"cli train logistic_regression: coefficients from the card's model.pkl against the CPU's fit "
+          f"max |Δ| {err:.3e} (bound {LOGREG_COEF_TOL:.0e}); L-BFGS iterations card "
+          f"{fitted['cuda'].n_iter_}, CPU {fitted['cpu'].n_iter_}; the solve on {len(train['label'])} rows, "
+          f"median of {2 * LOGREG_REPS}: card {1e3 * np.median(solves['cuda']):.3f} ms, CPU "
+          f"{1e3 * np.median(solves['cpu']):.3f} ms (host clock, ends in the copy of the result) [{smi}]")
+    if not err <= LOGREG_COEF_TOL:
+        raise AssertionError(f"cli train logistic_regression: the card's coefficients are {err} from the CPU's")
+    _cli(seconds, "evaluate logistic_regression", "evaluate", run_dir)
+    with open(os.path.join(run_dir, "eval", "metrics.json")) as f:
+        print(f"cli evaluate logistic_regression: {json.load(f)}")
+
+
+def cli_phase(smi: str, work_dir: str) -> dict:
+    """Phase 20, the command line: ``cli.main`` in this process on the card,
+    over seeded S2PPC and S2PT caches at the widths of configs/.  Returns K1's
+    and K2's launches during ``train deep_sets``."""
+    data = os.path.join(work_dir, "cli_data")
+    write_s2ppc_cache(data, n_events=CLI_EVENTS, seed=SEED)
+    write_s2pt_cache(data, n_events=CLI_EVENTS, seed=SEED)
+    seconds = {}
+    launches = cli_deep_sets_phase(seconds, work_dir, data)
+    cli_tabular_phase(smi, seconds, work_dir, data)
+    print(f"cli seconds: {({k: round(v, 2) for k, v in seconds.items()})} [{smi}]")
+    return launches
+
+
 def main() -> None:
     t0 = time.perf_counter()
     marks = [t0]
@@ -2372,6 +2569,10 @@ def main() -> None:
         lap("graph times")
         flagship_times_phase(smi, run_dir)
         lap("flagship times")
+        cli_launches = cli_phase(smi, run_dir)
+        lap("command line")
+        print(f"launches: command line, train deep_sets K1 {cli_launches['phi_pool']}, "
+              f"K2 {cli_launches['phi_pool_bwd']}")
     profile_phase(smi)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{

@@ -15,7 +15,11 @@ Ported so far, on the flat point wire: the DeepSets serving path —
 K1 and its backward K2 in CUDA.  On the dense in-row graph wire: the
 GraphNet serving path (GAT and GraphConv add/mean) —
 ``factory.get_dataloader("s2pg", …)`` → ``factory.get_model("graph_net",
-…)`` → ``ModelWrapper.predict`` — with the GAT attention kernel K3 in CUDA.
+…)`` → ``ModelWrapper.predict`` — with the GAT attention kernel K3 in CUDA,
+and its training (K4, K6) and kNN graphs (K5).  The tabular models
+(``FullyConnectedNet``, ``LogRegression``) on S2PT, and the command line over
+all four families: ``python -m point_cloud_classifier_tpu_torch <command>``
+(``cli.py``).
 """
 
 __version__ = "0.1.0"

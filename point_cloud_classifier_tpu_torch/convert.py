@@ -24,13 +24,19 @@ keys, so one declarative mapping per model serves both directions:
   refuses GAT checkpoints; the port fixes this one layout for its own.
 
 Both directions walk the mapping; the state_dict → tree direction must
-consume every key, so a wrong mapping cannot pass silently.  numpy only:
-this module imports neither torch nor jax.  Ported so far: DeepSets and
-GraphNet with GraphConv or GAT (not SAG pooling).
+consume every key, so a wrong mapping cannot pass silently.  The mapping
+and the two tree functions are numpy only; the file-level functions behind
+the command line's ``convert`` (:func:`convert_checkpoint`,
+:func:`export_torch_checkpoint`) import torch when called, and never jax.
+Ported so far: the FullyConnectedNet, DeepSets and GraphNet with GraphConv
+or GAT (not SAG pooling).  ``logistic_regression`` has no mapping, as in the
+JAX package: its ``model.pkl`` holds no torch weights.
 """
 
 from __future__ import annotations
 
+import pickle
+import zipfile
 from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
@@ -63,6 +69,21 @@ def _bn(prefix: str, name: str) -> Iterator[Entry]:
     yield f"{prefix}.bias", "params", (name, "bias"), False
     yield f"{prefix}.running_mean", "stats", (name, "mean"), False
     yield f"{prefix}.running_var", "stats", (name, "var"), False
+
+
+def _fcn_mapping(cfg: dict) -> Iterator[Entry]:
+    """[Linear, BN?, ReLU]* then the output Linear, all in one ``network``
+    Sequential."""
+    hidden = list(cfg["hidden_layers"])
+    idx = 0
+    for i in range(len(hidden)):
+        yield from _lin(f"network.{idx}", (f"TorchLinear_{i}",))
+        idx += 1
+        if cfg["batch_normalization"]:
+            yield from _bn(f"network.{idx}", f"MaskedBatchNorm_{i}")
+            idx += 1
+        idx += 1  # ReLU
+    yield from _lin(f"network.{idx}", (f"TorchLinear_{len(hidden)}",))
 
 
 def _deep_sets_mapping(cfg: dict) -> Iterator[Entry]:
@@ -139,7 +160,11 @@ def _graph_net_mapping(cfg: dict) -> Iterator[Entry]:
     yield from _lin("fc2", ("TorchLinear_1",))
 
 
-_MAPPINGS = {"deep_sets": _deep_sets_mapping, "graph_net": _graph_net_mapping}
+_MAPPINGS = {
+    "fully_connected_net": _fcn_mapping,
+    "deep_sets": _deep_sets_mapping,
+    "graph_net": _graph_net_mapping,
+}
 
 
 def _mapping(model_name: str, config: dict) -> List[Entry]:
@@ -205,3 +230,49 @@ def to_torch_state_dict(
         if key.endswith(".running_var"):
             out[key[: -len("running_var")] + "num_batches_tracked"] = np.asarray(0, dtype=np.int64)
     return out
+
+
+# -- files ----------------------------------------------------------------------
+
+
+def read_state_dict(model_name: str, config: dict, path: str) -> Dict[str, object]:
+    """The ``state_dict`` in a checkpoint file of any of the three layouts:
+    a torch ``state_dict`` (the original reference's or the port's, read
+    with ``weights_only``) as it is, or the JAX package's pickle of
+    ``{"params", "batch_stats"}`` through :func:`to_torch_state_dict`.  The
+    pickle is unpickled as the JAX package's ``load`` does: read only
+    checkpoints this project wrote."""
+    import torch
+
+    if zipfile.is_zipfile(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    with open(path, "rb") as f:
+        state = pickle.load(f)
+    return to_torch_state_dict(
+        model_name, config, state["params"], state.get("batch_stats") or {}
+    )
+
+
+def convert_checkpoint(model_name: str, config: dict, torch_ckpt_path: str, out_path: str) -> None:
+    """A torch ``state_dict`` file (the original reference's, or the port's
+    ``best_model.pt``) → the JAX package's checkpoint pickle."""
+    import torch
+
+    state = torch.load(torch_ckpt_path, map_location="cpu", weights_only=True)
+    params, stats = convert_torch_state_dict(model_name, config, state)
+    with open(out_path, "wb") as f:
+        pickle.dump({"params": params, "batch_stats": stats}, f)
+
+
+def export_torch_checkpoint(model_name: str, config: dict, ckpt_path: str, out_path: str) -> None:
+    """A checkpoint of the JAX package or the port → a torch ``state_dict``
+    file the original reference loads with ``strict=True``.  Either way the
+    keys go through the mapping, so a checkpoint of another model or config
+    raises."""
+    import torch
+
+    params, stats = convert_torch_state_dict(
+        model_name, config, read_state_dict(model_name, config, ckpt_path)
+    )
+    state = to_torch_state_dict(model_name, config, params, stats)
+    torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in state.items()}, out_path)

@@ -1,9 +1,12 @@
-"""Static-shape, bucketed batches in numpy: point clouds and graphs.
+"""Static-shape, bucketed batches in numpy: tabular rows, point clouds and graphs.
 
 Counterpart of ``point_cloud_classifier_tpu/data/batching.py``, which the
 port cannot import (its package ``__init__`` pulls in jax, pandas and h5py).
 Batches are byte-identical to the JAX loaders': keys, dtypes and values.
 
+- ``TabularLoader``: fixed ``x [B, F]`` f32 with ``y [B, 1]`` and ``y_mask
+  [B]``; only the final partial batch is padded (masked rows of zeros), and a
+  shuffled loader permutes the rows from ``default_rng(seed + epoch)``.
 - ``PointCloudLoader``, the flat wire: ``points [P_pad, F]`` with events
   contiguous and padding rows at the end, labels ``y [B, 1]`` with ``y_mask
   [B]``, and either ``seg [P_pad]`` (event index per point, padding rows get
@@ -69,6 +72,43 @@ def pow2_bucket(n: int, min_size: int = 256, factor: float = 2.0) -> int:
     while size < n:
         size *= factor
     return -(-int(round(size)) // 8) * 8
+
+
+class TabularLoader:
+    """Fixed-size feature-matrix batches; the final partial batch is
+    mask-padded."""
+
+    def __init__(self, X: np.ndarray, y: np.ndarray, batch_size: int, shuffle: bool, seed: int = 0):
+        self.X = np.ascontiguousarray(X, dtype=np.float32)
+        self.y = np.asarray(y, dtype=np.float32).reshape(-1)
+        self.batch_size = int(batch_size) if batch_size else len(self.y)
+        self.shuffle = shuffle
+        self.seed = seed
+        self._epoch = 0
+
+    @property
+    def n_examples(self) -> int:
+        return len(self.y)
+
+    def __len__(self) -> int:
+        return -(-self.n_examples // self.batch_size)
+
+    def __iter__(self) -> Iterator[Batch]:
+        n, b = self.n_examples, self.batch_size
+        order = np.arange(n)
+        if self.shuffle:
+            order = np.random.default_rng(self.seed + self._epoch).permutation(n)
+            self._epoch += 1
+        for start in range(0, n, b):
+            idx = order[start : start + b]
+            k = len(idx)
+            x = np.zeros((b, self.X.shape[1]), dtype=np.float32)
+            yb = np.zeros((b, 1), dtype=np.float32)
+            mask = np.zeros((b,), dtype=np.float32)
+            x[:k] = self.X[idx]
+            yb[:k, 0] = self.y[idx]
+            mask[:k] = 1.0
+            yield {"x": x, "y": yb, "y_mask": mask}
 
 
 class PointCloudLoader:

@@ -1,4 +1,4 @@
-"""Seeded synthetic S2PPC and S2PG caches, written with numpy, for tests and smoke runs.
+"""Seeded synthetic S2PT, S2PPC and S2PG caches, written with numpy, for tests and smoke runs.
 
 Counterpart of ``point_cloud_classifier_tpu/data/synthetic.py``, which writes
 raw HDF5 showers for the JAX package's preprocessing; the port reads only the
@@ -34,6 +34,14 @@ positions are standardized per graph with energy weights and the energy
 column with the train split's mean and standard deviation.  The class signal:
 label 0 tends to fewer, longer tracks and spikier energy sharing than label
 1; the ranges overlap.
+
+``write_s2pt_cache`` writes ``{data_dir}/S2PT/{split}/S2PT_{split}.npz``
+with the nine event-level features of ``data/tabular.FEATURE_ORDER``, each
+standardized with the train split's mean and standard deviation (float64, as
+the reference's scaler leaves them), plus ``event_id`` and ``label``; each
+split holds as many events of either label (one more of label 0 in an odd
+split).  Label 1 tends to more energy in the HCal, more hits, more
+particles, a deeper centroid and a longer elapsed time; the ranges overlap.
 
 ``position_grid`` rounds the standardized positions to multiples of that
 step, for the kNN path's tests: on a power-of-two grid (1/64, say) every
@@ -211,3 +219,45 @@ def write_s2pg_cache(
             g["features"][:, 0] = (g["features"][:, 0] - mean) / std
             g["features"] = g["features"].astype(np.float32)
             np.savez(os.path.join(out, f"graph_{i:05d}.npz"), **g)
+
+
+def _tabular_features(rng: np.random.Generator, label: np.ndarray) -> Dict[str, np.ndarray]:
+    """Raw event-level features for the given labels."""
+    n = len(label)
+    hcal = rng.beta(2.0 + 1.5 * label, 3.0, size=n)
+    return {
+        "energy_total": rng.lognormal(0.1 * label, 0.5),
+        "hits_total": rng.poisson(200 + 12 * label).astype(np.float64),
+        "energy_hcal_frac": hcal,
+        "hits_hcal_frac": np.clip(hcal + rng.normal(0.0, 0.1, size=n), 0.0, 1.0),
+        "energy_weighted_x": rng.normal(size=n),
+        "energy_weighted_y": rng.normal(size=n),
+        "energy_weighted_z": rng.normal(0.4 * label, 1.0),
+        "n_particles": (rng.poisson(20 + 6 * label) + 1).astype(np.float64),
+        "elapsed_time": rng.gamma(2.0 + 0.5 * label, 1.0),
+    }
+
+
+def write_s2pt_cache(data_dir: str, n_events: Sequence[int] = (1024, 256, 256), seed: int = 0) -> None:
+    """Write train, val and test splits of ``n_events`` events each, with
+    balanced labels, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    splits, first_id = {}, 0
+    for split, count in zip(SPLITS, n_events):
+        label = rng.permutation(np.arange(count) % 2)
+        splits[split] = {
+            "event_id": np.arange(first_id, first_id + count, dtype=np.int64),
+            "label": label.astype(np.int64),
+            **_tabular_features(rng, label),
+        }
+        first_id += count
+    for name in splits["train"]:
+        if name in ("event_id", "label"):
+            continue
+        mean, std = splits["train"][name].mean(), splits["train"][name].std()
+        for cols in splits.values():
+            cols[name] = (cols[name] - mean) / std
+    for split, cols in splits.items():
+        out = os.path.join(data_dir, "S2PT", split)
+        os.makedirs(out, exist_ok=True)
+        np.savez(os.path.join(out, f"S2PT_{split}.npz"), **cols)

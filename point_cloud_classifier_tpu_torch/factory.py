@@ -1,11 +1,12 @@
-"""Dataset- and model-name dispatch, and checkpoint restore.
+"""Dataset- and model-name dispatch, checkpoint restore and the ``--quant``
+resolution.
 
-Counterpart of ``get_dataloader`` and ``get_model`` in
-``point_cloud_classifier_tpu/factory.py``.  Ported: the S2PPC point clouds
-with DeepSets, and the S2PG graphs with GraphNet on the dense in-row wire
-and, for ``knn_k > 0``, on the flat wire;
-the other datasets and families raise and name the ROADMAP item that brings
-them.
+Counterpart of ``point_cloud_classifier_tpu/factory.py``: every dataset
+(S2PT tabular rows, S2PPC point clouds, S2PG graphs) and every model family
+of ``MODEL_DATASETS``.  ``logistic_regression`` restores from ``model.pkl``,
+the networks from ``best_model.pt``.  Int8 evaluation is not ported
+(ROADMAP Queue 1 item 12): ``apply_quant`` raises where ``--quant`` would
+take it and passes where it resolves to float.
 """
 
 from __future__ import annotations
@@ -14,17 +15,26 @@ import os
 
 import torch
 
-from point_cloud_classifier_tpu_torch.data import Step2PointGraph, Step2PointPointCloud
-from point_cloud_classifier_tpu_torch.models import DeepSets, GraphNet, ModelWrapper
+from point_cloud_classifier_tpu_torch.data import (
+    Step2PointGraph,
+    Step2PointPointCloud,
+    Step2PointTabular,
+)
+from point_cloud_classifier_tpu_torch.models import (
+    DeepSets,
+    FullyConnectedNet,
+    GraphNet,
+    LogRegression,
+    ModelWrapper,
+)
 
-_NOT_PORTED = {
-    "logistic_regression": "ROADMAP Queue 1, the tabular slice",
-    "fully_connected_net": "ROADMAP Queue 1, the tabular slice",
+MODEL_DATASETS = {
+    "logistic_regression": "s2pt",
+    "fully_connected_net": "s2pt",
+    "deep_sets": "s2ppc",
+    "graph_net": "s2pg",
 }
-_DATASETS_NOT_PORTED = {
-    "s2pt": "ROADMAP Queue 1, the tabular slice",
-}
-_MODELS = {"deep_sets": DeepSets, "graph_net": GraphNet}
+_MODELS = {"fully_connected_net": FullyConnectedNet, "deep_sets": DeepSets, "graph_net": GraphNet}
 
 
 def _graph_dataset_config(config: dict) -> dict:
@@ -58,18 +68,17 @@ def _graph_dataset_config(config: dict) -> dict:
 
 def get_dataloader(dataset_name: str, config: dict):
     """The data module for ``dataset_name`` over ``config["dataset"]``.  As
-    in the JAX package, S2PPC defaults to ``layout="auto"`` (the dense
-    per-cloud-row wire per batch from a batch size of 128, else flat) and
-    takes the loader's wire options (``transfer_dtype``,
-    ``factor_event_cols``, ``bucket_factor``, ``length_sorted``);
-    S2PG defaults to ``graph_layout="auto"``, which the port serves on the
-    dense in-row wire and refuses where the JAX loader would ship a batch
-    another way, and to ``"flat"`` for a ``knn_k`` model."""
-    if dataset_name in _DATASETS_NOT_PORTED:
-        raise NotImplementedError(
-            f"{dataset_name} is not ported to PyTorch yet "
-            f"({_DATASETS_NOT_PORTED[dataset_name]})"
-        )
+    in the JAX package, S2PT reads the cached rows (a ``TabularLoader`` with
+    ``convert_to_tensor``, else the rows' columns); S2PPC defaults to
+    ``layout="auto"`` (the dense per-cloud-row wire per batch from a batch
+    size of 128, else flat) and takes the loader's wire options
+    (``transfer_dtype``, ``factor_event_cols``, ``bucket_factor``,
+    ``length_sorted``); S2PG defaults to ``graph_layout="auto"``, which the
+    port serves on the dense in-row wire and refuses where the JAX loader
+    would ship a batch another way, and to ``"flat"`` for a ``knn_k``
+    model."""
+    if dataset_name == "s2pt":
+        return Step2PointTabular(**config["dataset"])
     if dataset_name == "s2pg":
         return Step2PointGraph(**_graph_dataset_config(config))
     if dataset_name != "s2ppc":
@@ -80,17 +89,24 @@ def get_dataloader(dataset_name: str, config: dict):
 
 
 def get_model(model_name: str, config: dict, model_dir: str = None, device: str = None):
-    """A ``ModelWrapper`` around ``config["model"]``, restored from
-    ``{model_dir}/best_model.pt`` when ``model_dir`` is given.  Fresh
-    weights are drawn from ``trainer.seed`` (default 0); every other
+    """The model for ``model_name``, restored from ``model_dir`` when given
+    (``model.pkl`` for ``logistic_regression``, else ``best_model.pt``).  A
+    network comes in a ``ModelWrapper`` around ``config["model"]``: fresh
+    weights are drawn from ``trainer.seed`` (default 0), and every other
     ``trainer`` key (``device_resident`` among them) goes to the wrapper.
-    The model runs on the card, and the call raises where there is none,
-    unless ``device`` says otherwise (``"cpu"``); the device is no part of
-    the config, so a run's ``config.yaml`` does not depend on it."""
-    if model_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{model_name} is not ported to PyTorch yet ({_NOT_PORTED[model_name]})"
-        )
+    The model runs (``LogRegression`` solves) on the card, and the call
+    raises where there is none, unless ``device`` says otherwise
+    (``"cpu"``); the device is no part of the config, so a run's
+    ``config.yaml`` does not depend on it."""
+    if model_name == "logistic_regression":
+        model = LogRegression(device=device)
+        if model_dir is not None:
+            model_path = os.path.join(model_dir, "model.pkl")
+            if not os.path.exists(model_path):
+                raise FileNotFoundError(f"LogisticRegression model not found at {model_path}")
+            model.load(model_path)
+            print(f"Loaded LogisticRegression model from {model_path}")
+        return model
     if model_name not in _MODELS:
         raise ValueError(f"Unknown model: {model_name}")
 
@@ -105,3 +121,43 @@ def get_model(model_name: str, config: dict, model_dir: str = None, device: str 
         model.load(model_path)
         print(f"Loaded {model_name} model from {model_path}")
     return model
+
+
+# The JAX package's int8 crossover: "auto" takes int8 from a widest φ layer
+# of 1024 (a TPU measurement, kept as the JAX package states it; ROADMAP
+# Queue 1 item 12 measures it again on the card)
+_INT8_AUTO_MIN_WIDTH = 1024
+
+
+def resolve_quant(config: dict, model_name: str, quant: str) -> str:
+    """The path a ``--quant`` request takes, as the JAX package resolves it:
+    ``"auto"`` → ``"int8"`` for a DeepSets without layer norm whose widest φ
+    layer is at least ``_INT8_AUTO_MIN_WIDTH``, else ``"none"``; explicit
+    values pass through."""
+    if quant in (None, "none"):
+        return "none"
+    if quant == "auto":
+        if model_name != "deep_sets":
+            return "none"
+        model_cfg = config.get("model", {})
+        if model_cfg.get("layer_norm"):
+            return "none"
+        widths = model_cfg.get("phi_layers") or []
+        if not widths or max(widths) < _INT8_AUTO_MIN_WIDTH:
+            return "none"
+        return "int8"
+    return quant
+
+
+def apply_quant(config: dict, model_name: str, quant: str) -> None:
+    """Nothing where ``quant`` resolves to float; the JAX package's error for
+    a model other than DeepSets; else raises, since int8 evaluation is not
+    ported (ROADMAP Queue 1 item 12)."""
+    quant = resolve_quant(config, model_name, quant)
+    if quant == "none":
+        return
+    if model_name != "deep_sets":
+        raise ValueError(f"--quant {quant} is only supported for deep_sets (got {model_name})")
+    raise NotImplementedError(
+        f"--quant {quant} is not ported to PyTorch yet (ROADMAP Queue 1 item 12)"
+    )

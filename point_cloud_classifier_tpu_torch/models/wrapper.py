@@ -45,9 +45,7 @@ from __future__ import annotations
 
 import json
 import os
-import pickle
 import time
-import zipfile
 from typing import Dict, Iterable, Optional
 
 import numpy as np
@@ -394,18 +392,7 @@ class ModelWrapper:
 
         The pickle is unpickled as the JAX package's ``load`` does: read only
         checkpoints this project wrote."""
-        if zipfile.is_zipfile(model_path):
-            state = torch.load(model_path, map_location="cpu", weights_only=True)
-        else:
-            with open(model_path, "rb") as f:
-                state = pickle.load(f)
-        if "params" in state:
-            state = convert.to_torch_state_dict(
-                self.model.name,
-                {"model": self.model.config},
-                state["params"],
-                state.get("batch_stats") or {},
-            )
+        state = convert.read_state_dict(self.model.name, {"model": self.model.config}, model_path)
         self.model.load_state_dict(
             {k: torch.as_tensor(v) for k, v in state.items()}, strict=True
         )

@@ -1,37 +1,49 @@
-"""Training runs: ``train_model`` and ``resume_training``.
+"""Runs of the command line: ``train_model``, ``resume_training``,
+``evaluate_model`` and ``infer``.
 
-Counterpart of ``train_model`` and ``resume_training`` in the repository's
-``train.py``, with the same run lifecycle: a versioned run directory
-(``logging.log_dir`` rewritten to it, ``meta.model_name`` and
-``meta.dataset_name`` filled in), the loaders and the model from the
-factories, the resolved ``config.yaml``, ``fit``, the final ``model.pt``,
-then ``accuracy/train``, ``accuracy/val`` and ``parameters`` in
-``meta.json``.  Accuracy is computed with numpy, as sklearn's
-``accuracy_score`` computes it.  The config's ``trainer`` section reaches
-the wrapper whole, so ``trainer.device_resident: true`` trains from the
-resident cache, as in the JAX trainer.
+Counterpart of the functions of the same names in the repository's
+``train.py``, with the same run lifecycle and files:
 
-Not ported yet: the evaluation plots (``plots=True``, ROADMAP Queue 1 item
-16), and the command line (Queue 1 item 10): callers pass the config dict,
-or read one with ``utils.config.load_config``.
+- ``train_model``: a versioned run directory (``logging.log_dir`` rewritten
+  to it, ``meta.model_name`` and ``meta.dataset_name`` filled in), the
+  loaders and the model from the factories, the resolved ``config.yaml``,
+  ``fit``, the final ``model.pt`` (``model.pkl`` for ``logistic_regression``),
+  then ``accuracy/train``, ``accuracy/val`` and ``parameters`` in
+  ``meta.json``.  The config's ``trainer`` section reaches the wrapper whole,
+  so ``trainer.device_resident: true`` trains from the resident cache, as in
+  the JAX trainer.
+- ``resume_training``: the run continued from its full state.
+- ``evaluate_model``: ``metrics.json`` (the three splits' accuracies, and
+  ``quant`` where it is not ``none``) and ``classification_report.txt`` of
+  the test split, under ``{model_dir}/eval`` by default.
+- ``infer``: a CSV of one split's probabilities, the train split unshuffled.
+
+Accuracy and the report are computed with numpy (``utils/metrics.py``), as
+sklearn computes them.  Each runs on the card and raises where there is
+none, unless the caller passes ``device="cpu"``; what they write is the
+same either way.
+
+Not ported yet: the evaluation plots (``train_model(plots=True)`` raises;
+``evaluate_model`` writes none and says so; ROADMAP Queue 1 item 16) and
+int8 evaluation (``quant`` that resolves to ``int8``; item 12).
 """
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
 
-from point_cloud_classifier_tpu_torch.factory import get_dataloader, get_model
+from point_cloud_classifier_tpu_torch.factory import (
+    apply_quant,
+    get_dataloader,
+    get_model,
+    resolve_quant,
+)
 from point_cloud_classifier_tpu_torch.utils.config import load_config, save_config
 from point_cloud_classifier_tpu_torch.utils.log import TrainingLogger
-
-
-def accuracy(y_true, y_pred) -> float:
-    """The share of rows whose 0/1 prediction equals the label."""
-    y_true = np.asarray(y_true).reshape(-1)
-    y_pred = np.asarray(y_pred).reshape(-1)
-    return float(np.mean(y_true == y_pred))
+from point_cloud_classifier_tpu_torch.utils.metrics import accuracy, classification_report
 
 
 def train_model(
@@ -43,9 +55,7 @@ def train_model(
     device: str = None,
 ):
     """A whole training run (the JAX package's ``train_model``); mutates
-    ``config`` as it does.  Runs on the card and raises where there is none,
-    unless ``device="cpu"``; ``config.yaml`` and ``meta.json`` are the same
-    bytes either way."""
+    ``config`` as it does."""
     if plots:
         raise NotImplementedError(
             "evaluation plots are not ported yet (ROADMAP Queue 1 item 16)"
@@ -88,12 +98,13 @@ def resume_training(model_dir: str, config: dict = None, device: str = None):
     Rebuilds the loaders and the model from the run's resolved config
     (``config``, or else ``{model_dir}/config.yaml``, read without PyYAML),
     restores the weights, optimizer state, epoch and early-stop counters, and
-    continues ``fit`` to the configured epoch count, on the card unless
-    ``device="cpu"``."""
+    continues ``fit`` to the configured epoch count."""
     if config is None:
         config = load_config(os.path.join(model_dir, "config.yaml"))
     model_name = config["meta"]["model_name"]
     dataset_name = config["meta"]["dataset_name"]
+    if model_name == "logistic_regression":
+        raise ValueError("logistic_regression trains in one shot; nothing to resume")
     dataloader = get_dataloader(dataset_name=dataset_name, config=config)
     model = get_model(model_name=model_name, config=config, device=device)
     model.log_dir = model_dir
@@ -104,3 +115,79 @@ def resume_training(model_dir: str, config: dict = None, device: str = None):
     model.fit(train_loader, val_loader, resume=True)
     model.save(save_dir=model_dir)
     return model
+
+
+def _restore(model_dir: str, config: dict, quant: str, device: str):
+    """(the data module, the restored model) of a finished run with its
+    resolved ``config``."""
+    model_name = config["meta"]["model_name"]
+    apply_quant(config, model_name, quant)
+    dataloader = get_dataloader(dataset_name=config["meta"]["dataset_name"], config=config)
+    model = get_model(model_name=model_name, config=config, model_dir=model_dir, device=device)
+    return dataloader, model
+
+
+def infer(model_dir: str, split: str = "test", output: str = None, quant: str = "none", device: str = None):
+    """One split's predictions from a finished run → ``index, y_true,
+    probability, prediction`` rows in a CSV (default
+    ``{model_dir}/predictions_{split}.csv``).  The train loader is read
+    unshuffled, so that ``index`` counts the loader's order; a
+    length-sorted train loader still sorts by size (as in the JAX
+    package)."""
+    config = load_config(os.path.join(model_dir, "config.yaml"))
+    dataloader, model = _restore(model_dir, config, quant, device)
+    loader = {
+        "train": dataloader.get_train_loader,
+        "val": dataloader.get_val_loader,
+        "test": dataloader.get_test_loader,
+    }[split]()
+    if hasattr(loader, "shuffle"):
+        loader.shuffle = False
+
+    y_true, y_prob = model.predict(loader, return_prob=True)
+    y_true = np.asarray(y_true).reshape(-1)
+    y_prob = np.asarray(y_prob).reshape(-1)
+    output = output or os.path.join(model_dir, f"predictions_{split}.csv")
+    with open(output, "w") as f:
+        f.write("index,y_true,probability,prediction\n")
+        for i, (t, p) in enumerate(zip(y_true, y_prob)):
+            f.write(f"{i},{int(t)},{p:.6f},{int(p >= 0.5)}\n")
+    print(f"Wrote {len(y_true)} predictions to {output}")
+    return output
+
+
+def evaluate_model(model_dir: str, save_dir: str = None, quant: str = "none", device: str = None):
+    """Reload a finished run, score its three splits and write
+    ``metrics.json`` and the test split's ``classification_report.txt`` into
+    ``save_dir`` (default ``{model_dir}/eval``, or ``eval_{quant}`` for a
+    quantized path, decided after ``"auto"`` resolves)."""
+    config = load_config(os.path.join(model_dir, "config.yaml"))
+    quant = resolve_quant(config, config["meta"]["model_name"], quant)
+    dataloader, model = _restore(model_dir, config, quant, device)
+    if save_dir is None:
+        save_dir = os.path.join(model_dir, "eval" if quant == "none" else f"eval_{quant}")
+    os.makedirs(save_dir, exist_ok=True)
+
+    y_true_test, y_pred_test = model.predict(dataloader.get_test_loader())
+    acc_test = accuracy(y_true_test, y_pred_test)
+    print("accuracy/test", round(acc_test, 6))
+    y_true_train, y_pred_train = model.predict(dataloader.get_train_loader())
+    acc_train = accuracy(y_true_train, y_pred_train)
+    print("accuracy/train", round(acc_train, 6))
+    y_true_val, y_pred_val = model.predict(dataloader.get_val_loader())
+    acc_val = accuracy(y_true_val, y_pred_val)
+    print("accuracy/val", round(acc_val, 6))
+
+    metrics = {
+        "accuracy_train": float(acc_train),
+        "accuracy_val": float(acc_val),
+        "accuracy_test": float(acc_test),
+    }
+    if quant != "none":
+        metrics["quant"] = quant
+    with open(os.path.join(save_dir, "metrics.json"), "w") as f:
+        json.dump(metrics, f, indent=4)
+    with open(os.path.join(save_dir, "classification_report.txt"), "w") as f:
+        f.write(classification_report(y_true_test, y_pred_test))
+    print("evaluation plots are not ported yet (ROADMAP Queue 1 item 16): none written")
+    return metrics

@@ -1,0 +1,310 @@
+"""The port's command line and its run functions against the JAX package's,
+on the CPU: ``classification_report`` byte for byte against sklearn's;
+``evaluate_model`` and ``infer`` on one run directory through both packages
+(``metrics.json`` and ``classification_report.txt`` byte for byte, the
+predictions CSVs column by column); the parser's subcommands, options,
+choices and defaults against the JAX parser's; the unported subcommands'
+errors; ``main(["train", …])`` for the four model families; and ``main``
+without a device on a host without a card."""
+
+import argparse
+import copy
+import json
+import os
+import shutil
+import subprocess
+import sys
+import warnings
+
+import numpy as np
+import pytest
+from sklearn.metrics import classification_report as sk_classification_report
+
+torch = pytest.importorskip("torch")
+
+import train as jax_train  # noqa: E402
+from point_cloud_classifier_tpu.utils import config as jax_config  # noqa: E402
+from point_cloud_classifier_tpu_torch import cli  # noqa: E402
+from point_cloud_classifier_tpu_torch import train as port_train  # noqa: E402
+from point_cloud_classifier_tpu_torch.data.synthetic import (  # noqa: E402
+    write_s2pg_cache,
+    write_s2ppc_cache,
+    write_s2pt_cache,
+)
+from point_cloud_classifier_tpu_torch.utils.config import load_config, save_config  # noqa: E402
+from point_cloud_classifier_tpu_torch.utils.metrics import classification_report  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODELS = ("logistic_regression", "fully_connected_net", "deep_sets", "graph_net")
+DATASETS = {"logistic_regression": "s2pt", "fully_connected_net": "s2pt", "deep_sets": "s2ppc", "graph_net": "s2pg"}
+
+
+def _report_case(name):
+    rng = np.random.default_rng(len(name))
+    t, p = rng.integers(0, 2, 101), rng.integers(0, 2, 101)
+    return {
+        "float32": (t.astype(np.float32), p.astype(np.float32)),
+        "float64-and-float32": (t.astype(np.float64), p.astype(np.float32)),
+        "int": (t, p),
+        "never-predicted": (t.astype(np.float32), np.zeros(101, np.float32)),
+        "class-absent": (np.ones(40), rng.integers(0, 2, 40).astype(np.float64)),
+        "one-class": (np.zeros(7), np.zeros(7)),
+        "ties": (np.array([0, 0, 1, 1, 0, 1, 0, 1.0]), np.array([0, 1, 0, 1, 1, 0, 0, 1.0])),
+        "eighths": (np.repeat([0.0, 1.0], 8), np.r_[np.zeros(7), np.ones(2), np.zeros(7)]),
+        "all-wrong": (np.r_[np.zeros(5), np.ones(3)], np.r_[np.ones(5), np.zeros(3)]),
+    }[name]
+
+
+@pytest.mark.parametrize("case", ["float32", "float64-and-float32", "int", "never-predicted", "class-absent",
+                                  "one-class", "ties", "eighths", "all-wrong"])
+def test_classification_report_matches_sklearn(case):
+    y_true, y_pred = _report_case(case)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # sklearn warns where a ratio is 0/0
+        want = sk_classification_report(y_true, y_pred)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # the port does not
+        got = classification_report(y_true, y_pred)
+    assert got == want
+
+
+def _narrow(config_dir, name):
+    """configs/{name}.yaml with narrow widths and small batches."""
+    cfg = load_config(os.path.join(REPO, "configs", "base.yaml"), os.path.join(REPO, "configs", f"{name}.yaml"))
+    model, dataset = cfg.get("model", {}), cfg.get("dataset", {})
+    if name == "deep_sets":
+        model.update(phi_layers=[16, 16], rho_layers=[16])
+        dataset["batch_size"] = 8
+    elif name == "graph_net":
+        model["hidden_dim"] = 16
+        dataset["batch_size"] = 8
+    elif name == "fully_connected_net":
+        model["hidden_layers"] = [8, 8]
+        dataset["batch_size"] = 16
+    with open(os.path.join(REPO, "configs", f"{name}.yaml")) as f:
+        text = f.read()
+    if text.strip():
+        path = os.path.join(config_dir, f"{name}.yaml")
+        save_config({k: v for k, v in cfg.items() if k not in ("meta", "logging")}, config_dir)
+        os.replace(os.path.join(config_dir, "config.yaml"), path)
+    else:
+        shutil.copy(os.path.join(REPO, "configs", f"{name}.yaml"), config_dir)
+
+
+@pytest.fixture(scope="module")
+def tiny(tmp_path_factory):
+    """A config directory at narrow widths and seeded caches of every dataset,
+    none a multiple of its batch size."""
+    root = tmp_path_factory.mktemp("cli")
+    config_dir = root / "configs"
+    os.makedirs(config_dir)
+    shutil.copy(os.path.join(REPO, "configs", "base.yaml"), config_dir)
+    for name in MODELS:
+        _narrow(str(config_dir), name)
+    data = str(root / "data")
+    write_s2pt_cache(data, n_events=(90, 37, 29), seed=1)
+    write_s2ppc_cache(data, n_events=(36, 13, 11), min_points=3, max_points=30, seed=1)
+    write_s2pg_cache(data, n_graphs=(16, 8, 8), min_nodes=10, max_nodes=20, seed=1)
+    return root
+
+
+def _args(tiny, model, log_dir, *extra):
+    return ["train", model, "--config-dir", str(tiny / "configs"), "--data-dir", str(tiny / "data"),
+            "--log-dir", str(log_dir), *extra]
+
+
+@pytest.fixture(scope="module")
+def jax_runs(tiny):
+    """Run directories trained by the JAX package (its checkpoints, which
+    both packages read), one per model family that ``evaluate`` compares."""
+    runs = {}
+    for model in ("logistic_regression", "fully_connected_net", "deep_sets"):
+        cfg = jax_config.load_config(str(tiny / "configs" / "base.yaml"), str(tiny / "configs" / f"{model}.yaml"))
+        cfg["dataset"]["data_dir"] = str(tiny / "data")
+        cfg["logging"]["log_dir"] = str(tiny / "jax" / model)
+        cfg.setdefault("trainer", {})["epochs"] = 2
+        runs[model] = jax_train.train_model(model, DATASETS[model], cfg, return_log_dir=True)
+    return runs
+
+
+@pytest.mark.parametrize("model", ["logistic_regression", "fully_connected_net", "deep_sets"])
+def test_evaluate_writes_the_jax_bytes(jax_runs, tmp_path, model):
+    run = jax_runs[model]
+    ours = port_train.evaluate_model(run, save_dir=str(tmp_path / "port"), device="cpu")
+    theirs = jax_train.evaluate_model(run, save_dir=str(tmp_path / "jax"))
+    assert ours == theirs
+    for name in ("metrics.json", "classification_report.txt"):
+        with open(tmp_path / "port" / name, "rb") as a, open(tmp_path / "jax" / name, "rb") as b:
+            assert a.read() == b.read(), name
+    assert sorted(os.listdir(tmp_path / "port")) == ["classification_report.txt", "metrics.json"]
+
+
+def _csv(path):
+    with open(path) as f:
+        header = f.readline()
+        rows = np.array([line.strip().split(",") for line in f], dtype=np.float64)
+    return header, rows
+
+
+@pytest.mark.parametrize("split", ["test", "train"])
+@pytest.mark.parametrize("model", ["logistic_regression", "fully_connected_net", "deep_sets"])
+def test_infer_matches_jax(jax_runs, tmp_path, model, split):
+    run = jax_runs[model]
+    ours = port_train.infer(run, split=split, output=str(tmp_path / "port.csv"), device="cpu")
+    theirs = jax_train.infer(run, split=split, output=str(tmp_path / "jax.csv"))
+    (h, a), (h_ref, b) = _csv(ours), _csv(theirs)
+    assert h == h_ref == "index,y_true,probability,prediction\n"
+    assert a.shape == b.shape and len(a) > 0
+    np.testing.assert_array_equal(a[:, [0, 1, 3]], b[:, [0, 1, 3]])
+    np.testing.assert_allclose(a[:, 2], b[:, 2], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(a[:, 3], (a[:, 2] >= 0.5).astype(float))
+
+
+def test_infer_on_a_length_sorted_train_split_keeps_the_jax_order(jax_runs, tmp_path):
+    """The train loader is read unshuffled, and a length-sorted one still
+    sorts by size, in both packages: the CSV's ``index`` counts that order."""
+    run = str(tmp_path / "run")
+    shutil.copytree(jax_runs["deep_sets"], run)
+    cfg = load_config(os.path.join(run, "config.yaml"))
+    cfg["dataset"]["length_sorted"] = True
+    save_config(cfg, run)
+    ours = port_train.infer(run, split="train", output=str(tmp_path / "port.csv"), device="cpu")
+    theirs = jax_train.infer(run, split="train", output=str(tmp_path / "jax.csv"))
+    (_, a), (_, b) = _csv(ours), _csv(theirs)
+    unsorted = _csv(port_train.infer(jax_runs["deep_sets"], split="train", output=str(tmp_path / "u.csv"),
+                                     device="cpu"))[1]
+    np.testing.assert_array_equal(a[:, [0, 1, 3]], b[:, [0, 1, 3]])
+    np.testing.assert_allclose(a[:, 2], b[:, 2], rtol=0, atol=1e-6)
+    assert not np.array_equal(a[:, 1], unsorted[:, 1]) or not np.allclose(a[:, 2], unsorted[:, 2])
+
+
+def _parser_tree(parser):
+    sub = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
+    return {
+        name: sorted(
+            (a.dest, tuple(a.option_strings), a.nargs, repr(a.default), tuple(a.choices or ()), a.required,
+             a.type, type(a).__name__)
+            for a in p._actions
+        )
+        for name, p in sub.choices.items()
+    }
+
+
+def test_parser_matches_the_jax_parser():
+    ours, theirs = _parser_tree(cli.build_parser()), _parser_tree(jax_train._build_parser())
+    assert list(ours) == list(theirs) and len(ours) == 9
+    for name in theirs:
+        assert ours[name] == theirs[name], name
+
+
+@pytest.mark.parametrize("argv, error, item", [
+    (["infer-raw", "run", "--input", "x.h5"], SystemExit, "item 6"),
+    (["serve", "run"], SystemExit, "item 6"),
+    (["export", "run"], SystemExit, "item 15"),
+    (["create-datasets", "--data-dir", "d"], SystemExit, "item 6"),
+    (["train", "deep_sets", "--create-dataset"], SystemExit, "item 6"),
+    (["train", "deep_sets", "--plots"], NotImplementedError, "item 16"),
+], ids=["infer-raw", "serve", "export", "create-datasets", "train-create-dataset", "train-plots"])
+def test_unported_commands_fail_naming_their_item(tiny, tmp_path, argv, error, item):
+    if argv[0] == "train":
+        argv = _args(tiny, argv[1], tmp_path / "log", *argv[2:])
+    with pytest.raises(error, match=item) as raised:
+        cli.main(argv, device="cpu")
+    if error is SystemExit:
+        assert raised.value.code not in (0, None)
+    assert not os.path.exists(tmp_path / "log")
+
+
+def test_quant_int8_fails_naming_its_item(jax_runs, tmp_path):
+    with pytest.raises(NotImplementedError, match="item 12"):
+        cli.main(["evaluate", jax_runs["deep_sets"], "--quant", "int8", "--save-dir", str(tmp_path)], device="cpu")
+    with pytest.raises(ValueError, match="only supported for deep_sets"):
+        cli.main(["infer", jax_runs["logistic_regression"], "--quant", "int8"], device="cpu")
+    cli.main(["evaluate", jax_runs["deep_sets"], "--quant", "auto"], device="cpu")  # float at these widths
+    with open(os.path.join(jax_runs["deep_sets"], "eval", "metrics.json")) as f:
+        assert list(json.load(f)) == ["accuracy_train", "accuracy_val", "accuracy_test"]
+
+
+def test_module_entry_lists_every_command_and_refuses_the_unported():
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    run = [sys.executable, "-m", "point_cloud_classifier_tpu_torch"]
+    helped = subprocess.run(run + ["--help"], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert helped.returncode == 0, helped.stderr
+    for name in ("train", "evaluate", "resume", "infer", "infer-raw", "serve", "export", "create-datasets",
+                 "convert"):
+        assert name in helped.stdout
+    served = subprocess.run(run + ["serve", "run"], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert served.returncode != 0 and "ROADMAP Queue 1 item 6" in served.stderr
+
+
+def _expected_config(tiny, model, log_dir, epochs, seed):
+    """What the JAX command line's ``train`` writes as ``config.yaml``."""
+    cfg = jax_config.load_config(str(tiny / "configs" / "base.yaml"), str(tiny / "configs" / f"{model}.yaml"))
+    cfg["dataset"]["data_dir"] = str(tiny / "data")
+    cfg["logging"]["log_dir"] = os.path.join(str(log_dir), "version_0")
+    cfg.setdefault("trainer", {})["epochs"] = epochs
+    cfg["trainer"]["seed"] = seed
+    cfg["meta"].update(model_name=model, dataset_name=DATASETS[model])
+    return cfg
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_main_trains_every_model(tiny, tmp_path, model):
+    log_dir = tmp_path / "log"
+    cli.main(_args(tiny, model, log_dir, "--epochs", "2", "--seed", "3"), device="cpu")
+    run = log_dir / "version_0"
+    files = {"config.yaml", "meta.json"} | ({"model.pkl"} if model == "logistic_regression" else
+                                            {"metrics.jsonl", "best_model.pt", "model.pt", "state"})
+    assert set(os.listdir(run)) == files
+    want = jax_config.save_config(_expected_config(tiny, model, log_dir, 2, 3), str(tmp_path / "jax"))
+    with open(run / "config.yaml", "rb") as a, open(want, "rb") as b:
+        assert a.read() == b.read()
+    with open(run / "meta.json") as f:
+        text = f.read()
+    meta = json.loads(text)
+    assert text == json.dumps(meta, indent=4)
+    assert list(meta) == ["dataset", "model", "metrics"]
+    assert (meta["dataset"], meta["model"]) == (DATASETS[model], model)
+    assert list(meta["metrics"]) == ["accuracy/train", "accuracy/val", "parameters"]
+    for key in ("accuracy/train", "accuracy/val"):
+        assert 0.0 <= meta["metrics"][key] <= 1.0 and round(meta["metrics"][key], 6) == meta["metrics"][key]
+    if model == "logistic_regression":
+        assert meta["metrics"]["parameters"] == 10
+    else:
+        cli.main(["resume", str(run)], device="cpu")  # no more epochs to run: the state is read back
+        with open(run / "state" / "trainer_state.json") as f:
+            assert json.load(f)["epoch"] == 1
+
+
+def test_convert_round_trip_through_main(tiny, tmp_path):
+    cli.main(_args(tiny, "deep_sets", tmp_path / "log", "--epochs", "1"), device="cpu")
+    run = tmp_path / "log" / "version_0"
+    cfg = str(run / "config.yaml")
+    cli.main(["convert", "deep_sets", str(run / "best_model.pt"), str(tmp_path / "ref.pt"), "--to-torch",
+              "--config", cfg])
+    cli.main(["convert", "deep_sets", str(tmp_path / "ref.pt"), str(tmp_path / "jax.pt"), "--config", cfg])
+    cli.main(["convert", "deep_sets", str(tmp_path / "jax.pt"), str(tmp_path / "back.pt"), "--to-torch",
+              "--config", cfg])
+    best = torch.load(run / "best_model.pt", weights_only=True)
+    for name in ("ref.pt", "back.pt"):
+        again = torch.load(tmp_path / name, weights_only=True)
+        assert list(again) == list(best)
+        for key, value in best.items():
+            assert torch.equal(again[key], value), (name, key)
+    # the JAX package reads the converted pickle as its own checkpoint
+    jax_cfg = copy.deepcopy(load_config(cfg))
+    model = jax_train.get_model("deep_sets", jax_cfg)
+    model.load(str(tmp_path / "jax.pt"))
+    assert model.get_trainable_parameters() == sum(v.numel() for k, v in best.items() if "running" not in k)
+
+
+@pytest.mark.parametrize("command", ["train-logistic_regression", "train-fully_connected_net", "evaluate",
+                                     "infer", "resume"])
+def test_main_without_a_device_raises_here(tiny, jax_runs, tmp_path, monkeypatch, command):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if command.startswith("train-"):
+        argv = _args(tiny, command[len("train-"):], tmp_path / "log", "--epochs", "1")
+    else:
+        argv = [command, jax_runs["fully_connected_net"]]
+    with pytest.raises(RuntimeError, match=r'device="cpu"'):
+        cli.main(argv)

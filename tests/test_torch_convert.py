@@ -99,7 +99,7 @@ def test_unknown_and_leftover_keys_raise():
     with pytest.raises(KeyError):
         convert.convert_torch_state_dict("deep_sets", cfg, {k: v for k, v in state.items() if k != "rho.0.bias"})
     with pytest.raises(NotImplementedError, match="no converter"):
-        convert.to_torch_state_dict("fully_connected_net", cfg, {}, {})
+        convert.to_torch_state_dict("logistic_regression", cfg, {}, {})
     with pytest.raises(NotImplementedError, match="SAGPooling"):
         convert.to_torch_state_dict("graph_net", {"model": {**_graph_cfg("gat"), "sag_pool": True}}, {}, {})
     with pytest.raises(KeyError, match="GATConv_0"):

@@ -1194,3 +1194,78 @@ def test_knn_graph_net_train_step_kernel_route_matches_plain_route(local_pooling
     for (name, p), q in zip(kernel.model.named_parameters(), plain.model.parameters()):
         scale = max(1e-12, q.grad.abs().max().item())
         assert (p.grad - q.grad).abs().max().item() <= 1e-4 * scale, name
+
+
+# -- the tabular models and the command line on the card -----------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [True, False], ids=["bn", "no-bn"])
+def test_fcn_on_the_card_matches_the_cpu(bn):
+    from point_cloud_classifier_tpu_torch.data import TabularLoader
+    from point_cloud_classifier_tpu_torch.models import FullyConnectedNet
+    from point_cloud_classifier_tpu_torch.models.wrapper import masked_bce
+
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    batch = next(iter(TabularLoader(rng.normal(size=(27, 9)), rng.integers(0, 2, 27), 32, shuffle=False)))
+    grads = []
+    for device in ("cpu", dev):
+        net = FullyConnectedNet(9, [32, 32, 64], bn, 1, generator=torch.Generator().manual_seed(1)).to(device)
+        tensors = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        logits = net(tensors, train=True)
+        masked_bce(logits, tensors["y"], tensors["y_mask"]).backward()
+        grads.append([logits.detach().cpu()] + [p.grad.cpu() for p in net.parameters()]
+                     + [b.cpu() for b in net.buffers()] + [net(tensors, train=False).detach().cpu()])
+    for cpu, card in zip(*grads):
+        torch.testing.assert_close(card, cpu, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_logistic_regression_fit_on_the_card_matches_the_cpu(tmp_path):
+    from point_cloud_classifier_tpu_torch.data.synthetic import write_s2pt_cache
+    from point_cloud_classifier_tpu_torch.data.tabular import Step2PointTabular
+    from point_cloud_classifier_tpu_torch.models import LogRegression
+
+    _cuda()
+    write_s2pt_cache(str(tmp_path), seed=0)
+    train = Step2PointTabular(str(tmp_path)).get_train_loader()
+    card, cpu = LogRegression().fit(train), LogRegression(device="cpu").fit(train)
+    assert card.device.type == "cuda" and card.coef_.dtype == np.float32
+    np.testing.assert_allclose(card.coef_, cpu.coef_, rtol=0, atol=2e-4)
+    np.testing.assert_allclose(card.intercept_, cpu.intercept_, rtol=0, atol=2e-4)
+    assert 0 < card.n_iter_ < card.max_iter
+
+
+@pytest.mark.gpu
+def test_command_line_trains_and_evaluates_deep_sets_on_the_card(tmp_path):
+    import json
+    import os
+
+    from point_cloud_classifier_tpu_torch.cli import main
+    from point_cloud_classifier_tpu_torch.data.synthetic import write_s2ppc_cache
+    from point_cloud_classifier_tpu_torch.utils.config import save_config
+
+    _cuda()
+    os.makedirs(tmp_path / "configs")
+    save_config({"meta": {"model_name": "", "dataset_name": ""}, "dataset": {"data_dir": "unused"},
+                 "logging": {"log_dir": "unused"}}, str(tmp_path / "configs"))
+    os.replace(tmp_path / "configs" / "config.yaml", tmp_path / "configs" / "base.yaml")
+    save_config({"model": {"input_dim": 6, "phi_layers": [32, 32], "rho_layers": [32], "output_dim": 1,
+                           "pooling": "mean", "layer_norm": False, "activation": "gelu", "residual_block": True},
+                 "dataset": {"batch_size": 16}, "trainer": {"learning_rate": 0.001, "optimizer": "adamw"}},
+                str(tmp_path / "configs"))
+    os.replace(tmp_path / "configs" / "config.yaml", tmp_path / "configs" / "deep_sets.yaml")
+    write_s2ppc_cache(str(tmp_path / "data"), n_events=(64, 32, 32), min_points=20, max_points=60, seed=0)
+    fused_phi.phi_pool.launches = fused_phi.phi_pool.bwd_launches = 0
+    main(["train", "deep_sets", "--config-dir", str(tmp_path / "configs"), "--data-dir", str(tmp_path / "data"),
+          "--log-dir", str(tmp_path / "log"), "--epochs", "2"])
+    assert fused_phi.phi_pool.bwd_launches == 2 * 4  # a launch of K2 per train step
+    assert fused_phi.phi_pool.launches > fused_phi.phi_pool.bwd_launches
+    run = tmp_path / "log" / "version_0"
+    main(["evaluate", str(run)])
+    with open(run / "eval" / "metrics.json") as f:
+        metrics = json.load(f)
+    assert list(metrics) == ["accuracy_train", "accuracy_val", "accuracy_test"]
+    with open(run / "eval" / "classification_report.txt") as f:
+        assert f.read().splitlines()[-1].split()[-1] == "32"

@@ -1,5 +1,7 @@
-"""The port imports without jax and the JAX package, and chip_smoke.py refuses
-to run without a CUDA card or without the repository beside it."""
+"""The port imports without jax, the JAX package, pandas, sklearn, PyYAML,
+matplotlib, h5py or joblib, and runs without them (the kNN path, the
+flagship wire, the command line); chip_smoke.py refuses to run without a CUDA
+card or without the repository beside it."""
 
 import os
 import shutil
@@ -13,7 +15,8 @@ import pytest
 pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "h5py", "pandas", "sklearn", "yaml", "point_cloud_classifier_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "h5py", "pandas", "sklearn", "yaml", "matplotlib", "joblib",
+           "point_cloud_classifier_tpu")
 
 
 def _run(code_or_args, cwd=REPO, env_extra=None):
@@ -48,7 +51,9 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
     walked = set(proc.stdout.split(":", 1)[1].split())
     graph_slice = {"data.graph", "models.graph_net", "ops.dispatch", "ops.gat", "ops.inrow_graph", "ops.knn"}
     pipelines = {"data.background", "data.prefetch", "data.resident"}
-    assert {f"point_cloud_classifier_tpu_torch.{m}" for m in graph_slice | pipelines} <= walked
+    command_line = {"cli", "__main__", "data.tabular", "models.fully_connected_net",
+                    "models.logistic_regression", "utils.metrics"}
+    assert {f"point_cloud_classifier_tpu_torch.{m}" for m in graph_slice | pipelines | command_line} <= walked
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -123,3 +128,40 @@ def test_flagship_wire_and_pipelines_run_without_jax():
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "[2, 3]" in proc.stdout and np.isfinite(float(proc.stdout.split()[-1]))
+
+
+def test_command_line_runs_without_jax_pandas_sklearn_or_yaml(tmp_path):
+    """``train``, ``evaluate``, ``infer`` and ``convert`` through ``cli.main`` on
+    the CPU for the tabular models and DeepSets, from the repository's
+    configs, in a process where none of the blocked packages can be
+    imported."""
+    code = textwrap.dedent(
+        f"""
+        import json, os, sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        from point_cloud_classifier_tpu_torch.cli import main
+        from point_cloud_classifier_tpu_torch.data.synthetic import write_s2ppc_cache, write_s2pt_cache
+        work = {str(tmp_path)!r}
+        write_s2pt_cache(os.path.join(work, "data"), n_events=(70, 30, 30), seed=2)
+        write_s2ppc_cache(os.path.join(work, "data"), n_events=(20, 8, 8), min_points=3, max_points=12, seed=2)
+        for model in ("logistic_regression", "fully_connected_net", "deep_sets"):
+            log = os.path.join(work, model)
+            main(["train", model, "--data-dir", os.path.join(work, "data"), "--log-dir", log,
+                  "--epochs", "1"], device="cpu")
+            run = os.path.join(log, "version_0")
+            main(["evaluate", run], device="cpu")
+            main(["infer", run], device="cpu")
+            if model != "logistic_regression":
+                main(["convert", model, os.path.join(run, "best_model.pt"), os.path.join(run, "x.pt"),
+                      "--to-torch", "--config", os.path.join(run, "config.yaml")])
+            with open(os.path.join(run, "eval", "metrics.json")) as f:
+                print(model, json.load(f)["accuracy_test"])
+        """
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    printed = dict(line.split() for line in proc.stdout.splitlines() if line.split()[:1] in
+                   (["logistic_regression"], ["fully_connected_net"], ["deep_sets"]))
+    assert set(printed) == {"logistic_regression", "fully_connected_net", "deep_sets"}
+    assert all(0.0 <= float(v) <= 1.0 for v in printed.values())

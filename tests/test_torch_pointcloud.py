@@ -125,12 +125,13 @@ def test_unported_dataset_options_raise(tmp_path, extra, match):
 
 
 def test_get_dataloader_errors(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory.get_dataloader("s2pt", _cfg(tmp_path))
-    graphs = _cfg(tmp_path)
-    graphs["dataset"] = {"data_dir": str(tmp_path), "create_dataset": True}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory.get_dataloader("s2pg", graphs)
+    creating = _cfg(tmp_path)
+    creating["dataset"] = {"data_dir": str(tmp_path), "create_dataset": True}
+    for name in ("s2pt", "s2pg"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            factory.get_dataloader(name, creating)
+    with pytest.raises(FileNotFoundError, match="Required file is missing"):
+        factory.get_dataloader("s2pt", {"dataset": {"data_dir": str(tmp_path)}})
     with pytest.raises(ValueError, match="Unknown dataset"):
         factory.get_dataloader("mnist", _cfg(tmp_path))
     with pytest.raises(FileNotFoundError, match="No files found"):

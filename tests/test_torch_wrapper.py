@@ -91,9 +91,11 @@ def test_port_state_dict_checkpoint_loads(tmp_path):
 
 def test_get_model_errors(tmp_path):
     cfg = _config()
-    for name in ("logistic_regression", "fully_connected_net"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            factory.get_model(name, cfg, device="cpu")
+    with pytest.raises(FileNotFoundError, match="LogisticRegression model not found"):
+        factory.get_model("logistic_regression", cfg, str(tmp_path), device="cpu")
+    with pytest.raises(FileNotFoundError, match="fully_connected_net model not found"):
+        fcn = {**cfg, "model": dict(input_dim=9, hidden_layers=[4], batch_normalization=True, output_dim=1)}
+        factory.get_model("fully_connected_net", fcn, str(tmp_path), device="cpu")
     sag = {**cfg, "model": dict(input_dim=4, hidden_dim=8, output_dim=1, activation="tanh", sag_pool=True)}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         factory.get_model("graph_net", sag, device="cpu")
