@@ -141,7 +141,24 @@ result):
    pickle and back, exactly equal; ``train fully_connected_net`` (5 epochs) and
    ``train logistic_regression`` on S2PT, each over its val floor and then
    ``evaluate``d, the logistic regression's coefficients within 2e-4 of the
-   same fit on the CPU and its solve timed on both; each command's seconds.
+   same fit on the CPU and its solve timed on both; each command's seconds;
+21. GraphNet slice 2: ``train.train_model("graph_net", "s2pg", cfg)`` for 3
+   epochs at B=32 on the graph training cache, at the widths of
+   ``configs/graph_net.yaml``, for each arm: flat GraphConv add, mean and max
+   and flat GAT (``graph_layout: flat``), in-row GraphConv and GAT with SAG,
+   in-row max with and without SAG (``require_inrow``), and ``knn_k: 8``
+   with GAT, SAG (mean) and max (the kNN edge-list arm), each with its launch
+   counts (only in-row GAT with SAG reaches a kernel: K3 twice per forward,
+   K4 twice per train step over two mirrors, the second of the keep-masked
+   lists), its losses and checkpoints and its val accuracy floor; in-row GAT
+   with SAG also five steps against its plain route; then ``layout: auto``
+   over a cache whose first graph of each split holds a duplicate edge, an
+   exact-zero weight and a node of 40 incoming edges: weighted GAT (the
+   loader warns and demotes itself to the flat wire) and max (the batch of
+   that node ships flat, with the loader's one warning), each trained; then
+   the train step and ``predict`` per batch of every arm at B=256 (the kNN
+   arms at B=32), in-row GAT with SAG also on its plain route and slice 1's
+   in-row GAT beside flat GAT, and a trace of the B=256 flat GAT step.
 
 Beside each kernel's time the script works out the least time the card could
 take for the same work (``bound_ms``: the bytes the function must move over
@@ -163,6 +180,7 @@ import pickle
 import subprocess
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -363,6 +381,42 @@ KNN_K = 8  # model.knn_k of the kNN slices
 # for add (eight summed neighbours drive tanh towards saturation, and three
 # epochs move it little) and 0.761719 for mean after 3 epochs
 KNN_VAL_ACC_FLOOR = {"add": 0.53, "mean": 0.70}
+# phase 21, GraphNet slice 2: each arm's model and dataset overrides of
+# configs/graph_net.yaml, trained for 3 epochs on the graph training cache
+SLICE2_ARMS = (
+    ("flat GraphConv add", dict(local_pooling="add"), {"graph_layout": "flat"}),
+    ("flat GraphConv mean", dict(local_pooling="mean"), {"graph_layout": "flat"}),
+    ("flat GraphConv max", dict(local_pooling="max"), {"graph_layout": "flat"}),
+    ("flat GAT", dict(use_gat=True), {"graph_layout": "flat"}),
+    ("in-row GraphConv SAG", dict(sag_pool=True), {}),
+    ("in-row GAT SAG", dict(use_gat=True, sag_pool=True), {}),
+    ("in-row max", dict(local_pooling="max"), {}),
+    ("in-row max SAG", dict(local_pooling="max", sag_pool=True), {}),
+    ("kNN GAT", dict(knn_k=KNN_K, use_gat=True), {}),
+    ("kNN SAG", dict(knn_k=KNN_K, sag_pool=True, local_pooling="mean"), {}),
+    ("kNN max", dict(knn_k=KNN_K, local_pooling="max"), {}),
+)
+# the demoted loaders, over a cache whose first graph of each split holds a
+# duplicate edge, an exact-zero weight and a node of 40 incoming edges:
+# weighted GAT (the zero demotes the whole loader to the flat wire) and max
+# (the batch of that node ships flat, the others in-row), with the warning
+# each loader gives (the JAX loader's words)
+SLICE2_DEMOTED = (
+    ("demoted GAT", dict(use_gat=True), "exact-zero edge weight", {"src"}),
+    ("demoted max", dict(local_pooling="max"), "in/out-degree overflows", {"src", "in_src"}),
+)
+# val accuracy floors (chance 0.5), set below the first reading on an H100
+# (80GB HBM3, 700 W): flat add 0.761719, mean 0.730469, max 0.886719, GAT
+# 0.78125; in-row GraphConv SAG 0.769531, GAT SAG 0.6875, max 0.886719, max
+# SAG 0.851562; kNN GAT 0.789062, SAG 0.769531 (with mean aggregation: with
+# add, which learns slowly over eight neighbours as the kNN add arm does, it
+# read 0.511719-0.535156 over three runs, too near chance for a floor), max
+# 0.871094; demoted GAT 0.71875, max 0.808594
+SLICE2_VAL_ACC_FLOOR = {
+    "flat GraphConv add": 0.70, "flat GraphConv mean": 0.68, "flat GraphConv max": 0.80, "flat GAT": 0.70,
+    "in-row GraphConv SAG": 0.70, "in-row GAT SAG": 0.62, "in-row max": 0.80, "in-row max SAG": 0.78,
+    "kNN GAT": 0.72, "kNN SAG": 0.70, "kNN max": 0.80, "demoted GAT": 0.65, "demoted max": 0.74,
+}
 # phase 20, the command line: seeded caches of 1,024 / 256 / 256 events
 # (S2PPC and S2PT) read at the widths of configs/; val accuracy floors
 # (chance 0.5), set from the same caches, configs and seeds on the CPU (x86,
@@ -2347,6 +2401,130 @@ def knn_times_phase(smi: str):
     return config_times
 
 
+def slice2_arm_config(data_dir: str, log_dir: str, model: dict, dataset: dict) -> dict:
+    cfg = graph_training_config(data_dir, log_dir, 3, **copy.deepcopy(model))
+    cfg["dataset"].update(dataset)
+    return cfg
+
+
+def slice2_expected(counts: dict, model: dict, wires: list, steps: int, evals: int) -> dict:
+    """The launches of one arm's train_model: only GAT on the in-row wire
+    reaches a kernel (here with SAG), K3 twice per forward and K4 twice per
+    train step over two mirrors (conv1's lists, then conv2's keep-masked
+    ones)."""
+    want = dict.fromkeys(counts, 0)
+    if model.get("use_gat") and set(wires) == {"in_src"}:
+        want.update({"gat_attention": 2 * (steps + evals), "gat_attention_bwd": 2 * steps,
+                     "gat_out_rows": 2 * steps})
+    return want
+
+
+def slice2_wires(cfg: dict) -> list:
+    """The wire of each train batch: flat, in-row or edge-slot triples."""
+    wires = []
+    for batch in factory.get_dataloader("s2pg", cfg).get_train_loader():
+        wires.append("src" if "src" in batch else "in_src" if "in_src" in batch else "edge_slot")
+    return wires
+
+
+def slice2_train_arm(name: str, cfg: dict, model: dict) -> tuple:
+    """train_model for one arm with its launch counts and floor; returns
+    (counts, wires of the train batches)."""
+    wires = slice2_wires(cfg)
+    steps, evals, meta, counts = train_graph_arm(name, cfg)
+    want = slice2_expected(counts, model, wires, steps, evals)
+    floor = SLICE2_VAL_ACC_FLOOR[name]
+    print(f"graph slice 2 {name}: {steps} train steps ({sorted(set(wires))} wire), {evals} eval batches; "
+          f"launches {counts} (expected {want}); accuracy/val {meta['accuracy/val']} (floor {floor})")
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, expected {want}")
+    if not meta["accuracy/val"] >= floor:
+        raise AssertionError(f"{name}: accuracy/val {meta['accuracy/val']} below {floor}")
+    return counts, wires
+
+
+def slice2_demoted_phase(work_dir: str) -> None:
+    """``layout: auto`` over the outlier cache: each loader warns as the JAX
+    loader does and ships its wires, and the arm trains."""
+    data_dir = os.path.join(work_dir, "s2pg_outliers")
+    write_s2pg_cache(data_dir, n_graphs=(1024, 256, 256), seed=SEED + 21, outliers=True)
+    for name, model, warned, wires in SLICE2_DEMOTED:
+        cfg = slice2_arm_config(data_dir, os.path.join(work_dir, "slice2_log"), model,
+                                {"graph_layout": "auto", "use_weights": True})
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            seen = slice2_wires(cfg)
+        messages = [str(w.message) for w in caught if issubclass(w.category, UserWarning)]
+        print(f"graph slice 2 {name}: the train loader warned {messages}; wires {sorted(set(seen))}")
+        if len(messages) != 1 or warned not in messages[0] or set(seen) != wires:
+            raise AssertionError(f"{name}: warnings {messages}, wires {sorted(set(seen))}; expected "
+                                 f"one warning naming {warned!r} and wires {sorted(wires)}")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the same warnings, once per loader
+            slice2_train_arm(name, cfg, model)
+
+
+def slice2_phase(smi: str, work_dir: str) -> dict:
+    """Phase 21, GraphNet slice 2: each arm through train_model on the graph
+    training cache (3 epochs, B=32) with its launch counts and floor; the
+    kernel route of in-row GAT with SAG against its plain route; the demoted
+    loaders; then the train step and predict per batch at B=256 (the kNN
+    arms at B=32) and a trace of the B=256 flat GAT step.  Returns the
+    launch counts of in-row GAT with SAG."""
+    data_dir = os.path.join(work_dir, "s2pg_train")  # the cache graph_train_phase wrote
+    launches = {}
+    marks = [time.perf_counter()]
+    for name, model, dataset in SLICE2_ARMS:
+        cfg = slice2_arm_config(data_dir, os.path.join(work_dir, "slice2_log"), model, dataset)
+        counts, _ = slice2_train_arm(name, cfg, model)
+        if any(counts.values()):
+            launches = {k: v for k, v in counts.items() if v}
+            graph_track_phase(name, cfg)
+    marks.append(time.perf_counter())
+    slice2_demoted_phase(work_dir)
+    marks.append(time.perf_counter())
+    slice2_times_phase(smi)
+    marks.append(time.perf_counter())
+    print("seconds: graph slice 2, "
+          + ", ".join(f"{what} {b - a:.1f}" for what, a, b in
+                      zip(("arms", "demoted loaders", "times"), marks, marks[1:])))
+    return launches
+
+
+def slice2_times_phase(smi: str) -> None:
+    """The train step and predict per batch, host clock, each arm at B=256
+    (kNN at B=32: the edge-list arm sorts an [N, N] distance matrix, 16 GiB
+    in f32 at N = 65,536), in-row GAT with SAG also on its plain route and
+    slice 1's in-row GAT beside flat GAT; then a trace of the B=256 f32 flat
+    GAT step."""
+    graphs = lineage_graphs(np.random.default_rng(SEED + 2), 4 * FLAGSHIP_GRAPHS)
+    knn_graphs = lineage_graphs(np.random.default_rng(SEED + 2), 4 * GRAPH_B)
+    loaders = {"flat": GraphLoader(graphs, FLAGSHIP_GRAPHS, shuffle=False, layout="flat", use_weights=False),
+               "in-row": GraphLoader(graphs, FLAGSHIP_GRAPHS, shuffle=False, layout="dense", use_weights=False),
+               "kNN": GraphLoader(knn_graphs, GRAPH_B, shuffle=False, layout="flat", use_weights=False)}
+    batches = {wire: list(loader) for wire, loader in loaders.items()}
+    rows = []
+    for name, model, _ in SLICE2_ARMS + (("in-row GAT", dict(use_gat=True), {}),):
+        wire = name.split(" ", 1)[0]
+        cfg = slice2_arm_config("", None, model, {})
+        wrapper = factory.get_model("graph_net", cfg)
+        routes = [(name, wrapper)]
+        if model.get("use_gat") and model.get("sag_pool") and wire == "in-row":
+            plain = factory.get_model("graph_net", cfg)  # the same seeded weights
+            routes.append((f"{name} plain route", PlainRoute(plain)))
+        own = batches[wire]
+        step = train_ms_per_batch([w for _, w in routes], own, reps=4)
+        serve = predict_ms_per_batch([w for _, w in routes], own, reps=4)
+        b = own[0]["y"].shape[0]
+        for (label, _), t, p in zip(routes, step, serve):
+            rows.append(f"{label} B={b}: train step {t[0]:.4f} ({t[1]:.4f}-{t[2]:.4f}) ms, predict "
+                        f"{p[0]:.4f} ({p[1]:.4f}-{p[2]:.4f}) ms")
+        if name == "flat GAT":
+            profile_train_steps(smi, "B=256 f32 flat GAT (segment softmax and scatters)", wrapper, own)
+    print(f"time graph slice 2, f32 adam, per batch, median (q1-q3) of 4 runs over {len(batches['flat'])} "
+          f"pre-packed batches, host clock to a synchronise: " + "; ".join(rows) + f" [{smi}]")
+
+
 def _cli(seconds: dict, label: str, *argv) -> dict:
     """One command through ``cli.main`` in this process, on the card, with
     every launch count set to 0 just before it; returns the counts read just
@@ -2540,6 +2718,8 @@ def main() -> None:
         knn_serve_launches = knn_slice_phase(run_dir)
         knn_launches = knn_train_phase(run_dir)
         lap("kNN serving and training")
+        slice2_launches = slice2_phase(smi, run_dir)
+        lap("graph slice 2")
         dense_launches = flagship_train_phase(run_dir)
         dense = flagship_kernel_phase(smi)
         lap("flagship wire")
@@ -2548,6 +2728,11 @@ def main() -> None:
               f"K3 {graph_serve_launches}; GraphNet training path {graph_launches}; kNN serving path "
               f"K5 {knn_serve_launches}; kNN training path {knn_launches}; flagship wire, K1 and K2 "
               f"on dense batches {dense_launches}")
+        print(f"launches: graph slice 2, in-row GAT with SAG training path {slice2_launches}")
+        # K3's and K4's counts sum both GAT training paths, slice 1's and
+        # slice 2's (SAG: two mirrors a step)
+        for name in ("gat_attention", "gat_attention_bwd", "gat_out_rows"):
+            graph_launches[name] += slice2_launches[name]
         # K6's and K5's counts are their forward and backward launches
         # together; K5's selections and K4's mirrors stand beside them
         graph_launches["inrow_aggregate"] += graph_launches.pop("inrow_aggregate backward")

@@ -14,9 +14,15 @@ keys, so one declarative mapping per model serves both directions:
   the JAX package's ``convert.py`` does);
 - torch_geometric's ``GraphConv`` ``lin_rel`` (biased) / ``lin_root``
   (bias-free) ↔ ``GraphConv_k/TorchLinear_0`` / ``TorchLinear_1``, or
-  ``DenseGraphConv_k/...`` for a model with ``knn_k > 0`` and add or mean
-  aggregation (Flax names the kNN arm's convolution so; the JAX package's
-  converter knows only ``GraphConv_k``);
+  ``DenseGraphConv_k/...`` for a model with ``knn_k > 0``, add or mean
+  aggregation and no SAG (Flax names the K5 arm's convolution so; the JAX
+  package's converter knows only ``GraphConv_k``);
+- torch_geometric's ``SAGPooling`` (its default score network, a
+  ``GraphConv`` to one channel): ``pool.gnn.lin_rel`` / ``pool.gnn.lin_root``
+  ↔ ``SAGPool_0/GraphConv_0/TorchLinear_0`` / ``TorchLinear_1``, between
+  ``bn1`` and ``conv2`` as the JAX model instantiates it.  The JAX package's
+  converter refuses SAG checkpoints; the port fixes this layout for its own
+  (``docs/parity_torch.md``);
 - torch_geometric 2.5's ``GATConv`` (``in_channels`` an int, no edge
   features, no residual): ``lin.weight`` ``[H·dh, in]`` ↔
   ``GATConv_k/Dense_0/kernel`` (transposed), ``att_src``/``att_dst``
@@ -28,8 +34,8 @@ consume every key, so a wrong mapping cannot pass silently.  The mapping
 and the two tree functions are numpy only; the file-level functions behind
 the command line's ``convert`` (:func:`convert_checkpoint`,
 :func:`export_torch_checkpoint`) import torch when called, and never jax.
-Ported so far: the FullyConnectedNet, DeepSets and GraphNet with GraphConv
-or GAT (not SAG pooling).  ``logistic_regression`` has no mapping, as in the
+Ported: the FullyConnectedNet, DeepSets and GraphNet (GraphConv or GAT,
+with or without SAG pooling).  ``logistic_regression`` has no mapping, as in the
 JAX package: its ``model.pkl`` holds no torch weights.
 """
 
@@ -133,14 +139,15 @@ def _deep_sets_mapping(cfg: dict) -> Iterator[Entry]:
     yield from _lin(f"rho.{idx}", ("TorchLinear_0",))  # classifier head
 
 
+def _graph_conv(prefix: str, path: Tuple[str, ...]) -> Iterator[Entry]:
+    yield from _lin(f"{prefix}.lin_rel", path + ("TorchLinear_0",))
+    yield f"{prefix}.lin_root.weight", "params", path + ("TorchLinear_1", "kernel"), True
+
+
 def _graph_net_mapping(cfg: dict) -> Iterator[Entry]:
-    """Two convolutions (+BN each), fc1 + bn3, fc2, in the port's
-    ``state_dict`` order."""
-    if cfg.get("sag_pool"):
-        raise NotImplementedError(
-            "SAGPooling checkpoints are not ported yet (ROADMAP Queue 1, "
-            "GraphNet slice 2)"
-        )
+    """Two convolutions (+BN each, SAG's score network after the first),
+    fc1 + bn3, fc2, in the port's ``state_dict`` order."""
+    sag = bool(cfg.get("sag_pool"))
     for k in (1, 2):
         if cfg.get("use_gat"):
             conv = f"GATConv_{k - 1}"
@@ -148,13 +155,14 @@ def _graph_net_mapping(cfg: dict) -> Iterator[Entry]:
                 yield f"conv{k}.{name}", "params", (conv, name), False
             yield f"conv{k}.lin.weight", "params", (conv, "Dense_0", "kernel"), True
         else:
-            # the kNN arm (knn_k > 0 with add/mean) aggregates ahead of the
-            # convolution, and Flax names that module DenseGraphConv
-            dense = cfg.get("knn_k", 0) > 0 and cfg.get("local_pooling", "add") in ("add", "mean")
-            conv = f"{'DenseGraphConv' if dense else 'GraphConv'}_{k - 1}"
-            yield from _lin(f"conv{k}.lin_rel", (conv, "TorchLinear_0"))
-            yield f"conv{k}.lin_root.weight", "params", (conv, "TorchLinear_1", "kernel"), True
+            # the K5 arm (knn_k > 0, add/mean, no SAG) aggregates ahead of
+            # the convolution, and Flax names that module DenseGraphConv
+            dense = (cfg.get("knn_k", 0) > 0 and not sag
+                     and cfg.get("local_pooling", "add") in ("add", "mean"))
+            yield from _graph_conv(f"conv{k}", (f"{'DenseGraphConv' if dense else 'GraphConv'}_{k - 1}",))
         yield from _bn(f"bn{k}", f"MaskedBatchNorm_{k - 1}")
+        if k == 1 and sag:
+            yield from _graph_conv("pool.gnn", ("SAGPool_0", "GraphConv_0"))
     yield from _lin("fc1", ("TorchLinear_0",))
     yield from _bn("bn3", "MaskedBatchNorm_2")
     yield from _lin("fc2", ("TorchLinear_1",))

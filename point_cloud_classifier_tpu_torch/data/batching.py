@@ -23,23 +23,26 @@ Batches are byte-identical to the JAX loaders': keys, dtypes and values.
   (``k·2^j``, k in 8..15) rounded up to 8, D the batch's max in-degree
   rounded up to a power of two (at least 4).  ``emit_out_rows=True`` adds
   the out-row mirror ``out_dst``/``out_w``/``out_pos [B, M, Do]``.
-- ``GraphLoader``, the flat edge-list wire (``layout="flat"``): ``nodes
-  [n_pad, F]`` with graphs contiguous and padding rows at the end, global
-  ``src``/``dst [e_pad]`` with ``edge_w`` and ``edge_mask`` in the stored
-  edge order (padded edges self-loop on the last node, which is always
-  padding), ``y``/``y_mask``, and ``node_seg [n_pad]`` (padding rows get
-  ``B``) or ``node_seg_counts [B + 1]``.  ``n_pad`` and ``e_pad`` are
-  power-of-two buckets of ``total_nodes + 1`` and ``total_edges``.
+  A batch whose in-degree needs more than ``max_in_degree_wire`` slots
+  ships the edge-slot triples ``edge_slot``/``edge_dst``/``edge_src``/
+  ``edge_w`` instead of the in-row lists; ``adj_wire="host"`` ships the
+  adjacency ``adj [B, M, M]`` itself.
+- ``GraphLoader``, the flat edge-list wire (``layout="flat"``, or a batch or
+  a whole loader demoted from ``dense``/``auto``): ``nodes [n_pad, F]`` with
+  graphs contiguous and padding rows at the end, global ``src``/``dst
+  [e_pad]`` with ``edge_w`` and ``edge_mask`` (padded edges self-loop on the
+  last node, which is always padding), ``y``/``y_mask``, and ``node_seg
+  [n_pad]`` (padding rows get ``B``) or ``node_seg_counts [B + 1]``.
+  ``n_pad`` and ``e_pad`` are power-of-two buckets of ``total_nodes + 1`` and
+  ``total_edges``.
 
 Packing is the JAX loaders' numpy branch.  Not ported yet: their C++
-packers; for graphs the edge-slot triples, the host
-adjacency, ``require_inrow`` and every per-batch or per-dataset demotion
-from ``dense``/``auto`` to the flat wire.  Where the JAX graph loader would
-ship one of those, the port raises ``NotImplementedError`` with the reason.
+packers (ROADMAP Queue 1 item 7d).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
@@ -272,36 +275,38 @@ class PointCloudLoader:
             yield self._flat_batch(idx, b, p_pad, keep64, fac64)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"GraphLoader: {what}; the port serves the dense in-row wire and the "
-        "pure layout='flat' wire so far (ROADMAP Queue 1, GraphNet slice 2)"
-    )
-
-
 class GraphLoader:
-    """Batched padded graphs on the dense in-row wire (``layout="dense"`` or
+    """Batched padded graphs on the dense wires (``layout="dense"`` or
     ``"auto"``) or the flat edge-list wire (``layout="flat"``).
 
-    The flat wire keeps each graph's edges as stored, one entry per
+    The pure flat wire keeps each graph's edges as stored, one entry per
     occurrence: ``edge_w`` is the weight (1 with ``use_weights=False``) and
     ``edge_mask`` 1 on real edges.  ``transfer_dtype="float16"`` there ships
     fp16 features, weights and masks, int16 ``node_seg`` and, up to 32,768
-    rows, int16 ``src``/``dst``.  The rest of this text is the dense wire's.
+    rows, int16 ``src``/``dst``.
 
-    At construction each graph's edges are sorted by (destination, source)
-    and duplicate directed edges merged: weights summed, multiplicities
-    counted.  ``in_deg`` then counts each merged edge by its multiplicity
-    (zero-weight edges included), so a mean divides by the per-occurrence
-    in-degree.  With ``use_weights=False`` the in-row weights are the
-    multiplicities.  ``transfer_dtype="float16"`` ships fp16 features and
-    weights with int16 sources.
+    Under ``dense``/``auto`` each graph's edges are sorted at construction by
+    (destination, source) and duplicate directed edges merged: weights
+    summed, multiplicities counted.  ``in_deg`` then counts each merged edge
+    by its multiplicity (zero-weight edges included), so a mean divides by
+    the per-occurrence in-degree.  With ``use_weights=False`` the dense
+    weights are the multiplicities.  ``transfer_dtype="float16"`` ships fp16
+    features and weights with int16 sources.  A flat batch of such a loader
+    carries the merged edges; over a multigraph its ``edge_w`` is the merged
+    weight over the multiplicity (1 with ``use_weights=False``) and its
+    ``edge_mask`` the multiplicity, which keeps sums, means, max, GAT and the
+    SAG score per occurrence.
 
-    The gates of the JAX loader are kept: ``dense_w_is_existence`` (an
-    exact-zero wire weight) and ``flat_if_multigraph`` (a duplicate edge)
-    demote the whole loader to the flat wire there, and raise here; so do a
-    batch over ``max_dense_bytes`` under ``layout="auto"`` and a batch whose
-    in-degree needs more than ``max_in_degree_wire`` slots.
+    Where the JAX loader ships another wire, so does this one, with its
+    warnings: ``dense_w_is_existence`` (an exact-zero wire weight) and
+    ``flat_if_multigraph`` (a duplicate edge) demote the whole loader to the
+    flat wire; under ``auto`` a batch over ``max_dense_bytes`` ships flat; a
+    batch whose in-degree needs more than ``max_in_degree_wire`` slots ships
+    the edge-slot triples, or, with ``require_inrow`` (the in-row wire
+    that max aggregation needs), the flat wire, as does a batch whose
+    out-degree overflows under ``emit_out_rows`` (one warning per loader).
+    ``adj_wire="host"`` ships the adjacency, and under ``require_inrow``
+    demotes the loader to the flat wire.
 
     ``emit_out_rows=True`` also ships the out-row mirror, the transposed
     adjacency that the fused aggregation's backward reads: ``out_dst`` and
@@ -341,11 +346,18 @@ class GraphLoader:
             raise ValueError(f"Unknown adj_wire: {adj_wire}")
         if seg_encoding not in ("ids", "counts"):
             raise ValueError("seg_encoding must be 'ids' or 'counts'")
-        if adj_wire == "host" and layout != "flat":
-            raise _not_ported("adj_wire='host' ships the host adjacency [B, M, M]")
-        if require_inrow and layout != "flat":
-            raise _not_ported("require_inrow serves max aggregation (GraphNet slice 2)")
+        self.require_inrow = bool(require_inrow)
+        self._warned_inrow_fallback = False
+        if self.require_inrow and layout in ("dense", "auto") and adj_wire == "host":
+            warnings.warn(
+                "GraphLoader(require_inrow=True): the host adjacency wire "
+                "never carries in-row lists — demoting layout to 'flat'",
+                stacklevel=2,
+            )
+            layout = "flat"
         self.layout = layout
+        self.adj_wire = adj_wire
+        self.min_edge_bucket_dense = min_edge_bucket_dense
         self.seg_encoding = seg_encoding
         self.min_node_bucket = min_node_bucket
         self.min_edge_bucket = min_edge_bucket
@@ -400,6 +412,7 @@ class GraphLoader:
             self.edge_mult = np.ones(len(weights), dtype=np.float32)
             self.weights_wire = weights.astype(np.float16) if self.half else weights
             self.mult_wire = self.edge_mult.astype(np.float16) if self.half else self.edge_mult
+            self.flat_fallback_w = None
             return
 
         # sort each graph's edges by (dst, src) and merge duplicates
@@ -436,18 +449,38 @@ class GraphLoader:
         self.mult_wire = self.edge_mult.astype(np.float16) if self.half else self.edge_mult
         if self.emit_out_rows:
             self._sort_out_rows()
-
+        # a flat batch of a merged multigraph: the merged weight over the
+        # multiplicity, and the multiplicity as the mask, restore the
+        # per-occurrence semantics of the pure flat wire
+        multigraph = bool((self.edge_mult > 1).any())
+        self.flat_fallback_w = None
+        if multigraph:
+            self.flat_fallback_w = np.ascontiguousarray(
+                (self.weights / self.edge_mult).astype(self.weights_wire.dtype)
+                if use_weights
+                else np.ones_like(self.mult_wire)
+            )
+        # the dense wire encodes existence as w != 0: a weighted dataset with
+        # an exact-zero wire weight would lose that edge from dense attention
         if dense_w_is_existence and use_weights and bool((self.weights_wire == 0).any()):
-            raise _not_ported(
-                "the dataset has an exact-zero edge weight, so dense attention "
-                "would drop that edge (existence is w != 0) and the JAX loader "
-                "demotes to the flat wire"
+            warnings.warn(
+                "GraphLoader: dataset contains an exact-zero edge weight; "
+                "dense attention would drop that edge (existence is w != 0)"
+                " — demoting layout to 'flat' for exactness",
+                stacklevel=2,
             )
-        if flat_if_multigraph and bool((self.edge_mult > 1).any()):
-            raise _not_ported(
-                "the dataset has duplicate directed edges, which dense attention "
-                "counts once, so the JAX loader demotes to the flat wire"
+            self.layout = "flat"
+        # dense attention and the dense SAG score count a merged edge once
+        # where the flat wire counts each occurrence
+        if flat_if_multigraph and self.layout != "flat" and multigraph:
+            warnings.warn(
+                "GraphLoader: dataset contains duplicate directed edges; "
+                "dense attention/SAG-score semantics count a merged edge "
+                "once where the flat path counts each occurrence — "
+                "demoting layout to 'flat' for exactness",
+                stacklevel=2,
             )
+            self.layout = "flat"
 
     @property
     def n_examples(self) -> int:
@@ -456,18 +489,14 @@ class GraphLoader:
     def __len__(self) -> int:
         return -(-self.n_examples // self.batch_size)
 
-    def _dense_wire_batch(self, idx, k: int, b: int, m_pad: int) -> Batch:
-        """``nodes``, ``node_mask``, ``in_deg``, ``y``, ``y_mask``, ``in_src``
-        and ``in_w`` for the graphs ``idx`` in ``b`` slots of ``m_pad`` rows,
-        and with ``emit_out_rows`` the out-row mirror beside them."""
-        idx_t = np.int16 if (self.half and m_pad <= 32768) else np.int32
-        total_edges = int(self.edge_counts[idx].sum())
-        d_pad = _pow2_slots(int(self.graph_max_indeg[idx].max()) if total_edges else 0)
-        if d_pad > self.max_in_degree_wire:
-            raise _not_ported(
-                f"a batch needs {d_pad} in-row slots > max_in_degree_wire "
-                f"{self.max_in_degree_wire}, so the JAX loader ships edge-slot triples"
-            )
+    def _max_slots(self, idx, per_graph) -> int:
+        """The list width D of the graphs ``idx`` for a per-graph max degree."""
+        return _pow2_slots(int(per_graph[idx].max()) if int(self.edge_counts[idx].sum()) else 0)
+
+    def _dense_nodes(self, idx, k: int, b: int, m_pad: int) -> Batch:
+        """``nodes``, ``node_mask``, ``in_deg``, ``y`` and ``y_mask`` of the
+        graphs ``idx`` in ``b`` slots of ``m_pad`` rows: what every dense
+        wire ships."""
         nodes = np.zeros((b, m_pad, self.feat_dim), dtype=self.feats.dtype)
         node_mask = np.zeros((b, m_pad), dtype=np.float32)
         in_deg = np.zeros((b, m_pad), dtype=np.float32)
@@ -475,31 +504,34 @@ class GraphLoader:
         ymask = np.zeros((b,), dtype=np.float32)
         yb[:k, 0] = self.labels[idx]
         ymask[:k] = 1.0
-
         for slot, g_i in enumerate(idx):
             nlo, nhi = self.node_offsets[g_i], self.node_offsets[g_i + 1]
             nodes[slot, : nhi - nlo] = self.feats[nlo:nhi]
             node_mask[slot, : nhi - nlo] = 1.0
             in_deg[slot, : nhi - nlo] = self.node_indeg[nlo:nhi]
+        return {"nodes": nodes, "node_mask": node_mask, "in_deg": in_deg, "y": yb, "y_mask": ymask}
+
+    def _dense_wire_batch(self, idx, k: int, b: int, m_pad: int) -> Batch:
+        """The dense wire of the graphs ``idx`` in ``b`` slots of ``m_pad``
+        rows with the adjacency made on the device: the in-row lists
+        ``in_src``/``in_w`` (and with ``emit_out_rows`` the out-row mirror),
+        or, where they would need more than ``max_in_degree_wire`` slots, the
+        edge-slot triples."""
+        idx_t = np.int16 if (self.half and m_pad <= 32768) else np.int32
+        d_pad = self._max_slots(idx, self.graph_max_indeg)
+        batch = self._dense_nodes(idx, k, b, m_pad)
         wire_w = self.weights_wire if self.use_weights else self.mult_wire
-        in_src, in_w = self._pack_rows(
+        if d_pad > self.max_in_degree_wire:
+            return {**batch, **self._edge_slots(idx, b, idx_t, wire_w)}
+        batch["in_src"], batch["in_w"] = self._pack_rows(
             idx, b, m_pad, d_pad, self.edges_dst,
             [(self.edges_src, idx_t), (wire_w, wire_w.dtype)],
         )
-        batch = {
-            "nodes": nodes,
-            "node_mask": node_mask,
-            "in_deg": in_deg,
-            "y": yb,
-            "y_mask": ymask,
-            "in_src": in_src,
-            "in_w": in_w,
-        }
         if self.emit_out_rows:
             # the OUT-row mirror (the transposed adjacency), read by the fused
             # aggregation's backward; a batch whose out-degree needs more
             # slots than the wire allows ships none, as in the JAX loader
-            do_pad = _pow2_slots(int(self.graph_max_outdeg[idx].max()) if total_edges else 0)
+            do_pad = self._max_slots(idx, self.graph_max_outdeg)
             if do_pad <= self.max_in_degree_wire:
                 # one pass over the (graph, source) runs for all three, so slot
                 # q of a node names the same edge in each; out_pos is the
@@ -510,6 +542,45 @@ class GraphLoader:
                     [(self.edges_dst_o, idx_t), (wire_w, wire_w.dtype), (self.inpos_o, idx_t)],
                 )
         return batch
+
+    def _edge_slots(self, idx, b: int, idx_t, wire_w) -> Batch:
+        """The edge-slot triples of the graphs ``idx``: each merged edge's
+        slot, local destination and source and its wire weight, in the
+        stored (graph, destination, source) order, strictly ascending, then
+        padding at the out-of-range slot ``b``."""
+        spans = [(self.edge_offsets[g_i], self.edge_offsets[g_i + 1]) for g_i in idx]
+        total = sum(int(hi - lo) for lo, hi in spans)
+        e_pad = pow2_bucket(max(total, 1), self.min_edge_bucket_dense)
+        slot_t = np.int16 if (self.half and b < 32767) else np.int32
+        out = {
+            "edge_src": np.zeros((e_pad,), dtype=idx_t),
+            "edge_dst": np.zeros((e_pad,), dtype=idx_t),
+            "edge_slot": np.full((e_pad,), b, dtype=slot_t),
+            "edge_w": np.zeros((e_pad,), dtype=wire_w.dtype),
+        }
+        cursor = 0
+        for slot, (lo, hi) in enumerate(spans):
+            end = cursor + int(hi - lo)
+            out["edge_src"][cursor:end] = self.edges_src[lo:hi]
+            out["edge_dst"][cursor:end] = self.edges_dst[lo:hi]
+            out["edge_slot"][cursor:end] = slot
+            out["edge_w"][cursor:end] = wire_w[lo:hi]
+            cursor = end
+        return out
+
+    def _host_dense_batch(self, idx, k: int, b: int, m_pad: int) -> Batch:
+        """``adj_wire="host"``: the adjacency ``adj [B, M, M]`` itself, row
+        ``i`` holding node ``i``'s incoming (merged) weights, or
+        multiplicities with ``use_weights=False``."""
+        batch = self._dense_nodes(idx, k, b, m_pad)
+        small_t = np.float16 if self.half else np.float32
+        adj = np.zeros((b, m_pad, m_pad), dtype=small_t)
+        per_edge = self.weights if self.use_weights else self.edge_mult
+        for slot, g_i in enumerate(idx):
+            lo, hi = self.edge_offsets[g_i], self.edge_offsets[g_i + 1]
+            np.add.at(adj[slot], (self.edges_dst[lo:hi], self.edges_src[lo:hi]),
+                      per_edge[lo:hi].astype(small_t))
+        return {**batch, "adj": adj}
 
     def _flat_batch(self, idx, k: int, b: int) -> Batch:
         """The flat edge-list wire for the graphs ``idx`` in ``b`` slots."""
@@ -531,6 +602,9 @@ class GraphLoader:
         ymask = np.zeros((b,), dtype=np.float32)
         seg_counts = np.zeros((b + 1,), dtype=np.int32)
         wire_w = self.weights_wire if self.use_weights else self.mult_wire
+        mask_w = None
+        if self.flat_fallback_w is not None:
+            wire_w, mask_w = self.flat_fallback_w, self.mult_wire
         node_cursor = edge_cursor = 0
         for slot, g_i in enumerate(idx):
             nlo, nhi = self.node_offsets[g_i], self.node_offsets[g_i + 1]
@@ -542,7 +616,7 @@ class GraphLoader:
             src[edge_cursor : edge_cursor + e_i] = self.edges_src[elo:ehi] + node_cursor
             dst[edge_cursor : edge_cursor + e_i] = self.edges_dst[elo:ehi] + node_cursor
             edge_w[edge_cursor : edge_cursor + e_i] = wire_w[elo:ehi]
-            edge_mask[edge_cursor : edge_cursor + e_i] = 1.0
+            edge_mask[edge_cursor : edge_cursor + e_i] = 1.0 if mask_w is None else mask_w[elo:ehi]
             node_cursor += n_i
             edge_cursor += e_i
         seg_counts[b] = n_pad - node_cursor  # padding nodes → segment B
@@ -633,22 +707,38 @@ class GraphLoader:
         itemsize = 2 if self.half else 4
         for start in starts:
             idx = order[start : start + b]
-            if self.layout == "flat":
-                yield self._flat_batch(idx, len(idx), b)
-                continue
-            m_pad = max(self.min_dense_nodes, _dense_rung(int(self.node_counts[idx].max())))
-            m_pad = -(-m_pad // 8) * 8
-            dense_bytes = b * m_pad * m_pad * itemsize
-            if dense_bytes > self.max_dense_bytes:
-                if self.layout == "dense":
+            if self.layout != "flat":
+                m_pad = max(self.min_dense_nodes, _dense_rung(int(self.node_counts[idx].max())))
+                m_pad = -(-m_pad // 8) * 8
+                dense_bytes = b * m_pad * m_pad * itemsize
+                inrow_ok = not self.require_inrow or self._inrow_fits(idx)
+                if dense_bytes <= self.max_dense_bytes and inrow_ok:
+                    dense = self._dense_wire_batch if self.adj_wire == "device" else self._host_dense_batch
+                    yield dense(idx, len(idx), b, m_pad)
+                    continue
+                if self.layout == "dense" and inrow_ok:
                     raise ValueError(
                         f"dense graph batch needs {dense_bytes/2**20:.0f} MB "
                         f"(B={b}, M={m_pad}) > max_dense_bytes "
                         f"{self.max_dense_bytes/2**20:.0f} MB; use "
                         "layout='auto' to fall back to the flat layout"
                     )
-                raise _not_ported(
-                    f"a batch of {dense_bytes/2**20:.0f} MB (B={b}, M={m_pad}) is over "
-                    "max_dense_bytes, so the JAX loader ships it on the flat wire"
-                )
-            yield self._dense_wire_batch(idx, len(idx), b, m_pad)
+            yield self._flat_batch(idx, len(idx), b)
+
+    def _inrow_fits(self, idx) -> bool:
+        """``require_inrow``: whether the graphs ``idx`` fit the in-row wire
+        (and the out-row mirror under ``emit_out_rows``); a batch that does
+        not ships flat, with one warning per loader."""
+        fits = self._max_slots(idx, self.graph_max_indeg) <= self.max_in_degree_wire
+        if fits and self.emit_out_rows:
+            fits = self._max_slots(idx, self.graph_max_outdeg) <= self.max_in_degree_wire
+        if not fits and not self._warned_inrow_fallback:
+            warnings.warn(
+                "GraphLoader(require_inrow=True): a batch's "
+                "in/out-degree overflows max_in_degree_wire "
+                f"({self.max_in_degree_wire}) — shipping the "
+                "flat layout for such batches",
+                stacklevel=3,
+            )
+            self._warned_inrow_fallback = True
+        return fits

@@ -29,7 +29,9 @@ joined both ways to a step of its parent track,
 and a synthetic incident node (energy 0, at the origin) at the head of the
 primary's track, stored last.  In-degrees stay at 8 or less.  Edge weights are
 the reference's gaussians of the raw step distances (bandwidth the median
-distance), floored at 1e-3 so that they stay nonzero on an fp16 wire; then
+distance), floored at 1e-3 so that they stay nonzero on an fp16 wire (unless
+``outliers`` asks for a zero, a duplicate edge and a node of 40 incoming
+edges in each split's first graph); then
 positions are standardized per graph with energy weights and the energy
 column with the train split's mean and standard deviation.  The class signal:
 label 0 tends to fewer, longer tracks and spikier energy sharing than label
@@ -169,17 +171,38 @@ def _scale_positions(features: np.ndarray) -> None:
     features[:, 1:4] = (position - mean) / (std + 1e-8)
 
 
+OUTLIER_IN_DEGREE = 40
+
+
+def _add_outliers(g: Dict[str, np.ndarray]) -> None:
+    """The three inputs on which a dense graph loader ships another wire:
+    the graph's first edge twice (a multigraph), its second edge's weight an
+    exact zero, and node 0 the target of ``OUTLIER_IN_DEGREE`` more edges,
+    from nodes 1, 2, … (an in-degree past 32 slots where the graph has more
+    than ``OUTLIER_IN_DEGREE`` nodes)."""
+    n = len(g["features"])
+    hub = np.stack([np.arange(1, OUTLIER_IN_DEGREE + 1) % n, np.zeros(OUTLIER_IN_DEGREE, np.int64)])
+    g["edges"] = np.concatenate([g["edges"], g["edges"][:, :1], hub], axis=1)
+    weights = np.concatenate([g["weights"], g["weights"][:1], np.full(OUTLIER_IN_DEGREE, 0.5)])
+    weights[1] = 0.0
+    g["weights"] = weights.astype(g["weights"].dtype)
+
+
 def lineage_graphs(
     rng: np.random.Generator,
     count: int,
     min_nodes: int = 160,
     max_nodes: int = 288,
     position_grid: float | None = None,
+    outliers: bool = False,
 ) -> List[Dict[str, np.ndarray]]:
     """``count`` lineage-like graphs of ``min_nodes``–``max_nodes`` nodes with
     random labels: ``features`` (energy fraction, then positions standardized
     per graph and, with ``position_grid``, rounded to its multiples),
-    ``edges``, ``weights`` and ``label``."""
+    ``edges``, ``weights`` and ``label``.  With ``outliers`` the first graph
+    also holds a duplicate edge, an exact-zero weight and a node of
+    ``OUTLIER_IN_DEGREE`` more incoming edges (:func:`_add_outliers`); the
+    draws from ``rng`` are the same either way."""
     graphs = []
     for _ in range(count):
         label = int(rng.integers(0, 2))
@@ -189,6 +212,8 @@ def lineage_graphs(
             g["features"][:, 1:4] = np.round(g["features"][:, 1:4] / position_grid) * position_grid
         g["label"] = np.int64(label)
         graphs.append(g)
+    if outliers and graphs:
+        _add_outliers(graphs[0])
     return graphs
 
 
@@ -199,14 +224,17 @@ def write_s2pg_cache(
     max_nodes: int = 288,
     seed: int = 0,
     position_grid: float | None = None,
+    outliers: bool = False,
 ) -> None:
     """Write train, val and test splits of ``n_graphs`` graphs each, of
     ``min_nodes``–``max_nodes`` nodes, balanced labels, from ``seed``;
-    positions on multiples of ``position_grid`` when it is given."""
+    positions on multiples of ``position_grid`` when it is given; with
+    ``outliers``, the first graph of each split as :func:`lineage_graphs`
+    makes it."""
     rng = np.random.default_rng(seed)
     splits, first_id = {}, 0
     for split, count in zip(SPLITS, n_graphs):
-        splits[split] = lineage_graphs(rng, count, min_nodes, max_nodes, position_grid)
+        splits[split] = lineage_graphs(rng, count, min_nodes, max_nodes, position_grid, outliers)
         for i, g in enumerate(splits[split]):
             g["event_id"] = np.int64(first_id + i)
         first_id += count

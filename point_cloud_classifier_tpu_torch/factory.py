@@ -39,12 +39,12 @@ _MODELS = {"fully_connected_net": FullyConnectedNet, "deep_sets": DeepSets, "gra
 
 def _graph_dataset_config(config: dict) -> dict:
     """``config["dataset"]`` with the JAX factory's S2PG gates
-    (``point_cloud_classifier_tpu/factory.py``).  Weighted GAT checks for
-    exact-zero wire weights, GAT and SAG demote a multigraph, max pooling
-    needs the full in-row wire, ``fused_inrow`` the out-row wire, and the
-    layout defaults to ``auto`` (``flat`` for ``knn_k``).  The loaders raise
-    on what the port does not serve yet: ``require_inrow`` and the demotions
-    from ``dense``/``auto`` to the flat wire."""
+    (``point_cloud_classifier_tpu/factory.py``): weighted GAT checks for
+    exact-zero wire weights and GAT and SAG for a multigraph (the loader
+    demotes itself to the flat wire where it finds one), max pooling needs
+    the full in-row wire (``require_inrow``: a batch past it ships flat),
+    ``fused_inrow`` the out-row wire, and the layout defaults to ``auto``
+    (``flat`` for ``knn_k``)."""
     ds_cfg = dict(config["dataset"])
     mdl = config.get("model", {})
     use_gat = mdl.get("use_gat", False)
@@ -73,10 +73,9 @@ def get_dataloader(dataset_name: str, config: dict):
     ``layout="auto"`` (the dense per-cloud-row wire per batch from a batch
     size of 128, else flat) and takes the loader's wire options
     (``transfer_dtype``, ``factor_event_cols``, ``bucket_factor``,
-    ``length_sorted``); S2PG defaults to ``graph_layout="auto"``, which the
-    port serves on the dense in-row wire and refuses where the JAX loader
-    would ship a batch another way, and to ``"flat"`` for a ``knn_k``
-    model."""
+    ``length_sorted``); S2PG defaults to ``graph_layout="auto"`` (the dense
+    in-row wire, and every other wire where the JAX loader ships one), and
+    to ``"flat"`` for a ``knn_k`` model."""
     if dataset_name == "s2pt":
         return Step2PointTabular(**config["dataset"])
     if dataset_name == "s2pg":

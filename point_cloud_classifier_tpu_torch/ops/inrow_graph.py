@@ -39,8 +39,17 @@ to 32, and a warp serves 32 / that many nodes.  Width 128: 16 lanes a node
 in f32 (two nodes a warp), 8 in bf16 (four); width 4 (conv1's input
 features): 2 lanes a node, 16 nodes a warp, in both.
 
-Not ported yet: ``inrow_gather`` and ``inrow_max_aggregate`` (ROADMAP Queue
-1, GraphNet slice 2).
+Max aggregation, which no adjacency product gives, is plain PyTorch, as in
+the JAX package (no TPU kernel serves it):
+
+- :func:`inrow_max_aggregate`: ``max_d in_w·h[src_d]`` over the slots with
+  ``in_w != 0``, 0 on a row whose slots are all masked, folded slot by slot
+  with ``torch.maximum`` in the JAX package's order.  A tie therefore splits
+  its gradient as ``jnp.maximum`` splits it, half to each side at each fold
+  (an ``amax`` over the slots would give 1/n to each of n ties);
+- :func:`inrow_gather`: the per-slot row gather ``values[b, in_src[b, i,
+  d]]``, an autograd Function whose backward is a gather over the out-row
+  mirror (``out_dst``, ``out_pos``, ``out_w != 0``), never a scatter.
 """
 
 from __future__ import annotations
@@ -229,3 +238,74 @@ def _inrow_aggregate_cuda(h, in_src, in_w, aggr: str = "add", backward: bool = F
     else:
         inrow_aggregate.launches += 1
     return out
+
+
+def inrow_max_aggregate(h, in_src, in_w, out_dst=None, out_pos=None, out_w=None):
+    """Masked neighbour max ``[B, M, H]`` in ``h``'s dtype: ``agg[b, i] =
+    max_d in_w[b, i, d] · h[b, in_src[b, i, d]]`` in f32 over the slots with
+    ``in_w != 0``, 0 where every slot is masked.  Each slot's rows are
+    gathered exactly (the JAX package's one-hot product, whose rows hold one
+    nonzero; a source outside ``[0, M)`` gathers zeros), and the running max
+    folds slot by slot.  ``out_dst``/``out_pos``/``out_w`` are accepted and
+    not read, as in the JAX package."""
+    b, m, c = h.shape
+    src = in_src.long()
+    inside = (src >= 0) & (src < m)
+    src = src.clamp(0, m - 1)
+    agg = None
+    for d in range(in_src.shape[-1]):
+        rows = torch.gather(h, 1, src[:, :, d, None].expand(b, m, c)).float()
+        rows = torch.where(inside[:, :, d, None], rows, 0.0)
+        w_d = in_w[:, :, d, None].float()
+        m_d = torch.where(w_d != 0, rows * w_d, float("-inf"))
+        agg = m_d if agg is None else torch.maximum(agg, m_d)
+    return torch.where(torch.isfinite(agg), agg, 0.0).to(h.dtype)
+
+
+class _InrowGatherFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, in_src, out_dst, out_pos, out_valid):
+        ctx.save_for_backward(in_src, out_dst, out_pos, out_valid)
+        ctx.values_dtype = values.dtype
+        return _gather_rows(values, in_src)
+
+    @staticmethod
+    def backward(ctx, g):
+        in_src, out_dst, out_pos, out_valid = ctx.saved_tensors
+        if out_dst is None or out_pos is None or out_valid is None:
+            raise ValueError(
+                "inrow_gather backward needs the out-row mirror (out_dst/"
+                "out_pos/out_w); GraphLoader(emit_out_rows=True) ships it"
+            )
+        b, m, d = in_src.shape
+        c = g.shape[-1]
+        q = out_dst.shape[-1]
+        # node j's q-th outgoing edge sits in slot out_pos of row out_dst
+        flat = out_dst.long() * d + out_pos.long()  # [B, M, Q]
+        picked = torch.gather(
+            g.reshape(b, m * d, c), 1, flat.reshape(b, m * q, 1).expand(b, m * q, c)
+        ).reshape(b, m, q, c)
+        # the out-row weights mark padding with 0; the route needs validity only
+        mask = (out_valid != 0).float()
+        dvalues = (picked.float() * mask[..., None]).sum(dim=2).to(ctx.values_dtype)
+        return dvalues, None, None, None, None
+
+
+def _gather_rows(values, idx):
+    """``out[b, i, d] = values[b, idx[b, i, d]]``, ``[B, M, D, C]``."""
+    b, m, d = idx.shape
+    c = values.shape[-1]
+    flat = idx.long().reshape(b, m * d, 1).expand(b, m * d, c)
+    return torch.gather(values, 1, flat).reshape(b, m, d, c)
+
+
+def inrow_gather(values, in_src, out_dst=None, out_pos=None, out_valid=None):
+    """Per-slot row gather ``[B, M, D, C]``: ``out[b, i, d] = values[b,
+    in_src[b, i, d]]``, differentiable in ``values``.  The backward sums each
+    node's cotangent over its outgoing slots, ``Σ_q g[b, out_dst[b, j, q],
+    out_pos[b, j, q]]`` where ``out_valid != 0``: a gather, where plain
+    autograd would scatter.  The mirror only routes the backward; pass None
+    for inference (a backward then raises).  The upstream cotangent must be
+    0 on padding slots (``in_w == 0``), which the out-rows never visit:
+    every masked use (attention weights, a ``w != 0`` gate) makes it so."""
+    return _InrowGatherFn.apply(values, in_src, out_dst, out_pos, out_valid)

@@ -15,8 +15,8 @@ Counterpart of ``point_cloud_classifier_tpu/ops/knn.py`` and
   than k candidates admits them all (its threshold is the f32 maximum);
 - :func:`knn_edges` is the edge list with exactly k neighbours per row
   (nearest first, the lowest index winning a tie, by a stable sort), masked
-  where a row has fewer candidates.  The flat edge-list convolutions that
-  read it are not ported yet (ROADMAP Queue 1 item 7);
+  where a row has fewer candidates: the kNN graph of GraphNet's GAT, SAG and
+  max arms;
 - :func:`adjacency_aggregate` is ``adj @ x`` (the adjacency cast to ``x``'s
   dtype, summed in f32), ``mean`` divided in f32 by the degree floored at 1,
   the result in ``x``'s dtype;

@@ -6,6 +6,10 @@ points the id ``B``, so ``num_segments = B + 1`` isolates them.  The JAX
 package wrote these as one-hot contractions because they suited the TPU;
 here they are PyTorch's scatter ops, held to the same values.  Ids must lie
 in ``[0, num_segments)``.
+
+The graph wire's flat edge lists use the rest: :func:`segment_softmax` (GAT
+attention over each node's incoming edges), :func:`segment_rank_desc` (SAG
+pooling's per-graph top-k) and :func:`segment_count` with a validity mask.
 """
 
 from __future__ import annotations
@@ -21,12 +25,29 @@ def segment_sum(
     return out.index_add_(0, segment_ids.long(), data)
 
 
-def segment_count(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """f32 number of elements per segment."""
+def segment_count(
+    segment_ids: torch.Tensor, num_segments: int, valid: torch.Tensor = None
+) -> torch.Tensor:
+    """f32 number of elements per segment; with ``valid``, the sum of each
+    segment's ``valid`` values (0/1 masks count the kept elements)."""
     ones = torch.ones(
         segment_ids.shape, dtype=torch.float32, device=segment_ids.device
     )
+    if valid is not None:
+        ones = ones * valid
     return segment_sum(ones, segment_ids, num_segments)
+
+
+def segment_mean(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """Per-segment mean in ``data``'s dtype, empty segments 0: the sum
+    divided in f32 by the count floored at 1, then cast once.  Integer data
+    therefore truncates towards zero, as the JAX package's does."""
+    total = segment_sum(data, segment_ids, num_segments)
+    counts = torch.clamp(segment_count(segment_ids, num_segments), min=1.0)
+    out = total.float() / counts.reshape((-1,) + (1,) * (total.ndim - 1))
+    return out.to(total.dtype)
 
 
 def segment_max(
@@ -58,3 +79,51 @@ def counts_to_segment_ids(counts: torch.Tensor, total: int) -> torch.Tensor:
     ends = counts.to(torch.int64).cumsum(0)
     i = torch.arange(total, dtype=torch.int64, device=counts.device)
     return torch.searchsorted(ends, i, right=True).to(torch.int32)
+
+
+def segment_softmax(
+    logits: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    valid: torch.Tensor = None,
+) -> torch.Tensor:
+    """Softmax of ``logits`` within each segment, in their dtype.  ``valid``
+    (broadcast against the logits) leaves masked elements out of both the
+    max and the sum: they are filled with ``finfo.min`` and give 0.  A
+    segment's max that is not finite counts as 0, and the denominator is
+    floored at ``finfo.tiny``, so a segment with no valid element gives 0s."""
+    info = torch.finfo(logits.dtype)
+    masked = logits if valid is None else torch.where(valid > 0, logits, info.min)
+    seg_max = segment_max(masked, segment_ids, num_segments)  # non-finite → 0
+    ids = segment_ids.long()
+    exp = torch.exp(masked - seg_max.index_select(0, ids))
+    if valid is not None:
+        exp = exp * valid
+    denom = torch.clamp(segment_sum(exp, segment_ids, num_segments), min=info.tiny)
+    return exp / denom.index_select(0, ids)
+
+
+def segment_rank_desc(
+    score: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    valid: torch.Tensor,
+) -> torch.Tensor:
+    """int32 rank of each element within its segment by descending score (0
+    the highest); ties break by element index and invalid elements rank
+    after every valid one.  The order is the JAX package's ``jnp.lexsort``
+    over (segment, key), the key ``-score`` on valid elements and
+    ``finfo.max`` on invalid ones, built from two stable sorts: by key, then
+    by segment."""
+    n = score.shape[0]
+    key = torch.where(valid > 0, -score, torch.finfo(score.dtype).max)
+    by_key = torch.sort(key, stable=True).indices
+    order = by_key[torch.sort(segment_ids[by_key], stable=True).indices]
+    seg_sorted = segment_ids.long()[order]
+    idx = torch.arange(n, device=score.device)
+    # the first sorted position of each segment: its count's exclusive prefix sum
+    counts = torch.bincount(seg_sorted, minlength=num_segments)
+    first = torch.cumsum(counts, 0) - counts
+    ranks = torch.empty(n, dtype=torch.int32, device=score.device)
+    ranks[order] = (idx - first[seg_sorted]).to(torch.int32)
+    return ranks

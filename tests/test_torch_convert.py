@@ -100,8 +100,11 @@ def test_unknown_and_leftover_keys_raise():
         convert.convert_torch_state_dict("deep_sets", cfg, {k: v for k, v in state.items() if k != "rho.0.bias"})
     with pytest.raises(NotImplementedError, match="no converter"):
         convert.to_torch_state_dict("logistic_regression", cfg, {}, {})
-    with pytest.raises(NotImplementedError, match="SAGPooling"):
-        convert.to_torch_state_dict("graph_net", {"model": {**_graph_cfg("gat"), "sag_pool": True}}, {}, {})
+    # a SAG config over a tree without SAG's score network names what is missing
+    sag = {"model": _graph_cfg("gat-sag")}
+    params, stats = _jax_graph_variables(_graph_cfg("gat"))
+    with pytest.raises(KeyError, match="SAGPool_0/GraphConv_0/TorchLinear_0"):
+        convert.to_torch_state_dict("graph_net", sag, params, stats)
     with pytest.raises(KeyError, match="GATConv_0"):
         convert.to_torch_state_dict("graph_net", {"model": _graph_cfg("gat")}, {}, {})
 
@@ -119,7 +122,12 @@ def test_converted_tree_is_a_copy_of_the_live_weights():
     _assert_trees_equal(params, before)
 
 
-GRAPH_CONFIGS = {"graphconv": dict(use_gat=False), "gat": dict(use_gat=True)}
+GRAPH_CONFIGS = {
+    "graphconv": dict(use_gat=False),
+    "gat": dict(use_gat=True),
+    "graphconv-sag": dict(use_gat=False, sag_pool=True),
+    "gat-sag": dict(use_gat=True, sag_pool=True),
+}
 
 
 def _graph_cfg(name):

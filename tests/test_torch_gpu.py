@@ -2,8 +2,10 @@
 plain versions, the DeepSets kernel route against its plain route, serving
 and training, on the flat and the dense wire, the resident cache and the
 prefetch on the card, and the GraphNet routes (GAT through K3 and K4, GraphConv
-through K6, kNN GraphConv through K5) against their plain routes, serving and
-one train step.
+through K6, kNN GraphConv through K5, and GAT with SAG through K3 and K4 over
+keep-masked lists and a second mirror) against their plain routes, serving
+and one train step, and the wires without a kernel (flat edge lists, the kNN
+edge-list arm, edge-slot triples) against the CPU.
 
 These tests need a CUDA card and skip without one.  They import neither jax
 nor the JAX package, so they run on a machine that has only PyTorch; there,
@@ -903,14 +905,18 @@ def test_gat_graph_net_kernel_route_matches_plain_route(compute_dtype):
 @pytest.mark.parametrize(
     "model, counts",
     [(dict(use_gat=True), (2, 2, 1, 0, 0)), (dict(fused_inrow=True), (0, 0, 0, 2, 1)),
-     (dict(fused_inrow=True, local_pooling="mean"), (0, 0, 0, 2, 1)), ({}, (0, 0, 0, 0, 0))],
-    ids=["gat", "graphconv-add-fused", "graphconv-mean-fused", "graphconv-add"],
+     (dict(fused_inrow=True, local_pooling="mean"), (0, 0, 0, 2, 1)), ({}, (0, 0, 0, 0, 0)),
+     (dict(use_gat=True, sag_pool=True), (2, 2, 2, 0, 0)), (dict(sag_pool=True), (0, 0, 0, 0, 0)),
+     (dict(local_pooling="max"), (0, 0, 0, 0, 0)), (dict(local_pooling="max", sag_pool=True), (0, 0, 0, 0, 0))],
+    ids=["gat", "graphconv-add-fused", "graphconv-mean-fused", "graphconv-add", "gat-sag", "graphconv-sag",
+         "max", "max-sag"],
 )
 def test_graph_net_train_step_kernel_route_matches_plain_route(model, counts):
     """One train step at full width from the same weights on the kernel
     route and inside ``force_plain()``: the launch counts (GAT: K3 and K4
-    twice each over one mirror of the lists; conv1's input needs no gradient,
-    so K6 runs backward once), the loss and every gradient."""
+    twice each over one mirror of the lists, and with SAG over two, conv2's
+    built from the keep-masked lists; conv1's input needs no gradient, so K6
+    runs backward once), the loss and every gradient."""
     from point_cloud_classifier_tpu_torch.data import GraphLoader
     from point_cloud_classifier_tpu_torch.data.synthetic import lineage_graphs
     from point_cloud_classifier_tpu_torch.models import ModelWrapper
@@ -942,6 +948,121 @@ def test_graph_net_train_step_kernel_route_matches_plain_route(model, counts):
     for key, value in kernel.model.state_dict().items():
         if "running" in key:
             torch.testing.assert_close(value, plain.model.state_dict()[key], rtol=1e-5, atol=1e-6)
+
+
+def _keep_masked(in_src, in_w, seed):
+    """The in-row weights of the edges between kept nodes, as SAG leaves them
+    for conv2: ``w · keep[src] · keep[dst]``, half the nodes kept."""
+    b, m, _ = in_src.shape
+    rng = np.random.default_rng(seed)
+    keep = torch.from_numpy((rng.random((b, m)) < 0.5).astype(np.float32)).to(in_src.device)
+    keep_src = torch.gather(keep, 1, in_src.long().reshape(b, -1)).reshape(in_src.shape)
+    return in_w * (keep_src * keep[:, :, None]).to(in_w.dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["d8", "config-shape", "f16-int16-wire", "d32-dedupe-self-edges"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gat_kernels_over_keep_masked_lists_match_plain(dtype, case):
+    """K3 and K4 on in-row weights masked as SAG masks them (rows and
+    sources dropped, so many rows keep only their self-loop) against
+    ``gat_attention_plain`` and ``gat_attention_bwd_plain``, K4 reading the
+    mirror of the masked lists; a mirror of the unmasked lists, handed in,
+    gives other gradients without an error, which is why conv2 builds its
+    own."""
+    dev = _cuda()
+    s_dst, s_src, in_src, in_w, xw = _gat_inputs(dev, dtype, **GAT_CASES[case])
+    masked = _keep_masked(in_src, in_w, seed=3)
+    assert (masked == 0).sum() > (in_w == 0).sum()
+    args = (s_dst, s_src, in_src, masked, xw)
+    out, ref = gat.gat_attention(*args), gat.gat_attention_plain(*args)
+    g = torch.from_numpy(np.random.default_rng(6).normal(size=tuple(xw.shape)).astype(np.float32)).to(dev, dtype)
+    got = gat._gat_attention_bwd_cuda(*args, g, mirror=gat.gat_out_rows(in_src, masked))
+    want = gat.gat_attention_bwd_plain(*args, g)
+    bounds = {torch.float32: (GAT_F32_REL, GAT_BWD_F32_REL, GAT_BWD_F32_FRO),
+              torch.bfloat16: (GAT_BF16_REL, GAT_BWD_BF16_REL, GAT_BWD_BF16_FRO)}[dtype]
+    assert (out.double() - ref.double()).abs().max().item() <= bounds[0] * max(1.0, ref.abs().max().item())
+    for a, b in zip(got, want, strict=True):
+        diff = a.double() - b.double()
+        assert diff.abs().max().item() <= bounds[1] * max(1.0, b.abs().max().item())
+        assert diff.norm().item() <= bounds[2] * max(b.double().norm().item(), 1e-30)
+    stale = gat._gat_attention_bwd_cuda(*args, g, mirror=gat.gat_out_rows(in_src, in_w))
+    assert not all(torch.allclose(a.float(), b.float(), rtol=1e-2, atol=1e-3) for a, b in zip(stale, want))
+
+
+@pytest.mark.gpu
+def test_gat_sag_train_step_reads_a_second_mirror(monkeypatch):
+    """GAT + SAG on the in-row wire, one train step at full width: the model
+    builds a mirror of the lists for conv1 and a second one of the
+    keep-masked lists for conv2, and its gradients equal the plain route's.
+    (A stale mirror's extra terms land on dropped sources, whose features
+    SAG has zeroed, so they would change no parameter's gradient here;
+    ``test_gat_kernels_over_keep_masked_lists_match_plain`` shows that they
+    change K4's own gradients.)"""
+    from point_cloud_classifier_tpu_torch.data import GraphLoader
+    from point_cloud_classifier_tpu_torch.data.synthetic import lineage_graphs
+    from point_cloud_classifier_tpu_torch.models import graph_net
+
+    dev = _cuda()
+    graphs = lineage_graphs(np.random.default_rng(8), 8, 40, 90)
+    batch = next(iter(GraphLoader(graphs, 8, shuffle=False, layout="dense", use_weights=False)))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    cfg = dict(input_dim=4, hidden_dim=128, output_dim=1, activation="tanh", deepchem_style=True,
+               use_gat=True, sag_pool=True)
+    model = GraphNet(**cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+
+    def grads():
+        model.zero_grad()
+        model(batch, train=True).sum().backward()
+        return {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    built = []
+    mirror = graph_net.gat_backward_mirror
+    monkeypatch.setattr(graph_net, "gat_backward_mirror", lambda s, w: built.append(w) or mirror(s, w))
+    got = grads()
+    assert len(built) == 2 and torch.equal(built[0], batch["in_w"]) and (built[1] != built[0]).any()
+    with force_plain():
+        want = grads()
+    for key, g in got.items():
+        assert (g - want[key]).abs().max().item() <= 1e-4 * max(1e-12, want[key].abs().max().item()), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "model, layout",
+    [(dict(local_pooling="add"), "flat"), (dict(local_pooling="mean"), "flat"),
+     (dict(local_pooling="max"), "flat"), (dict(use_gat=True), "flat"),
+     (dict(use_gat=True, sag_pool=True), "flat"), (dict(knn_k=8, use_gat=True), "flat"),
+     (dict(knn_k=8, sag_pool=True), "flat"), (dict(knn_k=8, local_pooling="max"), "flat"),
+     (dict(local_pooling="mean"), "slots"), (dict(use_gat=True), "slots")],
+    ids=["flat-add", "flat-mean", "flat-max", "flat-gat", "flat-gat-sag", "knn-gat", "knn-sag", "knn-max",
+         "slots-mean", "slots-gat"],
+)
+def test_graph_net_wires_without_kernels_train_on_the_card_as_on_the_cpu(model, layout):
+    """The flat edge-list wire, the kNN edge-list arm and the edge-slot
+    triples run PyTorch's scatters and gathers on the card: one train step
+    at full width gives the CPU's loss and gradients (f32 sums in other
+    orders), and launches no kernel."""
+    from point_cloud_classifier_tpu_torch.data import GraphLoader
+    from point_cloud_classifier_tpu_torch.data.synthetic import lineage_graphs
+    from point_cloud_classifier_tpu_torch.models import ModelWrapper
+
+    _cuda()
+    graphs = lineage_graphs(np.random.default_rng(9), 8, 40, 90, position_grid=1 / 64)
+    kw = dict(layout="flat") if layout == "flat" else dict(layout="dense", max_in_degree_wire=2)
+    batch = next(iter(GraphLoader(graphs, 8, shuffle=False, **kw)))
+    assert ("edge_slot" in batch) == (layout == "slots")
+    cfg = dict(input_dim=4, hidden_dim=128, output_dim=1, activation="tanh", deepchem_style=True, **model)
+    card = ModelWrapper(GraphNet(**cfg, generator=torch.Generator().manual_seed(0)), 1e-3, 1, device="cuda")
+    cpu = ModelWrapper(GraphNet(**cfg, generator=torch.Generator().manual_seed(0)), 1e-3, 1, device="cpu")
+    before = (gat.gat_attention.launches, knn.knn_select.launches, inrow_graph.inrow_aggregate.launches)
+    loss, ref = card.train_step(batch), cpu.train_step(batch)
+    torch.cuda.synchronize()
+    assert (gat.gat_attention.launches, knn.knn_select.launches, inrow_graph.inrow_aggregate.launches) == before
+    torch.testing.assert_close(loss.cpu(), ref, rtol=1e-5, atol=1e-6)
+    for (name, p), q in zip(card.model.named_parameters(), cpu.model.parameters()):
+        scale = max(1e-12, q.grad.abs().max().item())
+        assert (p.grad.cpu() - q.grad).abs().max().item() <= 1e-4 * scale, name
 
 
 @pytest.mark.gpu

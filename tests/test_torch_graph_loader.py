@@ -1,8 +1,10 @@
-"""The port's ``GraphLoader`` (dense in-row wire, and the pure flat edge-list
-wire) against the JAX package's over the same graphs: batches byte-identical
-in keys, dtypes and values, the out-row mirror (``emit_out_rows``) included;
-and the batches the JAX loader would ship another way raise in the port."""
+"""The port's ``GraphLoader`` against the JAX package's over the same graphs:
+batches byte-identical in keys, dtypes and values on every wire (the dense
+in-row lists with the out-row mirror, the edge-slot triples, the host
+adjacency, the pure and the demoted flat edge list), and the same warnings
+where a loader or a batch is demoted."""
 
+import itertools
 import warnings
 
 import numpy as np
@@ -117,28 +119,78 @@ def test_rungs_are_multiples_of_eight():
     assert rungs[0] == 16 and all(m % 8 == 0 for m in rungs)
 
 
+def _same_with_warnings(data, **kw):
+    """Both loaders over ``data`` with ``kw``: the batches of one epoch,
+    byte for byte with the same keys, and the same warnings, word for word,
+    from construction and iteration.  Returns the port's batches."""
+    found = []
+    for make in (GraphLoader, JaxGraphLoader):
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            loader = make(data, **kw)
+            found.append(([dict(b) for b in loader], [str(w.message) for w in warned], loader.layout))
+    (ours, ours_warned, ours_layout), (theirs, theirs_warned, theirs_layout) = found
+    _assert_batches_equal(ours, theirs, [sorted(b) for b in theirs])
+    assert ours_warned == theirs_warned and ours_layout == theirs_layout
+    return ours, ours_warned
+
+
 @pytest.mark.parametrize(
-    "data_kw, loader_kw, match",
+    "data_kw, loader_kw, want",
     [
         (dict(zero_weight=True), dict(dense_w_is_existence=True), "exact-zero"),
         (dict(duplicates=3), dict(flat_if_multigraph=True), "duplicate"),
-        (dict(big=1), dict(max_dense_bytes=8 * 300 * 300 * 4), "max_dense_bytes"),
-        (dict(hub=40), dict(), "max_in_degree_wire"),
+        (dict(big=1), dict(max_dense_bytes=8 * 300 * 300 * 2), "src"),
+        (dict(hub=40), dict(), "edge_slot"),
     ],
     ids=["zero-weight", "multigraph", "over-max-dense-bytes", "over-max-in-degree"],
 )
-def test_batches_the_jax_loader_ships_otherwise_raise(data_kw, loader_kw, match):
-    """Where a gate demotes the layout or a batch leaves the in-row wire,
-    the JAX loader ships flat batches or edge-slot triples; the port
-    refuses with the reason."""
+def test_batches_the_jax_loader_ships_otherwise_raise(data_kw, loader_kw, want):
+    """Where a gate demotes the layout or a batch leaves the in-row wire, the
+    port ships what the JAX loader ships, byte for byte and with its
+    warnings: a demoted loader's flat batches over the merged edges (an
+    exact-zero weight; a multigraph, its merged weight over the
+    multiplicity in ``edge_w`` and the multiplicity in ``edge_mask``), a
+    batch over ``max_dense_bytes`` on the flat wire, and a batch past
+    ``max_in_degree_wire`` as edge-slot triples."""
     data = graphs(seed=5, **data_kw)
-    kw = dict(batch_size=8, shuffle=False, layout="auto", **loader_kw)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # the JAX loader warns as it demotes
-        first = next(iter(JaxGraphLoader(data, **kw)))
-    assert "in_src" not in first
-    with pytest.raises(NotImplementedError, match=match):
-        list(GraphLoader(data, **kw))
+    for transfer_dtype, use_weights in itertools.product(("float32", "float16"), (True, False)):
+        ours, warned = _same_with_warnings(
+            data, batch_size=8, shuffle=False, layout="auto", transfer_dtype=transfer_dtype,
+            use_weights=use_weights, **loader_kw,
+        )
+        if want in ("src", "edge_slot"):
+            assert not warned
+            assert any(want in b for b in ours) and any("in_src" in b for b in ours)
+        elif use_weights or want != "exact-zero":  # the zero gate reads weights only
+            assert all("src" in b for b in ours)
+            assert len(warned) == 1 and want in warned[0]
+        else:
+            assert not warned and all("in_src" in b for b in ours)
+    if want == "duplicate":
+        assert any((b["edge_mask"] > 1).any() for b in ours)
+
+
+@pytest.mark.parametrize("transfer_dtype", ["float32", "float16"])
+@pytest.mark.parametrize("emit_out_rows", [False, True], ids=["in-rows", "out-rows"])
+def test_require_inrow_ships_degree_outliers_flat(emit_out_rows, transfer_dtype):
+    """``require_inrow`` (max aggregation): a batch whose in-degree (or, with
+    ``emit_out_rows``, out-degree) overflows the wire ships the flat wire
+    over the merged edges, with one warning per loader; the other batches
+    keep the in-row lists."""
+    data = graphs(seed=14, hub=40, duplicates=2, big=1)
+    if emit_out_rows:
+        data = graphs(seed=14, duplicates=2, big=2)
+        n1 = len(data[1]["features"])
+        fan = np.stack([np.zeros(40, np.int64), np.arange(40) % n1])  # node 0 sends 40
+        data[1] = dict(data[1], edges=np.concatenate([data[1]["edges"], fan], axis=1),
+                       weights=np.concatenate([data[1]["weights"], np.full(40, 0.5, np.float32)]))
+    ours, warned = _same_with_warnings(
+        data, batch_size=4, shuffle=False, layout="dense", require_inrow=True,
+        emit_out_rows=emit_out_rows, transfer_dtype=transfer_dtype,
+    )
+    assert len(warned) == 1 and "require_inrow" in warned[0]
+    assert "src" in ours[0] and all("in_src" in b for b in ours[1:])
 
 
 def test_dense_layout_over_max_dense_bytes_raises_as_jax_does():
@@ -150,19 +202,27 @@ def test_dense_layout_over_max_dense_bytes_raises_as_jax_does():
 
 
 @pytest.mark.parametrize(
-    "data_kw, kw, match",
+    "data_kw, kw",
     [
-        (dict(zero_weight=True), dict(layout="auto", dense_w_is_existence=True), "flat wire"),
-        ({}, dict(layout="dense", adj_wire="host"), "host"),
-        ({}, dict(layout="dense", require_inrow=True), "require_inrow"),
+        (dict(zero_weight=True), dict(layout="auto", dense_w_is_existence=True)),
+        (dict(duplicates=2), dict(layout="dense", adj_wire="host")),
+        (dict(duplicates=2), dict(layout="dense", require_inrow=True)),
     ],
     ids=["flat", "host-adjacency", "require-inrow"],
 )
-def test_unported_wires_raise(data_kw, kw, match):
-    """At construction: a demotion from ``auto`` to the flat wire (the pure
-    ``layout="flat"`` loader is served), the host adjacency, ``require_inrow``."""
-    with pytest.raises(NotImplementedError, match=match):
-        GraphLoader(graphs(n=3, **data_kw), batch_size=2, shuffle=False, **kw)
+def test_unported_wires_raise(data_kw, kw):
+    """The wires that a loader chooses at construction, as the JAX loader
+    chooses them: a demotion from ``auto`` to the flat wire, the host
+    adjacency ``adj [B, M, M]`` (merged weights), and ``require_inrow`` with
+    every batch inside the wire (the in-row lists)."""
+    ours, _ = _same_with_warnings(graphs(n=9, **data_kw), batch_size=4, shuffle=False, **kw)
+    key = {"flat": "src", "host": "adj"}.get(kw.get("adj_wire", "flat" if "dense_w_is_existence" in kw else ""), "in_src")
+    assert all(key in b for b in ours)
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        loader = GraphLoader(graphs(n=3), batch_size=2, shuffle=False, layout="auto",
+                             adj_wire="host", require_inrow=True)
+    assert loader.layout == "flat" and "host adjacency wire" in str(warned[0].message)
 
 
 FLAT_KEYS = ["nodes", "src", "dst", "edge_w", "edge_mask", "y", "y_mask"]

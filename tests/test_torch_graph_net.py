@@ -5,6 +5,7 @@ mode (``MaskedBatchNorm``'s batch statistics and running-stat updates), the
 train-mode gradients, and the ``fused_inrow`` branch (kernel K6's route, here
 through its plain version) against the adjacency branch and the JAX logits."""
 
+import itertools
 import warnings
 
 import jax
@@ -208,29 +209,79 @@ def test_parameter_names_and_count_match_jax():
         assert jax.tree.map(np.shape, stats) == jax.tree.map(np.shape, variables["batch_stats"])
 
 
+def _on_grid(graphs, grid=1 / 64):
+    """Positions on multiples of ``grid``: every kNN distance exact in f32
+    on both sides (docs/parity_torch.md §3)."""
+    for g in graphs:
+        g["features"][:, 1:4] = np.round(g["features"][:, 1:4] / grid) * grid
+    return graphs
+
+
+def _assert_logits_and_grads_match(cfg, batch, seed):
+    """Eval logits, then one train-mode forward and the gradient of every
+    parameter, against the JAX model from the same weights."""
+    params, stats = _variables(cfg, batch, seed=seed)
+    want = np.asarray(JaxGraphNet(**cfg).apply({"params": params, "batch_stats": stats}, batch, train=False))
+    model = _port_model(cfg, params, stats)
+    with torch.no_grad():
+        np.testing.assert_allclose(model(_to_torch(batch)).numpy(), want, **F32)
+    cot = np.random.default_rng(seed).normal(size=batch["y"].shape).astype(np.float32)
+
+    def loss(p):
+        logits, _ = JaxGraphNet(**cfg).apply(
+            {"params": p, "batch_stats": stats}, batch, train=True, mutable=["batch_stats"])
+        return jnp.sum(logits * cot), logits
+
+    (_, want_logits), want_grads = jax.value_and_grad(loss, has_aux=True)(params)
+    want_grads = convert.to_torch_state_dict(
+        "graph_net", {"model": cfg}, jax.tree.map(np.asarray, want_grads), stats)
+    logits, got = _grads(model, _to_torch(batch), torch.from_numpy(cot))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits), **F32)
+    assert set(got) <= set(want_grads)
+    for key, g in got.items():
+        np.testing.assert_allclose(g.numpy(), want_grads[key], rtol=1e-4, atol=2e-5, err_msg=key)
+
+
 @pytest.mark.parametrize(
-    "kwargs, match",
+    "kwargs, layout",
     [
-        (dict(sag_pool=True), "sag_pool"),
-        (dict(local_pooling="max"), "max"),
-        (dict(knn_k=8, use_gat=True), "knn_k"),
-        (dict(knn_k=8, sag_pool=True), "knn_k"),
-        (dict(knn_k=8, local_pooling="max"), "knn_k"),
+        (dict(sag_pool=True), "dense"),
+        (dict(local_pooling="max"), "dense"),
+        (dict(knn_k=8, use_gat=True), "flat"),
+        (dict(knn_k=8, sag_pool=True), "flat"),
+        (dict(knn_k=8, local_pooling="max"), "flat"),
     ],
     ids=["sag", "max", "knn", "knn-sag", "knn-max"],
 )
-def test_unported_options_raise(kwargs, match):
+def test_unported_options_raise(kwargs, layout):
+    """The options of GraphNet slice 2 against the JAX model: SAG pooling and
+    max aggregation on the in-row wire, and ``knn_k`` with GAT, SAG or max
+    (the kNN edge-list arm) on the flat wire, eval logits and train-mode
+    gradients."""
     cfg = {**_model_cfg("graphconv-add"), **kwargs}
-    with pytest.raises(NotImplementedError, match=match):
-        GraphNet(**cfg)
+    graphs = _on_grid(random_graphs(seed=12, n=7))
+    batch = next(iter(JaxGraphLoader(graphs, 8, shuffle=False, layout=layout)))
+    assert ("in_src" in batch) == (layout == "dense")
+    _assert_logits_and_grads_match(cfg, batch, seed=12)
 
 
 def test_batches_without_inrow_lists_raise():
-    model = GraphNet(**_model_cfg("gat"))
-    batch = _to_torch(_batch(random_graphs(n=3), batch_size=4))
-    del batch["in_src"]
-    with pytest.raises(NotImplementedError, match="in-row wire"):
-        model(batch)
+    """Dense batches without the in-row lists: the host adjacency and the
+    edge-slot triples (a batch past ``max_in_degree_wire``) serve GAT and
+    GraphConv as in the JAX model; max aggregation, which needs the in-row
+    lists, raises as the JAX model does."""
+    graphs = random_graphs(seed=13, n=7, duplicates=True)
+    host = next(iter(JaxGraphLoader(graphs, 8, shuffle=False, layout="dense", adj_wire="host")))
+    slots = next(iter(JaxGraphLoader(graphs, 8, shuffle=False, layout="dense", max_in_degree_wire=4)))
+    assert "adj" in host and "edge_slot" in slots and "in_src" not in slots
+    for name, batch in itertools.product(["gat", "graphconv-mean"], [host, slots]):
+        _assert_logits_and_grads_match(_model_cfg(name), batch, seed=13)
+    cfg = {**_model_cfg("graphconv-add"), "local_pooling": "max"}
+    for batch in (host, slots):
+        with pytest.raises(ValueError, match="in-row device wire"):
+            GraphNet(**cfg)(_to_torch(batch))
+        with pytest.raises(ValueError, match="in-row device wire"):
+            JaxGraphNet(**cfg).init(jax.random.PRNGKey(0), batch, train=False)
 
 
 def _grads(model, batch, cot):

@@ -134,28 +134,36 @@ def test_fused_inrow_config_ships_the_out_rows_the_jax_loader_ships(data_dir):
 
 
 @pytest.mark.parametrize(
-    "model, dataset, match",
+    "model, dataset, wire",
     [
-        (dict(local_pooling="max"), {}, "require_inrow"),
-        (dict(knn_k=8, local_pooling="max"), {}, "knn_k"),
-        ({}, {"graph_layout": "flat"}, "flat edge-list wire"),
+        (dict(local_pooling="max"), {}, "in_src"),
+        (dict(knn_k=8, local_pooling="max"), {}, "src"),
+        ({}, {"graph_layout": "flat"}, "src"),
     ],
     ids=["max", "knn", "flat"],
 )
-def test_dataloader_gates_for_unported_configs_raise(data_dir, model, dataset, match):
-    """The JAX factory's gates, set as it sets them, lead to wires or model
-    arms the port does not serve yet: its loader refuses ``require_inrow``,
-    and its model the kNN edge-list arm (kNN with max) and the flat edge-list
-    convolutions (a flat batch without ``knn_k``)."""
+def test_dataloader_gates_for_unported_configs_raise(data_dir, tmp_path, model, dataset, wire):
+    """The JAX factory's gates, set as it sets them, and the wires and model
+    arms they lead to: ``require_inrow`` for max (the in-row lists), the kNN
+    edge-list arm (kNN with max) and the flat edge-list convolutions (a flat
+    batch without ``knn_k``), served as the JAX package serves them."""
     cfg = _config(data_dir, **model)
     cfg["dataset"].update(dataset)
     jax_data = jax_factory.get_dataloader("s2pg", cfg)
     data = factory.get_dataloader("s2pg", cfg)
     for key, value in data.loader_kwargs.items():
         assert value == getattr(jax_data, {"layout": "graph_layout"}.get(key, key)), key
-    with pytest.raises(NotImplementedError, match=match):
-        batches = list(data.get_test_loader())
-        factory.get_model("graph_net", cfg, device="cpu").predict(batches)
+    jax_batches = list(jax_data.get_test_loader())
+    assert all(wire in b for b in data.get_test_loader())
+    _write_jax_checkpoint(tmp_path, cfg, jax_batches[0])
+    y_ref, p_ref = jax_factory.get_model("graph_net", cfg, str(tmp_path)).predict(
+        jax_data.get_test_loader(), return_prob=True
+    )
+    y, p = factory.get_model("graph_net", cfg, str(tmp_path), device="cpu").predict(
+        data.get_test_loader(), return_prob=True
+    )
+    np.testing.assert_array_equal(y, y_ref)
+    np.testing.assert_allclose(p, p_ref, **F32)
 
 
 def test_weighted_gat_config_sets_the_jax_gates(data_dir):

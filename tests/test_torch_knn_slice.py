@@ -226,9 +226,14 @@ def test_refusals_are_the_jax_models():
         GraphNet(**_model_cfg())(_to_torch(dense))
     with pytest.raises(ValueError, match="for knn_k"):
         JaxGraphNet(**_model_cfg()).init(jax.random.PRNGKey(0), dense, train=False)
-    # a flat batch with knn_k == 0 is the flat edge-list convolution's: not ported
-    with pytest.raises(NotImplementedError, match="flat edge-list wire"):
-        GraphNet(**_model_cfg(knn_k=0))(batch)
+    # a flat batch with knn_k == 0 goes through the batch's own edge list, as
+    # in the JAX model
+    cfg = _model_cfg(knn_k=0)
+    params, stats = _variables(cfg, _flat_batch(seed=7))
+    want = JaxGraphNet(**cfg).apply({"params": params, "batch_stats": stats}, _flat_batch(seed=7), train=False)
+    with torch.no_grad():
+        got = _port_model(cfg, params, stats)(batch)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 # -- the entry points ------------------------------------------------------------

@@ -49,7 +49,8 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[0]) >= 30
     walked = set(proc.stdout.split(":", 1)[1].split())
-    graph_slice = {"data.graph", "models.graph_net", "ops.dispatch", "ops.gat", "ops.inrow_graph", "ops.knn"}
+    graph_slice = {"data.graph", "models.graph_net", "ops.dispatch", "ops.gat", "ops.inrow_graph", "ops.knn",
+                   "ops.segment", "data.batching", "data.synthetic", "convert", "factory"}
     pipelines = {"data.background", "data.prefetch", "data.resident"}
     command_line = {"cli", "__main__", "data.tabular", "models.fully_connected_net",
                     "models.logistic_regression", "utils.metrics"}
@@ -94,6 +95,53 @@ def test_knn_path_runs_without_jax():
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "node_seg_counts" in proc.stdout and np.isfinite(float(proc.stdout.split()[-1]))
+
+
+def test_graph_slice_2_runs_without_jax():
+    """GraphNet slice 2 on the CPU in a process where jax and the JAX package
+    cannot be imported: a ``layout="auto"`` loader over graphs with a
+    duplicate edge, an exact-zero weight and a node of 40 incoming edges
+    (demoted, warned, or shipping triples), one train step of each new arm
+    (flat GraphConv max and GAT, in-row SAG with GAT and with max, the
+    edge-slot triples, the kNN edge-list arm) and a SAG checkpoint through
+    ``convert`` both ways."""
+    code = textwrap.dedent(
+        f"""
+        import sys, warnings
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        import numpy as np, torch
+        from point_cloud_classifier_tpu_torch import convert
+        from point_cloud_classifier_tpu_torch.data import GraphLoader
+        from point_cloud_classifier_tpu_torch.data.synthetic import lineage_graphs
+        from point_cloud_classifier_tpu_torch.models import GraphNet, ModelWrapper
+        graphs = lineage_graphs(np.random.default_rng(0), 6, 42, 50, outliers=True)
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            flat = next(iter(GraphLoader(graphs, 3, False, layout="auto", dense_w_is_existence=True)))
+            mixed = list(GraphLoader(graphs, 3, False, layout="auto", require_inrow=True))
+        slots = next(iter(GraphLoader(graphs, 3, False, layout="auto")))
+        inrow = next(iter(GraphLoader(graphs[1:4], 3, False, layout="auto")))
+        arms = [(flat, dict(local_pooling="max")), (flat, dict(use_gat=True)),
+                (inrow, dict(use_gat=True, sag_pool=True)), (mixed[1], dict(local_pooling="max", sag_pool=True)),
+                (mixed[0], dict(local_pooling="max", sag_pool=True)), (slots, dict(local_pooling="mean")),
+                (flat, dict(knn_k=3, use_gat=True))]
+        losses = []
+        for batch, arm in arms:
+            cfg = dict(input_dim=4, hidden_dim=8, output_dim=1, activation="tanh", deepchem_style=True, **arm)
+            net = GraphNet(**cfg, generator=torch.Generator().manual_seed(0))
+            losses.append(float(ModelWrapper(net, 1e-3, 1, device="cpu").train_step(batch)))
+            if arm.get("sag_pool"):
+                params, stats = convert.convert_torch_state_dict("graph_net", {{"model": cfg}}, net.state_dict())
+                back = convert.to_torch_state_dict("graph_net", {{"model": cfg}}, params, stats)
+                assert all(np.array_equal(back[k], v.numpy()) for k, v in net.state_dict().items())
+        wires = ["src" in flat, "src" in mixed[0], "in_src" in mixed[1], "edge_slot" in slots]
+        print(len(warned), wires, all(np.isfinite(losses)))
+        """
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["2", "[True,", "True,", "True,", "True]", "True"]
 
 
 def test_flagship_wire_and_pipelines_run_without_jax():
