@@ -11,7 +11,9 @@ not 0 (there is no CPU run: without CUDA the script stops before printing a
 result):
 
 1. device: the card, and ``nvidia-smi``'s name and power limit;
-2. build: the CUDA kernels from ``point_cloud_classifier_tpu_torch/csrc``;
+2. build: the CUDA kernels from ``point_cloud_classifier_tpu_torch/csrc``,
+   and the host library (the loaders' C++ packers and the S2PG edge builder,
+   ``csrc/host``, by ``g++``) with its build seconds;
 3. kernel against plain: ``phi_pool`` (kernel K1) against ``phi_pool_plain``
    on the card, f32 and bf16, at the DeepSets config widths (6→256→256,
    residual, quick gelu), with a ragged point count, an empty event, padding
@@ -158,7 +160,21 @@ result):
    that node ships flat, with the loader's one warning), each trained; then
    the train step and ``predict`` per batch of every arm at B=256 (the kNN
    arms at B=32), in-row GAT with SAG also on its plain route and slice 1's
-   in-row GAT beside flat GAT, and a trace of the B=256 flat GAT step.
+   in-row GAT beside flat GAT, and a trace of the B=256 flat GAT step;
+22. host packers: every wire at B=256 packed by the C++ packers and by the
+   numpy branch (``PCC_NATIVE=0``), byte for byte equal (point clouds flat
+   and dense, f32 and fp16, segment ids and counts, ``energy_total``
+   factored, the flagship wire length-sorted with a partial final batch;
+   graphs in-row with and without the out-row mirror, f32 and fp16, flat,
+   a merged multigraph demoted to flat, the host adjacency, a batch of
+   edge-slot triples), with each packer's ms per batch (host clock, median
+   of passes taken in turns); one event's S2PG edges by the C++ builder and
+   by numpy, equal, over seeded events, ms per event both ways; and the
+   train step per batch with the packing inline, C++ and numpy, beside
+   pre-packed batches: the flagship DeepSets wire at B=256, flat and dense,
+   f32 (K1 and K2, CUDA events), and the in-row GAT (K3, K4) and fused
+   GraphConv (K6, with out-rows) at B=256 (host clock), each with its
+   launch counts.
 
 Beside each kernel's time the script works out the least time the card could
 take for the same work (``bound_ms``: the bytes the function must move over
@@ -173,6 +189,7 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -199,7 +216,9 @@ from point_cloud_classifier_tpu_torch.data.synthetic import (
 from point_cloud_classifier_tpu_torch.graph_kernel_times import device_ms
 from point_cloud_classifier_tpu_torch.models import DeepSets, GraphNet, LogRegression
 from point_cloud_classifier_tpu_torch.models.deep_sets import dense_segment_ids
+from point_cloud_classifier_tpu_torch.data.graph import build_event_edges
 from point_cloud_classifier_tpu_torch.native import kernel_library
+from point_cloud_classifier_tpu_torch.native.host import build_event_edges_native, host_library
 from point_cloud_classifier_tpu_torch.ops.dispatch import force_plain
 from point_cloud_classifier_tpu_torch.ops.fused_phi import (
     _phi_pool_bwd_cuda,
@@ -484,6 +503,8 @@ def device_phase() -> str:
 def build_phase() -> None:
     built = kernel_library()
     print(f"build: {built.path.name} in {built.build_seconds:.2f} s")
+    host = host_library()
+    print(f"build: host library {host.path.name} in {host.build_seconds:.2f} s (g++)")
 
 
 def _uniform(rng, bound, shape):
@@ -2691,6 +2712,239 @@ def cli_phase(smi: str, work_dir: str) -> dict:
     return launches
 
 
+# phase 22: the C++ host packers and the edge builder
+PACK_B = 256
+PACK_PASSES = 5  # host-clock passes over each wire's batches, per packer, in turns
+EDGE_EVENTS = 200
+
+
+@contextlib.contextmanager
+def numpy_packing():
+    """``PCC_NATIVE=0`` for the block: the loaders pack with numpy."""
+    previous = os.environ.get("PCC_NATIVE")
+    os.environ["PCC_NATIVE"] = "0"
+    try:
+        yield
+    finally:
+        if previous is None:
+            del os.environ["PCC_NATIVE"]
+        else:
+            os.environ["PCC_NATIVE"] = previous
+
+
+class NumpyPacking:
+    """A loader whose batches the numpy branch packs, one at a time as it is
+    iterated (inline, as the C++ packer packs the loader's own)."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        batches = iter(self.loader)
+        while True:
+            with numpy_packing():
+                batch = next(batches, None)
+            if batch is None:
+                return
+            yield batch
+
+
+def packer_wires() -> dict:
+    """Every wire at B=256: (name, loader) over seeded clouds of 160-288
+    points (one empty, ``energy_total`` in column 1 constant in an event,
+    four full batches and a partial one) and lineage graphs of 160-288 nodes
+    (a second set with the outlier graph: a duplicate edge, an exact-zero
+    weight, a node of 40 more incoming edges)."""
+    rng = np.random.default_rng(SEED + 22)
+    clouds, labels = make_clouds(rng, 4 * PACK_B + 100)
+    for cloud in clouds:
+        cloud[:, 1] = cloud[0, 1] if len(cloud) else 0.0
+    graphs = lineage_graphs(rng, 4 * PACK_B)
+    outliers = lineage_graphs(rng, 4 * PACK_B, outliers=True)
+
+    def clouds_of(**kw):
+        return PointCloudLoader(clouds, labels, PACK_B, shuffle=False, **kw)
+
+    def graphs_of(gs, **kw):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the demoted loader warns
+            return GraphLoader(gs, PACK_B, shuffle=False, **kw)
+
+    return {
+        "clouds flat f32 ids": clouds_of(),
+        "clouds flat fp16 counts, energy_total factored": clouds_of(
+            transfer_dtype="float16", seg_encoding="counts", factor_event_cols=(1,)),
+        "clouds dense f32": clouds_of(layout="dense"),
+        "clouds flagship wire (auto, fp16, factored, length-sorted)": clouds_of(**FLAGSHIP_WIRE),
+        "graphs in-row f32": graphs_of(graphs, layout="dense", use_weights=False),
+        "graphs in-row + out-rows f32": graphs_of(graphs, layout="dense", use_weights=False, emit_out_rows=True),
+        "graphs in-row + out-rows fp16 weighted": graphs_of(graphs, layout="dense", emit_out_rows=True,
+                                                            transfer_dtype="float16"),
+        "graphs flat f32": graphs_of(graphs, layout="flat"),
+        "graphs flat fp16 counts": graphs_of(graphs, layout="flat", transfer_dtype="float16",
+                                             seg_encoding="counts"),
+        "graphs merged multigraph demoted to flat": graphs_of(outliers, layout="auto", flat_if_multigraph=True),
+        "graphs host adjacency fp16": graphs_of(graphs, layout="dense", adj_wire="host",
+                                                transfer_dtype="float16"),
+        "graphs in-row, the outlier's batch edge-slot triples": graphs_of(outliers, layout="dense"),
+    }
+
+
+def _pack_pass(loader, numpy_branch: bool):
+    """One pass over ``loader``: its batches and the ms a batch took."""
+    with numpy_packing() if numpy_branch else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # a demoted batch warns
+            batches = list(loader)
+        return batches, (time.perf_counter() - t0) * 1e3 / len(batches)
+
+
+def _same_bytes(name: str, ours: list, plain: list) -> None:
+    if len(ours) != len(plain):
+        raise AssertionError(f"packer {name}: {len(ours)} batches, numpy {len(plain)}")
+    for i, (a, b) in enumerate(zip(ours, plain)):
+        if sorted(a) != sorted(b):
+            raise AssertionError(f"packer {name} batch {i}: keys {sorted(a)}, numpy {sorted(b)}")
+        for key in a:
+            if a[key].dtype != b[key].dtype or a[key].shape != b[key].shape or a[key].tobytes() != b[key].tobytes():
+                raise AssertionError(f"packer {name} batch {i}: {key} differs from the numpy branch's")
+
+
+def _fresh_pass(batches) -> float:
+    """ms a batch to allocate zeroed arrays of ``batches``' shapes and dtypes
+    and write one byte of each page, keeping them as a pass keeps its
+    batches: the first-touch page faults that every packer pays before it
+    copies a byte."""
+    kept = []
+    t0 = time.perf_counter()
+    for batch in batches:
+        arrays = [np.zeros(a.shape, a.dtype) for a in batch.values()]
+        for a in arrays:
+            a.reshape(-1).view(np.uint8)[::4096] = 1
+        kept.append(arrays)
+    return (time.perf_counter() - t0) * 1e3 / len(batches)
+
+
+def packer_phase(smi: str) -> None:
+    """Every wire packed both ways, equal bytes, and each packer's ms per
+    batch beside the fresh buffers' alone: the median (range) of passes
+    taken in turns (C++, numpy, buffers, then the other way round, ...); the
+    first pass of each packer is compared."""
+    for name, loader in packer_wires().items():
+        samples = {"C++": [], "numpy": [], "buffers": []}
+        for turn in range(PACK_PASSES):
+            for arm in ("C++", "numpy", "buffers")[:: 1 if turn % 2 == 0 else -1]:
+                if arm == "buffers":
+                    samples[arm].append(_fresh_pass(ours))
+                    continue
+                batches, ms = _pack_pass(loader, arm == "numpy")
+                samples[arm].append(ms)
+                if turn == 0 and arm == "C++":
+                    ours = batches
+                elif turn == 0:
+                    _same_bytes(name, ours, batches)
+        rows = "points" if "points" in ours[0] else "nodes"
+        shapes = " ".join(sorted({str(tuple(batch[rows].shape)) for batch in ours}))
+        wires = sorted({k for batch in ours for k in batch if k in ("in_src", "out_pos", "adj", "edge_slot", "src")})
+        mb = sum(a.nbytes for a in ours[0].values()) / 2**20
+        times = ", ".join(f"{arm} {np.median(ms):.4f} ({min(ms):.4f}-{max(ms):.4f})" for arm, ms in samples.items())
+        print(f"packer {name} B={PACK_B}: C++ = numpy byte for byte over {len(ours)} batches ({rows} "
+              f"{shapes}; {', '.join(wires) or 'no edges'}; {mb:.2f} MiB a batch); ms per batch, median "
+              f"(range) of {PACK_PASSES} passes in turns, host clock: {times} (buffers: allocating and "
+              f"touching the batch's arrays alone) [{smi}]")
+
+
+def synthetic_event(rng, n_particles: int = 120, unrecorded: float = 0.4, max_steps: int = 6):
+    """One seeded event for the edge builders: a lineage tree (a second
+    parent now and then) whose recorded particles leave 1 to ``max_steps -
+    1`` steps, then the incident node (pid 0, time 0)."""
+    parents = {0: []}
+    for p in range(1, n_particles):
+        parents[p] = [int(rng.integers(0, p))]
+        if rng.random() < 0.2:
+            parents[p].append(int(rng.integers(0, p)))
+    recorded = [0] + [p for p in range(1, n_particles) if rng.random() > unrecorded]
+    steps = rng.integers(1, max_steps, size=len(recorded))
+    pids = np.append(np.repeat(recorded, steps), 0).astype(np.int64)
+    times = np.append(rng.exponential(1.0, size=int(steps.sum())), 0.0)
+    return pids, times, np.arange(len(pids), dtype=np.int64), parents
+
+
+def edge_builder_phase(smi: str) -> None:
+    """Seeded events' edges by the C++ builder and by numpy, equal, and the
+    ms per event of each (host clock)."""
+    rng = np.random.default_rng(SEED + 23)
+    events = [synthetic_event(rng) for _ in range(EDGE_EVENTS)]
+    t0 = time.perf_counter()
+    native = [build_event_edges_native(*event) for event in events]
+    t1 = time.perf_counter()
+    plain = [build_event_edges(*event) for event in events]
+    t2 = time.perf_counter()
+    for i, (a, b) in enumerate(zip(native, plain)):
+        if a is None or a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"edge builder: event {i}'s C++ edges differ from numpy's")
+    steps = sum(len(event[0]) for event in events)
+    edges = sum(e.shape[1] for e in plain)
+    print(f"edge builder: C++ = numpy over {EDGE_EVENTS} seeded events ({steps} steps, {edges} directed "
+          f"edges); ms per event, host clock: C++ {(t1 - t0) * 1e3 / EDGE_EVENTS:.4f}, numpy "
+          f"{(t2 - t1) * 1e3 / EDGE_EVENTS:.4f} [{smi}]")
+
+
+def inline_packing_phase(smi: str, work_dir: str) -> None:
+    """The train step per batch with the packing inline, by the C++ packer and
+    by numpy, beside pre-packed batches (taken in turns): the flagship
+    DeepSets wire at B=256, f32 compute (CUDA events over a pass), and the
+    in-row GAT and fused GraphConv at B=256 (host clock), with the launch
+    counts of each."""
+    data_dir = os.path.join(work_dir, "flagship_data")
+    for layout in ("flat", "dense"):
+        cfg = flagship_config(data_dir, os.path.join(work_dir, "unused"), {}, {})
+        cfg["dataset"].update(layout=layout)
+        loader = factory.get_dataloader("s2ppc", cfg).get_train_loader()
+        prepacked = list(loader)
+        arms = {"pre-packed": lambda: prepacked, "C++ packing inline": lambda: loader,
+                "numpy packing inline": lambda: NumpyPacking(loader)}
+        reset_launch_counts()
+        samples = events_ms_per_batch([factory.get_model("deep_sets", cfg) for _ in arms], list(arms.values()))
+        counts = {k: v for k, v in launch_counts().items() if v}
+        if layout == "dense" and not (counts.get("phi_pool") and counts.get("phi_pool_bwd")):
+            raise AssertionError(f"inline packing, flagship dense: K1 and K2 did not run ({counts})")
+        row = ", ".join(f"{name} {np.median(ms):.4f} ({min(ms):.4f}-{max(ms):.4f})"
+                        for name, ms in zip(arms, samples))
+        print(f"time flagship train step per batch B={FLAGSHIP_B} {layout} fp16 wire, float32, streaming, "
+              f"median (range) of {len(samples[0])} passes over {len(prepacked)} batches taken in turns, "
+              f"CUDA events: {row} ms; launches {counts} [{smi}]")
+    graphs = lineage_graphs(np.random.default_rng(SEED + 2), 4 * FLAGSHIP_GRAPHS)
+    for name, use_gat, model, wire, kernels in (
+            ("GAT K3+K4 route", True, {}, {}, ("gat_attention", "gat_attention_bwd")),
+            ("GraphConv add K6 route", False, {"fused_inrow": True}, {"emit_out_rows": True},
+             ("inrow_aggregate", "inrow_aggregate backward"))):
+        loader = GraphLoader(graphs, FLAGSHIP_GRAPHS, shuffle=False, layout="dense", use_weights=False, **wire)
+        prepacked = list(loader)
+        wrappers = [factory.get_model("graph_net", graph_config("", use_gat, **model)) for _ in range(3)]
+        reset_launch_counts()
+        rows = train_ms_per_batch(wrappers, [prepacked, loader, NumpyPacking(loader)])
+        counts = {k: v for k, v in launch_counts().items() if v}
+        if not all(counts.get(k) for k in kernels):
+            raise AssertionError(f"inline packing, {name}: {kernels} did not all run ({counts})")
+        print(f"time train step per batch B={FLAGSHIP_GRAPHS} in-row {name} float32 adam, median (q1-q3) of "
+              f"{ROUTE_REPS} runs over {len(prepacked)} batches, host clock to a synchronise: "
+              + ", ".join(f"{n} {r[0]:.4f} ({r[1]:.4f}-{r[2]:.4f}) ms" for n, r in
+                          zip(("pre-packed", "C++ packing inline", "numpy packing inline"), rows))
+              + f"; launches {counts} [{smi}]")
+
+
+def host_phase(smi: str, work_dir: str) -> None:
+    """Phase 22: the host packers and the edge builder."""
+    packer_phase(smi)
+    edge_builder_phase(smi)
+    inline_packing_phase(smi, work_dir)
+
+
 def main() -> None:
     t0 = time.perf_counter()
     marks = [t0]
@@ -2758,6 +3012,8 @@ def main() -> None:
         lap("command line")
         print(f"launches: command line, train deep_sets K1 {cli_launches['phi_pool']}, "
               f"K2 {cli_launches['phi_pool_bwd']}")
+        host_phase(smi, run_dir)
+        lap("host packers")
     profile_phase(smi)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{

@@ -36,8 +36,11 @@ Batches are byte-identical to the JAX loaders': keys, dtypes and values.
   ``n_pad`` and ``e_pad`` are power-of-two buckets of ``total_nodes + 1`` and
   ``total_edges``.
 
-Packing is the JAX loaders' numpy branch.  Not ported yet: their C++
-packers (ROADMAP Queue 1 item 7d).
+Each wire is packed by the C++ packers of ``csrc/host/batch_packer.cpp``
+(built with ``g++`` into ``native/build/`` at first use, ``native/host.py``)
+wherever the JAX loaders call their own; the edge-slot triples stay numpy, as
+there.  ``PCC_NATIVE=0`` in the environment selects the vectorized numpy
+branch instead, the packers' plain version: the bytes are the same.
 """
 
 from __future__ import annotations
@@ -46,6 +49,14 @@ import warnings
 from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
+
+from point_cloud_classifier_tpu_torch.native.host import (
+    pack_graph_dense_native,
+    pack_graph_flat_native,
+    pack_graph_inrow_native,
+    pack_pointcloud_dense_native,
+    pack_pointcloud_native,
+)
 
 Batch = Dict[str, np.ndarray]
 
@@ -184,61 +195,70 @@ class PointCloudLoader:
     def __len__(self) -> int:
         return -(-self.n_examples // self.batch_size)
 
-    def _gather(self, idx, b: int, keep64, fac64):
-        """The rows of the events ``idx`` in order, the kept columns only
-        ``[total, Fw]``; each event's size and first row in that order; the
-        labels ``y``, ``y_mask``; and ``event_feats [b + 1, C]`` (each
-        non-empty event's factored columns, from its first row), or None."""
-        k = len(idx)
+    def _gather(self, idx, keep64, fac64, event_feats):
+        """The numpy branch: the rows of the events ``idx`` in order, the kept
+        columns only ``[total, Fw]``, with each event's size and first row in
+        that order; each non-empty event's factored columns (from its first
+        row) go into ``event_feats``."""
         sizes = self.counts[idx]
         starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
         total = int(sizes.sum())
         # the concatenation of the ranges [offset_e, offset_e + n_e)
         src = np.repeat(self.offsets[idx] - starts, sizes) + np.arange(total, dtype=np.int64)
         rows = self.flat[np.ix_(src, keep64)]
+        if event_feats is not None:
+            nonempty = sizes > 0
+            event_feats[: len(idx)][nonempty] = self.flat[self.offsets[idx][nonempty]][:, fac64]
+        return rows, sizes, starts
+
+    def _buffers(self, idx, b: int, fac64):
+        """``idx`` as int64, the labels ``y``/``y_mask``, ``event_feats [b + 1,
+        C]`` zeroed (None without factored columns) and ``seg_counts``."""
+        k = len(idx)
         yb = np.zeros((b, 1), dtype=np.float32)
         mask = np.zeros((b,), dtype=np.float32)
         yb[:k, 0] = self.labels[idx]
         mask[:k] = 1.0
-        event_feats = None
-        if len(fac64):
-            nonempty = sizes > 0
-            event_feats = np.zeros((b + 1, len(fac64)), dtype=self.flat.dtype)
-            event_feats[:k][nonempty] = self.flat[self.offsets[idx][nonempty]][:, fac64]
-        return rows, sizes, starts, yb, mask, event_feats
+        event_feats = np.zeros((b + 1, len(fac64)), dtype=self.flat.dtype) if len(fac64) else None
+        seg_counts = np.zeros((b + 1,), dtype=np.int32)
+        return np.ascontiguousarray(idx, dtype=np.int64), yb, mask, event_feats, seg_counts
 
     def _dense_batch(self, idx, b: int, m: int, keep64, fac64) -> Batch:
-        rows, sizes, starts, yb, mask, event_feats = self._gather(idx, b, keep64, fac64)
-        k, total = len(idx), len(rows)
+        idx64, yb, mask, event_feats, seg_counts = self._buffers(idx, b, fac64)
         points = np.zeros((b, m, len(keep64)), dtype=self.flat.dtype)
-        points[
-            np.repeat(np.arange(k, dtype=np.int64), sizes),
-            np.arange(total, dtype=np.int64) - np.repeat(starts, sizes),
-        ] = rows
-        seg_counts = np.zeros((b + 1,), dtype=np.int32)
-        seg_counts[:k] = sizes
-        seg_counts[b] = b * m - total  # the in-row padding
+        if not pack_pointcloud_dense_native(self.flat, self.offsets, idx64, b, keep64, fac64, m,
+                                            points.reshape(b * m, len(keep64)), event_feats, seg_counts):
+            rows, sizes, starts = self._gather(idx, keep64, fac64, event_feats)
+            k, total = len(idx), len(rows)
+            points[
+                np.repeat(np.arange(k, dtype=np.int64), sizes),
+                np.arange(total, dtype=np.int64) - np.repeat(starts, sizes),
+            ] = rows
+            seg_counts[:k] = sizes
+            seg_counts[b] = b * m - total  # the in-row padding
         batch = {"points": points, "y": yb, "y_mask": mask, "seg_counts": seg_counts}
         if event_feats is not None:
             batch["event_feats"] = event_feats
         return batch
 
     def _flat_batch(self, idx, b: int, p_pad: int, keep64, fac64) -> Batch:
-        rows, sizes, _, yb, mask, event_feats = self._gather(idx, b, keep64, fac64)
-        k, total = len(idx), len(rows)
+        idx64, yb, mask, event_feats, seg_counts = self._buffers(idx, b, fac64)
         points = np.zeros((p_pad, len(keep64)), dtype=self.flat.dtype)
-        points[:total] = rows
+        seg = np.full((p_pad,), b, dtype=np.int16 if (self.half and b < 32767) else np.int32)
+        if not pack_pointcloud_native(self.flat, self.offsets, idx64, b, keep64, fac64, p_pad,
+                                      points, event_feats, seg, seg_counts):
+            rows, sizes, _ = self._gather(idx, keep64, fac64, event_feats)
+            k, total = len(idx), len(rows)
+            points[:total] = rows
+            seg[:total] = np.repeat(np.arange(k), sizes)
+            seg_counts[:k] = sizes
+            seg_counts[b] = p_pad - total  # padding rows → segment B
         batch = {"points": points, "y": yb, "y_mask": mask}
         if event_feats is not None:
             batch["event_feats"] = event_feats
         if self.seg_encoding == "counts":
-            seg_counts = np.zeros((b + 1,), dtype=np.int32)
-            seg_counts[:k] = sizes
-            seg_counts[b] = p_pad - total  # padding rows → segment B
             batch["seg_counts"] = seg_counts
         else:
-            seg = np.full((p_pad,), b, dtype=np.int16 if (self.half and b < 32767) else np.int32)
-            seg[:total] = np.repeat(np.arange(k), sizes)
             batch["seg"] = seg
         return batch
 
@@ -494,9 +514,9 @@ class GraphLoader:
         return _pow2_slots(int(per_graph[idx].max()) if int(self.edge_counts[idx].sum()) else 0)
 
     def _dense_nodes(self, idx, k: int, b: int, m_pad: int) -> Batch:
-        """``nodes``, ``node_mask``, ``in_deg``, ``y`` and ``y_mask`` of the
-        graphs ``idx`` in ``b`` slots of ``m_pad`` rows: what every dense
-        wire ships."""
+        """``nodes`` and ``node_mask`` zeroed (a packer fills them), and
+        ``in_deg``, ``y`` and ``y_mask`` of the graphs ``idx`` in ``b``
+        slots of ``m_pad`` rows: what every dense wire ships."""
         nodes = np.zeros((b, m_pad, self.feat_dim), dtype=self.feats.dtype)
         node_mask = np.zeros((b, m_pad), dtype=np.float32)
         in_deg = np.zeros((b, m_pad), dtype=np.float32)
@@ -506,10 +526,16 @@ class GraphLoader:
         ymask[:k] = 1.0
         for slot, g_i in enumerate(idx):
             nlo, nhi = self.node_offsets[g_i], self.node_offsets[g_i + 1]
-            nodes[slot, : nhi - nlo] = self.feats[nlo:nhi]
-            node_mask[slot, : nhi - nlo] = 1.0
             in_deg[slot, : nhi - nlo] = self.node_indeg[nlo:nhi]
         return {"nodes": nodes, "node_mask": node_mask, "in_deg": in_deg, "y": yb, "y_mask": ymask}
+
+    def _fill_nodes(self, idx, batch: Batch) -> None:
+        """The numpy branch of the node rows: each graph's features and mask
+        at the start of its slot."""
+        for slot, g_i in enumerate(idx):
+            nlo, nhi = self.node_offsets[g_i], self.node_offsets[g_i + 1]
+            batch["nodes"][slot, : nhi - nlo] = self.feats[nlo:nhi]
+            batch["node_mask"][slot, : nhi - nlo] = 1.0
 
     def _dense_wire_batch(self, idx, k: int, b: int, m_pad: int) -> Batch:
         """The dense wire of the graphs ``idx`` in ``b`` slots of ``m_pad``
@@ -522,10 +548,11 @@ class GraphLoader:
         batch = self._dense_nodes(idx, k, b, m_pad)
         wire_w = self.weights_wire if self.use_weights else self.mult_wire
         if d_pad > self.max_in_degree_wire:
+            self._fill_nodes(idx, batch)  # numpy here, as in the JAX loader
             return {**batch, **self._edge_slots(idx, b, idx_t, wire_w)}
         batch["in_src"], batch["in_w"] = self._pack_rows(
             idx, b, m_pad, d_pad, self.edges_dst,
-            [(self.edges_src, idx_t), (wire_w, wire_w.dtype)],
+            [(self.edges_src, idx_t), (wire_w, wire_w.dtype)], fill=batch,
         )
         if self.emit_out_rows:
             # the OUT-row mirror (the transposed adjacency), read by the fused
@@ -576,10 +603,16 @@ class GraphLoader:
         small_t = np.float16 if self.half else np.float32
         adj = np.zeros((b, m_pad, m_pad), dtype=small_t)
         per_edge = self.weights if self.use_weights else self.edge_mult
-        for slot, g_i in enumerate(idx):
-            lo, hi = self.edge_offsets[g_i], self.edge_offsets[g_i + 1]
-            np.add.at(adj[slot], (self.edges_dst[lo:hi], self.edges_src[lo:hi]),
-                      per_edge[lo:hi].astype(small_t))
+        if not pack_graph_dense_native(
+            self.feats, self.node_offsets, self.edges_src, self.edges_dst, self.edge_offsets,
+            per_edge, True, np.ascontiguousarray(idx, dtype=np.int64), b, m_pad,
+            batch["nodes"], adj, batch["node_mask"],
+        ):
+            self._fill_nodes(idx, batch)
+            for slot, g_i in enumerate(idx):
+                lo, hi = self.edge_offsets[g_i], self.edge_offsets[g_i + 1]
+                np.add.at(adj[slot], (self.edges_dst[lo:hi], self.edges_src[lo:hi]),
+                          per_edge[lo:hi].astype(small_t))
         return {**batch, "adj": adj}
 
     def _flat_batch(self, idx, k: int, b: int) -> Batch:
@@ -605,21 +638,26 @@ class GraphLoader:
         mask_w = None
         if self.flat_fallback_w is not None:
             wire_w, mask_w = self.flat_fallback_w, self.mult_wire
-        node_cursor = edge_cursor = 0
-        for slot, g_i in enumerate(idx):
-            nlo, nhi = self.node_offsets[g_i], self.node_offsets[g_i + 1]
-            elo, ehi = self.edge_offsets[g_i], self.edge_offsets[g_i + 1]
-            n_i, e_i = nhi - nlo, ehi - elo
-            nodes[node_cursor : node_cursor + n_i] = self.feats[nlo:nhi]
-            node_seg[node_cursor : node_cursor + n_i] = slot
-            seg_counts[slot] = n_i
-            src[edge_cursor : edge_cursor + e_i] = self.edges_src[elo:ehi] + node_cursor
-            dst[edge_cursor : edge_cursor + e_i] = self.edges_dst[elo:ehi] + node_cursor
-            edge_w[edge_cursor : edge_cursor + e_i] = wire_w[elo:ehi]
-            edge_mask[edge_cursor : edge_cursor + e_i] = 1.0 if mask_w is None else mask_w[elo:ehi]
-            node_cursor += n_i
-            edge_cursor += e_i
-        seg_counts[b] = n_pad - node_cursor  # padding nodes → segment B
+        if not pack_graph_flat_native(
+            self.feats, self.node_offsets, self.edges_src, self.edges_dst, self.edge_offsets,
+            wire_w, True, np.ascontiguousarray(idx, dtype=np.int64), b, n_pad, e_pad,
+            nodes, node_seg, seg_counts, src, dst, edge_w, edge_mask, mask_w,
+        ):
+            node_cursor = edge_cursor = 0
+            for slot, g_i in enumerate(idx):
+                nlo, nhi = self.node_offsets[g_i], self.node_offsets[g_i + 1]
+                elo, ehi = self.edge_offsets[g_i], self.edge_offsets[g_i + 1]
+                n_i, e_i = nhi - nlo, ehi - elo
+                nodes[node_cursor : node_cursor + n_i] = self.feats[nlo:nhi]
+                node_seg[node_cursor : node_cursor + n_i] = slot
+                seg_counts[slot] = n_i
+                src[edge_cursor : edge_cursor + e_i] = self.edges_src[elo:ehi] + node_cursor
+                dst[edge_cursor : edge_cursor + e_i] = self.edges_dst[elo:ehi] + node_cursor
+                edge_w[edge_cursor : edge_cursor + e_i] = wire_w[elo:ehi]
+                edge_mask[edge_cursor : edge_cursor + e_i] = 1.0 if mask_w is None else mask_w[elo:ehi]
+                node_cursor += n_i
+                edge_cursor += e_i
+            seg_counts[b] = n_pad - node_cursor  # padding nodes → segment B
         yb[:k, 0] = self.labels[idx]
         ymask[:k] = 1.0
         batch = {
@@ -666,13 +704,36 @@ class GraphLoader:
         run_len = np.diff(np.concatenate([starts, [len(gid_o)]]))
         np.maximum.at(self.graph_max_outdeg, gid_o[starts], run_len)
 
-    def _pack_rows(self, idx, b, m_pad, d_pad, keys, columns):
+    def _pack_rows(self, idx, b, m_pad, d_pad, keys, columns, fill=None):
         """``[B, M, D]`` per-row lists, one for each ``(per-edge array, wire
         dtype)`` of ``columns``: slot ``q`` of row ``keys[e]`` holds the row's
         ``q``-th edge's entry of each array.  ``keys`` is run-sorted within
         each graph: the destinations of the (destination, source) order give
         the in-row lists, the sources of the out-direction order the out-row
-        mirror."""
+        mirror.  ``columns`` are an index column, the wire weights, then any
+        more index columns; ``fill``, a batch from ``_dense_nodes``, also
+        gets its node rows.
+
+        The C++ packer makes one pass for the first two columns and one for
+        each further one (the out-row mirror: ``out_dst``/``out_w``, then
+        ``out_pos``); the numpy branch one pass for all."""
+        packed = [np.zeros((b, m_pad, d_pad), dtype=dtype) for _, dtype in columns]
+        (values, _), (weights, _) = columns[:2]
+        idx64 = np.ascontiguousarray(idx, dtype=np.int64)
+        nodes, node_mask = (fill["nodes"], fill["node_mask"]) if fill else (None, None)
+
+        def native(per_edge, out, out_w, fill_nodes):
+            return pack_graph_inrow_native(
+                self.feats, self.node_offsets, per_edge, keys, self.edge_offsets, weights, True,
+                idx64, b, m_pad, d_pad, nodes, node_mask, out, out_w, fill_nodes,
+            )
+
+        if native(values, packed[0], packed[1], fill is not None):
+            for (more, _), out in zip(columns[2:], packed[2:]):
+                native(more, out, None, False)
+            return packed
+        if fill is not None:
+            self._fill_nodes(idx, fill)
         spans = [(self.edge_offsets[g_i], self.edge_offsets[g_i + 1]) for g_i in idx]
         key_l = np.concatenate(
             [keys[lo:hi].astype(np.int64) + slot * m_pad for slot, (lo, hi) in enumerate(spans)]
@@ -681,13 +742,10 @@ class GraphLoader:
         counts = np.bincount(key_l, minlength=b * m_pad)
         starts = np.concatenate([[0], np.cumsum(counts)])
         pos = np.arange(len(key_l)) - starts[key_l]
-        packed = []
-        for per_edge, dtype in columns:
-            out = np.zeros((b, m_pad, d_pad), dtype=dtype)
+        for (per_edge, _), out in zip(columns, packed):
             out.reshape(b * m_pad, d_pad)[key_l, pos] = np.concatenate(
                 [per_edge[lo:hi] for lo, hi in spans]
             )
-            packed.append(out)
         return packed
 
     def __iter__(self) -> Iterator[Batch]:

@@ -38,8 +38,9 @@ _phase_clocks = False
 
 @dataclass(frozen=True)
 class KernelLibrary:
-    """The loaded kernel library, where it lives, and how long building it
-    took in this process (0.0 when an up-to-date build was found)."""
+    """A loaded library (the CUDA kernels', or the host packers' of
+    ``native/host.py``), where it lives, and how long building it took in
+    this process (0.0 when an up-to-date build was found)."""
 
     lib: ctypes.CDLL
     path: Path

@@ -9,8 +9,10 @@ both packages' loaders with the JAX factory's gates for that config (so a
 draw may be demoted to the flat wire, or ship edge-slot triples, as the JAX
 loader decides), one batch of each (byte-identical), and a GraphNet of
 hidden width 8 with the same weights on both sides.  It asserts that the
-eval logits match, and that the train-mode logits after one SGD step, each
-side stepping with its own gradients, match: f32 to 1e-5.
+eval logits match, that each parameter's train-mode gradient matches JAX's
+to 1e-5 of the whole gradient's Frobenius norm, and that the train-mode
+logits after one SGD step with the port's gradients match JAX's at that
+same point: f32 to 1e-5.
 
 Positions lie on a grid of 1/64, so kNN distances are exact in f32 on both
 sides (docs/parity_torch.md §3).  No draw is tuned towards either package:
@@ -106,8 +108,11 @@ def _loader_kwargs(d, model):
     return ds
 
 
-@pytest.mark.parametrize("d", DRAWS, ids=[d["id"] for d in DRAWS])
-def test_draw_matches_jax(d):
+def _run_draw(d):
+    """Draw ``d`` through both packages: both loaders' first batch, the eval
+    logits, the train-mode gradients, and the train-mode logits after one
+    SGD step with the port's gradients, on each side; with JAX's loss and
+    parameters for the readings below."""
     seed = int(d["id"][:2])
     model_cfg = _model_cfg(d)
     graphs = _graphs(seed, d["multigraph"], d["outlier"])
@@ -116,7 +121,6 @@ def test_draw_matches_jax(d):
         warnings.simplefilter("ignore")  # demotions warn on both sides
         ours = next(iter(GraphLoader(graphs, 8, False, **kw)))
         batch = next(iter(JaxGraphLoader(graphs, 8, False, **kw)))
-    assert sorted(ours) == sorted(batch) and all(ours[k].tobytes() == batch[k].tobytes() for k in batch)
 
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}  # device arrays inside the traces
     model = GraphNet(**model_cfg, generator=torch.Generator().manual_seed(seed))
@@ -131,17 +135,91 @@ def test_draw_matches_jax(d):
 
     eval_logits = jax.jit(lambda p: jax_model.apply({"params": p, "batch_stats": stats}, jbatch, train=False))
     grad = jax.jit(jax.value_and_grad(loss, has_aux=True))
-    want_eval = np.asarray(eval_logits(params))
     _, grads = grad(params)
-    (_, want_after), _ = grad(jax.tree.map(lambda p, g: p - LR * g, params, grads))
 
     tb = {k: torch.from_numpy(np.asarray(v)) for k, v in ours.items()}
     with torch.no_grad():
-        got_eval = model(tb, train=False)
-    np.testing.assert_allclose(got_eval.numpy(), want_eval, **F32)
+        got_eval = model(tb, train=False).numpy()
     (model(tb, train=True) * torch.from_numpy(cot)).sum().backward()
+    # the converter wants the whole state_dict, so the buffers ride along
+    port_grads, _ = convert.convert_torch_state_dict(
+        "graph_net", {"model": model_cfg},
+        {**dict(model.named_buffers()), **{k: p.grad for k, p in model.named_parameters()}})
+    (_, want_after), _ = grad(jax.tree.map(lambda p, g: p - LR * g, params, port_grads))
     with torch.no_grad():
         for p in model.parameters():
             p -= LR * p.grad
-        got_after = model(tb, train=True)
-    np.testing.assert_allclose(got_after.numpy(), np.asarray(want_after), **F32)
+        got_after = model(tb, train=True).numpy()
+    return dict(ours=ours, batch=batch, got_eval=got_eval, want_eval=np.asarray(eval_logits(params)),
+                port_grads=port_grads, grads=jax.tree.map(np.asarray, grads), got_after=got_after,
+                want_after=np.asarray(want_after), loss=loss, params=params)
+
+
+@pytest.mark.parametrize("d", DRAWS, ids=[d["id"] for d in DRAWS])
+def test_draw_matches_jax(d):
+    r = _run_draw(d)
+    ours, batch = r["ours"], r["batch"]
+    assert sorted(ours) == sorted(batch) and all(ours[k].tobytes() == batch[k].tobytes() for k in batch)
+    np.testing.assert_allclose(r["got_eval"], r["want_eval"], **F32)
+    # The gradients, tensor by tensor, each held to 1e-5 of the whole
+    # gradient's Frobenius norm.  A bias behind a batch norm has a gradient
+    # near 0 (the norm takes out most of a shift), a sum of terms that
+    # cancel: in f32 neither package resolves it to 1e-5 of its own norm
+    # (JAX against itself, jitted and not, reads up to 8.7e-5 there; from
+    # the repository root ``PYTHONPATH=. python tests/test_torch_graph_fuzz.py``
+    # prints every draw's readings).
+    scale = _norm(*jax.tree.leaves(r["grads"]))
+    for path, want in jax.tree_util.tree_leaves_with_path(r["grads"]):
+        assert _norm(_get(r["port_grads"], path) - want) <= F32["rtol"] * scale, jax.tree_util.keystr(path)
+    # The after-step forward at the same point: JAX stepped with the port's
+    # gradients.  Each side stepping with its own gradients would compare two
+    # rounding-level gradient differences after a train-mode forward (batch
+    # statistics, attention softmax) has amplified them.
+    np.testing.assert_allclose(r["got_after"], r["want_after"], **F32)
+
+
+def _get(tree, path):
+    for key in path:
+        tree = tree[key.key]
+    return tree
+
+
+def _norm(*arrays):
+    """The Frobenius norm of ``arrays`` taken together, in f64."""
+    return float(np.sqrt(sum(np.sum(np.square(np.asarray(a, np.float64))) for a in arrays)))
+
+
+def _readings(d):
+    """Per-draw readings of the two comparisons: the gradient's largest
+    tensor error over the whole gradient's norm (what the test bounds) and
+    over the tensor's own norm, JAX's own spread on the second (jitted
+    against not), and the after-step logits' max |Δ| and its share of the
+    allclose bound."""
+    r = _run_draw(d)
+    leaves = jax.tree_util.tree_leaves_with_path(r["grads"])
+    scale = _norm(*(want for _, want in leaves))
+    with jax.disable_jit():
+        eager = jax.grad(lambda p: r["loss"](p)[0])(r["params"])
+    own, spread = [], []
+    for path, want in leaves:
+        own.append(_norm(_get(r["port_grads"], path) - want) / (_norm(want) or 1.0))
+        spread.append(_norm(np.asarray(_get(eager, path)) - want) / (_norm(want) or 1.0))
+    errors = [_norm(_get(r["port_grads"], path) - want) for path, want in leaves]
+    diff = np.abs(r["got_after"].astype(np.float64) - r["want_after"])
+    bound = F32["atol"] + F32["rtol"] * np.abs(r["want_after"].astype(np.float64))
+    return {"grad / whole": max(errors) / scale, "grad / own": max(own), "JAX jit vs eager / own": max(spread),
+            "after max |d|": float(diff.max()), "after / bound": float((diff / bound).max())}
+
+
+if __name__ == "__main__":
+    # PYTHONPATH=. python tests/test_torch_graph_fuzz.py, from the repository
+    # root: every draw's readings, then the largest of each over the 48 draws
+    jax.config.update("jax_platforms", "cpu")
+    worst = {}
+    for d in DRAWS:
+        readings = _readings(d)
+        print(d["id"], " ".join(f"{k}={v:.3g}" for k, v in readings.items()))
+        for k, v in readings.items():
+            worst[k] = max(worst.get(k, (0.0, "")), (v, d["id"]))
+    for k, (v, draw) in worst.items():
+        print(f"largest {k}: {v:.3g} (draw {draw})")

@@ -1,6 +1,6 @@
 """The port imports without jax, the JAX package, pandas, sklearn, PyYAML,
 matplotlib, h5py or joblib, and runs without them (the kNN path, the
-flagship wire, the command line); chip_smoke.py refuses to run without a CUDA
+flagship wire, the command line, the C++ host packers and edge builder); chip_smoke.py refuses to run without a CUDA
 card or without the repository beside it."""
 
 import os
@@ -54,7 +54,8 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
     pipelines = {"data.background", "data.prefetch", "data.resident"}
     command_line = {"cli", "__main__", "data.tabular", "models.fully_connected_net",
                     "models.logistic_regression", "utils.metrics"}
-    assert {f"point_cloud_classifier_tpu_torch.{m}" for m in graph_slice | pipelines | command_line} <= walked
+    host = {"native", "native.host"}
+    assert {f"point_cloud_classifier_tpu_torch.{m}" for m in graph_slice | pipelines | command_line | host} <= walked
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -142,6 +143,43 @@ def test_graph_slice_2_runs_without_jax():
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["2", "[True,", "True,", "True,", "True]", "True"]
+
+
+def test_host_packers_and_edge_builder_run_without_jax():
+    """The C++ packers build and fill every wire, and the C++ edge builder
+    builds an event's edges equal to the numpy builder's, in a process where
+    jax, the JAX package and sklearn cannot be imported."""
+    code = textwrap.dedent(
+        f"""
+        import sys, warnings
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        import numpy as np
+        from point_cloud_classifier_tpu_torch.data import GraphLoader, PointCloudLoader
+        from point_cloud_classifier_tpu_torch.data.graph import build_event_edges
+        from point_cloud_classifier_tpu_torch.data.synthetic import lineage_graphs
+        from point_cloud_classifier_tpu_torch.native.host import build_event_edges_native, host_library
+        rng = np.random.default_rng(0)
+        events = [rng.normal(size=(int(n), 6)).astype(np.float32) for n in rng.integers(1, 30, 40)]
+        labels = rng.integers(0, 2, size=40)
+        keys = set()
+        for layout in ("flat", "dense"):
+            keys |= set(next(iter(PointCloudLoader(events, labels, 8, False, layout=layout, factor_event_cols=(1,)))))
+        graphs = lineage_graphs(rng, 6, 12, 20)
+        for kw in (dict(layout="flat"), dict(layout="dense", emit_out_rows=True), dict(layout="dense", adj_wire="host")):
+            keys |= set(next(iter(GraphLoader(graphs, 3, False, **kw))))
+        pids = np.array([1, 1, 2, 0]); times = np.array([0.5, 0.7, 1.0, 0.0]); steps = np.arange(4)
+        parents = {{0: [], 1: [0], 2: [1]}}
+        same = np.array_equal(build_event_edges_native(pids, times, steps, parents),
+                              build_event_edges(pids, times, steps, parents))
+        print(host_library().path.name.startswith("libpcc_host_"), same, " ".join(sorted(keys)))
+        """
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    words = proc.stdout.split()
+    assert words[:2] == ["True", "True"]
+    assert {"event_feats", "seg", "seg_counts", "src", "edge_mask", "out_pos", "in_w", "adj"} <= set(words[2:])
 
 
 def test_flagship_wire_and_pipelines_run_without_jax():
