@@ -174,7 +174,22 @@ result):
    pre-packed batches: the flagship DeepSets wire at B=256, flat and dense,
    f32 (K1 and K2, CUDA events), and the in-row GAT (K3, K4) and fused
    GraphConv (K6, with out-rows) at B=256 (host clock), each with its
-   launch counts.
+   launch counts;
+23. the hyperparameter sweep, over the caches of phases 20 and 13 at the
+   configs' widths, 2 epochs: (a) ``sweep.main`` for DeepSets, 3 runs one at
+   a time (``--seed 0``), the leaderboard and run directories checked, K1
+   and K2 counted against each run's loaders and route, the winner through
+   the command line's ``evaluate``; (b) ``sweep.main --vmap`` for GraphNet,
+   4 runs, every group trained; ``train_configs_vmapped`` for (c) DeepSets,
+   K = 4 arms at B=32 (K1 and K2 once an arm a step), (d) GAT, K = 4 (K3
+   and K4 twice an arm, one mirror a step) and (e) GAT + SAG, K = 2 (a
+   mirror for conv1 and one an arm for conv2): each arm against a
+   sequential ``ModelWrapper`` run with its seed and learning rate (final
+   train loss within 1e-4 relative, val accuracy within one example), the
+   vmapped step against itself under ``force_plain()`` (loss and gradients
+   within 1e-4), the kernels a vmapped step launches, and ms per arm-step
+   vmapped against K sequential steps by CUDA events, in turns; the phase's
+   seconds.
 
 Beside each kernel's time the script works out the least time the card could
 take for the same work (``bound_ms``: the bytes the function must move over
@@ -203,6 +218,7 @@ import numpy as np
 import torch
 
 from point_cloud_classifier_tpu_torch import cli, convert, factory
+from point_cloud_classifier_tpu_torch import sweep as port_sweep
 from point_cloud_classifier_tpu_torch import train as port_train
 from point_cloud_classifier_tpu_torch.data import GraphLoader, PointCloudLoader
 from point_cloud_classifier_tpu_torch.data.prefetch import prefetch_to_device
@@ -253,6 +269,7 @@ from point_cloud_classifier_tpu_torch.ops.knn import (
     knn_select,
     knn_select_plain,
 )
+from point_cloud_classifier_tpu_torch.parallel import VmappedArms, train_configs_vmapped
 from point_cloud_classifier_tpu_torch.utils.config import load_config
 
 SEED = 0
@@ -2712,6 +2729,237 @@ def cli_phase(smi: str, work_dir: str) -> dict:
     return launches
 
 
+# phase 23: the hyperparameter sweep
+SWEEP_EPOCHS = 2
+SWEEP_LRS = (1e-3, 5e-4, 2e-3, 3e-4)  # the arms' learning rates (K = 4)
+# an arm against its sequential run: the final weights' mean train loss
+# (eval mode, the train split unshuffled) within 1e-4 relative; the
+# vmapped step against itself under force_plain(): loss and every gradient
+# within 1e-4 of the largest plain entry (max(1, ·)); the same f32 math,
+# matrix products batched over the arms and the kernels' sums in their
+# own orders
+SWEEP_LOSS_RTOL, SWEEP_STEP_TOL = 1e-4, 1e-4
+SWEEP_TURNS = 5  # timed turns of a vmapped step against K sequential steps
+
+
+def _sweep_loaders(dataset: str, cfg: dict):
+    module = factory.get_dataloader(dataset, cfg)
+    return module.get_train_loader(), module.get_val_loader()
+
+
+def _rewound(*loaders):
+    """The loaders at their first shuffle epoch, as a fresh data module's."""
+    for loader in loaders:
+        loader._epoch = 0
+    return loaders
+
+
+def _sweep_main(label: str, *argv) -> dict:
+    """``sweep.main`` in this process, with every launch count set to 0 just
+    before it; returns the counts read just after and the seconds."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    port_sweep.main(list(argv))
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"sweep {label}: {seconds:.1f} s, launches {({k: v for k, v in counts.items() if v})}")
+    return counts, seconds
+
+
+def _leaderboard(search: str, runs: int) -> list:
+    status = os.path.join(search, "status_log.txt")
+    if os.path.exists(status):
+        with open(status) as f:
+            raise AssertionError(f"sweep: runs failed:\n{f.read()[:2000]}")
+    with open(os.path.join(search, "search_results.json")) as f:
+        top = json.load(f)
+    if len(top) != runs or [r["val_acc"] for r in top] != sorted((r["val_acc"] for r in top), reverse=True):
+        raise AssertionError(f"sweep: the leaderboard is not {runs} runs sorted by val_acc: {top}")
+    for r in top:
+        run = os.path.join(search, f"version_{r['version']}")
+        missing = {"config.yaml", "meta.json", "model.pt", "best_model.pt"} - set(os.listdir(run))
+        if missing:
+            raise AssertionError(f"sweep: {run} lacks {sorted(missing)}")
+    return top
+
+
+def sweep_sequential_phase(work_dir: str, data: str) -> dict:
+    """(a) ``sweep.main`` for DeepSets, one run at a time at the sampled
+    widths, with K1's and K2's launches as each run's loaders and route say;
+    the winner through the command line's ``evaluate``."""
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    search = os.path.join(work_dir, "sweep_deep_sets")
+    argv = ["deep_sets", "--seed", "0", "--max-runs", "3", "--epochs", str(SWEEP_EPOCHS), "--force",
+            "--config-dir", configs, "--data-dir", data, "--search-dir", search]
+    counts, seconds = _sweep_main("deep_sets (sequential, 3 runs)", *argv)
+    top = _leaderboard(search, 3)
+    want = dict.fromkeys(counts, 0)
+    for version in range(3):
+        hp = load_config(os.path.join(search, f"version_{version}", "config.yaml"))
+        train, val = _sweep_loaders("s2ppc", hp)
+        kernel = DeepSets(**hp["model"])._use_kernel()
+        n_tr, n_va = len(train), len(val)
+        print(f"sweep deep_sets version_{version}: phi {hp['model']['phi_layers']}, rho "
+              f"{hp['model']['rho_layers']}, B={hp['dataset']['batch_size']}, lr "
+              f"{hp['trainer']['learning_rate']:.3e}; {'K1 and K2' if kernel else 'the plain path'}")
+        if kernel:  # per epoch the steps and a validation; then predict on train and val
+            want["phi_pool"] += SWEEP_EPOCHS * (n_tr + n_va) + n_tr + n_va
+            want["phi_pool_bwd"] += SWEEP_EPOCHS * n_tr
+    if counts != want or not counts["phi_pool_bwd"]:
+        raise AssertionError(f"sweep deep_sets: launches {counts}, expected {want}")
+    win = os.path.join(search, f"version_{top[0]['version']}")
+    cli.main(["evaluate", win])
+    with open(os.path.join(win, "eval", "metrics.json")) as f:
+        metrics = json.load(f)
+    print(f"sweep deep_sets: leaderboard {top}; the winner evaluates: {metrics}")
+    if set(metrics) != {"accuracy_train", "accuracy_val", "accuracy_test"}:
+        raise AssertionError("sweep deep_sets: evaluate did not score the winner")
+    return {k: v for k, v in counts.items() if v}
+
+
+def sweep_vmapped_phase(work_dir: str, data: str) -> dict:
+    """(b) ``sweep.main --vmap`` for GraphNet: every sampled group trains."""
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    search = os.path.join(work_dir, "sweep_graph_net")
+    counts, seconds = _sweep_main(
+        "graph_net --vmap (4 runs)", "graph_net", "--vmap", "--seed", "0", "--max-runs", "4", "--epochs",
+        str(SWEEP_EPOCHS), "--force", "--config-dir", configs, "--data-dir", data, "--search-dir", search)
+    top = _leaderboard(search, 4)
+    for r in sorted(top, key=lambda r: r["version"]):
+        hp = load_config(os.path.join(search, f"version_{r['version']}", "config.yaml"))
+        print(f"sweep graph_net version_{r['version']}: {hp['model']}, B={hp['dataset']['batch_size']}, "
+              f"{hp['trainer']['optimizer']} lr {hp['trainer']['learning_rate']:.3e}; val_acc {r['val_acc']}")
+    return {k: v for k, v in counts.items() if v}
+
+
+def sweep_arms_phase(smi: str, name: str, model_name: str, dataset: str, cfg: dict, lrs, per_step: dict) -> dict:
+    """(c)-(e) ``train_configs_vmapped`` at the config's widths: each arm
+    against a sequential ``ModelWrapper`` run with its seed and learning rate,
+    the vmapped step against itself under ``force_plain()``, the kernels a
+    vmapped step launches (``per_step``), and ms per arm-step vmapped against
+    K sequential steps.  Returns the launches of the vmapped training."""
+    k = len(lrs)
+    optimizer = cfg["trainer"].get("optimizer", "adam")
+    model_cls = {"deep_sets": DeepSets, "graph_net": GraphNet}[model_name]
+    train, val = _sweep_loaders(dataset, cfg)  # rewound for every run
+    n_tr, n_va = len(train), len(val)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train_configs_vmapped(model_cls(**cfg["model"]), list(lrs), optimizer, SWEEP_EPOCHS,
+                                   *_rewound(train, val), seeds=[SEED] * k)
+    seconds = time.perf_counter() - t0
+    counts = {key: v for key, v in launch_counts().items() if v}
+    # per epoch the steps and a validation, then one pass over the train split
+    forwards, steps = SWEEP_EPOCHS * (n_tr + n_va) + n_tr, SWEEP_EPOCHS * n_tr
+    want = {key: v * (steps if key in per_step["backward"] else forwards if key in per_step["forward"] else steps)
+            for key, v in per_step["counts"].items()}
+    print(f"sweep arms {name}: K={k}, {SWEEP_EPOCHS} epochs of {n_tr} steps (B={cfg['dataset']['batch_size']}), "
+          f"{seconds:.1f} s; launches {counts} (expected {want}); val_accs {result['val_accs']}")
+    if counts != want:
+        raise AssertionError(f"sweep arms {name}: launches {counts}, expected {want}")
+
+    unshuffled = copy.copy(train)
+    unshuffled.shuffle = False
+    wrappers = []
+    for arm, lr in enumerate(lrs):
+        arm_cfg = copy.deepcopy(cfg)
+        arm_cfg["trainer"].update(learning_rate=lr, seed=SEED, epochs=SWEEP_EPOCHS, state_every=0)
+        arm_cfg.pop("logging", None)
+        wrapper = factory.get_model(model_name, arm_cfg)
+        wrapper.fit(*_rewound(train, val))
+        y, pred = wrapper.predict(val)
+        seq_acc = port_train.accuracy(y, pred)
+        seq_loss = wrapper._evaluate(unshuffled)[0]
+        wrapper.model.load_state_dict(result["final_state"][arm])
+        arm_loss = wrapper._evaluate(unshuffled)[0]
+        rel = abs(arm_loss - seq_loss) / max(abs(seq_loss), 1e-12)
+        apart = abs(result["val_accs"][arm] - seq_acc) * len(y)
+        print(f"sweep arms {name} arm {arm} (lr {lr:.1e}): final train loss vmapped {arm_loss:.6f}, sequential "
+              f"{seq_loss:.6f}, rel {rel:.2e} (bound {SWEEP_LOSS_RTOL:.0e}); val accuracy {result['val_accs'][arm]:.6f} "
+              f"against {seq_acc:.6f} ({apart:.0f} of {len(y)} examples apart, bound 1)")
+        if not rel <= SWEEP_LOSS_RTOL or not apart <= 1.0 + 1e-9:
+            raise AssertionError(f"sweep arms {name} arm {arm}: the vmapped arm does not follow its sequential run")
+        wrappers.append(factory.get_model(model_name, arm_cfg))
+
+    arms = VmappedArms(model_cls(**cfg["model"]), list(lrs), optimizer, seeds=[SEED] * k)
+    batch = arms.put(next(iter(unshuffled)))
+    grads, loss, _ = arms.grads(batch)
+    with force_plain():
+        plain_grads, plain_loss, _ = arms.grads(batch)
+    errs = [_max_rel(loss, plain_loss)] + [_max_rel(grads[n], plain_grads[n]) for n in grads]
+    print(f"sweep arms {name}: vmapped step against force_plain(): loss and {len(grads)} gradients, max rel "
+          f"{max(errs):.2e} (bound {SWEEP_STEP_TOL:.0e})")
+    if not max(errs) <= SWEEP_STEP_TOL:
+        raise AssertionError(f"sweep arms {name}: the kernel route does not follow the plain route")
+    reset_launch_counts()
+    arms.step(batch)
+    torch.cuda.synchronize()
+    step_counts = {key: v for key, v in launch_counts().items() if v}
+    print(f"sweep arms {name}: kernels a vmapped step of K={k} launches: {step_counts}")
+    if step_counts != per_step["counts"]:
+        raise AssertionError(f"sweep arms {name}: a step launched {step_counts}, expected {per_step['counts']}")
+
+    # ms per arm-step: one vmapped step over K arms against K sequential
+    # steps (each wrapper its own step), CUDA events, in turns
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed(fn):
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / k
+
+    def sequential():
+        for w in wrappers:
+            w.train_step(batch)
+
+    for _ in range(2):  # warm-up
+        arms.step(batch)
+        sequential()
+    vm, seq = [], []
+    for _ in range(SWEEP_TURNS):
+        vm.append(timed(lambda: arms.step(batch)))
+        seq.append(timed(sequential))
+    print(f"time sweep arms {name}: ms per arm-step at K={k}, B={cfg['dataset']['batch_size']}, median of "
+          f"{SWEEP_TURNS} turns (CUDA events): vmapped {np.median(vm):.4f} ({min(vm):.4f}-{max(vm):.4f}), "
+          f"sequential {np.median(seq):.4f} ({min(seq):.4f}-{max(seq):.4f}) [{smi}]")
+    return counts
+
+
+def sweep_phase(smi: str, work_dir: str) -> dict:
+    """Phase 23, the hyperparameter sweep on the card (the caches of phases
+    20 and 13): (a) and (b) through ``sweep.main``, (c)-(e) through
+    ``train_configs_vmapped`` against sequential runs.  Returns the launches
+    of all five, summed."""
+    t0 = time.perf_counter()
+    clouds, graphs = os.path.join(work_dir, "cli_data"), os.path.join(work_dir, "s2pg_train")
+    parts = [sweep_sequential_phase(work_dir, clouds), sweep_vmapped_phase(work_dir, graphs)]
+    ds_cfg = load_config(os.path.join("configs", "base.yaml"), os.path.join("configs", "deep_sets.yaml"))
+    ds_cfg["dataset"]["data_dir"] = clouds
+    k = len(SWEEP_LRS)
+    parts.append(sweep_arms_phase(
+        smi, "DeepSets", "deep_sets", "s2ppc", ds_cfg, SWEEP_LRS,
+        {"counts": {"phi_pool": k, "phi_pool_bwd": k}, "forward": {"phi_pool"}, "backward": {"phi_pool_bwd"}}))
+    gat_cfg = graph_training_config(graphs, os.path.join(work_dir, "sweep_log"), SWEEP_EPOCHS, use_gat=True)
+    parts.append(sweep_arms_phase(
+        smi, "GAT", "graph_net", "s2pg", gat_cfg, SWEEP_LRS,
+        {"counts": {"gat_attention": 2 * k, "gat_attention_bwd": 2 * k, "gat_out_rows": 1},
+         "forward": {"gat_attention"}, "backward": {"gat_attention_bwd"}}))
+    sag_cfg = graph_training_config(graphs, os.path.join(work_dir, "sweep_log"), SWEEP_EPOCHS, use_gat=True,
+                                    sag_pool=True)
+    parts.append(sweep_arms_phase(
+        smi, "GAT + SAG", "graph_net", "s2pg", sag_cfg, SWEEP_LRS[:2],
+        {"counts": {"gat_attention": 4, "gat_attention_bwd": 4, "gat_out_rows": 3},
+         "forward": {"gat_attention"}, "backward": {"gat_attention_bwd"}}))
+    total = {}
+    for part in parts:
+        for key, v in part.items():
+            total[key] = total.get(key, 0) + v
+    print(f"seconds: sweep phase {time.perf_counter() - t0:.1f} [{smi}]")
+    return total
+
+
 # phase 22: the C++ host packers and the edge builder
 PACK_B = 256
 PACK_PASSES = 5  # host-clock passes over each wire's batches, per packer, in turns
@@ -3014,6 +3262,12 @@ def main() -> None:
               f"K2 {cli_launches['phi_pool_bwd']}")
         host_phase(smi, run_dir)
         lap("host packers")
+        sweep_launches = sweep_phase(smi, run_dir)
+        lap("sweep")
+        print(f"launches: sweep (sequential, vmapped search and the vmapped arms) {sweep_launches}")
+        for name in launches:
+            beside.setdefault(name, {})["sweep_launches"] = sweep_launches.get(name, 0)
+            launches[name] += sweep_launches.get(name, 0)
     profile_phase(smi)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{

@@ -31,8 +31,10 @@ to ``[B·M, F]`` with int32 ids made on the device (the event's index where
 the point's place in its row is below the event's count, else the padding id
 ``B``).  The JAX package sends the dense wire to XLA only, since its Pallas
 kernels have no per-point validity; the port's kernels skip the padding id.
-Layer norm or max pooling take the plain path, which is model semantics and
-not a fallback: on the dense wire a masked row sum (max: ``-inf`` outside
+Layer norm, max pooling, and a φ chain whose tiles K1 and K2 cannot hold
+(``ops/fused_phi.kernel_takes_chain``; φ [1024] × 4, which the sweep's
+sampler draws, is the narrowest) take the plain path, decided before any
+launch; this is model semantics and not a fallback: on the dense wire a masked row sum (max: ``-inf`` outside
 the mask, an empty event pools to 0).  ``fused_phi="off"`` forces the plain
 path (the reference for checking the kernel).
 
@@ -58,7 +60,11 @@ from point_cloud_classifier_tpu_torch.models.common import (
     TorchLinear,
     resolve_dtype,
 )
-from point_cloud_classifier_tpu_torch.ops.fused_phi import phi_forward, phi_pool
+from point_cloud_classifier_tpu_torch.ops.fused_phi import (
+    kernel_takes_chain,
+    phi_forward,
+    phi_pool,
+)
 from point_cloud_classifier_tpu_torch.ops.segment import (
     counts_to_segment_ids,
     segment_count,
@@ -191,12 +197,23 @@ class DeepSets(nn.Module):
         params.append((final.weight.t(), final.bias))
         return tuple(spec), tuple(params)
 
+    def _post_pool(self) -> bool:
+        """Whether the bare final φ linear runs per event after pooling."""
+        return self.pooling in ("sum", "mean") and os.environ.get("PCC_PHI_POSTPOOL", "1") != "0"
+
     def _use_kernel(self) -> bool:
-        return (
-            self.fused_phi != "off"
-            and not self.layer_norm
-            and self.pooling in ("sum", "mean")
-        )
+        """The route, decided before any launch: the kernels for a chain
+        without layer norm under sum or mean pooling that K1 and K2 take
+        (``ops/fused_phi.kernel_takes_chain``: their 8-row tiles fit 227 KB
+        of shared memory, which φ [1024] × 4 does not), else the plain
+        path."""
+        if self.fused_phi == "off" or self.layer_norm or self.pooling not in ("sum", "mean"):
+            return False
+        post_pool = self._post_pool()
+        kinds = [kind for kind, _ in self._phi_slots] + ([] if post_pool else ["linear"])
+        widths = self.config["phi_layers"]
+        dims = [self.input_dim, *widths] + ([] if post_pool else widths[-1:])
+        return kernel_takes_chain(dims, kinds)
 
     def _reassemble(self, points, event_feats, seg, num_events, row_m):
         """The full ``[P, input_dim]`` point features, the factored columns
@@ -241,10 +258,7 @@ class DeepSets(nn.Module):
             counts = segment_count(seg, num_segments)[:num_events]
         safe = torch.clamp(counts, min=1.0).reshape(-1, 1)
 
-        post_pool = (
-            self.pooling in ("sum", "mean")
-            and os.environ.get("PCC_PHI_POSTPOOL", "1") != "0"
-        )
+        post_pool = self._post_pool()
         phi_params = params[:-1] if post_pool else params
         if self._use_kernel():
             if row_m is not None:

@@ -128,6 +128,14 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def put_batch(batch, model: nn.Module, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The batch on ``device``, without the arrays ``model`` says it never
+    reads (a kNN GraphNet builds its own edges); a tensor already on the
+    device is used as it is."""
+    unused = getattr(model, "unused_batch_keys", ())
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items() if k not in unused}
+
+
 def _p50_ms(seconds) -> float:
     """The JAX package's ``StepTimer`` median: the sorted sample at index
     ``round(0.5 · (n − 1))``, in ms."""
@@ -208,15 +216,7 @@ class ModelWrapper:
         self._shapes_seen = set()
 
     def _put(self, batch) -> Dict[str, torch.Tensor]:
-        """The batch on the device, without the arrays the model says it
-        never reads (a kNN GraphNet builds its own edges); a tensor already
-        on the device is used as it is."""
-        unused = getattr(self.model, "unused_batch_keys", ())
-        return {
-            k: torch.as_tensor(v).to(self.device)
-            for k, v in batch.items()
-            if k not in unused
-        }
+        return put_batch(batch, self.model, self.device)
 
     def _batches(self, loader: Iterable) -> Iterable:
         """The batch stream of a training or evaluation loop: a resident

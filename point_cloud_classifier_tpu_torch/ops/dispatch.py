@@ -11,6 +11,13 @@ the package enters it on its own.
 
 The flag is read when the op is called (PyTorch runs eagerly), so the
 context covers exactly the calls made inside it.
+
+Under ``torch.func`` (the vmapped sweep arms of ``parallel/vmap_sweep.py``)
+each kernel's autograd Function carries a ``vmap`` rule, :func:`per_arm`:
+the arm axis is unbound, the Function is applied to each arm's plain
+tensors, and the results are stacked.  A raw binding never sees a batched
+or gradient-tracking wrapper: :func:`require_plain_tensors` raises where one
+would reach it.
 """
 
 from __future__ import annotations
@@ -37,3 +44,29 @@ def force_plain():
         yield
     finally:
         _FORCE_PLAIN = prev
+
+
+def require_plain_tensors(*tensors) -> None:
+    """Raise if any of ``tensors`` is a ``torch.func`` wrapper (a batched or
+    gradient-tracking tensor): a kernel's C entry reads raw device pointers
+    and would read the wrapped storage as if it were one arm's."""
+    for t in tensors:
+        if torch._C._functorch.is_functorch_wrapped_tensor(t):
+            raise TypeError(
+                "a torch.func-wrapped tensor reached a kernel binding; the op's "
+                "vmap rule must unbind the arm axis first"
+            )
+
+
+def per_arm(fn, info, in_dims, *args):
+    """A ``vmap`` rule of an autograd Function: ``fn(*args)`` once per arm,
+    each batched argument taken at that arm, and the outputs stacked on a
+    leading arm axis.  Returns ``(outputs, out_dims)`` as
+    ``torch.autograd.Function.vmap`` must."""
+    outs = [
+        fn(*(a.select(d, arm) if d is not None else a for a, d in zip(args, in_dims)))
+        for arm in range(info.batch_size)
+    ]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*outs)), (0,) * len(outs[0])
+    return torch.stack(outs), 0

@@ -21,6 +21,12 @@ Counterpart of ``point_cloud_classifier_tpu/ops/fused_phi.py``:
   layer and one 256 -> 256 layer, in K2 and in bf16 K1; the general one for
   f32 K1 (where it measured faster) and for every other chain;
   ``phi_pool.variant`` and ``phi_pool.bwd_variant`` name the last launch's.
+  Under ``torch.func.vmap`` (a sweep's arms) each arm launches its own K1
+  and K2 (``ops/dispatch.per_arm``);
+- :func:`kernel_takes_chain` — whether the general variants' 8-row tiles of
+  a chain fit in shared memory, K2's being the larger: the rule by which
+  DeepSets routes a chain to the kernels or to the plain path before any
+  launch.
 
 φ layer spec: a tuple of ``("plain" | "residual", has_ln)`` entries.
 ``params`` holds one ``(w [in, out], b[, ln_scale, ln_bias])`` per spec entry,
@@ -48,6 +54,11 @@ import torch
 from point_cloud_classifier_tpu_torch.ops.activations import (
     gelu_variant,
     resolve_activation,
+)
+from point_cloud_classifier_tpu_torch.ops.dispatch import (
+    per_arm,
+    require_plain_tensors,
+    use_cuda_kernels,
 )
 from point_cloud_classifier_tpu_torch.ops.segment import segment_sum
 
@@ -188,6 +199,34 @@ _BARE_LINEAR = 2
 _ACTS = {"relu": 0, "silu": 1, "tanh": 2}
 _QUICK_GELU, _GELU_TANH = 3, 4
 _MAX_LAYERS = 8  # csrc/phi_chain.cuh kMaxLayers
+_MAX_SMEM = 232448  # csrc/phi_chain.cuh kMaxSmem: 227 KB a block
+_MIN_ROWS = 8  # the general variants' narrowest tile
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def kernel_takes_chain(dims: Sequence[int], kinds: Sequence[str]) -> bool:
+    """Whether K1 and K2 take a chain of widths ``dims`` (input first) and
+    layer kinds ``kinds`` (``"plain"``, ``"residual"``, ``"linear"`` for the
+    bare final linear): at most ``_MAX_LAYERS`` layers, and the general
+    variants' tiles of 8 rows within 227 KB of shared memory, as their C
+    entries size them.  K1 keeps two f32 rows of the widest layer a row
+    (``csrc/phi_pool.cu:smem_bytes``); K2 keeps every layer's input, every
+    activated layer's pre-activation and two gradient rows of the widest
+    output (``csrc/phi_pool_bwd.cu:BwdLayout``), each rounded up to 4 floats,
+    so K2 refuses first: φ [1024] × 4 (post-pool placement) is the narrowest
+    DeepSets chain it cannot hold.  The sliced variants serve chains whose
+    general tiles fit."""
+    if len(kinds) > _MAX_LAYERS:
+        return False
+    k1 = 2 * _MIN_ROWS * _round4(max(dims)) * 4 + _MIN_ROWS * 4
+    cols = sum(_round4(d) for d in dims[:-1])
+    cols += sum(_round4(d) for d, kind in zip(dims[1:], kinds) if kind != "linear")
+    cols += 2 * max((_round4(d) for d in dims[1:]), default=0)
+    k2 = _MIN_ROWS * cols * 4 + _MIN_ROWS * 4
+    return max(k1, k2) <= _MAX_SMEM
 
 
 def _activation_code(activation: str) -> int:
@@ -200,28 +239,32 @@ def _activation_code(activation: str) -> int:
 
 class _PhiPoolFn(torch.autograd.Function):
     """K1 forward and K2 backward on CUDA tensors, the plain versions on CPU
-    ones.  Like the JAX custom VJP it saves only its inputs: the backward
-    recomputes the chain, and no ``[P, H]`` activation is kept.  The weights
-    and biases arrive as flat tensor arguments so that autograd sees them."""
+    ones (and inside ``force_plain``).  Like the JAX custom VJP it saves only
+    its inputs: the backward recomputes the chain, and no ``[P, H]``
+    activation is kept.  The weights and biases arrive as flat tensor
+    arguments so that autograd sees them.  Under ``torch.func.vmap`` each arm
+    takes its own launch (:func:`~point_cloud_classifier_tpu_torch.ops.dispatch.per_arm`),
+    and the backward is :class:`_PhiPoolBwdFn`, which has the same rule."""
 
     @staticmethod
-    def forward(ctx, points, seg, spec, activation, num_segments, *flat):
+    def forward(points, seg, spec, activation, num_segments, *flat):
         params = tuple(zip(flat[0::2], flat[1::2]))
+        if use_cuda_kernels(points):
+            return _phi_pool_cuda(points, seg, spec, params, activation, num_segments)
+        return phi_pool_plain(points, seg, spec, params, activation, num_segments)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        points, seg, spec, activation, num_segments, *flat = inputs
         ctx.save_for_backward(points, seg, *flat)
         ctx.spec, ctx.activation, ctx.num_segments = spec, activation, num_segments
-        if points.device.type == "cpu":
-            return phi_pool_plain(points, seg, spec, params, activation, num_segments)
-        return _phi_pool_cuda(points, seg, spec, params, activation, num_segments)
 
     @staticmethod
     def backward(ctx, g):
         points, seg, *flat = ctx.saved_tensors
-        params = tuple(zip(flat[0::2], flat[1::2]))
         with_points = ctx.needs_input_grad[0]
-        bwd = phi_pool_bwd_plain if points.device.type == "cpu" else _phi_pool_bwd_cuda
-        d_points, grads = bwd(
-            points, seg, g, ctx.spec, params, ctx.activation,
-            ctx.num_segments, with_points=with_points,
+        d_points, *grads = _PhiPoolBwdFn.apply(
+            points, seg, g, ctx.spec, ctx.activation, ctx.num_segments, with_points, *flat
         )
         # each gradient in its parameter's dtype (_reassemble_param_grads)
         d_flat = [
@@ -230,6 +273,40 @@ class _PhiPoolFn(torch.autograd.Function):
         ]
         return (d_points if with_points else None, None, None, None, None, *d_flat)
 
+    @staticmethod
+    def vmap(info, in_dims, points, seg, spec, activation, num_segments, *flat):
+        def one(p, s, *f):
+            return _PhiPoolFn.apply(p, s, spec, activation, num_segments, *f)
+
+        return per_arm(one, info, (in_dims[0], in_dims[1], *in_dims[5:]), points, seg, *flat)
+
+
+class _PhiPoolBwdFn(torch.autograd.Function):
+    """``(d_points, d_w0, d_b0, …)`` of :class:`_PhiPoolFn`: K2 on CUDA
+    tensors, :func:`phi_pool_bwd_plain` on CPU ones (and inside
+    ``force_plain``).  ``d_points`` is an empty tensor unless
+    ``with_points``.  Not differentiable itself."""
+
+    @staticmethod
+    def forward(points, seg, g, spec, activation, num_segments, with_points, *flat):
+        params = tuple(zip(flat[0::2], flat[1::2]))
+        bwd = _phi_pool_bwd_cuda if use_cuda_kernels(points) else phi_pool_bwd_plain
+        d_points, grads = bwd(
+            points, seg, g, spec, params, activation, num_segments, with_points=with_points
+        )
+        return (points.new_zeros(0) if d_points is None else d_points, *grads)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, points, seg, g, spec, activation, num_segments, with_points, *flat):
+        def one(p, s, gg, *f):
+            return _PhiPoolBwdFn.apply(p, s, gg, spec, activation, num_segments, with_points, *f)
+
+        return per_arm(one, info, (*in_dims[:3], *in_dims[7:]), points, seg, g, *flat)
+
 
 def phi_pool(
     points, seg, spec: Spec, params: Sequence, activation: str, num_segments: int
@@ -237,16 +314,17 @@ def phi_pool(
     """Fused φ + f32 segment sums ``[num_segments, H]``, differentiable in
     ``points`` and every weight and bias.
 
-    CPU tensors take :func:`phi_pool_plain` forward and
-    :func:`phi_pool_bwd_plain` backward; CUDA tensors launch K1 forward and
-    K2 backward.  Layer-norm specs have no kernel: on CPU they take
-    :func:`phi_pool_plain` under autograd, and on CUDA they raise, as does
-    anything else the kernels cannot compute — there is no fallback.
+    CPU tensors (and any inside ``force_plain``) take
+    :func:`phi_pool_plain` forward and :func:`phi_pool_bwd_plain` backward;
+    CUDA tensors launch K1 forward and K2 backward.  Layer-norm specs have no
+    kernel: off the kernels they take :func:`phi_pool_plain` under autograd,
+    and on them they raise, as does anything else the kernels cannot compute
+    (:func:`kernel_takes_chain`) — there is no fallback.
     """
     if points.device.type not in ("cpu", "cuda"):
         raise ValueError(f"phi_pool takes CPU or CUDA tensors, got {points.device}")
     if any(has_ln for _, has_ln in spec):
-        if points.device.type == "cuda":
+        if use_cuda_kernels(points):
             raise ValueError("K1 takes no layer norm: LN specs use phi_pool_plain")
         return phi_pool_plain(points, seg, spec, params, activation, num_segments)
     flat = [t for layer in params for t in layer[:2]]
@@ -278,6 +356,7 @@ def _kernel_operands(points, seg, spec, params):
         )
     if seg.dtype != torch.int32 or seg.device != points.device:
         raise TypeError("seg must be int32 on the points' device")
+    require_plain_tensors(points, seg, *(t for layer in params for t in layer[:2]))
 
     dtype, device = points.dtype, points.device
     weights = [layer[0].to(device=device, dtype=dtype) for layer in params]
@@ -362,6 +441,7 @@ def _phi_pool_bwd_cuda(
     from point_cloud_classifier_tpu_torch.native import check, kernel_library
 
     weights, biases, dims, kinds = _kernel_operands(points, seg, spec, params)
+    require_plain_tensors(g)
     device = points.device
     if g.device != device or tuple(g.shape) != (num_segments, dims[-1]):
         raise ValueError(

@@ -18,7 +18,9 @@ Counterpart of ``point_cloud_classifier_tpu/ops/gat_pallas.py``:
   launches the mirror kernel of ``csrc/gat_attention_bwd.cu`` or raises;
   :func:`gat_out_rows_plain` is its plain version.  The same rule as the
   attention decides which slots count.  ``gat_out_rows.launches`` counts the
-  kernel's launches;
+  kernel's launches.  Under ``torch.func.vmap`` each arm's mirror is built
+  on its own where the lists carry the arm axis (a sweep's keep-masked
+  lists after SAG), once where they do not;
 - :func:`gat_attention` — the entry point.  A CPU tensor takes the plain
   version under autograd; a CUDA tensor goes through an autograd Function
   whose forward launches ``csrc/gat_attention.cu`` (K3, which replaces both
@@ -29,7 +31,9 @@ Counterpart of ``point_cloud_classifier_tpu/ops/gat_pallas.py``:
   every run; it builds the mirror itself unless the caller hands one in (one
   mirror serves every attention over the same lists).
   ``gat_attention.launches`` counts K3's launches and
-  ``gat_attention.bwd_launches`` K4's.
+  ``gat_attention.bwd_launches`` K4's.  The Function's own CPU version is
+  the plain one with the closed-form backward; under ``torch.func.vmap``
+  (a sweep's arms) each arm launches K3 and K4 on its own.
 
 Per head ``h`` and node ``i``: ``α_ij = softmax_j(LeakyReLU(s_dst[i, h] +
 s_src[j, h]))`` over the masked ``j``, and ``out[i, h-block] = Σ_j α_ij ·
@@ -63,7 +67,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from point_cloud_classifier_tpu_torch.ops.dispatch import use_cuda_kernels
+from point_cloud_classifier_tpu_torch.ops.dispatch import (
+    per_arm,
+    require_plain_tensors,
+    use_cuda_kernels,
+)
 from point_cloud_classifier_tpu_torch.ops.inrow_graph import (
     _MAX_SLOTS,
     _SRC_CODES,
@@ -174,14 +182,33 @@ def gat_out_rows_plain(in_src: torch.Tensor, in_w: torch.Tensor) -> GatMirror:
     return GatMirror(out_off, out_dst)
 
 
+class _GatOutRowsFn(torch.autograd.Function):
+    """The mirror as a Function, so that it has a ``vmap`` rule: after SAG
+    each arm of a sweep has its own keep-masked lists, and the rule builds
+    each arm's mirror on its own (``nonzero`` and the kernel alike take one
+    arm's lists)."""
+
+    @staticmethod
+    def forward(in_src, in_w):
+        if use_cuda_kernels(in_src):
+            return tuple(_gat_out_rows_cuda(in_src, in_w))
+        return tuple(gat_out_rows_plain(in_src, in_w))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*output)
+
+    @staticmethod
+    def vmap(info, in_dims, in_src, in_w):
+        return per_arm(_GatOutRowsFn.apply, info, in_dims, in_src, in_w)
+
+
 def gat_out_rows(in_src: torch.Tensor, in_w: torch.Tensor) -> GatMirror:
     """The mirror of the in-row lists, for K4: build it once per batch and hand
     it to every :func:`gat_attention` over the same lists."""
     if in_src.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gat_out_rows takes CPU or CUDA tensors, got {in_src.device}")
-    if use_cuda_kernels(in_src):
-        return _gat_out_rows_cuda(in_src, in_w)
-    return gat_out_rows_plain(in_src, in_w)
+    return GatMirror(*_GatOutRowsFn.apply(in_src, in_w))
 
 
 gat_out_rows.launches = 0
@@ -198,22 +225,65 @@ def gat_backward_mirror(in_src: torch.Tensor, in_w: torch.Tensor) -> Optional[Ga
 
 
 class _GatAttentionFn(torch.autograd.Function):
-    """K3 forward, K4 backward, on CUDA tensors."""
+    """K3 forward and K4 backward (:class:`_GatAttentionBwdFn`) on CUDA
+    tensors; the plain version and its closed-form backward on CPU ones (and
+    inside ``force_plain``), which the CPU tests drive.  The mirror rides as
+    two optional tensors.  Under ``torch.func.vmap`` each arm takes its own
+    launch (``ops/dispatch.per_arm``), with its own mirror where the lists
+    carry the arm axis."""
 
     @staticmethod
-    def forward(ctx, s_dst, s_src, in_src, in_w, xw, slope, mirror):
-        ctx.save_for_backward(s_dst, s_src, in_src, in_w, xw, *(mirror or ()))
+    def forward(s_dst, s_src, in_src, in_w, xw, slope, out_off, out_dst):
+        if use_cuda_kernels(xw):
+            return _gat_attention_cuda(s_dst, s_src, in_src, in_w, xw, slope)
+        return gat_attention_plain(s_dst, s_src, in_src, in_w, xw, slope)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        s_dst, s_src, in_src, in_w, xw, slope, out_off, out_dst = inputs
+        ctx.save_for_backward(s_dst, s_src, in_src, in_w, xw, out_off, out_dst)
         ctx.slope = slope
-        return _gat_attention_cuda(s_dst, s_src, in_src, in_w, xw, slope)
 
     @staticmethod
     def backward(ctx, g):
-        *operands, xw = ctx.saved_tensors[:5]
-        mirror = GatMirror(*ctx.saved_tensors[5:]) if len(ctx.saved_tensors) > 5 else None
-        grads = _gat_attention_bwd_cuda(*operands, xw, g, ctx.slope, mirror)
+        s_dst, s_src, in_src, in_w, xw, out_off, out_dst = ctx.saved_tensors
+        grads = _GatAttentionBwdFn.apply(s_dst, s_src, in_src, in_w, xw, g, ctx.slope, out_off, out_dst)
         need = ctx.needs_input_grad
         ds_dst, ds_src, dxw = (d if need[i] else None for d, i in zip(grads, (0, 1, 4)))
-        return ds_dst, ds_src, None, None, dxw, None, None
+        return ds_dst, ds_src, None, None, dxw, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, s_dst, s_src, in_src, in_w, xw, slope, out_off, out_dst):
+        def one(a, b, c, d, e, f, h):
+            return _GatAttentionFn.apply(a, b, c, d, e, slope, f, h)
+
+        dims = (*in_dims[:5], *in_dims[6:])
+        return per_arm(one, info, dims, s_dst, s_src, in_src, in_w, xw, out_off, out_dst)
+
+
+class _GatAttentionBwdFn(torch.autograd.Function):
+    """``(ds_dst, ds_src, dxw)``: K4 (over the mirror where one is given) on
+    CUDA tensors, :func:`gat_attention_bwd_plain` on CPU ones (and inside
+    ``force_plain``).  Not differentiable itself."""
+
+    @staticmethod
+    def forward(s_dst, s_src, in_src, in_w, xw, g, slope, out_off, out_dst):
+        if use_cuda_kernels(xw):
+            mirror = GatMirror(out_off, out_dst) if out_off is not None else None
+            return _gat_attention_bwd_cuda(s_dst, s_src, in_src, in_w, xw, g, slope, mirror)
+        return gat_attention_bwd_plain(s_dst, s_src, in_src, in_w, xw, g, slope)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, s_dst, s_src, in_src, in_w, xw, g, slope, out_off, out_dst):
+        def one(a, b, c, d, e, f, h, i):
+            return _GatAttentionBwdFn.apply(a, b, c, d, e, f, slope, h, i)
+
+        dims = (*in_dims[:6], *in_dims[7:])
+        return per_arm(one, info, dims, s_dst, s_src, in_src, in_w, xw, g, out_off, out_dst)
 
 
 def gat_attention(
@@ -231,7 +301,7 @@ def gat_attention(
         raise ValueError(f"gat_attention takes CPU or CUDA tensors, got {xw.device}")
     if not use_cuda_kernels(xw):
         return gat_attention_plain(s_dst, s_src, in_src, in_w, xw, slope)
-    return _GatAttentionFn.apply(s_dst, s_src, in_src, in_w, xw, slope, mirror)
+    return _GatAttentionFn.apply(s_dst, s_src, in_src, in_w, xw, slope, *(mirror or (None, None)))
 
 
 gat_attention.launches = 0
@@ -294,6 +364,7 @@ def _check_operands(s_dst, s_src, in_src, in_w, xw):
         raise ValueError(f"K3 takes at most {_MAX_SLOTS} in-row slots, got {d}")
     if any(t.device != xw.device for t in (s_dst, s_src, in_src, in_w)):
         raise ValueError("K3's operands must all lie on one device")
+    require_plain_tensors(s_dst, s_src, in_src, in_w, xw)
 
 
 def _gat_attention_cuda(s_dst, s_src, in_src, in_w, xw, slope: float = SLOPE, form=None):
@@ -352,6 +423,7 @@ def _check_lists(in_src, in_w):
         )
     if in_src.shape[-1] > _MAX_SLOTS:
         raise ValueError(f"the mirror takes at most {_MAX_SLOTS} in-row slots, got {in_src.shape[-1]}")
+    require_plain_tensors(in_src, in_w)
 
 
 def _gat_out_rows_cuda(in_src, in_w) -> GatMirror:
@@ -388,6 +460,7 @@ def _gat_attention_bwd_cuda(
     from point_cloud_classifier_tpu_torch.native import check, kernel_library
 
     _check_operands(s_dst, s_src, in_src, in_w, xw)
+    require_plain_tensors(g, *(mirror or ()))
     if g.shape != xw.shape or g.device != xw.device:
         raise ValueError(
             f"K4 takes a cotangent of xw's shape on its device, got {tuple(g.shape)} "

@@ -25,7 +25,9 @@ weights (``data/batching.GraphLoader``); row ``i`` of the adjacency holds node
   kernel of ``_inrow_aggregate_impl``) or raise; on a CPU tensor, or inside
   ``force_plain``, both take :func:`inrow_aggregate_plain`.
   ``inrow_aggregate.launches`` counts K6's forward launches and
-  ``inrow_aggregate.bwd_launches`` its backward ones.  The cotangent of
+  ``inrow_aggregate.bwd_launches`` its backward ones.  Under
+  ``torch.func.vmap`` (a sweep's arms) each arm launches K6 on its own, both
+  ways.  The cotangent of
   ``in_w`` (a row gather and a dot) is plain PyTorch, computed only when
   ``in_w`` requires a gradient.
 
@@ -56,7 +58,11 @@ from __future__ import annotations
 
 import torch
 
-from point_cloud_classifier_tpu_torch.ops.dispatch import use_cuda_kernels
+from point_cloud_classifier_tpu_torch.ops.dispatch import (
+    per_arm,
+    require_plain_tensors,
+    use_cuda_kernels,
+)
 
 # the wire's list types and the dtype codes of the C entries, shared with ops/gat.py
 _MAX_SLOTS = 32  # csrc/graph_rows.cuh kMaxSlots: one lane per slot
@@ -121,12 +127,16 @@ def inrow_aggregate_plain(h, in_src, in_w, aggr: str = "add"):
 
 class _InrowAggregateFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, in_src, in_w, out_dst, out_w, aggr):
+    def forward(h, in_src, in_w, out_dst, out_w, aggr):
+        return _aggregate(h, in_src, in_w, aggr, backward=False)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        h, in_src, in_w, out_dst, out_w, aggr = inputs
         # h is an activation per convolution and only in_w's cotangent reads it
         keep_h = h if ctx.needs_input_grad[2] else None
         ctx.save_for_backward(keep_h, in_src, in_w, out_dst, out_w)
         ctx.aggr = aggr
-        return _aggregate(h, in_src, in_w, aggr, backward=False)
 
     @staticmethod
     def backward(ctx, g):
@@ -143,7 +153,7 @@ class _InrowAggregateFn(torch.autograd.Function):
         dh = din_w = None
         if ctx.needs_input_grad[0]:
             # adjᵀ @ g: the same aggregation over the out-row lists, always "add"
-            dh = _aggregate(g, out_dst, out_w, "add", backward=True)
+            dh = _AggregateFn.apply(g, out_dst, out_w, "add", True)
         if ctx.needs_input_grad[2]:
             # d out[b, i] / d in_w[b, i, d] = h[b, src_d]: a row gather and a dot
             src = in_src.long().clamp(0, h.shape[1] - 1)
@@ -151,6 +161,34 @@ class _InrowAggregateFn(torch.autograd.Function):
             gathered = h[rows, src].float()  # [B, M, D, H]
             din_w = (gathered * g.float()[:, :, None, :]).sum(dim=-1).to(in_w.dtype)
         return dh, None, din_w, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, h, in_src, in_w, out_dst, out_w, aggr):
+        def one(a, b, c, d, e):
+            return _InrowAggregateFn.apply(a, b, c, d, e, aggr)
+
+        return per_arm(one, info, in_dims[:5], h, in_src, in_w, out_dst, out_w)
+
+
+class _AggregateFn(torch.autograd.Function):
+    """One aggregation (:func:`_aggregate`) as a Function, for the backward
+    of :class:`_InrowAggregateFn`: its ``vmap`` rule unbinds the arm axis
+    before K6 sees a tensor.  Not differentiable itself."""
+
+    @staticmethod
+    def forward(h, src, w, aggr, backward):
+        return _aggregate(h, src, w, aggr, backward)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, h, src, w, aggr, backward):
+        def one(a, b, c):
+            return _AggregateFn.apply(a, b, c, aggr, backward)
+
+        return per_arm(one, info, in_dims[:3], h, src, w)
 
 
 def inrow_aggregate(h, in_src, in_w, out_dst=None, out_w=None, aggr: str = "add"):
@@ -196,6 +234,7 @@ def _check_operands(h, in_src, in_w):
         raise ValueError(f"K6 takes at most {_MAX_SLOTS} slots per row, got {in_src.shape[-1]}")
     if in_src.device != h.device or in_w.device != h.device:
         raise ValueError("K6's operands must all lie on one device")
+    require_plain_tensors(h, in_src, in_w)
 
 
 def _inrow_aggregate_cuda(h, in_src, in_w, aggr: str = "add", backward: bool = False, form=None):

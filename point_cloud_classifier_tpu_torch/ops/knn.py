@@ -40,7 +40,9 @@ Counterpart of ``point_cloud_classifier_tpu/ops/knn.py`` and
   raise; on a CPU tensor, or inside ``force_plain``, both take the plain
   versions, which read the plan's thresholds instead of selecting again.
   ``knn_aggregate.launches`` counts K5's forward gathers and
-  ``knn_aggregate.bwd_launches`` its backward ones.
+  ``knn_aggregate.bwd_launches`` its backward ones.  Under
+  ``torch.func.vmap`` (a sweep's arms, over one shared plan) each arm
+  gathers on its own, both ways.
 
 **One order of operations for the distance**, in the plain version and in
 the kernel alike, because membership is decided by comparing f32 values
@@ -73,7 +75,11 @@ from typing import Iterator, Optional, Tuple
 
 import torch
 
-from point_cloud_classifier_tpu_torch.ops.dispatch import use_cuda_kernels
+from point_cloud_classifier_tpu_torch.ops.dispatch import (
+    per_arm,
+    require_plain_tensors,
+    use_cuda_kernels,
+)
 
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # elements of one [rows, N] temporary of the plain versions (256 MiB in f32)
@@ -303,29 +309,54 @@ knn_select.launches = 0
 
 class _KnnAggregateFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, plan, aggr):
-        ctx.plan_args = (plan.k, plan.num_graphs)
-        ctx.aggr = aggr
-        ctx.kernel = use_cuda_kernels(x)
-        ctx.save_for_backward(*plan.tensors())
-        if ctx.kernel:
+    def forward(x, plan, aggr):
+        if use_cuda_kernels(x):
             return _knn_aggregate_cuda(x, plan, aggr)
         return knn_aggregate_plain(
             x, plan.positions, plan.node_seg, plan.k, plan.num_graphs, aggr, kth=plan.kth
         )
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, plan, aggr = inputs
+        ctx.plan_args = (plan.k, plan.num_graphs)
+        ctx.aggr = aggr
+        ctx.save_for_backward(*plan.tensors())
+
+    @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
             return None, None, None
         k, num_graphs = ctx.plan_args
-        positions, node_seg, lo, hi, points, kth, deg = ctx.saved_tensors
-        if ctx.kernel:
-            plan = KnnPlan(positions, node_seg, k, num_graphs, lo, hi, points, kth, deg)
-            dx = _knn_aggregate_bwd_cuda(g, plan, ctx.aggr)
-        else:
-            dx = knn_aggregate_bwd_plain(g, positions, node_seg, k, num_graphs, ctx.aggr, kth=kth)
-        return dx, None, None
+        plan = KnnPlan(*ctx.saved_tensors[:2], k, num_graphs, *ctx.saved_tensors[2:])
+        return _KnnAggregateBwdFn.apply(g, plan, ctx.aggr), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, plan, aggr):
+        return per_arm(lambda a: _KnnAggregateFn.apply(a, plan, aggr), info, in_dims[:1], x)
+
+
+class _KnnAggregateBwdFn(torch.autograd.Function):
+    """K5's backward (``adjᵀ @ g``) as a Function, on CUDA tensors the kernel,
+    on CPU ones (and inside ``force_plain``) the plain version; its ``vmap``
+    rule unbinds the arm axis before K5 sees a tensor.  Not differentiable
+    itself."""
+
+    @staticmethod
+    def forward(g, plan, aggr):
+        if use_cuda_kernels(g):
+            return _knn_aggregate_bwd_cuda(g, plan, aggr)
+        return knn_aggregate_bwd_plain(
+            g, plan.positions, plan.node_seg, plan.k, plan.num_graphs, aggr, kth=plan.kth
+        )
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, g, plan, aggr):
+        return per_arm(lambda a: _KnnAggregateBwdFn.apply(a, plan, aggr), info, in_dims[:1], g)
 
 
 def knn_aggregate(
@@ -379,6 +410,7 @@ def _knn_select_cuda(positions, node_seg, k: int, num_graphs: int):
     from point_cloud_classifier_tpu_torch.native import check, kernel_library
 
     _check_topology(positions, node_seg, k)
+    require_plain_tensors(positions, node_seg)
     n = positions.shape[0]
     dev = positions.device
     pos = positions.float().contiguous()
@@ -409,6 +441,7 @@ def _knn_gather_cuda(src, plan: KnnPlan, aggr: str, backward: bool):
 
     _check_aggr(aggr)
     _check_operands(src, plan.positions, plan.node_seg)
+    require_plain_tensors(src, *plan.tensors())
     out = torch.empty_like(src, memory_format=torch.contiguous_format)
     if src.numel() == 0:
         return out, False

@@ -10,6 +10,10 @@ in ``[0, num_segments)``.
 The graph wire's flat edge lists use the rest: :func:`segment_softmax` (GAT
 attention over each node's incoming edges), :func:`segment_rank_desc` (SAG
 pooling's per-graph top-k) and :func:`segment_count` with a validity mask.
+
+Every op writes out of place into a fresh buffer, so it runs under
+``torch.func.vmap`` over a sweep's arms, where the values carry an arm axis
+and the ids (the shared batch's) do not; no op reads a value to the host.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ def segment_sum(
 ) -> torch.Tensor:
     """Sum rows of ``data`` into ``num_segments`` buckets (in data's dtype)."""
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
-    return out.index_add_(0, segment_ids.long(), data)
+    # out of place: under torch.func.vmap the data may carry an arm axis
+    # that the fresh buffer has not
+    return out.index_add(0, segment_ids.long(), data)
 
 
 def segment_count(
@@ -58,7 +64,7 @@ def segment_max(
     shape = (num_segments,) + tuple(data.shape[1:])
     index = segment_ids.long().reshape((-1,) + (1,) * (data.ndim - 1))
     out = torch.full(shape, float("-inf"), dtype=data.dtype, device=data.device)
-    out.scatter_reduce_(0, index.expand_as(data), data, reduce="amax")
+    out = out.scatter_reduce(0, index.expand_as(data), data, reduce="amax")
     return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
 
 
@@ -121,9 +127,11 @@ def segment_rank_desc(
     order = by_key[torch.sort(segment_ids[by_key], stable=True).indices]
     seg_sorted = segment_ids.long()[order]
     idx = torch.arange(n, device=score.device)
-    # the first sorted position of each segment: its count's exclusive prefix sum
-    counts = torch.bincount(seg_sorted, minlength=num_segments)
+    # the first sorted position of each segment: its count's exclusive prefix
+    # sum (the ids' own counts: sorting permutes them)
+    counts = torch.bincount(segment_ids.long(), minlength=num_segments)
     first = torch.cumsum(counts, 0) - counts
-    ranks = torch.empty(n, dtype=torch.int32, device=score.device)
-    ranks[order] = (idx - first[seg_sorted]).to(torch.int32)
-    return ranks
+    # a scatter, not an indexed store: under torch.func.vmap the order
+    # carries an arm axis that the fresh buffer has not
+    ranks = torch.zeros(n, dtype=torch.int32, device=score.device)
+    return ranks.scatter(0, order, (idx - first[seg_sorted]).to(torch.int32))

@@ -4,8 +4,10 @@ and training, on the flat and the dense wire, the resident cache and the
 prefetch on the card, and the GraphNet routes (GAT through K3 and K4, GraphConv
 through K6, kNN GraphConv through K5, and GAT with SAG through K3 and K4 over
 keep-masked lists and a second mirror) against their plain routes, serving
-and one train step, and the wires without a kernel (flat edge lists, the kNN
-edge-list arm, edge-slot triples) against the CPU.
+and one train step, the wires without a kernel (flat edge lists, the kNN
+edge-list arm, edge-slot triples) against the CPU, and each kernel's ``vmap``
+rule (a sweep's arms under ``torch.func.vmap(grad)``, K = 1, 2 and 4)
+against the same vmapped step under ``force_plain()``.
 
 These tests need a CUDA card and skip without one.  They import neither jax
 nor the JAX package, so they run on a machine that has only PyTorch; there,
@@ -1390,3 +1392,192 @@ def test_command_line_trains_and_evaluates_deep_sets_on_the_card(tmp_path):
     assert list(metrics) == ["accuracy_train", "accuracy_val", "accuracy_test"]
     with open(run / "eval" / "classification_report.txt") as f:
         assert f.read().splitlines()[-1].split()[-1] == "32"
+
+
+# -- the kernels under torch.func.vmap (the sweep's arms) ----------------------------------
+
+VMAP_ARMS = [1, 2, 4]
+
+
+def _grads_and_values(loss, batched, shared, argnums):
+    from torch.func import grad_and_value, vmap
+
+    in_dims = (0,) * len(batched) + (None,) * len(shared)
+    grads, values = vmap(grad_and_value(loss, argnums=argnums), in_dims=in_dims)(*batched, *shared)
+    torch.cuda.synchronize()
+    return [*grads, values]
+
+
+def _hold_to_plain(loss, batched, shared, argnums, launches, want_launches):
+    """The vmapped kernel route (each counter rising by ``want_launches``)
+    against the same vmapped step inside ``force_plain()`` (no launch):
+    values and gradients within TOL[f32] of the largest plain entry."""
+    before = launches()
+    got = _grads_and_values(loss, batched, shared, argnums)
+    assert tuple(a - b for a, b in zip(launches(), before)) == want_launches
+    after = launches()
+    with force_plain():
+        want = _grads_and_values(loss, batched, shared, argnums)
+    assert launches() == after
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        err = (g.double() - w.double()).abs().max().item() / max(1.0, w.double().abs().max().item())
+        assert err <= TOL[torch.float32], err
+
+
+def _stacked(rng, k, *shape, scale=1.0):
+    return torch.from_numpy((rng.normal(size=(k, *shape)) * scale).astype(np.float32)).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", VMAP_ARMS)
+def test_phi_pool_vmap_rule_matches_plain_on_the_card(k):
+    """K1 once an arm forward, K2 once an arm backward, over shared points."""
+    dev = _cuda()
+    pts, seg, params, s = _inputs(dev, torch.float32)
+    rng = np.random.default_rng(k)
+    weights = [w[None] + _stacked(rng, k, *w.shape, scale=0.02) for layer in params for w in layer]
+    cot = torch.from_numpy(rng.normal(size=(s, 256)).astype(np.float32)).to(dev)
+
+    def loss(w0, b0, w1, b1, points):
+        return (fused_phi.phi_pool(points, seg, SPEC, ((w0, b0), (w1, b1)), "gelu", s) * cot).sum()
+
+    counts = lambda: (fused_phi.phi_pool.launches, fused_phi.phi_pool.bwd_launches)  # noqa: E731
+    _hold_to_plain(loss, weights, [pts], (0, 1, 2, 3), counts, (k, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lists", ["shared", "keep-masked-per-arm"])
+@pytest.mark.parametrize("k", VMAP_ARMS)
+def test_gat_vmap_rules_match_plain_on_the_card(k, lists):
+    """K3 and K4 once an arm; the mirror once where the lists are shared,
+    once an arm where SAG has masked them per arm."""
+    dev = _cuda()
+    s_dst, s_src, in_src, in_w, xw = _gat_inputs(dev, torch.float32, **GAT_CASES["config-shape"])
+    rng = np.random.default_rng(k)
+    feats = [t[None] + _stacked(rng, k, *t.shape, scale=0.1) for t in (s_dst, s_src, xw)]
+    cot = torch.from_numpy(rng.normal(size=tuple(xw.shape)).astype(np.float32)).to(dev)
+
+    def loss(a, b, x, w):
+        out = gat.gat_attention(a, b, in_src, w, x, gat.SLOPE, gat.gat_backward_mirror(in_src, w))
+        return (out * cot).sum()
+
+    def counts():
+        return (gat.gat_attention.launches, gat.gat_attention.bwd_launches, gat.gat_out_rows.launches)
+
+    if lists == "shared":
+        _hold_to_plain(loss, feats, [in_w], (0, 1, 2), counts, (k, k, 1))
+    else:
+        masked = torch.stack([_keep_masked(in_src, in_w, seed=arm) for arm in range(k)])
+        _hold_to_plain(loss, [*feats, masked], [], (0, 1, 2), counts, (k, k, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aggr", ["add", "mean"])
+@pytest.mark.parametrize("k", VMAP_ARMS)
+def test_inrow_vmap_rule_matches_plain_on_the_card(k, aggr):
+    """K6 once an arm forward and once an arm backward."""
+    dev = _cuda()
+    h, in_src, in_w, out_dst, out_w = _inrow_inputs(dev, torch.float32, **INROW_CASES["config-like"])
+    rng = np.random.default_rng(k)
+    hs = h[None] + _stacked(rng, k, *h.shape, scale=0.1)
+    cot = torch.from_numpy(rng.normal(size=tuple(h.shape)).astype(np.float32)).to(dev)
+
+    def loss(x):
+        return (inrow_graph.inrow_aggregate(x, in_src, in_w, out_dst, out_w, aggr) * cot).sum()
+
+    counts = lambda: (inrow_graph.inrow_aggregate.launches, inrow_graph.inrow_aggregate.bwd_launches)  # noqa: E731
+    _hold_to_plain(loss, [hs], [], (0,), counts, (k, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aggr", ["add", "mean"])
+@pytest.mark.parametrize("k", VMAP_ARMS)
+def test_knn_vmap_rule_matches_plain_on_the_card(k, aggr):
+    """K5's gather once an arm both ways, over one shared plan."""
+    dev = _cuda()
+    x, pos, seg, graphs, _ = _knn_inputs(dev, torch.float32, "ragged")
+    plan = knn.knn_select(pos, seg, 8, graphs)  # the plain version's, exactly (K5's selection)
+    rng = np.random.default_rng(k)
+    xs = x[None] + _stacked(rng, k, *x.shape, scale=0.1)
+    cot = torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(dev)
+
+    def loss(v):
+        return (knn.knn_aggregate(v, pos, seg, 8, graphs, aggr, plan) * cot).sum()
+
+    counts = lambda: (knn.knn_aggregate.launches, knn.knn_aggregate.bwd_launches)  # noqa: E731
+    _hold_to_plain(loss, [xs], [], (0,), counts, (k, k))
+
+
+@pytest.mark.gpu
+def test_the_python_rule_for_chains_agrees_with_k2s_refusal():
+    """``fused_phi.kernel_takes_chain`` says which DeepSets chains K1 and K2
+    take; K2's C entry refuses exactly the one the rule refuses among the
+    sweep's widest (φ [1024] × 3 taken, × 4 refused)."""
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    for n, takes in ((3, True), (4, False)):
+        spec = (("plain", False),) + (("residual", False),) * (n - 1)
+        dims = [6] + [1024] * n
+        assert fused_phi.kernel_takes_chain(dims, [kind for kind, _ in spec]) is takes
+        params = tuple((torch.from_numpy((rng.normal(size=(i, o)) * i**-0.5).astype(np.float32)).to(dev),
+                        torch.zeros(o, device=dev)) for i, o in zip(dims[:-1], dims[1:]))
+        pts = torch.from_numpy(rng.normal(size=(70, 6)).astype(np.float32)).to(dev)
+        seg = torch.zeros(70, dtype=torch.int32, device=dev)
+        g = torch.ones(1, 1024, device=dev)
+        if takes:
+            fused_phi._phi_pool_bwd_cuda(pts, seg, g, spec, params, "gelu", 1)
+        else:
+            with pytest.raises(RuntimeError, match="too wide"):
+                fused_phi._phi_pool_bwd_cuda(pts, seg, g, spec, params, "gelu", 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["deep_sets", "gat"])
+def test_vmapped_arms_on_the_card_match_sequential_runs(family):
+    """Two arms through ``train_configs_vmapped`` on the card (K1 and K2, or
+    K3, K4 and the mirror, once an arm a step) against two sequential
+    ``ModelWrapper`` runs: final train-mode loss within 1e-4."""
+    from point_cloud_classifier_tpu_torch.data import GraphLoader, PointCloudLoader
+    from point_cloud_classifier_tpu_torch.data.synthetic import lineage_graphs
+    from point_cloud_classifier_tpu_torch.models import ModelWrapper
+    from point_cloud_classifier_tpu_torch.models.wrapper import masked_bce
+    from point_cloud_classifier_tpu_torch.parallel import train_configs_vmapped
+
+    _cuda()
+    rng = np.random.default_rng(0)
+    if family == "deep_sets":
+        events = [rng.normal(size=(rng.integers(20, 60), 6)).astype(np.float32) for _ in range(48)]
+        labels = np.array([float(e[:, 0].mean() > 0) for e in events])
+        cls, cfg = DeepSets, dict(input_dim=6, phi_layers=[32, 32], rho_layers=[32], output_dim=1,
+                                  activation="gelu", layer_norm=False, residual_block=True, pooling="mean")
+        loaders = lambda: (PointCloudLoader(events[:32], labels[:32], 16, shuffle=True),  # noqa: E731
+                           PointCloudLoader(events[32:], labels[32:], 16, shuffle=False))
+        counters = lambda: (fused_phi.phi_pool.launches, fused_phi.phi_pool.bwd_launches)  # noqa: E731
+    else:
+        graphs = lineage_graphs(rng, 48, 20, 40)
+        cls, cfg = GraphNet, dict(input_dim=4, hidden_dim=32, output_dim=1, activation="tanh", use_gat=True,
+                                  gat_heads=4, deepchem_style=True)
+        loaders = lambda: (GraphLoader(graphs[:32], 16, shuffle=True, use_weights=False,  # noqa: E731
+                                       layout="dense"),
+                           GraphLoader(graphs[32:], 16, shuffle=False, use_weights=False, layout="dense"))
+        counters = lambda: (gat.gat_attention.launches, gat.gat_attention.bwd_launches)  # noqa: E731
+    lrs = [1e-3, 3e-4]
+    before = counters()
+    train, val = loaders()
+    result = train_configs_vmapped(cls(**cfg), lrs, "adam", 2, train, val, seeds=[0, 1])
+    assert all(c > b for c, b in zip(counters(), before))
+    batch = next(iter(loaders()[1]))
+    for arm, lr in enumerate(lrs):
+        train, val = loaders()
+        wrapper = ModelWrapper(cls(**cfg, generator=torch.Generator().manual_seed(arm)), lr, 2, seed=arm)
+        wrapper.fit(train, val)
+        losses = []
+        for state in (wrapper._host_state_dict(), result["final_state"][arm]):
+            wrapper.model.load_state_dict(state)
+            wrapper.model.train()
+            with torch.no_grad():
+                dev_batch = wrapper._put(batch)
+                logits = wrapper.model(dev_batch, train=True)
+                losses.append(masked_bce(logits, dev_batch["y"], dev_batch["y_mask"]).item())
+        assert abs(losses[0] - losses[1]) <= 1e-4 * max(1.0, abs(losses[0])), losses

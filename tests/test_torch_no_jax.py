@@ -1,6 +1,7 @@
 """The port imports without jax, the JAX package, pandas, sklearn, PyYAML,
 matplotlib, h5py or joblib, and runs without them (the kNN path, the
-flagship wire, the command line, the C++ host packers and edge builder); chip_smoke.py refuses to run without a CUDA
+flagship wire, the command line, the C++ host packers and edge builder, the
+sequential and vmapped sweeps); chip_smoke.py refuses to run without a CUDA
 card or without the repository beside it."""
 
 import os
@@ -55,7 +56,8 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
     command_line = {"cli", "__main__", "data.tabular", "models.fully_connected_net",
                     "models.logistic_regression", "utils.metrics"}
     host = {"native", "native.host"}
-    assert {f"point_cloud_classifier_tpu_torch.{m}" for m in graph_slice | pipelines | command_line | host} <= walked
+    sweep = {"sweep", "parallel", "parallel.vmap_sweep"}
+    assert {f"point_cloud_classifier_tpu_torch.{m}" for m in graph_slice | pipelines | command_line | host | sweep} <= walked
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -251,3 +253,29 @@ def test_command_line_runs_without_jax_pandas_sklearn_or_yaml(tmp_path):
                    (["logistic_regression"], ["fully_connected_net"], ["deep_sets"]))
     assert set(printed) == {"logistic_regression", "fully_connected_net", "deep_sets"}
     assert all(0.0 <= float(v) <= 1.0 for v in printed.values())
+
+
+def test_sweeps_run_without_jax_pandas_sklearn_or_yaml(tmp_path):
+    """``python -m point_cloud_classifier_tpu_torch.sweep``'s ``main``, one run
+    at a time and vmapped, on the CPU from the repository's configs, in a
+    process where none of the blocked packages can be imported."""
+    code = textwrap.dedent(
+        f"""
+        import json, os, sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        from point_cloud_classifier_tpu_torch.sweep import main
+        from point_cloud_classifier_tpu_torch.data.synthetic import write_s2pt_cache
+        work = {str(tmp_path)!r}
+        write_s2pt_cache(os.path.join(work, "data"), n_events=(70, 30, 30), seed=2)
+        for flags in ([], ["--vmap"]):
+            search = os.path.join(work, "search" + "".join(flags))
+            main(["fully_connected_net", "--seed", "0", "--max-runs", "2", "--epochs", "1", "--force",
+                  "--data-dir", os.path.join(work, "data"), "--search-dir", search, *flags], device="cpu")
+            with open(os.path.join(search, "search_results.json")) as f:
+                print("runs", len(json.load(f)))
+        """
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert [line for line in proc.stdout.splitlines() if line.startswith("runs")] == ["runs 2", "runs 2"]
