@@ -191,6 +191,30 @@ result):
    vmapped against K sequential steps by CUDA events, in turns; the phase's
    seconds.
 
+24. fused step windows, the tail route, remat and tracing: (a) a window
+   of 16 same-shape resident batches (``fuse_steps=16``, one CUDA graph)
+   against the same 16 steps run eagerly by the unfused trainer from the
+   same weights, three times (warm-up, capture, replay), then a fused
+   ``predict`` against an unfused one three times, on bench.py's flagship
+   wire (B=256 clouds of 256 points, dense fp16 rows, ``energy_total``
+   factored, f32) and on the configs' DeepSets, in-row GAT, fused GraphConv
+   and kNN routes at B=32: per-step losses within 1e-5 relative, the
+   parameters after within 1e-4, probabilities within 1e-4; each fused
+   pass's launches, counted from 0 around it alone, equal to its eager
+   steps' and naming the route's kernels; one train and one eval graph,
+   each captured once and replayed; a profiled replay running each
+   kernel, by name, as often as the replay counts its launches; ms a micro-step
+   fused, eager, and eager with torch's default (non-capturable) Adam by
+   CUDA events, in turns, an optimizer step alone of each form, each
+   pass's idle share by the profiler, capture seconds; (b) ``fused_phi="tail"``: K1 and
+   K2 over one bare linear [256, 256] at the flagship shape against their
+   plain versions, timed against their bounds, and ``train_model`` for 3
+   epochs over phase 6's cache with K1 and K2 counted and the val accuracy
+   over its floor; (c) ``PCC_PHI_REMAT=0`` against ``1`` on the plain route
+   (layer norm) at φ widths 256, 512 and 1024, B=256: ms a train step by
+   CUDA events, in turns, and peak memory; (d) ``train_model`` with
+   ``PCC_TRACE=1``: its trace names K1 and K2.
+
 Beside each kernel's time the script works out the least time the card could
 take for the same work (``bound_ms``: the bytes the function must move over
 3.35 TB/s, or its operations over 67 TFLOP/s of f32 outside the tensor
@@ -209,6 +233,7 @@ import copy
 import json
 import os
 import pickle
+import re
 import subprocess
 import tempfile
 import time
@@ -230,7 +255,8 @@ from point_cloud_classifier_tpu_torch.data.synthetic import (
     write_s2pt_cache,
 )
 from point_cloud_classifier_tpu_torch.graph_kernel_times import device_ms
-from point_cloud_classifier_tpu_torch.models import DeepSets, GraphNet, LogRegression
+from point_cloud_classifier_tpu_torch.models import DeepSets, GraphNet, LogRegression, ModelWrapper
+from point_cloud_classifier_tpu_torch.models.wrapper import _make_optimizer
 from point_cloud_classifier_tpu_torch.models.deep_sets import dense_segment_ids
 from point_cloud_classifier_tpu_torch.data.graph import build_event_edges
 from point_cloud_classifier_tpu_torch.native import kernel_library
@@ -3193,6 +3219,410 @@ def host_phase(smi: str, work_dir: str) -> None:
     inline_packing_phase(smi, work_dir)
 
 
+# phase 24: fused step windows (fuse_steps) as CUDA graphs, fused_phi="tail",
+# the remat measurements, PCC_TRACE
+FUSE_K = 16  # bench.py's flagship --fuse 16
+FUSE_PASSES = 3  # a window's warm-up, its capture and first replay, a replay
+FUSE_LOSS_RTOL = 1e-5  # per-step f32 loss, fused window against the same steps run eagerly
+FUSE_TURNS = 3  # timed rounds of a fused pass against an eager one, in turns
+# the parameters after the windows against the eager steps', max |Δ| over
+# max(max |p|, 1), as tests/test_torch_gpu.py holds them (ten times the
+# loss bound: Adam carries the losses' rounding into every weight)
+FUSE_PARAM_TOL = 1e-4
+OPT_STEPS = 50  # optimizer steps a timed turn, capturable Adam against the default
+# GPU cycles of the marker kernel (torch.cuda._sleep's spin_kernel) that
+# splits a profile's two runs: a trace has lost its first device records
+# (12 of a GAT replay's, its first step's mirror among them, late in the
+# smoke), so a profile runs twice and reads the records after the marker
+PROFILE_MARK_CYCLES = 1000
+# each launch counter's kernels by name (csrc/): a counted launch runs one
+# of them once (K4's launch also runs gat_bwd_sources_kernel, K2's may run
+# reduce_slabs_kernel, K5's selection its two range kernels)
+REPLAY_KERNELS = (
+    (("phi_pool",), ("phi_pool_kernel", "phi_pool_sliced_kernel")),
+    (("phi_pool_bwd",), ("phi_pool_bwd_kernel", "phi_pool_bwd_sliced_kernel")),
+    (("gat_attention",), ("gat_attention_pieces_kernel", "gat_attention_channels_kernel")),
+    (("gat_attention_bwd",), ("gat_bwd_rows_kernel",)),
+    (("gat_out_rows",), ("gat_out_rows_kernel",)),
+    (("inrow_aggregate", "inrow_aggregate backward"), ("inrow_aggregate_kernel",)),
+    (("knn_select",), ("knn_select_kernel",)),
+    (("knn_aggregate", "knn_aggregate backward"), ("knn_gather_kernel",)),
+)
+# remat: the plain route's φ widths at B=256, and the train steps timed a turn
+REMAT_WIDTHS = (256, 512, 1024)
+REMAT_STEPS = 8
+
+
+def _spread(samples) -> str:
+    return f"{min(samples):.4f}–{max(samples):.4f}"
+
+
+def _one_shape(batches, k: int = FUSE_K):
+    """``k`` batches of the most frequent shape, cycled from the distinct
+    ones as bench.py cycles its four; and how many were distinct."""
+    groups = {}
+    for b in batches:
+        groups.setdefault(tuple(sorted((n, v.shape) for n, v in b.items())), []).append(b)
+    best = max(groups.values(), key=len)
+    return [best[i % len(best)] for i in range(k)], len(best)
+
+
+def _own_kernels(events) -> dict:
+    """{kernel: executions} of the package's own kernels among a profile's
+    device records (csrc/ keeps them in anonymous namespaces)."""
+    marker = "void (anonymous namespace)::"
+    out = {}
+    for e in events:
+        if e.name.startswith(marker):
+            name = e.name[len(marker):].split("(")[0].split("<")[0]
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def _window_profile(run) -> tuple:
+    """(device busy ms, wall ms, the package's kernels by name) of the
+    second of two ``run()`` under torch.profiler: the first takes any
+    records the trace loses at its start, and a marker kernel between them
+    says where the second begins (busy None where the profiler saw no
+    device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(PROFILE_MARK_CYCLES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(device) if "spin_kernel" in e.name]
+    if len(marks) != 1:
+        raise AssertionError(f"a profile holds {len(marks)} marker kernels, not 1")
+    second = device[marks[0] + 1:]
+    busy = sum(e.time_range.elapsed_us() for e in second) / 1e3
+    return (busy if busy > 0 else None), wall, _own_kernels(second)
+
+
+def _counted(run) -> tuple:
+    """``(run(), the kernels' launches in it alone)``: the counts are set to
+    0 just before and read just after."""
+    reset_launch_counts()
+    out = run()
+    return out, launch_counts()
+
+
+def fused_route_phase(smi: str, label: str, make_model, host_batches, optimizer: str, kernels) -> dict:
+    """A window of FUSE_K same-shape resident batches through a fused
+    wrapper (one CUDA graph) against the same steps run eagerly from the
+    same weights by the unfused trainer, FUSE_PASSES times (warm-up,
+    capture and first replay, replay), then a fused ``predict`` against an
+    unfused one as many times.  Fails unless every pass's losses and
+    probabilities agree, the parameters after agree, each fused pass
+    launches what its eager steps launch (the kernels named in ``kernels``
+    and no other), the wrapper holds one train and one eval graph captured
+    once each and replayed, and a profiled replay runs each kernel, by name,
+    as often as a replay counts its launches.  Times ms per micro-step fused,
+    eager, and eager with the non-capturable Adam, by CUDA events in turns,
+    and an optimizer step alone of each form; each pass's idle share by the
+    profiler.  Returns the kernels' launches in the fused passes."""
+    window, distinct = _one_shape(host_batches)
+    dev = [{k: torch.as_tensor(v).cuda() for k, v in b.items()} for b in window]
+    fused = ModelWrapper(make_model(0), 1e-3, 1, optimizer=optimizer, fuse_steps=FUSE_K)
+    # the same steps eagerly with the optimizer the window captures
+    # (capturable: the step count and bias corrections on the device), and
+    # by the unfused trainer as it is (torch's default Adam): what the
+    # capturable form costs and how far the two round apart
+    eager = ModelWrapper(make_model(1), 1e-3, 1, optimizer=optimizer)
+    eager.optimizer = _make_optimizer(optimizer, eager.model.parameters(), 1e-3, capturable=True)
+    host_adam = ModelWrapper(make_model(2), 1e-3, 1, optimizer=optimizer)
+    eager.model.load_state_dict(fused.model.state_dict())
+    host_adam.model.load_state_dict(fused.model.state_dict())
+    fused_counts = dict.fromkeys(launch_counts(), 0)
+
+    def add(counts):
+        for name, n in counts.items():
+            fused_counts[name] += n
+
+    worst = prob_err = 0.0
+    for p in range(FUSE_PASSES):
+        got, counts = _counted(lambda: fused.train_window(dev))  # the last pass a replay
+        want, want_counts = _counted(lambda: torch.stack([eager.train_step(b) for b in dev]))
+        if counts != want_counts:
+            raise AssertionError(f"fuse {label}: train pass {p} launched {counts}, its eager steps {want_counts}")
+        add(counts)
+        worst = max(worst, ((got - want).abs() / want.abs()).max().item())
+    for _ in range(FUSE_PASSES):
+        other = torch.stack([host_adam.train_step(b) for b in dev])
+    drift = ((other - want).abs() / want.abs()).max().item()
+    param_err = max(((p - q).abs().max() / q.abs().max().clamp(min=1.0)).item()
+                    for p, q in zip(fused.model.parameters(), eager.model.parameters()))
+    launched = sorted(name for name, n in fused_counts.items() if n)
+    train_graphs = (len(fused.windows), fused.windows.captures, fused.windows.replays)
+    fused.model.load_state_dict(eager.model.state_dict())
+    p_eager, eval_counts = _counted(lambda: eager.predict(dev, return_prob=True)[1])
+    for p in range(FUSE_PASSES):
+        p_fused, pred_counts = _counted(lambda: fused.predict(dev, return_prob=True)[1])
+        if pred_counts != eval_counts:
+            raise AssertionError(f"fuse {label}: predict pass {p} launched {pred_counts}, unfused {eval_counts}")
+        add(pred_counts)
+        prob_err = max(prob_err, float(np.abs(p_fused - p_eager).max()))
+    graphs = (len(fused.windows), fused.windows.captures, fused.windows.replays)
+    if not worst <= FUSE_LOSS_RTOL:
+        raise AssertionError(f"fuse {label}: per-step losses {worst:.3e} relative from the eager steps")
+    if not param_err <= FUSE_PARAM_TOL:
+        raise AssertionError(f"fuse {label}: parameters after the windows {param_err:.3e} from the eager steps'")
+    if not prob_err <= PROB_TOL:
+        raise AssertionError(f"fuse {label}: fused predict {prob_err:.3e} from unfused")
+    if launched != sorted(kernels):
+        raise AssertionError(f"fuse {label}: the fused passes launched {launched}, not {sorted(kernels)}")
+    want_graphs = ((1, 1, FUSE_PASSES - 1), (2, 2, 2 * (FUSE_PASSES - 1)))
+    if (train_graphs, graphs) != want_graphs:
+        raise AssertionError(f"fuse {label}: (graphs, captures, replays) {train_graphs} after training and "
+                             f"{graphs} after predict, not {want_graphs}")
+
+    def fused_pass():
+        fused.train_window(dev)
+
+    def eager_pass(wrapper=eager):
+        for b in dev:
+            wrapper.train_step(b)
+
+    arms = {"fused": fused_pass, "eager": eager_pass, "host Adam": lambda: eager_pass(host_adam)}
+    samples = {arm: [] for arm in arms}
+    for turn in range(2 * FUSE_TURNS):
+        names = list(arms)
+        for arm in names[turn % 3:] + names[:turn % 3]:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            arms[arm]()
+            end.record()
+            torch.cuda.synchronize()
+            samples[arm].append(start.elapsed_time(end) / FUSE_K)
+    ms = {arm: float(np.median(v)) for arm, v in samples.items()}
+    # an optimizer step alone, capturable against not, over the gradients
+    # the last steps left
+    opt_samples = {"capturable": [], "host": []}
+    for turn in range(2 * FUSE_TURNS):
+        for form in ("capturable", "host") if turn % 2 == 0 else ("host", "capturable"):
+            opt = (eager if form == "capturable" else host_adam).optimizer
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(OPT_STEPS):
+                opt.step()
+            end.record()
+            torch.cuda.synchronize()
+            opt_samples[form].append(start.elapsed_time(end) / OPT_STEPS)
+    opt_ms = {form: float(np.median(v)) for form, v in opt_samples.items()}
+    idle, own = {}, {}
+    for arm, run in (("fused", fused_pass), ("eager", eager_pass)):
+        busy, wall, own[arm] = _window_profile(run)
+        idle[arm] = "not measured (no device time)" if busy is None else (
+            f"busy {busy / FUSE_K:.4f} of {wall / FUSE_K:.4f} ms a step, idle share {1 - busy / wall:.3f}")
+    # the profiled replay, read by kernel name against the launches a
+    # replay counts (the last train pass was one)
+    for counters, names in REPLAY_KERNELS:
+        want_n = sum(counts[c] for c in counters)
+        seen = sum(own["fused"].get(n, 0) for n in names)
+        if seen != want_n:
+            raise AssertionError(f"fuse {label}: the profiled replay ran {names} {seen} times, where a "
+                                 f"replay counts {want_n} launches of {counters} ({own['fused']})")
+    print(f"fuse {label}: K={FUSE_K} window of one shape ({distinct} distinct batches cycled), "
+          f"{FUSE_PASSES} passes (warm-up, capture, replay): per-step loss max relative "
+          f"{worst:.3e} (bound {FUSE_LOSS_RTOL:.0e}), parameters max relative {param_err:.3e} (bound "
+          f"{FUSE_PARAM_TOL:.0e}); fused predict max |Δprob| {prob_err:.3e} (bound {PROB_TOL:.0e}); "
+          f"(graphs, captures, replays) {train_graphs} after training, {graphs} after predict; capture "
+          f"{fused.windows.capture_seconds:.3f} s; kernels in the fused passes (each equal to its eager "
+          f"steps') {({k: v for k, v in fused_counts.items() if v})}; the profiled replay's kernels "
+          f"{own['fused']}; torch's default Adam against the capturable one, last pass's losses "
+          f"{drift:.3e}; ms a micro-step fused {ms['fused']:.4f} ({_spread(samples['fused'])}), eager "
+          f"{ms['eager']:.4f} ({_spread(samples['eager'])}), ×{ms['eager'] / ms['fused']:.2f}, eager with "
+          f"the default Adam {ms['host Adam']:.4f} ({_spread(samples['host Adam'])}); an optimizer step "
+          f"alone, capturable {opt_ms['capturable']:.4f} ms ({_spread(opt_samples['capturable'])}), default "
+          f"{opt_ms['host']:.4f} ({_spread(opt_samples['host'])}); fused pass {idle['fused']}; eager pass "
+          f"{idle['eager']} [{smi}]")
+    return fused_counts
+
+
+def fused_routes_phase(smi: str) -> dict:
+    """(a) the fused routes: the flagship wire, then the configs' DeepSets,
+    in-row GAT, fused GraphConv and kNN routes."""
+    rng = np.random.default_rng(SEED + 24)
+    # bench.py's flagship: B=256 clouds of 256 points on the dense fp16 wire
+    # with energy_total factored (the length-sorted steady state, M = 256)
+    clouds = [rng.normal(size=(256, 6)).astype(np.float32) for _ in range(4 * FLAGSHIP_B)]
+    for c in clouds:
+        c[:, 1] = rng.normal()
+    flagship = PointCloudLoader(clouds, rng.integers(0, 2, size=len(clouds)), FLAGSHIP_B, False,
+                                layout="dense", transfer_dtype="float16", factor_event_cols=[1])
+    ds = copy.deepcopy(CONFIG["model"])
+
+    def deep_sets(**extra):
+        return lambda seed: DeepSets(**{**ds, **extra}, generator=torch.Generator().manual_seed(seed))
+
+    clouds32, labels32 = make_clouds(np.random.default_rng(SEED + 25), 24 * CONFIG_B)
+    graphs = lineage_graphs(np.random.default_rng(SEED + 26), 24 * GRAPH_B, 160, 288)
+
+    def graph_net(**extra):
+        model = {**GRAPH_CONFIG["model"], **extra}
+        return lambda seed: GraphNet(**model, generator=torch.Generator().manual_seed(seed))
+
+    phi = ("phi_pool", "phi_pool_bwd")
+    routes = [
+        ("flagship B=256 dense fp16 f32", deep_sets(factored_cols=[1]), list(flagship), "adamw", phi),
+        ("DeepSets B=32", deep_sets(), list(PointCloudLoader(clouds32, labels32, CONFIG_B, False)), "adamw",
+         phi),
+        ("in-row GAT B=32", graph_net(use_gat=True),
+         list(GraphLoader(graphs, GRAPH_B, shuffle=False, layout="dense", use_weights=False)), "adam",
+         ("gat_attention", "gat_attention_bwd", "gat_out_rows")),
+        ("GraphConv add fused_inrow B=32", graph_net(fused_inrow=True),
+         list(GraphLoader(graphs, GRAPH_B, shuffle=False, layout="dense", use_weights=True,
+                          emit_out_rows=True)), "adam", ("inrow_aggregate", "inrow_aggregate backward")),
+        ("kNN GraphConv add B=32", graph_net(knn_k=KNN_K),
+         list(GraphLoader(graphs, GRAPH_B, shuffle=False, layout="flat", use_weights=False)), "adam",
+         ("knn_select", "knn_aggregate", "knn_aggregate backward")),
+    ]
+    total = {}
+    for label, make, batches, optimizer, kernels in routes:
+        for name, n in fused_route_phase(smi, label, make, batches, optimizer, kernels).items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def tail_phase(smi: str, work_dir: str) -> dict:
+    """(b) fused_phi="tail": K1 and K2 over the one bare linear layer
+    against their plain versions at the flagship shape, then train_model
+    for 3 epochs over phase 6's cache, with launches counted and the val
+    accuracy over its floor.  Returns the run's launches."""
+    rng = np.random.default_rng(SEED + 27)
+    h = torch.from_numpy(rng.normal(size=(FLAGSHIP_P, 256)).astype(np.float32)).cuda()
+    seg = torch.from_numpy(np.sort(rng.integers(0, FLAGSHIP_B + 1, size=FLAGSHIP_P)).astype(np.int32)).cuda()
+    bound = 256 ** -0.5
+    w = torch.from_numpy(_uniform(rng, bound, (256, 256))).cuda()
+    b = torch.from_numpy(_uniform(rng, bound, (256,))).cuda()
+    g = torch.from_numpy(rng.normal(size=(FLAGSHIP_B + 1, 256)).astype(np.float32)).cuda()
+    params = ((w, b),)
+    out = phi_pool(h, seg, (), params, "gelu", FLAGSHIP_B + 1)
+    ref = phi_pool_plain(h, seg, (), params, "gelu", FLAGSHIP_B + 1)
+    fwd_err = _max_rel(out, ref)
+    d_h, grads = _phi_pool_bwd_cuda(h, seg, g, (), params, "gelu", FLAGSHIP_B + 1)
+    d_ref, grads_ref = phi_pool_bwd_plain(h, seg, g, (), params, "gelu", FLAGSHIP_B + 1)
+    bwd_err = max(_max_rel(a, r) for a, r in zip([d_h, *grads], [d_ref, *grads_ref]))
+    k1_ms = cuda_ms(lambda: phi_pool(h, seg, (), params, "gelu", FLAGSHIP_B + 1))
+    k2_ms = cuda_ms(lambda: _phi_pool_bwd_cuda(h, seg, g, (), params, "gelu", FLAGSHIP_B + 1))
+    # the least time: h read once and the sums written once, or the
+    # products (forward 2·P·H·H; backward dz Wᵀ and hᵀ dz, 4·P·H·H)
+    k1_bound, _ = bound_ms(_nbytes(h, seg, w, b, out), 2 * FLAGSHIP_P * 256 * 256)
+    k2_bound, _ = bound_ms(_nbytes(h, seg, g, w, b, d_h, *grads), 4 * FLAGSHIP_P * 256 * 256)
+    print(f"tail: K1 over one bare linear [256, 256] at P={FLAGSHIP_P}, B={FLAGSHIP_B}, f32: max "
+          f"relative {fwd_err:.3e} (bound {TOL[torch.float32]:.0e}), {k1_ms:.4f} ms (least {k1_bound:.4f}); "
+          f"K2 with d_points {bwd_err:.3e} (bound {BWD_F32_REL:.0e}), {k2_ms:.4f} ms (least "
+          f"{k2_bound:.4f}); variants {phi_pool.variant}, {phi_pool.bwd_variant} [{smi}]")
+    if not (fwd_err <= TOL[torch.float32] and bwd_err <= BWD_F32_REL):
+        raise AssertionError("tail: K1 or K2 over the one-layer chain disagrees with its plain version")
+
+    cfg = training_config(os.path.join(work_dir, "data"), os.path.join(work_dir, "tail_log"))
+    cfg["model"]["fused_phi"] = "tail"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    log_dir = port_train.train_model("deep_sets", "s2ppc", cfg, return_log_dir=True)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    metrics = read_metrics(log_dir)
+    with open(os.path.join(log_dir, "meta.json")) as f:
+        meta = json.load(f)["metrics"]
+    data = factory.get_dataloader("s2ppc", cfg)
+    n_train = len(data.get_train_loader())
+    steps = len(metrics["Loss/train"]) * n_train
+    print(f"tail: train_model deep_sets fused_phi=tail, 3 epochs, {seconds:.1f} s; K1 "
+          f"{counts['phi_pool']}, K2 {counts['phi_pool_bwd']} (train steps {steps}); Loss/train "
+          f"{metrics['Loss/train']}, meta {meta} (val floor {VAL_ACC_FLOOR}) [{smi}]")
+    if counts["phi_pool_bwd"] != steps or counts["phi_pool"] < steps:
+        raise AssertionError("tail: K1 and K2 did not launch on every train step")
+    if not meta["accuracy/val"] >= VAL_ACC_FLOOR:
+        raise AssertionError(f"tail: accuracy/val {meta['accuracy/val']} below {VAL_ACC_FLOOR}")
+    return {"phi_pool": {"tail_launches": counts["phi_pool"], "tail_ms": k1_ms, "tail_bound_ms": k1_bound,
+                         "tail_max_rel_err": fwd_err},
+            "phi_pool_bwd": {"tail_launches": counts["phi_pool_bwd"], "tail_ms": k2_ms,
+                             "tail_bound_ms": k2_bound, "tail_max_rel_err": bwd_err}}
+
+
+def remat_phase(smi: str) -> None:
+    """(c) PCC_PHI_REMAT=0 against 1 on the plain route (layer norm) at φ
+    widths REMAT_WIDTHS, B=256: ms a train step by CUDA events, in turns,
+    and peak device memory."""
+    clouds, labels = make_clouds(np.random.default_rng(SEED + 28), 2 * FLAGSHIP_B)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in b.items()}
+               for b in PointCloudLoader(clouds, labels, FLAGSHIP_B, shuffle=False)]
+    saved = os.environ.get("PCC_PHI_REMAT")
+    try:
+        for width in REMAT_WIDTHS:
+            model = {**CONFIG["model"], "phi_layers": [width, width], "layer_norm": True}
+            wrapper = ModelWrapper(DeepSets(**model, generator=torch.Generator().manual_seed(0)), 1e-3, 1,
+                                   optimizer="adamw")
+            samples, peak = {"0": [], "1": []}, {}
+            for turn in range(4):
+                for mode in ("0", "1") if turn % 2 == 0 else ("1", "0"):
+                    os.environ["PCC_PHI_REMAT"] = mode
+                    wrapper.train_step(batches[0])  # warm
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for i in range(REMAT_STEPS):
+                        wrapper.train_step(batches[i % len(batches)])
+                    end.record()
+                    torch.cuda.synchronize()
+                    samples[mode].append(start.elapsed_time(end) / REMAT_STEPS)
+                    peak[mode] = (torch.cuda.max_memory_allocated() - base) / 2**20
+            ms = {m: float(np.median(v)) for m, v in samples.items()}
+            print(f"remat φ [{width}, {width}] layer_norm B={FLAGSHIP_B} adamw: ms a train step "
+                  f"PCC_PHI_REMAT=0 {ms['0']:.4f} ({_spread(samples['0'])}), =1 {ms['1']:.4f} "
+                  f"({_spread(samples['1'])}), ×{ms['0'] / ms['1']:.3f}; peak above the weights "
+                  f"{peak['0']:.1f} / {peak['1']:.1f} MiB [{smi}]")
+    finally:
+        if saved is None:
+            os.environ.pop("PCC_PHI_REMAT", None)
+        else:
+            os.environ["PCC_PHI_REMAT"] = saved
+
+
+def trace_phase(smi: str, work_dir: str) -> None:
+    """(d) train_model with PCC_TRACE=1 for one epoch: a Chrome trace under
+    {log_dir}/trace/ per epoch that names K1 and K2."""
+    cfg = training_config(os.path.join(work_dir, "data"), os.path.join(work_dir, "trace_log"), epochs=1)
+    os.environ["PCC_TRACE"] = "1"
+    try:
+        log_dir = port_train.train_model("deep_sets", "s2ppc", cfg, return_log_dir=True)
+    finally:
+        os.environ.pop("PCC_TRACE")
+    traces = sorted(os.listdir(os.path.join(log_dir, "trace")))
+    with open(os.path.join(log_dir, "trace", traces[0])) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    kernels = {m.group(1) for n in names for m in [re.search(r"\b(phi_pool\w*_kernel)\b", n)] if m}
+    k1 = sorted(k for k in kernels if "bwd" not in k)
+    k2 = sorted(k for k in kernels if "bwd" in k)
+    print(f"trace: PCC_TRACE=1 train_model, 1 epoch: {len(traces)} trace file(s) under "
+          f"{os.path.basename(log_dir)}/trace/, {len(names)} event names; K1 {k1}, K2 {k2} [{smi}]")
+    if not (k1 and k2):
+        raise AssertionError("trace: the trace does not name K1 and K2")
+
+
+def fuse_phase(smi: str, work_dir: str) -> tuple:
+    """Phase 24.  Returns (the fused routes' launches, the tail's launches,
+    times and errors for K1 and K2)."""
+    fused = fused_routes_phase(smi)
+    tail = tail_phase(smi, work_dir)
+    remat_phase(smi)
+    trace_phase(smi, work_dir)
+    return fused, tail
+
+
 def main() -> None:
     t0 = time.perf_counter()
     marks = [t0]
@@ -3268,6 +3698,19 @@ def main() -> None:
         for name in launches:
             beside.setdefault(name, {})["sweep_launches"] = sweep_launches.get(name, 0)
             launches[name] += sweep_launches.get(name, 0)
+        fuse_launches, tail_launches = fuse_phase(smi, run_dir)
+        lap("fused windows, tail, remat, trace")
+        print(f"launches: fused windows (replays counted) {fuse_launches}; fused_phi=tail {tail_launches}")
+        fuse_launches["inrow_aggregate"] += fuse_launches.pop("inrow_aggregate backward")
+        fuse_launches["knn_aggregate"] += fuse_launches.pop("knn_aggregate backward")
+        beside["gat_attention_bwd"]["fused_window_mirror_launches"] = fuse_launches.pop("gat_out_rows")
+        beside["knn_aggregate"]["fused_window_select_launches"] = fuse_launches.pop("knn_select")
+        for name in launches:
+            beside[name]["fused_window_launches"] = fuse_launches.get(name, 0)
+            launches[name] += fuse_launches.get(name, 0)
+        for name in ("phi_pool", "phi_pool_bwd"):
+            beside[name].update(tail_launches[name])
+            launches[name] += tail_launches[name]["tail_launches"]
     profile_phase(smi)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{

@@ -105,8 +105,15 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
     def forward(
-        self, x: torch.Tensor, mask: torch.Tensor | None = None, train: bool = False
+        self,
+        x: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        train: bool = False,
+        update_stats: bool = True,
     ) -> torch.Tensor:
+        """``update_stats`` false leaves the running statistics as they are
+        in train mode: a rematerialised forward, run again in the backward,
+        passes it so that they move once a step."""
         in_dtype = x.dtype
         x = x.float()
         if train:
@@ -119,11 +126,12 @@ class MaskedBatchNorm(nn.Module):
                 n = torch.clamp(w.sum(), min=1.0)
                 mean = (w * x).sum(dim=0) / n
                 var = (w * (x - mean) ** 2).sum(dim=0) / n
-            with torch.no_grad():
-                unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
-                m = self.momentum
-                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-                self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+            if update_stats:
+                with torch.no_grad():
+                    unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+                    m = self.momentum
+                    self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                    self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
         y = (x - mean) * torch.rsqrt(var + self.eps)

@@ -38,12 +38,30 @@ launch; this is model semantics and not a fallback: on the dense wire a masked r
 the mask, an empty event pools to 0).  ``fused_phi="off"`` forces the plain
 path (the reference for checking the kernel).
 
+``fused_phi="tail"`` under sum or mean pooling runs the hidden chain on the
+plain path (layer norm included), then the bare final linear and the pooling
+in the K1/K2 pair as a chain of one ``linear`` layer, ``[H, H]``
+(``phi_pool(h, seg, (), (final,), …)``); the final linear is then not moved
+after the pooling.  The dense wire takes ``dense_segment_ids`` here too,
+where the JAX model sends dense tail batches to XLA with the post-pool
+linear (the values agree to rounding, ``docs/parity_torch.md`` §10).  Max
+pooling keeps the plain path.
+
+``PCC_PHI_REMAT=1`` recomputes the plain path's φ chain in the backward,
+each hidden layer on its own span (``torch.utils.checkpoint``,
+non-reentrant), keeping only the layers' inputs; it changes no value.  On an
+H100 it lowers the train step's peak memory by 36–40% and costs 1.3–1.6×
+the step time (φ [256, 256] to [1024, 1024] with layer norm at B=256,
+PERF.md §6).  ``0`` and the default ``auto`` keep the activations: the JAX
+package's ``auto`` rematerialises post-pool chains up to 384 wide, a TPU
+finding, and on the card the recomputation is slower at every width.  The
+kernel routes never keep activations and are untouched.
+
 Module names follow the original torch reference's ``state_dict`` layout
 (``phi.N.weight``, ``phi.N.linear.weight``, ``rho.N.weight``, …) so that
 ``convert.to_torch_state_dict`` output loads with ``strict=True``.
 
-Not yet ported: ``fused_phi="tail"`` (ROADMAP Queue 1 item 4) and int8
-``quant`` (item 12).
+Not yet ported: int8 ``quant`` (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -63,6 +81,7 @@ from point_cloud_classifier_tpu_torch.models.common import (
 from point_cloud_classifier_tpu_torch.ops.fused_phi import (
     kernel_takes_chain,
     phi_forward,
+    phi_hidden,
     phi_pool,
 )
 from point_cloud_classifier_tpu_torch.ops.segment import (
@@ -118,11 +137,8 @@ class DeepSets(nn.Module):
         super().__init__()
         if pooling not in ("sum", "mean", "max"):
             raise ValueError("pooling must be 'mean', 'sum', or 'max'")
-        if fused_phi not in ("auto", "on", "off"):
-            raise NotImplementedError(
-                f"fused_phi={fused_phi!r} is not ported (auto, on and off are; "
-                "ROADMAP Queue 1 item 4)"
-            )
+        if fused_phi not in ("auto", "on", "off", "tail"):
+            raise ValueError(f"fused_phi must be 'auto', 'on', 'off' or 'tail', got {fused_phi!r}")
         if quant != "none":
             raise NotImplementedError(
                 "int8 quant is not ported yet (ROADMAP Queue 1 item 12)"
@@ -197,9 +213,31 @@ class DeepSets(nn.Module):
         params.append((final.weight.t(), final.bias))
         return tuple(spec), tuple(params)
 
+    def _tail(self) -> bool:
+        """Whether the bare final φ linear and the pooling run in the K1/K2
+        pair after the hidden chain on the plain path (``fused_phi="tail"``
+        under sum or mean pooling, the ``[H, H]`` layer within the kernels'
+        tiles)."""
+        width = self.config["phi_layers"][-1] if self.config["phi_layers"] else self.input_dim
+        return (
+            self.fused_phi == "tail"
+            and self.pooling in ("sum", "mean")
+            and kernel_takes_chain([width, width], ["linear"])
+        )
+
     def _post_pool(self) -> bool:
         """Whether the bare final φ linear runs per event after pooling."""
-        return self.pooling in ("sum", "mean") and os.environ.get("PCC_PHI_POSTPOOL", "1") != "0"
+        return (
+            self.pooling in ("sum", "mean")
+            and not self._tail()
+            and os.environ.get("PCC_PHI_POSTPOOL", "1") != "0"
+        )
+
+    @staticmethod
+    def _remat() -> bool:
+        """Whether the plain path recomputes its φ chain in the backward:
+        ``PCC_PHI_REMAT=1`` only (``auto``, measured on the card, never)."""
+        return os.environ.get("PCC_PHI_REMAT", "auto") == "1"
 
     def _use_kernel(self) -> bool:
         """The route, decided before any launch: the kernels for a chain
@@ -207,7 +245,7 @@ class DeepSets(nn.Module):
         (``ops/fused_phi.kernel_takes_chain``: their 8-row tiles fit 227 KB
         of shared memory, which φ [1024] × 4 does not), else the plain
         path."""
-        if self.fused_phi == "off" or self.layer_norm or self.pooling not in ("sum", "mean"):
+        if self.fused_phi in ("off", "tail") or self.layer_norm or self.pooling not in ("sum", "mean"):
             return False
         post_pool = self._post_pool()
         kinds = [kind for kind, _ in self._phi_slots] + ([] if post_pool else ["linear"])
@@ -260,14 +298,21 @@ class DeepSets(nn.Module):
 
         post_pool = self._post_pool()
         phi_params = params[:-1] if post_pool else params
-        if self._use_kernel():
+        if self._use_kernel() or self._tail():
             if row_m is not None:
                 seg = dense_segment_ids(batch["seg_counts"][:num_events], row_m)
+            if self._tail():
+                # the hidden chain on the plain path, then the final linear
+                # and the pooling in the kernel pair
+                points = phi_hidden(points, spec, params[:-1], self.activation)
+                spec, phi_params = (), params[-1:]
             total = phi_pool(
                 points, seg, spec, phi_params, self.activation, num_segments
             )[:num_events]
         else:
-            h32 = phi_forward(points, spec, phi_params, self.activation).float()
+            h = phi_forward(points, spec, phi_params, self.activation,
+                            remat=self._remat() and torch.is_grad_enabled())
+            h32 = h.float()
             if row_m is not None:
                 pooled, total = self._dense_pool(h32, counts, row_m)
             elif self.pooling == "max":

@@ -83,18 +83,24 @@ Module names follow the torch reference's ``state_dict`` (``conv1``,
 ``bn1``, ``pool.gnn`` as torch_geometric's ``SAGPooling``, ``conv2``,
 ``bn2``, ``fc1``, ``bn3``, ``fc2``), registered in the JAX module's
 instantiation order, so ``convert`` maps the two parameter trees 1:1.
-``PCC_GRAPH_REMAT`` (JAX rematerialisation of the head) changes no value and
-has no counterpart here.
+``PCC_GRAPH_REMAT=1`` recomputes the dense wire's deepchem head (``fc1``,
+the activation, ``bn3`` and the mean pool) in the backward instead of
+keeping its ``[B, M, 256]`` activations, as the JAX package's
+``nn.remat(_head)`` does (``torch.utils.checkpoint``, non-reentrant).  The
+recomputation leaves ``bn3``'s running statistics alone, so they move once a
+step, as without it; it changes no value.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import warnings
 from typing import Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from point_cloud_classifier_tpu_torch.models.common import (
     Activation,
@@ -450,8 +456,24 @@ class GraphNet(nn.Module):
             return (total / counts[:, None]).to(h.dtype)
 
         if self.deepchem_style:
-            x = bn(self.bn3, self.act(self.fc1(x)), node_mask)
-            x = mean_pool(x, node_mask)
+            def head(h, mask, update_stats=True):
+                h = self.act(self.fc1(h))
+                h = self.bn3(h.reshape(b * m, -1), mask=mask.reshape(-1), train=train,
+                             update_stats=update_stats)
+                return mean_pool(h.reshape(b, m, -1), mask)
+
+            if os.environ.get("PCC_GRAPH_REMAT", "0") == "1" and torch.is_grad_enabled():
+                runs = []
+
+                def head_once(h, mask):
+                    # the backward's recomputation leaves the running
+                    # statistics as the forward moved them
+                    runs.append(None)
+                    return head(h, mask, update_stats=len(runs) == 1)
+
+                x = checkpoint(head_once, x, node_mask, use_reentrant=False)
+            else:
+                x = head(x, node_mask)
         else:
             x = mean_pool(x, node_mask)
             x = self.bn3(self.act(self.fc1(x)), mask=batch.get("y_mask"), train=train)

@@ -36,9 +36,31 @@ step moves them (``MaskedBatchNorm``), ``best_model.pt``, ``model.pt`` and
 the resumable state carry them in the ``state_dict``, and validation and
 ``predict`` normalize with them — the JAX trainer's ``batch_stats``.
 
-Not ported: fused step windows (``fuse_steps > 1``, ``PCC_FUSE_STEPS``),
-meshes (``mesh``, ``data_parallel``, ``n_model > 1`` and their environment
-variables) and TensorBoard histograms (``PCC_TB_HISTOGRAMS``): each raises.
+Step fusion, as in the JAX trainer: ``fuse_steps=K`` (``trainer.fuse_steps``;
+``PCC_FUSE_STEPS`` overrides it) runs up to K consecutive batches of one
+shape as one window, flushed early by a change of shape or the end of the
+epoch, with the result of its K steps run in sequence.  ``Loss/train``
+averages the per-step losses, the throughput rows count micro-steps and
+``StepTime/p50_ms`` is the median of the timed windows.  On the card a
+window is one replay of a CUDA graph of its K steps (``models/windows.py``;
+Adam and AdamW then take ``capturable=True``, the step count and the bias
+corrections on the device, which a graph needs); on the CPU its steps run
+one after another.  Unfused runs on the card keep torch's default Adam: its
+step alone measured 0.17–0.50 ms shorter than the capturable one's on an
+H100, 5–9% of an unfused step (PERF.md §6); the two forms round apart by
+up to ~1e-5 relative over tens of steps, and a state saved by either
+resumes in the other.  Evaluation and ``predict`` fuse same-shape runs the same
+way.  The resident cache permutes whole windows (``shuffle_block``).
+
+``PCC_TRACE=1`` wraps each epoch's steps in ``torch.profiler``
+(``utils/profiling.maybe_trace``, a Chrome trace in ``{log_dir}/trace/``).
+``PCC_TB_HISTOGRAMS=1`` with ``PCC_TENSORBOARD=1`` logs, every epoch, a
+histogram of each parameter (``{key}_weight``, the ``state_dict`` key), of
+its gradient at the epoch's last batch (``{key}_grad``) and of that batch's
+``logits``; it forces windows of one step.
+
+Not ported: meshes (``mesh``, ``data_parallel``, ``n_model > 1`` and their
+environment variables, ROADMAP Queue 1 item 13): each raises.
 """
 
 from __future__ import annotations
@@ -57,6 +79,8 @@ from point_cloud_classifier_tpu_torch import convert
 from point_cloud_classifier_tpu_torch.data.background import BackgroundIterator
 from point_cloud_classifier_tpu_torch.data.prefetch import prefetch_to_device
 from point_cloud_classifier_tpu_torch.data.resident import ResidentCache, shape_key
+from point_cloud_classifier_tpu_torch.models.windows import WindowGraphs
+from point_cloud_classifier_tpu_torch.utils.profiling import StepTimer, maybe_trace
 
 STATE_FILE = "state.pt"
 
@@ -68,34 +92,47 @@ def masked_bce(logits: torch.Tensor, y: torch.Tensor, y_mask: torch.Tensor) -> t
     return (per * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
-def _make_optimizer(name: str, params, learning_rate: float) -> torch.optim.Optimizer:
+def _make_optimizer(
+    name: str, params, learning_rate: float, capturable: bool = False
+) -> torch.optim.Optimizer:
+    """Adam or AdamW at torch defaults; ``capturable`` keeps the step count
+    on the device so that a CUDA graph can hold the update (the fused
+    windows on the card)."""
     if name == "adam":
-        return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        return torch.optim.Adam(
+            params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8, capturable=capturable
+        )
     if name == "adamw":
         return torch.optim.AdamW(
-            params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01
+            params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01,
+            capturable=capturable,
         )
     raise ValueError(f"Unknown optimizer: {name}")
 
 
-def _refuse_unported(fuse_steps, mesh, data_parallel, n_model) -> None:
+def fuse_steps_from_env(fuse_steps) -> int:
+    """The window length: ``PCC_FUSE_STEPS`` when set (an integer, else
+    ``ValueError``), else ``fuse_steps``; at least 1."""
+    env = os.environ.get("PCC_FUSE_STEPS")
+    if env is not None:
+        try:
+            fuse_steps = int(env)
+        except ValueError as e:
+            raise ValueError(f"PCC_FUSE_STEPS must be an integer, got {env!r}") from e
+    return max(1, int(fuse_steps))
+
+
+def _refuse_unported(mesh, data_parallel, n_model) -> None:
     """Raise for each option of the JAX trainer that this port lacks, set by
     argument or by its environment variable (read as the JAX package reads
     it), rather than ignore it."""
     env = os.environ.get
-    if env("PCC_FUSE_STEPS") is not None:
-        try:
-            fuse_steps = int(env("PCC_FUSE_STEPS"))
-        except ValueError as e:
-            raise ValueError(f"PCC_FUSE_STEPS must be an integer, got {env('PCC_FUSE_STEPS')!r}") from e
     if env("PCC_N_MODEL") is not None:
         try:
             n_model = int(env("PCC_N_MODEL"))
         except ValueError as e:
             raise ValueError(f"PCC_N_MODEL must be an integer, got {env('PCC_N_MODEL')!r}") from e
     refused = {
-        "fuse_steps > 1 (PCC_FUSE_STEPS; CUDA-graph step capture is a later, "
-        "measured option)": int(fuse_steps) > 1,
         "mesh, data_parallel and n_model > 1 (PCC_DATA_PARALLEL, PCC_N_MODEL; "
         "ROADMAP Queue 1 item 13)": (
             mesh is not None
@@ -106,7 +143,6 @@ def _refuse_unported(fuse_steps, mesh, data_parallel, n_model) -> None:
                 else bool(data_parallel)
             )
         ),
-        "TensorBoard histograms (PCC_TB_HISTOGRAMS)": env("PCC_TB_HISTOGRAMS") == "1",
     }
     for what, requested in refused.items():
         if requested:
@@ -128,19 +164,17 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def put_batch(batch, model: nn.Module, device: torch.device) -> Dict[str, torch.Tensor]:
-    """The batch on ``device``, without the arrays ``model`` says it never
-    reads (a kNN GraphNet builds its own edges); a tensor already on the
-    device is used as it is."""
+def kept_arrays(batch, model: nn.Module) -> dict:
+    """The batch without the arrays ``model`` says it never reads (a kNN
+    GraphNet builds its own edges)."""
     unused = getattr(model, "unused_batch_keys", ())
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items() if k not in unused}
+    return {k: v for k, v in batch.items() if k not in unused}
 
 
-def _p50_ms(seconds) -> float:
-    """The JAX package's ``StepTimer`` median: the sorted sample at index
-    ``round(0.5 · (n − 1))``, in ms."""
-    xs = sorted(seconds)
-    return xs[min(int(round(0.5 * (len(xs) - 1))), len(xs) - 1)] * 1e3 if xs else 0.0
+def put_batch(batch, model: nn.Module, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The batch's kept arrays (:func:`kept_arrays`) on ``device``; a tensor
+    already on the device is used as it is."""
+    return {k: torch.as_tensor(v).to(device) for k, v in kept_arrays(batch, model).items()}
 
 
 class _ScalarLog:
@@ -165,6 +199,12 @@ class _ScalarLog:
                 f.write(json.dumps({"tag": tag, "value": float(value), "step": step}) + "\n")
         if self._tb:
             self._tb.add_scalar(tag, value, step)
+
+    def histograms(self, named_arrays, step: int) -> None:
+        """One TensorBoard histogram per ``(tag, array)``."""
+        if self._tb:
+            for name, arr in named_arrays:
+                self._tb.add_histogram(name, np.asarray(arr), step)
 
     def close(self) -> None:
         if self._tb:
@@ -194,7 +234,8 @@ class ModelWrapper:
         # seed is the config's trainer.seed: factory.get_model draws the
         # initial weights from it before the model reaches this wrapper, and
         # the resident cache shuffles from it
-        _refuse_unported(fuse_steps, mesh, data_parallel, n_model)
+        _refuse_unported(mesh, data_parallel, n_model)
+        self.fuse_steps = fuse_steps_from_env(fuse_steps)
         env_resident = os.environ.get("PCC_RESIDENT")
         if env_resident is not None:
             device_resident = env_resident == "1"
@@ -212,8 +253,23 @@ class ModelWrapper:
         self.early_stop_counter = 0
         self.checkpoint_path = os.path.join(log_dir, "best_model.pt") if log_dir else None
         self.optimizer_name = optimizer
-        self.optimizer = _make_optimizer(optimizer, self.model.parameters(), learning_rate)
+        # the fused windows' CUDA graphs (none on the CPU, where a window's
+        # steps run one after another)
+        self.windows = (
+            WindowGraphs(self.device, f"{model.name} {json.dumps(getattr(model, 'config', {}))}")
+            if self.device.type == "cuda" and self.fuse_steps > 1
+            else None
+        )
+        self.optimizer = self._new_optimizer()
         self._shapes_seen = set()
+
+    def _new_optimizer(self) -> torch.optim.Optimizer:
+        if self.windows is not None:
+            self.windows.clear()  # the graphs hold the old optimizer's state
+        return _make_optimizer(
+            self.optimizer_name, self.model.parameters(), self.learning_rate,
+            capturable=self.windows is not None,
+        )
 
     def _put(self, batch) -> Dict[str, torch.Tensor]:
         return put_batch(batch, self.model, self.device)
@@ -231,18 +287,50 @@ class ModelWrapper:
             return prefetch_to_device(loader, size=2, device=self.device)
         return loader
 
+    def _windows_of(self, loader: Iterable, k: int, record: bool = False) -> Iterable[list]:
+        """The loader's batches in windows of up to ``k`` consecutive
+        batches of one shape (a change of shape or the end flushes a shorter
+        one); ``record`` notes each shape seen (training does)."""
+        pending = []
+        for batch in self._batches(loader):
+            key = shape_key(batch)
+            if record:
+                self._shapes_seen.add(key)
+            if pending and (len(pending) >= k or shape_key(pending[0]) != key):
+                yield pending
+                pending = []
+            pending.append(batch)
+        if pending:
+            yield pending
+
     # -- training ------------------------------------------------------------
 
-    def train_step(self, batch) -> torch.Tensor:
-        """One optimizer step on a host batch; returns the batch's loss on
+    def _step(self, batch: Dict[str, torch.Tensor]):
+        """One optimizer step on a device batch: ``(loss, logits)``, both on
         the device (no host sync)."""
-        batch = self._put(batch)
         logits = self.model(batch, train=True)
         loss = masked_bce(logits, batch["y"], batch["y_mask"])
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
-        return loss.detach()
+        return loss.detach(), logits.detach()
+
+    def train_step(self, batch) -> torch.Tensor:
+        """One optimizer step on a host batch; returns the batch's loss on
+        the device (no host sync)."""
+        return self._step(self._put(batch))[0]
+
+    def train_window(self, window) -> torch.Tensor:
+        """The steps of a window of same-shape batches, in order: their
+        losses ``[K]`` on the device.  On the card a window of two or more
+        batches is one replay of its CUDA graph (``models/windows.py``)."""
+        if self.windows is None or len(window) == 1:
+            return torch.stack([self.train_step(b) for b in window])
+
+        def body(views):
+            return (torch.stack([self._step(v)[0] for v in views]),)
+
+        return self.windows.run("train", [kept_arrays(b, self.model) for b in window], body)[0]
 
     def fit(self, train_loader: Iterable, val_loader: Iterable = None, resume: bool = False) -> None:
         log = _ScalarLog(self.log_dir)
@@ -250,21 +338,27 @@ class ModelWrapper:
         start_epoch = self.restore_state() if resume else 0
         if self.device_resident:
             if not isinstance(train_loader, ResidentCache):
-                # replays shuffle the batch order from the seed, batch by
-                # batch (one step a window: fuse_steps > 1 is refused); a
-                # resumed run counts its epochs on from start_epoch
+                # replays shuffle the batch order from the seed, by whole
+                # windows (shuffle_block), so that a window's composition
+                # stays as the first epoch made it; a resumed run counts
+                # its epochs on from start_epoch
                 train_loader = ResidentCache(
                     train_loader,
                     device=self.device,
                     shuffle_seed=self.seed,
                     epoch_offset=start_epoch,
+                    shuffle_block=self.fuse_steps,
                 )
             if val_loader is not None and not isinstance(val_loader, ResidentCache):
                 val_loader = ResidentCache(val_loader, device=self.device)
+        # histogram mode (the torch reference logs the last batch's logits
+        # and every parameter's weight and gradient each epoch): windows of
+        # one step, so that the last batch's gradients are there to read
+        hist_on = log._tb is not None and os.environ.get("PCC_TB_HISTOGRAMS") == "1"
         self.model.train()
         try:
             for epoch in range(start_epoch, self.epochs):
-                if self._fit_epoch(epoch, train_loader, val_loader, log):
+                if self._fit_epoch(epoch, train_loader, val_loader, log, hist_on):
                     print("Early stopping triggered.")
                     self.save_state(epoch, force=self.state_every > 0)
                     break
@@ -276,17 +370,23 @@ class ModelWrapper:
         log.scalar("compile/distinct_batch_shapes", len(self._shapes_seen), 0)
         log.close()
 
-    def _fit_epoch(self, epoch, train_loader, val_loader, log) -> bool:
+    def _fit_epoch(self, epoch, train_loader, val_loader, log, hist_on=False) -> bool:
         """One epoch of training and validation; True when early stopping
         triggers."""
-        losses, step_seconds = [], []
+        losses = []  # one [K] tensor a window
+        timer = StepTimer()
+        last_logits = None
         epoch_t0 = time.perf_counter()
-        for batch in self._batches(train_loader):
-            self._shapes_seen.add(shape_key(batch))
-            step_t0 = time.perf_counter()
-            losses.append(self.train_step(batch))
-            # the host's side of the step: on a card, kernels run on after it
-            step_seconds.append(time.perf_counter() - step_t0)
+        with maybe_trace(self.log_dir):
+            for window in self._windows_of(train_loader, 1 if hist_on else self.fuse_steps, record=True):
+                # the host's side of the window: on a card, kernels run on
+                # after it
+                with timer.step():
+                    if hist_on:
+                        loss, last_logits = self._step(self._put(window[0]))
+                        losses.append(loss[None])
+                    else:
+                        losses.append(self.train_window(window))
         if not losses:
             raise ValueError(
                 "train loader produced no batches — empty dataset/split "
@@ -294,7 +394,7 @@ class ModelWrapper:
             )
         # one device→host copy per epoch; the wall time is taken after it,
         # so it covers every step's device work
-        epoch_loss = float(torch.stack(losses).mean())
+        epoch_loss = float(torch.cat(losses).mean())
         epoch_wall = time.perf_counter() - epoch_t0
         log.scalar("Loss/train", epoch_loss, epoch)
         if not np.isfinite(epoch_loss):
@@ -304,52 +404,85 @@ class ModelWrapper:
                 f"Non-finite training loss ({epoch_loss}) at epoch {epoch + 1}"
                 + (f"; last good checkpoint in {state}" if state else "")
             )
-        n_steps = len(losses)
+        # the throughput rows count micro-steps; the p50 is a window's
+        n_steps = sum(int(l.shape[0]) for l in losses)
         log.scalar("Throughput/steps_per_sec", n_steps / max(epoch_wall, 1e-9), epoch)
-        log.scalar("StepTime/p50_ms", _p50_ms(step_seconds), epoch)
+        log.scalar("StepTime/p50_ms", timer.summary()["p50_ms"], epoch)
         log.scalar("StepTime/wall_ms_per_step", 1e3 * epoch_wall / n_steps, epoch)
 
-        if val_loader is None:
-            return False
-        val_loss, val_acc = self._evaluate(val_loader)
-        log.scalar("Loss/val", val_loss, epoch)
-        log.scalar("Accuracy/val", val_acc, epoch)
-        if val_loss < self.best_val_loss:
-            self.best_val_loss = val_loss
-            self.early_stop_counter = 0
-            if self.checkpoint_path:
-                self._write_checkpoint(self.checkpoint_path)
-            print(f"Epoch {epoch+1}: New best model saved (val_loss={val_loss:.4f})")
-        else:
-            self.early_stop_counter += 1
-            print(f"Epoch {epoch+1}: No improvement ({self.early_stop_counter}/{self.patience})")
-        return self.early_stop_counter >= self.patience
+        stop_early = False
+        if val_loader is not None:
+            val_loss, val_acc = self._evaluate(val_loader)
+            log.scalar("Loss/val", val_loss, epoch)
+            log.scalar("Accuracy/val", val_acc, epoch)
+            if val_loss < self.best_val_loss:
+                self.best_val_loss = val_loss
+                self.early_stop_counter = 0
+                if self.checkpoint_path:
+                    self._write_checkpoint(self.checkpoint_path)
+                print(f"Epoch {epoch+1}: New best model saved (val_loss={val_loss:.4f})")
+            else:
+                self.early_stop_counter += 1
+                print(f"Epoch {epoch+1}: No improvement ({self.early_stop_counter}/{self.patience})")
+            stop_early = self.early_stop_counter >= self.patience
+        if hist_on:
+            # every executed epoch, the one that stops early included
+            named = [(f"{k}_weight", p.detach().cpu()) for k, p in self.model.named_parameters()]
+            if last_logits is not None:
+                named.append(("logits", last_logits.cpu()))
+                named += [
+                    (f"{k}_grad", p.grad.detach().cpu())
+                    for k, p in self.model.named_parameters()
+                    if p.grad is not None
+                ]
+            log.histograms(named, epoch)
+        return stop_early
 
     # -- evaluation and inference ---------------------------------------------
 
+    def _eval_window(self, window) -> list:
+        """``[losses [K], probs [K, B, 1], y [K, B, 1], y_mask [K, B]]`` of a
+        window of same-shape batches, on the device: one replay of its CUDA
+        graph on the card, the batches one after another elsewhere."""
+
+        def body(views):
+            losses, probs = [], []
+            for v in views:
+                logits = self.model(v, train=False)
+                losses.append(masked_bce(logits, v["y"], v["y_mask"]))
+                probs.append(torch.sigmoid(logits))
+            return (
+                torch.stack(losses), torch.stack(probs),
+                torch.stack([v["y"] for v in views]).float(),
+                torch.stack([v["y_mask"] for v in views]).float(),
+            )
+
+        if self.windows is None or len(window) == 1:
+            return list(body([self._put(b) for b in window]))
+        return list(self.windows.run("eval", [kept_arrays(b, self.model) for b in window], body))
+
     def _eval_dispatch(self, loader: Iterable):
         """Per-batch masked losses ``[N]`` (host), probabilities, labels and
-        masks, with one device→host copy for every batch's outputs."""
-        losses, outs = [], []  # outs: each batch's probs, y and y_mask
+        masks, with one device→host copy for every batch's outputs; up to
+        ``fuse_steps`` consecutive same-shape batches run as one window."""
+        outs = []  # each window's losses, probs, y and y_mask
         was_training = self.model.training
         self.model.eval()
         try:
             with torch.inference_mode():
-                for batch in self._batches(loader):
-                    dev = self._put(batch)
-                    logits = self.model(dev, train=False)
-                    losses.append(masked_bce(logits, dev["y"], dev["y_mask"]))
-                    outs += [torch.sigmoid(logits), dev["y"].float(), dev["y_mask"].float()]
-                if not losses:
+                for window in self._windows_of(loader, self.fuse_steps):
+                    outs += self._eval_window(window)
+                if not outs:
                     raise ValueError("eval loader produced no batches")
-                flat = torch.cat([torch.stack(losses), *(t.reshape(-1) for t in outs)])
-                flat = flat.cpu().numpy()
+                flat = torch.cat([t.reshape(-1) for t in outs]).cpu().numpy()
         finally:
             self.model.train(was_training)
-        n = len(losses)
-        parts = np.split(flat[n:], np.cumsum([t.numel() for t in outs])[:-1])
+        parts = np.split(flat, np.cumsum([t.numel() for t in outs])[:-1])
         host = [p.reshape(t.shape) for p, t in zip(parts, outs)]
-        return flat[:n], host[0::3], host[1::3], [m.astype(bool) for m in host[2::3]]
+        losses = np.concatenate(host[0::4])
+        rows = lambda arrays: [a for group in arrays for a in group]  # noqa: E731
+        probs, ys, masks = rows(host[1::4]), rows(host[2::4]), rows(host[3::4])
+        return losses, probs, ys, [m.astype(bool) for m in masks]
 
     def _evaluate(self, loader: Iterable):
         """(mean of the per-batch losses, accuracy at sigmoid ≥ 0.5 over the
@@ -396,9 +529,7 @@ class ModelWrapper:
         self.model.load_state_dict(
             {k: torch.as_tensor(v) for k, v in state.items()}, strict=True
         )
-        self.optimizer = _make_optimizer(
-            self.optimizer_name, self.model.parameters(), self.learning_rate
-        )
+        self.optimizer = self._new_optimizer()
 
     def _state_dir(self) -> Optional[str]:
         return os.path.abspath(os.path.join(self.log_dir, "state")) if self.log_dir else None
@@ -436,9 +567,7 @@ class ModelWrapper:
             return 0
         raw = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
         self.model.load_state_dict(raw["model"], strict=True)
-        self.optimizer = _make_optimizer(
-            self.optimizer_name, self.model.parameters(), self.learning_rate
-        )
+        self.optimizer = self._new_optimizer()
         self.optimizer.load_state_dict(raw["optimizer"])
         with open(meta_path) as f:
             meta = json.load(f)

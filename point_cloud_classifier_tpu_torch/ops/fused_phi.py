@@ -50,6 +50,7 @@ import functools
 from typing import Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from point_cloud_classifier_tpu_torch.ops.activations import (
     gelu_variant,
@@ -81,21 +82,28 @@ def _apply_layer(h, kind, has_ln, w, b, ln_scale, ln_bias, act):
     return act(out)
 
 
-def phi_hidden(points, spec: Spec, params: Sequence, activation: str):
-    """The φ chain without the bare final linear (``len(params) == len(spec)``)."""
+def phi_hidden(points, spec: Spec, params: Sequence, activation: str, remat: bool = False):
+    """The φ chain without the bare final linear (``len(params) == len(spec)``).
+    ``remat`` recomputes each layer in the backward on its own
+    (``torch.utils.checkpoint``, non-reentrant): only the layers' inputs are
+    kept, and one layer's activations live again at a time."""
     act = resolve_activation(activation)
     h = points
     for (kind, has_ln), layer in zip(spec, params):
         w, b, *ln = layer
         ln_scale, ln_bias = ln if ln else (None, None)
-        h = _apply_layer(h, kind, has_ln, w, b, ln_scale, ln_bias, act)
+        if remat:
+            h = checkpoint(_apply_layer, h, kind, has_ln, w, b, ln_scale, ln_bias, act, use_reentrant=False)
+        else:
+            h = _apply_layer(h, kind, has_ln, w, b, ln_scale, ln_bias, act)
     return h
 
 
-def phi_forward(points, spec: Spec, params: Sequence, activation: str):
+def phi_forward(points, spec: Spec, params: Sequence, activation: str, remat: bool = False):
     """Per-point features ``[P, H]``; the bare final linear runs when its
-    params are present (``len(params) == len(spec) + 1``)."""
-    h = phi_hidden(points, spec, params[: len(spec)], activation)
+    params are present (``len(params) == len(spec) + 1``).  ``remat`` as
+    :func:`phi_hidden`'s (the bare linear keeps only its input anyway)."""
+    h = phi_hidden(points, spec, params[: len(spec)], activation, remat)
     if len(params) == len(spec):
         return h
     wf, bf = params[-1][0], params[-1][1]

@@ -128,8 +128,12 @@ def segment_rank_desc(
     seg_sorted = segment_ids.long()[order]
     idx = torch.arange(n, device=score.device)
     # the first sorted position of each segment: its count's exclusive prefix
-    # sum (the ids' own counts: sorting permutes them)
-    counts = torch.bincount(segment_ids.long(), minlength=num_segments)
+    # sum (the ids' own counts: sorting permutes them), summed on the device
+    # without reading the largest id back (bincount would: a CUDA graph of
+    # the train step cannot hold that)
+    ids = segment_ids.long()
+    counts = torch.zeros(num_segments, dtype=torch.long, device=score.device).index_add(
+        0, ids, torch.ones_like(ids))
     first = torch.cumsum(counts, 0) - counts
     # a scatter, not an indexed store: under torch.func.vmap the order
     # carries an arm axis that the fresh buffer has not

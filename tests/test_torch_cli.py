@@ -276,6 +276,46 @@ def test_main_trains_every_model(tiny, tmp_path, model):
             assert json.load(f)["epoch"] == 1
 
 
+def test_main_trains_with_fuse_steps_from_the_config(tiny, tmp_path, monkeypatch):
+    """A config directory whose deep_sets.yaml sets ``trainer.fuse_steps``:
+    ``train`` runs windows of up to 4 steps (on the CPU one after another),
+    writes the JAX command line's ``config.yaml``, and trains the weights the
+    unfused command trains, bit for bit."""
+    from point_cloud_classifier_tpu_torch.models.wrapper import ModelWrapper
+
+    fused_dir = tmp_path / "configs"
+    shutil.copytree(tiny / "configs", fused_dir)
+    cfg = load_config(str(fused_dir / "base.yaml"), str(fused_dir / "deep_sets.yaml"))
+    cfg["trainer"]["fuse_steps"] = 4
+    save_config({k: v for k, v in cfg.items() if k not in ("meta", "logging")}, str(fused_dir))
+    os.replace(fused_dir / "config.yaml", fused_dir / "deep_sets.yaml")
+    lengths = []
+    original = ModelWrapper.train_window
+    monkeypatch.setattr(ModelWrapper, "train_window",
+                        lambda self, window: lengths.append(len(window)) or original(self, window))
+    fused_args = _args(tiny, "deep_sets", tmp_path / "fused", "--epochs", "2", "--seed", "3")
+    fused_args[fused_args.index("--config-dir") + 1] = str(fused_dir)
+    cli.main(fused_args, device="cpu")
+    assert max(lengths) == 4 and sum(lengths) == 2 * 5  # 36 events in batches of 8, 2 epochs
+    lengths.clear()
+    cli.main(_args(tiny, "deep_sets", tmp_path / "plain", "--epochs", "2", "--seed", "3"), device="cpu")
+    assert set(lengths) == {1}
+
+    run = tmp_path / "fused" / "version_0"
+    want = jax_config.load_config(str(fused_dir / "base.yaml"), str(fused_dir / "deep_sets.yaml"))
+    want["dataset"]["data_dir"] = str(tiny / "data")
+    want["logging"]["log_dir"] = str(run)
+    want["trainer"].update(epochs=2, seed=3)
+    want["meta"].update(model_name="deep_sets", dataset_name="s2ppc")
+    expected = jax_config.save_config(want, str(tmp_path / "jax"))
+    with open(run / "config.yaml", "rb") as a, open(expected, "rb") as b:
+        assert a.read() == b.read()
+    assert "fuse_steps: 4" in (run / "config.yaml").read_text()
+    fused = torch.load(run / "model.pt", weights_only=True)
+    plain = torch.load(tmp_path / "plain" / "version_0" / "model.pt", weights_only=True)
+    assert fused.keys() == plain.keys() and all(torch.equal(fused[k], plain[k]) for k in plain)
+
+
 def test_convert_round_trip_through_main(tiny, tmp_path):
     cli.main(_args(tiny, "deep_sets", tmp_path / "log", "--epochs", "1"), device="cpu")
     run = tmp_path / "log" / "version_0"

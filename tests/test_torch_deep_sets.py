@@ -113,8 +113,6 @@ def test_kernel_route_follows_config():
 
 
 def test_unported_wires_and_options_raise():
-    with pytest.raises(NotImplementedError, match="fused_phi='tail'"):
-        DeepSets(**model_cfg(fused_phi="tail"))
     with pytest.raises(NotImplementedError, match="item 12"):
         DeepSets(**model_cfg(quant="int8"))
 

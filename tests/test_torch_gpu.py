@@ -16,6 +16,8 @@ skip the repository's conftest (which imports jax):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+import json
+
 import numpy as np
 import pytest
 
@@ -1581,3 +1583,281 @@ def test_vmapped_arms_on_the_card_match_sequential_runs(family):
                 logits = wrapper.model(dev_batch, train=True)
                 losses.append(masked_bce(logits, dev_batch["y"], dev_batch["y_mask"]).item())
         assert abs(losses[0] - losses[1]) <= 1e-4 * max(1.0, abs(losses[0])), losses
+
+
+# -- fused step windows (fuse_steps) as CUDA graphs ------------------------------
+
+
+def _same_shape(batches, k=4):
+    """``k`` batches of the loader's most frequent shape."""
+    from point_cloud_classifier_tpu_torch.data.resident import shape_key
+
+    groups = {}
+    for b in batches:
+        groups.setdefault(shape_key(b), []).append(b)
+    best = max(groups.values(), key=len)
+    assert len(best) >= k, "the loader gave too few batches of one shape"
+    return best[:k]
+
+
+def _window_route(route):
+    """``(model factory, four host batches of one shape)`` for a route at
+    the configs' widths, B=16 clouds or 8 graphs."""
+    from point_cloud_classifier_tpu_torch.data import GraphLoader, PointCloudLoader, TabularLoader
+    from point_cloud_classifier_tpu_torch.data.synthetic import lineage_graphs
+    from point_cloud_classifier_tpu_torch.models import FullyConnectedNet
+
+    rng = np.random.default_rng(7)
+    ds = dict(input_dim=6, phi_layers=[256, 256], rho_layers=[256], output_dim=1, activation="gelu",
+              layer_norm=False, residual_block=True, pooling="mean")
+    if route.startswith("deep_sets"):
+        events = [rng.normal(size=(40, 6)).astype(np.float32) for _ in range(64)]
+        layout = "dense" if "dense" in route else "flat"
+        loader = PointCloudLoader(events, rng.integers(0, 2, size=64), 16, False, layout=layout)
+        extra = {"deep_sets-tail": dict(fused_phi="tail"), "deep_sets-plain-ln": dict(layer_norm=True),
+                 "deep_sets-bf16-dense": dict(compute_dtype="bfloat16")}.get(route, {})
+        return (lambda seed: DeepSets(**{**ds, **extra}, generator=torch.Generator().manual_seed(seed))), \
+            _same_shape(list(loader))
+    if route == "fcn":
+        loader = TabularLoader(rng.normal(size=(64, 9)), rng.integers(0, 2, size=64), 16, False)
+        return (lambda seed: FullyConnectedNet(9, [64, 128, 64], True, 1)), list(loader)[:4]
+    graphs = lineage_graphs(np.random.default_rng(4), 96, 40, 90, position_grid=1 / 64)
+    model = {"gat": dict(use_gat=True), "graphconv-fused": dict(fused_inrow=True),
+             "graphconv-add": {}, "gat-sag": dict(use_gat=True, sag_pool=True),
+             "knn": dict(knn_k=8), "flat-add": {}, "flat-sag": dict(sag_pool=True),
+             "max": dict(local_pooling="max")}[route]
+    kw = dict(layout="flat") if route in ("knn", "flat-add", "flat-sag") else dict(
+        layout="dense", emit_out_rows="fused" in route)
+    loader = GraphLoader(graphs, 8, shuffle=False, use_weights=not model.get("use_gat"), **kw)
+    cfg = dict(input_dim=4, hidden_dim=128, output_dim=1, activation="tanh", deepchem_style=True, **model)
+    return (lambda seed: GraphNet(**cfg, generator=torch.Generator().manual_seed(seed))), \
+        _same_shape(list(loader))
+
+
+def _counts():
+    return (fused_phi.phi_pool.launches, fused_phi.phi_pool.bwd_launches, gat.gat_attention.launches,
+            gat.gat_attention.bwd_launches, gat.gat_out_rows.launches, inrow_graph.inrow_aggregate.launches,
+            inrow_graph.inrow_aggregate.bwd_launches, knn.knn_select.launches, knn.knn_aggregate.launches,
+            knn.knn_aggregate.bwd_launches)
+
+
+WINDOW_ROUTES = ["deep_sets-flat", "deep_sets-dense", "deep_sets-bf16-dense", "deep_sets-tail",
+                 "deep_sets-plain-ln", "fcn", "gat", "graphconv-fused", "graphconv-add", "gat-sag", "knn",
+                 "flat-add", "flat-sag", "max"]
+# the FCN's biases ahead of a BatchNorm have a gradient of 0 in exact
+# arithmetic; Adam scales the rounding residue up to lr-sized steps, so two
+# runs that sum in other orders drift apart there (docs/parity_torch.md §7)
+FREE = {"fcn": ("network.0.bias", "network.3.bias", "network.6.bias")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", WINDOW_ROUTES)
+def test_fused_window_matches_eager_steps(route):
+    """A window of four train steps (run eagerly at its first call, captured
+    at its second, replayed at its third) against the same steps run one by
+    one on the card: per-step losses within 1e-5 relative, the parameters
+    after, the kernels launched (counted at each replay), and a fused
+    ``predict`` against an unfused one.  Every route captures (SAG's ranks
+    count the ids on the device since this test found ``bincount`` reading
+    the largest id back)."""
+    from point_cloud_classifier_tpu_torch.models import ModelWrapper
+
+    _cuda()
+    make, batches = _window_route(route)
+    fused = ModelWrapper(make(0), 1e-3, 1, optimizer="adamw", fuse_steps=4, device="cuda")
+    eager = ModelWrapper(make(1), 1e-3, 1, optimizer="adamw", device="cuda")
+    eager.model.load_state_dict(fused.model.state_dict())
+    # f32: sums in other orders (K1's run-length atomics, capturable Adam's
+    # device-side bias correction); bf16: a reordered f32 sum can round to
+    # the neighbouring bf16 value (1.1e-4 of a loss read on an H100)
+    tol = 1e-3 if "bf16" in route else 1e-5
+    for rep in range(3):
+        before = _counts()
+        got = fused.train_window(batches)
+        mid = _counts()
+        want = torch.stack([eager.train_step(b) for b in batches])
+        after = _counts()
+        assert [m - b for m, b in zip(mid, before)] == [a - m for a, m in zip(after, mid)], rep
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol / 10)
+    assert len(fused.windows) == 1 and fused.windows.replays == 2 and fused.windows.captures == 1
+    for (name, p), q in zip(fused.model.named_parameters(), eager.model.parameters()):
+        if name not in FREE.get(route, ()):
+            err = ((p - q).abs().max() / q.abs().max().clamp(min=1.0)).item()
+            assert err <= 10 * tol, (name, err)
+    # eval windows from the same weights (a copy in place: the graphs keep
+    # their pointers)
+    fused.model.load_state_dict(eager.model.state_dict())
+    y1, p1 = eager.predict(batches * 3, return_prob=True)
+    fused.windows.replays = 0
+    yk, pk = fused.predict(batches * 3, return_prob=True)  # warm-up, capture, replay
+    assert fused.windows.replays == 2
+    np.testing.assert_array_equal(yk, y1)
+    np.testing.assert_allclose(pk, p1, rtol=10 * tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dense", [False, True], ids=["flat", "dense"])
+def test_tail_pair_matches_plain(dense):
+    """``fused_phi="tail"``: K1 and K2 over the chain of one bare linear
+    layer after the plain hidden chain, the loss and every gradient against
+    ``force_plain()``."""
+    from point_cloud_classifier_tpu_torch.models import ModelWrapper
+
+    _cuda()
+    make, batches = _window_route("deep_sets-dense" if dense else "deep_sets-flat")
+    cfg = dict(input_dim=6, phi_layers=[256, 256], rho_layers=[256], output_dim=1, activation="gelu",
+               layer_norm=False, residual_block=True, pooling="mean", fused_phi="tail")
+    kernel = ModelWrapper(DeepSets(**cfg, generator=torch.Generator().manual_seed(0)), 1e-3, 1, device="cuda")
+    plain = ModelWrapper(DeepSets(**cfg, generator=torch.Generator().manual_seed(1)), 1e-3, 1, device="cuda")
+    plain.model.load_state_dict(kernel.model.state_dict())
+    before = (fused_phi.phi_pool.launches, fused_phi.phi_pool.bwd_launches)
+    loss = kernel.train_step(batches[0])
+    assert (fused_phi.phi_pool.launches, fused_phi.phi_pool.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert fused_phi.phi_pool.variant == "general"
+    with force_plain():
+        ref = plain.train_step(batches[0])
+    torch.testing.assert_close(loss, ref, rtol=1e-5, atol=1e-6)
+    for (name, p), q in zip(kernel.model.named_parameters(), plain.model.parameters()):
+        scale = max(1e-12, q.grad.abs().max().item())
+        assert (p.grad - q.grad).abs().max().item() <= 1e-4 * scale, name
+
+
+def _resume_loaders(route):
+    """``(model factory, train batches, val batches)``: two shapes each, in
+    runs of four train and two val batches (windows of those lengths)."""
+    from point_cloud_classifier_tpu_torch.data import GraphLoader, PointCloudLoader
+    from point_cloud_classifier_tpu_torch.data.synthetic import lineage_graphs
+
+    rng = np.random.default_rng(3)
+    if route == "deep_sets":
+        sizes = np.concatenate([rng.integers(20, 30, size=48), rng.integers(70, 90, size=48)])
+        events = [rng.normal(size=(int(k), 6)).astype(np.float32) for k in sizes]
+        labels = rng.integers(0, 2, size=len(events))
+        pick = lambda idx: list(PointCloudLoader([events[i] for i in idx], labels[idx], 8, False))  # noqa: E731
+        cfg = dict(input_dim=6, phi_layers=[256, 256], rho_layers=[256], output_dim=1, activation="gelu",
+                   layer_norm=False, residual_block=True, pooling="mean")
+        make = lambda: DeepSets(**cfg, generator=torch.Generator().manual_seed(0))  # noqa: E731
+    else:
+        graphs = lineage_graphs(np.random.default_rng(4), 48, 20, 30) + \
+            lineage_graphs(np.random.default_rng(5), 48, 100, 120)
+        pick = lambda idx: list(GraphLoader([graphs[i] for i in idx], 8, shuffle=False,  # noqa: E731
+                                            layout="dense", use_weights=True, emit_out_rows=True))
+        cfg = dict(input_dim=4, hidden_dim=128, output_dim=1, activation="tanh", deepchem_style=True,
+                   fused_inrow=True)
+        make = lambda: GraphNet(**cfg, generator=torch.Generator().manual_seed(0))  # noqa: E731
+    train = np.r_[0:32, 48:80]
+    val = np.r_[32:48, 80:96]
+    return make, pick(train), pick(val)
+
+
+def _resume_runs(route, tmp_path, device):
+    """A run of 4 epochs with ``fuse_steps=4`` over resident caches with
+    validation each epoch; the same run stopped after epoch 1 and resumed
+    for 3 more (its state read back to the CPU by ``torch.load``); an
+    unfused run with the optimizer the windows capture (``capturable``: the
+    trainer's default Adam rounds apart from it, ``chip_smoke.py`` phase 24
+    measures by how much).  The caches replay in their first order (a resumed run's
+    cache streams its first epoch in the loader's order, so a shuffled
+    replay would part it from the uninterrupted run).  Returns
+    ``{name: (wrapper, metrics)}``."""
+    from point_cloud_classifier_tpu_torch.data.resident import ResidentCache
+    from point_cloud_classifier_tpu_torch.models import ModelWrapper
+    from point_cloud_classifier_tpu_torch.models.wrapper import _make_optimizer
+
+    make, train, val = _resume_loaders(route)
+
+    def run(name, fuse, epochs, resume=False):
+        wrapper = ModelWrapper(make(), 3e-3, epochs, log_dir=str(tmp_path / name), optimizer="adamw",
+                               seed=0, state_every=1, fuse_steps=fuse, device_resident=True, device=device)
+        if fuse == 1:
+            wrapper.optimizer = _make_optimizer("adamw", wrapper.model.parameters(), 3e-3,
+                                                capturable=device != "cpu")
+        wrapper.fit(ResidentCache(train, device=device), ResidentCache(val, device=device), resume=resume)
+        return wrapper
+
+    runs = {"straight": run("straight", 4, 4), "unfused": run("unfused", 1, 4)}
+    run("resumed", 4, 1)
+    runs["resumed"] = run("resumed", 4, 4, resume=True)
+    out = {}
+    for name, wrapper in runs.items():
+        rows = {}
+        with open(tmp_path / name / "metrics.jsonl") as f:
+            for line in f:
+                row = json.loads(line)
+                rows.setdefault(row["tag"], {})[row["step"]] = row["value"]
+        out[name] = (wrapper, rows)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["deep_sets", "graphconv-fused"])
+def test_resumed_fused_run_on_the_card_matches_an_uninterrupted_one(route, tmp_path):
+    """``fuse_steps=4`` over resident loaders of two shapes with validation
+    each epoch, so that train and eval graphs of several shape keys replay
+    in turn from the one pool: a run stopped after its first epoch and
+    resumed (the capturable Adam state saved, read back to the CPU and
+    loaded onto the card) ends where the uninterrupted fused run ends, and
+    where an unfused run with the same Adam ends: per-epoch losses within 1e-5 relative,
+    parameters and Adam moments within 1e-4 of their scale, the step counts
+    equal."""
+    _cuda()
+    runs = _resume_runs(route, tmp_path, "cuda")
+    straight, rows = runs["straight"]
+    # two train and two eval shape keys, each captured once and replayed
+    assert (len(straight.windows), straight.windows.captures) == (4, 4) and straight.windows.replays >= 8
+    resumed = runs["resumed"][0]
+    assert (len(resumed.windows), resumed.windows.captures) == (4, 4) and resumed.windows.replays >= 4
+    for name in ("resumed", "unfused"):
+        wrapper, other = runs[name]
+        for tag in ("Loss/train", "Loss/val"):
+            for epoch, value in rows[tag].items():
+                assert abs(other[tag][epoch] - value) <= 1e-5 * abs(value), (name, tag, epoch, other[tag], value)
+        for (key, p), q in zip(wrapper.model.named_parameters(), straight.model.parameters()):
+            err = ((p - q).abs().max() / q.abs().max().clamp(min=1.0)).item()
+            assert err <= 1e-4, (name, key, err)
+        ours, ref = wrapper.optimizer.state_dict()["state"], straight.optimizer.state_dict()["state"]
+        for i, state in ref.items():
+            assert torch.equal(ours[i]["step"].cpu(), state["step"].cpu()), (name, i)
+            for k in ("exp_avg", "exp_avg_sq"):
+                scale = state[k].abs().max().clamp(min=1e-30)
+                err = ((ours[i][k] - state[k]).abs().max() / scale).item()
+                assert err <= 1e-4, (name, i, k, err)
+
+
+class _HostRead(torch.nn.Module):
+    """A model whose forward reads the device on the host."""
+
+    name = "host_read"
+    config = {"width": 4}
+
+    def __init__(self):
+        super().__init__()
+        self.lin = torch.nn.Linear(9, 1)
+
+    def forward(self, batch, train=False):
+        x = batch["x"]
+        if x.abs().sum().item() > 0:
+            x = x * 1.0
+        return self.lin(x)
+
+
+@pytest.mark.gpu
+def test_uncapturable_route_raises_naming_the_operation():
+    """A train step that reads the device on the host raises at its first
+    window, naming the route and the operation; nothing trains unfused."""
+    from point_cloud_classifier_tpu_torch.data import TabularLoader
+    from point_cloud_classifier_tpu_torch.models import ModelWrapper
+
+    _cuda()
+    rng = np.random.default_rng(0)
+    batches = list(TabularLoader(rng.normal(size=(32, 9)), rng.integers(0, 2, size=32), 8, False))
+    wrapper = ModelWrapper(_HostRead(), 1e-3, 1, fuse_steps=2, device="cuda")
+    before = [p.detach().clone() for p in wrapper.model.parameters()]
+    with pytest.raises(NotImplementedError, match=r"fuse_steps=2: the train step of host_read "
+                       r'\{"width": 4\} cannot run as a CUDA graph: .* at tests/test_torch_gpu.py:\d+ '
+                       r"\(if x.abs\(\).sum\(\).item\(\) > 0:\)"):
+        wrapper.train_window(batches[:2])
+    with pytest.raises(NotImplementedError, match="host_read"):
+        wrapper.fit(batches)
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert all(torch.equal(p, q) for p, q in zip(wrapper.model.parameters(), before))

@@ -57,7 +57,9 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
                     "models.logistic_regression", "utils.metrics"}
     host = {"native", "native.host"}
     sweep = {"sweep", "parallel", "parallel.vmap_sweep"}
-    assert {f"point_cloud_classifier_tpu_torch.{m}" for m in graph_slice | pipelines | command_line | host | sweep} <= walked
+    fused = {"utils.profiling", "models.windows"}
+    assert {f"point_cloud_classifier_tpu_torch.{m}"
+            for m in graph_slice | pipelines | command_line | host | sweep | fused} <= walked
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -73,6 +75,38 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert proc.returncode != 0
     assert "ModuleNotFoundError" in proc.stderr
     assert '"ok": true' not in proc.stdout
+
+
+def test_fused_fit_trace_and_histograms_run_without_jax(tmp_path):
+    """``fit`` with ``fuse_steps``, ``PCC_TRACE=1`` and histogram mode, and
+    ``utils/profiling``'s ``StepTimer``, in a process where jax and the JAX
+    package cannot be imported."""
+    code = textwrap.dedent(
+        f"""
+        import os, sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        os.environ.update(PCC_TRACE="1", PCC_TENSORBOARD="1", PCC_TB_HISTOGRAMS="1")
+        import numpy as np, torch
+        from point_cloud_classifier_tpu_torch.data import PointCloudLoader
+        from point_cloud_classifier_tpu_torch.models import DeepSets, ModelWrapper
+        from point_cloud_classifier_tpu_torch.utils.profiling import StepTimer, maybe_trace
+        rng = np.random.default_rng(0)
+        events = [rng.normal(size=(int(n), 6)).astype(np.float32) for n in rng.integers(1, 20, size=24)]
+        loader = PointCloudLoader(events, rng.integers(0, 2, size=24), 8, shuffle=False)
+        net = DeepSets(6, [8, 8], [8], 1, "gelu", layer_norm=False, fused_phi="tail", pooling="mean",
+                       generator=torch.Generator().manual_seed(0))
+        ModelWrapper(net, 1e-3, 1, log_dir={str(tmp_path)!r}, fuse_steps=2, device="cpu").fit(loader)
+        timer = StepTimer(8)
+        with timer.step():
+            pass
+        print(sorted(os.listdir({str(tmp_path)!r})), timer.summary()["steps"])
+        """
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "'trace'" in proc.stdout and proc.stdout.split()[-1] == "1"
+    assert any(f.startswith("events.out.tfevents") for f in os.listdir(tmp_path))
 
 
 def test_knn_path_runs_without_jax():

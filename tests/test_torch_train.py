@@ -258,17 +258,13 @@ def test_non_finite_loss_raises(tmp_path):
 @pytest.mark.parametrize(
     "kwargs, env",
     [
-        ({"fuse_steps": 2}, {}),
-        ({}, {"PCC_FUSE_STEPS": "4"}),
         ({"data_parallel": True}, {}),
         ({}, {"PCC_DATA_PARALLEL": "1"}),
         ({"n_model": 2}, {}),
         ({}, {"PCC_N_MODEL": "2"}),
         ({"mesh": object()}, {}),
-        ({}, {"PCC_TB_HISTOGRAMS": "1"}),
     ],
-    ids=["fuse_steps", "PCC_FUSE_STEPS", "data_parallel",
-         "PCC_DATA_PARALLEL", "n_model", "PCC_N_MODEL", "mesh", "PCC_TB_HISTOGRAMS"],
+    ids=["data_parallel", "PCC_DATA_PARALLEL", "n_model", "PCC_N_MODEL", "mesh"],
 )
 def test_unported_trainer_options_raise(monkeypatch, tmp_path, kwargs, env):
     model = factory.get_model("deep_sets", _config(tmp_path), device="cpu").model

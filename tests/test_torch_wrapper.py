@@ -98,9 +98,9 @@ def test_get_model_errors(tmp_path):
         factory.get_model("fully_connected_net", fcn, str(tmp_path), device="cpu")
     # an option not ported yet names its ROADMAP item; SAG GraphNet, once
     # such an option, builds
-    tail = {**cfg, "model": {**cfg["model"], "fused_phi": "tail"}}
+    int8 = {**cfg, "model": {**cfg["model"], "quant": "int8"}}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory.get_model("deep_sets", tail, device="cpu")
+        factory.get_model("deep_sets", int8, device="cpu")
     sag = {**cfg, "model": dict(input_dim=4, hidden_dim=8, output_dim=1, activation="tanh", sag_pool=True)}
     assert "pool.gnn.lin_rel.weight" in factory.get_model("graph_net", sag, device="cpu").model.state_dict()
     with pytest.raises(ValueError):
