@@ -213,7 +213,32 @@ result):
    over its floor; (c) ``PCC_PHI_REMAT=0`` against ``1`` on the plain route
    (layer norm) at φ widths 256, 512 and 1024, B=256: ms a train step by
    CUDA events, in turns, and peak memory; (d) ``train_model`` with
-   ``PCC_TRACE=1``: its trace names K1 and K2.
+   ``PCC_TRACE=1``: its trace names K1 and K2;
+25. int8 evaluation and the serving export, over phase 20's trained DeepSets
+   run and phase 13's in-row GAT run: (a) the int8 chain at the configs'
+   widths, B=256, on the flat and dense fp16 wires, f32 and bf16, against the
+   same chain on the CPU (the first layer's codes and scales equal, logits
+   within 1e-4; bf16 3e-2), against the float ``predict`` (probabilities
+   within 0.05, decisions equal wherever the float probability lies 0.01 or
+   more from 0.5), with no K1 launch in the int8 ``predict`` and one a batch
+   in the float one; a fused eval window of 16 batches (``fuse_steps=16``)
+   with int8 captured and replayed, within 1e-6 of the eager int8
+   ``predict``; (b) ``evaluate --quant int8`` through ``cli.main``
+   (``eval_int8/metrics.json`` with ``"quant": "int8"``, no kernel launch);
+   (c) the eval step's ms a resident B=256 batch (P=65,536, CUDA events, in
+   turns) on the float K1 route, the float plain route and the int8 chain
+   at φ widths 256, 512, 1024 and 2048 (``bench.py --eval-device
+   --phi-width``), and each int8 layer's quantize pass and ``torch._int_mm``
+   alone against their bounds (bytes over 3.35 TB/s, s8 operations over
+   1,979 TOPS), with ``torch._int_mm`` on the weight codes row-major beside
+   the column-major order the chain hands it; over 36 shapes
+   ``int8_matmul`` exact and the row-major order's refusals; (d) ``export``
+   through ``cli.main`` of the DeepSets run (float and int8) and the in-row
+   GAT run for the card and the CPU,
+   ``ExportedModel`` on each device within 1e-5 of ``predict`` of the same
+   route there, no kernel launch while a program runs, a ``KeyError`` on a
+   shape not exported, and an exported ``predict`` a batch beside
+   ``predict``'s (host clock).
 
 Beside each kernel's time the script works out the least time the card could
 take for the same work (``bound_ms``: the bytes the function must move over
@@ -230,7 +255,9 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import json
+import operator
 import os
 import pickle
 import re
@@ -242,7 +269,7 @@ import warnings
 import numpy as np
 import torch
 
-from point_cloud_classifier_tpu_torch import cli, convert, factory
+from point_cloud_classifier_tpu_torch import cli, convert, factory, serving
 from point_cloud_classifier_tpu_torch import sweep as port_sweep
 from point_cloud_classifier_tpu_torch import train as port_train
 from point_cloud_classifier_tpu_torch.data import GraphLoader, PointCloudLoader
@@ -256,7 +283,7 @@ from point_cloud_classifier_tpu_torch.data.synthetic import (
 )
 from point_cloud_classifier_tpu_torch.graph_kernel_times import device_ms
 from point_cloud_classifier_tpu_torch.models import DeepSets, GraphNet, LogRegression, ModelWrapper
-from point_cloud_classifier_tpu_torch.models.wrapper import _make_optimizer
+from point_cloud_classifier_tpu_torch.models.wrapper import _make_optimizer, put_batch
 from point_cloud_classifier_tpu_torch.models.deep_sets import dense_segment_ids
 from point_cloud_classifier_tpu_torch.data.graph import build_event_edges
 from point_cloud_classifier_tpu_torch.native import kernel_library
@@ -294,6 +321,13 @@ from point_cloud_classifier_tpu_torch.ops.knn import (
     knn_aggregate_plain,
     knn_select,
     knn_select_plain,
+)
+from point_cloud_classifier_tpu_torch.ops.activations import resolve_activation
+from point_cloud_classifier_tpu_torch.ops.quant import (
+    int8_matmul,
+    int_mm_operands,
+    quantize_cols,
+    quantize_rows,
 )
 from point_cloud_classifier_tpu_torch.parallel import VmappedArms, train_configs_vmapped
 from point_cloud_classifier_tpu_torch.utils.config import load_config
@@ -3623,6 +3657,289 @@ def fuse_phase(smi: str, work_dir: str) -> tuple:
     return fused, tail
 
 
+# phase 25: int8 evaluation and the serving export
+INT8_B = 256
+INT8_WIDTHS = (256, 512, 1024, 2048)  # bench.py --eval-device --phi-width
+S8_OPS_PER_S = 1979e12  # dense int8 in the tensor cores (NVIDIA's data sheet, SXM part)
+# the int8 chain on the card against the same chain on the CPU, logits max
+# |Δ| / max(1, max |CPU|).  The codes and the s32 sums are exact on both, so
+# what is left is the activations' rounding: an activation an ulp apart can
+# move a later layer's code by one at a rounding tie (f32); in bf16 a value
+# at a rounding boundary lands on its neighbour (2^-8 relative)
+INT8_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# int8 against float probabilities: JAX tests/test_quant.py's band; the
+# decisions agree for every event whose float probability lies at least
+# DECISION_MARGIN from 0.5
+INT8_FLOAT_BAND, DECISION_MARGIN = 0.05, 0.01
+# the fused int8 eval window against the eager int8 predict (the flat wire
+# pools by index_add's atomics, in another order each run)
+INT8_WINDOW_TOL = 1e-6
+# ExportedModel against wrapper.predict of the same route on the same device
+EXPORT_TOL = 1e-5
+INT8_TIME_ITERS = 5
+INT8_MM_ROWS = (17, 24, 33, 1001, 1008, 65536)
+
+
+def _deep_sets_wrappers(run_dir: str, cfg: dict, dtype: str, device=None, **trainer) -> dict:
+    """{quant: wrapper} of the run's best_model.pt at ``dtype``, int8 and
+    float."""
+    out = {}
+    for quant in ("int8", "none"):
+        c = copy.deepcopy(cfg)
+        c["model"]["compute_dtype"] = dtype
+        c["trainer"].update(trainer)
+        factory.apply_quant(c, "deep_sets", quant)
+        out[quant] = factory.get_model("deep_sets", c, run_dir, device=device)
+    return out
+
+
+def int8_card_phase(smi: str, run_dir: str, cfg: dict) -> None:
+    """(a) the int8 chain of the command line's trained DeepSets (phase 20)
+    at B=256, flat and dense fp16 wires, f32 and bf16: against the same
+    chain on the CPU (first layer's codes equal, logits within
+    INT8_LOGIT_TOL), against the float predict, with K1 counted; then a
+    fused eval window of FUSE_K batches against the eager int8 predict."""
+    clouds, labels = make_clouds(np.random.default_rng(SEED + 250), 4 * INT8_B)
+    for layout in ("flat", "dense"):
+        batches = list(PointCloudLoader(clouds, labels, INT8_B, False, layout=layout, transfer_dtype="float16"))
+        for dtype in ("float32", "bfloat16"):
+            card = _deep_sets_wrappers(run_dir, cfg, dtype)
+            host = _deep_sets_wrappers(run_dir, cfg, dtype, device="cpu")["int8"]
+            codes_apart, logit_err = 0, 0.0
+            with torch.inference_mode():
+                for b in batches:
+                    x = torch.from_numpy(b["points"]).to(getattr(torch, dtype)).reshape(-1, b["points"].shape[-1])
+                    (q_card, s_card), (q_host, s_host) = quantize_rows(x.cuda()), quantize_rows(x)
+                    codes_apart += int((q_card.cpu() != q_host).sum()) + int((s_card.cpu() != s_host).sum())
+                    got = card["int8"].model(put_batch(b, card["int8"].model, card["int8"].device)).cpu()
+                    want = host.model(put_batch(b, host.model, host.device))
+                    logit_err = max(logit_err, _max_rel(got, want))
+            counts = {}
+            probs = {}
+            for quant in ("int8", "none"):
+                reset_launch_counts()
+                probs[quant] = card[quant].predict(batches, return_prob=True)[1]
+                counts[quant] = phi_pool.launches
+            apart = float(np.abs(probs["int8"] - probs["none"]).max())
+            flips = (probs["int8"] >= 0.5) != (probs["none"] >= 0.5)
+            clear = np.abs(probs["none"] - 0.5) >= DECISION_MARGIN
+            print(f"int8 {layout} fp16 wire {dtype} B={INT8_B}, {len(batches)} batches: first layer's codes "
+                  f"and scales apart from the CPU's {codes_apart}; logits max relative {logit_err:.3e} (bound "
+                  f"{INT8_LOGIT_TOL[dtype]:.0e}); max |p_int8 − p_float| {apart:.3e} (band "
+                  f"{INT8_FLOAT_BAND}); decisions apart {int(flips.sum())} of {flips.size}, "
+                  f"{int((flips & clear).sum())} of them {DECISION_MARGIN} or more from 0.5; K1 launches "
+                  f"int8 {counts['int8']}, float {counts['none']} [{smi}]")
+            if codes_apart or not logit_err <= INT8_LOGIT_TOL[dtype]:
+                raise AssertionError(f"int8 {layout} {dtype}: the card's int8 chain is not the CPU's")
+            if not apart <= INT8_FLOAT_BAND or (flips & clear).any():
+                raise AssertionError(f"int8 {layout} {dtype}: int8 strays from the float predict")
+            if counts["int8"] != 0 or counts["none"] != len(batches):
+                raise AssertionError(f"int8 {layout} {dtype}: K1 launches {counts}, expected 0 and {len(batches)}")
+
+    # the fused eval window: clouds of 256 points, one shape a wire
+    rng = np.random.default_rng(SEED + 251)
+    clouds = [rng.normal(size=(256, 6)).astype(np.float32) for _ in range(4 * INT8_B)]
+    for layout in ("flat", "dense"):
+        loader = PointCloudLoader(clouds, rng.integers(0, 2, size=len(clouds)), INT8_B, False, layout=layout,
+                                  transfer_dtype="float16")
+        window, distinct = _one_shape(list(loader), FUSE_K)
+        eager = _deep_sets_wrappers(run_dir, cfg, "float32")["int8"]
+        fused = _deep_sets_wrappers(run_dir, cfg, "float32", fuse_steps=FUSE_K)["int8"]
+        want = eager.predict(window * FUSE_PASSES, return_prob=True)[1]
+        reset_launch_counts()
+        got = fused.predict(window * FUSE_PASSES, return_prob=True)[1]
+        k1 = phi_pool.launches
+        err = float(np.abs(got - want).max())
+        graphs = (len(fused.windows), fused.windows.captures, fused.windows.replays)
+        print(f"int8 fused eval window {layout} B={INT8_B} K={FUSE_K} ({distinct} distinct batches cycled), "
+              f"{FUSE_PASSES} passes: (graphs, captures, replays) {graphs}, capture "
+              f"{fused.windows.capture_seconds:.2f} s; max |Δprob| against the eager int8 predict {err:.3e} "
+              f"(bound {INT8_WINDOW_TOL:.0e}); K1 launches {k1} [{smi}]")
+        if graphs != (1, 1, FUSE_PASSES - 1) or not err <= INT8_WINDOW_TOL or k1:
+            raise AssertionError(f"int8 fused eval window {layout}: not captured, or not the eager predict")
+
+
+def int8_evaluate_phase(smi: str, run_dir: str) -> None:
+    """(b) ``evaluate --quant int8`` through ``cli.main`` on the command
+    line's trained DeepSets: ``eval_int8/metrics.json`` with ``"quant":
+    "int8"``, no K1 launch, its accuracies beside a float ``evaluate`` of
+    the same weights (phase 20's ``resume`` moved them since its own)."""
+    seconds = {}
+    _cli(seconds, "evaluate deep_sets", "evaluate", run_dir)
+    counts = _cli(seconds, "evaluate deep_sets --quant int8", "evaluate", run_dir, "--quant", "int8")
+    _expect_launches("evaluate deep_sets --quant int8", counts)
+    with open(os.path.join(run_dir, "eval_int8", "metrics.json")) as f:
+        metrics = json.load(f)
+    with open(os.path.join(run_dir, "eval", "metrics.json")) as f:
+        floats = json.load(f)
+    print(f"cli evaluate deep_sets --quant int8: {metrics} (float: {floats}), "
+          f"{seconds['evaluate deep_sets --quant int8']:.2f} s [{smi}]")
+    if metrics.get("quant") != "int8" or list(metrics)[:3] != list(floats):
+        raise AssertionError("cli evaluate --quant int8: eval_int8/metrics.json lacks its accuracies or its quant")
+
+
+def int8_times_phase(smi: str) -> None:
+    """(c) ms a resident B=256 batch of the eval step (forward and sigmoid,
+    CUDA events, in turns) on the float K1 route, the float plain route and
+    the int8 chain at φ widths INT8_WIDTHS (bench.py --eval-device
+    --phi-width: φ [w, w], the rest of configs/deep_sets.yaml, f32, clouds
+    of 256 points on the flat wire, P=65,536); and each int8 layer's
+    quantize pass and ``torch._int_mm`` alone against their bounds."""
+    rng = np.random.default_rng(SEED + 252)
+    clouds = [rng.normal(size=(256, 6)).astype(np.float32) for _ in range(4 * INT8_B)]
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in b.items()}
+               for b in PointCloudLoader(clouds, rng.integers(0, 2, size=len(clouds)), INT8_B, False)]
+    crossover = {}
+    for width in INT8_WIDTHS:
+        model = {**CONFIG["model"], "phi_layers": [width, width]}
+        base = DeepSets(**model, generator=torch.Generator().manual_seed(SEED)).cuda().eval()
+        routes = {"int8": DeepSets(**model, quant="int8"), "plain": DeepSets(**model, fused_phi="off")}
+        if base._use_kernel():
+            routes["K1"] = DeepSets(**model)
+        for net in routes.values():
+            net.load_state_dict(base.state_dict())
+            net.cuda().eval()
+
+        def step(net):
+            with torch.inference_mode():
+                for b in batches:
+                    torch.sigmoid(net(b))
+
+        samples = {name: [] for name in routes}
+        for turn in range(2):
+            for name in routes if turn == 0 else reversed(list(routes)):
+                samples[name].append(cuda_ms(lambda: step(routes[name]), iters=INT8_TIME_ITERS, warmup=2)
+                                     / len(batches))
+        ms = {name: float(np.median(s)) for name, s in samples.items()}
+        best_float = min(v for k, v in ms.items() if k != "int8")
+        crossover[width] = ms["int8"] < best_float
+        shown = ", ".join(f"{name} {ms[name]:.4f} ({_spread(samples[name])})" for name in ("K1", "plain", "int8")
+                          if name in ms)
+        print(f"int8 time φ [{width}, {width}] B={INT8_B} P={batches[0]['points'].shape[0]} f32: eval step ms "
+              f"a batch {shown}{'' if 'K1' in ms else ', K1 n/a (the chain exceeds its tiles: plain route)'}; "
+              f"int8 / best float ×{ms['int8'] / best_float:.3f} [{smi}]")
+        # each int8 layer alone: its activation quantize pass and its s8 product
+        spec, params = routes["int8"]._phi_spec_params()
+        act = resolve_activation(model["activation"])
+        h = batches[0]["points"].float()
+        with torch.inference_mode():
+            for i, ((kind, _), (w, b, *_)) in enumerate(zip(spec, params)):
+                xq, sx = quantize_rows(h)
+                wq, sw = quantize_cols(w)
+                p, k = xq.shape
+                xp, wp = int_mm_operands(xq, wq)
+                q_ms = cuda_ms(lambda: quantize_rows(h))
+                mm_ms = cuda_ms(lambda: torch._int_mm(xp, wp))
+                acc = torch._int_mm(xp, wp)
+                # the weight codes row-major, where cuBLASLt takes them
+                rows = wp.contiguous()
+                try:
+                    row_ms = f"{cuda_ms(lambda: torch._int_mm(xp, rows)):.4f} ms"
+                except RuntimeError as e:
+                    row_ms = f"refused ({str(e).split(' when ')[0]})"
+                q_bound, q_by = bound_ms(_nbytes(h, xq, sx), 0)
+                mm_bound, mm_by = bound_ms(_nbytes(xp, wp, acc), 2 * p * xp.shape[1] * wp.shape[1], S8_OPS_PER_S)
+                print(f"int8 time φ [{width}, {width}] layer {i + 1} ({kind}, [{p}, {k}] × [{k}, {w.shape[1]}]): "
+                      f"quantize pass {q_ms:.4f} ms (bound {q_bound:.4f}, {q_by}); _int_mm {mm_ms:.4f} ms "
+                      f"(bound {mm_bound:.4f}, {mm_by}; the weight codes row-major: {row_ms}) [{smi}]")
+                out = act(acc[:p, : w.shape[1]].float() * sx * sw + b.float())
+                h = h + out if kind == "residual" else out
+        del routes, base
+        torch.cuda.empty_cache()
+    print(f"int8 crossover on the card (int8 faster than the best float route) {crossover} [{smi}]")
+    # the operand order over shapes the chain meets: rows past 16, K and N
+    # padded to multiples of 8
+    refused, shapes = [], list(itertools.product(INT8_MM_ROWS, (8, 16, 256), (8, 256)))
+    for m, k, n in shapes:
+        gen = torch.Generator().manual_seed(m + k + n)
+        xq = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=gen).cuda()
+        wq = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen).cuda()
+        # f64 products and sums of int8 codes are exact
+        if not torch.equal(int8_matmul(xq, wq).double(), xq.double() @ wq.double()):
+            raise AssertionError(f"int8: int8_matmul at {(m, k, n)} is not the exact product")
+        try:
+            torch._int_mm(xq, wq.contiguous())
+        except RuntimeError:
+            refused.append((m, k, n))
+    print(f"int8 _int_mm over {len(shapes)} shapes (rows {INT8_MM_ROWS}, K 8, 16, 256, N 8, 256): the "
+          f"column-major weight codes exact at every one; row-major refused at {len(refused)}: {refused} "
+          f"[{smi}]")
+
+
+def _aten_only(served) -> None:
+    """Raise unless every call in the loaded programs is an ATen operation."""
+    for key, program in served._loaded.items():
+        for node in program.module.graph.nodes:
+            target = node.target
+            if node.op == "call_function" and not (target is operator.getitem or (
+                    isinstance(target, torch._ops.OpOverload) and target.namespace == "aten")):
+                raise AssertionError(f"export: the program for {key} calls {target}")
+
+
+def export_phase(smi: str, run_dir: str) -> None:
+    """(d) ``export`` through ``cli.main`` of the command line's DeepSets run
+    (float and int8) and of phase 13's in-row GAT run, for the card and the
+    CPU; ``ExportedModel`` on each against ``predict`` of the same route on
+    that device; no kernel launch while a program runs; a shape not exported
+    raises KeyError; an exported predict a batch beside ``predict``'s."""
+    seconds = {}
+    runs = (("deep_sets", os.path.join(run_dir, "cli_log", "deep_sets", "version_0"), "none"),
+            ("deep_sets int8", os.path.join(run_dir, "cli_log", "deep_sets", "version_0"), "int8"),
+            ("in-row GAT", os.path.join(run_dir, "graph_log", "version_0"), "none"))
+    for label, run, quant in runs:
+        out = os.path.join(run_dir, "exported_" + label.replace(" ", "_"))
+        counts = _cli(seconds, f"export {label}", "export", run, "--out-dir", out, "--quant", quant,
+                      "--platforms", "cuda", "cpu")
+        _expect_launches(f"export {label}", counts)
+        config = load_config(os.path.join(run, "config.yaml"))
+        model_name = config["meta"]["model_name"]
+        factory.apply_quant(config, model_name, quant)
+        batches = list(factory.get_dataloader(config["meta"]["dataset_name"], config).get_test_loader())
+        with open(os.path.join(out, "manifest.json")) as f:
+            manifest = json.load(f)
+        shapes = {serving._shape_key(b) for b in batches}
+        if set(manifest["artifacts"]) != shapes or manifest["quant"] != quant:
+            raise AssertionError(f"export {label}: the manifest does not hold the test loader's shapes")
+        errs, served = {}, {}
+        for device in ("cuda", "cpu"):
+            wrapper = factory.get_model(model_name, config, run, device=device)
+            with force_plain():
+                _, want = wrapper.predict(batches, return_prob=True)
+            served[device] = serving.ExportedModel(out, device=device)
+            reset_launch_counts()
+            _, got = served[device].predict(batches, return_prob=True)
+            counts = launch_counts()
+            _aten_only(served[device])
+            errs[device] = float(np.abs(got - want).max())
+            if any(counts.values()):
+                raise AssertionError(f"export {label}: an exported program launched {counts}")
+        bad = {k: np.asarray(v)[:1] if np.ndim(v) else v for k, v in batches[0].items()}
+        try:
+            served["cuda"](bad)
+            raise AssertionError(f"export {label}: a shape not exported did not raise KeyError")
+        except KeyError:
+            pass
+        wrapper = factory.get_model(model_name, config, run)
+        (w_ms, w_q1, w_q3), (e_ms, e_q1, e_q3) = predict_ms_per_batch([wrapper, served["cuda"]], batches)
+        print(f"export {label}: {len(manifest['artifacts'])} programs for {len(batches)} test batches, "
+              f"{seconds[f'export {label}']:.2f} s; ExportedModel against predict of the same route, max "
+              f"|Δprob| card {errs['cuda']:.3e}, CPU {errs['cpu']:.3e} (bound {EXPORT_TOL:.0e}); no kernel "
+              f"launch; KeyError on a shape not exported; ms a batch (host clock, median and quartiles): "
+              f"predict {w_ms:.4f} ({w_q1:.4f}–{w_q3:.4f}), exported {e_ms:.4f} ({e_q1:.4f}–{e_q3:.4f}) [{smi}]")
+        if not max(errs.values()) <= EXPORT_TOL:
+            raise AssertionError(f"export {label}: the exported program strays from predict")
+
+
+def int8_export_phase(smi: str, run_dir: str) -> None:
+    """Phase 25: int8 evaluation and the serving export."""
+    cli_run = os.path.join(run_dir, "cli_log", "deep_sets", "version_0")
+    cfg = load_config(os.path.join(cli_run, "config.yaml"))
+    int8_card_phase(smi, cli_run, cfg)
+    int8_evaluate_phase(smi, cli_run)
+    int8_times_phase(smi)
+    export_phase(smi, run_dir)
+
+
 def main() -> None:
     t0 = time.perf_counter()
     marks = [t0]
@@ -3711,6 +4028,8 @@ def main() -> None:
         for name in ("phi_pool", "phi_pool_bwd"):
             beside[name].update(tail_launches[name])
             launches[name] += tail_launches[name]["tail_launches"]
+        int8_export_phase(smi, run_dir)
+        lap("int8 and export")
     profile_phase(smi)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{

@@ -2,13 +2,14 @@
 
 Counterpart of ``_build_parser`` and ``main`` in the repository's
 ``train.py``: the same nine subcommands, with the same arguments, choices
-and defaults.  ``train``, ``evaluate``, ``resume``, ``infer`` and
-``convert`` run, on the card (``main(argv, device="cpu")`` runs them on the
-CPU; the command line always means the card).  The others are not ported
-and exit non-zero naming their ROADMAP Queue 1 item: ``infer-raw``,
-``serve``, ``create-datasets`` and ``train --create-dataset`` (item 6: h5py,
-pandas and a joblib scaler), ``export`` (item 15); ``train --plots`` raises
-(item 16), as does a ``--quant`` that resolves to int8 (item 12).
+and defaults.  ``train``, ``evaluate``, ``resume``, ``infer``,
+``export`` and ``convert`` run, on the card (``main(argv, device="cpu")``
+runs them on the CPU; the command line always means the card); ``--quant
+int8`` takes DeepSets' int8 chain in ``evaluate``, ``infer`` and ``export``.
+The others are not ported and exit non-zero naming their ROADMAP Queue 1
+item: ``infer-raw``, ``serve``, ``create-datasets`` and ``train
+--create-dataset`` (item 6: h5py, pandas and a joblib scaler); ``train
+--plots`` raises (item 16).
 """
 
 from __future__ import annotations
@@ -29,7 +30,6 @@ _NOT_PORTED = {
     "infer-raw": "ROADMAP Queue 1 item 6: raw HDF5 serving needs h5py, pandas and a joblib scaler",
     "serve": "ROADMAP Queue 1 item 6: the HTTP scorer serves raw HDF5",
     "create-datasets": "ROADMAP Queue 1 item 6: building the caches needs h5py and sklearn",
-    "export": "ROADMAP Queue 1 item 15: serving export",
 }
 
 
@@ -53,7 +53,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--create-dataset", action="store_true", help="not ported (ROADMAP Queue 1 item 6)"
     )
 
-    quant_help = "int8: not ported (ROADMAP Queue 1 item 12); auto: float at the configs' widths"
+    quant_help = (
+        "int8: DeepSets' φ chain through s8 products (eval only); auto: int8 from a widest "
+        "φ layer of 1024, float at the configs' widths"
+    )
     quant = dict(default="none", choices=["none", "int8", "auto"], help=quant_help)
     ep = sub.add_parser("evaluate", help="evaluate a finished run dir")
     ep.add_argument("model_dir")
@@ -81,7 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--port", type=int, default=8000)
     sv.add_argument("--quant", **quant)
 
-    xp = sub.add_parser("export", help="not ported (ROADMAP Queue 1 item 15)")
+    xp = sub.add_parser("export", help="export a run dir as torch.export programs for serving")
     xp.add_argument("model_dir")
     xp.add_argument("--out-dir", default=None, help="default: <model_dir>/exported")
     xp.add_argument("--quant", **quant)
@@ -140,6 +143,18 @@ def main(argv=None, device: str = None) -> None:
         return
     if args.command == "infer":
         infer(args.model_dir, split=args.split, output=args.output, quant=args.quant, device=device)
+        return
+    if args.command == "export":
+        from point_cloud_classifier_tpu_torch.serving import export_run
+
+        out = export_run(
+            args.model_dir,
+            out_dir=args.out_dir,
+            quant=args.quant,
+            platforms=tuple(args.platforms) if args.platforms else None,
+            device=device,
+        )
+        print(f"Exported serving artifacts to {out}")
         return
     if args.command == "convert":
         from point_cloud_classifier_tpu_torch.convert import (

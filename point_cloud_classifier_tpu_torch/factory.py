@@ -4,9 +4,9 @@ resolution.
 Counterpart of ``point_cloud_classifier_tpu/factory.py``: every dataset
 (S2PT tabular rows, S2PPC point clouds, S2PG graphs) and every model family
 of ``MODEL_DATASETS``.  ``logistic_regression`` restores from ``model.pkl``,
-the networks from ``best_model.pt``.  Int8 evaluation is not ported
-(ROADMAP Queue 1 item 12): ``apply_quant`` raises where ``--quant`` would
-take it and passes where it resolves to float.
+the networks from ``best_model.pt``.  ``apply_quant`` routes a DeepSets
+evaluation to the int8 chain (``ops/quant.py``) where ``--quant`` resolves
+to ``int8``.
 """
 
 from __future__ import annotations
@@ -123,8 +123,12 @@ def get_model(model_name: str, config: dict, model_dir: str = None, device: str 
 
 
 # The JAX package's int8 crossover: "auto" takes int8 from a widest φ layer
-# of 1024 (a TPU measurement, kept as the JAX package states it; ROADMAP
-# Queue 1 item 12 measures it again on the card)
+# of 1024 (a TPU measurement, kept as the JAX package states it).  On an
+# NVIDIA H100 80GB HBM3 at 700 W the DeepSets eval step at B=256 (φ [w, w],
+# f32, resident batches; chip_smoke.py phase 25, PERF.md §5) takes ×1.83,
+# ×1.34 and ×1.01 the best float route's time in int8 at w = 256, 512 and
+# 1024, and ×0.69 at 2048: the card's crossover lies between 1024 and 2048.
+# A new default waits for a benchmark cell that reads int8 evaluation.
 _INT8_AUTO_MIN_WIDTH = 1024
 
 
@@ -149,14 +153,15 @@ def resolve_quant(config: dict, model_name: str, quant: str) -> str:
 
 
 def apply_quant(config: dict, model_name: str, quant: str) -> None:
-    """Nothing where ``quant`` resolves to float; the JAX package's error for
-    a model other than DeepSets; else raises, since int8 evaluation is not
-    ported (ROADMAP Queue 1 item 12)."""
+    """Route evaluation and serving to the int8 chain: sets
+    ``config["model"]["quant"]`` where ``quant`` resolves to ``int8``
+    (f32 checkpoints load unchanged; the weights are quantized at each
+    forward), nothing where it resolves to float, and raises the JAX
+    package's error for a model other than DeepSets.  A layer-norm DeepSets
+    keeps its float chain inside the model."""
     quant = resolve_quant(config, model_name, quant)
     if quant == "none":
         return
     if model_name != "deep_sets":
         raise ValueError(f"--quant {quant} is only supported for deep_sets (got {model_name})")
-    raise NotImplementedError(
-        f"--quant {quant} is not ported to PyTorch yet (ROADMAP Queue 1 item 12)"
-    )
+    config["model"]["quant"] = quant

@@ -57,11 +57,17 @@ package's ``auto`` rematerialises post-pool chains up to 384 wide, a TPU
 finding, and on the card the recomputation is slower at every width.  The
 kernel routes never keep activations and are untouched.
 
+``quant="int8"`` evaluates φ through the s8 product
+(``ops/quant.phi_forward_int8``: per-row and per-channel abs-max codes, s32
+sums) in eval, and only without layer norm (the JAX ``_phi_mode``); a
+train-mode forward stays float.  The route is decided before the kernel and
+tail routes, so an int8 forward launches no K1, and the bare final linear
+runs per event in f32 after sum or mean pooling under ``fused_phi="tail"``
+too, as in the JAX package; under max pooling it runs per point in int8.
+
 Module names follow the original torch reference's ``state_dict`` layout
 (``phi.N.weight``, ``phi.N.linear.weight``, ``rho.N.weight``, …) so that
 ``convert.to_torch_state_dict`` output loads with ``strict=True``.
-
-Not yet ported: int8 ``quant`` (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -84,6 +90,7 @@ from point_cloud_classifier_tpu_torch.ops.fused_phi import (
     phi_hidden,
     phi_pool,
 )
+from point_cloud_classifier_tpu_torch.ops.quant import phi_forward_int8
 from point_cloud_classifier_tpu_torch.ops.segment import (
     counts_to_segment_ids,
     segment_count,
@@ -139,10 +146,8 @@ class DeepSets(nn.Module):
             raise ValueError("pooling must be 'mean', 'sum', or 'max'")
         if fused_phi not in ("auto", "on", "off", "tail"):
             raise ValueError(f"fused_phi must be 'auto', 'on', 'off' or 'tail', got {fused_phi!r}")
-        if quant != "none":
-            raise NotImplementedError(
-                "int8 quant is not ported yet (ROADMAP Queue 1 item 12)"
-            )
+        if quant not in ("none", "int8"):
+            raise ValueError(f"quant must be 'none' or 'int8', got {quant!r}")
         # the JAX constructor's keyword arguments: what convert.py's key
         # mapping and a checkpoint's config describe
         self.config = dict(
@@ -158,6 +163,7 @@ class DeepSets(nn.Module):
             compute_dtype=compute_dtype,
             fused_phi=fused_phi,
             factored_cols=list(factored_cols),
+            quant=quant,
         )
         self.input_dim = input_dim
         # the loader ships factored columns in ascending order
@@ -167,6 +173,7 @@ class DeepSets(nn.Module):
         self.pooling = pooling
         self.compute_dtype = resolve_dtype(compute_dtype)
         self.fused_phi = fused_phi
+        self.quant = quant
 
         # φ: the reference's Sequential indices, activations included
         phi, self._phi_slots = [], []  # slots: (kind, module index)
@@ -225,11 +232,18 @@ class DeepSets(nn.Module):
             and kernel_takes_chain([width, width], ["linear"])
         )
 
-    def _post_pool(self) -> bool:
-        """Whether the bare final φ linear runs per event after pooling."""
+    def _int8(self, train: bool) -> bool:
+        """Whether φ runs the int8 chain: ``quant="int8"`` in eval, without
+        layer norm (the JAX ``_phi_mode``)."""
+        return not train and self.quant == "int8" and not self.layer_norm
+
+    def _post_pool(self, int8: bool = False) -> bool:
+        """Whether the bare final φ linear runs per event after pooling: under
+        sum or mean pooling, off the tail route, which an ``int8`` forward
+        never takes."""
         return (
             self.pooling in ("sum", "mean")
-            and not self._tail()
+            and (int8 or not self._tail())
             and os.environ.get("PCC_PHI_POSTPOOL", "1") != "0"
         )
 
@@ -296,9 +310,11 @@ class DeepSets(nn.Module):
             counts = segment_count(seg, num_segments)[:num_events]
         safe = torch.clamp(counts, min=1.0).reshape(-1, 1)
 
-        post_pool = self._post_pool()
+        # the int8 route first: it takes neither the kernels nor the tail
+        int8 = self._int8(train)
+        post_pool = self._post_pool(int8)
         phi_params = params[:-1] if post_pool else params
-        if self._use_kernel() or self._tail():
+        if not int8 and (self._use_kernel() or self._tail()):
             if row_m is not None:
                 seg = dense_segment_ids(batch["seg_counts"][:num_events], row_m)
             if self._tail():
@@ -310,8 +326,11 @@ class DeepSets(nn.Module):
                 points, seg, spec, phi_params, self.activation, num_segments
             )[:num_events]
         else:
-            h = phi_forward(points, spec, phi_params, self.activation,
-                            remat=self._remat() and torch.is_grad_enabled())
+            if int8:
+                h = phi_forward_int8(points, spec, phi_params, self.activation)
+            else:
+                h = phi_forward(points, spec, phi_params, self.activation,
+                                remat=self._remat() and torch.is_grad_enabled())
             h32 = h.float()
             if row_m is not None:
                 pooled, total = self._dense_pool(h32, counts, row_m)

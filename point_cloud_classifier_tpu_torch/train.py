@@ -15,8 +15,11 @@ Counterpart of the functions of the same names in the repository's
 - ``resume_training``: the run continued from its full state.
 - ``evaluate_model``: ``metrics.json`` (the three splits' accuracies, and
   ``quant`` where it is not ``none``) and ``classification_report.txt`` of
-  the test split, under ``{model_dir}/eval`` by default.
-- ``infer``: a CSV of one split's probabilities, the train split unshuffled.
+  the test split, under ``{model_dir}/eval`` by default, or
+  ``{model_dir}/eval_int8`` when ``quant`` resolves to ``int8`` (DeepSets'
+  int8 chain, ``ops/quant.py``).
+- ``infer``: a CSV of one split's probabilities, the train split unshuffled,
+  also through the int8 chain where ``quant`` asks for it.
 
 Accuracy and the report are computed with numpy (``utils/metrics.py``), as
 sklearn computes them.  Each runs on the card and raises where there is
@@ -24,8 +27,7 @@ none, unless the caller passes ``device="cpu"``; what they write is the
 same either way.
 
 Not ported yet: the evaluation plots (``train_model(plots=True)`` raises;
-``evaluate_model`` writes none and says so; ROADMAP Queue 1 item 16) and
-int8 evaluation (``quant`` that resolves to ``int8``; item 12).
+``evaluate_model`` writes none and says so; ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ on the CPU: ``classification_report`` byte for byte against sklearn's;
 (``metrics.json`` and ``classification_report.txt`` byte for byte, the
 predictions CSVs column by column); the parser's subcommands, options,
 choices and defaults against the JAX parser's; the unported subcommands'
-errors; ``main(["train", …])`` for the four model families; and ``main``
+errors; ``export`` and ``--quant int8``; ``main(["train", …])`` for the four model families; and ``main``
 without a device on a host without a card."""
 
 import argparse
@@ -199,15 +199,24 @@ def test_parser_matches_the_jax_parser():
 
 @pytest.mark.parametrize("argv, error, item", [
     (["infer-raw", "run", "--input", "x.h5"], SystemExit, "item 6"),
-    (["serve", "run"], SystemExit, "item 6"),
-    (["export", "run"], SystemExit, "item 15"),
+    (["serve", "run", "--quant", "int8"], SystemExit, "item 6"),
+    (["export", "run"], None, "Exported serving artifacts to"),
     (["create-datasets", "--data-dir", "d"], SystemExit, "item 6"),
     (["train", "deep_sets", "--create-dataset"], SystemExit, "item 6"),
     (["train", "deep_sets", "--plots"], NotImplementedError, "item 16"),
 ], ids=["infer-raw", "serve", "export", "create-datasets", "train-create-dataset", "train-plots"])
-def test_unported_commands_fail_naming_their_item(tiny, tmp_path, argv, error, item):
+def test_unported_commands_fail_naming_their_item(tiny, jax_runs, tmp_path, capsys, argv, error, item):
+    """Each command not ported exits non-zero (or raises) naming its ROADMAP
+    item and writes nothing.  ``export``, ported since, runs on a run
+    directory and prints the JAX package's line (``error`` None)."""
     if argv[0] == "train":
         argv = _args(tiny, argv[1], tmp_path / "log", *argv[2:])
+    if error is None:
+        out_dir = str(tmp_path / "log")
+        cli.main([argv[0], jax_runs["deep_sets"], "--out-dir", out_dir], device="cpu")
+        assert f"{item} {out_dir}" in capsys.readouterr().out
+        assert os.path.exists(os.path.join(out_dir, "manifest.json"))
+        return
     with pytest.raises(error, match=item) as raised:
         cli.main(argv, device="cpu")
     if error is SystemExit:
@@ -216,12 +225,25 @@ def test_unported_commands_fail_naming_their_item(tiny, tmp_path, argv, error, i
 
 
 def test_quant_int8_fails_naming_its_item(jax_runs, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cli.main(["evaluate", jax_runs["deep_sets"], "--quant", "int8", "--save-dir", str(tmp_path)], device="cpu")
+    """``--quant int8`` is ported: ``evaluate`` of a DeepSets run scores it
+    through the int8 chain (``metrics.json`` with ``"quant": "int8"``, the
+    accuracies the JAX package's int8 evaluation gives), ``infer`` takes it
+    too, the logistic regression keeps the JAX package's error, and ``auto``
+    stays float at these widths."""
+    run = jax_runs["deep_sets"]
+    cli.main(["evaluate", run, "--quant", "int8", "--save-dir", str(tmp_path / "port")], device="cpu")
+    jax_train.evaluate_model(run, save_dir=str(tmp_path / "jax"), quant="int8")
+    for name in ("metrics.json", "classification_report.txt"):
+        with open(tmp_path / "port" / name, "rb") as a, open(tmp_path / "jax" / name, "rb") as b:
+            assert a.read() == b.read(), name
+    with open(tmp_path / "port" / "metrics.json") as f:
+        assert json.load(f)["quant"] == "int8"
+    cli.main(["infer", run, "--quant", "int8", "--output", str(tmp_path / "q.csv")], device="cpu")
+    assert len(_csv(str(tmp_path / "q.csv"))[1]) > 0
     with pytest.raises(ValueError, match="only supported for deep_sets"):
         cli.main(["infer", jax_runs["logistic_regression"], "--quant", "int8"], device="cpu")
-    cli.main(["evaluate", jax_runs["deep_sets"], "--quant", "auto"], device="cpu")  # float at these widths
-    with open(os.path.join(jax_runs["deep_sets"], "eval", "metrics.json")) as f:
+    cli.main(["evaluate", run, "--quant", "auto"], device="cpu")  # float at these widths
+    with open(os.path.join(run, "eval", "metrics.json")) as f:
         assert list(json.load(f)) == ["accuracy_train", "accuracy_val", "accuracy_test"]
 
 

@@ -113,8 +113,15 @@ def test_kernel_route_follows_config():
 
 
 def test_unported_wires_and_options_raise():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        DeepSets(**model_cfg(quant="int8"))
+    """``quant="int8"``, once refused, builds and takes the int8 chain in eval
+    only and without layer norm; an unknown ``quant`` raises."""
+    model = DeepSets(**model_cfg(quant="int8"))
+    assert model.quant == model.config["quant"] == "int8"
+    assert model._int8(train=False) and not model._int8(train=True)
+    assert not DeepSets(**model_cfg(quant="int8", layer_norm=True))._int8(train=False)
+    assert not DeepSets(**model_cfg())._int8(train=False)
+    with pytest.raises(ValueError, match="quant"):
+        DeepSets(**model_cfg(quant="int4"))
 
 
 def wire_batch(layout, transfer_dtype="float32", factored=(), seg_encoding="ids", seed=3, b=6):

@@ -7,7 +7,9 @@ keep-masked lists and a second mirror) against their plain routes, serving
 and one train step, the wires without a kernel (flat edge lists, the kNN
 edge-list arm, edge-slot triples) against the CPU, and each kernel's ``vmap``
 rule (a sweep's arms under ``torch.func.vmap(grad)``, K = 1, 2 and 4)
-against the same vmapped step under ``force_plain()``.
+against the same vmapped step under ``force_plain()``; ``int8_linear`` on the
+card against the CPU, the int8 eval window's capture, and an artifact
+exported on the card's host served on the card and on the CPU.
 
 These tests need a CUDA card and skip without one.  They import neither jax
 nor the JAX package, so they run on a machine that has only PyTorch; there,
@@ -1861,3 +1863,104 @@ def test_uncapturable_route_raises_naming_the_operation():
         wrapper.fit(batches)
     assert torch.cuda.get_sync_debug_mode() == 0
     assert all(torch.equal(p, q) for p, q in zip(wrapper.model.parameters(), before))
+
+
+# -- int8 evaluation and the serving export ---------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows, k, n", [(5, 6, 256), (16, 6, 3), (1001, 6, 256), (1001, 256, 256), (40, 256, 12)])
+def test_int8_linear_on_the_card_matches_the_cpu(rows, k, n):
+    """``torch._int_mm`` on the card, its codes padded to what it takes
+    (more than 16 rows, inner and outer dimensions multiples of 8), against
+    the same call on the CPU: codes, scales and s32 sums equal, outputs
+    within 1e-6 relative (f32 products in another order, if any)."""
+    from point_cloud_classifier_tpu_torch.ops import quant
+
+    dev = _cuda()
+    rng = np.random.default_rng(rows + k + n)
+    x = torch.from_numpy(rng.normal(size=(rows, k)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(n, k)) * k**-0.5).astype(np.float32)).t()  # a transposed weight
+    b = torch.from_numpy((rng.normal(size=(n,)) * 0.1).astype(np.float32))
+    xq, sx = quant.quantize_rows(x)
+    wq, sw = quant.quantize_cols(w)
+    xq_d, sx_d = quant.quantize_rows(x.to(dev))
+    wq_d, sw_d = quant.quantize_cols(w.to(dev))
+    assert torch.equal(xq_d.cpu(), xq) and torch.equal(sx_d.cpu(), sx)
+    assert torch.equal(wq_d.cpu(), wq) and torch.equal(sw_d.cpu(), sw)
+    assert torch.equal(quant.int8_matmul(xq_d, wq_d).cpu(), quant.int8_matmul(xq, wq))
+    for dtype in (torch.float32, torch.bfloat16):
+        out = quant.int8_linear(x.to(dev, dtype), w.to(dev), b.to(dev), dtype).cpu().float()
+        ref = quant.int8_linear(x.to(dtype), w, b, dtype).float()
+        tol = 1e-6 if dtype == torch.float32 else 2**-8
+        assert (out - ref).abs().max().item() <= tol * ref.abs().max().item(), dtype
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["deep_sets-flat", "deep_sets-dense", "deep_sets-bf16-dense"])
+def test_int8_eval_window_captures(route):
+    """``predict`` of a ``quant="int8"`` DeepSets in fused eval windows
+    (warm-up, capture, replay: no host read of a scale or an abs-max) against
+    the eager int8 ``predict``, and against the CPU's int8 ``predict``; no K1
+    launch."""
+    from point_cloud_classifier_tpu_torch.models import ModelWrapper
+
+    _cuda()
+    make, batches = _window_route(route)
+    net = make(0)
+    net.quant = "int8"
+    fused = ModelWrapper(net, 1e-3, 1, fuse_steps=4, device="cuda")
+    eager = ModelWrapper(make(0), 1e-3, 1, device="cuda")
+    eager.model.quant = "int8"
+    eager.model.load_state_dict(fused.model.state_dict())
+    on_cpu = ModelWrapper(make(0), 1e-3, 1, device="cpu")
+    on_cpu.model.quant = "int8"
+    on_cpu.model.load_state_dict({k: v.cpu() for k, v in fused.model.state_dict().items()})
+    k1 = fused_phi.phi_pool.launches
+    y1, p1 = eager.predict(batches * 3, return_prob=True)
+    yk, pk = fused.predict(batches * 3, return_prob=True)
+    assert fused_phi.phi_pool.launches == k1
+    assert fused.windows.captures == 1 and fused.windows.replays == 2
+    np.testing.assert_array_equal(yk, y1)
+    np.testing.assert_allclose(pk, p1, rtol=0, atol=1e-6)
+    # the card's activations may round an ulp apart from the CPU's, which can
+    # move a later layer's code by one at a rounding tie (logits within 1e-4)
+    _, pc = on_cpu.predict(batches, return_prob=True)
+    tol = 1e-4 if "bf16" not in route else 2e-2
+    np.testing.assert_allclose(p1[: len(pc)], pc, rtol=0, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_export_on_the_card_host_serves_on_the_card_and_the_cpu(tmp_path, quant):
+    """A DeepSets run trained on the card, exported there for both devices
+    (``export_run`` restores it on the card and traces a CPU copy), served by
+    ``ExportedModel`` on the card and on the CPU, each against ``predict`` of
+    the same route on its device (the plain route for float); no kernel
+    launches while a program runs."""
+    from point_cloud_classifier_tpu_torch import factory, serving
+    from point_cloud_classifier_tpu_torch.data.synthetic import write_s2ppc_cache
+    from point_cloud_classifier_tpu_torch.train import train_model
+    from point_cloud_classifier_tpu_torch.utils.config import load_config
+
+    _cuda()
+    data = str(tmp_path / "data")
+    write_s2ppc_cache(data, n_events=(64, 16, 40), min_points=3, max_points=60, seed=4)
+    cfg = {"meta": {"model_name": "", "dataset_name": ""},
+           "dataset": {"data_dir": data, "batch_size": 16},
+           "logging": {"log_dir": str(tmp_path / "log")},
+           "model": {"input_dim": 6, "phi_layers": [256, 256], "rho_layers": [256], "output_dim": 1,
+                     "pooling": "mean", "layer_norm": False, "activation": "gelu", "residual_block": True},
+           "trainer": {"epochs": 1, "learning_rate": 0.001, "optimizer": "adamw"}}
+    run = train_model("deep_sets", "s2ppc", cfg, return_log_dir=True)
+    out = serving.export_run(run, out_dir=str(tmp_path / "exported"), quant=quant, platforms=("cuda", "cpu"))
+    config = load_config(f"{run}/config.yaml")
+    factory.apply_quant(config, "deep_sets", quant)
+    batches = list(factory.get_dataloader("s2ppc", config).get_test_loader())
+    for device in ("cuda", "cpu"):
+        with force_plain():
+            _, ref = factory.get_model("deep_sets", config, run, device=device).predict(iter(batches), True)
+        before = _counts()
+        _, got = serving.ExportedModel(out, device=device).predict(iter(batches), return_prob=True)
+        assert _counts() == before
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5, err_msg=device)

@@ -1,7 +1,7 @@
 """The port imports without jax, the JAX package, pandas, sklearn, PyYAML,
 matplotlib, h5py or joblib, and runs without them (the kNN path, the
 flagship wire, the command line, the C++ host packers and edge builder, the
-sequential and vmapped sweeps); chip_smoke.py refuses to run without a CUDA
+sequential and vmapped sweeps, int8 evaluation and the serving export); chip_smoke.py refuses to run without a CUDA
 card or without the repository beside it."""
 
 import os
@@ -58,8 +58,9 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
     host = {"native", "native.host"}
     sweep = {"sweep", "parallel", "parallel.vmap_sweep"}
     fused = {"utils.profiling", "models.windows"}
+    serving = {"ops.quant", "serving"}
     assert {f"point_cloud_classifier_tpu_torch.{m}"
-            for m in graph_slice | pipelines | command_line | host | sweep | fused} <= walked
+            for m in graph_slice | pipelines | command_line | host | sweep | fused | serving} <= walked
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -313,3 +314,47 @@ def test_sweeps_run_without_jax_pandas_sklearn_or_yaml(tmp_path):
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert [line for line in proc.stdout.splitlines() if line.startswith("runs")] == ["runs 2", "runs 2"]
+
+
+def test_int8_evaluation_and_export_run_without_jax(tmp_path):
+    """``evaluate --quant int8``, ``export`` (float and int8) and
+    ``ExportedModel`` on the CPU, in a process where none of the blocked
+    packages can be imported: ``ops/quant.py`` and ``serving.py`` need only
+    torch and numpy."""
+    code = textwrap.dedent(
+        f"""
+        import json, os, sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        import numpy as np
+        from point_cloud_classifier_tpu_torch import factory
+        from point_cloud_classifier_tpu_torch.cli import main
+        from point_cloud_classifier_tpu_torch.data.synthetic import write_s2ppc_cache
+        from point_cloud_classifier_tpu_torch.serving import ExportedModel
+        from point_cloud_classifier_tpu_torch.utils.config import load_config
+        work = {str(tmp_path)!r}
+        data = os.path.join(work, "data")
+        write_s2ppc_cache(data, n_events=(20, 8, 8), min_points=3, max_points=12, seed=2)
+        main(["train", "deep_sets", "--data-dir", data, "--log-dir", os.path.join(work, "log"), "--epochs", "1"],
+             device="cpu")
+        run = os.path.join(work, "log", "version_0")
+        main(["evaluate", run, "--quant", "int8"], device="cpu")
+        with open(os.path.join(run, "eval_int8", "metrics.json")) as f:
+            print("quant", json.load(f)["quant"])
+        for quant in ("none", "int8"):
+            out = os.path.join(work, "exported_" + quant)
+            main(["export", run, "--out-dir", out, "--quant", quant], device="cpu")
+            config = load_config(os.path.join(run, "config.yaml"))
+            factory.apply_quant(config, "deep_sets", quant)
+            batches = list(factory.get_dataloader("s2ppc", config).get_test_loader())
+            _, ref = factory.get_model("deep_sets", config, run, device="cpu").predict(iter(batches), True)
+            _, got = ExportedModel(out, device="cpu").predict(iter(batches), True)
+            print("served", quant, float(np.abs(got - ref).max()))
+        """
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    lines = [line.split() for line in proc.stdout.splitlines() if line.split()[:1] in (["quant"], ["served"])]
+    assert lines[0] == ["quant", "int8"]
+    assert [line[:2] for line in lines[1:]] == [["served", "none"], ["served", "int8"]]
+    assert float(lines[1][2]) <= 1e-5 and float(lines[2][2]) <= 1e-6

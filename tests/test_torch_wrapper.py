@@ -96,11 +96,10 @@ def test_get_model_errors(tmp_path):
     with pytest.raises(FileNotFoundError, match="fully_connected_net model not found"):
         fcn = {**cfg, "model": dict(input_dim=9, hidden_layers=[4], batch_normalization=True, output_dim=1)}
         factory.get_model("fully_connected_net", fcn, str(tmp_path), device="cpu")
-    # an option not ported yet names its ROADMAP item; SAG GraphNet, once
-    # such an option, builds
+    # int8 DeepSets and SAG GraphNet, each once an option not ported yet,
+    # build
     int8 = {**cfg, "model": {**cfg["model"], "quant": "int8"}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory.get_model("deep_sets", int8, device="cpu")
+    assert factory.get_model("deep_sets", int8, device="cpu").model.quant == "int8"
     sag = {**cfg, "model": dict(input_dim=4, hidden_dim=8, output_dim=1, activation="tanh", sag_pool=True)}
     assert "pool.gnn.lin_rel.weight" in factory.get_model("graph_net", sag, device="cpu").model.state_dict()
     with pytest.raises(ValueError):
