@@ -238,7 +238,25 @@ result):
    ``ExportedModel`` on each device within 1e-5 of ``predict`` of the same
    route there, no kernel launch while a program runs, a ``KeyError`` on a
    shape not exported, and an exported ``predict`` a batch beside
-   ``predict``'s (host clock).
+   ``predict``'s (host clock);
+26. raw showers: (a) the JAX generator's showers, proton and piM, 2 files of
+   2,000 events each (~80k steps), written by the port's HDF5 writer
+   (``data/h5lite.py``) and read back equal, with the reader's MB/s; (b)
+   ``train deep_sets --create-dataset`` through ``cli.main`` at the
+   configs' widths for 3 epochs (K1 once a forward, K2 once a train step,
+   the val accuracy over a floor set on the CPU); (c) ``create-datasets``
+   of S2PT, S2PPC and S2PG with ``--workers 1`` and ``--workers 4``
+   (forked from this process after CUDA is up), equal arrays and, for the
+   ``save_npz`` caches, equal bytes, with seconds per representation; (d) a
+   GAT (the configs' widths) trained 2 epochs on the created S2PG (K3
+   twice a forward, K4 twice a train step over one mirror); (e) ``infer-raw``
+   of one raw file for each run (K1 once a batch, K3 twice), each event of
+   the file in the cached test split within 1e-5 of ``infer --split
+   test``'s probability; (f) each run served by ``make_server(port=0)`` in
+   a thread: ``/health``, ``/predict`` of the file's bytes within 1e-6 of
+   ``infer-raw``'s, the kernel launches of that request, garbage a 400, a
+   run whose scaler is missing a 500, and ms a request against events a
+   request.
 
 Beside each kernel's time the script works out the least time the card could
 take for the same work (``bound_ms``: the bytes the function must move over
@@ -255,15 +273,22 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import filecmp
+import glob
+import io
 import itertools
 import json
 import operator
 import os
 import pickle
 import re
+import shutil
 import subprocess
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 import warnings
 
 import numpy as np
@@ -275,11 +300,15 @@ from point_cloud_classifier_tpu_torch import train as port_train
 from point_cloud_classifier_tpu_torch.data import GraphLoader, PointCloudLoader
 from point_cloud_classifier_tpu_torch.data.prefetch import prefetch_to_device
 from point_cloud_classifier_tpu_torch.data.resident import ResidentCache
+from point_cloud_classifier_tpu_torch.data.h5lite import read_h5
+from point_cloud_classifier_tpu_torch.data.hdf5 import find_shower_files
+from point_cloud_classifier_tpu_torch.data.pointcloud import frame_to_point_loader
 from point_cloud_classifier_tpu_torch.data.synthetic import (
     lineage_graphs,
     write_s2pg_cache,
     write_s2ppc_cache,
     write_s2pt_cache,
+    write_shower_file,
 )
 from point_cloud_classifier_tpu_torch.graph_kernel_times import device_ms
 from point_cloud_classifier_tpu_torch.models import DeepSets, GraphNet, LogRegression, ModelWrapper
@@ -330,7 +359,8 @@ from point_cloud_classifier_tpu_torch.ops.quant import (
     quantize_rows,
 )
 from point_cloud_classifier_tpu_torch.parallel import VmappedArms, train_configs_vmapped
-from point_cloud_classifier_tpu_torch.utils.config import load_config
+from point_cloud_classifier_tpu_torch.server import make_server
+from point_cloud_classifier_tpu_torch.utils.config import load_config, save_config
 
 SEED = 0
 # configs/deep_sets.yaml (model, dataset and trainer sections)
@@ -3940,6 +3970,286 @@ def int8_export_phase(smi: str, run_dir: str) -> None:
     export_phase(smi, run_dir)
 
 
+# phase 26: raw showers.  The JAX generator's showers (proton and piM, 2
+# files of 2,000 events each, ~80k steps), written by the port's HDF5
+# writer; the val accuracy floors (chance 0.5) are set from the same files,
+# configs and seeds on the CPU (x86, plain versions), which read
+# RAW_CPU_VAL_ACC: DeepSets after its 3 epochs, GAT after its 2
+RAW_EVENTS, RAW_FILES = 2000, 2
+RAW_CPU_VAL_ACC = {"deep_sets": 0.96875, "GAT": 0.836875}
+RAW_VAL_ACC_FLOOR = {"deep_sets": 0.90, "GAT": 0.78}
+# infer-raw against infer --split test on the same events: both CSVs' 6
+# decimals, the batches' other neighbours (K1's sums are per event), and for
+# S2PG the features standardized in float64 at inference where dataset
+# creation rounds them to float32 first
+RAW_PROB_TOL = 1e-5
+# a served request's probabilities against infer-raw's CSV (6 decimals)
+SERVE_PROB_TOL = 1e-6
+SERVE_SIZES = (32, 256, 2000)  # events a request, for ms per request
+SERVE_REPS = 3
+
+
+def raw_write_phase(smi: str, raw: str) -> int:
+    """(a) The raw files written by ``write_shower_file`` (the seeds of
+    ``write_synthetic_dataset``) and read back by ``read_h5``, every array
+    equal to what was written; the reader's MB/s.  Returns the step count."""
+    written, t0 = {}, time.perf_counter()
+    for p_i, particle in enumerate(("proton", "piM")):
+        for n in range(RAW_FILES):
+            name = f"{particle}_file{n}.h5"
+            written[name] = write_shower_file(os.path.join(raw, name), particle, RAW_EVENTS, seed=SEED + 1000 * p_i + n)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(raw, name)) for name in written)
+    reads, from_bytes = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = {name: read_h5(os.path.join(raw, name)) for name in written}
+        reads.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for name in written:
+            with open(os.path.join(raw, name), "rb") as f:
+                read_h5(f.read())
+        from_bytes.append(time.perf_counter() - t0)
+    for name, arrays in written.items():
+        if sorted(got[name]) != sorted(arrays) or not all(
+                got[name][k].dtype == v.dtype and np.array_equal(got[name][k], v) for k, v in arrays.items()):
+            raise AssertionError(f"raw showers: {name} does not read back as written")
+    steps = sum(len(a["steps/energy"]) for a in written.values())
+    print(f"raw write: {len(written)} files, {RAW_EVENTS} events each, {steps} steps, {nbytes} bytes, written in "
+          f"{write_s:.2f} s; read back equal; reader {nbytes / 1e6 / min(reads):.1f} MB/s from the paths "
+          f"(mapped; best of 3, {1e3 * min(reads):.1f} ms for the four files, page cache warm), "
+          f"{nbytes / 1e6 / min(from_bytes):.1f} MB/s from each file's bytes (one read, then parsed) [{smi}]")
+    return steps
+
+
+def raw_train_phase(seconds: dict, work_dir: str, raw: str) -> tuple:
+    """(b) ``train deep_sets --create-dataset`` at the configs' widths for 3
+    epochs: K1 once a forward and K2 once a train step, the val accuracy over
+    its floor.  Returns (the run, its launch counts)."""
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    log = os.path.join(work_dir, "raw_log", "deep_sets")
+    counts = _cli(seconds, "train deep_sets --create-dataset", "train", "deep_sets", "--config-dir", configs,
+                  "--data-dir", raw, "--log-dir", log, "--create-dataset", "--epochs", "3")
+    run = os.path.join(log, "version_0")
+    cfg = load_config(os.path.join(run, "config.yaml"))
+    with open(os.path.join(run, "meta.json")) as f:
+        meta = json.load(f)["metrics"]
+    module = factory.get_dataloader("s2ppc", cfg)
+    n_train, n_val = len(module.get_train_loader()), len(module.get_val_loader())
+    _expect_launches("train deep_sets --create-dataset", counts, phi_pool=3 * (n_train + n_val) + n_train + n_val,
+                     phi_pool_bwd=3 * n_train)
+    print(f"raw train deep_sets: {n_train} train batches an epoch; meta.json {meta} (floor "
+          f"{RAW_VAL_ACC_FLOOR['deep_sets']}; the CPU read {RAW_CPU_VAL_ACC['deep_sets']})")
+    if cfg["dataset"]["create_dataset"] is not False:
+        raise AssertionError("raw train: config.yaml does not say create_dataset: false")
+    if not meta["accuracy/val"] >= RAW_VAL_ACC_FLOOR["deep_sets"]:
+        raise AssertionError(f"raw train deep_sets: accuracy/val {meta['accuracy/val']} below the floor")
+    return run, counts
+
+
+def _npz_tree(root: str) -> dict:
+    out = {}
+    for path in sorted(glob.glob(os.path.join(root, "**", "*.npz"), recursive=True)):
+        with np.load(path) as z:
+            out[os.path.relpath(path, root)] = {k: z[k] for k in z.files}
+    return out
+
+
+def raw_create_phase(smi: str, seconds: dict, work_dir: str, raw: str) -> str:
+    """(c) ``create-datasets`` of S2PT, S2PPC and S2PG with ``--workers 1``
+    and ``--workers 4`` (forked from this process, whose CUDA is up: a worker
+    that touched CUDA would fail): equal arrays, and equal bytes for every
+    ``save_npz`` file (S2PT, S2PG).  Returns the workers-1 data directory."""
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    dirs = {}
+    for workers in (1, 4):
+        dirs[workers] = os.path.join(work_dir, f"raw_w{workers}")
+        os.makedirs(dirs[workers])
+        for name in glob.glob(os.path.join(raw, "*.h5")):
+            shutil.copy(name, dirs[workers])
+        for ds in ("s2pt", "s2ppc", "s2pg"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                _cli(seconds, f"create-datasets {ds} --workers {workers}", "create-datasets", "--data-dir",
+                     dirs[workers], "--config-dir", configs, "--datasets", ds, "--workers", str(workers))
+    events = 2 * RAW_FILES * RAW_EVENTS
+    for name in ("S2PT", "S2PPC", "S2PG"):
+        files = [sorted(os.path.relpath(p, os.path.join(d, name)) for p in glob.glob(
+            os.path.join(d, name, "**", "*.npz"), recursive=True)) for d in (dirs[1], dirs[4])]
+        if name == "S2PPC":  # np.savez stamps the time into its zip: the arrays
+            a, b = _npz_tree(os.path.join(dirs[1], name)), _npz_tree(os.path.join(dirs[4], name))
+            same = list(a) == list(b) and all(list(a[f]) == list(b[f]) and all(
+                a[f][k].dtype == b[f][k].dtype and np.array_equal(a[f][k], b[f][k]) for k in a[f]) for f in a)
+        else:  # save_npz: the bytes, and so the arrays
+            same = files[0] == files[1] and all(filecmp.cmp(
+                os.path.join(dirs[1], name, f), os.path.join(dirs[4], name, f), shallow=False) for f in files[0])
+        ds = name.lower()
+        s1, s4 = seconds[f"create-datasets {ds} --workers 1"], seconds[f"create-datasets {ds} --workers 4"]
+        print(f"raw create {name}: {len(files[0])} files; workers 1 {s1:.2f} s ({1e3 * s1 / events:.3f} s a 1,000 "
+              f"events), workers 4 {s4:.2f} s ({1e3 * s4 / events:.3f}); "
+              f"{'arrays' if name == 'S2PPC' else 'bytes'} equal {same} [{smi}]")
+        if not (same and files[0]):
+            raise AssertionError(f"raw create {name}: --workers 4 built another cache than --workers 1")
+    return dirs[1]
+
+
+def _file_offset(data_dir: str, path: str) -> int:
+    """The event-id offset dataset creation gave a raw file: the events of the
+    files before it in ``DataModule._file_jobs``'s order."""
+    jobs = [fp for particle in ("proton", "piM") for fp in find_shower_files(data_dir, particle)]
+    return jobs.index(path) * RAW_EVENTS
+
+
+def _test_event_ids(dataset: str, cfg: dict) -> np.ndarray:
+    """The global event ids of the cached test split, in its loader's order."""
+    module = factory.get_dataloader(dataset, cfg)
+    if dataset == "s2pg":
+        return np.array([int(g["event_id"]) for g in module._load_split_graphs("test")])
+    _, ids = frame_to_point_loader(module.datasets["test"], module.batch_size, shuffle=False, **module.loader_kwargs)
+    return ids
+
+
+def raw_infer_phase(seconds: dict, work_dir: str, label: str, run: str, data_dir: str) -> tuple:
+    """(e) ``infer-raw`` of one raw file: K1 once a batch (DeepSets) or K3
+    twice (GAT), and each event of the file that lies in the cached test split
+    within RAW_PROB_TOL of ``infer --split test``'s probability, matched
+    through the file's event-id offset.  Returns (the file, infer-raw's rows)."""
+    cfg = load_config(os.path.join(run, "config.yaml"))
+    dataset = cfg["meta"]["dataset_name"]
+    path = os.path.join(data_dir, f"piM_file{RAW_FILES - 1}.h5")
+    csv = os.path.join(work_dir, f"raw_{label}.csv")
+    counts = _cli(seconds, f"infer-raw {label}", "infer-raw", run, "--input", path, "--output", csv)
+    rows = np.loadtxt(csv, delimiter=",", skiprows=1, ndmin=2)
+    batches = -(-len(rows) // cfg["dataset"]["batch_size"])
+    if dataset == "s2pg":
+        _expect_launches(f"infer-raw {label}", counts, gat_attention=2 * batches)
+    else:
+        _expect_launches(f"infer-raw {label}", counts, phi_pool=batches)
+    test_csv = os.path.join(work_dir, f"raw_{label}_test.csv")
+    _cli(seconds, f"infer {label} --split test", "infer", run, "--split", "test", "--output", test_csv)
+    test = np.loadtxt(test_csv, delimiter=",", skiprows=1, ndmin=2)
+    ids = _test_event_ids(dataset, cfg)
+    local = rows[:, 0].astype(np.int64)
+    # creation renumbers a file's events by first appearance (ascending here)
+    global_ids = _file_offset(data_dir, path) + np.searchsorted(np.unique(local), local)
+    prob = dict(zip(global_ids.tolist(), rows[:, 1]))
+    pairs = [(prob[g], p) for g, p in zip(ids.tolist(), test[:, 2]) if g in prob]
+    err = max(abs(a - b) for a, b in pairs) if pairs else float("inf")
+    print(f"raw infer-raw {label}: {len(rows)} events in {batches} batches, launches "
+          f"{({k: v for k, v in counts.items() if v})}; {len(pairs)} of them in the cached test split, "
+          f"max |probability − infer --split test's| {err:.3e} (bound {RAW_PROB_TOL:.0e})")
+    if len(rows) < 0.9 * RAW_EVENTS or len(pairs) < 0.15 * RAW_EVENTS or not err <= RAW_PROB_TOL:
+        raise AssertionError(f"raw infer-raw {label}: the file's probabilities do not match the test split's")
+    return path, rows
+
+
+def _post(url: str, data: bytes) -> tuple:
+    req = urllib.request.Request(url, data=data, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def raw_serve_phase(smi: str, work_dir: str, label: str, run: str, path: str, rows: np.ndarray) -> dict:
+    """(f) ``make_server(port=0)`` in a thread over the run: ``/health``; the
+    file's bytes POSTed to ``/predict`` within SERVE_PROB_TOL of infer-raw's
+    CSV, with the launches of that one request; garbage a 400; a run whose
+    scaler is missing a 500; ms per request against events per request.
+    Returns the request's launch counts."""
+    cfg = load_config(os.path.join(run, "config.yaml"))
+    server = make_server(run, port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        if health != {"status": "ok", "model": cfg["meta"]["model_name"], "dataset": cfg["meta"]["dataset_name"],
+                      "quant": "none"}:
+            raise AssertionError(f"serve {label}: /health answered {health}")
+        with open(path, "rb") as f:
+            data = f.read()
+        reset_launch_counts()
+        status, body = _post(url + "/predict", data)
+        counts = launch_counts()
+        served = {p["event_id"]: p["probability"] for p in body.get("predictions", [])}
+        err = max(abs(served.get(int(e), np.inf) - p) for e, p in rows[:, :2])
+        print(f"serve {label}: /health {health}; POST /predict of {len(data)} bytes: {status}, {len(served)} "
+              f"events, max |probability − infer-raw's| {err:.3e} (bound {SERVE_PROB_TOL:.0e}); launches of the "
+              f"request {({k: v for k, v in counts.items() if v})}")
+        if status != 200 or len(served) != len(rows) or not err <= SERVE_PROB_TOL:
+            raise AssertionError(f"serve {label}: /predict does not give infer-raw's probabilities")
+        status, body = _post(url + "/predict", b"this is not an hdf5 file")
+        print(f"serve {label}: garbage → {status} {body}")
+        if status != 400:
+            raise AssertionError(f"serve {label}: garbage answered {status}, not 400")
+        timing = []
+        for n_events in SERVE_SIZES:
+            sized = os.path.join(work_dir, f"serve_{n_events}.h5")
+            write_shower_file(sized, "piM", n_events, seed=SEED + 7)
+            with open(sized, "rb") as f:
+                blob = f.read()
+            _post(url + "/predict", blob)  # warm-up
+            times = []
+            for _ in range(SERVE_REPS):
+                t0 = time.perf_counter()
+                status, _ = _post(url + "/predict", blob)
+                times.append(time.perf_counter() - t0)
+            timing.append(f"{n_events} events {1e3 * np.median(times):.2f} ms")
+        print(f"serve {label}: ms a request (host clock, loopback HTTP, median of {SERVE_REPS}): "
+              f"{'; '.join(timing)} [{smi}]")
+    finally:
+        server.shutdown()
+        server.server_close()
+    # the same run over a data directory without its scaler
+    broken = os.path.join(work_dir, f"raw_{label}_no_scaler")
+    shutil.copytree(run, broken)
+    cfg["dataset"]["data_dir"] = os.path.join(broken, "empty_data")
+    os.makedirs(cfg["dataset"]["data_dir"])
+    save_config(cfg, broken)
+    server = make_server(broken, port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        status, body = _post(f"http://127.0.0.1:{server.server_address[1]}/predict", data)
+    finally:
+        server.shutdown()
+        server.server_close()
+    print(f"serve {label}: the scaler missing → {status} {body}")
+    if status != 500 or not body["error"].startswith("FileNotFoundError"):
+        raise AssertionError(f"serve {label}: a missing scaler answered {status}, not 500")
+    return counts
+
+
+def raw_showers_phase(smi: str, work_dir: str) -> dict:
+    """Phase 26: raw showers to caches, training, raw inference and the HTTP
+    scorer on the card.  Returns each kernel's launches in the phase."""
+    t0 = time.perf_counter()
+    raw = os.path.join(work_dir, "raw_showers")
+    steps = raw_write_phase(smi, raw)
+    seconds = {}
+    ds_run, ds_counts = raw_train_phase(seconds, work_dir, raw)
+    created = raw_create_phase(smi, seconds, work_dir, raw)
+    cfg = graph_training_config(created, os.path.join(work_dir, "raw_log", "gat"), 2, use_gat=True)
+    n_steps, evals, meta, gat_counts = train_graph_arm("GAT on the created S2PG", cfg)
+    print(f"raw train GAT: launches {({k: v for k, v in gat_counts.items() if v})} over {n_steps} train steps "
+          f"and {evals} eval batches; accuracy/val {meta['accuracy/val']} (floor {RAW_VAL_ACC_FLOOR['GAT']}; the CPU "
+          f"read {RAW_CPU_VAL_ACC['GAT']})")
+    _expect_launches("train GAT on the created S2PG", gat_counts, gat_attention=2 * (n_steps + evals),
+                     gat_attention_bwd=2 * n_steps, gat_out_rows=n_steps)
+    if not meta["accuracy/val"] >= RAW_VAL_ACC_FLOOR["GAT"]:
+        raise AssertionError(f"raw train GAT: accuracy/val {meta['accuracy/val']} below the floor")
+    gat_run = cfg["logging"]["log_dir"]
+    launches = {k: ds_counts[k] + gat_counts[k] for k in ds_counts}
+    for label, run, data_dir in (("deep_sets", ds_run, raw), ("GAT", gat_run, created)):
+        path, rows = raw_infer_phase(seconds, work_dir, label, run, data_dir)
+        counts = raw_serve_phase(smi, work_dir, label, run, path, rows)
+        for k in launches:
+            launches[k] += counts[k]
+    shown = {k: round(v, 2) for k, v in seconds.items() if not k.startswith("create-datasets")}
+    print(f"raw seconds: {shown}; {steps} steps; phase {time.perf_counter() - t0:.1f} s [{smi}]")
+    return launches
+
+
 def main() -> None:
     t0 = time.perf_counter()
     marks = [t0]
@@ -4030,6 +4340,16 @@ def main() -> None:
             launches[name] += tail_launches[name]["tail_launches"]
         int8_export_phase(smi, run_dir)
         lap("int8 and export")
+        raw_launches = raw_showers_phase(smi, run_dir)
+        lap("raw showers")
+        print(f"launches: raw showers (train, infer-raw and a request of DeepSets and GAT) {raw_launches}")
+        beside["gat_attention_bwd"]["raw_showers_mirror_launches"] = raw_launches.pop("gat_out_rows")
+        beside["knn_aggregate"]["raw_showers_select_launches"] = raw_launches.pop("knn_select")
+        raw_launches["inrow_aggregate"] += raw_launches.pop("inrow_aggregate backward")
+        raw_launches["knn_aggregate"] += raw_launches.pop("knn_aggregate backward")
+        for name in launches:
+            beside[name]["raw_showers_launches"] = raw_launches.get(name, 0)
+            launches[name] += raw_launches.get(name, 0)
     profile_phase(smi)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{

@@ -2,14 +2,16 @@
 
 Counterpart of ``_build_parser`` and ``main`` in the repository's
 ``train.py``: the same nine subcommands, with the same arguments, choices
-and defaults.  ``train``, ``evaluate``, ``resume``, ``infer``,
-``export`` and ``convert`` run, on the card (``main(argv, device="cpu")``
-runs them on the CPU; the command line always means the card); ``--quant
-int8`` takes DeepSets' int8 chain in ``evaluate``, ``infer`` and ``export``.
-The others are not ported and exit non-zero naming their ROADMAP Queue 1
-item: ``infer-raw``, ``serve``, ``create-datasets`` and ``train
---create-dataset`` (item 6: h5py, pandas and a joblib scaler); ``train
---plots`` raises (item 16).
+and defaults, all of which run, on the card (``main(argv, device="cpu")``
+runs them on the CPU; the command line always means the card):
+``train`` (with ``--create-dataset``, the caches built first), ``evaluate``,
+``resume``, ``infer``, ``infer-raw`` (a raw shower file scored),
+``serve`` (the HTTP scorer, ``server.py``), ``export``,
+``create-datasets`` (``--workers`` forked processes) and ``convert``;
+``--quant int8`` takes DeepSets' int8 chain in ``evaluate``, ``infer``,
+``infer-raw``, ``serve`` and ``export``.  ``train --plots`` raises (ROADMAP
+Queue 1 item 16).  Dataset creation runs before anything touches the card,
+so its forked workers start from a process without CUDA.
 """
 
 from __future__ import annotations
@@ -17,20 +19,18 @@ from __future__ import annotations
 import argparse
 import os
 
-from point_cloud_classifier_tpu_torch.factory import MODEL_DATASETS
+from point_cloud_classifier_tpu_torch.factory import MODEL_DATASETS, get_dataloader
 from point_cloud_classifier_tpu_torch.train import (
     evaluate_model,
     infer,
+    infer_raw,
     resume_training,
     train_model,
 )
 from point_cloud_classifier_tpu_torch.utils.config import load_config, load_yaml
 
-_NOT_PORTED = {
-    "infer-raw": "ROADMAP Queue 1 item 6: raw HDF5 serving needs h5py, pandas and a joblib scaler",
-    "serve": "ROADMAP Queue 1 item 6: the HTTP scorer serves raw HDF5",
-    "create-datasets": "ROADMAP Queue 1 item 6: building the caches needs h5py and sklearn",
-}
+# the configs whose dataset section each cache is built from
+_DATASET_MODELS = {"s2pt": "fully_connected_net", "s2ppc": "deep_sets", "s2pg": "graph_net"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,7 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     tp.add_argument("--seed", type=int, default=None, help="override trainer.seed (init RNG)")
     tp.add_argument("--plots", action="store_true", help="not ported (ROADMAP Queue 1 item 16)")
     tp.add_argument(
-        "--create-dataset", action="store_true", help="not ported (ROADMAP Queue 1 item 6)"
+        "--create-dataset", action="store_true",
+        help="build the dataset's cache from the raw shower files before training",
     )
 
     quant_help = (
@@ -72,13 +73,17 @@ def build_parser() -> argparse.ArgumentParser:
     ip.add_argument("--output", default=None)
     ip.add_argument("--quant", **quant)
 
-    irp = sub.add_parser("infer-raw", help="not ported (ROADMAP Queue 1 item 6)")
+    irp = sub.add_parser("infer-raw", help="predictions for a raw shower HDF5 file → CSV")
     irp.add_argument("model_dir")
     irp.add_argument("--input", required=True, help="raw .h5 shower file")
     irp.add_argument("--output", default=None)
     irp.add_argument("--quant", **quant)
 
-    sv = sub.add_parser("serve", help="not ported (ROADMAP Queue 1 item 6)")
+    sv = sub.add_parser(
+        "serve",
+        help="HTTP scoring endpoint: POST raw shower HDF5 bytes to /predict, get per-event "
+        "probabilities (GET /health)",
+    )
     sv.add_argument("model_dir")
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8000)
@@ -90,14 +95,17 @@ def build_parser() -> argparse.ArgumentParser:
     xp.add_argument("--quant", **quant)
     xp.add_argument("--platforms", nargs="+", default=None)
 
-    cp = sub.add_parser("create-datasets", help="not ported (ROADMAP Queue 1 item 6)")
+    cp = sub.add_parser("create-datasets", help="build the caches from the raw shower files")
     cp.add_argument("--data-dir", required=True)
     cp.add_argument("--config-dir", default="configs")
     cp.add_argument(
         "--datasets", nargs="+", default=["s2pt", "s2ppc", "s2pg"],
         choices=["s2pt", "s2ppc", "s2pg"],
     )
-    cp.add_argument("--workers", type=int, default=1)
+    cp.add_argument(
+        "--workers", type=int, default=1,
+        help="load and preprocess the files in N forked processes (the caches equal --workers 1's)",
+    )
 
     cv = sub.add_parser(
         "convert",
@@ -132,8 +140,6 @@ def main(argv=None, device: str = None) -> None:
     card unless ``device`` names another (``"cpu"``)."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.command in _NOT_PORTED:
-        raise SystemExit(f"{args.command} is not ported to PyTorch yet ({_NOT_PORTED[args.command]})")
 
     if args.command == "evaluate":
         evaluate_model(args.model_dir, save_dir=args.save_dir, quant=args.quant, device=device)
@@ -143,6 +149,23 @@ def main(argv=None, device: str = None) -> None:
         return
     if args.command == "infer":
         infer(args.model_dir, split=args.split, output=args.output, quant=args.quant, device=device)
+        return
+    if args.command == "infer-raw":
+        infer_raw(args.model_dir, args.input, output=args.output, quant=args.quant, device=device)
+        return
+    if args.command == "serve":
+        from point_cloud_classifier_tpu_torch.server import serve
+
+        serve(args.model_dir, host=args.host, port=args.port, quant=args.quant, device=device)
+        return
+    if args.command == "create-datasets":
+        for ds in args.datasets:
+            config = _model_config(args.config_dir, _DATASET_MODELS[ds])
+            config["dataset"]["data_dir"] = args.data_dir
+            config["dataset"]["create_dataset"] = True
+            if args.workers > 1:
+                config["dataset"]["workers"] = args.workers
+            get_dataloader(ds, config)
         return
     if args.command == "export":
         from point_cloud_classifier_tpu_torch.serving import export_run
@@ -175,11 +198,6 @@ def main(argv=None, device: str = None) -> None:
         parser.print_help()
         return
 
-    if args.create_dataset:
-        raise SystemExit(
-            "train --create-dataset is not ported to PyTorch yet (ROADMAP Queue 1 item 6: "
-            "building the caches needs h5py and sklearn)"
-        )
     model = args.model
     dataset = (args.dataset or MODEL_DATASETS[model]).lower()
     config = _model_config(args.config_dir, model)
@@ -191,4 +209,8 @@ def main(argv=None, device: str = None) -> None:
         config.setdefault("trainer", {})["epochs"] = args.epochs
     if args.seed is not None:
         config.setdefault("trainer", {})["seed"] = args.seed
+    if args.create_dataset:
+        config["dataset"]["create_dataset"] = True
+        get_dataloader(dataset, config)
+        config["dataset"]["create_dataset"] = False
     train_model(model, dataset, config, plots=args.plots, device=device)

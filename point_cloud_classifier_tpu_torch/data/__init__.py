@@ -1,4 +1,4 @@
-"""numpy batch loaders and the cached S2PT, S2PPC and S2PG datasets (no jax, pandas or h5py)."""
+"""numpy batch loaders and the S2PT, S2PPC and S2PG datasets, built from raw HDF5 showers or read from their caches (no jax, pandas, sklearn or h5py)."""
 
 from point_cloud_classifier_tpu_torch.data.batching import (
     GraphLoader,

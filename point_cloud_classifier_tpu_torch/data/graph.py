@@ -15,8 +15,15 @@ imports sklearn and joblib): ``nearest_recorded_ancestors``,
 with the C++ builder (``csrc/host/edge_builder.cpp``, through
 ``build_event_edges_native``) and with numpy under ``PCC_NATIVE=0``.
 
-Not ported yet: building the cache from the raw HDF5 showers
-(``create_dataset=True`` needs h5py and sklearn; ROADMAP Queue 1 item 6).
+``create_dataset=True`` builds the cache from the raw files as the JAX
+module does (``data/module.DataModule``, on a list of graphs): per event the
+steps sorted by (event, particle, time), the synthetic incident node last,
+the edges, the node features ``[energy / event total, x, y, z]`` and the
+gaussian edge weights; a graph-level stratified split of each file; per
+graph the energy-weighted position standardization, then the energy column
+scaled by the train split's scaler; one file a graph, written by
+``save_npz`` (the JAX bytes).  The loaders read the files through
+``load_npz``, as the JAX module does.
 """
 
 from __future__ import annotations
@@ -28,9 +35,18 @@ from typing import Dict, List
 import numpy as np
 
 from point_cloud_classifier_tpu_torch.data.batching import GraphLoader
+from point_cloud_classifier_tpu_torch.data.module import (
+    LABEL_MAP,
+    SPLITS,
+    DataModule,
+    StandardScaler,
+    save_scaler,
+    scaler_path,
+    train_test_split,
+)
+from point_cloud_classifier_tpu_torch.data.npz_io import load_npz, save_npz
 from point_cloud_classifier_tpu_torch.native.host import build_event_edges_native
 
-SPLITS = ("train", "val", "test")
 GRAPH_KEYS = ("event_id", "features", "edges", "weights", "label")
 
 
@@ -174,8 +190,9 @@ def scale_positions_inplace(features: np.ndarray) -> np.ndarray:
     return features
 
 
-class Step2PointGraph:
-    """The cached S2PG splits and their graph loaders."""
+class Step2PointGraph(DataModule):
+    """The S2PG splits: built from the raw files, or read from the cached
+    graphs by each loader."""
 
     name = "S2PG"
 
@@ -183,7 +200,7 @@ class Step2PointGraph:
         self,
         data_dir: str,
         n_features: int = 4,
-        parts: int = None,  # read by dataset creation only
+        parts: int = None,
         use_weights: bool = True,
         transfer_dtype: str = "float32",
         seg_encoding: str = "ids",
@@ -193,23 +210,10 @@ class Step2PointGraph:
         dense_w_is_existence: bool = False,
         require_inrow: bool = False,
         flat_if_multigraph: bool = False,
-        batch_size: int = None,
-        create_dataset: bool = False,
-        # the reference DataModule's cache-building settings: the cache holds
-        # their result, so reading it needs none of them
-        particles=("proton", "piM"),
-        feature_scaling: bool = True,
-        workers: int = 1,
+        **kwargs,
     ):
-        if create_dataset:
-            raise NotImplementedError(
-                "building the S2PG cache from raw HDF5 needs h5py and sklearn and "
-                "is not ported yet (ROADMAP Queue 1 item 6); build it with the "
-                "JAX package, or write a synthetic one with "
-                "data.synthetic.write_s2pg_cache, and point data_dir at it"
-            )
-        self.data_dir = data_dir
-        self.batch_size = batch_size
+        super().__init__(data_dir=data_dir, **kwargs)
+        self.parts = parts
         self.length_sorted = length_sorted
         self.loader_kwargs = dict(
             use_weights=use_weights,
@@ -222,9 +226,152 @@ class Step2PointGraph:
             require_inrow=require_inrow,
             flat_if_multigraph=flat_if_multigraph,
         )
+        if self.create_dataset:
+            print("Creating Step2PointGraph (S2PG) dataset")
+            self._create_dataset()
+
+    # -- per-event graphs ------------------------------------------------------------
+
+    def _preprocess_data(self, raw: Dict[str, np.ndarray], particle: str) -> List[Dict]:
+        # steps sorted by (event, pid, time), a stable lexsort
+        order = np.lexsort((raw["time"], raw["mcparticle_id"], raw["event_id"]))
+        ev = raw["event_id"][order]
+        pid = raw["mcparticle_id"][order].astype(np.int64)
+        time = raw["time"][order].astype(np.float64)
+        energy = raw["energy"][order].astype(np.float64)
+        pos = raw["position"][order].astype(np.float64)
+
+        p_ev = raw["particle_event_id"]
+        p_id = raw["particle_id"].astype(np.int64)
+        p_parent = raw["parent_id"].astype(np.int64)
+
+        uniq_events = np.unique(ev)
+        ev_bounds = np.append(np.searchsorted(ev, uniq_events), len(ev))
+        label = LABEL_MAP[particle]
+        graphs: List[Dict] = []
+        for e_i, event in enumerate(uniq_events):
+            lo, hi = ev_bounds[e_i], ev_bounds[e_i + 1]
+            n_steps = hi - lo
+            p_sel = p_ev == event
+            ev_pids = p_id[p_sel]
+            ev_parents = p_parent[p_sel]
+
+            incident = ev_pids[ev_parents == -1]
+            assert len(incident) == 1, f"Event {event}: expected 1 primary particle, found {len(incident)}"
+            assert incident[0] == 0, f"Event {event}: primary particle ID is not 0"
+            incident_pid = int(incident[0])
+
+            # the event's steps and the synthetic incident node (last)
+            pids_e = np.append(pid[lo:hi], incident_pid)
+            times_e = np.append(time[lo:hi], 0.0)
+            energy_e = np.append(energy[lo:hi], 0.0)
+            pos_e = np.vstack([pos[lo:hi], np.zeros(3)])
+            step_keys = np.arange(n_steps + 1, dtype=np.int64)
+
+            parent_map: Dict[int, List[int]] = {}
+            for child, parent in zip(ev_pids, ev_parents):
+                parent_map.setdefault(int(child), [])
+                if parent != -1:
+                    parent_map[int(child)].append(int(parent))
+
+            edges = event_edges(pids_e, times_e, step_keys, parent_map)
+            total_energy = energy_e.sum()
+            features = np.stack(
+                [energy_e / total_energy, pos_e[:, 0], pos_e[:, 1], pos_e[:, 2]], axis=1
+            ).astype(np.float32)
+            graphs.append({
+                "event_id": int(event),
+                "features": features,
+                "edges": edges,
+                "weights": gaussian_edge_weights(features, edges),
+                "label": label,
+            })
+
+        if self.remap_event_ids:
+            for new_id, g in enumerate(graphs):
+                g["event_id"] = new_id
+        return graphs
+
+    # -- the pipeline on a list of graphs ------------------------------------------------
+
+    def _create_dataset(self) -> None:
+        self.datasets = {s: [] for s in SPLITS}
+        event_id_offset = 0
+        jobs = self._file_jobs()
+        for (particle, filepath), (num_events, graphs) in zip(jobs, self._map_files(jobs)):
+            print(os.path.basename(filepath))
+            for g in graphs:
+                g["source_file"] = os.path.basename(filepath)
+                g["event_id"] += event_id_offset
+            event_id_offset += num_events
+            for split, part in zip(SPLITS, self._split_dataset(graphs)):
+                self.datasets[split].extend(part)
+
+        print("total_events:", sum(len(self.datasets[s]) for s in SPLITS))
+        print("event_id_offset:", event_id_offset)
+        if self.feature_scaling:
+            self._scale_features()
+        self._save_datasets()
+        for split in SPLITS:
+            for g in self.datasets[split]:
+                g.pop("source_file", None)
+
+    def _split_dataset(self, graphs: List[Dict]):
+        """Graph-level stratified 60/20/20 at seed 42; graphs keep their order."""
+        train_frac, val_frac, test_frac = self.data_split
+        event_ids = [g["event_id"] for g in graphs]
+        labels = [g["label"] for g in graphs]
+        train_val_ids, test_ids, train_val_labels, _ = train_test_split(
+            event_ids, labels, test_size=test_frac, stratify=labels
+        )
+        train_ids, val_ids, _, _ = train_test_split(
+            train_val_ids, train_val_labels, test_size=val_frac / (val_frac + train_frac),
+            stratify=train_val_labels,
+        )
+        sets = set(train_ids), set(val_ids), set(test_ids)
+        return tuple([g for g in graphs if g["event_id"] in ids] for ids in sets)
+
+    def _scale_features(self) -> None:
+        """Each graph's positions standardized with energy weights, then the
+        energy column scaled by the train split's scaler (f32, as stacked)."""
+        print("Scaling features")
+        stacked = {
+            s: np.vstack([scale_positions_inplace(g["features"]) for g in self.datasets[s]]) for s in SPLITS
+        }
+        scaler = StandardScaler()
+        stacked["train"][:, 0:1] = scaler.fit_transform(stacked["train"][:, 0:1])
+        stacked["val"][:, 0:1] = scaler.transform(stacked["val"][:, 0:1])
+        stacked["test"][:, 0:1] = scaler.transform(stacked["test"][:, 0:1])
+        self.scaler = scaler
+        os.makedirs(os.path.join(self.data_dir, self.name), exist_ok=True)
+        save_scaler(scaler, scaler_path(self.data_dir, self.name))
+        for s in SPLITS:
+            start = 0
+            for g in self.datasets[s]:
+                n = len(g["features"])
+                g["features"] = stacked[s][start : start + n]
+                start += n
+
+    # -- cache -----------------------------------------------------------------------
 
     def _split_dir(self, split: str) -> str:
         return os.path.join(self.data_dir, self.name, split)
+
+    def _save_datasets(self) -> None:
+        for split in SPLITS:
+            save_dir = self._split_dir(split)
+            os.makedirs(save_dir, exist_ok=True)
+            print(f"Saving {split} dataset")
+            for i, g in enumerate(self.datasets[split]):
+                save_npz(
+                    os.path.join(save_dir, f"graph_{i:05d}.npz"),
+                    features=g["features"],
+                    edges=g["edges"],
+                    weights=g["weights"],
+                    label=g["label"],
+                    event_id=g["event_id"],
+                )
+            print("Finished saving data")
 
     def _load_split_graphs(self, split: str) -> List[Dict[str, np.ndarray]]:
         paths = sorted(glob.glob(os.path.join(self._split_dir(split), "graph_*.npz")))
@@ -232,8 +379,8 @@ class Step2PointGraph:
             raise FileNotFoundError(f"No .npz files found in {self._split_dir(split)}")
         graphs = []
         for path in paths:
-            with np.load(path) as data:
-                graphs.append({k: data[k] for k in GRAPH_KEYS})
+            data = load_npz(path)
+            graphs.append({k: data[k] for k in GRAPH_KEYS})
         return graphs
 
     def _make_loader(self, split: str) -> GraphLoader:

@@ -1,17 +1,24 @@
-"""The S2PPC point-cloud dataset, read from its cached ``.npz`` splits (numpy).
+"""The S2PPC point-cloud dataset: per-hit features, built from the raw showers
+and cached as ``.npz`` shards by part (numpy).
 
-Counterpart of the cached-split half of
-``point_cloud_classifier_tpu/data/pointcloud.py`` (``Step2PointPointCloud``
-loading ``{data_dir}/S2PPC/{split}/S2PPC_{split}_*.npz``, and
-``frame_to_point_loader``).  The reference holds the rows in a pandas frame
-and its base class imports sklearn; this one keeps them as numpy columns, so
-it runs on a machine with neither.  Batches are byte-identical to the JAX
-loader's, on every wire it ships: flat or dense (``layout``), f32 or fp16
-(``transfer_dtype``), with or without ``factor_event_cols``, and with
-``length_sorted`` (the train split only, as in the JAX package).
+Counterpart of ``point_cloud_classifier_tpu/data/pointcloud.py``
+(``Step2PointPointCloud`` and ``frame_to_point_loader``).  The JAX module
+holds the rows in a pandas frame and its base class imports sklearn; this
+one keeps them as numpy columns, so it runs on a machine with neither.
 
-Not ported yet: building the cache from the raw HDF5 showers
-(``create_dataset=True`` needs h5py and sklearn).
+``create_dataset=True`` builds ``{data_dir}/S2PPC/{split}/S2PPC_{split}_{part}.npz``
+from the raw files as the JAX module does (``data/module.DataModule``): hits
+under ``energy_cutoff`` dropped; per event the energy as a fraction of the
+event's total (the total kept as its own column), the time min-maxed and the
+positions standardized with energy-fraction weights; an event-level split of
+each file; the energy column scaled by the train split's scaler; one shard a
+source part, written by ``np.savez``.  Otherwise the shards are read
+(``load_cache=False`` reads nothing: raw inference preprocesses alone).
+
+Batches are byte-identical to the JAX loader's, on every wire it ships: flat
+or dense (``layout``), f32 or fp16 (``transfer_dtype``), with or without
+``factor_event_cols``, and with ``length_sorted`` (the train split only, as
+in the JAX package).
 """
 
 from __future__ import annotations
@@ -23,10 +30,17 @@ from typing import Dict, Tuple
 import numpy as np
 
 from point_cloud_classifier_tpu_torch.data.batching import PointCloudLoader
+from point_cloud_classifier_tpu_torch.data.hdf5 import parse_part_number
+from point_cloud_classifier_tpu_torch.data.module import (
+    LABEL_MAP,
+    Columns,
+    SPLITS,
+    DataModule,
+    remap_event_ids,
+    take_rows,
+)
 
 FEATURE_COLS = ["energy", "energy_total", "position_x", "position_y", "position_z", "time"]
-SPLITS = ("train", "val", "test")
-Columns = Dict[str, np.ndarray]
 
 
 def frame_to_point_loader(
@@ -55,9 +69,9 @@ def frame_to_point_loader(
     return loader, uniq[appearance_order]
 
 
-class Step2PointPointCloud:
-    """The cached S2PPC splits and their loaders (train shuffled, and
-    length-sorted when asked)."""
+class Step2PointPointCloud(DataModule):
+    """The S2PPC splits: built from the raw files or read from the cache, and
+    their loaders (train shuffled, and length-sorted when asked)."""
 
     name = "S2PPC"
 
@@ -65,31 +79,20 @@ class Step2PointPointCloud:
         self,
         data_dir: str,
         parts: int = None,
-        sparse_batching: bool = True,  # config compat
-        energy_cutoff: float = None,  # applied when the cache was built
+        sparse_batching: bool = True,  # config compat: the static-shape wire covers both
+        energy_cutoff: float = None,
         seg_encoding: str = "ids",
         layout: str = "flat",
-        batch_size: int = None,
-        create_dataset: bool = False,
         transfer_dtype: str = "float32",
         factor_event_cols=(),
         bucket_factor: float = 2.0,
         length_sorted: bool = False,
-        # the reference DataModule's cache-building settings: the cache holds
-        # their result, so reading it needs none of them
-        particles=("proton", "piM"),
-        feature_scaling: bool = True,
-        workers: int = 1,
+        load_cache: bool = True,
+        **kwargs,
     ):
-        if create_dataset:
-            raise NotImplementedError(
-                "building the S2PPC cache from raw HDF5 needs h5py and is not "
-                "ported yet (ROADMAP Queue 1 item 6); build it with the JAX "
-                "package and point data_dir at it"
-            )
-        self.data_dir = data_dir
+        super().__init__(data_dir=data_dir, **kwargs)
         self.parts = parts
-        self.batch_size = batch_size
+        self.energy_cutoff = energy_cutoff
         self.length_sorted = length_sorted
         self.loader_kwargs = dict(
             transfer_dtype=transfer_dtype,
@@ -98,11 +101,90 @@ class Step2PointPointCloud:
             bucket_factor=bucket_factor,
             layout=layout,
         )
-        self.datasets = {split: self._load_split(split) for split in SPLITS}
-        print("Finished loading datasets")
+        if self.create_dataset:
+            print("Creating Step2PointPointCloud (S2PPC) dataset")
+            self._create_dataset()
+        elif load_cache:
+            self.datasets = {split: self._load_split(split) for split in SPLITS}
+            print("Finished loading datasets")
+
+    # -- preprocessing -------------------------------------------------------------
+
+    def _preprocess_data(self, raw: Dict[str, np.ndarray], particle: str) -> Columns:
+        energy = raw["energy"].astype(np.float64)
+        time = raw["time"].astype(np.float64)
+        pos = raw["position"].astype(np.float64)
+        event_id = raw["event_id"]
+
+        print("Length before:", len(energy))
+        if self.energy_cutoff:
+            keep = energy >= self.energy_cutoff
+            energy, time, pos, event_id = energy[keep], time[keep], pos[keep], event_id[keep]
+        print("Length after:", len(energy))
+
+        uniq, inv = np.unique(event_id, return_inverse=True)
+        n_ev = len(uniq)
+        energy_total = np.bincount(inv, weights=energy, minlength=n_ev)[inv]
+        energy_frac = energy / energy_total
+
+        tmin = np.full(n_ev, np.inf)
+        tmax = np.full(n_ev, -np.inf)
+        np.minimum.at(tmin, inv, time)
+        np.maximum.at(tmax, inv, time)
+        time_norm = (time - tmin[inv]) / (tmax[inv] - tmin[inv] + 1e-8)
+
+        # each coordinate standardized with the energy fractions as weights
+        w = energy_frac
+        w_sum = np.bincount(inv, weights=w, minlength=n_ev)
+        pos_norm = np.empty_like(pos)
+        for c in range(3):
+            mean_c = np.bincount(inv, weights=w * pos[:, c], minlength=n_ev) / w_sum
+            var_c = np.bincount(inv, weights=w * (pos[:, c] - mean_c[inv]) ** 2, minlength=n_ev) / w_sum
+            std_c = np.sqrt(var_c)
+            pos_norm[:, c] = (pos[:, c] - mean_c[inv]) / (std_c[inv] + 1e-8)
+
+        columns = {
+            "event_id": event_id,
+            "energy": energy_frac,
+            "energy_total": energy_total,
+            "position_x": pos_norm[:, 0],
+            "position_y": pos_norm[:, 1],
+            "position_z": pos_norm[:, 2],
+            "time": time_norm,
+            "label": np.full(len(energy), LABEL_MAP[particle], dtype=np.int64),
+        }
+        if self.remap_event_ids:
+            columns["event_id"] = remap_event_ids(event_id)
+        nan = any(np.isnan(v).any() for v in columns.values() if v.dtype.kind == "f")
+        print("There are NaN values in the dataset!" if nan else "No NaN values detected.")
+        return columns
+
+    def _scale_features(self) -> None:
+        super()._scale_features(feature_cols=["energy"])
+
+    # -- cache -----------------------------------------------------------------------
+
+    def _split_dir(self, split: str) -> str:
+        return os.path.join(self.data_dir, self.name, split)
+
+    def _save_datasets(self) -> None:
+        for split in SPLITS:
+            columns = self.datasets[split]
+            save_dir = self._split_dir(split)
+            os.makedirs(save_dir, exist_ok=True)
+            print(f"Saving {split} dataset")
+            names, inv = np.unique(columns["source_file"], return_inverse=True)
+            part_col = np.array([parse_part_number(str(n)) for n in names], dtype=np.int64)[inv]
+            for part in np.unique(part_col):
+                sel = take_rows(columns, part_col == part)
+                np.savez(
+                    os.path.join(save_dir, f"{self.name}_{split}_{part}.npz"),
+                    **{k: sel[k] for k in ("event_id", *FEATURE_COLS, "label")},
+                )
+            print("Finished saving data")
 
     def _load_split(self, split: str) -> Columns:
-        pattern = os.path.join(self.data_dir, self.name, split, f"{self.name}_{split}_*.npz")
+        pattern = os.path.join(self._split_dir(split), f"{self.name}_{split}_*.npz")
         paths = sorted(glob.glob(pattern))
         if self.parts:
             paths = paths[: self.parts]
@@ -112,8 +194,10 @@ class Step2PointPointCloud:
         parts = []
         for path in paths:
             with np.load(path) as data:
-                parts.append({k: data[k] for k in ("event_id", "label", *FEATURE_COLS)})
+                parts.append({k: data[k] for k in ("event_id", *FEATURE_COLS, "label")})
         return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+    # -- loaders ---------------------------------------------------------------------
 
     def _make_loader(self, split: str) -> PointCloudLoader:
         loader, _ = frame_to_point_loader(

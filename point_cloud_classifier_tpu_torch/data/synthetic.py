@@ -1,8 +1,18 @@
-"""Seeded synthetic S2PT, S2PPC and S2PG caches, written with numpy, for tests and smoke runs.
+"""Seeded synthetic raw showers and S2PT, S2PPC and S2PG caches, written with numpy, for tests and smoke runs.
 
-Counterpart of ``point_cloud_classifier_tpu/data/synthetic.py``, which writes
-raw HDF5 showers for the JAX package's preprocessing; the port reads only the
-caches, so this writes them itself, in the JAX package's layouts.
+:func:`write_shower_file` and :func:`write_synthetic_dataset` are the JAX
+package's generator (``point_cloud_classifier_tpu/data/synthetic.py``):
+``_make_event`` makes the same draws in the same order, so a seed gives the
+same arrays, and ``data/h5lite.write_h5`` writes them where the JAX package
+calls h5py (``metadata/subdetector_names``, ``steps/*`` and
+``particles/*``, files named ``{particle}_file{N}.h5``).  The class signal
+lives in the shapes of the distributions and in the MC-truth trees (piM
+fragments more), so it survives every representation's per-event
+normalization, and some particles of each tree leave no steps, so that the
+S2PG edges are found through unrecorded ancestors.
+
+The cache writers below write the three caches directly, in the JAX
+package's layouts, without raw files.
 
 :func:`write_s2ppc_cache` writes ``{data_dir}/S2PPC/{split}/S2PPC_{split}_0.npz``
 with the columns ``event_id``, ``energy``, ``energy_total``,
@@ -55,9 +65,11 @@ also makes exact distance ties, where a row's kNN degree exceeds k.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from point_cloud_classifier_tpu_torch.data.h5lite import write_h5
 
 SPLITS = ("train", "val", "test")
 
@@ -289,3 +301,123 @@ def write_s2pt_cache(data_dir: str, n_events: Sequence[int] = (1024, 256, 256), 
         out = os.path.join(data_dir, "S2PT", split)
         os.makedirs(out, exist_ok=True)
         np.savez(os.path.join(out, f"S2PT_{split}.npz"), **cols)
+
+
+# -- raw showers (the JAX package's generator) -----------------------------------
+
+SUBDETECTOR_NAMES = [
+    b"HCalBarrel",
+    b"HCalEndcap",
+    b"ECalBarrel",
+    b"ECalEndcap",
+    b"TrackerBarrel",  # maps to "Other" and is dropped by the tabular pipeline
+]
+
+
+def _make_event(rng: np.random.Generator, particle: str) -> Tuple[Dict, Dict]:
+    """One event: a small particle tree plus its steps (the JAX generator's
+    draws, in its order)."""
+    is_proton = particle == "proton"
+
+    # pid 0 is the incident particle (parent -1), then a few secondaries,
+    # each the child of an earlier particle; piM trees are deeper and wider
+    n_secondaries = int(rng.integers(2, 5)) if is_proton else int(rng.integers(5, 9))
+    pids = [0] + list(range(1, n_secondaries + 1))
+    parents = [-1]
+    for pid in pids[1:]:
+        parents.append(int(rng.integers(0, pid)))
+
+    # the secondaries that leave steps (pid 0 always does, and at least one other)
+    recorded = {0}
+    for pid in pids[1:]:
+        if rng.random() > 0.3:
+            recorded.add(pid)
+    if len(recorded) == 1 and n_secondaries >= 1:
+        recorded.add(pids[1])
+
+    hcal_frac = 0.75 if is_proton else 0.35
+    spread = 12.0 if is_proton else 7.0
+    # piM showers elongated along z, protons isotropic; proton energy spiky,
+    # piM shared near uniformly; proton times uniform, piM heavy-tailed
+    axis_scale = np.array([1.0, 1.0, 1.0]) if is_proton else np.array([0.8, 0.8, 1.6])
+    energy_shape = 1.0 if is_proton else 2.2
+    center = rng.normal(0.0, 3.0, size=3) + (np.array([0, 0, 40.0]))
+
+    step_rows = {k: [] for k in ["energy", "time", "pos", "pid", "subdet"]}
+    t_base = 0.05
+    for pid in sorted(recorded):
+        n_steps = int(rng.integers(2, 7)) if pid == 0 else int(rng.integers(1, 5))
+        for s in range(n_steps):
+            step_rows["pid"].append(pid)
+            if is_proton:
+                dt = rng.uniform(0.0, 3.0)
+            else:
+                dt = rng.exponential(1.2)
+            step_rows["time"].append(t_base + dt + 0.2 * s + 0.1 * pid)
+            step_rows["energy"].append(float(rng.gamma(energy_shape, 0.05) + 0.005))
+            step_rows["pos"].append(center + rng.normal(0.0, spread, size=3) * axis_scale)
+            in_hcal = rng.random() < hcal_frac
+            if rng.random() < 0.05:
+                step_rows["subdet"].append(4)  # TrackerBarrel → Other
+            elif in_hcal:
+                step_rows["subdet"].append(int(rng.integers(0, 2)))
+            else:
+                step_rows["subdet"].append(int(rng.integers(2, 4)))
+
+    steps = {
+        "energy": np.asarray(step_rows["energy"], dtype=np.float32),
+        "time": np.asarray(step_rows["time"], dtype=np.float32),
+        "position": np.stack(step_rows["pos"]).astype(np.float32),
+        "mcparticle_id": np.asarray(step_rows["pid"], dtype=np.int64),
+        "subdetector": np.asarray(step_rows["subdet"], dtype=np.int64),
+    }
+    particles_tbl = {
+        "id": np.asarray(pids, dtype=np.int64),
+        "parent_id": np.asarray(parents, dtype=np.int64),
+    }
+    return steps, particles_tbl
+
+
+def write_shower_file(path: str, particle: str, n_events: int, seed: int) -> Dict[str, np.ndarray]:
+    """``n_events`` events of ``particle`` from ``seed`` as one raw shower
+    file; returns the arrays written, by their paths in the file."""
+    rng = np.random.default_rng(seed)
+    all_steps: List[Dict] = []
+    all_particles: List[Dict] = []
+    for event in range(n_events):
+        steps, particles_tbl = _make_event(rng, particle)
+        steps["event_id"] = np.full(len(steps["energy"]), event, dtype=np.int64)
+        particles_tbl["event_id"] = np.full(len(particles_tbl["id"]), event, dtype=np.int64)
+        all_steps.append(steps)
+        all_particles.append(particles_tbl)
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    arrays = {"metadata/subdetector_names": np.array(SUBDETECTOR_NAMES)}
+    for key in ("energy", "time", "position", "mcparticle_id", "subdetector", "event_id"):
+        arrays[f"steps/{key}"] = np.concatenate([s[key] for s in all_steps])
+    for key in ("id", "parent_id", "event_id"):
+        arrays[f"particles/{key}"] = np.concatenate([p[key] for p in all_particles])
+    write_h5(path, arrays)
+    return arrays
+
+
+def write_synthetic_dataset(
+    data_dir: str,
+    n_events_per_file: int = 40,
+    n_files_per_particle: int = 1,
+    seed: int = 0,
+    particles: Tuple[str, ...] = ("proton", "piM"),
+) -> str:
+    """A tree of raw shower files, ``{particle}_file{N}.h5`` (file N of the
+    particle of index p from seed ``seed + 1000·p + N``); returns
+    ``data_dir``."""
+    os.makedirs(data_dir, exist_ok=True)
+    for p_i, particle in enumerate(particles):
+        for n in range(n_files_per_particle):
+            write_shower_file(
+                os.path.join(data_dir, f"{particle}_file{n}.h5"),
+                particle,
+                n_events_per_file,
+                seed=seed + 1000 * p_i + n,
+            )
+    return data_dir

@@ -67,7 +67,9 @@ def _graph_dataset_config(config: dict) -> dict:
 
 
 def get_dataloader(dataset_name: str, config: dict):
-    """The data module for ``dataset_name`` over ``config["dataset"]``.  As
+    """The data module for ``dataset_name`` over ``config["dataset"]``; with
+    ``create_dataset: true`` it first builds the cache from the raw shower
+    files under ``data_dir`` (over ``workers`` forked processes).  As
     in the JAX package, S2PT reads the cached rows (a ``TabularLoader`` with
     ``convert_to_tensor``, else the rows' columns); S2PPC defaults to
     ``layout="auto"`` (the dense per-cloud-row wire per batch from a batch

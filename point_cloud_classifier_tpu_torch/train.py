@@ -1,5 +1,5 @@
 """Runs of the command line: ``train_model``, ``resume_training``,
-``evaluate_model`` and ``infer``.
+``evaluate_model``, ``infer`` and ``infer_raw``.
 
 Counterpart of the functions of the same names in the repository's
 ``train.py``, with the same run lifecycle and files:
@@ -20,6 +20,9 @@ Counterpart of the functions of the same names in the repository's
   int8 chain, ``ops/quant.py``).
 - ``infer``: a CSV of one split's probabilities, the train split unshuffled,
   also through the int8 chain where ``quant`` asks for it.
+- ``infer_raw``: a CSV of the probabilities of every event of a raw shower
+  file, keyed by the file's event ids (``data/inference.inference_loader``:
+  the run's preprocessing and the scaler of dataset creation).
 
 Accuracy and the report are computed with numpy (``utils/metrics.py``), as
 sklearn computes them.  Each runs on the card and raises where there is
@@ -155,6 +158,30 @@ def infer(model_dir: str, split: str = "test", output: str = None, quant: str = 
         for i, (t, p) in enumerate(zip(y_true, y_prob)):
             f.write(f"{i},{int(t)},{p:.6f},{int(p >= 0.5)}\n")
     print(f"Wrote {len(y_true)} predictions to {output}")
+    return output
+
+
+def infer_raw(model_dir: str, input_path: str, output: str = None, quant: str = "none", device: str = None):
+    """Predictions for a raw shower file (no labels, no cache) → ``event_id,
+    probability, prediction`` rows in a CSV (default
+    ``{input stem}_predictions.csv``), the run's preprocessing and persisted
+    scalers applied to the file."""
+    from point_cloud_classifier_tpu_torch.data.inference import inference_loader
+
+    config = load_config(os.path.join(model_dir, "config.yaml"))
+    model_name = config["meta"]["model_name"]
+    apply_quant(config, model_name, quant)
+    loader, event_ids = inference_loader(config["meta"]["dataset_name"], config, input_path)
+    model = get_model(model_name=model_name, config=config, model_dir=model_dir, device=device)
+    _, y_prob = model.predict(loader, return_prob=True)
+    y_prob = np.asarray(y_prob).reshape(-1)
+
+    output = output or os.path.splitext(input_path)[0] + "_predictions.csv"
+    with open(output, "w") as f:
+        f.write("event_id,probability,prediction\n")
+        for ev, p in zip(event_ids, y_prob):
+            f.write(f"{int(ev)},{p:.6f},{int(p >= 0.5)}\n")
+    print(f"Wrote {len(y_prob)} predictions to {output}")
     return output
 
 

@@ -3,17 +3,24 @@ on the CPU: ``classification_report`` byte for byte against sklearn's;
 ``evaluate_model`` and ``infer`` on one run directory through both packages
 (``metrics.json`` and ``classification_report.txt`` byte for byte, the
 predictions CSVs column by column); the parser's subcommands, options,
-choices and defaults against the JAX parser's; the unported subcommands'
-errors; ``export`` and ``--quant int8``; ``main(["train", …])`` for the four model families; and ``main``
+choices and defaults against the JAX parser's; ``train --plots``'s error;
+``infer-raw``, ``serve``, ``create-datasets`` and ``train --create-dataset``
+on raw shower files; ``export`` and ``--quant int8``; ``main(["train", …])`` for the four model families; and ``main``
 without a device on a host without a card."""
 
 import argparse
+import contextlib
 import copy
+import glob
+import io
 import json
 import os
 import shutil
 import subprocess
 import sys
+import threading
+import time
+import urllib.request
 import warnings
 
 import numpy as np
@@ -30,6 +37,7 @@ from point_cloud_classifier_tpu_torch.data.synthetic import (  # noqa: E402
     write_s2pg_cache,
     write_s2ppc_cache,
     write_s2pt_cache,
+    write_synthetic_dataset,
 )
 from point_cloud_classifier_tpu_torch.utils.config import load_config, save_config  # noqa: E402
 from point_cloud_classifier_tpu_torch.utils.metrics import classification_report  # noqa: E402
@@ -197,31 +205,107 @@ def test_parser_matches_the_jax_parser():
         assert ours[name] == theirs[name], name
 
 
+@pytest.fixture(scope="module")
+def raw_run(tiny):
+    """Raw shower files (2 files of 30 events a particle), the S2PPC cache
+    ``create-datasets`` builds from them with the narrow configs, and a
+    DeepSets run ``train`` makes over it (1 epoch)."""
+    root = tiny / "raw_run"
+    data = write_synthetic_dataset(str(root / "data"), n_events_per_file=30, n_files_per_particle=2, seed=6)
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["create-datasets", "--data-dir", data, "--config-dir", str(tiny / "configs"),
+                  "--datasets", "s2ppc"], device="cpu")
+        cli.main(["train", "deep_sets", "--config-dir", str(tiny / "configs"), "--data-dir", data,
+                  "--log-dir", str(root / "log"), "--epochs", "1"], device="cpu")
+    return {"data": data, "run": str(root / "log" / "version_0"), "raw": os.path.join(data, "piM_file1.h5")}
+
+
+def _serve_once(argv, capsys, monkeypatch):
+    """``serve`` in a thread until it answers ``/health``; its printed
+    address and the answer."""
+    from point_cloud_classifier_tpu_torch import server as server_mod
+
+    made = []
+    real = server_mod.make_server
+    monkeypatch.setattr(server_mod, "make_server", lambda *a, **k: made.append(real(*a, **k)) or made[-1])
+    thread = threading.Thread(target=cli.main, args=(argv,), kwargs={"device": "cpu"}, daemon=True)
+    thread.start()
+    for _ in range(600):
+        if made:
+            break
+        time.sleep(0.05)
+    try:
+        port = made[0].server_address[1]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        made[0].shutdown()
+    thread.join(timeout=60)
+    return port, health, capsys.readouterr().out
+
+
 @pytest.mark.parametrize("argv, error, item", [
-    (["infer-raw", "run", "--input", "x.h5"], SystemExit, "item 6"),
-    (["serve", "run", "--quant", "int8"], SystemExit, "item 6"),
+    (["infer-raw", "run", "--input", "x.h5"], None, "Wrote 30 predictions to"),
+    (["serve", "run", "--quant", "int8"], None, "Serving"),
     (["export", "run"], None, "Exported serving artifacts to"),
-    (["create-datasets", "--data-dir", "d"], SystemExit, "item 6"),
-    (["train", "deep_sets", "--create-dataset"], SystemExit, "item 6"),
+    (["create-datasets", "--data-dir", "d"], None, "Scaling the following columns:"),
+    (["train", "deep_sets", "--create-dataset"], None, "Creating Step2PointPointCloud (S2PPC) dataset"),
     (["train", "deep_sets", "--plots"], NotImplementedError, "item 16"),
 ], ids=["infer-raw", "serve", "export", "create-datasets", "train-create-dataset", "train-plots"])
-def test_unported_commands_fail_naming_their_item(tiny, jax_runs, tmp_path, capsys, argv, error, item):
-    """Each command not ported exits non-zero (or raises) naming its ROADMAP
-    item and writes nothing.  ``export``, ported since, runs on a run
-    directory and prints the JAX package's line (``error`` None)."""
-    if argv[0] == "train":
-        argv = _args(tiny, argv[1], tmp_path / "log", *argv[2:])
-    if error is None:
+def test_unported_commands_fail_naming_their_item(tiny, jax_runs, raw_run, tmp_path, capsys, monkeypatch, argv,
+                                                  error, item):
+    """``train --plots`` raises naming its ROADMAP item and writes nothing.
+    The commands ported since run on the CPU and print the JAX package's
+    lines: ``export`` (its manifest), ``infer-raw`` (a row a raw event),
+    ``serve`` (its address, ``/health`` with the int8 path that runs),
+    ``create-datasets`` (the S2PT and S2PG caches over two workers, their
+    scalers) and ``train --create-dataset`` (the cache, then the run, whose
+    ``config.yaml`` says ``create_dataset: false``)."""
+    command = argv[0] if argv[0] != "train" else argv[-1]
+    if command == "export":
         out_dir = str(tmp_path / "log")
         cli.main([argv[0], jax_runs["deep_sets"], "--out-dir", out_dir], device="cpu")
         assert f"{item} {out_dir}" in capsys.readouterr().out
         assert os.path.exists(os.path.join(out_dir, "manifest.json"))
         return
-    with pytest.raises(error, match=item) as raised:
-        cli.main(argv, device="cpu")
-    if error is SystemExit:
-        assert raised.value.code not in (0, None)
-    assert not os.path.exists(tmp_path / "log")
+    if command == "infer-raw":
+        out = str(tmp_path / "p.csv")
+        cli.main(["infer-raw", raw_run["run"], "--input", raw_run["raw"], "--output", out], device="cpu")
+        assert f"{item} {out}" in capsys.readouterr().out
+        header, rows = _csv(out)
+        assert header == "event_id,probability,prediction\n" and rows.shape == (30, 3)
+        np.testing.assert_array_equal(np.sort(rows[:, 0]), np.arange(30))
+        return
+    if command == "serve":
+        port, health, out = _serve_once(["serve", raw_run["run"], "--port", "0", "--quant", "int8"], capsys,
+                                        monkeypatch)
+        assert f"{item} {raw_run['run']} on http://127.0.0.1:{port}" in out
+        assert health == {"status": "ok", "model": "deep_sets", "dataset": "s2ppc", "quant": "int8"}
+        return
+    data = shutil.copytree(raw_run["data"], str(tmp_path / "data"), ignore=shutil.ignore_patterns("S2P*"))
+    if command == "create-datasets":
+        cli.main(["create-datasets", "--data-dir", data, "--config-dir", str(tiny / "configs"),
+                  "--datasets", "s2pt", "s2pg", "--workers", "2"], device="cpu")
+        assert item in capsys.readouterr().out
+        for name in ("S2PT", "S2PG"):
+            assert os.path.exists(os.path.join(data, name, f"{name}_scaler.pkl"))
+        assert sorted(os.listdir(os.path.join(data, "S2PT", "test"))) == ["S2PT_test.npz"]
+        assert len(os.listdir(os.path.join(data, "S2PG", "train"))) == 72  # 60% of 120 events
+        assert not os.path.exists(os.path.join(data, "S2PPC"))
+        return
+    argv = ["train", "deep_sets", "--config-dir", str(tiny / "configs"), "--data-dir", data, "--log-dir",
+            str(tmp_path / "log"), *argv[2:]]
+    if error is not None:
+        with pytest.raises(error, match=item):
+            cli.main(argv, device="cpu")
+        assert not os.path.exists(tmp_path / "log")
+        return
+    cli.main([*argv, "--epochs", "1"], device="cpu")
+    assert item in capsys.readouterr().out
+    run = tmp_path / "log" / "version_0"
+    assert load_config(str(run / "config.yaml"))["dataset"]["create_dataset"] is False
+    assert {"config.yaml", "meta.json", "best_model.pt"} <= set(os.listdir(run))
+    assert len(glob.glob(os.path.join(data, "S2PPC", "*", "S2PPC_*_*.npz"))) == 6
 
 
 def test_quant_int8_fails_naming_its_item(jax_runs, tmp_path):
@@ -247,7 +331,10 @@ def test_quant_int8_fails_naming_its_item(jax_runs, tmp_path):
         assert list(json.load(f)) == ["accuracy_train", "accuracy_val", "accuracy_test"]
 
 
-def test_module_entry_lists_every_command_and_refuses_the_unported():
+def test_module_entry_lists_every_command_and_refuses_the_unported(tmp_path):
+    """``python -m point_cloud_classifier_tpu_torch``: ``--help`` lists every
+    command, ``serve --help`` its options, and ``create-datasets`` builds a
+    cache on a host without a card (dataset creation never touches one)."""
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
     run = [sys.executable, "-m", "point_cloud_classifier_tpu_torch"]
     helped = subprocess.run(run + ["--help"], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
@@ -255,8 +342,15 @@ def test_module_entry_lists_every_command_and_refuses_the_unported():
     for name in ("train", "evaluate", "resume", "infer", "infer-raw", "serve", "export", "create-datasets",
                  "convert"):
         assert name in helped.stdout
-    served = subprocess.run(run + ["serve", "run"], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
-    assert served.returncode != 0 and "ROADMAP Queue 1 item 6" in served.stderr
+    served = subprocess.run(run + ["serve", "--help"], cwd=REPO, env=env, capture_output=True, text=True,
+                            timeout=120)
+    assert served.returncode == 0, served.stderr
+    assert all(opt in served.stdout for opt in ("model_dir", "--host", "--port", "--quant"))
+    data = write_synthetic_dataset(str(tmp_path / "data"), n_events_per_file=10, seed=2)
+    created = subprocess.run(run + ["create-datasets", "--data-dir", data, "--datasets", "s2pt"], cwd=REPO,
+                             env=env, capture_output=True, text=True, timeout=120)
+    assert created.returncode == 0, created.stderr
+    assert sorted(os.listdir(os.path.join(data, "S2PT"))) == ["S2PT_scaler.pkl", "test", "train", "val"]
 
 
 def _expected_config(tiny, model, log_dir, epochs, seed):

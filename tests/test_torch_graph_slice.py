@@ -177,7 +177,9 @@ def test_weighted_gat_config_sets_the_jax_gates(data_dir):
 
 
 def test_create_dataset_raises(data_dir):
+    """Dataset creation reads raw shower files; over a directory of cached
+    graphs alone it raises, naming what it looked for."""
     cfg = _config(data_dir)
     cfg["dataset"]["create_dataset"] = True
-    with pytest.raises(NotImplementedError, match="h5py"):
+    with pytest.raises(FileNotFoundError, match="no raw shower files"):
         factory.get_dataloader("s2pg", cfg)

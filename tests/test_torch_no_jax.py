@@ -1,7 +1,8 @@
 """The port imports without jax, the JAX package, pandas, sklearn, PyYAML,
 matplotlib, h5py or joblib, and runs without them (the kNN path, the
 flagship wire, the command line, the C++ host packers and edge builder, the
-sequential and vmapped sweeps, int8 evaluation and the serving export); chip_smoke.py refuses to run without a CUDA
+sequential and vmapped sweeps, int8 evaluation and the serving export, dataset creation from raw HDF5
+showers, raw-file inference and the HTTP scorer); chip_smoke.py refuses to run without a CUDA
 card or without the repository beside it."""
 
 import os
@@ -59,8 +60,9 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
     sweep = {"sweep", "parallel", "parallel.vmap_sweep"}
     fused = {"utils.profiling", "models.windows"}
     serving = {"ops.quant", "serving"}
+    raw_showers = {"data.h5lite", "data.hdf5", "data.module", "data.npz_io", "data.inference", "server"}
     assert {f"point_cloud_classifier_tpu_torch.{m}"
-            for m in graph_slice | pipelines | command_line | host | sweep | fused | serving} <= walked
+            for m in graph_slice | pipelines | command_line | host | sweep | fused | serving | raw_showers} <= walked
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -358,3 +360,43 @@ def test_int8_evaluation_and_export_run_without_jax(tmp_path):
     assert lines[0] == ["quant", "int8"]
     assert [line[:2] for line in lines[1:]] == [["served", "none"], ["served", "int8"]]
     assert float(lines[1][2]) <= 1e-5 and float(lines[2][2]) <= 1e-6
+
+
+def test_dataset_creation_raw_inference_and_serving_run_without_jax(tmp_path):
+    """``create-datasets`` (two workers), ``train --create-dataset``,
+    ``infer-raw`` and a request served over HTTP, on the CPU, in a process
+    where none of the blocked packages (h5py, pandas, sklearn and joblib
+    among them) can be imported: the HDF5 reader and writer, the split, the
+    scaler and its pickle are the port's own."""
+    code = textwrap.dedent(
+        f"""
+        import json, os, sys, threading, urllib.request
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        from point_cloud_classifier_tpu_torch.cli import main
+        from point_cloud_classifier_tpu_torch.data.synthetic import write_synthetic_dataset
+        from point_cloud_classifier_tpu_torch.server import make_server
+        work = {str(tmp_path)!r}
+        data = write_synthetic_dataset(os.path.join(work, "data"), n_events_per_file=20, seed=2)
+        main(["create-datasets", "--data-dir", data, "--datasets", "s2pt", "s2pg", "--workers", "2"], device="cpu")
+        main(["train", "deep_sets", "--data-dir", data, "--log-dir", os.path.join(work, "log"), "--epochs", "1",
+              "--create-dataset"], device="cpu")
+        run = os.path.join(work, "log", "version_0")
+        raw = os.path.join(data, "piM_file0.h5")
+        main(["infer-raw", run, "--input", raw, "--output", os.path.join(work, "p.csv")], device="cpu")
+        server = make_server(run, port=0, device="cpu")
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        with open(raw, "rb") as f:
+            req = urllib.request.Request(f"http://127.0.0.1:{{server.server_address[1]}}/predict", data=f.read())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            served = json.loads(r.read())["predictions"]
+        server.shutdown()
+        with open(os.path.join(work, "p.csv")) as f:
+            rows = f.read().split()[1:]
+        print("rows", len(rows), "served", len(served), sorted(os.listdir(data)))
+        """
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    line = next(line for line in proc.stdout.splitlines() if line.startswith("rows"))
+    assert line.startswith("rows 20 served 20 ['S2PG', 'S2PPC', 'S2PT', 'piM_file0.h5', 'proton_file0.h5']"), line

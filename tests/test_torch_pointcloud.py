@@ -15,6 +15,7 @@ pytest.importorskip("torch")
 from point_cloud_classifier_tpu import factory as jax_factory  # noqa: E402
 from point_cloud_classifier_tpu_torch import factory  # noqa: E402
 from point_cloud_classifier_tpu_torch.data import synthetic  # noqa: E402
+from point_cloud_classifier_tpu_torch.data.synthetic import write_synthetic_dataset  # noqa: E402
 
 COLUMNS = ("energy", "energy_total", "position_x", "position_y", "position_z", "time")
 
@@ -117,18 +118,25 @@ def test_wire_options_byte_identical_to_jax(tmp_path, extra):
                          jax_factory.get_dataloader("s2ppc", cfg).get_train_loader())
 
 
-@pytest.mark.parametrize("extra, match", [({"create_dataset": True}, "HDF5")], ids=["create_dataset"])
+@pytest.mark.parametrize("extra, match", [({"create_dataset": True}, "S2PPC_scaler.pkl")], ids=["create_dataset"])
 def test_unported_dataset_options_raise(tmp_path, extra, match):
-    write_cache(tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
-        factory.get_dataloader("s2ppc", _cfg(tmp_path, **extra))
+    """``create_dataset``, refused before the port read raw HDF5, now builds
+    the cache from the JAX generator's raw files (its scaler among the
+    files) and gives the JAX package's batches."""
+    data = {side: write_synthetic_dataset(str(tmp_path / side), n_events_per_file=20, seed=5)
+            for side in ("port", "jax")}
+    ours = factory.get_dataloader("s2ppc", _cfg(tmp_path / "port", **extra))
+    theirs = jax_factory.get_dataloader("s2ppc", _cfg(tmp_path / "jax", **extra))
+    assert match in os.listdir(os.path.join(data["port"], "S2PPC"))
+    for split in ("train", "val", "test"):
+        _assert_same_batches(getattr(ours, f"get_{split}_loader")(), getattr(theirs, f"get_{split}_loader")())
 
 
 def test_get_dataloader_errors(tmp_path):
     creating = _cfg(tmp_path)
     creating["dataset"] = {"data_dir": str(tmp_path), "create_dataset": True}
-    for name in ("s2pt", "s2pg"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for name in ("s2pt", "s2pg"):  # creation without raw files
+        with pytest.raises(FileNotFoundError, match="no raw shower files"):
             factory.get_dataloader(name, creating)
     with pytest.raises(FileNotFoundError, match="Required file is missing"):
         factory.get_dataloader("s2pt", {"dataset": {"data_dir": str(tmp_path)}})
