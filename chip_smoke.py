@@ -284,6 +284,7 @@ import pickle
 import re
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -4250,6 +4251,270 @@ def raw_showers_phase(smi: str, work_dir: str) -> dict:
     return launches
 
 
+
+# phase 27: meshes.  The flagship DeepSets (configs/deep_sets.yaml's widths)
+# on phase 19's cache at B=256 on the dense fp16 wire, and phase 13's in-row
+# GAT (hidden 128, 4 heads) on its S2PG cache at the config's B=32.  One card:
+# NCCL runs a world of one rank here (it refuses two ranks on one device), and
+# gloo ranks share the card for n = 2 and 4.
+MESH_STEPS = 8  # (a) train steps of each model, mesh against meshless
+MESH_LOSS_TOL = 1e-6  # (a) per-step loss, a world-1 NCCL mesh against no mesh
+MESH_TURNS = 2  # (a) timed rounds: meshless, mesh, mesh, meshless
+MESH_EPOCHS = 3  # (b), (d) epochs on gloo ranks
+MESH_CURVE_TOL = 5e-4  # (b) Loss/train against n = 1: __graft_entry__.py's size-invariance bound
+MESH_PROBS = dict(rtol=5e-4, atol=5e-5)  # (b), (d): tests/test_parallel.py's bound
+# (b), (d): the trained runs' probabilities against n = 1's.  The in-row
+# GAT on 4 ranks of an H100 agrees with one rank to ~1e-6 until step 37,
+# where a score within rounding of LeakyReLU's kink takes the other slope
+# and conv2's attention gradients part 4.4e-3; Adam then drifts att_dst
+# (whose gradient only such straddling nodes give), ending 1.34e-3 apart
+# in eval probabilities after 96 steps, past MESH_PROBS: printed as not
+# met, and failed past this guard.  The mesh's predict itself is held to MESH_PROBS
+# on n = 1's final weights.
+MESH_TRAINED_GUARD = 5e-3
+MESH_CLI_TOL = 1e-6  # (e) metrics of torchrun's run against the meshless command line's
+MESH_PHASE_SECONDS = 120
+
+
+def mesh_models(run_dir: str) -> list:
+    """(label, model name, dataset, config) of phase 27's two models."""
+    ds = flagship_config(os.path.join(run_dir, "flagship_data"), os.path.join(run_dir, "mesh_log", "deep_sets"),
+                         {}, {"epochs": MESH_EPOCHS})
+    ds["dataset"]["layout"] = "dense"
+    gat = graph_training_config(os.path.join(run_dir, "s2pg_train"), os.path.join(run_dir, "mesh_log", "gat"),
+                                MESH_EPOCHS, use_gat=True)
+    return [("DeepSets", "deep_sets", "s2ppc", ds), ("in-row GAT", "graph_net", "s2pg", gat)]
+
+
+def mesh_fit(models, rank: int, n: int, n_model: int, device=None, states=None) -> dict:
+    """Each model through ``factory.get_model`` and ``fit`` for MESH_EPOCHS
+    epochs, then ``predict`` over its test split: without a mesh where
+    ``n == 1``, else on a mesh over the process group (data-parallel, or
+    ``n_model`` wide).  Returns per model rank 0's Loss/train curve, the
+    probabilities and this rank's kernel launches in ``fit``; with
+    ``states`` (n = 1's final ``state_dict``s by model), also the
+    probabilities of ``predict`` on those weights."""
+    out = {}
+    for label, model_name, dataset, cfg in models:
+        cfg = copy.deepcopy(cfg)
+        cfg["logging"]["log_dir"] = os.path.join(cfg["logging"]["log_dir"], f"n{n}_model{n_model}")
+        if n > 1:
+            cfg["trainer"].update(data_parallel=n_model == 1, n_model=n_model)
+        data = factory.get_dataloader(dataset, cfg)
+        wrapper = factory.get_model(model_name, cfg, device=device)
+        reset_launch_counts()
+        wrapper.fit(data.get_train_loader(), data.get_val_loader())
+        counts = {k: v for k, v in launch_counts().items() if v}
+        _, probs = wrapper.predict(data.get_test_loader(), return_prob=True)
+        curve = read_metrics(cfg["logging"]["log_dir"])["Loss/train"] if rank == 0 else None
+        out[label] = {"curve": curve, "probs": probs, "launches": counts,
+                      "state": {k: v.cpu() for k, v in wrapper.model.state_dict().items()} if n == 1 else None}
+        if states is not None:
+            wrapper.model.load_state_dict(states[label])
+            wrapper._reshard()
+            out[label]["same_weights"] = wrapper.predict(data.get_test_loader(), return_prob=True)[1]
+    return out
+
+
+def mesh_rank_job(rank: int, n: int, models, n_model: int, states) -> dict:
+    """One gloo rank of (b) or (d), on the card this process shares."""
+    torch.cuda.set_device(0)
+    return mesh_fit(models, rank, n, n_model, device="cuda:0", states=states)
+
+
+def _steps_ms(wrapper, batches) -> float:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for b in batches:
+        wrapper.train_step(b)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / len(batches)
+
+
+def mesh_world1_phase(smi: str, models, mesh) -> dict:
+    """(a) MESH_STEPS train steps of each model on a world-1 NCCL mesh
+    against the same steps without one, from the same weights: per-step
+    losses, the kernels' launches, then ms a step of each, in turns.
+    Returns the mesh runs' launches."""
+    totals = dict.fromkeys(launch_counts(), 0)
+    for label, model_name, dataset, cfg in models:
+        loader = factory.get_dataloader(dataset, cfg).get_train_loader()
+        batches = list(itertools.islice(iter(loader), MESH_STEPS))
+        wrappers = []
+        for m in (None, mesh):
+            model = factory.get_model(model_name, cfg).model  # drawn from trainer.seed: the same weights
+            wrappers.append(ModelWrapper(model, cfg["trainer"]["learning_rate"], 1,
+                                         optimizer=cfg["trainer"].get("optimizer", "adam"), mesh=m))
+        dev = [put_batch(b, wrappers[0].model, wrappers[0].device) for b in batches]
+        plain, plain_counts = _counted(lambda: torch.stack([wrappers[0].train_step(b) for b in dev]))
+        meshed, mesh_counts = _counted(lambda: torch.stack([wrappers[1].train_step(b) for b in dev]))
+        err = float((plain - meshed).abs().max())
+        print(f"mesh (a) {label}: world-1 NCCL mesh {mesh}, {MESH_STEPS} steps at B={cfg['dataset']['batch_size']}: "
+              f"losses {meshed.tolist()}, max |Δ| against no mesh {err:.3g} (tolerance {MESH_LOSS_TOL}); launches "
+              f"{({k: v for k, v in mesh_counts.items() if v})}, without a mesh "
+              f"{({k: v for k, v in plain_counts.items() if v})}")
+        if not err <= MESH_LOSS_TOL:
+            raise AssertionError(f"mesh (a) {label}: losses {err} apart")
+        if mesh_counts != plain_counts or not any(mesh_counts.values()):
+            raise AssertionError(f"mesh (a) {label}: launches {mesh_counts} against {plain_counts}")
+        for k, v in mesh_counts.items():
+            totals[k] += v
+        times = {"meshless": [], "mesh": []}
+        for _ in range(MESH_TURNS):
+            for name, w in (("meshless", wrappers[0]), ("mesh", wrappers[1]), ("mesh", wrappers[1]),
+                            ("meshless", wrappers[0])):
+                times[name].append(_steps_ms(w, dev))
+        print(f"mesh (a) {label}: ms a train step, CUDA events over {MESH_STEPS} steps, in turns: without a mesh "
+              f"{_spread(times['meshless'])}, world-1 NCCL mesh {_spread(times['mesh'])} [{smi}]")
+    return totals
+
+
+def mesh_fused_phase(smi: str, models, mesh) -> dict:
+    """(c) a window of FUSE_K same-shape flagship batches as one CUDA graph on
+    the world-1 NCCL mesh, its all-reduces captured inside, against the same
+    steps run eagerly on the mesh with the optimizer the window captures.
+    Returns the fused passes' launches."""
+    label, model_name, dataset, cfg = models[0]
+    batches = list(factory.get_dataloader(dataset, cfg).get_train_loader())
+    window, distinct = _one_shape(batches)
+    opt = cfg["trainer"]["optimizer"]
+    fused = ModelWrapper(factory.get_model(model_name, cfg).model, 1e-3, 1, optimizer=opt, fuse_steps=FUSE_K,
+                         mesh=mesh)
+    eager = ModelWrapper(factory.get_model(model_name, cfg).model, 1e-3, 1, optimizer=opt, mesh=mesh)
+    eager.optimizer = _make_optimizer(opt, eager._trained_params(), 1e-3, capturable=True)
+    dev = [put_batch(b, fused.model, fused.device) for b in window]
+    totals = dict.fromkeys(launch_counts(), 0)
+    worst = 0.0
+    for p in range(FUSE_PASSES):
+        got, counts = _counted(lambda: fused.train_window(dev))
+        want = torch.stack([eager.train_step(b) for b in dev])
+        worst = max(worst, float(((got - want).abs() / want.abs()).max()))
+        for k, v in counts.items():
+            totals[k] += v
+    print(f"mesh (c) {label}: a fused window of {FUSE_K} batches ({distinct} distinct) on the world-1 NCCL mesh, "
+          f"{FUSE_PASSES} passes: captures {fused.windows.captures}, replays {fused.windows.replays}, capture "
+          f"{fused.windows.capture_seconds:.2f} s; max relative |Δ loss| against the eager steps {worst:.3g} "
+          f"(tolerance {FUSE_LOSS_RTOL}); launches {({k: v for k, v in totals.items() if v})} [{smi}]")
+    if fused.windows.captures != 1 or fused.windows.replays < 1:
+        raise AssertionError("mesh (c): the window was not captured once and replayed")
+    if not worst <= FUSE_LOSS_RTOL:
+        raise AssertionError(f"mesh (c): fused losses {worst} from the eager steps")
+    return totals
+
+
+def mesh_cli_phase(smi: str, run_dir: str) -> None:
+    """(e) ``torchrun --nproc-per-node 1 -m point_cloud_classifier_tpu_torch
+    train deep_sets`` with PCC_DATA_PARALLEL=1 against the same command
+    without a mesh in this process, over phase 20's cache."""
+    data = os.path.join(run_dir, "cli_data")
+    argv = ["train", "deep_sets", "--data-dir", data, "--epochs", "1"]
+    runs = {"mesh": os.path.join(run_dir, "mesh_cli", "torchrun"), "meshless": os.path.join(run_dir, "mesh_cli", "plain")}
+    launcher = [shutil.which("torchrun")] if shutil.which("torchrun") else [sys.executable, "-m", "torch.distributed.run"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([*launcher, "--standalone", "--nproc-per-node", "1", "-m", "point_cloud_classifier_tpu_torch",
+                           *argv, "--log-dir", runs["mesh"]], env={**os.environ, "PCC_DATA_PARALLEL": "1"},
+                          capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"mesh (e): torchrun exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    cli.main([*argv, "--log-dir", runs["meshless"]])
+    dirs = {k: os.path.join(v, "version_0") for k, v in runs.items()}
+    texts = {}
+    for k, d in dirs.items():
+        with open(os.path.join(d, "config.yaml")) as f:
+            texts[k] = f.read().replace(runs[k], "<log>")
+    metas = {}
+    for k, d in dirs.items():
+        with open(os.path.join(d, "meta.json")) as f:
+            metas[k] = json.load(f)
+    metrics = {k: read_metrics(d) for k, d in dirs.items()}
+    err = max(abs(a - b) for tag in ("Loss/train", "Loss/val", "Accuracy/val")
+              for a, b in zip(metrics["mesh"][tag], metrics["meshless"][tag]))
+    acc_err = max(abs(metas["mesh"]["metrics"][k] - metas["meshless"]["metrics"][k])
+                  for k in ("accuracy/train", "accuracy/val"))
+    print(f"mesh (e) torchrun --nproc-per-node 1 -m point_cloud_classifier_tpu_torch {' '.join(argv)} with "
+          f"PCC_DATA_PARALLEL=1: {seconds:.1f} s; files {sorted(os.listdir(dirs['mesh']))}; meta {metas['mesh']}; "
+          f"max |Δ| of Loss/train, Loss/val, Accuracy/val against the meshless command {err:.3g}, of meta's "
+          f"accuracies {acc_err:.3g} (tolerance {MESH_CLI_TOL}) [{smi}]")
+    if os.listdir(runs["mesh"]) != ["version_0"] or sorted(os.listdir(dirs["mesh"])) != sorted(os.listdir(dirs["meshless"])):
+        raise AssertionError("mesh (e): the run's files differ from the meshless run's")
+    if texts["mesh"] != texts["meshless"]:
+        raise AssertionError("mesh (e): config.yaml differs from the meshless run's")
+    if list(metas["mesh"]) != list(metas["meshless"]) or list(metas["mesh"]["metrics"]) != list(metas["meshless"]["metrics"]):
+        raise AssertionError("mesh (e): meta.json's keys differ from the meshless run's")
+    if not (err <= MESH_CLI_TOL and acc_err <= MESH_CLI_TOL):
+        raise AssertionError(f"mesh (e): metrics {err}, accuracies {acc_err} from the meshless run's")
+
+
+def _mesh_check(label: str, ref: dict, got: list) -> None:
+    """(b), (d): rank 0's curve within MESH_CURVE_TOL of n = 1's; every
+    rank's ``predict`` on n = 1's weights within MESH_PROBS of n = 1's; the
+    trained probabilities against n = 1's, printed against MESH_PROBS and
+    failed past MESH_TRAINED_GUARD."""
+    for name in ref:
+        curve = np.asarray(got[0][name]["curve"])
+        np.testing.assert_allclose(curve, ref[name]["curve"], rtol=MESH_CURVE_TOL, atol=MESH_CURVE_TOL,
+                                   err_msg=f"mesh {label} {name}: Loss/train")
+        for rank, out in enumerate(got):
+            np.testing.assert_allclose(out[name]["same_weights"], ref[name]["probs"], **MESH_PROBS,
+                                       err_msg=f"mesh {label} {name}: predict on n = 1's weights, rank {rank}")
+        same = max(float(np.abs(o[name]["same_weights"] - ref[name]["probs"]).max()) for o in got)
+        err = max(float(np.abs(o[name]["probs"] - ref[name]["probs"]).max()) for o in got)
+        within = all(np.allclose(o[name]["probs"], ref[name]["probs"], **MESH_PROBS) for o in got)
+        print(f"mesh {label} {name}: Loss/train {curve.tolist()} (n = 1: {list(ref[name]['curve'])}); max |Δ| "
+              f"probabilities on n = 1's weights {same:.3g}; trained {err:.3g} (within rtol 5e-4 / atol 5e-5: "
+              f"{'met' if within else 'NOT MET'}); launches by rank {[o[name]['launches'] for o in got]}")
+        if not err <= MESH_TRAINED_GUARD:
+            raise AssertionError(f"mesh {label} {name}: trained probabilities {err} from n = 1")
+
+
+def mesh_phase(smi: str, run_dir: str) -> dict:
+    """Phase 27: meshes.  Returns the kernels' launches in the phase (every
+    rank's)."""
+    import torch.distributed as dist
+    from concurrent.futures import ThreadPoolExecutor
+
+    from point_cloud_classifier_tpu_torch.parallel import make_mesh
+    from point_cloud_classifier_tpu_torch.parallel.ranks import run_ranks
+
+    t0 = time.perf_counter()
+    models = mesh_models(run_dir)
+    mesh = make_mesh(device="cuda")
+    try:
+        launches = mesh_world1_phase(smi, models, mesh)
+        for k, v in mesh_fused_phase(smi, models, mesh).items():
+            launches[k] += v
+    finally:
+        dist.destroy_process_group()
+    print(f"mesh: NCCL at n > 1 is not run: it needs two or more cards, and this machine has "
+          f"{torch.cuda.device_count()}")
+    ref = mesh_fit(models, 0, 1, 1)
+    for name in ref:
+        for k, v in ref[name]["launches"].items():
+            launches[k] += v
+    states = {name: ref[name]["state"] for name in ref}
+    with ThreadPoolExecutor(3) as pool:
+        # (b) gloo worlds of 2 and 4 ranks and (d) the model axis over 2,
+        # every rank on this card, while this process runs (e)
+        worlds = {f"(b) n={n}": pool.submit(run_ranks, mesh_rank_job, n, models, 1, states, timeout=600)
+                  for n in (2, 4)}
+        worlds["(d) n_model=2"] = pool.submit(run_ranks, mesh_rank_job, 2, models, 2, states, timeout=600)
+        mesh_cli_phase(smi, run_dir)
+        for label, f in worlds.items():
+            got = f.result()
+            _mesh_check(label, ref, got)
+            for out in got:
+                for name in out:
+                    for k, v in out[name]["launches"].items():
+                        launches[k] += v
+    seconds = time.perf_counter() - t0
+    print(f"mesh: phase 27 in {seconds:.1f} s (budget {MESH_PHASE_SECONDS} s) [{smi}]")
+    if seconds > MESH_PHASE_SECONDS:
+        raise AssertionError(f"mesh: phase 27 took {seconds:.1f} s")
+    return launches
+
+
 def main() -> None:
     t0 = time.perf_counter()
     marks = [t0]
@@ -4350,6 +4615,16 @@ def main() -> None:
         for name in launches:
             beside[name]["raw_showers_launches"] = raw_launches.get(name, 0)
             launches[name] += raw_launches.get(name, 0)
+        mesh_launches = mesh_phase(smi, run_dir)
+        lap("meshes")
+        print(f"launches: meshes (every rank's) {mesh_launches}")
+        beside["gat_attention_bwd"]["mesh_mirror_launches"] = mesh_launches.pop("gat_out_rows")
+        beside["knn_aggregate"]["mesh_select_launches"] = mesh_launches.pop("knn_select")
+        mesh_launches["inrow_aggregate"] += mesh_launches.pop("inrow_aggregate backward")
+        mesh_launches["knn_aggregate"] += mesh_launches.pop("knn_aggregate backward")
+        for name in launches:
+            beside[name]["mesh_launches"] = mesh_launches.get(name, 0)
+            launches[name] += mesh_launches.get(name, 0)
     profile_phase(smi)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{

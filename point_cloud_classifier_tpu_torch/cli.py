@@ -12,12 +12,24 @@ runs them on the CPU; the command line always means the card):
 ``infer-raw``, ``serve`` and ``export``.  ``train --plots`` raises (ROADMAP
 Queue 1 item 16).  Dataset creation runs before anything touches the card,
 so its forked workers start from a process without CUDA.
+
+Data-parallel training runs one process a card under ``torchrun``, with the
+mesh asked for by ``PCC_DATA_PARALLEL=1`` / ``PCC_N_MODEL`` or the config's
+``trainer.data_parallel`` / ``trainer.n_model``::
+
+    PCC_DATA_PARALLEL=1 torchrun --nproc-per-node 4 -m point_cloud_classifier_tpu_torch train deep_sets
+
+Rank 0 builds the cache of ``--create-dataset`` while the others wait, and
+writes the run directory; a plain ``python -m`` asking for a mesh trains on
+a world of one rank, and raises where more cards are visible.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+
+import torch.distributed as dist
 
 from point_cloud_classifier_tpu_torch.factory import MODEL_DATASETS, get_dataloader
 from point_cloud_classifier_tpu_torch.train import (
@@ -137,8 +149,17 @@ def _model_config(config_dir: str, model: str) -> dict:
 
 def main(argv=None, device: str = None) -> None:
     """Parse ``argv`` (default ``sys.argv[1:]``) and run the command, on the
-    card unless ``device`` names another (``"cpu"``)."""
-    parser = build_parser()
+    card unless ``device`` names another (``"cpu"``); a process group the
+    command started (a mesh's) is closed at the end."""
+    started = dist.is_initialized()
+    try:
+        _run(build_parser(), argv, device)
+    finally:
+        if not started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(parser: argparse.ArgumentParser, argv, device) -> None:
     args = parser.parse_args(argv)
 
     if args.command == "evaluate":
@@ -209,7 +230,9 @@ def main(argv=None, device: str = None) -> None:
         config.setdefault("trainer", {})["epochs"] = args.epochs
     if args.seed is not None:
         config.setdefault("trainer", {})["seed"] = args.seed
-    if args.create_dataset:
+    if args.create_dataset and os.environ.get("RANK", "0") == "0":
+        # under torchrun rank 0 builds the cache; the others wait for it in
+        # train_model, where rank 0 hands them the run's version
         config["dataset"]["create_dataset"] = True
         get_dataloader(dataset, config)
         config["dataset"]["create_dataset"] = False

@@ -36,6 +36,16 @@ Batches are byte-identical to the JAX loaders': keys, dtypes and values.
   ``n_pad`` and ``e_pad`` are power-of-two buckets of ``total_nodes + 1`` and
   ``total_edges``.
 
+Under a data-parallel mesh each loader packs one rank's share of every
+global batch (``iter_shard(rank, n)``; ``__iter__`` is ``iter_shard(0,
+1)``): the global order is the meshless one, rank r takes the contiguous
+slots :func:`share_slices` gives it, ``ceil(B / n)`` of them, and
+every choice that fixes a shape is made from the global index list, so that
+all ranks pack the same shapes without talking: the wire (flat or dense, in-
+row lists or edge-slot triples, out-rows or none), the dense row and list
+widths (the whole batch's largest graph or event), and the flat buffers'
+buckets (the largest share's).
+
 Each wire is packed by the C++ packers of ``csrc/host/batch_packer.cpp``
 (built with ``g++`` into ``native/build/`` at first use, ``native/host.py``)
 wherever the JAX loaders call their own; the edge-slot triples stay numpy, as
@@ -59,6 +69,14 @@ from point_cloud_classifier_tpu_torch.native.host import (
 )
 
 Batch = Dict[str, np.ndarray]
+
+
+def share_slices(n_slots: int, n: int):
+    """The data ranks' slot ranges of a global batch of ``n_slots`` example
+    slots: contiguous, ``ceil(n_slots / n)`` each (the last ones may run
+    past the batch and hold padding only)."""
+    per = -(-n_slots // n)
+    return per, [slice(r * per, (r + 1) * per) for r in range(n)]
 
 
 def _dense_rung(n: int) -> int:
@@ -108,17 +126,22 @@ class TabularLoader:
         return -(-self.n_examples // self.batch_size)
 
     def __iter__(self) -> Iterator[Batch]:
+        return self.iter_shard(0, 1)
+
+    def iter_shard(self, rank: int, n_ranks: int) -> Iterator[Batch]:
+        """Data rank ``rank``'s share of every batch (module docstring)."""
         n, b = self.n_examples, self.batch_size
         order = np.arange(n)
         if self.shuffle:
             order = np.random.default_rng(self.seed + self._epoch).permutation(n)
             self._epoch += 1
+        per, slices = share_slices(b, n_ranks)
         for start in range(0, n, b):
-            idx = order[start : start + b]
+            idx = order[start : start + b][slices[rank]]
             k = len(idx)
-            x = np.zeros((b, self.X.shape[1]), dtype=np.float32)
-            yb = np.zeros((b, 1), dtype=np.float32)
-            mask = np.zeros((b,), dtype=np.float32)
+            x = np.zeros((per, self.X.shape[1]), dtype=np.float32)
+            yb = np.zeros((per, 1), dtype=np.float32)
+            mask = np.zeros((per,), dtype=np.float32)
             x[:k] = self.X[idx]
             yb[:k, 0] = self.y[idx]
             mask[:k] = 1.0
@@ -263,6 +286,11 @@ class PointCloudLoader:
         return batch
 
     def __iter__(self) -> Iterator[Batch]:
+        return self.iter_shard(0, 1)
+
+    def iter_shard(self, rank: int, n_ranks: int) -> Iterator[Batch]:
+        """Data rank ``rank``'s share of every batch (module docstring): the
+        wire and ``M`` from the whole batch, ``P_pad`` the largest share's."""
         n, b = self.n_examples, self.batch_size
         order = np.arange(n)
         rng = None
@@ -276,23 +304,28 @@ class PointCloudLoader:
             order = order[np.argsort(self.counts[order], kind="stable")]
             if rng is not None:
                 rng.shuffle(starts)
+        per, slices = share_slices(b, n_ranks)
         fac64 = np.asarray(self.factor_event_cols, dtype=np.int64)
         keep64 = np.asarray(
             [c for c in range(self.flat.shape[1]) if c not in self.factor_event_cols],
             dtype=np.int64,
         )
+        bucket = lambda i: pow2_bucket(int(self.counts[i].sum()), self.min_bucket, self.bucket_factor)  # noqa: E731
         for start in starts:
             idx = order[start : start + b]
-            p_pad = pow2_bucket(int(self.counts[idx].sum()), self.min_bucket, self.bucket_factor)
+            shares = [idx[sl] for sl in slices]
+            p_pad = bucket(idx)
             if self.layout != "flat":
                 m_rung = _dense_rung(int(self.counts[idx].max()) if len(idx) else 1)
                 # auto: dense when the batch is large enough for the row pool
                 # to pay and its rows hold no more than ~10% more points than
                 # the flat bucket (the JAX loader's measured gate)
                 if self.layout == "dense" or (b >= 128 and b * m_rung <= p_pad + p_pad // 10):
-                    yield self._dense_batch(idx, b, m_rung, keep64, fac64)
+                    yield self._dense_batch(shares[rank], per, m_rung, keep64, fac64)
                     continue
-            yield self._flat_batch(idx, b, p_pad, keep64, fac64)
+            if n_ranks > 1:
+                p_pad = max(bucket(share) for share in shares)
+            yield self._flat_batch(shares[rank], per, p_pad, keep64, fac64)
 
 
 class GraphLoader:
@@ -537,19 +570,22 @@ class GraphLoader:
             batch["nodes"][slot, : nhi - nlo] = self.feats[nlo:nhi]
             batch["node_mask"][slot, : nhi - nlo] = 1.0
 
-    def _dense_wire_batch(self, idx, k: int, b: int, m_pad: int) -> Batch:
+    def _dense_wire_batch(self, idx, k: int, b: int, m_pad: int, shares=None) -> Batch:
         """The dense wire of the graphs ``idx`` in ``b`` slots of ``m_pad``
         rows with the adjacency made on the device: the in-row lists
         ``in_src``/``in_w`` (and with ``emit_out_rows`` the out-row mirror),
         or, where they would need more than ``max_in_degree_wire`` slots, the
-        edge-slot triples."""
+        edge-slot triples.  ``shares``, every data rank's graphs with ``idx``
+        among them, fix the list widths and the triples' bucket."""
+        whole = idx if shares is None else np.concatenate(shares)
         idx_t = np.int16 if (self.half and m_pad <= 32768) else np.int32
-        d_pad = self._max_slots(idx, self.graph_max_indeg)
+        d_pad = self._max_slots(whole, self.graph_max_indeg)
         batch = self._dense_nodes(idx, k, b, m_pad)
         wire_w = self.weights_wire if self.use_weights else self.mult_wire
         if d_pad > self.max_in_degree_wire:
             self._fill_nodes(idx, batch)  # numpy here, as in the JAX loader
-            return {**batch, **self._edge_slots(idx, b, idx_t, wire_w)}
+            e_pad = max(self._edge_slot_bucket(s) for s in (shares or [idx]))
+            return {**batch, **self._edge_slots(idx, b, idx_t, wire_w, e_pad)}
         batch["in_src"], batch["in_w"] = self._pack_rows(
             idx, b, m_pad, d_pad, self.edges_dst,
             [(self.edges_src, idx_t), (wire_w, wire_w.dtype)], fill=batch,
@@ -558,7 +594,7 @@ class GraphLoader:
             # the OUT-row mirror (the transposed adjacency), read by the fused
             # aggregation's backward; a batch whose out-degree needs more
             # slots than the wire allows ships none, as in the JAX loader
-            do_pad = self._max_slots(idx, self.graph_max_outdeg)
+            do_pad = self._max_slots(whole, self.graph_max_outdeg)
             if do_pad <= self.max_in_degree_wire:
                 # one pass over the (graph, source) runs for all three, so slot
                 # q of a node names the same edge in each; out_pos is the
@@ -570,14 +606,15 @@ class GraphLoader:
                 )
         return batch
 
-    def _edge_slots(self, idx, b: int, idx_t, wire_w) -> Batch:
-        """The edge-slot triples of the graphs ``idx``: each merged edge's
-        slot, local destination and source and its wire weight, in the
-        stored (graph, destination, source) order, strictly ascending, then
-        padding at the out-of-range slot ``b``."""
+    def _edge_slot_bucket(self, idx) -> int:
+        return pow2_bucket(max(int(self.edge_counts[idx].sum()), 1), self.min_edge_bucket_dense)
+
+    def _edge_slots(self, idx, b: int, idx_t, wire_w, e_pad: int) -> Batch:
+        """The edge-slot triples of the graphs ``idx`` in ``e_pad`` entries:
+        each merged edge's slot, local destination and source and its wire
+        weight, in the stored (graph, destination, source) order, strictly
+        ascending, then padding at the out-of-range slot ``b``."""
         spans = [(self.edge_offsets[g_i], self.edge_offsets[g_i + 1]) for g_i in idx]
-        total = sum(int(hi - lo) for lo, hi in spans)
-        e_pad = pow2_bucket(max(total, 1), self.min_edge_bucket_dense)
         slot_t = np.int16 if (self.half and b < 32767) else np.int32
         out = {
             "edge_src": np.zeros((e_pad,), dtype=idx_t),
@@ -615,12 +652,18 @@ class GraphLoader:
                           per_edge[lo:hi].astype(small_t))
         return {**batch, "adj": adj}
 
-    def _flat_batch(self, idx, k: int, b: int) -> Batch:
-        """The flat edge-list wire for the graphs ``idx`` in ``b`` slots."""
-        total_nodes = int(self.node_counts[idx].sum())
-        total_edges = int(self.edge_counts[idx].sum())
-        n_pad = pow2_bucket(total_nodes + 1, self.min_node_bucket)
-        e_pad = pow2_bucket(max(total_edges, 1), self.min_edge_bucket)
+    def _flat_buckets(self, idx):
+        """``(n_pad, e_pad)`` of the graphs ``idx`` on the flat wire."""
+        return (pow2_bucket(int(self.node_counts[idx].sum()) + 1, self.min_node_bucket),
+                pow2_bucket(max(int(self.edge_counts[idx].sum()), 1), self.min_edge_bucket))
+
+    def _flat_batch(self, idx, k: int, b: int, shares=None) -> Batch:
+        """The flat edge-list wire for the graphs ``idx`` in ``b`` slots;
+        ``shares``, every data rank's graphs, make the buckets the largest
+        share's."""
+        buckets = [self._flat_buckets(s) for s in (shares or [idx])]
+        n_pad = max(nb for nb, _ in buckets)
+        e_pad = max(eb for _, eb in buckets)
         seg_dtype = np.int16 if (self.half and b < 32767) else np.int32
         idx_dtype = np.int16 if (self.half and n_pad <= 32768) else np.int32
         small_dtype = np.float16 if self.half else np.float32
@@ -734,6 +777,8 @@ class GraphLoader:
             return packed
         if fill is not None:
             self._fill_nodes(idx, fill)
+        if not len(idx):
+            return packed  # a data rank's empty share
         spans = [(self.edge_offsets[g_i], self.edge_offsets[g_i + 1]) for g_i in idx]
         key_l = np.concatenate(
             [keys[lo:hi].astype(np.int64) + slot * m_pad for slot, (lo, hi) in enumerate(spans)]
@@ -749,6 +794,12 @@ class GraphLoader:
         return packed
 
     def __iter__(self) -> Iterator[Batch]:
+        return self.iter_shard(0, 1)
+
+    def iter_shard(self, rank: int, n_ranks: int) -> Iterator[Batch]:
+        """Data rank ``rank``'s share of every batch (module docstring): the
+        wire, ``M`` and the list widths from the whole batch, the buckets
+        the largest share's."""
         n, b = self.n_examples, self.batch_size
         order = np.arange(n)
         rng = None
@@ -763,16 +814,21 @@ class GraphLoader:
             if rng is not None:
                 rng.shuffle(starts)
         itemsize = 2 if self.half else 4
+        per, slices = share_slices(b, n_ranks)
         for start in starts:
             idx = order[start : start + b]
+            shares = [idx[sl] for sl in slices] if n_ranks > 1 else None
+            mine = idx if shares is None else shares[rank]
             if self.layout != "flat":
                 m_pad = max(self.min_dense_nodes, _dense_rung(int(self.node_counts[idx].max())))
                 m_pad = -(-m_pad // 8) * 8
                 dense_bytes = b * m_pad * m_pad * itemsize
                 inrow_ok = not self.require_inrow or self._inrow_fits(idx)
                 if dense_bytes <= self.max_dense_bytes and inrow_ok:
-                    dense = self._dense_wire_batch if self.adj_wire == "device" else self._host_dense_batch
-                    yield dense(idx, len(idx), b, m_pad)
+                    if self.adj_wire == "device":
+                        yield self._dense_wire_batch(mine, len(mine), per, m_pad, shares)
+                    else:
+                        yield self._host_dense_batch(mine, len(mine), per, m_pad)
                     continue
                 if self.layout == "dense" and inrow_ok:
                     raise ValueError(
@@ -781,7 +837,7 @@ class GraphLoader:
                         f"{self.max_dense_bytes/2**20:.0f} MB; use "
                         "layout='auto' to fall back to the flat layout"
                     )
-            yield self._flat_batch(idx, len(idx), b)
+            yield self._flat_batch(mine, len(mine), per, shares)
 
     def _inrow_fits(self, idx) -> bool:
         """``require_inrow``: whether the graphs ``idx`` fit the in-row wire

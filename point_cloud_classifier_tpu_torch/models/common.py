@@ -92,7 +92,16 @@ class MaskedBatchNorm(nn.Module):
     statistics.  Everything is computed in f32 and the output returns to the
     input's dtype.  ``num_batches_tracked`` is kept, at 0, only so that
     torch's BatchNorm1d state_dicts load strictly: the fixed momentum never
-    reads it (as in the JAX package, where it has no counterpart)."""
+    reads it (as in the JAX package, where it has no counterpart).
+
+    Under a data-parallel mesh (``axis``, set by the trainer) the statistics
+    are the global batch's: the count and the weighted sum, then the
+    weighted squared deviations from the global mean, are summed over the
+    data ranks (``parallel/mesh.all_reduce_sum``, whose backward sums the
+    gradients as SyncBatchNorm's does), so every rank normalizes with, and
+    moves its running statistics by, the same global moments."""
+
+    axis = None  # a parallel.mesh.Mesh under data parallelism
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -103,6 +112,26 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def _moments(self, x, mask):
+        """``(n, mean, var)`` of the rows, over the data ranks under a mesh."""
+        if self.axis is None:
+            if mask is None:
+                n = torch.tensor(float(x.shape[0]), device=x.device)
+                mean = x.mean(dim=0)
+                return n, mean, ((x - mean) ** 2).mean(dim=0)
+            w = mask.reshape(-1, 1).float()
+            n = torch.clamp(w.sum(), min=1.0)
+            mean = (w * x).sum(dim=0) / n
+            return n, mean, (w * (x - mean) ** 2).sum(dim=0) / n
+        from point_cloud_classifier_tpu_torch.parallel.mesh import all_reduce_sum
+
+        group = self.axis.data_group
+        w = torch.ones_like(x[:, :1]) if mask is None else mask.reshape(-1, 1).float()
+        sums = all_reduce_sum(torch.cat([(w * x).sum(dim=0), w.sum().reshape(1)]), group)
+        n = torch.clamp(sums[-1], min=1.0)
+        mean = sums[:-1] / n
+        return n, mean, all_reduce_sum((w * (x - mean) ** 2).sum(dim=0), group) / n
 
     def forward(
         self,
@@ -117,15 +146,7 @@ class MaskedBatchNorm(nn.Module):
         in_dtype = x.dtype
         x = x.float()
         if train:
-            if mask is None:
-                n = torch.tensor(float(x.shape[0]), device=x.device)
-                mean = x.mean(dim=0)
-                var = ((x - mean) ** 2).mean(dim=0)
-            else:
-                w = mask.reshape(-1, 1).float()
-                n = torch.clamp(w.sum(), min=1.0)
-                mean = (w * x).sum(dim=0) / n
-                var = (w * (x - mean) ** 2).sum(dim=0) / n
+            n, mean, var = self._moments(x, mask)
             if update_stats:
                 with torch.no_grad():
                     unbiased = var * n / torch.clamp(n - 1.0, min=1.0)

@@ -20,6 +20,12 @@ all of them in one memory pool:
 - the second captures the K steps; every later one copies its inputs and
   replays.  The outputs land in static tensors and are cloned out.
 
+Under an NCCL mesh the window's collectives (the gradient and BatchNorm
+all-reduces, the model axis's gathers) are captured with its steps; the
+capture is then thread-local, so that NCCL's watchdog thread may query its
+events meanwhile.  Over gloo, whose collectives copy through the host, the
+trainer makes no graphs.
+
 Nothing falls back: a route that reads the device from the host raises
 ``NotImplementedError`` at its first window, naming the route and the
 operation, and a capture that fails raises the same way.
@@ -110,13 +116,14 @@ class _Window:
 class WindowGraphs:
     """The CUDA graphs of one trainer's fused windows, in one memory pool.
 
-    ``route`` names the model route in errors.  ``captures``,
-    ``capture_seconds`` and ``replays`` say what the graphs cost and how
-    often they ran."""
+    ``route`` names the model route in errors; ``collectives`` says that
+    the steps hold NCCL collectives.  ``captures``, ``capture_seconds`` and
+    ``replays`` say what the graphs cost and how often they ran."""
 
-    def __init__(self, device: torch.device, route: str):
+    def __init__(self, device: torch.device, route: str, collectives: bool = False):
         self.device = device
         self.route = route
+        self.capture_error_mode = "thread_local" if collectives else "global"
         self._pool = None
         self._windows: Dict[tuple, _Window] = {}
         self.captures = 0
@@ -186,7 +193,7 @@ class WindowGraphs:
         views = win.views()
         k = len(views)
         try:
-            with torch.cuda.graph(graph, pool=self._pool):
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode=self.capture_error_mode):
                 outputs = tuple(body(views))
         except RuntimeError as e:
             raise self._refuse("its capture failed", kind, k, e) from e

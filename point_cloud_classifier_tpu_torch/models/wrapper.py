@@ -3,8 +3,9 @@
 Counterpart of ``point_cloud_classifier_tpu/models/wrapper.py``:
 
 - loss: sigmoid binary cross-entropy on logits, masked by ``y_mask`` and
-  divided by the number of real rows (:func:`masked_bce`); the epoch train
-  loss and the val loss are means of batch means;
+  divided by the number of real rows (:func:`masked_bce`; under a mesh, the
+  real rows of the global batch); the epoch train loss and the val loss are
+  means of batch means;
 - optimizer adam or adamw at torch defaults (betas 0.9/0.999, eps 1e-8;
   adamw's decoupled weight decay 0.01 on every parameter — optax's
   ``adamw`` is the same update);
@@ -59,8 +60,21 @@ histogram of each parameter (``{key}_weight``, the ``state_dict`` key), of
 its gradient at the epoch's last batch (``{key}_grad``) and of that batch's
 ``logits``; it forces windows of one step.
 
-Not ported: meshes (``mesh``, ``data_parallel``, ``n_model > 1`` and their
-environment variables, ROADMAP Queue 1 item 13): each raises.
+Meshes, as in the JAX trainer: ``mesh`` (``parallel/mesh.make_mesh``), or
+``data_parallel`` / ``n_model > 1`` (``trainer.data_parallel``,
+``trainer.n_model``; ``PCC_DATA_PARALLEL`` and ``PCC_N_MODEL`` override
+them), which build a mesh over every rank (``torchrun``'s, or a world of one
+rank).  Each rank runs on its own card (``cuda:LOCAL_RANK``) or the device
+given; it starts from rank 0's weights, takes its share of every global
+batch (``parallel/mesh.RankShares``), divides its summed loss by the global
+count of real rows and sums the gradients over the data ranks, so that a
+run on n ranks takes the single-device run's steps.  Validation sums over
+the ranks and ``predict`` gathers every rank's rows in the global batch
+order; rank 0 alone writes files and prints.  A fused window is one CUDA
+graph over NCCL, its all-reduces inside; over gloo, which copies through
+the host, its steps run in sequence.  On the model axis the wide weights
+live in row blocks (``parallel/mesh.param_is_sharded``) and each forward
+gathers them (``functional_call``); the optimizer steps each rank's block.
 """
 
 from __future__ import annotations
@@ -72,14 +86,18 @@ from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from point_cloud_classifier_tpu_torch import convert
 from point_cloud_classifier_tpu_torch.data.background import BackgroundIterator
 from point_cloud_classifier_tpu_torch.data.prefetch import prefetch_to_device
 from point_cloud_classifier_tpu_torch.data.resident import ResidentCache, shape_key
+from point_cloud_classifier_tpu_torch.models.common import MaskedBatchNorm
 from point_cloud_classifier_tpu_torch.models.windows import WindowGraphs
+from point_cloud_classifier_tpu_torch.parallel import mesh as pmesh
 from point_cloud_classifier_tpu_torch.utils.profiling import StepTimer, maybe_trace
 
 STATE_FILE = "state.pt"
@@ -122,33 +140,6 @@ def fuse_steps_from_env(fuse_steps) -> int:
     return max(1, int(fuse_steps))
 
 
-def _refuse_unported(mesh, data_parallel, n_model) -> None:
-    """Raise for each option of the JAX trainer that this port lacks, set by
-    argument or by its environment variable (read as the JAX package reads
-    it), rather than ignore it."""
-    env = os.environ.get
-    if env("PCC_N_MODEL") is not None:
-        try:
-            n_model = int(env("PCC_N_MODEL"))
-        except ValueError as e:
-            raise ValueError(f"PCC_N_MODEL must be an integer, got {env('PCC_N_MODEL')!r}") from e
-    refused = {
-        "mesh, data_parallel and n_model > 1 (PCC_DATA_PARALLEL, PCC_N_MODEL; "
-        "ROADMAP Queue 1 item 13)": (
-            mesh is not None
-            or n_model > 1
-            or (
-                env("PCC_DATA_PARALLEL") == "1"
-                if env("PCC_DATA_PARALLEL") is not None
-                else bool(data_parallel)
-            )
-        ),
-    }
-    for what, requested in refused.items():
-        if requested:
-            raise NotImplementedError(f"not ported to PyTorch yet: {what}")
-
-
 def resolve_device(device=None) -> torch.device:
     """The device a wrapper runs on: the card unless the caller names
     another.  ``None`` means ``"cuda"`` and raises where there is no usable
@@ -178,18 +169,24 @@ def put_batch(batch, model: nn.Module, device: torch.device) -> Dict[str, torch.
 
 
 class _ScalarLog:
-    """``metrics.jsonl`` writer with optional TensorBoard mirroring."""
+    """``metrics.jsonl`` writer with optional TensorBoard mirroring.
+    ``write=False`` (a mesh rank other than 0) writes nothing, and
+    ``tb_on`` still says whether TensorBoard is on, as on the rank that
+    writes."""
 
-    def __init__(self, log_dir: Optional[str]):
-        if log_dir:
+    def __init__(self, log_dir: Optional[str], write: bool = True):
+        if log_dir and write:
             os.makedirs(log_dir, exist_ok=True)
-        self.path = os.path.join(log_dir, "metrics.jsonl") if log_dir else None
+        self.path = os.path.join(log_dir, "metrics.jsonl") if log_dir and write else None
         self._tb = None
+        self.tb_on = False
         if log_dir and os.environ.get("PCC_TENSORBOARD") == "1":
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
-                self._tb = SummaryWriter(log_dir)
+                self.tb_on = True
+                if write:
+                    self._tb = SummaryWriter(log_dir)
             except ImportError:
                 pass
 
@@ -234,15 +231,27 @@ class ModelWrapper:
         # seed is the config's trainer.seed: factory.get_model draws the
         # initial weights from it before the model reaches this wrapper, and
         # the resident cache shuffles from it
-        _refuse_unported(mesh, data_parallel, n_model)
+        data_parallel, n_model = pmesh.mesh_options(data_parallel, n_model)
         self.fuse_steps = fuse_steps_from_env(fuse_steps)
         env_resident = os.environ.get("PCC_RESIDENT")
         if env_resident is not None:
             device_resident = env_resident == "1"
         self.device_resident = bool(device_resident)
         self.seed = seed
-        self.device = resolve_device(device)
+        if mesh is not None or data_parallel or n_model > 1:
+            self.device = pmesh.rank_device(device)
+            if mesh is None:
+                mesh = pmesh.make_mesh(n_model=n_model, device=self.device)
+        else:
+            self.device = resolve_device(device)
+        self.mesh = mesh
         self.model = model.to(self.device).eval()
+        for mod in self.model.modules():
+            if isinstance(mod, MaskedBatchNorm):
+                mod.axis = mesh  # global moments under a mesh, the batch's without
+        self._shards = {}  # name → this rank's row block of a sharded weight
+        if mesh is not None:
+            self._attach_mesh()
         self.learning_rate = learning_rate
         self.epochs = epochs
         self.log_dir = log_dir
@@ -256,31 +265,113 @@ class ModelWrapper:
         # the fused windows' CUDA graphs (none on the CPU, where a window's
         # steps run one after another)
         self.windows = (
-            WindowGraphs(self.device, f"{model.name} {json.dumps(getattr(model, 'config', {}))}")
-            if self.device.type == "cuda" and self.fuse_steps > 1
+            WindowGraphs(self.device, f"{model.name} {json.dumps(getattr(model, 'config', {}))}",
+                         collectives=mesh is not None)
+            if self.device.type == "cuda" and self.fuse_steps > 1 and (mesh is None or mesh.capturable)
             else None
         )
         self.optimizer = self._new_optimizer()
         self._shapes_seen = set()
 
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes the run's files and prints: always
+        without a mesh, rank 0 under one."""
+        return self.mesh is None or self.mesh.writer
+
+    def _attach_mesh(self) -> None:
+        """Rank 0's weights and buffers on every rank, and this rank's row
+        blocks of the weights the model axis splits."""
+        for t in [*self.model.parameters(), *self.model.buffers()]:
+            dist.broadcast(t.data, src=0)
+        self._shards = {
+            name: nn.Parameter(pmesh.row_block(p.detach(), self.mesh).clone())
+            for name, p in self.model.named_parameters()
+            if pmesh.param_is_sharded(p, self.mesh.n_model)
+        }
+
+    def _trained_params(self) -> list:
+        """The tensors the optimizer steps, in the model's parameter order:
+        a sharded weight's row block in its place."""
+        return [self._shards.get(name, p) for name, p in self.model.named_parameters()]
+
+    def _forward(self, batch: Dict[str, torch.Tensor], train: bool) -> torch.Tensor:
+        """The model's logits; on the model axis over the full weights
+        gathered from the row blocks."""
+        if not self._shards:
+            return self.model(batch, train=train)
+        full = {name: pmesh.gather_rows(s, self.mesh) for name, s in self._shards.items()}
+        return functional_call(self.model, full, (batch,), {"train": train})
+
+    def _sync_full(self) -> None:
+        """The model's own copies of the sharded weights from the row blocks
+        (before they are saved or read); every rank of the mesh calls it."""
+        with torch.no_grad():
+            for name, s in self._shards.items():
+                self.model.get_parameter(name).copy_(pmesh.gather_rows(s, self.mesh))
+
+    def _loss(self, logits, batch) -> torch.Tensor:
+        """:func:`masked_bce`; under a mesh this rank's sum over its real
+        rows divided by the global batch's count of them (summed over the
+        data ranks, without a gradient), so that the ranks' losses add up to
+        the global batch's."""
+        if self.mesh is None:
+            return masked_bce(logits, batch["y"], batch["y_mask"])
+        per = F.binary_cross_entropy_with_logits(logits, batch["y"], reduction="none")
+        w = batch["y_mask"][:, None]
+        count = w.sum().detach().clone()
+        dist.all_reduce(count, group=self.mesh.data_group)
+        return (per * w).sum() / torch.clamp(count, min=1.0)
+
+    def _reduce_grads(self) -> None:
+        """Each gradient summed over the data ranks, in one all-reduce per
+        kind: row blocks over their data group; replicated tensors, alike on
+        the model ranks, over every rank and divided by the model-axis size
+        (which keeps the model ranks' copies equal)."""
+        m = self.mesh
+        if m is None:
+            return
+        sharded = list(self._shards.values())
+        replicated = [p for name, p in self.model.named_parameters() if name not in self._shards]
+        world = m.data_group if m.n_model == 1 else None
+        for params, group, scale in ((sharded, m.data_group, 1.0), (replicated, world, 1.0 / m.n_model)):
+            if not params:
+                continue
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=group)
+            if scale != 1.0:
+                flat.mul_(scale)
+            offset = 0
+            for p in params:
+                p.grad = flat[offset : offset + p.numel()].view_as(p)
+                offset += p.numel()
+
     def _new_optimizer(self) -> torch.optim.Optimizer:
         if self.windows is not None:
             self.windows.clear()  # the graphs hold the old optimizer's state
         return _make_optimizer(
-            self.optimizer_name, self.model.parameters(), self.learning_rate,
+            self.optimizer_name, self._trained_params(), self.learning_rate,
             capturable=self.windows is not None,
         )
 
     def _put(self, batch) -> Dict[str, torch.Tensor]:
         return put_batch(batch, self.model, self.device)
 
+    def _rank_stream(self, loader: Iterable) -> Iterable:
+        """The loader, or under a mesh this data rank's shares of it."""
+        if self.mesh is None or isinstance(loader, (ResidentCache, pmesh.RankShares)):
+            return loader
+        return pmesh.RankShares(loader, self.mesh)
+
     def _batches(self, loader: Iterable) -> Iterable:
         """The batch stream of a training or evaluation loop: a resident
-        cache as it is; else the loader, packed on a background thread with
-        ``PCC_BG_LOADER=1`` and copied ahead to the device with
-        ``PCC_PREFETCH=1``."""
+        cache as it is; else the loader (this rank's shares of it under a
+        mesh), packed on a background thread with ``PCC_BG_LOADER=1`` and
+        copied ahead to the device with ``PCC_PREFETCH=1``."""
         if isinstance(loader, ResidentCache):
             return loader
+        loader = self._rank_stream(loader)
         if os.environ.get("PCC_BG_LOADER") == "1":
             loader = BackgroundIterator(loader, prefetch=2)
         if os.environ.get("PCC_PREFETCH") == "1":
@@ -307,11 +398,13 @@ class ModelWrapper:
 
     def _step(self, batch: Dict[str, torch.Tensor]):
         """One optimizer step on a device batch: ``(loss, logits)``, both on
-        the device (no host sync)."""
-        logits = self.model(batch, train=True)
-        loss = masked_bce(logits, batch["y"], batch["y_mask"])
+        the device (no host sync); under a mesh the loss is this rank's part
+        of the global batch's."""
+        logits = self._forward(batch, train=True)
+        loss = self._loss(logits, batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        self._reduce_grads()
         self.optimizer.step()
         return loss.detach(), logits.detach()
 
@@ -333,7 +426,7 @@ class ModelWrapper:
         return self.windows.run("train", [kept_arrays(b, self.model) for b in window], body)[0]
 
     def fit(self, train_loader: Iterable, val_loader: Iterable = None, resume: bool = False) -> None:
-        log = _ScalarLog(self.log_dir)
+        log = _ScalarLog(self.log_dir, write=self.writer)
         t0 = time.time()
         start_epoch = self.restore_state() if resume else 0
         if self.device_resident:
@@ -343,23 +436,23 @@ class ModelWrapper:
                 # stays as the first epoch made it; a resumed run counts
                 # its epochs on from start_epoch
                 train_loader = ResidentCache(
-                    train_loader,
+                    self._rank_stream(train_loader),
                     device=self.device,
                     shuffle_seed=self.seed,
                     epoch_offset=start_epoch,
                     shuffle_block=self.fuse_steps,
                 )
             if val_loader is not None and not isinstance(val_loader, ResidentCache):
-                val_loader = ResidentCache(val_loader, device=self.device)
+                val_loader = ResidentCache(self._rank_stream(val_loader), device=self.device)
         # histogram mode (the torch reference logs the last batch's logits
         # and every parameter's weight and gradient each epoch): windows of
         # one step, so that the last batch's gradients are there to read
-        hist_on = log._tb is not None and os.environ.get("PCC_TB_HISTOGRAMS") == "1"
+        hist_on = log.tb_on and os.environ.get("PCC_TB_HISTOGRAMS") == "1"
         self.model.train()
         try:
             for epoch in range(start_epoch, self.epochs):
                 if self._fit_epoch(epoch, train_loader, val_loader, log, hist_on):
-                    print("Early stopping triggered.")
+                    self._print("Early stopping triggered.")
                     self.save_state(epoch, force=self.state_every > 0)
                     break
                 self.save_state(epoch)
@@ -377,7 +470,7 @@ class ModelWrapper:
         timer = StepTimer()
         last_logits = None
         epoch_t0 = time.perf_counter()
-        with maybe_trace(self.log_dir):
+        with maybe_trace(self.log_dir if self.writer else None):
             for window in self._windows_of(train_loader, 1 if hist_on else self.fuse_steps, record=True):
                 # the host's side of the window: on a card, kernels run on
                 # after it
@@ -393,8 +486,12 @@ class ModelWrapper:
                 "or an over-aggressive filter"
             )
         # one device→host copy per epoch; the wall time is taken after it,
-        # so it covers every step's device work
-        epoch_loss = float(torch.cat(losses).mean())
+        # so it covers every step's device work.  Under a mesh each step's
+        # loss is the sum of the ranks' parts
+        step_losses = torch.cat(losses)
+        if self.mesh is not None:
+            dist.all_reduce(step_losses, group=self.mesh.data_group)
+        epoch_loss = float(step_losses.mean())
         epoch_wall = time.perf_counter() - epoch_t0
         log.scalar("Loss/train", epoch_loss, epoch)
         if not np.isfinite(epoch_loss):
@@ -420,10 +517,10 @@ class ModelWrapper:
                 self.early_stop_counter = 0
                 if self.checkpoint_path:
                     self._write_checkpoint(self.checkpoint_path)
-                print(f"Epoch {epoch+1}: New best model saved (val_loss={val_loss:.4f})")
+                self._print(f"Epoch {epoch+1}: New best model saved (val_loss={val_loss:.4f})")
             else:
                 self.early_stop_counter += 1
-                print(f"Epoch {epoch+1}: No improvement ({self.early_stop_counter}/{self.patience})")
+                self._print(f"Epoch {epoch+1}: No improvement ({self.early_stop_counter}/{self.patience})")
             stop_early = self.early_stop_counter >= self.patience
         if hist_on:
             # every executed epoch, the one that stops early included
@@ -441,18 +538,23 @@ class ModelWrapper:
     # -- evaluation and inference ---------------------------------------------
 
     def _eval_window(self, window) -> list:
-        """``[losses [K], probs [K, B, 1], y [K, B, 1], y_mask [K, B]]`` of a
-        window of same-shape batches, on the device: one replay of its CUDA
-        graph on the card, the batches one after another elsewhere."""
+        """``[loss sums [K], real rows [K], probs [K, B, 1], y [K, B, 1],
+        y_mask [K, B]]`` of a window of same-shape batches, on the device: one
+        replay of its CUDA graph on the card, the batches one after another
+        elsewhere.  A batch's masked loss is its sum over its count (at
+        least 1), :func:`masked_bce`'s division."""
 
         def body(views):
-            losses, probs = [], []
+            sums, counts, probs = [], [], []
             for v in views:
-                logits = self.model(v, train=False)
-                losses.append(masked_bce(logits, v["y"], v["y_mask"]))
+                logits = self._forward(v, train=False)
+                per = F.binary_cross_entropy_with_logits(logits, v["y"], reduction="none")
+                w = v["y_mask"][:, None]
+                sums.append((per * w).sum())
+                counts.append(w.sum())
                 probs.append(torch.sigmoid(logits))
             return (
-                torch.stack(losses), torch.stack(probs),
+                torch.stack(sums), torch.stack(counts), torch.stack(probs),
                 torch.stack([v["y"] for v in views]).float(),
                 torch.stack([v["y_mask"] for v in views]).float(),
             )
@@ -464,8 +566,14 @@ class ModelWrapper:
     def _eval_dispatch(self, loader: Iterable):
         """Per-batch masked losses ``[N]`` (host), probabilities, labels and
         masks, with one device→host copy for every batch's outputs; up to
-        ``fuse_steps`` consecutive same-shape batches run as one window."""
-        outs = []  # each window's losses, probs, y and y_mask
+        ``fuse_steps`` consecutive same-shape batches run as one window.
+
+        Under a mesh every data rank's outputs are gathered (one all-gather
+        a pass): a batch's loss sums the ranks' loss sums and counts, and
+        the probabilities, labels and masks come batch by batch, each
+        batch's shares in rank order, which is the global batch's row
+        order."""
+        outs = []  # each window's loss sums, counts, probs, y and y_mask
         was_training = self.model.training
         self.model.eval()
         try:
@@ -474,15 +582,33 @@ class ModelWrapper:
                     outs += self._eval_window(window)
                 if not outs:
                     raise ValueError("eval loader produced no batches")
-                flat = torch.cat([t.reshape(-1) for t in outs]).cpu().numpy()
+                flat = torch.cat([t.reshape(-1) for t in outs])
+                ranks = [flat] if self.mesh is None else self._gather_data_ranks(flat)
+                ranks = [r.cpu().numpy() for r in ranks]
         finally:
             self.model.train(was_training)
-        parts = np.split(flat, np.cumsum([t.numel() for t in outs])[:-1])
-        host = [p.reshape(t.shape) for p, t in zip(parts, outs)]
-        losses = np.concatenate(host[0::4])
-        rows = lambda arrays: [a for group in arrays for a in group]  # noqa: E731
-        probs, ys, masks = rows(host[1::4]), rows(host[2::4]), rows(host[3::4])
-        return losses, probs, ys, [m.astype(bool) for m in masks]
+        cuts = np.cumsum([t.numel() for t in outs])[:-1]
+        host = [[p.reshape(t.shape) for p, t in zip(np.split(r, cuts), outs)] for r in ranks]
+        sums = sum(np.concatenate(h[0::5]) for h in host)
+        counts = sum(np.concatenate(h[1::5]) for h in host)
+        losses = sums / np.maximum(counts, np.float32(1.0))
+
+        def rows(i):
+            # batch by batch, each batch's shares in rank order
+            per_rank = [[a for group in h[i::5] for a in group] for h in host]
+            return [a for batch in zip(*per_rank) for a in batch]
+
+        return losses, rows(2), rows(3), [m.astype(bool) for m in rows(4)]
+
+    def _gather_data_ranks(self, flat: torch.Tensor) -> list:
+        """Every data rank's ``flat`` (one length on all: the shares' shapes
+        agree), in rank order."""
+        group = self.mesh.data_group
+        length = torch.tensor([flat.numel()], device=flat.device)
+        lengths = pmesh.gather_tensor(length, group).reshape(-1).tolist()
+        if len(set(lengths)) != 1:
+            raise RuntimeError(f"the data ranks' evaluation outputs differ in length: {lengths}")
+        return list(pmesh.gather_tensor(flat, group).unbind(0))
 
     def _evaluate(self, loader: Iterable):
         """(mean of the per-batch losses, accuracy at sigmoid ≥ 0.5 over the
@@ -509,12 +635,54 @@ class ModelWrapper:
 
     # -- persistence -------------------------------------------------------------
 
+    def _print(self, *args) -> None:
+        if self.writer:
+            print(*args)
+
     def _host_state_dict(self):
+        """The model's ``state_dict`` on the host, the full weights under the
+        model axis (every rank of a mesh calls it)."""
+        self._sync_full()
         return {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
 
     def _write_checkpoint(self, path: str) -> None:
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        torch.save(self._host_state_dict(), path)
+        state = self._host_state_dict()
+        if self.writer:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            torch.save(state, path)
+
+    def _reshard(self) -> None:
+        """The row blocks again from the model's full weights (after a
+        load)."""
+        with torch.no_grad():
+            for name, s in self._shards.items():
+                s.copy_(pmesh.row_block(self.model.get_parameter(name), self.mesh))
+
+    def _sharded_positions(self) -> list:
+        """The optimizer's indices of the row blocks."""
+        names = [name for name, _ in self.model.named_parameters()]
+        return [i for i, name in enumerate(names) if name in self._shards]
+
+    def _full_optimizer_state(self) -> dict:
+        """The optimizer's ``state_dict`` with each row block's state
+        gathered into the full weight's (every rank of a mesh calls it)."""
+        state = self.optimizer.state_dict()
+        for i in self._sharded_positions():
+            if i in state["state"]:
+                # a new dict: state_dict() hands out the optimizer's own
+                state["state"][i] = {
+                    key: torch.cat(list(pmesh.gather_tensor(t, self.mesh.model_group))) if t.ndim else t
+                    for key, t in state["state"][i].items()
+                }
+        return state
+
+    def _block_optimizer_state(self, state: dict) -> dict:
+        """A full optimizer ``state_dict`` cut to this rank's row blocks."""
+        for i in self._sharded_positions():
+            if i in state["state"]:
+                state["state"][i] = {key: pmesh.row_block(t, self.mesh).clone() if t.ndim else t
+                                     for key, t in state["state"][i].items()}
+        return state
 
     def save(self, save_dir: str) -> None:
         self._write_checkpoint(os.path.join(save_dir, "model.pt"))
@@ -529,6 +697,7 @@ class ModelWrapper:
         self.model.load_state_dict(
             {k: torch.as_tensor(v) for k, v in state.items()}, strict=True
         )
+        self._reshard()
         self.optimizer = self._new_optimizer()
 
     def _state_dir(self) -> Optional[str]:
@@ -542,11 +711,11 @@ class ModelWrapper:
             return
         if not force and (self.state_every <= 0 or (epoch + 1) % self.state_every != 0):
             return
+        state = {"model": self._host_state_dict(), "optimizer": self._full_optimizer_state()}
+        if not self.writer:
+            return
         os.makedirs(path, exist_ok=True)
-        torch.save(
-            {"model": self._host_state_dict(), "optimizer": self.optimizer.state_dict()},
-            os.path.join(path, STATE_FILE),
-        )
+        torch.save(state, os.path.join(path, STATE_FILE))
         with open(os.path.join(path, "trainer_state.json"), "w") as f:
             json.dump(
                 {
@@ -567,8 +736,9 @@ class ModelWrapper:
             return 0
         raw = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
         self.model.load_state_dict(raw["model"], strict=True)
+        self._reshard()
         self.optimizer = self._new_optimizer()
-        self.optimizer.load_state_dict(raw["optimizer"])
+        self.optimizer.load_state_dict(self._block_optimizer_state(raw["optimizer"]))
         with open(meta_path) as f:
             meta = json.load(f)
         self.best_val_loss = meta["best_val_loss"]

@@ -37,7 +37,13 @@ Semantics, per arm, as in the JAX package (and as a sequential
 The JAX package probes one batch for ``model.init`` and rewinds the
 loader's shuffle epoch after it; a torch module knows its shapes without a
 batch, so nothing is probed and arm k sees the batch order of a sequential
-run without a rewind.  Meshes are not ported (ROADMAP Queue 1 item 13).
+run without a rewind.
+
+With a mesh (``parallel/mesh.py``) the arm axis splits over the data ranks,
+as the JAX package shards it over its mesh's ``data`` axis: where K divides
+by the data-axis size each rank trains its contiguous K/n arms, with no
+collective until the end, when every rank gathers every arm's results;
+otherwise every rank trains all K arms (the JAX package replicates them).
 """
 
 from __future__ import annotations
@@ -47,10 +53,12 @@ from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call, grad_and_value, stack_module_state, vmap
 
 from point_cloud_classifier_tpu_torch.models.wrapper import masked_bce, put_batch, resolve_device
+from point_cloud_classifier_tpu_torch.parallel.mesh import rank_device
 
 # models/wrapper.py:_make_optimizer's constants
 _BETA1, _BETA2, _EPS, _WEIGHT_DECAY = 0.9, 0.999, 1e-8, 0.01
@@ -215,18 +223,39 @@ def train_configs_vmapped(
     (and seed, default 0) per arm; ``model`` gives the architecture.
 
     Runs on the card, and raises where there is none, unless ``device``
-    says otherwise (``"cpu"``).  ``mesh`` raises: meshes are not ported
-    (ROADMAP Queue 1 item 13).
+    says otherwise (``"cpu"``).  Under ``mesh`` (a ``parallel/mesh.Mesh``)
+    each data rank trains its share of the arms where K divides by the
+    data-axis size, else all of them; every rank returns every arm's
+    results.
 
     Returns a dict of per-arm ``val_accs`` and ``train_accs`` (the final
     weights'), ``final_state`` and ``best_state`` (port ``state_dict``s on
     the host, as ``ModelWrapper.save`` writes them), ``best_improved``
     (False for an arm whose val loss never improved, e.g. NaN from the first
     epoch: its best state is its initial one), and ``n_params`` (per arm)."""
+    k = len(learning_rates)
+    seeds = [0] * k if seeds is None else list(seeds)
     if mesh is not None:
-        raise NotImplementedError(
-            "not ported to PyTorch yet: a mesh for the arm axis (ROADMAP Queue 1 item 13)"
-        )
+        device = rank_device(device)
+    if mesh is None or mesh.n_data == 1 or k % mesh.n_data:
+        return _train_arms(model, learning_rates, optimizer, epochs, train_loader, val_loader, seeds,
+                           patience, init_states, device)
+    per = k // mesh.n_data
+    mine = slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
+    local = _train_arms(model, learning_rates[mine], optimizer, epochs, train_loader, val_loader, seeds[mine],
+                        patience, None if init_states is None else init_states[mine], device)
+    parts = [None] * mesh.n_data
+    dist.all_gather_object(parts, local, group=mesh.data_group)
+    return {
+        **{key: [v for part in parts for v in part[key]]
+           for key in ("val_accs", "train_accs", "final_state", "best_state", "best_improved")},
+        "n_params": local["n_params"],
+    }
+
+
+def _train_arms(model, learning_rates, optimizer, epochs, train_loader, val_loader, seeds, patience,
+                init_states, device):
+    """:func:`train_configs_vmapped` of the given arms on this process."""
     arms = VmappedArms(model, learning_rates, optimizer, seeds, init_states, device)
     k = arms.k
     best_val_loss = [float("inf")] * k

@@ -25,7 +25,11 @@ choices and defaults::
 
 Runs go to the card and raise where there is none; ``main(argv,
 device="cpu")`` and the functions' ``device`` argument run them on the CPU.
-``--mesh`` raises: meshes are not ported (ROADMAP Queue 1 item 13).  The JAX
+``--mesh`` with ``--vmap`` splits each group's arms over the data ranks of
+a mesh over every rank (``parallel/mesh.default_mesh``: ``torchrun``'s ranks,
+or a world of one); every rank trains, and rank 0 alone writes the search
+directory, the run directories, the leaderboard and the status log.  As in
+the JAX sweep, ``--mesh`` without ``--vmap`` changes nothing.  The JAX
 sweep's persistent compile cache has no counterpart (PyTorch compiles
 nothing here).
 """
@@ -41,12 +45,12 @@ from copy import deepcopy
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from point_cloud_classifier_tpu_torch.models.wrapper import resolve_device
 from point_cloud_classifier_tpu_torch.train import train_model
 from point_cloud_classifier_tpu_torch.utils.config import load_config
 
-_MESH_REFUSAL = "not ported to PyTorch yet: --mesh, the arm axis over several cards (ROADMAP Queue 1 item 13)"
 
 
 def fully_connected_net_config(config):
@@ -165,14 +169,15 @@ def _release_run_memory() -> None:
         torch.cuda.empty_cache()
 
 
-def _search_config(model_name, config_dir, search_dir, epochs, force, data_dir):
+def _search_config(model_name, config_dir, search_dir, epochs, force, data_dir, writer=True):
     if model_name not in _SAMPLERS:
         raise ValueError(f"No hyperparameter sampler for model: {model_name}")
     config = load_config(
         os.path.join(config_dir, "base.yaml"),
         os.path.join(config_dir, f"{model_name}.yaml"),
     )
-    create_search_dir(search_dir=search_dir, force=force)
+    if writer:
+        create_search_dir(search_dir=search_dir, force=force)
     config["logging"]["log_dir"] = search_dir
     config["trainer"]["epochs"] = epochs
     if data_dir is not None:
@@ -248,9 +253,14 @@ def run_search_vmapped(
     from point_cloud_classifier_tpu_torch.utils.config import save_config
     from point_cloud_classifier_tpu_torch.utils.log import TrainingLogger
 
+    mesh = None
     if use_mesh:
-        raise NotImplementedError(_MESH_REFUSAL)
+        from point_cloud_classifier_tpu_torch.parallel.mesh import default_mesh, rank_device
+
+        device = rank_device(device)
+        mesh = default_mesh(device)
     device = str(resolve_device(device))
+    writer = mesh is None or mesh.writer
     model_classes = {
         "fully_connected_net": FullyConnectedNet,
         "deep_sets": DeepSets,
@@ -259,10 +269,14 @@ def run_search_vmapped(
     model_name = model_name.lower()
     dataset_name = dataset_name.lower()
     search_dir = os.path.abspath(search_dir)
-    config = _search_config(model_name, config_dir, search_dir, epochs, force, data_dir)
+    config = _search_config(model_name, config_dir, search_dir, epochs, force, data_dir, writer)
+    if mesh is not None:
+        dist.barrier()  # the search directory is made before any rank goes on
 
     # sample everything up front, then group by architecture and optimizer
     sampled = [_SAMPLERS[model_name](config=config) for _ in range(max_runs)]
+    if mesh is not None:
+        dist.broadcast_object_list(sampled, src=0)  # rank 0's draws, on every rank
     groups = {}
     for hp in sampled:
         key = json.dumps(
@@ -277,10 +291,8 @@ def run_search_vmapped(
 
     status_log = os.path.join(search_dir, "status_log.txt")
     top_runs = []
-    print(
-        f"Starting vmapped search: {max_runs} configs in {len(groups)} "
-        f"architecture groups..."
-    )
+    if writer:
+        print(f"Starting vmapped search: {max_runs} configs in {len(groups)} architecture groups...")
     for g_i, group in enumerate(groups.values()):
         hp0 = group[0]
         try:
@@ -297,13 +309,19 @@ def run_search_vmapped(
                 dataloader.get_train_loader(),
                 dataloader.get_val_loader(),
                 seeds=[int(hp["trainer"].get("seed", 0)) for hp in group],
+                mesh=mesh,
                 device=device,
             )
         except Exception as e:
             # the sequential search's contract: log and keep searching
-            print(f"[Group {g_i}/{len(groups)}] Configuration group failed: {e}")
-            _log_failure(status_log, f"Group {g_i} ({len(group)} configs) FAILED", e, hp0)
-            save_leaderboard(top_runs=top_runs, save_dir=search_dir)
+            if writer:
+                print(f"[Group {g_i}/{len(groups)}] Configuration group failed: {e}")
+                _log_failure(status_log, f"Group {g_i} ({len(group)} configs) FAILED", e, hp0)
+                save_leaderboard(top_runs=top_runs, save_dir=search_dir)
+            continue
+        if not writer:
+            del result
+            _release_run_memory()
             continue
 
         for arm, hp in enumerate(group):
@@ -358,7 +376,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--mesh",
         action="store_true",
-        help="not ported (ROADMAP Queue 1 item 13)",
+        help="with --vmap: split the arm axis over every rank (launch with torchrun)",
     )
     parser.add_argument(
         "--seed", type=int, default=None,
@@ -373,8 +391,6 @@ def main(argv=None, device: str = None) -> None:
     from point_cloud_classifier_tpu_torch.factory import MODEL_DATASETS
 
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(_MESH_REFUSAL)
     if args.seed is not None:
         np.random.seed(args.seed)
 
@@ -390,7 +406,7 @@ def main(argv=None, device: str = None) -> None:
         device=device,
     )
     if args.vmap:
-        run_search_vmapped(**kwargs)
+        run_search_vmapped(use_mesh=args.mesh, **kwargs)
     else:
         run_search(**kwargs)
 

@@ -24,6 +24,13 @@ Counterpart of the functions of the same names in the repository's
   file, keyed by the file's event ids (``data/inference.inference_loader``:
   the run's preprocessing and the scaler of dataset creation).
 
+Under a mesh (``trainer.data_parallel`` / ``trainer.n_model``, or
+``PCC_DATA_PARALLEL`` / ``PCC_N_MODEL``) every rank runs ``train_model`` and
+``resume_training``: the process group starts before the run directory is
+chosen, rank 0 chooses it and hands its version to the others, and rank 0
+alone writes ``config.yaml`` and ``meta.json`` (the wrapper writes the rest
+on rank 0 too), which are those of a meshless run.
+
 Accuracy and the report are computed with numpy (``utils/metrics.py``), as
 sklearn computes them.  Each runs on the card and raises where there is
 none, unless the caller passes ``device="cpu"``; what they write is the
@@ -39,6 +46,7 @@ import json
 import os
 
 import numpy as np
+import torch.distributed as dist
 
 from point_cloud_classifier_tpu_torch.factory import (
     apply_quant,
@@ -46,6 +54,7 @@ from point_cloud_classifier_tpu_torch.factory import (
     get_model,
     resolve_quant,
 )
+from point_cloud_classifier_tpu_torch.parallel.mesh import init_process_group, mesh_options, rank_device
 from point_cloud_classifier_tpu_torch.utils.config import load_config, save_config
 from point_cloud_classifier_tpu_torch.utils.log import TrainingLogger
 from point_cloud_classifier_tpu_torch.utils.metrics import accuracy, classification_report
@@ -68,8 +77,7 @@ def train_model(
     dataset_name = dataset_name.lower()
     model_name = model_name.lower()
 
-    logger = TrainingLogger(model_name, dataset_name, **config["logging"])
-    version = logger.get_version()
+    logger, version = _run_version(model_name, dataset_name, config, device)
     log_dir = os.path.join(config["logging"]["log_dir"], f"version_{version}")
     config["logging"]["log_dir"] = log_dir
     config["meta"]["model_name"] = model_name
@@ -81,20 +89,40 @@ def train_model(
     train_loader = dataloader.get_train_loader()
     val_loader = dataloader.get_val_loader()
 
-    save_config(config=config, log_dir=log_dir)
+    if logger is not None:
+        save_config(config=config, log_dir=log_dir)
     model.fit(train_loader, val_loader)
     model.save(save_dir=log_dir)
 
     y_true_train, y_pred_train = model.predict(train_loader)
     y_true_val, y_pred_val = model.predict(val_loader)
 
-    logger.log_metric("accuracy/train", round(accuracy(y_true_train, y_pred_train), 6))
-    logger.log_metric("accuracy/val", round(accuracy(y_true_val, y_pred_val), 6))
-    logger.log_metric("parameters", model.get_trainable_parameters())
+    if logger is not None:
+        logger.log_metric("accuracy/train", round(accuracy(y_true_train, y_pred_train), 6))
+        logger.log_metric("accuracy/val", round(accuracy(y_true_val, y_pred_val), 6))
+        logger.log_metric("parameters", model.get_trainable_parameters())
 
     if return_log_dir:
         return log_dir
     return None
+
+
+def _run_version(model_name: str, dataset_name: str, config: dict, device):
+    """``(logger, version)`` of a new run: the logger that made the run
+    directory, or None on a mesh rank other than 0, which takes rank 0's
+    version."""
+    trainer = config.get("trainer", {})
+    data_parallel, n_model = mesh_options(trainer.get("data_parallel", False), trainer.get("n_model", 1))
+    if not (data_parallel or n_model > 1):
+        logger = TrainingLogger(model_name, dataset_name, **config["logging"])
+        return logger, logger.get_version()
+    init_process_group(rank_device(device))
+    logger = None
+    if dist.get_rank() == 0:
+        logger = TrainingLogger(model_name, dataset_name, **config["logging"])
+    version = [logger.get_version() if logger is not None else None]
+    dist.broadcast_object_list(version, src=0)
+    return logger, version[0]
 
 
 def resume_training(model_dir: str, config: dict = None, device: str = None):

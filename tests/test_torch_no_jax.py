@@ -2,8 +2,9 @@
 matplotlib, h5py or joblib, and runs without them (the kNN path, the
 flagship wire, the command line, the C++ host packers and edge builder, the
 sequential and vmapped sweeps, int8 evaluation and the serving export, dataset creation from raw HDF5
-showers, raw-file inference and the HTTP scorer); chip_smoke.py refuses to run without a CUDA
-card or without the repository beside it."""
+showers, raw-file inference and the HTTP scorer, the mesh and its rank spawner, and the mesh tests'
+rank side, ``tests/torch_mesh_jobs.py``); chip_smoke.py refuses to run without a CUDA card or without
+the repository beside it."""
 
 import os
 import shutil
@@ -44,6 +45,8 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
         for name in names:
             importlib.import_module(name)
         import chip_smoke
+        sys.path.insert(0, "tests")
+        import torch_mesh_jobs
         print(len(names), "modules:", " ".join(names))
         """
     )
@@ -57,7 +60,7 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
     command_line = {"cli", "__main__", "data.tabular", "models.fully_connected_net",
                     "models.logistic_regression", "utils.metrics"}
     host = {"native", "native.host"}
-    sweep = {"sweep", "parallel", "parallel.vmap_sweep"}
+    sweep = {"sweep", "parallel", "parallel.vmap_sweep", "parallel.mesh", "parallel.ranks"}
     fused = {"utils.profiling", "models.windows"}
     serving = {"ops.quant", "serving"}
     raw_showers = {"data.h5lite", "data.hdf5", "data.module", "data.npz_io", "data.inference", "server"}
@@ -316,6 +319,42 @@ def test_sweeps_run_without_jax_pandas_sklearn_or_yaml(tmp_path):
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert [line for line in proc.stdout.splitlines() if line.startswith("runs")] == ["runs 2", "runs 2"]
+
+
+def test_mesh_ranks_train_without_jax(tmp_path):
+    """Two gloo ranks spawned (``parallel/ranks.run_ranks``) from a process
+    where none of the blocked packages can be imported train a data-parallel
+    FCN with BatchNorm (``tests/torch_mesh_jobs.py``) and import none of
+    them themselves."""
+    code = textwrap.dedent(
+        f"""
+        import sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, "tests")
+        import numpy as np
+        import torch
+        import torch_mesh_jobs
+        from point_cloud_classifier_tpu_torch.models import FullyConnectedNet
+        from point_cloud_classifier_tpu_torch.parallel.ranks import run_ranks
+
+        if __name__ == "__main__":
+            rng = np.random.default_rng(0)
+            batches = [{{"x": rng.normal(size=(8, 9)).astype(np.float32),
+                        "y": rng.integers(0, 2, size=(8, 1)).astype(np.float32),
+                        "y_mask": np.ones(8, np.float32)}} for _ in range(2)]
+            kwargs = dict(input_dim=9, hidden_layers=[8], batch_normalization=True, output_dim=1)
+            state = {{k: v.numpy() for k, v in FullyConnectedNet(**kwargs).state_dict().items()}}
+            case = dict(family="fully_connected_net", kwargs=kwargs, state=state, train=batches,
+                        predict=batches, epochs=1, log_root={str(tmp_path)!r})
+            print("loaded", run_ranks(torch_mesh_jobs.loaded_after_fit, 2, {{"fcn": case}}, {BLOCKED!r}))
+        """
+    )
+    script = tmp_path / "mesh_ranks.py"
+    script.write_text(code)
+    proc = _run([str(script)], env_extra={"PYTHONPATH": REPO})
+    assert proc.returncode == 0, proc.stderr
+    assert "loaded [[], []]" in proc.stdout
 
 
 def test_int8_evaluation_and_export_run_without_jax(tmp_path):

@@ -267,11 +267,34 @@ def test_non_finite_loss_raises(tmp_path):
     ids=["data_parallel", "PCC_DATA_PARALLEL", "n_model", "PCC_N_MODEL", "mesh"],
 )
 def test_unported_trainer_options_raise(monkeypatch, tmp_path, kwargs, env):
+    """The JAX trainer's mesh options, ported: each builds a mesh over every
+    rank, here a world of one gloo rank, whose wrapper predicts what the
+    meshless one does; a model axis of 2 over one rank raises the JAX
+    ``make_mesh``'s error.  (Multi-rank runs: tests/test_torch_mesh.py.)"""
+    import torch.distributed as dist
+
+    from point_cloud_classifier_tpu_torch.parallel import make_mesh
+
     model = factory.get_model("deep_sets", _config(tmp_path), device="cpu").model
     for name, value in env.items():
         monkeypatch.setenv(name, value)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ModelWrapper(model, learning_rate=1e-3, epochs=1, **kwargs, device="cpu")
+    rng = np.random.default_rng(0)
+    events = [rng.normal(size=(int(k), 6)).astype(np.float32) for k in rng.integers(1, 20, size=10)]
+    loader = PointCloudLoader(events, np.arange(10) % 2, 4, shuffle=False)
+    try:
+        if kwargs.get("mesh") is not None:
+            kwargs = {"mesh": make_mesh(device="cpu")}
+        if kwargs.get("n_model") == 2 or env.get("PCC_N_MODEL") == "2":
+            with pytest.raises(ValueError, match="mesh 0x2 needs 2 devices, have 1"):
+                ModelWrapper(model, learning_rate=1e-3, epochs=1, **kwargs, device="cpu")
+            return
+        wrapper = ModelWrapper(model, learning_rate=1e-3, epochs=1, **kwargs, device="cpu")
+        assert wrapper.mesh.shape == {"data": 1, "model": 1} and wrapper.writer
+        want = ModelWrapper(model, learning_rate=1e-3, epochs=1, device="cpu").predict(loader, return_prob=True)
+        np.testing.assert_allclose(wrapper.predict(loader, return_prob=True)[1], want[1], rtol=1e-6, atol=1e-7)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_unported_train_model_options_raise(data_dir):

@@ -350,10 +350,25 @@ def test_vmapped_nan_arm_reports_no_best_improvement():
 
 
 def test_vmapped_arms_refuse_a_mesh_and_an_unknown_optimizer():
+    """A mesh is ported (tests/test_torch_mesh_sweep.py splits the arms over
+    2 and 4 ranks): on a world of one rank the arms train as without it.
+    An unknown optimizer is refused."""
+    import torch.distributed as dist
+
+    from point_cloud_classifier_tpu_torch.parallel import make_mesh
+
     train, val = _tabular_loaders()
     model = FullyConnectedNet(input_dim=9, hidden_layers=[8], batch_normalization=False, output_dim=1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        train_configs_vmapped(model, [1e-2], "adam", 1, train, val, mesh=object(), device="cpu")
+    try:
+        meshed = train_configs_vmapped(model, [1e-2, 1e-3], "adam", 1, train, val, mesh=make_mesh(device="cpu"),
+                                       device="cpu")
+    finally:
+        dist.destroy_process_group()
+    plain = train_configs_vmapped(model, [1e-2, 1e-3], "adam", 1, train, val, device="cpu")
+    assert meshed["val_accs"] == plain["val_accs"]
+    for a, b in zip(meshed["final_state"], plain["final_state"]):
+        for key in a:
+            assert torch.equal(a[key], b[key])
     with pytest.raises(ValueError, match="Unknown optimizer"):
         train_configs_vmapped(model, [1e-2], "sgd", 1, train, val, device="cpu")
 
