@@ -257,6 +257,20 @@ result):
    ``infer-raw``'s, the kernel launches of that request, garbage a 400, a
    run whose scaler is missing a 500, and ms a request against events a
    request.
+28. the evaluation plots and the EDA (whether this machine has matplotlib
+   printed): (a) ``train deep_sets --plots`` through ``cli.main`` at the
+   configs' widths for 1 epoch on phase 20's cache: with matplotlib the
+   three PNGs and K1 once more a val batch, without it the ImportError
+   before any launch or run directory; (b) ``evaluate`` of phase 20's
+   DeepSets run and phase 13's in-row GAT run, K1 (K3 twice) a batch of
+   each split and once more the test split where matplotlib draws; the
+   port's ``roc_curve``, ``precision_recall_curve``, ``auc`` and normalized
+   ``confusion_matrix`` of the card's test probabilities against a
+   brute-force sweep of every distinct threshold (1e-12), and the ROC AUC
+   within 1e-4 of the same weights' on the CPU; (c) the port's EDA over
+   phase 26's raw showers: ``summary_stats.json`` against a per-event loop
+   (1e-12 relative, equal counts), ``missing_values.json`` all zero, the
+   figures where matplotlib draws, its seconds; the phase under 30 s.
 
 Beside each kernel's time the script works out the least time the card could
 take for the same work (``bound_ms``: the bytes the function must move over
@@ -2707,7 +2721,9 @@ def cli_deep_sets_phase(seconds: dict, work_dir: str, data: str) -> dict:
     train_launches = {"phi_pool": counts["phi_pool"], "phi_pool_bwd": counts["phi_pool_bwd"]}
 
     counts = _cli(seconds, "evaluate deep_sets", "evaluate", run_dir)
-    _expect_launches("evaluate deep_sets", counts, phi_pool=n["test"] + n["train"] + n["val"])
+    # where matplotlib draws the plots, once more the test split (phase 28)
+    _expect_launches("evaluate deep_sets", counts,
+                     phi_pool=n["test"] + n["train"] + n["val"] + (n["test"] if has_matplotlib() else 0))
     with open(os.path.join(run_dir, "eval", "metrics.json")) as f:
         metrics = json.load(f)
     model = factory.get_model("deep_sets", cfg, run_dir)
@@ -4515,6 +4531,263 @@ def mesh_phase(smi: str, run_dir: str) -> dict:
     return launches
 
 
+# phase 28: the evaluation plots and the EDA.  The card's machine may lack
+# matplotlib: there ``train --plots`` raises before the run starts and
+# ``evaluate`` draws nothing; the curves and the EDA's numbers are numpy and
+# are checked either way
+PLOTS_CURVE_TOL = 1e-12  # (b) the curves against a brute-force threshold sweep
+PLOTS_AUC_TOL = 1e-4  # (b) ROC AUC of the card's probabilities against the CPU's
+EDA_RTOL = 1e-12  # (c) summary_stats.json against a per-event loop
+PLOTS_PHASE_SECONDS = 30
+PLOT_FILES = ("confusion_matrix_test.png", "roc_curve_test.png", "precision_recall_test.png")
+
+
+def has_matplotlib() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _split_batches(dataset: str, cfg: dict) -> dict:
+    module = factory.get_dataloader(dataset, cfg)
+    return {"train": len(module.get_train_loader()), "val": len(module.get_val_loader()),
+            "test": len(module.get_test_loader())}
+
+
+def plots_train_phase(seconds: dict, work_dir: str, mpl: bool) -> dict:
+    """(a) ``train deep_sets --plots`` at the configs' widths for one epoch
+    on phase 20's cache: the three PNGs in the run directory and K1 once more
+    a val batch (the second predict); without matplotlib the ImportError,
+    no K1 launch and no run directory."""
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    log = os.path.join(work_dir, "plots_log")
+    argv = ["train", "deep_sets", "--config-dir", configs, "--data-dir", os.path.join(work_dir, "cli_data"),
+            "--log-dir", log, "--epochs", "1", "--plots"]
+    if not mpl:
+        reset_launch_counts()
+        try:
+            cli.main(argv)
+        except ImportError as e:
+            counts = launch_counts()
+            print(f"plots train deep_sets --plots: ImportError {e!r}; launches {counts}; run directory made: "
+                  f"{os.path.exists(log)}")
+            if any(counts.values()) or os.path.exists(log):
+                raise AssertionError("plots: train --plots without matplotlib launched or made its run") from e
+            return counts
+        raise AssertionError("plots: train --plots ran without matplotlib")
+    counts = _cli(seconds, "train deep_sets --plots", *argv)
+    run = os.path.join(log, "version_0")
+    n = _split_batches("s2ppc", load_config(os.path.join(run, "config.yaml")))
+    # the epoch's steps and validation, predict on train and val, then val again for the plots
+    _expect_launches("train deep_sets --plots", counts, phi_pool=n["train"] + 2 * n["val"] + n["train"] + n["val"],
+                     phi_pool_bwd=n["train"])
+    missing = set(PLOT_FILES) - set(os.listdir(run))
+    if missing:
+        raise AssertionError(f"plots: train --plots did not write {sorted(missing)}")
+    return counts
+
+
+def brute_force_curves(y: np.ndarray, p: np.ndarray) -> dict:
+    """At every distinct probability, taken as a threshold from the highest
+    down: the true and false positives counted directly, their rates, the
+    precision and recall, and the trapezoid areas."""
+    thresholds = np.unique(p)[::-1]
+    above = p[None, :] >= thresholds[:, None]
+    tp = (above & (y[None, :] == 1)).sum(axis=1).astype(np.float64)
+    fp = (above & (y[None, :] == 0)).sum(axis=1).astype(np.float64)
+    fn = (y == 1).sum() - tp
+    fpr, tpr = np.concatenate([[0.0], fp / fp[-1]]), np.concatenate([[0.0], tp / (tp[-1] + fn[-1])])
+    precision, recall = tp / (tp + fp), tp / (tp + fn)
+    area = lambda x, v: float(np.sum(np.diff(x) * (v[1:] + v[:-1]) / 2))  # noqa: E731
+    return {"thresholds": thresholds, "fpr": fpr, "tpr": tpr, "precision": precision, "recall": recall,
+            "roc_auc": area(fpr, tpr), "pr_auc": -area(np.concatenate([recall[::-1], [0.0]]),
+                                                       np.concatenate([precision[::-1], [1.0]]))}
+
+
+def plots_curves_check(label: str, y: np.ndarray, pred: np.ndarray, p: np.ndarray) -> float:
+    """The port's curves, AUCs and normalized confusion matrix of the card's
+    test probabilities against the brute-force sweep; returns the ROC AUC."""
+    from point_cloud_classifier_tpu_torch.utils import metrics
+
+    want = brute_force_curves(y, p)
+    fpr, tpr, thr = metrics.roc_curve(y, p)
+    at = np.searchsorted(-want["thresholds"], -thr[1:])  # each kept point's threshold in the sweep
+    errs = {"roc": max(np.abs(fpr[1:] - want["fpr"][1 + at]).max(), np.abs(tpr[1:] - want["tpr"][1 + at]).max())}
+    if not (np.array_equal(want["thresholds"][at], thr[1:]) and fpr[0] == tpr[0] == 0.0 and np.isinf(thr[0])):
+        raise AssertionError(f"plots {label}: roc_curve's thresholds are not the sweep's")
+    precision, recall, pthr = metrics.precision_recall_curve(y, p)
+    if not np.array_equal(pthr, want["thresholds"][::-1]) or precision[-1] != 1.0 or recall[-1] != 0.0:
+        raise AssertionError(f"plots {label}: precision_recall_curve's thresholds are not the sweep's")
+    errs["pr"] = max(np.abs(precision[:-1] - want["precision"][::-1]).max(),
+                     np.abs(recall[:-1] - want["recall"][::-1]).max())
+    roc_auc = metrics.roc_auc_score(y, p)
+    errs["auc"] = max(abs(roc_auc - want["roc_auc"]), abs(metrics.auc(fpr, tpr) - want["roc_auc"]),
+                      abs(metrics.auc(recall, precision) - want["pr_auc"]))
+    cm = metrics.confusion_matrix(y, pred, normalize="true")
+    counted = np.array([[np.sum((y == i) & (pred == j)) / np.sum(y == i) for j in (0, 1)] for i in (0, 1)])
+    errs["confusion"] = float(np.abs(cm - counted).max())
+    print(f"plots {label}: {len(y)} test events, {len(want['thresholds'])} distinct probabilities, "
+          f"{len(fpr)} ROC points kept; the port's curves against the brute-force sweep, max |Δ| "
+          f"{({k: float(v) for k, v in errs.items()})} (bound {PLOTS_CURVE_TOL:.0e}); ROC AUC {roc_auc:.6f}")
+    if not max(errs.values()) <= PLOTS_CURVE_TOL:
+        raise AssertionError(f"plots {label}: the curves stray from the brute-force sweep: {errs}")
+    return roc_auc
+
+
+def plots_evaluate_phase(smi: str, seconds: dict, work_dir: str, mpl: bool) -> dict:
+    """(b) ``evaluate`` of phase 20's DeepSets run and phase 13's in-row GAT
+    run: the launches (one more predict of the test split where matplotlib
+    draws), the PNGs, the curves against the brute-force sweep, and the ROC
+    AUC against the same weights' CPU probabilities."""
+    runs = (("deep_sets", os.path.join(work_dir, "cli_log", "deep_sets", "version_0"), "phi_pool", 1),
+            ("in-row GAT", os.path.join(work_dir, "graph_log", "version_0"), "gat_attention", 2))
+    launches = {}
+    for label, run, kernel, per_batch in runs:
+        cfg = load_config(os.path.join(run, "config.yaml"))
+        model_name, dataset = cfg["meta"]["model_name"], cfg["meta"]["dataset_name"]
+        n = _split_batches(dataset, cfg)
+        out = os.path.join(work_dir, f"plots_eval_{model_name}")
+        counts = _cli(seconds, f"evaluate {label}", "evaluate", run, "--save-dir", out)
+        _expect_launches(f"evaluate {label}", counts,
+                         **{kernel: per_batch * (n["test"] + n["train"] + n["val"] + (n["test"] if mpl else 0))})
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        written = sorted(os.listdir(out))
+        want = sorted(["classification_report.txt", "metrics.json", *(PLOT_FILES if mpl else ())])
+        if written != want:
+            raise AssertionError(f"plots evaluate {label}: wrote {written}, expected {want}")
+        test = factory.get_dataloader(dataset, cfg).get_test_loader()
+        model = factory.get_model(model_name, cfg, run)
+        y, pred = (np.asarray(a).reshape(-1) for a in model.predict(test))
+        _, p = model.predict(test, return_prob=True)
+        auc_card = plots_curves_check(label, y, pred, np.asarray(p).reshape(-1))
+        _, p_cpu = factory.get_model(model_name, cfg, run, device="cpu").predict(test, return_prob=True)
+        from point_cloud_classifier_tpu_torch.utils.metrics import roc_auc_score
+
+        auc_cpu = roc_auc_score(y, np.asarray(p_cpu).reshape(-1))
+        print(f"plots evaluate {label}: wrote {written}; launches {({k: v for k, v in counts.items() if v})}; "
+              f"ROC AUC card {auc_card:.6f}, CPU {auc_cpu:.6f}, |Δ| {abs(auc_card - auc_cpu):.3e} (bound "
+              f"{PLOTS_AUC_TOL:.0e}); {seconds[f'evaluate {label}']:.2f} s [{smi}]")
+        if not abs(auc_card - auc_cpu) <= PLOTS_AUC_TOL:
+            raise AssertionError(f"plots evaluate {label}: the card's ROC AUC is {auc_card}, the CPU's {auc_cpu}")
+    return launches
+
+
+def eda_reference(data_dir: str) -> dict:
+    """summary_stats.json's numbers from a loop over each file's events: the
+    energy summed in float32 with Kahan's compensation step by step, the
+    steps, the distinct MC particles, the 0.99 quantile of the sorted times
+    interpolated linearly; over the events numpy's mean, median and min/max,
+    and the sample variance in float64 (rounded to a float32 column's dtype
+    before its root)."""
+    from point_cloud_classifier_tpu_torch.data.hdf5 import load_shower_file
+
+    cols = {c: [] for c in ("total_energy", "n_steps", "n_particles", "elapsed_time", "particle")}
+    with contextlib.redirect_stdout(io.StringIO()):
+        paths = [(particle, path) for particle in ("proton", "piM") for path in find_shower_files(data_dir, particle)]
+    for particle, path in paths:
+        raw = load_shower_file(path)
+        for ev in sorted(set(raw["event_id"].tolist())):
+            rows = np.flatnonzero(raw["event_id"] == ev)
+            total = carry = np.float32(0.0)
+            for e in raw["energy"][rows]:
+                y = e - carry
+                t = total + y
+                carry, total = (t - total) - y, t
+            times = sorted(float(x) for x in raw["time"][rows])
+            pos = 0.99 * (len(times) - 1)
+            i = int(pos)
+            q = times[i] if pos == i else times[i] + (times[i + 1] - times[i]) * (pos - i)
+            for c, v in (("total_energy", total), ("n_steps", len(rows)),
+                         ("n_particles", len(set(raw["mcparticle_id"][rows].tolist()))), ("elapsed_time", q),
+                         ("particle", particle)):
+                cols[c].append(v)
+    cols = {"total_energy": np.array(cols["total_energy"], np.float32), "n_steps": np.array(cols["n_steps"]),
+            "n_particles": np.array(cols["n_particles"]), "elapsed_time": np.array(cols["elapsed_time"]),
+            "particle": np.array(cols["particle"])}
+
+    def stats(rows, names):
+        out = {}
+        for c in ("total_energy", "n_steps", "n_particles", "elapsed_time"):
+            v = cols[c][rows]
+            v = v if v.dtype == np.float32 else v.astype(np.float64)
+            var = np.var(v.astype(np.float64), ddof=1)
+            got = {"mean": np.mean(v), "median": np.median(v), "std": np.sqrt(v.dtype.type(var)),
+                   "min": np.min(v), "max": np.max(v)}
+            out[c] = {k: float(got[k]) for k in names}
+        return out
+
+    return {"overall": stats(slice(None), ("mean", "median", "std", "min", "max")),
+            "by_particle": {p: stats(cols["particle"] == p, ("mean", "median", "std"))
+                            for p in sorted(set(cols["particle"].tolist()))},
+            "n_events": {p: int(np.sum(cols["particle"] == p)) for p in ("proton", "piM")}}
+
+
+def plots_eda_phase(smi: str, work_dir: str, mpl: bool) -> float:
+    """(c) The port's EDA over phase 26's raw showers (with the caches that
+    ``create-datasets`` wrote beside them): its two JSON files against the
+    per-event loop, the figures where matplotlib draws; returns its seconds."""
+    from point_cloud_classifier_tpu_torch import eda
+
+    data, out = os.path.join(work_dir, "raw_w1"), os.path.join(work_dir, "eda_out")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        eda.main(["--data-dir", data, "--out-dir", out])
+    eda_s = time.perf_counter() - t0
+    with open(os.path.join(out, "summary_stats.json")) as f:
+        stats = json.load(f)
+    with open(os.path.join(out, "missing_values.json")) as f:
+        missing = json.load(f)
+    want = eda_reference(data)
+    worst = 0.0
+    for part in ("overall", "by_particle"):
+        if list(stats[part]) != list(want[part]):
+            raise AssertionError(f"eda: summary_stats.json's {part} keys {list(stats[part])}, expected {list(want[part])}")
+    for a, b in itertools.chain(
+            ((stats["overall"], want["overall"]),),
+            ((stats["by_particle"][p], want["by_particle"][p]) for p in want["by_particle"])):
+        for col in b:
+            if list(a[col]) != list(b[col]):
+                raise AssertionError(f"eda: {col}'s stats {list(a[col])}, expected {list(b[col])}")
+            for k in b[col]:
+                worst = max(worst, abs(a[col][k] - b[col][k]) / max(abs(b[col][k]), 1e-300))
+    figures = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+    print(f"plots eda: {stats['n_events']} events (loop {want['n_events']}), max relative |Δ| of "
+          f"summary_stats.json against the per-event loop {worst:.3e} (bound {EDA_RTOL:.0e}); missing values "
+          f"{sum(v for counts in missing.values() for v in counts.values())}; figures {figures}; "
+          f"{eda_s:.2f} s (host clock) [{smi}]")
+    if stats["n_events"] != want["n_events"] or not worst <= EDA_RTOL:
+        raise AssertionError("eda: summary_stats.json is not the per-event loop's")
+    if any(v for counts in missing.values() for v in counts.values()):
+        raise AssertionError(f"eda: missing values {missing}")
+    want_figures = sorted(["energy_distribution.png", "shower_3d.png", "correlation_matrix.png", "plot.png",
+                           "pairplot.png"]) if mpl else []
+    if figures != want_figures:
+        raise AssertionError(f"eda: figures {figures}, expected {want_figures} ({printed.getvalue()[-300:]})")
+    return eda_s
+
+
+def plots_phase(smi: str, work_dir: str) -> dict:
+    """Phase 28: the evaluation plots and the EDA.  Returns each kernel's
+    launches in the phase."""
+    t0 = time.perf_counter()
+    mpl = has_matplotlib()
+    print(f"plots: matplotlib on this machine: {'yes' if mpl else 'no'}")
+    seconds = {}
+    launches = plots_train_phase(seconds, work_dir, mpl)
+    for k, v in plots_evaluate_phase(smi, seconds, work_dir, mpl).items():
+        launches[k] += v
+    seconds["eda"] = plots_eda_phase(smi, work_dir, mpl)
+    phase_s = time.perf_counter() - t0
+    print(f"plots seconds: {({k: round(v, 2) for k, v in seconds.items()})}; phase 28 in {phase_s:.1f} s "
+          f"(budget {PLOTS_PHASE_SECONDS} s) [{smi}]")
+    if phase_s > PLOTS_PHASE_SECONDS:
+        raise AssertionError(f"plots: phase 28 took {phase_s:.1f} s")
+    return launches
+
+
 def main() -> None:
     t0 = time.perf_counter()
     marks = [t0]
@@ -4625,6 +4898,16 @@ def main() -> None:
         for name in launches:
             beside[name]["mesh_launches"] = mesh_launches.get(name, 0)
             launches[name] += mesh_launches.get(name, 0)
+        plots_launches = plots_phase(smi, run_dir)
+        lap("plots and EDA")
+        print(f"launches: plots (train --plots, evaluate of DeepSets and in-row GAT) {plots_launches}")
+        beside["gat_attention_bwd"]["plots_mirror_launches"] = plots_launches.pop("gat_out_rows")
+        beside["knn_aggregate"]["plots_select_launches"] = plots_launches.pop("knn_select")
+        plots_launches["inrow_aggregate"] += plots_launches.pop("inrow_aggregate backward")
+        plots_launches["knn_aggregate"] += plots_launches.pop("knn_aggregate backward")
+        for name in launches:
+            beside[name]["plots_launches"] = plots_launches.get(name, 0)
+            launches[name] += plots_launches.get(name, 0)
     profile_phase(smi)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{

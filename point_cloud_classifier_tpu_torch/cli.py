@@ -9,8 +9,11 @@ runs them on the CPU; the command line always means the card):
 ``serve`` (the HTTP scorer, ``server.py``), ``export``,
 ``create-datasets`` (``--workers`` forked processes) and ``convert``;
 ``--quant int8`` takes DeepSets' int8 chain in ``evaluate``, ``infer``,
-``infer-raw``, ``serve`` and ``export``.  ``train --plots`` raises (ROADMAP
-Queue 1 item 16).  Dataset creation runs before anything touches the card,
+``infer-raw``, ``serve`` and ``export``.  ``train --plots`` draws the val
+split's plots into the run directory, and ``evaluate`` the test split's
+into its own, where matplotlib is installed (``utils/plots.py``; without
+it ``train --plots`` raises before the run starts and ``evaluate`` draws
+none).  Dataset creation runs before anything touches the card,
 so its forked workers start from a process without CUDA.
 
 Data-parallel training runs one process a card under ``torchrun``, with the
@@ -60,7 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
     tp.add_argument("--log-dir", default=None, help="override logging.log_dir")
     tp.add_argument("--epochs", type=int, default=None, help="override trainer.epochs")
     tp.add_argument("--seed", type=int, default=None, help="override trainer.seed (init RNG)")
-    tp.add_argument("--plots", action="store_true", help="not ported (ROADMAP Queue 1 item 16)")
+    tp.add_argument("--plots", action="store_true", help="draw the val split's confusion matrix, ROC and precision-recall curves (matplotlib)")
     tp.add_argument(
         "--create-dataset", action="store_true",
         help="build the dataset's cache from the raw shower files before training",

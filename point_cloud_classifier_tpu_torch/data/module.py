@@ -45,6 +45,7 @@ from __future__ import annotations
 import math
 import os
 import pickle
+import time
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -372,6 +373,29 @@ def feature_block(columns: Columns, names: Sequence[str]) -> np.ndarray:
     return block.T
 
 
+# seconds a forked worker has to exit once its pool is shut down; then it is
+# killed, since one that hangs on a lock inherited from a threaded parent
+# would keep the pool's manager thread, and so the interpreter's exit, waiting
+_POOL_EXIT_GRACE = 10.0
+
+
+def _close_pool(pool, grace: float) -> None:
+    """Shut ``pool`` (a ``ProcessPoolExecutor``) down, cancelling what has not
+    started; give its workers ``grace`` seconds to exit, kill any still
+    alive, and wait for its manager thread."""
+    procs = list((getattr(pool, "_processes", None) or {}).values())  # shutdown forgets them
+    manager = getattr(pool, "_executor_manager_thread", None)
+    pool.shutdown(wait=False, cancel_futures=True)
+    deadline = time.monotonic() + grace
+    for proc in procs:
+        proc.join(timeout=max(0.0, deadline - time.monotonic()))
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    if manager is not None:
+        manager.join(timeout=max(1.0, deadline - time.monotonic()))
+
+
 class DataModule:
     """Dataset creation for one representation (subclasses give
     ``_preprocess_data``, ``_save_datasets`` and their name)."""
@@ -419,7 +443,8 @@ class DataModule:
         forked processes (sequential for one worker, or where fork is not
         available).  A file that fails, or takes more than
         ``PCC_FILE_TIMEOUT`` seconds (default 3600), raises naming it, and
-        the workers are killed."""
+        the workers are killed; on success each worker has a few seconds to
+        exit, then is killed (:func:`_close_pool`)."""
         import multiprocessing
 
         n = min(self.workers, len(jobs))
@@ -435,22 +460,19 @@ class DataModule:
         timeout = float(os.environ.get("PCC_FILE_TIMEOUT", "3600"))
         pool = ProcessPoolExecutor(max_workers=n, mp_context=multiprocessing.get_context("fork"))
         futures = [(job, pool.submit(self._preprocess_file, job)) for job in jobs]
+        grace = _POOL_EXIT_GRACE
         try:
             for job, fut in futures:
                 try:
                     yield fut.result(timeout=timeout)
                 except Exception as e:
-                    for _, other in futures:
-                        other.cancel()
-                    for proc in list(getattr(pool, "_processes", {}).values()):
-                        proc.kill()
-                    pool.shutdown(wait=False)
+                    grace = 0.0
                     raise RuntimeError(
                         f"preprocessing failed (or timed out after {timeout:.0f}s: a forked worker "
                         f"can deadlock on an inherited lock; retry with workers=1) on {job[1]}"
                     ) from e
         finally:
-            pool.shutdown(wait=False)
+            _close_pool(pool, grace)
 
     # -- the pipeline ------------------------------------------------------------
 

@@ -140,7 +140,18 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, devices: Optional[
     starts if need be).  Raises the JAX ``make_mesh``'s ``ValueError`` for a
     grid the ranks cannot fill, and also for one that leaves ranks out; on
     the card, where more cards are visible than there are ranks, it raises
-    and names the ``torchrun`` line that uses them all."""
+    and names the ``torchrun`` line that uses them all.  A group it started
+    itself is destroyed again where it raises."""
+    started = not dist.is_initialized()
+    try:
+        return _make_mesh(n_data, n_model, devices, device)
+    except BaseException:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+        raise
+
+
+def _make_mesh(n_data, n_model, devices, device) -> Mesh:
     if devices is None:
         init_process_group(device)
         devices = range(dist.get_world_size())

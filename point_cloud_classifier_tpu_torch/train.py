@@ -11,13 +11,16 @@ Counterpart of the functions of the same names in the repository's
   then ``accuracy/train``, ``accuracy/val`` and ``parameters`` in
   ``meta.json``.  The config's ``trainer`` section reaches the wrapper whole,
   so ``trainer.device_resident: true`` trains from the resident cache, as in
-  the JAX trainer.
+  the JAX trainer.  ``plots=True`` then draws the val split's confusion
+  matrix, ROC and precision-recall curves into the run directory, under the
+  JAX package's file names, which say ``test`` (``utils/plots.py``).
 - ``resume_training``: the run continued from its full state.
 - ``evaluate_model``: ``metrics.json`` (the three splits' accuracies, and
   ``quant`` where it is not ``none``) and ``classification_report.txt`` of
   the test split, under ``{model_dir}/eval`` by default, or
   ``{model_dir}/eval_int8`` when ``quant`` resolves to ``int8`` (DeepSets'
-  int8 chain, ``ops/quant.py``).
+  int8 chain, ``ops/quant.py``), then the test split's three plots where
+  matplotlib is installed (without it, one line says so).
 - ``infer``: a CSV of one split's probabilities, the train split unshuffled,
   also through the int8 chain where ``quant`` asks for it.
 - ``infer_raw``: a CSV of the probabilities of every event of a raw shower
@@ -29,15 +32,13 @@ Under a mesh (``trainer.data_parallel`` / ``trainer.n_model``, or
 ``resume_training``: the process group starts before the run directory is
 chosen, rank 0 chooses it and hands its version to the others, and rank 0
 alone writes ``config.yaml`` and ``meta.json`` (the wrapper writes the rest
-on rank 0 too), which are those of a meshless run.
+on rank 0 too), which are those of a meshless run.  Every rank predicts
+(a prediction gathers over the ranks); the writer rank alone draws.
 
 Accuracy and the report are computed with numpy (``utils/metrics.py``), as
 sklearn computes them.  Each runs on the card and raises where there is
 none, unless the caller passes ``device="cpu"``; what they write is the
 same either way.
-
-Not ported yet: the evaluation plots (``train_model(plots=True)`` raises;
-``evaluate_model`` writes none and says so; ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -58,6 +59,12 @@ from point_cloud_classifier_tpu_torch.parallel.mesh import init_process_group, m
 from point_cloud_classifier_tpu_torch.utils.config import load_config, save_config
 from point_cloud_classifier_tpu_torch.utils.log import TrainingLogger
 from point_cloud_classifier_tpu_torch.utils.metrics import accuracy, classification_report
+from point_cloud_classifier_tpu_torch.utils.plots import (
+    plot_confusion_matrix,
+    plot_precision_recall_curve,
+    plot_roc_curve,
+    pyplot,
+)
 
 
 def train_model(
@@ -71,9 +78,7 @@ def train_model(
     """A whole training run (the JAX package's ``train_model``); mutates
     ``config`` as it does."""
     if plots:
-        raise NotImplementedError(
-            "evaluation plots are not ported yet (ROADMAP Queue 1 item 16)"
-        )
+        pyplot("train_model(plots=True)")  # no matplotlib: raise before the run directory exists
     dataset_name = dataset_name.lower()
     model_name = model_name.lower()
 
@@ -102,9 +107,22 @@ def train_model(
         logger.log_metric("accuracy/val", round(accuracy(y_true_val, y_pred_val), 6))
         logger.log_metric("parameters", model.get_trainable_parameters())
 
+    if plots:
+        # the JAX package draws the val split under its default split name
+        y_true_val, y_prob_val = model.predict(val_loader, return_prob=True)
+        if logger is not None:
+            _draw(y_true_val, y_pred_val, y_prob_val, log_dir)
+
     if return_log_dir:
         return log_dir
     return None
+
+
+def _draw(y_true, y_pred, y_prob, save_dir: str) -> None:
+    """The confusion matrix, precision-recall and ROC plots of one split."""
+    plot_confusion_matrix(y_true, y_pred, save_dir)
+    plot_precision_recall_curve(y_true, y_prob, save_dir)
+    plot_roc_curve(y_true, y_prob, save_dir)
 
 
 def _run_version(model_name: str, dataset_name: str, config: dict, device):
@@ -225,7 +243,8 @@ def evaluate_model(model_dir: str, save_dir: str = None, quant: str = "none", de
         save_dir = os.path.join(model_dir, "eval" if quant == "none" else f"eval_{quant}")
     os.makedirs(save_dir, exist_ok=True)
 
-    y_true_test, y_pred_test = model.predict(dataloader.get_test_loader())
+    test_loader = dataloader.get_test_loader()
+    y_true_test, y_pred_test = model.predict(test_loader)
     acc_test = accuracy(y_true_test, y_pred_test)
     print("accuracy/test", round(acc_test, 6))
     y_true_train, y_pred_train = model.predict(dataloader.get_train_loader())
@@ -246,5 +265,12 @@ def evaluate_model(model_dir: str, save_dir: str = None, quant: str = "none", de
         json.dump(metrics, f, indent=4)
     with open(os.path.join(save_dir, "classification_report.txt"), "w") as f:
         f.write(classification_report(y_true_test, y_pred_test))
-    print("evaluation plots are not ported yet (ROADMAP Queue 1 item 16): none written")
+    try:
+        pyplot("evaluate_model's plots")
+    except ImportError as e:
+        print(f"{e}; no plots written")
+        return metrics
+    y_true_test, y_prob_test = model.predict(test_loader, return_prob=True)
+    if getattr(model, "writer", True):
+        _draw(y_true_test, y_pred_test, y_prob_test, save_dir)
     return metrics

@@ -3,7 +3,7 @@ on the CPU: ``classification_report`` byte for byte against sklearn's;
 ``evaluate_model`` and ``infer`` on one run directory through both packages
 (``metrics.json`` and ``classification_report.txt`` byte for byte, the
 predictions CSVs column by column); the parser's subcommands, options,
-choices and defaults against the JAX parser's; ``train --plots``'s error;
+choices and defaults against the JAX parser's; ``train --plots``'s plots;
 ``infer-raw``, ``serve``, ``create-datasets`` and ``train --create-dataset``
 on raw shower files; ``export`` and ``--quant int8``; ``main(["train", …])`` for the four model families; and ``main``
 without a device on a host without a card."""
@@ -28,6 +28,7 @@ import pytest
 from sklearn.metrics import classification_report as sk_classification_report
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # pytest-xdist runs several test processes side by side: one thread each
 
 import train as jax_train  # noqa: E402
 from point_cloud_classifier_tpu.utils import config as jax_config  # noqa: E402
@@ -144,7 +145,10 @@ def test_evaluate_writes_the_jax_bytes(jax_runs, tmp_path, model):
     for name in ("metrics.json", "classification_report.txt"):
         with open(tmp_path / "port" / name, "rb") as a, open(tmp_path / "jax" / name, "rb") as b:
             assert a.read() == b.read(), name
-    assert sorted(os.listdir(tmp_path / "port")) == ["classification_report.txt", "metrics.json"]
+    # and the test split's three plots (tests/test_torch_plots.py holds their pixels)
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(os.listdir(tmp_path / "jax")) == [
+        "classification_report.txt", "confusion_matrix_test.png", "metrics.json", "precision_recall_test.png",
+        "roc_curve_test.png"]
 
 
 def _csv(path):
@@ -244,19 +248,19 @@ def _serve_once(argv, capsys, monkeypatch):
     return port, health, capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv, error, item", [
-    (["infer-raw", "run", "--input", "x.h5"], None, "Wrote 30 predictions to"),
-    (["serve", "run", "--quant", "int8"], None, "Serving"),
-    (["export", "run"], None, "Exported serving artifacts to"),
-    (["create-datasets", "--data-dir", "d"], None, "Scaling the following columns:"),
-    (["train", "deep_sets", "--create-dataset"], None, "Creating Step2PointPointCloud (S2PPC) dataset"),
-    (["train", "deep_sets", "--plots"], NotImplementedError, "item 16"),
+@pytest.mark.parametrize("argv, item", [
+    (["infer-raw", "run", "--input", "x.h5"], "Wrote 30 predictions to"),
+    (["serve", "run", "--quant", "int8"], "Serving"),
+    (["export", "run"], "Exported serving artifacts to"),
+    (["create-datasets", "--data-dir", "d"], "Scaling the following columns:"),
+    (["train", "deep_sets", "--create-dataset"], "Creating Step2PointPointCloud (S2PPC) dataset"),
+    (["train", "deep_sets", "--plots"], "confusion_matrix_test.png"),
 ], ids=["infer-raw", "serve", "export", "create-datasets", "train-create-dataset", "train-plots"])
 def test_unported_commands_fail_naming_their_item(tiny, jax_runs, raw_run, tmp_path, capsys, monkeypatch, argv,
-                                                  error, item):
-    """``train --plots`` raises naming its ROADMAP item and writes nothing.
-    The commands ported since run on the CPU and print the JAX package's
-    lines: ``export`` (its manifest), ``infer-raw`` (a row a raw event),
+                                                  item):
+    """Every command once refused runs on the CPU now: ``train --plots``
+    draws the val split's three plots into the run directory, and the others
+    print the JAX package's lines: ``export`` (its manifest), ``infer-raw`` (a row a raw event),
     ``serve`` (its address, ``/health`` with the int8 path that runs),
     ``create-datasets`` (the S2PT and S2PG caches over two workers, their
     scalers) and ``train --create-dataset`` (the cache, then the run, whose
@@ -282,6 +286,12 @@ def test_unported_commands_fail_naming_their_item(tiny, jax_runs, raw_run, tmp_p
         assert f"{item} {raw_run['run']} on http://127.0.0.1:{port}" in out
         assert health == {"status": "ok", "model": "deep_sets", "dataset": "s2ppc", "quant": "int8"}
         return
+    if "--plots" in argv:
+        cli.main(["train", "deep_sets", "--config-dir", str(tiny / "configs"), "--data-dir", raw_run["data"],
+                  "--log-dir", str(tmp_path / "log"), "--epochs", "1", "--plots"], device="cpu")
+        files = set(os.listdir(tmp_path / "log" / "version_0"))
+        assert {item, "roc_curve_test.png", "precision_recall_test.png", "meta.json"} <= files
+        return
     data = shutil.copytree(raw_run["data"], str(tmp_path / "data"), ignore=shutil.ignore_patterns("S2P*"))
     if command == "create-datasets":
         cli.main(["create-datasets", "--data-dir", data, "--config-dir", str(tiny / "configs"),
@@ -295,11 +305,6 @@ def test_unported_commands_fail_naming_their_item(tiny, jax_runs, raw_run, tmp_p
         return
     argv = ["train", "deep_sets", "--config-dir", str(tiny / "configs"), "--data-dir", data, "--log-dir",
             str(tmp_path / "log"), *argv[2:]]
-    if error is not None:
-        with pytest.raises(error, match=item):
-            cli.main(argv, device="cpu")
-        assert not os.path.exists(tmp_path / "log")
-        return
     cli.main([*argv, "--epochs", "1"], device="cpu")
     assert item in capsys.readouterr().out
     run = tmp_path / "log" / "version_0"

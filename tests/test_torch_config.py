@@ -22,6 +22,7 @@ import pytest
 import yaml
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # pytest-xdist runs several test processes side by side: one thread each
 
 from point_cloud_classifier_tpu.utils import config as jax_config  # noqa: E402
 from point_cloud_classifier_tpu_torch import factory  # noqa: E402

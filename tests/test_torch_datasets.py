@@ -225,3 +225,34 @@ def test_a_failing_file_names_itself(raw, tmp_path):
     for workers in (1, 2):
         with contextlib.redirect_stdout(io.StringIO()), pytest.raises(RuntimeError, match="piM_file1.h5"):
             port_tabular.Step2PointTabular(data_dir=data, create_dataset=True, workers=workers)
+
+
+def test_forked_workers_end_with_their_pool(raw, tmp_path):
+    """No forked worker outlives ``create_dataset``, built or failed, and a
+    worker that does not exit within the grace is killed: a worker left
+    behind keeps the pool's manager thread, and so the interpreter's exit,
+    waiting."""
+    import multiprocessing
+    import time
+    from concurrent.futures import ProcessPoolExecutor
+
+    from point_cloud_classifier_tpu_torch.data.module import _close_pool
+
+    data = shutil.copytree(raw, str(tmp_path / "data"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        port_tabular.Step2PointTabular(data_dir=data, create_dataset=True, workers=2)
+    assert multiprocessing.active_children() == []
+    with open(os.path.join(data, "piM_file1.h5"), "wb") as f:
+        f.write(b"not hdf5")
+    with contextlib.redirect_stdout(io.StringIO()), pytest.raises(RuntimeError, match="piM_file1.h5"):
+        port_tabular.Step2PointTabular(data_dir=str(tmp_path / "data"), create_dataset=True, workers=2)
+    assert multiprocessing.active_children() == []
+
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("fork"))
+    busy = pool.submit(time.sleep, 120)
+    while not busy.running():
+        time.sleep(0.01)
+    t0 = time.monotonic()
+    _close_pool(pool, 0.5)
+    assert time.monotonic() - t0 < 30
+    assert multiprocessing.active_children() == []

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # pytest-xdist runs several test processes side by side: one thread each
 
 from point_cloud_classifier_tpu.ops import fused_phi as jax_phi  # noqa: E402
 from point_cloud_classifier_tpu_torch.ops import fused_phi  # noqa: E402

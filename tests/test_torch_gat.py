@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # pytest-xdist runs several test processes side by side: one thread each
 
 from point_cloud_classifier_tpu.ops import gat_pallas as jax_gat  # noqa: E402
 from point_cloud_classifier_tpu.ops.inrow_graph import inrow_adjacency_xla  # noqa: E402

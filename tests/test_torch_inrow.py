@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # pytest-xdist runs several test processes side by side: one thread each
 
 from point_cloud_classifier_tpu.ops import inrow_graph as jax_inrow  # noqa: E402
 from point_cloud_classifier_tpu_torch.ops import inrow_graph  # noqa: E402

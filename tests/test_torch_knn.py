@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # pytest-xdist runs several test processes side by side: one thread each
 
 from point_cloud_classifier_tpu.ops import knn as jax_knn  # noqa: E402
 from point_cloud_classifier_tpu.ops.knn_pallas import knn_aggregate_pallas  # noqa: E402

@@ -19,6 +19,7 @@ import pytest
 from sklearn.linear_model import LogisticRegression as SkLogisticRegression
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # pytest-xdist runs several test processes side by side: one thread each
 
 from point_cloud_classifier_tpu.models import LogRegression as JaxLogRegression  # noqa: E402
 from point_cloud_classifier_tpu.models import logistic_regression as jax_lr  # noqa: E402

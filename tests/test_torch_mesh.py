@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # pytest-xdist runs several test processes side by side: one thread each
 
 import torch_mesh_jobs  # noqa: E402
 from test_parallel import (  # noqa: E402
@@ -328,6 +329,25 @@ def test_make_mesh_raises_the_jax_errors_and_names_torchrun(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     with pytest.raises(RuntimeError, match=r"torchrun --nproc-per-node 4 -m point_cloud_classifier_tpu_torch"):
         make_mesh(devices=range(1), device="cuda")
+
+
+def test_make_mesh_destroys_a_group_it_started_when_it_raises():
+    """A one-rank group that ``make_mesh`` started for a grid it then
+    refuses is destroyed again; a group the caller started is left."""
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="mesh 0x2 needs 2 devices, have 1"):
+        make_mesh(n_model=2, device="cpu")
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="mesh 0x2 needs 2 devices, have 1"):
+            make_mesh(n_model=2, device="cpu")
+        assert dist.is_initialized()
+        assert make_mesh(device="cpu").shape == {"data": 1, "model": 1}
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("env, want", [

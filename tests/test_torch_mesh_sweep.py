@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # pytest-xdist runs several test processes side by side: one thread each
 
 import torch_mesh_jobs  # noqa: E402
 from point_cloud_classifier_tpu.models import FullyConnectedNet as JaxFCN  # noqa: E402

@@ -2,9 +2,10 @@
 matplotlib, h5py or joblib, and runs without them (the kNN path, the
 flagship wire, the command line, the C++ host packers and edge builder, the
 sequential and vmapped sweeps, int8 evaluation and the serving export, dataset creation from raw HDF5
-showers, raw-file inference and the HTTP scorer, the mesh and its rank spawner, and the mesh tests'
-rank side, ``tests/torch_mesh_jobs.py``); chip_smoke.py refuses to run without a CUDA card or without
-the repository beside it."""
+showers, raw-file inference and the HTTP scorer, the EDA's JSON files, the mesh and its rank spawner,
+and the mesh tests' rank side, ``tests/torch_mesh_jobs.py``); without matplotlib ``train --plots``
+raises before its run directory exists and ``evaluate`` writes its two files; chip_smoke.py refuses to
+run without a CUDA card or without the repository beside it."""
 
 import os
 import shutil
@@ -23,7 +24,8 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "h5py", "pandas", "sklearn", "yaml"
 
 
 def _run(code_or_args, cwd=REPO, env_extra=None):
-    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", **(env_extra or {})}
+    # one torch thread, as in the test processes themselves
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1", **(env_extra or {})}
     args = code_or_args if isinstance(code_or_args, list) else ["-c", code_or_args]
     return subprocess.run(
         [sys.executable, *args], cwd=cwd, env=env, capture_output=True, text=True, timeout=120
@@ -64,8 +66,10 @@ def test_every_port_module_and_chip_smoke_import_without_jax():
     fused = {"utils.profiling", "models.windows"}
     serving = {"ops.quant", "serving"}
     raw_showers = {"data.h5lite", "data.hdf5", "data.module", "data.npz_io", "data.inference", "server"}
+    plots = {"utils.plots", "eda"}
     assert {f"point_cloud_classifier_tpu_torch.{m}"
-            for m in graph_slice | pipelines | command_line | host | sweep | fused | serving | raw_showers} <= walked
+            for m in graph_slice | pipelines | command_line | host | sweep | fused | serving | raw_showers
+            | plots} <= walked
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -262,7 +266,9 @@ def test_command_line_runs_without_jax_pandas_sklearn_or_yaml(tmp_path):
     """``train``, ``evaluate``, ``infer`` and ``convert`` through ``cli.main`` on
     the CPU for the tabular models and DeepSets, from the repository's
     configs, in a process where none of the blocked packages can be
-    imported."""
+    imported.  Without matplotlib, ``train --plots`` raises naming it before
+    a run directory exists, and ``evaluate`` writes ``metrics.json`` and the
+    report and says in one line that it drew no plot."""
     code = textwrap.dedent(
         f"""
         import json, os, sys
@@ -273,6 +279,11 @@ def test_command_line_runs_without_jax_pandas_sklearn_or_yaml(tmp_path):
         work = {str(tmp_path)!r}
         write_s2pt_cache(os.path.join(work, "data"), n_events=(70, 30, 30), seed=2)
         write_s2ppc_cache(os.path.join(work, "data"), n_events=(20, 8, 8), min_points=3, max_points=12, seed=2)
+        try:
+            main(["train", "deep_sets", "--data-dir", os.path.join(work, "data"), "--log-dir",
+                  os.path.join(work, "plots"), "--epochs", "1", "--plots"], device="cpu")
+        except ImportError as e:
+            print("plots:", e, os.path.exists(os.path.join(work, "plots")))
         for model in ("logistic_regression", "fully_connected_net", "deep_sets"):
             log = os.path.join(work, model)
             main(["train", model, "--data-dir", os.path.join(work, "data"), "--log-dir", log,
@@ -285,10 +296,15 @@ def test_command_line_runs_without_jax_pandas_sklearn_or_yaml(tmp_path):
                       "--to-torch", "--config", os.path.join(run, "config.yaml")])
             with open(os.path.join(run, "eval", "metrics.json")) as f:
                 print(model, json.load(f)["accuracy_test"])
+            print("eval:", sorted(os.listdir(os.path.join(run, "eval"))))
         """
     )
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
+    assert "plots: train_model(plots=True): matplotlib is not installed False" in proc.stdout.splitlines()
+    lines = proc.stdout.splitlines()
+    assert lines.count("eval: ['classification_report.txt', 'metrics.json']") == 3
+    assert lines.count("evaluate_model's plots: matplotlib is not installed; no plots written") == 3
     printed = dict(line.split() for line in proc.stdout.splitlines() if line.split()[:1] in
                    (["logistic_regression"], ["fully_connected_net"], ["deep_sets"]))
     assert set(printed) == {"logistic_regression", "fully_connected_net", "deep_sets"}
@@ -403,7 +419,8 @@ def test_int8_evaluation_and_export_run_without_jax(tmp_path):
 
 def test_dataset_creation_raw_inference_and_serving_run_without_jax(tmp_path):
     """``create-datasets`` (two workers), ``train --create-dataset``,
-    ``infer-raw`` and a request served over HTTP, on the CPU, in a process
+    ``infer-raw``, a request served over HTTP and the EDA (its two JSON
+    files, no figure), on the CPU, in a process
     where none of the blocked packages (h5py, pandas, sklearn and joblib
     among them) can be imported: the HDF5 reader and writer, the split, the
     scaler and its pickle are the port's own."""
@@ -433,9 +450,16 @@ def test_dataset_creation_raw_inference_and_serving_run_without_jax(tmp_path):
         with open(os.path.join(work, "p.csv")) as f:
             rows = f.read().split()[1:]
         print("rows", len(rows), "served", len(served), sorted(os.listdir(data)))
+        from point_cloud_classifier_tpu_torch.eda import main as eda_main
+        eda_main(["--data-dir", data, "--out-dir", os.path.join(work, "eda")])
+        with open(os.path.join(work, "eda", "summary_stats.json")) as f:
+            print("eda files", sorted(os.listdir(os.path.join(work, "eda"))), json.load(f)["n_events"])
         """
     )
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     line = next(line for line in proc.stdout.splitlines() if line.startswith("rows"))
     assert line.startswith("rows 20 served 20 ['S2PG', 'S2PPC', 'S2PT', 'piM_file0.h5', 'proton_file0.h5']"), line
+    line = next(line for line in proc.stdout.splitlines() if line.startswith("eda files"))
+    assert line == "eda files ['missing_values.json', 'summary_stats.json'] {'proton': 20, 'piM': 20}", line
+    assert "eda: matplotlib is not installed" in proc.stdout

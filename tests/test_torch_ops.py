@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # pytest-xdist runs several test processes side by side: one thread each
 
 from point_cloud_classifier_tpu.ops import activations as jax_act  # noqa: E402
 from point_cloud_classifier_tpu.ops import segment as jax_seg  # noqa: E402

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # pytest-xdist runs several test processes side by side: one thread each
 
 from point_cloud_classifier_tpu import factory as jax_factory  # noqa: E402
 from point_cloud_classifier_tpu.ops.activations import resolve_activation as jax_resolve_activation  # noqa: E402

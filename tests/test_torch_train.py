@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # pytest-xdist runs several test processes side by side: one thread each
 
 import train as jax_train  # noqa: E402
 from point_cloud_classifier_tpu import factory as jax_factory  # noqa: E402
@@ -297,8 +298,16 @@ def test_unported_trainer_options_raise(monkeypatch, tmp_path, kwargs, env):
             dist.destroy_process_group()
 
 
-def test_unported_train_model_options_raise(data_dir):
-    with pytest.raises(NotImplementedError, match="plots"):
+def test_unported_train_model_options_raise(data_dir, monkeypatch):
+    """The plots are ported (tests/test_torch_plots.py): without matplotlib
+    ``plots=True`` raises naming it before the run directory exists.  An
+    unknown optimizer is refused."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="matplotlib is not installed"):
         port_train.train_model("deep_sets", "s2ppc", _config(data_dir), plots=True, device="cpu")
+    assert not os.path.exists(data_dir / "log")
+    monkeypatch.delitem(sys.modules, "matplotlib")
     with pytest.raises(ValueError, match="optimizer"):
         factory.get_model("deep_sets", _config(data_dir, optimizer="sgd"), device="cpu")
