@@ -18,9 +18,13 @@ result):
    on the card, f32 and bf16, at the DeepSets config widths (6→256→256,
    residual, quick gelu), with a ragged point count, an empty event, padding
    rows, the flagship ``B=256, P=65,536`` shape, fewer points than one
-   64-row tile and one tile plus one, and chains of width 64 and 384; each
-   line names the kernel variant the case ran (sliced for the DeepSets chain
-   in bf16, general for it in f32 and for every other chain);
+   64-row tile and one tile plus one, chains of width 64, 384, 512 and 1024,
+   the tail's one bare [256, 256] layer over 256-wide rows, and one point an
+   event (``B = P = 4,096``: the pooled sums are the chain's rows); each line
+   names the kernel variant the case ran (sliced for the DeepSets chain in
+   bf16, tf32x3 for every f32 chain, general for the other bf16 chains) and,
+   in f32, its distance to ``phi_pool_tf32x3_plain`` (the variant's products
+   in plain PyTorch);
 4. backward kernel against plain: the backward of ``phi_pool`` (kernel K2)
    against ``phi_pool_bwd_plain`` at the same cases, f32 and bf16, with
    ``d_points`` asked for and not (sliced for the DeepSets chain in both
@@ -36,7 +40,10 @@ result):
    val accuracy and the checkpoints checked; then five steps of the kernel
    route against the plain route from the same weights;
 7. times: CUDA-event times of both kernels and their plain versions at both
-   shapes and dtypes; ``predict`` and the train step per batch on the kernel
+   shapes and dtypes; f32 K1 alone at the config, flagship, tail, φ [512,
+   512] and φ [1024, 1024] shapes, its tf32x3 variant beside the general one
+   (``_phi_pool_cuda(general=True)``) in turns, with the f32 and the 3xTF32
+   bounds; ``predict`` and the train step per batch on the kernel
    and plain routes at batch sizes 32 and 256, in f32 and bf16 compute; and
    a ``torch.profiler`` trace of the B=256 f32 train step;
 8. GAT kernel against plain: ``gat_attention`` (kernel K3) against
@@ -276,8 +283,10 @@ Beside each kernel's time the script works out the least time the card could
 take for the same work (``bound_ms``: the bytes the function must move over
 3.35 TB/s, or its operations over 67 TFLOP/s of f32 outside the tensor
 cores, whichever is longer; for K1 and K2 in bf16 the operations over 989
-TFLOP/s of dense bf16 in the tensor cores) and, where one PyTorch call
-computes the same function, that call's time (``library_ms``).
+TFLOP/s of dense bf16 in the tensor cores; for f32 K1 also
+``bound_tf32x3_ms``, three times its operations over 495 TFLOP/s of dense
+TF32 in the tensor cores, the bound of its tf32x3 variant) and, where one
+PyTorch call computes the same function, that call's time (``library_ms``).
 
 The line before the last is one JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -285,6 +294,7 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import filecmp
@@ -335,10 +345,12 @@ from point_cloud_classifier_tpu_torch.native.host import build_event_edges_nativ
 from point_cloud_classifier_tpu_torch.ops.dispatch import force_plain
 from point_cloud_classifier_tpu_torch.ops.fused_phi import (
     _phi_pool_bwd_cuda,
+    _phi_pool_cuda,
     phi_forward,
     phi_pool,
     phi_pool_bwd_plain,
     phi_pool_plain,
+    phi_pool_tf32x3_plain,
 )
 from point_cloud_classifier_tpu_torch.ops.gat import (
     _gat_attention_bwd_cuda,
@@ -446,6 +458,10 @@ KERNELS = {
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12  # dense bf16 in the tensor cores
+# dense TF32 in the tensor cores: f32 K1's tf32x3 variant takes three TF32
+# products for each f32 one, so its bound counts three times the operations
+TF32_FLOPS_PER_S = 495e12
+TF32_PASSES = 3
 # configs/graph_net.yaml (model, dataset and trainer sections); the GAT arm
 # sets use_gat
 GRAPH_CONFIG = {
@@ -601,6 +617,12 @@ def bound_ms(n_bytes: float, n_flops: float, flops_per_s: float = F32_FLOPS_PER_
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def tf32x3_bound_ms(n_bytes: float, n_flops: float):
+    """bound_ms of f32 work taken as f32 K1's tf32x3 variant takes it: three
+    TF32 products for each f32 one, on the tensor cores' 495 TFLOP/s."""
+    return bound_ms(n_bytes, TF32_PASSES * n_flops, TF32_FLOPS_PER_S)
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -633,20 +655,26 @@ def _uniform(rng, bound, shape):
     return rng.uniform(-bound, bound, size=shape).astype(np.float32)
 
 
-def phi_inputs(b, p, dtype, seed, empty_event=True, final=False, widths=None):
-    """Flat-wire points for ``b`` events in ``p`` rows: events contiguous,
-    event 1 empty, the rest of the rows padding (segment ``b``); the φ chain
-    of ``widths`` (the config's [256, 256] unless given)."""
+def phi_inputs(b, p, dtype, seed, empty_event=True, final=False, widths=None, in_dim=6,
+               singletons=False):
+    """Flat-wire points of ``in_dim`` features for ``b`` events in ``p``
+    rows: events contiguous, event 1 empty, the rest of the rows padding
+    (segment ``b``), or with ``singletons`` one point an event (``b = p``);
+    the φ chain of ``widths`` (the config's [256, 256] unless given; [] for
+    none, the bare final linear alone)."""
     rng = np.random.default_rng(seed)
-    sizes = rng.multinomial(int(p * 0.9), np.ones(b) / b)
-    if empty_event:
-        sizes[0] += sizes[1]
-        sizes[1] = 0
-    seg = np.full(p, b, dtype=np.int32)
-    seg[: sizes.sum()] = np.repeat(np.arange(b, dtype=np.int32), sizes)
-    points = rng.normal(size=(p, 6)).astype(np.float32)
-    params, last = [], 6
-    for width in widths or CONFIG["model"]["phi_layers"]:
+    if singletons:
+        seg = np.arange(p, dtype=np.int32)
+    else:
+        sizes = rng.multinomial(int(p * 0.9), np.ones(b) / b)
+        if empty_event:
+            sizes[0] += sizes[1]
+            sizes[1] = 0
+        seg = np.full(p, b, dtype=np.int32)
+        seg[: sizes.sum()] = np.repeat(np.arange(b, dtype=np.int32), sizes)
+    points = rng.normal(size=(p, in_dim)).astype(np.float32)
+    params, last = [], in_dim
+    for width in CONFIG["model"]["phi_layers"] if widths is None else widths:
         params.append((_uniform(rng, last**-0.5, (last, width)), _uniform(rng, last**-0.5, (width,))))
         last = width
     if final:
@@ -656,53 +684,112 @@ def phi_inputs(b, p, dtype, seed, empty_event=True, final=False, widths=None):
     return torch.from_numpy(points).to(dev, dtype), torch.from_numpy(seg).to(dev), params
 
 
-# (name, events, point rows, a bare final linear, the φ widths): the DeepSets
-# chain takes the sliced variant of K2 and of bf16 K1 (64-row tiles, four
-# blocks a tile), so P below one tile and one over it; f32 K1 and every other
-# chain the general one
+# (name, events, point rows, a bare final linear, the φ widths, the points'
+# width, one point an event, the element types): the DeepSets chain takes the sliced variant of
+# K2 and of bf16 K1 (64-row tiles, four blocks a tile), so P below one tile
+# and one over it; f32 K1 takes the tf32x3 variant at every case (64-row
+# tiles up to width 256, a cluster of two at 512, of four on 32-row tiles at
+# 1024); every other launch the general one.  The tail's case is the one bare
+# [256, 256] layer over 256-wide rows.  With one point an event the pooled
+# sums are the chain's rows, so no sum averages a product's rounding away:
+# there a one-pass TF32 product would miss the f32 bound.  Those four cases
+# hold f32 K1's tf32x3 variant and run in f32 (bf16 K2 at width 1024 reads
+# a relative Frobenius distance of 2.5e-3, over its bound, set at width 384
+# and below: ROADMAP.md Queue 3).
+BOTH = (torch.float32, torch.bfloat16)
+F32 = (torch.float32,)
+PhiCase = collections.namedtuple("PhiCase", "name b p final widths in_dim singletons dtypes",
+                                 defaults=(6, False, BOTH))
 PHI_CASES = [
-    ("config B=32 P=8192", CONFIG_B, CONFIG_P, False, None),
-    ("ragged B=7 P=1001", 7, 1001, False, None),
-    ("ragged B=7 P=1001 +final linear", 7, 1001, True, None),
-    ("flagship B=256 P=65536", FLAGSHIP_B, FLAGSHIP_P, False, None),
-    ("under one tile B=3 P=37", 3, 37, False, None),
-    ("one tile + 1 B=3 P=65", 3, 65, False, None),
-    ("width 64 B=7 P=1001", 7, 1001, False, [64, 64]),
-    ("width 384 B=7 P=1001", 7, 1001, False, [384, 384]),
+    PhiCase("config B=32 P=8192", CONFIG_B, CONFIG_P, False, None),
+    PhiCase("ragged B=7 P=1001", 7, 1001, False, None),
+    PhiCase("ragged B=7 P=1001 +final linear", 7, 1001, True, None),
+    PhiCase("flagship B=256 P=65536", FLAGSHIP_B, FLAGSHIP_P, False, None),
+    PhiCase("under one tile B=3 P=37", 3, 37, False, None),
+    PhiCase("one tile + 1 B=3 P=65", 3, 65, False, None),
+    PhiCase("width 64 B=7 P=1001", 7, 1001, False, [64, 64]),
+    PhiCase("width 384 B=7 P=1001", 7, 1001, False, [384, 384]),
+    PhiCase("width 512 B=7 P=1001", 7, 1001, False, [512, 512], dtypes=F32),
+    PhiCase("width 1024 B=7 P=1001", 7, 1001, False, [1024, 1024], dtypes=F32),
+    PhiCase("tail: bare [256, 256] B=7 P=1001", 7, 1001, True, [], 256, dtypes=F32),
+    PhiCase("one point an event B=P=4096", 4096, 4096, False, None, 6, True, F32),
 ]
 
 
-def expected_variant(final: bool, widths, dtype, backward: bool) -> str:
+def case_spec(widths):
+    """The hidden layers' spec of a case: plain, then residual (the
+    configs' residual_block), or none for the bare layer alone."""
+    n = len(CONFIG["model"]["phi_layers"] if widths is None else widths)
+    return (("plain", False),) + (("residual", False),) * (n - 1) if n else ()
+
+
+def takes_tf32x3(dims) -> bool:
+    """csrc/phi_pool.cu:tf32x3_plan for an f32 chain of widths ``dims``
+    (input first): points of at most 8 features or a multiple of 8, every
+    layer's width a multiple of 8 C, the widest at most 1024 (C = 1 up to
+    256, 2 up to 512, 4 up to 1024), the block within 227 KB."""
+    widest = max(dims[1:])
+    cluster = 1 if widest <= 256 else 2 if widest <= 512 else 4 if widest <= 1024 else 0
+    if not cluster or not (dims[0] <= 8 or dims[0] % 8 == 0):
+        return False
+    rows = 32 if cluster == 4 else 64
+    # h and x, three staged chunks of W (hi and lo, [256][12]), two tiles'
+    # segment ids, six mbarriers
+    smem = 4 * (rows * (widest + 4 + max(8, dims[0]) + 4) + 3 * 2 * 256 * 12) + 4 * 2 * rows + 8 * 6
+    return all(d % (8 * cluster) == 0 for d in dims[1:]) and smem <= 232448
+
+
+def expected_variant(case: PhiCase, dtype, backward: bool) -> str:
     """Which variant the C entry must choose for a case: by its shape, its
     element type and the kernel (K2 when ``backward``) alone."""
-    sliced = widths is None and not final and (backward or dtype == torch.bfloat16)
-    return "sliced" if sliced else "general"
+    config_chain = case.widths is None and not case.final and case.in_dim == 6
+    if config_chain and (backward or dtype == torch.bfloat16):
+        return "sliced"
+    widths = CONFIG["model"]["phi_layers"] if case.widths is None else case.widths
+    dims = [case.in_dim, *widths] + ([(widths or [case.in_dim])[-1]] if case.final else [])
+    if not backward and dtype == torch.float32 and takes_tf32x3(dims):
+        return "tf32x3"
+    return "general"
 
 
 def kernel_phase():
-    """K1 against plain at every case; returns the config-shape f32 error."""
-    config_err = None
-    for name, b, p, final, widths in PHI_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
-            points, seg, params = phi_inputs(b, p, dtype, SEED, final=final, widths=widths)
-            out = phi_pool(points, seg, SPEC, params, "gelu", b + 1)
+    """K1 against plain at every case, and each f32 launch's distance to
+    phi_pool_tf32x3_plain (printed, not bounded: that version models the
+    tf32x3 variant's products, not its order of sums).  Returns the
+    config-shape f32 error and the largest f32 distance to the tf32x3
+    plain version."""
+    config_err, tf32x3_worst = None, 0.0
+    for case in PHI_CASES:
+        name, b, p, final, widths, in_dim, singletons, dtypes = case
+        spec = case_spec(widths)
+        for dtype in dtypes:
+            points, seg, params = phi_inputs(b, p, dtype, SEED, final=final, widths=widths, in_dim=in_dim,
+                                             singletons=singletons)
+            out = phi_pool(points, seg, spec, params, "gelu", b + 1)
             torch.cuda.synchronize()
-            ref = phi_pool_plain(points, seg, SPEC, params, "gelu", b + 1)
+            ref = phi_pool_plain(points, seg, spec, params, "gelu", b + 1)
             torch.cuda.synchronize()
             if out.shape != ref.shape or not torch.isfinite(out).all():
                 raise AssertionError(f"{name} {dtype}: bad output {tuple(out.shape)}")
             err = (out - ref).abs().max().item()
             scale = max(1.0, ref.abs().max().item())
             rel = err / scale
+            beside = ""
+            if dtype == torch.float32:
+                tf32x3 = phi_pool_tf32x3_plain(points, seg, spec, params, "gelu", b + 1)
+                to_tf32x3 = (out - tf32x3).abs().max().item() / scale
+                tf32x3_worst = max(tf32x3_worst, to_tf32x3)
+                beside = f"; max_rel to phi_pool_tf32x3_plain {to_tf32x3:.3e}"
             print(f"kernel {name} {str(dtype)[6:]} [{phi_pool.variant} variant]: max_abs_err {err:.3e}, "
-                  f"max_rel_err {rel:.3e} (bound {TOL[dtype]:.0e}), |ref| max {scale:.3e}")
+                  f"max_rel_err {rel:.3e} (bound {TOL[dtype]:.0e}), |ref| max {scale:.3e}{beside}")
             if not rel <= TOL[dtype]:
                 raise AssertionError(f"K1 disagrees with plain: {name} {dtype} rel {rel:.3e}")
-            if phi_pool.variant != expected_variant(final, widths, dtype, False):
+            if phi_pool.variant != expected_variant(case, dtype, False):
                 raise AssertionError(f"K1 {name}: the {phi_pool.variant} variant ran")
             if (b, p, dtype) == (CONFIG_B, CONFIG_P, torch.float32):
                 config_err = err
-    return config_err
+    print(f"kernel K1 f32: the largest max_rel to phi_pool_tf32x3_plain over the cases {tf32x3_worst:.3e}")
+    return config_err, tf32x3_worst
 
 
 def _errors(out, ref):
@@ -717,22 +804,25 @@ def bwd_kernel_phase():
     K1's cases, and K2 twice for bit-equal gradients; returns the
     config-shape f32 max |Δ|."""
     config_err = None
-    for name, b, p, final, widths in PHI_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
+    for case in PHI_CASES:
+        name, b, p, final, widths, in_dim, singletons, dtypes = case
+        spec = case_spec(widths)
+        for dtype in dtypes:
             for with_points in (True, False):
-                points, seg, params = phi_inputs(b, p, dtype, SEED, final=final, widths=widths)
+                points, seg, params = phi_inputs(b, p, dtype, SEED, final=final, widths=widths,
+                                                 in_dim=in_dim, singletons=singletons)
                 width = params[-1][0].shape[1]
                 g = torch.from_numpy(
                     np.random.default_rng(SEED + 3).normal(size=(b + 1, width)).astype(np.float32)
                 ).cuda()
                 points.requires_grad_(with_points)
                 flat = [t.requires_grad_() for layer in params for t in layer]
-                out = phi_pool(points, seg, SPEC, params, "gelu", b + 1)
+                out = phi_pool(points, seg, spec, params, "gelu", b + 1)
                 wrt = ([points] if with_points else []) + flat
                 grads = torch.autograd.grad(out, wrt, g)
                 torch.cuda.synchronize()
                 d_points, ref = phi_pool_bwd_plain(
-                    points.detach(), seg, g, SPEC, params, "gelu", b + 1, with_points=with_points
+                    points.detach(), seg, g, spec, params, "gelu", b + 1, with_points=with_points
                 )
                 torch.cuda.synchronize()
                 refs = ([d_points] if with_points else []) + ref
@@ -749,7 +839,7 @@ def bwd_kernel_phase():
                     bounds = f"rel_fro bound {BWD_BF16_FRO:.0e}"
                     ok = worst[2] <= BWD_BF16_FRO
                 # the same launch again: every sum of K2 runs in a fixed order
-                again = _phi_pool_bwd_cuda(points.detach(), seg, g, SPEC, params, "gelu", b + 1,
+                again = _phi_pool_bwd_cuda(points.detach(), seg, g, spec, params, "gelu", b + 1,
                                            with_points=with_points)
                 again = ([again[0]] if with_points else []) + again[1]
                 same = all(torch.equal(a, c) for a, c in zip(grads, again, strict=True))
@@ -761,7 +851,7 @@ def bwd_kernel_phase():
                     raise AssertionError(f"K2 disagrees with plain: {name} {dtype} {worst}")
                 if not same:
                     raise AssertionError(f"K2 {name} {dtype}: two runs on the same inputs differ")
-                if phi_pool.bwd_variant != expected_variant(final, widths, dtype, True):
+                if phi_pool.bwd_variant != expected_variant(case, dtype, True):
                     raise AssertionError(f"K2 {name}: the {phi_pool.bwd_variant} variant ran")
                 if (b, p, dtype, with_points) == (CONFIG_B, CONFIG_P, torch.float32, False):
                     config_err = worst[0]
@@ -961,6 +1051,34 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=20, replays=3) -> float:
+    """ms a call of ``fn`` on the device alone: ``iters`` calls captured in
+    one CUDA graph (after a warm-up on a side stream, which also sets each
+    kernel's attributes outside the capture), replayed ``replays`` times
+    between CUDA events.  Unlike cuda_ms, the host's launch gaps are not in
+    it, which at small shapes are as long as the kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def _per_model(batches, n_models):
     """One list of batches per model: ``batches`` itself when it already is
     such a list of lists, else the same list for every model."""
@@ -1051,19 +1169,23 @@ def times_phase(smi: str, run_dir: str):
             # bf16: points and weights are read as bf16; g, the sums and the
             # weight gradients stay f32
             scale = 1 if f32 else 0.5
-            fwd = bound_ms(_nbytes(points, seg) + scale * _nbytes(*flat) + out_bytes,
-                           p * sum(per_row), peak)
+            fwd_bytes = _nbytes(points, seg) + scale * _nbytes(*flat) + out_bytes
+            fwd = bound_ms(fwd_bytes, p * sum(per_row), peak)
             bwd = bound_ms(_nbytes(points, seg, g) + scale * _nbytes(*flat) + _nbytes(*flat),
                            p * (2 * sum(per_row) + sum(per_row[1:])), peak)
+            # f32 K1 on the tensor cores: its 3xTF32 bound beside the f32 one
+            tc = tf32x3_bound_ms(fwd_bytes, p * sum(per_row)) if f32 else None
+            tc_shown = (f"; K1 3xTF32 {tc[0]:.4f} ms by {tc[1]} (3 x operations over 495 TFLOP/s), K1 at "
+                        f"{kernel_ms / tc[0]:.1f}x it" if f32 else "")
             print(f"bound phi_pool {name} {str(dtype)[6:]}: K1 {fwd[0]:.4f} ms by {fwd[1]}, K2 {bwd[0]:.4f} "
                   f"ms by {bwd[1]} (3.35 TB/s, "
                   f"{'67 TFLOP/s f32 outside the tensor cores' if f32 else '989 TFLOP/s dense bf16'}); "
-                  f"K1 at {kernel_ms / fwd[0]:.1f}x its bound, K2 at {bwd_ms / bwd[0]:.1f}x; no single "
-                  f"PyTorch call computes either")
+                  f"K1 at {kernel_ms / fwd[0]:.1f}x its bound, K2 at {bwd_ms / bwd[0]:.1f}x{tc_shown}; no "
+                  f"single PyTorch call computes either")
             if name == "config" and f32:
                 config_times = {
                     "phi_pool": dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=fwd[0],
-                                     bound_by=fwd[1], library_ms=None),
+                                     bound_by=fwd[1], library_ms=None, bound_tf32x3_ms=tc[0]),
                     "phi_pool_bwd": dict(ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd[0],
                                          bound_by=bwd[1], library_ms=None),
                 }
@@ -1090,6 +1212,55 @@ def times_phase(smi: str, run_dir: str):
                   f"synchronise: K1+K2 route {kernel[0]:.4f} ({kernel[1]:.4f}-{kernel[2]:.4f}) ms, "
                   f"plain route {plain[0]:.4f} ({plain[1]:.4f}-{plain[2]:.4f}) ms [{smi}]")
     return config_times
+
+
+# f32 K1 alone at the shapes the main path gives it: (name, events, point
+# rows, φ widths, the points' width); [] is the tail's one bare [256, 256]
+# layer over 256-wide rows, as fused_phi: tail gives it
+K1_F32_SHAPES = (
+    ("config", CONFIG_B, CONFIG_P, None, 6),
+    ("flagship", FLAGSHIP_B, FLAGSHIP_P, None, 6),
+    ("tail", FLAGSHIP_B, FLAGSHIP_P, [], 256),
+    ("phi 512", FLAGSHIP_B, FLAGSHIP_P, [512, 512], 6),
+    ("phi 1024", FLAGSHIP_B, FLAGSHIP_P, [1024, 1024], 6),
+)
+
+
+def k1_variants_phase(smi: str) -> dict:
+    """f32 K1 alone at K1_F32_SHAPES: the variant the C entry takes (tf32x3)
+    against the general variant (pcc_phi_pool_general), on the device alone
+    (graph_ms) in turns (taken, general, general, taken), and beside the
+    plain version (cuda_ms), with the f32 and the 3xTF32 bound.  Returns
+    the readings by shape."""
+    readings = {}
+    for name, b, p, widths, in_dim in K1_F32_SHAPES:
+        final = widths == []
+        spec = case_spec(widths)
+        points, seg, params = phi_inputs(b, p, torch.float32, SEED + 29, final=final, widths=widths,
+                                         in_dim=in_dim)
+        run = lambda: phi_pool(points, seg, spec, params, "gelu", b + 1)  # noqa: E731
+        general = lambda: _phi_pool_cuda(points, seg, spec, params, "gelu", b + 1, general=True)  # noqa: E731
+        plain_ms = cuda_ms(lambda: phi_pool_plain(points, seg, spec, params, "gelu", b + 1))
+        taken = [graph_ms(run)]
+        run()
+        variant = phi_pool.variant
+        old = [graph_ms(general), graph_ms(general)]
+        taken.append(graph_ms(run))
+        events_ms = cuda_ms(run)
+        flops = p * sum(2 * w.shape[0] * w.shape[1] for w, _ in params)
+        n_bytes = _nbytes(points, seg, *[t for layer in params for t in layer]) + (b + 1) * params[-1][0].shape[1] * 4
+        f32, tc = bound_ms(n_bytes, flops), tf32x3_bound_ms(n_bytes, flops)
+        dims = [in_dim] + [w.shape[1] for w, _ in params]
+        print(f"time K1 f32 {name} B={b} P={p} φ {dims}, device alone (a CUDA graph of 20 calls): {variant} "
+              f"variant {taken[0]:.4f} / {taken[1]:.4f} ms, general variant {old[0]:.4f} / {old[1]:.4f} ms; "
+              f"by events between eager calls: {variant} {events_ms:.4f} ms, plain {plain_ms:.4f} ms; bounds f32 "
+              f"{f32[0]:.4f} ms by {f32[1]}, 3xTF32 {tc[0]:.4f} ms by {tc[1]}; {variant} at "
+              f"{min(taken) / tc[0]:.1f}x its 3xTF32 bound [{smi}]")
+        readings[name] = {"variant": variant, "ms": min(taken), "general_ms": min(old), "events_ms": events_ms,
+                          "plain_ms": plain_ms, "bound_ms": f32[0], "bound_tf32x3_ms": tc[0]}
+        del points, seg, params
+        torch.cuda.empty_cache()
+    return readings
 
 
 def _shown(ms) -> str:
@@ -1363,21 +1534,28 @@ def flagship_kernel_phase(smi: str) -> dict:
             per_row = [2 * w.shape[0] * w.shape[1] for w, _ in params]
             f32 = dtype == torch.float32
             peak, scale = (F32_FLOPS_PER_S, 1) if f32 else (BF16_FLOPS_PER_S, 0.5)
-            fwd = bound_ms(_nbytes(points, ids) + scale * _nbytes(*flat) + b1 * 256 * 4,
-                           n_points * sum(per_row), peak)
+            fwd_bytes = _nbytes(points, ids) + scale * _nbytes(*flat) + b1 * 256 * 4
+            fwd = bound_ms(fwd_bytes, n_points * sum(per_row), peak)
+            tc = f", 3xTF32 {tf32x3_bound_ms(fwd_bytes, n_points * sum(per_row))[0]:.4f}" if f32 else ""
             bwd = bound_ms(_nbytes(points, ids, g) + scale * _nbytes(*flat) + _nbytes(*flat),
                            n_points * (2 * sum(per_row) + sum(per_row[1:])), peak)
             print(f"flagship kernel K1 {name} ({n_points} points, {1 - n_points / (FLAGSHIP_B * m):.3f} "
                   f"in-row padding) [{phi_pool.variant} variant]: max_abs_err {err:.3e}, max_rel_err "
                   f"{rel:.3e} (bound {TOL[dtype]:.0e}) against the masked row sum; K2 "
                   f"[{phi_pool.bwd_variant} variant] {'; '.join(lines)}")
-            print(f"time flagship {name}: K1 {kernel_ms:.4f} ms (bound {fwd[0]:.4f} by {fwd[1]}), "
+            print(f"time flagship {name}: K1 [{phi_pool.variant} variant] {kernel_ms:.4f} ms (bound "
+                  f"{fwd[0]:.4f} by {fwd[1]}{tc}), "
                   f"plain dense forward {plain_ms:.4f} ms; K2 without d_points {bwd_ms:.4f} ms (bound "
                   f"{bwd[0]:.4f} by {bwd[1]}), plain {bwd_plain_ms:.4f} ms [{smi}]")
             if not rel <= TOL[dtype]:
                 raise AssertionError(f"K1 on the dense wire disagrees: {name} rel {rel:.3e}")
             if (m, f32) == (256, True):
+                kernel_ms_general = cuda_ms(lambda: _phi_pool_cuda(points, ids, SPEC, params, "gelu", b1,
+                                                                   general=True))
+                print(f"time flagship {name}: K1 general variant {kernel_ms_general:.4f} ms beside the "
+                      f"{kernel_ms:.4f} above [{smi}]")
                 out = {"dense_ms": {"phi_pool": kernel_ms, "phi_pool_bwd": bwd_ms},
+                       "dense_general_ms": {"phi_pool": kernel_ms_general},
                        "dense_plain_ms": {"phi_pool": plain_ms, "phi_pool_bwd": bwd_plain_ms},
                        "dense_bound_ms": {"phi_pool": fwd[0], "phi_pool_bwd": bwd[0]},
                        "dense_max_abs_err": {"phi_pool": err}}
@@ -3320,7 +3498,7 @@ PROFILE_MARK_CYCLES = 1000
 # of them once (K4's launch also runs gat_bwd_sources_kernel, K2's may run
 # reduce_slabs_kernel, K5's selection its two range kernels)
 REPLAY_KERNELS = (
-    (("phi_pool",), ("phi_pool_kernel", "phi_pool_sliced_kernel")),
+    (("phi_pool",), ("phi_pool_kernel", "phi_pool_sliced_kernel", "phi_pool_tf32x3_kernel")),
     (("phi_pool_bwd",), ("phi_pool_bwd_kernel", "phi_pool_bwd_sliced_kernel")),
     (("gat_attention",), ("gat_attention_pieces_kernel", "gat_attention_channels_kernel")),
     (("gat_attention_bwd",), ("gat_bwd_rows_kernel",)),
@@ -3598,9 +3776,11 @@ def tail_phase(smi: str, work_dir: str) -> dict:
     # the least time: h read once and the sums written once, or the
     # products (forward 2·P·H·H; backward dz Wᵀ and hᵀ dz, 4·P·H·H)
     k1_bound, _ = bound_ms(_nbytes(h, seg, w, b, out), 2 * FLAGSHIP_P * 256 * 256)
+    k1_bound_tc, _ = tf32x3_bound_ms(_nbytes(h, seg, w, b, out), 2 * FLAGSHIP_P * 256 * 256)
     k2_bound, _ = bound_ms(_nbytes(h, seg, g, w, b, d_h, *grads), 4 * FLAGSHIP_P * 256 * 256)
     print(f"tail: K1 over one bare linear [256, 256] at P={FLAGSHIP_P}, B={FLAGSHIP_B}, f32: max "
-          f"relative {fwd_err:.3e} (bound {TOL[torch.float32]:.0e}), {k1_ms:.4f} ms (least {k1_bound:.4f}); "
+          f"relative {fwd_err:.3e} (bound {TOL[torch.float32]:.0e}), {k1_ms:.4f} ms (least {k1_bound:.4f}, "
+          f"3xTF32 {k1_bound_tc:.4f}); "
           f"K2 with d_points {bwd_err:.3e} (bound {BWD_F32_REL:.0e}), {k2_ms:.4f} ms (least "
           f"{k2_bound:.4f}); variants {phi_pool.variant}, {phi_pool.bwd_variant} [{smi}]")
     if not (fwd_err <= TOL[torch.float32] and bwd_err <= BWD_F32_REL):
@@ -3627,7 +3807,7 @@ def tail_phase(smi: str, work_dir: str) -> dict:
     if not meta["accuracy/val"] >= VAL_ACC_FLOOR:
         raise AssertionError(f"tail: accuracy/val {meta['accuracy/val']} below {VAL_ACC_FLOOR}")
     return {"phi_pool": {"tail_launches": counts["phi_pool"], "tail_ms": k1_ms, "tail_bound_ms": k1_bound,
-                         "tail_max_rel_err": fwd_err},
+                         "tail_bound_tf32x3_ms": k1_bound_tc, "tail_max_rel_err": fwd_err},
             "phi_pool_bwd": {"tail_launches": counts["phi_pool_bwd"], "tail_ms": k2_ms,
                              "tail_bound_ms": k2_bound, "tail_max_rel_err": bwd_err}}
 
@@ -3858,10 +4038,13 @@ def int8_times_phase(smi: str) -> None:
                 samples[name].append(cuda_ms(lambda: step(routes[name]), iters=INT8_TIME_ITERS, warmup=2)
                                      / len(batches))
         ms = {name: float(np.median(s)) for name, s in samples.items()}
+        if "K1" in ms:
+            step(routes["K1"])  # the variant the K1 route's launches take
+            k1_variant = phi_pool.variant
         best_float = min(v for k, v in ms.items() if k != "int8")
         crossover[width] = ms["int8"] < best_float
-        shown = ", ".join(f"{name} {ms[name]:.4f} ({_spread(samples[name])})" for name in ("K1", "plain", "int8")
-                          if name in ms)
+        shown = ", ".join(f"{name}{f' [{k1_variant}]' if name == 'K1' else ''} {ms[name]:.4f} "
+                          f"({_spread(samples[name])})" for name in ("K1", "plain", "int8") if name in ms)
         print(f"int8 time φ [{width}, {width}] B={INT8_B} P={batches[0]['points'].shape[0]} f32: eval step ms "
               f"a batch {shown}{'' if 'K1' in ms else ', K1 n/a (the chain exceeds its tiles: plain route)'}; "
               f"int8 / best float ×{ms['int8'] / best_float:.3f} [{smi}]")
@@ -4800,7 +4983,8 @@ def main() -> None:
     smi = device_phase()
     build_phase()
     lap("device and build")
-    errors = {"phi_pool": kernel_phase(), "phi_pool_bwd": bwd_kernel_phase(),
+    k1_err, k1_to_tf32x3 = kernel_phase()
+    errors = {"phi_pool": k1_err, "phi_pool_bwd": bwd_kernel_phase(),
               "gat_attention": gat_kernel_phase(), "gat_attention_bwd": gat_bwd_kernel_phase(),
               "inrow_aggregate": inrow_kernel_phase(), "knn_aggregate": knn_kernel_phase()}
     lap("kernels against plain")
@@ -4844,6 +5028,8 @@ def main() -> None:
         launches.update(graph_launches)
         launches.update(knn_launches)
         times = times_phase(smi, run_dir)
+        beside["phi_pool"]["f32_shapes"] = k1_variants_phase(smi)
+        beside["phi_pool"]["max_rel_to_tf32x3_plain"] = k1_to_tf32x3
         lap("DeepSets times")
         times["gat_attention"] = graph_times_phase(smi, os.path.join(run_dir, "graph_run_1"))
         times.update(graph_train_times_phase(smi))

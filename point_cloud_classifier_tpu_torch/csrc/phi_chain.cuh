@@ -5,11 +5,12 @@
 // Rounding follows ops/fused_phi.py: every value is rounded to the element
 // type T where PyTorch forms a tensor of type T, and sums are taken in f32.
 //
-// Two families of tile product live here, one per kernel variant:
+// Two families of tile product live here, one per kernel variant (f32 K1's
+// tf32x3 variant has its own, in phi_pool.cu):
 //
 // - The sliced variant (takes_sliced() says which launches take it: the
 //   DeepSets φ chain, a narrow first layer and one 256 -> 256 layer, in K2
-//   and in bf16 K1; f32 K1 keeps the general variant, which measured faster).
+//   and in bf16 K1).
 //   Four blocks of a thread-block cluster share a 64-row tile.  Block c owns
 //   columns [64c, 64c + 64) of the wide layer: its slice of W, [256, 64],
 //   stays in its shared memory for the block's whole life (f32 68 KB, bf16
@@ -30,9 +31,9 @@
 //   a lane 4 bytes a clock, so a tile needs 8 x 8 outputs per thread just to
 //   break even with the FMA pipe; slice_dot and slice_dot_t rewritten to 8 x
 //   8 tiles (slice_dot by splitting K over four thread groups) measured no
-//   faster at the eight warps a block has, and were dropped.  What is left
-//   for f32 is the tensor cores with a 3xTF32 split (a single-pass TF32
-//   product would keep about three digits), which has not been tried.
+//   faster at the eight warps a block has, and were dropped.  f32 K1 takes
+//   the tensor cores with a 3xTF32 split instead (phi_pool.cu, the tf32x3
+//   variant); K2's f32 products are still these register tiles.
 // - The general variant (any widths, up to kMaxLayers layers): tile_dot, one
 //   output column per thread over a ROWS-row tile, weights read from L2.
 
@@ -92,25 +93,32 @@ __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// 1 / (1 + e^-x).  FAST takes the hardware's exp and reciprocal (2 ulp of f32
-// or so) for expf and the division.  Only the sliced bf16 kernels ask for it
-// (kFastSigmoid): there the value is rounded to bf16 (2^-9 relative) right
-// after, and the per-element passes are bound by these instructions, not by
-// the tensor cores.  f32 chains and the general variant keep the exact forms.
-template <bool FAST>
+// 1 / (1 + e^-x).  FAST 1 takes the hardware's exp and a correctly rounded
+// reciprocal (2 ulp of f32 or so) for expf and the division: the sliced
+// bf16 kernels ask for it (kFastSigmoid), where the value is rounded to bf16
+// (2^-9 relative) right after, and the per-element passes are bound by
+// these instructions, not by the tensor cores.  FAST 2 (kSigmoidApprox)
+// also takes the hardware's approximate division (__fdividef, 2 ulp): f32
+// K1's tf32x3 variant, whose epilogues are bound by these instructions and
+// whose products already differ from f32 ones by ~1e-6.  The general
+// variant and K2 keep the exact forms (0).
+template <int FAST>
 __device__ __forceinline__ float sigmoid(float x) {
-  if constexpr (FAST) {
+  if constexpr (FAST == 2) {
+    return __fdividef(1.0f, 1.0f + __expf(-x));
+  } else if constexpr (FAST == 1) {
     return __frcp_rn(1.0f + __expf(-x));
   } else {
     return 1.0f / (1.0f + expf(-x));
   }
 }
 template <typename T>
-constexpr bool kFastSigmoid = sizeof(T) == 2;
+constexpr int kFastSigmoid = sizeof(T) == 2 ? 1 : 0;
+constexpr int kSigmoidApprox = 2;
 
 // The activations of ops/activations.py, rounded where PyTorch rounds a
 // tensor of type T between ops.
-template <typename T, bool FAST = false>
+template <typename T, int FAST = 0>
 __device__ __forceinline__ float activate(float x, int act) {
   switch (act) {
     case kRelu:
@@ -130,7 +138,7 @@ __device__ __forceinline__ float activate(float x, int act) {
 
 // The derivative of each activation at x, in f32: the formulas of
 // ops/fused_phi.py:_act_grad.
-template <typename T, bool FAST = false>
+template <typename T, int FAST = 0>
 __device__ __forceinline__ float act_grad(float x, int act) {
   switch (act) {
     case kRelu:
@@ -215,7 +223,7 @@ __device__ __forceinline__ void tile_dot(const float* a, int lda, int k_dim,
 // rounded to T, plus the bias in T; then the activation, and the residual
 // add of the layer's input h_in (plain, residual) — or nothing (bare linear).
 // Writes the pre-activation to *z when z is not null.
-template <typename T, bool FAST = false>
+template <typename T, int FAST = 0>
 __device__ __forceinline__ float layer_out(float dot, float bias, float h_in, int kind,
                                            int act, float* z) {
   float v = rnd<T>(rnd<T>(dot) + bias);
@@ -380,27 +388,31 @@ inline bool sliced_chain(int n_layers, const int* dims, const int* kinds) {
 // Which launches take the sliced variant: decided here, for K1 (backward
 // false) and K2 (backward true), by the chain's shape, the element type and
 // the kernel, never by a failed attempt.  K2 takes it in both types and K1 in
-// bf16.  f32 K1 keeps the general variant: the sliced f32 K1 measured 0.4702
-// ms against the general one's 0.4090 ms at B=256, P=65,536 on an H100 at 700
-// W (its 4x4 register tiles and two cluster barriers a tile cost more than
-// the weights from L2 did).  Both f32 variants sum every dot in k order, so
-// K2's recompute still rounds as K1 does.  Everything else goes to the
-// general variant.
+// bf16.  A sliced f32 K1 measured 0.4702 ms against the general variant's
+// 0.4090 ms at B=256, P=65,536 on an H100 at 700 W (its 4x4 register tiles
+// and two cluster barriers a tile cost more than the weights from L2 did)
+// and is not built; f32 K1 takes phi_pool.cu's tf32x3 variant where its
+// plan holds the chain.  Its products are 3xTF32 sums on the tensor cores,
+// so K2's f32 recompute (exact f32 FMAs in k order) no longer rounds as K1
+// does: the two chains differ by a few 1e-6 of their scale
+// (docs/parity_torch.md §14).  Everything else goes to the general variant.
 inline bool takes_sliced(int n_layers, const int* dims, const int* kinds, bool is_bf16,
                          bool backward) {
   return sliced_chain(n_layers, dims, kinds) && (backward || is_bf16);
 }
 
-// The blocks a grid of this kernel may hold at once, as whole clusters.
+// The clusters of `cluster` blocks of `threads` a grid of this kernel may
+// hold at once.
 template <typename Kernel>
-inline cudaError_t max_clusters(Kernel kernel, size_t smem, int* out) {
+inline cudaError_t max_clusters(Kernel kernel, size_t smem, int* out, int cluster = kCluster,
+                                int threads = kThreads) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster);
-  cfg.blockDim = dim3(kThreads);
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -408,23 +420,31 @@ inline cudaError_t max_clusters(Kernel kernel, size_t smem, int* out) {
   return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
 }
 
-// Launch n_clusters clusters of kCluster blocks.
+// Launch n_clusters clusters of `cluster` blocks of `threads`.
 template <typename... Params, typename... Args>
-inline cudaError_t launch_clusters(void (*kernel)(Params...), int n_clusters, size_t smem,
-                                   cudaStream_t stream, Args... args) {
+inline cudaError_t launch_cluster_grid(void (*kernel)(Params...), int cluster, int n_clusters,
+                                       int threads, size_t smem, cudaStream_t stream,
+                                       Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_clusters * kCluster);
-  cfg.blockDim = dim3(kThreads);
+  cfg.gridDim = dim3(n_clusters * cluster);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
+// Launch n_clusters clusters of kCluster blocks.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_clusters(void (*kernel)(Params...), int n_clusters, size_t smem,
+                                   cudaStream_t stream, Args... args) {
+  return launch_cluster_grid(kernel, kCluster, n_clusters, kThreads, smem, stream, args...);
 }
 
 // The first layer's weights and bias for this block's columns, in shared

@@ -10,21 +10,24 @@
 // What bounds it on the H100: operations.  The 256 -> 256 layer costs about
 // 2·P·256·256 FLOPs, roughly 131 kFLOP per point, against ~1 KB per point of
 // [P, H] activation that the plain version writes and reads back for every op
-// of the chain and that this kernel never writes.  In f32 the limit is the
-// CUDA cores' FMA rate (67 TFLOP/s); in bf16 the tensor cores' rate, with the
-// per-element activation (exp, divide) next to it.
+// of the chain and that this kernel never writes.  An exact f32 product is
+// bound by the CUDA cores' FMA rate (67 TFLOP/s); f32 K1's tf32x3 variant
+// takes the tensor cores instead, three TF32 products for each f32 one, so
+// its bound is three times the operations over 495 TFLOP/s (165 TFLOP/s of
+// f32 products; mma.sync, the instruction it uses, measured 315 TFLOP/s of
+// TF32 on the H100, 105 of f32 products).  In bf16 the tensor cores' rate,
+// with the per-element activation (exp, divide) next to it.
 //
-// Two variants, chosen by the chain's shape and element type alone
-// (phi_chain.cuh:takes_sliced; pcc_phi_pool_variant reports the choice):
+// Three variants, chosen by the chain's shape and element type alone
+// (phi_chain.cuh:takes_sliced, tf32x3_plan below; pcc_phi_pool_variant
+// reports the choice, never a failed attempt):
 //
 // Sliced (bf16, a first layer of at most 8 inputs, then one 256 -> 256 layer:
 // the DeepSets φ chain in bf16).  A cluster of four blocks walks 64-row tiles;
-// block c owns columns [64c, 64c + 64) of the wide layer.  The same chain in
-// f32 keeps the general variant below: a sliced f32 K1 (slice_dot's 4x4
-// register tiles, W from shared memory) measured 0.4702 ms against the general
-// variant's 0.4090 ms at B=256, P=65,536 on an H100 at 700 W, so it is not
-// built; K2 uses the f32 slice_dot, and both sum in k order, so K2's
-// recompute still rounds as K1 does.
+// block c owns columns [64c, 64c + 64) of the wide layer.  A sliced f32 K1
+// (slice_dot's 4x4 register tiles, W from shared memory) measured 0.4702 ms
+// against the general variant's 0.4090 ms at B=256, P=65,536 on an H100 at
+// 700 W, and is not built.
 // - Its slice of W stays in shared memory for the block's whole life, so the
 //   product reads no weight from L2, whatever the number of tiles.
 // - The first layer (K <= 8, a short FMA loop and the activation) is
@@ -52,13 +55,60 @@
 //   shared-memory reads by as much), so there is one copy; the block is
 //   small enough (91 KB) for two blocks per SM, which does overlap them.
 //
-// General (every f32 chain, and in bf16 every other chain: other widths,
-// more layers, a bare final linear).  One block owns a tile of 32, 16 or 8 rows and keeps its
-// activations in shared memory (two f32 buffers of [ROWS, widest]); thread j
-// owns output column j of every row (phi_chain.cuh:tile_dot), reading the
-// weights from L2.  What does not fit 8 rows is refused (kErrTooWide).
+// Tf32x3 (f32, 1 to 8 layers, points of at most 8 features or a multiple of
+// 8, every width a multiple of 8 C up to 1024: every f32 chain on the main
+// path, the DeepSets chain at φ 256-1024 and the tail's bare [256, 256]
+// layer among them).  It replaces the general variant for these chains.
+// - Products: every operand x is split into hi = tf32(x) and lo = tf32(x -
+//   hi) (round to nearest, ties away: cvt.rna's rounding, two integer
+//   operations), and each m16n8k8 step takes lo·hi, hi·lo and hi·hi on the
+//   tensor cores (mma.sync, TF32, f32 sums; lo·lo, ~2^-22 of a product, is
+//   left out), as three passes over the warp's 16 accumulators so that no
+//   product waits for the one before.  The products land within a few 1e-6
+//   of f32 ones, where a one-pass TF32 product misses 1e-4
+//   (ops/fused_phi.py:phi_pool_tf32x3_plain, docs/parity_torch.md §14).  W
+//   is split once, when a chunk of it is staged; an activation once per warp
+//   that reads it.  (wgmma is not used: it wants both TF32 operands in
+//   shared memory, K-major, and W as an [out, in] copy.)
+// - Tiles: 64 rows, 32 at width 1024; the layer's input, points (x) or
+//   activations (h, the widest layer's width), stays in shared memory and
+//   each layer's values are written over it.  Up to width 256 one block
+//   takes a tile; at 512 a cluster of two, at 1024 of four, each block
+//   computing its 256 columns of every layer and writing them into every
+//   block's h (distributed shared memory), all but the last layer's, which
+//   it pools itself: 64 x 1024 f32 would not fit a block.
+// - Weights: four producer warps stream W through three stages of 8 k rows x
+//   256 columns (hi and lo, 24 KB a stage), reading two chunks ahead from L2
+//   into registers and splitting each value once as they stage it; eight
+//   consumer warps only multiply, run the epilogues and pool.  Stages are
+//   handed over by mbarriers, so a consumer warp waits for the producers and
+//   never for its siblings.  (Eight warps doing all of it in lock-step, a
+//   barrier a chunk, left the tensor pipe idle while they copied and split:
+//   the variant's first form was slower than the general one.)  Every block
+//   reads a tile's W from L2 again: 256 KB a 64-row tile at width 256.  Its
+//   times beside the general variant's and its bounds are in PERF.md §6
+//   (chip_smoke.py); where its consumers' clocks go, phase_clocks.py:
+//   at the flagship shape about half in the products, a quarter in the
+//   epilogues (the activation's exp and divide), an eighth waiting for
+//   staged chunks, 7% in the pool.
+// - Epilogue: the bias, the activation and the residual add in layer_out's
+//   order, the activation a compile-time constant (with_act); the sigmoid
+//   of silu and quick gelu by the hardware's exp and approximate divide
+//   (kSigmoidApprox, 2 ulp: ~1e-7 of the value, under the products' own
+//   ~1e-6).  Pooling as the other variants: run-length partial sums, one
+//   atomicAdd per run and column.
+// - Grid: one block an SM (384 threads, up to 205 KB), persistent, walking
+//   tiles; the next tile's points come in by cp.async behind this tile's
+//   later layers.
 //
-// Both: no pow-2 tile rule, the ragged last tile is masked, any P >= 1.  In
+// General (bf16 chains other than the sliced one: other widths, more layers,
+// a bare final linear; f32 chains the tf32x3 variant does not take).  One
+// block owns a tile of 32, 16 or 8 rows and keeps its activations in shared
+// memory (two f32 buffers of [ROWS, widest]); thread j owns output column j
+// of every row (phi_chain.cuh:tile_dot), reading the weights from L2.  What
+// does not fit 8 rows is refused (kErrTooWide).
+//
+// All: no pow-2 tile rule, the ragged last tile is masked, any P >= 1.  In
 // bf16 the weights and points are read as bf16, every value is rounded to
 // bf16 where the plain version rounds, and the pooled sums stay f32.
 
@@ -286,6 +336,630 @@ cudaError_t launch_sliced(const void* points, const void* seg, void* out, int n_
                          static_cast<float*>(out), n_points, n_features, num_segments, chain);
 }
 
+// -- the tf32x3 variant -------------------------------------------------------------
+
+constexpr int kChunk = 8;                         // k rows of W a chunk holds: one m16n8k8 step
+constexpr int kRingRows = 256;                    // a block's columns of a layer, at most
+constexpr int kRingLd = kChunk + 4;               // a staged row: 16-byte pieces in distinct banks
+constexpr int kSplit = 2 * kRingRows * kRingLd;   // floats a stage: hi, then lo, [n][k]
+constexpr int kStages = 3;                        // chunks staged ahead of the products
+// The block's warps by role: consumers multiply, run the epilogues and
+// pool; producers bring W's chunks in from L2, split them and stage them.
+constexpr int kConsumers = 256;
+constexpr int kProducers = 128;
+constexpr int kTf32Threads = kConsumers + kProducers;
+constexpr int kProducerCols = kRingRows / kProducers;  // columns of a chunk a producer thread takes
+constexpr int kLoadDepth = 2;  // chunks a producer thread holds in registers, the older being stored
+// The consumers' own named barrier (0 is __syncthreads).  The stages are
+// handed over by mbarriers: full[s] (every producer thread arrives after its
+// stores, a consumer warp waits) and empty[s] (each consumer warp arrives
+// once its products have read the stage, the producers wait), so that a
+// consumer warp waits for the producers and never for its siblings.
+constexpr int kConsumerBar = 1;
+constexpr int kConsumerWarps = kConsumers / 32;
+
+// f32 -> tf32 (10 explicit mantissa bits, the low 13 bits zero), to nearest,
+// ties away from zero: what cvt.rna.tf32.f32 gives for every finite value,
+// by two integer operations on the bits (sign and magnitude: half of the
+// dropped bits' range added to the magnitude, a carry running into the
+// exponent, then the 13 bits cleared), as ops/fused_phi.py:tf32_round does.
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+// v = hi + lo + (what neither holds, ~2^-22 |v|)
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+// c[16, 8] += a[16, 8] · b[8, 8], tf32 operands, f32 sums.  Fragments
+// (g = lane / 4, t = lane % 4): a {[g][t], [g + 8][t], [g][t + 4], [g + 8][t + 4]},
+// b {[t][g], [t + 4][g]}, c {[g][2t], [g][2t + 1], [g + 8][2t], [g + 8][2t + 1]}.
+// Not volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Copies into shared memory that land while the block computes; `valid`
+// false writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n_threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n_threads) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// arrive (release: this thread's shared-memory reads and writes before it
+// are ordered before the phase completes)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+          smem_addr(bar))
+      : "memory");
+}
+// wait (acquire) for the completion of the phase of the given parity
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// The warps of a ROWS-row tile: kWarpsM along the rows (32 each: two m16
+// tiles), kWarpsN along the columns; warp (wm, wn) takes the n8 tiles wn,
+// wn + kWarpsN, ... of the block's columns, kNt at most (256 columns).
+template <int ROWS>
+struct Tf32Warps {
+  static constexpr int kWarpsM = ROWS / 32;
+  static constexpr int kWarpsN = kConsumers / 32 / kWarpsM;
+  static constexpr int kNt = kRingRows / 8 / kWarpsN;
+};
+
+// Layer l's input width as the products see it: the points' width rounded
+// up to 8 (the padding is zero), or the layer below's output width.
+__device__ __forceinline__ int padded_k(const Chain& chain, int l) {
+  return l == 0 && chain.dims[0] <= 8 ? 8 : chain.dims[l];
+}
+
+// Where the chunk stream stands: rows [k0, k0 + kChunk) of layer `layer`'s
+// W.  Every block takes a layer's chunks in k order, so the SMs ask L2 for
+// the same rows of W at about the same time (starting each block's layer
+// at another chunk, to spread the reads over L2, read W half as fast).  The
+// stream runs through every layer of a tile and on into the next tile's
+// first layer, so the chunk after a layer's last is in shared memory when
+// its epilogue ends.
+struct ChunkPos {
+  int layer, k0;
+};
+
+__device__ __forceinline__ int layer_chunks(const Chain& chain, int l) {
+  return (padded_k(chain, l) + kChunk - 1) / kChunk;
+}
+
+__device__ __forceinline__ ChunkPos next_chunk(const Chain& chain, ChunkPos p) {
+  p.k0 += kChunk;
+  if (p.k0 >= padded_k(chain, p.layer)) {
+    p.k0 = 0;
+    p.layer = p.layer + 1 == chain.n_layers ? 0 : p.layer + 1;
+  }
+  return p;
+}
+
+// A chunk of W in a producer thread's registers: rows [k0, k0 + kChunk) of
+// layer l's weights at the thread's columns n of the block's [col0, col0 +
+// nb), read from L2 with no test (the row and column clamped into the
+// layer), so that nothing waits for the reads until store().  store()
+// zeroes what lies past the layer, splits each value once into tf32 hi and
+// lo and stages them transposed, stage[n * kRingLd + k] (hi) and
+// stage[kSplit / 2 + n * kRingLd + k] (lo), so that ldmatrix hands every
+// consumer lane its b fragments: two 16-byte stores of each a row,
+// neighbouring threads on neighbouring rows.
+template <int C>
+struct ChunkLoad {
+  float w[kProducerCols][kChunk];
+
+  __device__ __forceinline__ void load(const Chain& chain, ChunkPos p, int rank, int pt) {
+    const int k_dim = chain.dims[p.layer], n_dim = chain.dims[p.layer + 1];
+    const int nb = n_dim / C;
+    const float* __restrict__ W = static_cast<const float*>(chain.w[p.layer]) + rank * nb;
+#pragma unroll
+    for (int c = 0; c < kProducerCols; ++c) {
+      const int n = min(pt + c * kProducers, nb - 1);
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        w[c][k] = __ldg(W + static_cast<size_t>(min(p.k0 + k, k_dim - 1)) * n_dim + n);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(const Chain& chain, ChunkPos p, int pt, float* stage) const {
+    const int k_dim = chain.dims[p.layer], nb = chain.dims[p.layer + 1] / C;
+#pragma unroll
+    for (int c = 0; c < kProducerCols; ++c) {
+      const int n = pt + c * kProducers;
+      if (n < nb) {
+        uint32_t hi[kChunk], lo[kChunk];
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) split_tf32(p.k0 + k < k_dim ? w[c][k] : 0.0f, hi[k], lo[k]);
+        float* at = stage + n * kRingLd;
+#pragma unroll
+        for (int q = 0; q < kChunk; q += 4) {
+          *reinterpret_cast<uint4*>(at + q) = make_uint4(hi[q], hi[q + 1], hi[q + 2], hi[q + 3]);
+          *reinterpret_cast<uint4*>(at + kSplit / 2 + q) =
+              make_uint4(lo[q], lo[q + 1], lo[q + 2], lo[q + 3]);
+        }
+      }
+    }
+  }
+};
+
+// A tile's points into x[r * ldx + k] (k < n_features; the padding columns
+// stay zero, rows past the end are zero) and its segment ids into segs (rows
+// past the end are never pooled), by cp.async.
+template <int ROWS>
+__device__ __forceinline__ void fetch_tile(const float* __restrict__ points,
+                                           const int* __restrict__ seg, int tile, int n_points,
+                                           int n_features, float* x, int ldx, int* segs,
+                                           bool vec4) {
+  const int row0 = tile * ROWS;
+  if (vec4) {
+    const int per_row = n_features / 4;
+    for (int i = threadIdx.x; i < ROWS * per_row; i += kConsumers) {
+      const int r = i / per_row;
+      const int k = 4 * (i - r * per_row);
+      const bool valid = row0 + r < n_points;
+      cp_async16(x + r * ldx + k,
+                 points + (valid ? static_cast<size_t>(row0 + r) * n_features + k : 0), valid);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * n_features; i += kConsumers) {
+      const int r = i / n_features;
+      const int k = i - r * n_features;
+      const bool valid = row0 + r < n_points;
+      cp_async4(x + r * ldx + k,
+                points + (valid ? static_cast<size_t>(row0 + r) * n_features + k : 0), valid);
+    }
+  }
+  for (int r = threadIdx.x; r < ROWS; r += kConsumers) {
+    const bool valid = row0 + r < n_points;
+    cp_async4(segs + r, seg + (valid ? row0 + r : 0), valid);
+  }
+  cp_async_commit();
+}
+
+// acc += in[rows of the warp, k0 + [0, kChunk)] · (the split chunk of W), by
+// three tf32 products a pair of fragments: lo·hi, hi·lo, then hi·hi (lo·lo,
+// ~2^-22 of the product, is left out).  Each a value is split once per warp;
+// each W value was split once, when the stage was written.  The three are
+// three passes over all the warp's accumulators: the products of a pass do
+// not wait for each other, and one accumulator's next product comes a pass
+// (16 products) later, past the tensor pipe's latency.  Every n8 tile of
+// the warp is multiplied, with no test: a tile past the layer's columns
+// reads rows of the split chunk that hold no W of this chunk, and its sums
+// are never written.  (A test around each product made it a branch of its own,
+// and the products then ran one at a time.)
+template <int ROWS>
+__device__ __forceinline__ void chunk_product(float (&acc)[2][Tf32Warps<ROWS>::kNt][4],
+                                              const float* in, int ld_in, int k0,
+                                              const float* split) {
+  using G = Tf32Warps<ROWS>;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp / G::kWarpsN, wn = warp % G::kWarpsN;
+  // a: matrices (rows 0-7 | 8-15) x (k 0-3 | 4-7) of an m16 tile
+  const float* a_ptr = in + (32 * wm + lane % 8 + 8 * (lane / 8 % 2)) * ld_in + k0 + 4 * (lane / 16);
+  // b: matrices (k 0-3 | 4-7) of the pair's first n8 tile, then of its second
+  const int b_pair = lane / 16, b_off = lane % 8 * kRingLd + 4 * (lane / 8 % 2);
+  {
+    constexpr int kk = 0;
+    uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      uint32_t a[4];
+      ldsm4(a, a_ptr + 16 * mt * ld_in + kk);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(a[e]), ahi[mt][e], alo[mt][e]);
+    }
+    // b of n8 tiles i and i + 1: hi in bh[i / 2], lo in bl[i / 2]
+    uint32_t bh[G::kNt / 2][4], bl[G::kNt / 2][4];
+#pragma unroll
+    for (int i = 0; i < G::kNt; i += 2) {
+      const float* b_ptr = split + 8 * (wn + G::kWarpsN * (i + b_pair)) * kRingLd + b_off + kk;
+      ldsm4(bh[i / 2], b_ptr);
+      ldsm4(bl[i / 2], b_ptr + kSplit / 2);
+    }
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass) {
+#pragma unroll
+      for (int i = 0; i < G::kNt; ++i) {
+        const uint32_t* b = pass == 1 ? bl[i / 2] : bh[i / 2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_tf32(acc[mt][i], pass == 0 ? alo[mt] : ahi[mt], b[2 * (i % 2)], b[2 * (i % 2) + 1]);
+        }
+      }
+    }
+  }
+}
+
+// The layer's values from the warp's sums, in layer_out's order (the bias,
+// the activation, the residual add of the layer's input), written as float2
+// pieces into h of each of the first n_targets blocks (targets[0] is this
+// block's own).
+template <int ROWS, int C>
+__device__ __forceinline__ void tile_epilogue(const float (&acc)[2][Tf32Warps<ROWS>::kNt][4],
+                                              const float* in, int ld_in,
+                                              float* const (&targets)[C], int n_targets,
+                                              int ldh, const float* __restrict__ bias, int col0,
+                                              int n_tiles, int kind, int act) {
+  using G = Tf32Warps<ROWS>;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp / G::kWarpsN, wn = warp % G::kWarpsN;
+  const int g = lane / 4, t = lane % 4;
+  with_act(act, [&](auto a) {
+#pragma unroll
+    for (int i = 0; i < G::kNt; ++i) {
+      const int nt = wn + G::kWarpsN * i;
+      if (nt < n_tiles) {
+        const int col = col0 + 8 * nt + 2 * t;
+        const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int row = 32 * wm + 16 * mt + g + 8 * half;
+            float2 res = make_float2(0.0f, 0.0f);
+            if (kind == kResidual) res = *reinterpret_cast<const float2*>(in + row * ld_in + col);
+            const float2 v =
+                make_float2(layer_out<float, kSigmoidApprox>(acc[mt][i][2 * half], b0, res.x, kind,
+                                                             decltype(a)::value, nullptr),
+                            layer_out<float, kSigmoidApprox>(acc[mt][i][2 * half + 1], b1, res.y,
+                                                             kind, decltype(a)::value, nullptr));
+#pragma unroll
+            for (int q = 0; q < C; ++q) {
+              if (q < n_targets) *reinterpret_cast<float2*>(targets[q] + row * ldh + col) = v;
+            }
+          }
+        }
+      }
+    }
+  });
+}
+
+// Every thread of the cluster's blocks, both roles: they call it at the
+// same points of the chunk stream.
+__device__ __forceinline__ void cluster_sync() { cooperative_groups::this_cluster().sync(); }
+
+// The chunks of W a tile takes, over all its layers.
+__device__ __forceinline__ int chunks_a_tile(const Chain& chain) {
+  int n = 0;
+  for (int l = 0; l < chain.n_layers; ++l) n += layer_chunks(chain, l);
+  return n;
+}
+
+// The producers' side: the block's chunk stream, tile by tile and layer by
+// layer, through the kStages stages, kLoadDepth chunks in registers at a
+// time (the reads of the next are on their way while one waits for its stage
+// and is stored; four chunks in registers measured no faster than two).
+// Chunk c goes into stage c % kStages, the (c / kStages)-th use of that
+// stage.  With C > 1 the producers meet the consumers' cluster
+// barriers at the end of every layer but the last (after its last chunk is
+// staged).
+template <int C>
+__device__ __forceinline__ void produce(const Chain& chain, float* stages, uint64_t* full,
+                                        uint64_t* empty, int rank, int n_my_tiles) {
+  const int pt = threadIdx.x - kConsumers;
+  const int per_tile = chunks_a_tile(chain);
+  const int total = n_my_tiles * per_tile;
+  ChunkPos pos = {0, 0}, ahead = pos;
+  ChunkLoad<C> held[kLoadDepth];
+  const auto put = [&](const ChunkLoad<C>& held, int c) {
+    const int s = c % kStages;
+    // the consumers are done with the stage's previous chunk, c - kStages
+    if (c >= kStages) mbar_wait(empty + s, (c / kStages - 1) & 1);
+    held.store(chain, pos, pt, stages + s * kSplit);
+    mbar_arrive(full + s);
+    const ChunkPos next = next_chunk(chain, pos);
+    if (C > 1 && next.layer != pos.layer && pos.layer + 1 < chain.n_layers) {
+      cluster_sync();  // the consumers' barrier before a layer's epilogue
+      cluster_sync();  // and after it
+    }
+    pos = next;
+  };
+#pragma unroll
+  for (int i = 0; i + 1 < kLoadDepth; ++i) {
+    if (i < total) held[i].load(chain, ahead, rank, pt);
+    ahead = next_chunk(chain, ahead);
+  }
+  for (int c0 = 0; c0 < total; c0 += kLoadDepth) {
+#pragma unroll
+    for (int i = 0; i < kLoadDepth; ++i) {  // unrolled: each set keeps its registers
+      const int c = c0 + i;
+      if (c < total) {
+        if (c + kLoadDepth - 1 < total) {
+          held[(i + kLoadDepth - 1) % kLoadDepth].load(chain, ahead, rank, pt);
+        }
+        ahead = next_chunk(chain, ahead);
+        put(held[i], c);
+      }
+    }
+  }
+}
+
+// A cluster of C blocks walks ROWS-row tiles; block r computes columns [r
+// nb, (r + 1) nb) of every layer (nb = width / C) and writes them into every
+// block's h, but the last layer's, which it pools itself.  Shared memory: h
+// [ROWS, ldh] (the layers' values, computed in place), x [ROWS, ldx] (the
+// tile's points), kStages staged chunks of W, two tiles' segment ids, the
+// stages' mbarriers.
+template <int ROWS, int C>
+__global__ void __launch_bounds__(kTf32Threads, 1)
+    phi_pool_tf32x3_kernel(const float* __restrict__ points, const int* __restrict__ seg,
+                           float* __restrict__ out, int n_points, int n_features,
+                           int num_segments, Chain chain, int ldh, int ldx, int vec4) {
+  using G = Tf32Warps<ROWS>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* h = reinterpret_cast<float*>(smem_raw);
+  float* x = h + ROWS * ldh;
+  float* stages = x + ROWS * ldx;
+  int* segs = reinterpret_cast<int*>(stages + kStages * kSplit);
+  uint64_t* full = reinterpret_cast<uint64_t*>(segs + 2 * ROWS);
+  uint64_t* empty = full + kStages;
+
+  int rank = 0;
+  float* targets[C];
+  targets[0] = h;
+  if constexpr (C > 1) {
+    cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+    rank = static_cast<int>(cluster.block_rank());
+#pragma unroll
+    for (int q = 1; q < C; ++q) targets[q] = cluster.map_shared_rank(h, (rank + q) % C);
+  }
+  const int n_tiles = (n_points + ROWS - 1) / ROWS;
+  const int n_clusters = gridDim.x / C;
+  const int n_layers = chain.n_layers;
+  const int first_tile = blockIdx.x / C;
+  const int n_my_tiles = first_tile < n_tiles ? (n_tiles - 1 - first_tile) / n_clusters + 1 : 0;
+
+  PhaseClock clk;
+  for (int i = threadIdx.x; i < ROWS * ldx; i += kTf32Threads) x[i] = 0.0f;
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < kStages; ++q) {
+      mbar_init(full + q, kProducers);
+      mbar_init(empty + q, kConsumerWarps);
+    }
+  }
+  if constexpr (C > 1) {
+    cluster_sync();  // x is zero, and every block of the cluster has started
+  } else {
+    __syncthreads();
+  }
+  if (threadIdx.x >= kConsumers) {
+    produce<C>(chain, stages, full, empty, rank, n_my_tiles);
+    if constexpr (C > 1) cluster_sync();
+    return;
+  }
+
+  // the consumers
+  if (n_my_tiles > 0) {
+    fetch_tile<ROWS>(points, seg, first_tile, n_points, n_features, x, ldx, segs, vec4);
+  }
+  clk.mark(0);
+  int chunk = 0;
+  for (int tile = first_tile, parity = 0; tile < n_tiles; tile += n_clusters, parity ^= 1) {
+    const int n_rows = min(ROWS, n_points - tile * ROWS);
+    const int next_tile = tile + n_clusters;
+    int* tile_segs = segs + parity * ROWS;
+    cp_async_wait_all();
+    bar_sync(kConsumerBar, kConsumers);  // the tile's points and ids are in x and tile_segs
+    clk.mark(1);
+    for (int l = 0; l < n_layers; ++l) {
+      const float* in = l == 0 ? x : h;
+      const int ld_in = l == 0 ? ldx : ldh;
+      const int nb = chain.dims[l + 1] / C;
+      const int n_chunks = layer_chunks(chain, l);
+      float acc[2][G::kNt][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int i = 0; i < G::kNt; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][i][e] = 0.0f;
+        }
+      }
+      for (int k0 = 0; k0 < n_chunks * kChunk; k0 += kChunk, ++chunk) {
+        const int s = chunk % kStages;
+        mbar_wait(full + s, (chunk / kStages) & 1);  // the producers have staged it
+        clk.mark(2);
+        chunk_product<ROWS>(acc, in, ld_in, k0, stages + s * kSplit);
+        __syncwarp();  // every lane's reads of the stage are done
+        if (threadIdx.x % 32 == 0) mbar_arrive(empty + s);
+        clk.mark(3);
+      }
+      bar_sync(kConsumerBar, kConsumers);  // no warp reads x or h for the products any more
+      clk.mark(4);
+      // x is read again only by a residual first layer's epilogue: else the
+      // next tile's points may come in now, behind the rest of this tile
+      const bool fetch = l == 0 && next_tile < n_tiles;
+      if (fetch && chain.kind[0] != kResidual) {
+        fetch_tile<ROWS>(points, seg, next_tile, n_points, n_features, x, ldx,
+                         segs + (parity ^ 1) * ROWS, vec4);
+      }
+      const bool last = l == n_layers - 1;
+      if (C > 1 && !last) cluster_sync();  // no block reads its h any more
+      clk.mark(5);
+      tile_epilogue<ROWS, C>(acc, in, ld_in, targets, last ? 1 : C, ldh,
+                             static_cast<const float*>(chain.b[l]), rank * nb, nb / 8,
+                             chain.kind[l], chain.act);
+      clk.mark(6);
+      if (C > 1 && !last) {
+        cluster_sync();  // the layer is whole in every block
+      } else {
+        bar_sync(kConsumerBar, kConsumers);
+      }
+      clk.mark(7);
+      if (fetch && chain.kind[0] == kResidual) {
+        fetch_tile<ROWS>(points, seg, next_tile, n_points, n_features, x, ldx,
+                         segs + (parity ^ 1) * ROWS, vec4);
+      }
+    }
+
+    // Pool the block's columns of the last layer: run-length partial sums
+    // over the tile's rows, one atomic per run and column.
+    const int width = chain.dims[n_layers];
+    const int col0 = rank * (width / C);
+    for (int j = threadIdx.x; j < width / C; j += kConsumers) {
+      int cur = tile_segs[0];
+      float run = 0.0f;
+#pragma unroll 8
+      for (int r = 0; r < n_rows; ++r) {
+        const int s = tile_segs[r];
+        if (s != cur) {
+          if (cur >= 0 && cur < num_segments) {
+            atomicAdd(out + static_cast<size_t>(cur) * width + col0 + j, run);
+          }
+          cur = s;
+          run = 0.0f;
+        }
+        run += h[r * ldh + col0 + j];
+      }
+      if (cur >= 0 && cur < num_segments) {
+        atomicAdd(out + static_cast<size_t>(cur) * width + col0 + j, run);
+      }
+    }
+    clk.mark(8);
+  }
+  if constexpr (C > 1) cluster_sync();  // no block leaves while a neighbour may still write into it
+  clk.flush();
+}
+
+// Which chains the tf32x3 variant takes, and how: f32, 1 to kMaxLayers
+// layers, points of at most 8 features or a multiple of 8, and every layer's
+// width a multiple of 8 C, where the widest sets C: up to 256 one block a
+// 64-row tile, 512 a cluster of two blocks a 64-row tile, 1024 four a
+// 32-row tile, each block 256 columns at most; and the block's shared
+// memory within kMaxSmem.  cluster 0: not taken.
+struct Tf32x3Plan {
+  int cluster = 0, rows = 0, ldh = 0, ldx = 0;
+  size_t smem = 0;
+};
+
+inline Tf32x3Plan tf32x3_plan(int n_layers, const int* dims, const int* kinds, bool is_bf16) {
+  Tf32x3Plan plan;
+  if (is_bf16 || n_layers < 1 || n_layers > kMaxLayers) return plan;
+  if (dims[0] < 1 || (dims[0] > 8 && dims[0] % 8 != 0)) return plan;
+  int widest = 0;
+  for (int l = 1; l <= n_layers; ++l) widest = dims[l] > widest ? dims[l] : widest;
+  const int cluster = widest <= 256 ? 1 : widest <= 512 ? 2 : widest <= 1024 ? 4 : 0;
+  if (cluster == 0) return plan;
+  for (int l = 1; l <= n_layers; ++l) {
+    if (dims[l] < 1 || dims[l] % (8 * cluster) != 0) return plan;
+  }
+  for (int l = 0; l < n_layers; ++l) {
+    if (kinds[l] == kResidual && dims[l] != dims[l + 1]) return plan;
+  }
+  const int rows = cluster == 4 ? 32 : 64;
+  const int ldh = widest + 4, ldx = (dims[0] <= 8 ? 8 : dims[0]) + 4;
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(rows) * (ldh + ldx) + kStages * kSplit) +
+      sizeof(int) * 2 * rows + sizeof(uint64_t) * 2 * kStages;
+  if (smem > kMaxSmem) return plan;
+  plan.cluster = cluster;
+  plan.rows = rows;
+  plan.ldh = ldh;
+  plan.ldx = ldx;
+  plan.smem = smem;
+  return plan;
+}
+
+template <int ROWS, int C>
+cudaError_t launch_tf32x3(const void* points, const void* seg, void* out, int n_points,
+                          int n_features, int num_segments, const Chain& chain,
+                          const Tf32x3Plan& plan, cudaStream_t stream) {
+  // one block an SM whatever the chain (every plan's block is over half the
+  // SM's shared memory): set and asked once, at the largest block
+  auto kernel = phi_pool_tf32x3_kernel<ROWS, C>;
+  static int fit = 0;  // clusters (blocks, for C = 1) the card holds at once
+  if (fit == 0) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(kMaxSmem));
+    if (err != cudaSuccess) return err;
+    int n = 0;
+    if constexpr (C == 1) {
+      int per_sm = 0, device = 0, sms = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTf32Threads, kMaxSmem);
+      if (err == cudaSuccess) err = cudaGetDevice(&device);
+      if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+      n = per_sm * sms;
+    } else {
+      err = max_clusters(kernel, kMaxSmem, &n, C, kTf32Threads);
+    }
+    if (err != cudaSuccess) return err;
+    if (n < 1) return cudaErrorLaunchOutOfResources;
+    fit = n;
+  }
+  const int n_tiles = (n_points + ROWS - 1) / ROWS;
+  const int grid = n_tiles < fit ? n_tiles : fit;
+  const int vec4 = n_features % 4 == 0 && reinterpret_cast<uintptr_t>(points) % 16 == 0;
+  const float* p = static_cast<const float*>(points);
+  const int* s = static_cast<const int*>(seg);
+  float* o = static_cast<float*>(out);
+  if constexpr (C == 1) {
+    phi_pool_tf32x3_kernel<ROWS, C><<<grid, kTf32Threads, plan.smem, stream>>>(
+        p, s, o, n_points, n_features, num_segments, chain, plan.ldh, plan.ldx, vec4);
+    return cudaGetLastError();
+  } else {
+    return launch_cluster_grid(kernel, C, grid, kTf32Threads, plan.smem, stream, p, s, o, n_points,
+                               n_features,
+                               num_segments, chain, plan.ldh, plan.ldx, vec4);
+  }
+}
+
+cudaError_t launch_tf32x3_plan(const void* points, const void* seg, void* out, int n_points,
+                               int n_features, int num_segments, const Chain& chain,
+                               const Tf32x3Plan& plan, cudaStream_t stream) {
+  switch (plan.cluster) {
+    case 1:
+      return launch_tf32x3<64, 1>(points, seg, out, n_points, n_features, num_segments, chain,
+                                  plan, stream);
+    case 2:
+      return launch_tf32x3<64, 2>(points, seg, out, n_points, n_features, num_segments, chain,
+                                  plan, stream);
+    default:
+      return launch_tf32x3<32, 4>(points, seg, out, n_points, n_features, num_segments, chain,
+                                  plan, stream);
+  }
+}
+
 // -- the general variant's launch ------------------------------------------------------
 
 size_t smem_bytes(int rows, int ld) {
@@ -331,6 +1005,41 @@ cudaError_t launch_rows(const void* points, const void* seg, void* out, int n_po
 
 }  // namespace
 
+namespace {
+
+// K1's launch: the sliced variant, else (f32) the tf32x3 variant where its
+// plan takes the chain and `tf32x3` is set, else the general one.
+int phi_pool_launch(const void* points, const void* seg, void* out, int n_points, int n_features,
+                    int num_segments, int n_layers, const int* dims, const int* kinds,
+                    const void* const* weights, const void* const* biases, int act, int is_bf16,
+                    void* stream, bool tf32x3) {
+  if (n_points < 1 || n_layers < 0 || n_layers > kMaxLayers || dims[0] != n_features) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Chain chain = make_chain(n_layers, dims, kinds, weights, biases, act);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (takes_sliced(n_layers, dims, kinds, is_bf16 != 0, false)) {
+    return static_cast<int>(launch_sliced<__nv_bfloat16>(points, seg, out, n_points, n_features,
+                                                         num_segments, chain, s));
+  }
+  const Tf32x3Plan plan = tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0);
+  if (tf32x3 && plan.cluster > 0) {
+    return static_cast<int>(launch_tf32x3_plan(points, seg, out, n_points, n_features,
+                                               num_segments, chain, plan, s));
+  }
+  int widest = n_features;
+  for (int l = 0; l <= n_layers; ++l) widest = dims[l] > widest ? dims[l] : widest;
+  const int ld = round4(widest);
+  const cudaError_t err =
+      is_bf16 ? launch_rows<__nv_bfloat16>(points, seg, out, n_points, n_features,
+                                           num_segments, ld, chain, s)
+              : launch_rows<float>(points, seg, out, n_points, n_features, num_segments, ld,
+                                   chain, s);
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
 extern "C" {
 
 // points [n_points, n_features] (f32, or bf16 when is_bf16), seg [n_points]
@@ -344,40 +1053,35 @@ int pcc_phi_pool(const void* points, const void* seg, void* out, int n_points,
                  int n_features, int num_segments, int n_layers, const int* dims,
                  const int* kinds, const void* const* weights, const void* const* biases,
                  int act, int is_bf16, void* stream) {
-  if (n_points < 1 || n_layers < 0 || n_layers > kMaxLayers || dims[0] != n_features) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Chain chain = make_chain(n_layers, dims, kinds, weights, biases, act);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (takes_sliced(n_layers, dims, kinds, is_bf16 != 0, false)) {
-    return static_cast<int>(launch_sliced<__nv_bfloat16>(points, seg, out, n_points, n_features,
-                                                         num_segments, chain, s));
-  }
-  int widest = n_features;
-  for (int l = 0; l <= n_layers; ++l) widest = dims[l] > widest ? dims[l] : widest;
-  const int ld = round4(widest);
-  const cudaError_t err =
-      is_bf16 ? launch_rows<__nv_bfloat16>(points, seg, out, n_points, n_features,
-                                           num_segments, ld, chain, s)
-              : launch_rows<float>(points, seg, out, n_points, n_features, num_segments, ld,
-                                   chain, s);
-  return static_cast<int>(err);
+  return phi_pool_launch(points, seg, out, n_points, n_features, num_segments, n_layers, dims,
+                         kinds, weights, biases, act, is_bf16, stream, true);
 }
 
-// Which variant a launch takes (phi_chain.cuh:takes_sliced), K1's when
-// backward is 0 and K2's otherwise: 1 the sliced variant, 0 the general one.
+// pcc_phi_pool without the tf32x3 variant: an f32 chain takes the general
+// one.  For timing the two side by side; the port's path never calls it.
+int pcc_phi_pool_general(const void* points, const void* seg, void* out, int n_points,
+                         int n_features, int num_segments, int n_layers, const int* dims,
+                         const int* kinds, const void* const* weights,
+                         const void* const* biases, int act, int is_bf16, void* stream) {
+  return phi_pool_launch(points, seg, out, n_points, n_features, num_segments, n_layers, dims,
+                         kinds, weights, biases, act, is_bf16, stream, false);
+}
+
+// Which variant a launch takes, K1's when backward is 0 and K2's otherwise:
+// 1 the sliced variant (phi_chain.cuh:takes_sliced), 2 the tf32x3 variant
+// (K1 only: tf32x3_plan), 0 the general one.
 int pcc_phi_pool_variant(int n_layers, const int* dims, const int* kinds, int is_bf16,
                          int backward) {
-  return n_layers >= 1 && n_layers <= kMaxLayers &&
-                 takes_sliced(n_layers, dims, kinds, is_bf16 != 0, backward != 0)
-             ? 1
-             : 0;
+  if (n_layers < 1 || n_layers > kMaxLayers) return 0;
+  if (takes_sliced(n_layers, dims, kinds, is_bf16 != 0, backward != 0)) return 1;
+  if (backward == 0 && tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0).cluster > 0) return 2;
+  return 0;
 }
 
 #ifdef PCC_PHASE_CLOCKS
-// The clock sums of the last sliced launch's block 0: set-up (0), then per
-// tile the inputs (1), the first layer (2), its barrier (3), the product (4),
-// the pool (5), the last barrier (6).  Synchronises.
+// The clock sums of the last sliced or tf32x3 launch's block 0 (thread 0, a
+// consumer in tf32x3), phase by phase as the kernel marks them
+// (phase_clocks.py names them).  Synchronises.
 int pcc_phi_pool_phase_clocks(long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(long long) * kPhases));
 }

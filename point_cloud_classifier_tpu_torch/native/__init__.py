@@ -100,14 +100,18 @@ def _build(sources, target: Path, flags=NVCC_FLAGS) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.pcc_phi_pool.argtypes = [
+    phi_pool_args = [
         vp, vp, vp,  # points, seg, out
         i32, i32, i32, i32,  # n_points, n_features, num_segments, n_layers
         ctypes.POINTER(i32), ctypes.POINTER(i32),  # dims, kinds (host)
         ctypes.POINTER(vp), ctypes.POINTER(vp),  # weights, biases (host arrays)
         i32, i32, vp,  # act, is_bf16, stream
     ]
+    lib.pcc_phi_pool.argtypes = phi_pool_args
     lib.pcc_phi_pool.restype = i32
+    # the same launch without the tf32x3 variant (timing only)
+    lib.pcc_phi_pool_general.argtypes = phi_pool_args
+    lib.pcc_phi_pool_general.restype = i32
     lib.pcc_phi_pool_bwd.argtypes = [
         vp, vp, vp, vp,  # points, seg, g, d_points (null: not computed)
         vp, vp, i32,  # d_params, slabs, max_blocks

@@ -9,18 +9,23 @@ Counterpart of ``point_cloud_classifier_tpu/ops/fused_phi.py``:
 - :func:`phi_pool_bwd_plain` — the backward of :func:`phi_pool_plain` in
   closed form, layer by layer, as K2 computes it (the counterpart of
   ``phi_pool_bwd_pallas``'s contract).
+- :func:`phi_pool_tf32x3_plain` — :func:`phi_pool_plain` with every product
+  taken as f32 K1's tf32x3 variant takes it (each operand split into two
+  TF32 values, three partial products summed in f32); tests only.
 - :func:`phi_pool` — the differentiable fused op (``_PhiPoolFn``).  A CPU
   tensor takes the plain forward and backward; a CUDA tensor launches the
   hand-written Hopper kernels ``csrc/phi_pool.cu`` (K1, which replaces
   ``phi_pool_pallas``) and ``csrc/phi_pool_bwd.cu`` (K2, which replaces
   ``phi_pool_bwd_pallas``) or raises.  ``phi_pool.launches`` and
-  ``phi_pool.bwd_launches`` count their launches.  Each kernel has two
-  variants, chosen in C by the chain's shape, the element type and the
-  kernel alone: the sliced one (a cluster of four blocks a tile, ``d_W`` in
-  registers, tensor cores in bf16) for the DeepSets chain of a narrow first
-  layer and one 256 -> 256 layer, in K2 and in bf16 K1; the general one for
-  f32 K1 (where it measured faster) and for every other chain;
-  ``phi_pool.variant`` and ``phi_pool.bwd_variant`` name the last launch's.
+  ``phi_pool.bwd_launches`` count their launches.  The variants are chosen
+  in C by the chain's shape, the element type and the kernel alone: the
+  sliced one (a cluster of four blocks a tile, ``d_W`` in registers, tensor
+  cores in bf16) for the DeepSets chain of a narrow first layer and one 256
+  -> 256 layer, in K2 and in bf16 K1; in f32 K1 the tf32x3 one (products on
+  the tensor cores, each operand split into two TF32 values) for chains of
+  widths up to 1024 in multiples of 8; the general one for every other
+  chain; ``phi_pool.variant`` and ``phi_pool.bwd_variant`` name the last
+  launch's.
   Under ``torch.func.vmap`` (a sweep's arms) each arm launches its own K1
   and K2 (``ops/dispatch.per_arm``);
 - :func:`kernel_takes_chain` — whether the general variants' 8-row tiles of
@@ -117,6 +122,60 @@ def phi_pool_plain(
     (f64 sums for f64 points, which the gradient checks use)."""
     h = phi_forward(points, spec, params, activation)
     return segment_sum(h.to(torch.promote_types(h.dtype, torch.float32)), seg, num_segments)
+
+
+def tf32_round(t):
+    """f32 values rounded to TF32 as ``cvt.rna.tf32.f32`` rounds them: to
+    the nearest value with 10 explicit mantissa bits, ties away from zero.
+    On the bits: IEEE f32 is sign and magnitude, so adding half of the 13
+    dropped bits' range to the pattern and clearing them rounds the
+    magnitude (a carry runs into the exponent as it should)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32x3_matmul(h, w, passes: int = 3):
+    """``h @ w`` for f32 operands as the tf32x3 variant of K1 forms it: each
+    operand split into ``hi = tf32(x)`` and ``lo = tf32(x - hi)``, and the
+    partial products ``hi·hi + hi·lo + lo·hi`` (``lo·lo`` left out), each
+    exact in f32 (two 11-bit significands) and summed in f32.  ``passes=1``
+    takes ``hi·hi`` alone: a one-pass TF32 product."""
+    h_hi, w_hi = tf32_round(h), tf32_round(w)
+    if passes == 1:
+        return h_hi @ w_hi
+    h_lo, w_lo = tf32_round(h - h_hi), tf32_round(w - w_hi)
+    return h_hi @ w_hi + (h_hi @ w_lo + h_lo @ w_hi)
+
+
+def phi_forward_tf32x3(points, spec: Spec, params: Sequence, activation: str, passes: int = 3):
+    """:func:`phi_forward` (no layer norm, f32) with every layer's product
+    taken by :func:`tf32x3_matmul`; the bias, the activation and the
+    residual add as :func:`phi_forward` takes them."""
+    if points.dtype != torch.float32 or any(has_ln for _, has_ln in spec):
+        raise ValueError("the tf32x3 products are f32 K1's: f32 points, no layer norm")
+    act = resolve_activation(activation)
+    kinds = [kind for kind, _ in spec] + ["linear"] * (len(params) - len(spec))
+    h = points
+    for kind, layer in zip(kinds, params):
+        out = tf32x3_matmul(h, layer[0].float(), passes) + layer[1].float()
+        if kind == "linear":
+            h = out
+        else:
+            h = h + act(out) if kind == "residual" else act(out)
+    return h
+
+
+def phi_pool_tf32x3_plain(
+    points, seg, spec: Spec, params: Sequence, activation: str, num_segments: int
+):
+    """What f32 K1's tf32x3 variant computes, in plain PyTorch: the φ chain
+    of :func:`phi_forward_tf32x3`, then f32 segment sums.  It models the
+    variant's products (their rounding), not its order of sums nor its
+    epilogue's approximate sigmoid (~1e-7); tests and ``chip_smoke.py``
+    hold it against the kernel and the JAX package, and the port's path
+    never calls it."""
+    h = phi_forward_tf32x3(points, spec, params, activation)
+    return segment_sum(h, seg, num_segments)
 
 
 def _act_grad(z, activation: str):
@@ -341,7 +400,7 @@ def phi_pool(
 
 phi_pool.launches = 0
 phi_pool.bwd_launches = 0
-# the variant ("sliced" or "general") that the last K1 and K2 launch took
+# the variant ("sliced", "tf32x3" or "general") that the last K1 and K2 launch took
 phi_pool.variant = None
 phi_pool.bwd_variant = None
 
@@ -392,19 +451,26 @@ def _pointers(tensors):
 @functools.lru_cache(maxsize=None)
 def kernel_variant(dims: tuple, kinds: tuple, bf16: bool, backward: bool) -> str:
     """Which variant K1 (``backward`` false) or K2 (true) takes for a chain
-    on the card, ``"sliced"`` or ``"general"``: the C entry's own choice
-    (``pcc_phi_pool_variant``), made from the chain's shape, the element type
-    and the kernel alone (``csrc/phi_chain.cuh:takes_sliced``)."""
+    on the card, ``"sliced"``, ``"tf32x3"`` (f32 K1 only) or ``"general"``:
+    the C entry's own choice (``pcc_phi_pool_variant``), made from the
+    chain's shape, the element type and the kernel alone
+    (``csrc/phi_chain.cuh:takes_sliced``, ``csrc/phi_pool.cu:tf32x3_plan``)."""
     from point_cloud_classifier_tpu_torch.native import kernel_library
 
     n = len(kinds)
     code = kernel_library().lib.pcc_phi_pool_variant(
         n, (ctypes.c_int * (n + 1))(*dims), (ctypes.c_int * n)(*kinds), int(bf16), int(backward)
     )
-    return "sliced" if code == 1 else "general"
+    return _VARIANTS.get(code, "general")
 
 
-def _phi_pool_cuda(points, seg, spec, params, activation, num_segments):
+_VARIANTS = {1: "sliced", 2: "tf32x3"}  # pcc_phi_pool_variant's codes; 0 general
+
+
+def _phi_pool_cuda(points, seg, spec, params, activation, num_segments, general=False):
+    """K1.  ``general`` launches the general variant where the tf32x3 one
+    would run (``pcc_phi_pool_general``), to time the two side by side; the
+    port's path never sets it."""
     from point_cloud_classifier_tpu_torch.native import check, kernel_library
 
     weights, biases, dims, kinds = _kernel_operands(points, seg, spec, params)
@@ -417,8 +483,9 @@ def _phi_pool_cuda(points, seg, spec, params, activation, num_segments):
     points, seg = points.contiguous(), seg.contiguous()
     n = len(params)
     lib = kernel_library().lib
+    entry = lib.pcc_phi_pool_general if general else lib.pcc_phi_pool
     with torch.cuda.device(device):
-        code = lib.pcc_phi_pool(
+        code = entry(
             points.data_ptr(),
             seg.data_ptr(),
             out.data_ptr(),
@@ -436,9 +503,8 @@ def _phi_pool_cuda(points, seg, spec, params, activation, num_segments):
         )
     check(code)
     phi_pool.launches += 1
-    phi_pool.variant = kernel_variant(
-        tuple(dims), tuple(kinds), points.dtype == torch.bfloat16, False
-    )
+    variant = kernel_variant(tuple(dims), tuple(kinds), points.dtype == torch.bfloat16, False)
+    phi_pool.variant = "general" if general and variant == "tf32x3" else variant
     return out
 
 

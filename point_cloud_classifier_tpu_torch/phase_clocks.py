@@ -1,4 +1,5 @@
-"""Where a block of the sliced K1 and K2 spends its clocks, per phase.
+"""Where a block of the sliced K1 and K2, and of f32 K1's tf32x3 variant,
+spends its clocks, per phase.
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit:
@@ -8,12 +9,12 @@ toolkit:
 It builds the kernels with their per-phase clocks
 (``native.enable_phase_clocks()``: thread 0 of block 0 adds up ``clock64()``
 between the marks of ``csrc/phi_pool.cu`` and ``csrc/phi_pool_bwd.cu``),
-launches each sliced kernel once at the DeepSets config batch (B=32,
-P=8,192) and at the flagship shape (B=256, P=65,536), and prints the sums of
-that launch per phase, with ``nvidia-smi``'s name and power limit of the
-card.  f32 K1 takes the general variant, which has no marks, so only K2 is
-read in f32.  It checks nothing: ``chip_smoke.py`` holds the kernels against
-their plain versions, on a build without the clocks.
+launches K1 and K2 once each at the DeepSets config batch (B=32, P=8,192)
+and at the flagship shape (B=256, P=65,536), in f32 (K1's tf32x3 variant,
+K2's sliced one) and bf16 (both sliced), and prints the sums of each launch
+per phase, with ``nvidia-smi``'s name and power limit of the card.  It
+checks nothing: ``chip_smoke.py`` holds the kernels against their plain
+versions, on a build without the clocks.
 """
 
 from __future__ import annotations
@@ -29,7 +30,15 @@ from point_cloud_classifier_tpu_torch.ops.fused_phi import _phi_pool_bwd_cuda, p
 
 SPEC = (("plain", False), ("residual", False))  # φ [256, 256] with residual_block
 SHAPES = (("config", 32, 8192), ("flagship", 256, 65536))
-K1_PHASES = ("set-up", "inputs", "first layer", "barrier", "product and layer", "pool", "barrier")
+K1_PHASES = {
+    "sliced": ("set-up", "inputs", "first layer", "barrier", "product and layer", "pool", "barrier"),
+    # a consumer thread's (the producers stage W apart): per chunk of W the
+    # wait for its stage, the products; per layer the barrier after them,
+    # the epilogue and the barriers around it; per tile the wait for its
+    # points, the pool
+    "tf32x3": ("set-up", "tile's points", "waits for a staged chunk", "products", "layer's barrier",
+               "before the epilogue", "epilogue", "after the epilogue", "pool"),
+}
 K2_PHASES = ("set-up", "inputs", "g and first layer", "barrier", "recompute", "dz", "d_W", "share of dz·Wᵀ",
              "barrier", "first layer's gradients", "d_points", "barrier", "slab")
 
@@ -78,8 +87,10 @@ def main() -> None:
             g = torch.ones((b + 1, 256), device="cuda")
             rows = []
             phi_pool(points, seg, SPEC, params, "gelu", b + 1)
-            if phi_pool.variant == "sliced":
-                rows.append(("K1", K1_PHASES, _clocks(built.lib.pcc_phi_pool_phase_clocks, len(K1_PHASES))))
+            if phi_pool.variant in K1_PHASES:
+                phases = K1_PHASES[phi_pool.variant]
+                rows.append((f"K1 {phi_pool.variant}", phases,
+                             _clocks(built.lib.pcc_phi_pool_phase_clocks, len(phases))))
             _phi_pool_bwd_cuda(points, seg, g, SPEC, params, "gelu", b + 1, with_points=False)
             rows.append(("K2", K2_PHASES, _clocks(built.lib.pcc_phi_pool_bwd_phase_clocks, len(K2_PHASES))))
             for kernel, phases, sums in rows:

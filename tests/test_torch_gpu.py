@@ -186,9 +186,11 @@ def test_cuda_backward_launches_k2_and_never_the_plain_version(monkeypatch):
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for layer in params for t in layer)
 
 
-# Shapes that the 64-row, four-block tiling of the sliced variant puts at risk
-# (fewer points than a tile, a tile exactly, one over, two tiles) and chains
-# that only the general variant takes (other widths, a bare final linear).
+# Shapes that the 64-row tiles of the sliced and tf32x3 variants put at risk
+# (fewer points than a tile, a tile exactly, one over, two tiles), chains that
+# the sliced variant does not take (other widths, a bare final linear), and
+# the widths where the tf32x3 variant takes a cluster of two blocks (384,
+# 512); four on 32-row tiles (1024): test_f32_kernel_takes_tf32x3_at_wide_chains.
 SHAPE_CASES = {
     "p37": dict(p=37, b=3), "p64": dict(p=64, b=3), "p65": dict(p=65, b=3),
     "p128": dict(p=128, b=5), "p1": dict(p=1, b=1), "w64": dict(width=64),
@@ -198,10 +200,11 @@ SHAPE_CASES = {
 
 def _variant(case, dtype, backward):
     """The DeepSets chain takes the sliced variant in K2 and in bf16 K1; f32
-    K1 and every other chain take the general one."""
-    general = "width" in SHAPE_CASES[case] or SHAPE_CASES[case].get("final", False)
+    K1 takes the tf32x3 variant at every case here (widths up to 512 in
+    multiples of 32); every other launch the general one."""
     if not backward and dtype == torch.float32:
-        general = True
+        return "tf32x3"
+    general = "width" in SHAPE_CASES[case] or SHAPE_CASES[case].get("final", False)
     return "general" if general else "sliced"
 
 
@@ -217,6 +220,27 @@ def test_kernel_shapes_match_plain_and_take_their_variant(dtype, case):
     ref = fused_phi.phi_pool_plain(pts, seg, SPEC, params, "gelu", s)
     assert out.shape == ref.shape and torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= TOL[dtype] * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation", ["gelu", "relu"])
+@pytest.mark.parametrize("width", [512, 1024])
+def test_f32_kernel_takes_tf32x3_at_wide_chains(width, activation):
+    """f32 K1 at the widths where its tf32x3 variant spans a cluster (two
+    blocks a 64-row tile at 512, four a 32-row tile at 1024), against the
+    plain version within K1's f32 bound; the pooled sums of one point an
+    event (nothing averages a product's rounding away) as well."""
+    dev = _cuda()
+    for p, b in ((300, 7), (256, 255)):
+        pts, seg, params, s = _inputs(dev, torch.float32, p=p, b=b, width=width)
+        if b == 255:
+            seg = torch.arange(p, dtype=torch.int32, device=dev)  # one point an event
+        out = fused_phi.phi_pool(pts, seg, SPEC, params, activation, s)
+        torch.cuda.synchronize()
+        assert fused_phi.phi_pool.variant == "tf32x3"
+        ref = fused_phi.phi_pool_plain(pts, seg, SPEC, params, activation, s)
+        assert torch.isfinite(out).all()
+        assert (out - ref).abs().max().item() <= TOL[torch.float32] * max(1.0, ref.abs().max().item())
 
 
 @pytest.mark.gpu
@@ -261,8 +285,10 @@ def test_cuda_forward_launches_k1_and_never_the_plain_version(monkeypatch):
         raise AssertionError("the plain forward ran on a CUDA tensor")
 
     monkeypatch.setattr(fused_phi, "phi_pool_plain", refuse)
-    # the sliced variant, then the general one by element type and by shape
-    for dtype, kwargs in ((torch.bfloat16, dict()), (torch.float32, dict()), (torch.float32, dict(width=64))):
+    # the sliced variant (bf16), the tf32x3 one (f32), then the general one by
+    # shape (wider than the tf32x3 variant's 1024)
+    for dtype, kwargs in ((torch.bfloat16, dict()), (torch.float32, dict()),
+                          (torch.float32, dict(width=2048, p=64))):
         pts, seg, params, s = _inputs(dev, dtype, **kwargs)
         before = fused_phi.phi_pool.launches
         out = fused_phi.phi_pool(pts, seg, SPEC, params, "gelu", s)
@@ -361,7 +387,7 @@ def test_kernels_on_dense_ids_match_the_masked_row_sum(dtype, m_pad):
     torch.cuda.synchronize()
     assert out.shape == (b + 1, 256)
     assert (out[:b] - ref).abs().max().item() <= TOL[dtype] * max(1.0, ref.abs().max().item())
-    assert fused_phi.phi_pool.variant == ("sliced" if dtype == torch.bfloat16 else "general")
+    assert fused_phi.phi_pool.variant == ("sliced" if dtype == torch.bfloat16 else "tf32x3")
     g = torch.from_numpy(rng.normal(size=(b + 1, 256)).astype(np.float32)).to(dev)
     got = fused_phi._phi_pool_bwd_cuda(pts, ids, g, SPEC, params, "gelu", b + 1)
     want = fused_phi.phi_pool_bwd_plain(pts, ids, g, SPEC, params, "gelu", b + 1)
@@ -1715,7 +1741,7 @@ def test_tail_pair_matches_plain(dense):
     before = (fused_phi.phi_pool.launches, fused_phi.phi_pool.bwd_launches)
     loss = kernel.train_step(batches[0])
     assert (fused_phi.phi_pool.launches, fused_phi.phi_pool.bwd_launches) == (before[0] + 1, before[1] + 1)
-    assert fused_phi.phi_pool.variant == "general"
+    assert fused_phi.phi_pool.variant == "tf32x3"
     with force_plain():
         ref = plain.train_step(batches[0])
     torch.testing.assert_close(loss, ref, rtol=1e-5, atol=1e-6)

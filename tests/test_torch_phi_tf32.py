@@ -1,0 +1,150 @@
+"""f32 K1's tf32x3 products, in plain PyTorch, against the JAX package.
+
+K1's tf32x3 variant (``csrc/phi_pool.cu``) forms every f32 product on the
+tensor cores from TF32 operands: each value ``x`` is split into ``hi =
+tf32(x)`` and ``lo = tf32(x - hi)`` (``cvt.rna``: to nearest, ties away from
+zero, 10 explicit mantissa bits) and the products ``hi·hi + hi·lo + lo·hi``
+are summed in f32.  ``ops/fused_phi.py:phi_pool_tf32x3_plain`` does the same
+arithmetic in plain PyTorch.  Here it is held, on seeded numpy inputs, to the
+JAX package's φ-pool (``phi_pool_xla``; ``phi_pool_pallas`` in interpret
+mode for the config chain) at the chains the variant serves: the DeepSets
+config chain, φ [512, 512], φ [1024, 1024] and the tail's one bare
+[256, 256] layer.  The bound, 1e-5 of max(1, max |ref|), is ten times under
+K1's bound on the card (1e-4 against ``phi_pool_plain``, chip_smoke.py).
+The last test shows why the split is needed: a one-pass TF32 product misses
+1e-4 on the layers' unpooled values, where the split keeps within 1e-5.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # pytest-xdist runs several test processes side by side: one thread each
+
+from point_cloud_classifier_tpu.ops import fused_phi as jax_phi  # noqa: E402
+from point_cloud_classifier_tpu_torch.ops import fused_phi  # noqa: E402
+
+RES = (("plain", False), ("residual", False))
+# (spec, input width, layer widths): the chains of K1's tf32x3 variant on
+# the main path
+CHAINS = {
+    "config": (RES, 6, [256, 256]),
+    "phi512": (RES, 6, [512, 512]),
+    "phi1024": (RES, 6, [1024, 1024]),
+    "tail": ((), 256, [256]),
+}
+REL = 1e-5  # of max(1, max |ref|): the split against f32
+ONE_PASS_MISS = 1e-4  # K1's card bound, which a one-pass TF32 product misses
+
+
+def _inputs(chain, p=128, b=5, seed=0):
+    """Seeded numpy points, sorted ids (padding rows get id b, event 2
+    empty) and ``(w [in, out], b, None, None)`` a spec layer (no layer
+    norm) or ``(w, b)`` a bare one, drawn as the layers' own initialiser
+    draws them (uniform, bound 1/sqrt(fan-in))."""
+    spec, in_dim, widths = CHAINS[chain]
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(p, in_dim)).astype(np.float32)
+    seg = np.sort(rng.integers(0, b + 1, size=p)).astype(np.int32)
+    seg[seg == 2] = 3
+    params, last = [], in_dim
+    for n, width in enumerate(widths):
+        bound = last**-0.5
+        layer = (rng.uniform(-bound, bound, (last, width)).astype(np.float32),
+                 rng.uniform(-bound, bound, (width,)).astype(np.float32))
+        params.append(layer + (None, None) if n < len(spec) else layer)
+        last = width
+    return spec, pts, seg, b + 1, tuple(params)
+
+
+def _rel(out, ref) -> float:
+    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(out - ref).max() / max(1.0, np.abs(ref).max()))
+
+
+def _torch(params):
+    return tuple(tuple(None if a is None else torch.from_numpy(a) for a in layer) for layer in params)
+
+
+def _jax(params):
+    return tuple(tuple(None if a is None else jnp.asarray(a) for a in layer) for layer in params)
+
+
+# f32 bit patterns and their TF32 rounding: ties (the dropped 13 bits
+# exactly 0x1000) away from zero, either sign; below and above half; a
+# carry into the exponent; zeros and infinity unchanged
+ROUNDING = {
+    "exact": (0x3F800000, 0x3F800000),
+    "below half": (0x3F800FFF, 0x3F800000),
+    "tie up": (0x3F801000, 0x3F802000),
+    "tie odd up": (0x3F803000, 0x3F804000),
+    "above half": (0x3F801001, 0x3F802000),
+    "negative tie": (0xBF801000, 0xBF802000),
+    "carry into exponent": (0x3FFFF000, 0x40000000),
+    "zero": (0x00000000, 0x00000000),
+    "negative zero": (0x80000000, 0x80000000),
+    "infinity": (0x7F800000, 0x7F800000),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUNDING))
+def test_tf32_round_is_cvt_rna(case):
+    given, want = ROUNDING[case]
+    x = torch.from_numpy(np.array([given], dtype=np.uint32).view(np.float32))
+    got = fused_phi.tf32_round(x).numpy().view(np.uint32)[0]
+    assert got == want, (hex(got), hex(want))
+
+
+@pytest.mark.parametrize("activation", ["gelu", "relu"])
+@pytest.mark.parametrize("chain", list(CHAINS))
+def test_tf32x3_plain_matches_xla(chain, activation):
+    spec, pts, seg, s, params = _inputs(chain)
+    ref = jax_phi.phi_pool_xla(jnp.asarray(pts), jnp.asarray(seg), spec, _jax(params), activation, s)
+    out = fused_phi.phi_pool_tf32x3_plain(
+        torch.from_numpy(pts), torch.from_numpy(seg), spec, _torch(params), activation, s)
+    assert out.dtype == torch.float32 and tuple(out.shape) == tuple(ref.shape)
+    assert _rel(out.numpy(), ref) <= REL
+
+
+def test_tf32x3_plain_matches_pallas_interpret():
+    spec, pts, seg, s, params = _inputs("config", p=64)
+    ref = jax_phi.phi_pool_pallas(jnp.asarray(pts), jnp.asarray(seg), spec, _jax(params), "gelu", s,
+                                  interpret=True)
+    out = fused_phi.phi_pool_tf32x3_plain(
+        torch.from_numpy(pts), torch.from_numpy(seg), spec, _torch(params), "gelu", s)
+    assert _rel(out.numpy(), ref) <= REL
+
+
+@pytest.mark.parametrize("chain", list(CHAINS))
+def test_one_pass_tf32_misses_where_the_split_holds(chain):
+    """Every layer's unpooled values [P, width] against the JAX chain cut
+    after that layer: the split within REL at each layer, a one-pass TF32
+    product (``hi·hi`` alone) over ONE_PASS_MISS at the worst layer."""
+    spec, pts, _, _, params = _inputs(chain)
+    split, one_pass = [], []
+    for n in range(1, len(params) + 1):
+        cut_spec, cut = spec[:n], params[:n]
+        ref = jax_phi.phi_forward_xla(jnp.asarray(pts), cut_spec, _jax(cut), "gelu")
+        for passes, errs in ((3, split), (1, one_pass)):
+            h = fused_phi.phi_forward_tf32x3(torch.from_numpy(pts), cut_spec, _torch(cut), "gelu", passes)
+            errs.append(_rel(h.numpy(), ref))
+    assert max(split) <= REL, split
+    assert max(one_pass) > ONE_PASS_MISS, one_pass
+
+
+@pytest.mark.parametrize("code, name", [(0, "general"), (1, "sliced"), (2, "tf32x3")])
+def test_kernel_variant_names_the_c_entry_codes(monkeypatch, code, name):
+    from point_cloud_classifier_tpu_torch import native
+
+    class Lib:
+        @staticmethod
+        def pcc_phi_pool_variant(*args):
+            return code
+
+    monkeypatch.setattr(native, "kernel_library", lambda: type("Built", (), {"lib": Lib})())
+    fused_phi.kernel_variant.cache_clear()
+    try:
+        assert fused_phi.kernel_variant((6, 256, 256), (0, 1), False, False) == name
+    finally:
+        fused_phi.kernel_variant.cache_clear()
