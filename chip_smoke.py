@@ -337,7 +337,7 @@ from point_cloud_classifier_tpu_torch.data.synthetic import (
 )
 from point_cloud_classifier_tpu_torch.graph_kernel_times import device_ms
 from point_cloud_classifier_tpu_torch.models import DeepSets, GraphNet, LogRegression, ModelWrapper
-from point_cloud_classifier_tpu_torch.models.wrapper import _make_optimizer, put_batch
+from point_cloud_classifier_tpu_torch.models.wrapper import _make_optimizer, put_batch, resolve_device
 from point_cloud_classifier_tpu_torch.models.deep_sets import dense_segment_ids
 from point_cloud_classifier_tpu_torch.data.graph import build_event_edges
 from point_cloud_classifier_tpu_torch.native import kernel_library
@@ -417,9 +417,15 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # max(1, max |plain|) and relative Frobenius, sums in other orders (the
 # kernel's FMAs and per-block slabs against cuBLAS).  bf16: relative
 # Frobenius; a reordered f32 dot can round dz or dz Wᵀ to the neighbouring
-# bf16 value (2^-8 relative) before the next layer carries it.  The largest
-# readings at these cases on an H100 (80GB HBM3, 700 W): max relative 7.5e-7
-# and relative Frobenius 4.3e-7 in f32, relative Frobenius 7.8e-5 in bf16.
+# bf16 value (2^-8 relative) before the next layer carries it.  Both sides
+# sum each bf16 product in f32: with PyTorch's
+# allow_bf16_reduced_precision_reduction on (its default, which
+# resolve_device turns off), cuBLAS added the plain version's split-K dz Wᵀ
+# partials in bf16 at width 1024 and read 2.5e-3 (docs/parity_torch.md
+# §15).  The largest readings at these cases on an H100 (80GB HBM3, 700 W):
+# max relative 2.0e-6 and relative Frobenius 6.4e-7 in f32, relative
+# Frobenius 2.3e-4 in bf16 (width 1024, d_points on), 3.0e-4 at B=256,
+# P=65,536 (wide_check).
 BWD_F32_REL, BWD_F32_FRO, BWD_BF16_FRO = 1e-4, 1e-5, 1e-3
 # predict: probabilities of the kernel path against the plain path (f32).
 PROB_TOL = 1e-4
@@ -641,6 +647,14 @@ def device_phase() -> str:
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the port takes the card as its entry points do: bf16 products sum in
+    # f32 (allow_bf16_reduced_precision_reduction off), here for the plain
+    # versions the kernels are held against as well
+    resolve_device()
+    if torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
+        raise AssertionError("resolve_device left allow_bf16_reduced_precision_reduction on")
+    print("bf16 products sum in f32: allow_bf16_reduced_precision_reduction "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     return smi
 
 
@@ -692,10 +706,8 @@ def phi_inputs(b, p, dtype, seed, empty_event=True, final=False, widths=None, in
 # 1024); every other launch the general one.  The tail's case is the one bare
 # [256, 256] layer over 256-wide rows.  With one point an event the pooled
 # sums are the chain's rows, so no sum averages a product's rounding away:
-# there a one-pass TF32 product would miss the f32 bound.  Those four cases
-# hold f32 K1's tf32x3 variant and run in f32 (bf16 K2 at width 1024 reads
-# a relative Frobenius distance of 2.5e-3, over its bound, set at width 384
-# and below: ROADMAP.md Queue 3).
+# there a one-pass TF32 product would miss the f32 bound.  The tail's and
+# the one-point cases hold f32 K1's tf32x3 variant and run in f32.
 BOTH = (torch.float32, torch.bfloat16)
 F32 = (torch.float32,)
 PhiCase = collections.namedtuple("PhiCase", "name b p final widths in_dim singletons dtypes",
@@ -709,8 +721,8 @@ PHI_CASES = [
     PhiCase("one tile + 1 B=3 P=65", 3, 65, False, None),
     PhiCase("width 64 B=7 P=1001", 7, 1001, False, [64, 64]),
     PhiCase("width 384 B=7 P=1001", 7, 1001, False, [384, 384]),
-    PhiCase("width 512 B=7 P=1001", 7, 1001, False, [512, 512], dtypes=F32),
-    PhiCase("width 1024 B=7 P=1001", 7, 1001, False, [1024, 1024], dtypes=F32),
+    PhiCase("width 512 B=7 P=1001", 7, 1001, False, [512, 512]),
+    PhiCase("width 1024 B=7 P=1001", 7, 1001, False, [1024, 1024]),
     PhiCase("tail: bare [256, 256] B=7 P=1001", 7, 1001, True, [], 256, dtypes=F32),
     PhiCase("one point an event B=P=4096", 4096, 4096, False, None, 6, True, F32),
 ]
@@ -855,7 +867,60 @@ def bwd_kernel_phase():
                     raise AssertionError(f"K2 {name}: the {phi_pool.bwd_variant} variant ran")
                 if (b, p, dtype, with_points) == (CONFIG_B, CONFIG_P, torch.float32, False):
                     config_err = worst[0]
+    bf16_sums_probe()
     return config_err
+
+
+def bf16_sums_probe() -> None:
+    """What summing bf16 products in f32 does to the backward (the
+    reference's side of docs/parity_torch.md §15), printed, bounded by
+    nothing: at the ragged bf16 cases of φ [w, w], w in 384, 512 and 1024,
+    gelu and relu, d_points on and off, the largest relative Frobenius
+    distance over the gradients, ‖a − b‖ / ‖f64‖, between each pair of K2,
+    phi_pool_bwd_plain with PyTorch's allow_bf16_reduced_precision_reduction
+    on (its default) and off (as resolve_device sets it), and
+    phi_pool_bwd_plain in f64 on the same bf16 inputs.  Then the split-K
+    reductions cuBLAS launches for the plain backward with the flag on and
+    off, by one torch.profiler pass at widths 384 and 1024."""
+    from torch.profiler import ProfilerActivity, profile
+
+    matmul = torch.backends.cuda.matmul
+    b, p = 7, 1001
+    try:
+        for width, act, with_points in itertools.product((384, 512, 1024), ("gelu", "relu"), (True, False)):
+            points, seg, params = phi_inputs(b, p, torch.bfloat16, SEED, widths=[width, width])
+            spec = case_spec([width, width])
+            g = torch.from_numpy(
+                np.random.default_rng(SEED + 3).normal(size=(b + 1, width)).astype(np.float32)).cuda()
+            wide = tuple(tuple(t.to(torch.bfloat16).double() for t in layer) for layer in params)
+            args = {"K2": (points, g, params), "on": (points, g, params), "off": (points, g, params),
+                    "f64": (points.double(), g.double(), wide)}
+            runs = {}
+            for run, (x, cot, prm) in args.items():
+                matmul.allow_bf16_reduced_precision_reduction = run == "on"
+                fn = _phi_pool_bwd_cuda if run == "K2" else phi_pool_bwd_plain
+                d_points, grads = fn(x, seg, cot, spec, prm, act, b + 1, with_points=with_points)
+                runs[run] = ([d_points] if with_points else []) + list(grads)
+            cells = []
+            for one, other in itertools.combinations(runs, 2):
+                d = max(((x.double() - y.double()).norm() / ref.norm()).item()
+                        for x, y, ref in zip(runs[one], runs[other], runs["f64"], strict=True))
+                cells.append(f"{one} | {other} {d:.3e}")
+            print(f"bf16 sums φ [{width}, {width}] {act} d_points {'on' if with_points else 'off'}, "
+                  f"largest ‖a − b‖ / ‖f64‖ over the gradients: {'; '.join(cells)}")
+        for width in (384, 1024):
+            points, seg, params = phi_inputs(b, p, torch.bfloat16, SEED, widths=[width, width])
+            g = torch.ones((b + 1, width), device="cuda")
+            for on in (True, False):
+                matmul.allow_bf16_reduced_precision_reduction = on
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    phi_pool_bwd_plain(points, seg, g, case_spec([width, width]), params, "gelu", b + 1)
+                    torch.cuda.synchronize()
+                names = sorted({e.name for e in prof.events() if "splitKreduce" in e.name})
+                print(f"bf16 sums φ [{width}, {width}] plain backward, flag {'on' if on else 'off'}: "
+                      f"cuBLAS split-K reductions {names or 'none'}")
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def write_jax_checkpoint(run_dir: str, rng) -> None:
@@ -1137,21 +1202,66 @@ def route_models(dtype: str, **overrides):
     return factory.get_model("deep_sets", plain), factory.get_model("deep_sets", cfg)
 
 
+# K1 and K2 against their plain versions: (name, events, point rows, φ
+# widths, element types); bench.py's --phi-width rows in its default bf16
+TIMES_SHAPES = (
+    ("config", CONFIG_B, CONFIG_P, None, BOTH),
+    ("flagship", FLAGSHIP_B, FLAGSHIP_P, None, BOTH),
+    ("phi 512", FLAGSHIP_B, FLAGSHIP_P, [512, 512], (torch.bfloat16,)),
+    ("phi 1024", FLAGSHIP_B, FLAGSHIP_P, [1024, 1024], (torch.bfloat16,)),
+)
+
+
+def wide_check(case: PhiCase, points, seg, spec, params) -> tuple:
+    """K1 and K2 in bf16 at a TIMES_SHAPES φ-width shape against their plain
+    versions on the inputs they were timed on: K1 within TOL, K2 (d_points
+    and every parameter's gradient in one call) within BWD_BF16_FRO, a
+    second K2 launch bit-equal, each on the variant its shape takes.
+    Returns (K1's max relative error, K2's largest relative Frobenius)."""
+    b1, dtype = case.b + 1, points.dtype
+    out = phi_pool(points, seg, spec, params, "gelu", b1)
+    k1_variant = phi_pool.variant
+    ref = phi_pool_plain(points, seg, spec, params, "gelu", b1)
+    k1_rel = (out.float() - ref.float()).abs().max().item() / max(1.0, ref.abs().max().item())
+    g = torch.from_numpy(np.random.default_rng(SEED + 3).normal(
+        size=tuple(out.shape)).astype(np.float32)).cuda()
+    got, want, again = ([d_points, *grads] for d_points, grads in (
+        _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1),
+        phi_pool_bwd_plain(points, seg, g, spec, params, "gelu", b1),
+        _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1)))
+    k2_fro = max(_errors(a, c)[2] for a, c in zip(got, want, strict=True))
+    same = all(torch.equal(a, c) for a, c in zip(got, again, strict=True))
+    print(f"kernel {case.name} B={case.b} P={case.p} {str(dtype)[6:]}: K1 [{k1_variant} variant] max_rel_err "
+          f"{k1_rel:.3e} (bound {TOL[dtype]:.0e}); K2 with d_points [{phi_pool.bwd_variant} variant] rel_fro "
+          f"{k2_fro:.3e} (bound {BWD_BF16_FRO:.0e}); a second K2 run is {'bit-equal' if same else 'NOT bit-equal'}")
+    if not torch.isfinite(out).all() or not all(torch.isfinite(a).all() for a in got):
+        raise AssertionError(f"{case.name} {dtype}: K1 or K2 gave a non-finite value")
+    if not (k1_rel <= TOL[dtype] and k2_fro <= BWD_BF16_FRO and same):
+        raise AssertionError(f"{case.name} {dtype}: K1 {k1_rel:.3e} / K2 {k2_fro:.3e} / bit-equal {same}")
+    if (k1_variant, phi_pool.bwd_variant) != (expected_variant(case, dtype, False),
+                                              expected_variant(case, dtype, True)):
+        raise AssertionError(f"{case.name}: the {k1_variant} / {phi_pool.bwd_variant} variants ran")
+    return k1_rel, k2_fro
+
+
 def times_phase(smi: str, run_dir: str):
-    """Both kernels against their plain versions (CUDA events, plain first),
+    """Both kernels against their plain versions (CUDA events, plain first)
+    at TIMES_SHAPES, held against them at the φ-width shapes (wide_check),
     then predict and the train step per batch (host clock) on both routes.
-    Returns, per kernel, the config shape's f32 times and bound."""
-    config_times = {}
-    for name, b, p in (("config", CONFIG_B, CONFIG_P), ("flagship", FLAGSHIP_B, FLAGSHIP_P)):
-        for dtype in (torch.float32, torch.bfloat16):
-            points, seg, params = phi_inputs(b, p, dtype, SEED)
-            g = torch.ones((b + 1, 256), device="cuda")
-            plain_ms = cuda_ms(lambda: phi_pool_plain(points, seg, SPEC, params, "gelu", b + 1))
-            kernel_ms = cuda_ms(lambda: phi_pool(points, seg, SPEC, params, "gelu", b + 1))
+    Returns, per kernel, the config shape's f32 times and bound, and the
+    bf16 readings at φ 512 and 1024 under "bf16_wide"."""
+    config_times, wide = {}, {"phi_pool": {}, "phi_pool_bwd": {}}
+    for name, b, p, widths, dtypes in TIMES_SHAPES:
+        spec = case_spec(widths)
+        for dtype in dtypes:
+            points, seg, params = phi_inputs(b, p, dtype, SEED, widths=widths)
+            g = torch.ones((b + 1, params[-1][0].shape[1]), device="cuda")
+            plain_ms = cuda_ms(lambda: phi_pool_plain(points, seg, spec, params, "gelu", b + 1))
+            kernel_ms = cuda_ms(lambda: phi_pool(points, seg, spec, params, "gelu", b + 1))
             bwd_plain_ms = cuda_ms(lambda: phi_pool_bwd_plain(
-                points, seg, g, SPEC, params, "gelu", b + 1, with_points=False))
+                points, seg, g, spec, params, "gelu", b + 1, with_points=False))
             bwd_ms = cuda_ms(lambda: _phi_pool_bwd_cuda(
-                points, seg, g, SPEC, params, "gelu", b + 1, with_points=False))
+                points, seg, g, spec, params, "gelu", b + 1, with_points=False))
             print(f"time phi_pool {name} B={b} P={p} {str(dtype)[6:]}: K1 [{phi_pool.variant} variant] "
                   f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; backward without d_points: K2 "
                   f"[{phi_pool.bwd_variant} variant] {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms [{smi}]")
@@ -1189,6 +1299,17 @@ def times_phase(smi: str, run_dir: str):
                     "phi_pool_bwd": dict(ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd[0],
                                          bound_by=bwd[1], library_ms=None),
                 }
+            if widths is not None:
+                k1_rel, k2_fro = wide_check(PhiCase(name, b, p, False, widths), points, seg, spec, params)
+                wide["phi_pool"][name] = dict(variant=phi_pool.variant, ms=kernel_ms, plain_ms=plain_ms,
+                                              bound_ms=fwd[0], bound_by=fwd[1], max_rel_err=k1_rel)
+                wide["phi_pool_bwd"][name] = dict(variant=phi_pool.bwd_variant, ms=bwd_ms,
+                                                  plain_ms=bwd_plain_ms, bound_ms=bwd[0], bound_by=bwd[1],
+                                                  rel_fro=k2_fro)
+            del points, seg, params, g
+            torch.cuda.empty_cache()
+    for kernel, readings in wide.items():
+        config_times[kernel]["bf16_wide"] = readings
     for b in (CONFIG_B, FLAGSHIP_B):
         clouds, labels = make_clouds(np.random.default_rng(SEED + 2), 4 * b)
         t0 = time.perf_counter()
@@ -1588,11 +1709,28 @@ def events_ms_per_batch(wrappers, makers, rounds: int = 2):
     return samples
 
 
+class ReducedBf16Sums:
+    """A wrapper whose train_step runs with PyTorch's default
+    allow_bf16_reduced_precision_reduction (on: cuBLAS may add split-K
+    partial sums in bf16), which resolve_device turns off."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
+
+    def train_step(self, batch):
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+        try:
+            return self.wrapper.train_step(batch)
+        finally:
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 def flagship_times_phase(smi: str, work_dir: str) -> None:
     """(d) packing per batch; the resident cache's first pass per batch, one
     upload a batch against 64 stacked; and the train step per batch at B=256
     on the flagship wire, flat and dense, streaming, resident and prefetched,
-    f32 and bf16, by CUDA events."""
+    f32 and bf16, by CUDA events; in bf16 the resident arm also with bf16
+    partial sums (ReducedBf16Sums), the cost of summing in f32."""
     data_dir = os.path.join(work_dir, "flagship_data")
     wires = {}
     for layout in ("flat", "dense"):
@@ -1624,8 +1762,12 @@ def flagship_times_phase(smi: str, work_dir: str) -> None:
             list(cache)  # the first pass uploads
             pipelines = {"streaming": lambda: batches, "resident": lambda: cache,
                          "prefetch": lambda: prefetch_to_device(batches, size=2)}
-            samples = events_ms_per_batch([factory.get_model("deep_sets", cfg) for _ in pipelines],
-                                          list(pipelines.values()))
+            wrappers = [factory.get_model("deep_sets", cfg) for _ in pipelines]
+            if dtype == "bfloat16":
+                # the resident arm again with PyTorch's default, bf16 partial sums
+                pipelines["resident, bf16 partial sums"] = lambda: cache
+                wrappers.append(ReducedBf16Sums(factory.get_model("deep_sets", cfg)))
+            samples = events_ms_per_batch(wrappers, list(pipelines.values()))
             row = ", ".join(f"{name} {np.median(ms):.4f} ({min(ms):.4f}-{max(ms):.4f})"
                             for name, ms in zip(pipelines, samples))
             print(f"time flagship train step per batch B={FLAGSHIP_B} {layout} fp16 wire, {dtype}, "
@@ -3853,6 +3995,80 @@ def remat_phase(smi: str) -> None:
             os.environ["PCC_PHI_REMAT"] = saved
 
 
+# (c) bench.py's --phi-width train row in its default bf16: the K1 + K2
+# route against the plain route from the same weights on resident flat
+# B=256 batches.  Per-step loss: no bf16 bound existed (STEP_LOSS_RTOL is
+# f32's), so it takes TOL[bf16], the bound bf16 K1's outputs meet
+WIDE_BF16_WIDTHS = (512, 1024)
+WIDE_BF16_LOSS_RTOL = TOL[torch.bfloat16]
+WIDE_BF16_TRACK = 5  # steps of each route from the same weights, losses compared
+WIDE_BF16_STEPS = 3  # timed steps a turn
+WIDE_BF16_TURNS = 8  # K1+K2, plain, plain, K1+K2, …: four samples a route
+
+
+def wide_bf16_train_phase(smi: str) -> dict:
+    """(c) the bf16 train step at φ WIDE_BF16_WIDTHS, B=256, on resident
+    flat batches (remat_phase's): per-step loss of the K1 + K2 route within
+    WIDE_BF16_LOSS_RTOL of the plain route's from the same weights, then ms
+    a step by CUDA events, the routes in turns.  K1 and K2 must launch once
+    on each of the kernel route's steps, on their general variants.  Returns
+    K1's and K2's launches."""
+    clouds, labels = make_clouds(np.random.default_rng(SEED + 28), 2 * FLAGSHIP_B)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in b.items()}
+               for b in PointCloudLoader(clouds, labels, FLAGSHIP_B, shuffle=False)]
+    total = {"phi_pool": 0, "phi_pool_bwd": 0}
+    for width in WIDE_BF16_WIDTHS:
+        model = {**CONFIG["model"], "phi_layers": [width, width], "compute_dtype": "bfloat16"}
+        kernel_net = DeepSets(**model, generator=torch.Generator().manual_seed(SEED))
+        plain_net = DeepSets(**model, fused_phi="off")
+        plain_net.load_state_dict(kernel_net.state_dict())
+        routes = {"K1+K2": ModelWrapper(kernel_net, 1e-3, 1, optimizer="adamw"),
+                  "plain": ModelWrapper(plain_net, 1e-3, 1, optimizer="adamw")}
+        reset_launch_counts()
+        rel = []
+        for i in range(WIDE_BF16_TRACK):
+            batch = batches[i % len(batches)]
+            a, b = routes["K1+K2"].train_step(batch).item(), routes["plain"].train_step(batch).item()
+            rel.append(abs(a - b) / abs(b))
+        variants = (phi_pool.variant, phi_pool.bwd_variant)
+        samples, issue = {name: [] for name in routes}, {name: [] for name in routes}
+        for turn in range(WIDE_BF16_TURNS):
+            for name in routes if turn % 2 == 0 else reversed(list(routes)):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                for i in range(WIDE_BF16_STEPS):
+                    routes[name].train_step(batches[i % len(batches)])
+                end.record()
+                # the host's time to issue the steps: near the device's, the host holds the card back
+                issue[name].append((time.perf_counter() - t0) * 1e3 / WIDE_BF16_STEPS)
+                torch.cuda.synchronize()
+                samples[name].append(start.elapsed_time(end) / WIDE_BF16_STEPS)
+        steps = WIDE_BF16_TRACK + WIDE_BF16_TURNS * WIDE_BF16_STEPS
+        counts = launch_counts()
+        ms = {name: float(np.median(v)) for name, v in samples.items()}
+        print(f"wide bf16 train φ [{width}, {width}] B={FLAGSHIP_B} P={batches[0]['points'].shape[0]} adamw, "
+              f"resident flat batches: per-step loss rel K1+K2 − plain over {WIDE_BF16_TRACK} steps from the same "
+              f"weights {[f'{r:.2e}' for r in rel]} (bound {WIDE_BF16_LOSS_RTOL:.0e}); ms a train step by CUDA "
+              f"events, median (range) of {WIDE_BF16_TURNS // 2} turns of {WIDE_BF16_STEPS} steps: K1+K2 "
+              f"{ms['K1+K2']:.4f} ({_spread(samples['K1+K2'])}), plain {ms['plain']:.4f} "
+              f"({_spread(samples['plain'])}), ×{ms['plain'] / ms['K1+K2']:.3f}; the host's issue ms a step, "
+              f"median: K1+K2 {np.median(issue['K1+K2']):.4f}, plain {np.median(issue['plain']):.4f}; K1 launches "
+              f"{counts['phi_pool']} [{variants[0]} variant], K2 {counts['phi_pool_bwd']} [{variants[1]} "
+              f"variant] over {steps} kernel-route steps [{smi}]")
+        if not all(np.isfinite(rel)) or not max(rel) <= WIDE_BF16_LOSS_RTOL:
+            raise AssertionError(f"wide bf16 train φ {width}: the kernel route does not track the plain route")
+        if (counts["phi_pool"], counts["phi_pool_bwd"]) != (steps, steps):
+            raise AssertionError(f"wide bf16 train φ {width}: K1/K2 did not launch once a step: {counts}")
+        if variants != ("general", "general"):
+            raise AssertionError(f"wide bf16 train φ {width}: variants {variants}")
+        total["phi_pool"] += counts["phi_pool"]
+        total["phi_pool_bwd"] += counts["phi_pool_bwd"]
+        del routes, kernel_net, plain_net
+        torch.cuda.empty_cache()
+    return total
+
+
 def trace_phase(smi: str, work_dir: str) -> None:
     """(d) train_model with PCC_TRACE=1 for one epoch: a Chrome trace under
     {log_dir}/trace/ per epoch that names K1 and K2."""
@@ -3876,12 +4092,13 @@ def trace_phase(smi: str, work_dir: str) -> None:
 
 def fuse_phase(smi: str, work_dir: str) -> tuple:
     """Phase 24.  Returns (the fused routes' launches, the tail's launches,
-    times and errors for K1 and K2)."""
+    times and errors for K1 and K2, the bf16 wide train steps' launches)."""
     fused = fused_routes_phase(smi)
     tail = tail_phase(smi, work_dir)
     remat_phase(smi)
+    wide = wide_bf16_train_phase(smi)
     trace_phase(smi, work_dir)
-    return fused, tail
+    return fused, tail, wide
 
 
 # phase 25: int8 evaluation and the serving export
@@ -4005,13 +4222,66 @@ def int8_evaluate_phase(smi: str, run_dir: str) -> None:
         raise AssertionError("cli evaluate --quant int8: eval_int8/metrics.json lacks its accuracies or its quant")
 
 
+def eval_probs(net, batches):
+    """The eval step over ``batches``: forward and sigmoid, no gradient."""
+    with torch.inference_mode():
+        return [torch.sigmoid(net(b)) for b in batches]
+
+
+def eval_ms_in_turns(routes: dict, batches) -> dict:
+    """Per route, ms a batch of eval_probs (CUDA events) over two turns,
+    the routes in order and then reversed."""
+    samples = {name: [] for name in routes}
+    for turn in range(2):
+        for name in routes if turn == 0 else reversed(list(routes)):
+            samples[name].append(cuda_ms(lambda: eval_probs(routes[name], batches), iters=INT8_TIME_ITERS,
+                                         warmup=2) / len(batches))
+    return samples
+
+
+def int8_bf16_row(smi: str, width: int, model: dict, base, batches) -> None:
+    """(c) the eval step in bf16 (bench.py's default dtype) on the K1 and
+    the plain route from ``base``'s weights: ms a resident batch (CUDA
+    events, in turns), K1's launches, and the K1 route's probabilities
+    against the plain route's within the flagship arms' bf16 bound."""
+    routes = {"plain": DeepSets(**model, fused_phi="off", compute_dtype="bfloat16")}
+    if base._use_kernel():
+        routes["K1"] = DeepSets(**model, compute_dtype="bfloat16")
+    for net in routes.values():
+        net.load_state_dict(base.state_dict())
+        net.cuda().eval()
+
+    samples = eval_ms_in_turns(routes, batches)
+    ms = {name: float(np.median(v)) for name, v in samples.items()}
+    tol = FLAGSHIP_PROB_TOL["bf16"]
+    if "K1" not in routes:
+        print(f"int8 time φ [{width}, {width}] B={INT8_B} P={batches[0]['points'].shape[0]} bf16: eval step ms a "
+              f"batch plain {ms['plain']:.4f} ({_spread(samples['plain'])}), K1 n/a (the chain exceeds its "
+              f"tiles: plain route) [{smi}]")
+        return
+    reset_launch_counts()
+    got = torch.cat(eval_probs(routes["K1"], batches)).float()
+    launches, variant = phi_pool.launches, phi_pool.variant
+    ref = torch.cat(eval_probs(routes["plain"], batches)).float()
+    err = (got - ref).abs().max().item()
+    print(f"int8 time φ [{width}, {width}] B={INT8_B} P={batches[0]['points'].shape[0]} bf16: eval step ms a "
+          f"batch K1 [{variant}] {ms['K1']:.4f} ({_spread(samples['K1'])}), plain {ms['plain']:.4f} "
+          f"({_spread(samples['plain'])}); K1 launches {launches} over {len(batches)} batches; max |Δprob| "
+          f"K1 − plain {err:.3e} (bound {tol:.0e}) [{smi}]")
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"bf16 eval φ {width}: bad probabilities {tuple(got.shape)}")
+    if launches != len(batches) or not err <= tol:
+        raise AssertionError(f"bf16 eval φ {width}: K1 route disagrees or missed K1 ({launches}, {err:.3e})")
+
+
 def int8_times_phase(smi: str) -> None:
     """(c) ms a resident B=256 batch of the eval step (forward and sigmoid,
     CUDA events, in turns) on the float K1 route, the float plain route and
     the int8 chain at φ widths INT8_WIDTHS (bench.py --eval-device
     --phi-width: φ [w, w], the rest of configs/deep_sets.yaml, f32, clouds
-    of 256 points on the flat wire, P=65,536); and each int8 layer's
-    quantize pass and ``torch._int_mm`` alone against their bounds."""
+    of 256 points on the flat wire, P=65,536), and the K1 and plain routes
+    in bf16 beside them (int8_bf16_row); and each int8 layer's quantize
+    pass and ``torch._int_mm`` alone against their bounds."""
     rng = np.random.default_rng(SEED + 252)
     clouds = [rng.normal(size=(256, 6)).astype(np.float32) for _ in range(4 * INT8_B)]
     batches = [{k: torch.as_tensor(v).cuda() for k, v in b.items()}
@@ -4027,19 +4297,10 @@ def int8_times_phase(smi: str) -> None:
             net.load_state_dict(base.state_dict())
             net.cuda().eval()
 
-        def step(net):
-            with torch.inference_mode():
-                for b in batches:
-                    torch.sigmoid(net(b))
-
-        samples = {name: [] for name in routes}
-        for turn in range(2):
-            for name in routes if turn == 0 else reversed(list(routes)):
-                samples[name].append(cuda_ms(lambda: step(routes[name]), iters=INT8_TIME_ITERS, warmup=2)
-                                     / len(batches))
+        samples = eval_ms_in_turns(routes, batches)
         ms = {name: float(np.median(s)) for name, s in samples.items()}
         if "K1" in ms:
-            step(routes["K1"])  # the variant the K1 route's launches take
+            eval_probs(routes["K1"], batches)  # the variant the K1 route's launches take
             k1_variant = phi_pool.variant
         best_float = min(v for k, v in ms.items() if k != "int8")
         crossover[width] = ms["int8"] < best_float
@@ -4048,6 +4309,7 @@ def int8_times_phase(smi: str) -> None:
         print(f"int8 time φ [{width}, {width}] B={INT8_B} P={batches[0]['points'].shape[0]} f32: eval step ms "
               f"a batch {shown}{'' if 'K1' in ms else ', K1 n/a (the chain exceeds its tiles: plain route)'}; "
               f"int8 / best float ×{ms['int8'] / best_float:.3f} [{smi}]")
+        int8_bf16_row(smi, width, model, base, batches)
         # each int8 layer alone: its activation quantize pass and its s8 product
         spec, params = routes["int8"]._phi_spec_params()
         act = resolve_activation(model["activation"])
@@ -5049,9 +5311,10 @@ def main() -> None:
         for name in launches:
             beside.setdefault(name, {})["sweep_launches"] = sweep_launches.get(name, 0)
             launches[name] += sweep_launches.get(name, 0)
-        fuse_launches, tail_launches = fuse_phase(smi, run_dir)
-        lap("fused windows, tail, remat, trace")
-        print(f"launches: fused windows (replays counted) {fuse_launches}; fused_phi=tail {tail_launches}")
+        fuse_launches, tail_launches, wide_launches = fuse_phase(smi, run_dir)
+        lap("fused windows, tail, remat, bf16 wide train steps, trace")
+        print(f"launches: fused windows (replays counted) {fuse_launches}; fused_phi=tail {tail_launches}; "
+              f"bf16 train steps at φ 512 and 1024 {wide_launches}")
         fuse_launches["inrow_aggregate"] += fuse_launches.pop("inrow_aggregate backward")
         fuse_launches["knn_aggregate"] += fuse_launches.pop("knn_aggregate backward")
         beside["gat_attention_bwd"]["fused_window_mirror_launches"] = fuse_launches.pop("gat_out_rows")
@@ -5062,6 +5325,8 @@ def main() -> None:
         for name in ("phi_pool", "phi_pool_bwd"):
             beside[name].update(tail_launches[name])
             launches[name] += tail_launches[name]["tail_launches"]
+            beside[name]["wide_bf16_train_launches"] = wide_launches[name]
+            launches[name] += wide_launches[name]
         int8_export_phase(smi, run_dir)
         lap("int8 and export")
         raw_launches = raw_showers_phase(smi, run_dir)

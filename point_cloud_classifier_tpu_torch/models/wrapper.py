@@ -144,7 +144,14 @@ def resolve_device(device=None) -> torch.device:
     """The device a wrapper runs on: the card unless the caller names
     another.  ``None`` means ``"cuda"`` and raises where there is no usable
     card; it never picks the CPU by itself, so a run cannot end up on the CPU
-    through the kernels' plain versions without anyone having asked."""
+    through the kernels' plain versions without anyone having asked.
+
+    Taking the card turns off PyTorch's
+    ``allow_bf16_reduced_precision_reduction`` (on by default): with it on,
+    cuBLAS may add a split-K bf16 product's partial sums in bf16 (at a
+    contraction of 1,024 it does, ``splitKreduce_kernel`` on bf16
+    partials), where the JAX package sums every dot in f32 and rounds
+    once.  Every bf16 product of the port on the card then sums in f32."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -152,7 +159,10 @@ def resolve_device(device=None) -> torch.device:
                 "the port runs on the GPU; pass device=\"cpu\" to run on the CPU"
             )
         device = "cuda"
-    return torch.device(device)
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return device
 
 
 def kept_arrays(batch, model: nn.Module) -> dict:

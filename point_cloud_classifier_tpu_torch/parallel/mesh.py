@@ -77,7 +77,7 @@ def rank_device(device=None) -> torch.device:
     ``cuda:LOCAL_RANK`` (0 without a launcher), made the current one; raises
     where there is no card or no such card."""
     if device is not None:
-        device = torch.device(device)
+        device = resolve_device(device)
     else:
         resolve_device(None)  # raises without a card
         local = int(os.environ.get("LOCAL_RANK", "0"))

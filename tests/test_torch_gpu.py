@@ -26,6 +26,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from point_cloud_classifier_tpu_torch.models import DeepSets, GraphNet  # noqa: E402
+from point_cloud_classifier_tpu_torch.models.wrapper import resolve_device  # noqa: E402
 from point_cloud_classifier_tpu_torch.ops import fused_phi, gat, inrow_graph, knn  # noqa: E402
 from point_cloud_classifier_tpu_torch.ops.dispatch import force_plain  # noqa: E402
 
@@ -40,7 +41,8 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # neighbouring bf16 value, and the next layer carries it on).  The largest
 # readings over these cases on an H100 (80GB HBM3, 700 W): max relative
 # 7.6e-7 and relative Frobenius 4.5e-7 in f32, relative Frobenius 1.7e-4 in
-# bf16 (quick gelu).
+# bf16 (quick gelu); chip_smoke.py's width-1024 case reads 2.3e-4 in bf16,
+# with each bf16 product summed in f32 on both sides (_cuda: resolve_device).
 BWD_F32_REL, BWD_F32_FRO, BWD_BF16_FRO = 1e-4, 1e-5, 1e-3
 
 
@@ -48,7 +50,9 @@ def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K1 is a CUDA kernel with no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
+    # as the port's entry points take the card: bf16 products sum in f32
+    # (allow_bf16_reduced_precision_reduction off), the plain versions' too
+    return resolve_device("cuda")
 
 
 def _inputs(dev, dtype, p=1001, b=7, width=256, final=False, seed=0):
@@ -190,17 +194,21 @@ def test_cuda_backward_launches_k2_and_never_the_plain_version(monkeypatch):
 # (fewer points than a tile, a tile exactly, one over, two tiles), chains that
 # the sliced variant does not take (other widths, a bare final linear), and
 # the widths where the tf32x3 variant takes a cluster of two blocks (384,
-# 512); four on 32-row tiles (1024): test_f32_kernel_takes_tf32x3_at_wide_chains.
+# 512) and of four on 32-row tiles (1024; one point an event there:
+# test_f32_kernel_takes_tf32x3_at_wide_chains).  At 512 and 1024 over 1,001
+# points bf16 K2 takes the general variant's 16- and 8-row tiles, and its
+# dz·Wᵀ contracts over 1,024, where cuBLAS splits the plain version's.
 SHAPE_CASES = {
     "p37": dict(p=37, b=3), "p64": dict(p=64, b=3), "p65": dict(p=65, b=3),
     "p128": dict(p=128, b=5), "p1": dict(p=1, b=1), "w64": dict(width=64),
-    "w384": dict(width=384), "w512-p300": dict(width=512, p=300), "final": dict(final=True),
+    "w384": dict(width=384), "w512-p300": dict(width=512, p=300), "w512": dict(width=512),
+    "w1024": dict(width=1024), "final": dict(final=True),
 }
 
 
 def _variant(case, dtype, backward):
     """The DeepSets chain takes the sliced variant in K2 and in bf16 K1; f32
-    K1 takes the tf32x3 variant at every case here (widths up to 512 in
+    K1 takes the tf32x3 variant at every case here (widths up to 1024 in
     multiples of 32); every other launch the general one."""
     if not backward and dtype == torch.float32:
         return "tf32x3"
