@@ -703,7 +703,9 @@ def phi_inputs(b, p, dtype, seed, empty_event=True, final=False, widths=None, in
 # K2 and of bf16 K1 (64-row tiles, four blocks a tile), so P below one tile
 # and one over it; f32 K1 takes the tf32x3 variant at every case (64-row
 # tiles up to width 256, a cluster of two at 512, of four on 32-row tiles at
-# 1024); every other launch the general one.  The tail's case is the one bare
+# 1024); bf16 K1 and K2 the wide one at widths 384, 512 and 1024 (64-row
+# tiles, a cluster of two, two and four); every other launch the general
+# one.  The tail's case is the one bare
 # [256, 256] layer over 256-wide rows.  With one point an event the pooled
 # sums are the chain's rows, so no sum averages a product's rounding away:
 # there a one-pass TF32 product would miss the f32 bound.  The tail's and
@@ -751,6 +753,25 @@ def takes_tf32x3(dims) -> bool:
     return all(d % (8 * cluster) == 0 for d in dims[1:]) and smem <= 232448
 
 
+def takes_wide(dims, kinds, backward: bool) -> bool:
+    """csrc/phi_wide.cuh:wide_plan for a bf16 chain of widths ``dims``
+    (input first) and kinds (``plain``, ``residual``, ``linear``), not the
+    sliced variant's: points of at most 8 features, the widest layer above
+    256 and at most 1024, every width a multiple of 8 C (C = 2 up to 512, 4
+    up to 1024); K2 (``backward``) only the DeepSets chain, a plain first
+    layer and one square layer of 320 to 1024 in multiples of 64."""
+    widest = max(dims[1:])
+    if not 1 <= dims[0] <= 8 or not 256 < widest <= 1024:
+        return False
+    cluster = 2 if widest <= 512 else 4
+    if any(d % (8 * cluster) for d in dims[1:]):
+        return False
+    if backward:
+        return (len(kinds) == 2 and dims[1] == dims[2] and dims[1] % 64 == 0 and dims[1] >= 320
+                and kinds[0] == "plain" and kinds[1] != "linear")
+    return True
+
+
 def expected_variant(case: PhiCase, dtype, backward: bool) -> str:
     """Which variant the C entry must choose for a case: by its shape, its
     element type and the kernel (K2 when ``backward``) alone."""
@@ -759,8 +780,11 @@ def expected_variant(case: PhiCase, dtype, backward: bool) -> str:
         return "sliced"
     widths = CONFIG["model"]["phi_layers"] if case.widths is None else case.widths
     dims = [case.in_dim, *widths] + ([(widths or [case.in_dim])[-1]] if case.final else [])
+    kinds = [kind for kind, _ in case_spec(widths)] + (["linear"] if case.final else [])
     if not backward and dtype == torch.float32 and takes_tf32x3(dims):
         return "tf32x3"
+    if dtype == torch.bfloat16 and takes_wide(dims, kinds, backward):
+        return "wide"
     return "general"
 
 
@@ -1380,6 +1404,73 @@ def k1_variants_phase(smi: str) -> dict:
         readings[name] = {"variant": variant, "ms": min(taken), "general_ms": min(old), "events_ms": events_ms,
                           "plain_ms": plain_ms, "bound_ms": f32[0], "bound_tf32x3_ms": tc[0]}
         del points, seg, params
+        torch.cuda.empty_cache()
+    return readings
+
+
+# bf16 K1 and K2 alone at TIMES_SHAPES' φ widths, where both take the wide
+# variant, and f32 K2 there (the general variant): (name, φ width)
+WIDE_SHAPES = (("phi 512", 512), ("phi 1024", 1024))
+
+
+def wide_variants_phase(smi: str) -> dict:
+    """bf16 K1 and K2 (without d_points, as the train step calls it) at B=256,
+    P=65,536, φ [w, w] residual, on the device alone (graph_ms: a CUDA graph
+    of the calls, so no host gap is in it), the wide variants in turns (wide,
+    wide) around K1's general variant (pcc_phi_pool_general, once), beside
+    both bounds and the plain versions (cuda_ms); then f32 K2 there, which
+    takes the general variant, once by events beside its bound.  Returns the
+    readings by shape and kernel."""
+    readings = {"phi_pool": {}, "phi_pool_bwd": {}}
+    for name, width in WIDE_SHAPES:
+        widths = [width, width]
+        spec = case_spec(widths)
+        points, seg, params = phi_inputs(FLAGSHIP_B, FLAGSHIP_P, torch.bfloat16, SEED + 31, widths=widths)
+        b1 = FLAGSHIP_B + 1
+        g = torch.ones((b1, width), device="cuda")
+        k1 = lambda: phi_pool(points, seg, spec, params, "gelu", b1)  # noqa: E731
+        k2 = lambda: _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1, with_points=False)  # noqa: E731
+        k1_ms, k2_ms = [graph_ms(k1)], [graph_ms(k2)]
+        k1()
+        k2()
+        variants = (phi_pool.variant, phi_pool.bwd_variant)
+        general_ms = graph_ms(lambda: _phi_pool_cuda(points, seg, spec, params, "gelu", b1, general=True),
+                              iters=3, replays=1)
+        k1_ms.append(graph_ms(k1))
+        k2_ms.append(graph_ms(k2))
+        k1_plain = cuda_ms(lambda: phi_pool_plain(points, seg, spec, params, "gelu", b1))
+        k2_plain = cuda_ms(lambda: phi_pool_bwd_plain(points, seg, g, spec, params, "gelu", b1, with_points=False))
+        flat = [t for layer in params for t in layer]
+        per_row = [2 * w.shape[0] * w.shape[1] for w, _ in params]
+        fwd = bound_ms(_nbytes(points, seg) + 0.5 * _nbytes(*flat) + b1 * width * 4, FLAGSHIP_P * sum(per_row),
+                       BF16_FLOPS_PER_S)
+        bwd = bound_ms(_nbytes(points, seg, g) + 1.5 * _nbytes(*flat),
+                       FLAGSHIP_P * (2 * sum(per_row) + sum(per_row[1:])), BF16_FLOPS_PER_S)
+        print(f"time wide bf16 {name} B={FLAGSHIP_B} P={FLAGSHIP_P} φ [{width}, {width}] residual, device alone "
+              f"(CUDA graphs): K1 [{variants[0]}] {k1_ms[0]:.4f} / {k1_ms[1]:.4f} ms (general variant "
+              f"{general_ms:.4f}), plain {k1_plain:.4f} (events), bound {fwd[0]:.4f} by {fwd[1]}, "
+              f"×{min(k1_ms) / fwd[0]:.1f}; K2 without d_points [{variants[1]}] {k2_ms[0]:.4f} / {k2_ms[1]:.4f} ms, "
+              f"plain {k2_plain:.4f} (events), bound {bwd[0]:.4f} by {bwd[1]}, ×{min(k2_ms) / bwd[0]:.1f} [{smi}]")
+        if variants != ("wide", "wide"):
+            raise AssertionError(f"wide bf16 {name}: variants {variants}")
+        readings["phi_pool"][name] = dict(variant=variants[0], ms=min(k1_ms), general_ms=general_ms,
+                                          plain_ms=k1_plain, bound_ms=fwd[0], bound_by=fwd[1])
+        readings["phi_pool_bwd"][name] = dict(variant=variants[1], ms=min(k2_ms), plain_ms=k2_plain,
+                                              bound_ms=bwd[0], bound_by=bwd[1])
+        del points, params
+        # f32 K2 at the same chain: the general variant, never timed before
+        points, seg, params = phi_inputs(FLAGSHIP_B, FLAGSHIP_P, torch.float32, SEED + 31, widths=widths)
+        f32_ms = cuda_ms(lambda: _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1, with_points=False),
+                         iters=2, warmup=1)
+        flat = [t for layer in params for t in layer]
+        f32_bound = bound_ms(_nbytes(points, seg, g) + 2 * _nbytes(*flat),
+                             FLAGSHIP_P * (2 * sum(per_row) + sum(per_row[1:])))
+        print(f"time K2 f32 {name} B={FLAGSHIP_B} P={FLAGSHIP_P} without d_points [{phi_pool.bwd_variant} variant]: "
+              f"{f32_ms:.4f} ms (events, 2 calls), bound {f32_bound[0]:.4f} by {f32_bound[1]} (67 TFLOP/s f32), "
+              f"×{f32_ms / f32_bound[0]:.1f} [{smi}]")
+        readings["phi_pool_bwd"][f"f32 {name}"] = dict(variant=phi_pool.bwd_variant, ms=f32_ms,
+                                                       bound_ms=f32_bound[0], bound_by=f32_bound[1])
+        del points, seg, params, g
         torch.cuda.empty_cache()
     return readings
 
@@ -4011,7 +4102,7 @@ def wide_bf16_train_phase(smi: str) -> dict:
     flat batches (remat_phase's): per-step loss of the K1 + K2 route within
     WIDE_BF16_LOSS_RTOL of the plain route's from the same weights, then ms
     a step by CUDA events, the routes in turns.  K1 and K2 must launch once
-    on each of the kernel route's steps, on their general variants.  Returns
+    on each of the kernel route's steps, on their wide variants.  Returns
     K1's and K2's launches."""
     clouds, labels = make_clouds(np.random.default_rng(SEED + 28), 2 * FLAGSHIP_B)
     batches = [{k: torch.as_tensor(v).cuda() for k, v in b.items()}
@@ -4060,7 +4151,7 @@ def wide_bf16_train_phase(smi: str) -> dict:
             raise AssertionError(f"wide bf16 train φ {width}: the kernel route does not track the plain route")
         if (counts["phi_pool"], counts["phi_pool_bwd"]) != (steps, steps):
             raise AssertionError(f"wide bf16 train φ {width}: K1/K2 did not launch once a step: {counts}")
-        if variants != ("general", "general"):
+        if variants != ("wide", "wide"):
             raise AssertionError(f"wide bf16 train φ {width}: variants {variants}")
         total["phi_pool"] += counts["phi_pool"]
         total["phi_pool_bwd"] += counts["phi_pool_bwd"]
@@ -5291,6 +5382,8 @@ def main() -> None:
         launches.update(knn_launches)
         times = times_phase(smi, run_dir)
         beside["phi_pool"]["f32_shapes"] = k1_variants_phase(smi)
+        for name, readings in wide_variants_phase(smi).items():
+            beside[name]["bf16_wide_device"] = readings
         beside["phi_pool"]["max_rel_to_tf32x3_plain"] = k1_to_tf32x3
         lap("DeepSets times")
         times["gat_attention"] = graph_times_phase(smi, os.path.join(run_dir, "graph_run_1"))

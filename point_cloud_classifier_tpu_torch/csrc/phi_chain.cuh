@@ -6,7 +6,8 @@
 // type T where PyTorch forms a tensor of type T, and sums are taken in f32.
 //
 // Two families of tile product live here, one per kernel variant (f32 K1's
-// tf32x3 variant has its own, in phi_pool.cu):
+// tf32x3 variant has its own, in phi_pool.cu, and the bf16 wide variants
+// theirs, in phi_wide.cuh):
 //
 // - The sliced variant (takes_sliced() says which launches take it: the
 //   DeepSets φ chain, a narrow first layer and one 256 -> 256 layer, in K2
@@ -100,11 +101,18 @@ __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
 // these instructions, not by the tensor cores.  FAST 2 (kSigmoidApprox)
 // also takes the hardware's approximate division (__fdividef, 2 ulp): f32
 // K1's tf32x3 variant, whose epilogues are bound by these instructions and
-// whose products already differ from f32 ones by ~1e-6.  The general
-// variant and K2 keep the exact forms (0).
+// whose products already differ from f32 ones by ~1e-6.  FAST 3 (kWideFast)
+// is FAST 2, and also takes tanh as 1 - 2 / (1 + e^2x) by the hardware's
+// exp and approximate division where it enters as 1 ± t or 1 - t² (gelu,
+// its derivative, tanh's derivative): within ~1e-7 of tanhf, a thousandth of
+// a bf16 step, with no branch: the bf16 wide variants, whose values are
+// rounded to bf16 right after and whose per-element passes are bound by the
+// latency of these chains (a correctly rounded reciprocal branches to a slow
+// path for special values, and the compiler then overlaps fewer elements).
+// The general variant and K2 keep the exact forms (0).
 template <int FAST>
 __device__ __forceinline__ float sigmoid(float x) {
-  if constexpr (FAST == 2) {
+  if constexpr (FAST == 2 || FAST == 3) {
     return __fdividef(1.0f, 1.0f + __expf(-x));
   } else if constexpr (FAST == 1) {
     return __frcp_rn(1.0f + __expf(-x));
@@ -115,6 +123,17 @@ __device__ __forceinline__ float sigmoid(float x) {
 template <typename T>
 constexpr int kFastSigmoid = sizeof(T) == 2 ? 1 : 0;
 constexpr int kSigmoidApprox = 2;
+constexpr int kWideFast = 3;
+
+// tanh where it enters as 1 ± t or 1 - t² (see sigmoid)
+template <int FAST>
+__device__ __forceinline__ float tanh_of(float x) {
+  if constexpr (FAST == 3) {
+    return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * x));
+  } else {
+    return tanhf(x);
+  }
+}
 
 // The activations of ops/activations.py, rounded where PyTorch rounds a
 // tensor of type T between ops.
@@ -131,7 +150,7 @@ __device__ __forceinline__ float activate(float x, int act) {
       return rnd<T>(x * rnd<T>(sigmoid<FAST>(rnd<T>(1.702f * x))));
     default: {  // kGeluTanh: F.gelu(approximate="tanh")
       const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-      return rnd<T>(0.5f * x * (1.0f + tanhf(inner)));
+      return rnd<T>(0.5f * x * (1.0f + tanh_of<FAST>(inner)));
     }
   }
 }
@@ -148,7 +167,7 @@ __device__ __forceinline__ float act_grad(float x, int act) {
       return s * (1.0f + x * (1.0f - s));
     }
     case kTanh: {
-      const float t = tanhf(x);
+      const float t = tanh_of<FAST>(x);
       return 1.0f - t * t;
     }
     case kQuickGelu: {
@@ -157,7 +176,7 @@ __device__ __forceinline__ float act_grad(float x, int act) {
     }
     default: {  // kGeluTanh
       const float c = 0.7978845608028654f;
-      const float t = tanhf(c * (x + 0.044715f * x * x * x));
+      const float t = tanh_of<FAST>(c * (x + 0.044715f * x * x * x));
       return 0.5f * (1.0f + t) +
              0.5f * x * (1.0f - t * t) * c * (1.0f + 3.0f * 0.044715f * x * x);
     }
@@ -283,8 +302,9 @@ inline int round4(int n) { return (n + 3) / 4 * 4; }
 // -- where a block's time goes ------------------------------------------------------
 // Built with -DPCC_PHASE_CLOCKS (native.enable_phase_clocks(), which
 // phase_clocks.py calls), thread 0 of block 0 adds up clock64() between the
-// marks of a sliced kernel, and the file's pcc_*_phase_clocks entry copies
-// the sums out.  Without the flag the marks compile to nothing.
+// marks of a sliced, tf32x3 or wide kernel, and the file's
+// pcc_*_phase_clocks entry copies the sums out.  Without the flag the marks
+// compile to nothing.
 constexpr int kPhases = 16;
 #ifdef PCC_PHASE_CLOCKS
 static __device__ long long g_phase_clocks[kPhases];
@@ -420,6 +440,32 @@ inline cudaError_t max_clusters(Kernel kernel, size_t smem, int* out, int cluste
   return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
 }
 
+// How many clusters of `cluster` blocks of `threads` (blocks, for a cluster
+// of 1) of this kernel the card holds at once, each block allowed kMaxSmem
+// bytes of shared memory: asked once, into *fit (0 until then), so that a
+// persistent grid of one block an SM is sized at the largest block.
+template <typename Kernel>
+inline cudaError_t cluster_fit(Kernel kernel, int cluster, int threads, int* fit) {
+  if (*fit > 0) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kMaxSmem));
+  if (err != cudaSuccess) return err;
+  int n = 0;
+  if (cluster == 1) {
+    int per_sm = 0, device = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, kMaxSmem);
+    if (err == cudaSuccess) err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    n = per_sm * sms;
+  } else {
+    err = max_clusters(kernel, kMaxSmem, &n, cluster, threads);
+  }
+  if (err != cudaSuccess) return err;
+  if (n < 1) return cudaErrorLaunchOutOfResources;
+  *fit = n;
+  return cudaSuccess;
+}
+
 // Launch n_clusters clusters of `cluster` blocks of `threads`.
 template <typename... Params, typename... Args>
 inline cudaError_t launch_cluster_grid(void (*kernel)(Params...), int cluster, int n_clusters,
@@ -525,6 +571,17 @@ struct TileFetch {
     for (int q = 0; q < kPointsPerThread; ++q) xs[threadIdx.x + q * kThreads] = to_f32(x[q]);
     if (threadIdx.x < kTileRows) segs[threadIdx.x] = seg;
   }
+
+  // put() in the element type, into rows of ldx elements: xs[r * ldx + k]
+  // for k < kMaxFeatures (the wide variants' tensor-core operand)
+  __device__ __forceinline__ void put_rows(T* xs, int ldx, int* segs) const {
+#pragma unroll
+    for (int q = 0; q < kPointsPerThread; ++q) {
+      const int i = threadIdx.x + q * kThreads;
+      xs[(i / kMaxFeatures) * ldx + i % kMaxFeatures] = x[q];
+    }
+    if (threadIdx.x < kTileRows) segs[threadIdx.x] = seg;
+  }
 };
 
 // This block's slice of the wide layer's weights into shared memory,
@@ -578,6 +635,71 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// -- asynchronous copies and barriers (f32 K1's tf32x3 variant, the wide variants) --
+
+// Copies into shared memory that land while the block computes; `valid`
+// false writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n_threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n_threads) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// arrive (release: this thread's shared-memory reads and writes before it
+// are ordered before the phase completes)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+          smem_addr(bar))
+      : "memory");
+}
+// arrive once every cp.async this thread has issued so far has landed (the
+// arrival counts as the thread's own: .noinc)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+// wait (acquire) for the completion of the phase of the given parity
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// Every thread of the cluster's blocks, whatever its role.
+__device__ __forceinline__ void cluster_sync() { cooperative_groups::this_cluster().sync(); }
+
 // Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
 // l / 8.  Plain: a thread gets elements [lane / 4][2 (lane % 4) + {0, 1}] of
 // each stored matrix; transposed: [2 (lane % 4) + {0, 1}][lane / 4].
@@ -592,11 +714,11 @@ __device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
                : "r"(smem_addr(p)));
 }
 
-// c[16, 8] += a[16, 16] · b[16, 8], bf16 operands, f32 sums.
+// c[16, 8] += a[16, 16] · b[16, 8], bf16 operands, f32 sums.  Not volatile:
+// the compiler may interleave independent products.
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -18,9 +18,9 @@
 // TF32 on the H100, 105 of f32 products).  In bf16 the tensor cores' rate,
 // with the per-element activation (exp, divide) next to it.
 //
-// Three variants, chosen by the chain's shape and element type alone
-// (phi_chain.cuh:takes_sliced, tf32x3_plan below; pcc_phi_pool_variant
-// reports the choice, never a failed attempt):
+// Four variants, chosen by the chain's shape and element type alone
+// (phi_chain.cuh:takes_sliced, tf32x3_plan below, phi_wide.cuh:wide_plan;
+// pcc_phi_pool_variant reports the choice, never a failed attempt):
 //
 // Sliced (bf16, a first layer of at most 8 inputs, then one 256 -> 256 layer:
 // the DeepSets φ chain in bf16).  A cluster of four blocks walks 64-row tiles;
@@ -101,18 +101,48 @@
 //   tiles; the next tile's points come in by cp.async behind this tile's
 //   later layers.
 //
-// General (bf16 chains other than the sliced one: other widths, more layers,
-// a bare final linear; f32 chains the tf32x3 variant does not take).  One
-// block owns a tile of 32, 16 or 8 rows and keeps its activations in shared
-// memory (two f32 buffers of [ROWS, widest]); thread j owns output column j
-// of every row (phi_chain.cuh:tile_dot), reading the weights from L2.  What
-// does not fit 8 rows is refused (kErrTooWide).
+// Wide (bf16, 1 to 8 layers, points of at most 8 features, the widest
+// layer above 256 and at most 1024, every width a multiple of 8 C: the
+// DeepSets chain at φ 384-1024, bench.py's --phi-width rows in its default
+// dtype).  It replaces the general variant for these chains; phi_wide.cuh
+// holds the parts it shares with K2's wide variant and says why mma.sync.
+// - What bounds it: the operations, 2·P·Σ in·out over 989 TFLOP/s (0.14 ms
+//   at B=256, P=65,536, φ 1024).  This design adds W's traffic from L2: a
+//   cluster reads the whole of W once a 64-row tile, 2 MB at φ 1024, some
+//   2.1 GB a call, which the consumers wait for about a sixth of their
+//   clocks (phase_clocks.py).
+// - The tf32x3 variant's skeleton in bf16: a cluster of two blocks (widest
+//   <= 512) or four (<= 1024) a 64-row tile, each block 256 columns of every layer;
+//   four producer warps stage W in chunks of 32 k by cp.async, 16 bytes a
+//   copy straight from L2 into shared memory (no registers, no split), each
+//   arriving on the stage's mbarrier when it lands, five stages; eight
+//   consumer warps run the products (one pass of mma.sync m16n8k16, bf16
+//   operands by ldmatrix, f32 sums), the epilogues and the pool.
+// - Shared memory: h, the layer's input, [64, widest] bf16, 132 KB at
+//   1024: every activation is bf16 where the plain version rounds, so a
+//   tile holds 64 rows where the tf32x3 variant's f32 h holds 32, and each
+//   staged chunk of W serves 64 rows.
+// - Rounding: slice_dot's, the dot and then the bias add, so K2's recompute
+//   rounds the same way; the activations' f32 arithmetic takes the
+//   hardware's exp and approximate divide (kWideFast: the chains of
+//   dependent operations, not the instructions, bound the epilogues).
+// - Epilogue: each quad's bf16 pairs are gathered into 16-byte pieces
+//   (quad_gather) and written into every block's h.  Where a consumer's
+//   clocks go: phase_clocks.py, PERF.md §5.
+//
+// General (bf16 chains the sliced and the wide variants do not take:
+// widths up to 256 other than the sliced chain's, wider than 1024, points
+// of more than 8 features; f32 chains the tf32x3 variant does not take).
+// One block owns a tile of 32, 16 or 8 rows and keeps its activations in
+// shared memory (two f32 buffers of [ROWS, widest]); thread j owns output
+// column j of every row (phi_chain.cuh:tile_dot), reading the weights from
+// L2.  What does not fit 8 rows is refused (kErrTooWide).
 //
 // All: no pow-2 tile rule, the ragged last tile is masked, any P >= 1.  In
 // bf16 the weights and points are read as bf16, every value is rounded to
 // bf16 where the plain version rounds, and the pooled sums stay f32.
 
-#include "phi_chain.cuh"
+#include "phi_wide.cuh"
 
 namespace {
 
@@ -386,55 +416,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Copies into shared memory that land while the block computes; `valid`
-// false writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int n_threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n_threads) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-// arrive (release: this thread's shared-memory reads and writes before it
-// are ordered before the phase completes)
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
-          smem_addr(bar))
-      : "memory");
-}
-// wait (acquire) for the completion of the phase of the given parity
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
 // The warps of a ROWS-row tile: kWarpsM along the rows (32 each: two m16
 // tiles), kWarpsN along the columns; warp (wm, wn) takes the n8 tiles wn,
 // wn + kWarpsN, ... of the block's columns, kNt at most (256 columns).
@@ -655,10 +636,6 @@ __device__ __forceinline__ void tile_epilogue(const float (&acc)[2][Tf32Warps<RO
   });
 }
 
-// Every thread of the cluster's blocks, both roles: they call it at the
-// same points of the chunk stream.
-__device__ __forceinline__ void cluster_sync() { cooperative_groups::this_cluster().sync(); }
-
 // The chunks of W a tile takes, over all its layers.
 __device__ __forceinline__ int chunks_a_tile(const Chain& chain) {
   int n = 0;
@@ -711,6 +688,35 @@ __device__ __forceinline__ void produce(const Chain& chain, float* stages, uint6
         ahead = next_chunk(chain, ahead);
         put(held[i], c);
       }
+    }
+  }
+}
+
+// Pool a block's columns [col0, col0 + nb) of a tile's last layer (h, the
+// tile's n_rows rows) into out [num_segments, width], by the block's first
+// THREADS threads: run-length partial sums over the rows, one atomic per
+// run and column; ids outside [0, num_segments) are dropped.
+template <int THREADS, typename T>
+__device__ __forceinline__ void pool_tile(const T* h, int ldh, const int* segs, int n_rows,
+                                          float* __restrict__ out, int width, int col0, int nb,
+                                          int num_segments) {
+  for (int j = threadIdx.x; j < nb; j += THREADS) {
+    int cur = segs[0];
+    float run = 0.0f;
+#pragma unroll 8
+    for (int r = 0; r < n_rows; ++r) {
+      const int s = segs[r];
+      if (s != cur) {
+        if (cur >= 0 && cur < num_segments) {
+          atomicAdd(out + static_cast<size_t>(cur) * width + col0 + j, run);
+        }
+        cur = s;
+        run = 0.0f;
+      }
+      run += to_f32(h[r * ldh + col0 + j]);
+    }
+    if (cur >= 0 && cur < num_segments) {
+      atomicAdd(out + static_cast<size_t>(cur) * width + col0 + j, run);
     }
   }
 }
@@ -833,29 +839,9 @@ __global__ void __launch_bounds__(kTf32Threads, 1)
       }
     }
 
-    // Pool the block's columns of the last layer: run-length partial sums
-    // over the tile's rows, one atomic per run and column.
     const int width = chain.dims[n_layers];
-    const int col0 = rank * (width / C);
-    for (int j = threadIdx.x; j < width / C; j += kConsumers) {
-      int cur = tile_segs[0];
-      float run = 0.0f;
-#pragma unroll 8
-      for (int r = 0; r < n_rows; ++r) {
-        const int s = tile_segs[r];
-        if (s != cur) {
-          if (cur >= 0 && cur < num_segments) {
-            atomicAdd(out + static_cast<size_t>(cur) * width + col0 + j, run);
-          }
-          cur = s;
-          run = 0.0f;
-        }
-        run += h[r * ldh + col0 + j];
-      }
-      if (cur >= 0 && cur < num_segments) {
-        atomicAdd(out + static_cast<size_t>(cur) * width + col0 + j, run);
-      }
-    }
+    pool_tile<kConsumers>(h, ldh, tile_segs, n_rows, out, width, rank * (width / C), width / C,
+                          num_segments);
     clk.mark(8);
   }
   if constexpr (C > 1) cluster_sync();  // no block leaves while a neighbour may still write into it
@@ -906,27 +892,11 @@ cudaError_t launch_tf32x3(const void* points, const void* seg, void* out, int n_
                           int n_features, int num_segments, const Chain& chain,
                           const Tf32x3Plan& plan, cudaStream_t stream) {
   // one block an SM whatever the chain (every plan's block is over half the
-  // SM's shared memory): set and asked once, at the largest block
+  // SM's shared memory)
   auto kernel = phi_pool_tf32x3_kernel<ROWS, C>;
   static int fit = 0;  // clusters (blocks, for C = 1) the card holds at once
-  if (fit == 0) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(kMaxSmem));
-    if (err != cudaSuccess) return err;
-    int n = 0;
-    if constexpr (C == 1) {
-      int per_sm = 0, device = 0, sms = 0;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTf32Threads, kMaxSmem);
-      if (err == cudaSuccess) err = cudaGetDevice(&device);
-      if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-      n = per_sm * sms;
-    } else {
-      err = max_clusters(kernel, kMaxSmem, &n, C, kTf32Threads);
-    }
-    if (err != cudaSuccess) return err;
-    if (n < 1) return cudaErrorLaunchOutOfResources;
-    fit = n;
-  }
+  cudaError_t err = cluster_fit(kernel, C, kTf32Threads, &fit);
+  if (err != cudaSuccess) return err;
   const int n_tiles = (n_points + ROWS - 1) / ROWS;
   const int grid = n_tiles < fit ? n_tiles : fit;
   const int vec4 = n_features % 4 == 0 && reinterpret_cast<uintptr_t>(points) % 16 == 0;
@@ -958,6 +928,130 @@ cudaError_t launch_tf32x3_plan(const void* points, const void* seg, void* out, i
       return launch_tf32x3<32, 4>(points, seg, out, n_points, n_features, num_segments, chain,
                                   plan, stream);
   }
+}
+
+// -- the wide variant (bf16) -----------------------------------------------------------
+
+// A cluster of C blocks walks 64-row tiles (phi_wide.cuh); shared memory: h
+// [64, ldh] (the layers' values, computed in place), x [64, kXLd] (the
+// tile's points, zero past the features), kWideStagesK1 staged chunks by k,
+// the tile's segment ids, the stages' mbarriers.  The chunk stream is the
+// chain's layers in order, each layer's W by k; the consumers meet two
+// cluster barriers around every layer's epilogue but the last's.
+template <int C>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    phi_pool_wide_kernel(const bf16* __restrict__ points, const int* __restrict__ seg,
+                         float* __restrict__ out, int n_points, int n_features, int num_segments,
+                         Chain chain, WideStream st, int ldh) {
+  constexpr int S = kWideStagesK1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* h = reinterpret_cast<bf16*>(smem_raw);
+  bf16* x = h + kWideRows * ldh;
+  bf16* stages = x + kWideRows * kXLd;
+  int* segs = reinterpret_cast<int*>(stages + S * kStageByK);
+  uint64_t* full = reinterpret_cast<uint64_t*>(segs + kWideRows);
+  uint64_t* empty = full + S;
+
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  bf16* targets[C];
+  targets[0] = h;
+#pragma unroll
+  for (int q = 1; q < C; ++q) targets[q] = cluster.map_shared_rank(h, (rank + q) % C);
+  const int n_tiles = (n_points + kWideRows - 1) / kWideRows;
+  const int n_clusters = gridDim.x / C;
+  const int n_layers = chain.n_layers;
+  const int first_tile = blockIdx.x / C;
+  const int n_my_tiles = first_tile < n_tiles ? (n_tiles - 1 - first_tile) / n_clusters + 1 : 0;
+
+  for (int i = threadIdx.x; i < kWideRows * kXLd; i += kWideThreads) x[i] = from_f32<bf16>(0.0f);
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < S; ++q) {
+      mbar_init(full + q, kWideProducers);
+      mbar_init(empty + q, kWideConsumerWarps);
+    }
+  }
+  PhaseClock clk;
+  cluster_sync();  // x is zero, and every block of the cluster has started
+  if (threadIdx.x >= kWideConsumers) {
+    wide_produce<C, S>(st, stages, kStageByK, full, empty, rank, n_my_tiles);
+    cluster_sync();
+    return;
+  }
+
+  // the consumers
+  clk.mark(0);
+  TileFetch<bf16> next;
+  if (n_my_tiles > 0) next.fetch(points, seg, first_tile, n_points, n_features);
+  int chunk = 0;
+  for (int tile = first_tile; tile < n_tiles; tile += n_clusters) {
+    const int n_rows = min(kWideRows, n_points - tile * kWideRows);
+    next.put_rows(x, kXLd, segs);
+    if (tile + n_clusters < n_tiles) next.fetch(points, seg, tile + n_clusters, n_points, n_features);
+    bar_sync(kWideConsumerBar, kWideConsumers);  // the tile's points and ids are in x and segs
+    clk.mark(1);
+    for (int l = 0; l < n_layers; ++l) {
+      const bf16* in = l == 0 ? x : h;
+      const int ld_in = l == 0 ? kXLd : ldh;
+      const int nb = chain.dims[l + 1] / C;
+      float acc[2][kWideNt][4];
+      zero(acc);
+      const int n_chunks = phase_chunks(st.phase[l]);
+      for (int c = 0; c < n_chunks; ++c, ++chunk) {
+        const int s = chunk % S;
+        mbar_wait(full + s, (chunk / S) & 1);  // the producers' copies have landed
+        clk.mark(2);
+        wide_product<false>(acc, in, ld_in, c * kWideChunk, chunk_steps(st.phase[l].k_dim, c),
+                            stages + s * kStageByK);
+        __syncwarp();  // every lane's reads of the stage are done
+        if (threadIdx.x % 32 == 0) mbar_arrive(empty + s);
+        clk.mark(3);
+      }
+      bar_sync(kWideConsumerBar, kWideConsumers);  // no warp reads x or h for the products any more
+      clk.mark(4);
+      const bool last = l == n_layers - 1;
+      if (!last) cluster_sync();  // no block reads its h any more
+      clk.mark(5);
+      wide_epilogue<C>(acc, in, ld_in, targets, last ? 1 : C, ldh,
+                       static_cast<const bf16*>(chain.b[l]), rank * nb, nb, chain.kind[l],
+                       chain.act);
+      clk.mark(last ? 9 : 6);
+      if (!last) {
+        cluster_sync();  // the layer is whole in every block
+      } else {
+        bar_sync(kWideConsumerBar, kWideConsumers);
+      }
+      clk.mark(7);
+    }
+
+    const int width = chain.dims[n_layers];
+    pool_tile<kWideConsumers>(h, ldh, segs, n_rows, out, width, rank * (width / C), width / C,
+                              num_segments);
+    bar_sync(kWideConsumerBar, kWideConsumers);  // segs and h are read no more for this tile
+    clk.mark(8);
+  }
+  cluster_sync();  // no block leaves while a neighbour may still write into it
+  clk.flush();
+}
+
+template <int C>
+cudaError_t launch_wide(const void* points, const void* seg, void* out, int n_points,
+                        int n_features, int num_segments, const Chain& chain,
+                        const WidePlan& plan, cudaStream_t stream) {
+  auto kernel = phi_pool_wide_kernel<C>;
+  static int fit = 0;  // clusters the card holds at once
+  const cudaError_t err = cluster_fit(kernel, C, kWideThreads, &fit);
+  if (err != cudaSuccess) return err;
+  WideStream st = {};
+  for (int l = 0; l < chain.n_layers; ++l) {
+    add_phase(st, chain.w[l], chain.dims[l], chain.dims[l + 1], chain.dims[l + 1], 0);
+    if (l + 1 < chain.n_layers) add_sync(st, 2);
+  }
+  const int n_tiles = (n_points + kWideRows - 1) / kWideRows;
+  return launch_cluster_grid(kernel, C, n_tiles < fit ? n_tiles : fit, kWideThreads, plan.smem,
+                             stream, static_cast<const bf16*>(points), static_cast<const int*>(seg),
+                             static_cast<float*>(out), n_points, n_features, num_segments, chain,
+                             st, plan.ldh);
 }
 
 // -- the general variant's launch ------------------------------------------------------
@@ -1007,12 +1101,13 @@ cudaError_t launch_rows(const void* points, const void* seg, void* out, int n_po
 
 namespace {
 
-// K1's launch: the sliced variant, else (f32) the tf32x3 variant where its
-// plan takes the chain and `tf32x3` is set, else the general one.
+// K1's launch: the sliced variant, else the tf32x3 variant (f32) or the
+// wide one (bf16) where its plan takes the chain and `redesigned` is set,
+// else the general one.
 int phi_pool_launch(const void* points, const void* seg, void* out, int n_points, int n_features,
                     int num_segments, int n_layers, const int* dims, const int* kinds,
                     const void* const* weights, const void* const* biases, int act, int is_bf16,
-                    void* stream, bool tf32x3) {
+                    void* stream, bool redesigned) {
   if (n_points < 1 || n_layers < 0 || n_layers > kMaxLayers || dims[0] != n_features) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1023,9 +1118,17 @@ int phi_pool_launch(const void* points, const void* seg, void* out, int n_points
                                                          num_segments, chain, s));
   }
   const Tf32x3Plan plan = tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0);
-  if (tf32x3 && plan.cluster > 0) {
+  if (redesigned && plan.cluster > 0) {
     return static_cast<int>(launch_tf32x3_plan(points, seg, out, n_points, n_features,
                                                num_segments, chain, plan, s));
+  }
+  const WidePlan wide = wide_plan(n_layers, dims, kinds, is_bf16 != 0, false);
+  if (redesigned && wide.cluster > 0) {
+    const cudaError_t err =
+        wide.cluster == 2
+            ? launch_wide<2>(points, seg, out, n_points, n_features, num_segments, chain, wide, s)
+            : launch_wide<4>(points, seg, out, n_points, n_features, num_segments, chain, wide, s);
+    return static_cast<int>(err);
   }
   int widest = n_features;
   for (int l = 0; l <= n_layers; ++l) widest = dims[l] > widest ? dims[l] : widest;
@@ -1057,8 +1160,9 @@ int pcc_phi_pool(const void* points, const void* seg, void* out, int n_points,
                          kinds, weights, biases, act, is_bf16, stream, true);
 }
 
-// pcc_phi_pool without the tf32x3 variant: an f32 chain takes the general
-// one.  For timing the two side by side; the port's path never calls it.
+// pcc_phi_pool without the tf32x3 and the wide variants: the chains they
+// take go to the general one.  For timing them side by side; the port's path
+// never calls it.
 int pcc_phi_pool_general(const void* points, const void* seg, void* out, int n_points,
                          int n_features, int num_segments, int n_layers, const int* dims,
                          const int* kinds, const void* const* weights,
@@ -1069,12 +1173,14 @@ int pcc_phi_pool_general(const void* points, const void* seg, void* out, int n_p
 
 // Which variant a launch takes, K1's when backward is 0 and K2's otherwise:
 // 1 the sliced variant (phi_chain.cuh:takes_sliced), 2 the tf32x3 variant
-// (K1 only: tf32x3_plan), 0 the general one.
+// (K1 only: tf32x3_plan), 3 the wide one (bf16: phi_wide.cuh:wide_plan),
+// 0 the general one.
 int pcc_phi_pool_variant(int n_layers, const int* dims, const int* kinds, int is_bf16,
                          int backward) {
   if (n_layers < 1 || n_layers > kMaxLayers) return 0;
   if (takes_sliced(n_layers, dims, kinds, is_bf16 != 0, backward != 0)) return 1;
   if (backward == 0 && tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0).cluster > 0) return 2;
+  if (wide_plan(n_layers, dims, kinds, is_bf16 != 0, backward != 0).cluster > 0) return 3;
   return 0;
 }
 

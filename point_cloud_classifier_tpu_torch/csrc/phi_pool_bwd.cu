@@ -11,7 +11,8 @@
 //   d_W += h_inᵀ dz,  d_b += Σ dz     (f32, over every point)
 //   d_in = dz Wᵀ  (+ d_out for a residual layer)
 // and d_points = d_in of the first layer, only when asked.  No [P, H]
-// activation or gradient is ever written to device memory.
+// activation or gradient is written to device memory, but by the wide
+// variant, whose [P, W] bf16 scratch of h1 and dz2 is deliberate (below).
 //
 // What bounds it on the H100: operations.  Per point the recompute costs the
 // forward's FLOPs again, and d_W and dz Wᵀ each cost as much once more: about
@@ -20,8 +21,9 @@
 // layer, one SM's whole register file, which a single block can only keep in
 // device memory and must then read and write once per tile.
 //
-// Two variants, chosen by the chain's shape alone (phi_chain.cuh:takes_sliced;
-// pcc_phi_pool_variant in phi_pool.cu reports the choice):
+// Three variants, chosen by the chain's shape and element type alone
+// (phi_chain.cuh:takes_sliced, phi_wide.cuh:wide_plan; pcc_phi_pool_variant
+// in phi_pool.cu reports the choice):
 //
 // Sliced (a first layer of at most 8 inputs, then one 256 -> 256 layer: the
 // DeepSets φ chain).  A cluster of four blocks walks 64-row tiles; block c
@@ -60,21 +62,60 @@
 //   f32 share of dz·Wᵀ is 65 KB of it) and 128 registers a thread where d_W
 //   and the small gradients alone are 104 accumulators.
 //
+// Wide (bf16, the DeepSets chain at widths W of 320 to 1024 in multiples of
+// 64: a first layer of at most 8 inputs, then one square layer, plain or
+// residual; bench.py's --phi-width rows in its default dtype).  Two kernels
+// in one launch sequence, then reduce_slabs_kernel three times.
+// - What bounds it: the operations, three products of 2·P·W² over 989
+//   TFLOP/s (0.42 ms at B=256, P=65,536, W=1024).  d_W of the square layer
+//   is [W, W] f32, 4 MB at 1024: no SM holds it, and the general variant's
+//   per-block slabs moved it in and out of device memory every 8-row tile.
+// - The row pass runs on K1's wide skeleton (phi_wide.cuh): a cluster of two
+//   (W <= 512) or four blocks a 64-row tile, block r owning columns [r nb,
+//   (r + 1) nb).  Per tile: h1 = act(x·W1 + b1) by one tensor-core product
+//   from W1's columns kept in shared memory (the same operands and
+//   instruction as K1's first layer, so the same bits), into every block's
+//   h; z2 = h1·W2 (W2 staged by k); dz2 = rnd(g[seg]) ⊙ act'(z2) into every
+//   block's h; d_h1 = dz2·W2ᵀ (W2's rows staged by n: the same [in, out]
+//   copy, read with plain ldmatrix), then dz1 = d_h1 (+ d_out) ⊙ act'(z1)
+//   with z1 from that first-layer product again.  The small gradients (d_W1
+//   [F, W], d_b1, d_b2) are sums over the tile's rows in order, one column
+//   a thread, kept in registers and written once a cluster into its slab;
+//   d_points is each block's share over its columns summed across the
+//   cluster in rank order.  It writes h1 and dz2 to a [P, W] bf16 scratch
+//   each (128 MB at P = 65,536, W = 1024: about 0.08 ms of writes at 3.35
+//   TB/s), against the general variant's ~69 GB of slab traffic a call;
+//   docs/parity_torch.md §16.
+// - The d_W pass: d_W2 = h1ᵀ·dz2 with [128, 128] f32 tiles of d_W2
+//   stationary in registers, P split into chunks to give every SM two
+//   blocks, both operands streamed from the scratch by cp.async in rows of
+//   32 points and read with ldmatrix .trans; each chunk's partial is summed
+//   in chunk order by reduce_slabs_kernel.  h1 is read from the scratch and
+//   not recomputed from the points: recomputing it costs an activation per
+//   element for each of the W / 128 column tiles of d_W2 (not measured).
+// - A fully fused form (d_W tiles stationary per cluster, the z2 recompute
+//   split over its blocks) is not built: a block's registers hold at most
+//   [1024, 64] of d_W in f32 (256 KB), so d_W2 at width 1024 would take
+//   sixteen blocks' registers, each block recomputing the chain for every
+//   point.
+//
 // General (every other chain).  One block owns a tile of 32, 16 or 8 rows
 // and keeps every layer's input and pre-activation in shared memory (f32);
 // the products are phi_chain.cuh:tile_dot, Wᵀ passed in as its own row-major
 // copy.  The grid is persistent, one block per SM, and each block keeps its
 // own f32 slab of every d_W and d_b in device memory, read and written once
-// per tile; the same second kernel sums the slabs in a fixed order.  What
-// does not fit 8 rows is refused (kErrTooWide).
+// per tile; the same second kernel sums the slabs in a fixed order.  It
+// serves f32 chains other than the sliced one (φ 512 and 1024 among them)
+// and bf16 chains neither other variant takes.  What does not fit 8 rows is
+// refused (kErrTooWide).
 //
-// Both: the ragged last tile is masked (its rows get a zero cotangent), so
+// All: the ragged last tile is masked (its rows get a zero cotangent), so
 // any P >= 1 works; there is no fallback.  In bf16, points, weights and
 // d_points are bf16; every value is rounded to bf16 where phi_pool_bwd_plain
 // rounds (the gathered cotangent, dz after its f32 product, dz Wᵀ after its
 // f32 sum, the residual add); d_W and d_b stay f32.
 
-#include "phi_chain.cuh"
+#include "phi_wide.cuh"
 
 namespace {
 
@@ -265,16 +306,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out[k] = Σ_b slabs[b][k], b in order: the deterministic cross-block sum.
+// out[k] = Σ_b slabs[b · stride + k] for k < n, b in order: the
+// deterministic cross-block sum.
 __global__ void __launch_bounds__(kThreads)
-    reduce_slabs_kernel(const float* __restrict__ slabs, int n_slabs, int n_param,
+    reduce_slabs_kernel(const float* __restrict__ slabs, int n_slabs, size_t stride, int n,
                         float* __restrict__ out) {
-  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < n_param;
-       k += gridDim.x * blockDim.x) {
+  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < n; k += gridDim.x * blockDim.x) {
     float s = 0.0f;
-    for (int b = 0; b < n_slabs; ++b) s += slabs[static_cast<size_t>(b) * n_param + k];
+    for (int b = 0; b < n_slabs; ++b) s += slabs[b * stride + k];
     out[k] = s;
   }
+}
+
+cudaError_t reduce_slabs(const float* slabs, int n_slabs, size_t stride, int n, float* out,
+                         cudaStream_t stream) {
+  reduce_slabs_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(slabs, n_slabs,
+                                                                              stride, n, out);
+  return cudaGetLastError();
 }
 
 // -- the sliced variant -------------------------------------------------------------
@@ -574,10 +622,490 @@ cudaError_t launch_sliced(const void* points, const void* seg, const void* g, vo
       static_cast<const int*>(seg), static_cast<const float*>(g), static_cast<T*>(d_points),
       static_cast<float*>(slabs), n_points, n_features, num_segments, chain, n_param);
   if (err != cudaSuccess) return err;
-  const int reduce_grid = (n_param + kThreads - 1) / kThreads;
-  reduce_slabs_kernel<<<reduce_grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(slabs), n_clusters, n_param, static_cast<float*>(d_params));
-  return cudaGetLastError();
+  return reduce_slabs(static_cast<const float*>(slabs), n_clusters, n_param, n_param,
+                      static_cast<float*>(d_params), stream);
+}
+
+// -- the wide variant (bf16): the row pass ---------------------------------------------
+
+// The chain [F, W, W]: h1 = act(z1), z1 = x·W1 + b1; z2 = h1·W2 + b2.  A
+// cluster of C blocks walks 64-row tiles on K1's wide skeleton
+// (phi_wide.cuh), block r owning columns [r nb, (r + 1) nb) of both layers.
+// Shared memory: h [64, ldh] (h1, then dz2, then in this block's columns
+// dz1), x [64, kXLd], w1s [256, kLdN] (this block's columns of W1 as
+// chunk-by-n rows, zero past F: the first layer's one product), the stages,
+// pp [64, 8] f32 (the block's share of d_points), the segment ids, the
+// mbarriers.  The chunk stream: W2 by k (z2 = h1·W2), then W2 by n (d_h1 =
+// dz2·W2ᵀ), each tile.
+template <int C>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    phi_pool_bwd_wide_kernel(const bf16* __restrict__ points, const int* __restrict__ seg,
+                             const float* __restrict__ g, bf16* __restrict__ d_points,
+                             bf16* __restrict__ h1s, bf16* __restrict__ dz2s,
+                             float* __restrict__ slabs, int n_points, int n_features,
+                             int num_segments, Chain chain, WideStream st, int ldh,
+                             int n_small) {
+  constexpr int S = kWideStagesK2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* h = reinterpret_cast<bf16*>(smem_raw);
+  bf16* x = h + kWideRows * ldh;
+  bf16* w1s = x + kWideRows * kXLd;
+  bf16* stages = w1s + kWideCols * kW1Ld;
+  float* pp = reinterpret_cast<float*>(stages + S * kStageByN);
+  int* segs = reinterpret_cast<int*>(pp + kWideRows * kMaxFeatures);
+  uint64_t* full = reinterpret_cast<uint64_t*>(segs + kWideRows);
+  uint64_t* empty = full + S;
+
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  bf16* targets[C];
+  const float* pp_all[C];
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    targets[q] = q == 0 ? h : cluster.map_shared_rank(h, (rank + q) % C);
+    pp_all[q] = cluster.map_shared_rank(pp, q);
+  }
+  const int width = chain.dims[1];
+  const int nb = width / C, col0 = rank * nb;
+  const int n_tiles = (n_points + kWideRows - 1) / kWideRows;
+  const int n_clusters = gridDim.x / C;
+  const int first_tile = blockIdx.x / C;
+  const int n_my_tiles = first_tile < n_tiles ? (n_tiles - 1 - first_tile) / n_clusters + 1 : 0;
+  const bf16* __restrict__ W1 = static_cast<const bf16*>(chain.w[0]);
+  const bf16* __restrict__ b1 = static_cast<const bf16*>(chain.b[0]);
+  const bf16* __restrict__ b2 = static_cast<const bf16*>(chain.b[1]);
+  const bool residual = chain.kind[1] == kResidual;
+
+  for (int i = threadIdx.x; i < kWideRows * kXLd; i += kWideThreads) x[i] = from_f32<bf16>(0.0f);
+  for (int i = threadIdx.x; i < kWideCols * 16; i += kWideThreads) {
+    const int n = i / 16, k = i % 16;
+    w1s[n * kW1Ld + k] = n < nb && k < n_features ? W1[static_cast<size_t>(k) * width + col0 + n]
+                                                 : from_f32<bf16>(0.0f);
+  }
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < S; ++q) {
+      mbar_init(full + q, kWideProducers);
+      mbar_init(empty + q, kWideConsumerWarps);
+    }
+  }
+  PhaseClock clk;
+  cluster_sync();  // x and w1s are set, and every block of the cluster has started
+  if (threadIdx.x >= kWideConsumers) {
+    wide_produce<C, S>(st, stages, kStageByN, full, empty, rank, n_my_tiles);
+    cluster_sync();
+    return;
+  }
+  clk.mark(0);
+
+  // the consumers; thread j < nb carries column col0 + j of the small
+  // gradients from tile to tile
+  const int j = threadIdx.x;
+  float dw1[kMaxFeatures], db1 = 0.0f, db2 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kMaxFeatures; ++k) dw1[k] = 0.0f;
+  const int lane = threadIdx.x % 32;
+  TileFetch<bf16> next;
+  if (n_my_tiles > 0) next.fetch(points, seg, first_tile, n_points, n_features);
+  int chunk = 0;
+  const int n2 = phase_chunks(st.phase[0]), n3 = phase_chunks(st.phase[1]);
+  for (int tile = first_tile; tile < n_tiles; tile += n_clusters) {
+    const int row0 = tile * kWideRows;
+    const int n_rows = min(kWideRows, n_points - row0);
+    next.put_rows(x, kXLd, segs);
+    if (tile + n_clusters < n_tiles) next.fetch(points, seg, tile + n_clusters, n_points, n_features);
+    bar_sync(kWideConsumerBar, kWideConsumers);  // the tile's points and ids are in x and segs
+    // the first layer's a fragments: the tile's points, k < 16
+    uint32_t ax[2][4];
+    wide_a(ax, x, kXLd, 0);
+    clk.mark(1);
+
+    cluster_sync();  // no block reads its h any more
+    clk.mark(2);
+    // h1 = act(rnd(rnd(x·W1) + b1)), this block's columns, into every block's
+    // h and into h1s for the d_W pass (16-byte pieces: quad_gather)
+    with_act(chain.act, [&](auto a) {
+#pragma unroll
+      for (int i = 0; i < kWideNt; i += 2) {
+        uint32_t b[4];
+        wide_b<true>(b, w1s, i, 0, kW1Ld);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          if (!wide_tile_in(i + u, nb)) continue;
+          const int col = col0 + wide_col(i + u);
+          const float bias0 = to_f32(b1[col]), bias1 = to_f32(b1[col + 1]);
+          uint32_t v[4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            float dot[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            mma_bf16(dot, ax[mt], b[2 * u], b[2 * u + 1]);
+#pragma unroll
+            for (int e = 0; e < 4; e += 2) {
+              v[2 * mt + e / 2] = pack_bf16(
+                  layer_out<bf16, kWideFast>(dot[e], bias0, 0.0f, kPlain, decltype(a)::value, nullptr),
+                  layer_out<bf16, kWideFast>(dot[e + 1], bias1, 0.0f, kPlain, decltype(a)::value,
+                                             nullptr));
+            }
+          }
+          const uint4 piece = quad_gather(v);
+          const int row = gathered_row(), c8 = col0 + 8 * (threadIdx.x / 32 % 4 + 4 * (i + u));
+#pragma unroll
+          for (int q = 0; q < C; ++q) *reinterpret_cast<uint4*>(targets[q] + row * ldh + c8) = piece;
+          if (row < n_rows) {
+            *reinterpret_cast<uint4*>(h1s + static_cast<size_t>(row0 + row) * width + c8) = piece;
+          }
+        }
+      }
+    });
+    clk.mark(3);
+    cluster_sync();  // h1 is whole in every block
+    clk.mark(4);
+
+    // z2's dots for this block's columns: h1·W2
+    float acc[2][kWideNt][4];
+    zero(acc);
+    for (int c = 0; c < n2; ++c, ++chunk) {
+      const int s = chunk % S;
+      mbar_wait(full + s, (chunk / S) & 1);
+      clk.mark(5);
+      wide_product<false>(acc, h, ldh, c * kWideChunk, chunk_steps(width, c), stages + s * kStageByN);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+      clk.mark(6);
+    }
+    bar_sync(kWideConsumerBar, kWideConsumers);
+    clk.mark(7);
+    cluster_sync();  // no block reads its h any more
+    clk.mark(8);
+    // dz2 = rnd(rnd(g[seg]) ⊙ act'(z2)), z2 = rnd(rnd(dot) + b2): padding ids
+    // (>= S) and rows past the end get zero; into every block's h and dz2s
+    with_act(chain.act, [&](auto a) {
+#pragma unroll
+      for (int i = 0; i < kWideNt; ++i) {
+        if (!wide_tile_in(i, nb)) continue;
+        const int col = col0 + wide_col(i);
+        const float bias0 = to_f32(b2[col]), bias1 = to_f32(b2[col + 1]);
+        uint32_t v[4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int e = 0; e < 4; e += 2) {
+            const int sid = segs[wide_row(mt, e)];
+            float d0 = 0.0f, d1 = 0.0f;
+            if (sid >= 0 && sid < num_segments) {
+              d0 = rnd<bf16>(g[static_cast<size_t>(sid) * width + col]);
+              d1 = rnd<bf16>(g[static_cast<size_t>(sid) * width + col + 1]);
+            }
+            const float z0 = rnd<bf16>(rnd<bf16>(acc[mt][i][e]) + bias0);
+            const float z1 = rnd<bf16>(rnd<bf16>(acc[mt][i][e + 1]) + bias1);
+            v[2 * mt + e / 2] = pack_bf16(d0 * act_grad<bf16, kWideFast>(z0, decltype(a)::value),
+                                          d1 * act_grad<bf16, kWideFast>(z1, decltype(a)::value));
+          }
+        }
+        const uint4 piece = quad_gather(v);
+        const int row = gathered_row(), c8 = col0 + 8 * (threadIdx.x / 32 % 4 + 4 * i);
+#pragma unroll
+        for (int q = 0; q < C; ++q) *reinterpret_cast<uint4*>(targets[q] + row * ldh + c8) = piece;
+        if (row < n_rows) {
+          *reinterpret_cast<uint4*>(dz2s + static_cast<size_t>(row0 + row) * width + c8) = piece;
+        }
+      }
+    });
+    clk.mark(9);
+    cluster_sync();  // dz2 is whole in every block
+    clk.mark(10);
+
+    // d_h1's dots for this block's columns: dz2·W2ᵀ, W2's rows by n
+    zero(acc);
+    for (int c = 0; c < n3; ++c, ++chunk) {
+      const int s = chunk % S;
+      mbar_wait(full + s, (chunk / S) & 1);
+      clk.mark(5);
+      wide_product<true>(acc, h, ldh, c * kWideChunk, chunk_steps(width, c), stages + s * kStageByN);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+      clk.mark(6);
+    }
+    bar_sync(kWideConsumerBar, kWideConsumers);  // h is read for no product any more
+    clk.mark(7);
+    // d_b2 += Σ dz2 over the tile's rows, in order
+    if (j < nb) {
+      for (int r = 0; r < kWideRows; ++r) db2 += to_f32(h[r * ldh + col0 + j]);
+    }
+    bar_sync(kWideConsumerBar, kWideConsumers);
+    clk.mark(11);
+    // d_h1 = rnd(dot) (+ d_out, rounded, for a residual layer); dz1 =
+    // rnd(d_h1 ⊙ act'(z1)), z1 from the same product as h1's; into this
+    // block's columns of h
+    with_act(chain.act, [&](auto a) {
+#pragma unroll
+      for (int i = 0; i < kWideNt; i += 2) {
+        uint32_t b[4];
+        wide_b<true>(b, w1s, i, 0, kW1Ld);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            if (!wide_tile_in(i + u, nb)) continue;
+            float dot[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            mma_bf16(dot, ax[mt], b[2 * u], b[2 * u + 1]);
+            const int col = col0 + wide_col(i + u);
+            const float bias0 = to_f32(b1[col]), bias1 = to_f32(b1[col + 1]);
+#pragma unroll
+            for (int e = 0; e < 4; e += 2) {
+              const int row = wide_row(mt, e);
+              float v0 = rnd<bf16>(acc[mt][i + u][e]), v1 = rnd<bf16>(acc[mt][i + u][e + 1]);
+              if (residual) {
+                const int sid = segs[row];
+                if (sid >= 0 && sid < num_segments) {
+                  v0 = rnd<bf16>(rnd<bf16>(g[static_cast<size_t>(sid) * width + col]) + v0);
+                  v1 = rnd<bf16>(rnd<bf16>(g[static_cast<size_t>(sid) * width + col + 1]) + v1);
+                }
+              }
+              const float z0 = rnd<bf16>(rnd<bf16>(dot[e]) + bias0);
+              const float z1 = rnd<bf16>(rnd<bf16>(dot[e + 1]) + bias1);
+              *reinterpret_cast<__nv_bfloat162*>(h + row * ldh + col) = __floats2bfloat162_rn(
+                  v0 * act_grad<bf16, kWideFast>(z0, decltype(a)::value),
+                  v1 * act_grad<bf16, kWideFast>(z1, decltype(a)::value));
+            }
+          }
+        }
+      }
+    });
+    bar_sync(kWideConsumerBar, kWideConsumers);  // dz1 is whole in this block's columns
+    clk.mark(12);
+    // d_W1 += xᵀ dz1, d_b1 += Σ dz1, over the tile's rows in order
+    if (j < nb) {
+      for (int r = 0; r < kWideRows; ++r) {
+        const float dz = to_f32(h[r * ldh + col0 + j]);
+        db1 += dz;
+#pragma unroll
+        for (int k = 0; k < kMaxFeatures; ++k) dw1[k] = fmaf(to_f32(x[r * kXLd + k]), dz, dw1[k]);
+      }
+    }
+    if (d_points != nullptr) {
+      // d_points = dz1·W1ᵀ: this block's share over its columns, then the
+      // rows of 64 / C per block summed over the shares in rank order
+      for (int i = threadIdx.x; i < kWideRows * kMaxFeatures; i += kWideConsumers) {
+        const int r = i / kMaxFeatures, k = i % kMaxFeatures;
+        float sum = 0.0f;
+        for (int n = 0; n < nb; ++n) sum = fmaf(to_f32(h[r * ldh + col0 + n]), to_f32(w1s[n * kW1Ld + k]), sum);
+        pp[i] = sum;
+      }
+      cluster_sync();  // every block's share is whole
+      constexpr int kOwn = kWideRows / C;
+      if (threadIdx.x < kOwn * kMaxFeatures) {
+        const int r = rank * kOwn + threadIdx.x / kMaxFeatures, k = threadIdx.x % kMaxFeatures;
+        if (r < n_rows && k < n_features) {
+          float sum = pp_all[0][r * kMaxFeatures + k];
+#pragma unroll
+          for (int q = 1; q < C; ++q) sum += pp_all[q][r * kMaxFeatures + k];
+          d_points[static_cast<size_t>(row0 + r) * n_features + k] = from_f32<bf16>(sum);
+        }
+      }
+    }
+    bar_sync(kWideConsumerBar, kWideConsumers);  // x, segs and h are read no more for this tile
+    clk.mark(13);
+  }
+
+  // This block's columns of the small gradients leave the chip once, into
+  // its cluster's slab: d_W1 [F, W], d_b1 [W], d_b2 [W].
+  if (j < nb) {
+    float* slab = slabs + static_cast<size_t>(blockIdx.x / C) * n_small;
+    for (int k = 0; k < n_features; ++k) slab[k * width + col0 + j] = dw1[k];
+    slab[n_features * width + col0 + j] = db1;
+    slab[(n_features + 1) * width + col0 + j] = db2;
+  }
+  cluster_sync();  // no block leaves while a neighbour may still read or write it
+  clk.mark(14);
+  clk.flush();
+}
+
+// -- the wide variant: the d_W pass ----------------------------------------------------
+
+// d_W2 = h1ᵀ·dz2 over the points, from the row pass's bf16 scratch: block
+// (split, i-tile, j-tile) sums rows [split · rows, (split + 1) · rows) of P
+// into a [128, 128] tile of f32 accumulators that stays in its registers
+// (eight warps of 64 x 32, mma.sync m16n8k16 with both operands by ldmatrix
+// .trans from rows of 32 points staged by cp.async, three stages), then
+// writes it once into its split's partial [W, W].  The partials are summed
+// in split order by reduce_slabs_kernel, so two launches give the same bits.
+constexpr int kDwTile = 128;
+constexpr int kDwRows = 32;  // points a stage
+constexpr int kDwStages = 3;
+constexpr int kDwLd = kDwTile + 8;
+constexpr int kDwThreads = 256;
+constexpr size_t kDwSmem = sizeof(bf16) * 2 * kDwStages * kDwRows * kDwLd;
+
+__global__ void __launch_bounds__(kDwThreads)
+    phi_pool_bwd_dw_kernel(const bf16* __restrict__ h1s, const bf16* __restrict__ dz2s,
+                           float* __restrict__ parts, int n_points, int width, int tiles,
+                           int rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* as = reinterpret_cast<bf16*>(smem_raw);
+  bf16* bs = as + kDwStages * kDwRows * kDwLd;
+  const int split = blockIdx.x / (tiles * tiles), tile = blockIdx.x % (tiles * tiles);
+  const int i0 = tile / tiles * kDwTile, j0 = tile % tiles * kDwTile;
+  const int p0 = split * rows, p1 = min(n_points, p0 + rows);
+  const int n_steps = p1 > p0 ? (p1 - p0 + kDwRows - 1) / kDwRows : 0;
+  const auto load = [&](int step) {
+    const int pb = p0 + step * kDwRows, at = step % kDwStages * kDwRows * kDwLd;
+    for (int i = threadIdx.x; i < kDwRows * kDwTile / 8; i += kDwThreads) {
+      const int r = i / (kDwTile / 8), c = 8 * (i % (kDwTile / 8));
+      const bool row_in = pb + r < p1;
+      const size_t off = static_cast<size_t>(pb + r) * width;
+      const bool va = row_in && i0 + c < width, vb = row_in && j0 + c < width;
+      cp_async16(as + at + r * kDwLd + c, va ? h1s + off + i0 + c : h1s, va);
+      cp_async16(bs + at + r * kDwLd + c, vb ? dz2s + off + j0 + c : dz2s, vb);
+    }
+  };
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wi = warp / 4, wj = warp % 4;
+  const int m = lane / 8, rr = lane % 8;
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kDwStages - 1; ++s) {
+    if (s < n_steps) load(s);
+    cp_async_commit();
+  }
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<kDwStages - 2>();
+    __syncthreads();  // the step's rows have landed, and every warp is done with the stage refilled below
+    const bf16* a = as + step % kDwStages * kDwRows * kDwLd;
+    const bf16* b = bs + step % kDwStages * kDwRows * kDwLd;
+#pragma unroll
+    for (int k0 = 0; k0 < kDwRows; k0 += 16) {
+      // a: A[i][p] = h1[p][i], matrices (i 0-7 | 8-15) x (p 0-7 | 8-15);
+      // b: B[p][j] = dz2[p][j], matrices (p 0-7 | 8-15) x (j 0-7 | 8-15)
+      uint32_t af[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        ldsm4_t(af[mt], a + (k0 + rr + (m >> 1) * 8) * kDwLd + 64 * wi + 16 * mt + (m & 1) * 8);
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bf[4];
+        ldsm4_t(bf, b + (k0 + rr + (m & 1) * 8) * kDwLd + 32 * wj + 16 * np + (m >> 1) * 8);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          mma_bf16(acc[mt][2 * np], af[mt], bf[0], bf[1]);
+          mma_bf16(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+        }
+      }
+    }
+    if (step + kDwStages - 1 < n_steps) load(step + kDwStages - 1);
+    cp_async_commit();
+  }
+  float* part = parts + static_cast<size_t>(split) * width * width;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int i = i0 + 64 * wi + 16 * mt + lane / 4, jj = j0 + 32 * wj + 8 * nt + 2 * (lane % 4);
+      if (jj < width) {
+        if (i < width) {
+          *reinterpret_cast<float2*>(part + static_cast<size_t>(i) * width + jj) =
+              make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+        }
+        if (i + 8 < width) {
+          *reinterpret_cast<float2*>(part + static_cast<size_t>(i + 8) * width + jj) =
+              make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+        }
+      }
+    }
+  }
+}
+
+// -- the wide variant's launches -------------------------------------------------------
+
+// Where the wide variant's scratch lies, in floats from its start (each part
+// on a 256-byte boundary): the row pass's cluster slabs of the small
+// gradients, h1 and dz2 ([P, W] bf16 each), the d_W pass's partials.
+struct WideScratch {
+  int n_small, tiles, split, rows;
+  size_t slabs, h1, dz2, parts, total;
+};
+
+inline size_t up64(size_t n) { return (n + 63) / 64 * 64; }
+
+inline WideScratch wide_scratch(int n_points, const int* dims, int cluster, int max_blocks) {
+  WideScratch w;
+  const int width = dims[1];
+  w.n_small = (dims[0] + 2) * width;
+  // enough blocks for every SM twice over, and rows of P in multiples of 32
+  w.tiles = (width + kDwTile - 1) / kDwTile;
+  const int by_sms = (2 * max_blocks + w.tiles * w.tiles - 1) / (w.tiles * w.tiles);
+  const int by_points = (n_points + 8 * kDwRows - 1) / (8 * kDwRows);
+  w.split = by_sms < by_points ? by_sms : by_points;
+  if (w.split < 1) w.split = 1;
+  w.rows = ((n_points + w.split - 1) / w.split + kDwRows - 1) / kDwRows * kDwRows;
+  const size_t half = up64((static_cast<size_t>(n_points) * width + 1) / 2);
+  w.slabs = 0;
+  w.h1 = up64(static_cast<size_t>(max_blocks / cluster) * w.n_small);
+  w.dz2 = w.h1 + half;
+  w.parts = w.dz2 + half;
+  w.total = w.parts + static_cast<size_t>(w.split) * width * width;
+  return w;
+}
+
+template <int C>
+cudaError_t launch_wide(const void* points, const void* seg, const void* g, void* d_points,
+                        void* d_params, void* scratch, int max_blocks, int n_points,
+                        int n_features, int num_segments, const Chain& chain,
+                        const WidePlan& plan, cudaStream_t stream) {
+  auto kernel = phi_pool_bwd_wide_kernel<C>;
+  static int fit = 0;  // clusters the card holds at once
+  if (fit == 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        phi_pool_bwd_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kDwSmem));
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = cluster_fit(kernel, C, kWideThreads, &fit);
+  if (err != cudaSuccess) return err;
+  const int width = chain.dims[1];
+  const WideScratch w = wide_scratch(n_points, chain.dims, C, max_blocks);
+  float* base = static_cast<float*>(scratch);
+  bf16* h1s = reinterpret_cast<bf16*>(base + w.h1);
+  bf16* dz2s = reinterpret_cast<bf16*>(base + w.dz2);
+  WideStream st = {};
+  add_sync(st, 2);  // around h1's epilogue
+  add_phase(st, chain.w[1], width, width, width, 0);
+  add_sync(st, 2);  // around dz2's epilogue
+  add_phase(st, chain.w[1], width, width, width, 1);
+  add_sync(st, d_points != nullptr ? 1 : 0);  // before the shares of d_points are summed
+  const int n_tiles = (n_points + kWideRows - 1) / kWideRows;
+  int n_clusters = n_tiles < fit ? n_tiles : fit;
+  if (n_clusters > max_blocks / C) n_clusters = max_blocks / C;  // one slab per cluster
+  err = launch_cluster_grid(
+      kernel, C, n_clusters, kWideThreads, plan.smem, stream, static_cast<const bf16*>(points),
+      static_cast<const int*>(seg), static_cast<const float*>(g), static_cast<bf16*>(d_points), h1s,
+      dz2s, base + w.slabs, n_points, n_features, num_segments, chain, st, plan.ldh, w.n_small);
+  if (err != cudaSuccess) return err;
+  phi_pool_bwd_dw_kernel<<<w.split * w.tiles * w.tiles, kDwThreads, kDwSmem, stream>>>(
+      h1s, dz2s, base + w.parts, n_points, width, w.tiles, w.rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // d_params: d_W1 [F, W] and d_b1 from the cluster slabs, d_W2 from the
+  // partials, d_b2 from the slabs
+  float* out = static_cast<float*>(d_params);
+  const int first = n_features * width + width;
+  err = reduce_slabs(base + w.slabs, n_clusters, w.n_small, first, out, stream);
+  if (err == cudaSuccess) {
+    err = reduce_slabs(base + w.parts, w.split, static_cast<size_t>(width) * width, width * width,
+                       out + first, stream);
+  }
+  if (err == cudaSuccess) {
+    err = reduce_slabs(base + w.slabs + first, n_clusters, w.n_small, width,
+                       out + first + width * width, stream);
+  }
+  return err;
 }
 
 // -- the general variant's launch ------------------------------------------------------
@@ -604,10 +1132,8 @@ cudaError_t launch(const void* points, const void* seg, const void* g, void* d_p
       n_points, n_features, num_segments, chain, lay);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int reduce_grid = (lay.n_param + kThreads - 1) / kThreads;
-  reduce_slabs_kernel<<<reduce_grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(slabs), grid, lay.n_param, static_cast<float*>(d_params));
-  return cudaGetLastError();
+  return reduce_slabs(static_cast<const float*>(slabs), grid, lay.n_param, lay.n_param,
+                      static_cast<float*>(d_params), stream);
 }
 
 template <typename T>
@@ -641,13 +1167,14 @@ extern "C" {
 // weights[l] [dims[l], dims[l + 1]] and bias biases[l], both of the points'
 // type, and kind kinds[l] (0 plain, 1 residual, 2 bare linear).  weights_t[l]
 // is the transpose [dims[l + 1], dims[l]] of weights[l]: only the general
-// variant reads it, and a chain that pcc_phi_pool_variant gives the sliced
+// variant reads it, and a chain that pcc_phi_pool_variant gives another
 // variant may pass null.  Writes d_params (f32; for each layer d_W
 // [dims[l], dims[l + 1]] then d_b [dims[l + 1]]) and, unless d_points is
 // null, d_points [n_points, n_features] in the points' type.  slabs is f32
-// scratch of max_blocks × (the length of d_params): one slab per block of the
-// general variant's grid or per cluster of the sliced one's, at most
-// max_blocks of either.  Returns the cudaError_t of the launches (0 on
+// scratch of pcc_phi_pool_bwd_scratch's length for the same chain, P and
+// max_blocks (the card's SMs): one slab per block of the general variant's
+// grid or per cluster of the sliced one's, at most max_blocks of either; the
+// wide variant's parts.  Returns the cudaError_t of the launches (0 on
 // success), or kErrTooWide when the general variant's buffers do not fit 8
 // rows; does not synchronise.
 int pcc_phi_pool_bwd(const void* points, const void* seg, const void* g, void* d_points,
@@ -670,6 +1197,16 @@ int pcc_phi_pool_bwd(const void* points, const void* seg, const void* g, void* d
                                                chain, n_param, s)
                 : launch_sliced<float>(points, seg, g, d_points, d_params, slabs, max_blocks,
                                        n_points, n_features, num_segments, chain, n_param, s);
+    return static_cast<int>(err);
+  }
+  const WidePlan wide = wide_plan(n_layers, dims, kinds, is_bf16 != 0, true);
+  if (wide.cluster > 0) {
+    const cudaError_t err =
+        wide.cluster == 2
+            ? launch_wide<2>(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
+                             n_features, num_segments, chain, wide, s)
+            : launch_wide<4>(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
+                             n_features, num_segments, chain, wide, s);
     return static_cast<int>(err);
   }
   if (weights_t == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -708,11 +1245,31 @@ int pcc_phi_pool_bwd(const void* points, const void* seg, const void* g, void* d
   return static_cast<int>(err);
 }
 
+// *out = the f32 elements of scratch (`slabs`) that pcc_phi_pool_bwd takes
+// for a chain: max_blocks slabs of the whole gradient (the general and the
+// sliced variants), or the wide variant's cluster slabs, its [P, W] bf16 h1
+// and dz2 and its d_W pass's partials (wide_scratch).  Returns 0, or
+// cudaErrorInvalidValue for a chain pcc_phi_pool_bwd refuses.
+int pcc_phi_pool_bwd_scratch(int n_points, int n_layers, const int* dims, const int* kinds,
+                             int is_bf16, int max_blocks, long long* out) {
+  if (n_points < 1 || max_blocks < 1 || n_layers < 1 || n_layers > kMaxLayers) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const WidePlan wide = wide_plan(n_layers, dims, kinds, is_bf16 != 0, true);
+  if (wide.cluster > 0) {
+    *out = static_cast<long long>(wide_scratch(n_points, dims, wide.cluster, max_blocks).total);
+    return 0;
+  }
+  long long n_param = 0;
+  for (int l = 0; l < n_layers; ++l) n_param += static_cast<long long>(dims[l] + 1) * dims[l + 1];
+  *out = n_param * max_blocks;
+  return 0;
+}
+
 #ifdef PCC_PHASE_CLOCKS
-// The clock sums of the last sliced launch's block 0: set-up, then per tile
-// the inputs, g and the first layer, its barrier, the recompute, dz, d_W,
-// the share of dz·Wᵀ, its barrier, the first layer's gradients, d_points,
-// the last barrier; then the write to the slab.  Synchronises.
+// The clock sums of the last sliced or wide launch's block 0 (a consumer
+// thread in the wide row pass), phase by phase as the kernel marks them
+// (phase_clocks.py names them).  Synchronises.
 int pcc_phi_pool_bwd_phase_clocks(long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(long long) * kPhases));
 }

@@ -121,6 +121,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, vp,  # act, is_bf16, stream
     ]
     lib.pcc_phi_pool_bwd.restype = i32
+    # the f32 elements of K2's scratch for a chain, P and the card's SMs
+    lib.pcc_phi_pool_bwd_scratch.argtypes = [
+        i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32),  # n_points, n_layers, dims, kinds
+        i32, i32, ctypes.POINTER(ctypes.c_longlong),  # is_bf16, max_blocks, out (written)
+    ]
+    lib.pcc_phi_pool_bwd_scratch.restype = i32
     lib.pcc_phi_pool_variant.argtypes = [
         i32, ctypes.POINTER(i32), ctypes.POINTER(i32),  # n_layers, dims, kinds (host)
         i32, i32,  # is_bf16, backward (K2's choice, not K1's)

@@ -23,7 +23,11 @@ Counterpart of ``point_cloud_classifier_tpu/ops/fused_phi.py``:
   cores in bf16) for the DeepSets chain of a narrow first layer and one 256
   -> 256 layer, in K2 and in bf16 K1; in f32 K1 the tf32x3 one (products on
   the tensor cores, each operand split into two TF32 values) for chains of
-  widths up to 1024 in multiples of 8; the general one for every other
+  widths up to 1024 in multiples of 8; in bf16 the wide one (clusters of
+  two or four blocks a 64-row tile, bf16 products on the tensor cores; K2
+  writes ``dz`` and the first layer's values to a ``[P, W]`` bf16 scratch
+  and forms ``d_W`` in a second kernel) for chains wider than 256 up to
+  1024, K2 for the DeepSets chain alone; the general one for every other
   chain; ``phi_pool.variant`` and ``phi_pool.bwd_variant`` name the last
   launch's.
   Under ``torch.func.vmap`` (a sweep's arms) each arm launches its own K1
@@ -400,7 +404,7 @@ def phi_pool(
 
 phi_pool.launches = 0
 phi_pool.bwd_launches = 0
-# the variant ("sliced", "tf32x3" or "general") that the last K1 and K2 launch took
+# the variant ("sliced", "tf32x3", "wide" or "general") that the last K1 and K2 launch took
 phi_pool.variant = None
 phi_pool.bwd_variant = None
 
@@ -448,13 +452,21 @@ def _pointers(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
+def _weights(weights):
+    """The weights contiguous and on 16-byte boundaries: the wide variants
+    copy W into shared memory 16 bytes at a time."""
+    weights = [w.contiguous() for w in weights]
+    return [w.clone() if w.data_ptr() % 16 else w for w in weights]
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_variant(dims: tuple, kinds: tuple, bf16: bool, backward: bool) -> str:
     """Which variant K1 (``backward`` false) or K2 (true) takes for a chain
-    on the card, ``"sliced"``, ``"tf32x3"`` (f32 K1 only) or ``"general"``:
-    the C entry's own choice (``pcc_phi_pool_variant``), made from the
-    chain's shape, the element type and the kernel alone
-    (``csrc/phi_chain.cuh:takes_sliced``, ``csrc/phi_pool.cu:tf32x3_plan``)."""
+    on the card, ``"sliced"``, ``"tf32x3"`` (f32 K1 only), ``"wide"`` (bf16)
+    or ``"general"``: the C entry's own choice (``pcc_phi_pool_variant``),
+    made from the chain's shape, the element type and the kernel alone
+    (``csrc/phi_chain.cuh:takes_sliced``, ``csrc/phi_pool.cu:tf32x3_plan``,
+    ``csrc/phi_wide.cuh:wide_plan``)."""
     from point_cloud_classifier_tpu_torch.native import kernel_library
 
     n = len(kinds)
@@ -464,17 +476,17 @@ def kernel_variant(dims: tuple, kinds: tuple, bf16: bool, backward: bool) -> str
     return _VARIANTS.get(code, "general")
 
 
-_VARIANTS = {1: "sliced", 2: "tf32x3"}  # pcc_phi_pool_variant's codes; 0 general
+_VARIANTS = {1: "sliced", 2: "tf32x3", 3: "wide"}  # pcc_phi_pool_variant's codes; 0 general
 
 
 def _phi_pool_cuda(points, seg, spec, params, activation, num_segments, general=False):
-    """K1.  ``general`` launches the general variant where the tf32x3 one
-    would run (``pcc_phi_pool_general``), to time the two side by side; the
-    port's path never sets it."""
+    """K1.  ``general`` launches the general variant where the tf32x3 or the
+    wide one would run (``pcc_phi_pool_general``), to time them side by
+    side; the port's path never sets it."""
     from point_cloud_classifier_tpu_torch.native import check, kernel_library
 
     weights, biases, dims, kinds = _kernel_operands(points, seg, spec, params)
-    weights = [w.contiguous() for w in weights]
+    weights = _weights(weights)
     device = points.device
     out = torch.zeros((num_segments, dims[-1]), dtype=torch.float32, device=device)
     n_points = points.shape[0]
@@ -504,7 +516,7 @@ def _phi_pool_cuda(points, seg, spec, params, activation, num_segments, general=
     check(code)
     phi_pool.launches += 1
     variant = kernel_variant(tuple(dims), tuple(kinds), points.dtype == torch.bfloat16, False)
-    phi_pool.variant = "general" if general and variant == "tf32x3" else variant
+    phi_pool.variant = "general" if general and variant in ("tf32x3", "wide") else variant
     return out
 
 
@@ -529,20 +541,25 @@ def _phi_pool_bwd_cuda(
     if n_points == 0:
         flat.zero_()
     else:
-        # the sliced variant reads one [in, out] copy for both products; the
-        # general one wants [out, in] as well, for dz Wᵀ
-        variant = kernel_variant(
-            tuple(dims), tuple(kinds), points.dtype == torch.bfloat16, True
-        )
-        w_fwd = [w.contiguous() for w in weights]
+        # the sliced and the wide variants read one [in, out] copy for both
+        # products; the general one wants [out, in] as well, for dz Wᵀ
+        bf16 = points.dtype == torch.bfloat16
+        variant = kernel_variant(tuple(dims), tuple(kinds), bf16, True)
+        w_fwd = _weights(weights)
         w_bwd = [w.t().contiguous() for w in weights] if variant == "general" else None
         points, seg, g = points.contiguous(), seg.contiguous(), g.float().contiguous()
         # one f32 slab of every d_w and d_b per block (general) or cluster
-        # (sliced) of the persistent grid
+        # (sliced) of the persistent grid; the wide variant's cluster slabs,
+        # its [P, W] bf16 h1 and dz2 and its d_W partials
         max_blocks = torch.cuda.get_device_properties(device).multi_processor_count
-        slabs = torch.empty((max_blocks, flat.numel()), dtype=torch.float32, device=device)
         n = len(params)
         lib = kernel_library().lib
+        n_scratch = ctypes.c_longlong()
+        check(lib.pcc_phi_pool_bwd_scratch(
+            n_points, n, (ctypes.c_int * (n + 1))(*dims), (ctypes.c_int * n)(*kinds), int(bf16), max_blocks,
+            ctypes.byref(n_scratch),
+        ))
+        slabs = torch.empty(n_scratch.value, dtype=torch.float32, device=device)
         with torch.cuda.device(device):
             code = lib.pcc_phi_pool_bwd(
                 points.data_ptr(),

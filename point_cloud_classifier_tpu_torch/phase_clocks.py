@@ -1,5 +1,5 @@
-"""Where a block of the sliced K1 and K2, and of f32 K1's tf32x3 variant,
-spends its clocks, per phase.
+"""Where a block of the sliced K1 and K2, of f32 K1's tf32x3 variant and of
+bf16 K1's and K2's wide variants spends its clocks, per phase.
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit:
@@ -11,8 +11,9 @@ It builds the kernels with their per-phase clocks
 between the marks of ``csrc/phi_pool.cu`` and ``csrc/phi_pool_bwd.cu``),
 launches K1 and K2 once each at the DeepSets config batch (B=32, P=8,192)
 and at the flagship shape (B=256, P=65,536), in f32 (K1's tf32x3 variant,
-K2's sliced one) and bf16 (both sliced), and prints the sums of each launch
-per phase, with ``nvidia-smi``'s name and power limit of the card.  It
+K2's sliced one) and bf16 (both sliced), then in bf16 at φ [512, 512] and
+[1024, 1024] at the flagship shape (both wide), and prints the sums of each
+launch per phase, with ``nvidia-smi``'s name and power limit of the card.  It
 checks nothing: ``chip_smoke.py`` holds the kernels against their plain
 versions, on a build without the clocks.
 """
@@ -29,30 +30,46 @@ from point_cloud_classifier_tpu_torch import native
 from point_cloud_classifier_tpu_torch.ops.fused_phi import _phi_pool_bwd_cuda, phi_pool
 
 SPEC = (("plain", False), ("residual", False))  # φ [256, 256] with residual_block
-SHAPES = (("config", 32, 8192), ("flagship", 256, 65536))
+# (name, events, point rows, φ width, element types)
+SHAPES = (("config", 32, 8192, 256, (torch.float32, torch.bfloat16)),
+          ("flagship", 256, 65536, 256, (torch.float32, torch.bfloat16)),
+          ("phi 512", 256, 65536, 512, (torch.bfloat16,)),
+          ("phi 1024", 256, 65536, 1024, (torch.bfloat16,)))
+# a consumer thread's (the producers stage W apart): per chunk of W the wait
+# for its stage, the products; per layer the barrier after them, the
+# epilogue and the barriers around it; per tile the wait for its points, the
+# pool
+STREAMED = ("set-up", "tile's points", "waits for a staged chunk", "products", "layer's barrier",
+            "before the epilogue", "epilogue", "after the epilogue", "pool")
 K1_PHASES = {
     "sliced": ("set-up", "inputs", "first layer", "barrier", "product and layer", "pool", "barrier"),
-    # a consumer thread's (the producers stage W apart): per chunk of W the
-    # wait for its stage, the products; per layer the barrier after them,
-    # the epilogue and the barriers around it; per tile the wait for its
-    # points, the pool
-    "tf32x3": ("set-up", "tile's points", "waits for a staged chunk", "products", "layer's barrier",
-               "before the epilogue", "epilogue", "after the epilogue", "pool"),
+    "tf32x3": STREAMED,
+    # the last layer's epilogue apart: it writes no neighbour's h
+    "wide": STREAMED + ("last layer's epilogue",),
 }
-K2_PHASES = ("set-up", "inputs", "g and first layer", "barrier", "recompute", "dz", "d_W", "share of dz·Wᵀ",
-             "barrier", "first layer's gradients", "d_points", "barrier", "slab")
+K2_PHASES = {
+    "sliced": ("set-up", "inputs", "g and first layer", "barrier", "recompute", "dz", "d_W",
+               "share of dz·Wᵀ", "barrier", "first layer's gradients", "d_points", "barrier", "slab"),
+    # the row pass's consumer thread: per tile its points, h1 between its two
+    # cluster barriers, the two products' waits for staged chunks, the
+    # products and the barrier after each, dz2 between its barriers, d_b2, dz1,
+    # d_W1 (and d_points); at the end the slab
+    "wide": ("set-up", "tile's points", "before h1", "h1", "after h1", "waits for a staged chunk",
+             "products", "products' barrier", "before dz2", "dz2", "after dz2", "d_b2", "dz1",
+             "d_W1 and d_points", "slab"),
+}
 
 
-def _inputs(b: int, p: int, dtype, seed: int = 0):
+def _inputs(b: int, p: int, dtype, width: int = 256, seed: int = 0):
     """Flat-wire points for ``b`` contiguous events in ``p`` rows (a tenth of
-    the rows padding, segment ``b``) and the seeded 6 -> 256 -> 256 chain."""
+    the rows padding, segment ``b``) and the seeded 6 -> width -> width chain."""
     rng = np.random.default_rng(seed)
     sizes = rng.multinomial(int(p * 0.9), np.ones(b) / b)
     seg = np.full(p, b, dtype=np.int32)
     seg[: sizes.sum()] = np.repeat(np.arange(b, dtype=np.int32), sizes)
     points = rng.normal(size=(p, 6)).astype(np.float32)
     params, last = [], 6
-    for width in (256, 256):
+    for _ in range(2):
         bound = last**-0.5
         params.append(tuple(
             torch.from_numpy(rng.uniform(-bound, bound, size=shape).astype(np.float32)).cuda()
@@ -81,10 +98,10 @@ def main() -> None:
     built = native.kernel_library()
     print(f"build with {native.PHASE_CLOCKS_FLAG}: {built.path.name} in {built.build_seconds:.2f} s")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name, b, p in SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            points, seg, params = _inputs(b, p, dtype)
-            g = torch.ones((b + 1, 256), device="cuda")
+    for name, b, p, width, dtypes in SHAPES:
+        for dtype in dtypes:
+            points, seg, params = _inputs(b, p, dtype, width)
+            g = torch.ones((b + 1, width), device="cuda")
             rows = []
             phi_pool(points, seg, SPEC, params, "gelu", b + 1)
             if phi_pool.variant in K1_PHASES:
@@ -92,7 +109,10 @@ def main() -> None:
                 rows.append((f"K1 {phi_pool.variant}", phases,
                              _clocks(built.lib.pcc_phi_pool_phase_clocks, len(phases))))
             _phi_pool_bwd_cuda(points, seg, g, SPEC, params, "gelu", b + 1, with_points=False)
-            rows.append(("K2", K2_PHASES, _clocks(built.lib.pcc_phi_pool_bwd_phase_clocks, len(K2_PHASES))))
+            if phi_pool.bwd_variant in K2_PHASES:
+                phases = K2_PHASES[phi_pool.bwd_variant]
+                rows.append((f"K2 {phi_pool.bwd_variant}", phases,
+                             _clocks(built.lib.pcc_phi_pool_bwd_phase_clocks, len(phases))))
             for kernel, phases, sums in rows:
                 print(f"phase clocks {kernel} {name} B={b} P={p} {str(dtype)[6:]}, block 0, one launch "
                       f"({(p + 63) // 64} tiles over the grid's clusters, {sms} SMs): "

@@ -195,9 +195,9 @@ def test_cuda_backward_launches_k2_and_never_the_plain_version(monkeypatch):
 # the sliced variant does not take (other widths, a bare final linear), and
 # the widths where the tf32x3 variant takes a cluster of two blocks (384,
 # 512) and of four on 32-row tiles (1024; one point an event there:
-# test_f32_kernel_takes_tf32x3_at_wide_chains).  At 512 and 1024 over 1,001
-# points bf16 K2 takes the general variant's 16- and 8-row tiles, and its
-# dz·Wᵀ contracts over 1,024, where cuBLAS splits the plain version's.
+# test_f32_kernel_takes_tf32x3_at_wide_chains).  At 384, 512 and 1024 bf16
+# K1 and K2 take the wide variant (test_wide_bf16_kernels_match_plain), and
+# K2's dz·Wᵀ contracts over 1,024, where cuBLAS splits the plain version's.
 SHAPE_CASES = {
     "p37": dict(p=37, b=3), "p64": dict(p=64, b=3), "p65": dict(p=65, b=3),
     "p128": dict(p=128, b=5), "p1": dict(p=1, b=1), "w64": dict(width=64),
@@ -209,9 +209,12 @@ SHAPE_CASES = {
 def _variant(case, dtype, backward):
     """The DeepSets chain takes the sliced variant in K2 and in bf16 K1; f32
     K1 takes the tf32x3 variant at every case here (widths up to 1024 in
-    multiples of 32); every other launch the general one."""
+    multiples of 32); bf16 K1 and K2 the wide one at widths 384 to 1024;
+    every other launch the general one."""
     if not backward and dtype == torch.float32:
         return "tf32x3"
+    if dtype == torch.bfloat16 and SHAPE_CASES[case].get("width", 256) > 256:
+        return "wide"
     general = "width" in SHAPE_CASES[case] or SHAPE_CASES[case].get("final", False)
     return "general" if general else "sliced"
 
@@ -249,6 +252,81 @@ def test_f32_kernel_takes_tf32x3_at_wide_chains(width, activation):
         ref = fused_phi.phi_pool_plain(pts, seg, SPEC, params, activation, s)
         assert torch.isfinite(out).all()
         assert (out - ref).abs().max().item() <= TOL[torch.float32] * max(1.0, ref.abs().max().item())
+
+
+# bf16 chains of the wide variants: 64-row tiles, a cluster of two blocks up
+# to width 512 and of four up to 1024; the ragged cases are one point, a
+# tile less one, a tile and one, and 1,001 points, each with a padding id
+# (>= S) among them
+WIDE_POINTS = (1, 63, 65, 1001)
+
+
+def _wide_inputs(dev, p, width, residual, seed):
+    """Inputs with a padding id past S in the middle of the rows, and the
+    rows the kernels pool (phi_pool_plain takes ids below S alone)."""
+    pts, seg, params, s = _inputs(dev, torch.bfloat16, p=p, b=max(1, min(7, p)), width=width, seed=seed)
+    seg = seg.clone()
+    seg[p // 2] = s + 3
+    spec = (("plain", False), ("residual" if residual else "plain", False))
+    return pts, seg, params, s, spec, seg < s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation", ["gelu", "relu", "silu", "tanh"])
+@pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
+@pytest.mark.parametrize("width", [384, 512, 768, 1024])
+def test_wide_bf16_kernels_match_plain(width, residual, activation):
+    """bf16 K1 and K2 on their wide variants against phi_pool_plain and
+    phi_pool_bwd_plain (K1 within TOL, K2 with and without d_points within
+    BWD_BF16_FRO), a second K2 launch bit-equal, at every ragged P."""
+    dev = _cuda()
+    for p in WIDE_POINTS:
+        pts, seg, params, s, spec, pooled = _wide_inputs(dev, p, width, residual, seed=p)
+        out = fused_phi.phi_pool(pts, seg, spec, params, activation, s)
+        torch.cuda.synchronize()
+        assert fused_phi.phi_pool.variant == "wide"
+        ref = fused_phi.phi_pool_plain(pts[pooled], seg[pooled], spec, params, activation, s)
+        assert out.shape == ref.shape and torch.isfinite(out).all()
+        assert (out - ref).abs().max().item() <= TOL[torch.bfloat16] * max(1.0, ref.abs().max().item()), p
+        g = torch.from_numpy(np.random.default_rng(p).normal(size=(s, width)).astype(np.float32)).to(dev)
+        for with_points in (True, False):
+            runs = [fused_phi._phi_pool_bwd_cuda(pts, seg, g, spec, params, activation, s, with_points=with_points)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            assert fused_phi.phi_pool.bwd_variant == "wide"
+            ref_points, ref_grads = fused_phi.phi_pool_bwd_plain(
+                pts, seg, g, spec, params, activation, s, with_points=with_points)
+            got = ([runs[0][0]] if with_points else []) + list(runs[0][1])
+            again = ([runs[1][0]] if with_points else []) + list(runs[1][1])
+            want = ([ref_points] if with_points else []) + list(ref_grads)
+            assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True)), (p, with_points)
+            for a, r in zip(got, want, strict=True):
+                assert a.shape == r.shape and torch.isfinite(a).all()
+                fro = (a.double() - r.double()).norm().item() / max(r.double().norm().item(), 1e-30)
+                assert fro <= BWD_BF16_FRO, (p, with_points, fro)
+
+
+@pytest.mark.gpu
+def test_chains_outside_the_wide_plans_keep_their_variants():
+    """f32 chains at the wide widths (K1 tf32x3, K2 general), bf16 at width
+    256 (sliced), a bf16 bare final linear at 1024 (K1 wide, K2 general: the
+    wide K2 takes the DeepSets chain alone) and bf16 at 2048 (general)."""
+    dev = _cuda()
+    variant = fused_phi.kernel_variant
+    for dtype, width, k1, k2 in ((torch.float32, 512, "tf32x3", "general"),
+                                 (torch.float32, 1024, "tf32x3", "general"),
+                                 (torch.bfloat16, 256, "sliced", "sliced"),
+                                 (torch.bfloat16, 2048, "general", "general")):
+        dims, kinds = (6, width, width), (0, 1)
+        bf16 = dtype == torch.bfloat16
+        assert (variant(dims, kinds, bf16, False), variant(dims, kinds, bf16, True)) == (k1, k2), (dtype, width)
+    assert variant((6, 1024, 1024, 1024), (0, 1, 2), True, False) == "wide"
+    assert variant((6, 1024, 1024, 1024), (0, 1, 2), True, True) == "general"
+    pts, seg, params, s = _inputs(dev, torch.bfloat16, width=1024, final=True)
+    out = fused_phi.phi_pool(pts, seg, SPEC, params, "gelu", s)
+    assert fused_phi.phi_pool.variant == "wide"
+    ref = fused_phi.phi_pool_plain(pts, seg, SPEC, params, "gelu", s)
+    assert (out - ref).abs().max().item() <= TOL[torch.bfloat16] * max(1.0, ref.abs().max().item())
 
 
 @pytest.mark.gpu
@@ -1651,7 +1729,10 @@ def _window_route(route):
         layout = "dense" if "dense" in route else "flat"
         loader = PointCloudLoader(events, rng.integers(0, 2, size=64), 16, False, layout=layout)
         extra = {"deep_sets-tail": dict(fused_phi="tail"), "deep_sets-plain-ln": dict(layer_norm=True),
-                 "deep_sets-bf16-dense": dict(compute_dtype="bfloat16")}.get(route, {})
+                 "deep_sets-bf16-dense": dict(compute_dtype="bfloat16"),
+                 # the wide variants, whose K2 allocates its [P, W] scratch in the window
+                 "deep_sets-bf16-phi1024": dict(compute_dtype="bfloat16", phi_layers=[1024, 1024])
+                 }.get(route, {})
         return (lambda seed: DeepSets(**{**ds, **extra}, generator=torch.Generator().manual_seed(seed))), \
             _same_shape(list(loader))
     if route == "fcn":
@@ -1677,7 +1758,7 @@ def _counts():
             knn.knn_aggregate.bwd_launches)
 
 
-WINDOW_ROUTES = ["deep_sets-flat", "deep_sets-dense", "deep_sets-bf16-dense", "deep_sets-tail",
+WINDOW_ROUTES = ["deep_sets-flat", "deep_sets-dense", "deep_sets-bf16-dense", "deep_sets-bf16-phi1024", "deep_sets-tail",
                  "deep_sets-plain-ln", "fcn", "gat", "graphconv-fused", "graphconv-add", "gat-sag", "knn",
                  "flat-add", "flat-sag", "max"]
 # the FCN's biases ahead of a BatchNorm have a gradient of 0 in exact

@@ -4,7 +4,8 @@
 bf16 at φ [1024, 1024] goes against the JAX package's bf16 backward
 (``jax.vjp`` of ``phi_pool_xla``) on the same seeded numpy inputs, and at
 φ [384, 384] and [1024, 1024] against itself with each bf16 product's
-contraction summed as two f32 halves: the same roundings, the sums in
+contraction summed as two f32 halves, and with each d_W summed over chunks
+of the points, then the chunks in order: the same roundings, the sums in
 another order.  That spread is what the card's bf16 bound on K2 against
 ``phi_pool_bwd_plain`` (1e-3 relative Frobenius, chip_smoke.py) rests on.
 
@@ -38,6 +39,7 @@ BF16_FRO = 1e-2
 # can land on the neighbouring bf16 value (2^-8 relative) now and then
 REORDER_FRO = 1e-3
 MATMUL = torch.matmul
+MATMUL_OP = torch.Tensor.__matmul__
 
 
 def _inputs(width, seed=0):
@@ -92,6 +94,24 @@ def _split_sum_matmul(a, b):
     return (lo + MATMUL(a[..., half:].float(), b[half:].float())).to(torch.bfloat16)
 
 
+def _chunked_rows_matmul(counts, chunk):
+    """``a @ b`` with, for an f32 product whose contraction runs over the P
+    point rows (each layer's ``d_w = h_inᵀ dz``), f32 sums over chunks of
+    ``chunk`` rows, then the chunks added in order; every other product as
+    it was.  ``counts`` gains one for each product it reorders."""
+
+    def matmul(a, b):
+        if a.dtype != torch.float32 or a.dim() != 2 or a.shape[1] != P:
+            return MATMUL_OP(a, b)
+        counts.append(1)
+        out = MATMUL_OP(a[:, :chunk], b[:chunk])
+        for r in range(chunk, P, chunk):
+            out = out + MATMUL_OP(a[:, r : r + chunk], b[r : r + chunk])
+        return out
+
+    return matmul
+
+
 def _fro(out, ref):
     return [np.linalg.norm(a.astype(np.float64) - r.astype(np.float64)) / np.linalg.norm(r.astype(np.float64))
             for a, r in zip(out, ref, strict=True)]
@@ -142,6 +162,25 @@ def test_bf16_backward_moves_little_with_the_order_of_its_sums(monkeypatch, widt
     reordered = _port(pts, seg, params, g, activation)
     monkeypatch.undo()
     assert max(_fro(out, reordered)) <= REORDER_FRO
+
+
+# Each d_W summed over chunks of 32 of the points in f32, then the chunks
+# in order (dz still rounded to bf16 as before), against the one f32 sum:
+# within REORDER_FRO; and against jax.vjp at φ [1024, 1024] within BF16_FRO
+# (gelu: relu's d_b1 reads 1e-2 from jax.vjp whatever the order, see above).
+@pytest.mark.parametrize("activation", ["gelu", "relu"])
+@pytest.mark.parametrize("width", [384, 1024])
+def test_bf16_backward_moves_little_when_d_w_is_summed_in_chunks_of_points(monkeypatch, width, activation):
+    pts, seg, params, g = _inputs(width, seed=1)
+    out = _port(pts, seg, params, g, activation)
+    counts = []
+    monkeypatch.setattr(torch.Tensor, "__matmul__", _chunked_rows_matmul(counts, 32))
+    chunked = _port(pts, seg, params, g, activation)
+    monkeypatch.undo()
+    assert len(counts) == len(SPEC)  # both layers' d_w were reordered
+    assert max(_fro(out, chunked)) <= REORDER_FRO
+    if width == 1024 and activation == "gelu":
+        assert max(_fro(chunked, _jax_vjp(pts, seg, params, g, activation))) <= BF16_FRO
 
 
 @pytest.fixture

@@ -133,7 +133,7 @@ def test_one_pass_tf32_misses_where_the_split_holds(chain):
     assert max(one_pass) > ONE_PASS_MISS, one_pass
 
 
-@pytest.mark.parametrize("code, name", [(0, "general"), (1, "sliced"), (2, "tf32x3")])
+@pytest.mark.parametrize("code, name", [(0, "general"), (1, "sliced"), (2, "tf32x3"), (3, "wide")])
 def test_kernel_variant_names_the_c_entry_codes(monkeypatch, code, name):
     from point_cloud_classifier_tpu_torch import native
 
