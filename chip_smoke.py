@@ -349,6 +349,7 @@ from point_cloud_classifier_tpu_torch.ops.fused_phi import (
     phi_forward,
     phi_pool,
     phi_pool_bwd_plain,
+    phi_pool_bwd_tf32x3_plain,
     phi_pool_plain,
     phi_pool_tf32x3_plain,
 )
@@ -772,6 +773,18 @@ def takes_wide(dims, kinds, backward: bool) -> bool:
     return True
 
 
+def takes_tf32x3_bwd(dims, kinds) -> bool:
+    """csrc/phi_tf32.cuh:bwd_tf32x3_plan for an f32 chain of widths ``dims``
+    (input first) and kinds: the DeepSets chain at widths 320 to 1024 in
+    multiples of 64 (a plain first layer of at most 8 inputs, then one square
+    layer, plain or residual), or one bare layer [in, out], each a multiple
+    of 64 from 256 to 1024 (the tail's)."""
+    if len(kinds) == 2:
+        return (1 <= dims[0] <= 8 and dims[1] == dims[2] and dims[1] % 64 == 0 and 320 <= dims[1] <= 1024
+                and kinds[0] == "plain" and kinds[1] != "linear")
+    return kinds == ["linear"] and all(d % 64 == 0 and 256 <= d <= 1024 for d in dims)
+
+
 def expected_variant(case: PhiCase, dtype, backward: bool) -> str:
     """Which variant the C entry must choose for a case: by its shape, its
     element type and the kernel (K2 when ``backward``) alone."""
@@ -781,7 +794,7 @@ def expected_variant(case: PhiCase, dtype, backward: bool) -> str:
     widths = CONFIG["model"]["phi_layers"] if case.widths is None else case.widths
     dims = [case.in_dim, *widths] + ([(widths or [case.in_dim])[-1]] if case.final else [])
     kinds = [kind for kind, _ in case_spec(widths)] + (["linear"] if case.final else [])
-    if not backward and dtype == torch.float32 and takes_tf32x3(dims):
+    if dtype == torch.float32 and (takes_tf32x3_bwd(dims, kinds) if backward else takes_tf32x3(dims)):
         return "tf32x3"
     if dtype == torch.bfloat16 and takes_wide(dims, kinds, backward):
         return "wide"
@@ -837,8 +850,10 @@ def _errors(out, ref):
 
 def bwd_kernel_phase():
     """K2 (the Function's backward on CUDA) against phi_pool_bwd_plain at
-    K1's cases, and K2 twice for bit-equal gradients; returns the
-    config-shape f32 max |Δ|."""
+    K1's cases, and K2 twice for bit-equal gradients; each f32 launch's
+    distance to phi_pool_bwd_tf32x3_plain printed (not bounded: that version
+    models the tf32x3 variant's products, not its order of sums).  Returns
+    the config-shape f32 max |Δ|."""
     config_err = None
     for case in PHI_CASES:
         name, b, p, final, widths, in_dim, singletons, dtypes = case
@@ -871,6 +886,12 @@ def bwd_kernel_phase():
                 if dtype == torch.float32:
                     bounds = f"max_rel bound {BWD_F32_REL:.0e}, rel_fro bound {BWD_F32_FRO:.0e}"
                     ok = worst[1] <= BWD_F32_REL and worst[2] <= BWD_F32_FRO
+                    t_points, t_grads = phi_pool_bwd_tf32x3_plain(
+                        points.detach(), seg, g, spec, params, "gelu", b + 1, with_points=with_points)
+                    to_tf32x3 = [_errors(got, want) for got, want in
+                                 zip(grads, ([t_points] if with_points else []) + t_grads, strict=True)]
+                    bounds += (f"; to phi_pool_bwd_tf32x3_plain max_rel {max(e[1] for e in to_tf32x3):.3e}, "
+                               f"rel_fro {max(e[2] for e in to_tf32x3):.3e}")
                 else:
                     bounds = f"rel_fro bound {BWD_BF16_FRO:.0e}"
                     ok = worst[2] <= BWD_BF16_FRO
@@ -1409,7 +1430,7 @@ def k1_variants_phase(smi: str) -> dict:
 
 
 # bf16 K1 and K2 alone at TIMES_SHAPES' φ widths, where both take the wide
-# variant, and f32 K2 there (the general variant): (name, φ width)
+# variant, and f32 K2 there (the tf32x3 variant): (name, φ width)
 WIDE_SHAPES = (("phi 512", 512), ("phi 1024", 1024))
 
 
@@ -1418,8 +1439,10 @@ def wide_variants_phase(smi: str) -> dict:
     P=65,536, φ [w, w] residual, on the device alone (graph_ms: a CUDA graph
     of the calls, so no host gap is in it), the wide variants in turns (wide,
     wide) around K1's general variant (pcc_phi_pool_general, once), beside
-    both bounds and the plain versions (cuda_ms); then f32 K2 there, which
-    takes the general variant, once by events beside its bound.  Returns the
+    both bounds and the plain versions (cuda_ms); then f32 K2 there on its
+    tf32x3 variant, device alone twice around its general variant
+    (pcc_phi_pool_bwd_general, once), beside its plain version and its
+    bounds on the CUDA cores and by 3xTF32 on the tensor cores.  Returns the
     readings by shape and kernel."""
     readings = {"phi_pool": {}, "phi_pool_bwd": {}}
     for name, width in WIDE_SHAPES:
@@ -1458,18 +1481,46 @@ def wide_variants_phase(smi: str) -> dict:
         readings["phi_pool_bwd"][name] = dict(variant=variants[1], ms=min(k2_ms), plain_ms=k2_plain,
                                               bound_ms=bwd[0], bound_by=bwd[1])
         del points, params
-        # f32 K2 at the same chain: the general variant, never timed before
+        # f32 K2 at the same chain: the tf32x3 variant, device alone, twice
+        # around its plain version
         points, seg, params = phi_inputs(FLAGSHIP_B, FLAGSHIP_P, torch.float32, SEED + 31, widths=widths)
-        f32_ms = cuda_ms(lambda: _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1, with_points=False),
-                         iters=2, warmup=1)
+        f32_k2 = lambda: _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1, with_points=False)  # noqa: E731
+        f32_ms = [graph_ms(f32_k2, iters=5)]
+        f32_general = graph_ms(lambda: _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1,
+                                                          with_points=False, general=True), iters=2, replays=1)
+        f32_plain = cuda_ms(lambda: phi_pool_bwd_plain(points, seg, g, spec, params, "gelu", b1, with_points=False),
+                            iters=5, warmup=2)
+        f32_ms.append(graph_ms(f32_k2, iters=5))
+        # held on the same inputs, d_points on: P = 65,536 sums each d_W over
+        # thousands of points a block (PHI_CASES hold it at P = 1001)
+        got, again, want = ([d_points, *grads] for d_points, grads in (
+            _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1),
+            _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1),
+            phi_pool_bwd_plain(points, seg, g, spec, params, "gelu", b1)))
+        errs = [_errors(a, c) for a, c in zip(got, want, strict=True)]
+        f32_rel, f32_fro = max(e[1] for e in errs), max(e[2] for e in errs)
+        same = all(torch.equal(a, c) for a, c in zip(got, again, strict=True))
+        print(f"kernel K2 f32 {name} B={FLAGSHIP_B} P={FLAGSHIP_P} d_points on [{phi_pool.bwd_variant} variant]: "
+              f"max_rel_err {f32_rel:.3e} (bound {BWD_F32_REL:.0e}), rel_fro {f32_fro:.3e} (bound "
+              f"{BWD_F32_FRO:.0e}); a second run is {'bit-equal' if same else 'NOT bit-equal'}")
+        if not (f32_rel <= BWD_F32_REL and f32_fro <= BWD_F32_FRO and same):
+            raise AssertionError(f"f32 K2 {name}: {f32_rel:.3e} / {f32_fro:.3e} / bit-equal {same}")
+        del got, again, want
         flat = [t for layer in params for t in layer]
-        f32_bound = bound_ms(_nbytes(points, seg, g) + 2 * _nbytes(*flat),
-                             FLAGSHIP_P * (2 * sum(per_row) + sum(per_row[1:])))
-        print(f"time K2 f32 {name} B={FLAGSHIP_B} P={FLAGSHIP_P} without d_points [{phi_pool.bwd_variant} variant]: "
-              f"{f32_ms:.4f} ms (events, 2 calls), bound {f32_bound[0]:.4f} by {f32_bound[1]} (67 TFLOP/s f32), "
-              f"×{f32_ms / f32_bound[0]:.1f} [{smi}]")
-        readings["phi_pool_bwd"][f"f32 {name}"] = dict(variant=phi_pool.bwd_variant, ms=f32_ms,
-                                                       bound_ms=f32_bound[0], bound_by=f32_bound[1])
+        f32_bytes = _nbytes(points, seg, g) + 2 * _nbytes(*flat)
+        f32_ops = FLAGSHIP_P * (2 * sum(per_row) + sum(per_row[1:]))
+        f32_bound, tc_bound = bound_ms(f32_bytes, f32_ops), tf32x3_bound_ms(f32_bytes, f32_ops)
+        print(f"time K2 f32 {name} B={FLAGSHIP_B} P={FLAGSHIP_P} without d_points [{phi_pool.bwd_variant} variant], "
+              f"device alone (CUDA graphs): {f32_ms[0]:.4f} / {f32_ms[1]:.4f} ms, plain {f32_plain:.4f} (events); "
+              f"bound {f32_bound[0]:.4f} by {f32_bound[1]} (67 TFLOP/s f32), ×{min(f32_ms) / f32_bound[0]:.1f}, "
+              f"3xTF32 {tc_bound[0]:.4f} (495 TFLOP/s), ×{min(f32_ms) / tc_bound[0]:.1f}; the general variant "
+              f"{f32_general:.4f} ms (CUDA graph), ×{f32_general / min(f32_ms):.1f} [{smi}]")
+        if phi_pool.bwd_variant != "tf32x3":
+            raise AssertionError(f"f32 K2 {name}: the {phi_pool.bwd_variant} variant ran")
+        readings["phi_pool_bwd"][f"f32 {name}"] = dict(
+            variant=phi_pool.bwd_variant, ms=min(f32_ms), plain_ms=f32_plain, bound_ms=f32_bound[0],
+            bound_by=f32_bound[1], bound_tf32x3_ms=tc_bound[0], general_ms=f32_general,
+            max_rel_err=f32_rel, rel_fro=f32_fro)
         del points, seg, params, g
         torch.cuda.empty_cache()
     return readings
@@ -4001,23 +4052,43 @@ def tail_phase(smi: str, work_dir: str) -> dict:
     out = phi_pool(h, seg, (), params, "gelu", FLAGSHIP_B + 1)
     ref = phi_pool_plain(h, seg, (), params, "gelu", FLAGSHIP_B + 1)
     fwd_err = _max_rel(out, ref)
+    variant = phi_pool.variant
     d_h, grads = _phi_pool_bwd_cuda(h, seg, g, (), params, "gelu", FLAGSHIP_B + 1)
     d_ref, grads_ref = phi_pool_bwd_plain(h, seg, g, (), params, "gelu", FLAGSHIP_B + 1)
-    bwd_err = max(_max_rel(a, r) for a, r in zip([d_h, *grads], [d_ref, *grads_ref]))
+    errs = [_errors(a, r) for a, r in zip([d_h, *grads], [d_ref, *grads_ref])]
+    bwd_err, bwd_fro = max(e[1] for e in errs), max(e[2] for e in errs)
+    again = _phi_pool_bwd_cuda(h, seg, g, (), params, "gelu", FLAGSHIP_B + 1)
+    same = all(torch.equal(a, c) for a, c in zip([d_h, *grads], [again[0], *again[1]]))
+    t_h, t_grads = phi_pool_bwd_tf32x3_plain(h, seg, g, (), params, "gelu", FLAGSHIP_B + 1)
+    to_tf32x3 = max(_errors(a, r)[1] for a, r in zip([d_h, *grads], [t_h, *t_grads]))
     k1_ms = cuda_ms(lambda: phi_pool(h, seg, (), params, "gelu", FLAGSHIP_B + 1))
-    k2_ms = cuda_ms(lambda: _phi_pool_bwd_cuda(h, seg, g, (), params, "gelu", FLAGSHIP_B + 1))
+    k2 = lambda: _phi_pool_bwd_cuda(h, seg, g, (), params, "gelu", FLAGSHIP_B + 1)  # noqa: E731
+    k2_ms = cuda_ms(k2)
+    k2_device = [graph_ms(k2)]
+    k2_plain = cuda_ms(lambda: phi_pool_bwd_plain(h, seg, g, (), params, "gelu", FLAGSHIP_B + 1))
+    k2_general = graph_ms(lambda: _phi_pool_bwd_cuda(h, seg, g, (), params, "gelu", FLAGSHIP_B + 1, general=True))
+    k2_device.append(graph_ms(k2))
     # the least time: h read once and the sums written once, or the
     # products (forward 2·P·H·H; backward dz Wᵀ and hᵀ dz, 4·P·H·H)
     k1_bound, _ = bound_ms(_nbytes(h, seg, w, b, out), 2 * FLAGSHIP_P * 256 * 256)
     k1_bound_tc, _ = tf32x3_bound_ms(_nbytes(h, seg, w, b, out), 2 * FLAGSHIP_P * 256 * 256)
-    k2_bound, _ = bound_ms(_nbytes(h, seg, g, w, b, d_h, *grads), 4 * FLAGSHIP_P * 256 * 256)
+    k2_bytes = _nbytes(h, seg, g, w, b, d_h, *grads)
+    k2_bound, _ = bound_ms(k2_bytes, 4 * FLAGSHIP_P * 256 * 256)
+    k2_bound_tc, _ = tf32x3_bound_ms(k2_bytes, 4 * FLAGSHIP_P * 256 * 256)
     print(f"tail: K1 over one bare linear [256, 256] at P={FLAGSHIP_P}, B={FLAGSHIP_B}, f32: max "
           f"relative {fwd_err:.3e} (bound {TOL[torch.float32]:.0e}), {k1_ms:.4f} ms (least {k1_bound:.4f}, "
           f"3xTF32 {k1_bound_tc:.4f}); "
-          f"K2 with d_points {bwd_err:.3e} (bound {BWD_F32_REL:.0e}), {k2_ms:.4f} ms (least "
-          f"{k2_bound:.4f}); variants {phi_pool.variant}, {phi_pool.bwd_variant} [{smi}]")
-    if not (fwd_err <= TOL[torch.float32] and bwd_err <= BWD_F32_REL):
+          f"K2 with d_points max_rel {bwd_err:.3e} (bound {BWD_F32_REL:.0e}), rel_fro {bwd_fro:.3e} (bound "
+          f"{BWD_F32_FRO:.0e}), to phi_pool_bwd_tf32x3_plain {to_tf32x3:.3e}, a second run "
+          f"{'bit-equal' if same else 'NOT bit-equal'}; {k2_ms:.4f} ms (events), device alone (CUDA graphs) "
+          f"{k2_device[0]:.4f} / {k2_device[1]:.4f}, general variant {k2_general:.4f} (CUDA graphs), plain "
+          f"{k2_plain:.4f} (events), least {k2_bound:.4f}, "
+          f"3xTF32 {k2_bound_tc:.4f}, ×{min(k2_device) / k2_bound_tc:.1f}; variants {variant}, "
+          f"{phi_pool.bwd_variant} [{smi}]")
+    if not (fwd_err <= TOL[torch.float32] and bwd_err <= BWD_F32_REL and bwd_fro <= BWD_F32_FRO and same):
         raise AssertionError("tail: K1 or K2 over the one-layer chain disagrees with its plain version")
+    if (variant, phi_pool.bwd_variant) != ("tf32x3", "tf32x3"):
+        raise AssertionError(f"tail: variants {variant}, {phi_pool.bwd_variant}")
 
     cfg = training_config(os.path.join(work_dir, "data"), os.path.join(work_dir, "tail_log"))
     cfg["model"]["fused_phi"] = "tail"
@@ -4042,7 +4113,10 @@ def tail_phase(smi: str, work_dir: str) -> dict:
     return {"phi_pool": {"tail_launches": counts["phi_pool"], "tail_ms": k1_ms, "tail_bound_ms": k1_bound,
                          "tail_bound_tf32x3_ms": k1_bound_tc, "tail_max_rel_err": fwd_err},
             "phi_pool_bwd": {"tail_launches": counts["phi_pool_bwd"], "tail_ms": k2_ms,
-                             "tail_bound_ms": k2_bound, "tail_max_rel_err": bwd_err}}
+                             "tail_device_ms": min(k2_device), "tail_general_ms": k2_general,
+                             "tail_plain_ms": k2_plain,
+                             "tail_bound_ms": k2_bound, "tail_bound_tf32x3_ms": k2_bound_tc,
+                             "tail_max_rel_err": bwd_err}}
 
 
 def remat_phase(smi: str) -> None:
@@ -4086,77 +4160,81 @@ def remat_phase(smi: str) -> None:
             os.environ["PCC_PHI_REMAT"] = saved
 
 
-# (c) bench.py's --phi-width train row in its default bf16: the K1 + K2
-# route against the plain route from the same weights on resident flat
-# B=256 batches.  Per-step loss: no bf16 bound existed (STEP_LOSS_RTOL is
-# f32's), so it takes TOL[bf16], the bound bf16 K1's outputs meet
-WIDE_BF16_WIDTHS = (512, 1024)
-WIDE_BF16_LOSS_RTOL = TOL[torch.bfloat16]
-WIDE_BF16_TRACK = 5  # steps of each route from the same weights, losses compared
-WIDE_BF16_STEPS = 3  # timed steps a turn
-WIDE_BF16_TURNS = 8  # K1+K2, plain, plain, K1+K2, …: four samples a route
+# (c) bench.py's --phi-width train row, in its default bf16 and in f32: the
+# K1 + K2 route against the plain route from the same weights on resident
+# flat B=256 batches.  Per-step loss: f32 takes STEP_LOSS_RTOL; no bf16
+# bound existed (STEP_LOSS_RTOL is f32's), so bf16 takes TOL[bf16], the bound
+# bf16 K1's outputs meet.  The kernels' variants: wide in bf16, tf32x3 in f32.
+WIDE_TRAIN_WIDTHS = (512, 1024)
+WIDE_TRAIN = {torch.bfloat16: ("bfloat16", TOL[torch.bfloat16], "wide"),
+              torch.float32: ("float32", STEP_LOSS_RTOL, "tf32x3")}
+WIDE_TRAIN_TRACK = 5  # steps of each route from the same weights, losses compared
+WIDE_TRAIN_STEPS = 3  # timed steps a turn
+WIDE_TRAIN_TURNS = 8  # K1+K2, plain, plain, K1+K2, …: four samples a route
 
 
-def wide_bf16_train_phase(smi: str) -> dict:
-    """(c) the bf16 train step at φ WIDE_BF16_WIDTHS, B=256, on resident
-    flat batches (remat_phase's): per-step loss of the K1 + K2 route within
-    WIDE_BF16_LOSS_RTOL of the plain route's from the same weights, then ms
-    a step by CUDA events, the routes in turns.  K1 and K2 must launch once
-    on each of the kernel route's steps, on their wide variants.  Returns
-    K1's and K2's launches."""
+def wide_train_phase(smi: str) -> dict:
+    """(c) the train step at φ WIDE_TRAIN_WIDTHS, B=256, in bf16 and f32, on
+    resident flat batches (remat_phase's): per-step loss of the K1 + K2 route
+    within the dtype's bound of the plain route's from the same weights, then
+    ms a step by CUDA events, the routes in turns, and the host's time to
+    issue a step.  K1 and K2 must launch once on each of the kernel route's
+    steps, on the dtype's variants.  Returns K1's and K2's launches."""
     clouds, labels = make_clouds(np.random.default_rng(SEED + 28), 2 * FLAGSHIP_B)
     batches = [{k: torch.as_tensor(v).cuda() for k, v in b.items()}
                for b in PointCloudLoader(clouds, labels, FLAGSHIP_B, shuffle=False)]
     total = {"phi_pool": 0, "phi_pool_bwd": 0}
-    for width in WIDE_BF16_WIDTHS:
-        model = {**CONFIG["model"], "phi_layers": [width, width], "compute_dtype": "bfloat16"}
-        kernel_net = DeepSets(**model, generator=torch.Generator().manual_seed(SEED))
-        plain_net = DeepSets(**model, fused_phi="off")
-        plain_net.load_state_dict(kernel_net.state_dict())
-        routes = {"K1+K2": ModelWrapper(kernel_net, 1e-3, 1, optimizer="adamw"),
-                  "plain": ModelWrapper(plain_net, 1e-3, 1, optimizer="adamw")}
-        reset_launch_counts()
-        rel = []
-        for i in range(WIDE_BF16_TRACK):
-            batch = batches[i % len(batches)]
-            a, b = routes["K1+K2"].train_step(batch).item(), routes["plain"].train_step(batch).item()
-            rel.append(abs(a - b) / abs(b))
-        variants = (phi_pool.variant, phi_pool.bwd_variant)
-        samples, issue = {name: [] for name in routes}, {name: [] for name in routes}
-        for turn in range(WIDE_BF16_TURNS):
-            for name in routes if turn % 2 == 0 else reversed(list(routes)):
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                t0 = time.perf_counter()
-                start.record()
-                for i in range(WIDE_BF16_STEPS):
-                    routes[name].train_step(batches[i % len(batches)])
-                end.record()
-                # the host's time to issue the steps: near the device's, the host holds the card back
-                issue[name].append((time.perf_counter() - t0) * 1e3 / WIDE_BF16_STEPS)
-                torch.cuda.synchronize()
-                samples[name].append(start.elapsed_time(end) / WIDE_BF16_STEPS)
-        steps = WIDE_BF16_TRACK + WIDE_BF16_TURNS * WIDE_BF16_STEPS
-        counts = launch_counts()
-        ms = {name: float(np.median(v)) for name, v in samples.items()}
-        print(f"wide bf16 train φ [{width}, {width}] B={FLAGSHIP_B} P={batches[0]['points'].shape[0]} adamw, "
-              f"resident flat batches: per-step loss rel K1+K2 − plain over {WIDE_BF16_TRACK} steps from the same "
-              f"weights {[f'{r:.2e}' for r in rel]} (bound {WIDE_BF16_LOSS_RTOL:.0e}); ms a train step by CUDA "
-              f"events, median (range) of {WIDE_BF16_TURNS // 2} turns of {WIDE_BF16_STEPS} steps: K1+K2 "
-              f"{ms['K1+K2']:.4f} ({_spread(samples['K1+K2'])}), plain {ms['plain']:.4f} "
-              f"({_spread(samples['plain'])}), ×{ms['plain'] / ms['K1+K2']:.3f}; the host's issue ms a step, "
-              f"median: K1+K2 {np.median(issue['K1+K2']):.4f}, plain {np.median(issue['plain']):.4f}; K1 launches "
-              f"{counts['phi_pool']} [{variants[0]} variant], K2 {counts['phi_pool_bwd']} [{variants[1]} "
-              f"variant] over {steps} kernel-route steps [{smi}]")
-        if not all(np.isfinite(rel)) or not max(rel) <= WIDE_BF16_LOSS_RTOL:
-            raise AssertionError(f"wide bf16 train φ {width}: the kernel route does not track the plain route")
-        if (counts["phi_pool"], counts["phi_pool_bwd"]) != (steps, steps):
-            raise AssertionError(f"wide bf16 train φ {width}: K1/K2 did not launch once a step: {counts}")
-        if variants != ("wide", "wide"):
-            raise AssertionError(f"wide bf16 train φ {width}: variants {variants}")
-        total["phi_pool"] += counts["phi_pool"]
-        total["phi_pool_bwd"] += counts["phi_pool_bwd"]
-        del routes, kernel_net, plain_net
-        torch.cuda.empty_cache()
+    for dtype, (dtype_name, loss_rtol, variant) in WIDE_TRAIN.items():
+        for width in WIDE_TRAIN_WIDTHS:
+            model = {**CONFIG["model"], "phi_layers": [width, width], "compute_dtype": dtype_name}
+            kernel_net = DeepSets(**model, generator=torch.Generator().manual_seed(SEED))
+            plain_net = DeepSets(**model, fused_phi="off")
+            plain_net.load_state_dict(kernel_net.state_dict())
+            routes = {"K1+K2": ModelWrapper(kernel_net, 1e-3, 1, optimizer="adamw"),
+                      "plain": ModelWrapper(plain_net, 1e-3, 1, optimizer="adamw")}
+            reset_launch_counts()
+            rel = []
+            for i in range(WIDE_TRAIN_TRACK):
+                batch = batches[i % len(batches)]
+                a, b = routes["K1+K2"].train_step(batch).item(), routes["plain"].train_step(batch).item()
+                rel.append(abs(a - b) / abs(b))
+            variants = (phi_pool.variant, phi_pool.bwd_variant)
+            samples, issue = {name: [] for name in routes}, {name: [] for name in routes}
+            for turn in range(WIDE_TRAIN_TURNS):
+                for name in routes if turn % 2 == 0 else reversed(list(routes)):
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    t0 = time.perf_counter()
+                    start.record()
+                    for i in range(WIDE_TRAIN_STEPS):
+                        routes[name].train_step(batches[i % len(batches)])
+                    end.record()
+                    # the host's time to issue the steps: near the device's, the host holds the card back
+                    issue[name].append((time.perf_counter() - t0) * 1e3 / WIDE_TRAIN_STEPS)
+                    torch.cuda.synchronize()
+                    samples[name].append(start.elapsed_time(end) / WIDE_TRAIN_STEPS)
+            steps = WIDE_TRAIN_TRACK + WIDE_TRAIN_TURNS * WIDE_TRAIN_STEPS
+            counts = launch_counts()
+            ms = {name: float(np.median(v)) for name, v in samples.items()}
+            label = f"wide {'bf16' if dtype == torch.bfloat16 else 'f32'} train φ [{width}, {width}]"
+            print(f"{label} B={FLAGSHIP_B} P={batches[0]['points'].shape[0]} adamw, resident flat batches: "
+                  f"per-step loss rel K1+K2 − plain over {WIDE_TRAIN_TRACK} steps from the same weights "
+                  f"{[f'{r:.2e}' for r in rel]} (bound {loss_rtol:.0e}); ms a train step by CUDA events, median "
+                  f"(range) of {WIDE_TRAIN_TURNS // 2} turns of {WIDE_TRAIN_STEPS} steps: K1+K2 {ms['K1+K2']:.4f} "
+                  f"({_spread(samples['K1+K2'])}), plain {ms['plain']:.4f} ({_spread(samples['plain'])}), "
+                  f"×{ms['plain'] / ms['K1+K2']:.3f}; the host's issue ms a step, median: K1+K2 "
+                  f"{np.median(issue['K1+K2']):.4f}, plain {np.median(issue['plain']):.4f}; K1 launches "
+                  f"{counts['phi_pool']} [{variants[0]} variant], K2 {counts['phi_pool_bwd']} [{variants[1]} "
+                  f"variant] over {steps} kernel-route steps [{smi}]")
+            if not all(np.isfinite(rel)) or not max(rel) <= loss_rtol:
+                raise AssertionError(f"{label}: the kernel route does not track the plain route")
+            if (counts["phi_pool"], counts["phi_pool_bwd"]) != (steps, steps):
+                raise AssertionError(f"{label}: K1/K2 did not launch once a step: {counts}")
+            if variants != (variant, variant):
+                raise AssertionError(f"{label}: variants {variants}")
+            total["phi_pool"] += counts["phi_pool"]
+            total["phi_pool_bwd"] += counts["phi_pool_bwd"]
+            del routes, kernel_net, plain_net
+            torch.cuda.empty_cache()
     return total
 
 
@@ -4183,11 +4261,11 @@ def trace_phase(smi: str, work_dir: str) -> None:
 
 def fuse_phase(smi: str, work_dir: str) -> tuple:
     """Phase 24.  Returns (the fused routes' launches, the tail's launches,
-    times and errors for K1 and K2, the bf16 wide train steps' launches)."""
+    times and errors for K1 and K2, the wide train steps' launches)."""
     fused = fused_routes_phase(smi)
     tail = tail_phase(smi, work_dir)
     remat_phase(smi)
-    wide = wide_bf16_train_phase(smi)
+    wide = wide_train_phase(smi)
     trace_phase(smi, work_dir)
     return fused, tail, wide
 
@@ -5383,7 +5461,7 @@ def main() -> None:
         times = times_phase(smi, run_dir)
         beside["phi_pool"]["f32_shapes"] = k1_variants_phase(smi)
         for name, readings in wide_variants_phase(smi).items():
-            beside[name]["bf16_wide_device"] = readings
+            beside[name]["wide_device"] = readings
         beside["phi_pool"]["max_rel_to_tf32x3_plain"] = k1_to_tf32x3
         lap("DeepSets times")
         times["gat_attention"] = graph_times_phase(smi, os.path.join(run_dir, "graph_run_1"))
@@ -5418,7 +5496,7 @@ def main() -> None:
         for name in ("phi_pool", "phi_pool_bwd"):
             beside[name].update(tail_launches[name])
             launches[name] += tail_launches[name]["tail_launches"]
-            beside[name]["wide_bf16_train_launches"] = wide_launches[name]
+            beside[name]["wide_train_launches"] = wide_launches[name]
             launches[name] += wide_launches[name]
         int8_export_phase(smi, run_dir)
         lap("int8 and export")

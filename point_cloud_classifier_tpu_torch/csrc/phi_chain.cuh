@@ -6,8 +6,8 @@
 // type T where PyTorch forms a tensor of type T, and sums are taken in f32.
 //
 // Two families of tile product live here, one per kernel variant (f32 K1's
-// tf32x3 variant has its own, in phi_pool.cu, and the bf16 wide variants
-// theirs, in phi_wide.cuh):
+// and K2's tf32x3 variants have theirs in phi_tf32.cuh, and the bf16 wide
+// variants theirs in phi_wide.cuh):
 //
 // - The sliced variant (takes_sliced() says which launches take it: the
 //   DeepSets φ chain, a narrow first layer and one 256 -> 256 layer, in K2
@@ -34,7 +34,9 @@
 //   8 tiles (slice_dot by splitting K over four thread groups) measured no
 //   faster at the eight warps a block has, and were dropped.  f32 K1 takes
 //   the tensor cores with a 3xTF32 split instead (phi_pool.cu, the tf32x3
-//   variant); K2's f32 products are still these register tiles.
+//   variant), as f32 K2 does at the DeepSets chain of φ 320-1024 and the
+//   tail's layer (phi_pool_bwd.cu, phi_tf32.cuh); the sliced K2's f32
+//   products at φ 256 are still these register tiles.
 // - The general variant (any widths, up to kMaxLayers layers): tile_dot, one
 //   output column per thread over a ROWS-row tile, weights read from L2.
 
@@ -303,9 +305,10 @@ inline int round4(int n) { return (n + 3) / 4 * 4; }
 // Built with -DPCC_PHASE_CLOCKS (native.enable_phase_clocks(), which
 // phase_clocks.py calls), thread 0 of block 0 adds up clock64() between the
 // marks of a sliced, tf32x3 or wide kernel, and the file's
-// pcc_*_phase_clocks entry copies the sums out.  Without the flag the marks
-// compile to nothing.
-constexpr int kPhases = 16;
+// pcc_*_phase_clocks entry copies the sums out.  A kernel that runs after
+// another of the same launch (K2's d_W pass) marks phases from 16 on and
+// flushes only those.  Without the flag the marks compile to nothing.
+constexpr int kPhases = 24;
 #ifdef PCC_PHASE_CLOCKS
 static __device__ long long g_phase_clocks[kPhases];
 __device__ __forceinline__ long long sm_clock() {
@@ -328,16 +331,16 @@ struct PhaseClock {
       last = now;
     }
   }
-  __device__ void flush() {
+  __device__ void flush(int first = 0) {
     if (blockIdx.x == 0 && threadIdx.x == 0) {
-      for (int i = 0; i < kPhases; ++i) g_phase_clocks[i] = sum[i];
+      for (int i = first; i < kPhases; ++i) g_phase_clocks[i] = sum[i];
     }
   }
 };
 #else
 struct PhaseClock {
   __device__ __forceinline__ void mark(int) {}
-  __device__ __forceinline__ void flush() {}
+  __device__ __forceinline__ void flush(int = 0) {}
 };
 #endif
 
@@ -413,9 +416,10 @@ inline bool sliced_chain(int n_layers, const int* dims, const int* kinds) {
 // and two cluster barriers a tile cost more than the weights from L2 did)
 // and is not built; f32 K1 takes phi_pool.cu's tf32x3 variant where its
 // plan holds the chain.  Its products are 3xTF32 sums on the tensor cores,
-// so K2's f32 recompute (exact f32 FMAs in k order) no longer rounds as K1
-// does: the two chains differ by a few 1e-6 of their scale
-// (docs/parity_torch.md §14).  Everything else goes to the general variant.
+// so the sliced and general K2's f32 recompute (exact f32 FMAs in k order)
+// does not round as K1 does: the two chains differ by a few 1e-6 of their
+// scale (docs/parity_torch.md §14); K2's tf32x3 variant does, for its chains
+// (§17).  Everything else goes to the general variant.
 inline bool takes_sliced(int n_layers, const int* dims, const int* kinds, bool is_bf16,
                          bool backward) {
   return sliced_chain(n_layers, dims, kinds) && (backward || is_bf16);
@@ -635,7 +639,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// -- asynchronous copies and barriers (f32 K1's tf32x3 variant, the wide variants) --
+// -- asynchronous copies and barriers (the tf32x3 and the wide variants) ------------
 
 // Copies into shared memory that land while the block computes; `valid`
 // false writes zeros and reads nothing.
@@ -699,6 +703,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
 
 // Every thread of the cluster's blocks, whatever its role.
 __device__ __forceinline__ void cluster_sync() { cooperative_groups::this_cluster().sync(); }
+// cluster_sync in its two halves, for a thread that has other work between
+// its arrival and the barrier's completion (a warp's threads together)
+// (relaxed: orders none of the thread's memory operations)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
 // Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
 // l / 8.  Plain: a thread gets elements [lane / 4][2 (lane % 4) + {0, 1}] of

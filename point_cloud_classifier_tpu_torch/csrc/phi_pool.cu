@@ -78,13 +78,14 @@
 //   block's h (distributed shared memory), all but the last layer's, which
 //   it pools itself: 64 x 1024 f32 would not fit a block.
 // - Weights: four producer warps stream W through three stages of 8 k rows x
-//   256 columns (hi and lo, 24 KB a stage), reading two chunks ahead from L2
-//   into registers and splitting each value once as they stage it; eight
-//   consumer warps only multiply, run the epilogues and pool.  Stages are
-//   handed over by mbarriers, so a consumer warp waits for the producers and
-//   never for its siblings.  (Eight warps doing all of it in lock-step, a
-//   barrier a chunk, left the tensor pipe idle while they copied and split:
-//   the variant's first form was slower than the general one.)  Every block
+//   256 columns (hi and lo, 24 KB a stage), reading three chunks ahead from
+//   L2 into registers and splitting each value once as they stage it
+//   (phi_tf32.cuh:tf32_produce, which K2's tf32x3 variant's producers run
+//   too); eight consumer warps only multiply, run the epilogues and pool.
+//   Stages are handed over by mbarriers, so a consumer warp waits for the
+//   producers and never for its siblings.  (Eight warps doing all of it in
+//   lock-step, a barrier a chunk, left the tensor pipe idle while they copied
+//   and split: the variant's first form was slower than the general one.)  Every block
 //   reads a tile's W from L2 again: 256 KB a 64-row tile at width 256.  Its
 //   times beside the general variant's and its bounds are in PERF.md §6
 //   (chip_smoke.py); where its consumers' clocks go, phase_clocks.py:
@@ -142,6 +143,7 @@
 // bf16 the weights and points are read as bf16, every value is rounded to
 // bf16 where the plain version rounds, and the pooled sums stay f32.
 
+#include "phi_tf32.cuh"
 #include "phi_wide.cuh"
 
 namespace {
@@ -367,64 +369,7 @@ cudaError_t launch_sliced(const void* points, const void* seg, void* out, int n_
 }
 
 // -- the tf32x3 variant -------------------------------------------------------------
-
-constexpr int kChunk = 8;                         // k rows of W a chunk holds: one m16n8k8 step
-constexpr int kRingRows = 256;                    // a block's columns of a layer, at most
-constexpr int kRingLd = kChunk + 4;               // a staged row: 16-byte pieces in distinct banks
-constexpr int kSplit = 2 * kRingRows * kRingLd;   // floats a stage: hi, then lo, [n][k]
-constexpr int kStages = 3;                        // chunks staged ahead of the products
-// The block's warps by role: consumers multiply, run the epilogues and
-// pool; producers bring W's chunks in from L2, split them and stage them.
-constexpr int kConsumers = 256;
-constexpr int kProducers = 128;
-constexpr int kTf32Threads = kConsumers + kProducers;
-constexpr int kProducerCols = kRingRows / kProducers;  // columns of a chunk a producer thread takes
-constexpr int kLoadDepth = 2;  // chunks a producer thread holds in registers, the older being stored
-// The consumers' own named barrier (0 is __syncthreads).  The stages are
-// handed over by mbarriers: full[s] (every producer thread arrives after its
-// stores, a consumer warp waits) and empty[s] (each consumer warp arrives
-// once its products have read the stage, the producers wait), so that a
-// consumer warp waits for the producers and never for its siblings.
-constexpr int kConsumerBar = 1;
-constexpr int kConsumerWarps = kConsumers / 32;
-
-// f32 -> tf32 (10 explicit mantissa bits, the low 13 bits zero), to nearest,
-// ties away from zero: what cvt.rna.tf32.f32 gives for every finite value,
-// by two integer operations on the bits (sign and magnitude: half of the
-// dropped bits' range added to the magnitude, a carry running into the
-// exponent, then the 13 bits cleared), as ops/fused_phi.py:tf32_round does.
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
-}
-
-// v = hi + lo + (what neither holds, ~2^-22 |v|)
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(v);
-  lo = to_tf32(v - __uint_as_float(hi));
-}
-
-// c[16, 8] += a[16, 8] · b[8, 8], tf32 operands, f32 sums.  Fragments
-// (g = lane / 4, t = lane % 4): a {[g][t], [g + 8][t], [g][t + 4], [g + 8][t + 4]},
-// b {[t][g], [t + 4][g]}, c {[g][2t], [g][2t + 1], [g + 8][2t], [g + 8][2t + 1]}.
-// Not volatile: the compiler may interleave independent products.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The warps of a ROWS-row tile: kWarpsM along the rows (32 each: two m16
-// tiles), kWarpsN along the columns; warp (wm, wn) takes the n8 tiles wn,
-// wn + kWarpsN, ... of the block's columns, kNt at most (256 columns).
-template <int ROWS>
-struct Tf32Warps {
-  static constexpr int kWarpsM = ROWS / 32;
-  static constexpr int kWarpsN = kConsumers / 32 / kWarpsM;
-  static constexpr int kNt = kRingRows / 8 / kWarpsN;
-};
+// The split, the products, the chunk stream and its producers: phi_tf32.cuh.
 
 // Layer l's input width as the products see it: the points' width rounded
 // up to 8 (the padding is zero), or the layer below's output width.
@@ -432,164 +377,8 @@ __device__ __forceinline__ int padded_k(const Chain& chain, int l) {
   return l == 0 && chain.dims[0] <= 8 ? 8 : chain.dims[l];
 }
 
-// Where the chunk stream stands: rows [k0, k0 + kChunk) of layer `layer`'s
-// W.  Every block takes a layer's chunks in k order, so the SMs ask L2 for
-// the same rows of W at about the same time (starting each block's layer
-// at another chunk, to spread the reads over L2, read W half as fast).  The
-// stream runs through every layer of a tile and on into the next tile's
-// first layer, so the chunk after a layer's last is in shared memory when
-// its epilogue ends.
-struct ChunkPos {
-  int layer, k0;
-};
-
 __device__ __forceinline__ int layer_chunks(const Chain& chain, int l) {
   return (padded_k(chain, l) + kChunk - 1) / kChunk;
-}
-
-__device__ __forceinline__ ChunkPos next_chunk(const Chain& chain, ChunkPos p) {
-  p.k0 += kChunk;
-  if (p.k0 >= padded_k(chain, p.layer)) {
-    p.k0 = 0;
-    p.layer = p.layer + 1 == chain.n_layers ? 0 : p.layer + 1;
-  }
-  return p;
-}
-
-// A chunk of W in a producer thread's registers: rows [k0, k0 + kChunk) of
-// layer l's weights at the thread's columns n of the block's [col0, col0 +
-// nb), read from L2 with no test (the row and column clamped into the
-// layer), so that nothing waits for the reads until store().  store()
-// zeroes what lies past the layer, splits each value once into tf32 hi and
-// lo and stages them transposed, stage[n * kRingLd + k] (hi) and
-// stage[kSplit / 2 + n * kRingLd + k] (lo), so that ldmatrix hands every
-// consumer lane its b fragments: two 16-byte stores of each a row,
-// neighbouring threads on neighbouring rows.
-template <int C>
-struct ChunkLoad {
-  float w[kProducerCols][kChunk];
-
-  __device__ __forceinline__ void load(const Chain& chain, ChunkPos p, int rank, int pt) {
-    const int k_dim = chain.dims[p.layer], n_dim = chain.dims[p.layer + 1];
-    const int nb = n_dim / C;
-    const float* __restrict__ W = static_cast<const float*>(chain.w[p.layer]) + rank * nb;
-#pragma unroll
-    for (int c = 0; c < kProducerCols; ++c) {
-      const int n = min(pt + c * kProducers, nb - 1);
-#pragma unroll
-      for (int k = 0; k < kChunk; ++k) {
-        w[c][k] = __ldg(W + static_cast<size_t>(min(p.k0 + k, k_dim - 1)) * n_dim + n);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(const Chain& chain, ChunkPos p, int pt, float* stage) const {
-    const int k_dim = chain.dims[p.layer], nb = chain.dims[p.layer + 1] / C;
-#pragma unroll
-    for (int c = 0; c < kProducerCols; ++c) {
-      const int n = pt + c * kProducers;
-      if (n < nb) {
-        uint32_t hi[kChunk], lo[kChunk];
-#pragma unroll
-        for (int k = 0; k < kChunk; ++k) split_tf32(p.k0 + k < k_dim ? w[c][k] : 0.0f, hi[k], lo[k]);
-        float* at = stage + n * kRingLd;
-#pragma unroll
-        for (int q = 0; q < kChunk; q += 4) {
-          *reinterpret_cast<uint4*>(at + q) = make_uint4(hi[q], hi[q + 1], hi[q + 2], hi[q + 3]);
-          *reinterpret_cast<uint4*>(at + kSplit / 2 + q) =
-              make_uint4(lo[q], lo[q + 1], lo[q + 2], lo[q + 3]);
-        }
-      }
-    }
-  }
-};
-
-// A tile's points into x[r * ldx + k] (k < n_features; the padding columns
-// stay zero, rows past the end are zero) and its segment ids into segs (rows
-// past the end are never pooled), by cp.async.
-template <int ROWS>
-__device__ __forceinline__ void fetch_tile(const float* __restrict__ points,
-                                           const int* __restrict__ seg, int tile, int n_points,
-                                           int n_features, float* x, int ldx, int* segs,
-                                           bool vec4) {
-  const int row0 = tile * ROWS;
-  if (vec4) {
-    const int per_row = n_features / 4;
-    for (int i = threadIdx.x; i < ROWS * per_row; i += kConsumers) {
-      const int r = i / per_row;
-      const int k = 4 * (i - r * per_row);
-      const bool valid = row0 + r < n_points;
-      cp_async16(x + r * ldx + k,
-                 points + (valid ? static_cast<size_t>(row0 + r) * n_features + k : 0), valid);
-    }
-  } else {
-    for (int i = threadIdx.x; i < ROWS * n_features; i += kConsumers) {
-      const int r = i / n_features;
-      const int k = i - r * n_features;
-      const bool valid = row0 + r < n_points;
-      cp_async4(x + r * ldx + k,
-                points + (valid ? static_cast<size_t>(row0 + r) * n_features + k : 0), valid);
-    }
-  }
-  for (int r = threadIdx.x; r < ROWS; r += kConsumers) {
-    const bool valid = row0 + r < n_points;
-    cp_async4(segs + r, seg + (valid ? row0 + r : 0), valid);
-  }
-  cp_async_commit();
-}
-
-// acc += in[rows of the warp, k0 + [0, kChunk)] · (the split chunk of W), by
-// three tf32 products a pair of fragments: lo·hi, hi·lo, then hi·hi (lo·lo,
-// ~2^-22 of the product, is left out).  Each a value is split once per warp;
-// each W value was split once, when the stage was written.  The three are
-// three passes over all the warp's accumulators: the products of a pass do
-// not wait for each other, and one accumulator's next product comes a pass
-// (16 products) later, past the tensor pipe's latency.  Every n8 tile of
-// the warp is multiplied, with no test: a tile past the layer's columns
-// reads rows of the split chunk that hold no W of this chunk, and its sums
-// are never written.  (A test around each product made it a branch of its own,
-// and the products then ran one at a time.)
-template <int ROWS>
-__device__ __forceinline__ void chunk_product(float (&acc)[2][Tf32Warps<ROWS>::kNt][4],
-                                              const float* in, int ld_in, int k0,
-                                              const float* split) {
-  using G = Tf32Warps<ROWS>;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wm = warp / G::kWarpsN, wn = warp % G::kWarpsN;
-  // a: matrices (rows 0-7 | 8-15) x (k 0-3 | 4-7) of an m16 tile
-  const float* a_ptr = in + (32 * wm + lane % 8 + 8 * (lane / 8 % 2)) * ld_in + k0 + 4 * (lane / 16);
-  // b: matrices (k 0-3 | 4-7) of the pair's first n8 tile, then of its second
-  const int b_pair = lane / 16, b_off = lane % 8 * kRingLd + 4 * (lane / 8 % 2);
-  {
-    constexpr int kk = 0;
-    uint32_t ahi[2][4], alo[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      uint32_t a[4];
-      ldsm4(a, a_ptr + 16 * mt * ld_in + kk);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(a[e]), ahi[mt][e], alo[mt][e]);
-    }
-    // b of n8 tiles i and i + 1: hi in bh[i / 2], lo in bl[i / 2]
-    uint32_t bh[G::kNt / 2][4], bl[G::kNt / 2][4];
-#pragma unroll
-    for (int i = 0; i < G::kNt; i += 2) {
-      const float* b_ptr = split + 8 * (wn + G::kWarpsN * (i + b_pair)) * kRingLd + b_off + kk;
-      ldsm4(bh[i / 2], b_ptr);
-      ldsm4(bl[i / 2], b_ptr + kSplit / 2);
-    }
-#pragma unroll
-    for (int pass = 0; pass < 3; ++pass) {
-#pragma unroll
-      for (int i = 0; i < G::kNt; ++i) {
-        const uint32_t* b = pass == 1 ? bl[i / 2] : bh[i / 2];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_tf32(acc[mt][i], pass == 0 ? alo[mt] : ahi[mt], b[2 * (i % 2)], b[2 * (i % 2) + 1]);
-        }
-      }
-    }
-  }
 }
 
 // The layer's values from the warp's sums, in layer_out's order (the bias,
@@ -636,62 +425,6 @@ __device__ __forceinline__ void tile_epilogue(const float (&acc)[2][Tf32Warps<RO
   });
 }
 
-// The chunks of W a tile takes, over all its layers.
-__device__ __forceinline__ int chunks_a_tile(const Chain& chain) {
-  int n = 0;
-  for (int l = 0; l < chain.n_layers; ++l) n += layer_chunks(chain, l);
-  return n;
-}
-
-// The producers' side: the block's chunk stream, tile by tile and layer by
-// layer, through the kStages stages, kLoadDepth chunks in registers at a
-// time (the reads of the next are on their way while one waits for its stage
-// and is stored; four chunks in registers measured no faster than two).
-// Chunk c goes into stage c % kStages, the (c / kStages)-th use of that
-// stage.  With C > 1 the producers meet the consumers' cluster
-// barriers at the end of every layer but the last (after its last chunk is
-// staged).
-template <int C>
-__device__ __forceinline__ void produce(const Chain& chain, float* stages, uint64_t* full,
-                                        uint64_t* empty, int rank, int n_my_tiles) {
-  const int pt = threadIdx.x - kConsumers;
-  const int per_tile = chunks_a_tile(chain);
-  const int total = n_my_tiles * per_tile;
-  ChunkPos pos = {0, 0}, ahead = pos;
-  ChunkLoad<C> held[kLoadDepth];
-  const auto put = [&](const ChunkLoad<C>& held, int c) {
-    const int s = c % kStages;
-    // the consumers are done with the stage's previous chunk, c - kStages
-    if (c >= kStages) mbar_wait(empty + s, (c / kStages - 1) & 1);
-    held.store(chain, pos, pt, stages + s * kSplit);
-    mbar_arrive(full + s);
-    const ChunkPos next = next_chunk(chain, pos);
-    if (C > 1 && next.layer != pos.layer && pos.layer + 1 < chain.n_layers) {
-      cluster_sync();  // the consumers' barrier before a layer's epilogue
-      cluster_sync();  // and after it
-    }
-    pos = next;
-  };
-#pragma unroll
-  for (int i = 0; i + 1 < kLoadDepth; ++i) {
-    if (i < total) held[i].load(chain, ahead, rank, pt);
-    ahead = next_chunk(chain, ahead);
-  }
-  for (int c0 = 0; c0 < total; c0 += kLoadDepth) {
-#pragma unroll
-    for (int i = 0; i < kLoadDepth; ++i) {  // unrolled: each set keeps its registers
-      const int c = c0 + i;
-      if (c < total) {
-        if (c + kLoadDepth - 1 < total) {
-          held[(i + kLoadDepth - 1) % kLoadDepth].load(chain, ahead, rank, pt);
-        }
-        ahead = next_chunk(chain, ahead);
-        put(held[i], c);
-      }
-    }
-  }
-}
-
 // Pool a block's columns [col0, col0 + nb) of a tile's last layer (h, the
 // tile's n_rows rows) into out [num_segments, width], by the block's first
 // THREADS threads: run-length partial sums over the rows, one atomic per
@@ -731,7 +464,8 @@ template <int ROWS, int C>
 __global__ void __launch_bounds__(kTf32Threads, 1)
     phi_pool_tf32x3_kernel(const float* __restrict__ points, const int* __restrict__ seg,
                            float* __restrict__ out, int n_points, int n_features,
-                           int num_segments, Chain chain, int ldh, int ldx, int vec4) {
+                           int num_segments, Chain chain, SplitStream st, int ldh, int ldx,
+                           int vec4) {
   using G = Tf32Warps<ROWS>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* h = reinterpret_cast<float*>(smem_raw);
@@ -770,7 +504,7 @@ __global__ void __launch_bounds__(kTf32Threads, 1)
     __syncthreads();
   }
   if (threadIdx.x >= kConsumers) {
-    produce<C>(chain, stages, full, empty, rank, n_my_tiles);
+    tf32_produce<C, kByK>(st, stages, full, empty, rank, n_my_tiles);
     if constexpr (C > 1) cluster_sync();
     return;
   }
@@ -792,25 +526,9 @@ __global__ void __launch_bounds__(kTf32Threads, 1)
       const float* in = l == 0 ? x : h;
       const int ld_in = l == 0 ? ldx : ldh;
       const int nb = chain.dims[l + 1] / C;
-      const int n_chunks = layer_chunks(chain, l);
       float acc[2][G::kNt][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-        for (int i = 0; i < G::kNt; ++i) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][i][e] = 0.0f;
-        }
-      }
-      for (int k0 = 0; k0 < n_chunks * kChunk; k0 += kChunk, ++chunk) {
-        const int s = chunk % kStages;
-        mbar_wait(full + s, (chunk / kStages) & 1);  // the producers have staged it
-        clk.mark(2);
-        chunk_product<ROWS>(acc, in, ld_in, k0, stages + s * kSplit);
-        __syncwarp();  // every lane's reads of the stage are done
-        if (threadIdx.x % 32 == 0) mbar_arrive(empty + s);
-        clk.mark(3);
-      }
+      stream_product<ROWS>(acc, in, ld_in, layer_chunks(chain, l), stages, full, empty, chunk, clk,
+                           2, 3);
       bar_sync(kConsumerBar, kConsumers);  // no warp reads x or h for the products any more
       clk.mark(4);
       // x is read again only by a residual first layer's epilogue: else the
@@ -903,14 +621,20 @@ cudaError_t launch_tf32x3(const void* points, const void* seg, void* out, int n_
   const float* p = static_cast<const float*>(points);
   const int* s = static_cast<const int*>(seg);
   float* o = static_cast<float*>(out);
+  // the chunk stream: each layer's W by k, and the consumers' two cluster
+  // barriers around every layer's epilogue but the last's
+  SplitStream st = {};
+  for (int l = 0; l < chain.n_layers; ++l) {
+    add_phase(st, chain.w[l], chain.dims[l], chain.dims[l + 1], chain.dims[l + 1], 0);
+    if (C > 1 && l + 1 < chain.n_layers) add_sync(st, 2);
+  }
   if constexpr (C == 1) {
     phi_pool_tf32x3_kernel<ROWS, C><<<grid, kTf32Threads, plan.smem, stream>>>(
-        p, s, o, n_points, n_features, num_segments, chain, plan.ldh, plan.ldx, vec4);
+        p, s, o, n_points, n_features, num_segments, chain, st, plan.ldh, plan.ldx, vec4);
     return cudaGetLastError();
   } else {
     return launch_cluster_grid(kernel, C, grid, kTf32Threads, plan.smem, stream, p, s, o, n_points,
-                               n_features,
-                               num_segments, chain, plan.ldh, plan.ldx, vec4);
+                               n_features, num_segments, chain, st, plan.ldh, plan.ldx, vec4);
   }
 }
 
@@ -1173,13 +897,14 @@ int pcc_phi_pool_general(const void* points, const void* seg, void* out, int n_p
 
 // Which variant a launch takes, K1's when backward is 0 and K2's otherwise:
 // 1 the sliced variant (phi_chain.cuh:takes_sliced), 2 the tf32x3 variant
-// (K1 only: tf32x3_plan), 3 the wide one (bf16: phi_wide.cuh:wide_plan),
-// 0 the general one.
+// (f32: tf32x3_plan for K1, phi_tf32.cuh:bwd_tf32x3_plan for K2), 3 the wide
+// one (bf16: phi_wide.cuh:wide_plan), 0 the general one.
 int pcc_phi_pool_variant(int n_layers, const int* dims, const int* kinds, int is_bf16,
                          int backward) {
   if (n_layers < 1 || n_layers > kMaxLayers) return 0;
   if (takes_sliced(n_layers, dims, kinds, is_bf16 != 0, backward != 0)) return 1;
   if (backward == 0 && tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0).cluster > 0) return 2;
+  if (backward != 0 && bwd_tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0).form > 0) return 2;
   if (wide_plan(n_layers, dims, kinds, is_bf16 != 0, backward != 0).cluster > 0) return 3;
   return 0;
 }

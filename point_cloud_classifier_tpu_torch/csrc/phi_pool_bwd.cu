@@ -11,8 +11,9 @@
 //   d_W += h_inᵀ dz,  d_b += Σ dz     (f32, over every point)
 //   d_in = dz Wᵀ  (+ d_out for a residual layer)
 // and d_points = d_in of the first layer, only when asked.  No [P, H]
-// activation or gradient is written to device memory, but by the wide
-// variant, whose [P, W] bf16 scratch of h1 and dz2 is deliberate (below).
+// activation or gradient is written to device memory, but by the wide and
+// the tf32x3 variants, whose [P, W] scratch of h1 and dz2 is deliberate
+// (below).
 //
 // What bounds it on the H100: operations.  Per point the recompute costs the
 // forward's FLOPs again, and d_W and dz Wᵀ each cost as much once more: about
@@ -21,9 +22,10 @@
 // layer, one SM's whole register file, which a single block can only keep in
 // device memory and must then read and write once per tile.
 //
-// Three variants, chosen by the chain's shape and element type alone
-// (phi_chain.cuh:takes_sliced, phi_wide.cuh:wide_plan; pcc_phi_pool_variant
-// in phi_pool.cu reports the choice):
+// Four variants, chosen by the chain's shape and element type alone
+// (phi_chain.cuh:takes_sliced, phi_tf32.cuh:bwd_tf32x3_plan,
+// phi_wide.cuh:wide_plan; pcc_phi_pool_variant in phi_pool.cu reports the
+// choice):
 //
 // Sliced (a first layer of at most 8 inputs, then one 256 -> 256 layer: the
 // DeepSets φ chain).  A cluster of four blocks walks 64-row tiles; block c
@@ -99,14 +101,51 @@
 //   sixteen blocks' registers, each block recomputing the chain for every
 //   point.
 //
+// Tf32x3 (f32: the DeepSets chain at W = 320 to 1024 in multiples of 64, as
+// the wide variant takes it in bf16; and the tail's one bare layer [in, out],
+// each a multiple of 64 from 256 to 1024).  The wide variant's structure on
+// f32 K1's tf32x3 skeleton (phi_tf32.cuh): every product is three TF32
+// products on the tensor cores (each operand split into hi and lo once), and
+// W comes in through the producers' chunk stream, split as it is staged.
+// - What bounds it: the operations, three products of 2·P·W² taken as three
+//   TF32 products each, over 495 TFLOP/s (2.51 ms at B=256, P=65,536, W =
+//   1024).  d_W2 is [W, W] f32 (4 MB at 1024): no SM holds it.
+// - The row pass, on K1's tf32x3 skeleton: a cluster of two blocks (W <= 512)
+//   a 64-row tile or four a 32-row tile (64 rows of f32 h at W = 1024 would be
+//   256 KB), block r owning columns [r nb, (r + 1) nb).  Per tile: h1 =
+//   act(x·W1 + b1) from W1's columns kept in shared memory (f32, split at
+//   each read: the same operands, split, tf32 products and epilogue as K1's
+//   first layer, so the same bits), into every block's h and into h1s; z2 =
+//   h1·W2 (W2 staged by k, as K1 stages it: the same bits as K1's sums); dz2
+//   = g[seg] ⊙ act'(z2) into every block's h and dz2s; d_h1 = dz2·W2ᵀ (W2's
+//   rows staged by n from the one [in, out] copy, split by the producers
+//   into the same [n][k] layout, so one ldmatrix fragment layout serves
+//   both); dz1 = d_h1 (+ d_out) ⊙ act'(z1), z1 from the first-layer product
+//   again.  The small gradients (d_W1, d_b1, d_b2) are sums over the tile's
+//   rows in order, one column a thread, added to registers a tile at a time
+//   and written once a cluster into its slab; d_points is each block's share
+//   over its columns summed across the cluster in rank order.  h1 and dz2 go
+//   to a [P, W] f32 scratch each (256 MB at P = 65,536, W = 1024).
+// - The d_W pass: d_W2 = h1ᵀ·dz2 with [128, 128] f32 tiles of d_W2 in
+//   registers, one block an SM, P split into as many chunks as fill the SMs
+//   once; each stage's products summed apart and then added (below).
+// - The tail: no recompute.  dz = g[seg]; d_W = h_inᵀ·dz and d_b = Σ dz are
+//   the d_W pass over the points and the gathered cotangent (each block
+//   gathers its rows of g by segment id as it stages them); d_points = dz·Wᵀ
+//   is a row product on the same skeleton, W's rows staged by n, each block
+//   gathering its own tile of g (no cluster).
+// - Phase clocks (phase_clocks.py) put the row pass's consumers at 32-row
+//   tiles waiting for staged chunks some 40-55% of their clocks: at 32 rows
+//   a chunk of W serves half the products it serves at 64, and the producers
+//   (a thread's 16 values from L2, split and stored per chunk) set the pace.
+//
 // General (every other chain).  One block owns a tile of 32, 16 or 8 rows
 // and keeps every layer's input and pre-activation in shared memory (f32);
 // the products are phi_chain.cuh:tile_dot, Wᵀ passed in as its own row-major
 // copy.  The grid is persistent, one block per SM, and each block keeps its
 // own f32 slab of every d_W and d_b in device memory, read and written once
 // per tile; the same second kernel sums the slabs in a fixed order.  It
-// serves f32 chains other than the sliced one (φ 512 and 1024 among them)
-// and bf16 chains neither other variant takes.  What does not fit 8 rows is
+// serves the chains no other variant takes.  What does not fit 8 rows is
 // refused (kErrTooWide).
 //
 // All: the ragged last tile is masked (its rows get a zero cotangent), so
@@ -115,6 +154,9 @@
 // rounds (the gathered cotangent, dz after its f32 product, dz Wᵀ after its
 // f32 sum, the residual add); d_W and d_b stay f32.
 
+#include <type_traits>
+
+#include "phi_tf32.cuh"
 #include "phi_wide.cuh"
 
 namespace {
@@ -920,47 +962,163 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   clk.flush();
 }
 
-// -- the wide variant: the d_W pass ----------------------------------------------------
+// -- the d_W pass of the wide and the tf32x3 variants -----------------------------------
 
-// d_W2 = h1ᵀ·dz2 over the points, from the row pass's bf16 scratch: block
-// (split, i-tile, j-tile) sums rows [split · rows, (split + 1) · rows) of P
-// into a [128, 128] tile of f32 accumulators that stays in its registers
-// (eight warps of 64 x 32, mma.sync m16n8k16 with both operands by ldmatrix
-// .trans from rows of 32 points staged by cp.async, three stages), then
-// writes it once into its split's partial [W, W].  The partials are summed
-// in split order by reduce_slabs_kernel, so two launches give the same bits.
+// d_W [m, n] = Aᵀ·B over the points, A [P, m] and B [P, n] row-major (lda =
+// m, ldb = n) of T: bf16 in the wide variant (h1 and dz2 from its row
+// pass), f32 in the tf32x3 one (the same, or the tail's points and, with
+// GATHER, B's row p = g[seg[p]] of g [S, n], zero for ids outside [0, S)).
+// Block (split, i-tile, j-tile) sums rows [split · rows, (split + 1) · rows)
+// of P into a [128, 128] tile of f32 accumulators in its registers (eight
+// warps of 64 x 32), from rows of 32 points staged by cp.async in rows of
+// kDwLd elements, then writes it once into its split's partial [m, n].
+// - bf16: mma.sync m16n8k16 with both operands by ldmatrix .trans, three
+//   stages, accumulated in place; two blocks an SM (its launch bounds
+//   hold it to 128 registers a thread).
+// - f32: tf32x3 products on m16n8k8, each operand read by 4-byte loads
+//   (kDwLd ≡ 8 (mod 32): a fragment's reads meet 32 banks) and split once
+//   per warp; four stages; one block an SM (the two tiles of sums and the
+//   fragments take some 180 registers a thread).  Each stage's products go
+//   into a tile of their own that is then added to the block's sums by f32
+//   adds: the tensor cores' own accumulation, over the 12 products of a
+//   stage, would run on over thousands of them (P / split / 8 · 3), and
+//   there drifted 3e-5–6.6e-5 of d_W from f32 sums at P = 65,536 (an H100,
+//   before this form).  With GATHER, the blocks of the first i-tile also sum
+//   B's columns over their rows, in row order, into their split's partial
+//   of d_b [n] (b_sums).
+// The partials are summed in split order by reduce_slabs_kernel, so two
+// launches give the same bits.  The blocks of one split are launched
+// together and walk its rows in step, so the tiles that share a chunk of P
+// meet its rows in L2 (P is read from device memory about once).
 constexpr int kDwTile = 128;
 constexpr int kDwRows = 32;  // points a stage
-constexpr int kDwStages = 3;
 constexpr int kDwLd = kDwTile + 8;
 constexpr int kDwThreads = 256;
-constexpr size_t kDwSmem = sizeof(bf16) * 2 * kDwStages * kDwRows * kDwLd;
+__host__ __device__ constexpr int dw_stages(int elem) { return elem == 2 ? 3 : 4; }
+constexpr size_t dw_smem(int elem) {
+  return static_cast<size_t>(elem) * 2 * dw_stages(elem) * kDwRows * kDwLd;
+}
 
-__global__ void __launch_bounds__(kDwThreads)
-    phi_pool_bwd_dw_kernel(const bf16* __restrict__ h1s, const bf16* __restrict__ dz2s,
-                           float* __restrict__ parts, int n_points, int width, int tiles,
-                           int rows) {
+// One stage's bf16 products into acc.
+__device__ __forceinline__ void dw_products(float (&acc)[4][4][4], const bf16* a, const bf16* b,
+                                            int lane, int wi, int wj) {
+  const int q = lane / 8, rr = lane % 8;
+#pragma unroll
+  for (int k0 = 0; k0 < kDwRows; k0 += 16) {
+    // a: A[i][p] = a_rows[p][i], matrices (i 0-7 | 8-15) x (p 0-7 | 8-15);
+    // b: B[p][j] = b_rows[p][j], matrices (p 0-7 | 8-15) x (j 0-7 | 8-15)
+    uint32_t af[4][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      ldsm4_t(af[mt], a + (k0 + rr + (q >> 1) * 8) * kDwLd + 64 * wi + 16 * mt + (q & 1) * 8);
+    }
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t bf[4];
+      ldsm4_t(bf, b + (k0 + rr + (q & 1) * 8) * kDwLd + 32 * wj + 16 * np + (q >> 1) * 8);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        mma_bf16(acc[mt][2 * np], af[mt], bf[0], bf[1]);
+        mma_bf16(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// One stage's tf32x3 products into a tile of their own, then added to acc.
+__device__ __forceinline__ void dw_products(float (&acc)[4][4][4], const float* a, const float* b,
+                                            int lane, int wi, int wj) {
+  const int gq = lane / 4, tq = lane % 4;
+  float part[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int k0 = 0; k0 < kDwRows; k0 += kChunk) {
+    // a: A[i][p] = a_rows[p][i], so fragment a {[g][t], [g + 8][t], [g][t + 4],
+    // [g + 8][t + 4]} of m16 tile mt is a[p = k0 + t (+ 4)][i = 64 wi + 16 mt + g (+ 8)];
+    // b {[t][g], [t + 4][g]} of n8 tile nt is b[p = k0 + t (+ 4)][j = 32 wj + 8 nt + g]
+    uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      const float* pa = a + (k0 + tq) * kDwLd + 64 * wi + 16 * mt + gq;
+      split_tf32(pa[0], ah[mt][0], al[mt][0]);
+      split_tf32(pa[8], ah[mt][1], al[mt][1]);
+      split_tf32(pa[4 * kDwLd], ah[mt][2], al[mt][2]);
+      split_tf32(pa[4 * kDwLd + 8], ah[mt][3], al[mt][3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float* pb = b + (k0 + tq) * kDwLd + 32 * wj + 8 * nt + gq;
+      split_tf32(pb[0], bh[nt][0], bl[nt][0]);
+      split_tf32(pb[4 * kDwLd], bh[nt][1], bl[nt][1]);
+    }
+    // three passes over the sixteen tiles: lo·hi, hi·lo, hi·hi
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const uint32_t* bf = pass == 1 ? bl[nt] : bh[nt];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) mma_tf32(part[mt][nt], pass == 0 ? al[mt] : ah[mt], bf[0], bf[1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+    }
+  }
+}
+
+template <typename T, bool GATHER>
+__global__ void __launch_bounds__(kDwThreads, sizeof(T) == 2 ? 2 : 1)
+    phi_pool_bwd_dw_kernel(const T* __restrict__ a_rows, const T* __restrict__ b_rows,
+                           const int* __restrict__ seg, int num_segments,
+                           float* __restrict__ parts, float* __restrict__ b_sums, int n_points,
+                           int m, int n, int tiles_n, int rows) {
+  static_assert(!GATHER || std::is_same<T, float>::value, "the gathered d_W pass is the f32 tail's");
+  constexpr int kStages = dw_stages(sizeof(T));
+  constexpr int kVecT = 16 / sizeof(T);  // elements a 16-byte copy
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* as = reinterpret_cast<bf16*>(smem_raw);
-  bf16* bs = as + kDwStages * kDwRows * kDwLd;
-  const int split = blockIdx.x / (tiles * tiles), tile = blockIdx.x % (tiles * tiles);
-  const int i0 = tile / tiles * kDwTile, j0 = tile % tiles * kDwTile;
+  T* as = reinterpret_cast<T*>(smem_raw);
+  T* bs = as + kStages * kDwRows * kDwLd;
+  const int tiles = (m + kDwTile - 1) / kDwTile * tiles_n;
+  const int split = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int i0 = tile / tiles_n * kDwTile, j0 = tile % tiles_n * kDwTile;
   const int p0 = split * rows, p1 = min(n_points, p0 + rows);
   const int n_steps = p1 > p0 ? (p1 - p0 + kDwRows - 1) / kDwRows : 0;
+  PhaseClock clk;
   const auto load = [&](int step) {
-    const int pb = p0 + step * kDwRows, at = step % kDwStages * kDwRows * kDwLd;
-    for (int i = threadIdx.x; i < kDwRows * kDwTile / 8; i += kDwThreads) {
-      const int r = i / (kDwTile / 8), c = 8 * (i % (kDwTile / 8));
+    const int pb = p0 + step * kDwRows, at = step % kStages * kDwRows * kDwLd;
+    for (int i = threadIdx.x; i < kDwRows * kDwTile / kVecT; i += kDwThreads) {
+      const int r = i / (kDwTile / kVecT), c = kVecT * (i % (kDwTile / kVecT));
       const bool row_in = pb + r < p1;
-      const size_t off = static_cast<size_t>(pb + r) * width;
-      const bool va = row_in && i0 + c < width, vb = row_in && j0 + c < width;
-      cp_async16(as + at + r * kDwLd + c, va ? h1s + off + i0 + c : h1s, va);
-      cp_async16(bs + at + r * kDwLd + c, vb ? dz2s + off + j0 + c : dz2s, vb);
+      const bool va = row_in && i0 + c < m;
+      cp_async16(as + at + r * kDwLd + c, va ? a_rows + static_cast<size_t>(pb + r) * m + i0 + c : a_rows,
+                 va);
+      int b_row = pb + r;
+      bool vb = row_in && j0 + c < n;
+      if constexpr (GATHER) {
+        b_row = row_in ? __ldg(seg + pb + r) : -1;
+        vb = vb && b_row >= 0 && b_row < num_segments;
+      }
+      cp_async16(bs + at + r * kDwLd + c, vb ? b_rows + static_cast<size_t>(b_row) * n + j0 + c : b_rows,
+                 vb);
     }
   };
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int wi = warp / 4, wj = warp % 4;
-  const int m = lane / 8, rr = lane % 8;
+  const bool sums = GATHER && i0 == 0 && threadIdx.x < kDwTile;
+  float b_sum = 0.0f;
   float acc[4][4][4];
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt) {
@@ -971,88 +1129,143 @@ __global__ void __launch_bounds__(kDwThreads)
     }
   }
 #pragma unroll
-  for (int s = 0; s < kDwStages - 1; ++s) {
+  for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_steps) load(s);
     cp_async_commit();
   }
+  clk.mark(16);
   for (int step = 0; step < n_steps; ++step) {
-    cp_async_wait<kDwStages - 2>();
+    cp_async_wait<kStages - 2>();
     __syncthreads();  // the step's rows have landed, and every warp is done with the stage refilled below
-    const bf16* a = as + step % kDwStages * kDwRows * kDwLd;
-    const bf16* b = bs + step % kDwStages * kDwRows * kDwLd;
-#pragma unroll
-    for (int k0 = 0; k0 < kDwRows; k0 += 16) {
-      // a: A[i][p] = h1[p][i], matrices (i 0-7 | 8-15) x (p 0-7 | 8-15);
-      // b: B[p][j] = dz2[p][j], matrices (p 0-7 | 8-15) x (j 0-7 | 8-15)
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        ldsm4_t(af[mt], a + (k0 + rr + (m >> 1) * 8) * kDwLd + 64 * wi + 16 * mt + (m & 1) * 8);
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bf[4];
-        ldsm4_t(bf, b + (k0 + rr + (m & 1) * 8) * kDwLd + 32 * wj + 16 * np + (m >> 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          mma_bf16(acc[mt][2 * np], af[mt], bf[0], bf[1]);
-          mma_bf16(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
-        }
+    clk.mark(17);
+    const T* a = as + step % kStages * kDwRows * kDwLd;
+    const T* b = bs + step % kStages * kDwRows * kDwLd;
+    dw_products(acc, a, b, lane, wi, wj);
+    clk.mark(18);
+    if constexpr (GATHER) {
+      if (sums) {  // the stage's rows, then into the block's sum
+        float stage_sum = 0.0f;
+#pragma unroll 8
+        for (int r = 0; r < kDwRows; ++r) stage_sum += b[r * kDwLd + threadIdx.x];
+        b_sum += stage_sum;
       }
     }
-    if (step + kDwStages - 1 < n_steps) load(step + kDwStages - 1);
+    if (step + kStages - 1 < n_steps) load(step + kStages - 1);
     cp_async_commit();
+    clk.mark(19);
   }
-  float* part = parts + static_cast<size_t>(split) * width * width;
+  float* out = parts + static_cast<size_t>(split) * m * n;
+  const int gq = lane / 4, tq = lane % 4;
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt) {
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
-      const int i = i0 + 64 * wi + 16 * mt + lane / 4, jj = j0 + 32 * wj + 8 * nt + 2 * (lane % 4);
-      if (jj < width) {
-        if (i < width) {
-          *reinterpret_cast<float2*>(part + static_cast<size_t>(i) * width + jj) =
+      const int i = i0 + 64 * wi + 16 * mt + gq, jj = j0 + 32 * wj + 8 * nt + 2 * tq;
+      if (jj < n) {
+        if (i < m) {
+          *reinterpret_cast<float2*>(out + static_cast<size_t>(i) * n + jj) =
               make_float2(acc[mt][nt][0], acc[mt][nt][1]);
         }
-        if (i + 8 < width) {
-          *reinterpret_cast<float2*>(part + static_cast<size_t>(i + 8) * width + jj) =
+        if (i + 8 < m) {
+          *reinterpret_cast<float2*>(out + static_cast<size_t>(i + 8) * n + jj) =
               make_float2(acc[mt][nt][2], acc[mt][nt][3]);
         }
       }
     }
   }
+  if (sums && j0 + static_cast<int>(threadIdx.x) < n) b_sums[static_cast<size_t>(split) * n + j0 + threadIdx.x] = b_sum;
+  clk.mark(20);
+  clk.flush(16);
 }
 
 // -- the wide variant's launches -------------------------------------------------------
 
-// Where the wide variant's scratch lies, in floats from its start (each part
-// on a 256-byte boundary): the row pass's cluster slabs of the small
-// gradients, h1 and dz2 ([P, W] bf16 each), the d_W pass's partials.
+// How a d_W pass of an [m, n] gradient over P points is cut: [128, 128]
+// tiles of d_W, P in `split` chunks of `rows` (a multiple of 32), block
+// (chunk, tile) in chunk-major order.  bf16 (two blocks an SM): enough blocks
+// for every SM twice over; f32 (one block an SM): as many as fill the SMs in
+// one wave.
+struct DwSplit {
+  int tiles_m, tiles_n, split, rows;
+};
+
+inline DwSplit dw_split(int n_points, int m, int n, int max_blocks, bool one_wave) {
+  DwSplit d;
+  d.tiles_m = (m + kDwTile - 1) / kDwTile;
+  d.tiles_n = (n + kDwTile - 1) / kDwTile;
+  const int tiles = d.tiles_m * d.tiles_n;
+  const int by_sms = one_wave ? max_blocks / tiles : (2 * max_blocks + tiles - 1) / tiles;
+  const int by_points = (n_points + 8 * kDwRows - 1) / (8 * kDwRows);
+  d.split = by_sms < by_points ? by_sms : by_points;
+  if (d.split < 1) d.split = 1;
+  d.rows = ((n_points + d.split - 1) / d.split + kDwRows - 1) / kDwRows * kDwRows;
+  return d;
+}
+
+// Where the wide and the tf32x3 variants' scratch for the DeepSets chain
+// lies, in floats from its start (each part on a 256-byte boundary): the row
+// pass's cluster slabs of the small gradients, h1 and dz2 ([P, W] of
+// elem-byte values each: bf16 in the wide variant, f32 in the tf32x3 one),
+// the d_W pass's partials.
 struct WideScratch {
-  int n_small, tiles, split, rows;
+  int n_small;
+  DwSplit dw;
   size_t slabs, h1, dz2, parts, total;
 };
 
 inline size_t up64(size_t n) { return (n + 63) / 64 * 64; }
 
-inline WideScratch wide_scratch(int n_points, const int* dims, int cluster, int max_blocks) {
+inline WideScratch wide_scratch(int n_points, const int* dims, int cluster, int max_blocks,
+                                size_t elem) {
   WideScratch w;
   const int width = dims[1];
   w.n_small = (dims[0] + 2) * width;
-  // enough blocks for every SM twice over, and rows of P in multiples of 32
-  w.tiles = (width + kDwTile - 1) / kDwTile;
-  const int by_sms = (2 * max_blocks + w.tiles * w.tiles - 1) / (w.tiles * w.tiles);
-  const int by_points = (n_points + 8 * kDwRows - 1) / (8 * kDwRows);
-  w.split = by_sms < by_points ? by_sms : by_points;
-  if (w.split < 1) w.split = 1;
-  w.rows = ((n_points + w.split - 1) / w.split + kDwRows - 1) / kDwRows * kDwRows;
-  const size_t half = up64((static_cast<size_t>(n_points) * width + 1) / 2);
+  w.dw = dw_split(n_points, width, width, max_blocks, elem == sizeof(float));
+  const size_t half = up64((static_cast<size_t>(n_points) * width * elem + 3) / 4);
   w.slabs = 0;
   w.h1 = up64(static_cast<size_t>(max_blocks / cluster) * w.n_small);
   w.dz2 = w.h1 + half;
   w.parts = w.dz2 + half;
-  w.total = w.parts + static_cast<size_t>(w.split) * width * width;
+  w.total = w.parts + static_cast<size_t>(w.dw.split) * width * width;
   return w;
+}
+
+// One d_W pass (phi_pool_bwd_dw_kernel<T, GATHER>) on d's grid: the
+// arguments as the kernel takes them.
+template <typename T, bool GATHER>
+cudaError_t launch_dw(const T* a_rows, const T* b_rows, const int* seg, int num_segments,
+                      float* parts, float* b_sums, int n_points, int m, int n, const DwSplit& d,
+                      cudaStream_t stream) {
+  auto kernel = phi_pool_bwd_dw_kernel<T, GATHER>;
+  constexpr size_t smem = dw_smem(sizeof(T));
+  static bool set = false;  // its shared memory attribute
+  if (!set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    set = true;
+  }
+  kernel<<<d.split * d.tiles_m * d.tiles_n, kDwThreads, smem, stream>>>(
+      a_rows, b_rows, seg, num_segments, parts, b_sums, n_points, m, n, d.tiles_n, d.rows);
+  return cudaGetLastError();
+}
+
+// d_params of the DeepSets chain from the wide and the tf32x3 variants'
+// scratch: d_W1 [F, W] and d_b1 from the cluster slabs, d_W2 from the d_W
+// pass's partials, d_b2 from the slabs.
+cudaError_t reduce_deep_sets(const float* base, const WideScratch& w, int n_clusters, int n_features,
+                             int width, float* out, cudaStream_t stream) {
+  const int first = n_features * width + width;
+  cudaError_t err = reduce_slabs(base + w.slabs, n_clusters, w.n_small, first, out, stream);
+  if (err == cudaSuccess) {
+    err = reduce_slabs(base + w.parts, w.dw.split, static_cast<size_t>(width) * width, width * width,
+                       out + first, stream);
+  }
+  if (err == cudaSuccess) {
+    err = reduce_slabs(base + w.slabs + first, n_clusters, w.n_small, width,
+                       out + first + width * width, stream);
+  }
+  return err;
 }
 
 template <int C>
@@ -1062,15 +1275,10 @@ cudaError_t launch_wide(const void* points, const void* seg, const void* g, void
                         const WidePlan& plan, cudaStream_t stream) {
   auto kernel = phi_pool_bwd_wide_kernel<C>;
   static int fit = 0;  // clusters the card holds at once
-  if (fit == 0) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        phi_pool_bwd_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kDwSmem));
-    if (err != cudaSuccess) return err;
-  }
   cudaError_t err = cluster_fit(kernel, C, kWideThreads, &fit);
   if (err != cudaSuccess) return err;
   const int width = chain.dims[1];
-  const WideScratch w = wide_scratch(n_points, chain.dims, C, max_blocks);
+  const WideScratch w = wide_scratch(n_points, chain.dims, C, max_blocks, sizeof(bf16));
   float* base = static_cast<float*>(scratch);
   bf16* h1s = reinterpret_cast<bf16*>(base + w.h1);
   bf16* dz2s = reinterpret_cast<bf16*>(base + w.dz2);
@@ -1088,22 +1296,519 @@ cudaError_t launch_wide(const void* points, const void* seg, const void* g, void
       static_cast<const int*>(seg), static_cast<const float*>(g), static_cast<bf16*>(d_points), h1s,
       dz2s, base + w.slabs, n_points, n_features, num_segments, chain, st, plan.ldh, w.n_small);
   if (err != cudaSuccess) return err;
-  phi_pool_bwd_dw_kernel<<<w.split * w.tiles * w.tiles, kDwThreads, kDwSmem, stream>>>(
-      h1s, dz2s, base + w.parts, n_points, width, w.tiles, w.rows);
-  err = cudaGetLastError();
+  err = launch_dw<bf16, false>(h1s, dz2s, nullptr, 0, base + w.parts, nullptr, n_points, width, width,
+                               w.dw, stream);
   if (err != cudaSuccess) return err;
-  // d_params: d_W1 [F, W] and d_b1 from the cluster slabs, d_W2 from the
-  // partials, d_b2 from the slabs
-  float* out = static_cast<float*>(d_params);
-  const int first = n_features * width + width;
-  err = reduce_slabs(base + w.slabs, n_clusters, w.n_small, first, out, stream);
-  if (err == cudaSuccess) {
-    err = reduce_slabs(base + w.parts, w.split, static_cast<size_t>(width) * width, width * width,
-                       out + first, stream);
+  return reduce_deep_sets(base, w, n_clusters, n_features, width, static_cast<float*>(d_params), stream);
+}
+
+// -- the tf32x3 variant (f32): the row pass --------------------------------------------
+
+// The first layer's dots x·W1 of the warp's n8 tile nt of the block's
+// columns, from the tile's split points (split_a at k 0) and W1's columns
+// w1s[n][k] (f32, zero past F), split here: the same operands, split and
+// order of tf32 products as f32 K1's first layer, so the same bits.
+__device__ __forceinline__ void first_dot(float (&dot)[2][4], const uint32_t (&axh)[2][4],
+                                          const uint32_t (&axl)[2][4], const float* w1s, int nt) {
+  const int lane = threadIdx.x % 32;
+  const float* b = w1s + (8 * nt + lane / 4) * kRingLd + lane % 4;
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b[0], bh0, bl0);
+  split_tf32(b[4], bh1, bl1);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dot[mt][e] = 0.0f;
   }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) mma_tf32(dot[mt], axl[mt], bh0, bh1);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) mma_tf32(dot[mt], axh[mt], bl0, bl1);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) mma_tf32(dot[mt], axh[mt], bh0, bh1);
+}
+
+// The chain [F, W, W] in f32: h1 = act(z1), z1 = x·W1 + b1; z2 = h1·W2 + b2.
+// A cluster of C blocks walks ROWS-row tiles on f32 K1's tf32x3 skeleton
+// (phi_tf32.cuh), block r owning columns [r nb, (r + 1) nb) of both layers.
+// Shared memory: h [ROWS, ldh] (h1, then dz2, then in this block's columns
+// dz1), x [2][ROWS, kTf32XLd] (this tile's points and the next's), w1s
+// [256, kRingLd] (this block's columns of W1 by n, f32, zero past F), pp
+// [ROWS, 8] (the block's share of d_points), the stages, the segment ids
+// [2][ROWS], the mbarriers.  The chunk stream: W2 by k (z2 = h1·W2), then W2
+// by n (d_h1 = dz2·W2ᵀ), each tile; the consumers meet two cluster barriers
+// around h1's epilogue, two around dz2's and, for d_points, one before the
+// shares are summed.
+template <int ROWS, int C>
+__global__ void __launch_bounds__(kTf32Threads, 1)
+    phi_pool_bwd_tf32x3_kernel(const float* __restrict__ points, const int* __restrict__ seg,
+                               const float* __restrict__ g, float* __restrict__ d_points,
+                               float* __restrict__ h1s, float* __restrict__ dz2s,
+                               float* __restrict__ slabs, int n_points, int n_features,
+                               int num_segments, Chain chain, SplitStream st, int ldh, int vec4,
+                               int n_small) {
+  using G = Tf32Warps<ROWS>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* h = reinterpret_cast<float*>(smem_raw);
+  float* xs = h + ROWS * ldh;
+  float* w1s = xs + 2 * ROWS * kTf32XLd;
+  float* pp = w1s + kRingRows * kRingLd;
+  float* stages = pp + ROWS * kMaxFeatures;
+  int* segs = reinterpret_cast<int*>(stages + kStages * kSplit);
+  uint64_t* full = reinterpret_cast<uint64_t*>(segs + 2 * ROWS);
+  uint64_t* empty = full + kStages;
+
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  float* targets[C];
+  const float* pp_all[C];
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    targets[q] = q == 0 ? h : cluster.map_shared_rank(h, (rank + q) % C);
+    pp_all[q] = cluster.map_shared_rank(pp, q);
+  }
+  const int width = chain.dims[1];
+  const int nb = width / C, col0 = rank * nb;
+  const int n_tiles = (n_points + ROWS - 1) / ROWS;
+  const int n_clusters = gridDim.x / C;
+  const int first_tile = blockIdx.x / C;
+  const int n_my_tiles = first_tile < n_tiles ? (n_tiles - 1 - first_tile) / n_clusters + 1 : 0;
+  const float* __restrict__ W1 = static_cast<const float*>(chain.w[0]);
+  const float* __restrict__ b1 = static_cast<const float*>(chain.b[0]);
+  const float* __restrict__ b2 = static_cast<const float*>(chain.b[1]);
+  const bool residual = chain.kind[1] == kResidual;
+
+  for (int i = threadIdx.x; i < 2 * ROWS * kTf32XLd; i += kTf32Threads) xs[i] = 0.0f;
+  for (int i = threadIdx.x; i < kRingRows * kRingLd; i += kTf32Threads) {
+    const int n = i / kRingLd, k = i % kRingLd;
+    w1s[i] = n < nb && k < n_features ? W1[static_cast<size_t>(k) * width + col0 + n] : 0.0f;
+  }
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < kStages; ++q) {
+      mbar_init(full + q, kProducers);
+      mbar_init(empty + q, kConsumerWarps);
+    }
+  }
+  PhaseClock clk;
+  cluster_sync();  // x and w1s are set, and every block of the cluster has started
+  if (threadIdx.x >= kConsumers) {
+    tf32_produce<C, kByBoth>(st, stages, full, empty, rank, n_my_tiles);
+    cluster_sync();
+    return;
+  }
+  clk.mark(0);
+
+  // the consumers; thread j < nb carries column col0 + j of the small
+  // gradients from tile to tile
+  const int j = threadIdx.x;
+  float dw1[kMaxFeatures], db1 = 0.0f, db2 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kMaxFeatures; ++k) dw1[k] = 0.0f;
+  if (n_my_tiles > 0) {
+    fetch_tile<ROWS>(points, seg, first_tile, n_points, n_features, xs, kTf32XLd, segs, vec4);
+  }
+  const int n2 = split_chunks(st.phase[0]);
+  int chunk = 0;
+  for (int tile = first_tile, parity = 0; tile < n_tiles; tile += n_clusters, parity ^= 1) {
+    const int row0 = tile * ROWS;
+    const int n_rows = min(ROWS, n_points - row0);
+    const float* x = xs + parity * ROWS * kTf32XLd;
+    const int* tile_segs = segs + parity * ROWS;
+    // the segment id of a tile row; rows past the end get none
+    const auto sid_of = [&](int row) { return row < n_rows ? tile_segs[row] : -1; };
+    cp_async_wait_all();
+    bar_sync(kConsumerBar, kConsumers);  // the tile's points and ids are in x, and the other buffers are free
+    if (tile + n_clusters < n_tiles) {
+      fetch_tile<ROWS>(points, seg, tile + n_clusters, n_points, n_features,
+                       xs + (parity ^ 1) * ROWS * kTf32XLd, kTf32XLd, segs + (parity ^ 1) * ROWS,
+                       vec4);
+    }
+    clk.mark(1);
+
+    cluster_sync();  // no block reads its h any more
+    clk.mark(2);
+    // h1 = act(x·W1 + b1), this block's columns, into every block's h and h1s
+    {
+      uint32_t axh[2][4], axl[2][4];
+      split_a<ROWS>(axh, axl, x, kTf32XLd, 0);
+      with_act(chain.act, [&](auto a) {
+#pragma unroll
+        for (int i = 0; i < G::kNt; ++i) {
+          const int nt = G::wn() + G::kWarpsN * i;
+          if (8 * nt < nb) {
+            float dot[2][4];
+            first_dot(dot, axh, axl, w1s, nt);
+            const int col = col0 + G::col(i);
+            const float bias0 = __ldg(b1 + col), bias1 = __ldg(b1 + col + 1);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const int row = G::row(mt, half);
+                const float2 v = make_float2(
+                    layer_out<float, kSigmoidApprox>(dot[mt][2 * half], bias0, 0.0f, kPlain,
+                                                     decltype(a)::value, nullptr),
+                    layer_out<float, kSigmoidApprox>(dot[mt][2 * half + 1], bias1, 0.0f, kPlain,
+                                                     decltype(a)::value, nullptr));
+#pragma unroll
+                for (int q = 0; q < C; ++q) *reinterpret_cast<float2*>(targets[q] + row * ldh + col) = v;
+                if (row < n_rows) {
+                  *reinterpret_cast<float2*>(h1s + static_cast<size_t>(row0 + row) * width + col) = v;
+                }
+              }
+            }
+          }
+        }
+      });
+    }
+    clk.mark(3);
+    cluster_sync();  // h1 is whole in every block
+    clk.mark(4);
+
+    // z2's dots for this block's columns: h1·W2
+    float acc[2][G::kNt][4];
+    stream_product<ROWS>(acc, h, ldh, n2, stages, full, empty, chunk, clk, 5, 6);
+    bar_sync(kConsumerBar, kConsumers);
+    clk.mark(7);
+    cluster_sync();  // no block reads its h any more
+    clk.mark(8);
+    // dz2 = g[seg] ⊙ act'(z2), z2 = dot + b2 (zero for padding ids >= S and
+    // rows past the end), into every block's h and dz2s
+    with_act(chain.act, [&](auto a) {
+#pragma unroll
+      for (int i = 0; i < G::kNt; ++i) {
+        if (8 * (G::wn() + G::kWarpsN * i) < nb) {
+          const int col = col0 + G::col(i);
+          const float bias0 = __ldg(b2 + col), bias1 = __ldg(b2 + col + 1);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int row = G::row(mt, half), sid = sid_of(row);
+              float2 d = make_float2(0.0f, 0.0f);
+              if (sid >= 0 && sid < num_segments) {
+                d = __ldg(reinterpret_cast<const float2*>(g + static_cast<size_t>(sid) * width + col));
+              }
+              const float z0 = acc[mt][i][2 * half] + bias0, z1 = acc[mt][i][2 * half + 1] + bias1;
+              const float2 v =
+                  make_float2(d.x * act_grad<float, kSigmoidApprox>(z0, decltype(a)::value),
+                              d.y * act_grad<float, kSigmoidApprox>(z1, decltype(a)::value));
+#pragma unroll
+              for (int q = 0; q < C; ++q) *reinterpret_cast<float2*>(targets[q] + row * ldh + col) = v;
+              if (row < n_rows) {
+                *reinterpret_cast<float2*>(dz2s + static_cast<size_t>(row0 + row) * width + col) = v;
+              }
+            }
+          }
+        }
+      }
+    });
+    clk.mark(9);
+    cluster_sync();  // dz2 is whole in every block
+    clk.mark(10);
+
+    // d_h1's dots for this block's columns: dz2·W2ᵀ, W2's rows by n
+    stream_product<ROWS>(acc, h, ldh, n2, stages, full, empty, chunk, clk, 5, 6);
+    bar_sync(kConsumerBar, kConsumers);  // h is read for no product any more
+    clk.mark(7);
+    // d_b2 += Σ dz2 over the tile's rows, in order (the tile's sum first, as
+    // with every small gradient: sums over a cluster's thousands of rows
+    // otherwise drift ~1e-5 from f32 reductions at P = 65,536)
+    if (j < nb) {
+      float sum = 0.0f;
+      for (int r = 0; r < ROWS; ++r) sum += h[r * ldh + col0 + j];
+      db2 += sum;
+    }
+    bar_sync(kConsumerBar, kConsumers);
+    clk.mark(11);
+    // dz1 = (d_h1 (+ d_out for a residual layer)) ⊙ act'(z1), z1 from the
+    // same product as h1's, into this block's columns of h
+    {
+      uint32_t axh[2][4], axl[2][4];
+      split_a<ROWS>(axh, axl, x, kTf32XLd, 0);
+      with_act(chain.act, [&](auto a) {
+#pragma unroll
+        for (int i = 0; i < G::kNt; ++i) {
+          const int nt = G::wn() + G::kWarpsN * i;
+          if (8 * nt < nb) {
+            float dot[2][4];
+            first_dot(dot, axh, axl, w1s, nt);
+            const int col = col0 + G::col(i);
+            const float bias0 = __ldg(b1 + col), bias1 = __ldg(b1 + col + 1);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const int row = G::row(mt, half);
+                float v0 = acc[mt][i][2 * half], v1 = acc[mt][i][2 * half + 1];
+                if (residual) {
+                  const int sid = sid_of(row);
+                  if (sid >= 0 && sid < num_segments) {
+                    const float2 d =
+                        __ldg(reinterpret_cast<const float2*>(g + static_cast<size_t>(sid) * width + col));
+                    v0 = d.x + v0;
+                    v1 = d.y + v1;
+                  }
+                }
+                const float z0 = dot[mt][2 * half] + bias0, z1 = dot[mt][2 * half + 1] + bias1;
+                *reinterpret_cast<float2*>(h + row * ldh + col) =
+                    make_float2(v0 * act_grad<float, kSigmoidApprox>(z0, decltype(a)::value),
+                                v1 * act_grad<float, kSigmoidApprox>(z1, decltype(a)::value));
+              }
+            }
+          }
+        }
+      });
+    }
+    bar_sync(kConsumerBar, kConsumers);  // dz1 is whole in this block's columns
+    clk.mark(12);
+    // d_W1 += xᵀ dz1, d_b1 += Σ dz1, over the tile's rows in order
+    if (j < nb) {
+      float tile_dw1[kMaxFeatures], tile_db1 = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kMaxFeatures; ++k) tile_dw1[k] = 0.0f;
+      for (int r = 0; r < ROWS; ++r) {
+        const float dz = h[r * ldh + col0 + j];
+        const float4 xa = *reinterpret_cast<const float4*>(x + r * kTf32XLd);
+        const float4 xb = *reinterpret_cast<const float4*>(x + r * kTf32XLd + 4);
+        const float xv[kMaxFeatures] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+        tile_db1 += dz;
+#pragma unroll
+        for (int k = 0; k < kMaxFeatures; ++k) tile_dw1[k] = fmaf(xv[k], dz, tile_dw1[k]);
+      }
+      db1 += tile_db1;
+#pragma unroll
+      for (int k = 0; k < kMaxFeatures; ++k) dw1[k] += tile_dw1[k];
+    }
+    if (d_points != nullptr) {
+      // d_points = dz1·W1ᵀ: this block's share over its columns, then the
+      // rows of ROWS / C per block summed over the shares in rank order
+      for (int i = threadIdx.x; i < ROWS * kMaxFeatures; i += kConsumers) {
+        const int r = i / kMaxFeatures, k = i % kMaxFeatures;
+        float sum = 0.0f;
+        for (int n = 0; n < nb; ++n) sum = fmaf(h[r * ldh + col0 + n], w1s[n * kRingLd + k], sum);
+        pp[i] = sum;
+      }
+      cluster_sync();  // every block's share is whole
+      constexpr int kOwn = ROWS / C;
+      if (threadIdx.x < kOwn * kMaxFeatures) {
+        const int r = rank * kOwn + threadIdx.x / kMaxFeatures, k = threadIdx.x % kMaxFeatures;
+        if (r < n_rows && k < n_features) {
+          float sum = pp_all[0][r * kMaxFeatures + k];
+#pragma unroll
+          for (int q = 1; q < C; ++q) sum += pp_all[q][r * kMaxFeatures + k];
+          d_points[static_cast<size_t>(row0 + r) * n_features + k] = sum;
+        }
+      }
+    }
+    clk.mark(13);
+  }
+
+  // This block's columns of the small gradients leave the chip once, into
+  // its cluster's slab: d_W1 [F, W], d_b1 [W], d_b2 [W].
+  if (j < nb) {
+    float* slab = slabs + static_cast<size_t>(blockIdx.x / C) * n_small;
+#pragma unroll
+    for (int k = 0; k < kMaxFeatures; ++k) {
+      if (k < n_features) slab[k * width + col0 + j] = dw1[k];
+    }
+    slab[n_features * width + col0 + j] = db1;
+    slab[(n_features + 1) * width + col0 + j] = db2;
+  }
+  cluster_sync();  // no block leaves while a neighbour may still read or write it
+  clk.mark(14);
+  clk.flush();
+}
+
+// -- the tf32x3 variant: the tail's row product -----------------------------------------
+
+// d_points = dz·Wᵀ for the bare layer [in, out], dz = g[seg] (zero for ids
+// outside [0, S) and rows past the end).  Block b takes columns [r nb, (r +
+// 1) nb) of d_points (r = b % C, nb = in / C) for the tiles b / C, b / C +
+// gridDim.x / C, ...: it gathers each tile's rows of g into h by cp.async
+// (the next tile's behind this one's epilogue) and multiplies them by W's
+// rows, staged by n.  No cluster: each block gathers its own tile.
+template <int ROWS, int C>
+__global__ void __launch_bounds__(kTf32Threads, 1)
+    phi_pool_bwd_rows_tf32x3_kernel(const int* __restrict__ seg, const float* __restrict__ g,
+                                    float* __restrict__ d_points, int n_points,
+                                    int num_segments, SplitStream st, int ldh) {
+  using G = Tf32Warps<ROWS>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* h = reinterpret_cast<float*>(smem_raw);
+  float* stages = h + ROWS * ldh;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + kStages * kSplit);
+  uint64_t* empty = full + kStages;
+
+  const int width = st.phase[0].k_dim, in_dim = st.phase[0].n_cols;
+  const int rank = blockIdx.x % C, nb = in_dim / C, col0 = rank * nb;
+  const int n_tiles = (n_points + ROWS - 1) / ROWS;
+  const int n_groups = gridDim.x / C;
+  const int first_tile = blockIdx.x / C;
+  const int n_my_tiles = first_tile < n_tiles ? (n_tiles - 1 - first_tile) / n_groups + 1 : 0;
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < kStages; ++q) {
+      mbar_init(full + q, kProducers);
+      mbar_init(empty + q, kConsumerWarps);
+    }
+  }
+  PhaseClock clk;
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {
+    tf32_produce<C, kByN>(st, stages, full, empty, rank, n_my_tiles);
+    return;
+  }
+  const auto gather = [&](int tile) {
+    const int per_row = width / 4;
+    for (int i = threadIdx.x; i < ROWS * per_row; i += kConsumers) {
+      const int r = i / per_row, k = 4 * (i - r * per_row), p = tile * ROWS + r;
+      const int sid = p < n_points ? __ldg(seg + p) : -1;
+      const bool valid = sid >= 0 && sid < num_segments;
+      cp_async16(h + r * ldh + k, valid ? g + static_cast<size_t>(sid) * width + k : g, valid);
+    }
+    cp_async_commit();
+  };
+  if (n_my_tiles > 0) gather(first_tile);
+  clk.mark(0);
+  int chunk = 0;
+  for (int tile = first_tile; tile < n_tiles; tile += n_groups) {
+    cp_async_wait_all();
+    bar_sync(kConsumerBar, kConsumers);  // the tile's rows of g are in h
+    clk.mark(1);
+    float acc[2][G::kNt][4];
+    stream_product<ROWS>(acc, h, ldh, split_chunks(st.phase[0]), stages, full, empty, chunk, clk,
+                         2, 3);
+    bar_sync(kConsumerBar, kConsumers);  // no warp reads h any more
+    if (tile + n_groups < n_tiles) gather(tile + n_groups);
+    clk.mark(4);
+#pragma unroll
+    for (int i = 0; i < G::kNt; ++i) {
+      if (8 * (G::wn() + G::kWarpsN * i) < nb) {
+        const int col = col0 + G::col(i);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int p = tile * ROWS + G::row(mt, half);
+            if (p < n_points) {
+              *reinterpret_cast<float2*>(d_points + static_cast<size_t>(p) * in_dim + col) =
+                  make_float2(acc[mt][i][2 * half], acc[mt][i][2 * half + 1]);
+            }
+          }
+        }
+      }
+    }
+    clk.mark(5);
+  }
+  clk.flush();
+}
+
+// -- the tf32x3 variant's launches -------------------------------------------------------
+
+template <int ROWS, int C>
+cudaError_t launch_tf32x3(const void* points, const void* seg, const void* g, void* d_points,
+                          void* d_params, void* scratch, int max_blocks, int n_points,
+                          int n_features, int num_segments, const Chain& chain,
+                          const BwdTf32Plan& plan, cudaStream_t stream) {
+  auto kernel = phi_pool_bwd_tf32x3_kernel<ROWS, C>;
+  static int fit = 0;  // clusters the card holds at once
+  cudaError_t err = cluster_fit(kernel, C, kTf32Threads, &fit);
+  if (err != cudaSuccess) return err;
+  const int width = chain.dims[1];
+  const WideScratch w = wide_scratch(n_points, chain.dims, C, max_blocks, sizeof(float));
+  float* base = static_cast<float*>(scratch);
+  float* h1s = base + w.h1;
+  float* dz2s = base + w.dz2;
+  SplitStream st = {};
+  add_sync(st, 2);  // around h1's epilogue
+  add_phase(st, chain.w[1], width, width, width, 0);
+  add_sync(st, 2);  // around dz2's epilogue
+  add_phase(st, chain.w[1], width, width, width, 1);
+  add_sync(st, d_points != nullptr ? 1 : 0);  // before the shares of d_points are summed
+  const int n_tiles = (n_points + ROWS - 1) / ROWS;
+  int n_clusters = n_tiles < fit ? n_tiles : fit;
+  if (n_clusters > max_blocks / C) n_clusters = max_blocks / C;  // one slab per cluster
+  const int vec4 = n_features % 4 == 0 && reinterpret_cast<uintptr_t>(points) % 16 == 0;
+  err = launch_cluster_grid(kernel, C, n_clusters, kTf32Threads, plan.smem, stream,
+                            static_cast<const float*>(points), static_cast<const int*>(seg),
+                            static_cast<const float*>(g), static_cast<float*>(d_points), h1s, dz2s,
+                            base + w.slabs, n_points, n_features, num_segments, chain, st, plan.ldh,
+                            vec4, w.n_small);
+  if (err != cudaSuccess) return err;
+  err = launch_dw<float, false>(h1s, dz2s, nullptr, 0, base + w.parts, nullptr, n_points, width, width,
+                                w.dw, stream);
+  if (err != cudaSuccess) return err;
+  return reduce_deep_sets(base, w, n_clusters, n_features, width, static_cast<float*>(d_params), stream);
+}
+
+// Where the tail's scratch lies, in floats: the d_W pass's partials of d_W
+// [split][in, out], then of d_b [split][out].
+struct TailScratch {
+  DwSplit dw;
+  size_t b_sums, total;
+};
+
+inline TailScratch tail_scratch(int n_points, const int* dims, int max_blocks) {
+  TailScratch t;
+  t.dw = dw_split(n_points, dims[0], dims[1], max_blocks, true);
+  t.b_sums = up64(static_cast<size_t>(t.dw.split) * dims[0] * dims[1]);
+  t.total = t.b_sums + static_cast<size_t>(t.dw.split) * dims[1];
+  return t;
+}
+
+template <int ROWS, int C>
+cudaError_t launch_tail_rows(const void* seg, const void* g, void* d_points, int n_points,
+                             int num_segments, const Chain& chain, const BwdTf32Plan& plan,
+                             cudaStream_t stream) {
+  auto kernel = phi_pool_bwd_rows_tf32x3_kernel<ROWS, C>;
+  static int fit = 0;  // blocks the card holds at once
+  const cudaError_t err = cluster_fit(kernel, 1, kTf32Threads, &fit);
+  if (err != cudaSuccess) return err;
+  SplitStream st = {};
+  add_phase(st, chain.w[0], chain.dims[1], chain.dims[1], chain.dims[0], 1);
+  const int n_tiles = (n_points + ROWS - 1) / ROWS;
+  const int groups = n_tiles < fit / C ? n_tiles : fit / C;
+  kernel<<<groups * C, kTf32Threads, plan.smem, stream>>>(
+      static_cast<const int*>(seg), static_cast<const float*>(g), static_cast<float*>(d_points),
+      n_points, num_segments, st, plan.ldh);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tail_tf32x3(const void* points, const void* seg, const void* g, void* d_points,
+                               void* d_params, void* scratch, int max_blocks, int n_points,
+                               int num_segments, const Chain& chain, const BwdTf32Plan& plan,
+                               cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  if (d_points != nullptr) {
+    const auto rows = [&](auto r) {
+      constexpr int R = decltype(r)::value;
+      switch (plan.cluster) {
+        case 1:
+          return launch_tail_rows<R, 1>(seg, g, d_points, n_points, num_segments, chain, plan, stream);
+        case 2:
+          return launch_tail_rows<R, 2>(seg, g, d_points, n_points, num_segments, chain, plan, stream);
+        default:
+          return launch_tail_rows<R, 4>(seg, g, d_points, n_points, num_segments, chain, plan, stream);
+      }
+    };
+    err = plan.rows == 64 ? rows(std::integral_constant<int, 64>{})
+                          : rows(std::integral_constant<int, 32>{});
+    if (err != cudaSuccess) return err;
+  }
+  const int in_dim = chain.dims[0], out_dim = chain.dims[1];
+  const TailScratch t = tail_scratch(n_points, chain.dims, max_blocks);
+  float* base = static_cast<float*>(scratch);
+  const DwSplit& d = t.dw;
+  err = launch_dw<float, true>(static_cast<const float*>(points), static_cast<const float*>(g),
+                               static_cast<const int*>(seg), num_segments, base, base + t.b_sums, n_points,
+                               in_dim, out_dim, d, stream);
+  if (err != cudaSuccess) return err;
+  // d_params: d_W [in, out] from the partials, then d_b [out]
+  float* out = static_cast<float*>(d_params);
+  err = reduce_slabs(base, d.split, static_cast<size_t>(in_dim) * out_dim, in_dim * out_dim, out,
+                     stream);
   if (err == cudaSuccess) {
-    err = reduce_slabs(base + w.slabs + first, n_clusters, w.n_small, width,
-                       out + first + width * width, stream);
+    err = reduce_slabs(base + t.b_sums, d.split, out_dim, out_dim, out + in_dim * out_dim, stream);
   }
   return err;
 }
@@ -1158,31 +1863,15 @@ cudaError_t launch_rows(const void* points, const void* seg, const void* g, void
   return too_wide();
 }
 
-}  // namespace
-
-extern "C" {
-
-// points [n_points, n_features] (f32, or bf16 when is_bf16), seg [n_points]
-// int32, g [num_segments, dims[n_layers]] f32.  Layer l has weight
-// weights[l] [dims[l], dims[l + 1]] and bias biases[l], both of the points'
-// type, and kind kinds[l] (0 plain, 1 residual, 2 bare linear).  weights_t[l]
-// is the transpose [dims[l + 1], dims[l]] of weights[l]: only the general
-// variant reads it, and a chain that pcc_phi_pool_variant gives another
-// variant may pass null.  Writes d_params (f32; for each layer d_W
-// [dims[l], dims[l + 1]] then d_b [dims[l + 1]]) and, unless d_points is
-// null, d_points [n_points, n_features] in the points' type.  slabs is f32
-// scratch of pcc_phi_pool_bwd_scratch's length for the same chain, P and
-// max_blocks (the card's SMs): one slab per block of the general variant's
-// grid or per cluster of the sliced one's, at most max_blocks of either; the
-// wide variant's parts.  Returns the cudaError_t of the launches (0 on
-// success), or kErrTooWide when the general variant's buffers do not fit 8
-// rows; does not synchronise.
-int pcc_phi_pool_bwd(const void* points, const void* seg, const void* g, void* d_points,
-                     void* d_params, void* slabs, int max_blocks, int n_points,
-                     int n_features, int num_segments, int n_layers, const int* dims,
-                     const int* kinds, const void* const* weights,
-                     const void* const* weights_t, const void* const* biases, int act,
-                     int is_bf16, void* stream) {
+// K2's launch: the sliced variant, else the tf32x3 variant (f32) or the
+// wide one (bf16) where its plan takes the chain and `redesigned` is set,
+// else the general one.
+int phi_pool_bwd_launch(const void* points, const void* seg, const void* g, void* d_points,
+                        void* d_params, void* slabs, int max_blocks, int n_points,
+                        int n_features, int num_segments, int n_layers, const int* dims,
+                        const int* kinds, const void* const* weights,
+                        const void* const* weights_t, const void* const* biases, int act,
+                        int is_bf16, void* stream, bool redesigned) {
   if (n_points < 1 || max_blocks < 1 || n_layers < 1 || n_layers > kMaxLayers ||
       dims[0] != n_features) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1199,8 +1888,22 @@ int pcc_phi_pool_bwd(const void* points, const void* seg, const void* g, void* d
                                        n_points, n_features, num_segments, chain, n_param, s);
     return static_cast<int>(err);
   }
+  const BwdTf32Plan tf = bwd_tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0);
+  if (redesigned && tf.form == 1) {
+    const cudaError_t err =
+        tf.cluster == 2
+            ? launch_tf32x3<64, 2>(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
+                                   n_features, num_segments, chain, tf, s)
+            : launch_tf32x3<32, 4>(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
+                                   n_features, num_segments, chain, tf, s);
+    return static_cast<int>(err);
+  }
+  if (redesigned && tf.form == 2) {
+    return static_cast<int>(launch_tail_tf32x3(points, seg, g, d_points, d_params, slabs, max_blocks,
+                                               n_points, num_segments, chain, tf, s));
+  }
   const WidePlan wide = wide_plan(n_layers, dims, kinds, is_bf16 != 0, true);
-  if (wide.cluster > 0) {
+  if (redesigned && wide.cluster > 0) {
     const cudaError_t err =
         wide.cluster == 2
             ? launch_wide<2>(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
@@ -1245,6 +1948,51 @@ int pcc_phi_pool_bwd(const void* points, const void* seg, const void* g, void* d
   return static_cast<int>(err);
 }
 
+}  // namespace
+
+extern "C" {
+
+// points [n_points, n_features] (f32, or bf16 when is_bf16), seg [n_points]
+// int32, g [num_segments, dims[n_layers]] f32.  Layer l has weight
+// weights[l] [dims[l], dims[l + 1]] and bias biases[l], both of the points'
+// type, and kind kinds[l] (0 plain, 1 residual, 2 bare linear).  weights_t[l]
+// is the transpose [dims[l + 1], dims[l]] of weights[l]: only the general
+// variant reads it, and a chain that pcc_phi_pool_variant gives another
+// variant may pass null.  Writes d_params (f32; for each layer d_W
+// [dims[l], dims[l + 1]] then d_b [dims[l + 1]]) and, unless d_points is
+// null, d_points [n_points, n_features] in the points' type.  slabs is f32
+// scratch of pcc_phi_pool_bwd_scratch's length for the same chain, P and
+// max_blocks (the card's SMs): one slab per block of the general variant's
+// grid or per cluster of the sliced one's, at most max_blocks of either; the
+// wide variant's parts.  Returns the cudaError_t of the launches (0 on
+// success), or kErrTooWide when the general variant's buffers do not fit 8
+// rows; does not synchronise.
+int pcc_phi_pool_bwd(const void* points, const void* seg, const void* g, void* d_points,
+                     void* d_params, void* slabs, int max_blocks, int n_points,
+                     int n_features, int num_segments, int n_layers, const int* dims,
+                     const int* kinds, const void* const* weights,
+                     const void* const* weights_t, const void* const* biases, int act,
+                     int is_bf16, void* stream) {
+  return phi_pool_bwd_launch(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
+                             n_features, num_segments, n_layers, dims, kinds, weights, weights_t,
+                             biases, act, is_bf16, stream, true);
+}
+
+// pcc_phi_pool_bwd without the tf32x3 and the wide variants: the chains they
+// take go to the general one, which reads weights_t and takes max_blocks
+// slabs of the whole gradient as its scratch.  For timing them side by side;
+// the port's path never calls it.
+int pcc_phi_pool_bwd_general(const void* points, const void* seg, const void* g, void* d_points,
+                             void* d_params, void* slabs, int max_blocks, int n_points,
+                             int n_features, int num_segments, int n_layers, const int* dims,
+                             const int* kinds, const void* const* weights,
+                             const void* const* weights_t, const void* const* biases, int act,
+                             int is_bf16, void* stream) {
+  return phi_pool_bwd_launch(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
+                             n_features, num_segments, n_layers, dims, kinds, weights, weights_t,
+                             biases, act, is_bf16, stream, false);
+}
+
 // *out = the f32 elements of scratch (`slabs`) that pcc_phi_pool_bwd takes
 // for a chain: max_blocks slabs of the whole gradient (the general and the
 // sliced variants), or the wide variant's cluster slabs, its [P, W] bf16 h1
@@ -1255,9 +2003,20 @@ int pcc_phi_pool_bwd_scratch(int n_points, int n_layers, const int* dims, const 
   if (n_points < 1 || max_blocks < 1 || n_layers < 1 || n_layers > kMaxLayers) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const BwdTf32Plan tf = bwd_tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0);
+  if (tf.form == 1) {
+    *out = static_cast<long long>(
+        wide_scratch(n_points, dims, tf.cluster, max_blocks, sizeof(float)).total);
+    return 0;
+  }
+  if (tf.form == 2) {
+    *out = static_cast<long long>(tail_scratch(n_points, dims, max_blocks).total);
+    return 0;
+  }
   const WidePlan wide = wide_plan(n_layers, dims, kinds, is_bf16 != 0, true);
   if (wide.cluster > 0) {
-    *out = static_cast<long long>(wide_scratch(n_points, dims, wide.cluster, max_blocks).total);
+    *out = static_cast<long long>(
+        wide_scratch(n_points, dims, wide.cluster, max_blocks, sizeof(bf16)).total);
     return 0;
   }
   long long n_param = 0;

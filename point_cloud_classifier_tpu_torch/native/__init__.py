@@ -112,7 +112,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     # the same launch without the tf32x3 variant (timing only)
     lib.pcc_phi_pool_general.argtypes = phi_pool_args
     lib.pcc_phi_pool_general.restype = i32
-    lib.pcc_phi_pool_bwd.argtypes = [
+    phi_pool_bwd_args = [
         vp, vp, vp, vp,  # points, seg, g, d_points (null: not computed)
         vp, vp, i32,  # d_params, slabs, max_blocks
         i32, i32, i32, i32,  # n_points, n_features, num_segments, n_layers
@@ -120,7 +120,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(vp),  # w, wᵀ (or null), b (host)
         i32, i32, vp,  # act, is_bf16, stream
     ]
+    lib.pcc_phi_pool_bwd.argtypes = phi_pool_bwd_args
     lib.pcc_phi_pool_bwd.restype = i32
+    # the same launch without the tf32x3 and the wide variants (timing only)
+    lib.pcc_phi_pool_bwd_general.argtypes = phi_pool_bwd_args
+    lib.pcc_phi_pool_bwd_general.restype = i32
     # the f32 elements of K2's scratch for a chain, P and the card's SMs
     lib.pcc_phi_pool_bwd_scratch.argtypes = [
         i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32),  # n_points, n_layers, dims, kinds

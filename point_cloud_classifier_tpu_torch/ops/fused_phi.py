@@ -9,9 +9,10 @@ Counterpart of ``point_cloud_classifier_tpu/ops/fused_phi.py``:
 - :func:`phi_pool_bwd_plain` — the backward of :func:`phi_pool_plain` in
   closed form, layer by layer, as K2 computes it (the counterpart of
   ``phi_pool_bwd_pallas``'s contract).
-- :func:`phi_pool_tf32x3_plain` — :func:`phi_pool_plain` with every product
-  taken as f32 K1's tf32x3 variant takes it (each operand split into two
-  TF32 values, three partial products summed in f32); tests only.
+- :func:`phi_pool_tf32x3_plain`, :func:`phi_pool_bwd_tf32x3_plain` —
+  :func:`phi_pool_plain` and :func:`phi_pool_bwd_plain` with every product
+  taken as f32 K1's and K2's tf32x3 variants take it (each operand split
+  into two TF32 values, three partial products summed in f32); tests only.
 - :func:`phi_pool` — the differentiable fused op (``_PhiPoolFn``).  A CPU
   tensor takes the plain forward and backward; a CUDA tensor launches the
   hand-written Hopper kernels ``csrc/phi_pool.cu`` (K1, which replaces
@@ -21,9 +22,13 @@ Counterpart of ``point_cloud_classifier_tpu/ops/fused_phi.py``:
   in C by the chain's shape, the element type and the kernel alone: the
   sliced one (a cluster of four blocks a tile, ``d_W`` in registers, tensor
   cores in bf16) for the DeepSets chain of a narrow first layer and one 256
-  -> 256 layer, in K2 and in bf16 K1; in f32 K1 the tf32x3 one (products on
-  the tensor cores, each operand split into two TF32 values) for chains of
-  widths up to 1024 in multiples of 8; in bf16 the wide one (clusters of
+  -> 256 layer, in K2 and in bf16 K1; in f32 the tf32x3 one (products on
+  the tensor cores, each operand split into two TF32 values): K1 for chains
+  of widths up to 1024 in multiples of 8, K2 for the DeepSets chain at
+  320–1024 in multiples of 64 (a row pass writing ``h1`` and ``dz`` to a
+  ``[P, W]`` f32 scratch, then a ``d_W`` pass) and the tail's one bare
+  layer of 256–1024 a side (a ``d_W`` pass over the points and the gathered
+  cotangent, a row product for ``d_points``); in bf16 the wide one (clusters of
   two or four blocks a 64-row tile, bf16 products on the tensor cores; K2
   writes ``dz`` and the first layer's values to a ``[P, W]`` bf16 scratch
   and forms ``d_W`` in a second kernel) for chains wider than 256 up to
@@ -263,6 +268,56 @@ def phi_pool_bwd_plain(
     return d_out, grads
 
 
+def phi_pool_bwd_tf32x3_plain(
+    points,
+    seg,
+    g,
+    spec: Spec,
+    params: Sequence,
+    activation: str,
+    num_segments: int,
+    with_points: bool = True,
+    passes: int = 3,
+):
+    """What f32 K2's tf32x3 variant computes, in plain PyTorch:
+    :func:`phi_pool_bwd_plain`'s closed form with every product (the
+    recompute, ``d_w = h_inᵀ dz`` and ``dz Wᵀ``) taken by
+    :func:`tf32x3_matmul` (``passes=1``: one-pass TF32).  It models the variant's products, not its order of sums
+    nor its approximate sigmoid (~1e-7); the variant forms the first layer's
+    ``d_w``, the biases' sums and ``d_points`` of the DeepSets chain by f32
+    multiply-adds (~1e-6 apart from this).  Tests and ``chip_smoke.py`` hold
+    it against the kernel and the JAX package; the port's path never calls
+    it."""
+    if points.dtype != torch.float32 or any(has_ln for _, has_ln in spec):
+        raise ValueError("the tf32x3 products are f32 K2's: f32 points, no layer norm")
+    mm = functools.partial(tf32x3_matmul, passes=passes)
+    act = resolve_activation(activation)
+    kinds = [kind for kind, _ in spec] + ["linear"] * (len(params) - len(spec))
+    h, inputs, pre = points, [], []
+    for kind, layer in zip(kinds, params):
+        z = mm(h, layer[0].float()) + layer[1].float()
+        inputs.append(h)
+        pre.append(z)
+        if kind == "linear":
+            h = z
+        else:
+            h = h + act(z) if kind == "residual" else act(z)
+
+    seg = seg.long()
+    valid = (seg >= 0) & (seg < num_segments)
+    d_out = g.float()[seg.clamp(0, num_segments - 1)]
+    d_out = torch.where(valid[:, None], d_out, torch.zeros_like(d_out))
+    grads = []
+    for layer_idx in reversed(range(len(params))):
+        kind, z = kinds[layer_idx], pre[layer_idx]
+        dz = d_out if kind == "linear" else d_out * _act_grad(z, activation)
+        grads[:0] = [mm(inputs[layer_idx].t(), dz), dz.sum(0)]
+        if layer_idx == 0 and not with_points:
+            return None, grads
+        d_in = mm(dz, params[layer_idx][0].float().t())
+        d_out = d_in + d_out if kind == "residual" else d_in
+    return d_out, grads
+
 # -- K1 and K2: the CUDA kernels --------------------------------------------------
 
 _KINDS = {"plain": 0, "residual": 1}
@@ -462,11 +517,11 @@ def _weights(weights):
 @functools.lru_cache(maxsize=None)
 def kernel_variant(dims: tuple, kinds: tuple, bf16: bool, backward: bool) -> str:
     """Which variant K1 (``backward`` false) or K2 (true) takes for a chain
-    on the card, ``"sliced"``, ``"tf32x3"`` (f32 K1 only), ``"wide"`` (bf16)
-    or ``"general"``: the C entry's own choice (``pcc_phi_pool_variant``),
-    made from the chain's shape, the element type and the kernel alone
+    on the card, ``"sliced"``, ``"tf32x3"`` (f32), ``"wide"`` (bf16) or
+    ``"general"``: the C entry's own choice (``pcc_phi_pool_variant``), made
+    from the chain's shape, the element type and the kernel alone
     (``csrc/phi_chain.cuh:takes_sliced``, ``csrc/phi_pool.cu:tf32x3_plan``,
-    ``csrc/phi_wide.cuh:wide_plan``)."""
+    ``csrc/phi_tf32.cuh:bwd_tf32x3_plan``, ``csrc/phi_wide.cuh:wide_plan``)."""
     from point_cloud_classifier_tpu_torch.native import kernel_library
 
     n = len(kinds)
@@ -521,9 +576,12 @@ def _phi_pool_cuda(points, seg, spec, params, activation, num_segments, general=
 
 
 def _phi_pool_bwd_cuda(
-    points, seg, g, spec, params, activation, num_segments, with_points=True
+    points, seg, g, spec, params, activation, num_segments, with_points=True, general=False
 ):
-    """K2: the CUDA counterpart of :func:`phi_pool_bwd_plain`, same contract."""
+    """K2: the CUDA counterpart of :func:`phi_pool_bwd_plain`, same contract.
+    ``general`` launches the general variant where the tf32x3 or the wide
+    one would run (``pcc_phi_pool_bwd_general``), to time them side by side;
+    the port's path never sets it."""
     from point_cloud_classifier_tpu_torch.native import check, kernel_library
 
     weights, biases, dims, kinds = _kernel_operands(points, seg, spec, params)
@@ -545,23 +603,31 @@ def _phi_pool_bwd_cuda(
         # products; the general one wants [out, in] as well, for dz Wᵀ
         bf16 = points.dtype == torch.bfloat16
         variant = kernel_variant(tuple(dims), tuple(kinds), bf16, True)
+        if general and variant in ("tf32x3", "wide"):
+            variant = "general"
         w_fwd = _weights(weights)
         w_bwd = [w.t().contiguous() for w in weights] if variant == "general" else None
         points, seg, g = points.contiguous(), seg.contiguous(), g.float().contiguous()
+        if variant == "tf32x3":
+            # its d_W pass copies rows of the points and of g 16 bytes at a time
+            points, g = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (points, g))
         # one f32 slab of every d_w and d_b per block (general) or cluster
-        # (sliced) of the persistent grid; the wide variant's cluster slabs,
-        # its [P, W] bf16 h1 and dz2 and its d_W partials
+        # (sliced) of the persistent grid; the wide and tf32x3 variants'
+        # cluster slabs, their [P, W] h1 and dz2 (bf16, f32) and their d_W
+        # partials (the tail's: its d_W and d_b partials alone)
         max_blocks = torch.cuda.get_device_properties(device).multi_processor_count
         n = len(params)
         lib = kernel_library().lib
-        n_scratch = ctypes.c_longlong()
-        check(lib.pcc_phi_pool_bwd_scratch(
-            n_points, n, (ctypes.c_int * (n + 1))(*dims), (ctypes.c_int * n)(*kinds), int(bf16), max_blocks,
-            ctypes.byref(n_scratch),
-        ))
+        n_scratch = ctypes.c_longlong(flat.numel() * max_blocks)  # the general variant's slabs
+        if not general:
+            check(lib.pcc_phi_pool_bwd_scratch(
+                n_points, n, (ctypes.c_int * (n + 1))(*dims), (ctypes.c_int * n)(*kinds), int(bf16), max_blocks,
+                ctypes.byref(n_scratch),
+            ))
         slabs = torch.empty(n_scratch.value, dtype=torch.float32, device=device)
+        entry = lib.pcc_phi_pool_bwd_general if general else lib.pcc_phi_pool_bwd
         with torch.cuda.device(device):
-            code = lib.pcc_phi_pool_bwd(
+            code = entry(
                 points.data_ptr(),
                 seg.data_ptr(),
                 g.data_ptr(),

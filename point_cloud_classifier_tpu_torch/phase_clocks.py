@@ -1,5 +1,6 @@
-"""Where a block of the sliced K1 and K2, of f32 K1's tf32x3 variant and of
-bf16 K1's and K2's wide variants spends its clocks, per phase.
+"""Where a block of the sliced K1 and K2, of f32 K1's and K2's tf32x3
+variants and of bf16 K1's and K2's wide variants spends its clocks, per
+phase.
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit:
@@ -11,9 +12,12 @@ It builds the kernels with their per-phase clocks
 between the marks of ``csrc/phi_pool.cu`` and ``csrc/phi_pool_bwd.cu``),
 launches K1 and K2 once each at the DeepSets config batch (B=32, P=8,192)
 and at the flagship shape (B=256, P=65,536), in f32 (K1's tf32x3 variant,
-K2's sliced one) and bf16 (both sliced), then in bf16 at φ [512, 512] and
-[1024, 1024] at the flagship shape (both wide), and prints the sums of each
-launch per phase, with ``nvidia-smi``'s name and power limit of the card.  It
+K2's sliced one) and bf16 (both sliced), then at φ [512, 512] and [1024,
+1024] at the flagship shape in f32 (both tf32x3) and bf16 (both wide), K2's
+row pass and its d_W pass apart, and the tail's bare [256, 256] layer in f32
+(K1 tf32x3; K2 tf32x3, its row product for d_points and its d_W pass), and
+prints the sums of each launch per phase, with ``nvidia-smi``'s name and
+power limit of the card.  It
 checks nothing: ``chip_smoke.py`` holds the kernels against their plain
 versions, on a build without the clocks.
 """
@@ -31,10 +35,12 @@ from point_cloud_classifier_tpu_torch.ops.fused_phi import _phi_pool_bwd_cuda, p
 
 SPEC = (("plain", False), ("residual", False))  # φ [256, 256] with residual_block
 # (name, events, point rows, φ width, element types)
-SHAPES = (("config", 32, 8192, 256, (torch.float32, torch.bfloat16)),
-          ("flagship", 256, 65536, 256, (torch.float32, torch.bfloat16)),
-          ("phi 512", 256, 65536, 512, (torch.bfloat16,)),
-          ("phi 1024", 256, 65536, 1024, (torch.bfloat16,)))
+BOTH = (torch.float32, torch.bfloat16)
+SHAPES = (("config", 32, 8192, 256, BOTH),
+          ("flagship", 256, 65536, 256, BOTH),
+          ("phi 512", 256, 65536, 512, BOTH),
+          ("phi 1024", 256, 65536, 1024, BOTH),
+          ("tail", 256, 65536, 256, (torch.float32,)))
 # a consumer thread's (the producers stage W apart): per chunk of W the wait
 # for its stage, the products; per layer the barrier after them, the
 # epilogue and the barriers around it; per tile the wait for its points, the
@@ -58,18 +64,33 @@ K2_PHASES = {
              "products", "products' barrier", "before dz2", "dz2", "after dz2", "d_b2", "dz1",
              "d_W1 and d_points", "slab"),
 }
+# f32 K2's tf32x3 variant marks its row pass as the wide one does; the tail's
+# row product for d_points (per tile its rows of g, per chunk the wait and the
+# products, the barrier after them, the epilogue's stores); the d_W pass of
+# both variants (block 0, a thread of the first warp) marks from phase 16 on:
+# per stage of 32 rows the wait for their copies, the products (and the adds
+# into the block's sums in f32), the tail's column sums of d_b and the next
+# copies issued; the partial's stores at the end
+K2_PHASES["tf32x3"] = K2_PHASES["wide"]
+K2_TAIL_ROWS = ("set-up", "tile's rows of g", "waits for a staged chunk", "products", "barrier",
+                "epilogue")
+DW_FIRST = 16
+DW_VARIANTS = ("tf32x3", "wide")  # K2's variants with a d_W pass
+DW_PHASES = ("set-up", "waits for staged rows", "products and sums", "d_b and next rows", "partial")
 
 
-def _inputs(b: int, p: int, dtype, width: int = 256, seed: int = 0):
+def _inputs(b: int, p: int, dtype, width: int = 256, seed: int = 0, tail: bool = False):
     """Flat-wire points for ``b`` contiguous events in ``p`` rows (a tenth of
-    the rows padding, segment ``b``) and the seeded 6 -> width -> width chain."""
+    the rows padding, segment ``b``) and the seeded 6 -> width -> width chain,
+    or with ``tail`` width-wide points and one bare width -> width layer."""
     rng = np.random.default_rng(seed)
     sizes = rng.multinomial(int(p * 0.9), np.ones(b) / b)
     seg = np.full(p, b, dtype=np.int32)
     seg[: sizes.sum()] = np.repeat(np.arange(b, dtype=np.int32), sizes)
-    points = rng.normal(size=(p, 6)).astype(np.float32)
-    params, last = [], 6
-    for _ in range(2):
+    last = width if tail else 6
+    points = rng.normal(size=(p, last)).astype(np.float32)
+    params = []
+    for _ in range(1 if tail else 2):
         bound = last**-0.5
         params.append(tuple(
             torch.from_numpy(rng.uniform(-bound, bound, size=shape).astype(np.float32)).cuda()
@@ -79,12 +100,12 @@ def _inputs(b: int, p: int, dtype, width: int = 256, seed: int = 0):
     return torch.from_numpy(points).cuda().to(dtype), torch.from_numpy(seg).cuda(), tuple(params)
 
 
-def _clocks(entry, n: int):
+def _clocks(entry, n: int, first: int = 0):
     torch.cuda.synchronize()
-    out = (ctypes.c_longlong * 16)()
+    out = (ctypes.c_longlong * 24)()
     if entry(ctypes.addressof(out)) != 0:
         raise RuntimeError("reading the phase clocks failed")
-    return list(out)[:n]
+    return list(out)[first:first + n]
 
 
 def main() -> None:
@@ -98,21 +119,30 @@ def main() -> None:
     built = native.kernel_library()
     print(f"build with {native.PHASE_CLOCKS_FLAG}: {built.path.name} in {built.build_seconds:.2f} s")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bwd_clocks = built.lib.pcc_phi_pool_bwd_phase_clocks
     for name, b, p, width, dtypes in SHAPES:
+        tail = name == "tail"
+        spec = () if tail else SPEC
         for dtype in dtypes:
-            points, seg, params = _inputs(b, p, dtype, width)
+            points, seg, params = _inputs(b, p, dtype, width, tail=tail)
             g = torch.ones((b + 1, width), device="cuda")
             rows = []
-            phi_pool(points, seg, SPEC, params, "gelu", b + 1)
+            phi_pool(points, seg, spec, params, "gelu", b + 1)
             if phi_pool.variant in K1_PHASES:
                 phases = K1_PHASES[phi_pool.variant]
                 rows.append((f"K1 {phi_pool.variant}", phases,
                              _clocks(built.lib.pcc_phi_pool_phase_clocks, len(phases))))
-            _phi_pool_bwd_cuda(points, seg, g, SPEC, params, "gelu", b + 1, with_points=False)
-            if phi_pool.bwd_variant in K2_PHASES:
-                phases = K2_PHASES[phi_pool.bwd_variant]
-                rows.append((f"K2 {phi_pool.bwd_variant}", phases,
-                             _clocks(built.lib.pcc_phi_pool_bwd_phase_clocks, len(phases))))
+            # the tail's K2 as the train step calls it (d_points on: the
+            # layer's input is the chain below), the DeepSets chain's without
+            _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b + 1, with_points=tail)
+            variant = phi_pool.bwd_variant
+            if variant in K2_PHASES:
+                phases = K2_TAIL_ROWS if tail else K2_PHASES[variant]
+                pass_name = " row product" if tail else " row pass" if variant in DW_VARIANTS else ""
+                rows.append((f"K2 {variant}{pass_name}", phases, _clocks(bwd_clocks, len(phases))))
+            if variant in DW_VARIANTS:
+                rows.append((f"K2 {variant} d_W pass", DW_PHASES,
+                             _clocks(bwd_clocks, len(DW_PHASES), DW_FIRST)))
             for kernel, phases, sums in rows:
                 print(f"phase clocks {kernel} {name} B={b} P={p} {str(dtype)[6:]}, block 0, one launch "
                       f"({(p + 63) // 64} tiles over the grid's clusters, {sms} SMs): "

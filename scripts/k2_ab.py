@@ -1,0 +1,119 @@
+"""Time K2's wide (bf16) and tf32x3 (f32) variants in two source trees on one
+CUDA card, in turns, to hold a change to their shared code against its
+parent.
+
+Run from the repository root on a machine with a CUDA card and the CUDA
+toolkit, with the parent unpacked into a git-ignored directory:
+
+    git archive <parent> | tar -x -C _archive/parent
+    python3 scripts/k2_ab.py _archive/parent .
+
+Each tree runs in a process of its own (both hold a package of the same
+name), in the order parent, change, change, parent, and builds its own
+kernels on its first run.  A run times K2 at B=256, P=65,536 on the device
+alone (CUDA-graph replay, as ``chip_smoke.py``'s ``graph_ms``): bf16 and f32
+at φ [512, 512] and [1024, 1024] residual without ``d_points`` (the wide and
+the tf32x3 variants, the d_W pass of both), and the f32 tail's bare [256,
+256] layer with ``d_points``.  It prints one line a run and, last, the
+median of each case over the runs of each tree, beside ``nvidia-smi``'s
+name and power limit.  It checks nothing: ``chip_smoke.py`` and the card
+tests do.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+B, P, SEED = 256, 65_536, 0
+CASES = (("bf16 phi 512", "bfloat16", 512), ("bf16 phi 1024", "bfloat16", 1024),
+         ("f32 phi 512", "float32", 512), ("f32 phi 1024", "float32", 1024), ("f32 tail", "float32", 256))
+
+
+def graph_ms(torch, fn, iters=10, replays=3) -> float:
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def run_tree() -> None:
+    """One tree's times (the working directory is the tree), as JSON."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.getcwd())
+    from point_cloud_classifier_tpu_torch.ops import fused_phi
+
+    rng = np.random.default_rng(SEED)
+    seg = torch.from_numpy(np.sort(rng.integers(0, B + 1, size=P)).astype(np.int32)).cuda()
+    out = {}
+    for name, dtype_name, width in CASES:
+        dtype = getattr(torch, dtype_name)
+        tail = "tail" in name
+        last = width if tail else 6
+        points = torch.from_numpy(rng.normal(size=(P, last)).astype(np.float32)).cuda().to(dtype)
+        params = []
+        for _ in range(1 if tail else 2):
+            bound = last ** -0.5
+            params.append(tuple(torch.from_numpy(rng.uniform(-bound, bound, size=s).astype(np.float32)).cuda()
+                                .to(dtype) for s in ((last, width), (width,))))
+            last = width
+        spec = () if tail else (("plain", False), ("residual", False))
+        g = torch.from_numpy(rng.normal(size=(B + 1, width)).astype(np.float32)).cuda()
+        k2 = lambda: fused_phi._phi_pool_bwd_cuda(  # noqa: E731
+            points, seg, g, spec, tuple(params), "gelu", B + 1, with_points=tail)
+        k2()
+        out[name] = {"variant": fused_phi.phi_pool.bwd_variant, "ms": graph_ms(torch, k2)}
+        del points, params, g
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+
+
+def main() -> None:
+    if len(sys.argv) == 2 and sys.argv[1] == "--run":
+        run_tree()
+        return
+    if len(sys.argv) != 3:
+        raise SystemExit("usage: python3 scripts/k2_ab.py PARENT_TREE CHANGE_TREE")
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("k2_ab: torch.cuda.is_available() is false; this runs on a GPU")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip()
+    trees = {"parent": os.path.abspath(sys.argv[1]), "change": os.path.abspath(sys.argv[2])}
+    here = os.path.abspath(__file__)
+    runs = {"parent": [], "change": []}
+    for label in ("parent", "change", "change", "parent"):
+        proc = subprocess.run([sys.executable, here, "--run"], cwd=trees[label], check=True,
+                              capture_output=True, text=True)
+        reading = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs[label].append(reading)
+        print(f"{label}: " + "; ".join(f"{k} [{v['variant']}] {v['ms']:.4f} ms" for k, v in reading.items())
+              + f" [{smi}]", flush=True)
+    for name, _, _ in CASES:
+        med = {label: statistics.median(r[name]["ms"] for r in rs) for label, rs in runs.items()}
+        print(f"median {name}: change {med['change']:.4f} ms, parent {med['parent']:.4f} ms, "
+              f"change / parent {med['change'] / med['parent']:.4f} [{smi}]")
+
+
+if __name__ == "__main__":
+    main()

@@ -209,9 +209,11 @@ SHAPE_CASES = {
 def _variant(case, dtype, backward):
     """The DeepSets chain takes the sliced variant in K2 and in bf16 K1; f32
     K1 takes the tf32x3 variant at every case here (widths up to 1024 in
-    multiples of 32); bf16 K1 and K2 the wide one at widths 384 to 1024;
-    every other launch the general one."""
-    if not backward and dtype == torch.float32:
+    multiples of 32), f32 K2 at the DeepSets chain of widths 384 to 1024;
+    bf16 K1 and K2 the wide one at widths 384 to 1024; every other launch
+    the general one."""
+    wide_chain = SHAPE_CASES[case].get("width", 256) > 256 and not SHAPE_CASES[case].get("final", False)
+    if dtype == torch.float32 and (not backward or wide_chain):
         return "tf32x3"
     if dtype == torch.bfloat16 and SHAPE_CASES[case].get("width", 256) > 256:
         return "wide"
@@ -308,13 +310,13 @@ def test_wide_bf16_kernels_match_plain(width, residual, activation):
 
 @pytest.mark.gpu
 def test_chains_outside_the_wide_plans_keep_their_variants():
-    """f32 chains at the wide widths (K1 tf32x3, K2 general), bf16 at width
-    256 (sliced), a bf16 bare final linear at 1024 (K1 wide, K2 general: the
+    """f32 chains at the wide widths (K1 and K2 tf32x3), bf16 at width 256
+    (sliced), a bf16 bare final linear at 1024 (K1 wide, K2 general: the
     wide K2 takes the DeepSets chain alone) and bf16 at 2048 (general)."""
     dev = _cuda()
     variant = fused_phi.kernel_variant
-    for dtype, width, k1, k2 in ((torch.float32, 512, "tf32x3", "general"),
-                                 (torch.float32, 1024, "tf32x3", "general"),
+    for dtype, width, k1, k2 in ((torch.float32, 512, "tf32x3", "tf32x3"),
+                                 (torch.float32, 1024, "tf32x3", "tf32x3"),
                                  (torch.bfloat16, 256, "sliced", "sliced"),
                                  (torch.bfloat16, 2048, "general", "general")):
         dims, kinds = (6, width, width), (0, 1)
@@ -327,6 +329,88 @@ def test_chains_outside_the_wide_plans_keep_their_variants():
     assert fused_phi.phi_pool.variant == "wide"
     ref = fused_phi.phi_pool_plain(pts, seg, SPEC, params, "gelu", s)
     assert (out - ref).abs().max().item() <= TOL[torch.bfloat16] * max(1.0, ref.abs().max().item())
+
+
+# f32 chains of K2's tf32x3 variant: (input width, φ widths or the bare
+# layer's [in, out], residual second layer).  The DeepSets chain at 512 (a
+# cluster of two blocks, 64-row tiles), 640 and 1024 (four, 32-row tiles),
+# plain or residual; the tail's bare layer at [256, 256] (one block a
+# slice of d_points' columns, 64-row tiles) and [512, 1024] (two, 32-row
+# tiles).  At the wide cases' ragged P, each with a padding id past S.
+TF32X3_BWD_CHAINS = {
+    "phi512": (6, [512, 512], True), "phi640-plain": (6, [640, 640], False),
+    "phi1024": (6, [1024, 1024], True), "tail256": (256, [256], None),
+    "tail512x1024": (512, [1024], None),
+}
+
+
+def _tf32x3_bwd_inputs(dev, chain, p):
+    in_dim, widths, residual = TF32X3_BWD_CHAINS[chain]
+    rng = np.random.default_rng(p)
+    b = max(1, min(7, p))
+    pts = torch.from_numpy(rng.normal(size=(p, in_dim)).astype(np.float32)).to(dev)
+    seg = np.sort(rng.integers(0, b + 1, size=p)).astype(np.int32)
+    seg[p // 2] = b + 4  # a padding id past S
+    params, last = [], in_dim
+    for width in widths:
+        w = (rng.normal(size=(last, width)) * last**-0.5).astype(np.float32)
+        bias = (rng.normal(size=(width,)) * 0.1).astype(np.float32)
+        params.append((torch.from_numpy(w).to(dev), torch.from_numpy(bias).to(dev)))
+        last = width
+    spec = () if residual is None else (("plain", False), ("residual" if residual else "plain", False))
+    g = torch.from_numpy(rng.normal(size=(b + 1, last)).astype(np.float32)).to(dev)
+    return pts, torch.from_numpy(seg).to(dev), tuple(params), b + 1, spec, g
+
+
+def _off_relu_kink(pts, seg, spec, params, margin=1e-5):
+    """The points and their ids without the points that have a pre-activation
+    within ``margin`` · max(1, max |z|) of relu's kink in any layer (z from
+    an f64 forward).  There two f32 evaluations of the chain that round
+    apart by ~1e-6, as K2's 3xTF32 products and cuBLAS's f32 ones do, can
+    take relu's gate the two ways, and one flipped gate moves the point's
+    whole row of d_W; away from it every gate is the same in both."""
+    h, keep = pts.double(), torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
+    for (kind, _), (w, b) in zip(spec, params):
+        z = h @ w.double() + b.double()
+        keep &= (z.abs() > margin * max(1.0, z.abs().max().item())).all(1)
+        h = h + z.clamp_min(0) if kind == "residual" else z.clamp_min(0)
+    return pts[keep].contiguous(), seg[keep].contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation", ["gelu", "silu", "relu"])
+@pytest.mark.parametrize("chain", list(TF32X3_BWD_CHAINS))
+def test_f32_backward_takes_tf32x3_and_repeats_bit_for_bit(chain, activation):
+    """f32 K2 on its tf32x3 variant against phi_pool_bwd_plain, with and
+    without d_points, every gradient within BWD_F32_REL and BWD_F32_FRO,
+    and a second launch bit-equal, at every ragged P.  For relu the points
+    with a pre-activation at its kink are left out of both sides
+    (``_off_relu_kink``: at most 15% of them here): there the gate may fall
+    either way under any two roundings of the chain, and at φ 1024 these
+    inputs hold such points at P = 63 and 1001 (docs/parity_torch.md
+    §17); every other point is held to the same bounds."""
+    dev = _cuda()
+    for p in WIDE_POINTS:
+        pts, seg, params, s, spec, g = _tf32x3_bwd_inputs(dev, chain, p)
+        if activation == "relu":
+            pts, seg = _off_relu_kink(pts, seg, spec, params)
+            assert pts.shape[0] >= 0.85 * p, (p, pts.shape[0])
+        for with_points in (True, False):
+            runs = [fused_phi._phi_pool_bwd_cuda(pts, seg, g, spec, params, activation, s, with_points=with_points)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            assert fused_phi.phi_pool.bwd_variant == "tf32x3"
+            ref_points, ref_grads = fused_phi.phi_pool_bwd_plain(
+                pts, seg, g, spec, params, activation, s, with_points=with_points)
+            got = ([runs[0][0]] if with_points else []) + list(runs[0][1])
+            again = ([runs[1][0]] if with_points else []) + list(runs[1][1])
+            want = ([ref_points] if with_points else []) + list(ref_grads)
+            assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True)), (p, with_points)
+            for a, r in zip(got, want, strict=True):
+                assert a.shape == r.shape and torch.isfinite(a).all()
+                assert (a - r).abs().max().item() <= BWD_F32_REL * max(1.0, r.abs().max().item()), p
+                fro = (a.double() - r.double()).norm().item() / max(r.double().norm().item(), 1e-30)
+                assert fro <= BWD_F32_FRO, (p, with_points, fro)
 
 
 @pytest.mark.gpu

@@ -1,4 +1,4 @@
-"""f32 K1's tf32x3 products, in plain PyTorch, against the JAX package.
+"""f32 K1's and K2's tf32x3 products, in plain PyTorch, against the JAX package.
 
 K1's tf32x3 variant (``csrc/phi_pool.cu``) forms every f32 product on the
 tensor cores from TF32 operands: each value ``x`` is split into ``hi =
@@ -13,8 +13,17 @@ config chain, φ [512, 512], φ [1024, 1024] and the tail's one bare
 K1's bound on the card (1e-4 against ``phi_pool_plain``, chip_smoke.py).
 The last test shows why the split is needed: a one-pass TF32 product misses
 1e-4 on the layers' unpooled values, where the split keeps within 1e-5.
+
+K2's tf32x3 variant (``csrc/phi_pool_bwd.cu``) takes every product of the
+backward the same way: ``ops/fused_phi.py:phi_pool_bwd_tf32x3_plain``, held
+to the JAX package's backward (the VJP of ``phi_pool_xla``;
+``phi_pool_bwd_pallas`` in interpret mode) at the chains the variant serves,
+φ [512, 512], φ [1024, 1024] and the tail's bare [256, 256] layer, in gelu
+and relu, with and without ``d_points``, every gradient within the same 1e-5;
+there a one-pass TF32 backward misses 1e-4 too.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -129,6 +138,84 @@ def test_one_pass_tf32_misses_where_the_split_holds(chain):
         for passes, errs in ((3, split), (1, one_pass)):
             h = fused_phi.phi_forward_tf32x3(torch.from_numpy(pts), cut_spec, _torch(cut), "gelu", passes)
             errs.append(_rel(h.numpy(), ref))
+    assert max(split) <= REL, split
+    assert max(one_pass) > ONE_PASS_MISS, one_pass
+
+
+# the chains of K2's tf32x3 variant on the main path (φ 256 takes the sliced one)
+BWD_CHAINS = ("phi512", "phi1024", "tail")
+
+
+def _cotangent(params, s, seed=7):
+    """A seeded f32 cotangent [s, width] of the pooled sums, the padding
+    segment's row included."""
+    width = params[-1][0].shape[1]
+    return np.random.default_rng(seed).normal(size=(s, width)).astype(np.float32)
+
+
+def _jax_bwd(spec, pts, seg, s, params, g, activation, with_points):
+    """The JAX package's backward, the VJP of ``phi_pool_xla``: ``[d_points]
+    (with_points) + [d_w0, d_b0, …]``."""
+
+    def f(x, prm):
+        return jax_phi.phi_pool_xla(x, jnp.asarray(seg), spec, prm, activation, s)
+
+    _, vjp = jax.vjp(f, jnp.asarray(pts), _jax(params))
+    d_points, d_params = vjp(jnp.asarray(g))
+    return ([np.asarray(d_points)] if with_points else []) + [
+        np.asarray(t) for layer in d_params for t in layer if t is not None
+    ]
+
+
+def _port_bwd(spec, pts, seg, s, params, g, activation, with_points, passes=3):
+    d_points, grads = fused_phi.phi_pool_bwd_tf32x3_plain(
+        torch.from_numpy(pts), torch.from_numpy(seg), torch.from_numpy(g), spec, _torch(params),
+        activation, s, with_points, passes)
+    assert (d_points is None) != with_points and all(t.dtype == torch.float32 for t in grads)
+    return ([d_points.numpy()] if with_points else []) + [t.numpy() for t in grads]
+
+
+@pytest.mark.parametrize("with_points", [True, False], ids=["d_points", "no-d_points"])
+@pytest.mark.parametrize("activation", ["gelu", "relu"])
+@pytest.mark.parametrize("chain", BWD_CHAINS)
+def test_tf32x3_bwd_plain_matches_jax_vjp(chain, activation, with_points):
+    spec, pts, seg, s, params = _inputs(chain)
+    g = _cotangent(params, s)
+    ref = _jax_bwd(spec, pts, seg, s, params, g, activation, with_points)
+    out = _port_bwd(spec, pts, seg, s, params, g, activation, with_points)
+    assert len(out) == len(ref)
+    for got, want in zip(out, ref):
+        assert got.shape == want.shape
+        assert _rel(got, want) <= REL
+
+
+@pytest.mark.parametrize("chain", ["phi512", "tail"])
+def test_tf32x3_bwd_plain_matches_pallas_interpret(chain):
+    spec, pts, seg, s, params = _inputs(chain, p=64)
+    g = _cotangent(params, s)
+    d_points, flat = jax_phi.phi_pool_bwd_pallas(
+        jnp.asarray(pts), jnp.asarray(seg), jnp.asarray(g), spec,
+        tuple((jnp.asarray(layer[0]), jnp.asarray(layer[1])) for layer in params), "gelu", s,
+        interpret=True)
+    shapes = [np.shape(a) for layer in params for a in layer[:2]]
+    ref = [np.asarray(d_points)] + [np.asarray(t).reshape(shape) for t, shape in zip(flat, shapes)]
+    out = _port_bwd(spec, pts, seg, s, params, g, "gelu", True)
+    assert len(out) == len(ref)
+    for got, want in zip(out, ref):
+        assert _rel(got, want) <= REL
+
+
+@pytest.mark.parametrize("chain", BWD_CHAINS)
+def test_one_pass_tf32_bwd_misses_where_the_split_holds(chain):
+    """Every gradient, d_points among them, against the JAX VJP: the split
+    within REL, a one-pass TF32 backward (``hi·hi`` alone in every product)
+    over ONE_PASS_MISS at the worst."""
+    spec, pts, seg, s, params = _inputs(chain)
+    g = _cotangent(params, s)
+    ref = _jax_bwd(spec, pts, seg, s, params, g, "gelu", True)
+    split, one_pass = ([_rel(got, want) for got, want in
+                        zip(_port_bwd(spec, pts, seg, s, params, g, "gelu", True, passes), ref)]
+                       for passes in (3, 1))
     assert max(split) <= REL, split
     assert max(one_pass) > ONE_PASS_MISS, one_pass
 
