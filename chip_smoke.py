@@ -27,8 +27,9 @@ result):
    in plain PyTorch);
 4. backward kernel against plain: the backward of ``phi_pool`` (kernel K2)
    against ``phi_pool_bwd_plain`` at the same cases, f32 and bf16, with
-   ``d_points`` asked for and not (sliced for the DeepSets chain in both
-   types), and K2 run twice on the same inputs for bit-equal gradients;
+   ``d_points`` asked for and not (the one-block forms for the DeepSets
+   chain: tf32x3 in f32, wide in bf16), and K2 run twice on the same inputs
+   for bit-equal gradients;
 5. serving slice: the DeepSets serving path through its entry points —
    ``factory.get_model("deep_sets", cfg, run_dir)`` on a JAX-format
    ``best_model.pt`` with seeded random weights, then ``predict`` over
@@ -43,7 +44,14 @@ result):
    shapes and dtypes; f32 K1 alone at the config, flagship, tail, φ [512,
    512] and φ [1024, 1024] shapes, its tf32x3 variant beside the general one
    (``_phi_pool_cuda(general=True)``) in turns, with the f32 and the 3xTF32
-   bounds; ``predict`` and the train step per batch on the kernel
+   bounds; K2 alone in f32 and bf16 at φ [256, 256] (B=256 and B=32: its
+   one-block forms in turns with the sliced variant through the timing
+   entry, ``_phi_pool_bwd_cuda(general=True)``), [512, 512] and [1024,
+   1024] (B=256), beside the plain versions and the bounds with and without
+   the [P, W] scratch's bytes, held with ``d_points`` on against
+   ``phi_pool_bwd_plain`` and bit-equal run to run, and at φ 256 in bf16
+   the share of K2's recomputed h1 values that differ from K1's forward,
+   within ``H1_DEPARTURE_SHARE`` (``wide_variants_phase``); ``predict`` and the train step per batch on the kernel
    and plain routes at batch sizes 32 and 256, in f32 and bf16 compute; and
    a ``torch.profiler`` trace of the B=256 f32 train step;
 8. GAT kernel against plain: ``gat_attention`` (kernel K3) against
@@ -127,7 +135,7 @@ result):
    ``trainer.device_resident`` batches and in f32 through
    ``PCC_PREFETCH=1`` and ``PCC_BG_LOADER=1``, counting DeepSets' forwards
    by wire and K1's and K2's launches on each (both wires must run, K1 and
-   K2 on every dense batch, the sliced variants in bf16, val accuracy over
+   K2 on every dense batch, K1 sliced and K2 wide in bf16, val accuracy over
    the DeepSets floor); (c) ``factory.get_model`` + ``predict`` from each
    run's ``best_model.pt`` on the dense test batches against the plain
    route; (b) K1 and K2 on dense flagship batches (B=256, M=256 and M=320
@@ -428,6 +436,11 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # Frobenius 2.3e-4 in bf16 (width 1024, d_points on), 3.0e-4 at B=256,
 # P=65,536 (wide_check).
 BWD_F32_REL, BWD_F32_FRO, BWD_BF16_FRO = 1e-4, 1e-5, 1e-3
+# the share of h1 values where the one-block wide K2's recompute (bf16, φ 256:
+# a tensor-core first layer) may differ from bf16 K1's forward (f32 FMAs):
+# where the two f32 values fall on either side of a bf16 rounding boundary
+# (docs/parity_torch.md §16), as tests/test_torch_gpu.py bounds it
+H1_DEPARTURE_SHARE = 1e-2
 # predict: probabilities of the kernel path against the plain path (f32).
 PROB_TOL = 1e-4
 # the training slice: per-step f32 loss of the kernel route against the plain
@@ -756,31 +769,32 @@ def takes_tf32x3(dims) -> bool:
 
 def takes_wide(dims, kinds, backward: bool) -> bool:
     """csrc/phi_wide.cuh:wide_plan for a bf16 chain of widths ``dims``
-    (input first) and kinds (``plain``, ``residual``, ``linear``), not the
-    sliced variant's: points of at most 8 features, the widest layer above
-    256 and at most 1024, every width a multiple of 8 C (C = 2 up to 512, 4
-    up to 1024); K2 (``backward``) only the DeepSets chain, a plain first
-    layer and one square layer of 320 to 1024 in multiples of 64."""
+    (input first) and kinds (``plain``, ``residual``, ``linear``): points of
+    at most 8 features, every width a multiple of 8 C (C = 1 up to 256, 2 up
+    to 512, 4 up to 1024); K1 the widest layer above 256 and at most 1024
+    (bf16 K1 at the DeepSets chain of φ 256 is the sliced variant's); K2
+    (``backward``) only the DeepSets chain, a plain first layer and one
+    square layer of 256 to 1024 in multiples of 64."""
     widest = max(dims[1:])
-    if not 1 <= dims[0] <= 8 or not 256 < widest <= 1024:
+    if not 1 <= dims[0] <= 8 or not (256 if backward else 257) <= widest <= 1024:
         return False
-    cluster = 2 if widest <= 512 else 4
+    cluster = 1 if widest <= 256 else 2 if widest <= 512 else 4
     if any(d % (8 * cluster) for d in dims[1:]):
         return False
     if backward:
-        return (len(kinds) == 2 and dims[1] == dims[2] and dims[1] % 64 == 0 and dims[1] >= 320
+        return (len(kinds) == 2 and dims[1] == dims[2] and dims[1] % 64 == 0 and dims[1] >= 256
                 and kinds[0] == "plain" and kinds[1] != "linear")
     return True
 
 
 def takes_tf32x3_bwd(dims, kinds) -> bool:
     """csrc/phi_tf32.cuh:bwd_tf32x3_plan for an f32 chain of widths ``dims``
-    (input first) and kinds: the DeepSets chain at widths 320 to 1024 in
+    (input first) and kinds: the DeepSets chain at widths 256 to 1024 in
     multiples of 64 (a plain first layer of at most 8 inputs, then one square
-    layer, plain or residual), or one bare layer [in, out], each a multiple
-    of 64 from 256 to 1024 (the tail's)."""
+    layer, plain or residual; one block a tile at 256), or one bare layer
+    [in, out], each a multiple of 64 from 256 to 1024 (the tail's)."""
     if len(kinds) == 2:
-        return (1 <= dims[0] <= 8 and dims[1] == dims[2] and dims[1] % 64 == 0 and 320 <= dims[1] <= 1024
+        return (1 <= dims[0] <= 8 and dims[1] == dims[2] and dims[1] % 64 == 0 and 256 <= dims[1] <= 1024
                 and kinds[0] == "plain" and kinds[1] != "linear")
     return kinds == ["linear"] and all(d % 64 == 0 and 256 <= d <= 1024 for d in dims)
 
@@ -788,9 +802,6 @@ def takes_tf32x3_bwd(dims, kinds) -> bool:
 def expected_variant(case: PhiCase, dtype, backward: bool) -> str:
     """Which variant the C entry must choose for a case: by its shape, its
     element type and the kernel (K2 when ``backward``) alone."""
-    config_chain = case.widths is None and not case.final and case.in_dim == 6
-    if config_chain and (backward or dtype == torch.bfloat16):
-        return "sliced"
     widths = CONFIG["model"]["phi_layers"] if case.widths is None else case.widths
     dims = [case.in_dim, *widths] + ([(widths or [case.in_dim])[-1]] if case.final else [])
     kinds = [kind for kind, _ in case_spec(widths)] + (["linear"] if case.final else [])
@@ -798,7 +809,8 @@ def expected_variant(case: PhiCase, dtype, backward: bool) -> str:
         return "tf32x3"
     if dtype == torch.bfloat16 and takes_wide(dims, kinds, backward):
         return "wide"
-    return "general"
+    config_chain = case.widths is None and not case.final and case.in_dim == 6
+    return "sliced" if config_chain and dtype == torch.bfloat16 else "general"
 
 
 def kernel_phase():
@@ -1430,96 +1442,174 @@ def k1_variants_phase(smi: str) -> dict:
 
 
 # bf16 K1 and K2 alone at TIMES_SHAPES' φ widths, where both take the wide
-# variant, and f32 K2 there (the tf32x3 variant): (name, φ width)
-WIDE_SHAPES = (("phi 512", 512), ("phi 1024", 1024))
+# variant, and f32 K2 there (the tf32x3 variant); and at φ 256, the
+# DeepSets config chain, where K2 takes the one-block forms of both (bf16 K1
+# the sliced variant), at bench.py's flagship batch and the config batch:
+# (name, φ width, events, point rows)
+WIDE_SHAPES = (("phi 256", 256, FLAGSHIP_B, FLAGSHIP_P), ("phi 256 config", 256, CONFIG_B, CONFIG_P),
+               ("phi 512", 512, FLAGSHIP_B, FLAGSHIP_P), ("phi 1024", 1024, FLAGSHIP_B, FLAGSHIP_P))
+
+
+def _k2_held(points, seg, g, spec, params, b1):
+    """K2 with d_points on against phi_pool_bwd_plain on the same inputs
+    (P = 65,536 sums each d_W over thousands of points a block; PHI_CASES
+    hold it at P = 1001), and a second launch: (max_rel_err, rel_fro,
+    bit-equal), the worst over d_points and every gradient."""
+    got, again, want = ([d_points, *grads] for d_points, grads in (
+        _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1),
+        _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1),
+        phi_pool_bwd_plain(points, seg, g, spec, params, "gelu", b1)))
+    errs = [_errors(a, c) for a, c in zip(got, want, strict=True)]
+    same = all(torch.equal(a, c) for a, c in zip(got, again, strict=True))
+    return max(e[1] for e in errs), max(e[2] for e in errs), same
+
+
+def _h1_departures(points, seg, g, spec, params, b1) -> tuple:
+    """The one-block wide K2's recomputed h1 (bf16, φ 256) against bf16 K1's
+    forward (the sliced variant) on the same inputs: (values that differ,
+    the largest |difference| of one), pcc_phi_pool_bwd_h1_departures."""
+    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+    _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1, with_points=False, departures=counts)
+    departed, diff = counts.tolist()
+    return departed, diff / 2**24
+
+
+def _k2_scratch_bytes(p, width, elem) -> int:
+    """The bytes a K2 call with a [P, W] h1 and dz2 scratch adds to what the
+    function must move: each written once by the row pass and read once by
+    the d_W pass."""
+    return 2 * 2 * p * width * elem
 
 
 def wide_variants_phase(smi: str) -> dict:
-    """bf16 K1 and K2 (without d_points, as the train step calls it) at B=256,
-    P=65,536, φ [w, w] residual, on the device alone (graph_ms: a CUDA graph
-    of the calls, so no host gap is in it), the wide variants in turns (wide,
-    wide) around K1's general variant (pcc_phi_pool_general, once), beside
-    both bounds and the plain versions (cuda_ms); then f32 K2 there on its
-    tf32x3 variant, device alone twice around its general variant
-    (pcc_phi_pool_bwd_general, once), beside its plain version and its
-    bounds on the CUDA cores and by 3xTF32 on the tensor cores.  Returns the
-    readings by shape and kernel."""
+    """bf16 K1 and K2 (without d_points, as the train step calls it) at
+    WIDE_SHAPES, φ [w, w] residual, on the device alone (graph_ms: a CUDA
+    graph of the calls, so no host gap is in it), the variants K2 takes
+    (wide) in turns around K1's general variant (pcc_phi_pool_general, once;
+    at φ 256, where bf16 K1 is the sliced variant in both entries, around
+    K2's sliced variant through the timing entry instead, in turns: taken,
+    sliced, sliced, taken), beside the bounds and the plain versions
+    (cuda_ms); then f32 K2 there on its tf32x3 variant, device alone twice
+    around its general variant (pcc_phi_pool_bwd_general, once; the sliced
+    variant at φ 256, in turns), beside its plain version and its bounds on
+    the CUDA cores and by 3xTF32 on the tensor cores.  Each bound is the
+    work's (inputs read once, outputs written once) and, beside it, the
+    design's (the [P, W] scratch's bytes added).  K2 in both types held
+    against phi_pool_bwd_plain with d_points on and bit-equal run to run;
+    at φ 256 the bf16 one-block form's recomputed h1 against K1's forward
+    (_h1_departures), within H1_DEPARTURE_SHARE.  Returns the readings by
+    shape and kernel."""
     readings = {"phi_pool": {}, "phi_pool_bwd": {}}
-    for name, width in WIDE_SHAPES:
+    for name, width, b, p in WIDE_SHAPES:
         widths = [width, width]
         spec = case_spec(widths)
-        points, seg, params = phi_inputs(FLAGSHIP_B, FLAGSHIP_P, torch.bfloat16, SEED + 31, widths=widths)
-        b1 = FLAGSHIP_B + 1
+        one_block = width == 256
+        points, seg, params = phi_inputs(b, p, torch.bfloat16, SEED + 31, widths=widths)
+        b1 = b + 1
         g = torch.ones((b1, width), device="cuda")
         k1 = lambda: phi_pool(points, seg, spec, params, "gelu", b1)  # noqa: E731
         k2 = lambda: _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1, with_points=False)  # noqa: E731
+        sliced = lambda: _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1,  # noqa: E731
+                                            with_points=False, general=True)
         k1_ms, k2_ms = [graph_ms(k1)], [graph_ms(k2)]
         k1()
         k2()
         variants = (phi_pool.variant, phi_pool.bwd_variant)
-        general_ms = graph_ms(lambda: _phi_pool_cuda(points, seg, spec, params, "gelu", b1, general=True),
-                              iters=3, replays=1)
+        general_ms = sliced_ms = None
+        if one_block:
+            sliced_ms = [graph_ms(sliced), graph_ms(sliced)]
+            sliced()
+            if phi_pool.bwd_variant != "sliced":
+                raise AssertionError(f"bf16 K2 {name}: the timing entry ran the {phi_pool.bwd_variant} variant")
+        else:
+            general_ms = graph_ms(lambda: _phi_pool_cuda(points, seg, spec, params, "gelu", b1, general=True),
+                                  iters=3, replays=1)
         k1_ms.append(graph_ms(k1))
         k2_ms.append(graph_ms(k2))
         k1_plain = cuda_ms(lambda: phi_pool_plain(points, seg, spec, params, "gelu", b1))
         k2_plain = cuda_ms(lambda: phi_pool_bwd_plain(points, seg, g, spec, params, "gelu", b1, with_points=False))
         flat = [t for layer in params for t in layer]
         per_row = [2 * w.shape[0] * w.shape[1] for w, _ in params]
-        fwd = bound_ms(_nbytes(points, seg) + 0.5 * _nbytes(*flat) + b1 * width * 4, FLAGSHIP_P * sum(per_row),
+        fwd = bound_ms(_nbytes(points, seg) + 0.5 * _nbytes(*flat) + b1 * width * 4, p * sum(per_row),
                        BF16_FLOPS_PER_S)
-        bwd = bound_ms(_nbytes(points, seg, g) + 1.5 * _nbytes(*flat),
-                       FLAGSHIP_P * (2 * sum(per_row) + sum(per_row[1:])), BF16_FLOPS_PER_S)
-        print(f"time wide bf16 {name} B={FLAGSHIP_B} P={FLAGSHIP_P} φ [{width}, {width}] residual, device alone "
-              f"(CUDA graphs): K1 [{variants[0]}] {k1_ms[0]:.4f} / {k1_ms[1]:.4f} ms (general variant "
-              f"{general_ms:.4f}), plain {k1_plain:.4f} (events), bound {fwd[0]:.4f} by {fwd[1]}, "
-              f"×{min(k1_ms) / fwd[0]:.1f}; K2 without d_points [{variants[1]}] {k2_ms[0]:.4f} / {k2_ms[1]:.4f} ms, "
-              f"plain {k2_plain:.4f} (events), bound {bwd[0]:.4f} by {bwd[1]}, ×{min(k2_ms) / bwd[0]:.1f} [{smi}]")
-        if variants != ("wide", "wide"):
+        bwd_bytes = _nbytes(points, seg, g) + 1.5 * _nbytes(*flat)
+        bwd_ops = p * (2 * sum(per_row) + sum(per_row[1:]))
+        bwd = bound_ms(bwd_bytes, bwd_ops, BF16_FLOPS_PER_S)
+        bwd_scratch = bound_ms(bwd_bytes + _k2_scratch_bytes(p, width, 2), bwd_ops, BF16_FLOPS_PER_S)
+        k2_rel, k2_fro, k2_same = _k2_held(points, seg, g, spec, params, b1)
+        departed = _h1_departures(points, seg, g, spec, params, b1) if one_block else None
+        beside_k1 = (f"sliced K2 (timing entry) {sliced_ms[0]:.4f} / {sliced_ms[1]:.4f} ms, "
+                     f"×{min(sliced_ms) / min(k2_ms):.2f} the {variants[1]} form's" if one_block
+                     else f"general variant {general_ms:.4f}")
+        print(f"time wide bf16 {name} B={b} P={p} φ [{width}, {width}] residual, device alone "
+              f"(CUDA graphs): K1 [{variants[0]}] {k1_ms[0]:.4f} / {k1_ms[1]:.4f} ms, plain {k1_plain:.4f} "
+              f"(events), bound {fwd[0]:.4f} by {fwd[1]}, ×{min(k1_ms) / fwd[0]:.1f}; K2 without d_points "
+              f"[{variants[1]}] {k2_ms[0]:.4f} / {k2_ms[1]:.4f} ms ({beside_k1}), plain {k2_plain:.4f} (events), "
+              f"bound {bwd[0]:.4f} by {bwd[1]}, ×{min(k2_ms) / bwd[0]:.1f}; with the [P, W] bf16 scratch's "
+              f"bytes {bwd_scratch[0]:.4f} by {bwd_scratch[1]}, ×{min(k2_ms) / bwd_scratch[0]:.1f} [{smi}]")
+        print(f"kernel K2 bf16 {name} B={b} P={p} d_points on [{variants[1]} variant]: max_rel_err {k2_rel:.3e}, "
+              f"rel_fro {k2_fro:.3e} (bound {BWD_BF16_FRO:.0e}); a second run is "
+              f"{'bit-equal' if k2_same else 'NOT bit-equal'}")
+        if variants != ("sliced" if one_block else "wide", "wide"):
             raise AssertionError(f"wide bf16 {name}: variants {variants}")
-        readings["phi_pool"][name] = dict(variant=variants[0], ms=min(k1_ms), general_ms=general_ms,
-                                          plain_ms=k1_plain, bound_ms=fwd[0], bound_by=fwd[1])
-        readings["phi_pool_bwd"][name] = dict(variant=variants[1], ms=min(k2_ms), plain_ms=k2_plain,
-                                              bound_ms=bwd[0], bound_by=bwd[1])
+        if not (k2_fro <= BWD_BF16_FRO and k2_same):
+            raise AssertionError(f"bf16 K2 {name}: {k2_fro:.3e} / bit-equal {k2_same}")
+        if departed is not None:
+            share = departed[0] / (p * width)
+            print(f"check K2 bf16 {name} B={b} P={p} [{variants[1]} variant]: h1 recomputed by K2 differs from "
+                  f"K1's forward ({variants[0]} variant, gelu) in {departed[0]} of {p * width} values, share "
+                  f"{share:.3e} (bound {H1_DEPARTURE_SHARE:.0e}), the largest difference {departed[1]:.3e}")
+            if share > H1_DEPARTURE_SHARE:
+                raise AssertionError(f"bf16 K2 {name}: h1 departs from K1's forward in a share {share:.3e}")
+        readings["phi_pool"][name] = dict(variant=variants[0], ms=min(k1_ms), plain_ms=k1_plain, bound_ms=fwd[0],
+                                          bound_by=fwd[1], **({} if one_block else dict(general_ms=general_ms)))
+        readings["phi_pool_bwd"][name] = dict(
+            variant=variants[1], ms=min(k2_ms), plain_ms=k2_plain, bound_ms=bwd[0], bound_by=bwd[1],
+            bound_scratch_ms=bwd_scratch[0], max_rel_err=k2_rel, rel_fro=k2_fro,
+            **(dict(sliced_ms=min(sliced_ms), h1_departures=departed[0], h1_departure_max_abs=departed[1])
+               if one_block else {}))
         del points, params
         # f32 K2 at the same chain: the tf32x3 variant, device alone, twice
-        # around its plain version
-        points, seg, params = phi_inputs(FLAGSHIP_B, FLAGSHIP_P, torch.float32, SEED + 31, widths=widths)
+        # around the general (sliced at φ 256) variant and its plain version
+        points, seg, params = phi_inputs(b, p, torch.float32, SEED + 31, widths=widths)
         f32_k2 = lambda: _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1, with_points=False)  # noqa: E731
+        f32_old = lambda: _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1,  # noqa: E731
+                                             with_points=False, general=True)
         f32_ms = [graph_ms(f32_k2, iters=5)]
-        f32_general = graph_ms(lambda: _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1,
-                                                          with_points=False, general=True), iters=2, replays=1)
+        if one_block:
+            old_ms = [graph_ms(f32_old, iters=5), graph_ms(f32_old, iters=5)]
+            f32_old()
+            old_variant, f32_general = phi_pool.bwd_variant, min(old_ms)
+        else:
+            f32_general = graph_ms(f32_old, iters=2, replays=1)
+            old_variant = "general"
         f32_plain = cuda_ms(lambda: phi_pool_bwd_plain(points, seg, g, spec, params, "gelu", b1, with_points=False),
                             iters=5, warmup=2)
         f32_ms.append(graph_ms(f32_k2, iters=5))
-        # held on the same inputs, d_points on: P = 65,536 sums each d_W over
-        # thousands of points a block (PHI_CASES hold it at P = 1001)
-        got, again, want = ([d_points, *grads] for d_points, grads in (
-            _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1),
-            _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1),
-            phi_pool_bwd_plain(points, seg, g, spec, params, "gelu", b1)))
-        errs = [_errors(a, c) for a, c in zip(got, want, strict=True)]
-        f32_rel, f32_fro = max(e[1] for e in errs), max(e[2] for e in errs)
-        same = all(torch.equal(a, c) for a, c in zip(got, again, strict=True))
-        print(f"kernel K2 f32 {name} B={FLAGSHIP_B} P={FLAGSHIP_P} d_points on [{phi_pool.bwd_variant} variant]: "
+        f32_rel, f32_fro, same = _k2_held(points, seg, g, spec, params, b1)
+        print(f"kernel K2 f32 {name} B={b} P={p} d_points on [{phi_pool.bwd_variant} variant]: "
               f"max_rel_err {f32_rel:.3e} (bound {BWD_F32_REL:.0e}), rel_fro {f32_fro:.3e} (bound "
               f"{BWD_F32_FRO:.0e}); a second run is {'bit-equal' if same else 'NOT bit-equal'}")
         if not (f32_rel <= BWD_F32_REL and f32_fro <= BWD_F32_FRO and same):
             raise AssertionError(f"f32 K2 {name}: {f32_rel:.3e} / {f32_fro:.3e} / bit-equal {same}")
-        del got, again, want
         flat = [t for layer in params for t in layer]
         f32_bytes = _nbytes(points, seg, g) + 2 * _nbytes(*flat)
-        f32_ops = FLAGSHIP_P * (2 * sum(per_row) + sum(per_row[1:]))
+        f32_ops = p * (2 * sum(per_row) + sum(per_row[1:]))
         f32_bound, tc_bound = bound_ms(f32_bytes, f32_ops), tf32x3_bound_ms(f32_bytes, f32_ops)
-        print(f"time K2 f32 {name} B={FLAGSHIP_B} P={FLAGSHIP_P} without d_points [{phi_pool.bwd_variant} variant], "
+        tc_scratch = tf32x3_bound_ms(f32_bytes + _k2_scratch_bytes(p, width, 4), f32_ops)
+        print(f"time K2 f32 {name} B={b} P={p} without d_points [{phi_pool.bwd_variant} variant], "
               f"device alone (CUDA graphs): {f32_ms[0]:.4f} / {f32_ms[1]:.4f} ms, plain {f32_plain:.4f} (events); "
               f"bound {f32_bound[0]:.4f} by {f32_bound[1]} (67 TFLOP/s f32), ×{min(f32_ms) / f32_bound[0]:.1f}, "
-              f"3xTF32 {tc_bound[0]:.4f} (495 TFLOP/s), ×{min(f32_ms) / tc_bound[0]:.1f}; the general variant "
-              f"{f32_general:.4f} ms (CUDA graph), ×{f32_general / min(f32_ms):.1f} [{smi}]")
-        if phi_pool.bwd_variant != "tf32x3":
-            raise AssertionError(f"f32 K2 {name}: the {phi_pool.bwd_variant} variant ran")
+              f"3xTF32 {tc_bound[0]:.4f} (495 TFLOP/s), ×{min(f32_ms) / tc_bound[0]:.1f}, with the [P, W] f32 "
+              f"scratch's bytes {tc_scratch[0]:.4f} by {tc_scratch[1]}, ×{min(f32_ms) / tc_scratch[0]:.1f}; the "
+              f"{old_variant} variant {f32_general:.4f} ms (CUDA graph"
+              f"{', in turns' if one_block else ''}), ×{f32_general / min(f32_ms):.2f} [{smi}]")
+        if phi_pool.bwd_variant != "tf32x3" or old_variant != ("sliced" if one_block else "general"):
+            raise AssertionError(f"f32 K2 {name}: the {phi_pool.bwd_variant} and {old_variant} variants ran")
         readings["phi_pool_bwd"][f"f32 {name}"] = dict(
             variant=phi_pool.bwd_variant, ms=min(f32_ms), plain_ms=f32_plain, bound_ms=f32_bound[0],
-            bound_by=f32_bound[1], bound_tf32x3_ms=tc_bound[0], general_ms=f32_general,
+            bound_by=f32_bound[1], bound_tf32x3_ms=tc_bound[0], bound_tf32x3_scratch_ms=tc_scratch[0],
+            **{"sliced_ms" if one_block else "general_ms": f32_general},
             max_rel_err=f32_rel, rel_fro=f32_fro)
         del points, seg, params, g
         torch.cuda.empty_cache()
@@ -1689,7 +1779,7 @@ def flagship_train_phase(work_dir: str) -> dict:
             raise AssertionError(f"flagship {arm}: not both wires ran: {wires.forwards}")
         if not (wires.k1["dense"] >= wires.forwards["dense"] and wires.k2["dense"] > 0):
             raise AssertionError(f"flagship {arm}: K1/K2 did not launch on every dense batch")
-        if arm.startswith("bf16") and wires.variants["dense"] != {"K1 sliced", "K2 sliced"}:
+        if arm.startswith("bf16") and wires.variants["dense"] != {"K1 sliced", "K2 wide"}:
             raise AssertionError(f"flagship {arm}: dense variants {wires.variants['dense']}")
         if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
             raise AssertionError(f"flagship {arm}: training did not learn: {losses}")
@@ -3783,7 +3873,8 @@ PROFILE_MARK_CYCLES = 1000
 # reduce_slabs_kernel, K5's selection its two range kernels)
 REPLAY_KERNELS = (
     (("phi_pool",), ("phi_pool_kernel", "phi_pool_sliced_kernel", "phi_pool_tf32x3_kernel")),
-    (("phi_pool_bwd",), ("phi_pool_bwd_kernel", "phi_pool_bwd_sliced_kernel")),
+    (("phi_pool_bwd",), ("phi_pool_bwd_kernel", "phi_pool_bwd_sliced_kernel", "phi_pool_bwd_tf32x3_kernel",
+                         "phi_pool_bwd_wide_kernel")),
     (("gat_attention",), ("gat_attention_pieces_kernel", "gat_attention_channels_kernel")),
     (("gat_attention_bwd",), ("gat_bwd_rows_kernel",)),
     (("gat_out_rows",), ("gat_out_rows_kernel",)),

@@ -36,8 +36,13 @@
 //   evaluated once per element and not once per block.
 // - The wide product is phi_chain.cuh:slice_dot: mma.sync m16n8k16 on the
 //   tensor cores (f32 accumulation, one rounding to bf16 where the plain
-//   version rounds: the dot, then the bias add).  K2's bf16 recompute is the
-//   same two functions, so both kernels round at the same points.
+//   version rounds: the dot, then the bias add).  K2's bf16 recompute at
+//   this chain (the wide variant's one-block form, phi_pool_bwd.cu) takes
+//   the wide product in slice_dot's order of 16-k steps and rounds where
+//   slice_dot's epilogue does; its first layer is the wide K1's (a
+//   tensor-core product, kWideFast), so an h1 value may land one bf16 step
+//   from this kernel's (phi_pool_bwd.cu says where, and what the card
+//   reads of it).
 // - Pooling: each block adds run-length partial sums of its 64 columns over
 //   16-row quarters of the tile into the zeroed f32 output with atomicAdd:
 //   flat-wire points are contiguous per event, so a quarter holds one or two
@@ -895,17 +900,22 @@ int pcc_phi_pool_general(const void* points, const void* seg, void* out, int n_p
                          kinds, weights, biases, act, is_bf16, stream, false);
 }
 
-// Which variant a launch takes, K1's when backward is 0 and K2's otherwise:
-// 1 the sliced variant (phi_chain.cuh:takes_sliced), 2 the tf32x3 variant
-// (f32: tf32x3_plan for K1, phi_tf32.cuh:bwd_tf32x3_plan for K2), 3 the wide
-// one (bf16: phi_wide.cuh:wide_plan), 0 the general one.
+// Which variant a launch takes, K1's when backward is 0 and K2's otherwise,
+// through pcc_phi_pool / pcc_phi_pool_bwd (redesigned 1) or their _general
+// timing entries (0), in the order the launches try them: 2 the tf32x3
+// variant (f32: tf32x3_plan for K1, phi_tf32.cuh:bwd_tf32x3_plan for K2),
+// 3 the wide one (bf16: phi_wide.cuh:wide_plan), 1 the sliced one
+// (phi_chain.cuh:takes_sliced: bf16 K1 at the DeepSets chain of φ 256, and
+// K2 there only through pcc_phi_pool_bwd_general), 0 the general one.
 int pcc_phi_pool_variant(int n_layers, const int* dims, const int* kinds, int is_bf16,
-                         int backward) {
+                         int backward, int redesigned) {
   if (n_layers < 1 || n_layers > kMaxLayers) return 0;
+  if (redesigned != 0) {
+    if (backward == 0 && tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0).cluster > 0) return 2;
+    if (backward != 0 && bwd_tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0).form > 0) return 2;
+    if (wide_plan(n_layers, dims, kinds, is_bf16 != 0, backward != 0).cluster > 0) return 3;
+  }
   if (takes_sliced(n_layers, dims, kinds, is_bf16 != 0, backward != 0)) return 1;
-  if (backward == 0 && tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0).cluster > 0) return 2;
-  if (backward != 0 && bwd_tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0).form > 0) return 2;
-  if (wide_plan(n_layers, dims, kinds, is_bf16 != 0, backward != 0).cluster > 0) return 3;
   return 0;
 }
 

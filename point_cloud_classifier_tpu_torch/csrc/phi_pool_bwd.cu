@@ -23,13 +23,16 @@
 // device memory and must then read and write once per tile.
 //
 // Four variants, chosen by the chain's shape and element type alone
-// (phi_chain.cuh:takes_sliced, phi_tf32.cuh:bwd_tf32x3_plan,
-// phi_wide.cuh:wide_plan; pcc_phi_pool_variant in phi_pool.cu reports the
-// choice):
+// (phi_tf32.cuh:bwd_tf32x3_plan, phi_wide.cuh:wide_plan, then
+// phi_chain.cuh:takes_sliced; pcc_phi_pool_variant in phi_pool.cu reports
+// the choice):
 //
 // Sliced (a first layer of at most 8 inputs, then one 256 -> 256 layer: the
-// DeepSets φ chain).  A cluster of four blocks walks 64-row tiles; block c
-// owns columns [64c, 64c + 64) of the wide layer, as in K1.
+// DeepSets φ chain).  The one-block forms of the tf32x3 and the wide
+// variants take this chain in pcc_phi_pool_bwd; the sliced variant runs
+// only through pcc_phi_pool_bwd_general, which times it beside them.  A
+// cluster of four blocks walks 64-row tiles; block c owns columns [64c, 64c
+// + 64) of the wide layer, as in K1.
 // - d_W stays in registers.  Block c's slice of d_W, [256, 64] f32, is 64
 //   accumulators in each of its 256 threads, and they live there from the
 //   block's first tile to its last; d_b and the first layer's d_W and d_b are
@@ -64,17 +67,19 @@
 //   f32 share of dz·Wᵀ is 65 KB of it) and 128 registers a thread where d_W
 //   and the small gradients alone are 104 accumulators.
 //
-// Wide (bf16, the DeepSets chain at widths W of 320 to 1024 in multiples of
+// Wide (bf16, the DeepSets chain at widths W of 256 to 1024 in multiples of
 // 64: a first layer of at most 8 inputs, then one square layer, plain or
-// residual; bench.py's --phi-width rows in its default dtype).  Two kernels
-// in one launch sequence, then reduce_slabs_kernel three times.
+// residual; the config chain and bench.py's flagship at 256, its
+// --phi-width rows in its default dtype).  Two kernels in one launch
+// sequence, then one reduce_slabs_kernel launch for its three sums.
 // - What bounds it: the operations, three products of 2·P·W² over 989
 //   TFLOP/s (0.42 ms at B=256, P=65,536, W=1024).  d_W of the square layer
 //   is [W, W] f32, 4 MB at 1024: no SM holds it, and the general variant's
 //   per-block slabs moved it in and out of device memory every 8-row tile.
-// - The row pass runs on K1's wide skeleton (phi_wide.cuh): a cluster of two
-//   (W <= 512) or four blocks a 64-row tile, block r owning columns [r nb,
-//   (r + 1) nb).  Per tile: h1 = act(x·W1 + b1) by one tensor-core product
+// - The row pass runs on K1's wide skeleton (phi_wide.cuh): one block (W
+//   256, below), a cluster of two (W <= 512) or four blocks a 64-row tile,
+//   block r owning columns [r nb, (r + 1) nb).  Per tile: h1 = act(x·W1 +
+//   b1) by one tensor-core product
 //   from W1's columns kept in shared memory (the same operands and
 //   instruction as K1's first layer, so the same bits), into every block's
 //   h; z2 = h1·W2 (W2 staged by k); dz2 = rnd(g[seg]) ⊙ act'(z2) into every
@@ -100,8 +105,31 @@
 //   [1024, 64] of d_W in f32 (256 KB), so d_W2 at width 1024 would take
 //   sixteen blocks' registers, each block recomputing the chain for every
 //   point.
+// - W 256: one block a tile owns all 256 columns, so dz2·W2ᵀ is whole inside
+//   it: no exchange through distributed shared memory and no cluster
+//   barrier, where the sliced variant spends most of a tile's clocks on
+//   them and on its per-element passes.  All of W2 (128 KB bf16, rows of
+//   kLdK) stays in shared memory for the block's life, as the sliced
+//   variant keeps its slice, rather than streaming W2 from L2 through the
+//   stages twice a tile as at W > 256 (kResident false for C = 1 streams
+//   it: PERF.md §6 has the two forms against each other, scripts/k2_ab.py).
+//   Where the recompute differs from the forward of bf16 K1 (the sliced
+//   variant at this chain): the first layer.  K1 sums its <= 8 products in
+//   f32 FMAs in k order (first_dots) and takes kFastSigmoid's activation
+//   (tanhf, an exact reciprocal); this form sums them in one tensor-core
+//   product and takes kWideFast's, as the clusters do.  Each h1 value is
+//   then rounded to bf16 and lands on K1's but where the f32 values fall on
+//   either side of a bf16 rounding boundary (one bf16 step apart; where
+//   x·W1 + b1 cancels to near 0, a step of the dot), and z1 likewise.  The second layer does not add a difference: z2's 16-k
+//   steps run in slice_dot's order, each mma.sync adding the same products
+//   of the same bf16 h1 to the same sum, and both round the dot and then the
+//   bias add, so z2 equals K1's wherever h1 does.  K1's first layer (f32
+//   FMAs, kFastSigmoid) in this form would make the recompute bit-equal to
+//   K1's forward, and took the form ×1.38 longer on the H100 (PERF.md §6):
+//   not kept.  How many h1 values differ is read on the card
+//   (pcc_phi_pool_bwd_h1_departures; under one in a million, PERF.md §6).
 //
-// Tf32x3 (f32: the DeepSets chain at W = 320 to 1024 in multiples of 64, as
+// Tf32x3 (f32: the DeepSets chain at W = 256 to 1024 in multiples of 64, as
 // the wide variant takes it in bf16; and the tail's one bare layer [in, out],
 // each a multiple of 64 from 256 to 1024).  The wide variant's structure on
 // f32 K1's tf32x3 skeleton (phi_tf32.cuh): every product is three TF32
@@ -110,8 +138,10 @@
 // - What bounds it: the operations, three products of 2·P·W² taken as three
 //   TF32 products each, over 495 TFLOP/s (2.51 ms at B=256, P=65,536, W =
 //   1024).  d_W2 is [W, W] f32 (4 MB at 1024): no SM holds it.
-// - The row pass, on K1's tf32x3 skeleton: a cluster of two blocks (W <= 512)
-//   a 64-row tile or four a 32-row tile (64 rows of f32 h at W = 1024 would be
+// - The row pass, on K1's tf32x3 skeleton: one block a 64-row tile at W 256
+//   (as f32 K1 takes that width: dz2·W2ᵀ whole inside the block, no
+//   exchange, no cluster barrier), a cluster of two blocks (W <= 512) a
+//   64-row tile or four a 32-row tile (64 rows of f32 h at W = 1024 would be
 //   256 KB), block r owning columns [r nb, (r + 1) nb).  Per tile: h1 =
 //   act(x·W1 + b1) from W1's columns kept in shared memory (f32, split at
 //   each read: the same operands, split, tf32 products and epilogue as K1's
@@ -348,23 +378,58 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out[k] = Σ_b slabs[b · stride + k] for k < n, b in order: the
-// deterministic cross-block sum.
-__global__ void __launch_bounds__(kThreads)
-    reduce_slabs_kernel(const float* __restrict__ slabs, int n_slabs, size_t stride, int n,
-                        float* __restrict__ out) {
-  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < n; k += gridDim.x * blockDim.x) {
-    float s = 0.0f;
-    for (int b = 0; b < n_slabs; ++b) s += slabs[b * stride + k];
-    out[k] = s;
+// One deterministic cross-block sum: out[k] = Σ_b slabs[b · stride + k] for
+// k < n, b in order.
+struct SlabSum {
+  const float* slabs;
+  int n_slabs;
+  size_t stride;
+  int n;
+  float* out;
+};
+constexpr int kMaxSlabSums = 3;
+struct SlabSums {
+  SlabSum sum[kMaxSlabSums];
+  int first_block[kMaxSlabSums + 1];  // sum q takes blocks [first_block[q], first_block[q + 1])
+  int count;
+};
+
+// Up to kMaxSlabSums sums in one launch, each on blocks of its own, one
+// element a thread: the DeepSets chain's three (d_W1 and d_b1, d_W2, d_b2)
+// cost one launch.
+__global__ void __launch_bounds__(kThreads) reduce_slabs_kernel(const SlabSums sums) {
+  int q = 0;
+  while (q + 1 < sums.count && static_cast<int>(blockIdx.x) >= sums.first_block[q + 1]) ++q;
+  const SlabSum& job = sums.sum[q];
+  const int k = (blockIdx.x - sums.first_block[q]) * blockDim.x + threadIdx.x;
+  if (k >= job.n) return;
+  const float* __restrict__ slabs = job.slabs;
+  float s = 0.0f;
+  // unrolled so that eight loads are in flight ahead of their adds, which
+  // keep their order
+#pragma unroll 8
+  for (int b = 0; b < job.n_slabs; ++b) s += slabs[b * job.stride + k];
+  job.out[k] = s;
+}
+
+template <int N>
+cudaError_t reduce_slabs(const SlabSum (&jobs)[N], cudaStream_t stream) {
+  static_assert(N >= 1 && N <= kMaxSlabSums, "reduce_slabs takes 1 to kMaxSlabSums sums");
+  SlabSums sums = {};
+  sums.count = N;
+  for (int q = 0; q < N; ++q) {
+    sums.sum[q] = jobs[q];
+    sums.first_block[q + 1] = sums.first_block[q] + (jobs[q].n + kThreads - 1) / kThreads;
   }
+  if (sums.first_block[N] == 0) return cudaSuccess;
+  reduce_slabs_kernel<<<sums.first_block[N], kThreads, 0, stream>>>(sums);
+  return cudaGetLastError();
 }
 
 cudaError_t reduce_slabs(const float* slabs, int n_slabs, size_t stride, int n, float* out,
                          cudaStream_t stream) {
-  reduce_slabs_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(slabs, n_slabs,
-                                                                              stride, n, out);
-  return cudaGetLastError();
+  const SlabSum jobs[1] = {{slabs, n_slabs, stride, n, out}};
+  return reduce_slabs(jobs, stream);
 }
 
 // -- the sliced variant -------------------------------------------------------------
@@ -679,6 +744,14 @@ cudaError_t launch_sliced(const void* points, const void* seg, const void* g, vo
 // pp [64, 8] f32 (the block's share of d_points), the segment ids, the
 // mbarriers.  The chunk stream: W2 by k (z2 = h1·W2), then W2 by n (d_h1 =
 // dz2·W2ᵀ), each tile.
+// At C = 1 (W 256) the block owns every column: dz2·W2ᵀ is formed whole
+// inside it, and the cluster's paths (the writes into the neighbours' h, the
+// cluster barriers, the shares of d_points) are compiled out, the consumers'
+// own named barrier standing where a cluster barrier stood, and W2 [256,
+// kLdK] takes the stages' place: every thread copies it in once, both
+// products read it as they read a staged chunk (by k with ldmatrix .trans,
+// by n with plain ldmatrix, rows of kLdK), and the producers leave once it
+// has landed.
 template <int C>
 __global__ void __launch_bounds__(kWideThreads, 1)
     phi_pool_bwd_wide_kernel(const bf16* __restrict__ points, const int* __restrict__ seg,
@@ -688,25 +761,39 @@ __global__ void __launch_bounds__(kWideThreads, 1)
                              int num_segments, Chain chain, WideStream st, int ldh,
                              int n_small) {
   constexpr int S = kWideStagesK2;
+  constexpr bool kResident = C == 1;  // all of W2 in shared memory
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* h = reinterpret_cast<bf16*>(smem_raw);
   bf16* x = h + kWideRows * ldh;
   bf16* w1s = x + kWideRows * kXLd;
-  bf16* stages = w1s + kWideCols * kW1Ld;
-  float* pp = reinterpret_cast<float*>(stages + S * kStageByN);
+  bf16* stages = w1s + kWideCols * kW1Ld;  // the resident W2, or the ring of stages
+  float* pp = reinterpret_cast<float*>(stages + (kResident ? kWideCols * kLdK : S * kStageByN));
   int* segs = reinterpret_cast<int*>(pp + kWideRows * kMaxFeatures);
   uint64_t* full = reinterpret_cast<uint64_t*>(segs + kWideRows);
   uint64_t* empty = full + S;
 
-  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
+  int rank = 0;
   bf16* targets[C];
   const float* pp_all[C];
+  targets[0] = h;
+  pp_all[0] = pp;
+  if constexpr (C > 1) {
+    cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+    rank = static_cast<int>(cluster.block_rank());
 #pragma unroll
-  for (int q = 0; q < C; ++q) {
-    targets[q] = q == 0 ? h : cluster.map_shared_rank(h, (rank + q) % C);
-    pp_all[q] = cluster.map_shared_rank(pp, q);
+    for (int q = 0; q < C; ++q) {
+      targets[q] = q == 0 ? h : cluster.map_shared_rank(h, (rank + q) % C);
+      pp_all[q] = cluster.map_shared_rank(pp, q);
+    }
   }
+  // the consumers' barrier where a cluster of C > 1 meets its cluster's
+  const auto tile_sync = [] {
+    if constexpr (C > 1) {
+      cluster_sync();
+    } else {
+      bar_sync(kWideConsumerBar, kWideConsumers);
+    }
+  };
   const int width = chain.dims[1];
   const int nb = width / C, col0 = rank * nb;
   const int n_tiles = (n_points + kWideRows - 1) / kWideRows;
@@ -724,17 +811,29 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     w1s[n * kW1Ld + k] = n < nb && k < n_features ? W1[static_cast<size_t>(k) * width + col0 + n]
                                                  : from_f32<bf16>(0.0f);
   }
-  if (threadIdx.x == 0) {
+  if constexpr (kResident) {
+    const bf16* __restrict__ W2 = static_cast<const bf16*>(chain.w[1]);
+    for (int i = threadIdx.x; i < kWideCols * kWideCols / 8; i += kWideThreads) {
+      const int k = i / (kWideCols / 8), n = 8 * (i % (kWideCols / 8));
+      cp_async16(stages + k * kLdK + n, W2 + static_cast<size_t>(k) * kWideCols + n, true);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+  } else if (threadIdx.x == 0) {
     for (int q = 0; q < S; ++q) {
       mbar_init(full + q, kWideProducers);
       mbar_init(empty + q, kWideConsumerWarps);
     }
   }
   PhaseClock clk;
-  cluster_sync();  // x and w1s are set, and every block of the cluster has started
+  if constexpr (C > 1) {
+    cluster_sync();  // x and w1s are set, and every block of the cluster has started
+  } else {
+    __syncthreads();  // x, w1s (and the resident W2) are set
+  }
   if (threadIdx.x >= kWideConsumers) {
-    wide_produce<C, S>(st, stages, kStageByN, full, empty, rank, n_my_tiles);
-    cluster_sync();
+    if constexpr (!kResident) wide_produce<C, S>(st, stages, kStageByN, full, empty, rank, n_my_tiles);
+    if constexpr (C > 1) cluster_sync();
     return;
   }
   clk.mark(0);
@@ -756,12 +855,14 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     next.put_rows(x, kXLd, segs);
     if (tile + n_clusters < n_tiles) next.fetch(points, seg, tile + n_clusters, n_points, n_features);
     bar_sync(kWideConsumerBar, kWideConsumers);  // the tile's points and ids are in x and segs
-    // the first layer's a fragments: the tile's points, k < 16
+    // the first layer's a fragments: the tile's points, k < 16 (the
+    // clusters' tensor-core product)
     uint32_t ax[2][4];
     wide_a(ax, x, kXLd, 0);
     clk.mark(1);
 
-    cluster_sync();  // no block reads its h any more
+    // no block reads its h any more (at C = 1 the barrier above says so)
+    if constexpr (C > 1) cluster_sync();
     clk.mark(2);
     // h1 = act(rnd(rnd(x·W1) + b1)), this block's columns, into every block's
     // h and into h1s for the d_W pass (16-byte pieces: quad_gather)
@@ -785,7 +886,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
               v[2 * mt + e / 2] = pack_bf16(
                   layer_out<bf16, kWideFast>(dot[e], bias0, 0.0f, kPlain, decltype(a)::value, nullptr),
                   layer_out<bf16, kWideFast>(dot[e + 1], bias1, 0.0f, kPlain, decltype(a)::value,
-                                             nullptr));
+                                                 nullptr));
             }
           }
           const uint4 piece = quad_gather(v);
@@ -799,24 +900,28 @@ __global__ void __launch_bounds__(kWideThreads, 1)
       }
     });
     clk.mark(3);
-    cluster_sync();  // h1 is whole in every block
+    tile_sync();  // h1 is whole in every block
     clk.mark(4);
 
     // z2's dots for this block's columns: h1·W2
     float acc[2][kWideNt][4];
     zero(acc);
     for (int c = 0; c < n2; ++c, ++chunk) {
-      const int s = chunk % S;
-      mbar_wait(full + s, (chunk / S) & 1);
-      clk.mark(5);
-      wide_product<false>(acc, h, ldh, c * kWideChunk, chunk_steps(width, c), stages + s * kStageByN);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + s);
+      if constexpr (kResident) {
+        wide_product<false>(acc, h, ldh, c * kWideChunk, chunk_steps(width, c), stages + c * kWideChunk * kLdK);
+      } else {
+        const int s = chunk % S;
+        mbar_wait(full + s, (chunk / S) & 1);
+        clk.mark(5);
+        wide_product<false>(acc, h, ldh, c * kWideChunk, chunk_steps(width, c), stages + s * kStageByN);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + s);
+      }
       clk.mark(6);
     }
     bar_sync(kWideConsumerBar, kWideConsumers);
     clk.mark(7);
-    cluster_sync();  // no block reads its h any more
+    if constexpr (C > 1) cluster_sync();  // no block reads its h any more
     clk.mark(8);
     // dz2 = rnd(rnd(g[seg]) ⊙ act'(z2)), z2 = rnd(rnd(dot) + b2): padding ids
     // (>= S) and rows past the end get zero; into every block's h and dz2s
@@ -853,18 +958,23 @@ __global__ void __launch_bounds__(kWideThreads, 1)
       }
     });
     clk.mark(9);
-    cluster_sync();  // dz2 is whole in every block
+    tile_sync();  // dz2 is whole in every block
     clk.mark(10);
 
     // d_h1's dots for this block's columns: dz2·W2ᵀ, W2's rows by n
     zero(acc);
     for (int c = 0; c < n3; ++c, ++chunk) {
-      const int s = chunk % S;
-      mbar_wait(full + s, (chunk / S) & 1);
-      clk.mark(5);
-      wide_product<true>(acc, h, ldh, c * kWideChunk, chunk_steps(width, c), stages + s * kStageByN);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + s);
+      if constexpr (kResident) {
+        wide_product<true>(acc, h, ldh, c * kWideChunk, chunk_steps(width, c), stages + c * kWideChunk,
+                           kLdK);
+      } else {
+        const int s = chunk % S;
+        mbar_wait(full + s, (chunk / S) & 1);
+        clk.mark(5);
+        wide_product<true>(acc, h, ldh, c * kWideChunk, chunk_steps(width, c), stages + s * kStageByN);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + s);
+      }
       clk.mark(6);
     }
     bar_sync(kWideConsumerBar, kWideConsumers);  // h is read for no product any more
@@ -926,22 +1036,29 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     }
     if (d_points != nullptr) {
       // d_points = dz1·W1ᵀ: this block's share over its columns, then the
-      // rows of 64 / C per block summed over the shares in rank order
+      // rows of 64 / C per block summed over the shares in rank order (at C
+      // = 1 the share is the sum, written as it is formed)
       for (int i = threadIdx.x; i < kWideRows * kMaxFeatures; i += kWideConsumers) {
         const int r = i / kMaxFeatures, k = i % kMaxFeatures;
         float sum = 0.0f;
         for (int n = 0; n < nb; ++n) sum = fmaf(to_f32(h[r * ldh + col0 + n]), to_f32(w1s[n * kW1Ld + k]), sum);
-        pp[i] = sum;
-      }
-      cluster_sync();  // every block's share is whole
-      constexpr int kOwn = kWideRows / C;
-      if (threadIdx.x < kOwn * kMaxFeatures) {
-        const int r = rank * kOwn + threadIdx.x / kMaxFeatures, k = threadIdx.x % kMaxFeatures;
-        if (r < n_rows && k < n_features) {
-          float sum = pp_all[0][r * kMaxFeatures + k];
-#pragma unroll
-          for (int q = 1; q < C; ++q) sum += pp_all[q][r * kMaxFeatures + k];
+        if constexpr (C > 1) {
+          pp[i] = sum;
+        } else if (r < n_rows && k < n_features) {
           d_points[static_cast<size_t>(row0 + r) * n_features + k] = from_f32<bf16>(sum);
+        }
+      }
+      if constexpr (C > 1) {
+        cluster_sync();  // every block's share is whole
+        constexpr int kOwn = kWideRows / C;
+        if (threadIdx.x < kOwn * kMaxFeatures) {
+          const int r = rank * kOwn + threadIdx.x / kMaxFeatures, k = threadIdx.x % kMaxFeatures;
+          if (r < n_rows && k < n_features) {
+            float sum = pp_all[0][r * kMaxFeatures + k];
+#pragma unroll
+            for (int q = 1; q < C; ++q) sum += pp_all[q][r * kMaxFeatures + k];
+            d_points[static_cast<size_t>(row0 + r) * n_features + k] = from_f32<bf16>(sum);
+          }
         }
       }
     }
@@ -953,11 +1070,14 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   // its cluster's slab: d_W1 [F, W], d_b1 [W], d_b2 [W].
   if (j < nb) {
     float* slab = slabs + static_cast<size_t>(blockIdx.x / C) * n_small;
-    for (int k = 0; k < n_features; ++k) slab[k * width + col0 + j] = dw1[k];
+#pragma unroll
+    for (int k = 0; k < kMaxFeatures; ++k) {  // a constant index: dw1 stays in registers
+      if (k < n_features) slab[k * width + col0 + j] = dw1[k];
+    }
     slab[n_features * width + col0 + j] = db1;
     slab[(n_features + 1) * width + col0 + j] = db2;
   }
-  cluster_sync();  // no block leaves while a neighbour may still read or write it
+  if constexpr (C > 1) cluster_sync();  // no block leaves while a neighbour may still read or write it
   clk.mark(14);
   clk.flush();
 }
@@ -1256,16 +1376,12 @@ cudaError_t launch_dw(const T* a_rows, const T* b_rows, const int* seg, int num_
 cudaError_t reduce_deep_sets(const float* base, const WideScratch& w, int n_clusters, int n_features,
                              int width, float* out, cudaStream_t stream) {
   const int first = n_features * width + width;
-  cudaError_t err = reduce_slabs(base + w.slabs, n_clusters, w.n_small, first, out, stream);
-  if (err == cudaSuccess) {
-    err = reduce_slabs(base + w.parts, w.dw.split, static_cast<size_t>(width) * width, width * width,
-                       out + first, stream);
-  }
-  if (err == cudaSuccess) {
-    err = reduce_slabs(base + w.slabs + first, n_clusters, w.n_small, width,
-                       out + first + width * width, stream);
-  }
-  return err;
+  const SlabSum jobs[3] = {
+      {base + w.slabs, n_clusters, static_cast<size_t>(w.n_small), first, out},
+      {base + w.parts, w.dw.split, static_cast<size_t>(width) * width, width * width, out + first},
+      {base + w.slabs + first, n_clusters, static_cast<size_t>(w.n_small), width,
+       out + first + width * width}};
+  return reduce_slabs(jobs, stream);
 }
 
 template <int C>
@@ -1282,24 +1398,67 @@ cudaError_t launch_wide(const void* points, const void* seg, const void* g, void
   float* base = static_cast<float*>(scratch);
   bf16* h1s = reinterpret_cast<bf16*>(base + w.h1);
   bf16* dz2s = reinterpret_cast<bf16*>(base + w.dz2);
+  // the chunk stream, and the cluster barriers that a cluster of C > 1
+  // meets between its phases (one block a tile meets none)
   WideStream st = {};
-  add_sync(st, 2);  // around h1's epilogue
+  if (C > 1) add_sync(st, 2);  // around h1's epilogue
   add_phase(st, chain.w[1], width, width, width, 0);
-  add_sync(st, 2);  // around dz2's epilogue
+  if (C > 1) add_sync(st, 2);  // around dz2's epilogue
   add_phase(st, chain.w[1], width, width, width, 1);
-  add_sync(st, d_points != nullptr ? 1 : 0);  // before the shares of d_points are summed
+  if (C > 1) add_sync(st, d_points != nullptr ? 1 : 0);  // before the shares of d_points are summed
   const int n_tiles = (n_points + kWideRows - 1) / kWideRows;
   int n_clusters = n_tiles < fit ? n_tiles : fit;
   if (n_clusters > max_blocks / C) n_clusters = max_blocks / C;  // one slab per cluster
-  err = launch_cluster_grid(
-      kernel, C, n_clusters, kWideThreads, plan.smem, stream, static_cast<const bf16*>(points),
-      static_cast<const int*>(seg), static_cast<const float*>(g), static_cast<bf16*>(d_points), h1s,
-      dz2s, base + w.slabs, n_points, n_features, num_segments, chain, st, plan.ldh, w.n_small);
+  const bf16* p = static_cast<const bf16*>(points);
+  const int* s = static_cast<const int*>(seg);
+  const float* gg = static_cast<const float*>(g);
+  bf16* dp = static_cast<bf16*>(d_points);
+  if constexpr (C == 1) {
+    kernel<<<n_clusters, kWideThreads, plan.smem, stream>>>(p, s, gg, dp, h1s, dz2s, base + w.slabs,
+                                                            n_points, n_features, num_segments, chain,
+                                                            st, plan.ldh, w.n_small);
+    err = cudaGetLastError();
+  } else {
+    err = launch_cluster_grid(kernel, C, n_clusters, kWideThreads, plan.smem, stream, p, s, gg, dp, h1s,
+                              dz2s, base + w.slabs, n_points, n_features, num_segments, chain, st,
+                              plan.ldh, w.n_small);
+  }
   if (err != cudaSuccess) return err;
   err = launch_dw<bf16, false>(h1s, dz2s, nullptr, 0, base + w.parts, nullptr, n_points, width, width,
                                w.dw, stream);
   if (err != cudaSuccess) return err;
   return reduce_deep_sets(base, w, n_clusters, n_features, width, static_cast<float*>(d_params), stream);
+}
+
+// The one-block wide form's h1 (its scratch, [P, W] bf16) against bf16 K1's
+// forward at that chain (the sliced variant: first_dots' f32 FMAs in k order,
+// kFastSigmoid): counts[0] += the values whose bits differ, counts[1] = the
+// largest |difference| of one in units of 2^-24 (in bf16 steps it says
+// little: where z1 = x·W1 + b1 cancels to near 0, one bf16 step of the dot
+// is thousands of steps of the small value).  A check for the card, off the
+// path: how often the recompute departs from what K1 pooled.
+__global__ void __launch_bounds__(kThreads)
+    h1_departures_kernel(const bf16* __restrict__ points, const bf16* __restrict__ w1,
+                         const bf16* __restrict__ b1, const bf16* __restrict__ h1s, int n_points,
+                         int n_features, int width, int act, unsigned long long* counts) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<size_t>(n_points) * width) return;
+  const int row = static_cast<int>(i / width), col = static_cast<int>(i % width);
+  float dot = 0.0f;
+  for (int k = 0; k < n_features; ++k) {
+    dot = fmaf(to_f32(points[static_cast<size_t>(row) * n_features + k]),
+               to_f32(w1[static_cast<size_t>(k) * width + col]), dot);
+  }
+  float v = 0.0f;
+  with_act(act, [&](auto a) {
+    v = layer_out<bf16, kFastSigmoid<bf16>>(dot, to_f32(b1[col]), 0.0f, kPlain, decltype(a)::value,
+                                            nullptr);
+  });
+  const bf16 k1 = __float2bfloat16_rn(v);
+  if (__bfloat16_as_ushort(k1) == __bfloat16_as_ushort(h1s[i])) return;
+  const float diff = fabsf(__bfloat162float(h1s[i]) - __bfloat162float(k1));
+  atomicAdd(counts, 1ull);
+  atomicMax(counts + 1, static_cast<unsigned long long>(diff * 16777216.0f + 0.5f));
 }
 
 // -- the tf32x3 variant (f32): the row pass --------------------------------------------
@@ -1331,6 +1490,10 @@ __device__ __forceinline__ void first_dot(float (&dot)[2][4], const uint32_t (&a
 // The chain [F, W, W] in f32: h1 = act(z1), z1 = x·W1 + b1; z2 = h1·W2 + b2.
 // A cluster of C blocks walks ROWS-row tiles on f32 K1's tf32x3 skeleton
 // (phi_tf32.cuh), block r owning columns [r nb, (r + 1) nb) of both layers.
+// At C = 1 (W 256) the block owns every column: dz2·W2ᵀ is formed whole
+// inside it, and the cluster's paths (the writes into the neighbours' h, the
+// cluster barriers, the shares of d_points) are compiled out, the consumers'
+// own named barrier standing where a cluster barrier stood.
 // Shared memory: h [ROWS, ldh] (h1, then dz2, then in this block's columns
 // dz1), x [2][ROWS, kTf32XLd] (this tile's points and the next's), w1s
 // [256, kRingLd] (this block's columns of W1 by n, f32, zero past F), pp
@@ -1358,15 +1521,28 @@ __global__ void __launch_bounds__(kTf32Threads, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(segs + 2 * ROWS);
   uint64_t* empty = full + kStages;
 
-  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
+  int rank = 0;
   float* targets[C];
   const float* pp_all[C];
+  targets[0] = h;
+  pp_all[0] = pp;
+  if constexpr (C > 1) {
+    cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+    rank = static_cast<int>(cluster.block_rank());
 #pragma unroll
-  for (int q = 0; q < C; ++q) {
-    targets[q] = q == 0 ? h : cluster.map_shared_rank(h, (rank + q) % C);
-    pp_all[q] = cluster.map_shared_rank(pp, q);
+    for (int q = 0; q < C; ++q) {
+      targets[q] = q == 0 ? h : cluster.map_shared_rank(h, (rank + q) % C);
+      pp_all[q] = cluster.map_shared_rank(pp, q);
+    }
   }
+  // the consumers' barrier where a cluster of C > 1 meets its cluster's
+  const auto tile_sync = [] {
+    if constexpr (C > 1) {
+      cluster_sync();
+    } else {
+      bar_sync(kConsumerBar, kConsumers);
+    }
+  };
   const int width = chain.dims[1];
   const int nb = width / C, col0 = rank * nb;
   const int n_tiles = (n_points + ROWS - 1) / ROWS;
@@ -1390,10 +1566,14 @@ __global__ void __launch_bounds__(kTf32Threads, 1)
     }
   }
   PhaseClock clk;
-  cluster_sync();  // x and w1s are set, and every block of the cluster has started
+  if constexpr (C > 1) {
+    cluster_sync();  // x and w1s are set, and every block of the cluster has started
+  } else {
+    __syncthreads();
+  }
   if (threadIdx.x >= kConsumers) {
     tf32_produce<C, kByBoth>(st, stages, full, empty, rank, n_my_tiles);
-    cluster_sync();
+    if constexpr (C > 1) cluster_sync();
     return;
   }
   clk.mark(0);
@@ -1425,7 +1605,8 @@ __global__ void __launch_bounds__(kTf32Threads, 1)
     }
     clk.mark(1);
 
-    cluster_sync();  // no block reads its h any more
+    // no block reads its h any more (at C = 1 the barrier above says so)
+    if constexpr (C > 1) cluster_sync();
     clk.mark(2);
     // h1 = act(x·W1 + b1), this block's columns, into every block's h and h1s
     {
@@ -1462,7 +1643,7 @@ __global__ void __launch_bounds__(kTf32Threads, 1)
       });
     }
     clk.mark(3);
-    cluster_sync();  // h1 is whole in every block
+    tile_sync();  // h1 is whole in every block
     clk.mark(4);
 
     // z2's dots for this block's columns: h1·W2
@@ -1470,7 +1651,7 @@ __global__ void __launch_bounds__(kTf32Threads, 1)
     stream_product<ROWS>(acc, h, ldh, n2, stages, full, empty, chunk, clk, 5, 6);
     bar_sync(kConsumerBar, kConsumers);
     clk.mark(7);
-    cluster_sync();  // no block reads its h any more
+    if constexpr (C > 1) cluster_sync();  // no block reads its h any more
     clk.mark(8);
     // dz2 = g[seg] ⊙ act'(z2), z2 = dot + b2 (zero for padding ids >= S and
     // rows past the end), into every block's h and dz2s
@@ -1504,7 +1685,7 @@ __global__ void __launch_bounds__(kTf32Threads, 1)
       }
     });
     clk.mark(9);
-    cluster_sync();  // dz2 is whole in every block
+    tile_sync();  // dz2 is whole in every block
     clk.mark(10);
 
     // d_h1's dots for this block's columns: dz2·W2ᵀ, W2's rows by n
@@ -1582,22 +1763,29 @@ __global__ void __launch_bounds__(kTf32Threads, 1)
     }
     if (d_points != nullptr) {
       // d_points = dz1·W1ᵀ: this block's share over its columns, then the
-      // rows of ROWS / C per block summed over the shares in rank order
+      // rows of ROWS / C per block summed over the shares in rank order (at
+      // C = 1 the share is the sum, written as it is formed)
       for (int i = threadIdx.x; i < ROWS * kMaxFeatures; i += kConsumers) {
         const int r = i / kMaxFeatures, k = i % kMaxFeatures;
         float sum = 0.0f;
         for (int n = 0; n < nb; ++n) sum = fmaf(h[r * ldh + col0 + n], w1s[n * kRingLd + k], sum);
-        pp[i] = sum;
-      }
-      cluster_sync();  // every block's share is whole
-      constexpr int kOwn = ROWS / C;
-      if (threadIdx.x < kOwn * kMaxFeatures) {
-        const int r = rank * kOwn + threadIdx.x / kMaxFeatures, k = threadIdx.x % kMaxFeatures;
-        if (r < n_rows && k < n_features) {
-          float sum = pp_all[0][r * kMaxFeatures + k];
-#pragma unroll
-          for (int q = 1; q < C; ++q) sum += pp_all[q][r * kMaxFeatures + k];
+        if constexpr (C > 1) {
+          pp[i] = sum;
+        } else if (r < n_rows && k < n_features) {
           d_points[static_cast<size_t>(row0 + r) * n_features + k] = sum;
+        }
+      }
+      if constexpr (C > 1) {
+        cluster_sync();  // every block's share is whole
+        constexpr int kOwn = ROWS / C;
+        if (threadIdx.x < kOwn * kMaxFeatures) {
+          const int r = rank * kOwn + threadIdx.x / kMaxFeatures, k = threadIdx.x % kMaxFeatures;
+          if (r < n_rows && k < n_features) {
+            float sum = pp_all[0][r * kMaxFeatures + k];
+#pragma unroll
+            for (int q = 1; q < C; ++q) sum += pp_all[q][r * kMaxFeatures + k];
+            d_points[static_cast<size_t>(row0 + r) * n_features + k] = sum;
+          }
         }
       }
     }
@@ -1615,7 +1803,7 @@ __global__ void __launch_bounds__(kTf32Threads, 1)
     slab[n_features * width + col0 + j] = db1;
     slab[(n_features + 1) * width + col0 + j] = db2;
   }
-  cluster_sync();  // no block leaves while a neighbour may still read or write it
+  if constexpr (C > 1) cluster_sync();  // no block leaves while a neighbour may still read or write it
   clk.mark(14);
   clk.flush();
 }
@@ -1719,21 +1907,32 @@ cudaError_t launch_tf32x3(const void* points, const void* seg, const void* g, vo
   float* base = static_cast<float*>(scratch);
   float* h1s = base + w.h1;
   float* dz2s = base + w.dz2;
+  // the chunk stream, and the cluster barriers that a cluster of C > 1
+  // meets between its phases (one block a tile meets none)
   SplitStream st = {};
-  add_sync(st, 2);  // around h1's epilogue
+  if (C > 1) add_sync(st, 2);  // around h1's epilogue
   add_phase(st, chain.w[1], width, width, width, 0);
-  add_sync(st, 2);  // around dz2's epilogue
+  if (C > 1) add_sync(st, 2);  // around dz2's epilogue
   add_phase(st, chain.w[1], width, width, width, 1);
-  add_sync(st, d_points != nullptr ? 1 : 0);  // before the shares of d_points are summed
+  if (C > 1) add_sync(st, d_points != nullptr ? 1 : 0);  // before the shares of d_points are summed
   const int n_tiles = (n_points + ROWS - 1) / ROWS;
   int n_clusters = n_tiles < fit ? n_tiles : fit;
   if (n_clusters > max_blocks / C) n_clusters = max_blocks / C;  // one slab per cluster
   const int vec4 = n_features % 4 == 0 && reinterpret_cast<uintptr_t>(points) % 16 == 0;
-  err = launch_cluster_grid(kernel, C, n_clusters, kTf32Threads, plan.smem, stream,
-                            static_cast<const float*>(points), static_cast<const int*>(seg),
-                            static_cast<const float*>(g), static_cast<float*>(d_points), h1s, dz2s,
-                            base + w.slabs, n_points, n_features, num_segments, chain, st, plan.ldh,
-                            vec4, w.n_small);
+  const float* p = static_cast<const float*>(points);
+  const int* s = static_cast<const int*>(seg);
+  const float* gg = static_cast<const float*>(g);
+  float* dp = static_cast<float*>(d_points);
+  if constexpr (C == 1) {
+    kernel<<<n_clusters, kTf32Threads, plan.smem, stream>>>(p, s, gg, dp, h1s, dz2s, base + w.slabs,
+                                                            n_points, n_features, num_segments, chain,
+                                                            st, plan.ldh, vec4, w.n_small);
+    err = cudaGetLastError();
+  } else {
+    err = launch_cluster_grid(kernel, C, n_clusters, kTf32Threads, plan.smem, stream, p, s, gg, dp, h1s,
+                              dz2s, base + w.slabs, n_points, n_features, num_segments, chain, st,
+                              plan.ldh, vec4, w.n_small);
+  }
   if (err != cudaSuccess) return err;
   err = launch_dw<float, false>(h1s, dz2s, nullptr, 0, base + w.parts, nullptr, n_points, width, width,
                                 w.dw, stream);
@@ -1805,12 +2004,10 @@ cudaError_t launch_tail_tf32x3(const void* points, const void* seg, const void* 
   if (err != cudaSuccess) return err;
   // d_params: d_W [in, out] from the partials, then d_b [out]
   float* out = static_cast<float*>(d_params);
-  err = reduce_slabs(base, d.split, static_cast<size_t>(in_dim) * out_dim, in_dim * out_dim, out,
-                     stream);
-  if (err == cudaSuccess) {
-    err = reduce_slabs(base + t.b_sums, d.split, out_dim, out_dim, out + in_dim * out_dim, stream);
-  }
-  return err;
+  const SlabSum jobs[2] = {
+      {base, d.split, static_cast<size_t>(in_dim) * out_dim, in_dim * out_dim, out},
+      {base + t.b_sums, d.split, static_cast<size_t>(out_dim), out_dim, out + in_dim * out_dim}};
+  return reduce_slabs(jobs, stream);
 }
 
 // -- the general variant's launch ------------------------------------------------------
@@ -1863,9 +2060,9 @@ cudaError_t launch_rows(const void* points, const void* seg, const void* g, void
   return too_wide();
 }
 
-// K2's launch: the sliced variant, else the tf32x3 variant (f32) or the
-// wide one (bf16) where its plan takes the chain and `redesigned` is set,
-// else the general one.
+// K2's launch: where `redesigned` is set, the tf32x3 variant (f32) or the
+// wide one (bf16) where its plan takes the chain; else the sliced variant
+// where it takes the chain; else the general one.
 int phi_pool_bwd_launch(const void* points, const void* seg, const void* g, void* d_points,
                         void* d_params, void* slabs, int max_blocks, int n_points,
                         int n_features, int num_segments, int n_layers, const int* dims,
@@ -1878,24 +2075,22 @@ int phi_pool_bwd_launch(const void* points, const void* seg, const void* g, void
   }
   const Chain chain = make_chain(n_layers, dims, kinds, weights, biases, act);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (takes_sliced(n_layers, dims, kinds, is_bf16 != 0, true)) {
-    const int n_param = dims[0] * dims[1] + dims[1] + dims[1] * dims[2] + dims[2];
-    const cudaError_t err =
-        is_bf16 ? launch_sliced<__nv_bfloat16>(points, seg, g, d_points, d_params, slabs,
-                                               max_blocks, n_points, n_features, num_segments,
-                                               chain, n_param, s)
-                : launch_sliced<float>(points, seg, g, d_points, d_params, slabs, max_blocks,
-                                       n_points, n_features, num_segments, chain, n_param, s);
-    return static_cast<int>(err);
-  }
   const BwdTf32Plan tf = bwd_tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0);
   if (redesigned && tf.form == 1) {
-    const cudaError_t err =
-        tf.cluster == 2
-            ? launch_tf32x3<64, 2>(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
-                                   n_features, num_segments, chain, tf, s)
-            : launch_tf32x3<32, 4>(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
+    cudaError_t err;
+    switch (tf.cluster) {
+      case 1:
+        err = launch_tf32x3<64, 1>(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
                                    n_features, num_segments, chain, tf, s);
+        break;
+      case 2:
+        err = launch_tf32x3<64, 2>(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
+                                   n_features, num_segments, chain, tf, s);
+        break;
+      default:
+        err = launch_tf32x3<32, 4>(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
+                                   n_features, num_segments, chain, tf, s);
+    }
     return static_cast<int>(err);
   }
   if (redesigned && tf.form == 2) {
@@ -1904,12 +2099,30 @@ int phi_pool_bwd_launch(const void* points, const void* seg, const void* g, void
   }
   const WidePlan wide = wide_plan(n_layers, dims, kinds, is_bf16 != 0, true);
   if (redesigned && wide.cluster > 0) {
-    const cudaError_t err =
-        wide.cluster == 2
-            ? launch_wide<2>(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
-                             n_features, num_segments, chain, wide, s)
-            : launch_wide<4>(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
+    cudaError_t err;
+    switch (wide.cluster) {
+      case 1:
+        err = launch_wide<1>(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
                              n_features, num_segments, chain, wide, s);
+        break;
+      case 2:
+        err = launch_wide<2>(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
+                             n_features, num_segments, chain, wide, s);
+        break;
+      default:
+        err = launch_wide<4>(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
+                             n_features, num_segments, chain, wide, s);
+    }
+    return static_cast<int>(err);
+  }
+  if (takes_sliced(n_layers, dims, kinds, is_bf16 != 0, true)) {
+    const int n_param = dims[0] * dims[1] + dims[1] + dims[1] * dims[2] + dims[2];
+    const cudaError_t err =
+        is_bf16 ? launch_sliced<__nv_bfloat16>(points, seg, g, d_points, d_params, slabs,
+                                               max_blocks, n_points, n_features, num_segments,
+                                               chain, n_param, s)
+                : launch_sliced<float>(points, seg, g, d_points, d_params, slabs, max_blocks,
+                                       n_points, n_features, num_segments, chain, n_param, s);
     return static_cast<int>(err);
   }
   if (weights_t == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -2023,6 +2236,31 @@ int pcc_phi_pool_bwd_scratch(int n_points, int n_layers, const int* dims, const 
   for (int l = 0; l < n_layers; ++l) n_param += static_cast<long long>(dims[l] + 1) * dims[l + 1];
   *out = n_param * max_blocks;
   return 0;
+}
+
+// After pcc_phi_pool_bwd on a bf16 chain that the one-block wide form
+// takes (the DeepSets chain at W 256) with this scratch: counts (two u64 on
+// the device, zeroed by the caller) get the h1 values of the scratch that
+// differ from bf16 K1's forward and the largest difference of one, in units
+// of 2^-24 (h1_departures_kernel).  Returns cudaErrorInvalidValue for another chain;
+// does not synchronise.
+int pcc_phi_pool_bwd_h1_departures(const void* points, const void* scratch, int max_blocks,
+                                   int n_points, int n_layers, const int* dims, const int* kinds,
+                                   const void* const* weights, const void* const* biases, int act,
+                                   void* counts, void* stream) {
+  if (n_points < 1 || max_blocks < 1 || n_layers != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (wide_plan(n_layers, dims, kinds, true, true).cluster != 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int width = dims[1];
+  const WideScratch w = wide_scratch(n_points, dims, 1, max_blocks, sizeof(bf16));
+  const size_t n = static_cast<size_t>(n_points) * width;
+  h1_departures_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(points), static_cast<const bf16*>(weights[0]),
+      static_cast<const bf16*>(biases[0]), reinterpret_cast<const bf16*>(static_cast<const float*>(scratch) + w.h1),
+      n_points, dims[0], width, act, static_cast<unsigned long long*>(counts));
+  return static_cast<int>(cudaGetLastError());
 }
 
 #ifdef PCC_PHASE_CLOCKS

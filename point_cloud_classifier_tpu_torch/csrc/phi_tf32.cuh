@@ -331,16 +331,18 @@ __device__ __forceinline__ void tf32_produce(const SplitStream& st, float* stage
     next_at = st.n_syncs > 0 && tile_base < total ? tile_base + st.sync_at[sync_i] : kNone;
   };
   const auto join = [&](int c) {
-    while (next_at + kStages <= c) {
-      if (!arrived) cluster_arrive_relaxed();
-      cluster_wait();
-      arrived = false;
-      ++sync_n;
-      find();
-    }
-    if (!arrived && next_at <= c) {
-      cluster_arrive_relaxed();
-      arrived = true;
+    if constexpr (C > 1) {  // one block a tile meets no cluster barrier
+      while (next_at + kStages <= c) {
+        if (!arrived) cluster_arrive_relaxed();
+        cluster_wait();
+        arrived = false;
+        ++sync_n;
+        find();
+      }
+      if (!arrived && next_at <= c) {
+        cluster_arrive_relaxed();
+        arrived = true;
+      }
     }
   };
   find();
@@ -431,10 +433,11 @@ __device__ __forceinline__ void fetch_tile(const float* __restrict__ points,
 // -- K2's plan -----------------------------------------------------------------------
 
 // Which f32 chains K2's tf32x3 variant takes (phi_pool_bwd.cu), by shape
-// alone: form 1, the DeepSets chain at widths W of 320 to 1024 in multiples
+// alone: form 1, the DeepSets chain at widths W of 256 to 1024 in multiples
 // of 64 (a plain first layer of at most 8 inputs, then one square layer,
-// plain or residual; W 256 is the sliced variant's), a row pass on clusters
-// of 2 (W <= 512, 64-row tiles) or 4 blocks (32-row tiles), then a d_W pass;
+// plain or residual), a row pass on one block a 64-row tile (W 256, the
+// block owning every column, as f32 K1 takes that width), clusters of 2 (W
+// <= 512, 64-row tiles) or 4 blocks (32-row tiles), then a d_W pass;
 // form 2, the tail's one bare layer [in, out], each a multiple of 64 from 256
 // to 1024: the d_W pass over the points and the gathered cotangent, and a row
 // product for d_points (64-row tiles up to out 512, else 32), its columns in
@@ -464,7 +467,7 @@ inline BwdTf32Plan bwd_tf32x3_plan(int n_layers, const int* dims, const int* kin
   if (is_bf16) return plan;
   int form = 0, k_width = 0, out_width = 0;
   if (n_layers == 2 && dims[0] >= 1 && dims[0] <= kMaxFeatures && dims[1] == dims[2] &&
-      dims[1] % 64 == 0 && dims[1] >= 320 && dims[1] <= 1024 && kinds[0] == kPlain &&
+      dims[1] % 64 == 0 && dims[1] >= 256 && dims[1] <= 1024 && kinds[0] == kPlain &&
       (kinds[1] == kPlain || kinds[1] == kResidual)) {
     form = 1;
     k_width = out_width = dims[1];

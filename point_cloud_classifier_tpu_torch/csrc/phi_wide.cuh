@@ -3,10 +3,11 @@
 // producer warps stage into shared memory, and the bf16 tile product on the
 // tensor cores that consumer warps run over it.
 //
-// A cluster of C blocks (2 up to width 512, 4 up to 1024) walks 64-row
-// tiles.  Block r owns columns [r nb, (r + 1) nb) of every layer (nb =
-// width / C, at most 256) and keeps the tile's whole layer input, [64,
-// width] bf16 (132 KB at width 1024), in its shared memory as h: every
+// A cluster of C blocks (2 up to width 512, 4 up to 1024; K2 takes one
+// block, C = 1, at width 256) walks 64-row tiles.  Block r owns columns
+// [r nb, (r + 1) nb) of every layer (nb = width / C, at most 256) and keeps
+// the tile's whole layer input, [64, width] bf16 (132 KB at width 1024), in
+// its shared memory as h: every
 // activation is a bf16 value where the plain version rounds, so h holds
 // exactly what the products read.  A layer's values are computed into
 // registers and, once every block of the cluster is done reading its h,
@@ -106,18 +107,23 @@ inline void add_sync(WideStream& st, int count) {
 }
 
 // Which chains the wide variants take: bf16, points of at most 8 features,
-// the widest layer above 256 and at most 1024, every width a multiple of 8
-// C, and not the sliced variant's chain.  K1 takes 1 to kMaxLayers layers of
-// any kind; K2 (backward) the DeepSets chain alone, a first plain layer and
-// one square layer of width 320 to 1024 in multiples of 64, plain or
-// residual.  cluster 0: not taken.
+// every width a multiple of 8 C.  K1 takes 1 to kMaxLayers layers of any
+// kind, the widest above 256 and at most 1024 (bf16 K1 at the DeepSets chain
+// of φ 256 is the sliced variant's); K2 (backward) the DeepSets chain alone,
+// a first plain layer and one square layer of width 256 to 1024 in
+// multiples of 64, plain or residual.  C: 1 block a tile up to width 256
+// (K2 alone), 2 up to 512, 4 up to 1024.  cluster 0: not taken.
 struct WidePlan {
   int cluster = 0, ldh = 0;
   size_t smem = 0;
 };
 
-inline size_t wide_smem(bool backward, int ldh) {
-  const size_t stages = backward ? size_t{kWideStagesK2} * kStageByN : size_t{kWideStagesK1} * kStageByK;
+// K2's one block a tile (width 256, resident) keeps all of W2, [256, kLdK]
+// bf16 (132 KB), in its shared memory in the stages' place
+inline size_t wide_smem(bool backward, int ldh, bool resident) {
+  const size_t stages = resident   ? size_t{kWideCols} * kLdK
+                        : backward ? size_t{kWideStagesK2} * kStageByN
+                                   : size_t{kWideStagesK1} * kStageByK;
   size_t bytes = sizeof(bf16) * (static_cast<size_t>(kWideRows) * (ldh + kXLd) + stages);
   if (backward) bytes += sizeof(bf16) * kWideCols * kW1Ld + sizeof(float) * kWideRows * kMaxFeatures;
   const int n_stages = backward ? kWideStagesK2 : kWideStagesK1;
@@ -128,24 +134,23 @@ inline WidePlan wide_plan(int n_layers, const int* dims, const int* kinds, bool 
                           bool backward) {
   WidePlan plan;
   if (!is_bf16 || n_layers < 1 || n_layers > kMaxLayers) return plan;
-  if (sliced_chain(n_layers, dims, kinds)) return plan;
   if (dims[0] < 1 || dims[0] > kMaxFeatures) return plan;
   int widest = 0;
   for (int l = 1; l <= n_layers; ++l) widest = dims[l] > widest ? dims[l] : widest;
-  if (widest <= kWide || widest > kWideMaxWidth) return plan;
-  const int cluster = widest <= 2 * kWideCols ? 2 : 4;
+  if (widest < (backward ? kWide : kWide + 1) || widest > kWideMaxWidth) return plan;
+  const int cluster = widest <= kWideCols ? 1 : widest <= 2 * kWideCols ? 2 : 4;
   for (int l = 1; l <= n_layers; ++l) {
     if (dims[l] % (8 * cluster) != 0) return plan;
   }
   for (int l = 0; l < n_layers; ++l) {
     if (kinds[l] == kResidual && dims[l] != dims[l + 1]) return plan;
   }
-  if (backward && (n_layers != 2 || dims[1] != dims[2] || dims[1] % 64 != 0 || dims[1] < 320 ||
+  if (backward && (n_layers != 2 || dims[1] != dims[2] || dims[1] % 64 != 0 || dims[1] < 256 ||
                    kinds[0] != kPlain || kinds[1] == kLinear)) {
     return plan;
   }
   plan.ldh = widest + 8;
-  plan.smem = wide_smem(backward, plan.ldh);
+  plan.smem = wide_smem(backward, plan.ldh, cluster == 1);
   if (plan.smem > kMaxSmem) return plan;
   plan.cluster = cluster;
   return plan;
@@ -251,10 +256,12 @@ __device__ __forceinline__ void wide_b(uint32_t (&b)[4], const bf16* stage, int 
 // steps of 16 k (steps is 1 or 2: the last chunk of a layer whose depth is
 // an odd multiple of 16 has one).  Every n8 tile of the warp is multiplied
 // with no test: a tile past the phase's columns reads stage rows no copy
-// wrote, and its sums are never used.
+// wrote, and its sums are never used.  A chunk by n has rows of ld_b
+// elements (kLdN staged; kLdK in the resident W2 of K2's one block a tile).
 template <bool BY_N>
 __device__ __forceinline__ void wide_product(float (&acc)[2][kWideNt][4], const bf16* in, int ld,
-                                             int k0, int steps, const bf16* stage) {
+                                             int k0, int steps, const bf16* stage,
+                                             int ld_b = kLdN) {
 #pragma unroll
   for (int kk = 0; kk < kWideChunk; kk += 16) {
     if (kk / 16 < steps) {
@@ -263,7 +270,7 @@ __device__ __forceinline__ void wide_product(float (&acc)[2][kWideNt][4], const 
 #pragma unroll
       for (int i = 0; i < kWideNt; i += 2) {
         uint32_t b[4];
-        wide_b<BY_N>(b, stage, i, kk);
+        wide_b<BY_N>(b, stage, i, kk, ld_b);
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
           mma_bf16(acc[mt][i], a[mt], b[0], b[1]);

@@ -19,22 +19,23 @@ Counterpart of ``point_cloud_classifier_tpu/ops/fused_phi.py``:
   ``phi_pool_pallas``) and ``csrc/phi_pool_bwd.cu`` (K2, which replaces
   ``phi_pool_bwd_pallas``) or raises.  ``phi_pool.launches`` and
   ``phi_pool.bwd_launches`` count their launches.  The variants are chosen
-  in C by the chain's shape, the element type and the kernel alone: the
-  sliced one (a cluster of four blocks a tile, ``d_W`` in registers, tensor
-  cores in bf16) for the DeepSets chain of a narrow first layer and one 256
-  -> 256 layer, in K2 and in bf16 K1; in f32 the tf32x3 one (products on
-  the tensor cores, each operand split into two TF32 values): K1 for chains
-  of widths up to 1024 in multiples of 8, K2 for the DeepSets chain at
-  320–1024 in multiples of 64 (a row pass writing ``h1`` and ``dz`` to a
-  ``[P, W]`` f32 scratch, then a ``d_W`` pass) and the tail's one bare
-  layer of 256–1024 a side (a ``d_W`` pass over the points and the gathered
-  cotangent, a row product for ``d_points``); in bf16 the wide one (clusters of
-  two or four blocks a 64-row tile, bf16 products on the tensor cores; K2
+  in C by the chain's shape, the element type and the kernel alone: in f32
+  the tf32x3 one (products on the tensor cores, each operand split into two
+  TF32 values): K1 for chains of widths up to 1024 in multiples of 8, K2
+  for the DeepSets chain at 256–1024 in multiples of 64 (a row pass writing
+  ``h1`` and ``dz`` to a ``[P, W]`` f32 scratch, one block a tile at 256,
+  then a ``d_W`` pass) and the tail's one bare layer of 256–1024 a side (a
+  ``d_W`` pass over the points and the gathered cotangent, a row product
+  for ``d_points``); in bf16 the wide one (one block, or clusters of two
+  or four blocks, a 64-row tile, bf16 products on the tensor cores; K2
   writes ``dz`` and the first layer's values to a ``[P, W]`` bf16 scratch
-  and forms ``d_W`` in a second kernel) for chains wider than 256 up to
-  1024, K2 for the DeepSets chain alone; the general one for every other
-  chain; ``phi_pool.variant`` and ``phi_pool.bwd_variant`` name the last
-  launch's.
+  and forms ``d_W`` in a second kernel): K1 for chains wider than 256 up
+  to 1024, K2 for the DeepSets chain at 256–1024; the sliced one (a cluster
+  of four blocks a tile, ``d_W`` in registers, tensor cores in bf16) for
+  bf16 K1 at the DeepSets chain of a narrow first layer and one 256 -> 256
+  layer (K2 there only through the timing entry, ``general=True``); the
+  general one for every other chain; ``phi_pool.variant`` and
+  ``phi_pool.bwd_variant`` name the last launch's.
   Under ``torch.func.vmap`` (a sweep's arms) each arm launches its own K1
   and K2 (``ops/dispatch.per_arm``);
 - :func:`kernel_takes_chain` — whether the general variants' 8-row tiles of
@@ -515,18 +516,22 @@ def _weights(weights):
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_variant(dims: tuple, kinds: tuple, bf16: bool, backward: bool) -> str:
+def kernel_variant(dims: tuple, kinds: tuple, bf16: bool, backward: bool, general: bool = False) -> str:
     """Which variant K1 (``backward`` false) or K2 (true) takes for a chain
     on the card, ``"sliced"``, ``"tf32x3"`` (f32), ``"wide"`` (bf16) or
     ``"general"``: the C entry's own choice (``pcc_phi_pool_variant``), made
     from the chain's shape, the element type and the kernel alone
-    (``csrc/phi_chain.cuh:takes_sliced``, ``csrc/phi_pool.cu:tf32x3_plan``,
-    ``csrc/phi_tf32.cuh:bwd_tf32x3_plan``, ``csrc/phi_wide.cuh:wide_plan``)."""
+    (``csrc/phi_pool.cu:tf32x3_plan``, ``csrc/phi_tf32.cuh:bwd_tf32x3_plan``,
+    ``csrc/phi_wide.cuh:wide_plan``, ``csrc/phi_chain.cuh:takes_sliced``).
+    ``general``: the choice of the timing entries that leave the tf32x3 and
+    the wide variants out (``_phi_pool_cuda(general=True)``,
+    ``_phi_pool_bwd_cuda(general=True)``)."""
     from point_cloud_classifier_tpu_torch.native import kernel_library
 
     n = len(kinds)
     code = kernel_library().lib.pcc_phi_pool_variant(
-        n, (ctypes.c_int * (n + 1))(*dims), (ctypes.c_int * n)(*kinds), int(bf16), int(backward)
+        n, (ctypes.c_int * (n + 1))(*dims), (ctypes.c_int * n)(*kinds), int(bf16), int(backward),
+        int(not general),
     )
     return _VARIANTS.get(code, "general")
 
@@ -570,18 +575,25 @@ def _phi_pool_cuda(points, seg, spec, params, activation, num_segments, general=
         )
     check(code)
     phi_pool.launches += 1
-    variant = kernel_variant(tuple(dims), tuple(kinds), points.dtype == torch.bfloat16, False)
-    phi_pool.variant = "general" if general and variant in ("tf32x3", "wide") else variant
+    phi_pool.variant = kernel_variant(tuple(dims), tuple(kinds), points.dtype == torch.bfloat16, False, general)
     return out
 
 
 def _phi_pool_bwd_cuda(
-    points, seg, g, spec, params, activation, num_segments, with_points=True, general=False
+    points, seg, g, spec, params, activation, num_segments, with_points=True, general=False,
+    departures=None,
 ):
     """K2: the CUDA counterpart of :func:`phi_pool_bwd_plain`, same contract.
-    ``general`` launches the general variant where the tf32x3 or the wide
-    one would run (``pcc_phi_pool_bwd_general``), to time them side by side;
-    the port's path never sets it."""
+    ``general`` leaves the tf32x3 and the wide variants out
+    (``pcc_phi_pool_bwd_general``), to time them side by side with what
+    served their chains before: the sliced variant (a 4-block cluster a
+    tile) at the DeepSets chain of φ 256, in f32 and bf16, and the general one wherever
+    else they run; the port's path never sets it.  ``departures``, a
+    zeroed int64 ``[2]`` tensor on the card, holds the one-block wide form's
+    recompute (bf16, the DeepSets chain at φ 256) against bf16 K1's forward
+    after the launch (``pcc_phi_pool_bwd_h1_departures``): ``[0]`` gets the
+    values of h1 that differ, ``[1]`` the largest difference of one in units
+    of 2^-24.  A check; the port's path never sets it either."""
     from point_cloud_classifier_tpu_torch.native import check, kernel_library
 
     weights, biases, dims, kinds = _kernel_operands(points, seg, spec, params)
@@ -602,9 +614,7 @@ def _phi_pool_bwd_cuda(
         # the sliced and the wide variants read one [in, out] copy for both
         # products; the general one wants [out, in] as well, for dz Wᵀ
         bf16 = points.dtype == torch.bfloat16
-        variant = kernel_variant(tuple(dims), tuple(kinds), bf16, True)
-        if general and variant in ("tf32x3", "wide"):
-            variant = "general"
+        variant = kernel_variant(tuple(dims), tuple(kinds), bf16, True, general)
         w_fwd = _weights(weights)
         w_bwd = [w.t().contiguous() for w in weights] if variant == "general" else None
         points, seg, g = points.contiguous(), seg.contiguous(), g.float().contiguous()
@@ -651,6 +661,14 @@ def _phi_pool_bwd_cuda(
         check(code)
         phi_pool.bwd_launches += 1
         phi_pool.bwd_variant = variant
+        if departures is not None:
+            with torch.cuda.device(device):
+                check(lib.pcc_phi_pool_bwd_h1_departures(
+                    points.data_ptr(), slabs.data_ptr(), max_blocks, n_points, n,
+                    (ctypes.c_int * (n + 1))(*dims), (ctypes.c_int * n)(*kinds), _pointers(w_fwd),
+                    _pointers(biases), _activation_code(activation), departures.data_ptr(),
+                    torch.cuda.current_stream(device).cuda_stream,
+                ))
     grads, offset = [], 0
     for (i, o), (wsize, bsize) in zip(zip(dims[:-1], dims[1:]), sizes):
         grads.append(flat[offset : offset + wsize].view(i, o))

@@ -12,12 +12,15 @@ It builds the kernels with their per-phase clocks
 between the marks of ``csrc/phi_pool.cu`` and ``csrc/phi_pool_bwd.cu``),
 launches K1 and K2 once each at the DeepSets config batch (B=32, P=8,192)
 and at the flagship shape (B=256, P=65,536), in f32 (K1's tf32x3 variant,
-K2's sliced one) and bf16 (both sliced), then at φ [512, 512] and [1024,
-1024] at the flagship shape in f32 (both tf32x3) and bf16 (both wide), K2's
-row pass and its d_W pass apart, and the tail's bare [256, 256] layer in f32
-(K1 tf32x3; K2 tf32x3, its row product for d_points and its d_W pass), and
-prints the sums of each launch per phase, with ``nvidia-smi``'s name and
-power limit of the card.  It
+K2's one-block tf32x3 form) and bf16 (K1's sliced variant, K2's one-block
+wide form), with K2's sliced variant there too (the timing entry,
+``general=True``), then at φ [512, 512] and [1024, 1024] at the flagship
+shape in f32 (both tf32x3) and bf16 (both wide), K2's row pass and its d_W
+pass apart, and the tail's bare [256, 256] layer in f32 (K1 tf32x3; K2
+tf32x3, its row product for d_points and its d_W pass), and prints the sums
+of each launch per phase, with ``nvidia-smi``'s name and power limit of the
+card.  The one-block bf16 form keeps W2 in shared memory: its "waits for a
+staged chunk" read 0.  It
 checks nothing: ``chip_smoke.py`` holds the kernels against their plain
 versions, on a build without the clocks.
 """
@@ -133,16 +136,19 @@ def main() -> None:
                 rows.append((f"K1 {phi_pool.variant}", phases,
                              _clocks(built.lib.pcc_phi_pool_phase_clocks, len(phases))))
             # the tail's K2 as the train step calls it (d_points on: the
-            # layer's input is the chain below), the DeepSets chain's without
-            _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b + 1, with_points=tail)
-            variant = phi_pool.bwd_variant
-            if variant in K2_PHASES:
-                phases = K2_TAIL_ROWS if tail else K2_PHASES[variant]
-                pass_name = " row product" if tail else " row pass" if variant in DW_VARIANTS else ""
-                rows.append((f"K2 {variant}{pass_name}", phases, _clocks(bwd_clocks, len(phases))))
-            if variant in DW_VARIANTS:
-                rows.append((f"K2 {variant} d_W pass", DW_PHASES,
-                             _clocks(bwd_clocks, len(DW_PHASES), DW_FIRST)))
+            # layer's input is the chain below), the DeepSets chain's without;
+            # at φ 256 also the timing entry's sliced variant
+            for general in (False, True) if width == 256 and not tail else (False,):
+                _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b + 1, with_points=tail,
+                                   general=general)
+                variant = phi_pool.bwd_variant
+                if variant in K2_PHASES:
+                    phases = K2_TAIL_ROWS if tail else K2_PHASES[variant]
+                    pass_name = " row product" if tail else " row pass" if variant in DW_VARIANTS else ""
+                    rows.append((f"K2 {variant}{pass_name}", phases, _clocks(bwd_clocks, len(phases))))
+                if variant in DW_VARIANTS:
+                    rows.append((f"K2 {variant} d_W pass", DW_PHASES,
+                                 _clocks(bwd_clocks, len(DW_PHASES), DW_FIRST)))
             for kernel, phases, sums in rows:
                 print(f"phase clocks {kernel} {name} B={b} P={p} {str(dtype)[6:]}, block 0, one launch "
                       f"({(p + 63) // 64} tiles over the grid's clusters, {sms} SMs): "

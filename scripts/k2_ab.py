@@ -10,14 +10,19 @@ toolkit, with the parent unpacked into a git-ignored directory:
 
 Each tree runs in a process of its own (both hold a package of the same
 name), in the order parent, change, change, parent, and builds its own
-kernels on its first run.  A run times K2 at B=256, P=65,536 on the device
-alone (CUDA-graph replay, as ``chip_smoke.py``'s ``graph_ms``): bf16 and f32
-at φ [512, 512] and [1024, 1024] residual without ``d_points`` (the wide and
-the tf32x3 variants, the d_W pass of both), and the f32 tail's bare [256,
-256] layer with ``d_points``.  It prints one line a run and, last, the
-median of each case over the runs of each tree, beside ``nvidia-smi``'s
-name and power limit.  It checks nothing: ``chip_smoke.py`` and the card
-tests do.
+kernels on its first run.  A run times K2 on the device alone (CUDA-graph
+replay, as ``chip_smoke.py``'s ``graph_ms``) at B=256, P=65,536: bf16 and
+f32 at φ [256, 256], [512, 512] and [1024, 1024] residual without
+``d_points`` (the wide and the tf32x3 variants, the d_W pass of both; at φ
+256 the one-block forms), and the f32 tail's bare [256, 256] layer with
+``d_points``; and at φ [256, 256] also at B=32, P=8,192 (the DeepSets
+config batch), and at both batches through the timing entry
+(``_phi_pool_bwd_cuda(general=True)``: the sliced variant, a 4-block
+cluster a tile, in either tree).  A tree whose K2 at φ 256 is the sliced variant (a parent
+before the one-block forms) reads the sliced variant in both rows.  It
+prints one line a run and, last, the median of each case over the runs of
+each tree, beside ``nvidia-smi``'s name and power limit.  It checks
+nothing: ``chip_smoke.py`` and the card tests do.
 """
 
 from __future__ import annotations
@@ -28,9 +33,20 @@ import statistics
 import subprocess
 import sys
 
-B, P, SEED = 256, 65_536, 0
-CASES = (("bf16 phi 512", "bfloat16", 512), ("bf16 phi 1024", "bfloat16", 1024),
-         ("f32 phi 512", "float32", 512), ("f32 phi 1024", "float32", 1024), ("f32 tail", "float32", 256))
+SEED = 0
+FLAGSHIP, CONFIG = (256, 65_536), (32, 8_192)  # (events B, point rows P)
+# (name, element type, φ width, (B, P), timing entry)
+CASES = (("bf16 phi 256", "bfloat16", 256, FLAGSHIP, False),
+         ("bf16 phi 256 timing entry", "bfloat16", 256, FLAGSHIP, True),
+         ("bf16 phi 256 B=32", "bfloat16", 256, CONFIG, False),
+         ("bf16 phi 256 B=32 timing entry", "bfloat16", 256, CONFIG, True),
+         ("f32 phi 256", "float32", 256, FLAGSHIP, False),
+         ("f32 phi 256 timing entry", "float32", 256, FLAGSHIP, True),
+         ("f32 phi 256 B=32", "float32", 256, CONFIG, False),
+         ("f32 phi 256 B=32 timing entry", "float32", 256, CONFIG, True),
+         ("bf16 phi 512", "bfloat16", 512, FLAGSHIP, False), ("bf16 phi 1024", "bfloat16", 1024, FLAGSHIP, False),
+         ("f32 phi 512", "float32", 512, FLAGSHIP, False), ("f32 phi 1024", "float32", 1024, FLAGSHIP, False),
+         ("f32 tail", "float32", 256, FLAGSHIP, False))
 
 
 def graph_ms(torch, fn, iters=10, replays=3) -> float:
@@ -63,9 +79,11 @@ def run_tree() -> None:
     from point_cloud_classifier_tpu_torch.ops import fused_phi
 
     rng = np.random.default_rng(SEED)
-    seg = torch.from_numpy(np.sort(rng.integers(0, B + 1, size=P)).astype(np.int32)).cuda()
+    segs = {(b, p): torch.from_numpy(np.sort(rng.integers(0, b + 1, size=p)).astype(np.int32)).cuda()
+            for b, p in (FLAGSHIP, CONFIG)}
     out = {}
-    for name, dtype_name, width in CASES:
+    for name, dtype_name, width, (B, P), general in CASES:
+        seg = segs[B, P]
         dtype = getattr(torch, dtype_name)
         tail = "tail" in name
         last = width if tail else 6
@@ -79,7 +97,7 @@ def run_tree() -> None:
         spec = () if tail else (("plain", False), ("residual", False))
         g = torch.from_numpy(rng.normal(size=(B + 1, width)).astype(np.float32)).cuda()
         k2 = lambda: fused_phi._phi_pool_bwd_cuda(  # noqa: E731
-            points, seg, g, spec, tuple(params), "gelu", B + 1, with_points=tail)
+            points, seg, g, spec, tuple(params), "gelu", B + 1, with_points=tail, general=general)
         k2()
         out[name] = {"variant": fused_phi.phi_pool.bwd_variant, "ms": graph_ms(torch, k2)}
         del points, params, g
@@ -109,7 +127,7 @@ def main() -> None:
         runs[label].append(reading)
         print(f"{label}: " + "; ".join(f"{k} [{v['variant']}] {v['ms']:.4f} ms" for k, v in reading.items())
               + f" [{smi}]", flush=True)
-    for name, _, _ in CASES:
+    for name, *_ in CASES:
         med = {label: statistics.median(r[name]["ms"] for r in rs) for label, rs in runs.items()}
         print(f"median {name}: change {med['change']:.4f} ms, parent {med['parent']:.4f} ms, "
               f"change / parent {med['change'] / med['parent']:.4f} [{smi}]")

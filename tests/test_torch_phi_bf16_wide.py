@@ -3,7 +3,7 @@
 ``phi_pool_bwd_plain`` (the closed form that the CUDA kernel K2 computes) in
 bf16 at φ [1024, 1024] goes against the JAX package's bf16 backward
 (``jax.vjp`` of ``phi_pool_xla``) on the same seeded numpy inputs, and at
-φ [384, 384] and [1024, 1024] against itself with each bf16 product's
+φ [256, 256], [384, 384] and [1024, 1024] against itself with each bf16 product's
 contraction summed as two f32 halves, and with each d_W summed over chunks
 of the points, then the chunks in order: the same roundings, the sums in
 another order.  That spread is what the card's bf16 bound on K2 against
@@ -154,7 +154,7 @@ def test_relu_bf16_backward_at_width_1024_is_no_further_from_f64_than_jax_vjp():
 
 
 @pytest.mark.parametrize("activation", ["gelu", "relu"])
-@pytest.mark.parametrize("width", [384, 1024])
+@pytest.mark.parametrize("width", [256, 384, 1024])
 def test_bf16_backward_moves_little_with_the_order_of_its_sums(monkeypatch, width, activation):
     pts, seg, params, g = _inputs(width, seed=1)
     out = _port(pts, seg, params, g, activation)
@@ -169,7 +169,7 @@ def test_bf16_backward_moves_little_with_the_order_of_its_sums(monkeypatch, widt
 # within REORDER_FRO; and against jax.vjp at φ [1024, 1024] within BF16_FRO
 # (gelu: relu's d_b1 reads 1e-2 from jax.vjp whatever the order, see above).
 @pytest.mark.parametrize("activation", ["gelu", "relu"])
-@pytest.mark.parametrize("width", [384, 1024])
+@pytest.mark.parametrize("width", [256, 384, 1024])
 def test_bf16_backward_moves_little_when_d_w_is_summed_in_chunks_of_points(monkeypatch, width, activation):
     pts, seg, params, g = _inputs(width, seed=1)
     out = _port(pts, seg, params, g, activation)

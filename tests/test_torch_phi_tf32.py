@@ -18,7 +18,8 @@ K2's tf32x3 variant (``csrc/phi_pool_bwd.cu``) takes every product of the
 backward the same way: ``ops/fused_phi.py:phi_pool_bwd_tf32x3_plain``, held
 to the JAX package's backward (the VJP of ``phi_pool_xla``;
 ``phi_pool_bwd_pallas`` in interpret mode) at the chains the variant serves,
-φ [512, 512], φ [1024, 1024] and the tail's bare [256, 256] layer, in gelu
+the DeepSets config chain (φ [256, 256]), φ [512, 512], φ [1024, 1024] and
+the tail's bare [256, 256] layer, in gelu
 and relu, with and without ``d_points``, every gradient within the same 1e-5;
 there a one-pass TF32 backward misses 1e-4 too.
 """
@@ -142,8 +143,9 @@ def test_one_pass_tf32_misses_where_the_split_holds(chain):
     assert max(one_pass) > ONE_PASS_MISS, one_pass
 
 
-# the chains of K2's tf32x3 variant on the main path (φ 256 takes the sliced one)
-BWD_CHAINS = ("phi512", "phi1024", "tail")
+# the chains of K2's tf32x3 variant on the main path: the DeepSets config
+# chain (φ 256, one block a tile), φ 512 and 1024, the tail's bare layer
+BWD_CHAINS = ("config", "phi512", "phi1024", "tail")
 
 
 def _cotangent(params, s, seed=7):
@@ -189,7 +191,7 @@ def test_tf32x3_bwd_plain_matches_jax_vjp(chain, activation, with_points):
         assert _rel(got, want) <= REL
 
 
-@pytest.mark.parametrize("chain", ["phi512", "tail"])
+@pytest.mark.parametrize("chain", ["config", "phi512", "tail"])
 def test_tf32x3_bwd_plain_matches_pallas_interpret(chain):
     spec, pts, seg, s, params = _inputs(chain, p=64)
     g = _cotangent(params, s)
@@ -235,3 +237,27 @@ def test_kernel_variant_names_the_c_entry_codes(monkeypatch, code, name):
         assert fused_phi.kernel_variant((6, 256, 256), (0, 1), False, False) == name
     finally:
         fused_phi.kernel_variant.cache_clear()
+
+
+@pytest.mark.parametrize("general, redesigned", [(False, 1), (True, 0)], ids=["main-path", "timing-entry"])
+def test_kernel_variant_asks_for_the_entry_it_names(monkeypatch, general, redesigned):
+    """``kernel_variant(general=True)`` names the choice of the timing entries
+    (``pcc_phi_pool_bwd_general``: the tf32x3 and wide plans left out), and
+    the default the main path's: the C query's last argument says which."""
+    from point_cloud_classifier_tpu_torch import native
+
+    asked = []
+
+    class Lib:
+        @staticmethod
+        def pcc_phi_pool_variant(*args):
+            asked.append(args)
+            return 1
+
+    monkeypatch.setattr(native, "kernel_library", lambda: type("Built", (), {"lib": Lib})())
+    fused_phi.kernel_variant.cache_clear()
+    try:
+        assert fused_phi.kernel_variant((6, 256, 256), (0, 1), True, True, general) == "sliced"
+    finally:
+        fused_phi.kernel_variant.cache_clear()
+    assert len(asked) == 1 and asked[0][3:] == (1, 1, redesigned)
