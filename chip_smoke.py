@@ -19,17 +19,18 @@ result):
    residual, quick gelu), with a ragged point count, an empty event, padding
    rows, the flagship ``B=256, P=65,536`` shape, fewer points than one
    64-row tile and one tile plus one, chains of width 64, 384, 512 and 1024,
-   the tail's one bare [256, 256] layer over 256-wide rows, and one point an
-   event (``B = P = 4,096``: the pooled sums are the chain's rows); each line
-   names the kernel variant the case ran (sliced for the DeepSets chain in
-   bf16, tf32x3 for every f32 chain, general for the other bf16 chains) and,
-   in f32, its distance to ``phi_pool_tf32x3_plain`` (the variant's products
-   in plain PyTorch);
+   the tail's one bare [256, 256] layer over 256-wide rows, points of 24
+   features, and one point an event (``B = P = 4,096``: the pooled sums are
+   the chain's rows); each line names the kernel variant the case ran
+   (tf32x3 for every f32 chain, wide for every bf16 chain: one block a tile
+   up to width 256, the DeepSets chain among them) and, in f32,
+   its distance to ``phi_pool_tf32x3_plain`` (the variant's products in
+   plain PyTorch);
 4. backward kernel against plain: the backward of ``phi_pool`` (kernel K2)
    against ``phi_pool_bwd_plain`` at the same cases, f32 and bf16, with
    ``d_points`` asked for and not (the one-block forms for the DeepSets
-   chain: tf32x3 in f32, wide in bf16), and K2 run twice on the same inputs
-   for bit-equal gradients;
+   chain: tf32x3 in f32, wide in bf16; the tail's: tf32x3 in f32, wide in
+   bf16), and K2 run twice on the same inputs for bit-equal gradients;
 5. serving slice: the DeepSets serving path through its entry points —
    ``factory.get_model("deep_sets", cfg, run_dir)`` on a JAX-format
    ``best_model.pt`` with seeded random weights, then ``predict`` over
@@ -49,9 +50,13 @@ result):
    entry, ``_phi_pool_bwd_cuda(general=True)``), [512, 512] and [1024,
    1024] (B=256), beside the plain versions and the bounds with and without
    the [P, W] scratch's bytes, held with ``d_points`` on against
-   ``phi_pool_bwd_plain`` and bit-equal run to run, and at φ 256 in bf16
-   the share of K2's recomputed h1 values that differ from K1's forward,
-   within ``H1_DEPARTURE_SHARE`` (``wide_variants_phase``); ``predict`` and the train step per batch on the kernel
+   ``phi_pool_bwd_plain`` and bit-equal run to run, and at φ 256 in bf16:
+   K1 on the path (the wide variant's one block a tile) in turns with the
+   sliced variant (the timing entry) and beside the general one, both held
+   against ``phi_pool_plain`` within ``TOL``, and the
+   values of K2's recomputed h1 that differ from K1's own forward: none
+   from the one-block wide K1's, the sliced variant's within
+   ``H1_DEPARTURE_SHARE`` (``wide_variants_phase``); ``predict`` and the train step per batch on the kernel
    and plain routes at batch sizes 32 and 256, in f32 and bf16 compute; and
    a ``torch.profiler`` trace of the B=256 f32 train step;
 8. GAT kernel against plain: ``gat_attention`` (kernel K3) against
@@ -135,7 +140,7 @@ result):
    ``trainer.device_resident`` batches and in f32 through
    ``PCC_PREFETCH=1`` and ``PCC_BG_LOADER=1``, counting DeepSets' forwards
    by wire and K1's and K2's launches on each (both wires must run, K1 and
-   K2 on every dense batch, K1 sliced and K2 wide in bf16, val accuracy over
+   K2 on every dense batch, K1 and K2 wide in bf16, val accuracy over
    the DeepSets floor); (c) ``factory.get_model`` + ``predict`` from each
    run's ``best_model.pt`` on the dense test batches against the plain
    route; (b) K1 and K2 on dense flagship batches (B=256, M=256 and M=320
@@ -222,10 +227,12 @@ result):
    fused, eager, and eager with torch's default (non-capturable) Adam by
    CUDA events, in turns, an optimizer step alone of each form, each
    pass's idle share by the profiler, capture seconds; (b) ``fused_phi="tail"``: K1 and
-   K2 over one bare linear [256, 256] at the flagship shape against their
-   plain versions, timed against their bounds, and ``train_model`` for 3
-   epochs over phase 6's cache with K1 and K2 counted and the val accuracy
-   over its floor; (c) ``PCC_PHI_REMAT=0`` against ``1`` on the plain route
+   K2 over one bare linear layer at the flagship shape, f32 [256, 256] and
+   bf16 [256, 256] and [1024, 1024], against their plain versions (K2 bit-equal
+   run to run), device alone twice around the general variant and the plain
+   version, beside their bounds; the bf16 train step at B=256, the K1 + K2
+   route against plain in turns; and ``train_model`` for 3 epochs over phase
+   6's cache with K1 and K2 counted and the val accuracy over its floor; (c) ``PCC_PHI_REMAT=0`` against ``1`` on the plain route
    (layer norm) at φ widths 256, 512 and 1024, B=256: ms a train step by
    CUDA events, in turns, and peak memory; (d) ``train_model`` with
    ``PCC_TRACE=1``: its trace names K1 and K2;
@@ -291,9 +298,10 @@ Beside each kernel's time the script works out the least time the card could
 take for the same work (``bound_ms``: the bytes the function must move over
 3.35 TB/s, or its operations over 67 TFLOP/s of f32 outside the tensor
 cores, whichever is longer; for K1 and K2 in bf16 the operations over 989
-TFLOP/s of dense bf16 in the tensor cores; for f32 K1 also
-``bound_tf32x3_ms``, three times its operations over 495 TFLOP/s of dense
-TF32 in the tensor cores, the bound of its tf32x3 variant) and, where one
+TFLOP/s of dense bf16 in the tensor cores; for f32 K1 and K2 also
+``bound_tf32x3_ms``, the tail's ``k1_bound_tf32x3_ms`` and
+``k2_bound_tf32x3_ms``, three times the operations over 495 TFLOP/s of
+dense TF32 in the tensor cores, the bound of their tf32x3 variants) and, where one
 PyTorch call computes the same function, that call's time (``library_ms``).
 
 The line before the last is one JSON object describing each kernel; the last
@@ -437,10 +445,13 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # P=65,536 (wide_check).
 BWD_F32_REL, BWD_F32_FRO, BWD_BF16_FRO = 1e-4, 1e-5, 1e-3
 # the share of h1 values where the one-block wide K2's recompute (bf16, φ 256:
-# a tensor-core first layer) may differ from bf16 K1's forward (f32 FMAs):
-# where the two f32 values fall on either side of a bf16 rounding boundary
-# (docs/parity_torch.md §16), as tests/test_torch_gpu.py bounds it
-H1_DEPARTURE_SHARE = 1e-2
+# a tensor-core first layer) may differ from the sliced K1's forward (f32
+# FMAs; the timing entry's at that chain): where the two f32 values fall on
+# either side of a bf16 rounding boundary (docs/parity_torch.md §16; 9 to 14
+# of 16,777,216 read on an H100), as tests/test_torch_gpu.py bounds it.
+# Against the path's K1 there, the wide variant's one block a tile, the same
+# first layer's code, none may differ.
+H1_DEPARTURE_SHARE = 1e-5
 # predict: probabilities of the kernel path against the plain path (f32).
 PROB_TOL = 1e-4
 # the training slice: per-step f32 loss of the kernel route against the plain
@@ -713,17 +724,19 @@ def phi_inputs(b, p, dtype, seed, empty_event=True, final=False, widths=None, in
 
 
 # (name, events, point rows, a bare final linear, the φ widths, the points'
-# width, one point an event, the element types): the DeepSets chain takes the sliced variant of
-# K2 and of bf16 K1 (64-row tiles, four blocks a tile), so P below one tile
-# and one over it; f32 K1 takes the tf32x3 variant at every case (64-row
-# tiles up to width 256, a cluster of two at 512, of four on 32-row tiles at
-# 1024); bf16 K1 and K2 the wide one at widths 384, 512 and 1024 (64-row
-# tiles, a cluster of two, two and four); every other launch the general
-# one.  The tail's case is the one bare
-# [256, 256] layer over 256-wide rows.  With one point an event the pooled
-# sums are the chain's rows, so no sum averages a product's rounding away:
-# there a one-pass TF32 product would miss the f32 bound.  The tail's and
-# the one-point cases hold f32 K1's tf32x3 variant and run in f32.
+# width, one point an event, the element types): the one-block forms take
+# the DeepSets chain on 64-row tiles, so P below one tile and one over it;
+# f32 K1 takes the tf32x3 variant at every case (64-row tiles up to width
+# 256, a cluster of two at 512, of four on 32-row tiles at 1024); bf16 K1
+# the wide one at every case (one block a 64-row tile up to width 256, a
+# cluster of two at 384 and 512, of four at 1024); K2 the one-block forms at the DeepSets chain of φ 256 (tf32x3 in
+# f32, wide in bf16), the tf32x3 and the wide variants at φ 384–1024 and the
+# tail, the general one elsewhere.  The tail's case is the one bare [256,
+# 256] layer over 256-wide rows, the 24-feature case points wider than 8
+# that are no multiple of 16 (zero-padded to 32 in the product).  With one
+# point an event the pooled sums are the chain's rows, so no sum averages a
+# product's rounding away: there a one-pass TF32 product would miss the f32
+# bound; it holds f32 K1's tf32x3 variant and runs in f32.
 BOTH = (torch.float32, torch.bfloat16)
 F32 = (torch.float32,)
 PhiCase = collections.namedtuple("PhiCase", "name b p final widths in_dim singletons dtypes",
@@ -739,7 +752,8 @@ PHI_CASES = [
     PhiCase("width 384 B=7 P=1001", 7, 1001, False, [384, 384]),
     PhiCase("width 512 B=7 P=1001", 7, 1001, False, [512, 512]),
     PhiCase("width 1024 B=7 P=1001", 7, 1001, False, [1024, 1024]),
-    PhiCase("tail: bare [256, 256] B=7 P=1001", 7, 1001, True, [], 256, dtypes=F32),
+    PhiCase("tail: bare [256, 256] B=7 P=1001", 7, 1001, True, [], 256),
+    PhiCase("24-feature points, width 64 B=7 P=1001", 7, 1001, False, [64, 64], 24),
     PhiCase("one point an event B=P=4096", 4096, 4096, False, None, 6, True, F32),
 ]
 
@@ -769,22 +783,25 @@ def takes_tf32x3(dims) -> bool:
 
 def takes_wide(dims, kinds, backward: bool) -> bool:
     """csrc/phi_wide.cuh:wide_plan for a bf16 chain of widths ``dims``
-    (input first) and kinds (``plain``, ``residual``, ``linear``): points of
-    at most 8 features, every width a multiple of 8 C (C = 1 up to 256, 2 up
-    to 512, 4 up to 1024); K1 the widest layer above 256 and at most 1024
-    (bf16 K1 at the DeepSets chain of φ 256 is the sliced variant's); K2
-    (``backward``) only the DeepSets chain, a plain first layer and one
-    square layer of 256 to 1024 in multiples of 64."""
+    (input first) and kinds (``plain``, ``residual``, ``linear``).  K1: every
+    width a multiple of 8 C (C = 1 up to 256, 2 up to 512, 4 up to 1024),
+    points of at most 8 features or a multiple of 8 up to the widest, a
+    residual layer square.  K2 (``backward``): the DeepSets chain, a plain
+    first layer of at most 8 inputs and one square layer of 256 to 1024 in
+    multiples of 64; or the tail's one bare layer, each side a multiple of 64
+    from 256 to 1024."""
+    if backward:
+        if list(kinds) == ["linear"]:
+            return all(d % 64 == 0 and 256 <= d <= 1024 for d in dims)
+        return (len(kinds) == 2 and 1 <= dims[0] <= 8 and dims[1] == dims[2] and dims[1] % 64 == 0
+                and 256 <= dims[1] <= 1024 and kinds[0] == "plain" and kinds[1] != "linear")
     widest = max(dims[1:])
-    if not 1 <= dims[0] <= 8 or not (256 if backward else 257) <= widest <= 1024:
+    if widest > 1024 or not (1 <= dims[0] <= 8 or (dims[0] % 8 == 0 and dims[0] <= widest)):
         return False
     cluster = 1 if widest <= 256 else 2 if widest <= 512 else 4
-    if any(d % (8 * cluster) for d in dims[1:]):
+    if any(d < 1 or d % (8 * cluster) for d in dims[1:]):
         return False
-    if backward:
-        return (len(kinds) == 2 and dims[1] == dims[2] and dims[1] % 64 == 0 and dims[1] >= 256
-                and kinds[0] == "plain" and kinds[1] != "linear")
-    return True
+    return all(kind != "residual" or dims[i] == dims[i + 1] for i, kind in enumerate(kinds))
 
 
 def takes_tf32x3_bwd(dims, kinds) -> bool:
@@ -807,10 +824,7 @@ def expected_variant(case: PhiCase, dtype, backward: bool) -> str:
     kinds = [kind for kind, _ in case_spec(widths)] + (["linear"] if case.final else [])
     if dtype == torch.float32 and (takes_tf32x3_bwd(dims, kinds) if backward else takes_tf32x3(dims)):
         return "tf32x3"
-    if dtype == torch.bfloat16 and takes_wide(dims, kinds, backward):
-        return "wide"
-    config_chain = case.widths is None and not case.final and case.in_dim == 6
-    return "sliced" if config_chain and dtype == torch.bfloat16 else "general"
+    return "wide" if dtype == torch.bfloat16 and takes_wide(dims, kinds, backward) else "general"
 
 
 def kernel_phase():
@@ -1443,8 +1457,9 @@ def k1_variants_phase(smi: str) -> dict:
 
 # bf16 K1 and K2 alone at TIMES_SHAPES' φ widths, where both take the wide
 # variant, and f32 K2 there (the tf32x3 variant); and at φ 256, the
-# DeepSets config chain, where K2 takes the one-block forms of both (bf16 K1
-# the sliced variant), at bench.py's flagship batch and the config batch:
+# DeepSets config chain, where K1 and K2 take the one-block forms of both
+# (bf16 K1 the wide variant's), at bench.py's flagship batch and the config
+# batch:
 # (name, φ width, events, point rows)
 WIDE_SHAPES = (("phi 256", 256, FLAGSHIP_B, FLAGSHIP_P), ("phi 256 config", 256, CONFIG_B, CONFIG_P),
                ("phi 512", 512, FLAGSHIP_B, FLAGSHIP_P), ("phi 1024", 1024, FLAGSHIP_B, FLAGSHIP_P))
@@ -1464,14 +1479,37 @@ def _k2_held(points, seg, g, spec, params, b1):
     return max(e[1] for e in errs), max(e[2] for e in errs), same
 
 
-def _h1_departures(points, seg, g, spec, params, b1) -> tuple:
-    """The one-block wide K2's recomputed h1 (bf16, φ 256) against bf16 K1's
-    forward (the sliced variant) on the same inputs: (values that differ,
-    the largest |difference| of one), pcc_phi_pool_bwd_h1_departures."""
+def k1_h1(points, spec, params, take=None):
+    """bf16 K1's own forward values of the DeepSets chain's first layer
+    (``[P, W]`` f32, each a bf16 value): K1 over the chain with a residual
+    second layer of zero weights and bias, whose values are then h1 + act(0)
+    = h1, pooled one segment a point (each sum 0 + v, every value but zero's
+    sign).  The path's variant for the chain (the wide variant's one block a
+    tile at φ 256), or the timing entry's ``take``."""
+    p, width = points.shape[0], params[0][0].shape[1]
+    zero = (torch.zeros_like(params[1][0]), torch.zeros_like(params[1][1]))
+    ids = torch.arange(p, dtype=torch.int32, device=points.device)
+    chain = ((spec[0], ("residual", False)), (params[0], zero))
+    if take is None:
+        out = phi_pool(points, ids, *chain, "gelu", p)
+    else:
+        out = _phi_pool_cuda(points, ids, *chain, "gelu", p, general=True, take=take)
+    if tuple(out.shape) != (p, width):
+        raise AssertionError(f"K1's h1: shape {tuple(out.shape)}")
+    return out
+
+
+def _h1_departures(points, seg, g, spec, params, b1, take=None) -> tuple:
+    """The one-block wide K2's recomputed h1 (bf16, φ 256) against K1's own
+    forward on the same points (k1_h1: the path's variant, or ``take``):
+    (values that differ, the largest |difference| of one, K1's variant),
+    pcc_phi_pool_bwd_h1_departures."""
+    ref = k1_h1(points, spec, params, take)
+    variant = phi_pool.variant
     counts = torch.zeros(2, dtype=torch.int64, device="cuda")
-    _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1, with_points=False, departures=counts)
+    _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1, with_points=False, departures=(ref, counts))
     departed, diff = counts.tolist()
-    return departed, diff / 2**24
+    return departed, diff / 2**24, variant
 
 
 def _k2_scratch_bytes(p, width, elem) -> int:
@@ -1486,19 +1524,23 @@ def wide_variants_phase(smi: str) -> dict:
     WIDE_SHAPES, φ [w, w] residual, on the device alone (graph_ms: a CUDA
     graph of the calls, so no host gap is in it), the variants K2 takes
     (wide) in turns around K1's general variant (pcc_phi_pool_general, once;
-    at φ 256, where bf16 K1 is the sliced variant in both entries, around
-    K2's sliced variant through the timing entry instead, in turns: taken,
-    sliced, sliced, taken), beside the bounds and the plain versions
+    at φ 256 around K2's and K1's sliced variants through the timing entries
+    instead, in turns: taken, sliced, sliced, taken), beside the bounds and
+    the plain versions
     (cuda_ms); then f32 K2 there on its tf32x3 variant, device alone twice
     around its general variant (pcc_phi_pool_bwd_general, once; the sliced
     variant at φ 256, in turns), beside its plain version and its bounds on
     the CUDA cores and by 3xTF32 on the tensor cores.  Each bound is the
     work's (inputs read once, outputs written once) and, beside it, the
-    design's (the [P, W] scratch's bytes added).  K2 in both types held
-    against phi_pool_bwd_plain with d_points on and bit-equal run to run;
-    at φ 256 the bf16 one-block form's recomputed h1 against K1's forward
-    (_h1_departures), within H1_DEPARTURE_SHARE.  Returns the readings by
-    shape and kernel."""
+    design's (the [P, W] scratch's bytes added).  bf16 K1 held against
+    phi_pool_plain within TOL (at φ 256 the sliced variant too); K2 in both
+    types against phi_pool_bwd_plain with d_points on and bit-equal run to run;
+    at φ 256 bf16 K1 on the path (the wide variant's one block a tile) in
+    turns with the sliced variant (the timing entry), beside the general
+    variant, and the bf16 one-block K2's recomputed h1 against K1's own
+    forward (_h1_departures): the path's in no value, the sliced variant's
+    within H1_DEPARTURE_SHARE.  Returns the readings by shape and
+    kernel."""
     readings = {"phi_pool": {}, "phi_pool_bwd": {}}
     for name, width, b, p in WIDE_SHAPES:
         widths = [width, width]
@@ -1512,15 +1554,28 @@ def wide_variants_phase(smi: str) -> dict:
         sliced = lambda: _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1,  # noqa: E731
                                             with_points=False, general=True)
         k1_ms, k2_ms = [graph_ms(k1)], [graph_ms(k2)]
-        k1()
+        k1_out = k1()
         k2()
         variants = (phi_pool.variant, phi_pool.bwd_variant)
         general_ms = sliced_ms = None
+        sliced_k1_ms = sliced_out = None
         if one_block:
             sliced_ms = [graph_ms(sliced), graph_ms(sliced)]
             sliced()
             if phi_pool.bwd_variant != "sliced":
                 raise AssertionError(f"bf16 K2 {name}: the timing entry ran the {phi_pool.bwd_variant} variant")
+            # bf16 K1 at the chain: the path's one block a tile in turns with
+            # the sliced variant (the timing entry), and the general one once
+            sliced_k1 = lambda: _phi_pool_cuda(points, seg, spec, params, "gelu", b1, general=True)  # noqa: E731
+            general_k1 = lambda: _phi_pool_cuda(points, seg, spec, params, "gelu", b1,  # noqa: E731
+                                                general=True, take="general")
+            sliced_k1_ms = [graph_ms(sliced_k1), graph_ms(sliced_k1)]
+            sliced_out = sliced_k1()
+            sliced_variant = phi_pool.variant
+            general_ms = graph_ms(general_k1, iters=5)
+            general_k1()
+            if (sliced_variant, phi_pool.variant) != ("sliced", "general"):
+                raise AssertionError(f"bf16 K1 {name}: the timing entry ran {sliced_variant}, {phi_pool.variant}")
         else:
             general_ms = graph_ms(lambda: _phi_pool_cuda(points, seg, spec, params, "gelu", b1, general=True),
                                   iters=3, replays=1)
@@ -1528,6 +1583,12 @@ def wide_variants_phase(smi: str) -> dict:
         k2_ms.append(graph_ms(k2))
         k1_plain = cuda_ms(lambda: phi_pool_plain(points, seg, spec, params, "gelu", b1))
         k2_plain = cuda_ms(lambda: phi_pool_bwd_plain(points, seg, g, spec, params, "gelu", b1, with_points=False))
+        # K1's timed variants held against the plain version: the path's, and
+        # at φ 256 the sliced one's (both layers and the pool)
+        k1_ref = phi_pool_plain(points, seg, spec, params, "gelu", b1)
+        k1_err = _max_rel(k1_out, k1_ref)
+        sliced_err = _max_rel(sliced_out, k1_ref) if one_block else None
+        del k1_ref
         flat = [t for layer in params for t in layer]
         per_row = [2 * w.shape[0] * w.shape[1] for w, _ in params]
         fwd = bound_ms(_nbytes(points, seg) + 0.5 * _nbytes(*flat) + b1 * width * 4, p * sum(per_row),
@@ -1538,6 +1599,7 @@ def wide_variants_phase(smi: str) -> dict:
         bwd_scratch = bound_ms(bwd_bytes + _k2_scratch_bytes(p, width, 2), bwd_ops, BF16_FLOPS_PER_S)
         k2_rel, k2_fro, k2_same = _k2_held(points, seg, g, spec, params, b1)
         departed = _h1_departures(points, seg, g, spec, params, b1) if one_block else None
+        sliced_departed = _h1_departures(points, seg, g, spec, params, b1, take="sliced") if one_block else None
         beside_k1 = (f"sliced K2 (timing entry) {sliced_ms[0]:.4f} / {sliced_ms[1]:.4f} ms, "
                      f"×{min(sliced_ms) / min(k2_ms):.2f} the {variants[1]} form's" if one_block
                      else f"general variant {general_ms:.4f}")
@@ -1547,27 +1609,42 @@ def wide_variants_phase(smi: str) -> dict:
               f"[{variants[1]}] {k2_ms[0]:.4f} / {k2_ms[1]:.4f} ms ({beside_k1}), plain {k2_plain:.4f} (events), "
               f"bound {bwd[0]:.4f} by {bwd[1]}, ×{min(k2_ms) / bwd[0]:.1f}; with the [P, W] bf16 scratch's "
               f"bytes {bwd_scratch[0]:.4f} by {bwd_scratch[1]}, ×{min(k2_ms) / bwd_scratch[0]:.1f} [{smi}]")
+        sliced_held = f", the sliced variant (timing entry) {sliced_err:.3e}" if one_block else ""
+        print(f"kernel K1 bf16 {name} B={b} P={p}: max_rel_err [{variants[0]} variant] {k1_err:.3e}{sliced_held} "
+              f"(bound {TOL[torch.bfloat16]:.0e})")
         print(f"kernel K2 bf16 {name} B={b} P={p} d_points on [{variants[1]} variant]: max_rel_err {k2_rel:.3e}, "
               f"rel_fro {k2_fro:.3e} (bound {BWD_BF16_FRO:.0e}); a second run is "
               f"{'bit-equal' if k2_same else 'NOT bit-equal'}")
-        if variants != ("sliced" if one_block else "wide", "wide"):
+        if variants != ("wide", "wide"):
             raise AssertionError(f"wide bf16 {name}: variants {variants}")
+        if not (k1_err <= TOL[torch.bfloat16] and (not one_block or sliced_err <= TOL[torch.bfloat16])):
+            raise AssertionError(f"bf16 K1 {name}: {k1_err:.3e}, sliced {sliced_err}")
         if not (k2_fro <= BWD_BF16_FRO and k2_same):
             raise AssertionError(f"bf16 K2 {name}: {k2_fro:.3e} / bit-equal {k2_same}")
-        if departed is not None:
-            share = departed[0] / (p * width)
-            print(f"check K2 bf16 {name} B={b} P={p} [{variants[1]} variant]: h1 recomputed by K2 differs from "
-                  f"K1's forward ({variants[0]} variant, gelu) in {departed[0]} of {p * width} values, share "
-                  f"{share:.3e} (bound {H1_DEPARTURE_SHARE:.0e}), the largest difference {departed[1]:.3e}")
-            if share > H1_DEPARTURE_SHARE:
-                raise AssertionError(f"bf16 K2 {name}: h1 departs from K1's forward in a share {share:.3e}")
-        readings["phi_pool"][name] = dict(variant=variants[0], ms=min(k1_ms), plain_ms=k1_plain, bound_ms=fwd[0],
-                                          bound_by=fwd[1], **({} if one_block else dict(general_ms=general_ms)))
+        if one_block:
+            print(f"time K1 bf16 {name} B={b} P={p} φ [{width}, {width}] residual, device alone (CUDA graphs), in "
+                  f"turns: the path's {variants[0]} variant (one block a tile) {k1_ms[0]:.4f} / {k1_ms[1]:.4f} ms, "
+                  f"the sliced variant (timing entry) {sliced_k1_ms[0]:.4f} / {sliced_k1_ms[1]:.4f} ms, "
+                  f"×{min(sliced_k1_ms) / min(k1_ms):.3f} the {variants[0]} one's; the general variant "
+                  f"{general_ms:.4f} ms [{smi}]")
+            for (departs, diff, k1_variant), bound in ((departed, 0.0), (sliced_departed, H1_DEPARTURE_SHARE)):
+                share = departs / (p * width)
+                print(f"check K2 bf16 {name} B={b} P={p} [{variants[1]} variant]: h1 recomputed by K2 differs from "
+                      f"K1's own forward ({k1_variant} variant, gelu) in {departs} of {p * width} values, share "
+                      f"{share:.3e} (bound {bound:.0e}), the largest difference {diff:.3e}")
+                if share > bound:
+                    raise AssertionError(f"bf16 K2 {name}: h1 departs from {k1_variant} K1's forward in {departs}")
+            if (departed[2], sliced_departed[2]) != ("wide", "sliced"):
+                raise AssertionError(f"bf16 K2 {name}: h1 against K1's {departed[2]} and {sliced_departed[2]} variants")
+        readings["phi_pool"][name] = dict(
+            variant=variants[0], ms=min(k1_ms), plain_ms=k1_plain, bound_ms=fwd[0], bound_by=fwd[1],
+            general_ms=general_ms, max_rel_err=k1_err,
+            **(dict(sliced_ms=min(sliced_k1_ms), sliced_max_rel_err=sliced_err) if one_block else {}))
         readings["phi_pool_bwd"][name] = dict(
             variant=variants[1], ms=min(k2_ms), plain_ms=k2_plain, bound_ms=bwd[0], bound_by=bwd[1],
             bound_scratch_ms=bwd_scratch[0], max_rel_err=k2_rel, rel_fro=k2_fro,
-            **(dict(sliced_ms=min(sliced_ms), h1_departures=departed[0], h1_departure_max_abs=departed[1])
-               if one_block else {}))
+            **(dict(sliced_ms=min(sliced_ms), h1_departures=departed[0], h1_departures_sliced=sliced_departed[0],
+                    h1_departure_sliced_max_abs=sliced_departed[1]) if one_block else {}))
         del points, params
         # f32 K2 at the same chain: the tf32x3 variant, device alone, twice
         # around the general (sliced at φ 256) variant and its plain version
@@ -1779,7 +1856,7 @@ def flagship_train_phase(work_dir: str) -> dict:
             raise AssertionError(f"flagship {arm}: not both wires ran: {wires.forwards}")
         if not (wires.k1["dense"] >= wires.forwards["dense"] and wires.k2["dense"] > 0):
             raise AssertionError(f"flagship {arm}: K1/K2 did not launch on every dense batch")
-        if arm.startswith("bf16") and wires.variants["dense"] != {"K1 sliced", "K2 wide"}:
+        if arm.startswith("bf16") and wires.variants["dense"] != {"K1 wide", "K2 wide"}:
             raise AssertionError(f"flagship {arm}: dense variants {wires.variants['dense']}")
         if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
             raise AssertionError(f"flagship {arm}: training did not learn: {losses}")
@@ -3872,7 +3949,7 @@ PROFILE_MARK_CYCLES = 1000
 # of them once (K4's launch also runs gat_bwd_sources_kernel, K2's may run
 # reduce_slabs_kernel, K5's selection its two range kernels)
 REPLAY_KERNELS = (
-    (("phi_pool",), ("phi_pool_kernel", "phi_pool_sliced_kernel", "phi_pool_tf32x3_kernel")),
+    (("phi_pool",), ("phi_pool_kernel", "phi_pool_sliced_kernel", "phi_pool_tf32x3_kernel", "phi_pool_wide_kernel")),
     (("phi_pool_bwd",), ("phi_pool_bwd_kernel", "phi_pool_bwd_sliced_kernel", "phi_pool_bwd_tf32x3_kernel",
                          "phi_pool_bwd_wide_kernel")),
     (("gat_attention",), ("gat_attention_pieces_kernel", "gat_attention_channels_kernel")),
@@ -4127,60 +4204,161 @@ def fused_routes_phase(smi: str) -> dict:
     return total
 
 
-def tail_phase(smi: str, work_dir: str) -> dict:
-    """(b) fused_phi="tail": K1 and K2 over the one bare linear layer
-    against their plain versions at the flagship shape, then train_model
-    for 3 epochs over phase 6's cache, with launches counted and the val
-    accuracy over its floor.  Returns the run's launches."""
+# the tail's bare [W, W] layer at the flagship shape: f32 at 256 (K1 and K2
+# tf32x3), bf16 at 256 and 1024 (K1 and K2 wide: one block a tile at 256, a
+# cluster of four K1 blocks and four K2 blocks a tile at 1024)
+TAIL_PAIRS = ((torch.float32, 256), (torch.bfloat16, 256), (torch.bfloat16, 1024))
+
+
+def tail_pair(smi: str, dtype, width: int) -> dict:
+    """K1 and K2 over one bare linear [width, width] layer over width-wide
+    rows at the flagship shape, in ``dtype``: against their plain versions
+    (K1 within TOL, K2 with d_points within the dtype's bounds), K2 twice
+    for bit-equal gradients, K1 twice (its atomics reorder the pool: the
+    run-to-run distance is printed), each device alone (CUDA graphs) twice
+    around its general variant and its plain version, beside its bounds."""
     rng = np.random.default_rng(SEED + 27)
-    h = torch.from_numpy(rng.normal(size=(FLAGSHIP_P, 256)).astype(np.float32)).cuda()
-    seg = torch.from_numpy(np.sort(rng.integers(0, FLAGSHIP_B + 1, size=FLAGSHIP_P)).astype(np.int32)).cuda()
-    bound = 256 ** -0.5
-    w = torch.from_numpy(_uniform(rng, bound, (256, 256))).cuda()
-    b = torch.from_numpy(_uniform(rng, bound, (256,))).cuda()
-    g = torch.from_numpy(rng.normal(size=(FLAGSHIP_B + 1, 256)).astype(np.float32)).cuda()
+    b1, p = FLAGSHIP_B + 1, FLAGSHIP_P
+    h = torch.from_numpy(rng.normal(size=(p, width)).astype(np.float32)).cuda().to(dtype)
+    seg = torch.from_numpy(np.sort(rng.integers(0, b1, size=p)).astype(np.int32)).cuda()
+    bound = width ** -0.5
+    w = torch.from_numpy(_uniform(rng, bound, (width, width))).cuda()
+    b = torch.from_numpy(_uniform(rng, bound, (width,))).cuda()
+    g = torch.from_numpy(rng.normal(size=(b1, width)).astype(np.float32)).cuda()
     params = ((w, b),)
-    out = phi_pool(h, seg, (), params, "gelu", FLAGSHIP_B + 1)
-    ref = phi_pool_plain(h, seg, (), params, "gelu", FLAGSHIP_B + 1)
-    fwd_err = _max_rel(out, ref)
+    out = phi_pool(h, seg, (), params, "gelu", b1)
     variant = phi_pool.variant
-    d_h, grads = _phi_pool_bwd_cuda(h, seg, g, (), params, "gelu", FLAGSHIP_B + 1)
-    d_ref, grads_ref = phi_pool_bwd_plain(h, seg, g, (), params, "gelu", FLAGSHIP_B + 1)
+    ref = phi_pool_plain(h, seg, (), params, "gelu", b1)
+    fwd_err = _max_rel(out, ref)
+    k1_again = (phi_pool(h, seg, (), params, "gelu", b1) - out).abs().max().item()
+    d_h, grads = _phi_pool_bwd_cuda(h, seg, g, (), params, "gelu", b1)
+    d_ref, grads_ref = phi_pool_bwd_plain(h, seg, g, (), params, "gelu", b1)
     errs = [_errors(a, r) for a, r in zip([d_h, *grads], [d_ref, *grads_ref])]
     bwd_err, bwd_fro = max(e[1] for e in errs), max(e[2] for e in errs)
-    again = _phi_pool_bwd_cuda(h, seg, g, (), params, "gelu", FLAGSHIP_B + 1)
+    again = _phi_pool_bwd_cuda(h, seg, g, (), params, "gelu", b1)
     same = all(torch.equal(a, c) for a, c in zip([d_h, *grads], [again[0], *again[1]]))
-    t_h, t_grads = phi_pool_bwd_tf32x3_plain(h, seg, g, (), params, "gelu", FLAGSHIP_B + 1)
-    to_tf32x3 = max(_errors(a, r)[1] for a, r in zip([d_h, *grads], [t_h, *t_grads]))
-    k1_ms = cuda_ms(lambda: phi_pool(h, seg, (), params, "gelu", FLAGSHIP_B + 1))
-    k2 = lambda: _phi_pool_bwd_cuda(h, seg, g, (), params, "gelu", FLAGSHIP_B + 1)  # noqa: E731
-    k2_ms = cuda_ms(k2)
-    k2_device = [graph_ms(k2)]
-    k2_plain = cuda_ms(lambda: phi_pool_bwd_plain(h, seg, g, (), params, "gelu", FLAGSHIP_B + 1))
-    k2_general = graph_ms(lambda: _phi_pool_bwd_cuda(h, seg, g, (), params, "gelu", FLAGSHIP_B + 1, general=True))
-    k2_device.append(graph_ms(k2))
-    # the least time: h read once and the sums written once, or the
-    # products (forward 2·P·H·H; backward dz Wᵀ and hᵀ dz, 4·P·H·H)
-    k1_bound, _ = bound_ms(_nbytes(h, seg, w, b, out), 2 * FLAGSHIP_P * 256 * 256)
-    k1_bound_tc, _ = tf32x3_bound_ms(_nbytes(h, seg, w, b, out), 2 * FLAGSHIP_P * 256 * 256)
-    k2_bytes = _nbytes(h, seg, g, w, b, d_h, *grads)
-    k2_bound, _ = bound_ms(k2_bytes, 4 * FLAGSHIP_P * 256 * 256)
-    k2_bound_tc, _ = tf32x3_bound_ms(k2_bytes, 4 * FLAGSHIP_P * 256 * 256)
-    print(f"tail: K1 over one bare linear [256, 256] at P={FLAGSHIP_P}, B={FLAGSHIP_B}, f32: max "
-          f"relative {fwd_err:.3e} (bound {TOL[torch.float32]:.0e}), {k1_ms:.4f} ms (least {k1_bound:.4f}, "
-          f"3xTF32 {k1_bound_tc:.4f}); "
-          f"K2 with d_points max_rel {bwd_err:.3e} (bound {BWD_F32_REL:.0e}), rel_fro {bwd_fro:.3e} (bound "
-          f"{BWD_F32_FRO:.0e}), to phi_pool_bwd_tf32x3_plain {to_tf32x3:.3e}, a second run "
-          f"{'bit-equal' if same else 'NOT bit-equal'}; {k2_ms:.4f} ms (events), device alone (CUDA graphs) "
-          f"{k2_device[0]:.4f} / {k2_device[1]:.4f}, general variant {k2_general:.4f} (CUDA graphs), plain "
-          f"{k2_plain:.4f} (events), least {k2_bound:.4f}, "
-          f"3xTF32 {k2_bound_tc:.4f}, ×{min(k2_device) / k2_bound_tc:.1f}; variants {variant}, "
-          f"{phi_pool.bwd_variant} [{smi}]")
-    if not (fwd_err <= TOL[torch.float32] and bwd_err <= BWD_F32_REL and bwd_fro <= BWD_F32_FRO and same):
-        raise AssertionError("tail: K1 or K2 over the one-layer chain disagrees with its plain version")
-    if (variant, phi_pool.bwd_variant) != ("tf32x3", "tf32x3"):
-        raise AssertionError(f"tail: variants {variant}, {phi_pool.bwd_variant}")
+    f32 = dtype == torch.float32
+    beside = ""
+    if f32:
+        t_h, t_grads = phi_pool_bwd_tf32x3_plain(h, seg, g, (), params, "gelu", b1)
+        beside = (f", to phi_pool_bwd_tf32x3_plain "
+                  f"{max(_errors(a, r)[1] for a, r in zip([d_h, *grads], [t_h, *t_grads])):.3e}")
+    k1 = lambda: phi_pool(h, seg, (), params, "gelu", b1)  # noqa: E731
+    k2 = lambda: _phi_pool_bwd_cuda(h, seg, g, (), params, "gelu", b1)  # noqa: E731
+    # the general and plain versions at 1024 hold [P, W] intermediates:
+    # fewer calls a graph
+    iters = 3 if width > 256 else 10
+    k1_ms, k2_ms = [graph_ms(k1)], [graph_ms(k2)]
+    k1_general = graph_ms(lambda: _phi_pool_cuda(h, seg, (), params, "gelu", b1, general=True, take="general"),
+                          iters=iters, replays=2)
+    k2_general = graph_ms(lambda: _phi_pool_bwd_cuda(h, seg, g, (), params, "gelu", b1, general=True),
+                          iters=iters, replays=2)
+    k1_plain = graph_ms(lambda: phi_pool_plain(h, seg, (), params, "gelu", b1), iters=iters, replays=2)
+    k2_plain = graph_ms(lambda: phi_pool_bwd_plain(h, seg, g, (), params, "gelu", b1), iters=iters, replays=2)
+    k1_ms.append(graph_ms(k1))
+    k2_ms.append(graph_ms(k2))
+    k1_events, k2_events = cuda_ms(k1), cuda_ms(k2)
+    # the least time: h read once and the sums written once, or the products
+    # (forward 2·P·W·W; backward dz Wᵀ and hᵀ dz, 4·P·W·W); f32 also by 3xTF32
+    k1_bytes, k2_bytes = _nbytes(h, seg, w, b, out), _nbytes(h, seg, g, w, b, d_h, *grads)
+    if not f32:  # the weights are read in bf16
+        k1_bytes -= _nbytes(w, b) // 2
+        k2_bytes -= _nbytes(w, b) // 2
+    peak = F32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S
+    k1_bound, k1_by = bound_ms(k1_bytes, 2 * p * width * width, peak)
+    k2_bound, k2_by = bound_ms(k2_bytes, 4 * p * width * width, peak)
+    tc_bounds = {}
+    if f32:
+        tc_bounds = dict(k1_bound_tf32x3_ms=tf32x3_bound_ms(k1_bytes, 2 * p * width * width)[0],
+                         k2_bound_tf32x3_ms=tf32x3_bound_ms(k2_bytes, 4 * p * width * width)[0])
+    tc = (f"; 3xTF32 bounds K1 {tc_bounds['k1_bound_tf32x3_ms']:.4f}, K2 {tc_bounds['k2_bound_tf32x3_ms']:.4f}"
+          if f32 else "")
+    k2_bounds = (BWD_F32_REL, BWD_F32_FRO) if f32 else (None, BWD_BF16_FRO)
+    label = f"tail {str(dtype)[6:]}: one bare linear [{width}, {width}] at P={p}, B={FLAGSHIP_B}"
+    print(f"{label}: K1 [{variant}] max relative {fwd_err:.3e} (bound {TOL[dtype]:.0e}), a second run max |Δ| "
+          f"{k1_again:.3e} (atomics); K2 with d_points [{phi_pool.bwd_variant}] max_rel {bwd_err:.3e}"
+          f"{f' (bound {k2_bounds[0]:.0e})' if f32 else ''}, rel_fro {bwd_fro:.3e} (bound {k2_bounds[1]:.0e})"
+          f"{beside}, a second run {'bit-equal' if same else 'NOT bit-equal'} [{smi}]")
+    print(f"time {label}, device alone (CUDA graphs): K1 {k1_ms[0]:.4f} / {k1_ms[1]:.4f} ms (events "
+          f"{k1_events:.4f}), general variant {k1_general:.4f}, plain {k1_plain:.4f}, bound {k1_bound:.4f} by "
+          f"{k1_by}, ×{min(k1_ms) / k1_bound:.1f}; K2 {k2_ms[0]:.4f} / {k2_ms[1]:.4f} ms (events {k2_events:.4f}), "
+          f"general variant {k2_general:.4f}, plain {k2_plain:.4f}, bound {k2_bound:.4f} by {k2_by}, "
+          f"×{min(k2_ms) / k2_bound:.1f}{tc}; K1 ×{k1_plain / min(k1_ms):.2f} faster than plain, K2 "
+          f"×{k2_plain / min(k2_ms):.2f} [{smi}]")
+    expected = "tf32x3" if f32 else "wide"
+    if (variant, phi_pool.bwd_variant) != (expected, expected):
+        raise AssertionError(f"{label}: variants {variant}, {phi_pool.bwd_variant}")
+    if not (fwd_err <= TOL[dtype] and bwd_fro <= k2_bounds[1] and same and (not f32 or bwd_err <= BWD_F32_REL)):
+        raise AssertionError(f"{label}: K1 or K2 disagrees with its plain version, or K2 with itself")
+    return dict(variant=variant, bwd_variant=phi_pool.bwd_variant, k1_ms=min(k1_ms), k1_events_ms=k1_events,
+                k1_general_ms=k1_general, k1_plain_ms=k1_plain, k1_bound_ms=k1_bound, k1_max_rel_err=fwd_err,
+                k2_ms=min(k2_ms), k2_events_ms=k2_events, k2_general_ms=k2_general, k2_plain_ms=k2_plain,
+                k2_bound_ms=k2_bound, k2_max_rel_err=bwd_err, k2_rel_fro=bwd_fro, **tc_bounds)
 
+
+TAIL_TRAIN_TRACK, TAIL_TRAIN_STEPS, TAIL_TRAIN_TURNS = 5, 3, 8
+
+
+def tail_train_step_phase(smi: str) -> dict:
+    """The bf16 train step of the configs' DeepSets under fused_phi="tail"
+    at B=256 on resident flat batches: per-step loss of the K1 + K2 route
+    within TOL[bf16] of the plain route's (fused_phi="off") from the same
+    weights, then ms a step by CUDA events, the routes in turns; K1 and K2
+    once on each of the kernel route's steps, both on the wide variant.
+    Returns their launches."""
+    clouds, labels = make_clouds(np.random.default_rng(SEED + 28), 2 * FLAGSHIP_B)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in b.items()}
+               for b in PointCloudLoader(clouds, labels, FLAGSHIP_B, shuffle=False)]
+    model = {**CONFIG["model"], "compute_dtype": "bfloat16"}
+    kernel_net = DeepSets(**model, fused_phi="tail", generator=torch.Generator().manual_seed(SEED))
+    plain_net = DeepSets(**model, fused_phi="off")
+    plain_net.load_state_dict(kernel_net.state_dict())
+    routes = {"K1+K2": ModelWrapper(kernel_net, 1e-3, 1, optimizer="adamw"),
+              "plain": ModelWrapper(plain_net, 1e-3, 1, optimizer="adamw")}
+    reset_launch_counts()
+    rel = []
+    for i in range(TAIL_TRAIN_TRACK):
+        batch = batches[i % len(batches)]
+        a, c = routes["K1+K2"].train_step(batch).item(), routes["plain"].train_step(batch).item()
+        rel.append(abs(a - c) / abs(c))
+    variants = (phi_pool.variant, phi_pool.bwd_variant)
+    samples = {name: [] for name in routes}
+    for turn in range(TAIL_TRAIN_TURNS):
+        for name in routes if turn % 2 == 0 else reversed(list(routes)):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(TAIL_TRAIN_STEPS):
+                routes[name].train_step(batches[i % len(batches)])
+            end.record()
+            torch.cuda.synchronize()
+            samples[name].append(start.elapsed_time(end) / TAIL_TRAIN_STEPS)
+    steps = TAIL_TRAIN_TRACK + TAIL_TRAIN_TURNS * TAIL_TRAIN_STEPS
+    counts = launch_counts()
+    ms = {name: float(np.median(v)) for name, v in samples.items()}
+    print(f"tail bf16 train step B={FLAGSHIP_B} P={batches[0]['points'].shape[0]} φ [256, 256] + the bare [256, 256] "
+          f"adamw, resident flat batches: per-step loss rel K1+K2 − plain over {TAIL_TRAIN_TRACK} steps from the "
+          f"same weights {[f'{r:.2e}' for r in rel]} (bound {TOL[torch.bfloat16]:.0e}); ms a train step by CUDA "
+          f"events, median (range) of {TAIL_TRAIN_TURNS // 2} turns of {TAIL_TRAIN_STEPS} steps: K1+K2 "
+          f"{ms['K1+K2']:.4f} ({_spread(samples['K1+K2'])}), plain {ms['plain']:.4f} ({_spread(samples['plain'])}), "
+          f"×{ms['plain'] / ms['K1+K2']:.3f}; K1 launches {counts['phi_pool']} [{variants[0]} variant], K2 "
+          f"{counts['phi_pool_bwd']} [{variants[1]} variant] over {steps} kernel-route steps [{smi}]")
+    if not all(np.isfinite(rel)) or not max(rel) <= TOL[torch.bfloat16]:
+        raise AssertionError("tail bf16 train step: the kernel route does not track the plain route")
+    if (counts["phi_pool"], counts["phi_pool_bwd"]) != (steps, steps) or variants != ("wide", "wide"):
+        raise AssertionError(f"tail bf16 train step: launches {counts}, variants {variants}")
+    return {"phi_pool": counts["phi_pool"], "phi_pool_bwd": counts["phi_pool_bwd"],
+            "ms": ms["K1+K2"], "plain_ms": ms["plain"]}
+
+
+def tail_phase(smi: str, work_dir: str) -> dict:
+    """(b) fused_phi="tail": K1 and K2 over the one bare linear layer
+    against their plain versions at the flagship shape (TAIL_PAIRS), the
+    bf16 train step at B=256 on both routes, then train_model for 3 epochs
+    over phase 6's cache (f32), with launches counted and the val accuracy
+    over its floor.  Returns the launches and the readings."""
+    pairs = {f"{str(dtype)[6:]} {width}": tail_pair(smi, dtype, width) for dtype, width in TAIL_PAIRS}
+    torch.cuda.empty_cache()
+    step = tail_train_step_phase(smi)
     cfg = training_config(os.path.join(work_dir, "data"), os.path.join(work_dir, "tail_log"))
     cfg["model"]["fused_phi"] = "tail"
     reset_launch_counts()
@@ -4201,13 +4379,17 @@ def tail_phase(smi: str, work_dir: str) -> dict:
         raise AssertionError("tail: K1 and K2 did not launch on every train step")
     if not meta["accuracy/val"] >= VAL_ACC_FLOOR:
         raise AssertionError(f"tail: accuracy/val {meta['accuracy/val']} below {VAL_ACC_FLOOR}")
-    return {"phi_pool": {"tail_launches": counts["phi_pool"], "tail_ms": k1_ms, "tail_bound_ms": k1_bound,
-                         "tail_bound_tf32x3_ms": k1_bound_tc, "tail_max_rel_err": fwd_err},
-            "phi_pool_bwd": {"tail_launches": counts["phi_pool_bwd"], "tail_ms": k2_ms,
-                             "tail_device_ms": min(k2_device), "tail_general_ms": k2_general,
-                             "tail_plain_ms": k2_plain,
-                             "tail_bound_ms": k2_bound, "tail_bound_tf32x3_ms": k2_bound_tc,
-                             "tail_max_rel_err": bwd_err}}
+    # f32's also by 3xTF32 on the tensor cores, its tf32x3 variants' bound
+    k1_key = ("variant", "k1_ms", "k1_events_ms", "k1_general_ms", "k1_plain_ms", "k1_bound_ms",
+              "k1_bound_tf32x3_ms", "k1_max_rel_err")
+    k2_key = ("bwd_variant", "k2_ms", "k2_events_ms", "k2_general_ms", "k2_plain_ms", "k2_bound_ms",
+              "k2_bound_tf32x3_ms", "k2_max_rel_err", "k2_rel_fro")
+    return {"phi_pool": {"tail_launches": counts["phi_pool"] + step["phi_pool"],
+                         "tail_train_step_bf16_ms": step["ms"], "tail_train_step_bf16_plain_ms": step["plain_ms"],
+                         **{f"tail {k}": {key: v[key] for key in k1_key if key in v} for k, v in pairs.items()}},
+            "phi_pool_bwd": {"tail_launches": counts["phi_pool_bwd"] + step["phi_pool_bwd"],
+                             **{f"tail {k}": {key: v[key] for key in k2_key if key in v}
+                                for k, v in pairs.items()}}}
 
 
 def remat_phase(smi: str) -> None:

@@ -9,11 +9,11 @@
 // and K2's tf32x3 variants have theirs in phi_tf32.cuh, and the bf16 wide
 // variants theirs in phi_wide.cuh):
 //
-// - The sliced variant (takes_sliced() says which launches take it: the
-//   DeepSets φ chain, a narrow first layer and one 256 -> 256 layer, in bf16
-//   K1; K2 there takes the one-block forms of its tf32x3 (f32) and wide
-//   (bf16) variants, and the sliced K2 only through the timing entry
-//   pcc_phi_pool_bwd_general).
+// - The sliced variant (takes_sliced() says which chains it takes: the
+//   DeepSets φ chain, a narrow first layer and one 256 -> 256 layer; K1 and
+//   K2 there take the one-block forms of their tf32x3 (f32) and wide (bf16)
+//   variants, and the sliced ones only through the timing entries
+//   pcc_phi_pool_general and pcc_phi_pool_bwd_general).
 //   Four blocks of a thread-block cluster share a 64-row tile.  Block c owns
 //   columns [64c, 64c + 64) of the wide layer: its slice of W, [256, 64],
 //   stays in its shared memory for the block's whole life (f32 68 KB, bf16
@@ -410,22 +410,24 @@ inline bool sliced_chain(int n_layers, const int* dims, const int* kinds) {
          dims[2] == kWide && kinds[0] == kPlain && kinds[1] != kLinear;
 }
 
-// Which launches take the sliced variant: decided here, for K1 (backward
-// false) and K2 (backward true), by the chain's shape, the element type and
-// the kernel, never by a failed attempt.  K1 takes it in bf16.  K2's
-// launches try the tf32x3 (f32) and the wide (bf16) plans first, whose
-// one-block forms take this chain (phi_tf32.cuh:bwd_tf32x3_plan,
-// phi_wide.cuh:wide_plan), so K2 reaches it in both types only through the
-// timing entry pcc_phi_pool_bwd_general, which leaves those plans out.  A
-// sliced f32 K1 measured 0.4702 ms against the general variant's 0.4090 ms
-// at B=256, P=65,536 on an H100 at 700 W (its 4x4 register tiles and two
-// cluster barriers a tile cost more than the weights from L2 did) and is not
-// built; f32 K1 takes phi_pool.cu's tf32x3 variant where its plan holds the
-// chain.  Its products are 3xTF32 sums on the tensor cores, so the sliced
-// and general K2's f32 recompute (exact f32 FMAs in k order) does not round
-// as K1 does: the two chains differ by a few 1e-6 of their scale
-// (docs/parity_torch.md §14); K2's tf32x3 variant does, for its chains, φ
-// 256 among them (§17).  Everything else goes to the general variant.
+// Which timing-entry launches take the sliced variant: decided here, for
+// K1 (backward false) and K2 (backward true), by the chain's shape, the
+// element type and the kernel, never by a failed attempt.  The path's
+// launches try the tf32x3 (f32) and the wide (bf16) plans, whose one-block
+// forms take this chain (phi_pool.cu:tf32x3_plan, phi_tf32.cuh:
+// bwd_tf32x3_plan, phi_wide.cuh:wide_plan), so K1 reaches the sliced
+// variant in bf16, and K2 in both types, only through the timing entries
+// pcc_phi_pool_general and pcc_phi_pool_bwd_general, which leave those
+// plans out.  A sliced f32 K1 measured 0.4702 ms against the general
+// variant's 0.4090 ms at B=256, P=65,536 on an H100 at 700 W (its 4x4
+// register tiles and two cluster barriers a tile cost more than the weights
+// from L2 did) and is not built; f32 K1 takes phi_pool.cu's tf32x3 variant,
+// whose products are 3xTF32 sums on the tensor cores, so the sliced and
+// general K2's f32 recompute (exact f32 FMAs
+// in k order) does not round as K1 does: the two chains differ by a few
+// 1e-6 of their scale (docs/parity_torch.md §14); K2's tf32x3 variant does,
+// for its chains, φ 256 among them (§17).  Everything else goes to the
+// general variant.
 inline bool takes_sliced(int n_layers, const int* dims, const int* kinds, bool is_bf16,
                          bool backward) {
   return sliced_chain(n_layers, dims, kinds) && (backward || is_bf16);

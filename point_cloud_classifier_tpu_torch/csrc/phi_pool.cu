@@ -19,11 +19,14 @@
 // with the per-element activation (exp, divide) next to it.
 //
 // Four variants, chosen by the chain's shape and element type alone
-// (phi_chain.cuh:takes_sliced, tf32x3_plan below, phi_wide.cuh:wide_plan;
+// (tf32x3_plan below, phi_wide.cuh:wide_plan, phi_chain.cuh:takes_sliced;
 // pcc_phi_pool_variant reports the choice, never a failed attempt):
 //
 // Sliced (bf16, a first layer of at most 8 inputs, then one 256 -> 256 layer:
-// the DeepSets φ chain in bf16).  A cluster of four blocks walks 64-row tiles;
+// the DeepSets φ chain in bf16).  The wide variant's one block a tile takes
+// this chain on the path, faster at B=32 and B=256 (PERF.md §6): the sliced
+// variant runs only through pcc_phi_pool_general, which times it beside it.
+// A cluster of four blocks walks 64-row tiles;
 // block c owns columns [64c, 64c + 64) of the wide layer.  A sliced f32 K1
 // (slice_dot's 4x4 register tiles, W from shared memory) measured 0.4702 ms
 // against the general variant's 0.4090 ms at B=256, P=65,536 on an H100 at
@@ -36,13 +39,10 @@
 //   evaluated once per element and not once per block.
 // - The wide product is phi_chain.cuh:slice_dot: mma.sync m16n8k16 on the
 //   tensor cores (f32 accumulation, one rounding to bf16 where the plain
-//   version rounds: the dot, then the bias add).  K2's bf16 recompute at
-//   this chain (the wide variant's one-block form, phi_pool_bwd.cu) takes
-//   the wide product in slice_dot's order of 16-k steps and rounds where
-//   slice_dot's epilogue does; its first layer is the wide K1's (a
-//   tensor-core product, kWideFast), so an h1 value may land one bf16 step
-//   from this kernel's (phi_pool_bwd.cu says where, and what the card
-//   reads of it).
+//   version rounds: the dot, then the bias add).  Its first layer sums f32
+//   FMAs (first_dots) where the wide variant's, K2's recompute's too, is a
+//   tensor-core product: an h1 value may land one bf16 step from theirs
+//   (phi_pool_bwd.cu says where, and what the card reads of it).
 // - Pooling: each block adds run-length partial sums of its 64 columns over
 //   16-row quarters of the tile into the zeroed f32 output with atomicAdd:
 //   flat-wire points are contiguous per event, so a quarter holds one or two
@@ -107,23 +107,37 @@
 //   tiles; the next tile's points come in by cp.async behind this tile's
 //   later layers.
 //
-// Wide (bf16, 1 to 8 layers, points of at most 8 features, the widest
-// layer above 256 and at most 1024, every width a multiple of 8 C: the
-// DeepSets chain at φ 384-1024, bench.py's --phi-width rows in its default
-// dtype).  It replaces the general variant for these chains; phi_wide.cuh
-// holds the parts it shares with K2's wide variant and says why mma.sync.
+// Wide (bf16, 1 to 8 layers, points of at most 8 features or a multiple of 8
+// up to the widest layer, the widest at most 1024, every width a multiple
+// of 8 C: every bf16 chain on the main path, the DeepSets chain at φ
+// 256-1024, bench.py's --phi-width rows in its default dtype and the tail's
+// bare layer over [P, H] rows among them).  It replaces the general variant
+// for these chains, and the sliced one at its chain; phi_wide.cuh holds the
+// parts it shares with K2's wide variant and says why mma.sync.
 // - What bounds it: the operations, 2·P·Σ in·out over 989 TFLOP/s (0.14 ms
 //   at B=256, P=65,536, φ 1024).  This design adds W's traffic from L2: a
 //   cluster reads the whole of W once a 64-row tile, 2 MB at φ 1024, some
 //   2.1 GB a call, which the consumers wait for about a sixth of their
 //   clocks (phase_clocks.py).
-// - The tf32x3 variant's skeleton in bf16: a cluster of two blocks (widest
-//   <= 512) or four (<= 1024) a 64-row tile, each block 256 columns of every layer;
-//   four producer warps stage W in chunks of 32 k by cp.async, 16 bytes a
-//   copy straight from L2 into shared memory (no registers, no split), each
-//   arriving on the stage's mbarrier when it lands, five stages; eight
-//   consumer warps run the products (one pass of mma.sync m16n8k16, bf16
-//   operands by ldmatrix, f32 sums), the epilogues and the pool.
+// - The tf32x3 variant's skeleton in bf16: one block a 64-row tile (widest
+//   <= 256), a cluster of two blocks (<= 512) or four (<= 1024), each block
+//   256 columns of every layer; four producer warps stage W in chunks of 32
+//   k by cp.async, 16 bytes a copy straight from L2 into shared memory (no
+//   registers, no split), each arriving on the stage's mbarrier when it
+//   lands, five stages; eight consumer warps run the products (one pass of
+//   mma.sync m16n8k16, bf16 operands by ldmatrix, f32 sums), the epilogues
+//   and the pool.
+// - One block a tile (C = 1): where every chunk of the chain's W fits beside
+//   the tile (the DeepSets chain's W1 and W2, 152 KB; the tail's [256,
+//   256]), all of it stays in shared memory for the block's life and no
+//   producer runs: the tail read 0.0976 ms resident against 0.1094 streamed
+//   at P = 65,536 (PERF.md §6).  Otherwise the producers stream it as at C >
+//   1.  Its first layer over points of at most 8 features is the product and
+//   the epilogue that K2's one-block recompute calls (phi_wide.cuh:
+//   wide_product, wide_epilogue), so K2's h1 is this kernel's bit for bit.
+// - Points of more than 8 features (the tail's [P, H] rows) come into h by
+//   cp.async, 16 bytes a copy, zero past the features to a multiple of 16
+//   columns; the next tile's behind this tile's layers and pool.
 // - Shared memory: h, the layer's input, [64, widest] bf16, 132 KB at
 //   1024: every activation is bf16 where the plain version rounds, so a
 //   tile holds 64 rows where the tf32x3 variant's f32 h holds 32, and each
@@ -133,12 +147,16 @@
 //   hardware's exp and approximate divide (kWideFast: the chains of
 //   dependent operations, not the instructions, bound the epilogues).
 // - Epilogue: each quad's bf16 pairs are gathered into 16-byte pieces
-//   (quad_gather) and written into every block's h.  Where a consumer's
-//   clocks go: phase_clocks.py, PERF.md §5.
+//   (quad_gather) and written into every block's h; the biases of the
+//   block's columns are read from shared memory (read from global memory
+//   they took φ 1024 ×1.08 longer, one block a tile 1-2% shorter: PERF.md
+//   §6), and where a warp's n8 tiles all lie within the block's columns, the
+//   layer's kind is a compile-time constant (wide_epilogue).  Where a consumer's clocks go: phase_clocks.py,
+//   PERF.md §5.
 //
-// General (bf16 chains the sliced and the wide variants do not take:
-// widths up to 256 other than the sliced chain's, wider than 1024, points
-// of more than 8 features; f32 chains the tf32x3 variant does not take).
+// General (bf16 chains the wide variant does not take: wider than 1024,
+// points of more than 8 features that are no multiple of 8 or wider than
+// the widest layer; f32 chains the tf32x3 variant does not take).
 // One block owns a tile of 32, 16 or 8 rows and keeps its activations in
 // shared memory (two f32 buffers of [ROWS, widest]); thread j owns output
 // column j of every row (phi_chain.cuh:tile_dot), reading the weights from
@@ -661,13 +679,15 @@ cudaError_t launch_tf32x3_plan(const void* points, const void* seg, void* out, i
 
 // -- the wide variant (bf16) -----------------------------------------------------------
 
-// A cluster of C blocks walks 64-row tiles (phi_wide.cuh); shared memory: h
-// [64, ldh] (the layers' values, computed in place), x [64, kXLd] (the
-// tile's points, zero past the features), kWideStagesK1 staged chunks by k,
-// the tile's segment ids, the stages' mbarriers.  The chunk stream is the
-// chain's layers in order, each layer's W by k; the consumers meet two
-// cluster barriers around every layer's epilogue but the last's.
-template <int C>
+// One block (C = 1) or a cluster of C blocks walks 64-row tiles
+// (phi_wide.cuh); shared memory: h [64, ldh] (the layers' values, computed
+// in place; points of more than 8 features come into it), x [64, kXLd] (a
+// tile's points of at most 8 features, zero past them), kWideStagesK1
+// staged chunks by k, the tile's segment ids, the stages' mbarriers.  The
+// chunk stream is the chain's layers in order, each layer's W by k; a
+// cluster's consumers meet two cluster barriers around every layer's
+// epilogue but the last's (one block a tile: its own consumers' barrier).
+template <int C, bool RES>
 __global__ void __launch_bounds__(kWideThreads, 1)
     phi_pool_wide_kernel(const bf16* __restrict__ points, const int* __restrict__ seg,
                          float* __restrict__ out, int n_points, int n_features, int num_segments,
@@ -676,77 +696,150 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* h = reinterpret_cast<bf16*>(smem_raw);
   bf16* x = h + kWideRows * ldh;
-  bf16* stages = x + kWideRows * kXLd;
-  int* segs = reinterpret_cast<int*>(stages + S * kStageByK);
+  bf16* stages = x + kWideRows * kXLd;  // RES: every chunk of the stream, resident
+  int* segs = reinterpret_cast<int*>(stages + (RES ? st.per_tile : S) * kStageByK);
   uint64_t* full = reinterpret_cast<uint64_t*>(segs + kWideRows);
   uint64_t* empty = full + S;
+  bf16* bias_s = reinterpret_cast<bf16*>(empty + S);  // [kMaxLayers][256]: the block's columns of each bias
 
-  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
+  int rank = 0;
   bf16* targets[C];
   targets[0] = h;
+  if constexpr (C > 1) {
+    cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+    rank = static_cast<int>(cluster.block_rank());
 #pragma unroll
-  for (int q = 1; q < C; ++q) targets[q] = cluster.map_shared_rank(h, (rank + q) % C);
+    for (int q = 1; q < C; ++q) targets[q] = cluster.map_shared_rank(h, (rank + q) % C);
+  }
+  // the consumers' barrier where a cluster of C > 1 meets its cluster's
+  const auto tile_sync = [] {
+    if constexpr (C > 1) {
+      cluster_sync();
+    } else {
+      bar_sync(kWideConsumerBar, kWideConsumers);
+    }
+  };
   const int n_tiles = (n_points + kWideRows - 1) / kWideRows;
   const int n_clusters = gridDim.x / C;
   const int n_layers = chain.n_layers;
   const int first_tile = blockIdx.x / C;
   const int n_my_tiles = first_tile < n_tiles ? (n_tiles - 1 - first_tile) / n_clusters + 1 : 0;
+  // points of more than kMaxFeatures features (a multiple of 8) are the
+  // first layer's input in h itself
+  const bool wide_in = n_features > kMaxFeatures;
 
   for (int i = threadIdx.x; i < kWideRows * kXLd; i += kWideThreads) x[i] = from_f32<bf16>(0.0f);
+  for (int l = 0; l < n_layers; ++l) {
+    const int nb = chain.dims[l + 1] / C;
+    for (int j = threadIdx.x; j < nb; j += kWideThreads) {
+      bias_s[l * kWideCols + j] = static_cast<const bf16*>(chain.b[l])[rank * nb + j];
+    }
+  }
   if (threadIdx.x == 0) {
     for (int q = 0; q < S; ++q) {
       mbar_init(full + q, kWideProducers);
       mbar_init(empty + q, kWideConsumerWarps);
     }
   }
+  if constexpr (RES) {
+    // every chunk of the stream in the stages' place, once: chunk c of the
+    // tile's stream at stages + c kStageByK, as the producers would stage it
+    int row = 0;
+    for (int l = 0; l < st.n_phases; ++l) {
+      const WidePhase& ph = st.phase[l];
+      const int per_row = ph.n_cols / 8, rows = phase_chunks(ph) * kWideChunk;
+      for (int i = threadIdx.x; i < rows * per_row; i += kWideThreads) {
+        const int k = i / per_row, n = 8 * (i - k * per_row);
+        const bool valid = k < ph.k_dim;
+        cp_async16(stages + (row + k) * kLdK + n, valid ? ph.w + static_cast<size_t>(k) * ph.ld + n : ph.w,
+                   valid);
+      }
+      row += rows;
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+  }
   PhaseClock clk;
-  cluster_sync();  // x is zero, and every block of the cluster has started
+  if constexpr (C > 1) {
+    cluster_sync();  // x is zero, and every block of the cluster has started
+  } else {
+    __syncthreads();
+  }
   if (threadIdx.x >= kWideConsumers) {
-    wide_produce<C, S>(st, stages, kStageByK, full, empty, rank, n_my_tiles);
-    cluster_sync();
+    if constexpr (!RES) wide_produce<C, S>(st, stages, kStageByK, full, empty, rank, n_my_tiles);
+    if constexpr (C > 1) cluster_sync();
     return;
   }
 
   // the consumers
   clk.mark(0);
+  // a tile's wide points into h (16-byte copies, zero past the features to
+  // a multiple of 16 columns and past the last row) and its ids into segs,
+  // by cp.async
+  const auto fetch_wide = [&](int tile) {
+    const int row0 = tile * kWideRows, per_row = (n_features + 15) / 16 * 2;
+    for (int i = threadIdx.x; i < kWideRows * per_row; i += kWideConsumers) {
+      const int r = i / per_row, k = 8 * (i - r * per_row);
+      const bool valid = row0 + r < n_points && k < n_features;
+      cp_async16(h + r * ldh + k, valid ? points + static_cast<size_t>(row0 + r) * n_features + k : points,
+                 valid);
+    }
+    if (threadIdx.x < kWideRows) {
+      const bool valid = row0 + static_cast<int>(threadIdx.x) < n_points;
+      cp_async4(segs + threadIdx.x, seg + (valid ? row0 + threadIdx.x : 0), valid);
+    }
+    cp_async_commit();
+  };
   TileFetch<bf16> next;
-  if (n_my_tiles > 0) next.fetch(points, seg, first_tile, n_points, n_features);
+  if (n_my_tiles > 0) {
+    if (wide_in) {
+      fetch_wide(first_tile);
+    } else {
+      next.fetch(points, seg, first_tile, n_points, n_features);
+    }
+  }
   int chunk = 0;
   for (int tile = first_tile; tile < n_tiles; tile += n_clusters) {
     const int n_rows = min(kWideRows, n_points - tile * kWideRows);
-    next.put_rows(x, kXLd, segs);
-    if (tile + n_clusters < n_tiles) next.fetch(points, seg, tile + n_clusters, n_points, n_features);
-    bar_sync(kWideConsumerBar, kWideConsumers);  // the tile's points and ids are in x and segs
+    if (wide_in) {
+      cp_async_wait_all();
+    } else {
+      next.put_rows(x, kXLd, segs);
+      if (tile + n_clusters < n_tiles) next.fetch(points, seg, tile + n_clusters, n_points, n_features);
+    }
+    bar_sync(kWideConsumerBar, kWideConsumers);  // the tile's points and ids are in x (or h) and segs
     clk.mark(1);
     for (int l = 0; l < n_layers; ++l) {
-      const bf16* in = l == 0 ? x : h;
-      const int ld_in = l == 0 ? kXLd : ldh;
+      const bool from_x = l == 0 && !wide_in;
+      const bf16* in = from_x ? x : h;
+      const int ld_in = from_x ? kXLd : ldh;
       const int nb = chain.dims[l + 1] / C;
       float acc[2][kWideNt][4];
       zero(acc);
       const int n_chunks = phase_chunks(st.phase[l]);
       for (int c = 0; c < n_chunks; ++c, ++chunk) {
-        const int s = chunk % S;
-        mbar_wait(full + s, (chunk / S) & 1);  // the producers' copies have landed
+        const int s = RES ? chunk % st.per_tile : chunk % S;
+        if constexpr (!RES) mbar_wait(full + s, (chunk / S) & 1);  // the producers' copies have landed
         clk.mark(2);
         wide_product<false>(acc, in, ld_in, c * kWideChunk, chunk_steps(st.phase[l].k_dim, c),
                             stages + s * kStageByK);
-        __syncwarp();  // every lane's reads of the stage are done
-        if (threadIdx.x % 32 == 0) mbar_arrive(empty + s);
+        if constexpr (!RES) {
+          __syncwarp();  // every lane's reads of the stage are done
+          if (threadIdx.x % 32 == 0) mbar_arrive(empty + s);
+        }
         clk.mark(3);
       }
       bar_sync(kWideConsumerBar, kWideConsumers);  // no warp reads x or h for the products any more
       clk.mark(4);
       const bool last = l == n_layers - 1;
-      if (!last) cluster_sync();  // no block reads its h any more
+      if (C > 1 && !last) cluster_sync();  // no block reads its h any more
       clk.mark(5);
-      wide_epilogue<C>(acc, in, ld_in, targets, last ? 1 : C, ldh,
-                       static_cast<const bf16*>(chain.b[l]), rank * nb, nb, chain.kind[l],
-                       chain.act);
+      // the block's columns of the bias, from shared memory: bias_s[col - col0]
+      wide_epilogue<C>(acc, in, ld_in, targets, last ? 1 : C, ldh, bias_s + l * kWideCols - rank * nb,
+                       rank * nb, nb, chain.kind[l], chain.act);
       clk.mark(last ? 9 : 6);
       if (!last) {
-        cluster_sync();  // the layer is whole in every block
+        tile_sync();  // the layer is whole in every block
       } else {
         bar_sync(kWideConsumerBar, kWideConsumers);
       }
@@ -757,30 +850,59 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     pool_tile<kWideConsumers>(h, ldh, segs, n_rows, out, width, rank * (width / C), width / C,
                               num_segments);
     bar_sync(kWideConsumerBar, kWideConsumers);  // segs and h are read no more for this tile
+    // wide points: the next tile's come into h behind this tile's layers
+    if (wide_in && tile + n_clusters < n_tiles) fetch_wide(tile + n_clusters);
     clk.mark(8);
   }
-  cluster_sync();  // no block leaves while a neighbour may still write into it
+  if constexpr (C > 1) cluster_sync();  // no block leaves while a neighbour may still write into it
   clk.flush();
 }
 
+template <int C, bool RES>
+cudaError_t launch_wide_form(const void* points, const void* seg, void* out, int n_points,
+                             int n_features, int num_segments, const Chain& chain, const WideStream& st,
+                             int ldh, size_t smem, cudaStream_t stream) {
+  auto kernel = phi_pool_wide_kernel<C, RES>;
+  static int fit = 0;  // clusters (blocks, for C = 1) the card holds at once
+  cudaError_t err = cluster_fit(kernel, C, kWideThreads, &fit);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (n_points + kWideRows - 1) / kWideRows;
+  const int grid = n_tiles < fit ? n_tiles : fit;
+  const bf16* p = static_cast<const bf16*>(points);
+  const int* s = static_cast<const int*>(seg);
+  float* o = static_cast<float*>(out);
+  if constexpr (C == 1) {
+    kernel<<<grid, kWideThreads, smem, stream>>>(p, s, o, n_points, n_features, num_segments, chain, st, ldh);
+    err = cudaGetLastError();
+  } else {
+    err = launch_cluster_grid(kernel, C, grid, kWideThreads, smem, stream, p, s, o, n_points, n_features,
+                              num_segments, chain, st, ldh);
+  }
+  return err;
+}
+
+// The chunk stream of the chain (each layer's W by k, and a cluster's two
+// barriers around every layer's epilogue but the last's); at C = 1 the
+// whole stream resident in shared memory where it fits beside the tile.
 template <int C>
 cudaError_t launch_wide(const void* points, const void* seg, void* out, int n_points,
                         int n_features, int num_segments, const Chain& chain,
                         const WidePlan& plan, cudaStream_t stream) {
-  auto kernel = phi_pool_wide_kernel<C>;
-  static int fit = 0;  // clusters the card holds at once
-  const cudaError_t err = cluster_fit(kernel, C, kWideThreads, &fit);
-  if (err != cudaSuccess) return err;
   WideStream st = {};
   for (int l = 0; l < chain.n_layers; ++l) {
     add_phase(st, chain.w[l], chain.dims[l], chain.dims[l + 1], chain.dims[l + 1], 0);
-    if (l + 1 < chain.n_layers) add_sync(st, 2);
+    if (C > 1 && l + 1 < chain.n_layers) add_sync(st, 2);
   }
-  const int n_tiles = (n_points + kWideRows - 1) / kWideRows;
-  return launch_cluster_grid(kernel, C, n_tiles < fit ? n_tiles : fit, kWideThreads, plan.smem,
-                             stream, static_cast<const bf16*>(points), static_cast<const int*>(seg),
-                             static_cast<float*>(out), n_points, n_features, num_segments, chain,
-                             st, plan.ldh);
+  if constexpr (C == 1) {
+    const size_t resident =
+        plan.smem - sizeof(bf16) * kWideStagesK1 * kStageByK + sizeof(bf16) * st.per_tile * kStageByK;
+    if (resident <= kMaxSmem) {
+      return launch_wide_form<1, true>(points, seg, out, n_points, n_features, num_segments, chain, st,
+                                       plan.ldh, resident, stream);
+    }
+  }
+  return launch_wide_form<C, false>(points, seg, out, n_points, n_features, num_segments, chain, st, plan.ldh,
+                                    plan.smem, stream);
 }
 
 // -- the general variant's launch ------------------------------------------------------
@@ -830,34 +952,40 @@ cudaError_t launch_rows(const void* points, const void* seg, void* out, int n_po
 
 namespace {
 
-// K1's launch: the sliced variant, else the tf32x3 variant (f32) or the
-// wide one (bf16) where its plan takes the chain and `redesigned` is set,
-// else the general one.
+// Which entry a launch comes through, and what it takes: the port's path
+// (pcc_phi_pool: the tf32x3 plan in f32, the wide plan in bf16), or the
+// timing entry (pcc_phi_pool_general), which takes the sliced variant where
+// it is asked for and takes the chain, else the general one.
+enum Entry { kPath, kTakeSliced, kTakeGeneral };
+
+// K1's launch, in the order above.  At the sliced variant's chain (bf16, the
+// DeepSets chain of φ 256) the path takes the wide plan's one block a tile,
+// which read faster there at B=32 and B=256 (PERF.md §6): the sliced
+// variant runs only through the timing entry.
 int phi_pool_launch(const void* points, const void* seg, void* out, int n_points, int n_features,
                     int num_segments, int n_layers, const int* dims, const int* kinds,
                     const void* const* weights, const void* const* biases, int act, int is_bf16,
-                    void* stream, bool redesigned) {
+                    void* stream, Entry entry) {
   if (n_points < 1 || n_layers < 0 || n_layers > kMaxLayers || dims[0] != n_features) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Chain chain = make_chain(n_layers, dims, kinds, weights, biases, act);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (takes_sliced(n_layers, dims, kinds, is_bf16 != 0, false)) {
-    return static_cast<int>(launch_sliced<__nv_bfloat16>(points, seg, out, n_points, n_features,
-                                                         num_segments, chain, s));
-  }
   const Tf32x3Plan plan = tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0);
-  if (redesigned && plan.cluster > 0) {
+  if (entry == kPath && plan.cluster > 0) {
     return static_cast<int>(launch_tf32x3_plan(points, seg, out, n_points, n_features,
                                                num_segments, chain, plan, s));
   }
   const WidePlan wide = wide_plan(n_layers, dims, kinds, is_bf16 != 0, false);
-  if (redesigned && wide.cluster > 0) {
-    const cudaError_t err =
-        wide.cluster == 2
-            ? launch_wide<2>(points, seg, out, n_points, n_features, num_segments, chain, wide, s)
-            : launch_wide<4>(points, seg, out, n_points, n_features, num_segments, chain, wide, s);
-    return static_cast<int>(err);
+  if (entry == kPath && wide.cluster > 0) {
+    const auto launch = wide.cluster == 1   ? launch_wide<1>
+                        : wide.cluster == 2 ? launch_wide<2>
+                                            : launch_wide<4>;
+    return static_cast<int>(launch(points, seg, out, n_points, n_features, num_segments, chain, wide, s));
+  }
+  if (entry == kTakeSliced && takes_sliced(n_layers, dims, kinds, is_bf16 != 0, false)) {
+    return static_cast<int>(launch_sliced<__nv_bfloat16>(points, seg, out, n_points, n_features,
+                                                         num_segments, chain, s));
   }
   int widest = n_features;
   for (int l = 0; l <= n_layers; ++l) widest = dims[l] > widest ? dims[l] : widest;
@@ -870,6 +998,9 @@ int phi_pool_launch(const void* points, const void* seg, void* out, int n_points
   return static_cast<int>(err);
 }
 
+// pcc_phi_pool_variant's codes
+constexpr int kGeneralCode = 0, kSlicedCode = 1, kTf32x3Code = 2, kWideCode = 3;
+
 }  // namespace
 
 extern "C" {
@@ -878,45 +1009,49 @@ extern "C" {
 // int32, out [num_segments, dims[n_layers]] f32 and already zeroed.  Layer l
 // has weight weights[l] [dims[l], dims[l + 1]] and bias biases[l], both of
 // the points' type, and kind kinds[l] (0 plain, 1 residual, 2 bare linear).
-// Returns the cudaError_t of the launch (0 on success), or kErrTooWide when
-// the general variant's widest layer does not fit an 8-row tile; does not
-// synchronise.
+// bf16 points of more than 8 features are copied 16 bytes at a time: on a
+// 16-byte boundary.  Returns the cudaError_t of the launch (0 on success),
+// or kErrTooWide when the general variant's widest layer does not fit an
+// 8-row tile; does not synchronise.
 int pcc_phi_pool(const void* points, const void* seg, void* out, int n_points,
                  int n_features, int num_segments, int n_layers, const int* dims,
                  const int* kinds, const void* const* weights, const void* const* biases,
                  int act, int is_bf16, void* stream) {
   return phi_pool_launch(points, seg, out, n_points, n_features, num_segments, n_layers, dims,
-                         kinds, weights, biases, act, is_bf16, stream, true);
+                         kinds, weights, biases, act, is_bf16, stream, kPath);
 }
 
-// pcc_phi_pool without the tf32x3 and the wide variants: the chains they
-// take go to the general one.  For timing them side by side; the port's path
-// never calls it.
+// pcc_phi_pool taking the sliced variant where `sliced` is set and it takes
+// the chain (bf16, the DeepSets chain of φ 256), else the general variant.
+// For timing them side by side; the port's path never calls it.
 int pcc_phi_pool_general(const void* points, const void* seg, void* out, int n_points,
                          int n_features, int num_segments, int n_layers, const int* dims,
                          const int* kinds, const void* const* weights,
-                         const void* const* biases, int act, int is_bf16, void* stream) {
+                         const void* const* biases, int act, int is_bf16, void* stream, int sliced) {
   return phi_pool_launch(points, seg, out, n_points, n_features, num_segments, n_layers, dims,
-                         kinds, weights, biases, act, is_bf16, stream, false);
+                         kinds, weights, biases, act, is_bf16, stream,
+                         sliced != 0 ? kTakeSliced : kTakeGeneral);
 }
 
-// Which variant a launch takes, K1's when backward is 0 and K2's otherwise,
-// through pcc_phi_pool / pcc_phi_pool_bwd (redesigned 1) or their _general
-// timing entries (0), in the order the launches try them: 2 the tf32x3
-// variant (f32: tf32x3_plan for K1, phi_tf32.cuh:bwd_tf32x3_plan for K2),
-// 3 the wide one (bf16: phi_wide.cuh:wide_plan), 1 the sliced one
-// (phi_chain.cuh:takes_sliced: bf16 K1 at the DeepSets chain of φ 256, and
-// K2 there only through pcc_phi_pool_bwd_general), 0 the general one.
+// Which variant a launch takes, K1's when backward is 0 and K2's otherwise:
+// 2 the tf32x3 variant (f32: tf32x3_plan for K1, phi_tf32.cuh:
+// bwd_tf32x3_plan for K2), 3 the wide one (bf16: phi_wide.cuh:wide_plan), 1
+// the sliced one (phi_chain.cuh:takes_sliced), 0 the general one.  entry 1:
+// through pcc_phi_pool / pcc_phi_pool_bwd, whose wide plans take the sliced
+// variant's chain; 0: through the timing entries that take the sliced
+// variant (pcc_phi_pool_general with sliced set, pcc_phi_pool_bwd_general);
+// -1: K1's timing entry with sliced unset (the general one alone).
 int pcc_phi_pool_variant(int n_layers, const int* dims, const int* kinds, int is_bf16,
-                         int backward, int redesigned) {
-  if (n_layers < 1 || n_layers > kMaxLayers) return 0;
-  if (redesigned != 0) {
-    if (backward == 0 && tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0).cluster > 0) return 2;
-    if (backward != 0 && bwd_tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0).form > 0) return 2;
-    if (wide_plan(n_layers, dims, kinds, is_bf16 != 0, backward != 0).cluster > 0) return 3;
+                         int backward, int entry) {
+  if (n_layers < 1 || n_layers > kMaxLayers) return kGeneralCode;
+  const bool bf16 = is_bf16 != 0, bwd = backward != 0;
+  if (entry == 1) {
+    if (!bwd && tf32x3_plan(n_layers, dims, kinds, bf16).cluster > 0) return kTf32x3Code;
+    if (bwd && bwd_tf32x3_plan(n_layers, dims, kinds, bf16).form > 0) return kTf32x3Code;
+    return wide_plan(n_layers, dims, kinds, bf16, bwd).cluster > 0 ? kWideCode : kGeneralCode;
   }
-  if (takes_sliced(n_layers, dims, kinds, is_bf16 != 0, backward != 0)) return 1;
-  return 0;
+  if (entry == 0 && takes_sliced(n_layers, dims, kinds, bf16, bwd)) return kSlicedCode;
+  return kGeneralCode;
 }
 
 #ifdef PCC_PHASE_CLOCKS

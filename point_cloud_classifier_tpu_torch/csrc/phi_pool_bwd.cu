@@ -70,8 +70,9 @@
 // Wide (bf16, the DeepSets chain at widths W of 256 to 1024 in multiples of
 // 64: a first layer of at most 8 inputs, then one square layer, plain or
 // residual; the config chain and bench.py's flagship at 256, its
-// --phi-width rows in its default dtype).  Two kernels in one launch
-// sequence, then one reduce_slabs_kernel launch for its three sums.
+// --phi-width rows in its default dtype; and the tail's bare layer, below).
+// Two kernels in one launch sequence, then one reduce_slabs_kernel launch
+// for its three sums.
 // - What bounds it: the operations, three products of 2·P·W² over 989
 //   TFLOP/s (0.42 ms at B=256, P=65,536, W=1024).  d_W of the square layer
 //   is [W, W] f32, 4 MB at 1024: no SM holds it, and the general variant's
@@ -113,21 +114,35 @@
 //   variant keeps its slice, rather than streaming W2 from L2 through the
 //   stages twice a tile as at W > 256 (kResident false for C = 1 streams
 //   it: PERF.md §6 has the two forms against each other, scripts/k2_ab.py).
-//   Where the recompute differs from the forward of bf16 K1 (the sliced
-//   variant at this chain): the first layer.  K1 sums its <= 8 products in
-//   f32 FMAs in k order (first_dots) and takes kFastSigmoid's activation
-//   (tanhf, an exact reciprocal); this form sums them in one tensor-core
-//   product and takes kWideFast's, as the clusters do.  Each h1 value is
-//   then rounded to bf16 and lands on K1's but where the f32 values fall on
-//   either side of a bf16 rounding boundary (one bf16 step apart; where
-//   x·W1 + b1 cancels to near 0, a step of the dot), and z1 likewise.  The second layer does not add a difference: z2's 16-k
-//   steps run in slice_dot's order, each mma.sync adding the same products
-//   of the same bf16 h1 to the same sum, and both round the dot and then the
-//   bias add, so z2 equals K1's wherever h1 does.  K1's first layer (f32
-//   FMAs, kFastSigmoid) in this form would make the recompute bit-equal to
-//   K1's forward, and took the form ×1.38 longer on the H100 (PERF.md §6):
-//   not kept.  How many h1 values differ is read on the card
-//   (pcc_phi_pool_bwd_h1_departures; under one in a million, PERF.md §6).
+//   The recompute is bf16 K1's forward at this chain bit for bit: K1 takes
+//   it on the wide variant's one block a tile, whose first layer is the
+//   same tensor-core product of the same operands and the same epilogue
+//   (phi_wide.cuh:wide_product, wide_epilogue: h1, written to h1s here),
+//   and whose second layer runs its 16-k steps in the same order, each
+//   mma.sync adding the same products of the same bf16 h1 to the same sum,
+//   rounding the dot and then the bias add, so z2 equals K1's too.  The
+//   card reads no value of h1 apart from K1's (pcc_phi_pool_bwd_h1_departures
+//   against K1's own forward; PERF.md §6).  The sliced K1 (the timing entry)
+//   sums its <= 8 first-layer products in f32 FMAs in k order (first_dots)
+//   and takes kFastSigmoid's activation: there an h1 value lands one bf16
+//   step apart where the two f32 values fall on either side of a rounding
+//   boundary (where x·W1 + b1 cancels to near 0, a step of the dot), under
+//   one in a million.
+//
+// Wide, the tail (bf16, one bare layer [in, out], each a multiple of 64 from
+// 256 to 1024: fused_phi "tail" in bench.py's default dtype).  No recompute:
+// dz = bf16(g[seg]), as phi_pool_bwd_plain rounds the cotangent before the
+// gather.  g is rounded to bf16 once into the scratch (round_bf16_kernel,
+// [S, out]), and both passes gather its rows by segment id (zero for ids
+// outside [0, S)): d_W = h_inᵀ·dz and d_b = Σ dz by the d_W pass
+// (phi_pool_bwd_dw_kernel<bf16, true>: bf16 products, f32 sums; d_b the
+// bf16 values summed in f32 in row order, then the partials in split
+// order); d_points = bf16(dz·Wᵀ), f32 sums, by a row product on K1's wide
+// skeleton (phi_pool_bwd_rows_wide_kernel: W's rows staged by n, each block
+// gathering its own tile's rows of g by cp.async; its columns in slices of
+// at most 256 to 1, 2 or 4 blocks a tile, no cluster).  What bounds it:
+// the bytes at [256, 256] (h in, d_points out), the operations (4·P·in·out)
+// at [1024, 1024].
 //
 // Tf32x3 (f32: the DeepSets chain at W = 256 to 1024 in multiples of 64, as
 // the wide variant takes it in bf16; and the tail's one bare layer [in, out],
@@ -865,40 +880,15 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     if constexpr (C > 1) cluster_sync();
     clk.mark(2);
     // h1 = act(rnd(rnd(x·W1) + b1)), this block's columns, into every block's
-    // h and into h1s for the d_W pass (16-byte pieces: quad_gather)
-    with_act(chain.act, [&](auto a) {
-#pragma unroll
-      for (int i = 0; i < kWideNt; i += 2) {
-        uint32_t b[4];
-        wide_b<true>(b, w1s, i, 0, kW1Ld);
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          if (!wide_tile_in(i + u, nb)) continue;
-          const int col = col0 + wide_col(i + u);
-          const float bias0 = to_f32(b1[col]), bias1 = to_f32(b1[col + 1]);
-          uint32_t v[4];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            float dot[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            mma_bf16(dot, ax[mt], b[2 * u], b[2 * u + 1]);
-#pragma unroll
-            for (int e = 0; e < 4; e += 2) {
-              v[2 * mt + e / 2] = pack_bf16(
-                  layer_out<bf16, kWideFast>(dot[e], bias0, 0.0f, kPlain, decltype(a)::value, nullptr),
-                  layer_out<bf16, kWideFast>(dot[e + 1], bias1, 0.0f, kPlain, decltype(a)::value,
-                                                 nullptr));
-            }
-          }
-          const uint4 piece = quad_gather(v);
-          const int row = gathered_row(), c8 = col0 + 8 * (threadIdx.x / 32 % 4 + 4 * (i + u));
-#pragma unroll
-          for (int q = 0; q < C; ++q) *reinterpret_cast<uint4*>(targets[q] + row * ldh + c8) = piece;
-          if (row < n_rows) {
-            *reinterpret_cast<uint4*>(h1s + static_cast<size_t>(row0 + row) * width + c8) = piece;
-          }
-        }
-      }
-    });
+    // h and into h1s for the d_W pass: K1's first layer (the same product of
+    // the same operands, the same epilogue), so h1 is K1's bit for bit
+    {
+      float acc[2][kWideNt][4];
+      zero(acc);
+      wide_product<true>(acc, x, kXLd, 0, 1, w1s, kW1Ld);
+      wide_epilogue<C>(acc, x, kXLd, targets, C, ldh, b1, col0, nb, kPlain, chain.act, h1s, width, row0,
+                       n_rows);
+    }
     clk.mark(3);
     tile_sync();  // h1 is whole in every block
     clk.mark(4);
@@ -1086,8 +1076,10 @@ __global__ void __launch_bounds__(kWideThreads, 1)
 
 // d_W [m, n] = Aᵀ·B over the points, A [P, m] and B [P, n] row-major (lda =
 // m, ldb = n) of T: bf16 in the wide variant (h1 and dz2 from its row
-// pass), f32 in the tf32x3 one (the same, or the tail's points and, with
-// GATHER, B's row p = g[seg[p]] of g [S, n], zero for ids outside [0, S)).
+// pass), f32 in the tf32x3 one (the same); or the tail's points and, with
+// GATHER, B's row p = g[seg[p]] of g [S, n] (in bf16 g rounded to bf16 as
+// phi_pool_bwd_plain rounds it before the gather), zero for ids outside [0,
+// S).
 // Block (split, i-tile, j-tile) sums rows [split · rows, (split + 1) · rows)
 // of P into a [128, 128] tile of f32 accumulators in its registers (eight
 // warps of 64 x 32), from rows of 32 points staged by cp.async in rows of
@@ -1205,7 +1197,6 @@ __global__ void __launch_bounds__(kDwThreads, sizeof(T) == 2 ? 2 : 1)
                            const int* __restrict__ seg, int num_segments,
                            float* __restrict__ parts, float* __restrict__ b_sums, int n_points,
                            int m, int n, int tiles_n, int rows) {
-  static_assert(!GATHER || std::is_same<T, float>::value, "the gathered d_W pass is the f32 tail's");
   constexpr int kStages = dw_stages(sizeof(T));
   constexpr int kVecT = 16 / sizeof(T);  // elements a 16-byte copy
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1266,7 +1257,7 @@ __global__ void __launch_bounds__(kDwThreads, sizeof(T) == 2 ? 2 : 1)
       if (sums) {  // the stage's rows, then into the block's sum
         float stage_sum = 0.0f;
 #pragma unroll 8
-        for (int r = 0; r < kDwRows; ++r) stage_sum += b[r * kDwLd + threadIdx.x];
+        for (int r = 0; r < kDwRows; ++r) stage_sum += to_f32(b[r * kDwLd + threadIdx.x]);
         b_sum += stage_sum;
       }
     }
@@ -1350,6 +1341,24 @@ inline WideScratch wide_scratch(int n_points, const int* dims, int cluster, int 
   return w;
 }
 
+// Where the tail's scratch lies, in floats: the d_W pass's partials of d_W
+// [split][in, out], then of d_b [split][out]; in bf16 then g rounded to bf16
+// [S, out] (g16), which both of its passes gather rows of.
+struct TailScratch {
+  DwSplit dw;
+  size_t b_sums, g16, total;
+};
+
+inline TailScratch tail_scratch(int n_points, int num_segments, const int* dims, int max_blocks,
+                                size_t elem) {
+  TailScratch t;
+  t.dw = dw_split(n_points, dims[0], dims[1], max_blocks, elem == sizeof(float));
+  t.b_sums = up64(static_cast<size_t>(t.dw.split) * dims[0] * dims[1]);
+  t.g16 = up64(t.b_sums + static_cast<size_t>(t.dw.split) * dims[1]);
+  t.total = t.g16 + (elem == sizeof(float) ? 0 : (static_cast<size_t>(num_segments) * dims[1] + 1) / 2);
+  return t;
+}
+
 // One d_W pass (phi_pool_bwd_dw_kernel<T, GATHER>) on d's grid: the
 // arguments as the kernel takes them.
 template <typename T, bool GATHER>
@@ -1430,35 +1439,173 @@ cudaError_t launch_wide(const void* points, const void* seg, const void* g, void
   return reduce_deep_sets(base, w, n_clusters, n_features, width, static_cast<float*>(d_params), stream);
 }
 
-// The one-block wide form's h1 (its scratch, [P, W] bf16) against bf16 K1's
-// forward at that chain (the sliced variant: first_dots' f32 FMAs in k order,
-// kFastSigmoid): counts[0] += the values whose bits differ, counts[1] = the
-// largest |difference| of one in units of 2^-24 (in bf16 steps it says
-// little: where z1 = x·W1 + b1 cancels to near 0, one bf16 step of the dot
-// is thousands of steps of the small value).  A check for the card, off the
-// path: how often the recompute departs from what K1 pooled.
+// -- the wide variant: the tail's row product -----------------------------------------
+
+// g [n] f32 rounded to bf16 (the tail's cotangent, as phi_pool_bwd_plain
+// rounds it before the gather).
 __global__ void __launch_bounds__(kThreads)
-    h1_departures_kernel(const bf16* __restrict__ points, const bf16* __restrict__ w1,
-                         const bf16* __restrict__ b1, const bf16* __restrict__ h1s, int n_points,
-                         int n_features, int width, int act, unsigned long long* counts) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<size_t>(n_points) * width) return;
-  const int row = static_cast<int>(i / width), col = static_cast<int>(i % width);
-  float dot = 0.0f;
-  for (int k = 0; k < n_features; ++k) {
-    dot = fmaf(to_f32(points[static_cast<size_t>(row) * n_features + k]),
-               to_f32(w1[static_cast<size_t>(k) * width + col]), dot);
+    round_bf16_kernel(const float* __restrict__ g, bf16* __restrict__ out, int n) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < n) out[i] = __float2bfloat16_rn(g[i]);
+}
+
+// d_points = bf16(dz·Wᵀ), f32 sums, for the bare layer [in, out], dz =
+// g16[seg] (zero for ids outside [0, S) and rows past the end).  Block b
+// takes columns [r nb, (r + 1) nb) of d_points (r = b % C, nb = in / C) for
+// the tiles b / C, b / C + gridDim.x / C, ...: it gathers each tile's rows
+// of g16 into h by cp.async (the next tile's behind this one's products),
+// and multiplies them by W's rows, staged by n from the one [in, out] copy
+// (wide_produce, bf16 mma.sync with ldmatrix operands, as the DeepSets row
+// pass forms dz2·W2ᵀ).  No cluster: each block gathers its own tile.
+// Shared memory: h [64, ldh], the ring of chunks, its mbarriers.
+template <int C>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    phi_pool_bwd_rows_wide_kernel(const int* __restrict__ seg, const bf16* __restrict__ g16,
+                                  bf16* __restrict__ d_points, int n_points, int num_segments,
+                                  WideStream st, int ldh) {
+  constexpr int S = kWideStagesK2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* h = reinterpret_cast<bf16*>(smem_raw);
+  bf16* stages = h + kWideRows * ldh;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + S * kStageByN);
+  uint64_t* empty = full + S;
+
+  const int width = st.phase[0].k_dim, in_dim = st.phase[0].n_cols;
+  const int rank = blockIdx.x % C, nb = in_dim / C, col0 = rank * nb;
+  const int n_tiles = (n_points + kWideRows - 1) / kWideRows;
+  const int n_groups = gridDim.x / C;
+  const int first_tile = blockIdx.x / C;
+  const int n_my_tiles = first_tile < n_tiles ? (n_tiles - 1 - first_tile) / n_groups + 1 : 0;
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < S; ++q) {
+      mbar_init(full + q, kWideProducers);
+      mbar_init(empty + q, kWideConsumerWarps);
+    }
   }
-  float v = 0.0f;
-  with_act(act, [&](auto a) {
-    v = layer_out<bf16, kFastSigmoid<bf16>>(dot, to_f32(b1[col]), 0.0f, kPlain, decltype(a)::value,
-                                            nullptr);
-  });
-  const bf16 k1 = __float2bfloat16_rn(v);
-  if (__bfloat16_as_ushort(k1) == __bfloat16_as_ushort(h1s[i])) return;
-  const float diff = fabsf(__bfloat162float(h1s[i]) - __bfloat162float(k1));
+  PhaseClock clk;
+  __syncthreads();
+  if (threadIdx.x >= kWideConsumers) {
+    wide_produce<C, S>(st, stages, kStageByN, full, empty, rank, n_my_tiles);
+    return;
+  }
+  const auto gather = [&](int tile) {
+    const int per_row = width / 8;
+    for (int i = threadIdx.x; i < kWideRows * per_row; i += kWideConsumers) {
+      const int r = i / per_row, k = 8 * (i - r * per_row), p = tile * kWideRows + r;
+      const int sid = p < n_points ? __ldg(seg + p) : -1;
+      const bool valid = sid >= 0 && sid < num_segments;
+      cp_async16(h + r * ldh + k, valid ? g16 + static_cast<size_t>(sid) * width + k : g16, valid);
+    }
+    cp_async_commit();
+  };
+  if (n_my_tiles > 0) gather(first_tile);
+  clk.mark(0);
+  const int n_chunks = phase_chunks(st.phase[0]);
+  int chunk = 0;
+  for (int tile = first_tile; tile < n_tiles; tile += n_groups) {
+    cp_async_wait_all();
+    bar_sync(kWideConsumerBar, kWideConsumers);  // the tile's rows of g16 are in h
+    clk.mark(1);
+    float acc[2][kWideNt][4];
+    zero(acc);
+    for (int c = 0; c < n_chunks; ++c, ++chunk) {
+      const int s = chunk % S;
+      mbar_wait(full + s, (chunk / S) & 1);
+      clk.mark(2);
+      wide_product<true>(acc, h, ldh, c * kWideChunk, chunk_steps(width, c), stages + s * kStageByN);
+      __syncwarp();
+      if (threadIdx.x % 32 == 0) mbar_arrive(empty + s);
+      clk.mark(3);
+    }
+    bar_sync(kWideConsumerBar, kWideConsumers);  // no warp reads h any more
+    if (tile + n_groups < n_tiles) gather(tile + n_groups);
+    clk.mark(4);
+    // d_points, rounded once, as 16-byte pieces of rows (quad_gather)
+#pragma unroll
+    for (int i = 0; i < kWideNt; ++i) {
+      if (wide_tile_in(i, nb)) {
+        uint32_t v[4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int e = 0; e < 4; e += 2) v[2 * mt + e / 2] = pack_bf16(acc[mt][i][e], acc[mt][i][e + 1]);
+        }
+        const uint4 piece = quad_gather(v);
+        const int p = tile * kWideRows + gathered_row();
+        if (p < n_points) {
+          *reinterpret_cast<uint4*>(d_points + static_cast<size_t>(p) * in_dim + col0 +
+                                    8 * (threadIdx.x / 32 % 4 + 4 * i)) = piece;
+        }
+      }
+    }
+    clk.mark(5);
+  }
+  clk.flush();
+}
+
+// The bf16 tail (wide_plan form 2): g rounded to bf16 into the scratch; the
+// row product for d_points (unless null); the gathered d_W pass (bf16
+// products, f32 sums; its first i-tile's blocks sum d_b's bf16 values in f32
+// in row order); the partials summed in split order.
+cudaError_t launch_tail_wide(const void* points, const void* seg, const void* g, void* d_points,
+                             void* d_params, void* scratch, int max_blocks, int n_points,
+                             int num_segments, const Chain& chain, const WidePlan& plan,
+                             cudaStream_t stream) {
+  const int in_dim = chain.dims[0], out_dim = chain.dims[1];
+  const TailScratch t = tail_scratch(n_points, num_segments, chain.dims, max_blocks, sizeof(bf16));
+  float* base = static_cast<float*>(scratch);
+  bf16* g16 = reinterpret_cast<bf16*>(base + t.g16);
+  const int n_g = num_segments * out_dim;
+  round_bf16_kernel<<<(n_g + kThreads - 1) / kThreads, kThreads, 0, stream>>>(static_cast<const float*>(g),
+                                                                               g16, n_g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int* s = static_cast<const int*>(seg);
+  if (d_points != nullptr) {
+    const auto rows = [&](auto c) {
+      constexpr int C = decltype(c)::value;
+      auto kernel = phi_pool_bwd_rows_wide_kernel<C>;
+      static int fit = 0;  // blocks the card holds at once
+      cudaError_t e = cluster_fit(kernel, 1, kWideThreads, &fit);
+      if (e != cudaSuccess) return e;
+      WideStream st = {};
+      add_phase(st, chain.w[0], out_dim, out_dim, in_dim, 1);
+      const int n_tiles = (n_points + kWideRows - 1) / kWideRows;
+      const int groups = n_tiles < fit / C ? n_tiles : fit / C;
+      kernel<<<groups * C, kWideThreads, plan.smem, stream>>>(s, g16, static_cast<bf16*>(d_points), n_points,
+                                                              num_segments, st, plan.ldh);
+      return cudaGetLastError();
+    };
+    err = plan.cluster == 1   ? rows(std::integral_constant<int, 1>{})
+          : plan.cluster == 2 ? rows(std::integral_constant<int, 2>{})
+                              : rows(std::integral_constant<int, 4>{});
+    if (err != cudaSuccess) return err;
+  }
+  const DwSplit& d = t.dw;
+  err = launch_dw<bf16, true>(static_cast<const bf16*>(points), g16, s, num_segments, base, base + t.b_sums,
+                              n_points, in_dim, out_dim, d, stream);
+  if (err != cudaSuccess) return err;
+  // d_params: d_W [in, out] from the partials, then d_b [out]
+  float* out = static_cast<float*>(d_params);
+  const SlabSum jobs[2] = {
+      {base, d.split, static_cast<size_t>(in_dim) * out_dim, in_dim * out_dim, out},
+      {base + t.b_sums, d.split, static_cast<size_t>(out_dim), out_dim, out + in_dim * out_dim}};
+  return reduce_slabs(jobs, stream);
+}
+
+// The one-block wide form's h1 (its scratch, [P, W] bf16) against ref, K1's
+// forward over the first layer alone ([P, W] f32, one bf16 value a sum):
+// counts[0] += the values that differ, counts[1] = the largest |difference|
+// of one in units of 2^-24.  A check for the card, off the path.
+__global__ void __launch_bounds__(kThreads)
+    h1_departures_kernel(const float* __restrict__ ref, const bf16* __restrict__ h1s, size_t n,
+                         unsigned long long* counts) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float k1 = ref[i], k2 = __bfloat162float(h1s[i]);
+  if (k1 == k2) return;
   atomicAdd(counts, 1ull);
-  atomicMax(counts + 1, static_cast<unsigned long long>(diff * 16777216.0f + 0.5f));
+  atomicMax(counts + 1, static_cast<unsigned long long>(fabsf(k2 - k1) * 16777216.0f + 0.5f));
 }
 
 // -- the tf32x3 variant (f32): the row pass --------------------------------------------
@@ -1940,21 +2087,6 @@ cudaError_t launch_tf32x3(const void* points, const void* seg, const void* g, vo
   return reduce_deep_sets(base, w, n_clusters, n_features, width, static_cast<float*>(d_params), stream);
 }
 
-// Where the tail's scratch lies, in floats: the d_W pass's partials of d_W
-// [split][in, out], then of d_b [split][out].
-struct TailScratch {
-  DwSplit dw;
-  size_t b_sums, total;
-};
-
-inline TailScratch tail_scratch(int n_points, const int* dims, int max_blocks) {
-  TailScratch t;
-  t.dw = dw_split(n_points, dims[0], dims[1], max_blocks, true);
-  t.b_sums = up64(static_cast<size_t>(t.dw.split) * dims[0] * dims[1]);
-  t.total = t.b_sums + static_cast<size_t>(t.dw.split) * dims[1];
-  return t;
-}
-
 template <int ROWS, int C>
 cudaError_t launch_tail_rows(const void* seg, const void* g, void* d_points, int n_points,
                              int num_segments, const Chain& chain, const BwdTf32Plan& plan,
@@ -1995,7 +2127,7 @@ cudaError_t launch_tail_tf32x3(const void* points, const void* seg, const void* 
     if (err != cudaSuccess) return err;
   }
   const int in_dim = chain.dims[0], out_dim = chain.dims[1];
-  const TailScratch t = tail_scratch(n_points, chain.dims, max_blocks);
+  const TailScratch t = tail_scratch(n_points, num_segments, chain.dims, max_blocks, sizeof(float));
   float* base = static_cast<float*>(scratch);
   const DwSplit& d = t.dw;
   err = launch_dw<float, true>(static_cast<const float*>(points), static_cast<const float*>(g),
@@ -2098,6 +2230,10 @@ int phi_pool_bwd_launch(const void* points, const void* seg, const void* g, void
                                                n_points, num_segments, chain, tf, s));
   }
   const WidePlan wide = wide_plan(n_layers, dims, kinds, is_bf16 != 0, true);
+  if (redesigned && wide.form == 2) {
+    return static_cast<int>(launch_tail_wide(points, seg, g, d_points, d_params, slabs, max_blocks,
+                                             n_points, num_segments, chain, wide, s));
+  }
   if (redesigned && wide.cluster > 0) {
     cudaError_t err;
     switch (wide.cluster) {
@@ -2208,28 +2344,26 @@ int pcc_phi_pool_bwd_general(const void* points, const void* seg, const void* g,
 
 // *out = the f32 elements of scratch (`slabs`) that pcc_phi_pool_bwd takes
 // for a chain: max_blocks slabs of the whole gradient (the general and the
-// sliced variants), or the wide variant's cluster slabs, its [P, W] bf16 h1
-// and dz2 and its d_W pass's partials (wide_scratch).  Returns 0, or
-// cudaErrorInvalidValue for a chain pcc_phi_pool_bwd refuses.
-int pcc_phi_pool_bwd_scratch(int n_points, int n_layers, const int* dims, const int* kinds,
-                             int is_bf16, int max_blocks, long long* out) {
-  if (n_points < 1 || max_blocks < 1 || n_layers < 1 || n_layers > kMaxLayers) {
+// sliced variants), or the wide and tf32x3 variants' cluster slabs, [P, W]
+// h1 and dz2 and d_W pass's partials (wide_scratch), or the tail's partials
+// (and in bf16 its g rounded to bf16, [num_segments, out]: tail_scratch).
+// Returns 0, or cudaErrorInvalidValue for a chain pcc_phi_pool_bwd refuses.
+int pcc_phi_pool_bwd_scratch(int n_points, int num_segments, int n_layers, const int* dims,
+                             const int* kinds, int is_bf16, int max_blocks, long long* out) {
+  if (n_points < 1 || num_segments < 0 || max_blocks < 1 || n_layers < 1 || n_layers > kMaxLayers) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const BwdTf32Plan tf = bwd_tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0);
-  if (tf.form == 1) {
-    *out = static_cast<long long>(
-        wide_scratch(n_points, dims, tf.cluster, max_blocks, sizeof(float)).total);
-    return 0;
-  }
-  if (tf.form == 2) {
-    *out = static_cast<long long>(tail_scratch(n_points, dims, max_blocks).total);
-    return 0;
-  }
   const WidePlan wide = wide_plan(n_layers, dims, kinds, is_bf16 != 0, true);
-  if (wide.cluster > 0) {
+  if (tf.form == 1 || wide.form == 1) {
+    const int cluster = tf.form == 1 ? tf.cluster : wide.cluster;
     *out = static_cast<long long>(
-        wide_scratch(n_points, dims, wide.cluster, max_blocks, sizeof(bf16)).total);
+        wide_scratch(n_points, dims, cluster, max_blocks, is_bf16 ? sizeof(bf16) : sizeof(float)).total);
+    return 0;
+  }
+  if (tf.form == 2 || wide.form == 2) {
+    *out = static_cast<long long>(
+        tail_scratch(n_points, num_segments, dims, max_blocks, is_bf16 ? sizeof(bf16) : sizeof(float)).total);
     return 0;
   }
   long long n_param = 0;
@@ -2240,14 +2374,15 @@ int pcc_phi_pool_bwd_scratch(int n_points, int n_layers, const int* dims, const 
 
 // After pcc_phi_pool_bwd on a bf16 chain that the one-block wide form
 // takes (the DeepSets chain at W 256) with this scratch: counts (two u64 on
-// the device, zeroed by the caller) get the h1 values of the scratch that
-// differ from bf16 K1's forward and the largest difference of one, in units
-// of 2^-24 (h1_departures_kernel).  Returns cudaErrorInvalidValue for another chain;
-// does not synchronise.
-int pcc_phi_pool_bwd_h1_departures(const void* points, const void* scratch, int max_blocks,
-                                   int n_points, int n_layers, const int* dims, const int* kinds,
-                                   const void* const* weights, const void* const* biases, int act,
-                                   void* counts, void* stream) {
+// the device, zeroed by the caller) get the values of the scratch's h1 that
+// differ from ref, K1's forward over the chain's first layer alone with one
+// segment a point ([P, W] f32: each pooled sum is one bf16 value, 0 + v, so
+// every value but zero's sign), and the largest difference of one, in units
+// of 2^-24 (h1_departures_kernel).  Returns cudaErrorInvalidValue for
+// another chain; does not synchronise.
+int pcc_phi_pool_bwd_h1_departures(const void* ref, const void* scratch, int max_blocks, int n_points,
+                                   int n_layers, const int* dims, const int* kinds, void* counts,
+                                   void* stream) {
   if (n_points < 1 || max_blocks < 1 || n_layers != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (wide_plan(n_layers, dims, kinds, true, true).cluster != 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2257,9 +2392,8 @@ int pcc_phi_pool_bwd_h1_departures(const void* points, const void* scratch, int 
   const size_t n = static_cast<size_t>(n_points) * width;
   h1_departures_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(points), static_cast<const bf16*>(weights[0]),
-      static_cast<const bf16*>(biases[0]), reinterpret_cast<const bf16*>(static_cast<const float*>(scratch) + w.h1),
-      n_points, dims[0], width, act, static_cast<unsigned long long*>(counts));
+      static_cast<const float*>(ref), reinterpret_cast<const bf16*>(static_cast<const float*>(scratch) + w.h1),
+      n, static_cast<unsigned long long*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,8 +3,8 @@
 // producer warps stage into shared memory, and the bf16 tile product on the
 // tensor cores that consumer warps run over it.
 //
-// A cluster of C blocks (2 up to width 512, 4 up to 1024; K2 takes one
-// block, C = 1, at width 256) walks 64-row tiles.  Block r owns columns
+// One block (C = 1, up to width 256) or a cluster of C blocks (2 up to
+// width 512, 4 up to 1024) walks 64-row tiles.  Block r owns columns
 // [r nb, (r + 1) nb) of every layer (nb = width / C, at most 256) and keeps
 // the tile's whole layer input, [64, width] bf16 (132 KB at width 1024), in
 // its shared memory as h: every
@@ -37,6 +37,8 @@
 // staged chunk for a gain bounded by the products' share of a tile.)
 
 #pragma once
+
+#include <type_traits>
 
 #include "phi_chain.cuh"
 
@@ -106,26 +108,46 @@ inline void add_sync(WideStream& st, int count) {
   st.sync_count[st.n_syncs++] = count;
 }
 
-// Which chains the wide variants take: bf16, points of at most 8 features,
-// every width a multiple of 8 C.  K1 takes 1 to kMaxLayers layers of any
-// kind, the widest above 256 and at most 1024 (bf16 K1 at the DeepSets chain
-// of φ 256 is the sliced variant's); K2 (backward) the DeepSets chain alone,
-// a first plain layer and one square layer of width 256 to 1024 in
-// multiples of 64, plain or residual.  C: 1 block a tile up to width 256
-// (K2 alone), 2 up to 512, 4 up to 1024.  cluster 0: not taken.
+// Which chains the wide variants take, and how: bf16 alone.
+// - K1 (backward false), form 1: 1 to kMaxLayers layers of any kind, every
+//   width a multiple of 8 C, the widest at most 1024: one block a tile (C =
+//   1) up to 256, a cluster of 2 up to 512, of 4 up to 1024.  The points
+//   have at most 8 features (x, a [64, kXLd] tile of their own) or a multiple
+//   of 8 up to the widest (the tail's [P, H] rows), which come into h.
+// - K2 (backward true), form 1: the DeepSets chain alone, a plain first
+//   layer of at most 8 inputs and one square layer of width 256 to 1024 in
+//   multiples of 64, plain or residual (C = 1 at 256, all of W2 resident);
+//   a row pass, then a d_W pass.  Form 2: the tail's one bare layer [in,
+//   out], each a multiple of 64 from 256 to 1024: a d_W pass over the points
+//   and the gathered cotangent, and a row product for d_points, its columns
+//   in slices of at most 256 to C = 1, 2 or 4 blocks a tile (no cluster:
+//   each block gathers its own tile).
+// cluster 0: not taken.
 struct WidePlan {
-  int cluster = 0, ldh = 0;
+  int form = 0, cluster = 0, ldh = 0;
   size_t smem = 0;
 };
 
-// K2's one block a tile (width 256, resident) keeps all of W2, [256, kLdK]
-// bf16 (132 KB), in its shared memory in the stages' place
-inline size_t wide_smem(bool backward, int ldh, bool resident) {
+// Shared memory of K1 (h, x, the ring of chunks by k, the block's columns of
+// every layer's bias), of K2's row pass (h,
+// x, W1's columns by n, the block's share of d_points and, at one block a
+// tile, all of W2, [256, kLdK] bf16 (132 KB), in the ring's place) and of
+// the tail's row product (h and the ring of chunks by n), with the segment
+// ids and the ring's mbarriers.
+inline size_t wide_smem(int form, bool backward, int ldh, bool resident) {
+  if (backward && form == 2) {
+    return sizeof(bf16) * (static_cast<size_t>(kWideRows) * ldh + size_t{kWideStagesK2} * kStageByN) +
+           sizeof(uint64_t) * 2 * kWideStagesK2;
+  }
   const size_t stages = resident   ? size_t{kWideCols} * kLdK
                         : backward ? size_t{kWideStagesK2} * kStageByN
                                    : size_t{kWideStagesK1} * kStageByK;
   size_t bytes = sizeof(bf16) * (static_cast<size_t>(kWideRows) * (ldh + kXLd) + stages);
-  if (backward) bytes += sizeof(bf16) * kWideCols * kW1Ld + sizeof(float) * kWideRows * kMaxFeatures;
+  if (backward) {
+    bytes += sizeof(bf16) * kWideCols * kW1Ld + sizeof(float) * kWideRows * kMaxFeatures;
+  } else {
+    bytes += sizeof(bf16) * kMaxLayers * kWideCols;  // the block's columns of every layer's bias
+  }
   const int n_stages = backward ? kWideStagesK2 : kWideStagesK1;
   return bytes + sizeof(int) * kWideRows + sizeof(uint64_t) * 2 * n_stages;
 }
@@ -134,24 +156,37 @@ inline WidePlan wide_plan(int n_layers, const int* dims, const int* kinds, bool 
                           bool backward) {
   WidePlan plan;
   if (!is_bf16 || n_layers < 1 || n_layers > kMaxLayers) return plan;
-  if (dims[0] < 1 || dims[0] > kMaxFeatures) return plan;
+  if (backward && n_layers == 1 && kinds[0] == kLinear) {
+    for (int l = 0; l < 2; ++l) {
+      if (dims[l] % 64 != 0 || dims[l] < kWideCols || dims[l] > kWideMaxWidth) return plan;
+    }
+    plan.ldh = dims[1] + 8;
+    plan.smem = wide_smem(2, true, plan.ldh, false);
+    if (plan.smem > kMaxSmem) return plan;
+    plan.form = 2;
+    plan.cluster = dims[0] <= kWideCols ? 1 : dims[0] <= 2 * kWideCols ? 2 : 4;
+    return plan;
+  }
   int widest = 0;
   for (int l = 1; l <= n_layers; ++l) widest = dims[l] > widest ? dims[l] : widest;
-  if (widest < (backward ? kWide : kWide + 1) || widest > kWideMaxWidth) return plan;
+  if (widest < 1 || widest > kWideMaxWidth) return plan;
+  if (dims[0] < 1 || (dims[0] > kMaxFeatures && (dims[0] % 8 != 0 || dims[0] > widest))) return plan;
   const int cluster = widest <= kWideCols ? 1 : widest <= 2 * kWideCols ? 2 : 4;
   for (int l = 1; l <= n_layers; ++l) {
-    if (dims[l] % (8 * cluster) != 0) return plan;
+    if (dims[l] < 1 || dims[l] % (8 * cluster) != 0) return plan;
   }
   for (int l = 0; l < n_layers; ++l) {
     if (kinds[l] == kResidual && dims[l] != dims[l + 1]) return plan;
   }
-  if (backward && (n_layers != 2 || dims[1] != dims[2] || dims[1] % 64 != 0 || dims[1] < 256 ||
-                   kinds[0] != kPlain || kinds[1] == kLinear)) {
+  if (backward && (n_layers != 2 || dims[0] > kMaxFeatures || dims[1] != dims[2] ||
+                   dims[1] % 64 != 0 || dims[1] < kWide || kinds[0] != kPlain ||
+                   kinds[1] == kLinear)) {
     return plan;
   }
   plan.ldh = widest + 8;
-  plan.smem = wide_smem(backward, plan.ldh, cluster == 1);
+  plan.smem = wide_smem(1, backward, plan.ldh, backward && cluster == 1);
   if (plan.smem > kMaxSmem) return plan;
+  plan.form = 1;
   plan.cluster = cluster;
   return plan;
 }
@@ -347,19 +382,29 @@ __device__ __forceinline__ int gathered_row() {
 // The chain's layer values from a tile's sums, in layer_out's order (the dot
 // rounded, the bias, the activation, the residual add of the layer's input),
 // as 16-byte pieces of rows into h of the first n_targets blocks (targets[0]
-// is this block's own).
-template <int C>
-__device__ __forceinline__ void wide_epilogue(const float (&acc)[2][kWideNt][4], const bf16* in,
-                                              int ld_in, bf16* const (&targets)[C],
-                                              int n_targets, int ldh,
-                                              const bf16* __restrict__ bias, int col0, int nb,
-                                              int kind, int act) {
+// is this block's own) and, where `rows` is given, into rows [row0, row0 +
+// n_rows) of a row-major [P, width] copy (K2's h1 scratch).  K1's layers
+// and K2's recomputed first layer both take their values here, so K2's h1 is
+// K1's bit for bit where the sums are.  FULL:
+// every n8 tile of the warp lies within the block's columns (nb = 256), and
+// the tiles' loads, activations and exchanges interleave with no test; KIND
+// the layer's kind as a compile-time constant there, or -1 (read from
+// `kind`).  With a run-time kind every element's value ends in a branch of
+// its own and the elements no longer overlap: the one-block K1's epilogues
+// took about ×1.5 the clocks (phase_clocks.py, PERF.md §6).
+template <int C, bool FULL, int KIND>
+__device__ __forceinline__ void wide_epilogue_tiles(const float (&acc)[2][kWideNt][4], const bf16* in,
+                                                    int ld_in, bf16* const (&targets)[C], int n_targets,
+                                                    int ldh, const bf16* __restrict__ bias, int col0,
+                                                    int nb, int kind, int act, bf16* __restrict__ rows,
+                                                    int width, int row0, int n_rows) {
   with_act(act, [&](auto a) {
 #pragma unroll
     for (int i = 0; i < kWideNt; ++i) {
-      if (wide_tile_in(i, nb)) {
+      if (FULL || wide_tile_in(i, nb)) {
         const int col = col0 + wide_col(i);
-        const float b0 = to_f32(bias[col]), b1 = to_f32(bias[col + 1]);
+        const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
+        const int k = KIND < 0 ? kind : KIND;
         uint32_t v[4];
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
@@ -367,24 +412,49 @@ __device__ __forceinline__ void wide_epilogue(const float (&acc)[2][kWideNt][4],
           for (int e = 0; e < 4; e += 2) {
             const int row = wide_row(mt, e);
             float2 res = make_float2(0.0f, 0.0f);
-            if (kind == kResidual) {
+            if (k == kResidual) {
               res = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(in + row * ld_in + col));
             }
             v[2 * mt + e / 2] = pack_bf16(
-                layer_out<bf16, kWideFast>(acc[mt][i][e], b0, res.x, kind, decltype(a)::value, nullptr),
-                layer_out<bf16, kWideFast>(acc[mt][i][e + 1], b1, res.y, kind, decltype(a)::value,
-                                           nullptr));
+                layer_out<bf16, kWideFast>(acc[mt][i][e], b.x, res.x, k, decltype(a)::value, nullptr),
+                layer_out<bf16, kWideFast>(acc[mt][i][e + 1], b.y, res.y, k, decltype(a)::value, nullptr));
           }
         }
         const uint4 piece = quad_gather(v);
-        const int at = gathered_row() * ldh + col0 + 8 * (threadIdx.x / 32 % 4 + 4 * i);
+        const int row = gathered_row(), c8 = col0 + 8 * (threadIdx.x / 32 % 4 + 4 * i);
 #pragma unroll
         for (int q = 0; q < C; ++q) {
-          if (q < n_targets) *reinterpret_cast<uint4*>(targets[q] + at) = piece;
+          if (q < n_targets) *reinterpret_cast<uint4*>(targets[q] + row * ldh + c8) = piece;
+        }
+        if (rows != nullptr && row < n_rows) {
+          *reinterpret_cast<uint4*>(rows + static_cast<size_t>(row0 + row) * width + c8) = piece;
         }
       }
     }
   });
+}
+
+template <int C>
+__device__ __forceinline__ void wide_epilogue(const float (&acc)[2][kWideNt][4], const bf16* in,
+                                              int ld_in, bf16* const (&targets)[C],
+                                              int n_targets, int ldh, const bf16* __restrict__ bias,
+                                              int col0, int nb, int kind, int act,
+                                              bf16* __restrict__ rows = nullptr, int width = 0,
+                                              int row0 = 0, int n_rows = 0) {
+  const auto tiles = [&](auto full, auto k) {
+    wide_epilogue_tiles<C, decltype(full)::value, decltype(k)::value>(
+        acc, in, ld_in, targets, n_targets, ldh, bias, col0, nb, kind, act, rows, width, row0, n_rows);
+  };
+  using Full = std::true_type;
+  if (nb != kWideCols) {
+    tiles(std::false_type{}, ActConstant<-1>{});
+  } else if (kind == kPlain) {
+    tiles(Full{}, ActConstant<kPlain>{});
+  } else if (kind == kResidual) {
+    tiles(Full{}, ActConstant<kResidual>{});
+  } else {
+    tiles(Full{}, ActConstant<kLinear>{});
+  }
 }
 
 }  // namespace pcc

@@ -109,8 +109,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.pcc_phi_pool.argtypes = phi_pool_args
     lib.pcc_phi_pool.restype = i32
-    # the same launch without the tf32x3 variant (timing only)
-    lib.pcc_phi_pool_general.argtypes = phi_pool_args
+    # the timing entry: the variant `take` names (1 sliced, 3 wide, 0 general)
+    # where it takes the chain, else the general one
+    lib.pcc_phi_pool_general.argtypes = [*phi_pool_args, i32]
     lib.pcc_phi_pool_general.restype = i32
     phi_pool_bwd_args = [
         vp, vp, vp, vp,  # points, seg, g, d_points (null: not computed)
@@ -127,22 +128,22 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pcc_phi_pool_bwd_general.restype = i32
     # the f32 elements of K2's scratch for a chain, P and the card's SMs
     lib.pcc_phi_pool_bwd_scratch.argtypes = [
-        i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32),  # n_points, n_layers, dims, kinds
+        i32, i32, i32,  # n_points, num_segments, n_layers
+        ctypes.POINTER(i32), ctypes.POINTER(i32),  # dims, kinds
         i32, i32, ctypes.POINTER(ctypes.c_longlong),  # is_bf16, max_blocks, out (written)
     ]
     lib.pcc_phi_pool_bwd_scratch.restype = i32
     # K2's recomputed h1 against K1's forward (a check, off the path)
     lib.pcc_phi_pool_bwd_h1_departures.argtypes = [
-        vp, vp, i32, i32, i32,  # points, scratch, max_blocks, n_points, n_layers
+        vp, vp, i32, i32, i32,  # K1's [P, W] f32, scratch, max_blocks, n_points, n_layers
         ctypes.POINTER(i32), ctypes.POINTER(i32),  # dims, kinds (host)
-        ctypes.POINTER(vp), ctypes.POINTER(vp),  # w, b (host)
-        i32, vp, vp,  # act, counts (two u64 on the card), stream
+        vp, vp,  # counts (two u64 on the card), stream
     ]
     lib.pcc_phi_pool_bwd_h1_departures.restype = i32
     lib.pcc_phi_pool_variant.argtypes = [
         i32, ctypes.POINTER(i32), ctypes.POINTER(i32),  # n_layers, dims, kinds (host)
         i32, i32,  # is_bf16, backward (K2's choice, not K1's)
-        i32,  # redesigned (0: the _general timing entries' choice)
+        i32,  # the entry: 1 the path, 0 the timing entries' sliced choice, -1 K1's general alone
     ]
     lib.pcc_phi_pool_variant.restype = i32
     lib.pcc_gat_attention.argtypes = [

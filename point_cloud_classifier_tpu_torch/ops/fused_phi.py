@@ -26,16 +26,20 @@ Counterpart of ``point_cloud_classifier_tpu/ops/fused_phi.py``:
   ``h1`` and ``dz`` to a ``[P, W]`` f32 scratch, one block a tile at 256,
   then a ``d_W`` pass) and the tail's one bare layer of 256–1024 a side (a
   ``d_W`` pass over the points and the gathered cotangent, a row product
-  for ``d_points``); in bf16 the wide one (one block, or clusters of two
-  or four blocks, a 64-row tile, bf16 products on the tensor cores; K2
-  writes ``dz`` and the first layer's values to a ``[P, W]`` bf16 scratch
-  and forms ``d_W`` in a second kernel): K1 for chains wider than 256 up
-  to 1024, K2 for the DeepSets chain at 256–1024; the sliced one (a cluster
-  of four blocks a tile, ``d_W`` in registers, tensor cores in bf16) for
-  bf16 K1 at the DeepSets chain of a narrow first layer and one 256 -> 256
-  layer (K2 there only through the timing entry, ``general=True``); the
-  general one for every other chain; ``phi_pool.variant`` and
-  ``phi_pool.bwd_variant`` name the last launch's.
+  for ``d_points``); in bf16 the wide one (one block a 64-row tile up to
+  width 256, clusters of two or four blocks up to 1024, bf16 products on
+  the tensor cores): K1 for chains up to 1024 in multiples of 8, over
+  points of at most 8 features or a multiple of 8 (the tail's ``[P, H]``
+  rows), K2 for the DeepSets chain at 256–1024 (a row pass writing ``dz``
+  and the first layer's values, K1's bit for bit, to a ``[P, W]`` bf16
+  scratch, then a ``d_W`` pass) and the tail's one bare layer of 256–1024
+  a side (the cotangent rounded to bf16, a ``d_W`` pass over the points
+  and its gathered rows, a row product for ``d_points``); the sliced one
+  (a cluster of four blocks a tile, tensor cores in bf16) at the DeepSets
+  chain of a narrow first layer and one 256 -> 256 layer only through the
+  timing entries (``general=True``); the general one for every other
+  chain; ``phi_pool.variant`` and ``phi_pool.bwd_variant`` name the last
+  launch's.
   Under ``torch.func.vmap`` (a sweep's arms) each arm launches its own K1
   and K2 (``ops/dispatch.per_arm``);
 - :func:`kernel_takes_chain` — whether the general variants' 8-row tiles of
@@ -487,7 +491,8 @@ def _kernel_operands(points, seg, spec, params):
 
     dtype, device = points.dtype, points.device
     weights = [layer[0].to(device=device, dtype=dtype) for layer in params]
-    biases = [layer[1].to(device=device, dtype=dtype).contiguous() for layer in params]
+    # on 4-byte boundaries at least: the wide variants read a bias pair at a time
+    biases = _weights([layer[1].to(device=device, dtype=dtype) for layer in params])
     dims = [points.shape[1]]
     for w, b in zip(weights, biases):
         if w.ndim != 2 or w.shape[0] != dims[-1] or tuple(b.shape) != (w.shape[1],):
@@ -509,29 +514,32 @@ def _pointers(tensors):
 
 
 def _weights(weights):
-    """The weights contiguous and on 16-byte boundaries: the wide variants
-    copy W into shared memory 16 bytes at a time."""
+    """The weights (or biases) contiguous and on 16-byte boundaries: the
+    wide variants copy W into shared memory 16 bytes at a time."""
     weights = [w.contiguous() for w in weights]
     return [w.clone() if w.data_ptr() % 16 else w for w in weights]
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_variant(dims: tuple, kinds: tuple, bf16: bool, backward: bool, general: bool = False) -> str:
+def kernel_variant(
+    dims: tuple, kinds: tuple, bf16: bool, backward: bool, general: bool = False, take: str = "sliced"
+) -> str:
     """Which variant K1 (``backward`` false) or K2 (true) takes for a chain
     on the card, ``"sliced"``, ``"tf32x3"`` (f32), ``"wide"`` (bf16) or
     ``"general"``: the C entry's own choice (``pcc_phi_pool_variant``), made
     from the chain's shape, the element type and the kernel alone
     (``csrc/phi_pool.cu:tf32x3_plan``, ``csrc/phi_tf32.cuh:bwd_tf32x3_plan``,
     ``csrc/phi_wide.cuh:wide_plan``, ``csrc/phi_chain.cuh:takes_sliced``).
-    ``general``: the choice of the timing entries that leave the tf32x3 and
-    the wide variants out (``_phi_pool_cuda(general=True)``,
-    ``_phi_pool_bwd_cuda(general=True)``)."""
+    ``general``: the choice of the timing entries, which take the sliced
+    variant where it takes the chain, else the general one
+    (``_phi_pool_cuda(general=True)``, ``_phi_pool_bwd_cuda(general=True)``);
+    K1's also the general one alone (``take="general"``)."""
     from point_cloud_classifier_tpu_torch.native import kernel_library
 
     n = len(kinds)
     code = kernel_library().lib.pcc_phi_pool_variant(
         n, (ctypes.c_int * (n + 1))(*dims), (ctypes.c_int * n)(*kinds), int(bf16), int(backward),
-        int(not general),
+        1 if not general else {"sliced": 0, "general": -1}[take],
     )
     return _VARIANTS.get(code, "general")
 
@@ -539,10 +547,11 @@ def kernel_variant(dims: tuple, kinds: tuple, bf16: bool, backward: bool, genera
 _VARIANTS = {1: "sliced", 2: "tf32x3", 3: "wide"}  # pcc_phi_pool_variant's codes; 0 general
 
 
-def _phi_pool_cuda(points, seg, spec, params, activation, num_segments, general=False):
-    """K1.  ``general`` launches the general variant where the tf32x3 or the
-    wide one would run (``pcc_phi_pool_general``), to time them side by
-    side; the port's path never sets it."""
+def _phi_pool_cuda(points, seg, spec, params, activation, num_segments, general=False, take="sliced"):
+    """K1.  ``general`` launches the timing entry (``pcc_phi_pool_general``),
+    to time the variants side by side: the sliced variant (bf16, the
+    DeepSets chain of φ 256) where ``take`` is ``"sliced"`` and it takes the
+    chain, else the general one; the port's path never sets it."""
     from point_cloud_classifier_tpu_torch.native import check, kernel_library
 
     weights, biases, dims, kinds = _kernel_operands(points, seg, spec, params)
@@ -553,9 +562,15 @@ def _phi_pool_cuda(points, seg, spec, params, activation, num_segments, general=
     if n_points == 0:
         return out
     points, seg = points.contiguous(), seg.contiguous()
+    if points.data_ptr() % 16:
+        points = points.clone()  # the wide variant copies rows of wide points 16 bytes at a time
     n = len(params)
     lib = kernel_library().lib
-    entry = lib.pcc_phi_pool_general if general else lib.pcc_phi_pool
+    if general:
+        def entry(*args):
+            return lib.pcc_phi_pool_general(*args, int(take == "sliced"))
+    else:
+        entry = lib.pcc_phi_pool
     with torch.cuda.device(device):
         code = entry(
             points.data_ptr(),
@@ -575,7 +590,9 @@ def _phi_pool_cuda(points, seg, spec, params, activation, num_segments, general=
         )
     check(code)
     phi_pool.launches += 1
-    phi_pool.variant = kernel_variant(tuple(dims), tuple(kinds), points.dtype == torch.bfloat16, False, general)
+    phi_pool.variant = kernel_variant(
+        tuple(dims), tuple(kinds), points.dtype == torch.bfloat16, False, general, take
+    )
     return out
 
 
@@ -588,10 +605,13 @@ def _phi_pool_bwd_cuda(
     (``pcc_phi_pool_bwd_general``), to time them side by side with what
     served their chains before: the sliced variant (a 4-block cluster a
     tile) at the DeepSets chain of φ 256, in f32 and bf16, and the general one wherever
-    else they run; the port's path never sets it.  ``departures``, a
-    zeroed int64 ``[2]`` tensor on the card, holds the one-block wide form's
-    recompute (bf16, the DeepSets chain at φ 256) against bf16 K1's forward
-    after the launch (``pcc_phi_pool_bwd_h1_departures``): ``[0]`` gets the
+    else they run; the port's path never sets it.  ``departures``, a pair
+    ``(h1_ref, counts)`` on the card, holds the one-block wide form's
+    recompute (bf16, the DeepSets chain at φ 256) against K1's own forward
+    after the launch (``pcc_phi_pool_bwd_h1_departures``): ``h1_ref`` is
+    K1's own values of the chain's first layer, pooled one segment a point
+    (``[P, W]`` f32; ``chip_smoke.py:k1_h1``), and of the zeroed int64
+    ``counts [2]``, ``[0]`` gets the
     values of h1 that differ, ``[1]`` the largest difference of one in units
     of 2^-24.  A check; the port's path never sets it either."""
     from point_cloud_classifier_tpu_torch.native import check, kernel_library
@@ -618,21 +638,23 @@ def _phi_pool_bwd_cuda(
         w_fwd = _weights(weights)
         w_bwd = [w.t().contiguous() for w in weights] if variant == "general" else None
         points, seg, g = points.contiguous(), seg.contiguous(), g.float().contiguous()
-        if variant == "tf32x3":
-            # its d_W pass copies rows of the points and of g 16 bytes at a time
+        if variant in ("tf32x3", "wide"):
+            # their d_W passes copy rows of the points (and the f32 tail's of
+            # g) 16 bytes at a time
             points, g = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (points, g))
         # one f32 slab of every d_w and d_b per block (general) or cluster
         # (sliced) of the persistent grid; the wide and tf32x3 variants'
         # cluster slabs, their [P, W] h1 and dz2 (bf16, f32) and their d_W
-        # partials (the tail's: its d_W and d_b partials alone)
+        # partials (the tail's: its d_W and d_b partials, and in bf16 g
+        # rounded to bf16)
         max_blocks = torch.cuda.get_device_properties(device).multi_processor_count
         n = len(params)
         lib = kernel_library().lib
         n_scratch = ctypes.c_longlong(flat.numel() * max_blocks)  # the general variant's slabs
         if not general:
             check(lib.pcc_phi_pool_bwd_scratch(
-                n_points, n, (ctypes.c_int * (n + 1))(*dims), (ctypes.c_int * n)(*kinds), int(bf16), max_blocks,
-                ctypes.byref(n_scratch),
+                n_points, num_segments, n, (ctypes.c_int * (n + 1))(*dims), (ctypes.c_int * n)(*kinds), int(bf16),
+                max_blocks, ctypes.byref(n_scratch),
             ))
         slabs = torch.empty(n_scratch.value, dtype=torch.float32, device=device)
         entry = lib.pcc_phi_pool_bwd_general if general else lib.pcc_phi_pool_bwd
@@ -662,11 +684,14 @@ def _phi_pool_bwd_cuda(
         phi_pool.bwd_launches += 1
         phi_pool.bwd_variant = variant
         if departures is not None:
+            h1_ref, counts = departures
+            if tuple(h1_ref.shape) != (n_points, dims[1]) or h1_ref.dtype != torch.float32:
+                raise ValueError(f"h1_ref must be [{n_points}, {dims[1]}] f32, got {tuple(h1_ref.shape)}")
+            h1_ref = h1_ref.contiguous()
             with torch.cuda.device(device):
                 check(lib.pcc_phi_pool_bwd_h1_departures(
-                    points.data_ptr(), slabs.data_ptr(), max_blocks, n_points, n,
-                    (ctypes.c_int * (n + 1))(*dims), (ctypes.c_int * n)(*kinds), _pointers(w_fwd),
-                    _pointers(biases), _activation_code(activation), departures.data_ptr(),
+                    h1_ref.data_ptr(), slabs.data_ptr(), max_blocks, n_points, n,
+                    (ctypes.c_int * (n + 1))(*dims), (ctypes.c_int * n)(*kinds), counts.data_ptr(),
                     torch.cuda.current_stream(device).cuda_stream,
                 ))
     grads, offset = [], 0

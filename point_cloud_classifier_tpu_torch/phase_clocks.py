@@ -12,15 +12,16 @@ It builds the kernels with their per-phase clocks
 between the marks of ``csrc/phi_pool.cu`` and ``csrc/phi_pool_bwd.cu``),
 launches K1 and K2 once each at the DeepSets config batch (B=32, P=8,192)
 and at the flagship shape (B=256, P=65,536), in f32 (K1's tf32x3 variant,
-K2's one-block tf32x3 form) and bf16 (K1's sliced variant, K2's one-block
-wide form), with K2's sliced variant there too (the timing entry,
+K2's one-block tf32x3 form) and bf16 (the one-block wide forms of both),
+with K1's and K2's sliced variants there too in bf16 (the timing entries,
 ``general=True``), then at φ [512, 512] and [1024, 1024] at the flagship
 shape in f32 (both tf32x3) and bf16 (both wide), K2's row pass and its d_W
-pass apart, and the tail's bare [256, 256] layer in f32 (K1 tf32x3; K2
-tf32x3, its row product for d_points and its d_W pass), and prints the sums
-of each launch per phase, with ``nvidia-smi``'s name and power limit of the
-card.  The one-block bf16 form keeps W2 in shared memory: its "waits for a
-staged chunk" read 0.  It
+pass apart, and the tail's bare layer, [256, 256] in f32 and bf16 and
+[1024, 1024] in bf16 (K1 tf32x3 or wide; K2 tf32x3 or wide, its row
+product for d_points and its d_W pass), and prints the sums of each launch
+per phase, with ``nvidia-smi``'s name and power limit of the card.  The
+one-block bf16 forms keep W (K2: W2) in shared memory where it fits: their
+"waits for a staged chunk" read 0.  It
 checks nothing: ``chip_smoke.py`` holds the kernels against their plain
 versions, on a build without the clocks.
 """
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from point_cloud_classifier_tpu_torch import native
-from point_cloud_classifier_tpu_torch.ops.fused_phi import _phi_pool_bwd_cuda, phi_pool
+from point_cloud_classifier_tpu_torch.ops.fused_phi import _phi_pool_bwd_cuda, _phi_pool_cuda, phi_pool
 
 SPEC = (("plain", False), ("residual", False))  # φ [256, 256] with residual_block
 # (name, events, point rows, φ width, element types)
@@ -43,7 +44,8 @@ SHAPES = (("config", 32, 8192, 256, BOTH),
           ("flagship", 256, 65536, 256, BOTH),
           ("phi 512", 256, 65536, 512, BOTH),
           ("phi 1024", 256, 65536, 1024, BOTH),
-          ("tail", 256, 65536, 256, (torch.float32,)))
+          ("tail", 256, 65536, 256, BOTH),
+          ("tail 1024", 256, 65536, 1024, (torch.bfloat16,)))
 # a consumer thread's (the producers stage W apart): per chunk of W the wait
 # for its stage, the products; per layer the barrier after them, the
 # epilogue and the barriers around it; per tile the wait for its points, the
@@ -124,17 +126,20 @@ def main() -> None:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     bwd_clocks = built.lib.pcc_phi_pool_bwd_phase_clocks
     for name, b, p, width, dtypes in SHAPES:
-        tail = name == "tail"
+        tail = name.startswith("tail")
         spec = () if tail else SPEC
         for dtype in dtypes:
             points, seg, params = _inputs(b, p, dtype, width, tail=tail)
             g = torch.ones((b + 1, width), device="cuda")
             rows = []
-            phi_pool(points, seg, spec, params, "gelu", b + 1)
-            if phi_pool.variant in K1_PHASES:
-                phases = K1_PHASES[phi_pool.variant]
-                rows.append((f"K1 {phi_pool.variant}", phases,
-                             _clocks(built.lib.pcc_phi_pool_phase_clocks, len(phases))))
+            # at φ 256 in bf16 (the wide variant's one block a tile on the
+            # path) also the sliced variant, through the timing entry
+            for general in (False, True) if width == 256 and not tail and dtype == torch.bfloat16 else (False,):
+                _phi_pool_cuda(points, seg, spec, params, "gelu", b + 1, general=general)
+                if phi_pool.variant in K1_PHASES:
+                    phases = K1_PHASES[phi_pool.variant]
+                    rows.append((f"K1 {phi_pool.variant}", phases,
+                                 _clocks(built.lib.pcc_phi_pool_phase_clocks, len(phases))))
             # the tail's K2 as the train step calls it (d_points on: the
             # layer's input is the chain below), the DeepSets chain's without;
             # at φ 256 also the timing entry's sliced variant
