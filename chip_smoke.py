@@ -45,8 +45,8 @@ result):
    shapes and dtypes; f32 K1 alone at the config, flagship, tail, φ [512,
    512] and φ [1024, 1024] shapes, its tf32x3 variant beside the general one
    (``_phi_pool_cuda(general=True)``) in turns, with the f32 and the 3xTF32
-   bounds; K2 alone in f32 and bf16 at φ [256, 256] (B=256 and B=32: its
-   one-block forms in turns with the sliced variant through the timing
+   bounds; K2 alone in bf16 at φ [256, 256] (B=256 and B=32: its
+   one-block form in turns with the sliced variant through the timing
    entry, ``_phi_pool_bwd_cuda(general=True)``), [512, 512] and [1024,
    1024] (B=256), beside the plain versions and the bounds with and without
    the [P, W] scratch's bytes, held with ``d_points`` on against
@@ -56,7 +56,16 @@ result):
    against ``phi_pool_plain`` within ``TOL``, and the
    values of K2's recomputed h1 that differ from K1's own forward: none
    from the one-block wide K1's, the sliced variant's within
-   ``H1_DEPARTURE_SHARE`` (``wide_variants_phase``); ``predict`` and the train step per batch on the kernel
+   ``H1_DEPARTURE_SHARE`` (``wide_variants_phase``); f32 K2 at each of the
+   15 chains the sweep sends to the kernels (φ [d] × n, d 128 to 1024, n 1
+   to 4, but [1024] × 4; residual), B=32 and B=256, on the device alone: its
+   tf32x3 variant, the timing entry's (the general variant; the sliced one
+   at φ [256, 256]) and
+   ``phi_pool_bwd_plain`` in turns, beside its 3×TF32 bound, held with
+   ``d_points`` against the plain version and bit-equal run to run; at φ
+   [512] × 4 residual, B=256, the values of each hidden layer's rows that K2
+   recomputes and that differ from K1's own forward (none may)
+   (``sweep_chains_phase``); ``predict`` and the train step per batch on the kernel
    and plain routes at batch sizes 32 and 256, in f32 and bf16 compute; and
    a ``torch.profiler`` trace of the B=256 f32 train step;
 8. GAT kernel against plain: ``gat_attention`` (kernel K3) against
@@ -198,7 +207,8 @@ result):
 23. the hyperparameter sweep, over the caches of phases 20 and 13 at the
    configs' widths, 2 epochs: (a) ``sweep.main`` for DeepSets, 3 runs one at
    a time (``--seed 0``), the leaderboard and run directories checked, K1
-   and K2 counted against each run's loaders and route, the winner through
+   and K2 counted against each run's loaders and route, K2's variant named
+   for each run's chain (version_0's φ [128] × 4 on tf32x3), the winner through
    the command line's ``evaluate``; (b) ``sweep.main --vmap`` for GraphNet,
    4 runs, every group trained; ``train_configs_vmapped`` for (c) DeepSets,
    K = 4 arms at B=32 (K1 and K2 once an arm a step), (d) GAT, K = 4 (K3
@@ -360,8 +370,12 @@ from point_cloud_classifier_tpu_torch.native import kernel_library
 from point_cloud_classifier_tpu_torch.native.host import build_event_edges_native, host_library
 from point_cloud_classifier_tpu_torch.ops.dispatch import force_plain
 from point_cloud_classifier_tpu_torch.ops.fused_phi import (
+    _BARE_LINEAR,
+    _KINDS,
     _phi_pool_bwd_cuda,
     _phi_pool_cuda,
+    kernel_takes_chain,
+    kernel_variant,
     phi_forward,
     phi_pool,
     phi_pool_bwd_plain,
@@ -724,23 +738,26 @@ def phi_inputs(b, p, dtype, seed, empty_event=True, final=False, widths=None, in
 
 
 # (name, events, point rows, a bare final linear, the φ widths, the points'
-# width, one point an event, the element types): the one-block forms take
-# the DeepSets chain on 64-row tiles, so P below one tile and one over it;
-# f32 K1 takes the tf32x3 variant at every case (64-row tiles up to width
-# 256, a cluster of two at 512, of four on 32-row tiles at 1024); bf16 K1
-# the wide one at every case (one block a 64-row tile up to width 256, a
-# cluster of two at 384 and 512, of four at 1024); K2 the one-block forms at the DeepSets chain of φ 256 (tf32x3 in
-# f32, wide in bf16), the tf32x3 and the wide variants at φ 384–1024 and the
-# tail, the general one elsewhere.  The tail's case is the one bare [256,
-# 256] layer over 256-wide rows, the 24-feature case points wider than 8
-# that are no multiple of 16 (zero-padded to 32 in the product).  With one
-# point an event the pooled sums are the chain's rows, so no sum averages a
-# product's rounding away: there a one-pass TF32 product would miss the f32
-# bound; it holds f32 K1's tf32x3 variant and runs in f32.
+# width, one point an event, the element types, square layers residual):
+# the one-block forms take the DeepSets chain on 64-row tiles, so P below
+# one tile and one over it; f32 K1 takes the tf32x3 variant at every case
+# (64-row tiles up to width 256, a cluster of two at 512, of four on 32-row
+# tiles at 1024); bf16 K1 the wide one at every case (one block a 64-row
+# tile up to width 256, a cluster of two at 384 and 512, of four at 1024);
+# K2 the tf32x3 variant in f32 at the DeepSets chain of none to three square
+# layers at widths 128–1024 (the sweep's chains: one block a tile up to
+# 256) and the tail, the wide one in bf16 at the DeepSets chain of one square
+# layer at 256–1024 and the tail, the general one elsewhere.  The tail's case
+# is the one bare [256, 256] layer over 256-wide rows, the 24-feature case
+# points wider than 8 that are no multiple of 16 (zero-padded to 32 in the
+# product).  With one point an event the pooled sums are the chain's rows,
+# so no sum averages a product's rounding away: there a one-pass TF32
+# product would miss the f32 bound; it holds f32 K1's tf32x3 variant and
+# runs in f32.
 BOTH = (torch.float32, torch.bfloat16)
 F32 = (torch.float32,)
-PhiCase = collections.namedtuple("PhiCase", "name b p final widths in_dim singletons dtypes",
-                                 defaults=(6, False, BOTH))
+PhiCase = collections.namedtuple("PhiCase", "name b p final widths in_dim singletons dtypes residual",
+                                 defaults=(6, False, BOTH, True))
 PHI_CASES = [
     PhiCase("config B=32 P=8192", CONFIG_B, CONFIG_P, False, None),
     PhiCase("ragged B=7 P=1001", 7, 1001, False, None),
@@ -755,14 +772,22 @@ PHI_CASES = [
     PhiCase("tail: bare [256, 256] B=7 P=1001", 7, 1001, True, [], 256),
     PhiCase("24-feature points, width 64 B=7 P=1001", 7, 1001, False, [64, 64], 24),
     PhiCase("one point an event B=P=4096", 4096, 4096, False, None, 6, True, F32),
+    # the sweep's chains (sweep.py: φ [d] × n)
+    PhiCase("sweep [128] × 1 B=7 P=1001", 7, 1001, False, [128]),
+    PhiCase("sweep [128] × 2 B=7 P=1001", 7, 1001, False, [128] * 2),
+    PhiCase("sweep [128] × 3 residual B=7 P=1001", 7, 1001, False, [128] * 3),
+    PhiCase("sweep [256] × 4 plain B=7 P=1001", 7, 1001, False, [256] * 4, residual=False),
+    PhiCase("sweep [512] × 3 residual B=7 P=1001", 7, 1001, False, [512] * 3),
+    PhiCase("sweep [1024] × 1 B=7 P=1001", 7, 1001, False, [1024]),
+    PhiCase("sweep [1024] × 3 residual B=7 P=1001", 7, 1001, False, [1024] * 3),
 ]
 
 
-def case_spec(widths):
+def case_spec(widths, residual=True):
     """The hidden layers' spec of a case: plain, then residual (the
-    configs' residual_block), or none for the bare layer alone."""
+    configs' residual_block) or plain, or none for the bare layer alone."""
     n = len(CONFIG["model"]["phi_layers"] if widths is None else widths)
-    return (("plain", False),) + (("residual", False),) * (n - 1) if n else ()
+    return (("plain", False),) + (("residual" if residual else "plain", False),) * (n - 1) if n else ()
 
 
 def takes_tf32x3(dims) -> bool:
@@ -806,14 +831,18 @@ def takes_wide(dims, kinds, backward: bool) -> bool:
 
 def takes_tf32x3_bwd(dims, kinds) -> bool:
     """csrc/phi_tf32.cuh:bwd_tf32x3_plan for an f32 chain of widths ``dims``
-    (input first) and kinds: the DeepSets chain at widths 256 to 1024 in
-    multiples of 64 (a plain first layer of at most 8 inputs, then one square
-    layer, plain or residual; one block a tile at 256), or one bare layer
-    [in, out], each a multiple of 64 from 256 to 1024 (the tail's)."""
-    if len(kinds) == 2:
-        return (1 <= dims[0] <= 8 and dims[1] == dims[2] and dims[1] % 64 == 0 and 256 <= dims[1] <= 1024
-                and kinds[0] == "plain" and kinds[1] != "linear")
-    return kinds == ["linear"] and all(d % 64 == 0 and 256 <= d <= 1024 for d in dims)
+    (input first) and kinds: the DeepSets chain of none to three square
+    layers at widths 128 to 1024 in multiples of 64 (a plain first layer of
+    at most 8 inputs, then the square layers, plain or residual; one block a
+    tile up to 256) whose general-variant tile fits (kernel_takes_chain: φ
+    [1024] × 4 does not), or one bare layer [in, out], each a multiple of 64
+    from 256 to 1024 (the tail's)."""
+    if kinds == ["linear"]:
+        return all(d % 64 == 0 and 256 <= d <= 1024 for d in dims)
+    width = dims[1]
+    return (1 <= len(kinds) <= 4 and 1 <= dims[0] <= 8 and all(d == width for d in dims[1:])
+            and width % 64 == 0 and 128 <= width <= 1024 and kinds[0] == "plain"
+            and "linear" not in kinds and kernel_takes_chain(dims, kinds))
 
 
 def expected_variant(case: PhiCase, dtype, backward: bool) -> str:
@@ -821,7 +850,7 @@ def expected_variant(case: PhiCase, dtype, backward: bool) -> str:
     element type and the kernel (K2 when ``backward``) alone."""
     widths = CONFIG["model"]["phi_layers"] if case.widths is None else case.widths
     dims = [case.in_dim, *widths] + ([(widths or [case.in_dim])[-1]] if case.final else [])
-    kinds = [kind for kind, _ in case_spec(widths)] + (["linear"] if case.final else [])
+    kinds = [kind for kind, _ in case_spec(widths, case.residual)] + (["linear"] if case.final else [])
     if dtype == torch.float32 and (takes_tf32x3_bwd(dims, kinds) if backward else takes_tf32x3(dims)):
         return "tf32x3"
     return "wide" if dtype == torch.bfloat16 and takes_wide(dims, kinds, backward) else "general"
@@ -835,8 +864,8 @@ def kernel_phase():
     plain version."""
     config_err, tf32x3_worst = None, 0.0
     for case in PHI_CASES:
-        name, b, p, final, widths, in_dim, singletons, dtypes = case
-        spec = case_spec(widths)
+        name, b, p, final, widths, in_dim, singletons, dtypes, residual = case
+        spec = case_spec(widths, residual)
         for dtype in dtypes:
             points, seg, params = phi_inputs(b, p, dtype, SEED, final=final, widths=widths, in_dim=in_dim,
                                              singletons=singletons)
@@ -882,8 +911,8 @@ def bwd_kernel_phase():
     the config-shape f32 max |Δ|."""
     config_err = None
     for case in PHI_CASES:
-        name, b, p, final, widths, in_dim, singletons, dtypes = case
-        spec = case_spec(widths)
+        name, b, p, final, widths, in_dim, singletons, dtypes, residual = case
+        spec = case_spec(widths, residual)
         for dtype in dtypes:
             for with_points in (True, False):
                 points, seg, params = phi_inputs(b, p, dtype, SEED, final=final, widths=widths,
@@ -1479,35 +1508,37 @@ def _k2_held(points, seg, g, spec, params, b1):
     return max(e[1] for e in errs), max(e[2] for e in errs), same
 
 
-def k1_h1(points, spec, params, take=None):
-    """bf16 K1's own forward values of the DeepSets chain's first layer
-    (``[P, W]`` f32, each a bf16 value): K1 over the chain with a residual
-    second layer of zero weights and bias, whose values are then h1 + act(0)
-    = h1, pooled one segment a point (each sum 0 + v, every value but zero's
-    sign).  The path's variant for the chain (the wide variant's one block a
-    tile at φ 256), or the timing entry's ``take``."""
-    p, width = points.shape[0], params[0][0].shape[1]
-    zero = (torch.zeros_like(params[1][0]), torch.zeros_like(params[1][1]))
+def k1_rows(points, spec, params, layer, take=None):
+    """K1's own values of the DeepSets chain's layer-th layer (``[P, W]``
+    f32; in bf16 each a bf16 value): K1 over the chain's first ``layer``
+    layers and, to the chain's length, residual layers of zero weights and
+    bias (each adds act(0) = 0; f32 K1 sums a chunk's products apart in
+    chains of three layers or more, so a chain cut short would take the
+    other sums), pooled one segment a point (each sum 0 + v, every value but
+    zero's sign).  The path's variant for the chain, or the timing entry's
+    ``take``."""
+    p, n = points.shape[0], len(params)
+    zero = (torch.zeros_like(params[-1][0]), torch.zeros_like(params[-1][1]))
     ids = torch.arange(p, dtype=torch.int32, device=points.device)
-    chain = ((spec[0], ("residual", False)), (params[0], zero))
+    chain = (spec[:layer] + (("residual", False),) * (n - layer), params[:layer] + (zero,) * (n - layer))
     if take is None:
         out = phi_pool(points, ids, *chain, "gelu", p)
     else:
         out = _phi_pool_cuda(points, ids, *chain, "gelu", p, general=True, take=take)
-    if tuple(out.shape) != (p, width):
-        raise AssertionError(f"K1's h1: shape {tuple(out.shape)}")
+    if tuple(out.shape) != (p, params[layer - 1][0].shape[1]):
+        raise AssertionError(f"K1's rows of layer {layer}: shape {tuple(out.shape)}")
     return out
 
 
 def _h1_departures(points, seg, g, spec, params, b1, take=None) -> tuple:
     """The one-block wide K2's recomputed h1 (bf16, φ 256) against K1's own
-    forward on the same points (k1_h1: the path's variant, or ``take``):
+    forward on the same points (k1_rows: the path's variant, or ``take``):
     (values that differ, the largest |difference| of one, K1's variant),
-    pcc_phi_pool_bwd_h1_departures."""
-    ref = k1_h1(points, spec, params, take)
+    pcc_phi_pool_bwd_departures."""
+    ref = k1_rows(points, spec, params, 1, take)
     variant = phi_pool.variant
     counts = torch.zeros(2, dtype=torch.int64, device="cuda")
-    _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1, with_points=False, departures=(ref, counts))
+    _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1, with_points=False, departures=([ref], counts))
     departed, diff = counts.tolist()
     return departed, diff / 2**24, variant
 
@@ -1527,14 +1558,11 @@ def wide_variants_phase(smi: str) -> dict:
     at φ 256 around K2's and K1's sliced variants through the timing entries
     instead, in turns: taken, sliced, sliced, taken), beside the bounds and
     the plain versions
-    (cuda_ms); then f32 K2 there on its tf32x3 variant, device alone twice
-    around its general variant (pcc_phi_pool_bwd_general, once; the sliced
-    variant at φ 256, in turns), beside its plain version and its bounds on
-    the CUDA cores and by 3xTF32 on the tensor cores.  Each bound is the
-    work's (inputs read once, outputs written once) and, beside it, the
+    (cuda_ms) (f32 K2 at these chains: sweep_chains_phase).  Each bound is
+    the work's (inputs read once, outputs written once) and, beside it, the
     design's (the [P, W] scratch's bytes added).  bf16 K1 held against
-    phi_pool_plain within TOL (at φ 256 the sliced variant too); K2 in both
-    types against phi_pool_bwd_plain with d_points on and bit-equal run to run;
+    phi_pool_plain within TOL (at φ 256 the sliced variant too); K2 against
+    phi_pool_bwd_plain with d_points on and bit-equal run to run;
     at φ 256 bf16 K1 on the path (the wide variant's one block a tile) in
     turns with the sliced variant (the timing entry), beside the general
     variant, and the bf16 one-block K2's recomputed h1 against K1's own
@@ -1645,51 +1673,97 @@ def wide_variants_phase(smi: str) -> dict:
             bound_scratch_ms=bwd_scratch[0], max_rel_err=k2_rel, rel_fro=k2_fro,
             **(dict(sliced_ms=min(sliced_ms), h1_departures=departed[0], h1_departures_sliced=sliced_departed[0],
                     h1_departure_sliced_max_abs=sliced_departed[1]) if one_block else {}))
-        del points, params
-        # f32 K2 at the same chain: the tf32x3 variant, device alone, twice
-        # around the general (sliced at φ 256) variant and its plain version
-        points, seg, params = phi_inputs(b, p, torch.float32, SEED + 31, widths=widths)
-        f32_k2 = lambda: _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1, with_points=False)  # noqa: E731
-        f32_old = lambda: _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1,  # noqa: E731
-                                             with_points=False, general=True)
-        f32_ms = [graph_ms(f32_k2, iters=5)]
-        if one_block:
-            old_ms = [graph_ms(f32_old, iters=5), graph_ms(f32_old, iters=5)]
-            f32_old()
-            old_variant, f32_general = phi_pool.bwd_variant, min(old_ms)
-        else:
-            f32_general = graph_ms(f32_old, iters=2, replays=1)
-            old_variant = "general"
-        f32_plain = cuda_ms(lambda: phi_pool_bwd_plain(points, seg, g, spec, params, "gelu", b1, with_points=False),
-                            iters=5, warmup=2)
-        f32_ms.append(graph_ms(f32_k2, iters=5))
-        f32_rel, f32_fro, same = _k2_held(points, seg, g, spec, params, b1)
-        print(f"kernel K2 f32 {name} B={b} P={p} d_points on [{phi_pool.bwd_variant} variant]: "
-              f"max_rel_err {f32_rel:.3e} (bound {BWD_F32_REL:.0e}), rel_fro {f32_fro:.3e} (bound "
-              f"{BWD_F32_FRO:.0e}); a second run is {'bit-equal' if same else 'NOT bit-equal'}")
-        if not (f32_rel <= BWD_F32_REL and f32_fro <= BWD_F32_FRO and same):
-            raise AssertionError(f"f32 K2 {name}: {f32_rel:.3e} / {f32_fro:.3e} / bit-equal {same}")
-        flat = [t for layer in params for t in layer]
-        f32_bytes = _nbytes(points, seg, g) + 2 * _nbytes(*flat)
-        f32_ops = p * (2 * sum(per_row) + sum(per_row[1:]))
-        f32_bound, tc_bound = bound_ms(f32_bytes, f32_ops), tf32x3_bound_ms(f32_bytes, f32_ops)
-        tc_scratch = tf32x3_bound_ms(f32_bytes + _k2_scratch_bytes(p, width, 4), f32_ops)
-        print(f"time K2 f32 {name} B={b} P={p} without d_points [{phi_pool.bwd_variant} variant], "
-              f"device alone (CUDA graphs): {f32_ms[0]:.4f} / {f32_ms[1]:.4f} ms, plain {f32_plain:.4f} (events); "
-              f"bound {f32_bound[0]:.4f} by {f32_bound[1]} (67 TFLOP/s f32), ×{min(f32_ms) / f32_bound[0]:.1f}, "
-              f"3xTF32 {tc_bound[0]:.4f} (495 TFLOP/s), ×{min(f32_ms) / tc_bound[0]:.1f}, with the [P, W] f32 "
-              f"scratch's bytes {tc_scratch[0]:.4f} by {tc_scratch[1]}, ×{min(f32_ms) / tc_scratch[0]:.1f}; the "
-              f"{old_variant} variant {f32_general:.4f} ms (CUDA graph"
-              f"{', in turns' if one_block else ''}), ×{f32_general / min(f32_ms):.2f} [{smi}]")
-        if phi_pool.bwd_variant != "tf32x3" or old_variant != ("sliced" if one_block else "general"):
-            raise AssertionError(f"f32 K2 {name}: the {phi_pool.bwd_variant} and {old_variant} variants ran")
-        readings["phi_pool_bwd"][f"f32 {name}"] = dict(
-            variant=phi_pool.bwd_variant, ms=min(f32_ms), plain_ms=f32_plain, bound_ms=f32_bound[0],
-            bound_by=f32_bound[1], bound_tf32x3_ms=tc_bound[0], bound_tf32x3_scratch_ms=tc_scratch[0],
-            **{"sliced_ms" if one_block else "general_ms": f32_general},
-            max_rel_err=f32_rel, rel_fro=f32_fro)
         del points, seg, params, g
         torch.cuda.empty_cache()
+    return readings
+
+
+# the chains the hyperparameter sweep sends to K1 and K2 (sweep.py's
+# deep_sets_config: φ [d] × n, d 128 to 1024, n 1 to 4; kernel_takes_chain
+# refuses [1024] × 4), timed in f32 at the config and the flagship batch
+SWEEP_CHAINS = [(d, n) for d in (128, 256, 512, 1024) for n in (1, 2, 3, 4) if (d, n) != (1024, 4)]
+SWEEP_SHAPES = (("config", CONFIG_B, CONFIG_P), ("flagship", FLAGSHIP_B, FLAGSHIP_P))
+RECOMPUTE_CHAIN = (512, 4)  # a chain of three square layers, a cluster of two, whose recompute is read
+
+
+def sweep_chains_phase(smi: str) -> dict:
+    """f32 K2 at SWEEP_CHAINS (residual, gelu) at the config and the flagship
+    batch: held with d_points against phi_pool_bwd_plain within BWD_F32_REL
+    and BWD_F32_FRO and bit-equal run to run; without d_points (as the train
+    step calls it) on the device alone (CUDA graphs) its tf32x3 variant,
+    the timing entry's (the general variant; the sliced one at φ [256] ×
+    2) and phi_pool_bwd_plain in turns
+    (tf32x3, general, plain, tf32x3), beside the 3×TF32 bound of the work
+    and of the design (the [P, W] scratch's bytes of each square layer added).
+    At RECOMPUTE_CHAIN, B=256, the values of each hidden layer's rows that K2
+    recomputes and that differ from K1's own forward (k1_rows): none may.
+    Returns the readings by chain and batch."""
+    readings = {}
+    for shape, b, p in SWEEP_SHAPES:
+        for width, n in SWEEP_CHAINS:
+            widths = [width] * n
+            spec = case_spec(widths)
+            points, seg, params = phi_inputs(b, p, torch.float32, SEED + 41, widths=widths)
+            b1 = b + 1
+            g = torch.from_numpy(np.random.default_rng(SEED + 43).normal(size=(b1, width)).astype(np.float32)).cuda()
+            rel, fro, same = _k2_held(points, seg, g, spec, params, b1)
+            variant = phi_pool.bwd_variant
+            k2 = lambda: _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1, with_points=False)  # noqa: E731
+            general = lambda: _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1,  # noqa: E731
+                                                 with_points=False, general=True)
+            plain = lambda: phi_pool_bwd_plain(points, seg, g, spec, params, "gelu", b1,  # noqa: E731
+                                               with_points=False)
+            # the general variant reads 0.1–0.3 s a call at B=256, φ 1024: fewer calls there
+            slow = b == FLAGSHIP_B and width * (n - 1) >= 1024
+            k2_ms = [graph_ms(k2, iters=5, replays=2)]
+            general_ms = graph_ms(general, iters=1 if slow else 5, replays=1)
+            general()
+            general_variant = phi_pool.bwd_variant
+            plain_ms = graph_ms(plain, iters=3, replays=2)
+            k2_ms.append(graph_ms(k2, iters=5, replays=2))
+            flat = [t for layer in params for t in layer]
+            per_row = [2 * w.shape[0] * w.shape[1] for w, _ in params]
+            n_bytes = _nbytes(points, seg, g) + 2 * _nbytes(*flat)
+            n_ops = p * (2 * sum(per_row) + sum(per_row[1:]))
+            bound, by = tf32x3_bound_ms(n_bytes, n_ops)
+            scratch, scratch_by = tf32x3_bound_ms(n_bytes + (n - 1) * _k2_scratch_bytes(p, width, 4), n_ops)
+            name = f"[{width}] × {n}"
+            print(f"time K2 f32 sweep φ {name} residual {shape} B={b} P={p} without d_points, device alone (CUDA "
+                  f"graphs), in turns: [{variant}] {k2_ms[0]:.4f} / {k2_ms[1]:.4f} ms, [{general_variant}] "
+                  f"{general_ms:.4f} (×{general_ms / min(k2_ms):.2f}), plain {plain_ms:.4f} "
+                  f"(×{plain_ms / min(k2_ms):.2f}); 3xTF32 bound {bound:.4f} by {by}, ×{min(k2_ms) / bound:.1f}, "
+                  f"with the [P, W] scratch's bytes {scratch:.4f} by {scratch_by}, ×{min(k2_ms) / scratch:.1f} "
+                  f"[{smi}]")
+            print(f"kernel K2 f32 sweep φ {name} residual {shape} B={b} P={p} d_points on [{variant} variant]: "
+                  f"max_rel_err {rel:.3e} (bound {BWD_F32_REL:.0e}), rel_fro {fro:.3e} (bound {BWD_F32_FRO:.0e}); "
+                  f"a second run is {'bit-equal' if same else 'NOT bit-equal'}")
+            # the timing entry takes the sliced variant at φ [256, 256], else the general one
+            if (variant, general_variant) != ("tf32x3", "sliced" if (width, n) == (256, 2) else "general"):
+                raise AssertionError(f"f32 K2 sweep {name} {shape}: the {variant} and {general_variant} variants ran")
+            if not (rel <= BWD_F32_REL and fro <= BWD_F32_FRO and same):
+                raise AssertionError(f"f32 K2 sweep {name} {shape}: {rel:.3e} / {fro:.3e} / bit-equal {same}")
+            readings[f"{name} {shape}"] = dict(
+                variant=variant, ms=min(k2_ms), general_ms=general_ms, timing_entry=general_variant, plain_ms=plain_ms,
+                bound_tf32x3_ms=bound, bound_by=by, bound_tf32x3_scratch_ms=scratch, max_rel_err=rel, rel_fro=fro)
+            if (width, n) == RECOMPUTE_CHAIN and b == FLAGSHIP_B:
+                refs = [k1_rows(points, spec, params, layer) for layer in range(1, n)]
+                if phi_pool.variant != "tf32x3":
+                    raise AssertionError(f"f32 K1's rows at {name}: the {phi_pool.variant} variant ran")
+                counts = torch.zeros(2 * (n - 1), dtype=torch.int64, device="cuda")
+                _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b1, with_points=False,
+                                   departures=(refs, counts))
+                counts = counts.tolist()
+                for layer in range(1, n):
+                    departs, diff = counts[2 * (layer - 1)], counts[2 * layer - 1] / 2**24
+                    print(f"check K2 f32 sweep φ {name} residual {shape} B={b} P={p} [{phi_pool.bwd_variant} "
+                          f"variant]: h{layer} recomputed by K2 differs from K1's own forward (tf32x3, gelu) in "
+                          f"{departs} of {p * width} values, the largest difference {diff:.3e}")
+                readings[f"{name} {shape}"]["departures"] = counts[0::2]
+                if any(counts[0::2]):
+                    raise AssertionError(f"f32 K2 sweep {name}: its recompute departs from K1's forward {counts}")
+                del refs
+            del points, seg, params, g
+            torch.cuda.empty_cache()
     return readings
 
 
@@ -3521,8 +3595,9 @@ def _leaderboard(search: str, runs: int) -> list:
 
 def sweep_sequential_phase(work_dir: str, data: str) -> dict:
     """(a) ``sweep.main`` for DeepSets, one run at a time at the sampled
-    widths, with K1's and K2's launches as each run's loaders and route say;
-    the winner through the command line's ``evaluate``."""
+    widths, with K1's and K2's launches as each run's loaders and route say
+    and K2's variant for each run's chain (version_0's φ [128] × 4 on the
+    tf32x3 variant); the winner through the command line's ``evaluate``."""
     configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
     search = os.path.join(work_dir, "sweep_deep_sets")
     argv = ["deep_sets", "--seed", "0", "--max-runs", "3", "--epochs", str(SWEEP_EPOCHS), "--force",
@@ -3533,11 +3608,20 @@ def sweep_sequential_phase(work_dir: str, data: str) -> dict:
     for version in range(3):
         hp = load_config(os.path.join(search, f"version_{version}", "config.yaml"))
         train, val = _sweep_loaders("s2ppc", hp)
-        kernel = DeepSets(**hp["model"])._use_kernel()
+        model = DeepSets(**hp["model"])
+        kernel = model._use_kernel()
         n_tr, n_va = len(train), len(val)
-        print(f"sweep deep_sets version_{version}: phi {hp['model']['phi_layers']}, rho "
+        # K2's variant for the run's chain, as _use_kernel builds it
+        kinds = [_KINDS[kind] for kind, _ in model._phi_slots] + ([] if model._post_pool() else [_BARE_LINEAR])
+        dims = [model.input_dim, *hp["model"]["phi_layers"]] + ([] if model._post_pool() else
+                                                               hp["model"]["phi_layers"][-1:])
+        k2 = kernel_variant(tuple(dims), tuple(kinds), model.compute_dtype == torch.bfloat16, True) if kernel else None
+        print(f"sweep deep_sets version_{version}: phi {hp['model']['phi_layers']}"
+              f"{' residual' if hp['model']['residual_block'] else ''} {hp['model']['activation']}, rho "
               f"{hp['model']['rho_layers']}, B={hp['dataset']['batch_size']}, lr "
-              f"{hp['trainer']['learning_rate']:.3e}; {'K1 and K2' if kernel else 'the plain path'}")
+              f"{hp['trainer']['learning_rate']:.3e}; {f'K1 and K2 [{k2} variant]' if kernel else 'the plain path'}")
+        if version == 0 and (hp["model"]["phi_layers"], k2) != ([128] * 4, "tf32x3"):
+            raise AssertionError(f"sweep deep_sets version_0: phi {hp['model']['phi_layers']}, K2 {k2}")
         if kernel:  # per epoch the steps and a validation; then predict on train and val
             want["phi_pool"] += SWEEP_EPOCHS * (n_tr + n_va) + n_tr + n_va
             want["phi_pool_bwd"] += SWEEP_EPOCHS * n_tr
@@ -5735,6 +5819,7 @@ def main() -> None:
         beside["phi_pool"]["f32_shapes"] = k1_variants_phase(smi)
         for name, readings in wide_variants_phase(smi).items():
             beside[name]["wide_device"] = readings
+        beside["phi_pool_bwd"]["sweep_chains"] = sweep_chains_phase(smi)
         beside["phi_pool"]["max_rel_to_tf32x3_plain"] = k1_to_tf32x3
         lap("DeepSets times")
         times["gat_attention"] = graph_times_phase(smi, os.path.join(run_dir, "graph_run_1"))

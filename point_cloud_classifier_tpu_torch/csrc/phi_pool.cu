@@ -512,6 +512,9 @@ __global__ void __launch_bounds__(kTf32Threads, 1)
   const int n_layers = chain.n_layers;
   const int first_tile = blockIdx.x / C;
   const int n_my_tiles = first_tile < n_tiles ? (n_tiles - 1 - first_tile) / n_clusters + 1 : 0;
+  // a chain of three layers or more sums each chunk's products apart
+  // (chunk_product), as K2's tf32x3 row pass recomputes it
+  const bool sums = n_layers >= 3;
 
   PhaseClock clk;
   for (int i = threadIdx.x; i < ROWS * ldx; i += kTf32Threads) x[i] = 0.0f;
@@ -551,7 +554,7 @@ __global__ void __launch_bounds__(kTf32Threads, 1)
       const int nb = chain.dims[l + 1] / C;
       float acc[2][G::kNt][4];
       stream_product<ROWS>(acc, in, ld_in, layer_chunks(chain, l), stages, full, empty, chunk, clk,
-                           2, 3);
+                           2, 3, sums);
       bar_sync(kConsumerBar, kConsumers);  // no warp reads x or h for the products any more
       clk.mark(4);
       // x is read again only by a residual first layer's epilogue: else the

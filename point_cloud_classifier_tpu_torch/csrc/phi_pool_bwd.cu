@@ -12,8 +12,8 @@
 //   d_in = dz Wᵀ  (+ d_out for a residual layer)
 // and d_points = d_in of the first layer, only when asked.  No [P, H]
 // activation or gradient is written to device memory, but by the wide and
-// the tf32x3 variants, whose [P, W] scratch of h1 and dz2 is deliberate
-// (below).
+// the tf32x3 variants, whose [P, W] scratch of each square layer's input
+// rows and dz is deliberate (below).
 //
 // What bounds it on the H100: operations.  Per point the recompute costs the
 // forward's FLOPs again, and d_W and dz Wᵀ each cost as much once more: about
@@ -121,7 +121,7 @@
 //   and whose second layer runs its 16-k steps in the same order, each
 //   mma.sync adding the same products of the same bf16 h1 to the same sum,
 //   rounding the dot and then the bias add, so z2 equals K1's too.  The
-//   card reads no value of h1 apart from K1's (pcc_phi_pool_bwd_h1_departures
+//   card reads no value of h1 apart from K1's (pcc_phi_pool_bwd_departures
 //   against K1's own forward; PERF.md §6).  The sliced K1 (the timing entry)
 //   sums its <= 8 first-layer products in f32 FMAs in k order (first_dots)
 //   and takes kFastSigmoid's activation: there an h1 value lands one bf16
@@ -144,36 +144,56 @@
 // the bytes at [256, 256] (h in, d_points out), the operations (4·P·in·out)
 // at [1024, 1024].
 //
-// Tf32x3 (f32: the DeepSets chain at W = 256 to 1024 in multiples of 64, as
-// the wide variant takes it in bf16; and the tail's one bare layer [in, out],
-// each a multiple of 64 from 256 to 1024).  The wide variant's structure on
-// f32 K1's tf32x3 skeleton (phi_tf32.cuh): every product is three TF32
-// products on the tensor cores (each operand split into hi and lo once), and
-// W comes in through the producers' chunk stream, split as it is staged.
-// - What bounds it: the operations, three products of 2·P·W² taken as three
-//   TF32 products each, over 495 TFLOP/s (2.51 ms at B=256, P=65,536, W =
-//   1024).  d_W2 is [W, W] f32 (4 MB at 1024): no SM holds it.
-// - The row pass, on K1's tf32x3 skeleton: one block a 64-row tile at W 256
-//   (as f32 K1 takes that width: dz2·W2ᵀ whole inside the block, no
+// Tf32x3 (f32: the DeepSets chain of S = 0 to 3 square layers at W = 128
+// to 1024 in multiples of 64, every chain the hyperparameter sweep samples
+// but φ [1024] × 4; and the tail's one bare layer [in, out], each a
+// multiple of 64 from 256 to 1024).  The wide variant's structure on f32
+// K1's tf32x3 skeleton (phi_tf32.cuh): every product is three TF32 products
+// on the tensor cores (each operand split into hi and lo once), and W comes
+// in through the producers' chunk stream, split as it is staged.
+// - What bounds it: the operations, three products of 2·P·W² a square layer
+//   taken as three TF32 products each, over 495 TFLOP/s (2.51 ms a square
+//   layer at B=256, P=65,536, W = 1024); at W = 128 the scratch's bytes as
+//   much.  Each d_W is [W, W] f32 (4 MB at 1024): no SM holds it.
+// - The row pass, on K1's tf32x3 skeleton: one block a 64-row tile up to W
+//   256 (as f32 K1 takes those widths: each dz·Wᵀ whole inside the block, no
 //   exchange, no cluster barrier), a cluster of two blocks (W <= 512) a
 //   64-row tile or four a 32-row tile (64 rows of f32 h at W = 1024 would be
 //   256 KB), block r owning columns [r nb, (r + 1) nb).  Per tile: h1 =
 //   act(x·W1 + b1) from W1's columns kept in shared memory (f32, split at
 //   each read: the same operands, split, tf32 products and epilogue as K1's
-//   first layer, so the same bits), into every block's h and into h1s; z2 =
-//   h1·W2 (W2 staged by k, as K1 stages it: the same bits as K1's sums); dz2
-//   = g[seg] ⊙ act'(z2) into every block's h and dz2s; d_h1 = dz2·W2ᵀ (W2's
-//   rows staged by n from the one [in, out] copy, split by the producers
-//   into the same [n][k] layout, so one ldmatrix fragment layout serves
-//   both); dz1 = d_h1 (+ d_out) ⊙ act'(z1), z1 from the first-layer product
-//   again.  The small gradients (d_W1, d_b1, d_b2) are sums over the tile's
-//   rows in order, one column a thread, added to registers a tile at a time
-//   and written once a cluster into its slab; d_points is each block's share
-//   over its columns summed across the cluster in rank order.  h1 and dz2 go
-//   to a [P, W] f32 scratch each (256 MB at P = 65,536, W = 1024).
-// - The d_W pass: d_W2 = h1ᵀ·dz2 with [128, 128] f32 tiles of d_W2 in
-//   registers, one block an SM, P split into as many chunks as fill the SMs
-//   once; each stage's products summed apart and then added (below).
+//   first layer, so the same bits), into every block's h and the scratch;
+//   each square layer h·W (W staged by k, as K1 stages it) and K1's epilogue
+//   (the same bits as K1's layers), its input rows and act' at its
+//   pre-activation (the gate, the tanh or sigmoid evaluated once, beside the
+//   activation) to the scratch, the last one's dz = g[seg] ⊙ act'(z) into every block's
+//   h; then back, each dz·Wᵀ (W's rows staged by n from the one [in, out]
+//   copy, split by the producers into the same [n][k] layout, so one
+//   ldmatrix fragment layout serves both), d_out (+ a residual layer's
+//   d_out, kept in the scratch from one layer to the next), the layer
+//   below's dz over its gate in the scratch and into every block's h; dz1 =
+//   d_out ⊙ act'(z1), z1 from the first-layer product again.  The gates go
+//   through the scratch and not shared memory: a block's columns of a
+//   tile's gates are 32 KB a layer at W 1024 (32 rows x 256) and 64
+//   KB at W 512 or 256, where the row pass leaves 10, 5 and 69 KB of the
+//   227 free (h, the stages, x and W1's columns take the rest), so only one
+//   layer at W <= 256 would fit.  Each value is written once and read back
+//   once by the thread that wrote it: 0.16 ms of device memory's rate a
+//   layer at P = 65,536, W = 1024, against the layer's 2.5 ms of products,
+//   and the kept d_out of a residual layer the same.  The small gradients
+//   (d_W1, d_b1, each d_b) are sums over the tile's rows in order, one
+//   column a thread, added to registers a tile at a time and written once a
+//   cluster into its slab; d_points is each block's share over its columns
+//   summed across the cluster in rank order.  Each square layer's input
+//   rows and dz take a [P, W] f32 scratch each (256 MB at P = 65,536, W =
+//   1024), and with S >= 2 the kept d_out one more.  With S = 0 (φ [W] × 1)
+//   the row pass alone: dz1 = g[seg] ⊙ act'(z1), no product, no scratch
+//   rows.
+// - The d_W pass, one a square layer: d_W = hᵀ·dz with [128, 128] f32 tiles
+//   of d_W in registers, one block an SM, P split into as many chunks as
+//   fill the SMs once; each stage's products summed apart and then added
+//   (below); every partial summed in chunk order by one reduce_slabs_kernel
+//   launch, so two launches give the same bits.
 // - The tail: no recompute.  dz = g[seg]; d_W = h_inᵀ·dz and d_b = Σ dz are
 //   the d_W pass over the points and the gathered cotangent (each block
 //   gathers its rows of g by segment id as it stages them); d_points = dz·Wᵀ
@@ -402,7 +422,7 @@ struct SlabSum {
   int n;
   float* out;
 };
-constexpr int kMaxSlabSums = 3;
+constexpr int kMaxSlabSums = 1 + 2 * kMaxSquare;
 struct SlabSums {
   SlabSum sum[kMaxSlabSums];
   int first_block[kMaxSlabSums + 1];  // sum q takes blocks [first_block[q], first_block[q + 1])
@@ -410,8 +430,8 @@ struct SlabSums {
 };
 
 // Up to kMaxSlabSums sums in one launch, each on blocks of its own, one
-// element a thread: the DeepSets chain's three (d_W1 and d_b1, d_W2, d_b2)
-// cost one launch.
+// element a thread: the DeepSets chain's (d_W1 and d_b1, then each square
+// layer's d_W and d_b) cost one launch.
 __global__ void __launch_bounds__(kThreads) reduce_slabs_kernel(const SlabSums sums) {
   int q = 0;
   while (q + 1 < sums.count && static_cast<int>(blockIdx.x) >= sums.first_block[q + 1]) ++q;
@@ -427,18 +447,22 @@ __global__ void __launch_bounds__(kThreads) reduce_slabs_kernel(const SlabSums s
   job.out[k] = s;
 }
 
-template <int N>
-cudaError_t reduce_slabs(const SlabSum (&jobs)[N], cudaStream_t stream) {
-  static_assert(N >= 1 && N <= kMaxSlabSums, "reduce_slabs takes 1 to kMaxSlabSums sums");
+cudaError_t reduce_slabs(const SlabSum* jobs, int n, cudaStream_t stream) {
+  if (n < 1 || n > kMaxSlabSums) return cudaErrorInvalidValue;
   SlabSums sums = {};
-  sums.count = N;
-  for (int q = 0; q < N; ++q) {
+  sums.count = n;
+  for (int q = 0; q < n; ++q) {
     sums.sum[q] = jobs[q];
     sums.first_block[q + 1] = sums.first_block[q] + (jobs[q].n + kThreads - 1) / kThreads;
   }
-  if (sums.first_block[N] == 0) return cudaSuccess;
-  reduce_slabs_kernel<<<sums.first_block[N], kThreads, 0, stream>>>(sums);
+  if (sums.first_block[n] == 0) return cudaSuccess;
+  reduce_slabs_kernel<<<sums.first_block[n], kThreads, 0, stream>>>(sums);
   return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t reduce_slabs(const SlabSum (&jobs)[N], cudaStream_t stream) {
+  return reduce_slabs(jobs, N, stream);
 }
 
 cudaError_t reduce_slabs(const float* slabs, int n_slabs, size_t stride, int n, float* out,
@@ -1314,30 +1338,38 @@ inline DwSplit dw_split(int n_points, int m, int n, int max_blocks, bool one_wav
 }
 
 // Where the wide and the tf32x3 variants' scratch for the DeepSets chain
-// lies, in floats from its start (each part on a 256-byte boundary): the row
-// pass's cluster slabs of the small gradients, h1 and dz2 ([P, W] of
-// elem-byte values each: bf16 in the wide variant, f32 in the tf32x3 one),
-// the d_W pass's partials.
+// of S square layers lies, in floats from its start (each part on a
+// 256-byte boundary): the row pass's cluster slabs of the small gradients
+// (d_W1 [F, W], d_b1, then each square layer's d_b), for each square layer
+// its input rows h and its dz ([P, W] of elem-byte values each: bf16 in the
+// wide variant, f32 in the tf32x3 one; dz holds act' at the layer's
+// pre-activation until the walk back writes dz over it), with two or more
+// square layers the rows of d_out that a residual layer's walk back adds
+// ([P, W]), then each square layer's d_W partials.  The wide variant takes S = 1.
 struct WideScratch {
-  int n_small;
+  int n_small, n_square;
   DwSplit dw;
-  size_t slabs, h1, dz2, parts, total;
+  size_t slabs, rows, half, res, parts, total;
+  size_t h(int l) const { return rows + 2 * static_cast<size_t>(l) * half; }  // square layer l < S
+  size_t dz(int l) const { return h(l) + half; }
+  size_t part(int l, int width) const { return parts + static_cast<size_t>(l) * dw.split * width * width; }
 };
 
 inline size_t up64(size_t n) { return (n + 63) / 64 * 64; }
 
-inline WideScratch wide_scratch(int n_points, const int* dims, int cluster, int max_blocks,
+inline WideScratch wide_scratch(int n_points, const int* dims, int n_square, int cluster, int max_blocks,
                                 size_t elem) {
   WideScratch w;
   const int width = dims[1];
-  w.n_small = (dims[0] + 2) * width;
+  w.n_square = n_square;
+  w.n_small = (dims[0] + 1 + n_square) * width;
   w.dw = dw_split(n_points, width, width, max_blocks, elem == sizeof(float));
-  const size_t half = up64((static_cast<size_t>(n_points) * width * elem + 3) / 4);
+  w.half = up64((static_cast<size_t>(n_points) * width * elem + 3) / 4);
   w.slabs = 0;
-  w.h1 = up64(static_cast<size_t>(max_blocks / cluster) * w.n_small);
-  w.dz2 = w.h1 + half;
-  w.parts = w.dz2 + half;
-  w.total = w.parts + static_cast<size_t>(w.dw.split) * width * width;
+  w.rows = up64(static_cast<size_t>(max_blocks / cluster) * w.n_small);
+  w.res = w.h(n_square);
+  w.parts = w.res + (n_square > 1 ? w.half : 0);
+  w.total = w.part(n_square, width);
   return w;
 }
 
@@ -1380,17 +1412,20 @@ cudaError_t launch_dw(const T* a_rows, const T* b_rows, const int* seg, int num_
 }
 
 // d_params of the DeepSets chain from the wide and the tf32x3 variants'
-// scratch: d_W1 [F, W] and d_b1 from the cluster slabs, d_W2 from the d_W
-// pass's partials, d_b2 from the slabs.
+// scratch: d_W1 [F, W] and d_b1 from the cluster slabs, then each square
+// layer's d_W from its d_W pass's partials and its d_b from the slabs.
 cudaError_t reduce_deep_sets(const float* base, const WideScratch& w, int n_clusters, int n_features,
                              int width, float* out, cudaStream_t stream) {
-  const int first = n_features * width + width;
-  const SlabSum jobs[3] = {
-      {base + w.slabs, n_clusters, static_cast<size_t>(w.n_small), first, out},
-      {base + w.parts, w.dw.split, static_cast<size_t>(width) * width, width * width, out + first},
-      {base + w.slabs + first, n_clusters, static_cast<size_t>(w.n_small), width,
-       out + first + width * width}};
-  return reduce_slabs(jobs, stream);
+  const int first = n_features * width + width, square = width * width + width;
+  SlabSum jobs[kMaxSlabSums] = {{base + w.slabs, n_clusters, static_cast<size_t>(w.n_small), first, out}};
+  for (int l = 0; l < w.n_square; ++l) {
+    float* layer = out + first + l * square;
+    jobs[1 + 2 * l] = {base + w.part(l, width), w.dw.split, static_cast<size_t>(width) * width, width * width,
+                       layer};
+    jobs[2 + 2 * l] = {base + w.slabs + first + l * width, n_clusters, static_cast<size_t>(w.n_small), width,
+                       layer + width * width};
+  }
+  return reduce_slabs(jobs, 1 + 2 * w.n_square, stream);
 }
 
 template <int C>
@@ -1403,10 +1438,10 @@ cudaError_t launch_wide(const void* points, const void* seg, const void* g, void
   cudaError_t err = cluster_fit(kernel, C, kWideThreads, &fit);
   if (err != cudaSuccess) return err;
   const int width = chain.dims[1];
-  const WideScratch w = wide_scratch(n_points, chain.dims, C, max_blocks, sizeof(bf16));
+  const WideScratch w = wide_scratch(n_points, chain.dims, 1, C, max_blocks, sizeof(bf16));
   float* base = static_cast<float*>(scratch);
-  bf16* h1s = reinterpret_cast<bf16*>(base + w.h1);
-  bf16* dz2s = reinterpret_cast<bf16*>(base + w.dz2);
+  bf16* h1s = reinterpret_cast<bf16*>(base + w.h(0));
+  bf16* dz2s = reinterpret_cast<bf16*>(base + w.dz(0));
   // the chunk stream, and the cluster barriers that a cluster of C > 1
   // meets between its phases (one block a tile meets none)
   WideStream st = {};
@@ -1433,8 +1468,8 @@ cudaError_t launch_wide(const void* points, const void* seg, const void* g, void
                               plan.ldh, w.n_small);
   }
   if (err != cudaSuccess) return err;
-  err = launch_dw<bf16, false>(h1s, dz2s, nullptr, 0, base + w.parts, nullptr, n_points, width, width,
-                               w.dw, stream);
+  err = launch_dw<bf16, false>(h1s, dz2s, nullptr, 0, base + w.part(0, width), nullptr, n_points, width,
+                               width, w.dw, stream);
   if (err != cudaSuccess) return err;
   return reduce_deep_sets(base, w, n_clusters, n_features, width, static_cast<float*>(d_params), stream);
 }
@@ -1597,363 +1632,19 @@ cudaError_t launch_tail_wide(const void* points, const void* seg, const void* g,
 // forward over the first layer alone ([P, W] f32, one bf16 value a sum):
 // counts[0] += the values that differ, counts[1] = the largest |difference|
 // of one in units of 2^-24.  A check for the card, off the path.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    h1_departures_kernel(const float* __restrict__ ref, const bf16* __restrict__ h1s, size_t n,
-                         unsigned long long* counts) {
+    departures_kernel(const float* __restrict__ ref, const T* __restrict__ rows, size_t n,
+                      unsigned long long* counts) {
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float k1 = ref[i], k2 = __bfloat162float(h1s[i]);
+  const float k1 = ref[i], k2 = to_f32(rows[i]);
   if (k1 == k2) return;
   atomicAdd(counts, 1ull);
   atomicMax(counts + 1, static_cast<unsigned long long>(fabsf(k2 - k1) * 16777216.0f + 0.5f));
 }
 
-// -- the tf32x3 variant (f32): the row pass --------------------------------------------
-
-// The first layer's dots x·W1 of the warp's n8 tile nt of the block's
-// columns, from the tile's split points (split_a at k 0) and W1's columns
-// w1s[n][k] (f32, zero past F), split here: the same operands, split and
-// order of tf32 products as f32 K1's first layer, so the same bits.
-__device__ __forceinline__ void first_dot(float (&dot)[2][4], const uint32_t (&axh)[2][4],
-                                          const uint32_t (&axl)[2][4], const float* w1s, int nt) {
-  const int lane = threadIdx.x % 32;
-  const float* b = w1s + (8 * nt + lane / 4) * kRingLd + lane % 4;
-  uint32_t bh0, bl0, bh1, bl1;
-  split_tf32(b[0], bh0, bl0);
-  split_tf32(b[4], bh1, bl1);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dot[mt][e] = 0.0f;
-  }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) mma_tf32(dot[mt], axl[mt], bh0, bh1);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) mma_tf32(dot[mt], axh[mt], bl0, bl1);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) mma_tf32(dot[mt], axh[mt], bh0, bh1);
-}
-
-// The chain [F, W, W] in f32: h1 = act(z1), z1 = x·W1 + b1; z2 = h1·W2 + b2.
-// A cluster of C blocks walks ROWS-row tiles on f32 K1's tf32x3 skeleton
-// (phi_tf32.cuh), block r owning columns [r nb, (r + 1) nb) of both layers.
-// At C = 1 (W 256) the block owns every column: dz2·W2ᵀ is formed whole
-// inside it, and the cluster's paths (the writes into the neighbours' h, the
-// cluster barriers, the shares of d_points) are compiled out, the consumers'
-// own named barrier standing where a cluster barrier stood.
-// Shared memory: h [ROWS, ldh] (h1, then dz2, then in this block's columns
-// dz1), x [2][ROWS, kTf32XLd] (this tile's points and the next's), w1s
-// [256, kRingLd] (this block's columns of W1 by n, f32, zero past F), pp
-// [ROWS, 8] (the block's share of d_points), the stages, the segment ids
-// [2][ROWS], the mbarriers.  The chunk stream: W2 by k (z2 = h1·W2), then W2
-// by n (d_h1 = dz2·W2ᵀ), each tile; the consumers meet two cluster barriers
-// around h1's epilogue, two around dz2's and, for d_points, one before the
-// shares are summed.
-template <int ROWS, int C>
-__global__ void __launch_bounds__(kTf32Threads, 1)
-    phi_pool_bwd_tf32x3_kernel(const float* __restrict__ points, const int* __restrict__ seg,
-                               const float* __restrict__ g, float* __restrict__ d_points,
-                               float* __restrict__ h1s, float* __restrict__ dz2s,
-                               float* __restrict__ slabs, int n_points, int n_features,
-                               int num_segments, Chain chain, SplitStream st, int ldh, int vec4,
-                               int n_small) {
-  using G = Tf32Warps<ROWS>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* h = reinterpret_cast<float*>(smem_raw);
-  float* xs = h + ROWS * ldh;
-  float* w1s = xs + 2 * ROWS * kTf32XLd;
-  float* pp = w1s + kRingRows * kRingLd;
-  float* stages = pp + ROWS * kMaxFeatures;
-  int* segs = reinterpret_cast<int*>(stages + kStages * kSplit);
-  uint64_t* full = reinterpret_cast<uint64_t*>(segs + 2 * ROWS);
-  uint64_t* empty = full + kStages;
-
-  int rank = 0;
-  float* targets[C];
-  const float* pp_all[C];
-  targets[0] = h;
-  pp_all[0] = pp;
-  if constexpr (C > 1) {
-    cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
-    rank = static_cast<int>(cluster.block_rank());
-#pragma unroll
-    for (int q = 0; q < C; ++q) {
-      targets[q] = q == 0 ? h : cluster.map_shared_rank(h, (rank + q) % C);
-      pp_all[q] = cluster.map_shared_rank(pp, q);
-    }
-  }
-  // the consumers' barrier where a cluster of C > 1 meets its cluster's
-  const auto tile_sync = [] {
-    if constexpr (C > 1) {
-      cluster_sync();
-    } else {
-      bar_sync(kConsumerBar, kConsumers);
-    }
-  };
-  const int width = chain.dims[1];
-  const int nb = width / C, col0 = rank * nb;
-  const int n_tiles = (n_points + ROWS - 1) / ROWS;
-  const int n_clusters = gridDim.x / C;
-  const int first_tile = blockIdx.x / C;
-  const int n_my_tiles = first_tile < n_tiles ? (n_tiles - 1 - first_tile) / n_clusters + 1 : 0;
-  const float* __restrict__ W1 = static_cast<const float*>(chain.w[0]);
-  const float* __restrict__ b1 = static_cast<const float*>(chain.b[0]);
-  const float* __restrict__ b2 = static_cast<const float*>(chain.b[1]);
-  const bool residual = chain.kind[1] == kResidual;
-
-  for (int i = threadIdx.x; i < 2 * ROWS * kTf32XLd; i += kTf32Threads) xs[i] = 0.0f;
-  for (int i = threadIdx.x; i < kRingRows * kRingLd; i += kTf32Threads) {
-    const int n = i / kRingLd, k = i % kRingLd;
-    w1s[i] = n < nb && k < n_features ? W1[static_cast<size_t>(k) * width + col0 + n] : 0.0f;
-  }
-  if (threadIdx.x == 0) {
-    for (int q = 0; q < kStages; ++q) {
-      mbar_init(full + q, kProducers);
-      mbar_init(empty + q, kConsumerWarps);
-    }
-  }
-  PhaseClock clk;
-  if constexpr (C > 1) {
-    cluster_sync();  // x and w1s are set, and every block of the cluster has started
-  } else {
-    __syncthreads();
-  }
-  if (threadIdx.x >= kConsumers) {
-    tf32_produce<C, kByBoth>(st, stages, full, empty, rank, n_my_tiles);
-    if constexpr (C > 1) cluster_sync();
-    return;
-  }
-  clk.mark(0);
-
-  // the consumers; thread j < nb carries column col0 + j of the small
-  // gradients from tile to tile
-  const int j = threadIdx.x;
-  float dw1[kMaxFeatures], db1 = 0.0f, db2 = 0.0f;
-#pragma unroll
-  for (int k = 0; k < kMaxFeatures; ++k) dw1[k] = 0.0f;
-  if (n_my_tiles > 0) {
-    fetch_tile<ROWS>(points, seg, first_tile, n_points, n_features, xs, kTf32XLd, segs, vec4);
-  }
-  const int n2 = split_chunks(st.phase[0]);
-  int chunk = 0;
-  for (int tile = first_tile, parity = 0; tile < n_tiles; tile += n_clusters, parity ^= 1) {
-    const int row0 = tile * ROWS;
-    const int n_rows = min(ROWS, n_points - row0);
-    const float* x = xs + parity * ROWS * kTf32XLd;
-    const int* tile_segs = segs + parity * ROWS;
-    // the segment id of a tile row; rows past the end get none
-    const auto sid_of = [&](int row) { return row < n_rows ? tile_segs[row] : -1; };
-    cp_async_wait_all();
-    bar_sync(kConsumerBar, kConsumers);  // the tile's points and ids are in x, and the other buffers are free
-    if (tile + n_clusters < n_tiles) {
-      fetch_tile<ROWS>(points, seg, tile + n_clusters, n_points, n_features,
-                       xs + (parity ^ 1) * ROWS * kTf32XLd, kTf32XLd, segs + (parity ^ 1) * ROWS,
-                       vec4);
-    }
-    clk.mark(1);
-
-    // no block reads its h any more (at C = 1 the barrier above says so)
-    if constexpr (C > 1) cluster_sync();
-    clk.mark(2);
-    // h1 = act(x·W1 + b1), this block's columns, into every block's h and h1s
-    {
-      uint32_t axh[2][4], axl[2][4];
-      split_a<ROWS>(axh, axl, x, kTf32XLd, 0);
-      with_act(chain.act, [&](auto a) {
-#pragma unroll
-        for (int i = 0; i < G::kNt; ++i) {
-          const int nt = G::wn() + G::kWarpsN * i;
-          if (8 * nt < nb) {
-            float dot[2][4];
-            first_dot(dot, axh, axl, w1s, nt);
-            const int col = col0 + G::col(i);
-            const float bias0 = __ldg(b1 + col), bias1 = __ldg(b1 + col + 1);
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-              for (int half = 0; half < 2; ++half) {
-                const int row = G::row(mt, half);
-                const float2 v = make_float2(
-                    layer_out<float, kSigmoidApprox>(dot[mt][2 * half], bias0, 0.0f, kPlain,
-                                                     decltype(a)::value, nullptr),
-                    layer_out<float, kSigmoidApprox>(dot[mt][2 * half + 1], bias1, 0.0f, kPlain,
-                                                     decltype(a)::value, nullptr));
-#pragma unroll
-                for (int q = 0; q < C; ++q) *reinterpret_cast<float2*>(targets[q] + row * ldh + col) = v;
-                if (row < n_rows) {
-                  *reinterpret_cast<float2*>(h1s + static_cast<size_t>(row0 + row) * width + col) = v;
-                }
-              }
-            }
-          }
-        }
-      });
-    }
-    clk.mark(3);
-    tile_sync();  // h1 is whole in every block
-    clk.mark(4);
-
-    // z2's dots for this block's columns: h1·W2
-    float acc[2][G::kNt][4];
-    stream_product<ROWS>(acc, h, ldh, n2, stages, full, empty, chunk, clk, 5, 6);
-    bar_sync(kConsumerBar, kConsumers);
-    clk.mark(7);
-    if constexpr (C > 1) cluster_sync();  // no block reads its h any more
-    clk.mark(8);
-    // dz2 = g[seg] ⊙ act'(z2), z2 = dot + b2 (zero for padding ids >= S and
-    // rows past the end), into every block's h and dz2s
-    with_act(chain.act, [&](auto a) {
-#pragma unroll
-      for (int i = 0; i < G::kNt; ++i) {
-        if (8 * (G::wn() + G::kWarpsN * i) < nb) {
-          const int col = col0 + G::col(i);
-          const float bias0 = __ldg(b2 + col), bias1 = __ldg(b2 + col + 1);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const int row = G::row(mt, half), sid = sid_of(row);
-              float2 d = make_float2(0.0f, 0.0f);
-              if (sid >= 0 && sid < num_segments) {
-                d = __ldg(reinterpret_cast<const float2*>(g + static_cast<size_t>(sid) * width + col));
-              }
-              const float z0 = acc[mt][i][2 * half] + bias0, z1 = acc[mt][i][2 * half + 1] + bias1;
-              const float2 v =
-                  make_float2(d.x * act_grad<float, kSigmoidApprox>(z0, decltype(a)::value),
-                              d.y * act_grad<float, kSigmoidApprox>(z1, decltype(a)::value));
-#pragma unroll
-              for (int q = 0; q < C; ++q) *reinterpret_cast<float2*>(targets[q] + row * ldh + col) = v;
-              if (row < n_rows) {
-                *reinterpret_cast<float2*>(dz2s + static_cast<size_t>(row0 + row) * width + col) = v;
-              }
-            }
-          }
-        }
-      }
-    });
-    clk.mark(9);
-    tile_sync();  // dz2 is whole in every block
-    clk.mark(10);
-
-    // d_h1's dots for this block's columns: dz2·W2ᵀ, W2's rows by n
-    stream_product<ROWS>(acc, h, ldh, n2, stages, full, empty, chunk, clk, 5, 6);
-    bar_sync(kConsumerBar, kConsumers);  // h is read for no product any more
-    clk.mark(7);
-    // d_b2 += Σ dz2 over the tile's rows, in order (the tile's sum first, as
-    // with every small gradient: sums over a cluster's thousands of rows
-    // otherwise drift ~1e-5 from f32 reductions at P = 65,536)
-    if (j < nb) {
-      float sum = 0.0f;
-      for (int r = 0; r < ROWS; ++r) sum += h[r * ldh + col0 + j];
-      db2 += sum;
-    }
-    bar_sync(kConsumerBar, kConsumers);
-    clk.mark(11);
-    // dz1 = (d_h1 (+ d_out for a residual layer)) ⊙ act'(z1), z1 from the
-    // same product as h1's, into this block's columns of h
-    {
-      uint32_t axh[2][4], axl[2][4];
-      split_a<ROWS>(axh, axl, x, kTf32XLd, 0);
-      with_act(chain.act, [&](auto a) {
-#pragma unroll
-        for (int i = 0; i < G::kNt; ++i) {
-          const int nt = G::wn() + G::kWarpsN * i;
-          if (8 * nt < nb) {
-            float dot[2][4];
-            first_dot(dot, axh, axl, w1s, nt);
-            const int col = col0 + G::col(i);
-            const float bias0 = __ldg(b1 + col), bias1 = __ldg(b1 + col + 1);
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-              for (int half = 0; half < 2; ++half) {
-                const int row = G::row(mt, half);
-                float v0 = acc[mt][i][2 * half], v1 = acc[mt][i][2 * half + 1];
-                if (residual) {
-                  const int sid = sid_of(row);
-                  if (sid >= 0 && sid < num_segments) {
-                    const float2 d =
-                        __ldg(reinterpret_cast<const float2*>(g + static_cast<size_t>(sid) * width + col));
-                    v0 = d.x + v0;
-                    v1 = d.y + v1;
-                  }
-                }
-                const float z0 = dot[mt][2 * half] + bias0, z1 = dot[mt][2 * half + 1] + bias1;
-                *reinterpret_cast<float2*>(h + row * ldh + col) =
-                    make_float2(v0 * act_grad<float, kSigmoidApprox>(z0, decltype(a)::value),
-                                v1 * act_grad<float, kSigmoidApprox>(z1, decltype(a)::value));
-              }
-            }
-          }
-        }
-      });
-    }
-    bar_sync(kConsumerBar, kConsumers);  // dz1 is whole in this block's columns
-    clk.mark(12);
-    // d_W1 += xᵀ dz1, d_b1 += Σ dz1, over the tile's rows in order
-    if (j < nb) {
-      float tile_dw1[kMaxFeatures], tile_db1 = 0.0f;
-#pragma unroll
-      for (int k = 0; k < kMaxFeatures; ++k) tile_dw1[k] = 0.0f;
-      for (int r = 0; r < ROWS; ++r) {
-        const float dz = h[r * ldh + col0 + j];
-        const float4 xa = *reinterpret_cast<const float4*>(x + r * kTf32XLd);
-        const float4 xb = *reinterpret_cast<const float4*>(x + r * kTf32XLd + 4);
-        const float xv[kMaxFeatures] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-        tile_db1 += dz;
-#pragma unroll
-        for (int k = 0; k < kMaxFeatures; ++k) tile_dw1[k] = fmaf(xv[k], dz, tile_dw1[k]);
-      }
-      db1 += tile_db1;
-#pragma unroll
-      for (int k = 0; k < kMaxFeatures; ++k) dw1[k] += tile_dw1[k];
-    }
-    if (d_points != nullptr) {
-      // d_points = dz1·W1ᵀ: this block's share over its columns, then the
-      // rows of ROWS / C per block summed over the shares in rank order (at
-      // C = 1 the share is the sum, written as it is formed)
-      for (int i = threadIdx.x; i < ROWS * kMaxFeatures; i += kConsumers) {
-        const int r = i / kMaxFeatures, k = i % kMaxFeatures;
-        float sum = 0.0f;
-        for (int n = 0; n < nb; ++n) sum = fmaf(h[r * ldh + col0 + n], w1s[n * kRingLd + k], sum);
-        if constexpr (C > 1) {
-          pp[i] = sum;
-        } else if (r < n_rows && k < n_features) {
-          d_points[static_cast<size_t>(row0 + r) * n_features + k] = sum;
-        }
-      }
-      if constexpr (C > 1) {
-        cluster_sync();  // every block's share is whole
-        constexpr int kOwn = ROWS / C;
-        if (threadIdx.x < kOwn * kMaxFeatures) {
-          const int r = rank * kOwn + threadIdx.x / kMaxFeatures, k = threadIdx.x % kMaxFeatures;
-          if (r < n_rows && k < n_features) {
-            float sum = pp_all[0][r * kMaxFeatures + k];
-#pragma unroll
-            for (int q = 1; q < C; ++q) sum += pp_all[q][r * kMaxFeatures + k];
-            d_points[static_cast<size_t>(row0 + r) * n_features + k] = sum;
-          }
-        }
-      }
-    }
-    clk.mark(13);
-  }
-
-  // This block's columns of the small gradients leave the chip once, into
-  // its cluster's slab: d_W1 [F, W], d_b1 [W], d_b2 [W].
-  if (j < nb) {
-    float* slab = slabs + static_cast<size_t>(blockIdx.x / C) * n_small;
-#pragma unroll
-    for (int k = 0; k < kMaxFeatures; ++k) {
-      if (k < n_features) slab[k * width + col0 + j] = dw1[k];
-    }
-    slab[n_features * width + col0 + j] = db1;
-    slab[(n_features + 1) * width + col0 + j] = db2;
-  }
-  if constexpr (C > 1) cluster_sync();  // no block leaves while a neighbour may still read or write it
-  clk.mark(14);
-  clk.flush();
-}
+// -- the tf32x3 variant (f32): the row pass, phi_pool_bwd_rows.cuh -------------------
 
 // -- the tf32x3 variant: the tail's row product -----------------------------------------
 
@@ -2012,7 +1703,7 @@ __global__ void __launch_bounds__(kTf32Threads, 1)
     clk.mark(1);
     float acc[2][G::kNt][4];
     stream_product<ROWS>(acc, h, ldh, split_chunks(st.phase[0]), stages, full, empty, chunk, clk,
-                         2, 3);
+                         2, 3, false);
     bar_sync(kConsumerBar, kConsumers);  // no warp reads h any more
     if (tile + n_groups < n_tiles) gather(tile + n_groups);
     clk.mark(4);
@@ -2040,50 +1731,61 @@ __global__ void __launch_bounds__(kTf32Threads, 1)
 
 // -- the tf32x3 variant's launches -------------------------------------------------------
 
-template <int ROWS, int C>
+// The DeepSets chain of S square layers: the row pass (phi_pool_bwd_rows.cuh,
+// its cluster size's unit), one d_W pass a square layer, the slabs' sums.
 cudaError_t launch_tf32x3(const void* points, const void* seg, const void* g, void* d_points,
                           void* d_params, void* scratch, int max_blocks, int n_points,
                           int n_features, int num_segments, const Chain& chain,
                           const BwdTf32Plan& plan, cudaStream_t stream) {
-  auto kernel = phi_pool_bwd_tf32x3_kernel<ROWS, C>;
-  static int fit = 0;  // clusters the card holds at once
-  cudaError_t err = cluster_fit(kernel, C, kTf32Threads, &fit);
-  if (err != cudaSuccess) return err;
-  const int width = chain.dims[1];
-  const WideScratch w = wide_scratch(n_points, chain.dims, C, max_blocks, sizeof(float));
+  const int width = chain.dims[1], n_square = chain.n_layers - 1, c = plan.cluster;
+  const WideScratch w = wide_scratch(n_points, chain.dims, n_square, c, max_blocks, sizeof(float));
   float* base = static_cast<float*>(scratch);
-  float* h1s = base + w.h1;
-  float* dz2s = base + w.dz2;
-  // the chunk stream, and the cluster barriers that a cluster of C > 1
-  // meets between its phases (one block a tile meets none)
-  SplitStream st = {};
-  if (C > 1) add_sync(st, 2);  // around h1's epilogue
-  add_phase(st, chain.w[1], width, width, width, 0);
-  if (C > 1) add_sync(st, 2);  // around dz2's epilogue
-  add_phase(st, chain.w[1], width, width, width, 1);
-  if (C > 1) add_sync(st, d_points != nullptr ? 1 : 0);  // before the shares of d_points are summed
-  const int n_tiles = (n_points + ROWS - 1) / ROWS;
-  int n_clusters = n_tiles < fit ? n_tiles : fit;
-  if (n_clusters > max_blocks / C) n_clusters = max_blocks / C;  // one slab per cluster
-  const int vec4 = n_features % 4 == 0 && reinterpret_cast<uintptr_t>(points) % 16 == 0;
-  const float* p = static_cast<const float*>(points);
-  const int* s = static_cast<const int*>(seg);
-  const float* gg = static_cast<const float*>(g);
-  float* dp = static_cast<float*>(d_points);
-  if constexpr (C == 1) {
-    kernel<<<n_clusters, kTf32Threads, plan.smem, stream>>>(p, s, gg, dp, h1s, dz2s, base + w.slabs,
-                                                            n_points, n_features, num_segments, chain,
-                                                            st, plan.ldh, vec4, w.n_small);
-    err = cudaGetLastError();
-  } else {
-    err = launch_cluster_grid(kernel, C, n_clusters, kTf32Threads, plan.smem, stream, p, s, gg, dp, h1s,
-                              dz2s, base + w.slabs, n_points, n_features, num_segments, chain, st,
-                              plan.ldh, vec4, w.n_small);
+  Tf32RowsArgs a = {};
+  for (int l = 0; l < n_square; ++l) {
+    a.rows.h[l] = base + w.h(l);
+    a.rows.dz[l] = base + w.dz(l);
   }
+  a.rows.res = base + w.res;
+  // the chunk stream, and the cluster barriers that a cluster of C > 1
+  // meets between its phases (one block a tile meets none): the tile's
+  // first and, after h1's epilogue, its second (with no square layer, the
+  // one before the shares of d_points are summed instead); two around each
+  // later epilogue; the one before the shares of d_points are summed
+  const int dp = d_points != nullptr ? 1 : 0;
+  if (c > 1) add_sync(a.st, n_square > 0 ? 2 : 1 + dp);
+  for (int l = 1; l <= n_square; ++l) {
+    add_phase(a.st, chain.w[l], width, width, width, 0);
+    if (c > 1) add_sync(a.st, 2);
+  }
+  for (int l = n_square; l >= 1; --l) {
+    add_phase(a.st, chain.w[l], width, width, width, 1);
+    if (c > 1) add_sync(a.st, l > 1 ? 2 : dp);
+  }
+  a.points = static_cast<const float*>(points);
+  a.seg = static_cast<const int*>(seg);
+  a.g = static_cast<const float*>(g);
+  a.d_points = static_cast<float*>(d_points);
+  a.slabs = base + w.slabs;
+  a.n_points = n_points;
+  a.n_features = n_features;
+  a.num_segments = num_segments;
+  a.chain = chain;
+  a.ldh = plan.ldh;
+  a.vec4 = n_features % 4 == 0 && reinterpret_cast<uintptr_t>(points) % 16 == 0;
+  a.n_small = w.n_small;
+  a.smem = plan.smem;
+  int n_clusters = 0;
+  const int max_clusters = max_blocks / c;  // one slab per cluster
+  cudaError_t err = c == 1   ? launch_tf32x3_rows<1>(a, max_clusters, &n_clusters, stream)
+                    : c == 2 ? launch_tf32x3_rows<2>(a, max_clusters, &n_clusters, stream)
+                             : launch_tf32x3_rows<4>(a, max_clusters, &n_clusters, stream);
   if (err != cudaSuccess) return err;
-  err = launch_dw<float, false>(h1s, dz2s, nullptr, 0, base + w.parts, nullptr, n_points, width, width,
-                                w.dw, stream);
-  if (err != cudaSuccess) return err;
+  // one d_W pass a square layer, each into partials of its own
+  for (int l = 0; l < n_square; ++l) {
+    err = launch_dw<float, false>(a.rows.h[l], a.rows.dz[l], nullptr, 0, base + w.part(l, width), nullptr,
+                                  n_points, width, width, w.dw, stream);
+    if (err != cudaSuccess) return err;
+  }
   return reduce_deep_sets(base, w, n_clusters, n_features, width, static_cast<float*>(d_params), stream);
 }
 
@@ -2209,21 +1911,8 @@ int phi_pool_bwd_launch(const void* points, const void* seg, const void* g, void
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BwdTf32Plan tf = bwd_tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0);
   if (redesigned && tf.form == 1) {
-    cudaError_t err;
-    switch (tf.cluster) {
-      case 1:
-        err = launch_tf32x3<64, 1>(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
-                                   n_features, num_segments, chain, tf, s);
-        break;
-      case 2:
-        err = launch_tf32x3<64, 2>(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
-                                   n_features, num_segments, chain, tf, s);
-        break;
-      default:
-        err = launch_tf32x3<32, 4>(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
-                                   n_features, num_segments, chain, tf, s);
-    }
-    return static_cast<int>(err);
+    return static_cast<int>(launch_tf32x3(points, seg, g, d_points, d_params, slabs, max_blocks, n_points,
+                                          n_features, num_segments, chain, tf, s));
   }
   if (redesigned && tf.form == 2) {
     return static_cast<int>(launch_tail_tf32x3(points, seg, g, d_points, d_params, slabs, max_blocks,
@@ -2299,6 +1988,14 @@ int phi_pool_bwd_launch(const void* points, const void* seg, const void* g, void
 
 }  // namespace
 
+#ifdef PCC_PHASE_CLOCKS
+void* pcc::bwd_phase_clocks() {
+  void* sums = nullptr;
+  cudaGetSymbolAddress(&sums, pcc::g_phase_clocks);
+  return sums;
+}
+#endif
+
 extern "C" {
 
 // points [n_points, n_features] (f32, or bf16 when is_bf16), seg [n_points]
@@ -2355,10 +2052,14 @@ int pcc_phi_pool_bwd_scratch(int n_points, int num_segments, int n_layers, const
   }
   const BwdTf32Plan tf = bwd_tf32x3_plan(n_layers, dims, kinds, is_bf16 != 0);
   const WidePlan wide = wide_plan(n_layers, dims, kinds, is_bf16 != 0, true);
-  if (tf.form == 1 || wide.form == 1) {
-    const int cluster = tf.form == 1 ? tf.cluster : wide.cluster;
-    *out = static_cast<long long>(
-        wide_scratch(n_points, dims, cluster, max_blocks, is_bf16 ? sizeof(bf16) : sizeof(float)).total);
+  if (tf.form == 1) {
+    const WideScratch w = wide_scratch(n_points, dims, n_layers - 1, tf.cluster, max_blocks, sizeof(float));
+    *out = static_cast<long long>(w.total);
+    return 0;
+  }
+  if (wide.form == 1) {
+    const WideScratch w = wide_scratch(n_points, dims, 1, wide.cluster, max_blocks, sizeof(bf16));
+    *out = static_cast<long long>(w.total);
     return 0;
   }
   if (tf.form == 2 || wide.form == 2) {
@@ -2372,28 +2073,41 @@ int pcc_phi_pool_bwd_scratch(int n_points, int num_segments, int n_layers, const
   return 0;
 }
 
-// After pcc_phi_pool_bwd on a bf16 chain that the one-block wide form
-// takes (the DeepSets chain at W 256) with this scratch: counts (two u64 on
-// the device, zeroed by the caller) get the values of the scratch's h1 that
-// differ from ref, K1's forward over the chain's first layer alone with one
-// segment a point ([P, W] f32: each pooled sum is one bf16 value, 0 + v, so
-// every value but zero's sign), and the largest difference of one, in units
-// of 2^-24 (h1_departures_kernel).  Returns cudaErrorInvalidValue for
-// another chain; does not synchronise.
-int pcc_phi_pool_bwd_h1_departures(const void* ref, const void* scratch, int max_blocks, int n_points,
-                                   int n_layers, const int* dims, const int* kinds, void* counts,
-                                   void* stream) {
-  if (n_points < 1 || max_blocks < 1 || n_layers != 2) return static_cast<int>(cudaErrorInvalidValue);
-  if (wide_plan(n_layers, dims, kinds, true, true).cluster != 1) {
+// After pcc_phi_pool_bwd with this scratch, on a bf16 chain that the
+// one-block wide form takes (the DeepSets chain at W 256; layer 1) or an f32
+// chain of S square layers that the tf32x3 variant takes (layer 1 .. S):
+// counts (two u64 on the device, zeroed by the caller) get the values of the
+// scratch's h_layer (the input rows of square layer `layer`, recomputed by
+// the row pass) that differ from ref, K1's forward over the chain's first
+// `layer` layers alone with one segment a point ([P, W] f32: each pooled
+// sum is 0 + v, every value but zero's sign), and the largest difference of
+// one, in units of 2^-24 (departures_kernel).  Returns cudaErrorInvalidValue
+// for another chain or layer; does not synchronise.
+int pcc_phi_pool_bwd_departures(const void* ref, const void* scratch, int max_blocks, int n_points,
+                                int n_layers, const int* dims, const int* kinds, int is_bf16, int layer,
+                                void* counts, void* stream) {
+  if (n_points < 1 || max_blocks < 1 || n_layers < 2 || n_layers > kMaxLayers || layer < 1 ||
+      layer >= n_layers) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int width = dims[1];
-  const WideScratch w = wide_scratch(n_points, dims, 1, max_blocks, sizeof(bf16));
-  const size_t n = static_cast<size_t>(n_points) * width;
-  h1_departures_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(ref), reinterpret_cast<const bf16*>(static_cast<const float*>(scratch) + w.h1),
-      n, static_cast<unsigned long long*>(counts));
+  const size_t n = static_cast<size_t>(n_points) * dims[1];
+  const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  const float* base = static_cast<const float*>(scratch);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* r = static_cast<const float*>(ref);
+  unsigned long long* c = static_cast<unsigned long long*>(counts);
+  if (is_bf16) {
+    if (layer != 1 || wide_plan(n_layers, dims, kinds, true, true).cluster != 1) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const WideScratch w = wide_scratch(n_points, dims, 1, 1, max_blocks, sizeof(bf16));
+    departures_kernel<<<grid, kThreads, 0, s>>>(r, reinterpret_cast<const bf16*>(base + w.h(0)), n, c);
+  } else {
+    const BwdTf32Plan tf = bwd_tf32x3_plan(n_layers, dims, kinds, false);
+    if (tf.form != 1) return static_cast<int>(cudaErrorInvalidValue);
+    const WideScratch w = wide_scratch(n_points, dims, n_layers - 1, tf.cluster, max_blocks, sizeof(float));
+    departures_kernel<<<grid, kThreads, 0, s>>>(r, base + w.h(layer - 1), n, c);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -133,10 +133,17 @@ __device__ __forceinline__ void split_a(uint32_t (&ahi)[2][4], uint32_t (&alo)[2
 // past the phase's columns reads rows of the split chunk that hold no W of
 // this chunk, and its sums are never written.  (A test around each product
 // made it a branch of its own, and the products then ran one at a time.)
+// With `sums`, each n8 tile's three products start from zero and are then
+// added to acc by f32 adds: the tensor cores add each product into their f32
+// accumulator rounding toward zero, so a sum carried through the W / 8
+// chunks of a layer drifts from an f32 sum by some W / 8 · 3 half-ulps, the
+// same way each time (4e-6 of the gradients a layer on the card), and a chain
+// of three layers or more piles that up past K2's bound; an f32 add a chunk
+// rounds to nearest.
 template <int ROWS>
 __device__ __forceinline__ void chunk_product(float (&acc)[2][Tf32Warps<ROWS>::kNt][4],
                                               const float* in, int ld_in, int k0,
-                                              const float* split) {
+                                              const float* split, bool sums) {
   using G = Tf32Warps<ROWS>;
   const int lane = threadIdx.x % 32;
   uint32_t ahi[2][4], alo[2][4];
@@ -149,6 +156,22 @@ __device__ __forceinline__ void chunk_product(float (&acc)[2][Tf32Warps<ROWS>::k
     const float* b_ptr = split + 8 * (G::wn() + G::kWarpsN * (i + b_pair)) * kRingLd + b_off;
     ldsm4(bh[i / 2], b_ptr);
     ldsm4(bl[i / 2], b_ptr + kSplit / 2);
+  }
+  if (sums) {
+#pragma unroll
+    for (int i = 0; i < G::kNt; ++i) {
+      const uint32_t *h = bh[i / 2] + 2 * (i % 2), *l = bl[i / 2] + 2 * (i % 2);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_tf32(part, alo[mt], h[0], h[1]);
+        mma_tf32(part, ahi[mt], l[0], l[1]);
+        mma_tf32(part, ahi[mt], h[0], h[1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][i][e] += part[e];
+      }
+    }
+    return;
   }
 #pragma unroll
   for (int pass = 0; pass < 3; ++pass) {
@@ -312,6 +335,19 @@ struct ChunkLoad {
 template <int C, int KINDS>
 __device__ __forceinline__ void tf32_produce(const SplitStream& st, float* stages, uint64_t* full,
                                              uint64_t* empty, int rank, int n_my_tiles) {
+  if (st.per_tile == 0) {  // no chunk to stage: only the consumers' cluster barriers to meet
+    if constexpr (C > 1) {
+      for (int t = 0; t < n_my_tiles; ++t) {
+        for (int i = 0; i < st.n_syncs; ++i) {
+          for (int n = 0; n < st.sync_count[i]; ++n) {
+            cluster_arrive_relaxed();
+            cluster_wait();
+          }
+        }
+      }
+    }
+    return;
+  }
   const int pt = threadIdx.x - kConsumers;
   const int total = n_my_tiles * st.per_tile;
   constexpr int kNone = 0x3fffffff;
@@ -377,19 +413,19 @@ __device__ __forceinline__ void tf32_produce(const SplitStream& st, float* stage
 
 // The consumers' side of a phase: acc = in[rows of the warp, k] · (the
 // phase's n_chunks staged chunks), chunk after chunk from the stream's
-// position *chunk (advanced past them).
+// position *chunk (advanced past them); `sums`: chunk_product's.
 template <int ROWS>
 __device__ __forceinline__ void stream_product(float (&acc)[2][Tf32Warps<ROWS>::kNt][4],
                                                const float* in, int ld_in, int n_chunks,
                                                const float* stages, uint64_t* full,
                                                uint64_t* empty, int& chunk, PhaseClock& clk,
-                                               int wait_mark, int product_mark) {
+                                               int wait_mark, int product_mark, bool sums) {
   zero_tf32<ROWS>(acc);
   for (int c = 0; c < n_chunks; ++c, ++chunk) {
     const int s = chunk % kStages;
     mbar_wait(full + s, (chunk / kStages) & 1);  // the producers have staged it
     clk.mark(wait_mark);
-    chunk_product<ROWS>(acc, in, ld_in, c * kChunk, stages + s * kSplit);
+    chunk_product<ROWS>(acc, in, ld_in, c * kChunk, stages + s * kSplit, sums);
     __syncwarp();  // every lane's reads of the stage are done
     if (threadIdx.x % 32 == 0) mbar_arrive(empty + s);
     clk.mark(product_mark);
@@ -433,21 +469,26 @@ __device__ __forceinline__ void fetch_tile(const float* __restrict__ points,
 // -- K2's plan -----------------------------------------------------------------------
 
 // Which f32 chains K2's tf32x3 variant takes (phi_pool_bwd.cu), by shape
-// alone: form 1, the DeepSets chain at widths W of 256 to 1024 in multiples
-// of 64 (a plain first layer of at most 8 inputs, then one square layer,
-// plain or residual), a row pass on one block a 64-row tile (W 256, the
-// block owning every column, as f32 K1 takes that width), clusters of 2 (W
-// <= 512, 64-row tiles) or 4 blocks (32-row tiles), then a d_W pass;
-// form 2, the tail's one bare layer [in, out], each a multiple of 64 from 256
-// to 1024: the d_W pass over the points and the gathered cotangent, and a row
-// product for d_points (64-row tiles up to out 512, else 32), its columns in
-// slices of at most 256 to 1, 2 or 4 blocks (no cluster: each block gathers
-// its own tile).  form 0: not taken.
+// alone: form 1, the DeepSets chain of S square layers (a plain first layer
+// of at most 8 inputs to width W, then S = 0 to kMaxSquare layers W -> W,
+// each plain or residual; W 128 to 1024 in multiples of 64), a row pass on
+// one block a 64-row tile (W <= 256, the block owning every column, as f32
+// K1 takes those widths), clusters of 2 (W <= 512, 64-row tiles) or 4 blocks
+// (32-row tiles), then a d_W pass a square layer; form 2, the tail's one
+// bare layer [in, out], each a multiple of 64 from 256 to 1024: the d_W
+// pass over the points and the gathered cotangent, and a row product for
+// d_points (64-row tiles up to out 512, else 32), its columns in slices of
+// at most 256 to 1, 2 or 4 blocks (no cluster: each block gathers its own
+// tile).  form 0: not taken.  Form 1 takes no chain whose general-variant
+// tile of 8 rows would not fit (general_bwd_fits), so that K2 refuses the
+// chains it refused before (φ [1024] × 4), as ops/fused_phi.py's one rule
+// for them (kernel_takes_chain) says.
 struct BwdTf32Plan {
   int form = 0, cluster = 0, rows = 0, ldh = 0;
   size_t smem = 0;
 };
 
+constexpr int kMaxSquare = 3;               // square layers of form 1's chain, at most
 constexpr int kTf32XLd = kMaxFeatures + 4;  // a tile's points, zero past the features: [rows][12]
 
 inline size_t bwd_tf32x3_smem(int form, int rows, int ldh) {
@@ -462,13 +503,38 @@ inline size_t bwd_tf32x3_smem(int form, int rows, int ldh) {
   return sizeof(float) * floats + sizeof(int) * ints + sizeof(uint64_t) * 2 * kStages;
 }
 
+// Whether the general variant's 8-row tile of a chain fits a block: every
+// layer's input, every activated layer's pre-activation and two gradient
+// rows of the widest output, each rounded up to 4 floats
+// (phi_pool_bwd.cu:BwdLayout, its launch_rows).
+inline bool general_bwd_fits(int n_layers, const int* dims, const int* kinds) {
+  size_t cols = 0;
+  int widest = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    cols += round4(dims[l]) + (kinds[l] != kLinear ? round4(dims[l + 1]) : 0);
+    widest = round4(dims[l + 1]) > widest ? round4(dims[l + 1]) : widest;
+  }
+  cols += 2 * static_cast<size_t>(widest);
+  return 8 * (cols * sizeof(float) + sizeof(int)) <= kMaxSmem;
+}
+
+inline bool deep_sets_chain(int n_layers, const int* dims, const int* kinds) {
+  const int width = dims[1];
+  if (n_layers < 1 || n_layers - 1 > kMaxSquare || dims[0] < 1 || dims[0] > kMaxFeatures ||
+      kinds[0] != kPlain || width % 64 != 0 || width < 128 || width > 1024) {
+    return false;
+  }
+  for (int l = 1; l < n_layers; ++l) {
+    if (dims[l + 1] != width || (kinds[l] != kPlain && kinds[l] != kResidual)) return false;
+  }
+  return general_bwd_fits(n_layers, dims, kinds);
+}
+
 inline BwdTf32Plan bwd_tf32x3_plan(int n_layers, const int* dims, const int* kinds, bool is_bf16) {
   BwdTf32Plan plan;
   if (is_bf16) return plan;
   int form = 0, k_width = 0, out_width = 0;
-  if (n_layers == 2 && dims[0] >= 1 && dims[0] <= kMaxFeatures && dims[1] == dims[2] &&
-      dims[1] % 64 == 0 && dims[1] >= 256 && dims[1] <= 1024 && kinds[0] == kPlain &&
-      (kinds[1] == kPlain || kinds[1] == kResidual)) {
+  if (deep_sets_chain(n_layers, dims, kinds)) {
     form = 1;
     k_width = out_width = dims[1];
   } else if (n_layers == 1 && kinds[0] == kLinear) {
@@ -493,5 +559,52 @@ inline BwdTf32Plan bwd_tf32x3_plan(int n_layers, const int* dims, const int* kin
   plan.smem = smem;
   return plan;
 }
+
+// -- K2's row pass for form 1 (phi_pool_bwd_rows.cuh) --------------------------------
+
+// Where the row pass writes in the scratch (phi_pool_bwd.cu:WideScratch):
+// square layer l's input rows h[l] and its dz[l] (act' at its
+// pre-activation until the walk back reaches it), and the rows of d_out for
+// a residual layer's walk back.
+struct SquareRows {
+  float* h[kMaxSquare];
+  float* dz[kMaxSquare];
+  float* res;
+};
+
+// The row pass's arguments, as its kernel takes them, and its block's
+// shared memory (the plan's).
+struct Tf32RowsArgs {
+  const float* points;
+  const int* seg;
+  const float* g;
+  float* d_points;
+  SquareRows rows;
+  float* slabs;
+  int n_points, n_features, num_segments;
+  Chain chain;
+  SplitStream st;
+  int ldh, vec4, n_small;
+  size_t smem;
+};
+
+// The row pass on clusters of C blocks (1, 2 or 4), each defined in a
+// translation unit of its own (phi_pool_bwd_rows{C}.cu); *n_clusters gets
+// the clusters launched, at most max_clusters.
+template <int C>
+cudaError_t launch_tf32x3_rows(const Tf32RowsArgs& a, int max_clusters, int* n_clusters,
+                               cudaStream_t stream);
+template <>
+cudaError_t launch_tf32x3_rows<1>(const Tf32RowsArgs&, int, int*, cudaStream_t);
+template <>
+cudaError_t launch_tf32x3_rows<2>(const Tf32RowsArgs&, int, int*, cudaStream_t);
+template <>
+cudaError_t launch_tf32x3_rows<4>(const Tf32RowsArgs&, int, int*, cudaStream_t);
+
+#ifdef PCC_PHASE_CLOCKS
+// phi_pool_bwd.cu's clock sums on the device, which the row pass's units
+// copy theirs into after a launch
+void* bwd_phase_clocks();
+#endif
 
 }  // namespace pcc

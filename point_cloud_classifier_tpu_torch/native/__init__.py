@@ -133,13 +133,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, ctypes.POINTER(ctypes.c_longlong),  # is_bf16, max_blocks, out (written)
     ]
     lib.pcc_phi_pool_bwd_scratch.restype = i32
-    # K2's recomputed h1 against K1's forward (a check, off the path)
-    lib.pcc_phi_pool_bwd_h1_departures.argtypes = [
+    # K2's recomputed hidden rows against K1's forward (a check, off the path)
+    lib.pcc_phi_pool_bwd_departures.argtypes = [
         vp, vp, i32, i32, i32,  # K1's [P, W] f32, scratch, max_blocks, n_points, n_layers
         ctypes.POINTER(i32), ctypes.POINTER(i32),  # dims, kinds (host)
+        i32, i32,  # is_bf16, the layer whose input rows are held (1 .. n_layers - 1)
         vp, vp,  # counts (two u64 on the card), stream
     ]
-    lib.pcc_phi_pool_bwd_h1_departures.restype = i32
+    lib.pcc_phi_pool_bwd_departures.restype = i32
     lib.pcc_phi_pool_variant.argtypes = [
         i32, ctypes.POINTER(i32), ctypes.POINTER(i32),  # n_layers, dims, kinds (host)
         i32, i32,  # is_bf16, backward (K2's choice, not K1's)

@@ -606,14 +606,16 @@ def _phi_pool_bwd_cuda(
     served their chains before: the sliced variant (a 4-block cluster a
     tile) at the DeepSets chain of φ 256, in f32 and bf16, and the general one wherever
     else they run; the port's path never sets it.  ``departures``, a pair
-    ``(h1_ref, counts)`` on the card, holds the one-block wide form's
-    recompute (bf16, the DeepSets chain at φ 256) against K1's own forward
-    after the launch (``pcc_phi_pool_bwd_h1_departures``): ``h1_ref`` is
-    K1's own values of the chain's first layer, pooled one segment a point
-    (``[P, W]`` f32; ``chip_smoke.py:k1_h1``), and of the zeroed int64
-    ``counts [2]``, ``[0]`` gets the
-    values of h1 that differ, ``[1]`` the largest difference of one in units
-    of 2^-24.  A check; the port's path never sets it either."""
+    ``(refs, counts)`` on the card, holds the recomputed hidden rows against
+    K1's own forward after the launch (``pcc_phi_pool_bwd_departures``): of
+    the one-block wide form (bf16, the DeepSets chain at φ 256: h1) or the
+    tf32x3 variant (f32, the DeepSets chain of S square layers: h1 … h_S).
+    ``refs[l - 1]`` is K1's own values of the chain's first ``l`` layers,
+    pooled one segment a point (``[P, W]`` f32; ``chip_smoke.py:k1_rows``),
+    and of the zeroed int64 ``counts [2 · len(refs)]``, ``[2(l - 1)]`` gets
+    the values of h_l that differ, ``[2(l - 1) + 1]`` the largest difference
+    of one in units of 2^-24.  A check; the port's path never sets it
+    either."""
     from point_cloud_classifier_tpu_torch.native import check, kernel_library
 
     weights, biases, dims, kinds = _kernel_operands(points, seg, spec, params)
@@ -684,16 +686,19 @@ def _phi_pool_bwd_cuda(
         phi_pool.bwd_launches += 1
         phi_pool.bwd_variant = variant
         if departures is not None:
-            h1_ref, counts = departures
-            if tuple(h1_ref.shape) != (n_points, dims[1]) or h1_ref.dtype != torch.float32:
-                raise ValueError(f"h1_ref must be [{n_points}, {dims[1]}] f32, got {tuple(h1_ref.shape)}")
-            h1_ref = h1_ref.contiguous()
-            with torch.cuda.device(device):
-                check(lib.pcc_phi_pool_bwd_h1_departures(
-                    h1_ref.data_ptr(), slabs.data_ptr(), max_blocks, n_points, n,
-                    (ctypes.c_int * (n + 1))(*dims), (ctypes.c_int * n)(*kinds), counts.data_ptr(),
-                    torch.cuda.current_stream(device).cuda_stream,
-                ))
+            refs, counts = departures
+            if tuple(counts.shape) != (2 * len(refs),) or counts.dtype != torch.int64:
+                raise ValueError(f"counts must be [{2 * len(refs)}] int64, got {tuple(counts.shape)}")
+            for layer, ref in enumerate(refs, 1):
+                if tuple(ref.shape) != (n_points, dims[1]) or ref.dtype != torch.float32:
+                    raise ValueError(f"refs[{layer - 1}] must be [{n_points}, {dims[1]}] f32, got {tuple(ref.shape)}")
+                ref = ref.contiguous()
+                with torch.cuda.device(device):
+                    check(lib.pcc_phi_pool_bwd_departures(
+                        ref.data_ptr(), slabs.data_ptr(), max_blocks, n_points, n,
+                        (ctypes.c_int * (n + 1))(*dims), (ctypes.c_int * n)(*kinds), int(bf16), layer,
+                        counts[2 * (layer - 1):].data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+                    ))
     grads, offset = [], 0
     for (i, o), (wsize, bsize) in zip(zip(dims[:-1], dims[1:]), sizes):
         grads.append(flat[offset : offset + wsize].view(i, o))

@@ -16,7 +16,9 @@ K2's one-block tf32x3 form) and bf16 (the one-block wide forms of both),
 with K1's and K2's sliced variants there too in bf16 (the timing entries,
 ``general=True``), then at φ [512, 512] and [1024, 1024] at the flagship
 shape in f32 (both tf32x3) and bf16 (both wide), K2's row pass and its d_W
-pass apart, and the tail's bare layer, [256, 256] in f32 and bf16 and
+pass apart, at φ [256] × 3 and [512] × 3 residual (two square layers, the
+sweep's) in f32 (K2's row pass of two square layers, its products summed a
+chunk at a time), and the tail's bare layer, [256, 256] in f32 and bf16 and
 [1024, 1024] in bf16 (K1 tf32x3 or wide; K2 tf32x3 or wide, its row
 product for d_points and its d_W pass), and prints the sums of each launch
 per phase, with ``nvidia-smi``'s name and power limit of the card.  The
@@ -38,14 +40,16 @@ from point_cloud_classifier_tpu_torch import native
 from point_cloud_classifier_tpu_torch.ops.fused_phi import _phi_pool_bwd_cuda, _phi_pool_cuda, phi_pool
 
 SPEC = (("plain", False), ("residual", False))  # φ [256, 256] with residual_block
-# (name, events, point rows, φ width, element types)
+# (name, events, point rows, φ width, element types, φ layers)
 BOTH = (torch.float32, torch.bfloat16)
-SHAPES = (("config", 32, 8192, 256, BOTH),
-          ("flagship", 256, 65536, 256, BOTH),
-          ("phi 512", 256, 65536, 512, BOTH),
-          ("phi 1024", 256, 65536, 1024, BOTH),
-          ("tail", 256, 65536, 256, BOTH),
-          ("tail 1024", 256, 65536, 1024, (torch.bfloat16,)))
+SHAPES = (("config", 32, 8192, 256, BOTH, 2),
+          ("flagship", 256, 65536, 256, BOTH, 2),
+          ("phi 512", 256, 65536, 512, BOTH, 2),
+          ("phi 1024", 256, 65536, 1024, BOTH, 2),
+          ("phi 256 × 3", 256, 65536, 256, (torch.float32,), 3),
+          ("phi 512 × 3", 256, 65536, 512, (torch.float32,), 3),
+          ("tail", 256, 65536, 256, BOTH, 1),
+          ("tail 1024", 256, 65536, 1024, (torch.bfloat16,), 1))
 # a consumer thread's (the producers stage W apart): per chunk of W the wait
 # for its stage, the products; per layer the barrier after them, the
 # epilogue and the barriers around it; per tile the wait for its points, the
@@ -69,14 +73,17 @@ K2_PHASES = {
              "products", "products' barrier", "before dz2", "dz2", "after dz2", "d_b2", "dz1",
              "d_W1 and d_points", "slab"),
 }
-# f32 K2's tf32x3 variant marks its row pass as the wide one does; the tail's
-# row product for d_points (per tile its rows of g, per chunk the wait and the
-# products, the barrier after them, the epilogue's stores); the d_W pass of
-# both variants (block 0, a thread of the first warp) marks from phase 16 on:
-# per stage of 32 rows the wait for their copies, the products (and the adds
-# into the block's sums in f32), the tail's column sums of d_b and the next
-# copies issued; the partial's stores at the end
-K2_PHASES["tf32x3"] = K2_PHASES["wide"]
+# f32 K2's tf32x3 variant marks its row pass as the wide one does, each
+# square layer's epilogue (its output forward, the layer below's dz back)
+# where the wide one marks dz2's, each layer's d_b where it marks d_b2; the
+# tail's row product for d_points (per tile its rows of g, per chunk the wait
+# and the products, the barrier after them, the epilogue's stores); the d_W
+# pass of both variants (block 0, a thread of the first warp) marks from
+# phase 16 on: per stage of 32 rows the wait for their copies, the products
+# (and the adds into the block's sums in f32), the tail's column sums of d_b
+# and the next copies issued; the partial's stores at the end
+K2_PHASES["tf32x3"] = K2_PHASES["wide"][:8] + ("before an epilogue", "square layers' epilogues",
+                                               "after an epilogue", "d_b") + K2_PHASES["wide"][12:]
 K2_TAIL_ROWS = ("set-up", "tile's rows of g", "waits for a staged chunk", "products", "barrier",
                 "epilogue")
 DW_FIRST = 16
@@ -84,10 +91,11 @@ DW_VARIANTS = ("tf32x3", "wide")  # K2's variants with a d_W pass
 DW_PHASES = ("set-up", "waits for staged rows", "products and sums", "d_b and next rows", "partial")
 
 
-def _inputs(b: int, p: int, dtype, width: int = 256, seed: int = 0, tail: bool = False):
+def _inputs(b: int, p: int, dtype, width: int = 256, seed: int = 0, tail: bool = False, layers: int = 2):
     """Flat-wire points for ``b`` contiguous events in ``p`` rows (a tenth of
-    the rows padding, segment ``b``) and the seeded 6 -> width -> width chain,
-    or with ``tail`` width-wide points and one bare width -> width layer."""
+    the rows padding, segment ``b``) and the seeded 6 -> width -> … -> width
+    chain of ``layers`` layers, or with ``tail`` width-wide points and one
+    bare width -> width layer."""
     rng = np.random.default_rng(seed)
     sizes = rng.multinomial(int(p * 0.9), np.ones(b) / b)
     seg = np.full(p, b, dtype=np.int32)
@@ -95,7 +103,7 @@ def _inputs(b: int, p: int, dtype, width: int = 256, seed: int = 0, tail: bool =
     last = width if tail else 6
     points = rng.normal(size=(p, last)).astype(np.float32)
     params = []
-    for _ in range(1 if tail else 2):
+    for _ in range(1 if tail else layers):
         bound = last**-0.5
         params.append(tuple(
             torch.from_numpy(rng.uniform(-bound, bound, size=shape).astype(np.float32)).cuda()
@@ -125,16 +133,17 @@ def main() -> None:
     print(f"build with {native.PHASE_CLOCKS_FLAG}: {built.path.name} in {built.build_seconds:.2f} s")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     bwd_clocks = built.lib.pcc_phi_pool_bwd_phase_clocks
-    for name, b, p, width, dtypes in SHAPES:
+    for name, b, p, width, dtypes, layers in SHAPES:
         tail = name.startswith("tail")
-        spec = () if tail else SPEC
+        spec = () if tail else SPEC + SPEC[1:] * (layers - 2)
         for dtype in dtypes:
-            points, seg, params = _inputs(b, p, dtype, width, tail=tail)
+            points, seg, params = _inputs(b, p, dtype, width, tail=tail, layers=layers)
             g = torch.ones((b + 1, width), device="cuda")
             rows = []
             # at φ 256 in bf16 (the wide variant's one block a tile on the
             # path) also the sliced variant, through the timing entry
-            for general in (False, True) if width == 256 and not tail and dtype == torch.bfloat16 else (False,):
+            sliced = width == 256 and layers == 2  # the chain the timing entries take on the sliced variant
+            for general in (False, True) if sliced and dtype == torch.bfloat16 else (False,):
                 _phi_pool_cuda(points, seg, spec, params, "gelu", b + 1, general=general)
                 if phi_pool.variant in K1_PHASES:
                     phases = K1_PHASES[phi_pool.variant]
@@ -143,7 +152,7 @@ def main() -> None:
             # the tail's K2 as the train step calls it (d_points on: the
             # layer's input is the chain below), the DeepSets chain's without;
             # at φ 256 also the timing entry's sliced variant
-            for general in (False, True) if width == 256 and not tail else (False,):
+            for general in (False, True) if sliced else (False,):
                 _phi_pool_bwd_cuda(points, seg, g, spec, params, "gelu", b + 1, with_points=tail,
                                    general=general)
                 variant = phi_pool.bwd_variant

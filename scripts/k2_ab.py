@@ -1,6 +1,6 @@
-"""Time K2's wide (bf16) and tf32x3 (f32) variants in two source trees on one
-CUDA card, in turns, to hold a change to their shared code against its
-parent.
+"""Time K2's wide (bf16) and tf32x3 (f32) variants, and f32 K1 (whose
+tf32x3 products K2's share), in two source trees on one CUDA card, in turns,
+to hold a change to their shared code against its parent.
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit, with the parent unpacked into a git-ignored directory:
@@ -15,7 +15,8 @@ replay, as ``chip_smoke.py``'s ``graph_ms``) at B=256, P=65,536: bf16 and
 f32 at φ [256, 256], [512, 512] and [1024, 1024] residual without
 ``d_points`` (the wide and the tf32x3 variants, the d_W pass of both; at φ
 256 the one-block forms), and the f32 tail's bare [256, 256] layer with
-``d_points``; and at φ [256, 256] also at B=32, P=8,192 (the DeepSets
+``d_points``; f32 K1 at φ [256, 256], [512, 512] and [1024, 1024]
+residual at B=256; and at φ [256, 256] also at B=32, P=8,192 (the DeepSets
 config batch), and at both batches through the timing entry
 (``_phi_pool_bwd_cuda(general=True)``: the sliced variant, a 4-block
 cluster a tile, in either tree).  A tree whose K2 at φ 256 is the sliced variant (a parent
@@ -46,7 +47,9 @@ CASES = (("bf16 phi 256", "bfloat16", 256, FLAGSHIP, False),
          ("f32 phi 256 B=32 timing entry", "float32", 256, CONFIG, True),
          ("bf16 phi 512", "bfloat16", 512, FLAGSHIP, False), ("bf16 phi 1024", "bfloat16", 1024, FLAGSHIP, False),
          ("f32 phi 512", "float32", 512, FLAGSHIP, False), ("f32 phi 1024", "float32", 1024, FLAGSHIP, False),
-         ("f32 tail", "float32", 256, FLAGSHIP, False))
+         ("f32 tail", "float32", 256, FLAGSHIP, False),
+         ("f32 K1 phi 256", "float32", 256, FLAGSHIP, False), ("f32 K1 phi 512", "float32", 512, FLAGSHIP, False),
+         ("f32 K1 phi 1024", "float32", 1024, FLAGSHIP, False))
 
 
 def graph_ms(torch, fn, iters=10, replays=3) -> float:
@@ -96,10 +99,14 @@ def run_tree() -> None:
             last = width
         spec = () if tail else (("plain", False), ("residual", False))
         g = torch.from_numpy(rng.normal(size=(B + 1, width)).astype(np.float32)).cuda()
-        k2 = lambda: fused_phi._phi_pool_bwd_cuda(  # noqa: E731
-            points, seg, g, spec, tuple(params), "gelu", B + 1, with_points=tail, general=general)
-        k2()
-        out[name] = {"variant": fused_phi.phi_pool.bwd_variant, "ms": graph_ms(torch, k2)}
+        if "K1" in name:
+            kernel = lambda: fused_phi.phi_pool(points, seg, spec, tuple(params), "gelu", B + 1)  # noqa: E731
+        else:
+            kernel = lambda: fused_phi._phi_pool_bwd_cuda(  # noqa: E731
+                points, seg, g, spec, tuple(params), "gelu", B + 1, with_points=tail, general=general)
+        kernel()
+        variant = fused_phi.phi_pool.variant if "K1" in name else fused_phi.phi_pool.bwd_variant
+        out[name] = {"variant": variant, "ms": graph_ms(torch, kernel)}
         del points, params, g
         torch.cuda.empty_cache()
     print(json.dumps(out))

@@ -18,6 +18,7 @@ skip the repository's conftest (which imports jax):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+import itertools
 import json
 
 import numpy as np
@@ -342,7 +343,7 @@ def test_wide_k2_h1_departs_from_k1_forward_rarely(residual, activation):
             assert fused_phi.phi_pool.variant == k1_variant
             counts = torch.zeros(2, dtype=torch.int64, device=dev)
             fused_phi._phi_pool_bwd_cuda(pts, seg, g, spec, params, activation, s, with_points=False,
-                                         departures=(ref, counts))
+                                         departures=([ref], counts))
             torch.cuda.synchronize()
             assert fused_phi.phi_pool.bwd_variant == "wide"
             departed, diff = counts.tolist()
@@ -462,18 +463,32 @@ def test_chains_outside_the_wide_plans_keep_their_variants():
 
 
 # f32 chains of K2's tf32x3 variant: (input width, φ widths or the bare
-# layer's [in, out], residual second layer).  The DeepSets chain at 256
-# (one block a 64-row tile), 512 (a cluster of two blocks, 64-row tiles),
-# 640 and 1024 (four, 32-row tiles), plain or residual; the tail's bare
-# layer at [256, 256] (one block a slice of d_points' columns, 64-row
-# tiles) and [512, 1024] (two, 32-row tiles).  At the wide cases' ragged P,
-# each with a padding id past S.
+# layer's [in, out], square layers residual).  The DeepSets chain of one
+# square layer at 256 (one block a 64-row tile), 512 (a cluster of two
+# blocks, 64-row tiles), 640 and 1024 (four, 32-row tiles), plain or
+# residual; the sweep's chains of none, two and three square layers
+# (sweep.py: φ [d] × n, d 128 to 1024, n 1 to 4; all but [1024] × 4): at 128
+# (one block a tile), 256, 512 and 1024, plain and residual; the tail's bare
+# layer at [256, 256] (one block a slice of d_points' columns, 64-row tiles)
+# and [512, 1024] (two, 32-row tiles).  At the wide cases' ragged P, each
+# with a padding id past S.
 TF32X3_BWD_CHAINS = {
     "phi256": (6, [256, 256], True), "phi256-plain": (6, [256, 256], False),
     "phi512": (6, [512, 512], True), "phi640-plain": (6, [640, 640], False),
     "phi1024": (6, [1024, 1024], True), "tail256": (256, [256], None),
     "tail512x1024": (512, [1024], None),
+    "phi128x1": (6, [128], False), "phi128x2": (6, [128] * 2, True), "phi128x3": (6, [128] * 3, True),
+    "phi256x4-plain": (6, [256] * 4, False), "phi512x3": (6, [512] * 3, True),
+    "phi1024x1": (6, [1024], False),
+    # held in gelu and silu alone (test_f32_backward_at_the_sweeps_deepest_chains)
+    "phi512x4-plain": (6, [512] * 4, False), "phi1024x3": (6, [1024] * 3, True),
 }
+DEEPEST = ("phi512x4-plain", "phi1024x3")
+
+
+def _deep_sets_spec(n, residual):
+    """A plain first layer, then n - 1 square layers, residual or plain."""
+    return (("plain", False),) + (("residual" if residual else "plain", False),) * (n - 1)
 
 
 def _tf32x3_bwd_inputs(dev, chain, p):
@@ -489,7 +504,7 @@ def _tf32x3_bwd_inputs(dev, chain, p):
         bias = (rng.normal(size=(width,)) * 0.1).astype(np.float32)
         params.append((torch.from_numpy(w).to(dev), torch.from_numpy(bias).to(dev)))
         last = width
-    spec = () if residual is None else (("plain", False), ("residual" if residual else "plain", False))
+    spec = () if residual is None else _deep_sets_spec(len(widths), residual)
     g = torch.from_numpy(rng.normal(size=(b + 1, last)).astype(np.float32)).to(dev)
     return pts, torch.from_numpy(seg).to(dev), tuple(params), b + 1, spec, g
 
@@ -511,7 +526,7 @@ def _off_relu_kink(pts, seg, spec, params, margin=1e-5):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("activation", ["gelu", "silu", "relu"])
-@pytest.mark.parametrize("chain", list(TF32X3_BWD_CHAINS))
+@pytest.mark.parametrize("chain", [c for c in TF32X3_BWD_CHAINS if c not in DEEPEST])
 def test_f32_backward_takes_tf32x3_and_repeats_bit_for_bit(chain, activation):
     """f32 K2 on its tf32x3 variant against phi_pool_bwd_plain, with and
     without d_points, every gradient within BWD_F32_REL and BWD_F32_FRO,
@@ -532,6 +547,9 @@ def test_f32_backward_takes_tf32x3_and_repeats_bit_for_bit(chain, activation):
                     for _ in range(2)]
             torch.cuda.synchronize()
             assert fused_phi.phi_pool.bwd_variant == "tf32x3"
+            dims = (pts.shape[1], *(w.shape[1] for w, _ in params))
+            kinds = tuple(fused_phi._KINDS[kind] for kind, _ in spec) or (fused_phi._BARE_LINEAR,)
+            assert fused_phi.kernel_variant(dims, kinds, False, True) == "tf32x3"
             ref_points, ref_grads = fused_phi.phi_pool_bwd_plain(
                 pts, seg, g, spec, params, activation, s, with_points=with_points)
             got = ([runs[0][0]] if with_points else []) + list(runs[0][1])
@@ -543,6 +561,19 @@ def test_f32_backward_takes_tf32x3_and_repeats_bit_for_bit(chain, activation):
                 assert (a - r).abs().max().item() <= BWD_F32_REL * max(1.0, r.abs().max().item()), p
                 fro = (a.double() - r.double()).norm().item() / max(r.double().norm().item(), 1e-30)
                 assert fro <= BWD_F32_FRO, (p, with_points, fro)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation", ["gelu", "silu"])
+@pytest.mark.parametrize("chain", DEEPEST)
+def test_f32_backward_at_the_sweeps_deepest_chains(chain, activation):
+    """test_f32_backward_takes_tf32x3_and_repeats_bit_for_bit at φ [512] × 4
+    plain and [1024] × 3 residual, in the sweep's activations (sweep.py
+    samples gelu and silu).  Relu is not held here: these chains give each
+    point 2,048 and 3,072 pre-activations, and over 15% of the points (16.7%
+    at [1024] × 3, P = 1001) have one within _off_relu_kink's margin, where
+    the gate may fall either way under any two roundings of the chain."""
+    test_f32_backward_takes_tf32x3_and_repeats_bit_for_bit(chain, activation)
 
 
 @pytest.mark.gpu
@@ -1895,24 +1926,71 @@ def test_knn_vmap_rule_matches_plain_on_the_card(k, aggr):
 @pytest.mark.gpu
 def test_the_python_rule_for_chains_agrees_with_k2s_refusal():
     """``fused_phi.kernel_takes_chain`` says which DeepSets chains K1 and K2
-    take; K2's C entry refuses exactly the one the rule refuses among the
-    sweep's widest (φ [1024] × 3 taken, × 4 refused)."""
+    take; over the sweep's chains (φ [d] × n, d 128 to 1024, n 1 to 4, plain
+    and residual) K2's C entry refuses exactly the one the rule refuses, φ
+    [1024] × 4, and takes every other on its tf32x3 variant in f32."""
     dev = _cuda()
     rng = np.random.default_rng(0)
-    for n, takes in ((3, True), (4, False)):
-        spec = (("plain", False),) + (("residual", False),) * (n - 1)
-        dims = [6] + [1024] * n
+    for width, n, residual in itertools.product((128, 256, 512, 1024), (1, 2, 3, 4), (False, True)):
+        takes = (width, n) != (1024, 4)
+        spec = _deep_sets_spec(n, residual)
+        dims = [6] + [width] * n
         assert fused_phi.kernel_takes_chain(dims, [kind for kind, _ in spec]) is takes
         params = tuple((torch.from_numpy((rng.normal(size=(i, o)) * i**-0.5).astype(np.float32)).to(dev),
                         torch.zeros(o, device=dev)) for i, o in zip(dims[:-1], dims[1:]))
         pts = torch.from_numpy(rng.normal(size=(70, 6)).astype(np.float32)).to(dev)
         seg = torch.zeros(70, dtype=torch.int32, device=dev)
-        g = torch.ones(1, 1024, device=dev)
+        g = torch.ones(1, width, device=dev)
         if takes:
             fused_phi._phi_pool_bwd_cuda(pts, seg, g, spec, params, "gelu", 1)
+            assert fused_phi.phi_pool.bwd_variant == "tf32x3", (width, n, residual)
         else:
             with pytest.raises(RuntimeError, match="too wide"):
                 fused_phi._phi_pool_bwd_cuda(pts, seg, g, spec, params, "gelu", 1)
+
+
+# f32 chains of S = 1 to 3 square layers whose recompute is held to K1's
+# forward: one block a tile (128, 256), a cluster of two (512), of four (1024)
+RECOMPUTE_CHAINS = {"phi256x2": (256, 2), "phi128x4": (128, 4), "phi512x4": (512, 4), "phi1024x3": (1024, 3)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation", ["gelu", "silu", "relu", "tanh"])
+@pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
+@pytest.mark.parametrize("chain", list(RECOMPUTE_CHAINS))
+def test_f32_k2_recomputes_k1s_hidden_rows_bit_for_bit(chain, residual, activation):
+    """f32 K2's tf32x3 row pass recomputes each square layer's input rows
+    h_1 … h_S with K1's first layer, products and epilogue in K1's order:
+    against K1's own forward over the chain's first l layers, pooled one
+    segment a point (each sum 0 + v), no value of any h_l differs
+    (pcc_phi_pool_bwd_departures).  The chain K1 runs for h_l keeps the
+    whole chain's length, its layers past l residual with zero weights and
+    bias (each adds act(0) = 0), because K1 sums a chunk's products apart
+    in chains of three layers or more (csrc/phi_tf32.cuh:chunk_product): a
+    chain cut to l layers would take the other sums."""
+    dev = _cuda()
+    width, n = RECOMPUTE_CHAINS[chain]
+    p = 1001
+    rng = np.random.default_rng(n * width)
+    pts = torch.from_numpy(rng.normal(size=(p, 6)).astype(np.float32)).to(dev)
+    seg = torch.from_numpy(np.sort(rng.integers(0, 8, size=p)).astype(np.int32)).to(dev)
+    dims = [6] + [width] * n
+    params = tuple((torch.from_numpy((rng.normal(size=(i, o)) * i**-0.5).astype(np.float32)).to(dev),
+                    torch.from_numpy((rng.normal(size=(o,)) * 0.1).astype(np.float32)).to(dev))
+                   for i, o in zip(dims[:-1], dims[1:]))
+    spec = _deep_sets_spec(n, residual)
+    ids = torch.arange(p, dtype=torch.int32, device=dev)
+    zero = (torch.zeros_like(params[-1][0]), torch.zeros_like(params[-1][1]))
+    refs = [fused_phi.phi_pool(pts, ids, spec[:l] + (("residual", False),) * (n - l),
+                               params[:l] + (zero,) * (n - l), activation, p) for l in range(1, n)]
+    assert fused_phi.phi_pool.variant == "tf32x3"
+    counts = torch.zeros(2 * (n - 1), dtype=torch.int64, device=dev)
+    g = torch.from_numpy(rng.normal(size=(8, width)).astype(np.float32)).to(dev)
+    fused_phi._phi_pool_bwd_cuda(pts, seg, g, spec, params, activation, 8, with_points=False,
+                                 departures=(refs, counts))
+    torch.cuda.synchronize()
+    assert fused_phi.phi_pool.bwd_variant == "tf32x3"
+    assert counts.tolist()[0::2] == [0] * (n - 1), counts.tolist()
 
 
 @pytest.mark.gpu

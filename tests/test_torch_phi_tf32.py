@@ -8,8 +8,10 @@ are summed in f32.  ``ops/fused_phi.py:phi_pool_tf32x3_plain`` does the same
 arithmetic in plain PyTorch.  Here it is held, on seeded numpy inputs, to the
 JAX package's φ-pool (``phi_pool_xla``; ``phi_pool_pallas`` in interpret
 mode for the config chain) at the chains the variant serves: the DeepSets
-config chain, φ [512, 512], φ [1024, 1024] and the tail's one bare
-[256, 256] layer.  The bound, 1e-5 of max(1, max |ref|), is ten times under
+config chain, φ [512, 512], φ [1024, 1024], the tail's one bare
+[256, 256] layer, and the sweep's φ [128] × 1, [128] × 3 residual, [256] ×
+4 plain and [512] × 3 residual, in gelu, relu and silu (the sweep samples
+gelu and silu).  The bound, 1e-5 of max(1, max |ref|), is ten times under
 K1's bound on the card (1e-4 against ``phi_pool_plain``, chip_smoke.py).
 The last test shows why the split is needed: a one-pass TF32 product misses
 1e-4 on the layers' unpooled values, where the split keeps within 1e-5.
@@ -17,11 +19,12 @@ The last test shows why the split is needed: a one-pass TF32 product misses
 K2's tf32x3 variant (``csrc/phi_pool_bwd.cu``) takes every product of the
 backward the same way: ``ops/fused_phi.py:phi_pool_bwd_tf32x3_plain``, held
 to the JAX package's backward (the VJP of ``phi_pool_xla``;
-``phi_pool_bwd_pallas`` in interpret mode) at the chains the variant serves,
-the DeepSets config chain (φ [256, 256]), φ [512, 512], φ [1024, 1024] and
-the tail's bare [256, 256] layer, in gelu
-and relu, with and without ``d_points``, every gradient within the same 1e-5;
-there a one-pass TF32 backward misses 1e-4 too.
+``phi_pool_bwd_pallas`` in interpret mode, the sweep's [128] × 3 among its
+chains) at the chains the variant serves, the DeepSets config chain (φ
+[256, 256]), φ [512, 512], φ [1024, 1024], the tail's bare [256, 256]
+layer and the sweep's chains above, in gelu, relu and silu, with and
+without ``d_points``, every gradient within the same 1e-5; there a one-pass
+TF32 backward misses 1e-4 too.
 """
 
 import jax
@@ -36,13 +39,19 @@ from point_cloud_classifier_tpu.ops import fused_phi as jax_phi  # noqa: E402
 from point_cloud_classifier_tpu_torch.ops import fused_phi  # noqa: E402
 
 RES = (("plain", False), ("residual", False))
+PLAIN = (("plain", False),)
 # (spec, input width, layer widths): the chains of K1's tf32x3 variant on
-# the main path
+# the main path, and the hyperparameter sweep's chains of none, two and three
+# square layers (sweep.py: φ [d] × n, plain or residual)
 CHAINS = {
     "config": (RES, 6, [256, 256]),
     "phi512": (RES, 6, [512, 512]),
     "phi1024": (RES, 6, [1024, 1024]),
     "tail": ((), 256, [256]),
+    "phi128x1": (PLAIN, 6, [128]),
+    "phi128x3": (RES + RES[1:], 6, [128] * 3),
+    "phi256x4-plain": (PLAIN * 4, 6, [256] * 4),
+    "phi512x3": (RES + RES[1:], 6, [512] * 3),
 }
 REL = 1e-5  # of max(1, max |ref|): the split against f32
 ONE_PASS_MISS = 1e-4  # K1's card bound, which a one-pass TF32 product misses
@@ -106,7 +115,7 @@ def test_tf32_round_is_cvt_rna(case):
     assert got == want, (hex(got), hex(want))
 
 
-@pytest.mark.parametrize("activation", ["gelu", "relu"])
+@pytest.mark.parametrize("activation", ["gelu", "relu", "silu"])
 @pytest.mark.parametrize("chain", list(CHAINS))
 def test_tf32x3_plain_matches_xla(chain, activation):
     spec, pts, seg, s, params = _inputs(chain)
@@ -144,8 +153,9 @@ def test_one_pass_tf32_misses_where_the_split_holds(chain):
 
 
 # the chains of K2's tf32x3 variant on the main path: the DeepSets config
-# chain (φ 256, one block a tile), φ 512 and 1024, the tail's bare layer
-BWD_CHAINS = ("config", "phi512", "phi1024", "tail")
+# chain (φ 256, one block a tile), φ 512 and 1024, the tail's bare layer,
+# and the sweep's chains of none, two and three square layers
+BWD_CHAINS = ("config", "phi512", "phi1024", "tail", "phi128x1", "phi128x3", "phi256x4-plain", "phi512x3")
 
 
 def _cotangent(params, s, seed=7):
@@ -178,7 +188,7 @@ def _port_bwd(spec, pts, seg, s, params, g, activation, with_points, passes=3):
 
 
 @pytest.mark.parametrize("with_points", [True, False], ids=["d_points", "no-d_points"])
-@pytest.mark.parametrize("activation", ["gelu", "relu"])
+@pytest.mark.parametrize("activation", ["gelu", "relu", "silu"])
 @pytest.mark.parametrize("chain", BWD_CHAINS)
 def test_tf32x3_bwd_plain_matches_jax_vjp(chain, activation, with_points):
     spec, pts, seg, s, params = _inputs(chain)
@@ -191,7 +201,7 @@ def test_tf32x3_bwd_plain_matches_jax_vjp(chain, activation, with_points):
         assert _rel(got, want) <= REL
 
 
-@pytest.mark.parametrize("chain", ["config", "phi512", "tail"])
+@pytest.mark.parametrize("chain", ["config", "phi512", "tail", "phi128x3"])
 def test_tf32x3_bwd_plain_matches_pallas_interpret(chain):
     spec, pts, seg, s, params = _inputs(chain, p=64)
     g = _cotangent(params, s)
